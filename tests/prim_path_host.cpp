@@ -1,0 +1,65 @@
+// Host build of the CUDA kernels' per-ray body (csrc/prim_path.cuh), so the
+// CPU tests can hold the arithmetic the kernels run against the port's plain
+// torch path.  Each function is the loop over rays that the matching kernel
+// in csrc/fused_prim.cu runs as one thread per ray.
+//
+// Built by tests/test_torch_kernel_body.py with
+//   c++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC -I<csrc>
+
+#include <stdint.h>
+
+#include "prim_path.cuh"
+
+extern "C" {
+
+int ptt_host_sizes(int32_t* out) {
+  out[0] = (int32_t)sizeof(PttScene);
+  out[1] = (int32_t)sizeof(PttCamera);
+  return 2;
+}
+
+void ptt_host_uniforms(uint32_t k0, uint32_t k1, uint32_t total, float* out) {
+  for (uint32_t flat = 0; flat < total; ++flat) out[flat] = uniform_at(k0, k1, flat);
+}
+
+// ptt_bounce_kernel
+void ptt_host_bounce(const PttScene* s, const float* const* in_f, const int32_t* in_bounces,
+                     const float* u, float* const* out_f, int32_t* out_bounces, int32_t n) {
+  for (int32_t idx = 0; idx < n; ++idx) {
+    Ray ray;
+    ray.o = v3(in_f[0][idx], in_f[1][idx], in_f[2][idx]);
+    ray.d = v3(in_f[3][idx], in_f[4][idx], in_f[5][idx]);
+    ray.c = v3(in_f[6][idx], in_f[7][idx], in_f[8][idx]);
+    ray.bounces = in_bounces[idx];
+    bounce_ray(*s, ray, u[idx], u[n + idx], u[2 * n + idx]);
+    out_f[0][idx] = ray.o.x;
+    out_f[1][idx] = ray.o.y;
+    out_f[2][idx] = ray.o.z;
+    out_f[3][idx] = ray.d.x;
+    out_f[4][idx] = ray.d.y;
+    out_f[5][idx] = ray.d.z;
+    out_f[6][idx] = ray.c.x;
+    out_f[7][idx] = ray.c.y;
+    out_f[8][idx] = ray.c.z;
+    out_bounces[idx] = ray.bounces;
+  }
+}
+
+// ptt_iteration_kernel: keys as in PttIterArgs (camera key, then one shade
+// key per depth); film += color in place; alive[d] += rays alive after d.
+void ptt_host_iteration(const PttScene* s, const PttCamera* cam, int32_t width,
+                        int32_t height, int32_t n, int32_t depth, const uint32_t* keys,
+                        float* film_x, float* film_y, float* film_z, int32_t* alive) {
+  for (int32_t idx = 0; idx < n; ++idx) {
+    Ray ray = camera_ray(*cam, width, height, depth, idx, (uint32_t)n, keys[0], keys[1]);
+    for (int32_t d = 0; d < depth; ++d) {
+      bounce_ray_inline(*s, ray, keys[2 + 2 * d], keys[3 + 2 * d], (uint32_t)n, idx);
+      alive[d] += ray.bounces > 0 ? 1 : 0;
+    }
+    film_x[idx] = film_x[idx] + ray.c.x;
+    film_y[idx] = film_y[idx] + ray.c.y;
+    film_z[idx] = film_z[idx] + ray.c.z;
+  }
+}
+
+}  // extern "C"
