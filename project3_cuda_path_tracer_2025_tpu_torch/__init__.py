@@ -6,10 +6,11 @@ tensors with an explicit ``device``, and replaces each Pallas kernel on its
 path with a hand-written CUDA kernel for ``sm_90a`` (``csrc/``), built with
 ``nvcc`` at first use.  It never imports JAX.
 
-Ported so far: the megakernel render of analytic-primitive, untextured
-scenes (scene loading, the RNG, camera rays, box/sphere intersection, every
-BSDF lobe, the film, ``Renderer``, the CLI).  Meshes, textures, the
-wavefront integrator and multi-device rendering raise
+Ported so far: the megakernel render of untextured scenes of analytic
+primitives and of triangle meshes up to 8,192 padded triangles (scene
+loading, the RNG, camera rays, box/sphere intersection, the mesh tables and
+intersectors, every BSDF lobe, the film, ``Renderer``, the CLI).  Larger
+meshes, textures, the wavefront integrator and multi-device rendering raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 
 Conventional import alias::

@@ -20,7 +20,7 @@ import sys
 # Flags of the JAX package's CLI that this one does not take yet.
 _NOT_PORTED = (
     "--integrator", "--no-compaction", "--compaction", "--material-sort",
-    "--no-bvh", "--raw-camera", "--mesh-intersector", "--ray-sorting",
+    "--no-bvh", "--raw-camera", "--ray-sorting",
     "--mxu-traversal", "--bounce-prefix-tiers", "--fused-bounce",
     "--spp-per-launch", "--cpu", "--pixel-chunks", "--devices",
     "--parallel-mode", "--preview-every", "--interactive",
@@ -40,6 +40,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hdr", action="store_true", help="write Radiance .hdr too")
     p.add_argument("--no-mirror", action="store_true", help="disable saveImage x-mirror")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument(
+        "--mesh-intersector",
+        choices=("auto", "mxu", "threaded", "brute"),
+        default="auto",
+        help="mesh intersection backend (auto: the mono traversal kernel on a "
+        "CUDA device, the threaded BVH walk on the CPU)",
+    )
     p.add_argument("--checkpoint", default=None, help="write a .npz checkpoint here at exit")
     p.add_argument("--resume", default=None, help="resume from a .npz checkpoint")
     p.add_argument("--checkpoint-every", type=int, default=0, help="checkpoint every N spp")
@@ -78,7 +85,9 @@ def main(argv=None) -> int:
     if args.depth is not None:
         scene.state.trace_depth = args.depth
 
-    cfg = RenderConfig(mirror_output=not args.no_mirror)
+    cfg = RenderConfig(
+        mirror_output=not args.no_mirror, mesh_intersector=args.mesh_intersector
+    )
     r = Renderer(scene, cfg, seed=args.seed, device=args.device)
     if args.resume:
         r.restore(args.resume)
@@ -88,7 +97,8 @@ def main(argv=None) -> int:
     if not args.quiet:
         print(
             f"{r.static.width}x{r.static.height}, depth {r.static.trace_depth}, "
-            f"{total} spp, device={r.device}, {len(r.static.geoms)} prims"
+            f"{total} spp, device={r.device}, {len(r.static.geoms)} prims, "
+            f"{r.static.num_triangles} triangles"
         )
 
     try:

@@ -3,11 +3,12 @@
 One frozen dataclass, field for field the JAX package's ``RenderConfig``
 (``project3_cuda_path_tracer_2025_tpu/config.py``), so a configuration
 moves between the two packages unchanged.  The port runs the megakernel
-render of analytic-primitive scenes; a field that selects a path not ported
-yet raises ``NotImplementedError`` here, at construction, naming the
-``ROADMAP.md`` item that will port it.  Fields that only steer those paths
-(mesh traversal, sorting, compaction tiers) are kept and validated as the
-JAX package does, and do not change what the ported path computes.
+render of analytic-primitive scenes and of untextured meshes up to 8,192
+padded triangles; a field that selects a path not ported yet raises
+``NotImplementedError`` here, at construction, naming the ``ROADMAP.md``
+item that will port it.  Fields that only steer paths the port does not
+have (binned tiers, the plan kind of the planned walk) are kept and
+validated, and do not change what the ported path computes.
 """
 
 from __future__ import annotations
@@ -55,11 +56,13 @@ class RenderConfig:
     # their plain PyTorch versions), "off" (the unfused torch path).
     fused_bounce: str = "auto"
 
-    # Mesh intersector selection; only "auto" until meshes are ported.
+    # Mesh intersector: "auto" (the MXU tables' mono traversal on a CUDA
+    # device, the threaded BVH walk on the CPU), "mxu", "threaded", "brute".
     mesh_intersector: str = "auto"
 
-    # Mesh-path ray sorting and MXU traversal knobs (meshes only; results
-    # are bit-identical across them in the JAX package).
+    # Mesh-path ray sorting ("auto": on for a CUDA device, off on the CPU)
+    # and traversal knobs; images are bit-identical across them.  Only the
+    # "mono" traversal is ported (what "auto" picks up to 8 tiles).
     ray_sorting: str = "auto"
     ray_sort_bits: int = 2
     ray_sort_dir_bits: int = 4
@@ -71,6 +74,8 @@ class RenderConfig:
     mxu_plan: str = "auto"
     mesh_state_order: str = "auto"
     mxu_binned_tiers: tuple = (8, 4, 2)
+    # Static-shape prefix tiers of the fused mesh bounce: "auto" resolves to
+    # none in the port; whether they pay on the card is open (ROADMAP.md).
     bounce_prefix_tiers: "tuple | str" = "auto"
 
     # Split each iteration into C dispatches over pixel blocks.  In the JAX
@@ -134,12 +139,45 @@ class RenderConfig:
             raise _not_ported(f"devices={self.devices}", "Queue 1: parallel/")
         if self.pixel_chunks not in (0, 1):
             raise _not_ported(f"pixel_chunks={self.pixel_chunks}", "Queue 1: parallel/")
-        if self.mesh_intersector != "auto":
+        if self.mesh_intersector not in ("auto", "mxu", "threaded", "brute"):
+            raise ValueError(
+                f"mesh_intersector={self.mesh_intersector!r}: use "
+                "'auto'/'mxu'/'threaded'/'brute'"
+            )
+        if self.ray_sorting not in ("auto", "on", "off"):
+            raise ValueError(f"ray_sorting={self.ray_sorting!r}: use 'auto'/'on'/'off'")
+        if self.ray_sort_mode not in ("auto", "morton", "signature"):
+            raise ValueError(
+                f"ray_sort_mode={self.ray_sort_mode!r}: use 'auto'/'morton'/'signature'"
+            )
+        if self.mxu_traversal in ("sweep", "planned", "streamed", "binned"):
             raise _not_ported(
-                f"mesh_intersector={self.mesh_intersector!r}", "Queue 1: meshes"
+                f"mxu_traversal={self.mxu_traversal!r}",
+                "Queue 2 #5-#10: the traversals for larger meshes",
+            )
+        if self.mxu_traversal not in ("auto", "mono"):
+            raise ValueError(f"mxu_traversal={self.mxu_traversal!r}")
+        if self.mxu_plan not in ("auto", "exact", "frustum"):
+            raise ValueError(f"mxu_plan={self.mxu_plan!r}: use 'auto'/'exact'/'frustum'")
+        if self.mxu_attr_resolve not in ("gather", "onehot"):
+            raise ValueError(f"mxu_attr_resolve={self.mxu_attr_resolve!r}")
+        if self.mesh_state_order == "pixel":
+            raise NotImplementedError(
+                "mesh_state_order='pixel' is on the do-not-port list (ROADMAP.md, "
+                "Queue 1: a TPU A/B toggle that measured as a loss there)"
+            )
+        if self.bounce_prefix_tiers not in ("auto", ()):
+            raise _not_ported(
+                f"bounce_prefix_tiers={self.bounce_prefix_tiers!r}",
+                "Queue 1: prefix tiers and sorting on the card",
             )
         if self.native_bvh:
             raise _not_ported("native_bvh=True", "Queue 1: native/")
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
+
+    def resolved_prefix_tiers(self) -> tuple:
+        """``bounce_prefix_tiers`` resolved: none in the port (the JAX
+        package resolves "auto" to (4, 2) on a TPU and () on the CPU)."""
+        return ()

@@ -65,14 +65,6 @@ struct PttBounceArgs {
   int32_t pad;
 };
 
-// Copy the scene struct into shared memory (every ray of the block reads it).
-__device__ __forceinline__ void load_scene(PttScene* dst, const PttScene* src) {
-  const int words = (int)(sizeof(PttScene) / 4);
-  const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
-  uint32_t* d = reinterpret_cast<uint32_t*>(dst);
-  for (int i = threadIdx.x; i < words; i += blockDim.x) d[i] = s[i];
-}
-
 __global__ void __launch_bounds__(PTT_THREADS) ptt_iteration_kernel(const PttIterArgs a) {
   __shared__ PttScene sh_scene;
   __shared__ uint32_t sh_keys[PTT_NKEYS];

@@ -581,6 +581,16 @@ PTT_HD void scatter(const PttScene& s, Ray& ray, const Hit& h,
   ray.bounces -= 1;
 }
 
+#if defined(__CUDACC__)
+// Copy the scene struct into shared memory (every ray of the block reads it).
+__device__ __forceinline__ void load_scene(PttScene* dst, const PttScene* src) {
+  const int words = (int)(sizeof(PttScene) / 4);
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
+  uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+  for (int i = threadIdx.x; i < words; i += blockDim.x) d[i] = s[i];
+}
+#endif
+
 // ---------------------------------------------------------------------------
 // Per-ray steps of the two kernels (and of the host harness of the tests).
 // ---------------------------------------------------------------------------

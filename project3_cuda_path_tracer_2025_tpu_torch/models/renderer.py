@@ -5,10 +5,12 @@ loop: scene -> device scene -> per-iteration kernel -> film -> PNG/HDR, plus
 checkpoint/resume of (film, iteration, rng key) in the JAX package's format,
 so a checkpoint moves between the two packages in either direction.
 
-On a CUDA device (the default) with the default config, every step is one
-launch of the iteration kernel (``ops.fused.fused_prim_iteration``).  The
-camera is an argument of that kernel, so an orbit rebuilds nothing (the JAX
-package bakes it into its kernel and recompiles).
+On a CUDA device (the default) with the default config, every step of a
+prim-only scene is one launch of the iteration kernel
+(``ops.fused.fused_prim_iteration``).  The camera is an argument of that
+kernel, so an orbit rebuilds nothing (the JAX package bakes it into its
+kernel and recompiles).  A mesh scene steps through ``megakernel_iteration``,
+whose every bounce launches the mono traversal and mesh-shade kernels.
 
 Camera orbit parity: ``orbit_camera()`` applies the reference's mouse
 controls and, like ``runCuda`` (``src/main.cpp:423-453``), resets
@@ -29,7 +31,7 @@ from ..ops import film as film_ops
 from ..ops import fused
 from ..scene import load_scene
 from ..scene.camera import OrbitState, camera_state, derive_render_camera
-from ..scene.device import build_device_scene
+from ..scene.device import build_device_scene, check_scene
 from ..scene.types import HostScene
 from ..utils import image_io, prng
 from ..utils.timers import FrameStats, PerformanceTimer
@@ -58,6 +60,7 @@ class Renderer:
             scene = load_scene(
                 scene, leaf_size=cfg.bvh_leaf_size, native_bvh=cfg.native_bvh
             )
+        check_scene(scene)  # a scene outside the ported slices raises first
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(

@@ -20,8 +20,15 @@ def new_film(n: int, device="cpu") -> Vec3:
     return Vec3.zeros((n,), device=device)
 
 
-def accumulate(film: Vec3, paths: PathState) -> Vec3:
-    """film += color, in place (slots are in pixel order)."""
+def accumulate(film: Vec3, paths: PathState, permuted: bool = False) -> Vec3:
+    """film[pixel] += color, in place.  Slots in pixel order are a plain
+    vector add; permuted slots (the fused mesh bounce's persistent sort)
+    scatter-add by pixel id, which is exact: each pixel has one ray."""
+    if permuted:
+        idx = paths.pixel.long()
+        for f, c in zip(film, paths.color):
+            f.index_add_(0, idx, c)
+        return film
     film.x.add_(paths.color.x)
     film.y.add_(paths.color.y)
     film.z.add_(paths.color.z)

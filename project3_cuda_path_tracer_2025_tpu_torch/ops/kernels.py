@@ -1,15 +1,18 @@
 """Build, load and launch the CUDA kernels of ``csrc/``.
 
-The kernels are compiled with ``nvcc`` into a shared library with a plain C
-interface and loaded with ``ctypes``: no PyTorch headers, so a build takes
-seconds.  The library goes to ``build/kernels/<hash>/`` at the repository
-root, keyed by a hash of the sources and flags, and is built at first use
-(``load()``), never at import.  A failed build raises with nvcc's output; a
-launch that the runtime refuses raises with its error string.
+Each ``.cu`` file of ``LIBRARIES`` is compiled with ``nvcc`` into a shared
+library with a plain C interface and loaded with ``ctypes``: no PyTorch
+headers, so a build takes seconds, and the libraries build in parallel (one
+``nvcc`` each, started together).  They go to ``build/kernels/<hash>/`` at
+the repository root, keyed by a hash of the sources and flags, and are
+built at first use (``load()``), never at import.  A failed build raises
+with nvcc's output; a launch that the runtime refuses raises with its error
+string.
 
-The ctypes structures below mirror ``csrc/prim_path.cuh`` and
-``csrc/fused_prim.cu`` field for field; ``load()`` checks their sizes and
-offsets against the library's own (``ptt_abi``) before anything launches.
+The ctypes structures below mirror ``csrc/prim_path.cuh``,
+``csrc/fused_prim.cu`` and ``csrc/fused_mesh.cu`` field for field; loading
+a library checks their sizes and offsets against the library's own
+(``ptt_abi``, ``ptt_mesh_abi``) before anything launches.
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("prim_path.cuh", "fused_prim.cu")
+SOURCES = ("prim_path.cuh", "fused_prim.cu", "mesh_path.cuh", "fused_mesh.cu")
+# Library name -> its translation unit.
+LIBRARIES = {"fused_prim": "fused_prim.cu", "fused_mesh": "fused_mesh.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -41,6 +46,7 @@ MAX_DEPTH = 64
 
 _f = ctypes.c_float
 _i = ctypes.c_int32
+_u = ctypes.c_uint32
 _p = ctypes.c_void_p
 
 
@@ -90,7 +96,45 @@ class PttBounceArgs(ctypes.Structure):
     ]
 
 
-def _abi_expected() -> list:
+class PttMonoArgs(ctypes.Structure):
+    _fields_ = [
+        ("ray", _p * 6), ("active", _p), ("tlim", _p), ("coef", _p),
+        ("tile_aabb", _p), ("center", _p), ("out_t", _p), ("out_tri", _p),
+        ("baby_eps", _f), ("eps_succ", _f),
+        ("n", _i), ("ct", _i), ("num_tris", _i), ("pad", _i),
+    ]
+
+
+class PttMeshShadeArgs(ctypes.Structure):
+    _fields_ = [
+        ("scene", _p), ("in_f", _p * 9), ("in_bounces", _p), ("pixel", _p),
+        ("mesh_t", _p), ("mesh_n", _p * 3), ("mesh_mat", _p),
+        ("tile_aabb", _p), ("center", _p),
+        ("out_f", _p * 9), ("out_bounces", _p), ("out_tlim", _p), ("out_key", _p),
+        ("k0", _u), ("k1", _u), ("rng_n", _u),
+        ("n", _i), ("ct", _i), ("emit", _i),
+    ]
+
+
+def _mesh_abi_expected() -> list:
+    from . import intersect_mxu as mxu
+
+    return [
+        ctypes.sizeof(PttScene),
+        ctypes.sizeof(PttMonoArgs),
+        PttMonoArgs.baby_eps.offset,
+        PttMonoArgs.n.offset,
+        ctypes.sizeof(PttMeshShadeArgs),
+        PttMeshShadeArgs.k0.offset,
+        PttMeshShadeArgs.n.offset,
+        mxu.TRI_TILE,
+        mxu.COEF_W,
+        mxu.MONO_MAX_TILES,
+        mxu.KEY_INLINE_MAX_CT,
+    ]
+
+
+def _prim_abi_expected() -> list:
     return [
         ctypes.sizeof(PttScene),
         ctypes.sizeof(PttCamera),
@@ -128,30 +172,46 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-class KernelLibrary:
-    """The loaded library: its ctypes functions and how it was built."""
+def _bind_prim(lib) -> tuple:
+    lib.ptt_launch_iteration.argtypes = [ctypes.POINTER(PttIterArgs), _p]
+    lib.ptt_launch_iteration.restype = _i
+    lib.ptt_launch_bounce.argtypes = [ctypes.POINTER(PttBounceArgs), _p]
+    lib.ptt_launch_bounce.restype = _i
+    lib.ptt_launch_uniforms.argtypes = [_u, _u, _u, _p, _p]
+    lib.ptt_launch_uniforms.restype = _i
+    return lib.ptt_abi, _prim_abi_expected(), lib.ptt_error_string
 
-    def __init__(self, path: pathlib.Path, build_seconds: float, build_log: str):
+
+def _bind_mesh(lib) -> tuple:
+    lib.ptt_launch_mono.argtypes = [ctypes.POINTER(PttMonoArgs), _p]
+    lib.ptt_launch_mono.restype = _i
+    lib.ptt_launch_mesh_shade.argtypes = [ctypes.POINTER(PttMeshShadeArgs), _p]
+    lib.ptt_launch_mesh_shade.restype = _i
+    return lib.ptt_mesh_abi, _mesh_abi_expected(), lib.ptt_mesh_error_string
+
+
+_BIND = {"fused_prim": _bind_prim, "fused_mesh": _bind_mesh}
+
+
+class KernelLibrary:
+    """One loaded library: its ctypes functions and how it was built."""
+
+    def __init__(self, name: str, path: pathlib.Path, build_seconds: float,
+                 build_log: str):
+        self.name = name
         self.path = path
         self.build_seconds = build_seconds
         self.build_log = build_log
         lib = ctypes.CDLL(str(path))
-        lib.ptt_abi.argtypes = [ctypes.POINTER(_i), _i]
-        lib.ptt_abi.restype = _i
-        lib.ptt_launch_iteration.argtypes = [ctypes.POINTER(PttIterArgs), _p]
-        lib.ptt_launch_iteration.restype = _i
-        lib.ptt_launch_bounce.argtypes = [ctypes.POINTER(PttBounceArgs), _p]
-        lib.ptt_launch_bounce.restype = _i
-        lib.ptt_launch_uniforms.argtypes = [
-            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, _p, _p,
-        ]
-        lib.ptt_launch_uniforms.restype = _i
-        lib.ptt_error_string.argtypes = [_i]
-        lib.ptt_error_string.restype = ctypes.c_char_p
+        abi, want, err = _BIND[name](lib)
+        abi.argtypes = [ctypes.POINTER(_i), _i]
+        abi.restype = _i
+        err.argtypes = [_i]
+        err.restype = ctypes.c_char_p
+        self._error_string = err
         self.lib = lib
-        want = _abi_expected()
         buf = (_i * len(want))()
-        count = lib.ptt_abi(buf, len(want))
+        count = abi(buf, len(want))
         got = list(buf)[:count]
         if got != want:
             raise RuntimeError(
@@ -161,33 +221,55 @@ class KernelLibrary:
 
     def check(self, code: int, what: str) -> None:
         if code != 0:
-            msg = self.lib.ptt_error_string(code).decode()
+            msg = self._error_string(code).decode()
             raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
 
 
+def load(name: str = "fused_prim") -> KernelLibrary:
+    """Build (if needed) and load the kernel library ``name`` (a key of
+    ``LIBRARIES``).  The first call builds every library, in parallel."""
+    return load_all()[name]
+
+
 @functools.lru_cache(maxsize=1)
-def load() -> KernelLibrary:
-    """Build (if needed) and load the kernel library."""
+def load_all() -> dict:
+    """Build the missing libraries with one ``nvcc`` each, all started
+    together, and load them all: name -> ``KernelLibrary``."""
     out_dir = BUILD_ROOT / _source_hash()
-    lib_path = out_dir / "libptt_prim.so"
-    log_path = out_dir / "build.log"
-    if lib_path.is_file():
-        log = log_path.read_text() if log_path.is_file() else ""
-        return KernelLibrary(lib_path, 0.0, log)
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libptt_prim.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           str(CSRC / "fused_prim.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
-    log_path.write_text(log)
-    os.replace(tmp, lib_path)
-    return KernelLibrary(lib_path, seconds, log)
+    jobs = {}
+    for name, src in LIBRARIES.items():
+        lib_path = out_dir / f"libptt_{name}.so"
+        if lib_path.is_file():
+            continue
+        tmp = out_dir / f"libptt_{name}.{os.getpid()}.tmp.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        jobs[name] = (cmd, proc, tmp, lib_path, time.perf_counter())
+    built, failed = {}, []
+    for name, (cmd, proc, tmp, lib_path, t0) in jobs.items():
+        stdout, stderr = proc.communicate()
+        seconds = time.perf_counter() - t0
+        log = f"$ {' '.join(cmd)}\n{stdout}{stderr}"
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed for {name} (exit {proc.returncode}):\n{log}")
+            continue
+        (out_dir / f"build_{name}.log").write_text(log)
+        os.replace(tmp, lib_path)
+        built[name] = (seconds, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    libs = {}
+    for name in LIBRARIES:
+        lib_path = out_dir / f"libptt_{name}.so"
+        seconds, log = built.get(name, (0.0, None))
+        if log is None:
+            log_path = out_dir / f"build_{name}.log"
+            log = log_path.read_text() if log_path.is_file() else ""
+        libs[name] = KernelLibrary(name, lib_path, seconds, log)
+    return libs
 
 
 def stream_handle(device: torch.device) -> int:

@@ -32,9 +32,8 @@ PRIM_SCENES = [
     "cornell_transmissive_sphere.json",
     "cornell_all_lobes.json",
 ]
-# The loader copy also loads meshes (the device scene does not yet).  The
-# textured scenes reference texture files that are not in the repo: both
-# loaders must refuse them the same way.
+# The loader copy also loads meshes.  The textured scenes reference texture
+# files that are not in the repo: both loaders must refuse them the same way.
 LOAD_SCENES = PRIM_SCENES + [
     "cornell_mesh_5k.json",
     "cornell_mesh_5k_closed.json",
@@ -128,7 +127,8 @@ def test_from_jax_scene_round_trip(name):
 
 def test_port_imports_no_jax(tmp_path):
     """Import every module of the port with JAX unimportable, then render
-    8x8 on the CPU through the CLI and through the kernels' plain paths."""
+    8x8 on the CPU through the CLI and through the kernels' plain paths, a
+    prim scene and a mesh scene."""
     code = f"""
 import sys
 sys.modules["jax"] = None
@@ -145,6 +145,10 @@ r = Renderer(set_resolution(load_scene({str(REPO / 'scenes' / 'cornell_dof.json'
              RenderConfig(fused_bounce="on"), device="cpu")
 r.step_many(2)
 assert r.image().shape == (8, 8, 3) and r.image().sum() > 0
+m = Renderer(set_resolution(load_scene({str(REPO / 'scenes' / 'cornell_mesh_5k.json')!r}), 8, 8),
+             RenderConfig(fused_bounce="on", mesh_intersector="mxu"), device="cpu")
+m.step()
+assert m.image().sum() > 0
 rc = cli.main([{str(REPO / 'scenes' / 'cornell_dof.json')!r}, "--res", "8", "8", "--spp", "2",
                "--device", "cpu", "--out", {str(tmp_path)!r}, "--quiet"])
 assert rc == 0
@@ -167,7 +171,7 @@ print("ok")
         (dict(integrator="wavefront"), "wavefront"),
         (dict(devices=2), "parallel/"),
         (dict(pixel_chunks=4), "parallel/"),
-        (dict(mesh_intersector="mxu"), "meshes"),
+        (dict(mxu_traversal="planned"), "meshes"),
         (dict(native_bvh=True), "native/"),
     ],
 )
@@ -177,6 +181,10 @@ def test_config_raises_for_unported_paths(kw, item):
 
 
 def test_mesh_scene_raises_not_ported():
-    scene = load_scene(str(REPO / "scenes" / "cornell_mesh_5k.json"))
-    with pytest.raises(NotImplementedError, match="meshes"):
+    """Meshes up to 8,192 padded triangles are ported; a larger one (20,480
+    triangles, which the JAX package walks with the planned traversal)
+    raises naming its ROADMAP.md item."""
+    build_device_scene(load_scene(str(REPO / "scenes" / "cornell_mesh_5k.json")), "cpu")
+    scene = load_scene(str(REPO / "scenes" / "cornell_mesh_20k.json"))
+    with pytest.raises(NotImplementedError, match="larger meshes"):
         build_device_scene(scene, "cpu")

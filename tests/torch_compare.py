@@ -21,6 +21,12 @@ import torch
 from project3_cuda_path_tracer_2025_tpu.utils.vec import Vec3 as JVec3
 from project3_cuda_path_tracer_2025_tpu_torch.utils.vec import Vec3
 
+# The suite runs several worker processes on a few cores.  The port's tests
+# use tensors of at most a few thousand lanes, where one intra-op thread is
+# fastest, while a full pool per worker oversubscribes the cores and its
+# spin-waits slow every small op by orders of magnitude.
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-6
 ATOL_WORLD = ATOL * 10.0  # world-space points: terms of the scene's size
 ILL_SHARE = 1e-3  # share of elements allowed outside (RTOL, ATOL)...
