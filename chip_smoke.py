@@ -6,11 +6,15 @@ Builds the port's CUDA kernels from ``project3_cuda_path_tracer_2025_tpu_torch/c
 (one ``nvcc`` per library, started together), holds each against its plain
 PyTorch version on the card, drives the main paths with the launch counters
 reset -- the prim path (``Renderer`` on ``scenes/cornell_dof.json`` at
-800x800, depth 8, and ``megakernel_iteration``, phases 1-7) and the mesh
-path (``Renderer`` on ``scenes/cornell_mesh_5k.json`` at 800x800, depth 8,
-phase 8) -- checks the results against the committed golden films, and
-times the kernel paths against the plain versions with CUDA events.  Any
-failure raises and exits non-zero.
+800x800, depth 8, and ``megakernel_iteration``, phases 1-7), the mono mesh
+path (``scenes/cornell_mesh_5k.json``, phase 8) and the larger meshes, all
+at 800x800, depth 8: the planned walks (``cornell_mesh_20k.json``, phase
+10), the streamed walk (``cornell_mesh_80k.json``, the slice's main path,
+and ``cornell_mesh_500k.json``, phase 11) and the packet-binned traversal
+(``cornell_mesh_200k.json``, phase 12) -- checks the results against the
+committed golden films, and times the kernel paths against the plain
+versions with CUDA events; phase 9 profiles whole frames.  Any failure
+raises and exits non-zero.
 
 Output: progress lines, then the card's ``nvidia-smi`` name and power
 limit, then one JSON line describing the kernels, and last one JSON line
@@ -37,6 +41,13 @@ SCENE_LOBES = ROOT / "scenes" / "cornell_all_lobes.json"
 GOLDEN = ROOT / "tests" / "goldens" / "dof.npz"
 MESH_SCENE = ROOT / "scenes" / "cornell_mesh_5k.json"
 MESH_GOLDEN = ROOT / "tests" / "torch_goldens" / "mesh5k.npz"
+LARGE = {k: ROOT / "scenes" / f"cornell_mesh_{k}.json" for k in ("20k", "80k", "200k", "500k")}
+GOLDEN_20K = ROOT / "tests" / "torch_goldens" / "mesh20k.npz"
+GOLDEN_80K = ROOT / "tests" / "torch_goldens" / "mesh80k.npz"
+# The plain walk on the 200k and 500k meshes runs on a fixed sub-range of
+# each bounce's sorted rays, its first 64 blocks (16,384 rays, the live
+# rays first), to keep the run short.
+PLAIN_BLOCKS = 64
 OUT_DIR = ROOT / "build" / "chip_smoke"
 
 # The card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s
@@ -55,6 +66,7 @@ OPS_NEAREST = 25  # intersect_prims around the tests: compares, winner normal, f
 OPS_SCATTER = 100  # scatter (diffuse lobe, new origin, throughput)
 OPS_RAYGEN = 45
 OPS_MONO_RAY = 60  # features, reciprocal direction, root cull
+OPS_WALK_RAY = 25  # features and reciprocal direction (the root cull runs in torch)
 OPS_MONO_TILE = 35  # member slab of one tile
 OPS_MONO_PAIR = 41  # 19 fma, division, t, the acceptance tests
 OPS_KEY_TILE, OPS_KEY_RAY = 28, 60  # coherence_key per tile / per ray
@@ -417,6 +429,517 @@ def mesh_phases(device, smi: str) -> tuple:
     ], profiled
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-12: the meshes beyond the mono band (csrc/mesh_walk.cu)
+# ---------------------------------------------------------------------------
+
+def bit_diff(got: tuple, want: tuple) -> tuple:
+    """(rays with tri differing, rays with t not bit-equal, max |t diff|)
+    of two (t, tri) results."""
+    (tk, trk), (tp, trp) = got, want
+    t_bad = tk.view(torch.int32) != tp.view(torch.int32)
+    diff = torch.where(t_bad, (tk - tp).abs(), torch.zeros_like(tk))
+    return int((trk != trp).sum()), int(t_bad.sum()), float(diff.max()) if diff.numel() else 0.0
+
+
+def sorted_bounces(dev, static, cam, cfg, device, bounces: int = 3) -> list:
+    """Camera rays and the next bounces, each in the main path's coherence
+    order: [(paths, t_lim, live)].  A bounce's hits come from the kernel
+    traversal (held to its plain version in the same phase), its shade from
+    the plain shade."""
+    import dataclasses
+
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import camera as camera_ops
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused, intersect_mxu as mxu
+    from project3_cuda_path_tracer_2025_tpu_torch.ops.compaction import permute_path_state
+    from project3_cuda_path_tracer_2025_tpu_torch.ops.intersect import prim_t_min
+    from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
+
+    tables = dev.mxu_mesh
+    n = static.pixel_count
+    prim_static = dataclasses.replace(static, num_triangles=0)
+    ik = prng.iteration_key(prng.prng_key(0), 1)
+    paths = camera_ops.generate_camera_rays(
+        cam, static.width, static.height, static.trace_depth,
+        prng.uniforms_at(prng.stage_key(ik, 0, 0), torch.arange(n, device=device), 4, n))
+    out = []
+    for d in range(bounces):
+        tl = prim_t_min(static, cfg, paths.origin, paths.direction)
+        perm = mxu.coherence_perm(tables, paths.origin, paths.direction, paths.alive, tl,
+                                  cfg.ray_sort_bits, cfg.ray_sort_dir_bits, mode="signature")
+        paths, (tl,) = permute_path_state(paths, perm, extra=(tl,))
+        live = paths.alive & mxu.root_hit_mask(tables.tile_aabb, tables.center, *paths.origin,
+                                               *paths.direction, tl)
+        out.append((paths, tl, live))
+        mt, mn, mm = fused.mesh_surface(tables, static, cfg, paths, tl)
+        paths = fused.fused_mesh_shade_plain(prim_static, cfg, paths, mt, mn, mm,
+                                             prng.stage_key(ik, d, 1), n)
+    return out
+
+
+def walk_args(tables, paths, tl, live, blocks: int = None) -> tuple:
+    """The walk kernels' arguments for one state (its full plan), cut to
+    its first ``blocks`` blocks when given (a plan row covers one block, so
+    the cut computes the same function on those rays)."""
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
+
+    ro, rd = paths.origin, paths.direction
+    plan = mxu.plan_with_prefix(tables.tile_aabb, *mxu.plan_rays(tables, ro, rd, live, tl))
+    if blocks is not None:
+        m, ct = blocks * mxu.RAY_TILE, tables.tile_aabb.shape[0]
+        cut = lambda v: type(v)(*(x[:m].contiguous() for x in v))
+        ro, rd, live, tl = cut(ro), cut(rd), live[:m].contiguous(), tl[:m].contiguous()
+        plan = mxu.TilePlan(plan.ids[:blocks * ct].contiguous(),
+                            plan.tlo[:blocks * ct].contiguous(), plan.cnt[:blocks].contiguous())
+    return tables, ro, rd, live, tl, plan, 1e-5
+
+
+def binned_args(tables, paths, tl, live, tiers) -> "tuple | None":
+    """The binned kernel's arguments for one state at the tier the
+    traversal engages (None: no tier holds the live rays, or the bins
+    overflow, and the traversal walks the streamed plan instead), and the
+    bins."""
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
+
+    ro, rd = paths.origin, paths.direction
+    pr = mxu.plan_rays(tables, ro, rd, live, tl)
+    n_pad = pr.tl.shape[0]
+    live_pos = mxu.live_position(pr.live)
+    npre = next((p for p in mxu.binned_prefixes(n_pad, tiers) if live_pos < p), None)
+    if npre is None:
+        return None
+    cut = lambda v: type(v)(*(x[:npre] for x in v))
+    budget = mxu.pair_budget(max(npre, ro.x.shape[0] // 4), tables.tile_aabb.shape[0])
+    bins = mxu.packet_bins(tables.tile_aabb, cut(pr.os), cut(pr.d), pr.live[:npre],
+                           pr.tl[:npre], budget, mxu.BINNED_TOPK)
+    if bool(bins.overflow):
+        return None
+    return (tables, ro, rd, live, tl, bins.vt, bins.src, npre // mxu.BINNED_G, 1e-5), bins
+
+
+def walk_bound(args) -> tuple:
+    """Bound of one walk launch: the live rays read once, the plan, the
+    coefficient rows of the tiles the plan lists, the outputs; operations of
+    the rays' features, a member test per (live ray, plan entry) and the
+    candidate (ray, tile) pairs x 1,024 triangles."""
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
+
+    tables, ro, rd, live, tl, plan, _ = args
+    n, nb = ro.x.shape[0], plan.cnt.shape[0]
+    ct = tables.tile_aabb.shape[0]
+    block = torch.arange(n, device=live.device) // mxu.RAY_TILE
+    slots = torch.arange(ct, device=live.device)[None, :] < plan.cnt[:, None]
+    visits = torch.zeros((nb, ct), dtype=torch.bool, device=live.device).scatter_(
+        1, plan.ids.reshape(nb, ct).long(), slots)
+    rf = mxu._features(tables, ro, rd)
+    pairs = 0
+    for c, row in enumerate(tables.tile_aabb.tolist()):
+        member, _, _ = mxu._member_slab(row, rf.os, rf.inv, tl)
+        pairs += int((member & live & visits[block, c]).sum())
+    entries = int((plan.cnt.long()[block] * live).sum())
+    tiles = int(visits.any(dim=0).sum())
+    nbytes = n * (6 * 4 + 1 + 4 + 8) + nb * (ct * 8 + 4) + tiles * mxu.TRI_TILE * mxu.COEF_W * 4
+    ops = int(live.sum()) * OPS_WALK_RAY + entries * OPS_MONO_TILE \
+        + pairs * mxu.TRI_TILE * OPS_MONO_PAIR
+    return bound_ms(nbytes, ops) + (pairs,)
+
+
+def binned_bound(args) -> tuple:
+    """Bound of one binned launch: the rays, the bins and the visited
+    tiles' rows read once, the pair rows written; a member test per live
+    pair row and the candidate pairs x 1,024 triangles."""
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
+
+    tables, ro, rd, live, tl, vt, src, n_g, _ = args
+    n = ro.x.shape[0]
+    tile, ray, ok = mxu._pair_rays(vt, src, n_g, n)
+    ray = torch.clamp(ray, max=n - 1)
+    ok = ok & live[ray]
+    rf = mxu._features(tables, ro, rd)
+    pairs = 0
+    for c in torch.unique(tile[ok]).tolist():
+        rr = ray[ok & (tile == c)]
+        member, _, _ = mxu._member_slab(tables.tile_aabb[c].tolist(),
+                                        type(rf.os)(*(x[rr] for x in rf.os)),
+                                        type(rf.inv)(*(x[rr] for x in rf.inv)), tl[rr])
+        pairs += int(member.sum())
+    tiles = int(torch.unique(vt[vt >= 0]).numel())
+    nbytes = n * (6 * 4 + 1 + 4) + vt.numel() * 4 + src.numel() * 4 \
+        + tiles * mxu.TRI_TILE * mxu.COEF_W * 4 + vt.numel() * mxu.RAY_TILE * 8
+    ops = int(ok.sum()) * (OPS_WALK_RAY + OPS_MONO_TILE) + pairs * mxu.TRI_TILE * OPS_MONO_PAIR
+    return bound_ms(nbytes, ops) + (pairs,)
+
+
+def check_golden(path_scene, golden) -> None:
+    from project3_cuda_path_tracer_2025_tpu_torch.models import Renderer
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import load_scene, set_resolution
+
+    g = np.load(golden)
+    small = Renderer(set_resolution(load_scene(str(path_scene)), int(g["width"]),
+                                    int(g["height"])))
+    small.step_many(int(g["spp"]))
+    got, want = film_np(small.film), g["film"]
+    outside = ~np.isclose(got, want, rtol=RTOL, atol=ATOL)
+    share = float(outside.any(axis=1).mean())
+    sum_rel = float(abs(got.sum() - want.sum()) / abs(want.sum()))
+    log(f"    golden {golden.name}: pixels outside rtol={RTOL} atol={ATOL}: {share:.3%}, "
+        f"film-sum rel diff {sum_rel:.3e}, max abs diff {np.abs(got - want).max():.3g}")
+    if not np.isfinite(got).all() or share > 0.01 or sum_rel > 1e-3:
+        raise AssertionError(f"the card's render disagrees with {golden.name}")
+
+
+def drive(scene, spp: int, counters: dict, cfg=None) -> tuple:
+    """A main path: ``Renderer(scene).step_many(spp)`` with every counter set
+    to 0 just before and read just after.  Returns (renderer, launches)."""
+    from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
+    from project3_cuda_path_tracer_2025_tpu_torch.models import Renderer
+
+    r = Renderer(scene, cfg or RenderConfig())
+    for c in counters.values():
+        c.launches = 0
+    r.step_many(spp)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    img = r.image()
+    if not np.isfinite(img).all() or not img.sum() > 0:
+        raise AssertionError("a main-path film is empty or not finite")
+    return r, launches
+
+
+def frame_fn(dev, static, cam, cfg, base_key, device):
+    from project3_cuda_path_tracer_2025_tpu_torch.models import megakernel_iteration
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import film as film_ops
+
+    film = film_ops.new_film(static.pixel_count, device)
+    it = [0]
+
+    def fn():
+        it[0] += 1
+        return megakernel_iteration(dev, static, cfg, cam, film, it[0], base_key)
+    return fn
+
+
+def host_syncs(fn) -> str:
+    """The synchronizing CUDA calls (reads of a device value to the host)
+    made by one call of ``fn``, as ``torch.cuda.set_sync_debug_mode``
+    reports them: their number and where in the source they are made."""
+    import collections
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    where = collections.Counter(f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
+                                if "synchroniz" in str(w.message))
+    return f"{sum(where.values())} {dict(where)}"
+
+
+def log_times(tag, smi, times, paths_t, rounds, rays: dict) -> dict:
+    ms = {k: float(np.median(v)) for k, v in times.items()}
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    log(f"[{tag}] timing on {smi} (after the runs: sm clock, power, temperature = {clocks}); "
+        "median of the samples [quartiles], each the mean over the calls shown:")
+    for k, v in ms.items():
+        q1, q3 = np.percentile(times[k], [25, 75])
+        rate = f", {rays[k] / (v * 1e3):.1f} Mrays/s" if k in rays else ""
+        per = "per frame" if k in rays else "per call"
+        log(f"    {k:42s} {v:10.4f} ms {per} [{q1:.4f}, {q3:.4f}]{rate}  "
+            f"({paths_t[k][1]} calls/sample, {rounds[k]} samples)")
+    return ms
+
+
+def larger_mesh_phases(device, smi: str) -> tuple:
+    """Phases 10-12: the planned (cornell_mesh_20k.json), streamed
+    (cornell_mesh_80k.json, the slice's main path, and cornell_mesh_500k.json)
+    and binned (cornell_mesh_200k.json) traversals at 800x800, depth 8.
+    Returns the four walk kernels' entries of the kernels line and the 80k
+    frame for phase 9."""
+    import os
+
+    from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
+    from project3_cuda_path_tracer_2025_tpu_torch.models import megakernel_iteration
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import film as film_ops
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused, intersect_mxu as mxu
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import (
+        build_device_scene, camera_state, derive_render_camera, load_scene,
+    )
+    from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
+
+    cfg = RenderConfig()
+    base_key = prng.prng_key(0)
+    counters = {c.__name__: c for c in (
+        mxu.mono_intersect, mxu.planned_lanebest_intersect, mxu.planned_intersect,
+        mxu.streamed_intersect, mxu.binned_intersect, fused.fused_mesh_shade)}
+    err = {k: 0.0 for k in counters}
+    main_launches, entries, profiled = {}, {}, {}
+
+    def setup(name):
+        t0 = time.perf_counter()
+        scene = load_scene(str(LARGE[name]))
+        dev, static = build_device_scene(scene, device)
+        cam = camera_state(derive_render_camera(scene.state.camera))
+        log(f"    {LARGE[name].name}: {static.num_triangles} triangles in "
+            f"{dev.mxu_mesh.tile_aabb.shape[0]} tiles, {static.width}x{static.height} depth "
+            f"{static.trace_depth}; loaded and uploaded in {time.perf_counter() - t0:.1f} s")
+        return scene, dev, static, cam
+
+    def check_walks(tag, kinds, states, tables, blocks=None):
+        """Each walk kernel against walk_plain on every state: bit-equal."""
+        hits = 0
+        for d, (paths, tl, live) in enumerate(states):
+            args = walk_args(tables, paths, tl, live, blocks)
+            want = mxu.walk_plain(*args)
+            for kind in kinds:
+                fn = mxu.WALKS[kind]
+                tri_bad, t_bad, e = bit_diff(fn(*args), want)
+                torch.cuda.synchronize()
+                log(f"[{tag}] {fn.__name__} bounce {d}: {int(args[3].sum())} live of "
+                    f"{args[1].x.shape[0]} rays{' (the first %d blocks)' % blocks if blocks else ''}"
+                    f", {int((want[1] >= 0).sum())} mesh hits; rays with tri differing {tri_bad},"
+                    f" with t not bit-equal {t_bad}")
+                if tri_bad or t_bad:
+                    raise AssertionError(f"{fn.__name__} disagrees with walk_plain")
+                err[fn.__name__] = max(err[fn.__name__], e)
+            hits += int((want[1] >= 0).sum())
+        if hits == 0:
+            raise AssertionError(f"[{tag}] no mesh hit to compare")
+
+    def traversals_agree(tag, tables, static, states, modes):
+        for d, (paths, tl, _) in enumerate(states):
+            res = {m: mxu.mesh_intersect_mxu(
+                tables, static.num_triangles, static.mxu_padded_tris, paths.origin,
+                paths.direction, paths.alive, tl, cfg.baby_epsilon, compute_uv=False,
+                **mxu.traversal_flags(m, static.mxu_padded_tris, binned_tiers=cfg.mxu_binned_tiers,
+                                      binned_budget_rays=static.pixel_count))
+                for m in modes}
+            torch.cuda.synchronize()
+            base = res[modes[0]]
+            bad = {m: bit_diff((r.t, r.tri), (base.t, base.tri))[:2] for m, r in res.items()}
+            log(f"[{tag}] bounce {d}: {' / '.join(modes)} on the same rays, (tri, t) rays "
+                f"differing from {modes[0]}: {bad}")
+            if any(a or b for a, b in bad.values()):
+                raise AssertionError("the traversals disagree")
+
+    # -- 10. planned, cornell_mesh_20k.json --------------------------------
+    log("[10] planned walks (#5 lane-best, #6 with the early exit):")
+    scene, dev, static, cam = setup("20k")
+    tables, n, depth = dev.mxu_mesh, static.pixel_count, static.trace_depth
+    states = sorted_bounces(dev, static, cam, cfg, device)
+    check_walks("10a", ("planned_lanebest", "planned"), states, tables)
+    traversals_agree("10b", tables, static, states, ("planned", "streamed", "binned"))
+    r, got = drive(scene, 4, counters)
+    log(f"[10c] Renderer('{LARGE['20k'].name}') step_many(4): launches {got}")
+    if (got["planned_lanebest_intersect"], got["mono_intersect"], got["planned_intersect"],
+            got["fused_mesh_shade"]) != (4 * depth, 0, 0, 4 * depth):
+        raise AssertionError("the 20k Renderer did not take the lane-best walk once per bounce")
+    main_launches["planned_lanebest_intersect"] = got["planned_lanebest_intersect"]
+    os.environ["PTT_PLANNED_EPILOGUE"] = "running"
+    try:
+        r, got = drive(scene, 2, counters)
+    finally:
+        del os.environ["PTT_PLANNED_EPILOGUE"]
+    log(f"[10d] the same with PTT_PLANNED_EPILOGUE=running, step_many(2): launches {got}")
+    if (got["planned_intersect"], got["planned_lanebest_intersect"]) != (2 * depth, 0):
+        raise AssertionError("PTT_PLANNED_EPILOGUE=running did not take the walk with the exit")
+    main_launches["planned_intersect"] = got["planned_intersect"]
+    check_golden(LARGE["20k"], GOLDEN_20K)
+    a0 = walk_args(tables, *states[0])
+    frame20 = frame_fn(dev, static, cam, cfg, base_key, device)
+    _, alive20 = frame20()
+    paths_t = {
+        "planned_lanebest_intersect (1 bounce)":
+            (lambda: mxu.planned_lanebest_intersect(*a0), 20),
+        "planned_intersect (1 bounce)": (lambda: mxu.planned_intersect(*a0), 20),
+        "plain walk_plain (1 bounce)": (lambda: mxu.walk_plain(*a0), 1),
+        "plan prepass build_tile_plan (1 bounce)": (lambda: mxu.build_tile_plan(
+            tables.tile_aabb, *mxu.plan_rays(tables, a0[1], a0[2], a0[3], a0[4])), 5),
+        "20k frame (Renderer default path)": (frame20, 3),
+    }
+    rounds = {k: (3 if "plain" in k else TIMING_ROUNDS) for k in paths_t}
+    rays20 = float(n + alive20.sum().item())
+    ms = log_times("10e", smi, time_paths(paths_t, rounds), paths_t, rounds,
+                   {"20k frame (Renderer default path)": rays20})
+    log(f"    host reads in one 20k frame: {host_syncs(frame20)}")
+    b5 = walk_bound(a0)
+    log(f"    bounds: each planned walk {b5[0]:.4f} ms ({b5[1]}; {b5[2]} candidate (ray, tile) "
+        f"pairs of {int(a0[3].sum())} live rays)")
+    for k in ("planned_lanebest_intersect", "planned_intersect"):
+        entries[k] = dict(ms=ms[f"{k} (1 bounce)"], plain_ms=ms["plain walk_plain (1 bounce)"],
+                          bound=b5)
+    del states, a0
+
+    # -- 11. streamed, cornell_mesh_80k.json and cornell_mesh_500k.json ------
+    log("[11] streamed walk (#7):")
+    scene, dev, static, cam = setup("80k")
+    tables, n, depth = dev.mxu_mesh, static.pixel_count, static.trace_depth
+    states = sorted_bounces(dev, static, cam, cfg, device)
+    check_walks("11a", ("streamed",), states, tables)
+    frame = lambda c, plain=False: megakernel_iteration(
+        dev, static, c, cam, film_ops.new_film(n, device), 1, base_key, plain=plain)
+    film_s, alive_s = frame(cfg)
+    film_u, alive_u = frame(RenderConfig(ray_sorting="off"))
+    film_p, alive_p = frame(cfg, plain=True)
+    torch.cuda.synchronize()
+    log("[11b] one 80k frame, kernel path vs megakernel_iteration(plain=True):")
+    r_frame = compare_films("sorted kernel path vs plain", film_s, film_p)
+    sorted_eq = all(torch.equal(a, b) for a, b in zip(film_s, film_u))
+    log(f"  sorted and unsorted kernel films bit-identical: {sorted_eq}; alive per depth "
+        f"kernel {alive_s.tolist()}, plain {alive_p.tolist()}")
+    alive_rel = np.abs(alive_s.cpu().numpy() - alive_p.cpu().numpy()) / np.maximum(
+        alive_p.cpu().numpy(), 1)
+    if not (sorted_eq and torch.equal(alive_s, alive_u) and r_frame["finite"]
+            and r_frame["sum_rel"] <= MAX_SUM_REL and r_frame["pixel_share"] <= MAX_PIXEL_SHARE
+            and (alive_rel <= MAX_ALIVE_REL).all()):
+        raise AssertionError("the 80k kernel path disagrees with the plain path")
+    r, got = drive(scene, 4, counters)
+    log(f"[11c] Renderer('{LARGE['80k'].name}') step_many(4) (the slice's main path): "
+        f"launches {got}")
+    if (got["streamed_intersect"], got["mono_intersect"], got["fused_mesh_shade"]) != (
+            4 * depth, 0, 4 * depth):
+        raise AssertionError("the 80k Renderer did not take the streamed walk once per bounce")
+    main_launches["streamed_intersect"] = got["streamed_intersect"]
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    log(f"    saved {pathlib.Path(r.save(out_dir=str(OUT_DIR))).relative_to(ROOT)}")
+    check_golden(LARGE["80k"], GOLDEN_80K)
+    a0 = walk_args(tables, *states[0])
+    frame80 = frame_fn(dev, static, cam, cfg, base_key, device)
+    profiled["80k mesh kernel path, sorted (the slice's main path)"] = frame80
+    paths_t = {
+        "streamed_intersect (1 bounce)": (lambda: mxu.streamed_intersect(*a0), 10),
+        "plain walk_plain (1 bounce)": (lambda: mxu.walk_plain(*a0), 1),
+        "plan prepass build_tile_plan (1 bounce)": (lambda: mxu.build_tile_plan(
+            tables.tile_aabb, *mxu.plan_rays(tables, a0[1], a0[2], a0[3], a0[4])), 5),
+        "80k frame (Renderer default path)": (frame80, 3),
+        "80k frame, mxu_traversal='binned'": (frame_fn(
+            dev, static, cam, RenderConfig(mxu_traversal="binned"), base_key, device), 3),
+    }
+    rounds = {k: (3 if "plain" in k else TIMING_ROUNDS) for k in paths_t}
+    rays80 = float(n + alive_s.sum().item())
+    ms = log_times("11e", smi, time_paths(paths_t, rounds), paths_t, rounds,
+                   {"80k frame (Renderer default path)": rays80,
+                    "80k frame, mxu_traversal='binned'": rays80})
+    log(f"    host reads in one 80k frame: {host_syncs(frame80)}")
+    b7 = walk_bound(a0)
+    log(f"    bounds: streamed walk {b7[0]:.4f} ms ({b7[1]}; {b7[2]} candidate (ray, tile) "
+        f"pairs of {int(a0[3].sum())} live rays)")
+    entries["streamed_intersect"] = dict(ms=ms["streamed_intersect (1 bounce)"],
+                                         plain_ms=ms["plain walk_plain (1 bounce)"], bound=b7)
+    del states, a0
+
+    scene, dev, static, cam = setup("500k")
+    tables, n, depth = dev.mxu_mesh, static.pixel_count, static.trace_depth
+    states = sorted_bounces(dev, static, cam, cfg, device)
+    check_walks("11f", ("streamed",), states, tables, blocks=PLAIN_BLOCKS)
+    film_s, alive_s = megakernel_iteration(dev, static, cfg, cam, film_ops.new_film(n, device),
+                                           1, base_key)
+    film_u, _ = megakernel_iteration(dev, static, RenderConfig(ray_sorting="off"), cam,
+                                     film_ops.new_film(n, device), 1, base_key)
+    sorted_eq = all(torch.equal(a, b) for a, b in zip(film_s, film_u))
+    log(f"[11g] 500k frame: sorted and unsorted kernel films bit-identical: {sorted_eq}")
+    if not sorted_eq:
+        raise AssertionError("the 500k sorted and unsorted films differ")
+    r, got = drive(scene, 2, counters)
+    log(f"[11h] Renderer('{LARGE['500k'].name}') step_many(2): launches {got}")
+    if (got["streamed_intersect"], got["mono_intersect"]) != (2 * depth, 0):
+        raise AssertionError("the 500k Renderer did not take the streamed walk once per bounce")
+    a0 = walk_args(tables, *states[0])
+    frame500 = frame_fn(dev, static, cam, cfg, base_key, device)
+    paths_t = {
+        "streamed_intersect, 500k (1 bounce)": (lambda: mxu.streamed_intersect(*a0), 5),
+        "plan prepass build_tile_plan, 500k (1 bounce)": (lambda: mxu.build_tile_plan(
+            tables.tile_aabb, *mxu.plan_rays(tables, a0[1], a0[2], a0[3], a0[4])), 3),
+        "500k frame (Renderer default path)": (frame500, 2),
+        "500k frame, mxu_traversal='binned'": (frame_fn(
+            dev, static, cam, RenderConfig(mxu_traversal="binned"), base_key, device), 2),
+    }
+    rounds = {k: 5 for k in paths_t}
+    rays500 = float(n + alive_s.sum().item())
+    log_times("11i", smi, time_paths(paths_t, rounds), paths_t, rounds,
+              {"500k frame (Renderer default path)": rays500,
+               "500k frame, mxu_traversal='binned'": rays500})
+    log(f"    host reads in one 500k frame: {host_syncs(frame500)}")
+    del states, a0
+
+    # -- 12. binned, cornell_mesh_200k.json --------------------------------
+    log("[12] packet-binned traversal (#10, the streamed walk as its fallback):")
+    scene, dev, static, cam = setup("200k")
+    tables, n, depth = dev.mxu_mesh, static.pixel_count, static.trace_depth
+    states = sorted_bounces(dev, static, cam, cfg, device)
+    engaged, b_case = 0, None
+    for d, (paths, tl, live) in enumerate(states):
+        found = binned_args(tables, paths, tl, live, cfg.mxu_binned_tiers)
+        if found is None:
+            log(f"[12a] bounce {d}: no binned tier engages (the streamed walk runs)")
+            continue
+        args, bins = found
+        got_k = mxu.binned_intersect(*args)
+        want = mxu.binned_intersect_plain(*args)
+        torch.cuda.synchronize()
+        tri_bad, t_bad, e = bit_diff(got_k, want)
+        log(f"[12a] bounce {d}: binned over the first {args[7] * mxu.BINNED_G} rays, "
+            f"{args[5].numel()} visits, {int((want[1] >= 0).sum())} accepted pair rows; pair "
+            f"rows with tri differing {tri_bad}, with t not bit-equal {t_bad}")
+        if tri_bad or t_bad:
+            raise AssertionError("binned_intersect disagrees with its plain version")
+        err["binned_intersect"] = max(err["binned_intersect"], e)
+        engaged += 1
+        b_case = b_case or args
+    if not engaged:
+        raise AssertionError("no bounce of the 200k frame engaged the binned traversal")
+    check_walks("12b", ("streamed",), states, tables, blocks=PLAIN_BLOCKS)
+    traversals_agree("12c", tables, static, states, ("binned", "streamed"))
+    r, got = drive(scene, 2, counters)
+    log(f"[12d] Renderer('{LARGE['200k'].name}') step_many(2): launches {got}")
+    if got["binned_intersect"] == 0 or got["mono_intersect"] or (
+            got["binned_intersect"] + got["streamed_intersect"] != 2 * depth):
+        raise AssertionError("the 200k Renderer did not take binned (+ streamed) per bounce")
+    main_launches["binned_intersect"] = got["binned_intersect"]
+    frame200 = frame_fn(dev, static, cam, cfg, base_key, device)
+    _, alive200 = frame200()
+    paths_t = {
+        "binned_intersect (1 bounce)": (lambda: mxu.binned_intersect(*b_case), 10),
+        "plain binned_intersect_plain (1 bounce)":
+            (lambda: mxu.binned_intersect_plain(*b_case), 1),
+        "200k frame (Renderer default path)": (frame200, 2),
+    }
+    rounds = {k: (3 if "plain" in k else 5) for k in paths_t}
+    ms = log_times("12e", smi, time_paths(paths_t, rounds), paths_t, rounds,
+                   {"200k frame (Renderer default path)": float(n + alive200.sum().item())})
+    log(f"    host reads in one 200k frame: {host_syncs(frame200)}")
+    b10 = binned_bound(b_case)
+    log(f"    bounds: binned visits {b10[0]:.4f} ms ({b10[1]}; {b10[2]} candidate pair rows)")
+    entries["binned_intersect"] = dict(ms=ms["binned_intersect (1 bounce)"],
+                                       plain_ms=ms["plain binned_intersect_plain (1 bounce)"],
+                                       bound=b10)
+
+    replaces = {
+        "planned_lanebest_intersect": 1330, "planned_intersect": 1231,
+        "streamed_intersect": 1499, "binned_intersect": 1848,
+    }
+    kernels = [{
+        "name": k,
+        "route": "cuda",
+        "source": f"{PKG}/csrc/mesh_walk.cu",
+        "replaces": f"project3_cuda_path_tracer_2025_tpu/ops/intersect_mxu.py:{line}",
+        "launches": main_launches[k],
+        "max_abs_err": err[k],
+        "ms": entries[k]["ms"],
+        "plain_ms": entries[k]["plain_ms"],
+        "bound_ms": entries[k]["bound"][0],
+        "bound_by": entries[k]["bound"][1],
+        "library_ms": None,
+    } for k, line in replaces.items()]
+    return kernels, profiled
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA GPU",
@@ -649,10 +1172,12 @@ def main() -> int:
         f"bounce kernel {b_bound[0]:.4f} ms ({b_bound[1]})")
 
     mesh_kernels, mesh_frames = mesh_phases(device, smi)
+    walk_kernels, walk_frames = larger_mesh_phases(device, smi)
     profile_paths({
         "prim iteration kernel (Renderer default)": run_iter_kernel,
         "prim bounce-kernel path": run_bounce_path,
         **mesh_frames,
+        **walk_frames,
     })
 
     result = {"kernels": [
@@ -683,6 +1208,7 @@ def main() -> int:
             "library_ms": None,
         },
         *mesh_kernels,
+        *walk_kernels,
     ]}
     print(smi)
     print(json.dumps(result))

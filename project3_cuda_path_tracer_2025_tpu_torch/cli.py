@@ -21,7 +21,7 @@ import sys
 _NOT_PORTED = (
     "--integrator", "--no-compaction", "--compaction", "--material-sort",
     "--no-bvh", "--raw-camera", "--ray-sorting",
-    "--mxu-traversal", "--bounce-prefix-tiers", "--fused-bounce",
+    "--bounce-prefix-tiers", "--fused-bounce",
     "--spp-per-launch", "--cpu", "--pixel-chunks", "--devices",
     "--parallel-mode", "--preview-every", "--interactive",
 )
@@ -44,8 +44,15 @@ def build_parser() -> argparse.ArgumentParser:
         "--mesh-intersector",
         choices=("auto", "mxu", "threaded", "brute"),
         default="auto",
-        help="mesh intersection backend (auto: the mono traversal kernel on a "
-        "CUDA device, the threaded BVH walk on the CPU)",
+        help="mesh intersection backend (auto: the MXU tables' traversal kernels "
+        "on a CUDA device, the threaded BVH walk on the CPU)",
+    )
+    p.add_argument(
+        "--mxu-traversal",
+        choices=("auto", "sweep", "planned", "streamed", "binned", "mono"),
+        default="auto",
+        help="MXU intersector traversal (bit-identical results; 'sweep' is not "
+        "ported yet)",
     )
     p.add_argument("--checkpoint", default=None, help="write a .npz checkpoint here at exit")
     p.add_argument("--resume", default=None, help="resume from a .npz checkpoint")
@@ -86,7 +93,8 @@ def main(argv=None) -> int:
         scene.state.trace_depth = args.depth
 
     cfg = RenderConfig(
-        mirror_output=not args.no_mirror, mesh_intersector=args.mesh_intersector
+        mirror_output=not args.no_mirror, mesh_intersector=args.mesh_intersector,
+        mxu_traversal=args.mxu_traversal,
     )
     r = Renderer(scene, cfg, seed=args.seed, device=args.device)
     if args.resume:

@@ -3,12 +3,10 @@
 One frozen dataclass, field for field the JAX package's ``RenderConfig``
 (``project3_cuda_path_tracer_2025_tpu/config.py``), so a configuration
 moves between the two packages unchanged.  The port runs the megakernel
-render of analytic-primitive scenes and of untextured meshes up to 8,192
-padded triangles; a field that selects a path not ported yet raises
-``NotImplementedError`` here, at construction, naming the ``ROADMAP.md``
-item that will port it.  Fields that only steer paths the port does not
-have (binned tiers, the plan kind of the planned walk) are kept and
-validated, and do not change what the ported path computes.
+render of analytic-primitive scenes and of untextured meshes of up to
+1,024 tiles of 1,024 triangles; a field that selects a path not ported yet
+raises ``NotImplementedError`` here, at construction, naming the
+``ROADMAP.md`` item that will port it.
 """
 
 from __future__ import annotations
@@ -56,13 +54,14 @@ class RenderConfig:
     # their plain PyTorch versions), "off" (the unfused torch path).
     fused_bounce: str = "auto"
 
-    # Mesh intersector: "auto" (the MXU tables' mono traversal on a CUDA
+    # Mesh intersector: "auto" (the MXU tables' traversals on a CUDA
     # device, the threaded BVH walk on the CPU), "mxu", "threaded", "brute".
     mesh_intersector: str = "auto"
 
     # Mesh-path ray sorting ("auto": on for a CUDA device, off on the CPU)
-    # and traversal knobs; images are bit-identical across them.  Only the
-    # "mono" traversal is ported (what "auto" picks up to 8 tiles).
+    # and traversal knobs; images are bit-identical across them.  The
+    # traversals "auto" picks are ported (mono, planned, streamed, binned);
+    # "sweep" raises.
     ray_sorting: str = "auto"
     ray_sort_bits: int = 2
     ray_sort_dir_bits: int = 4
@@ -150,15 +149,20 @@ class RenderConfig:
             raise ValueError(
                 f"ray_sort_mode={self.ray_sort_mode!r}: use 'auto'/'morton'/'signature'"
             )
-        if self.mxu_traversal in ("sweep", "planned", "streamed", "binned"):
-            raise _not_ported(
-                f"mxu_traversal={self.mxu_traversal!r}",
-                "Queue 2 #5-#10: the traversals for larger meshes",
-            )
-        if self.mxu_traversal not in ("auto", "mono"):
+        if self.mxu_traversal == "sweep":
+            raise _not_ported("mxu_traversal='sweep'",
+                              "Queue 2 #9: the sweep traversal of larger meshes")
+        if self.mxu_traversal not in ("auto", "mono", "planned", "streamed", "binned"):
             raise ValueError(f"mxu_traversal={self.mxu_traversal!r}")
         if self.mxu_plan not in ("auto", "exact", "frustum"):
             raise ValueError(f"mxu_plan={self.mxu_plan!r}: use 'auto'/'exact'/'frustum'")
+        if self.mxu_plan == "frustum":
+            raise NotImplementedError(
+                "mxu_plan='frustum' is on the do-not-port list (ROADMAP.md, Queue 1: "
+                "a TPU A/B option that measured as a loss there)"
+            )
+        if any(int(t) < 1 for t in self.mxu_binned_tiers):
+            raise ValueError(f"mxu_binned_tiers={self.mxu_binned_tiers!r}: divisors >= 1")
         if self.mxu_attr_resolve not in ("gather", "onehot"):
             raise ValueError(f"mxu_attr_resolve={self.mxu_attr_resolve!r}")
         if self.mesh_state_order == "pixel":

@@ -1,10 +1,13 @@
-// Per-ray bodies of the two mesh kernels in fused_mesh.cu.
+// Per-ray bodies of the mesh kernels in fused_mesh.cu and mesh_walk.cu.
 //
 // Each function is the per-ray form of a torch function of the port (and so
 // of the JAX package), written operation for operation in the same order:
+//   walk_visit      = one (ray, tile) pair of ops/intersect_mxu.py::_tile_min
+//                     (the member slab, _mt_hit) folded in with the
+//                     contract's tie rule, as walk_plain folds it;
+//   binned_pair     = one pair row of ops/intersect_mxu.py::binned_intersect_plain;
 //   mono_ray        = ops/intersect_mxu.py::mono_intersect_plain (the root
-//                     cull, the per-tile member slab, _mt_hit, the
-//                     lowest-id tie rule);
+//                     cull, then walk_visit over the tiles in order);
 //   coherence_key   = ops/intersect_mxu.py::coherence_key_planes;
 //   prim_t_min      = ops/intersect.py::prim_t_min;
 //   mesh_shade_ray  = ops/fused.py::fused_mesh_shade_plain (prim intersect,
@@ -21,6 +24,10 @@
 #define PTT_TRI_TILE 1024
 #define PTT_COEF_W 20       // coefficients per triangle row (19 used)
 #define PTT_MONO_MAX_TILES 8
+#define PTT_PLANNED_MAX_CT 32    // ops/intersect_mxu.py::CHUNK_TRIS / TRI_TILE
+#define PTT_STREAMED_MAX_CT 1024  // the streamed plan's capacity
+#define PTT_RAY_TILE 256          // rays per plan block (ops/intersect_mxu.py::RAY_TILE)
+#define PTT_BINNED_G 8            // rays per packet (ops/intersect_mxu.py::BINNED_G)
 #define PTT_KEY_MAX_CT 24   // ops/intersect_mxu.py::KEY_INLINE_MAX_CT
 #define PTT_INT_MAX 0x7FFFFFFF
 
@@ -105,7 +112,7 @@ PTT_HD bool root_hit(const float* aabb, int ct, V3 os, V3 inv, float tlim) {
 }
 
 // ---------------------------------------------------------------------------
-// The mono traversal for one ray (ops/intersect_mxu.py::_mono_kernel)
+// One candidate (ray, tile) pair: the per-ray pieces every traversal shares
 // ---------------------------------------------------------------------------
 
 // One triangle's coefficient row (ops/intersect_mxu.py::MONO_COEF): det
@@ -126,6 +133,128 @@ PTT_HD void load_coef(const float* row, float c[PTT_COEF_W]) {
 #endif
 }
 
+// A ray as the traversals see it: the recentred origin, the reciprocal
+// direction, the ten features in _run's order (d, o x d, o, 1), its t_limit,
+// whether it is live (active and inside the root box), and its running
+// closest hit.
+struct WalkRay {
+  V3 os, inv;
+  float f[10];
+  float tlim;
+  bool live;
+  float best;
+  int32_t best_tri;
+};
+
+PTT_HD WalkRay walk_ray(V3 center, V3 o, V3 d, bool live, float tlim) {
+  WalkRay r;
+  r.os = v3(o.x - center.x, o.y - center.y, o.z - center.z);
+  r.inv = inv_dir(d);
+  r.f[0] = d.x;
+  r.f[1] = d.y;
+  r.f[2] = d.z;
+  r.f[3] = r.os.y * d.z - r.os.z * d.y;
+  r.f[4] = r.os.z * d.x - r.os.x * d.z;
+  r.f[5] = r.os.x * d.y - r.os.y * d.x;
+  r.f[6] = r.os.x;
+  r.f[7] = r.os.y;
+  r.f[8] = r.os.z;
+  r.f[9] = 1.0f;
+  r.tlim = tlim;
+  r.live = live;
+  r.best = tlim;
+  r.best_tri = -1;
+  return r;
+}
+
+// _mt_hit on one coefficient row: the four numerators as fused multiply-add
+// chains in ascending feature order, the sign of det XORed into u and v,
+// |det| for their sum, and the hit confined to [t_lo, t_hi].
+PTT_HD bool mt_accept(const float f[10], const float* row, float baby_eps, float t_lo,
+                      float t_hi, float* tt) {
+  float k[PTT_COEF_W];
+  load_coef(row, k);
+  float det = 0.0f, un = 0.0f, vn = 0.0f, tn = 0.0f;
+#pragma unroll
+  for (int q = 0; q < 3; ++q) det = fmaf(f[q], k[q], det);
+#pragma unroll
+  for (int q = 0; q < 6; ++q) un = fmaf(f[q], k[3 + q], un);
+#pragma unroll
+  for (int q = 0; q < 6; ++q) vn = fmaf(f[q], k[9 + q], vn);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) tn = fmaf(f[6 + q], k[15 + q], tn);
+  const float abs_det = fabsf(det);
+  const bool det_ok = abs_det >= baby_eps;
+  const float inv_det = 1.0f / (det_ok ? det : 1.0f);
+  *tt = tn * inv_det;
+  const int32_t sign = ptt_as_int(det) & INT32_MIN;
+  const float us = ptt_as_float(ptt_as_int(un) ^ sign);
+  const float vs = ptt_as_float(ptt_as_int(vn) ^ sign);
+  return det_ok && (ptt_min(us, vs) >= 0.0f) && (us + vs <= abs_det) && (*tt >= t_lo) &&
+         (*tt <= t_hi);
+}
+
+// The ray's 1,024 triangles of one tile, folded into its running closest
+// hit under the candidate contract's rule: a smaller t wins, an equal t
+// goes to the lower global triangle id.  The rule makes the result
+// independent of the order in which tiles are visited.  s: the ray's
+// widened (k = 1) slab against the tile, which confines the hits.
+PTT_HD void tile_fold(WalkRay& r, const float* coef, int tile, Slab s, float baby_eps,
+                      float eps_succ) {
+  const float t_lo = ptt_max(s.lo, eps_succ);
+  const float t_hi = s.hi;
+  const float* cf = coef + (size_t)tile * PTT_TRI_TILE * PTT_COEF_W;
+  const int32_t base = tile * PTT_TRI_TILE;
+  for (int j = 0; j < PTT_TRI_TILE; ++j, cf += PTT_COEF_W) {
+    float tt;
+    if (mt_accept(r.f, cf, baby_eps, t_lo, t_hi, &tt) &&
+        (tt < r.best || (tt == r.best && base + j < r.best_tri))) {
+      r.best = tt;
+      r.best_tri = base + j;
+    }
+  }
+}
+
+// One visit of a plan entry by one ray (_planned_kernel, _streamed_kernel,
+// _planned_kernel_lanebest, _binned_kernel): the member test against the
+// tile's box (row: 8 floats) and, for a member, the fold.  With gate, a
+// member whose slab entry lies beyond its running best skips the tile:
+// every t the tile can give it is >= that entry, so nothing it holds can
+// change (the improvability gate of the ordered walks, per ray).
+PTT_HD void walk_visit(WalkRay& r, const float* coef, const float* row, int tile, bool gate,
+                       float baby_eps, float eps_succ) {
+  if (!r.live) return;
+  const Slab s = widen(slab(row, row + 3, r.os, r.inv), PTT_SLAB_REL1, PTT_SLAB_ABS1);
+  if (!slab_enters(s, r.tlim)) return;  // not a candidate tile for this ray
+  if (gate && !(s.lo <= r.best)) return;
+  tile_fold(r, coef, tile, s, baby_eps, eps_succ);
+}
+
+// The early exit of the ordered walks: a block stops before a plan entry
+// whose entry bound exceeds every live ray's running best.  This is the
+// ray's share of that vote (dead rays count as 0, as in the JAX package).
+PTT_HD bool walk_goes_on(const WalkRay& r, float tile_tlo) {
+  return tile_tlo <= (r.live ? r.best : 0.0f);
+}
+
+// One pair row of a binned visit (_binned_kernel): the ray against one
+// tile, (row min, lowest id at it) if that is closer than the ray's
+// t_limit, else (inf, -1).
+PTT_HD void binned_pair(const float* coef, const float* row, int tile, V3 center, V3 o, V3 d,
+                        bool live, float tlim, float baby_eps, float eps_succ, float* t_out,
+                        int32_t* tri_out) {
+  WalkRay r = walk_ray(center, o, d, live, tlim);
+  r.best = ptt_inf();
+  walk_visit(r, coef, row, tile, false, baby_eps, eps_succ);
+  const bool acc = r.best < tlim;
+  *t_out = acc ? r.best : ptt_inf();
+  *tri_out = acc ? r.best_tri : -1;
+}
+
+// ---------------------------------------------------------------------------
+// The mono traversal for one ray (ops/intersect_mxu.py::_mono_kernel)
+// ---------------------------------------------------------------------------
+
 // Closest (t, tri) of one ray.  coef: [ct * 1024, 20]; aabb: [ct, 8]
 // recentred tile boxes; center: the recentring offset.  An inactive or
 // root-culled ray, or one with no hit closer than tlim, gets (tlim, -1).
@@ -135,57 +264,13 @@ PTT_HD void mono_ray(const float* coef, const float* aabb, int ct, V3 center, V3
   *t_out = tlim;
   *tri_out = -1;
   if (!active) return;
-  const V3 os = v3(o.x - center.x, o.y - center.y, o.z - center.z);
-  const V3 inv = inv_dir(d);
-  if (!root_hit(aabb, ct, os, inv, tlim)) return;
-  // The ray's features in _run's order: d, o x d, o, 1.
-  const float f[10] = {
-      d.x, d.y, d.z,
-      os.y * d.z - os.z * d.y, os.z * d.x - os.x * d.z, os.x * d.y - os.y * d.x,
-      os.x, os.y, os.z, 1.0f,
-  };
-  float best = ptt_inf();
-  int32_t best_tri = 0;
-  for (int c = 0; c < ct; ++c) {
-    const float* row = aabb + 8 * c;
-    const Slab s = widen(slab(row, row + 3, os, inv), PTT_SLAB_REL1, PTT_SLAB_ABS1);
-    if (!slab_enters(s, tlim)) continue;  // not a candidate tile for this ray
-    const float t_lo = ptt_max(s.lo, eps_succ);
-    const float t_hi = s.hi;
-    const float* cf = coef + (size_t)c * PTT_TRI_TILE * PTT_COEF_W;
-    for (int j = 0; j < PTT_TRI_TILE; ++j, cf += PTT_COEF_W) {
-      float k[PTT_COEF_W];
-      load_coef(cf, k);
-      // Numerators: fused multiply-add chains in ascending feature order.
-      float det = 0.0f, un = 0.0f, vn = 0.0f, tn = 0.0f;
-#pragma unroll
-      for (int q = 0; q < 3; ++q) det = fmaf(f[q], k[q], det);
-#pragma unroll
-      for (int q = 0; q < 6; ++q) un = fmaf(f[q], k[3 + q], un);
-#pragma unroll
-      for (int q = 0; q < 6; ++q) vn = fmaf(f[q], k[9 + q], vn);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) tn = fmaf(f[6 + q], k[15 + q], tn);
-      // _mt_hit: the sign of det XORed into u and v, |det| for the sum.
-      const float abs_det = fabsf(det);
-      const bool det_ok = abs_det >= baby_eps;
-      const float inv_det = 1.0f / (det_ok ? det : 1.0f);
-      const float tt = tn * inv_det;
-      const int32_t sign = ptt_as_int(det) & INT32_MIN;
-      const float us = ptt_as_float(ptt_as_int(un) ^ sign);
-      const float vs = ptt_as_float(ptt_as_int(vn) ^ sign);
-      const bool hit = det_ok && (ptt_min(us, vs) >= 0.0f) && (us + vs <= abs_det) &&
-                       (tt >= t_lo) && (tt <= t_hi);
-      // Ascending ids and a strict < keep the lowest id on a tie.
-      if (hit && tt < best) {
-        best = tt;
-        best_tri = c * PTT_TRI_TILE + j;
-      }
-    }
-  }
-  if (best < tlim) {
-    *t_out = best;
-    *tri_out = best_tri >= num_tris ? -1 : best_tri;
+  WalkRay r = walk_ray(center, o, d, true, tlim);
+  if (!root_hit(aabb, ct, r.os, r.inv, tlim)) return;
+  r.best = ptt_inf();
+  for (int c = 0; c < ct; ++c) walk_visit(r, coef, aabb + 8 * c, c, false, baby_eps, eps_succ);
+  if (r.best < tlim) {
+    *t_out = r.best;
+    *tri_out = r.best_tri >= num_tris ? -1 : r.best_tri;
   }
 }
 

@@ -10,7 +10,7 @@ prim-only scene is one launch of the iteration kernel
 (``ops.fused.fused_prim_iteration``).  The camera is an argument of that
 kernel, so an orbit rebuilds nothing (the JAX package bakes it into its
 kernel and recompiles).  A mesh scene steps through ``megakernel_iteration``,
-whose every bounce launches the mono traversal and mesh-shade kernels.
+whose every bounce launches a traversal kernel and the mesh-shade kernel.
 
 Camera orbit parity: ``orbit_camera()`` applies the reference's mouse
 controls and, like ``runCuda`` (``src/main.cpp:423-453``), resets

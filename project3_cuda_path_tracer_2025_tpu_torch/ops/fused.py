@@ -369,7 +369,7 @@ kernel_uniforms.launches = 0
 
 # ---------------------------------------------------------------------------
 # Fused mesh bounce  (the shade kernel replaces ops/fused.py::_mesh_bounce_kernel,
-# mode "plain"; the traversal is ops.intersect_mxu.mono_intersect)
+# mode "plain"; the traversals are in ops.intersect_mxu)
 # ---------------------------------------------------------------------------
 
 EMIT_MODES = ("", "tlim", "tlim+key")
@@ -545,7 +545,7 @@ def fused_mesh_bounce(
     plain: bool = False,
 ):
     """One mesh-scene bounce: the prim t prepass (or the carried one), the
-    persistent coherence sort, the mono traversal, the winner's attributes
+    persistent coherence sort, the traversal, the winner's attributes
     and normal (torch), and the fused shade kernel.
 
     ``carry``/``want_carry`` thread the shade kernel's next-bounce outputs
@@ -566,7 +566,7 @@ def fused_mesh_bounce(
 
 def mesh_surface(tables, static: SceneStatic, cfg: RenderConfig, paths: PathState,
                  t_lim: torch.Tensor, plain: bool = False):
-    """The mesh half of a fused bounce's surface, in torch around the mono
+    """The mesh half of a fused bounce's surface, in torch around the
     traversal: ``(mesh_t, mesh_normal, mesh_mat)`` -- the traversal's t,
     the winner's interpolated vertex normal (zero without a mesh hit) and
     its material (-1 without a mesh hit)."""
@@ -575,7 +575,12 @@ def mesh_surface(tables, static: SceneStatic, cfg: RenderConfig, paths: PathStat
         tables, static.num_triangles, static.mxu_padded_tris, ro, rd,
         paths.alive, t_lim, cfg.baby_epsilon,
         mesh_bounds=static.mesh_bounds, compute_uv=False, plain=plain,
-        **intersect_mxu.traversal_flags(cfg.mxu_traversal, static.mxu_padded_tris),
+        **intersect_mxu.traversal_flags(
+            cfg.mxu_traversal, static.mxu_padded_tris,
+            binned_tiers=cfg.mxu_binned_tiers,
+            # the pair budget's anchor: the unsliced ray count
+            binned_budget_rays=paths.pixel.shape[0],
+        ),
     )
     tri_hit = mh.tri >= 0
     at = intersect_mxu.resolve_shade_attributes(tables, static.mxu_padded_tris, mh.tri)

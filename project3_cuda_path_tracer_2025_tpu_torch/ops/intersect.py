@@ -13,8 +13,8 @@ Parity targets:
 Dense tensor ops over [N] rays; the prims are an unrolled Python loop over
 the scene's constant transforms.  Meshes (``bvhMeshIntersectionTest``,
 ``src/intersections.cu:148-234``) go through one of three intersectors, as
-in the JAX package: the MXU tables' mono traversal (``ops.intersect_mxu``,
-a CUDA kernel on the card), the threaded-BVH walk, or the brute-force
+in the JAX package: the MXU tables' traversals (``ops.intersect_mxu``,
+CUDA kernels on the card), the threaded-BVH walk, or the brute-force
 oracle.  All three return the same closest hit (strictly closer wins, the
 lowest triangle id on a tie).
 """
@@ -366,7 +366,8 @@ def intersect_scene(
                 mesh_bounds=static.mesh_bounds,
                 compute_uv=False,  # derived below from the resolved rows
                 **intersect_mxu.traversal_flags(
-                    cfg.mxu_traversal, static.mxu_padded_tris
+                    cfg.mxu_traversal, static.mxu_padded_tris,
+                    binned_tiers=cfg.mxu_binned_tiers,
                 ),
             )
             at = intersect_mxu.resolve_attributes(

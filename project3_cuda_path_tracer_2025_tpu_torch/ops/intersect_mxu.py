@@ -1,5 +1,5 @@
-"""Mesh closest hit for meshes of up to 8 tiles: the host side of the JAX
-package's MXU intersector, and its mono traversal as a CUDA kernel.
+"""Mesh closest hit for meshes of up to 1,024 tiles: the host side of the
+JAX package's MXU intersector, and its traversals as CUDA kernels.
 
 The JAX package (``project3_cuda_path_tracer_2025_tpu/ops/intersect_mxu.py``)
 writes Moller-Trumbore as bilinear forms: with the ray feature
@@ -13,23 +13,46 @@ over the tiles whose widened slab the ray itself enters before its
 ``t_limit``, hits confined to that slab interval, ties to the lowest
 triangle id.  Any traversal that covers those candidates gives it.
 
-This module keeps the tables, culls, sort keys and attribute resolves as
-torch code, and ports the traversal that ``mxu_traversal="auto"`` picks up
-to ``MONO_MAX_TILES`` tiles, ``_mono_kernel``: ``mono_intersect`` launches
-``csrc/fused_mesh.cu::ptt_mono_kernel`` on CUDA tensors and runs
-``mono_intersect_plain`` on CPU tensors.  Both evaluate each candidate pair
-with the same float32 operations in the same order (each numerator is a
-chain of fused multiply-adds in the fixed order of ``MONO_COEF``, never a
-matmul; ``fma32`` gives the plain version the kernel's single rounding),
-so they agree bit for bit, and with the JAX package's ``jnp.dot`` on the
-CPU, which accumulates in the same order.  The planned, streamed, binned
-and sweep traversals raise (``ROADMAP.md``, Queue 2 #5-#10).  The port reads no ``PTT_*`` environment
-variable: the constants below are the JAX package's defaults.
+This module keeps the tables, culls, sort keys, the tile plan, the packet
+bins and the attribute resolves as torch code, and ports the traversals
+that ``mxu_traversal="auto"`` picks as CUDA kernels, each behind a wrapper
+that launches it on CUDA tensors and runs its plain version on CPU tensors:
+
+* up to ``MONO_MAX_TILES`` tiles, ``_mono_kernel``: ``mono_intersect``
+  (``csrc/fused_mesh.cu``), plain ``mono_intersect_plain``;
+* up to 32 tiles, the planned walks ``_planned_kernel_lanebest`` and
+  ``_planned_kernel``: ``planned_lanebest_intersect``, ``planned_intersect``;
+* up to 1,024 tiles, ``_streamed_kernel``: ``streamed_intersect``;
+  (the three walks share the plain version ``walk_plain``; kernels in
+  ``csrc/mesh_walk.cu``);
+* in the binned band, ``_binned_kernel``: ``binned_intersect``, plain
+  ``binned_intersect_plain``.
+
+Every traversal evaluates each candidate pair with the same float32
+operations in the same order (each numerator is a chain of fused
+multiply-adds in the fixed order of ``MONO_COEF``, never a matmul;
+``fma32`` gives the plain versions the kernels' single rounding), so kernel
+and plain version agree bit for bit, and with the JAX package's
+``jnp.dot`` on the CPU, which accumulates in the same order.  The sweep
+traversal, the super-tile walk and the Pallas plan prepass raise
+(``ROADMAP.md``, Queue 2 #9, #8, #11), and so does a mesh of more than
+1,024 tiles (Queue 1 #2, the chunked planned chain).  Of the JAX package's
+``PTT_*`` environment variables the port reads ``PTT_PLANNED_EPILOGUE``,
+which chooses between the two planned kernels as it does there, and the
+two that select an unported kernel, which raise when set; the constants
+below are the JAX package's defaults.
+
+Where the JAX package branches on a device value with ``lax.cond`` (the
+plan's live-prefix tiers, the binned tiers and its overflow fallback), the
+port reads the value to the host and takes the same branch: one small copy
+per bounce (two for an engaged binned tier), so the kernels launched are
+the ones the JAX package would run.
 """
 
 from __future__ import annotations
 
 import ctypes
+from os import environ
 from typing import NamedTuple
 
 import numpy as np
@@ -46,8 +69,16 @@ GROUP_TRIS = TRI_TILE * GROUP_TILES
 NUM_F = 16  # padded ray-feature width (10 used)
 CHUNK_TRIS = 32 * 1024  # the JAX package's VMEM-resident table bound
 MONO_MAX_TILES = 8  # mono traversal band (tiles)
+PLANNED_MAX_TILES = CHUNK_TRIS // TRI_TILE  # the planned walks' table
+LANEBEST_MAX_TILES = 24  # the lane-best planned epilogue's band
+STREAMED_MAX_TILES = 8 * 128  # the streamed plan's capacity (~1M triangles)
+PLAN_BUDGET = 700_000  # the planned walk's plan-size guard (blocks x tiles x 8)
 BINNED_AUTO_MIN = 128 * 1024
 BINNED_AUTO_MAX = 320 * 1024
+BINNED_G = 8  # rays per packet
+BINNED_PAIR_MEAN = 14  # pair budget per packet
+BINNED_PREFIX_TIERS = (8, 4)  # live-prefix tiers when the caller names none
+BINNED_TOPK = 128  # per-packet slot list length
 KEY_INLINE_MAX_CT = 24  # the shade kernel emits sort keys up to this many tiles
 
 SLAB_EPS_REL = 4e-6
@@ -63,11 +94,23 @@ MONO_COEF = (("det", range(0, 3)), ("u", range(0, 6)), ("v", range(0, 6)),
 COEF_W = 20  # 19 coefficients + 1 pad
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 2 #5-#10: the "
-        "traversals for larger meshes)"
-    )
+CHUNKED_CHAIN = "Queue 1 #2, larger meshes: the chunked planned chain beyond 1,024 tiles"
+SWEEP = "Queue 2 #9: the sweep traversal of larger meshes"
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
+
+
+def check_env() -> None:
+    """The JAX package's two environment switches that select a kernel the
+    port does not have raise when set."""
+    if environ.get("PTT_STREAM_SUPER", "0") != "0":
+        raise _not_ported("PTT_STREAM_SUPER (the super-tile streamed walk)",
+                          "Queue 2 #8")
+    if environ.get("PTT_PLAN_IMPL", "xla") == "pallas":
+        raise _not_ported("PTT_PLAN_IMPL=pallas (the Pallas plan prepass)",
+                          "Queue 2 #11")
 
 
 def _widen_slab(tlo, thi, k=1):
@@ -118,8 +161,8 @@ class MXUMeshTables(NamedTuple):
     ``features``, ``tile_aabb``, ``attrs``, ``attrs_shade`` and ``center``
     are the JAX package's arrays exactly.  ``coef`` is ``features``
     re-laid out as one row per triangle in ``MONO_COEF`` order, the layout
-    the mono kernel reads.  (The JAX package's ``group_aabb`` serves only
-    the sweep traversal, which is not ported.)"""
+    the traversal kernels read.  (The JAX package's ``group_aabb`` serves
+    only the sweep traversal and the chunked chain, which are not ported.)"""
 
     features: torch.Tensor  # [NUM_F, 4*Tp] f32: (det|u|v|t) columns per tile
     tile_aabb: torch.Tensor  # [Ct, 8] f32: xyz min, xyz max (recentred), pad
@@ -401,13 +444,16 @@ def coherence_perm(tables: MXUMeshTables, ro: Vec3, rd: Vec3, active, t_limit,
 
 
 # ---------------------------------------------------------------------------
-# The mono traversal  (replaces ops/intersect_mxu.py::_mono_kernel)
+# The per-pair evaluation shared by the plain versions, and the mono
+# traversal  (replaces ops/intersect_mxu.py::_mono_kernel)
 # ---------------------------------------------------------------------------
 
 def _mt_hit(det, u_num, v_num, t_num, t_lo, t_hi, baby_eps):
     """Moller-Trumbore acceptance on the numerators -> (hit, t); the JAX
     package's ``_mt_hit`` term for term, including the sign-bit XOR that
-    replaces the multiplication by sign(det)."""
+    replaces the multiplication by sign(det).  The JAX package's walks and
+    binned kernel use ``_mt_hit_legacy``, value-identical to it (the proof
+    is in ``_mt_hit``'s docstring there), so the port keeps one form."""
     abs_det = torch.abs(det)
     det_ok = abs_det >= f32(baby_eps)
     inv_det = 1.0 / torch.where(det_ok, det, 1.0)
@@ -471,6 +517,56 @@ def _ray_features(ro: Vec3, rd: Vec3, center):
     ]
 
 
+def _tile_min(coef_tile, feat, s_tlo, s_thi, eps_succ, baby_eps, lane):
+    """One tile of 1,024 triangles against rays [R]: the ray's row minimum
+    of accepted t (inf for none) and the lowest lane at it.  ``feat``: the
+    10 feature tensors [R, 1]; ``s_tlo``/``s_thi``: the k=1 member slab."""
+    t_lo = torch.maximum(s_tlo, torch.full_like(s_tlo, eps_succ))[:, None]
+    hit, tt = _mt_hit(*_numerators(feat, coef_tile), t_lo, s_thi[:, None], baby_eps)
+    cand = torch.where(hit, tt, float("inf"))
+    tmin = torch.min(cand, dim=1, keepdim=True).values
+    jmin = torch.min(torch.where(cand <= tmin, lane, INT_MAX), dim=1).values
+    return tmin[:, 0], jmin
+
+
+def _eps_succ(baby_eps: float) -> float:
+    return float(np.nextafter(np.float32(baby_eps), np.float32(np.inf)))
+
+
+def _chunk(device) -> int:
+    """Rays per [R, 1,024] evaluation in the plain versions (bounds memory)."""
+    return 1 << 16 if device.type == "cuda" else 1 << 12
+
+
+class _RayFeatures(NamedTuple):
+    feat: list  # the 10 features [n]
+    os: Vec3  # recentred origins
+    inv: Vec3  # reciprocal directions
+
+
+def _features(tables: MXUMeshTables, ro: Vec3, rd: Vec3) -> _RayFeatures:
+    feat = _ray_features(ro, rd, tables.center)
+    return _RayFeatures(feat, Vec3(*feat[6:9]), _inv_dir(rd))
+
+
+def _eval_tile(tables, c, feat, i, s_tlo, s_thi, baby_eps):
+    """Rays ``i`` (members of tile ``c``) against the tile, a chunk at a
+    time: (row min t, the global id at it).  ``feat`` (the 10 feature
+    tensors), ``s_tlo`` and ``s_thi`` are indexed by ``i``."""
+    coef = tables.coef[c * TRI_TILE:(c + 1) * TRI_TILE]
+    lane = torch.arange(TRI_TILE, dtype=torch.int32, device=coef.device)[None, :]
+    out_t = [torch.empty((0,), dtype=torch.float32, device=coef.device)]
+    out_j = [torch.empty((0,), dtype=torch.int32, device=coef.device)]
+    step = _chunk(coef.device)
+    for s in range(0, i.shape[0], step):
+        k = i[s:s + step]
+        tmin, jmin = _tile_min(coef, [f[k][:, None] for f in feat], s_tlo[k], s_thi[k],
+                               _eps_succ(baby_eps), baby_eps, lane)
+        out_t.append(tmin)
+        out_j.append(jmin)
+    return torch.cat(out_t), c * TRI_TILE + torch.cat(out_j)
+
+
 def mono_intersect_plain(tables: MXUMeshTables, num_tris: int, ro: Vec3,
                          rd: Vec3, active, t_limit, baby_eps: float):
     """The plain PyTorch version of the mono kernel -> (t, tri).
@@ -480,32 +576,18 @@ def mono_intersect_plain(tables: MXUMeshTables, num_tris: int, ro: Vec3,
     memory stays bounded at any ray count."""
     n = ro.x.shape[0]
     device = ro.x.device
-    chunk = 1 << 16 if device.type == "cuda" else 1 << 12
     tlim = t_limit.to(torch.float32)
     act = active & root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tlim)
-    feat_all = _ray_features(ro, rd, tables.center)
-    inv_all = _inv_dir(rd)
-    os_all = Vec3(*feat_all[6:9])
-    eps_succ = float(np.nextafter(np.float32(baby_eps), np.float32(np.inf)))
+    rf = _features(tables, ro, rd)
     best_t = torch.full((n,), float("inf"), dtype=torch.float32, device=device)
     best_tri = torch.full((n,), INT_MAX, dtype=torch.int32, device=device)
-    lane = torch.arange(TRI_TILE, dtype=torch.int32, device=device)[None, :]
     for c, row in enumerate(tables.tile_aabb.tolist()):
-        member, s_tlo, s_thi = _member_slab(row, os_all, inv_all, tlim)
-        ids = torch.nonzero(member & act).flatten()
-        coef = tables.coef[c * TRI_TILE:(c + 1) * TRI_TILE]
-        for s in range(0, ids.shape[0], chunk):
-            i = ids[s:s + chunk]
-            feat = [f[i][:, None] for f in feat_all]
-            t_lo = torch.maximum(s_tlo[i], torch.full_like(s_tlo[i], eps_succ))[:, None]
-            t_hi = s_thi[i][:, None]
-            hit, tt = _mt_hit(*_numerators(feat, coef), t_lo, t_hi, baby_eps)
-            cand = torch.where(hit, tt, float("inf"))
-            tmin = torch.min(cand, dim=1, keepdim=True).values
-            jmin = torch.min(torch.where(cand <= tmin, lane, INT_MAX), dim=1).values
-            upd = tmin[:, 0] < best_t[i]  # strict: the lower tile keeps a tie
-            best_t[i] = torch.where(upd, tmin[:, 0], best_t[i])
-            best_tri[i] = torch.where(upd, c * TRI_TILE + jmin, best_tri[i])
+        member, s_tlo, s_thi = _member_slab(row, rf.os, rf.inv, tlim)
+        i = torch.nonzero(member & act).flatten()
+        tmin, gid = _eval_tile(tables, c, rf.feat, i, s_tlo, s_thi, baby_eps)
+        upd = tmin < best_t[i]  # strict: the lower tile keeps a tie
+        best_t[i] = torch.where(upd, tmin, best_t[i])
+        best_tri[i] = torch.where(upd, gid, best_tri[i])
     hitrow = best_t < tlim
     t = torch.where(hitrow, best_t, tlim)
     tri = torch.where(hitrow, best_tri, -1)
@@ -522,6 +604,30 @@ def _check_rays(what, planes, n, device):
             )
 
 
+def _check_tensor(what, t, dtype, shape, device):
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"{what}: expected contiguous {dtype} {tuple(shape)} on {device}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+
+
+def _require_cuda(what: str, device: torch.device) -> None:
+    if device.type != "cuda":
+        raise ValueError(
+            f"{what}: the kernel takes CUDA tensors (the wrapper runs its plain "
+            f"version on CPU tensors), got {device}"
+        )
+
+
+def _check_tables(what, tables, ct, device):
+    for name, tab, shape in (("coef", tables.coef, (ct * TRI_TILE, COEF_W)),
+                             ("tile_aabb", tables.tile_aabb, (ct, 8)),
+                             ("center", tables.center, (3,))):
+        _check_tensor(f"{what} {name}", tab, torch.float32, shape, device)
+
+
 def mono_intersect(tables: MXUMeshTables, num_tris: int, ro: Vec3, rd: Vec3,
                    active, t_limit, baby_eps: float):
     """Closest ``(t, tri)`` per ray over a mesh of at most ``MONO_MAX_TILES``
@@ -531,26 +637,15 @@ def mono_intersect(tables: MXUMeshTables, num_tris: int, ro: Vec3, rd: Vec3,
     device = ro.x.device
     if device.type == "cpu":
         return mono_intersect_plain(tables, num_tris, ro, rd, active, t_limit, baby_eps)
-    if device.type != "cuda":
-        raise ValueError(
-            f"mono_intersect: the kernel takes CUDA tensors (the wrapper runs "
-            f"its plain version on CPU tensors), got {device}"
-        )
+    _require_cuda("mono_intersect", device)
     n = ro.x.shape[0]
     ct = tables.tile_aabb.shape[0]
     if ct > MONO_MAX_TILES:
-        raise _not_ported(f"the mono traversal of {ct} tiles")
+        raise ValueError(f"mono_intersect: {ct} tiles exceed the mono band of "
+                         f"{MONO_MAX_TILES}")
     _check_rays("mono_intersect rays", [*ro, *rd, t_limit], n, device)
-    if active.dtype != torch.bool or active.shape != (n,) or active.device != device \
-            or not active.is_contiguous():
-        raise ValueError(f"mono_intersect active: expected contiguous bool [{n}] on {device}")
-    for name, tab, shape in (("coef", tables.coef, (ct * TRI_TILE, COEF_W)),
-                             ("tile_aabb", tables.tile_aabb, (ct, 8)),
-                             ("center", tables.center, (3,))):
-        if tab.device != device or tab.dtype != torch.float32 or tuple(tab.shape) != shape \
-                or not tab.is_contiguous():
-            raise ValueError(f"mono_intersect {name}: expected contiguous float32 "
-                             f"{shape} on {device}")
+    _check_tensor("mono_intersect active", active, torch.bool, (n,), device)
+    _check_tables("mono_intersect", tables, ct, device)
     lib = kernels.load("fused_mesh")
     out_t = torch.empty((n,), dtype=torch.float32, device=device)
     out_tri = torch.empty((n,), dtype=torch.int32, device=device)
@@ -563,7 +658,7 @@ def mono_intersect(tables: MXUMeshTables, num_tris: int, ro: Vec3, rd: Vec3,
     a.center = tables.center.data_ptr()
     a.out_t, a.out_tri = out_t.data_ptr(), out_tri.data_ptr()
     a.baby_eps = f32(baby_eps)
-    a.eps_succ = float(np.nextafter(np.float32(baby_eps), np.float32(np.inf)))
+    a.eps_succ = _eps_succ(baby_eps)
     a.n, a.ct, a.num_tris = n, ct, num_tris
     code = lib.lib.ptt_launch_mono(ctypes.byref(a), kernels.stream_handle(device))
     lib.check(code, "mono_intersect")
@@ -575,12 +670,413 @@ mono_intersect.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Traversal selection and the intersector entry point
+# The tile plan  (the XLA prepass of run_chunk_planned / run_streamed:
+# _build_tile_plan and _plan_with_prefix)
+# ---------------------------------------------------------------------------
+
+class TilePlan(NamedTuple):
+    """Each 256-ray block's candidate tiles front to back: ``ids`` [NB*Ct]
+    int32, ``tlo`` [NB*Ct] float32 block entry bounds, ascending (inf past
+    the candidates), ``cnt`` [NB] int32 the number of candidates."""
+
+    ids: torch.Tensor
+    tlo: torch.Tensor
+    cnt: torch.Tensor
+
+
+def _pair_slabs(tile_aabb, os: Vec3, d: Vec3, live, tl):
+    """The k=2 widened (ray, tile) slab test, 16 tiles at a time so the
+    [n, 16] intermediates stay small: yields (hit [n, tc], tlo [n, tc])."""
+    inv = _inv_dir(d)
+    os2 = Vec3(os.x[:, None], os.y[:, None], os.z[:, None])
+    inv2 = Vec3(inv.x[:, None], inv.y[:, None], inv.z[:, None])
+    for c0 in range(0, tile_aabb.shape[0], 16):
+        rows = tile_aabb[c0:c0 + 16]
+        tlo, thi = _slab([rows[None, :, a] for a in range(3)],
+                         [rows[None, :, 3 + a] for a in range(3)], os2, inv2)
+        tlo, thi = _widen_slab(tlo, thi, k=2)
+        yield (thi >= tlo) & (thi > 0.0) & (tlo < tl[:, None]) & live[:, None], tlo
+
+
+def build_tile_plan(tile_aabb, os: Vec3, d: Vec3, live, tl) -> TilePlan:
+    """The JAX package's ``_build_tile_plan``: for every (256-ray block,
+    tile) pair, whether any live ray of the block enters the tile's k=2
+    widened box before its t_limit, and the block's least entry distance
+    (clamped at 0); tiles sorted by it (stable).  Rays padded to whole
+    blocks: ``os`` recentred origins, ``d`` directions, ``live``, ``tl``."""
+    nb = os.x.shape[0] // RAY_TILE
+    hs, ls = [], []
+    zero = torch.zeros((), dtype=torch.float32, device=tl.device)
+    for h, tlo in _pair_slabs(tile_aabb, os, d, live, tl):
+        tc = h.shape[1]
+        hs.append(h.reshape(nb, RAY_TILE, tc).any(dim=1))
+        per_ray = torch.where(h, torch.maximum(tlo, zero), float("inf"))
+        ls.append(per_ray.reshape(nb, RAY_TILE, tc).amin(dim=1))
+    hit = torch.cat(hs, dim=1)
+    key = torch.where(hit, torch.cat(ls, dim=1), float("inf"))
+    order = torch.argsort(key, dim=1, stable=True)
+    tlo_sorted = torch.gather(key, 1, order)
+    cnt = hit.sum(dim=1).to(torch.int32)
+    return TilePlan(order.to(torch.int32).reshape(-1), tlo_sorted.reshape(-1), cnt)
+
+
+class PlanRays(NamedTuple):
+    """The rays as the plan and the bins read them, padded to whole 256-ray
+    blocks with dead rays: recentred origins, directions, live mask and
+    t_limits (3.4e38 in the padding, as the JAX package pads)."""
+
+    os: Vec3
+    d: Vec3
+    live: torch.Tensor
+    tl: torch.Tensor
+
+
+def plan_rays(tables: MXUMeshTables, ro: Vec3, rd: Vec3, live, tlim) -> PlanRays:
+    n = ro.x.shape[0]
+    n_pad = (n + RAY_TILE - 1) // RAY_TILE * RAY_TILE
+    pad = lambda x, fill: torch.cat([x, x.new_full((n_pad - n,), fill)])
+    c = tables.center
+    return PlanRays(Vec3(*(pad(o - c[a], 0.0) for a, o in enumerate(ro))),
+                    Vec3(*(pad(x, 0.0) for x in rd)), pad(live, False),
+                    pad(tlim, f32(3.4e38)))
+
+
+def live_position(live) -> int:
+    """The index of the last live ray, -1 for none (one host read)."""
+    idx = torch.arange(live.shape[0], dtype=torch.int32, device=live.device)
+    return int(torch.max(torch.where(live, idx, -1)))
+
+
+def plan_with_prefix(tile_aabb, os: Vec3, d: Vec3, live, tl, live_pos=None) -> TilePlan:
+    """The JAX package's ``_plan_with_prefix``: with at least 8 blocks, the
+    plan is built over the 1/16 or the 1/4 prefix of the rays when the last
+    live ray (``live_pos``) lies inside it, and the blocks past it get empty
+    plans (exact: their rays are dead)."""
+    n_pad = os.x.shape[0]
+    nb = n_pad // RAY_TILE
+    if nb < 8:
+        return build_tile_plan(tile_aabb, os, d, live, tl)
+    if live_pos is None:
+        live_pos = live_position(live)
+    p4, p16 = (nb // 4) * RAY_TILE, (nb // 16) * RAY_TILE
+    npre = n_pad
+    if 0 < p16 < p4 and live_pos < p16:
+        npre = p16
+    elif 0 < p4 < n_pad and live_pos < p4:
+        npre = p4
+    if npre == n_pad:
+        return build_tile_plan(tile_aabb, os, d, live, tl)
+    cut = lambda v: Vec3(*(x[:npre] for x in v))
+    p = build_tile_plan(tile_aabb, cut(os), cut(d), live[:npre], tl[:npre])
+    ct, rest = tile_aabb.shape[0], nb - npre // RAY_TILE
+    return TilePlan(
+        torch.cat([p.ids, p.ids.new_zeros(rest * ct)]),
+        torch.cat([p.tlo, p.tlo.new_full((rest * ct,), float("inf"))]),
+        torch.cat([p.cnt, p.cnt.new_zeros(rest)]),
+    )
+
+
+# ---------------------------------------------------------------------------
+# The planned and streamed walks  (replace ops/intersect_mxu.py::
+# _planned_kernel_lanebest, _planned_kernel and _streamed_kernel)
+# ---------------------------------------------------------------------------
+
+def walk_plain(tables: MXUMeshTables, ro: Vec3, rd: Vec3, live, tlim, plan: TilePlan,
+               baby_eps: float):
+    """The plain PyTorch version of the three walk kernels -> (t, tri),
+    ``(tlim, -1)`` where nothing closer is hit.
+
+    The kernels walk each block's plan row in order, the JAX package's
+    running best per ray with the contract's rule (a smaller t wins, an
+    equal t goes to the lower id), and #6/#7 stop early where nothing can
+    change.  This version visits the same (ray, tile) pairs tile by tile,
+    each once, and folds them in with the same rule, which makes the order
+    of visits irrelevant; the early exits skip only pairs that change
+    nothing, so the result is the same function."""
+    n = ro.x.shape[0]
+    device = ro.x.device
+    nb = plan.cnt.shape[0]
+    ct = tables.tile_aabb.shape[0]
+    ids = plan.ids.reshape(nb, ct).long()
+    slots = torch.arange(ct, device=device)[None, :] < plan.cnt[:, None]
+    visits = torch.zeros((nb, ct), dtype=torch.bool, device=device).scatter_(1, ids, slots)
+    block = torch.arange(n, device=device) // RAY_TILE
+    rf = _features(tables, ro, rd)
+    best_t, best_tri = tlim.clone(), torch.full((n,), -1, dtype=torch.int32, device=device)
+    for c, row in enumerate(tables.tile_aabb.tolist()):
+        member, s_tlo, s_thi = _member_slab(row, rf.os, rf.inv, tlim)
+        i = torch.nonzero(member & live & visits[block, c]).flatten()
+        tmin, gid = _eval_tile(tables, c, rf.feat, i, s_tlo, s_thi, baby_eps)
+        bt, btri = best_t[i], best_tri[i]
+        upd = (tmin < bt) | ((tmin == bt) & (tmin < float("inf")) & (gid < btri))
+        best_t[i] = torch.where(upd, tmin, bt)
+        best_tri[i] = torch.where(upd, gid, btri)
+    return best_t, best_tri
+
+
+def _launch_walk(kind: str, tables, ro, rd, live, tlim, plan, baby_eps):
+    device = ro.x.device
+    _require_cuda(f"{kind}_intersect", device)
+    n = ro.x.shape[0]
+    nb = (n + RAY_TILE - 1) // RAY_TILE
+    ct = tables.tile_aabb.shape[0]
+    cap = STREAMED_MAX_TILES if kind == "streamed" else PLANNED_MAX_TILES
+    if ct > cap:
+        raise ValueError(f"{kind}_intersect: {ct} tiles exceed the kernel's {cap}")
+    what = f"{kind}_intersect"
+    _check_rays(f"{what} rays", [*ro, *rd, tlim], n, device)
+    _check_tensor(f"{what} live", live, torch.bool, (n,), device)
+    _check_tables(what, tables, ct, device)
+    _check_tensor(f"{what} plan ids", plan.ids, torch.int32, (nb * ct,), device)
+    _check_tensor(f"{what} plan tlo", plan.tlo, torch.float32, (nb * ct,), device)
+    _check_tensor(f"{what} plan cnt", plan.cnt, torch.int32, (nb,), device)
+    lib = kernels.load("mesh_walk")
+    out_t = torch.empty((n,), dtype=torch.float32, device=device)
+    out_tri = torch.empty((n,), dtype=torch.int32, device=device)
+    a = kernels.PttWalkArgs()
+    a.ray[:] = [p.data_ptr() for p in (*ro, *rd)]
+    a.live, a.tlim = live.data_ptr(), tlim.data_ptr()
+    a.coef = tables.coef.data_ptr()
+    a.tile_aabb = tables.tile_aabb.data_ptr()
+    a.center = tables.center.data_ptr()
+    a.ids, a.tlo, a.cnt = plan.ids.data_ptr(), plan.tlo.data_ptr(), plan.cnt.data_ptr()
+    a.out_t, a.out_tri = out_t.data_ptr(), out_tri.data_ptr()
+    a.baby_eps, a.eps_succ = f32(baby_eps), _eps_succ(baby_eps)
+    a.n, a.ct = n, ct
+    code = lib.lib.ptt_launch_walk(ctypes.byref(a), kernels.WALK_KINDS.index(kind),
+                                   kernels.stream_handle(device))
+    lib.check(code, what)
+    return out_t, out_tri
+
+
+def planned_lanebest_intersect(tables, ro, rd, live, tlim, plan, baby_eps):
+    """The planned walk without early exit (``_planned_kernel_lanebest``, up
+    to ``LANEBEST_MAX_TILES`` tiles): ``ptt_planned_lanebest_kernel`` on
+    CUDA tensors, ``walk_plain`` on CPU tensors.  Rays unpadded [n], the
+    plan over ceil(n / 256) blocks; returns (t, tri)."""
+    if ro.x.device.type == "cpu":
+        return walk_plain(tables, ro, rd, live, tlim, plan, baby_eps)
+    out = _launch_walk("planned_lanebest", tables, ro, rd, live, tlim, plan, baby_eps)
+    planned_lanebest_intersect.launches += 1
+    return out
+
+
+def planned_intersect(tables, ro, rd, live, tlim, plan, baby_eps):
+    """The planned walk with the early exit (``_planned_kernel``, up to
+    ``PLANNED_MAX_TILES`` tiles): ``ptt_planned_kernel`` on CUDA tensors,
+    ``walk_plain`` on CPU tensors."""
+    if ro.x.device.type == "cpu":
+        return walk_plain(tables, ro, rd, live, tlim, plan, baby_eps)
+    out = _launch_walk("planned", tables, ro, rd, live, tlim, plan, baby_eps)
+    planned_intersect.launches += 1
+    return out
+
+
+def streamed_intersect(tables, ro, rd, live, tlim, plan, baby_eps):
+    """The walk of a global plan over up to ``STREAMED_MAX_TILES`` tiles
+    (``_streamed_kernel``): ``ptt_streamed_kernel`` on CUDA tensors,
+    ``walk_plain`` on CPU tensors."""
+    if ro.x.device.type == "cpu":
+        return walk_plain(tables, ro, rd, live, tlim, plan, baby_eps)
+    out = _launch_walk("streamed", tables, ro, rd, live, tlim, plan, baby_eps)
+    streamed_intersect.launches += 1
+    return out
+
+
+planned_lanebest_intersect.launches = 0
+planned_intersect.launches = 0
+streamed_intersect.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The packet-binned traversal  (_packet_bins, _run_binned; the visits
+# replace ops/intersect_mxu.py::_binned_kernel)
+# ---------------------------------------------------------------------------
+
+class PacketBins(NamedTuple):
+    """``src`` [pair_budget] int32: the packet in each slot (n_g = empty);
+    ``vt`` [NV] int32: the tile of each 32-slot visit (-1 = empty); ``dst``
+    [n_g, K] int32: each packet's slots, ascending (INT_MAX = unused; None
+    with ``topk`` 0); ``overflow``: a bool tensor, the bins do not hold
+    every candidate."""
+
+    src: torch.Tensor
+    vt: torch.Tensor
+    dst: "torch.Tensor | None"
+    overflow: torch.Tensor
+
+
+def pair_budget(budget_rays: int, ct: int) -> int:
+    gp = RAY_TILE // BINNED_G
+    b = (budget_rays // BINNED_G) * min(BINNED_PAIR_MEAN, ct) + gp * ct
+    return ((b + gp - 1) // gp) * gp
+
+
+def packet_bins(tile_aabb, os: Vec3, d: Vec3, live, tl, budget: int, topk: int) -> PacketBins:
+    """The JAX package's ``_packet_bins`` over a prefix of whole blocks:
+    the packets (8 rays) of each tile's k=2 candidates laid out tile-major
+    in 32-slot runs."""
+    n_g = os.x.shape[0] // BINNED_G
+    gp = RAY_TILE // BINNED_G
+    ct = tile_aabb.shape[0]
+    device = tl.device
+    hg = torch.cat([h.reshape(n_g, BINNED_G, h.shape[1]).any(dim=1)
+                    for h, _ in _pair_slabs(tile_aabb, os, d, live, tl)], dim=1)
+    hi = hg.to(torch.int32)
+    rank = torch.cumsum(hi, dim=0, dtype=torch.int32) - hi  # packets above, per tile
+    n_c = hi.sum(dim=0, dtype=torch.int32)
+    pad_cnt = ((n_c + gp - 1) // gp) * gp
+    cum_end = torch.cumsum(pad_cnt, dim=0, dtype=torch.int32)
+    off = cum_end - pad_cnt
+    total = cum_end[-1]
+    overflow = total > budget
+    pid = torch.arange(n_g, dtype=torch.int32, device=device)[:, None]
+    if topk > 0:
+        k = min(topk, ct)
+        slotmat = torch.where(hg, off[None, :] + rank, INT_MAX)
+        if k < ct:
+            overflow = overflow | torch.any(hi.sum(dim=1) > k)
+            dst = torch.topk(slotmat, k, dim=1, largest=False, sorted=True).values
+        else:
+            dst = slotmat
+    else:
+        dst = torch.where(hg, off[None, :] + rank, budget)
+    # The JAX scatter drops slots out of range (unused top-K entries, or
+    # past an overflowing budget); here they land in one extra slot that is
+    # cut off, so no host read of how many there are is needed.
+    src = torch.full((budget + 1,), n_g, dtype=torch.int32, device=device)
+    src.scatter_(0, torch.clamp(dst, max=budget).long().reshape(-1),
+                 pid.expand(dst.shape).reshape(-1))
+    src = src[:budget]
+    nv = budget // gp
+    slots = torch.arange(nv, dtype=torch.int32, device=device) * gp
+    vt = torch.searchsorted(cum_end, slots, right=True).to(torch.int32)
+    vt = torch.where(slots < total, torch.clamp(vt, max=ct - 1), -1)
+    return PacketBins(src, vt, dst if topk > 0 else None, overflow)
+
+
+def _pair_rays(vt, src, n_g: int, n: int):
+    """Per pair row of the visits: (tile, ray index, valid)."""
+    gp = RAY_TILE // BINNED_G
+    r = torch.arange(vt.shape[0] * RAY_TILE, device=vt.device)
+    v = r // RAY_TILE
+    p = src[v * gp + (r % RAY_TILE) // BINNED_G].long()
+    ray = p * BINNED_G + r % BINNED_G
+    return vt[v], ray, (vt[v] >= 0) & (p < n_g) & (ray < n)
+
+
+def binned_intersect_plain(tables, ro, rd, live, tlim, vt, src, n_g: int, baby_eps):
+    """The plain PyTorch version of the binned kernel -> per pair row
+    (t, tri) [NV * 256]: the row's ray against its visit's tile, (row
+    minimum, lowest id at it) when closer than the ray's t_limit, else
+    (inf, -1)."""
+    n = ro.x.shape[0]
+    tile, ray, ok = _pair_rays(vt, src, n_g, n)
+    ray = torch.clamp(ray, max=n - 1)
+    ok = ok & live[ray]
+    rf = _features(tables, ro, rd)
+    rows = tile.shape[0]
+    pt = torch.full((rows,), float("inf"), dtype=torch.float32, device=tlim.device)
+    ptri = torch.full((rows,), -1, dtype=torch.int32, device=tlim.device)
+    aabb = tables.tile_aabb.tolist()
+    for c in torch.unique(tile[ok]).tolist():
+        sel = torch.nonzero(ok & (tile == c)).flatten()
+        rr = ray[sel]
+        member, s_tlo, s_thi = _member_slab(aabb[c], Vec3(*(x[rr] for x in rf.os)),
+                                            Vec3(*(x[rr] for x in rf.inv)), tlim[rr])
+        i = torch.nonzero(member).flatten()
+        tmin, gid = _eval_tile(tables, c, [f[rr] for f in rf.feat], i, s_tlo, s_thi, baby_eps)
+        acc = tmin < tlim[rr[i]]
+        pt[sel[i]] = torch.where(acc, tmin, float("inf"))
+        ptri[sel[i]] = torch.where(acc, gid, -1)
+    return pt, ptri
+
+
+def binned_intersect(tables, ro, rd, live, tlim, vt, src, n_g: int, baby_eps):
+    """The binned visits (``_binned_kernel``): ``ptt_binned_kernel`` on CUDA
+    tensors, ``binned_intersect_plain`` on CPU tensors.  Rays unpadded [n];
+    ``n_g`` packets of 8 rays are binned (rays past ``n`` are dead)."""
+    device = ro.x.device
+    if device.type == "cpu":
+        return binned_intersect_plain(tables, ro, rd, live, tlim, vt, src, n_g, baby_eps)
+    _require_cuda("binned_intersect", device)
+    n = ro.x.shape[0]
+    nv = vt.shape[0]
+    ct = tables.tile_aabb.shape[0]
+    if ct > STREAMED_MAX_TILES:
+        raise ValueError(f"binned_intersect: {ct} tiles exceed {STREAMED_MAX_TILES}")
+    _check_rays("binned_intersect rays", [*ro, *rd, tlim], n, device)
+    _check_tensor("binned_intersect live", live, torch.bool, (n,), device)
+    _check_tables("binned_intersect", tables, ct, device)
+    _check_tensor("binned_intersect vt", vt, torch.int32, (nv,), device)
+    _check_tensor("binned_intersect src", src, torch.int32,
+                  (nv * (RAY_TILE // BINNED_G),), device)
+    lib = kernels.load("mesh_walk")
+    out_t = torch.empty((nv * RAY_TILE,), dtype=torch.float32, device=device)
+    out_tri = torch.empty((nv * RAY_TILE,), dtype=torch.int32, device=device)
+    a = kernels.PttBinnedArgs()
+    a.ray[:] = [p.data_ptr() for p in (*ro, *rd)]
+    a.live, a.tlim = live.data_ptr(), tlim.data_ptr()
+    a.coef = tables.coef.data_ptr()
+    a.tile_aabb = tables.tile_aabb.data_ptr()
+    a.center = tables.center.data_ptr()
+    a.vt, a.src = vt.data_ptr(), src.data_ptr()
+    a.out_t, a.out_tri = out_t.data_ptr(), out_tri.data_ptr()
+    a.baby_eps, a.eps_succ = f32(baby_eps), _eps_succ(baby_eps)
+    a.n, a.n_g, a.nv, a.ct = n, n_g, nv, ct
+    code = lib.lib.ptt_launch_binned(ctypes.byref(a), kernels.stream_handle(device))
+    lib.check(code, "binned_intersect")
+    binned_intersect.launches += 1
+    return out_t, out_tri
+
+
+binned_intersect.launches = 0
+
+
+def binned_reduce(pt, ptri, bins: PacketBins, tl, n_g: int):
+    """Per ray across its packet's visits: the least t, then the lowest tri
+    among exact ties (the contract's rule); ``(tl, -1)`` without a hit.
+    ``tl``: the prefix's t_limits [n_g * 8]."""
+    g = BINNED_G
+    budget = bins.src.shape[0]
+    pt, ptri = pt.reshape(budget, g), ptri.reshape(budget, g)
+    inf = float("inf")
+    if bins.dst is not None:  # gather each packet's own visit rows
+        dsts = torch.clamp(bins.dst, max=budget).long()
+        rows_t = torch.cat([pt, pt.new_full((1, g), inf)])[dsts]  # [n_g, K, g]
+        rows_tri = torch.cat([ptri, ptri.new_full((1, g), INT_MAX)])[dsts]
+        tmin = rows_t.amin(dim=1)
+        trimin = torch.where(rows_t == tmin[:, None, :], rows_tri, INT_MAX).amin(dim=1)
+    else:  # scatter-min by packet
+        idx = bins.src.long()[:, None].expand(budget, g)
+        tmin = pt.new_full((n_g + 1, g), inf).scatter_reduce(0, idx, pt, "amin")
+        cand = torch.where(pt == tmin[bins.src.long()], ptri, INT_MAX)
+        trimin = ptri.new_full((n_g + 1, g), INT_MAX).scatter_reduce(0, idx, cand, "amin")
+        tmin, trimin = tmin[:n_g], trimin[:n_g]
+    hit = tmin < inf
+    out_t = torch.where(hit, tmin, tl.reshape(n_g, g))
+    out_tri = torch.where(hit, trimin, -1)
+    return out_t.reshape(-1), out_tri.reshape(-1)
+
+
+def binned_prefixes(n_pad: int, tiers) -> list:
+    """The binned tiers' prefix sizes (whole blocks), ascending."""
+    npres = []
+    for div in sorted(set(tiers), reverse=True):
+        npre = min(n_pad, ((n_pad // div + RAY_TILE - 1) // RAY_TILE) * RAY_TILE)
+        if 0 < npre and npre not in npres:
+            npres.append(npre)
+    return npres
+
+
+# ---------------------------------------------------------------------------
+# Traversal selection and the intersector entry point  (_run)
 # ---------------------------------------------------------------------------
 
 def resolve_traversal_mode(mode: str, padded_tris: int) -> str:
-    """"auto" -> mono up to ``MONO_MAX_TILES`` tiles, else what the JAX
-    package picks (planned, binned, streamed)."""
+    """"auto" -> mono up to ``MONO_MAX_TILES`` tiles, planned up to
+    ``CHUNK_TRIS``, binned in its band, else streamed (the JAX package's
+    policy)."""
     if mode != "auto":
         return mode
     if padded_tris <= MONO_MAX_TILES * TRI_TILE:
@@ -592,17 +1088,96 @@ def resolve_traversal_mode(mode: str, padded_tris: int) -> str:
     return "streamed"
 
 
-def traversal_flags(mode: str, padded_tris: int) -> dict:
-    """``RenderConfig.mxu_traversal`` -> the intersector's flags.  Only the
-    mono traversal is ported; the rest raise."""
+def traversal_flags(mode: str, padded_tris: int, binned_tiers: tuple = None,
+                    binned_budget_rays: int = None) -> dict:
+    """``RenderConfig.mxu_traversal`` -> the intersector's flags, the JAX
+    package's exactly."""
     mode = resolve_traversal_mode(mode, padded_tris)
+    if mode == "sweep":
+        return dict(planned=False, streamed=False)
     if mode == "mono":
-        if padded_tris > MONO_MAX_TILES * TRI_TILE:
-            raise _not_ported(f"the mono traversal of {padded_tris} triangles")
-        return dict(mono=True)
-    if mode in ("sweep", "planned", "streamed", "binned"):
-        raise _not_ported(f"mxu_traversal={mode!r} ({padded_tris} padded triangles)")
+        return dict(planned=True, streamed=False, mono=True)
+    if mode == "planned":
+        return dict(planned=True, streamed=False)
+    if mode == "streamed":
+        return dict(planned=True, streamed=True)
+    if mode == "binned":
+        flags = dict(planned=True, streamed=True, binned=True)
+        if binned_tiers is not None:
+            flags["binned_tiers"] = tuple(binned_tiers)
+        if binned_budget_rays is not None:
+            flags["binned_budget_rays"] = int(binned_budget_rays)
+        return flags
     raise ValueError(f"unknown mxu_traversal mode: {mode!r}")
+
+
+WALKS = {
+    "planned_lanebest": planned_lanebest_intersect,
+    "planned": planned_intersect,
+    "streamed": streamed_intersect,
+}
+
+
+def _traverse(tables, num_tris, padded_tris, ro, rd, active, tlim, baby_eps, planned,
+              streamed, binned, mono, binned_tiers, binned_topk, binned_budget_rays,
+              planned_epilogue, plain):
+    """The JAX package's ``_run`` after its sort: the capacity fallbacks, the
+    choice of traversal, and the host reads its ``lax.cond``s take."""
+    check_env()
+    ct = padded_tris // TRI_TILE
+    if ct > STREAMED_MAX_TILES:
+        raise _not_ported(f"a mesh of {ct} tiles", CHUNKED_CHAIN)
+    n = ro.x.shape[0]
+    nb = (n + RAY_TILE - 1) // RAY_TILE
+    if planned and not streamed and nb * max(1, min(padded_tris, CHUNK_TRIS) // TRI_TILE) \
+            * 8 > PLAN_BUDGET:
+        planned = False
+    if not binned and mono and ct <= MONO_MAX_TILES:
+        traverse = mono_intersect_plain if plain else mono_intersect
+        return traverse(tables, num_tris, ro, rd, active, tlim, baby_eps)
+    if not (binned or streamed):
+        if not planned:
+            raise _not_ported(f"the sweep traversal ({nb} ray blocks, {ct} tiles)", SWEEP)
+        if padded_tris > CHUNK_TRIS:
+            raise _not_ported(f"the planned traversal of {ct} tiles", CHUNKED_CHAIN)
+
+    live = active & root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tlim)
+    n_pad = nb * RAY_TILE
+    os, dp, livep, tlp = plan_rays(tables, ro, rd, live, tlim)
+    live_pos = live_position(livep) if (binned or nb >= 8) else -1
+
+    def walk(kind):
+        plan = plan_with_prefix(tables.tile_aabb, os, dp, livep, tlp, live_pos)
+        fn = walk_plain if plain else WALKS[kind]
+        return fn(tables, ro, rd, live, tlim, plan, baby_eps)
+
+    if binned:
+        tiers = binned_tiers if binned_tiers is not None else BINNED_PREFIX_TIERS
+        topk = binned_topk if binned_topk is not None else BINNED_TOPK
+        npre = next((p for p in binned_prefixes(n_pad, tiers) if live_pos < p), None)
+        if npre is None:  # the live rays exceed every tier
+            t, tri = walk("streamed")
+        else:
+            budget = pair_budget(max(npre, (binned_budget_rays or n_pad) // 4), ct)
+            cut = lambda v: Vec3(*(x[:npre] for x in v))
+            bins = packet_bins(tables.tile_aabb, cut(os), cut(dp), livep[:npre], tlp[:npre],
+                               budget, topk)
+            if bool(bins.overflow):  # the bins cannot hold every candidate
+                t, tri = walk("streamed")
+            else:
+                fn = binned_intersect_plain if plain else binned_intersect
+                pt, ptri = fn(tables, ro, rd, live, tlim, bins.vt, bins.src,
+                              npre // BINNED_G, baby_eps)
+                t_p, tri_p = binned_reduce(pt, ptri, bins, tlp[:npre], npre // BINNED_G)
+                t = torch.cat([t_p, tlp[npre:]])[:n]
+                tri = torch.cat([tri_p, tri_p.new_full((n_pad - npre,), -1)])[:n]
+    elif streamed:
+        t, tri = walk("streamed")
+    else:
+        lanebest = ct <= LANEBEST_MAX_TILES and planned_epilogue in (
+            "lanebest", "lanebest_force")
+        t, tri = walk("planned_lanebest" if lanebest else "planned")
+    return t, torch.where(tri >= num_tris, -1, tri)
 
 
 def mesh_intersect_mxu(
@@ -619,23 +1194,35 @@ def mesh_intersect_mxu(
     sort_dir_bits: int = 3,
     mesh_bounds: tuple = (0.0, 0.0, 0.0, 1.0, 1.0, 1.0),
     compute_uv: bool = True,
+    planned: bool = False,
     sort_mode: str = "morton",
+    streamed: bool = False,
+    binned: bool = False,
+    binned_tiers: tuple = None,
+    binned_topk: int = None,
+    binned_budget_rays: int = None,
+    planned_epilogue: str = None,
     mono: bool = False,
     plain: bool = False,
 ) -> MeshHit:
-    """Closest hit over the mesh (``mono=True``: the mono traversal, the
-    only one ported).  With ``sort_rays`` the rays go through the kernel in
+    """Closest hit over the mesh, with the JAX package's traversal flags
+    (``traversal_flags``; the default, all off, is the sweep, which is not
+    ported).  With ``sort_rays`` the rays go through the traversal in
     coherence order and the results are scattered back (a pure
     permutation: identical results).  (u, v) are recomputed from the
     winner's geometry when ``compute_uv``.  ``plain`` runs the traversal's
-    plain version on any device."""
-    if not mono:
-        raise _not_ported("the sweep traversal (mono=False)")
-    if padded_tris > MONO_MAX_TILES * TRI_TILE:
-        raise _not_ported(f"the mono traversal of {padded_tris} triangles")
+    plain versions on any device.  ``planned_epilogue`` None reads
+    ``PTT_PLANNED_EPILOGUE`` (default "lanebest"), as the JAX package does:
+    "lanebest" takes the lane-best walk up to ``LANEBEST_MAX_TILES``
+    tiles, any other value the walk with the early exit."""
+    if planned_epilogue is None:
+        planned_epilogue = environ.get("PTT_PLANNED_EPILOGUE", "lanebest")
     active = active.contiguous()
     t_limit = t_limit.to(torch.float32).contiguous()
-    traverse = mono_intersect_plain if plain else mono_intersect
+    flags = dict(planned=planned, streamed=streamed, binned=binned, mono=mono,
+                 binned_tiers=binned_tiers, binned_topk=binned_topk,
+                 binned_budget_rays=binned_budget_rays,
+                 planned_epilogue=planned_epilogue, plain=plain)
     if sort_rays:
         c = tables.center
         os = (ro.x - c[0], ro.y - c[1], ro.z - c[2])
@@ -649,20 +1236,20 @@ def mesh_intersect_mxu(
                                   sort_bits, sort_dir_bits)
         perm = torch.argsort(key, stable=True)
         sro, srd = Vec3(*(p[perm] for p in ro)), Vec3(*(p[perm] for p in rd))
-        t_s, tri_s = traverse(tables, num_tris, sro, srd, active[perm],
-                              t_limit[perm], baby_eps)
+        t_s, tri_s = _traverse(tables, num_tris, padded_tris, sro, srd, active[perm],
+                               t_limit[perm], baby_eps, **flags)
         t, tri = torch.empty_like(t_s), torch.empty_like(tri_s)
         t[perm], tri[perm] = t_s, tri_s
     else:
         ro = Vec3(*(p.contiguous() for p in ro))
         rd = Vec3(*(p.contiguous() for p in rd))
-        t, tri = traverse(tables, num_tris, ro, rd, active, t_limit, baby_eps)
+        t, tri = _traverse(tables, num_tris, padded_tris, ro, rd, active, t_limit,
+                           baby_eps, **flags)
     if compute_uv:
         u, v = winner_uv(tables, padded_tris, tri, ro, rd, baby_eps)
     else:
         u = v = torch.zeros_like(t)
     return MeshHit(t=t, tri=tri, u=u, v=v)
-
 
 # ---------------------------------------------------------------------------
 # Winner attributes

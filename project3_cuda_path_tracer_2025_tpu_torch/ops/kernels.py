@@ -10,9 +10,10 @@ with nvcc's output; a launch that the runtime refuses raises with its error
 string.
 
 The ctypes structures below mirror ``csrc/prim_path.cuh``,
-``csrc/fused_prim.cu`` and ``csrc/fused_mesh.cu`` field for field; loading
-a library checks their sizes and offsets against the library's own
-(``ptt_abi``, ``ptt_mesh_abi``) before anything launches.
+``csrc/fused_prim.cu``, ``csrc/fused_mesh.cu`` and ``csrc/mesh_walk.cu``
+field for field; loading a library checks their sizes and offsets against
+the library's own (``ptt_abi``, ``ptt_mesh_abi``, ``ptt_walk_abi``) before
+anything launches.
 """
 
 from __future__ import annotations
@@ -30,9 +31,10 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("prim_path.cuh", "fused_prim.cu", "mesh_path.cuh", "fused_mesh.cu")
+SOURCES = ("prim_path.cuh", "fused_prim.cu", "mesh_path.cuh", "fused_mesh.cu", "mesh_walk.cu")
 # Library name -> its translation unit.
-LIBRARIES = {"fused_prim": "fused_prim.cu", "fused_mesh": "fused_mesh.cu"}
+LIBRARIES = {"fused_prim": "fused_prim.cu", "fused_mesh": "fused_mesh.cu",
+             "mesh_walk": "mesh_walk.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -116,6 +118,49 @@ class PttMeshShadeArgs(ctypes.Structure):
     ]
 
 
+class PttWalkArgs(ctypes.Structure):
+    _fields_ = [
+        ("ray", _p * 6), ("live", _p), ("tlim", _p), ("coef", _p),
+        ("tile_aabb", _p), ("center", _p), ("ids", _p), ("tlo", _p), ("cnt", _p),
+        ("out_t", _p), ("out_tri", _p),
+        ("baby_eps", _f), ("eps_succ", _f),
+        ("n", _i), ("ct", _i),
+    ]
+
+
+class PttBinnedArgs(ctypes.Structure):
+    _fields_ = [
+        ("ray", _p * 6), ("live", _p), ("tlim", _p), ("coef", _p),
+        ("tile_aabb", _p), ("center", _p), ("vt", _p), ("src", _p),
+        ("out_t", _p), ("out_tri", _p),
+        ("baby_eps", _f), ("eps_succ", _f),
+        ("n", _i), ("n_g", _i), ("nv", _i), ("ct", _i),
+    ]
+
+
+# ptt_launch_walk's kind: which of the three walk kernels.
+WALK_KINDS = ("planned_lanebest", "planned", "streamed")
+
+
+def _walk_abi_expected() -> list:
+    from . import intersect_mxu as mxu
+
+    return [
+        ctypes.sizeof(PttWalkArgs),
+        PttWalkArgs.baby_eps.offset,
+        PttWalkArgs.n.offset,
+        ctypes.sizeof(PttBinnedArgs),
+        PttBinnedArgs.baby_eps.offset,
+        PttBinnedArgs.n.offset,
+        mxu.TRI_TILE,
+        mxu.COEF_W,
+        mxu.RAY_TILE,
+        mxu.BINNED_G,
+        mxu.PLANNED_MAX_TILES,
+        mxu.STREAMED_MAX_TILES,
+    ]
+
+
 def _mesh_abi_expected() -> list:
     from . import intersect_mxu as mxu
 
@@ -190,7 +235,15 @@ def _bind_mesh(lib) -> tuple:
     return lib.ptt_mesh_abi, _mesh_abi_expected(), lib.ptt_mesh_error_string
 
 
-_BIND = {"fused_prim": _bind_prim, "fused_mesh": _bind_mesh}
+def _bind_walk(lib) -> tuple:
+    lib.ptt_launch_walk.argtypes = [ctypes.POINTER(PttWalkArgs), _i, _p]
+    lib.ptt_launch_walk.restype = _i
+    lib.ptt_launch_binned.argtypes = [ctypes.POINTER(PttBinnedArgs), _p]
+    lib.ptt_launch_binned.restype = _i
+    return lib.ptt_walk_abi, _walk_abi_expected(), lib.ptt_walk_error_string
+
+
+_BIND = {"fused_prim": _bind_prim, "fused_mesh": _bind_mesh, "mesh_walk": _bind_walk}
 
 
 class KernelLibrary:

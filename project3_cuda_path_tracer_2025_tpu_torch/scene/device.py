@@ -2,7 +2,7 @@
 
 Counterpart of the JAX package's ``scene/device.py`` for the slices the
 port runs: analytic primitives, untextured materials and triangle meshes of
-up to ``MONO_MAX_TILES`` tiles of 1,024 triangles.  The primitives are not
+up to ``STREAMED_MAX_TILES`` (1,024) tiles of 1,024 triangles.  The primitives are not
 uploaded at all: their transforms are ``SceneStatic`` constants, folded term
 by term into the unfused torch path (``utils.vec._row_dot``) and packed into
 the kernels' scene struct (``ops.fused``).  The material table is uploaded
@@ -14,8 +14,8 @@ the MXU intersector's tables (``ops.intersect_mxu.MXUMeshTables``).
 ``SceneStatic``, ``GeomConst`` and ``MaterialConst`` keep the JAX package's
 fields and values exactly (including ``_snap``), so a test can hold the two
 packages' scene constants equal and ``from_jax_scene`` can carry a JAX scene
-across unchanged.  Textures, and meshes beyond the mono traversal's band,
-are not ported yet (``ROADMAP.md``).
+across unchanged.  Textures, and meshes beyond the streamed plan's 1,024
+tiles, are not ported yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -163,11 +163,10 @@ def _check_slice(num_triangles: int, num_textures: int) -> None:
     from ..ops import intersect_mxu as mxu  # lazy: avoids an import cycle
 
     padded = _padded_tris(num_triangles)
-    if padded > mxu.MONO_MAX_TILES * mxu.TRI_TILE:
-        raise NotImplementedError(
+    if padded > mxu.STREAMED_MAX_TILES * mxu.TRI_TILE:
+        raise mxu._not_ported(
             f"a mesh of {num_triangles} triangles ({padded} padded, beyond the "
-            f"mono traversal's {mxu.MONO_MAX_TILES} tiles) is not ported yet "
-            "(ROADMAP.md, Queue 2 #5-#10: the traversals for larger meshes)"
+            f"streamed plan's {mxu.STREAMED_MAX_TILES} tiles)", mxu.CHUNKED_CHAIN,
         )
 
 

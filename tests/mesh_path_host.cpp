@@ -1,12 +1,16 @@
 // Host build of the mesh kernels' per-ray bodies (csrc/mesh_path.cuh), so
 // the CPU tests can hold the arithmetic the kernels run against the port's
 // plain torch versions.  Each function is the loop over rays that the
-// matching kernel in csrc/fused_mesh.cu runs as one thread per ray.
+// matching kernel in csrc/fused_mesh.cu or csrc/mesh_walk.cu runs as one
+// thread per ray; the walks keep the kernels' block schedule (256 rays a
+// block, the plan row in order, the block's exit vote).
 //
 // Built by tests/test_torch_kernel_body.py with
 //   c++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC -I<csrc>
 
 #include <stdint.h>
+
+#include <vector>
 
 #include "mesh_path.cuh"
 
@@ -62,6 +66,65 @@ void ptt_host_mesh_shade(const PttScene* s, const float* const* in_f, const int3
         out_key[i] = coherence_key(aabb, ct, v3(center[0], center[1], center[2]), ray.o, ray.d,
                                    ray.bounces > 0, out_tlim[i]);
       }
+    }
+  }
+}
+
+// ptt_planned_lanebest_kernel (exit 0), ptt_planned_kernel and
+// ptt_streamed_kernel (exit 1): each block of 256 rays walks its plan row;
+// with exit, __syncthreads_or becomes the loop over the block's rays.
+void ptt_host_walk(const float* coef, const float* aabb, int32_t ct, const float* center,
+                   const float* const* ray, const uint8_t* live, const float* tlim,
+                   const int32_t* ids, const float* tlo, const int32_t* cnt, int32_t exit_,
+                   float baby_eps, float eps_succ, int32_t n, float* out_t, int32_t* out_tri) {
+  const V3 c = v3(center[0], center[1], center[2]);
+  const int32_t nb = (n + PTT_RAY_TILE - 1) / PTT_RAY_TILE;
+  std::vector<WalkRay> r(PTT_RAY_TILE);
+  for (int32_t b = 0; b < nb; ++b) {
+    for (int32_t i = 0; i < PTT_RAY_TILE; ++i) {
+      const int32_t idx = b * PTT_RAY_TILE + i;
+      const bool in = idx < n;
+      r[i] = walk_ray(c, in ? v3(ray[0][idx], ray[1][idx], ray[2][idx]) : v3(0.0f, 0.0f, 0.0f),
+                      in ? v3(ray[3][idx], ray[4][idx], ray[5][idx]) : v3(0.0f, 0.0f, 0.0f),
+                      in && live[idx] != 0, in ? tlim[idx] : 0.0f);
+    }
+    for (int32_t t = 0; t < cnt[b]; ++t) {
+      if (exit_) {
+        bool go = false;
+        for (int32_t i = 0; i < PTT_RAY_TILE; ++i) go = go || walk_goes_on(r[i], tlo[b * ct + t]);
+        if (!go) break;
+      }
+      const int32_t tile = ids[b * ct + t];
+      for (int32_t i = 0; i < PTT_RAY_TILE; ++i) {
+        walk_visit(r[i], coef, aabb + 8 * tile, tile, exit_ != 0, baby_eps, eps_succ);
+      }
+    }
+    for (int32_t i = 0; i < PTT_RAY_TILE && b * PTT_RAY_TILE + i < n; ++i) {
+      out_t[b * PTT_RAY_TILE + i] = r[i].best;
+      out_tri[b * PTT_RAY_TILE + i] = r[i].best_tri;
+    }
+  }
+}
+
+// ptt_binned_kernel: visit v's 256 pair rows against its tile.
+void ptt_host_binned(const float* coef, const float* aabb, const float* center,
+                     const float* const* ray, const uint8_t* live, const float* tlim,
+                     const int32_t* vt, const int32_t* src, int32_t n, int32_t n_g, int32_t nv,
+                     float baby_eps, float eps_succ, float* out_t, int32_t* out_tri) {
+  const V3 c = v3(center[0], center[1], center[2]);
+  for (int32_t v = 0; v < nv; ++v) {
+    for (int32_t row = 0; row < PTT_RAY_TILE; ++row) {
+      const int32_t out = v * PTT_RAY_TILE + row;
+      out_t[out] = ptt_inf();
+      out_tri[out] = -1;
+      const int32_t tile = vt[v];
+      if (tile < 0) continue;
+      const int32_t p = src[v * (PTT_RAY_TILE / PTT_BINNED_G) + row / PTT_BINNED_G];
+      const long long i = (long long)p * PTT_BINNED_G + row % PTT_BINNED_G;
+      if (p >= n_g || i >= n) continue;
+      binned_pair(coef, aabb + 8 * tile, tile, c, v3(ray[0][i], ray[1][i], ray[2][i]),
+                  v3(ray[3][i], ray[4][i], ray[5][i]), live[i] != 0, tlim[i], baby_eps,
+                  eps_succ, &out_t[out], &out_tri[out]);
     }
   }
 }

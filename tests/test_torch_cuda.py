@@ -24,6 +24,7 @@ from project3_cuda_path_tracer_2025_tpu_torch.models import Renderer, megakernel
 from project3_cuda_path_tracer_2025_tpu_torch.ops import camera as camera_ops
 from project3_cuda_path_tracer_2025_tpu_torch.ops import film as film_ops
 from project3_cuda_path_tracer_2025_tpu_torch.ops import fused, intersect_mxu
+from project3_cuda_path_tracer_2025_tpu_torch.ops.compaction import permute_path_state
 from project3_cuda_path_tracer_2025_tpu_torch.ops.intersect import prim_t_min
 from project3_cuda_path_tracer_2025_tpu_torch.scene import (
     build_device_scene, camera_state, derive_render_camera, load_scene,
@@ -220,4 +221,108 @@ def test_mesh_renderer_takes_the_kernels(cuda):
     outside = ~np.isclose(got, want, rtol=2e-4, atol=2e-5)
     assert outside.any(axis=1).mean() <= 0.005
     np.testing.assert_allclose(got.sum(), want.sum(), rtol=1e-4)
+    assert np.isfinite(r.image()).all() and r.image().sum() > 0
+
+
+# ---------------------------------------------------------------------------
+# The walk and binned kernels (csrc/mesh_walk.cu) on the larger meshes
+# ---------------------------------------------------------------------------
+
+def _bounce_states(name, res, device, bounces=3):
+    """(dev, static, [(ro, rd, alive, t_lim)] per bounce) from camera rays,
+    each state in coherence order as the main path sorts it."""
+    dev, static, cam = _setup(name, res, device)
+    cfg = RenderConfig()
+    ik, paths = _camera_paths(static, cam, device)
+    prim_static = dataclasses.replace(static, num_triangles=0)
+    tables = dev.mxu_mesh
+    states = []
+    for d in range(bounces):
+        tl = prim_t_min(static, cfg, paths.origin, paths.direction)
+        perm = intersect_mxu.coherence_perm(tables, paths.origin, paths.direction, paths.alive,
+                                            tl, cfg.ray_sort_bits, cfg.ray_sort_dir_bits,
+                                            mode="signature")
+        paths, (tl,) = permute_path_state(paths, perm, extra=(tl,))
+        states.append((paths.origin, paths.direction, paths.alive, tl))
+        mt, mn, mm = fused.mesh_surface(tables, static, cfg, paths, tl, plain=True)
+        paths = fused.fused_mesh_shade_plain(prim_static, cfg, paths, mt, mn, mm,
+                                             prng.stage_key(ik, d, 1), static.pixel_count)
+    return dev, static, states
+
+
+def _plan(tables, ro, rd, live, tl):
+    return intersect_mxu.plan_with_prefix(
+        tables.tile_aabb, *intersect_mxu.plan_rays(tables, ro, rd, live, tl))
+
+
+@pytest.mark.parametrize("name,kinds", [
+    ("cornell_mesh_20k.json", ("planned_lanebest", "planned", "streamed")),
+    ("cornell_mesh_80k.json", ("streamed",)),
+])
+def test_walk_kernels_match_plain(cuda, name, kinds):
+    """Sorted camera rays and two bounces: each walk kernel's t and tri
+    bit-equal to walk_plain on the same plan."""
+    dev, static, states = _bounce_states(name, 96, cuda)
+    tables = dev.mxu_mesh
+    hits = 0
+    for ro, rd, alive, tl in states:
+        live = alive & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+        plan = _plan(tables, ro, rd, live, tl)
+        want_t, want_tri = intersect_mxu.walk_plain(tables, ro, rd, live, tl, plan, 1e-5)
+        for kind in kinds:
+            fn = intersect_mxu.WALKS[kind]
+            before = fn.launches
+            got_t, got_tri = fn(tables, ro, rd, live, tl, plan, 1e-5)
+            assert fn.launches == before + 1
+            assert torch.equal(got_tri, want_tri), kind
+            assert torch.equal(got_t, want_t), kind
+        hits += int((want_tri >= 0).sum())
+    assert hits > 100
+
+
+def test_binned_kernel_matches_plain(cuda):
+    """Pair by pair on the 20k mesh's sorted camera rays, the bins built
+    over the whole ray range."""
+    dev, static, states = _bounce_states("cornell_mesh_20k.json", 96, cuda, bounces=2)
+    tables = dev.mxu_mesh
+    ct = tables.tile_aabb.shape[0]
+    for ro, rd, alive, tl in states:
+        live = alive & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+        pr = intersect_mxu.plan_rays(tables, ro, rd, live, tl)
+        n_pad = pr.tl.shape[0]
+        bins = intersect_mxu.packet_bins(tables.tile_aabb, *pr,
+                                         intersect_mxu.pair_budget(n_pad, ct), 128)
+        assert not bool(bins.overflow)
+        args = (tables, ro, rd, live, tl, bins.vt, bins.src, n_pad // 8, 1e-5)
+        got = intersect_mxu.binned_intersect(*args)
+        want = intersect_mxu.binned_intersect_plain(*args)
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0], want[0])
+        assert int((want[1] >= 0).sum()) > 50
+
+
+def test_larger_mesh_renderer_takes_the_kernels(cuda):
+    """cornell_mesh_20k.json at 64x64 through each traversal: the films are
+    bit-identical, and each bounce launches the kernel of its traversal
+    (binned: or its streamed fallback) and never the mono kernel."""
+    scene = set_resolution(load_scene(str(REPO / "scenes" / "cornell_mesh_20k.json")), 64, 64)
+    films = {}
+    for mode, kernel in (("auto", "planned_lanebest"), ("planned", "planned_lanebest"),
+                         ("streamed", "streamed"), ("binned", None)):
+        r = Renderer(scene, RenderConfig(mxu_traversal=mode), device=cuda)
+        counters = [intersect_mxu.mono_intersect, intersect_mxu.binned_intersect,
+                    *intersect_mxu.WALKS.values()]
+        before = [c.launches for c in counters]
+        r.step_many(2)
+        got = {c.__name__: c.launches - b for c, b in zip(counters, before)}
+        depth = r.static.trace_depth
+        assert got["mono_intersect"] == 0
+        if kernel is None:
+            assert got["binned_intersect"] > 0
+            assert got["binned_intersect"] + got["streamed_intersect"] == 2 * depth
+        else:
+            assert got[f"{kernel}_intersect"] == 2 * depth
+        films[mode] = torch.stack(list(r.film), 1)
+    for mode in ("planned", "streamed", "binned"):
+        assert torch.equal(films[mode], films["auto"]), mode
     assert np.isfinite(r.image()).all() and r.image().sum() > 0

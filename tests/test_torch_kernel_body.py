@@ -291,3 +291,124 @@ def test_host_mesh_shade_matches_plain(mesh_lib, mesh_scene, emit):
         if emit == "tlim+key":
             assert torch.equal(key_out[same], want_key[same])
         paths = want_p
+
+
+# ---------------------------------------------------------------------------
+# The walk and binned kernels' bodies (csrc/mesh_path.cuh, csrc/mesh_walk.cu)
+# ---------------------------------------------------------------------------
+
+def _host_walk(lib, tables, ro, rd, live, tlim, plan, exit_, eps=1e-5):
+    n = ro.x.shape[0]
+    out_t = torch.empty(n)
+    out_tri = torch.empty(n, dtype=torch.int32)
+    rays = [p.contiguous() for p in (*ro, *rd)]
+    lv, tlc = live.to(torch.uint8).contiguous(), tlim.contiguous()  # held across the call
+    lib.ptt_host_walk(
+        tables.coef.data_ptr(), tables.tile_aabb.data_ptr(), tables.tile_aabb.shape[0],
+        tables.center.data_ptr(), _ptrs(rays), lv.data_ptr(), tlc.data_ptr(),
+        plan.ids.data_ptr(), plan.tlo.data_ptr(), plan.cnt.data_ptr(), exit_, eps,
+        float(np.nextafter(np.float32(eps), np.float32(np.inf))), n, out_t.data_ptr(),
+        out_tri.data_ptr(),
+    )
+    return out_t, out_tri
+
+
+@pytest.fixture(scope="module")
+def walk_lib(mesh_lib):
+    mesh_lib.ptt_host_walk.argtypes = (
+        [P, P, ctypes.c_int32, P, P, P, P, P, P, P, ctypes.c_int32, ctypes.c_float,
+         ctypes.c_float, ctypes.c_int32, P, P]
+    )
+    mesh_lib.ptt_host_binned.argtypes = (
+        [P] * 8 + [ctypes.c_int32] * 3 + [ctypes.c_float] * 2 + [P, P]
+    )
+    return mesh_lib
+
+
+def _walk_cases():
+    """The 20k mesh's camera rays (32x24 = 3 blocks) with the prim t as
+    t_limit, and the two-tile tie mesh's rays."""
+    from torch_compare import mesh_tables_pair, tie_mesh
+
+    scene = set_resolution(load_scene(str(REPO / "scenes" / "cornell_mesh_20k.json")), 32, 24)
+    dev, static = build_device_scene(scene, "cpu")
+    cam = camera_state(derive_render_camera(scene.state.camera))
+    n = static.pixel_count
+    idx = torch.arange(n, dtype=torch.int32)
+    ik = prng.iteration_key(prng.prng_key(0), 1)
+    paths = camera_ops.generate_camera_rays(
+        cam, static.width, static.height, static.trace_depth,
+        prng.uniforms_at(prng.stage_key(ik, 0, 0), idx, 4, n), idx=idx,
+    )
+    tl = prim_t_min(static, RenderConfig(), paths.origin, paths.direction)
+    yield "20k", dev.mxu_mesh, paths.origin, paths.direction, torch.ones(n, dtype=torch.bool), tl
+    pos, o, d, lim = tie_mesh(np.random.default_rng(60), 900)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    yield ("tie", mesh_tables_pair(pos)[1], Vec3(*(t(o[:, i]) for i in range(3))),
+           Vec3(*(t(d[:, i]) for i in range(3))), torch.ones(900, dtype=torch.bool), t(lim))
+
+
+def _plan_for(tables, ro, rd, live, tl):
+    return intersect_mxu.build_tile_plan(
+        tables.tile_aabb, *intersect_mxu.plan_rays(tables, ro, rd, live, tl))
+
+
+def test_host_walks_match_plain(walk_lib):
+    """The walk body in the kernels' block schedule, without (#5) and with
+    (#6, #7) the early exit: t and tri equal to walk_plain's; on the tie
+    mesh also to the JAX package's planned walk (``mesh_intersect_mxu``
+    with ``planned=True`` in interpret mode) and to the lower copy's id."""
+    import jax.numpy as jnp
+
+    from project3_cuda_path_tracer_2025_tpu.ops.intersect_mxu import mesh_intersect_mxu as j_mxu
+    from project3_cuda_path_tracer_2025_tpu.utils.vec import Vec3 as JVec3
+    from torch_compare import TIE_TRIS, mesh_tables_pair, tie_mesh
+
+    for name, tables, ro, rd, active, tl in _walk_cases():
+        live = active & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+        plan = _plan_for(tables, ro, rd, live, tl)
+        want_t, want_tri = intersect_mxu.walk_plain(tables, ro, rd, live, tl, plan, 1e-5)
+        assert (want_tri >= 0).sum() > 20
+        for exit_ in (0, 1):
+            got_t, got_tri = _host_walk(walk_lib, tables, ro, rd, live, tl, plan, exit_)
+            assert torch.equal(got_tri, want_tri), (name, exit_)
+            assert torch.equal(got_t, want_t), (name, exit_)
+        if name == "tie":
+            pos, o, d, lim = tie_mesh(np.random.default_rng(60), 900)
+            jt = mesh_tables_pair(pos)[0]
+            j3 = lambda a: JVec3(*[jnp.asarray(a[:, i]) for i in range(3)])
+            jr = j_mxu(jt, 2048, 2048, j3(o), j3(d), jnp.ones(900, bool), jnp.asarray(lim),
+                       1e-5, interpret=True, planned=True, planned_epilogue="running")
+            np.testing.assert_array_equal(got_tri.numpy(), np.asarray(jr.tri))
+            np.testing.assert_array_equal(got_t.numpy(), np.asarray(jr.t))
+            assert set(np.unique(got_tri.numpy()[got_tri.numpy() >= 0])) == {TIE_TRIS[0]}
+
+
+def test_host_binned_matches_plain(walk_lib):
+    """The binned pair body over bins of every packet: per pair row (t,
+    tri) equal to binned_intersect_plain's."""
+    for name, tables, ro, rd, active, tl in _walk_cases():
+        n = ro.x.shape[0]
+        live = active & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+        pr = intersect_mxu.plan_rays(tables, ro, rd, live, tl)
+        n_pad = pr.tl.shape[0]
+        bins = intersect_mxu.packet_bins(
+            tables.tile_aabb, *pr, intersect_mxu.pair_budget(n_pad, tables.tile_aabb.shape[0]),
+            128)
+        n_g, nv = n_pad // 8, bins.vt.shape[0]
+        want_t, want_tri = intersect_mxu.binned_intersect_plain(
+            tables, ro, rd, live, tl, bins.vt, bins.src, n_g, 1e-5)
+        got_t = torch.empty(nv * 256)
+        got_tri = torch.empty(nv * 256, dtype=torch.int32)
+        eps = 1e-5
+        rays = [p.contiguous() for p in (*ro, *rd)]
+        lv, tlc = live.to(torch.uint8), tl.contiguous()  # held across the call
+        walk_lib.ptt_host_binned(
+            tables.coef.data_ptr(), tables.tile_aabb.data_ptr(), tables.center.data_ptr(),
+            _ptrs(rays), lv.data_ptr(), tlc.data_ptr(), bins.vt.data_ptr(),
+            bins.src.data_ptr(), n, n_g, nv, eps,
+            float(np.nextafter(np.float32(eps), np.float32(np.inf))), got_t.data_ptr(),
+            got_tri.data_ptr())
+        assert (want_tri >= 0).sum() > 20, name
+        assert torch.equal(got_tri, want_tri), name
+        assert torch.equal(got_t, want_t), name

@@ -76,6 +76,35 @@ def test_from_jax_scene_carries_the_mesh(mesh5k):
     assert torch.equal(dev_a.mxu_mesh.coef, dev.mxu_mesh.coef)
 
 
+def test_from_jax_scene_carries_a_20k_mesh():
+    """A mesh beyond the mono band (cornell_mesh_20k.json, 20 tiles) carries
+    across too: the tables equal JAX's and the port's own build, and the
+    tile plan over the carried tables equals the JAX package's plan."""
+    path = str(REPO / "scenes" / "cornell_mesh_20k.json")
+    jdev, jstatic = j_build(j_load(path, native_bvh=False))
+    dev_a, static_a = from_jax_scene(jax.tree_util.tree_map(np.asarray, jdev), jstatic)
+    dev, static = build_device_scene(load_scene(path), "cpu")
+    assert static_a == static and static.mxu_padded_tris == 20 * 1024
+    _assert_tables_equal(dev_a, jdev)
+    assert torch.equal(dev_a.mxu_mesh.coef, dev.mxu_mesh.coef)
+    rng = np.random.default_rng(8)
+    tab, n = dev_a.mxu_mesh, 768
+    o, d = _random_rays(rng, n, tab.center.numpy())
+    live = rng.random(n) > 0.2
+    lim = np.full(n, 3.4e38, np.float32)
+    os_ = (o - tab.center.numpy()).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    plan = mxu.build_tile_plan(tab.tile_aabb, mxu.Vec3(*(t(os_[:, i]) for i in range(3))),
+                               mxu.Vec3(*(t(d[:, i]) for i in range(3))), t(live), t(lim))
+    one = live.astype(np.float32)
+    want = jmxu._build_tile_plan(jdev.mxu_mesh.tile_aabb, jnp.asarray(os_ * one[:, None]),
+                                 jnp.asarray(d * one[:, None]), jnp.asarray(one),
+                                 jnp.asarray(lim))
+    for a, b in zip(plan, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert int(plan.cnt.sum()) > 20
+
+
 def test_random_mesh_tables_with_padding_and_flat_normals():
     """2,300 triangles (3 tiles, the last one part padding) with all-zero
     vertex normals, so every triangle takes the flat-normal fallback."""
@@ -152,25 +181,34 @@ def test_root_cull_and_sort_keys_match_jax():
 
 def test_traversal_resolution():
     assert mxu.resolve_traversal_mode("auto", 5120) == "mono"
-    assert mxu.traversal_flags("auto", 8192) == dict(mono=True)
+    assert mxu.traversal_flags("auto", 8192) == dict(planned=True, streamed=False, mono=True)
     for padded, mode in ((20480, "planned"), (81920, "streamed"), (204800, "binned")):
         assert mxu.resolve_traversal_mode("auto", padded) == mode
-        with pytest.raises(NotImplementedError, match="Queue 2 #5-#10"):
-            mxu.traversal_flags("auto", padded)
-    with pytest.raises(NotImplementedError, match="Queue 2 #5-#10"):
-        RenderConfig(mxu_traversal="planned")
+        assert mxu.traversal_flags("auto", padded) == jmxu.traversal_flags("auto", padded)
+    for mode in ("planned", "streamed", "binned"):
+        assert RenderConfig(mxu_traversal=mode).mxu_traversal == mode
+    with pytest.raises(NotImplementedError, match="Queue 2 #9"):
+        RenderConfig(mxu_traversal="sweep")
     with pytest.raises(NotImplementedError, match="Queue 1: prefix tiers"):
         RenderConfig(bounce_prefix_tiers=(4, 2))
     with pytest.raises(NotImplementedError, match="do-not-port"):
         RenderConfig(mesh_state_order="pixel")
+    with pytest.raises(NotImplementedError, match="do-not-port"):
+        RenderConfig(mxu_plan="frustum")
     assert RenderConfig(bounce_prefix_tiers=()).resolved_prefix_tiers() == ()
 
 
 @pytest.mark.parametrize("device", ["cuda", "cpu"])
 def test_mesh_beyond_the_mono_band_raises(device):
-    """cornell_mesh_20k.json: 20,480 triangles resolve to the planned walk,
-    which is not ported; the Renderer refuses the scene before it builds
-    anything, on any device."""
-    scene = load_scene(str(REPO / "scenes" / "cornell_mesh_20k.json"))
-    with pytest.raises(NotImplementedError, match="Queue 2 #5-#10"):
+    """A mesh of more than 1,024 tiles (the streamed plan's capacity) needs
+    the chunked planned chain, which is not ported: the Renderer refuses
+    the scene before it builds anything, on any device.  (The meshes of
+    9-1,024 tiles are ported: tests/test_torch_mesh_frame.py.)"""
+    scene = load_scene(str(REPO / "scenes" / "cornell_mesh_5k.json"))
+    t = 1024 * mxu.TRI_TILE + 1
+    # Zero-stride views: the triangle count is all the gate reads.
+    for f, shape in (("tri_positions", (3, 3)), ("tri_normals", (3, 3)), ("tri_uvs", (3, 2))):
+        setattr(scene, f, np.broadcast_to(np.zeros(shape, np.float32), (t, *shape)))
+    scene.tri_material_ids = np.broadcast_to(np.zeros((), np.int32), (t,))
+    with pytest.raises(NotImplementedError, match="Queue 1 #2, larger meshes: the chunked planned chain"):
         Renderer(scene, device=device)

@@ -171,7 +171,7 @@ print("ok")
         (dict(integrator="wavefront"), "wavefront"),
         (dict(devices=2), "parallel/"),
         (dict(pixel_chunks=4), "parallel/"),
-        (dict(mxu_traversal="planned"), "meshes"),
+        (dict(mxu_traversal="sweep"), "meshes"),
         (dict(native_bvh=True), "native/"),
     ],
 )
@@ -181,10 +181,17 @@ def test_config_raises_for_unported_paths(kw, item):
 
 
 def test_mesh_scene_raises_not_ported():
-    """Meshes up to 8,192 padded triangles are ported; a larger one (20,480
-    triangles, which the JAX package walks with the planned traversal)
-    raises naming its ROADMAP.md item."""
-    build_device_scene(load_scene(str(REPO / "scenes" / "cornell_mesh_5k.json")), "cpu")
-    scene = load_scene(str(REPO / "scenes" / "cornell_mesh_20k.json"))
+    """Meshes up to 1,024 tiles of 1,024 triangles are ported (the 20,480
+    triangles of cornell_mesh_20k.json build); a larger one, which the JAX
+    package walks with the chunked planned chain, raises naming its
+    ROADMAP.md item."""
+    _, static = build_device_scene(load_scene(str(REPO / "scenes" / "cornell_mesh_20k.json")),
+                                   "cpu")
+    assert static.mxu_padded_tris == 20 * 1024
+    scene = load_scene(str(REPO / "scenes" / "cornell_mesh_5k.json"))
+    t = 1024 * 1024 + 1  # one triangle past the streamed plan's capacity
+    for f, shape in (("tri_positions", (3, 3)), ("tri_normals", (3, 3)), ("tri_uvs", (3, 2))):
+        setattr(scene, f, np.broadcast_to(np.zeros(shape, np.float32), (t, *shape)))
+    scene.tri_material_ids = np.broadcast_to(np.zeros((), np.int32), (t,))
     with pytest.raises(NotImplementedError, match="larger meshes"):
         build_device_scene(scene, "cpu")

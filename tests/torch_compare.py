@@ -88,3 +88,60 @@ def assert_films_close(got, want):
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=FILM_RTOL, atol=FILM_ATOL)
     np.testing.assert_allclose(got.sum(), want.sum(), rtol=FILM_SUM_RTOL)
+
+
+# ---------------------------------------------------------------------------
+# Mesh traversal cases shared by the tests of the larger-mesh walks
+# ---------------------------------------------------------------------------
+
+def sphere_rays(rng, n, center=(0.0, 0.0, 0.0)):
+    """Rays from a sphere of radius 3 around ``center`` toward a box of
+    half-size 0.8 around it (the JAX package's ``tests/test_intersect_mxu.py``
+    rays): (origins, directions) float32 [n, 3]."""
+    o = rng.normal(size=(n, 3))
+    o = 3.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = rng.uniform(-0.8, 0.8, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (o + np.asarray(center)).astype(np.float32), d.astype(np.float32)
+
+
+TIE_TRIS = (5, 1024 + 7)  # the two copies of the shared triangle
+
+
+def tie_mesh(rng, n):
+    """Two tiles that hold the same triangle (ids 5 and 1031), so every ray
+    that hits it has an exact tie across tiles, and whose boxes make the
+    plan visit tile 1 first: tile 1 reaches back toward the rays' origins,
+    tile 0 away from them.  The lower id must win.  Returns (pos [2048, 3,
+    3], origins, directions, t_limit) float32; the other triangles lie off
+    the rays' paths."""
+    pos = np.zeros((2048, 3, 3), np.float32)
+    small = np.array([[0.0, 0.0, 0.0], [0.3, 0.0, 0.0], [0.0, 0.3, 0.0]], np.float32)
+    u = rng.random((2048, 1, 3)).astype(np.float32)
+    pos[:1024] = small + np.array([40.0, -1.0, 0.0], np.float32) + u[:1024] * [1.0, 2.0, 3.0]
+    pos[1024:] = small + np.array([20.0, -1.0, -4.0], np.float32) + u[1024:] * [1.0, 2.0, 4.0]
+    shared = np.array([[-1.0, -1.0, 0.0], [3.0, -1.0, 0.0], [-1.0, 3.0, 0.0]], np.float32)
+    pos[list(TIE_TRIS)] = shared
+    o = np.concatenate([rng.uniform(-0.8, 0.8, (n, 2)), np.full((n, 1), -5.0)], 1)
+    d = np.concatenate([rng.uniform(-0.05, 0.05, (n, 2)), np.ones((n, 1))], 1)
+    d[: n // 4, :2] = 0.0  # straight down the axis: the hit is exactly t = 5
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    lim = np.where(rng.random(n) > 0.3, 3.4e38, rng.uniform(4.0, 6.0, n))
+    lim[: n // 16] = 5.0  # a hit exactly at t_limit loses to it
+    return pos, o.astype(np.float32), d.astype(np.float32), lim.astype(np.float32)
+
+
+def mesh_tables_pair(pos):
+    """The JAX package's MXU tables of ``pos`` (in this order, no BVH) and
+    the port's copy of them: (jax tables, port tables)."""
+    from project3_cuda_path_tracer_2025_tpu.ops.intersect_mxu import build_mxu_tables
+    from project3_cuda_path_tracer_2025_tpu_torch.ops.intersect_mxu import tables_from_arrays
+
+    t = pos.shape[0]
+    nrm = np.zeros_like(pos)
+    nrm[:] = [0.0, 0.0, 1.0]
+    jt = build_mxu_tables(pos, nrm, np.zeros((t, 3, 2), np.float32),
+                          np.zeros((t, 3), np.float32), np.zeros((t, 3), np.float32),
+                          np.zeros((t,), np.int32))
+    return jt, tables_from_arrays(*(np.asarray(getattr(jt, f)) for f in (
+        "features", "tile_aabb", "attrs", "attrs_shade", "center")))
