@@ -9,12 +9,16 @@ reset -- the prim path (``Renderer`` on ``scenes/cornell_dof.json`` at
 800x800, depth 8, and ``megakernel_iteration``, phases 1-7), the mono mesh
 path (``scenes/cornell_mesh_5k.json``, phase 8) and the larger meshes, all
 at 800x800, depth 8: the planned walks (``cornell_mesh_20k.json``, phase
-10), the streamed walk (``cornell_mesh_80k.json``, the slice's main path,
-and ``cornell_mesh_500k.json``, phase 11) and the packet-binned traversal
-(``cornell_mesh_200k.json``, phase 12) -- checks the results against the
-committed golden films, and times the kernel paths against the plain
-versions with CUDA events; phase 9 profiles whole frames.  Any failure
-raises and exits non-zero.
+10), the streamed walk (``cornell_mesh_80k.json`` and
+``cornell_mesh_500k.json``, phase 11), the packet-binned traversal
+(``cornell_mesh_200k.json``, phase 12), textured
+prims (``cornell_prim_textured_local.json``, the shade kernel's mode
+"precomputed", phase 13), a textured and bump-mapped mesh
+(``cornell_mesh_textured_local.json`` and ``_bump_local``, mode "textured",
+phase 14) and the wavefront integrator with the scan kernel (phase 15) --
+checks the results against the committed golden films, and times the
+kernel paths against the plain versions with CUDA events; phase 9 profiles
+whole frames.  Any failure raises and exits non-zero.
 
 Output: progress lines, then the card's ``nvidia-smi`` name and power
 limit, then one JSON line describing the kernels, and last one JSON line
@@ -44,6 +48,11 @@ MESH_GOLDEN = ROOT / "tests" / "torch_goldens" / "mesh5k.npz"
 LARGE = {k: ROOT / "scenes" / f"cornell_mesh_{k}.json" for k in ("20k", "80k", "200k", "500k")}
 GOLDEN_20K = ROOT / "tests" / "torch_goldens" / "mesh20k.npz"
 GOLDEN_80K = ROOT / "tests" / "torch_goldens" / "mesh80k.npz"
+PRIM_TEX = ROOT / "scenes" / "cornell_prim_textured_local.json"
+MESH_TEX = ROOT / "scenes" / "cornell_mesh_textured_local.json"
+MESH_BUMP = ROOT / "scenes" / "cornell_mesh_textured_bump_local.json"
+TEX_GOLDENS = {PRIM_TEX: "prim_textured", MESH_TEX: "mesh_textured",
+               MESH_BUMP: "mesh_textured_bump"}
 # The plain walk on the 200k and 500k meshes runs on a fixed sub-range of
 # each bounce's sorted rays, its first 64 blocks (16,384 rays, the live
 # rays first), to keep the run short.
@@ -71,6 +80,7 @@ OPS_MONO_TILE = 35  # member slab of one tile
 OPS_MONO_PAIR = 41  # 19 fma, division, t, the acceptance tests
 OPS_KEY_TILE, OPS_KEY_RAY = 28, 60  # coherence_key per tile / per ray
 OPS_MERGE = 10  # mesh-hit merge and normal flip
+OPS_SCAN = 1  # one add per element of the row scan
 
 # Film comparisons between the kernel and the plain path: the goldens'
 # per-pixel tolerance (tests/test_goldens.py), a bound on the share of pixels
@@ -161,6 +171,28 @@ def time_paths(paths_t: dict, rounds: dict) -> dict:
     return times
 
 
+def device_busy(fn, calls: int) -> tuple:
+    """``torch.profiler`` over ``calls`` back-to-back calls of ``fn`` (after
+    one warm-up call): (device ms per call, wall ms per call under the
+    profiler, device launches per call, the six device functions that took
+    the most time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3 / calls
+    count = sum(e.count for e in dev) / calls
+    return busy, wall, count, sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+
+
 def profile_paths(paths: dict, frames: int = 3) -> None:
     """Phase 9: ``torch.profiler`` over ``frames`` back-to-back frames of
     each path (name -> zero-argument frame function): device busy time per
@@ -168,22 +200,8 @@ def profile_paths(paths: dict, frames: int = 3) -> None:
     nothing overlaps), wall time per frame under the profiler (inflated by
     its own host overhead), device launches per frame and the top device
     functions."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     for name, fn in paths.items():
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(frames):
-                fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / frames
-        dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in dev) / 1e3 / frames
-        count = sum(e.count for e in dev) / frames
-        top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+        busy, wall, count, top = device_busy(fn, frames)
         log(f"[9] {name}: device busy {busy:.4f} ms/frame, wall under the profiler "
             f"{wall:.4f} ms/frame ({busy / wall:.1%} busy), {count:.0f} device launches/frame")
         for e in top:
@@ -570,6 +588,13 @@ def binned_bound(args) -> tuple:
     return bound_ms(nbytes, ops) + (pairs,)
 
 
+def bits_differ(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Lanes whose bit patterns differ (NaN payloads included)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum())
+
+
 def check_golden(path_scene, golden) -> None:
     from project3_cuda_path_tracer_2025_tpu_torch.models import Renderer
     from project3_cuda_path_tracer_2025_tpu_torch.scene import load_scene, set_resolution
@@ -940,6 +965,356 @@ def larger_mesh_phases(device, smi: str) -> tuple:
     return kernels, profiled
 
 
+# ---------------------------------------------------------------------------
+# Phases 13-14: textured scenes (the shade kernel's modes "precomputed" and
+# "textured")
+# ---------------------------------------------------------------------------
+
+def tex_states(dev, static, cam, cfg, device, mode: str, bounces: int = 4) -> list:
+    """Camera rays and the next bounces of a textured scene as the main path
+    shades them: [(paths, surface, shade key)], ``surface`` the kernel's
+    resolved inputs (mesh_t, normal, material, albedo).  Mode "textured"
+    (a textured mesh): each state in coherence order with the mesh surface
+    stage; mode "precomputed" (a textured prim): intersect_scene and
+    textured_surface.  The next state comes from the plain shade."""
+    import dataclasses
+
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import camera as camera_ops
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused, intersect_mxu as mxu
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import shade as shade_ops
+    from project3_cuda_path_tracer_2025_tpu_torch.ops.compaction import permute_path_state
+    from project3_cuda_path_tracer_2025_tpu_torch.ops.intersect import intersect_scene, prim_t_min
+    from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
+    from project3_cuda_path_tracer_2025_tpu_torch.utils.vec import Vec3
+
+    n = static.pixel_count
+    prim_static = dataclasses.replace(static, num_triangles=0)
+    ik = prng.iteration_key(prng.prng_key(0), 1)
+    paths = camera_ops.generate_camera_rays(
+        cam, static.width, static.height, static.trace_depth,
+        prng.uniforms_at(prng.stage_key(ik, 0, 0), torch.arange(n, device=device), 4, n))
+    out = []
+    for d in range(bounces):
+        if mode == "textured":
+            tables = dev.mxu_mesh
+            tl = prim_t_min(static, cfg, paths.origin, paths.direction)
+            perm = mxu.coherence_perm(tables, paths.origin, paths.direction, paths.alive, tl,
+                                      cfg.ray_sort_bits, cfg.ray_sort_dir_bits, mode="signature")
+            paths, (tl,) = permute_path_state(paths, perm, extra=(tl,))
+            surf = fused.textured_mesh_surface(dev, static, cfg, paths, tl)
+        else:
+            isect = intersect_scene(dev, static, paths, cfg)
+            mid = torch.clamp(isect.material_id, 0, static.num_materials - 1)
+            alb, nrm = shade_ops.textured_surface(
+                dev, static, isect, mid, Vec3(*(c[mid.long()] for c in dev.materials.color)),
+                live=paths.alive & (isect.t > 0.0))
+            surf = (isect.t, nrm, isect.material_id, alb)
+        skey = prng.stage_key(ik, d, 1)
+        out.append((paths, surf, skey))
+        paths = fused.fused_mesh_shade_plain(prim_static, cfg, paths, *surf[:3], skey, n,
+                                             mode=mode, mesh_albedo=surf[3])
+    return out
+
+
+def shade_mode_bound(n: int, live: int, prim_static, mode: str, emit: str, ct: int) -> tuple:
+    """Bound of one mesh-shade launch: every input plane read once (16, and
+    3 albedo planes in the textured modes), every output written once (10,
+    and t_lim and the key with emit); the operations of the live rays' prim
+    intersection (none in "precomputed"), merge and scatter, and with emit
+    the scattered rays' prim t and sort key."""
+    planes = 16 + (3 if mode != "plain" else 0) + 10 + (emit != "") + (emit == "tlim+key")
+    ops = live * ((0 if mode == "precomputed" else prim_ops(prim_static))
+                  + OPS_MERGE + OPS_SCATTER)
+    if emit:
+        ops += n * prim_ops(prim_static)
+    if emit == "tlim+key":
+        ops += n * (OPS_KEY_RAY + ct * OPS_KEY_TILE)
+    return bound_ms(n * planes * 4, ops)
+
+
+def texture_phases(device, smi: str) -> tuple:
+    """Phases 13 (textured prims, mode "precomputed") and 14 (a textured,
+    bump-mapped mesh, mode "textured", and its variant with a distinct
+    height map) at 800x800, depth 8.  Returns the two modes' entries of the
+    kernels line and frames for phase 9."""
+    import dataclasses
+
+    from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
+    from project3_cuda_path_tracer_2025_tpu_torch.models import megakernel_iteration
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import film as film_ops
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused, intersect_mxu as mxu
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import scan
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import (
+        build_device_scene, camera_state, derive_render_camera, load_scene,
+    )
+    from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
+
+    cfg = RenderConfig()
+    base_key = prng.prng_key(0)
+    counters = {c.__name__: c for c in (
+        mxu.mono_intersect, fused.fused_mesh_shade, fused.fused_prim_iteration,
+        fused.fused_prim_bounce, scan.scan_tiles)}
+    entries, profiled = [], {}
+    for tag, mode, scenes in (("13", "precomputed", (PRIM_TEX,)),
+                              ("14", "textured", (MESH_TEX, MESH_BUMP))):
+        log(f"[{tag}] textured path, the shade kernel in mode {mode!r}:")
+        err, timed, rays = 0.0, {}, {}
+        for k, path in enumerate(scenes):
+            scene = load_scene(str(path))
+            dev, static = build_device_scene(scene, device)
+            cam = camera_state(derive_render_camera(scene.state.camera))
+            n, depth = static.pixel_count, static.trace_depth
+            prim_static = dataclasses.replace(static, num_triangles=0)
+            ms = static.material_consts
+            single = all(m.texture_id < 0 or m.bump_id < 0 or m.texture_id == m.bump_id
+                         for m in ms)
+            ct = dev.mxu_mesh.tile_aabb.shape[0]
+            emit = "tlim+key" if mode == "textured" else ""
+            log(f"    {path.name}: {static.num_textures} textures "
+                f"{[tuple(d) for d in static.tex_dims]}, {static.num_triangles} triangles in "
+                f"{ct} tiles, {static.width}x{static.height} depth {depth}; texel gather: "
+                f"{'one packed quad' if single else 'two quads (albedo, gradients)'}")
+            # a. the kernel against its plain version, bit for bit
+            states = tex_states(dev, static, cam, cfg, device, mode)
+            case = None
+            for d, (paths, surf, skey) in enumerate(states):
+                args = (prim_static, cfg, paths, *surf[:3], skey, n, emit,
+                        dev.mxu_mesh.tile_aabb if emit else None,
+                        dev.mxu_mesh.center if emit else None)
+                got = fused.fused_mesh_shade(*args, mode=mode, mesh_albedo=surf[3])
+                want = fused.fused_mesh_shade_plain(*args, mode=mode, mesh_albedo=surf[3])
+                torch.cuda.synchronize()
+                (gp, gc), (wp, wc) = (got, want) if emit else ((got, ()), (want, ()))
+                fk = [*gp.origin, *gp.direction, *gp.color, gp.bounces, *gc]
+                fp = [*wp.origin, *wp.direction, *wp.color, wp.bounces, *wc]
+                bad = sum(bits_differ(a, b) for a, b in zip(fk, fp))
+                tex_lanes = int((surf[2] >= 0).sum()) if mode == "textured" else int(
+                    (paths.alive & (surf[0] > 0)).sum())
+                log(f"[{tag}a] bounce {d}: {int(paths.alive.sum())} alive rays, {tex_lanes} "
+                    f"{'mesh hits' if mode == 'textured' else 'hits'}; output values not "
+                    f"bit-equal to the plain version: {bad}")
+                if bad:
+                    raise AssertionError(f"the mesh-shade kernel in mode {mode!r} is not "
+                                         "bit-equal to its plain version")
+                err = max(err, max(float((a.float() - b.float()).abs().max()) for a, b in zip(fk, fp)))
+                case = case or (args, surf[3])
+            # b. one frame: the kernel path against the plain path
+            frame = lambda c, plain=False: megakernel_iteration(
+                dev, static, c, cam, film_ops.new_film(n, device), 1, base_key, plain=plain)
+            film_k, alive_k = frame(cfg)
+            film_p, alive_p = frame(cfg, plain=True)
+            torch.cuda.synchronize()
+            log(f"[{tag}b] one frame, kernel path vs megakernel_iteration(plain=True):")
+            r_frame = compare_films("kernel path vs plain", film_k, film_p)
+            alive_rel = np.abs(alive_k.cpu().numpy() - alive_p.cpu().numpy()) / np.maximum(
+                alive_p.cpu().numpy(), 1)
+            checks = [r_frame["finite"], r_frame["sum_rel"] <= MAX_SUM_REL,
+                      r_frame["pixel_share"] <= MAX_PIXEL_SHARE, (alive_rel <= MAX_ALIVE_REL).all()]
+            if mode == "textured":
+                film_u, _ = frame(RenderConfig(ray_sorting="off"))
+                sorted_eq = all(torch.equal(a, b) for a, b in zip(film_k, film_u))
+                log(f"  sorted and unsorted kernel films bit-identical: {sorted_eq}")
+                checks.append(sorted_eq)
+            if not all(checks):
+                raise AssertionError(f"the textured kernel path disagrees on {path.name}")
+            # c. the main path, counters reset
+            r, got = drive(scene, 4, counters)
+            log(f"[{tag}c] Renderer('{path.name}') step_many(4): launches {got}")
+            if (got["fused_mesh_shade"], got["mono_intersect"], got["fused_prim_iteration"],
+                    got["fused_prim_bounce"]) != (4 * depth, 4 * depth, 0, 0):
+                raise AssertionError(f"the {path.name} Renderer did not take the shade "
+                                     "kernel and the traversal once per bounce")
+            if k == 0:
+                entries.append(dict(name=f"fused_mesh_shade[{mode}]",
+                                    launches=got["fused_mesh_shade"], max_abs_err=err))
+                OUT_DIR.mkdir(parents=True, exist_ok=True)
+                log(f"    saved {pathlib.Path(r.save(out_dir=str(OUT_DIR))).relative_to(ROOT)}")
+            check_golden(path, ROOT / "tests" / "torch_goldens" / f"{TEX_GOLDENS[path]}.npz")
+            # d. timing
+            fr = frame_fn(dev, static, cam, cfg, base_key, device)
+            fname = f"{path.stem} frame (Renderer default path)"
+            timed[fname] = (fr, 3)
+            rays[fname] = float(n + alive_k.sum().item())
+            if k == 0:
+                args, alb = case
+                timed[f"mesh-shade kernel, {mode} (1 bounce)"] = (
+                    lambda: fused.fused_mesh_shade(*args, mode=mode, mesh_albedo=alb), 20)
+                timed[f"plain mesh shade, {mode} (1 bounce)"] = (
+                    lambda: fused.fused_mesh_shade_plain(*args, mode=mode, mesh_albedo=alb), 1)
+                live = int(args[2].alive.sum())
+                entries[-1]["bound"] = shade_mode_bound(n, live, prim_static, mode, emit, ct)
+                log(f"    bound of one {mode} launch (bounce 0): {entries[-1]['bound'][0]:.4f} "
+                    f"ms ({entries[-1]['bound'][1]}; {live} live rays)")
+                profiled[f"{path.stem} (textured, kernel path)"] = fr
+        rounds = {k: (3 if "plain" in k else 5) for k in timed}
+        ms = log_times(f"{tag}d", smi, time_paths(timed, rounds), timed, rounds, rays)
+        entries[-1]["ms"] = ms[f"mesh-shade kernel, {mode} (1 bounce)"]
+        entries[-1]["plain_ms"] = ms[f"plain mesh shade, {mode} (1 bounce)"]
+        log(f"    host reads in one frame: {host_syncs(profiled[f'{scenes[0].stem} (textured, kernel path)'])}")
+    kernels = [{
+        "name": e["name"],
+        "route": "cuda",
+        "source": f"{PKG}/csrc/fused_mesh.cu",
+        "replaces": "project3_cuda_path_tracer_2025_tpu/ops/fused.py:201",
+        "launches": e["launches"],
+        "max_abs_err": e["max_abs_err"],
+        "ms": e["ms"],
+        "plain_ms": e["plain_ms"],
+        "bound_ms": e["bound"][0],
+        "bound_by": e["bound"][1],
+        "library_ms": None,
+    } for e in entries]
+    return kernels, profiled
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the wavefront integrator and the scan kernel (csrc/scan.cu)
+# ---------------------------------------------------------------------------
+
+def wavefront_phases(device, smi: str) -> tuple:
+    """Phase 15: the scan kernel against torch.cumsum and its plain
+    version, the radix sort against a stable argsort, and
+    ``Renderer(integrator="wavefront")`` on cornell_dof.json (every
+    compaction policy, with and without material sorting),
+    cornell_mesh_5k.json and the textured mesh: each film bit-identical to
+    the megakernel's unfused film, beside the megakernel kernel path's.
+    Returns the scan kernel's entry of the kernels line and frames for
+    phase 9."""
+    from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
+    from project3_cuda_path_tracer_2025_tpu_torch.models import Renderer
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import scan
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import load_scene
+
+    log("[15] wavefront integrator and the scan kernel (#12):")
+    g = torch.Generator(device=device).manual_seed(0)
+    # a. the kernel path of the scan against torch.cumsum: exact on integers
+    for n in (640_000, scan.TILE * 39 + 1):
+        flags = (torch.rand(n, generator=g, device=device) > 0.5).to(torch.int32)
+        ramp = torch.arange(n, device=device, dtype=torch.int32) % 5
+        for name, x in (("0/1 flags", flags), ("int ramp", ramp)):
+            ex = scan.exclusive_scan(x)
+            inc = scan.inclusive_scan(x)
+            want = torch.cumsum(x, 0, dtype=torch.int32)
+            bad = int((ex != want - x).sum()) + int((inc != want).sum())
+            log(f"[15a] N={n} {name}: scan elements differing from torch.cumsum: {bad}")
+            if bad:
+                raise AssertionError("the scan kernel path disagrees with torch.cumsum")
+        xf = torch.rand(n, generator=g, device=device)
+        got = scan.inclusive_scan(xf).double()
+        ref = torch.cumsum(xf.double(), 0)
+        lib = torch.cumsum(xf, 0).double()
+        rel = float(((got - ref).abs() / ref.clamp_min(1.0)).max())
+        rel_lib = float(((lib - ref).abs() / ref.clamp_min(1.0)).max())
+        log(f"[15a] N={n} float32 U[0,1): max relative error vs a float64 cumsum {rel:.3e} "
+            f"(torch.cumsum in float32: {rel_lib:.3e}); bar 1e-5")
+        if rel > 1e-5:
+            raise AssertionError("the float scan is outside its tolerance")
+    rows = (scan.TILE * 40) // scan.LANES
+    xp = (torch.rand(rows, scan.LANES, generator=g, device=device) > 0.5).float()
+    lk, tk = scan.scan_tiles(xp)
+    lp, tp = scan.scan_tiles_plain(xp)
+    torch.cuda.synchronize()
+    bad = bits_differ(lk, lp) + bits_differ(tk.contiguous(), tp.contiguous())
+    xf = torch.rand(rows, scan.LANES, generator=g, device=device)
+    (lk, tk), (lp, tp) = scan.scan_tiles(xf), scan.scan_tiles_plain(xf)
+    err = max(float((lk - lp).abs().max()), float((tk - tp).abs().max()))
+    log(f"[15a] scan_tiles on [{rows}, 128] 0/1 rows: elements not bit-equal to "
+        f"scan_tiles_plain: {bad}; on U[0,1) rows: max abs diff {err:.3g} (row sums < 128)")
+    if bad or err > 1e-4:
+        raise AssertionError("the scan kernel disagrees with its plain version")
+    keys = torch.randint(0, 64, (640_000,), generator=g, device=device, dtype=torch.int32)
+    perm = scan.radix_sort_permutation(keys, num_bits=6)
+    same = torch.equal(perm.long(), torch.argsort(keys, stable=True))
+    log(f"[15b] radix_sort_permutation (6 bits, 640,000 keys) equals stable argsort: {same}")
+    if not same:
+        raise AssertionError("the radix sort disagrees with a stable argsort")
+
+    # c. wavefront frames against the megakernel's
+    configs = [("compaction", dict(stream_compaction=True)),
+               ("adaptive", dict(stream_compaction="adaptive")),
+               ("no compaction", dict(stream_compaction=False)),
+               ("compaction+sort", dict(stream_compaction=True, material_sorting=True)),
+               ("adaptive+sort", dict(stream_compaction="adaptive", material_sorting=True)),
+               ("no compaction+sort", dict(stream_compaction=False, material_sorting=True))]
+    runs = [(SCENE, configs), (MESH_SCENE, configs[:1]), (MESH_TEX, configs[:1])]
+    timed, rays, profiled, main_launches = {}, {}, {}, None
+    for path, cfgs in runs:
+        scene = load_scene(str(path))
+        ref = Renderer(scene, RenderConfig(fused_bounce="off"))
+        ref.step_many(1)
+        fast = Renderer(scene, RenderConfig())
+        fast.step_many(1)
+        depth = ref.static.trace_depth
+        for name, kw in cfgs:
+            scan.scan_tiles.launches = 0
+            wf = Renderer(scene, RenderConfig(integrator="wavefront", **kw))
+            wf.step_many(1)
+            torch.cuda.synchronize()
+            launches = scan.scan_tiles.launches
+            same = all(torch.equal(a, b) for a, b in zip(wf.film, ref.film))
+            log(f"[15c] {path.name} wavefront ({name}): scan launches {launches}, alive "
+                f"{wf._alive_counts.tolist()}; film bit-identical to the unfused megakernel "
+                f"film: {same}")
+            r_fast = compare_films("vs the megakernel kernel path", wf.film, fast.film)
+            if not same or not r_fast["finite"] or r_fast["sum_rel"] > MAX_SUM_REL \
+                    or r_fast["pixel_share"] > MAX_PIXEL_SHARE:
+                raise AssertionError(f"the wavefront film of {path.name} ({name}) disagrees")
+            if kw.get("stream_compaction") is True and launches != 2 * depth:
+                raise AssertionError("a compacting wavefront frame did not launch the scan "
+                                     "kernel twice per bounce")
+            if path == SCENE and name == "compaction":
+                main_launches = launches
+
+            def fn(r=wf):
+                r.step_many(1, sync=False)
+            key = f"{path.stem} wavefront ({name})"
+            timed[key] = (fn, 2)
+            rays[key] = float(wf.static.pixel_count + wf._alive_counts.sum())
+            if name in ("compaction", "adaptive"):
+                log(f"    host reads in one {path.stem} wavefront frame ({name}): "
+                    f"{host_syncs(fn)}")
+            if path == SCENE and name == "compaction":
+                profiled[f"{path.stem} wavefront (compaction)"] = fn
+    rounds = {k: 3 for k in timed}
+    log_times("15d", smi, time_paths(timed, rounds), timed, rounds, rays)
+
+    # e. the scan kernel alone, at a compacting bounce's shape
+    x = (torch.rand(640_000, generator=g, device=device) > 0.5).float()
+    n_pad = ((x.shape[0] + scan.TILE - 1) // scan.TILE) * scan.TILE
+    xp = torch.nn.functional.pad(x, (0, n_pad - x.shape[0])).reshape(-1, scan.LANES)
+    t = {
+        "scan_tiles kernel (1 launch)": (lambda: scan.scan_tiles(xp), 50),
+        "scan_tiles_plain (1 call)": (lambda: scan.scan_tiles_plain(xp), 50),
+        "library torch.cumsum(xp, 1)": (lambda: torch.cumsum(xp, 1), 50),
+        "exclusive_scan, kernel path": (lambda: scan.exclusive_scan(x), 20),
+        "library torch.cumsum(x, 0)": (lambda: torch.cumsum(x, 0), 50),
+    }
+    rounds = {k: TIMING_ROUNDS for k in t}
+    ms = log_times("15e", smi, time_paths(t, rounds), t, rounds, {})
+    for name in ("scan_tiles kernel (1 launch)", "scan_tiles_plain (1 call)",
+                 "library torch.cumsum(xp, 1)"):
+        busy, wall, count, _ = device_busy(t[name][0], 50)
+        log(f"    {name}: device time {busy:.4f} ms per call under the profiler "
+            f"({count:.0f} device launches per call; the rest of the event time above is "
+            f"the host's launch cost)")
+    bound = bound_ms(xp.numel() * 8 + xp.shape[0] * 4, xp.numel() * OPS_SCAN)
+    log(f"    bound of one scan_tiles launch on [{xp.shape[0]}, 128]: {bound[0]:.4f} ms "
+        f"({bound[1]})")
+    return [{
+        "name": "scan_tiles",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/scan.cu",
+        "replaces": "project3_cuda_path_tracer_2025_tpu/ops/scan.py:75",
+        "launches": main_launches,
+        "max_abs_err": err,
+        "ms": ms["scan_tiles kernel (1 launch)"],
+        "plain_ms": ms["scan_tiles_plain (1 call)"],
+        "bound_ms": bound[0],
+        "bound_by": bound[1],
+        "library_ms": ms["library torch.cumsum(xp, 1)"],
+    }], profiled
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA GPU",
@@ -1173,11 +1548,15 @@ def main() -> int:
 
     mesh_kernels, mesh_frames = mesh_phases(device, smi)
     walk_kernels, walk_frames = larger_mesh_phases(device, smi)
+    tex_kernels, tex_frames = texture_phases(device, smi)
+    wave_kernels, wave_frames = wavefront_phases(device, smi)
     profile_paths({
         "prim iteration kernel (Renderer default)": run_iter_kernel,
         "prim bounce-kernel path": run_bounce_path,
         **mesh_frames,
         **walk_frames,
+        **tex_frames,
+        **wave_frames,
     })
 
     result = {"kernels": [
@@ -1209,6 +1588,8 @@ def main() -> int:
         },
         *mesh_kernels,
         *walk_kernels,
+        *tex_kernels,
+        *wave_kernels,
     ]}
     print(smi)
     print(json.dumps(result))

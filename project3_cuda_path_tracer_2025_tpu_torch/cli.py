@@ -6,9 +6,8 @@ shell (``src/main.cpp:341-393``).
 Like the reference binary it takes a scene file, renders ITERATIONS spp and
 writes ``{FILE}.{timestamp}.{N}samp.png``.  It renders on the CUDA device by
 default; ``--device cpu`` is an explicit choice, never a fallback.  The JAX
-package's other flags (integrator, toggles, mesh traversal, multi-device,
-interactive shell) raise until their paths are ported (``ROADMAP.md``,
-Queue 1: the rest of the CLI).
+package's other flags (toggles, multi-device, interactive shell) raise until
+their paths are ported (``ROADMAP.md``, Queue 1: the rest of the CLI).
 """
 
 from __future__ import annotations
@@ -19,7 +18,6 @@ import sys
 
 # Flags of the JAX package's CLI that this one does not take yet.
 _NOT_PORTED = (
-    "--integrator", "--no-compaction", "--compaction", "--material-sort",
     "--no-bvh", "--raw-camera", "--ray-sorting",
     "--bounce-prefix-tiers", "--fused-bounce",
     "--spp-per-launch", "--cpu", "--pixel-chunks", "--devices",
@@ -38,6 +36,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--res", type=int, nargs=2, metavar=("W", "H"), default=None)
     p.add_argument("--out", default="img", help="output directory (default: img)")
     p.add_argument("--hdr", action="store_true", help="write Radiance .hdr too")
+    p.add_argument(
+        "--integrator",
+        choices=("megakernel", "wavefront"),
+        default="megakernel",
+    )
+    p.add_argument(
+        "--no-compaction",
+        action="store_true",
+        help="disable stream compaction (wavefront, ref STREAM_COMPACTION=0)",
+    )
+    p.add_argument(
+        "--compaction",
+        choices=("on", "off", "adaptive"),
+        default=None,
+        help="wavefront compaction policy (adaptive = pack only once the "
+        "live fraction drops below 1/2; image-identical, see RenderConfig)",
+    )
+    p.add_argument(
+        "--material-sort",
+        action="store_true",
+        help="enable material sorting (ref MATERIAL_SORTING=1)",
+    )
     p.add_argument("--no-mirror", action="store_true", help="disable saveImage x-mirror")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument(
@@ -92,7 +112,15 @@ def main(argv=None) -> int:
     if args.depth is not None:
         scene.state.trace_depth = args.depth
 
+    compaction = (
+        {"on": True, "off": False, "adaptive": "adaptive"}[args.compaction]
+        if args.compaction is not None
+        else (False if args.no_compaction else "adaptive")
+    )
     cfg = RenderConfig(
+        integrator=args.integrator,
+        stream_compaction=compaction,
+        material_sorting=args.material_sort,
         mirror_output=not args.no_mirror, mesh_intersector=args.mesh_intersector,
         mxu_traversal=args.mxu_traversal,
     )
@@ -105,7 +133,8 @@ def main(argv=None) -> int:
     if not args.quiet:
         print(
             f"{r.static.width}x{r.static.height}, depth {r.static.trace_depth}, "
-            f"{total} spp, device={r.device}, {len(r.static.geoms)} prims, "
+            f"{total} spp, integrator={cfg.integrator}, device={r.device}, "
+            f"{len(r.static.geoms)} prims, "
             f"{r.static.num_triangles} triangles"
         )
 

@@ -2,9 +2,9 @@
 
 One frozen dataclass, field for field the JAX package's ``RenderConfig``
 (``project3_cuda_path_tracer_2025_tpu/config.py``), so a configuration
-moves between the two packages unchanged.  The port runs the megakernel
-render of analytic-primitive scenes and of untextured meshes of up to
-1,024 tiles of 1,024 triangles; a field that selects a path not ported yet
+moves between the two packages unchanged.  The port runs both integrators
+on scenes of analytic primitives, textures and meshes of up to 1,024 tiles
+of 1,024 triangles; a field that selects a path not ported yet
 raises ``NotImplementedError`` here, at construction, naming the
 ``ROADMAP.md`` item that will port it.
 """
@@ -22,12 +22,15 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     # Feature toggles (A/B parity with src/pathtrace.cu:21-24).  They steer
-    # the wavefront integrator and mesh traversal only.
+    # the wavefront integrator and mesh traversal only.  stream_compaction:
+    # True, False or "adaptive" (pack only once fewer than half the paths
+    # are alive); images are identical across all three.
     stream_compaction: "bool | str" = "adaptive"
     material_sorting: bool = False
     bvh_acceleration: bool = True
 
-    # "megakernel" is ported; "wavefront" is ROADMAP.md Queue 1: wavefront.
+    # "megakernel" (the default; fused kernels) or "wavefront" (the
+    # reference's architecture: compaction and material sort per bounce).
     integrator: str = "megakernel"
 
     # "full" (kernShadeMaterialProper + scatterRay) or "fake" (the
@@ -130,10 +133,10 @@ class RenderConfig:
             raise ValueError(
                 f"fused_bounce={self.fused_bounce!r}: use 'auto'/'on'/'off'"
             )
-        if self.integrator != "megakernel":
-            if self.integrator == "wavefront":
-                raise _not_ported("integrator='wavefront'", "Queue 1: wavefront")
-            raise ValueError(f"integrator={self.integrator!r}")
+        if self.integrator not in ("megakernel", "wavefront"):
+            raise ValueError(
+                f"integrator={self.integrator!r}: use 'megakernel'/'wavefront'"
+            )
         if self.devices != 1:
             raise _not_ported(f"devices={self.devices}", "Queue 1: parallel/")
         if self.pixel_chunks not in (0, 1):

@@ -7,9 +7,13 @@
 //   contract (per-ray member windows, ties to the lowest triangle id).
 // ptt_mesh_shade_kernel replaces
 //   project3_cuda_path_tracer_2025_tpu/ops/fused.py::_mesh_bounce_kernel
-//   in mode "plain" (launched by _fused_mesh_shade): analytic-prim
+//   in its three modes (launched by _fused_mesh_shade): analytic-prim
 //   intersect, merge with the mesh hit, BSDF scatter with inline Threefry,
 //   and optionally the next bounce's prim t_limit and coherence sort key.
+//   Mode "textured" takes the mesh lanes' albedo and final shading normal
+//   (texture and bump resolved in torch before the launch); mode
+//   "precomputed" takes every lane's resolved surface and skips the prim
+//   intersection (a scene with a textured prim).
 //
 // What bounds them on the H100.  The traversal is bound by operations: per
 // candidate (ray, triangle) pair it loads one 80-byte coefficient row
@@ -60,6 +64,7 @@ struct PttMeshShadeArgs {
   const float* mesh_t;
   const float* mesh_n[3];
   const int32_t* mesh_mat;   // -1 = no mesh hit
+  const float* mesh_alb[3];  // albedo rgb (mode >= 1)
   const float* tile_aabb;    // [ct, 8] (emit == 2)
   const float* center;       // [3] (emit == 2)
   float* out_f[9];
@@ -68,6 +73,7 @@ struct PttMeshShadeArgs {
   int32_t* out_key;          // emit == 2
   uint32_t k0, k1, rng_n;
   int32_t n, ct, emit;       // emit: 0 none, 1 t_lim, 2 t_lim + key
+  int32_t mode;              // PTT_SHADE_PLAIN / _TEXTURED / _PRECOMPUTED
 };
 
 __global__ void __launch_bounds__(PTT_THREADS) ptt_mono_kernel(const PttMonoArgs a) {
@@ -106,8 +112,11 @@ __global__ void __launch_bounds__(PTT_THREADS) ptt_mesh_shade_kernel(const PttMe
   ray.c = v3(a.in_f[6][idx], a.in_f[7][idx], a.in_f[8][idx]);
   ray.bounces = a.in_bounces[idx];
   const V3 mn = v3(a.mesh_n[0][idx], a.mesh_n[1][idx], a.mesh_n[2][idx]);
-  mesh_shade_ray(sh_scene, ray, a.mesh_t[idx], mn, a.mesh_mat[idx], a.k0, a.k1, a.rng_n,
-                 a.pixel[idx]);
+  const V3 alb = a.mode == PTT_SHADE_PLAIN
+                     ? v3(0.0f, 0.0f, 0.0f)
+                     : v3(a.mesh_alb[0][idx], a.mesh_alb[1][idx], a.mesh_alb[2][idx]);
+  mesh_shade_ray(sh_scene, ray, a.mesh_t[idx], mn, a.mesh_mat[idx], a.mode, alb, a.k0, a.k1,
+                 a.rng_n, a.pixel[idx]);
   a.out_f[0][idx] = ray.o.x;
   a.out_f[1][idx] = ray.o.y;
   a.out_f[2][idx] = ray.o.z;
@@ -144,6 +153,7 @@ int ptt_mesh_abi(int32_t* out, int32_t len) {
       (int32_t)sizeof(PttMeshShadeArgs),
       (int32_t)offsetof(PttMeshShadeArgs, k0),
       (int32_t)offsetof(PttMeshShadeArgs, n),
+      (int32_t)offsetof(PttMeshShadeArgs, mode),
       PTT_TRI_TILE,
       PTT_COEF_W,
       PTT_MONO_MAX_TILES,
@@ -164,6 +174,9 @@ int ptt_launch_mono(const PttMonoArgs* a, void* stream) {
 
 int ptt_launch_mesh_shade(const PttMeshShadeArgs* a, void* stream) {
   if (a->emit == 2 && (a->ct < 1 || a->ct > PTT_KEY_MAX_CT)) return (int)cudaErrorInvalidValue;
+  if (a->mode < PTT_SHADE_PLAIN || a->mode > PTT_SHADE_PRECOMPUTED) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (a->n > 0) {
     ptt_mesh_shade_kernel<<<blocks_for(a->n), PTT_THREADS, 0, (cudaStream_t)stream>>>(*a);
   }

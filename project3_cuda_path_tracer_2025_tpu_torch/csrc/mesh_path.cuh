@@ -10,8 +10,9 @@
 //                     cull, then walk_visit over the tiles in order);
 //   coherence_key   = ops/intersect_mxu.py::coherence_key_planes;
 //   prim_t_min      = ops/intersect.py::prim_t_min;
-//   mesh_shade_ray  = ops/fused.py::fused_mesh_shade_plain (prim intersect,
-//                     merge with the mesh hit, scatter, inline uniforms).
+//   mesh_shade_ray  = ops/fused.py::fused_mesh_shade_plain in its three modes
+//                     (prim intersect, merge with the mesh hit or the
+//                     resolved surface, scatter, inline uniforms).
 // The prim intersection, scatter and Threefry come from prim_path.cuh.
 // Build with --fmad=false and without fast math, as prim_path.cuh says; the
 // only fused multiply-adds are the explicit fmaf chains of the numerators,
@@ -355,26 +356,44 @@ PTT_HD int32_t coherence_key(const float* aabb, int ct, V3 center, V3 o, V3 d, b
 }
 
 // ---------------------------------------------------------------------------
-// The mesh shade for one ray (ops/fused.py::_mesh_bounce_kernel, "plain")
+// The mesh shade for one ray (ops/fused.py::_mesh_bounce_kernel)
 // ---------------------------------------------------------------------------
 
-// Prim intersect, merge with the mesh hit (mt, interpolated normal mn,
-// material mmat; mmat < 0 = no mesh hit), scatter with the uniforms of
-// this pixel drawn inline at counters j * rng_n + pixel.  A dead ray is
-// left untouched.
-PTT_HD void mesh_shade_ray(const PttScene& s, Ray& ray, float mt, V3 mn, int32_t mmat,
-                           uint32_t k0, uint32_t k1, uint32_t rng_n, int32_t pixel) {
+#define PTT_SHADE_PLAIN 0
+#define PTT_SHADE_TEXTURED 1
+#define PTT_SHADE_PRECOMPUTED 2
+
+// One ray of the shade kernel; dead rays are left untouched.  The uniforms
+// of this pixel are drawn inline at counters j * rng_n + pixel.
+// mode PTT_SHADE_PLAIN: prim intersect, merged with the mesh hit (mt, the
+//   interpolated normal mn flipped toward the ray, material mmat; mmat < 0
+//   = no mesh hit), scatter with the material's color.
+// mode PTT_SHADE_TEXTURED: the same merge, but mn is the final shading
+//   normal (not flipped) and a mesh lane scatters with the albedo malb.
+// mode PTT_SHADE_PRECOMPUTED: no prim intersection; (mt, mn, mmat, malb) is
+//   the lane's resolved surface (t = -1 for a miss).
+PTT_HD void mesh_shade_ray(const PttScene& s, Ray& ray, float mt, V3 mn, int32_t mmat, int mode,
+                           V3 malb, uint32_t k0, uint32_t k1, uint32_t rng_n, int32_t pixel) {
   if (ray.bounces <= 0) return;
-  Hit h = intersect_prims(s, ray.o, ray.d);
-  if (mmat >= 0) {  // the traversal ran below the prim t: the mesh is closer
-    if (dot(ray.d, mn) > 0.0f) mn = -mn;
+  Hit h;
+  bool given_albedo = mode == PTT_SHADE_PRECOMPUTED;
+  if (mode == PTT_SHADE_PRECOMPUTED) {
     h.t = mt;
     h.normal = mn;
     h.material_id = mmat;
+  } else {
+    h = intersect_prims(s, ray.o, ray.d);
+    if (mmat >= 0) {  // the traversal ran below the prim t: the mesh is closer
+      if (mode == PTT_SHADE_PLAIN && dot(ray.d, mn) > 0.0f) mn = -mn;
+      h.t = mt;
+      h.normal = mn;
+      h.material_id = mmat;
+      given_albedo = mode == PTT_SHADE_TEXTURED;
+    }
   }
   const uint32_t px = (uint32_t)pixel;
   const float u0 = uniform_at(k0, k1, px);
   const float u1 = uniform_at(k0, k1, rng_n + px);
   const float u2 = uniform_at(k0, k1, 2u * rng_n + px);
-  scatter(s, ray, h, u0, u1, u2);
+  scatter(s, ray, h, u0, u1, u2, given_albedo ? &malb : nullptr);
 }

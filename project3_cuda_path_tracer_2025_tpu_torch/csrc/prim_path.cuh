@@ -513,10 +513,12 @@ PTT_HD Lobe sample_cook_torrance(V3 albedo, V3 n, V3 wo_world, float r,
 
 // ---------------------------------------------------------------------------
 // scatter_compose for one ray (ops/shade.py), material already selected.
+// albedo_in, when given, replaces the material's color (a texture's albedo,
+// resolved before the kernel).
 // ---------------------------------------------------------------------------
 
-PTT_HD void scatter(const PttScene& s, Ray& ray, const Hit& h,
-                                        float u_choice, float xi0, float xi1) {
+PTT_HD void scatter(const PttScene& s, Ray& ray, const Hit& h, float u_choice, float xi0,
+                    float xi1, const V3* albedo_in = nullptr) {
   if (ray.bounces <= 0) return;  // terminated: keeps its final color
   if (!(h.t > 0.0f)) {           // miss
     ray.c = v3(0.0f, 0.0f, 0.0f);
@@ -526,7 +528,7 @@ PTT_HD void scatter(const PttScene& s, Ray& ray, const Hit& h,
   int mid = h.material_id;
   mid = mid < 0 ? 0 : (mid > s.num_materials - 1 ? s.num_materials - 1 : mid);
   const PttMaterial& m = s.materials[mid];
-  const V3 albedo = v3(m.color[0], m.color[1], m.color[2]);
+  const V3 albedo = albedo_in ? *albedo_in : v3(m.color[0], m.color[1], m.color[2]);
   if (m.emittance > 0.0f) {  // emissive: deposit and terminate
     ray.c = ray.c * (albedo * m.emittance);
     ray.bounces = 0;

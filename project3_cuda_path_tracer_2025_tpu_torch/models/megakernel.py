@@ -17,7 +17,12 @@ On a CUDA device with ``fused_bounce`` "auto" or "on" (on the CPU with
   inline and emits the next bounce's prim t_limit and sort key (threaded
   through ``mesh_carry``).  The path state stays in coherence order across
   bounces (resorted every ``ray_sort_every`` bounces) and the film
-  scatter-adds by pixel id.
+  scatter-adds by pixel id.  A mesh with textures on its materials
+  resolves albedo and the bump normal in torch between the two kernels and
+  shades in the kernel's mode "textured";
+* a scene with a textured or bump-mapped prim runs
+  ``ops.fused.fused_tex_bounce`` per bounce: the whole intersect and surface
+  in torch, the scatter in the mesh-shade kernel's mode "precomputed".
 
 With "off", or ``shader="fake"``, each bounce runs the unfused torch ops
 (the port of the JAX package's XLA path), chosen only by explicit config,
@@ -77,6 +82,13 @@ def megakernel_iteration(
     use_fused_mesh = (
         (force or auto) and not use_fused and fused.fused_mesh_applicable(static, cfg)
     )
+    use_fused_tex = (
+        (force or auto) and not use_fused and not use_fused_mesh
+        and fused.fused_tex_applicable(static, cfg)
+    )
+    # Liveness-packed textured-prim bounces (False while prefix tiers
+    # resolve to none; see fused.tex_sort_active).
+    tex_sorted = use_fused_tex and fused.tex_sort_active(cfg, device)
     mesh_carry = None  # the mesh-shade kernel's (t_lim, key) for the next bounce
 
     alive_counts = torch.zeros((depth,), dtype=torch.int32, device=device)
@@ -96,11 +108,14 @@ def megakernel_iteration(
         elif use_fused:
             bounce = fused.fused_prim_bounce_plain if plain else fused.fused_prim_bounce
             paths = bounce(static, cfg, paths, uniforms(skey, 3))
+        elif use_fused_tex:
+            paths = fused.fused_tex_bounce(dev, static, cfg, paths, su_key=skey, rng_n=n,
+                                           plain=plain)
         else:
             su = uniforms(skey, 3)
             isect = intersect_scene(dev, static, paths, cfg)
             paths = shade_ops.shade(dev, static, paths, isect, su, cfg)
         alive_counts[d] = torch.sum(paths.alive.to(torch.int32))
 
-    film = film_ops.accumulate(film, paths, permuted=use_fused_mesh)
+    film = film_ops.accumulate(film, paths, permuted=use_fused_mesh or tex_sorted)
     return film, alive_counts

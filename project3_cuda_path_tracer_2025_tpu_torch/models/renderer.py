@@ -9,8 +9,10 @@ On a CUDA device (the default) with the default config, every step of a
 prim-only scene is one launch of the iteration kernel
 (``ops.fused.fused_prim_iteration``).  The camera is an argument of that
 kernel, so an orbit rebuilds nothing (the JAX package bakes it into its
-kernel and recompiles).  A mesh scene steps through ``megakernel_iteration``,
-whose every bounce launches a traversal kernel and the mesh-shade kernel.
+kernel and recompiles).  A mesh or textured scene steps through
+``megakernel_iteration``, whose every bounce launches a traversal kernel
+(meshes) and the mesh-shade kernel.  ``integrator="wavefront"`` steps
+through ``wavefront_iteration`` instead, on any scene.
 
 Camera orbit parity: ``orbit_camera()`` applies the reference's mouse
 controls and, like ``runCuda`` (``src/main.cpp:423-453``), resets
@@ -37,6 +39,7 @@ from ..utils import image_io, prng
 from ..utils.timers import FrameStats, PerformanceTimer
 from ..utils.vec import Vec3
 from .megakernel import megakernel_iteration
+from .wavefront import wavefront_iteration
 
 
 @dataclass
@@ -80,7 +83,9 @@ class Renderer:
         # The whole-iteration kernel: on a CUDA device unless disabled; on
         # the CPU only when forced, where it runs its plain version (the
         # JAX package runs its kernel in interpret mode there).
-        self._use_fused_iter = fused.fused_applicable(self.static, cfg) and (
+        self._use_fused_iter = (
+            cfg.integrator == "megakernel" and fused.fused_applicable(self.static, cfg)
+        ) and (
             cfg.fused_bounce == "on"
             or (cfg.fused_bounce == "auto" and self.device.type == "cuda")
         )
@@ -135,7 +140,10 @@ class Renderer:
                 self.static, self.cfg, self._cam_state, self.film,
                 self.iteration, self._base_key,
             )
-        return megakernel_iteration(
+        iteration = (
+            wavefront_iteration if self.cfg.integrator == "wavefront" else megakernel_iteration
+        )
+        return iteration(
             self.dev, self.static, self.cfg, self._cam_state, self.film,
             self.iteration, self._base_key,
         )

@@ -1,4 +1,7 @@
-from . import bsdf, camera, compaction, film, fused, intersect, intersect_mxu, kernels, shade
+from . import (
+    bsdf, camera, compaction, film, fused, intersect, intersect_mxu, kernels, scan, shade,
+    texture,
+)
 from .rays import Intersections, PathState
 
 __all__ = [
@@ -10,7 +13,9 @@ __all__ = [
     "intersect",
     "intersect_mxu",
     "kernels",
+    "scan",
     "shade",
+    "texture",
     "Intersections",
     "PathState",
 ]

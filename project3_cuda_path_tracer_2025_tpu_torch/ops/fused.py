@@ -7,9 +7,13 @@ via ``fused_prim_bounce`` and ``_iteration_kernel`` via
 ``fused_prim_iteration``.  A mesh scene's bounce runs the mesh traversal
 (``ops.intersect_mxu``) and then ``_mesh_bounce_kernel`` via
 ``_fused_mesh_shade``: prim intersect, merge with the mesh hit, BSDF
-scatter, inline RNG and the next bounce's prune and sort key.  Here all
-three are hand-written CUDA kernels (``csrc/fused_prim.cu``,
-``csrc/fused_mesh.cu``), each behind a wrapper with:
+scatter, inline RNG and the next bounce's prune and sort key.  A textured
+mesh resolves its albedo and bump normal in the surface stage (torch, as
+XLA in the JAX package) and shades in mode "textured"; a scene with a
+textured prim resolves the whole surface there and shades in mode
+"precomputed" (``fused_tex_bounce``).  Here all three are hand-written CUDA
+kernels (``csrc/fused_prim.cu``, ``csrc/fused_mesh.cu``), each behind a
+wrapper with:
 
 * a plain PyTorch version (``*_plain``) of the same function, built from the
   same building blocks as the unfused path (``intersect_scene``, the
@@ -43,7 +47,7 @@ from . import intersect_mxu, kernels
 from . import shade as shade_ops
 from .compaction import permute_path_state
 from .intersect import intersect_scene, prim_t_min, ray_sorting_on
-from .rays import PathState
+from .rays import Intersections, PathState
 
 
 def fused_applicable(static: SceneStatic, cfg: RenderConfig) -> bool:
@@ -369,16 +373,19 @@ kernel_uniforms.launches = 0
 
 # ---------------------------------------------------------------------------
 # Fused mesh bounce  (the shade kernel replaces ops/fused.py::_mesh_bounce_kernel,
-# mode "plain"; the traversals are in ops.intersect_mxu)
+# modes "plain", "textured" and "precomputed"; the traversals are in
+# ops.intersect_mxu)
 # ---------------------------------------------------------------------------
 
 EMIT_MODES = ("", "tlim", "tlim+key")
+SHADE_MODES = ("plain", "textured", "precomputed")
 
 
 def fused_mesh_applicable(static: SceneStatic, cfg: RenderConfig) -> bool:
     """A mesh scene takes the fused mesh bounce when it runs the MXU
-    tables' traversal (textured scenes are not ported: ``build_device_scene``
-    refuses them)."""
+    tables' traversal.  Textures on mesh materials resolve in the surface
+    stage (``textured_mesh_surface``); a textured or bump-mapped prim takes
+    ``fused_tex_bounce`` instead."""
     return (
         static.has_triangles
         and not (static.num_textures > 0 and static.prim_textured)
@@ -388,12 +395,12 @@ def fused_mesh_applicable(static: SceneStatic, cfg: RenderConfig) -> bool:
     )
 
 
-def _check_mode(mode: str, emit: str) -> None:
-    if mode != "plain":
-        raise NotImplementedError(
-            f"the fused mesh shade's mode {mode!r} is not ported yet "
-            "(ROADMAP.md, Queue 1: textures)"
-        )
+def _check_mode(mode: str, emit: str, mesh_albedo) -> None:
+    if mode not in SHADE_MODES:
+        raise ValueError(f"mode={mode!r}: use one of {SHADE_MODES}")
+    if (mode == "plain") != (mesh_albedo is None):
+        raise ValueError(f"mode={mode!r}: mesh_albedo is required in the textured and "
+                         "precomputed modes and only there")
     if emit not in EMIT_MODES:
         raise ValueError(f"emit={emit!r}: use one of {EMIT_MODES}")
 
@@ -410,25 +417,48 @@ def fused_mesh_shade_plain(
     emit: str = "",
     tile_aabb: torch.Tensor = None,
     center: torch.Tensor = None,
+    mode: str = "plain",
+    mesh_albedo: Vec3 = None,
 ):
     """The plain PyTorch version of the mesh-shade kernel (see
     ``fused_mesh_shade``)."""
+    _check_mode(mode, emit, mesh_albedo)
     uni = prng.uniforms_at(su_key, paths.pixel, 3, rng_n)
-    isect_p = intersect_scene(None, prim_static, paths, cfg)
-    # The traversal ran with the prim nearest t as its t_limit, so a mesh
-    # hit is closer than every prim (an exact tie stays with the prim).
-    tri_hit = mesh_mat >= 0
-    flip = vec.dot(paths.direction, mesh_normal) > 0.0
-    mn = vec.where(flip, -mesh_normal, mesh_normal)
-    t = torch.where(tri_hit, mesh_t, isect_p.t)
-    normal = vec.where(tri_hit, mn, isect_p.normal)
-    mat = torch.where(tri_hit, mesh_mat, isect_p.material_id)
+    if mode == "precomputed":
+        # The whole surface arrives resolved: (t, shading normal, material,
+        # albedo) of every lane; no prim intersection here.
+        zero = torch.zeros_like(mesh_t)
+        t, normal, mat = mesh_t, mesh_normal, mesh_mat
+        isect = Intersections(t=t, normal=normal, material_id=mat, uv_u=zero, uv_v=zero,
+                              dpdu=Vec3(zero, zero, zero), dpdv=Vec3(zero, zero, zero),
+                              is_triangle=zero > 0.0)
+    else:
+        isect_p = intersect_scene(None, prim_static, paths, cfg)
+        # The traversal ran with the prim nearest t as its t_limit, so a mesh
+        # hit is closer than every prim (an exact tie stays with the prim).
+        tri_hit = mesh_mat >= 0
+        mn = mesh_normal
+        if mode == "plain":
+            # "textured" passes the final shading normal, already oriented
+            # and bump-perturbed in the surface stage.
+            flip = vec.dot(paths.direction, mesh_normal) > 0.0
+            mn = vec.where(flip, -mesh_normal, mesh_normal)
+        t = torch.where(tri_hit, mesh_t, isect_p.t)
+        normal = vec.where(tri_hit, mn, isect_p.normal)
+        mat = torch.where(tri_hit, mesh_mat, isect_p.material_id)
+        isect = isect_p._replace(t=t, normal=normal, material_id=mat)
     mid = torch.clamp(mat, 0, prim_static.num_materials - 1)
     albedo, emitt, refl, refr, ior, rough, metal = _const_material_params(
         prim_static, mid
     )
+    if mode == "textured":
+        # Mesh lanes take the surface stage's albedo; prim lanes keep the
+        # constant chain's (no prim material is textured on this path).
+        albedo = vec.where(tri_hit, mesh_albedo, albedo)
+    elif mode == "precomputed":
+        albedo = mesh_albedo
     out = shade_ops.scatter_compose(
-        cfg, paths, isect_p._replace(t=t, normal=normal, material_id=mat), normal,
+        cfg, paths, isect, normal,
         albedo, emitt, refl, refr, ior, rough, metal,
         (uni[0], uni[1], uni[2]),
         lobes=shade_ops.lobes_present(prim_static),
@@ -457,7 +487,8 @@ def fused_mesh_shade(
     emit: str = "",  # "" | "tlim" | "tlim+key": next-bounce outputs
     tile_aabb: torch.Tensor = None,  # [ct, 8] recentred (emit == "tlim+key")
     center: torch.Tensor = None,  # [3] (emit == "tlim+key")
-    mode: str = "plain",
+    mode: str = "plain",  # "plain" | "textured" | "precomputed"
+    mesh_albedo: Vec3 = None,  # [N] f32 each, textured/precomputed only
 ):
     """Prim intersect + merge with the mesh hit + BSDF scatter of one
     bounce, with the uniforms drawn inline at ``(su_key, j*rng_n + pixel)``
@@ -465,13 +496,19 @@ def fused_mesh_shade(
     numbers).  ``prim_static`` is the scene's static with
     ``num_triangles=0``.  With ``emit`` it also returns the scattered rays'
     prim nearest t (the next bounce's t_limit) and, for "tlim+key", their
-    coherence sort key: ``(paths, (t_lim, key | None))``."""
-    _check_mode(mode, emit)
+    coherence sort key: ``(paths, (t_lim, key | None))``.
+
+    ``mode`` "plain": ``mesh_normal`` is the interpolated normal, flipped
+    toward the ray here.  "textured": it is the final shading normal (not
+    flipped), and mesh lanes take ``mesh_albedo``.  "precomputed": no prim
+    intersection; ``(mesh_t, mesh_normal, mesh_mat, mesh_albedo)`` is every
+    lane's resolved surface (``fused_tex_bounce``)."""
+    _check_mode(mode, emit, mesh_albedo)
     device = paths.origin.x.device
     if device.type == "cpu":
         return fused_mesh_shade_plain(
             prim_static, cfg, paths, mesh_t, mesh_normal, mesh_mat, su_key,
-            rng_n, emit, tile_aabb, center,
+            rng_n, emit, tile_aabb, center, mode, mesh_albedo,
         )
     _require_cuda(device, "fused_mesh_shade")
     n = paths.pixel.shape[0]
@@ -480,6 +517,9 @@ def fused_mesh_shade(
                   torch.float32, device)
     _check_planes("fused_mesh_shade ints", (paths.bounces, paths.pixel, mesh_mat), n,
                   torch.int32, device)
+    if mode != "plain":
+        mesh_albedo = Vec3(*(c.contiguous() for c in mesh_albedo))
+        _check_planes("fused_mesh_shade albedo", mesh_albedo, n, torch.float32, device)
     if rng_n * 3 >= 2**32:
         raise ValueError(f"3 x {rng_n} uniforms exceed the 32-bit counter")
     ct = 0
@@ -505,6 +545,8 @@ def fused_mesh_shade(
     a.mesh_t = mesh_t.data_ptr()
     a.mesh_n[:] = [t.data_ptr() for t in mesh_normal]
     a.mesh_mat = mesh_mat.data_ptr()
+    if mode != "plain":
+        a.mesh_alb[:] = [t.data_ptr() for t in mesh_albedo]
     a.out_f[:] = [t.data_ptr() for t in f_out]
     a.out_bounces = b_out.data_ptr()
     if emit:
@@ -516,6 +558,7 @@ def fused_mesh_shade(
     a.k0, a.k1 = su_key
     a.rng_n = rng_n
     a.n, a.ct, a.emit = n, ct, EMIT_MODES.index(emit)
+    a.mode = SHADE_MODES.index(mode)
     code = lib.lib.ptt_launch_mesh_shade(ctypes.byref(a), kernels.stream_handle(device))
     lib.check(code, "fused_mesh_shade")
     fused_mesh_shade.launches += 1
@@ -564,16 +607,11 @@ def fused_mesh_bounce(
     )
 
 
-def mesh_surface(tables, static: SceneStatic, cfg: RenderConfig, paths: PathState,
-                 t_lim: torch.Tensor, plain: bool = False):
-    """The mesh half of a fused bounce's surface, in torch around the
-    traversal: ``(mesh_t, mesh_normal, mesh_mat)`` -- the traversal's t,
-    the winner's interpolated vertex normal (zero without a mesh hit) and
-    its material (-1 without a mesh hit)."""
-    ro, rd = paths.origin, paths.direction
-    mh = intersect_mxu.mesh_intersect_mxu(
-        tables, static.num_triangles, static.mxu_padded_tris, ro, rd,
-        paths.alive, t_lim, cfg.baby_epsilon,
+def _mesh_traversal(tables, static: SceneStatic, cfg: RenderConfig, paths: PathState,
+                    t_lim: torch.Tensor, plain: bool):
+    return intersect_mxu.mesh_intersect_mxu(
+        tables, static.num_triangles, static.mxu_padded_tris, paths.origin,
+        paths.direction, paths.alive, t_lim, cfg.baby_epsilon,
         mesh_bounds=static.mesh_bounds, compute_uv=False, plain=plain,
         **intersect_mxu.traversal_flags(
             cfg.mxu_traversal, static.mxu_padded_tris,
@@ -582,6 +620,16 @@ def mesh_surface(tables, static: SceneStatic, cfg: RenderConfig, paths: PathStat
             binned_budget_rays=paths.pixel.shape[0],
         ),
     )
+
+
+def mesh_surface(tables, static: SceneStatic, cfg: RenderConfig, paths: PathState,
+                 t_lim: torch.Tensor, plain: bool = False):
+    """The mesh half of a fused bounce's surface, in torch around the
+    traversal: ``(mesh_t, mesh_normal, mesh_mat)`` -- the traversal's t,
+    the winner's interpolated vertex normal (zero without a mesh hit) and
+    its material (-1 without a mesh hit)."""
+    ro, rd = paths.origin, paths.direction
+    mh = _mesh_traversal(tables, static, cfg, paths, t_lim, plain)
     tri_hit = mh.tri >= 0
     at = intersect_mxu.resolve_shade_attributes(tables, static.mxu_padded_tris, mh.tri)
     uu, vv = intersect_mxu.winner_uv_from_geom(
@@ -595,6 +643,44 @@ def mesh_surface(tables, static: SceneStatic, cfg: RenderConfig, paths: PathStat
     mesh_normal = vec.where(tri_hit, mesh_normal, Vec3(zero, zero, zero))
     mesh_mat = torch.where(tri_hit, at[:, 9].to(torch.int32), -1)
     return mh.t, mesh_normal, mesh_mat
+
+
+def textured_mesh_surface(dev, static: SceneStatic, cfg: RenderConfig, paths: PathState,
+                          t_lim: torch.Tensor, plain: bool = False):
+    """``mesh_surface`` of a scene with textures on mesh materials:
+    ``(mesh_t, shading_normal, mesh_mat, albedo)``.  The full attribute rows
+    (``resolve_attributes``: normals 0-8, uv 9-14, dpdu/dpdv 15-20, the
+    material 21, v0/e1/e2 24-32) give the interpolated uv and the tangents;
+    the normal is oriented toward the ray before the bump, as the unfused
+    path's ``isect.normal`` arrives, and ``shade.textured_surface`` gives the
+    albedo and the bump-perturbed normal (zero without a mesh hit)."""
+    tables = dev.mxu_mesh
+    ro, rd = paths.origin, paths.direction
+    mh = _mesh_traversal(tables, static, cfg, paths, t_lim, plain)
+    tri_hit = mh.tri >= 0
+    at = intersect_mxu.resolve_attributes(tables, static.mxu_padded_tris, mh.tri)
+    uu, vv = intersect_mxu.winner_uv_from_geom(
+        at[:, 24:27], at[:, 27:30], at[:, 30:33], mh.tri, ro, rd, cfg.baby_epsilon,
+    )
+    w = 1.0 - uu - vv
+    cols = lambda a: Vec3(at[:, a], at[:, a + 1], at[:, a + 2])
+    zero = torch.zeros_like(uu)
+    zeros = Vec3(zero, zero, zero)
+    ng = vec.normalize(cols(0) * w + cols(3) * uu + cols(6) * vv)
+    ng = vec.where(tri_hit, ng, zeros)
+    ng = vec.where(vec.dot(rd, ng) > 0.0, -ng, ng)
+    mesh_mat = torch.where(tri_hit, at[:, 21].to(torch.int32), -1)
+    isect_m = Intersections(
+        t=mh.t, normal=ng, material_id=mesh_mat,
+        uv_u=at[:, 9] * w + at[:, 11] * uu + at[:, 13] * vv,
+        uv_v=at[:, 10] * w + at[:, 12] * uu + at[:, 14] * vv,
+        dpdu=cols(15), dpdv=cols(18), is_triangle=tri_hit,
+    )
+    mid = torch.clamp(mesh_mat, 0, static.num_materials - 1)
+    base = vec.select_gather(dev.materials.color, mid.long())
+    albedo, normal = shade_ops.textured_surface(dev, static, isect_m, mid, base,
+                                                live=tri_hit & paths.alive)
+    return mh.t, vec.where(tri_hit, normal, zeros), mesh_mat, albedo
 
 
 def _fused_mesh_bounce_at(dev, static, cfg, paths, resort, su_key, rng_n,
@@ -616,7 +702,13 @@ def _fused_mesh_bounce_at(dev, static, cfg, paths, resort, su_key, rng_n,
             )
         paths, (t_lim,) = permute_path_state(paths, perm, extra=(t_lim,))
 
-    mesh_t, mesh_normal, mesh_mat = mesh_surface(tables, static, cfg, paths, t_lim, plain)
+    if static.num_textures > 0:
+        mesh_t, mesh_normal, mesh_mat, albedo = textured_mesh_surface(
+            dev, static, cfg, paths, t_lim, plain)
+        mode = "textured"
+    else:
+        mesh_t, mesh_normal, mesh_mat = mesh_surface(tables, static, cfg, paths, t_lim, plain)
+        mode, albedo = "plain", None
     prim_static = dataclasses.replace(static, num_triangles=0)
     emit = ""
     if want_carry:
@@ -628,4 +720,58 @@ def _fused_mesh_bounce_at(dev, static, cfg, paths, resort, su_key, rng_n,
         emit=emit,
         tile_aabb=tables.tile_aabb if emit == "tlim+key" else None,
         center=tables.center if emit == "tlim+key" else None,
+        mode=mode, mesh_albedo=albedo,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Textured-prim bounce (the shade kernel in mode "precomputed")
+# ---------------------------------------------------------------------------
+
+def fused_tex_applicable(static: SceneStatic, cfg: RenderConfig) -> bool:
+    """Scenes with a textured or bump-mapped prim (with or without a mesh):
+    the whole intersect and texture/bump surface resolve in torch, shared
+    with the unfused shade, and the BSDF scatter in the shade kernel."""
+    return static.num_textures > 0 and static.prim_textured and cfg.shader == "full"
+
+
+def tex_sort_active(cfg: RenderConfig, device) -> bool:
+    """Whether the textured-prim bounce runs liveness-packed (and so prefix
+    tiered, its film scattered by pixel).  A pure liveness sort only buys
+    the tier slicing, so it engages only when tiers are configured; the
+    port's prefix tiers resolve to none (``RenderConfig.resolved_prefix_tiers``,
+    ``ROADMAP.md`` Queue 1 #9), so this is False there."""
+    return bool(cfg.resolved_prefix_tiers()) and ray_sorting_on(cfg, device)
+
+
+def fused_tex_bounce(
+    dev,
+    static: SceneStatic,
+    cfg: RenderConfig,
+    paths: PathState,
+    su_key: tuple,
+    rng_n: int = None,
+    plain: bool = False,
+) -> PathState:
+    """One bounce of a textured-prim scene: ``intersect_scene`` (any mesh
+    intersector) and ``shade.textured_surface`` in torch, exactly as the
+    unfused shade runs them, then the shade kernel in mode "precomputed"
+    with the uniforms drawn inline.  ``plain`` runs the traversal's and the
+    shade kernel's plain versions.
+
+    The JAX package's liveness pack (``_liveness_pack``, behind
+    ``tex_sort_active``) serves only its prefix tiers, which resolve to none
+    here; it comes with them (``ROADMAP.md`` Queue 1 #9)."""
+    rng_n = rng_n or paths.pixel.shape[0]
+    isect = intersect_scene(dev, static, paths, cfg, plain=plain)
+    mid = torch.clamp(isect.material_id, 0, static.num_materials - 1)
+    base = vec.select_gather(dev.materials.color, mid.long())
+    live = (paths.bounces > 0) & (isect.t > 0.0)
+    albedo, shading_normal = shade_ops.textured_surface(dev, static, isect, mid, base,
+                                                        live=live)
+    prim_static = dataclasses.replace(static, num_triangles=0)
+    shade = fused_mesh_shade_plain if plain else fused_mesh_shade
+    return shade(
+        prim_static, cfg, paths, isect.t, shading_normal, isect.material_id, su_key,
+        rng_n, mode="precomputed", mesh_albedo=albedo,
     )

@@ -328,9 +328,11 @@ def intersect_scene(
     static: SceneStatic,
     paths: PathState,
     cfg: RenderConfig,
+    plain: bool = False,
 ) -> Intersections:
     """Nearest hit over the analytic prims + mesh, with the reference's final
-    normal flip toward the ray (``src/pathtrace.cu:423-446``)."""
+    normal flip toward the ray (``src/pathtrace.cu:423-446``).  ``plain``
+    runs the MXU traversal's plain version instead of its kernel."""
     ro, rd = paths.origin, paths.direction
     zero = torch.zeros_like(ro.x)
 
@@ -365,6 +367,7 @@ def intersect_scene(
                 sort_dir_bits=cfg.ray_sort_dir_bits,
                 mesh_bounds=static.mesh_bounds,
                 compute_uv=False,  # derived below from the resolved rows
+                plain=plain,
                 **intersect_mxu.traversal_flags(
                     cfg.mxu_traversal, static.mxu_padded_tris,
                     binned_tiers=cfg.mxu_binned_tiers,

@@ -12,8 +12,8 @@ string.
 The ctypes structures below mirror ``csrc/prim_path.cuh``,
 ``csrc/fused_prim.cu``, ``csrc/fused_mesh.cu`` and ``csrc/mesh_walk.cu``
 field for field; loading a library checks their sizes and offsets against
-the library's own (``ptt_abi``, ``ptt_mesh_abi``, ``ptt_walk_abi``) before
-anything launches.
+the library's own (``ptt_abi``, ``ptt_mesh_abi``, ``ptt_walk_abi``,
+``ptt_scan_abi``) before anything launches.
 """
 
 from __future__ import annotations
@@ -31,10 +31,11 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("prim_path.cuh", "fused_prim.cu", "mesh_path.cuh", "fused_mesh.cu", "mesh_walk.cu")
+SOURCES = ("prim_path.cuh", "fused_prim.cu", "mesh_path.cuh", "fused_mesh.cu", "mesh_walk.cu",
+           "scan.cuh", "scan.cu")
 # Library name -> its translation unit.
 LIBRARIES = {"fused_prim": "fused_prim.cu", "fused_mesh": "fused_mesh.cu",
-             "mesh_walk": "mesh_walk.cu"}
+             "mesh_walk": "mesh_walk.cu", "scan": "scan.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -110,11 +111,11 @@ class PttMonoArgs(ctypes.Structure):
 class PttMeshShadeArgs(ctypes.Structure):
     _fields_ = [
         ("scene", _p), ("in_f", _p * 9), ("in_bounces", _p), ("pixel", _p),
-        ("mesh_t", _p), ("mesh_n", _p * 3), ("mesh_mat", _p),
+        ("mesh_t", _p), ("mesh_n", _p * 3), ("mesh_mat", _p), ("mesh_alb", _p * 3),
         ("tile_aabb", _p), ("center", _p),
         ("out_f", _p * 9), ("out_bounces", _p), ("out_tlim", _p), ("out_key", _p),
         ("k0", _u), ("k1", _u), ("rng_n", _u),
-        ("n", _i), ("ct", _i), ("emit", _i),
+        ("n", _i), ("ct", _i), ("emit", _i), ("mode", _i),
     ]
 
 
@@ -172,6 +173,7 @@ def _mesh_abi_expected() -> list:
         ctypes.sizeof(PttMeshShadeArgs),
         PttMeshShadeArgs.k0.offset,
         PttMeshShadeArgs.n.offset,
+        PttMeshShadeArgs.mode.offset,
         mxu.TRI_TILE,
         mxu.COEF_W,
         mxu.MONO_MAX_TILES,
@@ -243,7 +245,16 @@ def _bind_walk(lib) -> tuple:
     return lib.ptt_walk_abi, _walk_abi_expected(), lib.ptt_walk_error_string
 
 
-_BIND = {"fused_prim": _bind_prim, "fused_mesh": _bind_mesh, "mesh_walk": _bind_walk}
+def _bind_scan(lib) -> tuple:
+    from . import scan
+
+    lib.ptt_launch_scan_tiles.argtypes = [_p, _p, _p, _i, _p]
+    lib.ptt_launch_scan_tiles.restype = _i
+    return lib.ptt_scan_abi, [scan.LANES, scan.KERNEL_ROWS_PER_BLOCK], lib.ptt_scan_error_string
+
+
+_BIND = {"fused_prim": _bind_prim, "fused_mesh": _bind_mesh, "mesh_walk": _bind_walk,
+         "scan": _bind_scan}
 
 
 class KernelLibrary:

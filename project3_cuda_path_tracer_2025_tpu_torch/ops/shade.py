@@ -1,11 +1,15 @@
-"""Shading: BSDF scatter, one dense masked pass over all rays.
+"""Shading: texture/bump lookup + BSDF scatter, one dense masked pass over
+all rays.
 
 Parity with ``kernShadeMaterialProper`` (``src/pathtrace.cu:521-621``) +
 ``scatterRay`` (``src/interactions.cu:438-542``):
 
 * entry skip for terminated paths (keeps their final color),
 * miss -> color = 0, terminate,
+* texture albedo override before the emissive test,
 * emissive -> color *= albedo * emittance, terminate,
+* bump-map shading-normal perturbation (forward-difference heightfield,
+  ``src/pathtrace.cu:579-607``),
 * material dispatch priority: glass > mirror > transmissive > microfacet >
   diffuse (``src/interactions.cu:455-528``),
 * ray-offset epsilons: BABY_EPSILON along the normal for diffuse/mirror,
@@ -15,8 +19,9 @@ Parity with ``kernShadeMaterialProper`` (``src/pathtrace.cu:521-621``) +
 
 Every lane evaluates every lobe the scene uses and selects by mask, as in
 the JAX package; the kernels in ``csrc/prim_path.cuh`` branch per ray to the
-one lobe it selects, which computes the same values.  Textures and bump maps
-are not ported yet (``ROADMAP.md``, Queue 1: textures).
+one lobe it selects, which computes the same values.  Texture sampling and
+the bump normal (``textured_surface``) stay torch on the card, as they are
+XLA in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from ..config import RenderConfig
 from ..scene.device import DeviceScene, SceneStatic
 from ..utils import vec
 from ..utils.vec import Vec3, f32
-from . import bsdf
+from . import bsdf, texture
 from .rays import Intersections, PathState
 
 
@@ -76,6 +81,82 @@ def shade_fake(
     )
 
 
+def textured_surface(
+    dev: DeviceScene,
+    static: SceneStatic,
+    isect: Intersections,
+    mid: torch.Tensor,  # clipped material id per lane
+    albedo: Vec3,  # base (material-color) albedo per lane
+    live: torch.Tensor = None,  # lanes whose shade result is consumed
+):
+    """Texture albedo override + bump-map shading normal for one lane set.
+
+    Shared by the unfused ``shade``, the fused mesh bounce's surface stage
+    and the textured-prim bounce (the same formulas, so the integrators
+    agree bit for bit).  Dead lanes (``live`` False) gather texel row 0.
+    Returns ``(albedo, shading_normal)``.  A bump map on a surface with zero
+    tangents (an analytic prim) normalizes a zero vector, as the JAX package
+    does (``vec.normalize`` has no epsilon)."""
+    ms = static.material_consts
+    device = mid.device
+
+    # Python scalars, not device tensors: building a tensor from a host value
+    # per select would be a synchronizing host-to-device copy.
+    def chain(get, dtype=torch.float32):
+        out = torch.full(mid.shape, get(ms[0]), dtype=dtype, device=device)
+        for i in range(1, len(ms)):
+            out = torch.where(mid == i, get(ms[i]), out)
+        return out
+
+    # Per-lane texture and bump ids, bump scale and texture dims as constant
+    # select chains (materials and texture dims are static).
+    tex_id = chain(lambda m: m.texture_id, torch.int32)
+    bump_id = chain(lambda m: m.bump_id, torch.int32)
+    scale = chain(lambda m: f32(m.bump_scale))
+
+    dims = static.tex_dims or ((1, 1),)
+
+    def dim_chain(idv, axis):
+        out = torch.full(idv.shape, dims[0][axis], dtype=torch.int32, device=device)
+        for i in range(1, len(dims)):
+            out = torch.where(idv == i, dims[i][axis], out)
+        return out
+
+    nt = static.num_textures
+    tid = torch.clamp(tex_id, 0, max(nt - 1, 0))
+    bid = torch.clamp(bump_id, 0, max(nt - 1, 0))
+    tw_t, th_t = dim_chain(tid, 0), dim_chain(tid, 1)
+    tw_b, th_b = dim_chain(bid, 0), dim_chain(bid, 1)
+    du = 1.0 / tw_b.to(torch.float32)
+    dv = 1.0 / th_b.to(torch.float32)
+
+    # Texel-quad gather(s): albedo + precomputed bump gradients
+    # (src/pathtrace.cu:549-553 texture override; :579-607 bump heights).
+    # When no material pairs a texture with a different bump map (static
+    # per scene), both come from one packed-row gather.
+    single_quad = all(
+        m.texture_id < 0 or m.bump_id < 0 or m.texture_id == m.bump_id for m in ms
+    )
+    tex_rgb, gdu_raw, gdv_raw = texture.sample_surface(
+        dev.textures, nt, static.tex_wmax, static.tex_hmax,
+        tex_id, bump_id, isect.uv_u, isect.uv_v,
+        tw_t, th_t, tw_b, th_b, live=live, single_quad=single_quad,
+    )
+    albedo = vec.where(tex_id >= 0, tex_rgb, albedo)
+
+    # Shading normal: bump-map perturbation.
+    ng = isect.normal
+    has_bump = bump_id >= 0
+    dhdu = gdu_raw / du
+    dhdv = gdv_raw / dv
+    dpdu_p = isect.dpdu + ng * (scale * dhdu)
+    dpdv_p = isect.dpdv + ng * (scale * dhdv)
+    sn = vec.normalize(vec.cross(dpdu_p, dpdv_p))
+    sn = vec.where(vec.dot(sn, ng) < 0.0, -sn, sn)
+    shading_normal = vec.where(has_bump, sn, ng)
+    return albedo, shading_normal
+
+
 def shade(
     dev: DeviceScene,
     static: SceneStatic,
@@ -86,18 +167,20 @@ def shade(
 ) -> PathState:
     if cfg.shader == "fake":
         return shade_fake(dev, static, paths, isect, uniforms, cfg)
-    if static.num_textures > 0:
-        raise NotImplementedError(
-            "textured shading is not ported yet (ROADMAP.md, Queue 1: textures)"
-        )
     mats = dev.materials
     mid = torch.clamp(isect.material_id, 0, static.num_materials - 1).long()
+    albedo = vec.select_gather(mats.color, mid)
+    shading_normal = isect.normal
+    if static.num_textures > 0:
+        albedo, shading_normal = textured_surface(
+            dev, static, isect, mid, albedo, live=paths.alive & (isect.t > 0.0)
+        )
     return scatter_compose(
         cfg,
         paths,
         isect,
-        isect.normal,
-        vec.select_gather(mats.color, mid),
+        shading_normal,
+        albedo,
         mats.emittance[mid],
         mats.has_reflective[mid],
         mats.has_refractive[mid],

@@ -1,8 +1,9 @@
 """Device scene: torch tensors + hashable static metadata.
 
 Counterpart of the JAX package's ``scene/device.py`` for the slices the
-port runs: analytic primitives, untextured materials and triangle meshes of
-up to ``STREAMED_MAX_TILES`` (1,024) tiles of 1,024 triangles.  The primitives are not
+port runs: analytic primitives, textured and untextured materials and
+triangle meshes of up to ``STREAMED_MAX_TILES`` (1,024) tiles of 1,024
+triangles.  The primitives are not
 uploaded at all: their transforms are ``SceneStatic`` constants, folded term
 by term into the unfused torch path (``utils.vec._row_dot``) and packed into
 the kernels' scene struct (``ops.fused``).  The material table is uploaded
@@ -10,12 +11,15 @@ for the unfused shade's per-lane gathers.  A mesh is uploaded as the JAX
 package lays it out: triangles in BVH-leaf order with the flat-normal
 fallback resolved once, the packed octant BVH for the threaded walk, and
 the MXU intersector's tables (``ops.intersect_mxu.MXUMeshTables``).
+Textures are uploaded as the JAX package's ``TextureTable``: one padded RGBA
+row per texel, the wrapped forward height differences (``grad``) and the
+packed u8 albedo / 10-bit gradient words (``packed``).
 
 ``SceneStatic``, ``GeomConst`` and ``MaterialConst`` keep the JAX package's
 fields and values exactly (including ``_snap``), so a test can hold the two
 packages' scene constants equal and ``from_jax_scene`` can carry a JAX scene
-across unchanged.  Textures, and meshes beyond the streamed plan's 1,024
-tiles, are not ported yet (``ROADMAP.md``).
+across unchanged.  Meshes beyond the streamed plan's 1,024 tiles are not
+ported yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -134,12 +138,33 @@ class BVHTable(NamedTuple):
     tris: torch.Tensor
 
 
+class TextureTable(NamedTuple):
+    """Padded texture stack as row tables (the JAX package's layout).
+
+    ``rgba``: [NT * Hmax * Wmax, 4] f32, one row per texel.  ``grad``: [.., 2]
+    f32, the per-texel wrapped forward differences of the height (red)
+    channel, (h[y][x+1] - h[y][x], h[y-1][x] - h[y][x]); bilinear samples of
+    them are the reference's bump-map finite differences of bilinear height
+    samples (the interpolation weights distribute).  ``packed``: [.., 2] i32,
+    word0 = r | g << 8 | b << 16 (u8 codes; ``/ 255`` gives the f32 stack
+    back exactly), word1 = (gdu * 255 + 256) | (gdv * 255 + 256) << 10: the
+    albedo and gradients of one texel in one 8-byte row, for the single
+    texel-quad gather (``ops.texture.sample_surface``)."""
+
+    rgba: torch.Tensor
+    grad: torch.Tensor
+    width: torch.Tensor  # [NT] i32
+    height: torch.Tensor  # [NT] i32
+    packed: torch.Tensor
+
+
 class DeviceScene(NamedTuple):
     materials: MaterialTable
     # Meshes only (None in a prim-only scene):
     triangles: Optional[TriangleTable] = None
     bvh: Optional[BVHTable] = None
     mxu_mesh: Optional["object"] = None  # ops.intersect_mxu.MXUMeshTables
+    textures: Optional[TextureTable] = None  # None in an untextured scene
 
 
 def _snap(x: float) -> float:
@@ -155,11 +180,7 @@ def _mat_tuple(m: np.ndarray) -> Tuple[Tuple[float, ...], ...]:
     return tuple(tuple(_snap(float(x)) for x in row) for row in np.asarray(m))
 
 
-def _check_slice(num_triangles: int, num_textures: int) -> None:
-    if num_textures > 0:
-        raise NotImplementedError(
-            "textures are not ported yet (ROADMAP.md, Queue 1: textures)"
-        )
+def _check_slice(num_triangles: int) -> None:
     from ..ops import intersect_mxu as mxu  # lazy: avoids an import cycle
 
     padded = _padded_tris(num_triangles)
@@ -172,7 +193,7 @@ def _check_slice(num_triangles: int, num_textures: int) -> None:
 
 def check_scene(scene: HostScene) -> None:
     """Raise ``NotImplementedError`` for a scene outside the ported slices."""
-    _check_slice(scene.num_triangles, len(scene.textures))
+    _check_slice(scene.num_triangles)
 
 
 def _padded_tris(num_triangles: int) -> int:
@@ -249,6 +270,33 @@ def _mesh_tables(scene: HostScene, device):
     return triangles, bvh, tables, num_nodes, leaf_size, bounds
 
 
+def texture_rows(stack: np.ndarray, wh: np.ndarray) -> tuple:
+    """(grad, packed) row tables of a padded [NT, Hmax, Wmax, 4] stack with
+    true sizes ``wh`` [NT, 2], exactly as the JAX package builds them."""
+    nt, hmax, wmax, _ = stack.shape
+    grad = np.zeros((nt, hmax, wmax, 2), np.float32)
+    for i in range(nt):
+        w_i, h_i = int(wh[i, 0]), int(wh[i, 1])
+        h_ch = stack[i, :h_i, :w_i, 0]
+        grad[i, :h_i, :w_i, 0] = np.roll(h_ch, -1, axis=1) - h_ch
+        grad[i, :h_i, :w_i, 1] = np.roll(h_ch, 1, axis=0) - h_ch
+    u8 = np.clip(np.round(stack * 255.0), 0, 255).astype(np.uint32)
+    word0 = u8[..., 0] | (u8[..., 1] << 8) | (u8[..., 2] << 16)
+    gcode = (
+        np.clip(np.round(grad * 255.0), -255, 255).astype(np.int32) + 256
+    ).astype(np.uint32)
+    word1 = gcode[..., 0] | (gcode[..., 1] << 10)
+    packed = np.stack([word0, word1], axis=-1).view(np.int32)
+    return grad.reshape(-1, 2), packed.reshape(-1, 2)
+
+
+def _texture_table(rgba, grad, width, height, packed, device) -> TextureTable:
+    f = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    i = lambda a: torch.tensor(np.asarray(a, np.int32), device=device)
+    return TextureTable(rgba=f(rgba), grad=f(grad), width=i(width), height=i(height),
+                        packed=i(packed))
+
+
 def _material_table(cols: dict, device) -> MaterialTable:
     # torch.tensor copies: the table never aliases a caller's (possibly
     # read-only) array.
@@ -271,7 +319,7 @@ def _material_table(cols: dict, device) -> MaterialTable:
 def build_device_scene(
     scene: HostScene, device="cuda"
 ) -> tuple[DeviceScene, SceneStatic]:
-    _check_slice(scene.num_triangles, len(scene.textures))
+    _check_slice(scene.num_triangles)
     ms = scene.materials
     if not ms:
         raise ValueError("scene has no materials")
@@ -325,6 +373,11 @@ def build_device_scene(
         )
     stack, wh = build_texture_stack(scene.textures)
     _, hmax, wmax, _ = stack.shape
+    textures = None
+    if scene.textures:
+        grad, packed = texture_rows(stack, wh)
+        textures = _texture_table(stack.reshape(-1, 4), grad, wh[:, 0], wh[:, 1], packed,
+                                  device)
     static = SceneStatic(
         geoms=geoms,
         material_consts=material_consts,
@@ -336,7 +389,7 @@ def build_device_scene(
         num_triangles=t,
         num_nodes=num_nodes,
         leaf_size=leaf_size,
-        num_textures=0,
+        num_textures=len(scene.textures),
         tex_wmax=wmax,
         tex_hmax=hmax,
         image_name=scene.state.image_name,
@@ -348,7 +401,7 @@ def build_device_scene(
         ),
         tex_dims=tuple((int(w), int(h)) for w, h in wh),
     )
-    return DeviceScene(materials, triangles, bvh, tables), static
+    return DeviceScene(materials, triangles, bvh, tables, textures), static
 
 
 def from_jax_scene(dev_np, static, device="cpu") -> tuple[DeviceScene, SceneStatic]:
@@ -361,7 +414,7 @@ def from_jax_scene(dev_np, static, device="cpu") -> tuple[DeviceScene, SceneStat
     module needs no JAX.  Returns the port's ``(DeviceScene, SceneStatic)``
     with identical constants and tables, which lets a test run both
     packages on bit-identical scene data."""
-    _check_slice(static.num_triangles, static.num_textures)
+    _check_slice(static.num_triangles)
     m = dev_np.materials
     materials = _material_table(
         dict(
@@ -383,8 +436,12 @@ def from_jax_scene(dev_np, static, device="cpu") -> tuple[DeviceScene, SceneStat
     fields["material_consts"] = tuple(
         MaterialConst(*mc) for mc in static.material_consts
     )
+    textures = None
+    if static.num_textures > 0:
+        t = dev_np.textures
+        textures = _texture_table(t.rgba, t.grad, t.width, t.height, t.packed, device)
     if static.num_triangles == 0:
-        return DeviceScene(materials), SceneStatic(**fields)
+        return DeviceScene(materials, textures=textures), SceneStatic(**fields)
     from ..ops import intersect_mxu as mxu
 
     f = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
@@ -403,4 +460,4 @@ def from_jax_scene(dev_np, static, device="cpu") -> tuple[DeviceScene, SceneStat
     tables = mxu.tables_from_arrays(
         m.features, m.tile_aabb, m.attrs, m.attrs_shade, m.center, device
     )
-    return DeviceScene(materials, triangles, bvh, tables), SceneStatic(**fields)
+    return DeviceScene(materials, triangles, bvh, tables, textures), SceneStatic(**fields)

@@ -35,21 +35,24 @@ void ptt_host_mono(const float* coef, const float* aabb, int32_t ct, const float
   }
 }
 
-// ptt_mesh_shade_kernel; emit: 0 none, 1 t_lim, 2 t_lim + key.
+// ptt_mesh_shade_kernel; emit: 0 none, 1 t_lim, 2 t_lim + key; mode: 0
+// plain, 1 textured, 2 precomputed (mesh_alb is read in modes 1 and 2).
 void ptt_host_mesh_shade(const PttScene* s, const float* const* in_f, const int32_t* in_bounces,
                          const int32_t* pixel, const float* mesh_t, const float* const* mesh_n,
                          const int32_t* mesh_mat, const float* aabb, const float* center,
                          float* const* out_f, int32_t* out_bounces, float* out_tlim,
                          int32_t* out_key, uint32_t k0, uint32_t k1, uint32_t rng_n, int32_t n,
-                         int32_t ct, int32_t emit) {
+                         int32_t ct, int32_t emit, int32_t mode, const float* const* mesh_alb) {
   for (int32_t i = 0; i < n; ++i) {
     Ray ray;
     ray.o = v3(in_f[0][i], in_f[1][i], in_f[2][i]);
     ray.d = v3(in_f[3][i], in_f[4][i], in_f[5][i]);
     ray.c = v3(in_f[6][i], in_f[7][i], in_f[8][i]);
     ray.bounces = in_bounces[i];
+    const V3 alb = mode == PTT_SHADE_PLAIN ? v3(0.0f, 0.0f, 0.0f)
+                                           : v3(mesh_alb[0][i], mesh_alb[1][i], mesh_alb[2][i]);
     mesh_shade_ray(*s, ray, mesh_t[i], v3(mesh_n[0][i], mesh_n[1][i], mesh_n[2][i]), mesh_mat[i],
-                   k0, k1, rng_n, pixel[i]);
+                   mode, alb, k0, k1, rng_n, pixel[i]);
     out_f[0][i] = ray.o.x;
     out_f[1][i] = ray.o.y;
     out_f[2][i] = ray.o.z;

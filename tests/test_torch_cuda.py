@@ -326,3 +326,102 @@ def test_larger_mesh_renderer_takes_the_kernels(cuda):
     for mode in ("planned", "streamed", "binned"):
         assert torch.equal(films[mode], films["auto"]), mode
     assert np.isfinite(r.image()).all() and r.image().sum() > 0
+
+
+# ---------------------------------------------------------------------------
+# Textures (the shade kernel's modes "textured" and "precomputed") and the
+# wavefront integrator (csrc/scan.cu)
+# ---------------------------------------------------------------------------
+
+MESH_TEX = "cornell_mesh_textured_local.json"
+PRIM_TEX = "cornell_prim_textured_local.json"
+
+
+def _tex_surface(dev, static, cfg, paths, mode):
+    """The resolved surface the shade kernel takes in ``mode``:
+    (mesh_t, normal, material, albedo)."""
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import shade as shade_ops
+    from project3_cuda_path_tracer_2025_tpu_torch.ops.intersect import intersect_scene
+    from project3_cuda_path_tracer_2025_tpu_torch.utils.vec import Vec3
+
+    if mode == "textured":
+        tl = prim_t_min(static, cfg, paths.origin, paths.direction)
+        return fused.textured_mesh_surface(dev, static, cfg, paths, tl)
+    isect = intersect_scene(dev, static, paths, cfg)
+    mid = torch.clamp(isect.material_id, 0, static.num_materials - 1)
+    base = Vec3(*(c[mid.long()] for c in dev.materials.color))
+    alb, nrm = shade_ops.textured_surface(dev, static, isect, mid, base,
+                                          live=paths.alive & (isect.t > 0.0))
+    return isect.t, nrm, isect.material_id, alb
+
+
+@pytest.mark.parametrize("mode", ["textured", "precomputed"])
+def test_mesh_shade_kernel_modes_bit_equal(cuda, mode):
+    dev, static, cam = _setup(MESH_TEX if mode == "textured" else PRIM_TEX, 128, cuda)
+    cfg = RenderConfig()
+    ik, paths = _camera_paths(static, cam, cuda)
+    prim_static = dataclasses.replace(static, num_triangles=0)
+    before = fused.fused_mesh_shade.launches
+    for d in range(3):
+        mt, mn, mm, alb = _tex_surface(dev, static, cfg, paths, mode)
+        args = (prim_static, cfg, paths, mt, mn, mm, prng.stage_key(ik, d, 1),
+                static.pixel_count)
+        got = fused.fused_mesh_shade(*args, mode=mode, mesh_albedo=alb)
+        want = fused.fused_mesh_shade_plain(*args, mode=mode, mesh_albedo=alb)
+        assert torch.equal(got.bounces, want.bounces)
+        for a, b in zip([*got.origin, *got.direction, *got.color],
+                        [*want.origin, *want.direction, *want.color]):
+            assert torch.equal(a, b)
+        paths = want
+    assert fused.fused_mesh_shade.launches == before + 3
+
+
+@pytest.mark.parametrize("n", [640_000, 16_384 * 3 + 1])
+def test_scan_kernel_matches_cumsum(cuda, n):
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import scan
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    before = scan.scan_tiles.launches
+    flags = (torch.rand(n, generator=g, device=cuda) > 0.5).to(torch.int32)
+    ramp = torch.arange(n, device=cuda, dtype=torch.int32) % 7
+    for x in (flags, ramp):
+        assert torch.equal(scan.exclusive_scan(x), torch.cumsum(x, 0, dtype=torch.int32) - x)
+        assert torch.equal(scan.inclusive_scan(x), torch.cumsum(x, 0, dtype=torch.int32))
+    xf = torch.rand(n, generator=g, device=cuda)
+    torch.testing.assert_close(scan.inclusive_scan(xf), torch.cumsum(xf.double(), 0).float(),
+                               rtol=1e-5, atol=1e-2)
+    assert scan.scan_tiles.launches == before + 5
+    keys = torch.randint(0, 64, (n,), generator=g, device=cuda, dtype=torch.int32)
+    assert torch.equal(scan.radix_sort_permutation(keys, num_bits=6).long(),
+                       torch.argsort(keys, stable=True))
+
+
+def test_textured_and_wavefront_renderers_take_the_kernels(cuda):
+    """A textured mesh frame launches the mono traversal and the shade
+    kernel once a bounce, a textured-prim frame the shade kernel once a
+    bounce, a compacting wavefront frame the scan kernel twice a bounce;
+    every wavefront film is bit-identical to the unfused megakernel film."""
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import scan
+
+    counters = (intersect_mxu.mono_intersect, fused.fused_mesh_shade, scan.scan_tiles)
+    for name in (MESH_TEX, PRIM_TEX, "cornell_dof.json"):
+        scene = set_resolution(load_scene(str(REPO / "scenes" / name)), 128, 128)
+        r = Renderer(scene, RenderConfig(), device=cuda)
+        before = [c.launches for c in counters]
+        r.step_many(2)
+        got = [c.launches - b for c, b in zip(counters, before)]
+        depth = r.static.trace_depth
+        if name != "cornell_dof.json":
+            assert got[:2] == [2 * depth, 2 * depth], (name, got)
+        ref = Renderer(scene, RenderConfig(fused_bounce="off"), device=cuda)
+        ref.step_many(2)
+        for compaction in (True, "adaptive", False):
+            wf = Renderer(scene, RenderConfig(integrator="wavefront",
+                                              stream_compaction=compaction), device=cuda)
+            before = scan.scan_tiles.launches
+            wf.step_many(2)
+            if compaction is True:
+                assert scan.scan_tiles.launches - before == 2 * 2 * depth
+            for a, b in zip(wf.film, ref.film):
+                assert torch.equal(a, b), (name, compaction)
+        assert np.isfinite(r.image()).all() and r.image().sum() > 0

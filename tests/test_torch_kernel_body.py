@@ -1,14 +1,16 @@
 """The CUDA kernels' per-ray bodies, built for the host, against the port's
 plain torch versions.
 
-``csrc/prim_path.cuh`` and ``csrc/mesh_path.cuh`` compile for the host as
-well as for the card, and ``tests/prim_path_host.cpp`` /
+``csrc/prim_path.cuh``, ``csrc/mesh_path.cuh`` and ``csrc/scan.cuh`` compile
+for the host as well as for the card, and ``tests/prim_path_host.cpp`` /
 ``tests/mesh_path_host.cpp`` loop them over rays exactly as the kernels in
-``csrc/fused_prim.cu`` / ``csrc/fused_mesh.cu`` do one ray per thread.  So
-the arithmetic the card runs is checked here, on the CPU, against
-``fused_prim_bounce_plain`` / ``fused_prim_iteration_plain`` /
-``mono_intersect_plain`` / ``fused_mesh_shade_plain`` on identical inputs.
-(The kernels themselves run only on the card: ``tests/test_torch_cuda.py``.)
+``csrc/fused_prim.cu`` / ``csrc/fused_mesh.cu`` do one ray per thread
+(``tests/scan_host.cpp`` runs a warp's 32 lanes of ``csrc/scan.cu`` in
+lockstep).  So the arithmetic the card runs is checked here, on the CPU,
+against ``fused_prim_bounce_plain`` / ``fused_prim_iteration_plain`` /
+``mono_intersect_plain`` / ``fused_mesh_shade_plain`` (all three modes) /
+``scan_tiles_plain`` on identical inputs.  (The kernels themselves run only
+on the card: ``tests/test_torch_cuda.py``.)
 
 Tolerances: the RNG is compared bit for bit, and so is the mono traversal
 (the same float32 operations in the same order, its fused multiply-adds
@@ -17,7 +19,9 @@ atol=1e-6``: sqrt and division are correctly rounded on both sides,
 cos/sin are libm's here and SLEEF's in torch (an ulp or so apart); the
 sort key, a function of the scattered ray, may differ only on lanes whose
 ray differs.  Films use the goldens' tolerance (``test_goldens.py``) on
-every pixel (``tests/torch_compare.py``).
+every pixel (``tests/torch_compare.py``).  The scan body equals
+``torch.cumsum`` exactly on integer-valued rows and agrees to ``rtol=1e-6``
+on float rows (another summation order).
 """
 
 import ctypes
@@ -34,7 +38,8 @@ from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
 from project3_cuda_path_tracer_2025_tpu_torch.ops import camera as camera_ops
 from project3_cuda_path_tracer_2025_tpu_torch.ops import film as film_ops
 from project3_cuda_path_tracer_2025_tpu_torch.ops import fused, intersect_mxu, kernels
-from project3_cuda_path_tracer_2025_tpu_torch.ops.intersect import prim_t_min
+from project3_cuda_path_tracer_2025_tpu_torch.ops import shade as shade_ops
+from project3_cuda_path_tracer_2025_tpu_torch.ops.intersect import intersect_scene, prim_t_min
 from project3_cuda_path_tracer_2025_tpu_torch.scene import (
     build_device_scene, camera_state, derive_render_camera, load_scene,
     set_resolution,
@@ -46,6 +51,7 @@ from torch_compare import assert_films_close
 REPO = pathlib.Path(__file__).resolve().parent.parent
 HARNESS = REPO / "tests" / "prim_path_host.cpp"
 MESH_HARNESS = REPO / "tests" / "mesh_path_host.cpp"
+SCAN_HARNESS = REPO / "tests" / "scan_host.cpp"
 MESH = REPO / "scenes" / "cornell_mesh_5k.json"
 
 P = ctypes.c_void_p
@@ -175,7 +181,7 @@ def mesh_lib(tmp_path_factory):
          ctypes.c_float, ctypes.c_int32, P, P]
     )
     lib.ptt_host_mesh_shade.argtypes = (
-        [P] * 13 + [ctypes.c_uint32] * 3 + [ctypes.c_int32] * 3
+        [P] * 13 + [ctypes.c_uint32] * 3 + [ctypes.c_int32] * 4 + [P]
     )
     sizes = (ctypes.c_int32 * 2)()
     lib.ptt_host_mesh_sizes(sizes)
@@ -278,7 +284,7 @@ def test_host_mesh_shade_matches_plain(mesh_lib, mesh_scene, emit):
             tables.tile_aabb.data_ptr(), tables.center.data_ptr(), _ptrs(f_out),
             b_out.data_ptr(), tl_out.data_ptr(), key_out.data_ptr(),
             skey[0], skey[1], n, n, tables.tile_aabb.shape[0],
-            fused.EMIT_MODES.index(emit),
+            fused.EMIT_MODES.index(emit), 0, None,
         )
         np.testing.assert_array_equal(b_out.numpy(), want_p.bounces.numpy())
         outs = [*want_p.origin, *want_p.direction, *want_p.color]
@@ -291,6 +297,103 @@ def test_host_mesh_shade_matches_plain(mesh_lib, mesh_scene, emit):
         if emit == "tlim+key":
             assert torch.equal(key_out[same], want_key[same])
         paths = want_p
+
+
+def _tex_surfaces(mode):
+    """A textured scene of 32x24 and, per bounce, its resolved surface as
+    the shade kernel takes it in ``mode``: yields (prim_static, paths,
+    (mesh_t, normal, mat, albedo), shade key, n) over three bounces, chained
+    through the plain shade."""
+    name = "cornell_mesh_textured_local.json" if mode == "textured" else \
+        "cornell_prim_textured_local.json"
+    scene = set_resolution(load_scene(str(REPO / "scenes" / name)), 32, 24)
+    dev, static = build_device_scene(scene, "cpu")
+    cam = camera_state(derive_render_camera(scene.state.camera))
+    cfg = RenderConfig()
+    n = static.pixel_count
+    idx = torch.arange(n, dtype=torch.int32)
+    ik = prng.iteration_key(prng.prng_key(0), 1)
+    paths = camera_ops.generate_camera_rays(
+        cam, static.width, static.height, static.trace_depth,
+        prng.uniforms_at(prng.stage_key(ik, 0, 0), idx, 4, n), idx=idx,
+    )
+    prim_static = dataclasses.replace(static, num_triangles=0)
+    for d in range(3):
+        if mode == "textured":
+            tl = prim_t_min(static, cfg, paths.origin, paths.direction)
+            surf = fused.textured_mesh_surface(dev, static, cfg, paths, tl)
+        else:
+            isect = intersect_scene(dev, static, paths, cfg)
+            mid = torch.clamp(isect.material_id, 0, static.num_materials - 1)
+            alb, nrm = shade_ops.textured_surface(
+                dev, static, isect, mid, Vec3(*(c[mid.long()] for c in dev.materials.color)),
+                live=paths.alive & (isect.t > 0.0))
+            surf = (isect.t, nrm, isect.material_id, alb)
+        skey = prng.stage_key(ik, d, 1)
+        yield prim_static, paths, surf, skey, n
+        paths = fused.fused_mesh_shade_plain(prim_static, cfg, paths, *surf[:3], skey, n,
+                                             mode=mode, mesh_albedo=surf[3])
+
+
+@pytest.mark.parametrize("mode", ["textured", "precomputed"])
+def test_host_mesh_shade_modes_match_plain(mesh_lib, mode):
+    """The shade body in modes "textured" (the textured mesh scene) and
+    "precomputed" (the textured-prim scene) against the plain version on
+    the resolved surfaces of three chained bounces."""
+    cfg = RenderConfig()
+    textured_lanes = 0
+    for prim_static, paths, (mt, mn, mm, alb), skey, n in _tex_surfaces(mode):
+        want = fused.fused_mesh_shade_plain(prim_static, cfg, paths, mt, mn, mm, skey, n,
+                                            mode=mode, mesh_albedo=alb)
+        scene = fused.scene_struct(prim_static, cfg)
+        f_in = [*paths.origin, *paths.direction, *paths.color]
+        f_out = [torch.empty(n) for _ in range(9)]
+        b_out = torch.empty(n, dtype=torch.int32)
+        c = lambda x: x.contiguous()
+        mesh_n, mesh_a = [c(x) for x in mn], [c(x) for x in alb]
+        mt_c, mm_c = c(mt), c(mm)
+        mesh_lib.ptt_host_mesh_shade(
+            ctypes.byref(scene), _ptrs(f_in), paths.bounces.data_ptr(),
+            paths.pixel.data_ptr(), mt_c.data_ptr(), _ptrs(mesh_n), mm_c.data_ptr(),
+            None, None, _ptrs(f_out), b_out.data_ptr(), None, None,
+            skey[0], skey[1], n, n, 0, 0, fused.SHADE_MODES.index(mode), _ptrs(mesh_a),
+        )
+        np.testing.assert_array_equal(b_out.numpy(), want.bounces.numpy())
+        for got, exp in zip(f_out, [*want.origin, *want.direction, *want.color]):
+            np.testing.assert_allclose(got.numpy(), exp.numpy(), rtol=1e-5, atol=1e-6)
+        textured_lanes += int(((mm >= 0) & paths.alive).sum()) if mode == "textured" else \
+            int((alb.y != alb.x).sum())
+    assert textured_lanes > 20
+
+
+@pytest.fixture(scope="module")
+def scan_lib(tmp_path_factory):
+    lib = _build_host(tmp_path_factory, SCAN_HARNESS, "libscan_host.so")
+    lib.ptt_host_scan_tiles.argtypes = [P, P, P, ctypes.c_int32]
+    return lib
+
+
+@pytest.mark.parametrize("kind", ["flags", "ints", "floats"])
+def test_host_scan_body_matches_plain(scan_lib, kind):
+    """The warp scan of csrc/scan.cu (lanes in lockstep) against
+    ``scan_tiles_plain`` (per-row torch.cumsum) on 300 rows of 128."""
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import scan
+
+    rng = np.random.default_rng(5)
+    x = {"flags": lambda: (rng.random((300, 128)) > 0.5),
+         "ints": lambda: rng.integers(0, 200, (300, 128)),
+         "floats": lambda: rng.random((300, 128))}[kind]()
+    xp = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    lane, tot = torch.empty_like(xp), torch.empty(300)
+    scan_lib.ptt_host_scan_tiles(xp.data_ptr(), lane.data_ptr(), tot.data_ptr(), 300)
+    want_lane, want_tot = scan.scan_tiles_plain(xp)
+    if kind == "floats":
+        np.testing.assert_allclose(lane.numpy(), want_lane.numpy(), rtol=1e-6)
+        np.testing.assert_allclose(tot.numpy(), want_tot[:, 0].numpy(), rtol=1e-6)
+    else:
+        assert torch.equal(lane, want_lane)
+        assert torch.equal(tot, want_tot[:, 0])
+    assert torch.equal(tot, lane[:, -1])
 
 
 # ---------------------------------------------------------------------------

@@ -168,16 +168,43 @@ print("ok")
 @pytest.mark.parametrize(
     "kw,item",
     [
-        (dict(integrator="wavefront"), "wavefront"),
-        (dict(devices=2), "parallel/"),
-        (dict(pixel_chunks=4), "parallel/"),
-        (dict(mxu_traversal="sweep"), "meshes"),
-        (dict(native_bvh=True), "native/"),
+        # The wavefront integrator is ported (test_wavefront_config_dispatches);
+        # its prefix tiers are not.
+        pytest.param(dict(integrator="wavefront", bounce_prefix_tiers=(4, 2)), "prefix tiers",
+                     id="kw0-wavefront"),
+        pytest.param(dict(devices=2), "parallel/", id="kw1-parallel/"),
+        pytest.param(dict(pixel_chunks=4), "parallel/", id="kw2-parallel/"),
+        pytest.param(dict(mxu_traversal="sweep"), "meshes", id="kw3-meshes"),
+        pytest.param(dict(native_bvh=True), "native/", id="kw4-native/"),
     ],
 )
 def test_config_raises_for_unported_paths(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         RenderConfig(**kw)
+
+
+def test_wavefront_config_dispatches(monkeypatch):
+    """``integrator="wavefront"`` is ported: the config builds, and the
+    Renderer steps through ``wavefront_iteration`` (not the megakernel, not
+    the fused iteration kernel)."""
+    from project3_cuda_path_tracer_2025_tpu_torch.models import renderer, wavefront
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import set_resolution
+
+    cfg = RenderConfig(integrator="wavefront", fused_bounce="on")
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append(args[2].integrator)
+        return wavefront.wavefront_iteration(*args, **kw)
+
+    monkeypatch.setattr(renderer, "wavefront_iteration", spy)
+    monkeypatch.setattr(renderer, "megakernel_iteration", None)
+    r = renderer.Renderer(set_resolution(load_scene(str(REPO / "scenes" / "cornell_dof.json")),
+                                         8, 8), cfg, device="cpu")
+    assert not r._use_fused_iter
+    r.step_many(2)
+    assert calls == ["wavefront", "wavefront"]
+    assert r.image().sum() > 0
 
 
 def test_mesh_scene_raises_not_ported():

@@ -145,3 +145,57 @@ def mesh_tables_pair(pos):
                           np.zeros((t,), np.int32))
     return jt, tables_from_arrays(*(np.asarray(getattr(jt, f)) for f in (
         "features", "tile_aabb", "attrs", "attrs_shade", "center")))
+
+
+# ---------------------------------------------------------------------------
+# Procedural texture fixtures (scenes/textures/*.bmp)
+# ---------------------------------------------------------------------------
+
+TEXTURE_SIZE = 256
+TEXTURES = ("checker_albedo.bmp", "height_bumps.bmp")
+
+
+def procedural_textures(seed: int = 0) -> dict:
+    """The in-repo stand-ins for the reference's textures, made from
+    ``seed``: file name -> [256, 256, 3] uint8 RGB (row 0 at the top).
+
+    * ``checker_albedo.bmp``: a soft-edged 8 x 8 checker whose light
+      squares carry a colour ramp (red across, green down) and whose dark
+      squares are the ramp at a third, with a little seeded noise;
+    * ``height_bumps.bmp``: a grey height map, a wrapped sum of seeded
+      Gaussian bumps (height is the red channel; all three are equal)."""
+    rng = np.random.default_rng(seed)
+    s = TEXTURE_SIZE
+    y, x = np.mgrid[0:s, 0:s].astype(np.float64) / (s - 1)
+    ramp = np.stack([0.25 + 0.75 * x, 0.25 + 0.75 * y, 0.9 - 0.6 * x * y], axis=-1)
+    # Soft-edged squares (the edge spans a few texels), so that the checker
+    # used as its own bump map tilts normals smoothly.
+    light = 0.5 + 0.5 * np.clip(2.0 * np.sin(4 * np.pi * x) * np.sin(4 * np.pi * y), -1, 1)
+    albedo = ramp * (1.0 + 2.0 * light[..., None]) / 3.0 + rng.normal(0.0, 0.005, (s, s, 3))
+    height = np.zeros((s, s))
+    for cx, cy, r, a in zip(rng.random(24), rng.random(24), rng.uniform(0.06, 0.16, 24),
+                            rng.uniform(0.3, 1.0, 24)):
+        dx = np.minimum(np.abs(x - cx), 1.0 - np.abs(x - cx))  # wrapped distance
+        dy = np.minimum(np.abs(y - cy), 1.0 - np.abs(y - cy))
+        height += a * np.exp(-(dx * dx + dy * dy) / (2.0 * r * r))
+    height /= height.max()
+    u8 = lambda a: np.clip(np.round(a * 255.0), 0, 255).astype(np.uint8)
+    return {
+        "checker_albedo.bmp": u8(albedo),
+        "height_bumps.bmp": u8(np.repeat(height[..., None], 3, axis=-1)),
+    }
+
+
+def bmp_bytes(rgb: np.ndarray) -> bytes:
+    """An uncompressed 24-bit BMP of ``rgb`` [H, W, 3] uint8 (row 0 at the
+    top; stored bottom-up, BGR, rows padded to 4 bytes), the form the
+    loaders' own BMP reader takes."""
+    import struct
+
+    h, w, _ = rgb.shape
+    stride = (w * 3 + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, : w * 3] = rgb[::-1, :, ::-1].reshape(h, w * 3)
+    header = struct.pack("<2sIHHI", b"BM", 54 + rows.size, 0, 0, 54)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0)
+    return header + info + rows.tobytes()
