@@ -15,7 +15,13 @@ at 800x800, depth 8: the planned walks (``cornell_mesh_20k.json``, phase
 prims (``cornell_prim_textured_local.json``, the shade kernel's mode
 "precomputed", phase 13), a textured and bump-mapped mesh
 (``cornell_mesh_textured_local.json`` and ``_bump_local``, mode "textured",
-phase 14) and the wavefront integrator with the scan kernel (phase 15) --
+phase 14), the wavefront integrator with the scan kernel (phase 15), and
+the rest of the mesh traversals: the sweep (20k and, as a chain of calls,
+80k; phase 16), the planned chains (80k, 200k, and a torus knot of 1.1 M
+triangles, beyond the streamed plan's 1,024 tiles, that the script writes
+into ``build/chip_smoke/``; phase 17), the super-tile streamed walk
+(``PTT_STREAM_SUPER=1`` on 500k, phase 18) and the plan prepass kernel
+(``PTT_PLAN_IMPL=pallas``, phase 19) --
 checks the results against the committed golden films, and times the
 kernel paths against the plain versions with CUDA events; phase 9 profiles
 whole frames.  Any failure raises and exits non-zero.
@@ -28,6 +34,7 @@ limit, then one JSON line describing the kernels, and last one JSON line
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -201,12 +208,16 @@ def profile_paths(paths: dict, frames: int = 3) -> None:
     its own host overhead), device launches per frame and the top device
     functions."""
     for name, fn in paths.items():
-        busy, wall, count, top = device_busy(fn, frames)
+        k = frames
+        busy, wall, count, top = device_busy(fn, k)
+        if count == 0:  # a window of a few ms can close before its records arrive
+            k = 10 * frames
+            busy, wall, count, top = device_busy(fn, k)
         log(f"[9] {name}: device busy {busy:.4f} ms/frame, wall under the profiler "
             f"{wall:.4f} ms/frame ({busy / wall:.1%} busy), {count:.0f} device launches/frame")
         for e in top:
-            log(f"      {e.self_device_time_total / 1e3 / frames:9.4f} ms/frame "
-                f"x{e.count / frames:5.1f}  {e.key[:90]}")
+            log(f"      {e.self_device_time_total / 1e3 / k:9.4f} ms/frame "
+                f"x{e.count / k:5.1f}  {e.key[:90]}")
 
 
 def mesh_phases(device, smi: str) -> tuple:
@@ -588,6 +599,29 @@ def binned_bound(args) -> tuple:
     return bound_ms(nbytes, ops) + (pairs,)
 
 
+def traversals_agree(tag, tables, static, states, modes) -> None:
+    """``mesh_intersect_mxu`` under each ``mxu_traversal`` mode on every ray
+    of the states: (t, tri) bit-equal to the first mode's."""
+    from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
+
+    cfg = RenderConfig()
+    for d, (paths, tl, _) in enumerate(states):
+        res = {m: mxu.mesh_intersect_mxu(
+            tables, static.num_triangles, static.mxu_padded_tris, paths.origin,
+            paths.direction, paths.alive, tl, cfg.baby_epsilon, compute_uv=False,
+            **mxu.traversal_flags(m, static.mxu_padded_tris, binned_tiers=cfg.mxu_binned_tiers,
+                                  binned_budget_rays=static.pixel_count))
+            for m in modes}
+        torch.cuda.synchronize()
+        base = res[modes[0]]
+        bad = {m: bit_diff((r.t, r.tri), (base.t, base.tri))[:2] for m, r in res.items()}
+        log(f"[{tag}] bounce {d}: {' / '.join(modes)} on the same {paths.alive.numel()} rays "
+            f"({int((base.tri >= 0).sum())} hits), (tri, t) rays differing from {modes[0]}: {bad}")
+        if any(a or b for a, b in bad.values()) or not int((base.tri >= 0).sum()):
+            raise AssertionError("the traversals disagree")
+
+
 def bits_differ(a: torch.Tensor, b: torch.Tensor) -> int:
     """Lanes whose bit patterns differ (NaN payloads included)."""
     if a.dtype == torch.float32:
@@ -644,6 +678,31 @@ def frame_fn(dev, static, cam, cfg, base_key, device):
     return fn
 
 
+class env_set:
+    """Environment variables set for the length of a ``with`` block."""
+
+    def __init__(self, **env):
+        self.env = env
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def with_env(fn, **env):
+    def run():
+        with env_set(**env):
+            return fn()
+    return run
+
+
 def host_syncs(fn) -> str:
     """The synchronizing CUDA calls (reads of a device value to the host)
     made by one call of ``fn``, as ``torch.cuda.set_sync_debug_mode``
@@ -681,14 +740,17 @@ def log_times(tag, smi, times, paths_t, rounds, rays: dict) -> dict:
     return ms
 
 
+# Scenes and sorted bounce states that phases 10-12 loaded, kept for phases
+# 16-19: name -> (scene, dev, static, cam) and name -> [(paths, t_lim, live)].
+LOADED, STATES = {}, {}
+
+
 def larger_mesh_phases(device, smi: str) -> tuple:
     """Phases 10-12: the planned (cornell_mesh_20k.json), streamed
     (cornell_mesh_80k.json, the slice's main path, and cornell_mesh_500k.json)
     and binned (cornell_mesh_200k.json) traversals at 800x800, depth 8.
     Returns the four walk kernels' entries of the kernels line and the 80k
     frame for phase 9."""
-    import os
-
     from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
     from project3_cuda_path_tracer_2025_tpu_torch.models import megakernel_iteration
     from project3_cuda_path_tracer_2025_tpu_torch.ops import film as film_ops
@@ -714,6 +776,7 @@ def larger_mesh_phases(device, smi: str) -> tuple:
         log(f"    {LARGE[name].name}: {static.num_triangles} triangles in "
             f"{dev.mxu_mesh.tile_aabb.shape[0]} tiles, {static.width}x{static.height} depth "
             f"{static.trace_depth}; loaded and uploaded in {time.perf_counter() - t0:.1f} s")
+        LOADED[name] = (scene, dev, static, cam)
         return scene, dev, static, cam
 
     def check_walks(tag, kinds, states, tables, blocks=None):
@@ -737,27 +800,11 @@ def larger_mesh_phases(device, smi: str) -> tuple:
         if hits == 0:
             raise AssertionError(f"[{tag}] no mesh hit to compare")
 
-    def traversals_agree(tag, tables, static, states, modes):
-        for d, (paths, tl, _) in enumerate(states):
-            res = {m: mxu.mesh_intersect_mxu(
-                tables, static.num_triangles, static.mxu_padded_tris, paths.origin,
-                paths.direction, paths.alive, tl, cfg.baby_epsilon, compute_uv=False,
-                **mxu.traversal_flags(m, static.mxu_padded_tris, binned_tiers=cfg.mxu_binned_tiers,
-                                      binned_budget_rays=static.pixel_count))
-                for m in modes}
-            torch.cuda.synchronize()
-            base = res[modes[0]]
-            bad = {m: bit_diff((r.t, r.tri), (base.t, base.tri))[:2] for m, r in res.items()}
-            log(f"[{tag}] bounce {d}: {' / '.join(modes)} on the same rays, (tri, t) rays "
-                f"differing from {modes[0]}: {bad}")
-            if any(a or b for a, b in bad.values()):
-                raise AssertionError("the traversals disagree")
-
     # -- 10. planned, cornell_mesh_20k.json --------------------------------
     log("[10] planned walks (#5 lane-best, #6 with the early exit):")
     scene, dev, static, cam = setup("20k")
     tables, n, depth = dev.mxu_mesh, static.pixel_count, static.trace_depth
-    states = sorted_bounces(dev, static, cam, cfg, device)
+    states = STATES["20k"] = sorted_bounces(dev, static, cam, cfg, device)
     check_walks("10a", ("planned_lanebest", "planned"), states, tables)
     traversals_agree("10b", tables, static, states, ("planned", "streamed", "binned"))
     r, got = drive(scene, 4, counters)
@@ -766,11 +813,8 @@ def larger_mesh_phases(device, smi: str) -> tuple:
             got["fused_mesh_shade"]) != (4 * depth, 0, 0, 4 * depth):
         raise AssertionError("the 20k Renderer did not take the lane-best walk once per bounce")
     main_launches["planned_lanebest_intersect"] = got["planned_lanebest_intersect"]
-    os.environ["PTT_PLANNED_EPILOGUE"] = "running"
-    try:
+    with env_set(PTT_PLANNED_EPILOGUE="running"):
         r, got = drive(scene, 2, counters)
-    finally:
-        del os.environ["PTT_PLANNED_EPILOGUE"]
     log(f"[10d] the same with PTT_PLANNED_EPILOGUE=running, step_many(2): launches {got}")
     if (got["planned_intersect"], got["planned_lanebest_intersect"]) != (2 * depth, 0):
         raise AssertionError("PTT_PLANNED_EPILOGUE=running did not take the walk with the exit")
@@ -805,7 +849,7 @@ def larger_mesh_phases(device, smi: str) -> tuple:
     log("[11] streamed walk (#7):")
     scene, dev, static, cam = setup("80k")
     tables, n, depth = dev.mxu_mesh, static.pixel_count, static.trace_depth
-    states = sorted_bounces(dev, static, cam, cfg, device)
+    states = STATES["80k"] = sorted_bounces(dev, static, cam, cfg, device)
     check_walks("11a", ("streamed",), states, tables)
     frame = lambda c, plain=False: megakernel_iteration(
         dev, static, c, cam, film_ops.new_film(n, device), 1, base_key, plain=plain)
@@ -861,7 +905,7 @@ def larger_mesh_phases(device, smi: str) -> tuple:
 
     scene, dev, static, cam = setup("500k")
     tables, n, depth = dev.mxu_mesh, static.pixel_count, static.trace_depth
-    states = sorted_bounces(dev, static, cam, cfg, device)
+    states = STATES["500k"] = sorted_bounces(dev, static, cam, cfg, device)
     check_walks("11f", ("streamed",), states, tables, blocks=PLAIN_BLOCKS)
     film_s, alive_s = megakernel_iteration(dev, static, cfg, cam, film_ops.new_film(n, device),
                                            1, base_key)
@@ -897,7 +941,7 @@ def larger_mesh_phases(device, smi: str) -> tuple:
     log("[12] packet-binned traversal (#10, the streamed walk as its fallback):")
     scene, dev, static, cam = setup("200k")
     tables, n, depth = dev.mxu_mesh, static.pixel_count, static.trace_depth
-    states = sorted_bounces(dev, static, cam, cfg, device)
+    states = STATES["200k"] = sorted_bounces(dev, static, cam, cfg, device)
     engaged, b_case = 0, None
     for d, (paths, tl, live) in enumerate(states):
         found = binned_args(tables, paths, tl, live, cfg.mxu_binned_tiers)
@@ -1315,6 +1359,441 @@ def wavefront_phases(device, smi: str) -> tuple:
     }], profiled
 
 
+# ---------------------------------------------------------------------------
+# Phases 16-19: the sweep, the chunked chains, the super-tile walk and the
+# plan prepass (csrc/mesh_walk.cu)
+# ---------------------------------------------------------------------------
+
+OPS_PLAN_PAIR = 34  # plan_pair: slab 22, widening 8, clamp, three compares
+BIG_SEG = (1100, 500)  # torus-knot segments of the mesh beyond 1,024 tiles: 1.1 M triangles
+
+
+def visit_bound(tables, ro, rd, live, tl, visits, plan_bytes: int, gate_t=None) -> tuple:
+    """Bound of one traversal launch over ``visits`` [NB, Ct] (which tiles
+    each block takes): the rays read once, ``plan_bytes`` of plan, the
+    coefficient rows of the tiles visited, the outputs; operations of the
+    rays' features, a member test per (live ray, visited tile) and the
+    candidate (ray, tile) pairs x 1,024 triangles.  ``gate_t``: count only
+    pairs whose slab entry is no farther than this t per ray (for the sweep:
+    the final hit, beyond which no order of tiles needs a pair)."""
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
+
+    n = ro.x.shape[0]
+    block = torch.arange(n, device=live.device) // mxu.RAY_TILE
+    rf = mxu._features(tables, ro, rd)
+    pairs = tests = tiles = 0
+    for c, row in enumerate(tables.tile_aabb.tolist()):
+        seen = live & visits[block, c]
+        member, s_tlo, _ = mxu._member_slab(row, rf.os, rf.inv, tl)
+        take = member & seen if gate_t is None else member & seen & (s_tlo <= gate_t)
+        took = int(take.sum())
+        pairs, tests, tiles = pairs + took, tests + int(seen.sum()), tiles + (took > 0)
+    nbytes = n * (6 * 4 + 1 + 4 + 8) + plan_bytes + tables.tile_aabb.numel() * 4 \
+        + tiles * mxu.TRI_TILE * mxu.COEF_W * 4
+    ops = int(live.sum()) * OPS_WALK_RAY + tests * OPS_MONO_TILE \
+        + pairs * mxu.TRI_TILE * OPS_MONO_PAIR
+    return bound_ms(nbytes, ops) + (pairs,)
+
+
+def write_big_mesh() -> pathlib.Path:
+    """A (2,3) torus knot of BIG_SEG segments (1.1 M triangles; the formula
+    of the repo's asset generator) as an OBJ, and a copy of
+    cornell_mesh_500k.json that names it, under build/chip_smoke/."""
+    seg_u, seg_v = BIG_SEG
+    us = np.linspace(0, 2 * np.pi, seg_u, endpoint=False)
+    c = np.stack([np.cos(2 * us) * (2 + np.cos(3 * us)), np.sin(2 * us) * (2 + np.cos(3 * us)),
+                  np.sin(3 * us)], 1)
+    tangent = np.roll(c, -1, 0) - np.roll(c, 1, 0)
+    tangent /= np.linalg.norm(tangent, axis=1, keepdims=True)
+    n1 = np.cross(tangent, np.asarray([0.0, 0.0, 1.0]))
+    n1 /= np.maximum(np.linalg.norm(n1, axis=1, keepdims=True), 1e-9)
+    n2 = np.cross(tangent, n1)
+    vs = np.linspace(0, 2 * np.pi, seg_v, endpoint=False)
+    verts = (c[:, None, :] + 0.35 * (np.cos(vs)[None, :, None] * n1[:, None, :]
+                                     + np.sin(vs)[None, :, None] * n2[:, None, :]))
+    verts = verts.reshape(-1, 3) / 3.0
+    i, j = np.meshgrid(np.arange(seg_u), np.arange(seg_v), indexing="ij")
+    a, b = i * seg_v + j, ((i + 1) % seg_u) * seg_v + j
+    c2, d = ((i + 1) % seg_u) * seg_v + (j + 1) % seg_v, i * seg_v + (j + 1) % seg_v
+    faces = np.stack([np.stack([a, b, c2], -1), np.stack([a, c2, d], -1)], 2).reshape(-1, 3) + 1
+    (OUT_DIR / "obj").mkdir(parents=True, exist_ok=True)
+    with open(OUT_DIR / "obj" / "knot_big.obj", "w") as f:
+        np.savetxt(f, verts, fmt="v %.6f %.6f %.6f")
+        np.savetxt(f, faces, fmt="f %d %d %d")
+    spec = json.loads(LARGE["500k"].read_text())
+    for obj in spec["Objects"]:
+        if obj["TYPE"] == "obj":
+            obj["PATH"] = "obj/knot_big.obj"
+    spec["Camera"]["FILE"] = "cornell_mesh_big"
+    path = OUT_DIR / "cornell_mesh_big.json"
+    path.write_text(json.dumps(spec))
+    return path
+
+
+def slice5_phases(device, smi: str) -> tuple:
+    """Phases 16 (the sweep, #9), 17 (the chunked chains and a mesh beyond
+    1,024 tiles), 18 (the super-tile streamed walk, #8) and 19 (the plan
+    prepass, #11), all at 800x800, depth 8, on the scenes phases 10-12
+    loaded.  Returns the three kernels' entries of the kernels line and
+    frames for phase 9."""
+    from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
+    from project3_cuda_path_tracer_2025_tpu_torch.models import megakernel_iteration
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import film as film_ops
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused, intersect_mxu as mxu
+    from project3_cuda_path_tracer_2025_tpu_torch.ops.intersect import mesh_intersect_brute
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import (
+        build_device_scene, camera_state, derive_render_camera, load_scene,
+    )
+    from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
+
+    cfg = RenderConfig()
+    base_key = prng.prng_key(0)
+    counters = {c.__name__: c for c in (
+        mxu.mono_intersect, mxu.planned_lanebest_intersect, mxu.planned_intersect,
+        mxu.streamed_intersect, mxu.binned_intersect, mxu.sweep_intersect,
+        mxu.streamed_super_intersect, mxu.plan_prepass, fused.fused_mesh_shade)}
+    err = {"sweep_intersect": 0.0, "streamed_super_intersect": 0.0, "plan_prepass": 0.0}
+    main_launches, entries, profiled = {}, {}, {}
+
+    def one_frame(name, c, **env):
+        _, dev, static, cam = LOADED[name]
+        with env_set(**env):
+            out = megakernel_iteration(dev, static, c, cam,
+                                       film_ops.new_film(static.pixel_count, device), 1, base_key)
+        torch.cuda.synchronize()
+        return out
+
+    def same_film(tag, got, want):
+        same = all(torch.equal(a, b) for a, b in zip(got[0], want[0])) \
+            and torch.equal(got[1], want[1])
+        log(f"[{tag}] film and alive counts bit-identical to the 'auto' frame: {same}")
+        if not same or not bool(torch.isfinite(got[0].x).all()) or not float(got[0].x.sum()) > 0:
+            raise AssertionError(f"[{tag}] the frame differs from the 'auto' frame")
+
+    # -- 16. the sweep -------------------------------------------------------
+    log("[16] the sweep (#9: every tile in ascending id, no plan):")
+    scene20, dev, static, cam = LOADED["20k"]
+    tables, n, depth = dev.mxu_mesh, static.pixel_count, static.trace_depth
+    for d, (paths, tl, live) in enumerate(STATES["20k"]):
+        a = walk_args(tables, paths, tl, live)
+        sargs = a[:5] + (a[6],)
+        got = mxu.sweep_intersect(*sargs)
+        want = mxu.sweep_intersect_plain(*sargs)
+        others = {k: mxu.WALKS[k](*a) for k in ("planned", "streamed")}
+        torch.cuda.synchronize()
+        tri_bad, t_bad, e = bit_diff(got, want)
+        vs = {k: bit_diff(got, o)[:2] for k, o in others.items()}
+        log(f"[16a] sweep_intersect bounce {d}: {int(live.sum())} live of {n} rays, "
+            f"{int((want[1] >= 0).sum())} mesh hits; rays with tri differing from the plain "
+            f"version {tri_bad}, with t not bit-equal {t_bad}; against the planned and streamed "
+            f"kernels (tri, t): {vs}")
+        if tri_bad or t_bad or any(x or y for x, y in vs.values()) or not int((want[1] >= 0).sum()):
+            raise AssertionError("sweep_intersect disagrees")
+        err["sweep_intersect"] = max(err["sweep_intersect"], e)
+    sweep_cfg = RenderConfig(mxu_traversal="sweep")
+    auto20 = one_frame("20k", cfg)
+    same_film("16b 20k sweep", one_frame("20k", sweep_cfg), auto20)
+    auto80 = one_frame("80k", cfg)
+    same_film("16b 80k sweep (chain of 3)", one_frame("80k", sweep_cfg), auto80)
+    r, got = drive(scene20, 2, counters, sweep_cfg)
+    log(f"[16c] Renderer('{LARGE['20k'].name}', mxu_traversal='sweep') step_many(2): launches {got}")
+    if got["sweep_intersect"] != 2 * depth or got["plan_prepass"] or any(
+            got[f"{k}_intersect"] for k in ("planned", "planned_lanebest", "streamed", "mono")):
+        raise AssertionError("the 20k sweep Renderer did not take the sweep once per bounce")
+    main_launches["sweep_intersect"] = got["sweep_intersect"]
+    r, got = drive(LOADED["80k"][0], 1, counters, sweep_cfg)
+    log(f"[16c] Renderer('{LARGE['80k'].name}', mxu_traversal='sweep') step_many(1): launches {got}")
+    if got["sweep_intersect"] != 3 * depth:
+        raise AssertionError("the 80k sweep Renderer did not take 3 sweep calls per bounce")
+    a0 = walk_args(tables, *STATES["20k"][0])
+    s0 = a0[:5] + (a0[6],)
+    f20s = frame_fn(dev, static, cam, sweep_cfg, base_key, device)
+    f20a = frame_fn(dev, static, cam, cfg, base_key, device)
+    _, dev80, static80, cam80 = LOADED["80k"]
+    f80s = frame_fn(dev80, static80, cam80, sweep_cfg, base_key, device)
+    f80a = frame_fn(dev80, static80, cam80, cfg, base_key, device)
+    profiled["80k frame, mxu_traversal='sweep' (chain of 3 sweeps a bounce)"] = f80s
+    paths_t = {
+        "sweep_intersect, 20k (1 bounce)": (lambda: mxu.sweep_intersect(*s0), 20),
+        "planned_intersect, 20k (1 bounce)": (lambda: mxu.planned_intersect(*a0), 20),
+        "plain sweep_intersect_plain, 20k (1 bounce)": (lambda: mxu.sweep_intersect_plain(*s0), 1),
+        "20k frame, mxu_traversal='sweep'": (f20s, 3),
+        "20k frame, 'auto'": (f20a, 3),
+        "80k frame, mxu_traversal='sweep'": (f80s, 2),
+        "80k frame, 'auto'": (f80a, 2),
+    }
+    rounds = {k: (2 if "plain" in k else 5) for k in paths_t}
+    rays20, rays80 = (float(n + f[1].sum().item()) for f in (auto20, auto80))
+    ms = log_times("16d", smi, time_paths(paths_t, rounds), paths_t, rounds,
+                   {k: (rays20 if k.startswith("20k") else rays80) for k in paths_t
+                    if "frame" in k})
+    log(f"    host reads in one 20k sweep frame: {host_syncs(f20s)}; 'auto': {host_syncs(f20a)}")
+    log(f"    host reads in one 80k sweep frame: {host_syncs(f80s)}; 'auto': {host_syncs(f80a)}")
+    every = torch.ones((a0[5].cnt.shape[0], tables.tile_aabb.shape[0]), dtype=torch.bool,
+                       device=device)
+    b9 = visit_bound(*s0[:5], every, 0, gate_t=mxu.sweep_intersect(*s0)[0])
+    log(f"    bound of one sweep launch: {b9[0]:.4f} ms ({b9[1]}; {b9[2]} (ray, tile) pairs whose "
+        f"entry is no farther than the ray's hit, of {int(s0[3].sum())} live rays)")
+    entries["sweep_intersect"] = dict(ms=ms["sweep_intersect, 20k (1 bounce)"],
+                                      plain_ms=ms["plain sweep_intersect_plain, 20k (1 bounce)"],
+                                      bound=b9)
+
+    # -- 17. the chunked chains ------------------------------------------------
+    log("[17] the chunked chains (planned: a plan and a walk per chunk of 32 tiles):")
+    traversals_agree("17a 80k", dev80.mxu_mesh, static80, STATES["80k"],
+                     ("streamed", "planned", "sweep"))
+    _, dev200, static200, cam200 = LOADED["200k"]
+    traversals_agree("17a 200k", dev200.mxu_mesh, static200, STATES["200k"],
+                     ("streamed", "planned"))
+    plan_cfg = RenderConfig(mxu_traversal="planned")
+    same_film("17b 80k planned (chain of 3)", one_frame("80k", plan_cfg), auto80)
+    auto200 = one_frame("200k", cfg)
+    same_film("17b 200k planned (chain of 7)", one_frame("200k", plan_cfg), auto200)
+    r, got = drive(LOADED["80k"][0], 1, counters, plan_cfg)
+    log(f"[17c] Renderer('{LARGE['80k'].name}', mxu_traversal='planned') step_many(1): "
+        f"launches {got}")
+    if (got["planned_intersect"], got["planned_lanebest_intersect"], got["streamed_intersect"]) \
+            != (2 * depth, depth, 0):
+        raise AssertionError("the 80k planned Renderer did not walk 3 chunks per bounce")
+    f80p = frame_fn(dev80, static80, cam80, plan_cfg, base_key, device)
+    f200p = frame_fn(dev200, static200, cam200, plan_cfg, base_key, device)
+    f200a = frame_fn(dev200, static200, cam200, cfg, base_key, device)
+    paths_t = {"80k frame, mxu_traversal='planned'": (f80p, 2), "80k frame, 'auto'": (f80a, 2),
+               "200k frame, mxu_traversal='planned'": (f200p, 2), "200k frame, 'auto'": (f200a, 2)}
+    rounds = {k: 3 for k in paths_t}
+    rays200 = float(n + auto200[1].sum().item())
+    log_times("17d", smi, time_paths(paths_t, rounds), paths_t, rounds,
+              {k: (rays80 if k.startswith("80k") else rays200) for k in paths_t})
+    log(f"    host reads in one 80k planned frame: {host_syncs(f80p)}; "
+        f"in one 200k planned frame: {host_syncs(f200p)}")
+
+    t0 = time.perf_counter()
+    big_path = write_big_mesh()
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    big_scene = load_scene(str(big_path))
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    big_dev, big_static = build_device_scene(big_scene, device)
+    big_cam = camera_state(derive_render_camera(big_scene.state.camera))
+    big_ct = big_dev.mxu_mesh.tile_aabb.shape[0]
+    log(f"[17e] {big_path.relative_to(ROOT)}: {big_static.num_triangles} triangles in {big_ct} "
+        f"tiles (beyond the streamed plan's {mxu.STREAMED_MAX_TILES}); OBJ written in "
+        f"{t_write:.1f} s, parsed and its BVH built (NumPy) in {t_load:.1f} s, tables built and "
+        f"uploaded in {time.perf_counter() - t0:.1f} s")
+    if big_ct <= mxu.STREAMED_MAX_TILES:
+        raise AssertionError("the big mesh does not pass the streamed plan's capacity")
+    sample = torch.arange(0, n, 97, device=device)  # 6,598 rays of each state
+    hits = 0
+    for d, (paths, tl, live) in enumerate(sorted_bounces(big_dev, big_static, big_cam, cfg,
+                                                         device)):
+        for c in counters.values():
+            c.launches = 0
+        got = mxu.mesh_intersect_mxu(
+            big_dev.mxu_mesh, big_static.num_triangles, big_static.mxu_padded_tris, paths.origin,
+            paths.direction, paths.alive, tl, cfg.baby_epsilon, compute_uv=False,
+            **mxu.traversal_flags("auto", big_static.mxu_padded_tris,
+                                  binned_tiers=cfg.mxu_binned_tiers, binned_budget_rays=n))
+        m = PLAIN_BLOCKS * mxu.RAY_TILE
+        want = mxu.walk_plain(*walk_args(big_dev.mxu_mesh, paths, tl, live, PLAIN_BLOCKS))
+        want_tri = torch.where(want[1] >= big_static.num_triangles, -1, want[1])
+        tri_bad, t_bad, _ = bit_diff((got.t[:m], got.tri[:m]), (want[0], want_tri))
+        cut = lambda v: type(v)(*(x[sample].contiguous() for x in v))
+        ref = mesh_intersect_brute(big_dev, big_static, cut(paths.origin), cut(paths.direction),
+                                   paths.alive[sample], tl[sample], cfg.baby_epsilon)
+        torch.cuda.synchronize()
+        both = (ref.tri >= 0) & (got.tri[sample] >= 0)
+        miss = int(((ref.tri >= 0) != (got.tri[sample] >= 0)).sum())
+        t_err = float((got.t[sample] - ref.t)[both].abs().max()) if bool(both.any()) else 0.0
+        hits += int(both.sum())
+        chunks = counters["planned_intersect"].launches \
+            + counters["planned_lanebest_intersect"].launches
+        log(f"[17f] big mesh bounce {d}, 'auto' (streamed -> the planned chain): {chunks} planned "
+            f"launches, streamed {counters['streamed_intersect'].launches}; "
+            f"{int((got.tri >= 0).sum())} hits; against walk_plain over all {big_ct} tiles on the "
+            f"first {PLAIN_BLOCKS} blocks: rays with tri differing {tri_bad}, with t not "
+            f"bit-equal {t_bad}; against the brute-force oracle (another arithmetic) on "
+            f"{sample.numel()} sampled rays: hit/miss differing {miss}, max |t diff| on "
+            f"{int(both.sum())} common hits {t_err:.3g} (bars: 0.5% of the sample, 1e-4)")
+        if tri_bad or t_bad or miss > 0.005 * sample.numel() or t_err > 1e-4 \
+                or counters["streamed_intersect"].launches or chunks != -(-big_ct // 32):
+            raise AssertionError("the mesh beyond 1,024 tiles disagrees with the plain walk")
+    if not hits:
+        raise AssertionError("[17f] no sampled ray hit the big mesh")
+    fbig = frame_fn(big_dev, big_static, big_cam, cfg, base_key, device)
+    film_big, alive_big = fbig()
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(film_big.x).all()) or not float(film_big.x.sum()) > 0:
+        raise AssertionError("the big mesh's film is empty or not finite")
+    paths_t = {"big-mesh frame, 'auto' (planned chain)": (fbig, 1)}
+    log_times("17g", smi, time_paths(paths_t, {k: 2 for k in paths_t}), paths_t,
+              {k: 2 for k in paths_t},
+              {k: float(n + alive_big.sum().item()) for k in paths_t})
+    del big_dev, big_scene, fbig, film_big
+
+    # -- 18. the super-tile streamed walk ---------------------------------------
+    log("[18] super-tile streamed walk (#8), PTT_STREAM_SUPER=1:")
+    scene500, dev500, static500, cam500 = LOADED["500k"]
+    with env_set(PTT_STREAM_SUPER="1"):
+        sdev, sstatic = build_device_scene(scene500, device)  # tables padded to whole supers
+    stab = sdev.mxu_mesh
+    saabb = mxu.super_aabb(stab.tile_aabb)
+    log(f"    {LARGE['500k'].name}: tables built with the switch on, "
+        f"{dev500.mxu_mesh.tile_aabb.shape[0]} -> {stab.tile_aabb.shape[0]} tiles in "
+        f"{saabb.shape[0]} super-tiles; mxu_padded_tris {sstatic.mxu_padded_tris} as before")
+    if stab.tile_aabb.shape[0] % mxu.SUPER_TILES or sstatic != static500:
+        raise AssertionError("the super-padded tables have the wrong shape")
+
+    def super_args(paths, tl, live, blocks=None):
+        ro, rd = paths.origin, paths.direction
+        splan = mxu.plan_with_prefix(saabb, *mxu.plan_rays(stab, ro, rd, live, tl))
+        if blocks is not None:
+            m, cs = blocks * mxu.RAY_TILE, saabb.shape[0]
+            cut = lambda v: type(v)(*(x[:m].contiguous() for x in v))
+            ro, rd, live, tl = cut(ro), cut(rd), live[:m].contiguous(), tl[:m].contiguous()
+            splan = mxu.TilePlan(splan.ids[:blocks * cs].contiguous(),
+                                 splan.tlo[:blocks * cs].contiguous(),
+                                 splan.cnt[:blocks].contiguous())
+        return stab, ro, rd, live, tl, splan, 1e-5
+
+    for d, (paths, tl, live) in enumerate(STATES["500k"]):
+        cut_args = super_args(paths, tl, live, PLAIN_BLOCKS)
+        tri_bad, t_bad, e = bit_diff(mxu.streamed_super_intersect(*cut_args, saabb),
+                                     mxu.streamed_super_plain(*cut_args))
+        full = super_args(paths, tl, live)
+        vs = bit_diff(mxu.streamed_super_intersect(*full, saabb),
+                      mxu.streamed_intersect(*walk_args(stab, paths, tl, live)))
+        torch.cuda.synchronize()
+        log(f"[18a] streamed_super_intersect bounce {d}: against its plain version on the first "
+            f"{PLAIN_BLOCKS} blocks, rays with tri differing {tri_bad}, with t not bit-equal "
+            f"{t_bad}; against the streamed kernel on all {n} rays ({int(live.sum())} live): "
+            f"tri differing {vs[0]}, t not bit-equal {vs[1]}")
+        if tri_bad or t_bad or vs[0] or vs[1]:
+            raise AssertionError("streamed_super_intersect disagrees")
+        err["streamed_super_intersect"] = max(err["streamed_super_intersect"], e)
+    auto500 = one_frame("500k", cfg)
+    with env_set(PTT_STREAM_SUPER="1"):
+        sup = megakernel_iteration(sdev, sstatic, cfg, cam500, film_ops.new_film(n, device), 1,
+                                   base_key)
+        torch.cuda.synchronize()
+        same_film("18b 500k super", sup, auto500)
+        r, got = drive(scene500, 1, counters)
+    log(f"[18c] Renderer('{LARGE['500k'].name}') with PTT_STREAM_SUPER=1, step_many(1): "
+        f"launches {got}")
+    if (got["streamed_super_intersect"], got["streamed_intersect"]) != (depth, 0):
+        raise AssertionError("the 500k Renderer did not take the super walk once per bounce")
+    main_launches["streamed_super_intersect"] = got["streamed_super_intersect"]
+    u0 = super_args(*STATES["500k"][0])
+    w0 = walk_args(stab, *STATES["500k"][0])
+    c0 = super_args(*STATES["500k"][0], PLAIN_BLOCKS)
+    f500s = with_env(frame_fn(sdev, sstatic, cam500, cfg, base_key, device), PTT_STREAM_SUPER="1")
+    f500a = frame_fn(dev500, static500, cam500, cfg, base_key, device)
+    paths_t = {
+        "streamed_super_intersect, 500k (1 bounce)":
+            (lambda: mxu.streamed_super_intersect(*u0, saabb), 5),
+        "streamed_intersect, 500k (1 bounce)": (lambda: mxu.streamed_intersect(*w0), 5),
+        f"streamed_super_intersect, first {PLAIN_BLOCKS} blocks":
+            (lambda: mxu.streamed_super_intersect(*c0, saabb), 5),
+        f"plain streamed_super_plain, first {PLAIN_BLOCKS} blocks":
+            (lambda: mxu.streamed_super_plain(*c0), 1),
+        "500k frame, PTT_STREAM_SUPER=1": (f500s, 1),
+        "500k frame, 'auto' (streamed)": (f500a, 1),
+    }
+    rounds = {k: (2 if "plain" in k else 3) for k in paths_t}
+    rays500 = float(n + auto500[1].sum().item())
+    ms = log_times("18d", smi, time_paths(paths_t, rounds), paths_t, rounds,
+                   {k: rays500 for k in paths_t if "frame" in k})
+    visits = mxu._plan_visits(u0[5], saabb.shape[0]).repeat_interleave(
+        mxu.SUPER_TILES, dim=1)[:, :stab.tile_aabb.shape[0]]
+    b8 = visit_bound(*u0[:5], visits, u0[5].cnt.shape[0] * (saabb.shape[0] * 8 + 4)
+                     + saabb.numel() * 4)
+    log(f"    bound of one super launch on all rays: {b8[0]:.4f} ms ({b8[1]}; {b8[2]} candidate "
+        f"(ray, tile) pairs of {int(u0[3].sum())} live rays); the plain version is timed on "
+        f"the first {PLAIN_BLOCKS} blocks only")
+    entries["streamed_super_intersect"] = dict(
+        ms=ms["streamed_super_intersect, 500k (1 bounce)"],
+        plain_ms=ms[f"plain streamed_super_plain, first {PLAIN_BLOCKS} blocks"], bound=b8)
+    del sdev, stab, u0, w0, c0, f500s
+
+    # -- 19. the plan prepass ---------------------------------------------------
+    log("[19] plan prepass (#11), plan_impl='pallas' / PTT_PLAN_IMPL=pallas:")
+    cases = {}
+    for name in ("20k", "80k", "500k"):
+        tab = LOADED[name][1].mxu_mesh
+        for d, (paths, tl, live) in enumerate(STATES[name]):
+            pr = mxu.plan_rays(tab, paths.origin, paths.direction, live, tl)
+            h, lb = mxu.plan_prepass(tab.tile_aabb, *pr)
+            hp, lbp = mxu.plan_prepass_plain(tab.tile_aabb, *pr)
+            got = mxu.plan_with_prefix(tab.tile_aabb, *pr, impl="pallas")
+            want = mxu.plan_with_prefix(tab.tile_aabb, *pr)
+            torch.cuda.synchronize()
+            bad = int((h != hp).sum()) + bits_differ(lb, lbp)
+            plan_bad = sum(bits_differ(x, y) for x, y in zip(got, want))
+            e = float(torch.where(torch.isfinite(lbp), (lb - lbp).abs(),
+                                  torch.zeros_like(lb)).max())
+            log(f"[19a] {name} bounce {d}: (h, lb) over {h.shape[0]} blocks x {h.shape[1]} tiles "
+                f"({int(hp.sum())} candidate pairs): values not bit-equal to the plain version "
+                f"{bad}; plan (ids, tlo, cnt) values differing from the torch plan {plan_bad}")
+            if bad or plan_bad or not int(hp.sum()):
+                raise AssertionError("plan_prepass disagrees with the torch plan")
+            err["plan_prepass"] = max(err["plan_prepass"], e)
+            if d == 0:
+                cases[name] = (tab.tile_aabb, *pr)
+    for name, auto in (("20k", auto20), ("80k", auto80)):
+        same_film(f"19b {name} PTT_PLAN_IMPL=pallas",
+                  one_frame(name, cfg, PTT_PLAN_IMPL="pallas"), auto)
+    with env_set(PTT_PLAN_IMPL="pallas"):
+        r, got = drive(LOADED["80k"][0], 2, counters)
+    log(f"[19c] Renderer('{LARGE['80k'].name}') with PTT_PLAN_IMPL=pallas, step_many(2): "
+        f"launches {got}")
+    if (got["plan_prepass"], got["streamed_intersect"]) != (2 * depth, 2 * depth):
+        raise AssertionError("the 80k Renderer did not take the plan kernel once per bounce")
+    main_launches["plan_prepass"] = got["plan_prepass"]
+    f20k = with_env(f20a, PTT_PLAN_IMPL="pallas")
+    f80k = with_env(f80a, PTT_PLAN_IMPL="pallas")
+    profiled["80k frame, PTT_PLAN_IMPL=pallas (the plan kernel)"] = f80k
+    paths_t = {}
+    for name, a in cases.items():
+        paths_t[f"plan_prepass, {name} (1 bounce)"] = (lambda a=a: mxu.plan_prepass(*a), 10)
+        paths_t[f"plain plan_prepass_plain, {name} (1 bounce)"] = (
+            lambda a=a: mxu.plan_prepass_plain(*a), 2)
+        paths_t[f"whole plan, kernel slab stage, {name}"] = (
+            lambda a=a: mxu.plan_with_prefix(*a, impl="pallas"), 5)
+        paths_t[f"whole plan, torch, {name}"] = (lambda a=a: mxu.plan_with_prefix(*a), 2)
+    paths_t.update({"20k frame, PTT_PLAN_IMPL=pallas": (f20k, 3), "20k frame, torch plan": (f20a, 3),
+                    "80k frame, PTT_PLAN_IMPL=pallas": (f80k, 2), "80k frame, torch plan": (f80a, 2)})
+    rounds = {k: (3 if "plain" in k or "torch" in k else 5) for k in paths_t}
+    ms = log_times("19d", smi, time_paths(paths_t, rounds), paths_t, rounds,
+                   {k: (rays20 if k.startswith("20k") else rays80) for k in paths_t
+                    if "frame" in k})
+    log(f"    host reads in one 80k frame with the plan kernel: {host_syncs(f80k)}")
+    aabb, os_, _, live, tl = cases["80k"]
+    nb = tl.shape[0] // mxu.RAY_TILE
+    b11 = bound_ms(tl.shape[0] * (6 * 4 + 1 + 4) + aabb.numel() * 4 + nb * aabb.shape[0] * 5,
+                   int(live.sum()) * aabb.shape[0] * OPS_PLAN_PAIR)
+    log(f"    bound of one prepass launch (80k, bounce 0): {b11[0]:.4f} ms ({b11[1]}; "
+        f"{int(live.sum())} live rays x {aabb.shape[0]} tiles)")
+    entries["plan_prepass"] = dict(ms=ms["plan_prepass, 80k (1 bounce)"],
+                                   plain_ms=ms["plain plan_prepass_plain, 80k (1 bounce)"],
+                                   bound=b11)
+
+    replaces = {"streamed_super_intersect": 1633, "sweep_intersect": 671, "plan_prepass": 946}
+    kernels = [{
+        "name": k,
+        "route": "cuda",
+        "source": f"{PKG}/csrc/mesh_walk.cu",
+        "replaces": f"project3_cuda_path_tracer_2025_tpu/ops/intersect_mxu.py:{line}",
+        "launches": main_launches[k],
+        "max_abs_err": err[k],
+        "ms": entries[k]["ms"],
+        "plain_ms": entries[k]["plain_ms"],
+        "bound_ms": entries[k]["bound"][0],
+        "bound_by": entries[k]["bound"][1],
+        "library_ms": None,
+    } for k, line in replaces.items()]
+    return kernels, profiled
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA GPU",
@@ -1550,6 +2029,7 @@ def main() -> int:
     walk_kernels, walk_frames = larger_mesh_phases(device, smi)
     tex_kernels, tex_frames = texture_phases(device, smi)
     wave_kernels, wave_frames = wavefront_phases(device, smi)
+    slice5_kernels, slice5_frames = slice5_phases(device, smi)
     profile_paths({
         "prim iteration kernel (Renderer default)": run_iter_kernel,
         "prim bounce-kernel path": run_bounce_path,
@@ -1557,6 +2037,7 @@ def main() -> int:
         **walk_frames,
         **tex_frames,
         **wave_frames,
+        **slice5_frames,
     })
 
     result = {"kernels": [
@@ -1590,6 +2071,7 @@ def main() -> int:
         *walk_kernels,
         *tex_kernels,
         *wave_kernels,
+        *slice5_kernels,
     ]}
     print(smi)
     print(json.dumps(result))

@@ -7,11 +7,11 @@ path with a hand-written CUDA kernel for ``sm_90a`` (``csrc/``), built with
 ``nvcc`` at first use.  It never imports JAX.
 
 Ported so far: the megakernel and wavefront renders of scenes of analytic
-primitives and of triangle meshes of up to 1,024 tiles of 1,024 triangles,
+primitives and of triangle meshes of any size in tiles of 1,024 triangles,
 textured or not (scene loading, the RNG, camera rays, box/sphere
 intersection, the mesh tables and traversals, textures and bump maps, every
 BSDF lobe, stream compaction and material sort, the film, ``Renderer``, the
-CLI).  Larger meshes, multi-device rendering and the interactive shell raise
+CLI).  Multi-device rendering and the interactive shell raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 
 Conventional import alias::

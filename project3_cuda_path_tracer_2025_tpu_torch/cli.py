@@ -71,8 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--mxu-traversal",
         choices=("auto", "sweep", "planned", "streamed", "binned", "mono"),
         default="auto",
-        help="MXU intersector traversal (bit-identical results; 'sweep' is not "
-        "ported yet)",
+        help="MXU intersector traversal (bit-identical results)",
     )
     p.add_argument("--checkpoint", default=None, help="write a .npz checkpoint here at exit")
     p.add_argument("--resume", default=None, help="resume from a .npz checkpoint")

@@ -3,7 +3,7 @@
 One frozen dataclass, field for field the JAX package's ``RenderConfig``
 (``project3_cuda_path_tracer_2025_tpu/config.py``), so a configuration
 moves between the two packages unchanged.  The port runs both integrators
-on scenes of analytic primitives, textures and meshes of up to 1,024 tiles
+on scenes of analytic primitives, textures and meshes of any number of tiles
 of 1,024 triangles; a field that selects a path not ported yet
 raises ``NotImplementedError`` here, at construction, naming the
 ``ROADMAP.md`` item that will port it.
@@ -63,8 +63,8 @@ class RenderConfig:
 
     # Mesh-path ray sorting ("auto": on for a CUDA device, off on the CPU)
     # and traversal knobs; images are bit-identical across them.  The
-    # traversals "auto" picks are ported (mono, planned, streamed, binned);
-    # "sweep" raises.
+    # traversals: "auto" (mono, planned, streamed or binned by mesh size),
+    # or one of those by name, or "sweep" (every tile in order, no plan).
     ray_sorting: str = "auto"
     ray_sort_bits: int = 2
     ray_sort_dir_bits: int = 4
@@ -152,10 +152,8 @@ class RenderConfig:
             raise ValueError(
                 f"ray_sort_mode={self.ray_sort_mode!r}: use 'auto'/'morton'/'signature'"
             )
-        if self.mxu_traversal == "sweep":
-            raise _not_ported("mxu_traversal='sweep'",
-                              "Queue 2 #9: the sweep traversal of larger meshes")
-        if self.mxu_traversal not in ("auto", "mono", "planned", "streamed", "binned"):
+        if self.mxu_traversal not in ("auto", "sweep", "mono", "planned", "streamed",
+                                      "binned"):
             raise ValueError(f"mxu_traversal={self.mxu_traversal!r}")
         if self.mxu_plan not in ("auto", "exact", "frustum"):
             raise ValueError(f"mxu_plan={self.mxu_plan!r}: use 'auto'/'exact'/'frustum'")

@@ -6,6 +6,11 @@
 //                     (the member slab, _mt_hit) folded in with the
 //                     contract's tie rule, as walk_plain folds it;
 //   binned_pair     = one pair row of ops/intersect_mxu.py::binned_intersect_plain;
+//   sweep_ray       = one ray of ops/intersect_mxu.py::sweep_intersect_plain;
+//   super_visit     = one ray's visit of a super-tile plan entry
+//                     (ops/intersect_mxu.py::streamed_super_plain);
+//   plan_pair       = one (ray, tile) pair of ops/intersect_mxu.py::_pair_slabs,
+//                     the slab stage of the tile plan (plan_prepass_plain);
 //   mono_ray        = ops/intersect_mxu.py::mono_intersect_plain (the root
 //                     cull, then walk_visit over the tiles in order);
 //   coherence_key   = ops/intersect_mxu.py::coherence_key_planes;
@@ -29,6 +34,7 @@
 #define PTT_STREAMED_MAX_CT 1024  // the streamed plan's capacity
 #define PTT_RAY_TILE 256          // rays per plan block (ops/intersect_mxu.py::RAY_TILE)
 #define PTT_BINNED_G 8            // rays per packet (ops/intersect_mxu.py::BINNED_G)
+#define PTT_SUPER_TILES 8         // tiles per super-tile (ops/intersect_mxu.py::SUPER_TILES)
 #define PTT_KEY_MAX_CT 24   // ops/intersect_mxu.py::KEY_INLINE_MAX_CT
 #define PTT_INT_MAX 0x7FFFFFFF
 
@@ -236,6 +242,46 @@ PTT_HD void walk_visit(WalkRay& r, const float* coef, const float* row, int tile
 // ray's share of that vote (dead rays count as 0, as in the JAX package).
 PTT_HD bool walk_goes_on(const WalkRay& r, float tile_tlo) {
   return tile_tlo <= (r.live ? r.best : 0.0f);
+}
+
+// The sweep for one ray (_intersect_kernel): every tile of the table in
+// ascending id, each behind the member test and the improvability gate
+// (entry <= running best: an entry equal to the best may still tie).  In
+// ascending order tile_fold's tie rule is the TPU kernel's strict "<": a
+// later tile holds only higher ids.  The TPU kernel's per-block any_hit is
+// a visit cull; the per-ray gate skips the same pairs and more.
+PTT_HD void sweep_ray(WalkRay& r, const float* coef, const float* aabb, int ct, float baby_eps,
+                      float eps_succ) {
+  for (int c = 0; c < ct; ++c) walk_visit(r, coef, aabb + 8 * c, c, true, baby_eps, eps_succ);
+}
+
+// One visit of a super-tile plan entry by one ray (_streamed_super_kernel):
+// one gate on the super box (srow: the min/max over its member boxes; a
+// member of any of its tiles is a member of it, and its entry is at or below
+// every member tile's), then the member tiles sid * 8 .. sid * 8 + 7, each
+// with the ray's own member window.  A tile past the last (ct) is padding
+// and never a member.  The per-tile gate of walk_visit is exact here as in
+// the other ordered walks.
+PTT_HD void super_visit(WalkRay& r, const float* coef, const float* aabb, const float* srow,
+                        int sid, int ct, float baby_eps, float eps_succ) {
+  if (!r.live) return;
+  const Slab s = widen(slab(srow, srow + 3, r.os, r.inv), PTT_SLAB_REL1, PTT_SLAB_ABS1);
+  if (!slab_enters(s, r.tlim) || !(s.lo <= r.best)) return;
+  for (int k = 0; k < PTT_SUPER_TILES; ++k) {
+    const int tile = sid * PTT_SUPER_TILES + k;
+    if (tile >= ct) break;
+    walk_visit(r, coef, aabb + 8 * tile, tile, true, baby_eps, eps_succ);
+  }
+}
+
+// One (ray, tile) pair of the tile plan's slab stage (_plan_prepass_kernel,
+// ops/intersect_mxu.py::_pair_slabs): does the live ray enter the tile's
+// k = 2 widened box before its t_limit, and its entry clamped at 0.  os:
+// recentred origin; inv: inv_dir of the direction.
+PTT_HD bool plan_pair(const float* row, V3 os, V3 inv, bool live, float tl, float* key) {
+  const Slab s = widen(slab(row, row + 3, os, inv), PTT_SLAB_REL2, PTT_SLAB_ABS2);
+  *key = ptt_max(s.lo, 0.0f);
+  return slab_enters(s, tl) && live;
 }
 
 // One pair row of a binned visit (_binned_kernel): the ray against one

@@ -1,5 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels of the mesh traversals beyond the
-// mono band: meshes of 9 to 1,024 tiles of 1,024 triangles.
+// mono band, over tiles of 1,024 triangles: the planned walks and the sweep
+// (up to 32 tiles a call; a larger mesh is a chain of calls,
+// ops/intersect_mxu.py::_chain), the streamed and super-tile walks and the
+// binned visits (up to 1,024 tiles), and the tile plan's slab stage.
 //
 // They replace the TPU kernels of project3_cuda_path_tracer_2025_tpu/ops/intersect_mxu.py
 //   ptt_planned_lanebest_kernel  _planned_kernel_lanebest :1330 (run_chunk_planned,
@@ -9,9 +12,17 @@
 //   ptt_streamed_kernel          _streamed_kernel :1499 (run_streamed, up to 1,024
 //                                tiles): the walk of a global plan, tile boxes and
 //                                plan rows read from device memory;
+//   ptt_streamed_super_kernel    _streamed_super_kernel :1633 (run_streamed_super):
+//                                the streamed walk over a plan of super-tiles
+//                                of 8 tiles;
 //   ptt_binned_kernel            _binned_kernel :1848 (_run_binned): one tile per
-//                                visit against 256 pair rows of 8-ray packets.
-// All four compute one function, fixed by the candidate contract
+//                                visit against 256 pair rows of 8-ray packets;
+//   ptt_sweep_kernel             _intersect_kernel :671 (run_chunk, up to 32 tiles):
+//                                every tile in ascending id, no plan;
+//   ptt_plan_prepass_kernel      _plan_prepass_kernel :946 (_build_tile_plan_pallas):
+//                                per (ray block, tile), whether any ray enters
+//                                and the least entry distance.
+// The traversals compute one function, fixed by the candidate contract
 // (intersect_mxu.py:106-131): per ray, the minimum t over the triangles of
 // the tiles whose widened slab the ray itself enters before its t_limit,
 // exact ties to the lowest global triangle id.  They differ in schedule only.
@@ -41,6 +52,26 @@
 //   ray (src[32 v + r / 8]) * 8 + r % 8 of the packet in that slot.  The
 //   per-ray reduce over a packet's visits and the bin construction stay in
 //   torch (ops/intersect_mxu.py).
+//   #8 walks a plan whose entries are super-tiles (8 contiguous tiles, the
+//   box their envelope): one exit vote per entry (strict: the super box's
+//   entry is at or below every member tile's, so nothing past it can
+//   improve or tie), one gate per ray on the super box, then the member
+//   tiles with the ray's own window each (csrc/mesh_path.cuh, super_visit).
+//   The TPU kernel moves a super-tile's features in one DMA and so wants
+//   tables padded to whole super-tiles; here a tile past the last is simply
+//   never taken, and no padded copy exists.
+//   #9 has no plan: a thread takes tiles 0..ct-1 in order behind the member
+//   test and the improvability gate (sweep_ray); the boxes sit in shared
+//   memory.  The TPU kernel's per-block any_hit cond is a visit cull only,
+//   and the per-ray gate subsumes it.
+//   #11 is one block per ray block: the 256 rays (recentred origin,
+//   reciprocal direction, t_limit, live: two float4 a ray) are staged in
+//   shared memory; a thread owns a tile (tiles t, t + 256, ... beyond 256
+//   tiles) and loops the rays; below 256 tiles 256 / ct threads share a
+//   tile, each a stride of the rays, and meet in shared-memory atomics
+//   (min over non-negative floats as ints, or).  min and any do not depend
+//   on order, so (h, lb) are bit-equal to the torch plan's.  Traffic: the
+//   rays once, [nb, ct] out, whatever the tile count.
 //
 // What bounds them on the H100: operations.  Per candidate (ray, tile) pair
 // a thread does 1,024 x (19 fused multiply-adds, one division, ~12
@@ -49,6 +80,8 @@
 // Divergence is the cost beyond the bound: a warp runs a tile for as long
 // as its slowest member, whatever number of its rays are members.  The
 // coherence sort in front of the traversal is what keeps warps coherent.
+// #11 is bound by operations too (a slab test of ~35 operations per (ray,
+// tile) pair against 36 bytes a ray and 5 bytes an output).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC (ops/kernels.py).  Plain C interface, loaded with
@@ -70,11 +103,23 @@ struct PttWalkArgs {
   const int32_t* ids;        // [nb * ct] tile ids, front to back per block
   const float* tlo;          // [nb * ct] block entry bounds, ascending (inf = miss)
   const int32_t* cnt;        // [nb] candidate tiles per block
+  const float* saabb;        // [cs, 8] super-tile boxes (#8 only; its plan is [nb * cs])
   float* out_t;              // [n]
   int32_t* out_tri;          // [n]
   float baby_eps;
   float eps_succ;            // nextafter(baby_eps, +inf)
   int32_t n, ct;
+  int32_t cs;                // super-tiles, ceil(ct / 8) (#8 only)
+};                           // the sweep (#9) reads no plan field
+
+struct PttPlanArgs {
+  const float* ray[6];       // recentred origin xyz, direction xyz [nb * 256]
+  const uint8_t* live;       // bool [nb * 256]
+  const float* tlim;         // [nb * 256]
+  const float* tile_aabb;    // [ct, 8]
+  uint8_t* out_h;            // bool [nb, ct]: any live ray of the block enters the tile
+  float* out_lb;             // [nb, ct] least entry distance, clamped at 0 (inf: none)
+  int32_t nb, ct;
 };
 
 struct PttBinnedArgs {
@@ -93,16 +138,20 @@ struct PttBinnedArgs {
   int32_t n, n_g, nv, ct;
 };
 
+__device__ __forceinline__ WalkRay load_walk_ray(const PttWalkArgs& a, int idx, V3 center) {
+  const bool in = idx < a.n;
+  const V3 o = in ? v3(a.ray[0][idx], a.ray[1][idx], a.ray[2][idx]) : v3(0.0f, 0.0f, 0.0f);
+  const V3 d = in ? v3(a.ray[3][idx], a.ray[4][idx], a.ray[5][idx]) : v3(0.0f, 0.0f, 0.0f);
+  return walk_ray(center, o, d, in && a.live[idx] != 0, in ? a.tlim[idx] : 0.0f);
+}
+
 // One block's walk of its plan row.  EXIT: the early exit and the per-ray
 // improvability gate (#6, #7).  aabb: the tile boxes (shared or global).
 template <bool EXIT>
 __device__ __forceinline__ void walk_block(const PttWalkArgs& a, const float* aabb, V3 center) {
   const int b = blockIdx.x;
   const int idx = b * PTT_RAY_TILE + threadIdx.x;
-  const bool in = idx < a.n;
-  const V3 o = in ? v3(a.ray[0][idx], a.ray[1][idx], a.ray[2][idx]) : v3(0.0f, 0.0f, 0.0f);
-  const V3 d = in ? v3(a.ray[3][idx], a.ray[4][idx], a.ray[5][idx]) : v3(0.0f, 0.0f, 0.0f);
-  WalkRay r = walk_ray(center, o, d, in && a.live[idx] != 0, in ? a.tlim[idx] : 0.0f);
+  WalkRay r = load_walk_ray(a, idx, center);
   const int cnt = __ldg(a.cnt + b);
   const int32_t* ids = a.ids + (size_t)b * a.ct;
   const float* tlo = a.tlo + (size_t)b * a.ct;
@@ -111,7 +160,7 @@ __device__ __forceinline__ void walk_block(const PttWalkArgs& a, const float* aa
     const int tile = __ldg(ids + t);
     walk_visit(r, a.coef, aabb + 8 * tile, tile, EXIT, a.baby_eps, a.eps_succ);
   }
-  if (in) {
+  if (idx < a.n) {
     a.out_t[idx] = r.best;
     a.out_tri[idx] = r.best_tri;
   }
@@ -135,6 +184,103 @@ __global__ void __launch_bounds__(PTT_RAY_TILE) ptt_planned_kernel(const PttWalk
 
 __global__ void __launch_bounds__(PTT_RAY_TILE) ptt_streamed_kernel(const PttWalkArgs a) {
   walk_block<true>(a, a.tile_aabb, v3(__ldg(a.center), __ldg(a.center + 1), __ldg(a.center + 2)));
+}
+
+__global__ void __launch_bounds__(PTT_RAY_TILE) ptt_streamed_super_kernel(const PttWalkArgs a) {
+  const int b = blockIdx.x;
+  const int idx = b * PTT_RAY_TILE + threadIdx.x;
+  WalkRay r = load_walk_ray(a, idx, v3(__ldg(a.center), __ldg(a.center + 1), __ldg(a.center + 2)));
+  const int cnt = __ldg(a.cnt + b);
+  const int32_t* ids = a.ids + (size_t)b * a.cs;
+  const float* tlo = a.tlo + (size_t)b * a.cs;
+  for (int t = 0; t < cnt; ++t) {
+    if (!__syncthreads_or(walk_goes_on(r, __ldg(tlo + t)))) break;
+    const int sid = __ldg(ids + t);
+    super_visit(r, a.coef, a.tile_aabb, a.saabb + 8 * sid, sid, a.ct, a.baby_eps, a.eps_succ);
+  }
+  if (idx < a.n) {
+    a.out_t[idx] = r.best;
+    a.out_tri[idx] = r.best_tri;
+  }
+}
+
+__global__ void __launch_bounds__(PTT_RAY_TILE) ptt_sweep_kernel(const PttWalkArgs a) {
+  __shared__ float sh_aabb[PTT_PLANNED_MAX_CT * 8];
+  for (int i = threadIdx.x; i < a.ct * 8; i += blockDim.x) sh_aabb[i] = a.tile_aabb[i];
+  __syncthreads();
+  const int idx = blockIdx.x * PTT_RAY_TILE + threadIdx.x;
+  WalkRay r = load_walk_ray(a, idx, v3(__ldg(a.center), __ldg(a.center + 1), __ldg(a.center + 2)));
+  sweep_ray(r, a.coef, sh_aabb, a.ct, a.baby_eps, a.eps_succ);
+  if (idx < a.n) {
+    a.out_t[idx] = r.best;
+    a.out_tri[idx] = r.best_tri;
+  }
+}
+
+// One tile against the rays s, s + stride, ... of the staged block.
+__device__ __forceinline__ bool plan_tile(const float* row, const float4* sh_o, const float4* sh_i,
+                                          int s, int stride, float* lb) {
+  const float box[6] = {__ldg(row), __ldg(row + 1), __ldg(row + 2),
+                        __ldg(row + 3), __ldg(row + 4), __ldg(row + 5)};
+  bool any = false;
+  float best = ptt_inf();
+  for (int r = s; r < PTT_RAY_TILE; r += stride) {
+    const float4 o = sh_o[r], i = sh_i[r];
+    float key;
+    if (plan_pair(box, v3(o.x, o.y, o.z), v3(i.x, i.y, i.z), i.w != 0.0f, o.w, &key)) {
+      any = true;
+      best = key < best ? key : best;
+    }
+  }
+  *lb = best;
+  return any;
+}
+
+__global__ void __launch_bounds__(PTT_RAY_TILE) ptt_plan_prepass_kernel(const PttPlanArgs a) {
+  __shared__ float4 sh_o[PTT_RAY_TILE];  // recentred origin, t_limit
+  __shared__ float4 sh_i[PTT_RAY_TILE];  // reciprocal direction, live
+  __shared__ int sh_lb[PTT_RAY_TILE];
+  __shared__ int sh_h[PTT_RAY_TILE];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const size_t idx = (size_t)b * PTT_RAY_TILE + tid;
+  const bool live = a.live[idx] != 0;
+  const V3 inv = inv_dir(v3(a.ray[3][idx], a.ray[4][idx], a.ray[5][idx]));
+  sh_o[tid] = make_float4(a.ray[0][idx], a.ray[1][idx], a.ray[2][idx], a.tlim[idx]);
+  sh_i[tid] = make_float4(inv.x, inv.y, inv.z, live ? 1.0f : 0.0f);
+  sh_lb[tid] = ptt_as_int(ptt_inf());
+  sh_h[tid] = 0;
+  const bool block_live = __syncthreads_or(live);  // also the barrier after staging
+  uint8_t* out_h = a.out_h + (size_t)b * a.ct;
+  float* out_lb = a.out_lb + (size_t)b * a.ct;
+  if (!block_live) {
+    for (int c = tid; c < a.ct; c += PTT_RAY_TILE) {
+      out_h[c] = 0;
+      out_lb[c] = ptt_inf();
+    }
+    return;
+  }
+  const int share = a.ct < PTT_RAY_TILE ? PTT_RAY_TILE / a.ct : 1;  // threads per tile
+  if (share == 1) {
+    for (int c = tid; c < a.ct; c += PTT_RAY_TILE) {
+      float lb;
+      out_h[c] = plan_tile(a.tile_aabb + 8 * c, sh_o, sh_i, 0, 1, &lb) ? 1 : 0;
+      out_lb[c] = lb;
+    }
+    return;
+  }
+  if (tid < share * a.ct) {
+    const int c = tid % a.ct;
+    float lb;
+    if (plan_tile(a.tile_aabb + 8 * c, sh_o, sh_i, tid / a.ct, share, &lb)) {
+      atomicOr(&sh_h[c], 1);
+      atomicMin(&sh_lb[c], ptt_as_int(lb));  // lb >= 0: float order is int order
+    }
+  }
+  __syncthreads();
+  if (tid < a.ct) {
+    out_h[tid] = sh_h[tid] ? 1 : 0;
+    out_lb[tid] = ptt_as_float(sh_lb[tid]);
+  }
 }
 
 __global__ void __launch_bounds__(PTT_RAY_TILE) ptt_binned_kernel(const PttBinnedArgs a) {
@@ -171,6 +317,9 @@ int ptt_walk_abi(int32_t* out, int32_t len) {
       (int32_t)sizeof(PttWalkArgs),
       (int32_t)offsetof(PttWalkArgs, baby_eps),
       (int32_t)offsetof(PttWalkArgs, n),
+      (int32_t)offsetof(PttWalkArgs, cs),
+      (int32_t)sizeof(PttPlanArgs),
+      (int32_t)offsetof(PttPlanArgs, nb),
       (int32_t)sizeof(PttBinnedArgs),
       (int32_t)offsetof(PttBinnedArgs, baby_eps),
       (int32_t)offsetof(PttBinnedArgs, n),
@@ -180,16 +329,23 @@ int ptt_walk_abi(int32_t* out, int32_t len) {
       PTT_BINNED_G,
       PTT_PLANNED_MAX_CT,
       PTT_STREAMED_MAX_CT,
+      PTT_SUPER_TILES,
   };
   const int32_t count = (int32_t)(sizeof(v) / sizeof(v[0]));
   for (int32_t i = 0; i < count && i < len; ++i) out[i] = v[i];
   return count;
 }
 
-// kind: 0 planned lane-best (#5), 1 planned (#6), 2 streamed (#7).
+// kind: 0 planned lane-best (#5), 1 planned (#6), 2 streamed (#7), 3 the
+// super-tile streamed walk (#8), 4 the sweep (#9).
 int ptt_launch_walk(const PttWalkArgs* a, int32_t kind, void* stream) {
-  const int max_ct = kind == 2 ? PTT_STREAMED_MAX_CT : PTT_PLANNED_MAX_CT;
-  if (a->ct < 1 || a->ct > max_ct || kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
+  if (kind < 0 || kind > 4) return (int)cudaErrorInvalidValue;
+  const int cols = kind == 3 ? a->cs : a->ct;  // plan columns, or the sweep's tiles
+  const int max_cols = (kind == 2 || kind == 3) ? PTT_STREAMED_MAX_CT : PTT_PLANNED_MAX_CT;
+  if (a->ct < 1 || cols < 1 || cols > max_cols) return (int)cudaErrorInvalidValue;
+  if (kind == 3 && a->cs != (a->ct + PTT_SUPER_TILES - 1) / PTT_SUPER_TILES) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (a->n > 0) {
     const unsigned grid = blocks_for(a->n);
     cudaStream_t s = (cudaStream_t)stream;
@@ -197,9 +353,21 @@ int ptt_launch_walk(const PttWalkArgs* a, int32_t kind, void* stream) {
       ptt_planned_lanebest_kernel<<<grid, PTT_RAY_TILE, 0, s>>>(*a);
     } else if (kind == 1) {
       ptt_planned_kernel<<<grid, PTT_RAY_TILE, 0, s>>>(*a);
-    } else {
+    } else if (kind == 2) {
       ptt_streamed_kernel<<<grid, PTT_RAY_TILE, 0, s>>>(*a);
+    } else if (kind == 3) {
+      ptt_streamed_super_kernel<<<grid, PTT_RAY_TILE, 0, s>>>(*a);
+    } else {
+      ptt_sweep_kernel<<<grid, PTT_RAY_TILE, 0, s>>>(*a);
     }
+  }
+  return (int)cudaGetLastError();
+}
+
+int ptt_launch_plan_prepass(const PttPlanArgs* a, void* stream) {
+  if (a->ct < 1 || a->nb < 0) return (int)cudaErrorInvalidValue;
+  if (a->nb > 0) {
+    ptt_plan_prepass_kernel<<<(unsigned)a->nb, PTT_RAY_TILE, 0, (cudaStream_t)stream>>>(*a);
   }
   return (int)cudaGetLastError();
 }

@@ -12,9 +12,9 @@ On a CUDA device with ``fused_bounce`` "auto" or "on" (on the CPU with
 * a prim-only scene runs one launch of the bounce kernel per bounce
   (``ops.fused.fused_prim_bounce``), with uniforms from the Threefry kernel;
 * a mesh scene runs ``ops.fused.fused_mesh_bounce`` per bounce: the
-  traversal kernel "auto" picks for the mesh's size (mono, planned,
-  streamed or binned), then the mesh-shade kernel, which draws its uniforms
-  inline and emits the next bounce's prim t_limit and sort key (threaded
+  traversal kernel ``cfg.mxu_traversal`` names or "auto" picks for the
+  mesh's size (mono, planned, streamed or binned), then the mesh-shade
+  kernel, which draws its uniforms inline and emits the next bounce's prim t_limit and sort key (threaded
   through ``mesh_carry``).  The path state stays in coherence order across
   bounces (resorted every ``ray_sort_every`` bounces) and the film
   scatter-adds by pixel id.  A mesh with textures on its materials

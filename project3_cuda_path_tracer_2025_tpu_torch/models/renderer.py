@@ -33,7 +33,7 @@ from ..ops import film as film_ops
 from ..ops import fused
 from ..scene import load_scene
 from ..scene.camera import OrbitState, camera_state, derive_render_camera
-from ..scene.device import build_device_scene, check_scene
+from ..scene.device import build_device_scene
 from ..scene.types import HostScene
 from ..utils import image_io, prng
 from ..utils.timers import FrameStats, PerformanceTimer
@@ -63,7 +63,6 @@ class Renderer:
             scene = load_scene(
                 scene, leaf_size=cfg.bvh_leaf_size, native_bvh=cfg.native_bvh
             )
-        check_scene(scene)  # a scene outside the ported slices raises first
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(

@@ -1,4 +1,4 @@
-"""Mesh closest hit for meshes of up to 1,024 tiles: the host side of the
+"""Mesh closest hit over tiles of 1,024 triangles: the host side of the
 JAX package's MXU intersector, and its traversals as CUDA kernels.
 
 The JAX package (``project3_cuda_path_tracer_2025_tpu/ops/intersect_mxu.py``)
@@ -14,39 +14,54 @@ over the tiles whose widened slab the ray itself enters before its
 triangle id.  Any traversal that covers those candidates gives it.
 
 This module keeps the tables, culls, sort keys, the tile plan, the packet
-bins and the attribute resolves as torch code, and ports the traversals
-that ``mxu_traversal="auto"`` picks as CUDA kernels, each behind a wrapper
-that launches it on CUDA tensors and runs its plain version on CPU tensors:
+bins and the attribute resolves as torch code, and ports every traversal of
+the JAX package as a CUDA kernel, each behind a wrapper that launches it on
+CUDA tensors and runs its plain version on CPU tensors:
 
 * up to ``MONO_MAX_TILES`` tiles, ``_mono_kernel``: ``mono_intersect``
   (``csrc/fused_mesh.cu``), plain ``mono_intersect_plain``;
-* up to 32 tiles, the planned walks ``_planned_kernel_lanebest`` and
+* up to 32 tiles a call, the planned walks ``_planned_kernel_lanebest`` and
   ``_planned_kernel``: ``planned_lanebest_intersect``, ``planned_intersect``;
-* up to 1,024 tiles, ``_streamed_kernel``: ``streamed_intersect``;
-  (the three walks share the plain version ``walk_plain``; kernels in
+* up to 1,024 tiles, ``_streamed_kernel``: ``streamed_intersect``, and with
+  ``PTT_STREAM_SUPER`` its super-tile form ``_streamed_super_kernel``:
+  ``streamed_super_intersect``, plain ``streamed_super_plain``
+  (the walks share the plain version ``walk_plain``; kernels in
   ``csrc/mesh_walk.cu``);
 * in the binned band, ``_binned_kernel``: ``binned_intersect``, plain
-  ``binned_intersect_plain``.
+  ``binned_intersect_plain``;
+* up to 32 tiles a call, the sweep ``_intersect_kernel`` (every flag off:
+  each tile in ascending order, no plan): ``sweep_intersect``, plain
+  ``sweep_intersect_plain``;
+* the plan's per-(ray block, tile) slab stage ``_plan_prepass_kernel``
+  (``plan_impl="pallas"`` / ``PTT_PLAN_IMPL=pallas``, the JAX package's
+  switch): ``plan_prepass``, plain ``plan_prepass_plain``.
+
+A mesh of more tiles than one call of the planned walk or the sweep holds
+(``chunk_tris``) runs as the JAX package's chunked chain, ``_chain``: a call
+per chunk of tiles, the running closest hit handed to the next chunk as its
+t_limit.  Beyond the streamed plan's 1,024 tiles, "streamed" and "binned"
+fall back to that chain.
 
 Every traversal evaluates each candidate pair with the same float32
 operations in the same order (each numerator is a chain of fused
 multiply-adds in the fixed order of ``MONO_COEF``, never a matmul;
 ``fma32`` gives the plain versions the kernels' single rounding), so kernel
 and plain version agree bit for bit, and with the JAX package's
-``jnp.dot`` on the CPU, which accumulates in the same order.  The sweep
-traversal, the super-tile walk and the Pallas plan prepass raise
-(``ROADMAP.md``, Queue 2 #9, #8, #11), and so does a mesh of more than
-1,024 tiles (Queue 1 #2, the chunked planned chain).  Of the JAX package's
-``PTT_*`` environment variables the port reads ``PTT_PLANNED_EPILOGUE``,
-which chooses between the two planned kernels as it does there, and the
-two that select an unported kernel, which raise when set; the constants
-below are the JAX package's defaults.
+``jnp.dot`` on the CPU, which accumulates in the same order.  Of the JAX
+package's ``PTT_*`` environment variables the port reads
+``PTT_PLANNED_EPILOGUE``, which chooses between the two planned kernels,
+``PTT_STREAM_SUPER`` ("0", the default: off; "1": on; anything else: on
+beyond ``STREAM_SUPER_MIN`` triangles; read when tables are built and when
+a traversal runs) and ``PTT_PLAN_IMPL`` ("pallas" selects the plan prepass
+kernel), each as it does there; the constants below are the JAX package's
+defaults.
 
 Where the JAX package branches on a device value with ``lax.cond`` (the
 plan's live-prefix tiers, the binned tiers and its overflow fallback), the
 port reads the value to the host and takes the same branch: one small copy
-per bounce (two for an engaged binned tier), so the kernels launched are
-the ones the JAX package would run.
+per bounce (two for an engaged binned tier; none for the sweep, which has
+no plan; still one for a planned chain, whose chunks share it), so the
+kernels launched are the ones the JAX package would run.
 """
 
 from __future__ import annotations
@@ -80,6 +95,8 @@ BINNED_PAIR_MEAN = 14  # pair budget per packet
 BINNED_PREFIX_TIERS = (8, 4)  # live-prefix tiers when the caller names none
 BINNED_TOPK = 128  # per-packet slot list length
 KEY_INLINE_MAX_CT = 24  # the shade kernel emits sort keys up to this many tiles
+SUPER_TILES = 8  # tiles per super-tile of the super streamed walk
+STREAM_SUPER_MIN = 320 * 1024  # PTT_STREAM_SUPER's "auto" band starts beyond this
 
 SLAB_EPS_REL = 4e-6
 SLAB_EPS_ABS = 1e-4
@@ -94,23 +111,15 @@ MONO_COEF = (("det", range(0, 3)), ("u", range(0, 6)), ("v", range(0, 6)),
 COEF_W = 20  # 19 coefficients + 1 pad
 
 
-CHUNKED_CHAIN = "Queue 1 #2, larger meshes: the chunked planned chain beyond 1,024 tiles"
-SWEEP = "Queue 2 #9: the sweep traversal of larger meshes"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
-
-
-def check_env() -> None:
-    """The JAX package's two environment switches that select a kernel the
-    port does not have raise when set."""
-    if environ.get("PTT_STREAM_SUPER", "0") != "0":
-        raise _not_ported("PTT_STREAM_SUPER (the super-tile streamed walk)",
-                          "Queue 2 #8")
-    if environ.get("PTT_PLAN_IMPL", "xla") == "pallas":
-        raise _not_ported("PTT_PLAN_IMPL=pallas (the Pallas plan prepass)",
-                          "Queue 2 #11")
+def stream_super_enabled(padded_tris: int) -> bool:
+    """``PTT_STREAM_SUPER``, read at call time: "0" (default) off, "1" on,
+    anything else on beyond ``STREAM_SUPER_MIN`` triangles."""
+    mode = environ.get("PTT_STREAM_SUPER", "0")
+    if mode == "0":
+        return False
+    if mode == "1":
+        return True
+    return padded_tris > STREAM_SUPER_MIN
 
 
 def _widen_slab(tlo, thi, k=1):
@@ -161,8 +170,10 @@ class MXUMeshTables(NamedTuple):
     ``features``, ``tile_aabb``, ``attrs``, ``attrs_shade`` and ``center``
     are the JAX package's arrays exactly.  ``coef`` is ``features``
     re-laid out as one row per triangle in ``MONO_COEF`` order, the layout
-    the traversal kernels read.  (The JAX package's ``group_aabb`` serves
-    only the sweep traversal and the chunked chain, which are not ported.)"""
+    the traversal kernels read.  The JAX package's ``group_aabb`` is the
+    coarse level of its sweep's two-level cull; with ``GROUP_TILES == 1`` a
+    group is a tile and the sweep skips that level, so the port's sweep has
+    the single level and the tables carry no ``group_aabb``."""
 
     features: torch.Tensor  # [NUM_F, 4*Tp] f32: (det|u|v|t) columns per tile
     tile_aabb: torch.Tensor  # [Ct, 8] f32: xyz min, xyz max (recentred), pad
@@ -193,9 +204,15 @@ def build_mxu_tables(
     device="cpu",
 ) -> MXUMeshTables:
     """The JAX package's ``build_mxu_tables`` (float64 host arithmetic,
-    float32 tables), without the super-tile padding (off by default)."""
+    float32 tables).  With the super-tile walk switched on
+    (``stream_super_enabled``) a table beyond ``CHUNK_TRIS`` is padded to a
+    whole number of super-tiles with never-hit tiles, as there, so every
+    plan and bin shape equals the JAX package's."""
     t = pos.shape[0]
     tp = ((t + GROUP_TRIS - 1) // GROUP_TRIS) * GROUP_TRIS
+    if tp > CHUNK_TRIS and stream_super_enabled(tp):
+        span = SUPER_TILES * TRI_TILE
+        tp = ((tp + span - 1) // span) * span
     center = pos.reshape(-1, 3).mean(axis=0).astype(np.float32)
 
     v0 = pos[:, 0].astype(np.float64) - center
@@ -261,11 +278,19 @@ def build_mxu_tables(
     return tables_from_arrays(feat, tile_aabb, attrs, attrs_shade, center, device)
 
 
-def tables_from_arrays(features, tile_aabb, attrs, attrs_shade, center,
+def tables_from_arrays(features, tile_aabb, attrs=None, attrs_shade=None, center=(0, 0, 0),
                        device="cpu") -> MXUMeshTables:
-    """``MXUMeshTables`` from numpy arrays (copied), adding ``coef``."""
+    """``MXUMeshTables`` from numpy arrays (copied), adding ``coef``.  Any
+    whole number of tiles is taken (a table the JAX package padded to whole
+    super-tiles, or a synthetic one); ``attrs``/``attrs_shade`` None gives
+    zero rows, for tables that only a traversal reads."""
     f = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
     features = f(features)
+    tp = features.shape[1] // 4
+    if attrs is None:
+        attrs = np.zeros((tp, 40), np.float32)
+    if attrs_shade is None:
+        attrs_shade = np.zeros((tp, 24), np.float32)
     return MXUMeshTables(
         features=features, tile_aabb=f(tile_aabb), attrs=f(attrs),
         attrs_shade=f(attrs_shade), center=f(center),
@@ -698,12 +723,11 @@ def _pair_slabs(tile_aabb, os: Vec3, d: Vec3, live, tl):
         yield (thi >= tlo) & (thi > 0.0) & (tlo < tl[:, None]) & live[:, None], tlo
 
 
-def build_tile_plan(tile_aabb, os: Vec3, d: Vec3, live, tl) -> TilePlan:
-    """The JAX package's ``_build_tile_plan``: for every (256-ray block,
-    tile) pair, whether any live ray of the block enters the tile's k=2
-    widened box before its t_limit, and the block's least entry distance
-    (clamped at 0); tiles sorted by it (stable).  Rays padded to whole
-    blocks: ``os`` recentred origins, ``d`` directions, ``live``, ``tl``."""
+def _block_slabs(tile_aabb, os: Vec3, d: Vec3, live, tl):
+    """For every (256-ray block, tile) pair: whether any live ray of the
+    block enters the tile's k=2 widened box before its t_limit (``h`` [NB,
+    Ct] bool), and the block's least entry distance clamped at 0 (``lb``
+    [NB, Ct] float32, inf without such a ray)."""
     nb = os.x.shape[0] // RAY_TILE
     hs, ls = [], []
     zero = torch.zeros((), dtype=torch.float32, device=tl.device)
@@ -712,12 +736,77 @@ def build_tile_plan(tile_aabb, os: Vec3, d: Vec3, live, tl) -> TilePlan:
         hs.append(h.reshape(nb, RAY_TILE, tc).any(dim=1))
         per_ray = torch.where(h, torch.maximum(tlo, zero), float("inf"))
         ls.append(per_ray.reshape(nb, RAY_TILE, tc).amin(dim=1))
-    hit = torch.cat(hs, dim=1)
-    key = torch.where(hit, torch.cat(ls, dim=1), float("inf"))
+    return torch.cat(hs, dim=1), torch.cat(ls, dim=1)
+
+
+def _plan_from_slabs(hit, lb) -> TilePlan:
+    """Each block's tiles sorted by entry distance (stable), misses last."""
+    key = torch.where(hit, lb, float("inf"))
     order = torch.argsort(key, dim=1, stable=True)
     tlo_sorted = torch.gather(key, 1, order)
     cnt = hit.sum(dim=1).to(torch.int32)
     return TilePlan(order.to(torch.int32).reshape(-1), tlo_sorted.reshape(-1), cnt)
+
+
+def build_tile_plan(tile_aabb, os: Vec3, d: Vec3, live, tl) -> TilePlan:
+    """The JAX package's ``_build_tile_plan``: for every (256-ray block,
+    tile) pair, whether any live ray of the block enters the tile's k=2
+    widened box before its t_limit, and the block's least entry distance
+    (clamped at 0); tiles sorted by it (stable).  Rays padded to whole
+    blocks: ``os`` recentred origins, ``d`` directions, ``live``, ``tl``."""
+    return _plan_from_slabs(*_block_slabs(tile_aabb, os, d, live, tl))
+
+
+# The plan prepass  (replaces ops/intersect_mxu.py::_plan_prepass_kernel)
+
+def plan_prepass_plain(tile_aabb, os: Vec3, d: Vec3, live, tl):
+    """The plain PyTorch version of the plan prepass kernel -> (h [NB, Ct]
+    bool, lb [NB, Ct] float32): the slab stage of ``build_tile_plan``."""
+    return _block_slabs(tile_aabb, os, d, live, tl)
+
+
+def plan_prepass(tile_aabb, os: Vec3, d: Vec3, live, tl):
+    """The per-(ray block, tile) slab stage of the plan
+    (``_plan_prepass_kernel``): ``ptt_plan_prepass_kernel`` on CUDA tensors,
+    ``plan_prepass_plain`` on CPU tensors.  Rays padded to whole blocks
+    (``plan_rays``); returns (h [NB, Ct] bool, lb [NB, Ct] float32), bit-equal
+    to the plain version: min and any do not depend on the order of the rays."""
+    device = tl.device
+    if device.type == "cpu":
+        return plan_prepass_plain(tile_aabb, os, d, live, tl)
+    _require_cuda("plan_prepass", device)
+    n_pad = tl.shape[0]
+    if n_pad % RAY_TILE:
+        raise ValueError(f"plan_prepass: {n_pad} rays are not whole blocks of {RAY_TILE}")
+    nb, ct = n_pad // RAY_TILE, tile_aabb.shape[0]
+    os, d = Vec3(*(x.contiguous() for x in os)), Vec3(*(x.contiguous() for x in d))
+    live, tl = live.contiguous(), tl.contiguous()
+    _check_rays("plan_prepass rays", [*os, *d, tl], n_pad, device)
+    _check_tensor("plan_prepass live", live, torch.bool, (n_pad,), device)
+    _check_tensor("plan_prepass tile_aabb", tile_aabb, torch.float32, (ct, 8), device)
+    lib = kernels.load("mesh_walk")
+    h = torch.empty((nb, ct), dtype=torch.bool, device=device)
+    lb = torch.empty((nb, ct), dtype=torch.float32, device=device)
+    a = kernels.PttPlanArgs()
+    a.ray[:] = [x.data_ptr() for x in (*os, *d)]
+    a.live, a.tlim = live.data_ptr(), tl.data_ptr()
+    a.tile_aabb = tile_aabb.data_ptr()
+    a.out_h, a.out_lb = h.data_ptr(), lb.data_ptr()
+    a.nb, a.ct = nb, ct
+    code = lib.lib.ptt_launch_plan_prepass(ctypes.byref(a), kernels.stream_handle(device))
+    lib.check(code, "plan_prepass")
+    plan_prepass.launches += 1
+    return h, lb
+
+
+plan_prepass.launches = 0
+
+
+def build_tile_plan_prepass(tile_aabb, os: Vec3, d: Vec3, live, tl, plain=False) -> TilePlan:
+    """``build_tile_plan`` with its slab stage as the prepass kernel (the JAX
+    package's ``_build_tile_plan_pallas``): the same plan, bit for bit."""
+    fn = plan_prepass_plain if plain else plan_prepass
+    return _plan_from_slabs(*fn(tile_aabb, os, d, live, tl))
 
 
 class PlanRays(NamedTuple):
@@ -747,15 +836,22 @@ def live_position(live) -> int:
     return int(torch.max(torch.where(live, idx, -1)))
 
 
-def plan_with_prefix(tile_aabb, os: Vec3, d: Vec3, live, tl, live_pos=None) -> TilePlan:
+def plan_with_prefix(tile_aabb, os: Vec3, d: Vec3, live, tl, live_pos=None, impl="xla",
+                     plain=False) -> TilePlan:
     """The JAX package's ``_plan_with_prefix``: with at least 8 blocks, the
     plan is built over the 1/16 or the 1/4 prefix of the rays when the last
     live ray (``live_pos``) lies inside it, and the blocks past it get empty
-    plans (exact: their rays are dead)."""
+    plans (exact: their rays are dead).  ``impl`` "pallas" (the JAX
+    package's name for it) builds the slab stage with the prepass kernel
+    (its plain version with ``plain``), any other value in torch."""
     n_pad = os.x.shape[0]
     nb = n_pad // RAY_TILE
+    if impl == "pallas":
+        build = lambda *rays: build_tile_plan_prepass(tile_aabb, *rays, plain=plain)
+    else:
+        build = lambda *rays: build_tile_plan(tile_aabb, *rays)
     if nb < 8:
-        return build_tile_plan(tile_aabb, os, d, live, tl)
+        return build(os, d, live, tl)
     if live_pos is None:
         live_pos = live_position(live)
     p4, p16 = (nb // 4) * RAY_TILE, (nb // 16) * RAY_TILE
@@ -765,9 +861,9 @@ def plan_with_prefix(tile_aabb, os: Vec3, d: Vec3, live, tl, live_pos=None) -> T
     elif 0 < p4 < n_pad and live_pos < p4:
         npre = p4
     if npre == n_pad:
-        return build_tile_plan(tile_aabb, os, d, live, tl)
+        return build(os, d, live, tl)
     cut = lambda v: Vec3(*(x[:npre] for x in v))
-    p = build_tile_plan(tile_aabb, cut(os), cut(d), live[:npre], tl[:npre])
+    p = build(cut(os), cut(d), live[:npre], tl[:npre])
     ct, rest = tile_aabb.shape[0], nb - npre // RAY_TILE
     return TilePlan(
         torch.cat([p.ids, p.ids.new_zeros(rest * ct)]),
@@ -778,28 +874,27 @@ def plan_with_prefix(tile_aabb, os: Vec3, d: Vec3, live, tl, live_pos=None) -> T
 
 # ---------------------------------------------------------------------------
 # The planned and streamed walks  (replace ops/intersect_mxu.py::
-# _planned_kernel_lanebest, _planned_kernel and _streamed_kernel)
+# _planned_kernel_lanebest, _planned_kernel, _streamed_kernel and
+# _streamed_super_kernel)
 # ---------------------------------------------------------------------------
 
-def walk_plain(tables: MXUMeshTables, ro: Vec3, rd: Vec3, live, tlim, plan: TilePlan,
-               baby_eps: float):
-    """The plain PyTorch version of the three walk kernels -> (t, tri),
-    ``(tlim, -1)`` where nothing closer is hit.
-
-    The kernels walk each block's plan row in order, the JAX package's
-    running best per ray with the contract's rule (a smaller t wins, an
-    equal t goes to the lower id), and #6/#7 stop early where nothing can
-    change.  This version visits the same (ray, tile) pairs tile by tile,
-    each once, and folds them in with the same rule, which makes the order
-    of visits irrelevant; the early exits skip only pairs that change
-    nothing, so the result is the same function."""
-    n = ro.x.shape[0]
-    device = ro.x.device
+def _plan_visits(plan: TilePlan, ct: int):
+    """[NB, ct] bool: the tiles each block's plan row lists."""
     nb = plan.cnt.shape[0]
-    ct = tables.tile_aabb.shape[0]
+    device = plan.cnt.device
     ids = plan.ids.reshape(nb, ct).long()
     slots = torch.arange(ct, device=device)[None, :] < plan.cnt[:, None]
-    visits = torch.zeros((nb, ct), dtype=torch.bool, device=device).scatter_(1, ids, slots)
+    return torch.zeros((nb, ct), dtype=torch.bool, device=device).scatter_(1, ids, slots)
+
+
+def _visit_plain(tables: MXUMeshTables, ro: Vec3, rd: Vec3, live, tlim, visits,
+                 baby_eps: float):
+    """Every live ray against the tiles its block visits (``visits`` [NB,
+    Ct]) that it is a member of, tile by tile, each pair once, folded in
+    with the contract's rule (a smaller t wins, an equal t goes to the lower
+    id) -> (t, tri), ``(tlim, -1)`` where nothing closer is hit."""
+    n = ro.x.shape[0]
+    device = ro.x.device
     block = torch.arange(n, device=device) // RAY_TILE
     rf = _features(tables, ro, rd)
     best_t, best_tri = tlim.clone(), torch.full((n,), -1, dtype=torch.int32, device=device)
@@ -814,22 +909,50 @@ def walk_plain(tables: MXUMeshTables, ro: Vec3, rd: Vec3, live, tlim, plan: Tile
     return best_t, best_tri
 
 
-def _launch_walk(kind: str, tables, ro, rd, live, tlim, plan, baby_eps):
+def walk_plain(tables: MXUMeshTables, ro: Vec3, rd: Vec3, live, tlim, plan: TilePlan,
+               baby_eps: float):
+    """The plain PyTorch version of the three walk kernels -> (t, tri),
+    ``(tlim, -1)`` where nothing closer is hit.
+
+    The kernels walk each block's plan row in order, the JAX package's
+    running best per ray with the contract's rule (a smaller t wins, an
+    equal t goes to the lower id), and #6/#7 stop early where nothing can
+    change.  This version visits the same (ray, tile) pairs tile by tile,
+    each once, and folds them in with the same rule, which makes the order
+    of visits irrelevant; the early exits skip only pairs that change
+    nothing, so the result is the same function."""
+    visits = _plan_visits(plan, tables.tile_aabb.shape[0])
+    return _visit_plain(tables, ro, rd, live, tlim, visits, baby_eps)
+
+
+def _launch_walk(kind: str, tables, ro, rd, live, tlim, plan, baby_eps, saabb=None):
+    """One launch of a walk kernel.  ``plan``: over the tiles, or over the
+    super-tiles ``saabb`` [Cs, 8] for "streamed_super"; None for "sweep"."""
     device = ro.x.device
     _require_cuda(f"{kind}_intersect", device)
     n = ro.x.shape[0]
     nb = (n + RAY_TILE - 1) // RAY_TILE
     ct = tables.tile_aabb.shape[0]
-    cap = STREAMED_MAX_TILES if kind == "streamed" else PLANNED_MAX_TILES
-    if ct > cap:
-        raise ValueError(f"{kind}_intersect: {ct} tiles exceed the kernel's {cap}")
+    cap = STREAMED_MAX_TILES if kind.startswith("streamed") else PLANNED_MAX_TILES
+    cs = 0 if saabb is None else saabb.shape[0]
+    if (cs or ct) > cap:
+        raise ValueError(f"{kind}_intersect: {cs or ct} plan columns exceed the kernel's {cap}")
     what = f"{kind}_intersect"
     _check_rays(f"{what} rays", [*ro, *rd, tlim], n, device)
     _check_tensor(f"{what} live", live, torch.bool, (n,), device)
     _check_tables(what, tables, ct, device)
-    _check_tensor(f"{what} plan ids", plan.ids, torch.int32, (nb * ct,), device)
-    _check_tensor(f"{what} plan tlo", plan.tlo, torch.float32, (nb * ct,), device)
-    _check_tensor(f"{what} plan cnt", plan.cnt, torch.int32, (nb,), device)
+    if saabb is not None:
+        if cs != (ct + SUPER_TILES - 1) // SUPER_TILES:
+            raise ValueError(f"{what}: {cs} super-tiles for {ct} tiles")
+        _check_tensor(f"{what} saabb", saabb, torch.float32, (cs, 8), device)
+    if plan is None:
+        plan = TilePlan(*(torch.empty((0,), dtype=dt, device=device)
+                          for dt in (torch.int32, torch.float32, torch.int32)))
+    else:
+        cols = cs or ct
+        _check_tensor(f"{what} plan ids", plan.ids, torch.int32, (nb * cols,), device)
+        _check_tensor(f"{what} plan tlo", plan.tlo, torch.float32, (nb * cols,), device)
+        _check_tensor(f"{what} plan cnt", plan.cnt, torch.int32, (nb,), device)
     lib = kernels.load("mesh_walk")
     out_t = torch.empty((n,), dtype=torch.float32, device=device)
     out_tri = torch.empty((n,), dtype=torch.int32, device=device)
@@ -840,9 +963,10 @@ def _launch_walk(kind: str, tables, ro, rd, live, tlim, plan, baby_eps):
     a.tile_aabb = tables.tile_aabb.data_ptr()
     a.center = tables.center.data_ptr()
     a.ids, a.tlo, a.cnt = plan.ids.data_ptr(), plan.tlo.data_ptr(), plan.cnt.data_ptr()
+    a.saabb = saabb.data_ptr() if saabb is not None else None
     a.out_t, a.out_tri = out_t.data_ptr(), out_tri.data_ptr()
     a.baby_eps, a.eps_succ = f32(baby_eps), _eps_succ(baby_eps)
-    a.n, a.ct = n, ct
+    a.n, a.ct, a.cs = n, ct, cs
     code = lib.lib.ptt_launch_walk(ctypes.byref(a), kernels.WALK_KINDS.index(kind),
                                    kernels.stream_handle(device))
     lib.check(code, what)
@@ -883,9 +1007,94 @@ def streamed_intersect(tables, ro, rd, live, tlim, plan, baby_eps):
     return out
 
 
+def super_aabb(tile_aabb):
+    """The super-tiles' boxes [ceil(Ct / 8), 8]: min and max over each run
+    of ``SUPER_TILES`` tile boxes, a last short run filled up with never-hit
+    boxes (which change no min or max), as the JAX package's
+    ``run_streamed_super`` builds them."""
+    ct = tile_aabb.shape[0]
+    cs = (ct + SUPER_TILES - 1) // SUPER_TILES
+    never = tile_aabb.new_tensor([1e30] * 3 + [-1e30] * 5).expand(cs * SUPER_TILES - ct, 8)
+    grp = torch.cat([tile_aabb, never]).reshape(cs, SUPER_TILES, 8)
+    return torch.cat([grp[:, :, 0:3].amin(dim=1), grp[:, :, 3:6].amax(dim=1),
+                      grp.new_zeros((cs, 2))], dim=1).contiguous()
+
+
+def streamed_super_plain(tables: MXUMeshTables, ro: Vec3, rd: Vec3, live, tlim,
+                         splan: TilePlan, baby_eps: float):
+    """The plain PyTorch version of the super-tile streamed walk -> (t,
+    tri): every super-tile a block's plan lists stands for its (up to 8)
+    member tiles, each visited with the ray's own member window, as
+    ``walk_plain`` visits a plan's tiles.  The kernel's exit (strict, on the
+    super box's entry bound, which is below every member tile's) and its
+    gates skip only pairs that change nothing."""
+    ct = tables.tile_aabb.shape[0]
+    cs = (ct + SUPER_TILES - 1) // SUPER_TILES
+    visits = _plan_visits(splan, cs).repeat_interleave(SUPER_TILES, dim=1)[:, :ct]
+    return _visit_plain(tables, ro, rd, live, tlim, visits, baby_eps)
+
+
+def streamed_super_intersect(tables, ro, rd, live, tlim, splan, baby_eps, saabb=None):
+    """The streamed walk over super-tiles of ``SUPER_TILES`` tiles
+    (``_streamed_super_kernel``): ``ptt_streamed_super_kernel`` on CUDA
+    tensors, ``streamed_super_plain`` on CPU tensors.  ``splan``: the plan
+    over ``super_aabb(tables.tile_aabb)`` (``saabb``, computed when None).
+    A tile count that is no multiple of 8 needs no padded copy of the
+    tables: the kernel never takes a tile past the last as a member."""
+    if ro.x.device.type == "cpu":
+        return streamed_super_plain(tables, ro, rd, live, tlim, splan, baby_eps)
+    if saabb is None:
+        saabb = super_aabb(tables.tile_aabb)
+    out = _launch_walk("streamed_super", tables, ro, rd, live, tlim, splan, baby_eps, saabb)
+    streamed_super_intersect.launches += 1
+    return out
+
+
 planned_lanebest_intersect.launches = 0
 planned_intersect.launches = 0
 streamed_intersect.launches = 0
+streamed_super_intersect.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The sweep  (replaces ops/intersect_mxu.py::_intersect_kernel)
+# ---------------------------------------------------------------------------
+
+def sweep_intersect_plain(tables: MXUMeshTables, ro: Vec3, rd: Vec3, live, tlim,
+                          baby_eps: float):
+    """The plain PyTorch version of the sweep kernel -> (t, tri), ``(tlim,
+    -1)`` where nothing closer is hit.  Every tile of the table in ascending
+    id; a live ray takes a tile it is a member of (``_member_slab``) unless
+    the tile's entry lies beyond its running best (``<=``: an entry equal to
+    the best may still tie); a strictly smaller t wins, so an exact tie
+    stays with the earlier tile, which holds the lower ids."""
+    n = ro.x.shape[0]
+    rf = _features(tables, ro, rd)
+    best_t = tlim.clone()
+    best_tri = torch.full((n,), -1, dtype=torch.int32, device=tlim.device)
+    for c, row in enumerate(tables.tile_aabb.tolist()):
+        member, s_tlo, s_thi = _member_slab(row, rf.os, rf.inv, tlim)
+        i = torch.nonzero(member & live & (s_tlo <= best_t)).flatten()
+        tmin, gid = _eval_tile(tables, c, rf.feat, i, s_tlo, s_thi, baby_eps)
+        upd = tmin < best_t[i]
+        best_t[i] = torch.where(upd, tmin, best_t[i])
+        best_tri[i] = torch.where(upd, gid, best_tri[i])
+    return best_t, best_tri
+
+
+def sweep_intersect(tables, ro, rd, live, tlim, baby_eps):
+    """The plan-free sweep over a table of at most ``PLANNED_MAX_TILES``
+    tiles (``_intersect_kernel``): ``ptt_sweep_kernel`` on CUDA tensors,
+    ``sweep_intersect_plain`` on CPU tensors.  Rays unpadded [n]; returns
+    (t, tri), tri an id of ``tables`` (a chunk's caller offsets it)."""
+    if ro.x.device.type == "cpu":
+        return sweep_intersect_plain(tables, ro, rd, live, tlim, baby_eps)
+    out = _launch_walk("sweep", tables, ro, rd, live, tlim, None, baby_eps)
+    sweep_intersect.launches += 1
+    return out
+
+
+sweep_intersect.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1118,39 +1327,98 @@ WALKS = {
 }
 
 
+def _chunk_tables(tables: MXUMeshTables, g0: int, g1: int) -> MXUMeshTables:
+    """Tiles ``g0..g1-1`` as a table of their own (views, no copy): what a
+    call of the chunked chain walks.  Its triangle ids start at 0."""
+    rows = slice(g0 * TRI_TILE, g1 * TRI_TILE)
+    return tables._replace(
+        features=tables.features[:, 4 * rows.start:4 * rows.stop],
+        tile_aabb=tables.tile_aabb[g0:g1], attrs=tables.attrs[rows],
+        attrs_shade=tables.attrs_shade[rows], coef=tables.coef[rows])
+
+
+def _chain(tables, padded_tris, chunk_tris, ro, rd, live, tlim, baby_eps, planned, plan_for,
+           lanebest, plain):
+    """The JAX package's chunked multi-call chain: chunks of ``chunk_tris``
+    triangles in tile order, each call's t_limit the running closest hit, so
+    a call reports only hits strictly closer than everything before it (an
+    exact tie stays with the earlier chunk, which holds the lower ids).
+    ``planned``: each chunk's plan is built against the running best and
+    walked by a planned kernel; else the rays that miss the chunk's
+    envelope (k=2 widening, against the running best) are masked and the
+    chunk is swept.  ``ro``/``rd``/``live``/``tlim`` are in the order the
+    caller traverses in (sorted or not), and the envelope is taken from
+    those same tensors."""
+    per = max(1, chunk_tris // GROUP_TRIS)
+    groups = padded_tris // GROUP_TRIS
+    c = tables.center
+    os, inv = Vec3(ro.x - c[0], ro.y - c[1], ro.z - c[2]), _inv_dir(rd)
+    best_t, best_tri = tlim, None
+    for g0 in range(0, groups, per):
+        g1 = min(groups, g0 + per)
+        sub = _chunk_tables(tables, g0, g1)
+        if planned:
+            kind = "planned_lanebest" if lanebest and g1 - g0 <= LANEBEST_MAX_TILES \
+                else "planned"
+            fn = walk_plain if plain else WALKS[kind]
+            t_c, tri_c = fn(sub, ro, rd, live, best_t, plan_for(sub.tile_aabb, best_t), baby_eps)
+        else:
+            lo = torch.min(sub.tile_aabb[:, 0:3], dim=0).values
+            hi = torch.max(sub.tile_aabb[:, 3:6], dim=0).values
+            ctlo, cthi = _widen_slab(*_slab(lo, hi, os, inv), k=2)
+            ok = (cthi >= ctlo) & (cthi > 0.0) & (ctlo < best_t)
+            fn = sweep_intersect_plain if plain else sweep_intersect
+            t_c, tri_c = fn(sub, ro, rd, live & ok, best_t, baby_eps)
+        better = tri_c >= 0  # a call reports only hits closer than its t_limit
+        tri_glob = torch.where(better, tri_c + g0 * GROUP_TRIS, -1)
+        if best_tri is None:
+            best_t, best_tri = t_c, tri_glob
+        else:
+            best_t = torch.where(better, t_c, best_t)
+            best_tri = torch.where(better, tri_glob, best_tri)
+    return best_t, best_tri
+
+
 def _traverse(tables, num_tris, padded_tris, ro, rd, active, tlim, baby_eps, planned,
               streamed, binned, mono, binned_tiers, binned_topk, binned_budget_rays,
-              planned_epilogue, plain):
-    """The JAX package's ``_run`` after its sort: the capacity fallbacks, the
-    choice of traversal, and the host reads its ``lax.cond``s take."""
-    check_env()
-    ct = padded_tris // TRI_TILE
-    if ct > STREAMED_MAX_TILES:
-        raise _not_ported(f"a mesh of {ct} tiles", CHUNKED_CHAIN)
+              planned_epilogue, plan_impl, chunk_tris, plain):
+    """The JAX package's ``_run`` after its sort, decision for decision: the
+    capacity fallbacks (beyond the streamed plan's tiles "streamed" becomes
+    the planned chain and "binned" is dropped), mono's gate, the plan-size
+    guard (which turns "planned" into the sweep), then the dispatch, with
+    the host reads its ``lax.cond``s take."""
+    tiles = padded_tris // TRI_TILE
+    if streamed and tiles > STREAMED_MAX_TILES:
+        streamed, planned = False, True
+    if binned and tiles > STREAMED_MAX_TILES:
+        binned = False
+    use_mono = mono and tiles <= MONO_MAX_TILES and padded_tris <= chunk_tris
     n = ro.x.shape[0]
     nb = (n + RAY_TILE - 1) // RAY_TILE
-    if planned and not streamed and nb * max(1, min(padded_tris, CHUNK_TRIS) // TRI_TILE) \
+    if planned and not streamed and nb * max(1, min(padded_tris, chunk_tris) // TRI_TILE) \
             * 8 > PLAN_BUDGET:
         planned = False
-    if not binned and mono and ct <= MONO_MAX_TILES:
+    if not binned and use_mono:
         traverse = mono_intersect_plain if plain else mono_intersect
         return traverse(tables, num_tris, ro, rd, active, tlim, baby_eps)
-    if not (binned or streamed):
-        if not planned:
-            raise _not_ported(f"the sweep traversal ({nb} ray blocks, {ct} tiles)", SWEEP)
-        if padded_tris > CHUNK_TRIS:
-            raise _not_ported(f"the planned traversal of {ct} tiles", CHUNKED_CHAIN)
 
+    ct = tables.tile_aabb.shape[0]
     live = active & root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tlim)
     n_pad = nb * RAY_TILE
     os, dp, livep, tlp = plan_rays(tables, ro, rd, live, tlim)
-    live_pos = live_position(livep) if (binned or nb >= 8) else -1
+    plans = binned or streamed or planned  # the sweep builds no plan, reads nothing
+    live_pos = live_position(livep) if (binned or (plans and nb >= 8)) else -1
+
+    def plan_for(aabb, tl=None):
+        tl_p = tlp if tl is None else torch.cat([tl, tlp[n:]])
+        return plan_with_prefix(aabb, os, dp, livep, tl_p, live_pos, impl=plan_impl,
+                                plain=plain)
 
     def walk(kind):
-        plan = plan_with_prefix(tables.tile_aabb, os, dp, livep, tlp, live_pos)
         fn = walk_plain if plain else WALKS[kind]
-        return fn(tables, ro, rd, live, tlim, plan, baby_eps)
+        return fn(tables, ro, rd, live, tlim, plan_for(tables.tile_aabb), baby_eps)
 
+    lanebest = planned_epilogue in ("lanebest", "lanebest_force")
     if binned:
         tiers = binned_tiers if binned_tiers is not None else BINNED_PREFIX_TIERS
         topk = binned_topk if binned_topk is not None else BINNED_TOPK
@@ -1171,12 +1439,22 @@ def _traverse(tables, num_tris, padded_tris, ro, rd, active, tlim, baby_eps, pla
                 t_p, tri_p = binned_reduce(pt, ptri, bins, tlp[:npre], npre // BINNED_G)
                 t = torch.cat([t_p, tlp[npre:]])[:n]
                 tri = torch.cat([tri_p, tri_p.new_full((n_pad - npre,), -1)])[:n]
+    elif streamed and stream_super_enabled(padded_tris):
+        saabb = super_aabb(tables.tile_aabb)
+        fn = streamed_super_plain if plain else streamed_super_intersect
+        t, tri = fn(tables, ro, rd, live, tlim, plan_for(saabb), baby_eps)
     elif streamed:
         t, tri = walk("streamed")
+    elif padded_tris <= chunk_tris:
+        if planned:
+            t, tri = walk("planned_lanebest" if lanebest and ct <= LANEBEST_MAX_TILES
+                          else "planned")
+        else:
+            fn = sweep_intersect_plain if plain else sweep_intersect
+            t, tri = fn(tables, ro, rd, live, tlim, baby_eps)
     else:
-        lanebest = ct <= LANEBEST_MAX_TILES and planned_epilogue in (
-            "lanebest", "lanebest_force")
-        t, tri = walk("planned_lanebest" if lanebest else "planned")
+        t, tri = _chain(tables, padded_tris, chunk_tris, ro, rd, live, tlim, baby_eps,
+                        planned, plan_for, lanebest, plain)
     return t, torch.where(tri >= num_tris, -1, tri)
 
 
@@ -1203,26 +1481,35 @@ def mesh_intersect_mxu(
     binned_budget_rays: int = None,
     planned_epilogue: str = None,
     mono: bool = False,
+    plan_impl: str = None,
+    chunk_tris: int = CHUNK_TRIS,
     plain: bool = False,
 ) -> MeshHit:
     """Closest hit over the mesh, with the JAX package's traversal flags
-    (``traversal_flags``; the default, all off, is the sweep, which is not
-    ported).  With ``sort_rays`` the rays go through the traversal in
-    coherence order and the results are scattered back (a pure
-    permutation: identical results).  (u, v) are recomputed from the
-    winner's geometry when ``compute_uv``.  ``plain`` runs the traversal's
-    plain versions on any device.  ``planned_epilogue`` None reads
-    ``PTT_PLANNED_EPILOGUE`` (default "lanebest"), as the JAX package does:
-    "lanebest" takes the lane-best walk up to ``LANEBEST_MAX_TILES``
-    tiles, any other value the walk with the early exit."""
+    (``traversal_flags``; the default, all off, is the sweep).  With
+    ``sort_rays`` the rays go through the traversal in coherence order and
+    the results are scattered back (a pure permutation: identical
+    results).  (u, v) are recomputed from the winner's geometry when
+    ``compute_uv``.  ``plain`` runs the traversal's plain versions on any
+    device.  ``planned_epilogue`` None reads ``PTT_PLANNED_EPILOGUE``
+    (default "lanebest"), as the JAX package does: "lanebest" takes the
+    lane-best walk up to ``LANEBEST_MAX_TILES`` tiles, any other value the
+    walk with the early exit.  ``plan_impl`` None reads ``PTT_PLAN_IMPL``
+    (default "xla", the plan in torch; "pallas", the JAX package's name,
+    takes the plan prepass kernel).  ``chunk_tris``: the most triangles one
+    call of a planned walk or the sweep takes; a larger mesh runs as the
+    chunked chain (at most ``CHUNK_TRIS``: the kernels' table)."""
     if planned_epilogue is None:
         planned_epilogue = environ.get("PTT_PLANNED_EPILOGUE", "lanebest")
+    if plan_impl is None:
+        plan_impl = environ.get("PTT_PLAN_IMPL", "xla")
     active = active.contiguous()
     t_limit = t_limit.to(torch.float32).contiguous()
     flags = dict(planned=planned, streamed=streamed, binned=binned, mono=mono,
                  binned_tiers=binned_tiers, binned_topk=binned_topk,
                  binned_budget_rays=binned_budget_rays,
-                 planned_epilogue=planned_epilogue, plain=plain)
+                 planned_epilogue=planned_epilogue, plan_impl=plan_impl,
+                 chunk_tris=chunk_tris, plain=plain)
     if sort_rays:
         c = tables.center
         os = (ro.x - c[0], ro.y - c[1], ro.z - c[2])

@@ -123,9 +123,17 @@ class PttWalkArgs(ctypes.Structure):
     _fields_ = [
         ("ray", _p * 6), ("live", _p), ("tlim", _p), ("coef", _p),
         ("tile_aabb", _p), ("center", _p), ("ids", _p), ("tlo", _p), ("cnt", _p),
-        ("out_t", _p), ("out_tri", _p),
+        ("saabb", _p), ("out_t", _p), ("out_tri", _p),
         ("baby_eps", _f), ("eps_succ", _f),
-        ("n", _i), ("ct", _i),
+        ("n", _i), ("ct", _i), ("cs", _i),
+    ]
+
+
+class PttPlanArgs(ctypes.Structure):
+    _fields_ = [
+        ("ray", _p * 6), ("live", _p), ("tlim", _p), ("tile_aabb", _p),
+        ("out_h", _p), ("out_lb", _p),
+        ("nb", _i), ("ct", _i),
     ]
 
 
@@ -139,8 +147,8 @@ class PttBinnedArgs(ctypes.Structure):
     ]
 
 
-# ptt_launch_walk's kind: which of the three walk kernels.
-WALK_KINDS = ("planned_lanebest", "planned", "streamed")
+# ptt_launch_walk's kind: which of the walk kernels.
+WALK_KINDS = ("planned_lanebest", "planned", "streamed", "streamed_super", "sweep")
 
 
 def _walk_abi_expected() -> list:
@@ -150,6 +158,9 @@ def _walk_abi_expected() -> list:
         ctypes.sizeof(PttWalkArgs),
         PttWalkArgs.baby_eps.offset,
         PttWalkArgs.n.offset,
+        PttWalkArgs.cs.offset,
+        ctypes.sizeof(PttPlanArgs),
+        PttPlanArgs.nb.offset,
         ctypes.sizeof(PttBinnedArgs),
         PttBinnedArgs.baby_eps.offset,
         PttBinnedArgs.n.offset,
@@ -159,6 +170,7 @@ def _walk_abi_expected() -> list:
         mxu.BINNED_G,
         mxu.PLANNED_MAX_TILES,
         mxu.STREAMED_MAX_TILES,
+        mxu.SUPER_TILES,
     ]
 
 
@@ -242,6 +254,8 @@ def _bind_walk(lib) -> tuple:
     lib.ptt_launch_walk.restype = _i
     lib.ptt_launch_binned.argtypes = [ctypes.POINTER(PttBinnedArgs), _p]
     lib.ptt_launch_binned.restype = _i
+    lib.ptt_launch_plan_prepass.argtypes = [ctypes.POINTER(PttPlanArgs), _p]
+    lib.ptt_launch_plan_prepass.restype = _i
     return lib.ptt_walk_abi, _walk_abi_expected(), lib.ptt_walk_error_string
 
 

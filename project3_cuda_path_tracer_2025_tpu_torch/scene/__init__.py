@@ -8,7 +8,7 @@ from .types import (
     TextureData,
 )
 from .loader import load_scene, set_resolution
-from .device import DeviceScene, build_device_scene, check_scene, from_jax_scene
+from .device import DeviceScene, build_device_scene, from_jax_scene
 from .camera import derive_render_camera, camera_state
 
 __all__ = [
@@ -23,7 +23,6 @@ __all__ = [
     "set_resolution",
     "DeviceScene",
     "build_device_scene",
-    "check_scene",
     "from_jax_scene",
     "derive_render_camera",
     "camera_state",

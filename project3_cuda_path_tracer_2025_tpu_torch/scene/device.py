@@ -2,8 +2,7 @@
 
 Counterpart of the JAX package's ``scene/device.py`` for the slices the
 port runs: analytic primitives, textured and untextured materials and
-triangle meshes of up to ``STREAMED_MAX_TILES`` (1,024) tiles of 1,024
-triangles.  The primitives are not
+triangle meshes of any number of tiles of 1,024 triangles.  The primitives are not
 uploaded at all: their transforms are ``SceneStatic`` constants, folded term
 by term into the unfused torch path (``utils.vec._row_dot``) and packed into
 the kernels' scene struct (``ops.fused``).  The material table is uploaded
@@ -18,8 +17,8 @@ packed u8 albedo / 10-bit gradient words (``packed``).
 ``SceneStatic``, ``GeomConst`` and ``MaterialConst`` keep the JAX package's
 fields and values exactly (including ``_snap``), so a test can hold the two
 packages' scene constants equal and ``from_jax_scene`` can carry a JAX scene
-across unchanged.  Meshes beyond the streamed plan's 1,024 tiles are not
-ported yet (``ROADMAP.md``).
+across unchanged (tables the JAX package padded to whole super-tiles
+included: the tables keep their shapes, ``mxu_padded_tris`` its value).
 """
 
 from __future__ import annotations
@@ -180,22 +179,6 @@ def _mat_tuple(m: np.ndarray) -> Tuple[Tuple[float, ...], ...]:
     return tuple(tuple(_snap(float(x)) for x in row) for row in np.asarray(m))
 
 
-def _check_slice(num_triangles: int) -> None:
-    from ..ops import intersect_mxu as mxu  # lazy: avoids an import cycle
-
-    padded = _padded_tris(num_triangles)
-    if padded > mxu.STREAMED_MAX_TILES * mxu.TRI_TILE:
-        raise mxu._not_ported(
-            f"a mesh of {num_triangles} triangles ({padded} padded, beyond the "
-            f"streamed plan's {mxu.STREAMED_MAX_TILES} tiles)", mxu.CHUNKED_CHAIN,
-        )
-
-
-def check_scene(scene: HostScene) -> None:
-    """Raise ``NotImplementedError`` for a scene outside the ported slices."""
-    _check_slice(scene.num_triangles)
-
-
 def _padded_tris(num_triangles: int) -> int:
     from ..ops import intersect_mxu as mxu
 
@@ -319,7 +302,6 @@ def _material_table(cols: dict, device) -> MaterialTable:
 def build_device_scene(
     scene: HostScene, device="cuda"
 ) -> tuple[DeviceScene, SceneStatic]:
-    _check_slice(scene.num_triangles)
     ms = scene.materials
     if not ms:
         raise ValueError("scene has no materials")
@@ -414,7 +396,6 @@ def from_jax_scene(dev_np, static, device="cpu") -> tuple[DeviceScene, SceneStat
     module needs no JAX.  Returns the port's ``(DeviceScene, SceneStatic)``
     with identical constants and tables, which lets a test run both
     packages on bit-identical scene data."""
-    _check_slice(static.num_triangles)
     m = dev_np.materials
     materials = _material_table(
         dict(

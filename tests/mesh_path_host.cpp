@@ -3,7 +3,8 @@
 // plain torch versions.  Each function is the loop over rays that the
 // matching kernel in csrc/fused_mesh.cu or csrc/mesh_walk.cu runs as one
 // thread per ray; the walks keep the kernels' block schedule (256 rays a
-// block, the plan row in order, the block's exit vote).
+// block, the plan row in order, the block's exit vote), and the plan
+// prepass its reduction over a block's rays.
 //
 // Built by tests/test_torch_kernel_body.py with
 //   c++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC -I<csrc>
@@ -105,6 +106,78 @@ void ptt_host_walk(const float* coef, const float* aabb, int32_t ct, const float
     for (int32_t i = 0; i < PTT_RAY_TILE && b * PTT_RAY_TILE + i < n; ++i) {
       out_t[b * PTT_RAY_TILE + i] = r[i].best;
       out_tri[b * PTT_RAY_TILE + i] = r[i].best_tri;
+    }
+  }
+}
+
+// ptt_streamed_super_kernel: each block walks its plan row of super-tiles
+// (cs = ceil(ct / 8) columns) with the exit vote per entry.
+void ptt_host_super(const float* coef, const float* aabb, const float* saabb, int32_t ct,
+                    int32_t cs, const float* center, const float* const* ray,
+                    const uint8_t* live, const float* tlim, const int32_t* ids,
+                    const float* tlo, const int32_t* cnt, float baby_eps, float eps_succ,
+                    int32_t n, float* out_t, int32_t* out_tri) {
+  const V3 c = v3(center[0], center[1], center[2]);
+  const int32_t nb = (n + PTT_RAY_TILE - 1) / PTT_RAY_TILE;
+  std::vector<WalkRay> r(PTT_RAY_TILE);
+  for (int32_t b = 0; b < nb; ++b) {
+    for (int32_t i = 0; i < PTT_RAY_TILE; ++i) {
+      const int32_t idx = b * PTT_RAY_TILE + i;
+      const bool in = idx < n;
+      r[i] = walk_ray(c, in ? v3(ray[0][idx], ray[1][idx], ray[2][idx]) : v3(0.0f, 0.0f, 0.0f),
+                      in ? v3(ray[3][idx], ray[4][idx], ray[5][idx]) : v3(0.0f, 0.0f, 0.0f),
+                      in && live[idx] != 0, in ? tlim[idx] : 0.0f);
+    }
+    for (int32_t t = 0; t < cnt[b]; ++t) {
+      bool go = false;
+      for (int32_t i = 0; i < PTT_RAY_TILE; ++i) go = go || walk_goes_on(r[i], tlo[b * cs + t]);
+      if (!go) break;
+      const int32_t sid = ids[b * cs + t];
+      for (int32_t i = 0; i < PTT_RAY_TILE; ++i) {
+        super_visit(r[i], coef, aabb, saabb + 8 * sid, sid, ct, baby_eps, eps_succ);
+      }
+    }
+    for (int32_t i = 0; i < PTT_RAY_TILE && b * PTT_RAY_TILE + i < n; ++i) {
+      out_t[b * PTT_RAY_TILE + i] = r[i].best;
+      out_tri[b * PTT_RAY_TILE + i] = r[i].best_tri;
+    }
+  }
+}
+
+// ptt_sweep_kernel: one ray per thread, every tile in order.
+void ptt_host_sweep(const float* coef, const float* aabb, int32_t ct, const float* center,
+                    const float* const* ray, const uint8_t* live, const float* tlim,
+                    float baby_eps, float eps_succ, int32_t n, float* out_t, int32_t* out_tri) {
+  const V3 c = v3(center[0], center[1], center[2]);
+  for (int32_t i = 0; i < n; ++i) {
+    WalkRay r = walk_ray(c, v3(ray[0][i], ray[1][i], ray[2][i]),
+                         v3(ray[3][i], ray[4][i], ray[5][i]), live[i] != 0, tlim[i]);
+    sweep_ray(r, coef, aabb, ct, baby_eps, eps_succ);
+    out_t[i] = r.best;
+    out_tri[i] = r.best_tri;
+  }
+}
+
+// ptt_plan_prepass_kernel: per (block, tile), any and min over the block's
+// 256 rays (ray: recentred origins and directions, padded to whole blocks).
+void ptt_host_plan_prepass(const float* aabb, int32_t ct, const float* const* ray,
+                           const uint8_t* live, const float* tlim, int32_t nb, uint8_t* out_h,
+                           float* out_lb) {
+  for (int32_t b = 0; b < nb; ++b) {
+    for (int32_t c = 0; c < ct; ++c) {
+      bool any = false;
+      float best = ptt_inf();
+      for (int32_t i = b * PTT_RAY_TILE; i < (b + 1) * PTT_RAY_TILE; ++i) {
+        float key;
+        if (plan_pair(aabb + 8 * c, v3(ray[0][i], ray[1][i], ray[2][i]),
+                      inv_dir(v3(ray[3][i], ray[4][i], ray[5][i])), live[i] != 0, tlim[i],
+                      &key)) {
+          any = true;
+          best = key < best ? key : best;
+        }
+      }
+      out_h[b * ct + c] = any ? 1 : 0;
+      out_lb[b * ct + c] = best;
     }
   }
 }

@@ -329,6 +329,112 @@ def test_larger_mesh_renderer_takes_the_kernels(cuda):
 
 
 # ---------------------------------------------------------------------------
+# The sweep, the super-tile walk, the plan prepass and the chunked chains
+# ---------------------------------------------------------------------------
+
+def test_sweep_kernel_matches_plain(cuda):
+    """Sorted camera rays and two bounces of the 20k mesh (20 tiles, one
+    call): the sweep kernel's t and tri bit-equal to its plain version and
+    to the planned walk's."""
+    dev, static, states = _bounce_states("cornell_mesh_20k.json", 96, cuda)
+    tables = dev.mxu_mesh
+    hits = 0
+    for ro, rd, alive, tl in states:
+        live = alive & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+        before = intersect_mxu.sweep_intersect.launches
+        got = intersect_mxu.sweep_intersect(tables, ro, rd, live, tl, 1e-5)
+        assert intersect_mxu.sweep_intersect.launches == before + 1
+        want = intersect_mxu.sweep_intersect_plain(tables, ro, rd, live, tl, 1e-5)
+        walk = intersect_mxu.planned_intersect(tables, ro, rd, live, tl,
+                                               _plan(tables, ro, rd, live, tl), 1e-5)
+        for other in (want, walk):
+            assert torch.equal(got[1], other[1]) and torch.equal(got[0], other[0])
+        hits += int((want[1] >= 0).sum())
+    assert hits > 100
+
+
+@pytest.mark.parametrize("name", ["cornell_mesh_20k.json", "cornell_mesh_80k.json"])
+def test_super_kernel_matches_plain(cuda, name):
+    """20 tiles (3 super-tiles, the last short) and 79 tiles (10, the last
+    short): the super walk's t and tri bit-equal to its plain version and to
+    the streamed walk's."""
+    dev, static, states = _bounce_states(name, 96, cuda)
+    tables = dev.mxu_mesh
+    saabb = intersect_mxu.super_aabb(tables.tile_aabb)
+    hits = 0
+    for ro, rd, alive, tl in states:
+        live = alive & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+        splan = intersect_mxu.plan_with_prefix(
+            saabb, *intersect_mxu.plan_rays(tables, ro, rd, live, tl))
+        before = intersect_mxu.streamed_super_intersect.launches
+        got = intersect_mxu.streamed_super_intersect(tables, ro, rd, live, tl, splan, 1e-5)
+        assert intersect_mxu.streamed_super_intersect.launches == before + 1
+        want = intersect_mxu.streamed_super_plain(tables, ro, rd, live, tl, splan, 1e-5)
+        walk = intersect_mxu.streamed_intersect(tables, ro, rd, live, tl,
+                                                _plan(tables, ro, rd, live, tl), 1e-5)
+        for other in (want, walk):
+            assert torch.equal(got[1], other[1]) and torch.equal(got[0], other[0])
+        hits += int((want[1] >= 0).sum())
+    assert hits > 100
+
+
+@pytest.mark.parametrize("name", ["cornell_mesh_5k.json", "cornell_mesh_20k.json",
+                                  "cornell_mesh_500k.json"])
+def test_plan_prepass_kernel_matches_plain(cuda, name):
+    """5, 20 and 489 tiles (threads sharing a tile, and tiles beyond one
+    block's threads): (h, lb) and the whole plan bit-equal to the torch
+    plan's."""
+    dev, static, states = _bounce_states(name, 64, cuda, bounces=2)
+    tables = dev.mxu_mesh
+    for ro, rd, alive, tl in states:
+        live = alive & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+        pr = intersect_mxu.plan_rays(tables, ro, rd, live, tl)
+        before = intersect_mxu.plan_prepass.launches
+        h, lb = intersect_mxu.plan_prepass(tables.tile_aabb, *pr)
+        assert intersect_mxu.plan_prepass.launches == before + 1
+        want_h, want_lb = intersect_mxu.plan_prepass_plain(tables.tile_aabb, *pr)
+        assert torch.equal(h, want_h)
+        assert torch.equal(lb.view(torch.int32), want_lb.view(torch.int32))
+        got = intersect_mxu.plan_with_prefix(tables.tile_aabb, *pr, impl="pallas")
+        want = intersect_mxu.plan_with_prefix(tables.tile_aabb, *pr)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert int(want.cnt.sum()) > 0
+
+
+def test_chains_and_switches_take_the_kernels(cuda, monkeypatch):
+    """cornell_mesh_80k.json (79 tiles) at 64x64: "sweep" (the sweep chain, 3
+    launches a bounce), "planned" (the planned chain: 2 launches of the walk
+    with the exit and one lane-best a bounce), the super walk and the plan
+    kernel behind their switches; every film bit-identical to "auto"."""
+    scene = set_resolution(load_scene(str(REPO / "scenes" / "cornell_mesh_80k.json")), 64, 64)
+    mx = intersect_mxu
+    counters = [mx.sweep_intersect, mx.planned_intersect, mx.planned_lanebest_intersect,
+                mx.streamed_intersect, mx.streamed_super_intersect, mx.plan_prepass]
+    films = {}
+    runs = (("auto", {}, dict(streamed_intersect=1)),
+            ("sweep", {}, dict(sweep_intersect=3)),
+            ("planned", {}, dict(planned_intersect=2, planned_lanebest_intersect=1)),
+            ("auto", {"PTT_STREAM_SUPER": "1"}, dict(streamed_super_intersect=1)),
+            ("auto", {"PTT_PLAN_IMPL": "pallas"}, dict(streamed_intersect=1, plan_prepass=1)))
+    for mode, env, per_bounce in runs:
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        r = Renderer(scene, RenderConfig(mxu_traversal=mode), device=cuda)
+        before = [c.launches for c in counters]
+        r.step_many(1)
+        got = {c.__name__: c.launches - b for c, b in zip(counters, before)}
+        depth = r.static.trace_depth
+        want = {c.__name__: depth * per_bounce.get(c.__name__, 0) for c in counters}
+        assert got == want, (mode, env)
+        films[(mode, *env)] = torch.stack(list(r.film), 1)
+        for k in env:
+            monkeypatch.delenv(k)
+    for key, film in films.items():
+        assert torch.equal(film, films[("auto",)]), key
+
+
+# ---------------------------------------------------------------------------
 # Textures (the shade kernel's modes "textured" and "precomputed") and the
 # wavefront integrator (csrc/scan.cu)
 # ---------------------------------------------------------------------------

@@ -9,7 +9,9 @@ for the host as well as for the card, and ``tests/prim_path_host.cpp`` /
 lockstep).  So the arithmetic the card runs is checked here, on the CPU,
 against ``fused_prim_bounce_plain`` / ``fused_prim_iteration_plain`` /
 ``mono_intersect_plain`` / ``fused_mesh_shade_plain`` (all three modes) /
-``scan_tiles_plain`` on identical inputs.  (The kernels themselves run only
+``walk_plain`` / ``binned_intersect_plain`` / ``sweep_intersect_plain`` /
+``streamed_super_plain`` / ``plan_prepass_plain`` / ``scan_tiles_plain`` on
+identical inputs.  (The kernels themselves run only
 on the card: ``tests/test_torch_cuda.py``.)
 
 Tolerances: the RNG is compared bit for bit, and so is the mono traversal
@@ -515,3 +517,95 @@ def test_host_binned_matches_plain(walk_lib):
         assert (want_tri >= 0).sum() > 20, name
         assert torch.equal(got_tri, want_tri), name
         assert torch.equal(got_t, want_t), name
+
+
+# ---------------------------------------------------------------------------
+# The sweep, super-tile walk and plan prepass bodies
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def slice5_lib(walk_lib):
+    i32, f32_ = ctypes.c_int32, ctypes.c_float
+    walk_lib.ptt_host_sweep.argtypes = [P, P, i32, P, P, P, P, f32_, f32_, i32, P, P]
+    walk_lib.ptt_host_super.argtypes = [P, P, P, i32, i32] + [P] * 7 + [f32_, f32_, i32, P, P]
+    walk_lib.ptt_host_plan_prepass.argtypes = [P, i32, P, P, P, i32, P, P]
+    return walk_lib
+
+
+def _eps_args(eps=1e-5):
+    return eps, float(np.nextafter(np.float32(eps), np.float32(np.inf)))
+
+
+@pytest.mark.parametrize("name", ["20k", "tie"])
+def test_host_sweep_matches_plain(slice5_lib, name):
+    """The sweep body (every tile in order behind the per-ray gate): t and
+    tri equal to sweep_intersect_plain's and to the planned walk's."""
+    _, tables, ro, rd, active, tl = next(c for c in _walk_cases() if c[0] == name)
+    live = active & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+    want_t, want_tri = intersect_mxu.sweep_intersect_plain(tables, ro, rd, live, tl, 1e-5)
+    walk_t, walk_tri = intersect_mxu.walk_plain(tables, ro, rd, live, tl,
+                                                _plan_for(tables, ro, rd, live, tl), 1e-5)
+    n = ro.x.shape[0]
+    got_t, got_tri = torch.empty(n), torch.empty(n, dtype=torch.int32)
+    rays = [p.contiguous() for p in (*ro, *rd)]
+    lv, tlc = live.to(torch.uint8).contiguous(), tl.contiguous()
+    slice5_lib.ptt_host_sweep(
+        tables.coef.data_ptr(), tables.tile_aabb.data_ptr(), tables.tile_aabb.shape[0],
+        tables.center.data_ptr(), _ptrs(rays), lv.data_ptr(), tlc.data_ptr(), *_eps_args(), n,
+        got_t.data_ptr(), got_tri.data_ptr())
+    assert (want_tri >= 0).sum() > 20
+    assert torch.equal(got_tri, want_tri) and torch.equal(got_t, want_t)
+    assert torch.equal(got_tri, walk_tri) and torch.equal(got_t, walk_t)
+
+
+@pytest.mark.parametrize("name", ["20k", "tie"])
+def test_host_super_walk_matches_plain(slice5_lib, name):
+    """The super-tile walk body in the kernel's block schedule over the plan
+    of the super boxes (20 tiles -> 3 supers, the last one short; 2 tiles ->
+    1): t and tri equal to streamed_super_plain's and to walk_plain's."""
+    _, tables, ro, rd, active, tl = next(c for c in _walk_cases() if c[0] == name)
+    live = active & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+    saabb = intersect_mxu.super_aabb(tables.tile_aabb)
+    ct, cs = tables.tile_aabb.shape[0], saabb.shape[0]
+    assert cs == -(-ct // 8)
+    splan = intersect_mxu.build_tile_plan(
+        saabb, *intersect_mxu.plan_rays(tables, ro, rd, live, tl))
+    want_t, want_tri = intersect_mxu.streamed_super_plain(tables, ro, rd, live, tl, splan, 1e-5)
+    walk_t, walk_tri = intersect_mxu.walk_plain(tables, ro, rd, live, tl,
+                                                _plan_for(tables, ro, rd, live, tl), 1e-5)
+    n = ro.x.shape[0]
+    got_t, got_tri = torch.empty(n), torch.empty(n, dtype=torch.int32)
+    rays = [p.contiguous() for p in (*ro, *rd)]
+    lv, tlc = live.to(torch.uint8).contiguous(), tl.contiguous()
+    slice5_lib.ptt_host_super(
+        tables.coef.data_ptr(), tables.tile_aabb.data_ptr(), saabb.data_ptr(), ct, cs,
+        tables.center.data_ptr(), _ptrs(rays), lv.data_ptr(), tlc.data_ptr(),
+        splan.ids.data_ptr(), splan.tlo.data_ptr(), splan.cnt.data_ptr(), *_eps_args(), n,
+        got_t.data_ptr(), got_tri.data_ptr())
+    assert (want_tri >= 0).sum() > 20
+    assert torch.equal(got_tri, want_tri) and torch.equal(got_t, want_t)
+    assert torch.equal(got_tri, walk_tri) and torch.equal(got_t, walk_t)
+
+
+@pytest.mark.parametrize("name", ["20k", "tie"])
+def test_host_plan_prepass_matches_plain(slice5_lib, name):
+    """The prepass body's (h, lb) per (block, tile), bit-equal to
+    plan_prepass_plain's, with some rays dead and axis-aligned."""
+    _, tables, ro, rd, active, tl = next(c for c in _walk_cases() if c[0] == name)
+    rng = np.random.default_rng(9)
+    live = active & torch.from_numpy(rng.random(active.shape[0]) > 0.2)
+    rd = Vec3(torch.where(torch.from_numpy(rng.random(active.shape[0]) > 0.9),
+                          torch.zeros_like(rd.x), rd.x), rd.y, rd.z)
+    pr = intersect_mxu.plan_rays(tables, ro, rd, live, tl)
+    want_h, want_lb = intersect_mxu.plan_prepass_plain(tables.tile_aabb, *pr)
+    nb, ct = want_h.shape
+    got_h = torch.empty((nb, ct), dtype=torch.uint8)
+    got_lb = torch.empty((nb, ct))
+    rays = [p.contiguous() for p in (*pr.os, *pr.d)]
+    lv, tlc = pr.live.to(torch.uint8).contiguous(), pr.tl.contiguous()
+    slice5_lib.ptt_host_plan_prepass(
+        tables.tile_aabb.data_ptr(), ct, _ptrs(rays), lv.data_ptr(), tlc.data_ptr(), nb,
+        got_h.data_ptr(), got_lb.data_ptr())
+    assert want_h.sum() > 2
+    assert torch.equal(got_h.bool(), want_h)
+    assert torch.equal(got_lb.view(torch.int32), want_lb.view(torch.int32))

@@ -29,6 +29,7 @@ from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
 from project3_cuda_path_tracer_2025_tpu_torch.scene import (
     build_device_scene, from_jax_scene, load_scene,
 )
+from project3_cuda_path_tracer_2025_tpu_torch.utils.vec import Vec3
 from tests.test_intersect import _random_mesh_scene
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -185,10 +186,12 @@ def test_traversal_resolution():
     for padded, mode in ((20480, "planned"), (81920, "streamed"), (204800, "binned")):
         assert mxu.resolve_traversal_mode("auto", padded) == mode
         assert mxu.traversal_flags("auto", padded) == jmxu.traversal_flags("auto", padded)
-    for mode in ("planned", "streamed", "binned"):
+    for mode in ("planned", "streamed", "binned", "sweep"):
         assert RenderConfig(mxu_traversal=mode).mxu_traversal == mode
-    with pytest.raises(NotImplementedError, match="Queue 2 #9"):
-        RenderConfig(mxu_traversal="sweep")
+    assert mxu.traversal_flags("sweep", 20480) == jmxu.traversal_flags("sweep", 20480) \
+        == dict(planned=False, streamed=False)
+    with pytest.raises(ValueError):
+        RenderConfig(mxu_traversal="bogus")
     with pytest.raises(NotImplementedError, match="Queue 1: prefix tiers"):
         RenderConfig(bounce_prefix_tiers=(4, 2))
     with pytest.raises(NotImplementedError, match="do-not-port"):
@@ -200,15 +203,40 @@ def test_traversal_resolution():
 
 @pytest.mark.parametrize("device", ["cuda", "cpu"])
 def test_mesh_beyond_the_mono_band_raises(device):
-    """A mesh of more than 1,024 tiles (the streamed plan's capacity) needs
-    the chunked planned chain, which is not ported: the Renderer refuses
-    the scene before it builds anything, on any device.  (The meshes of
-    9-1,024 tiles are ported: tests/test_torch_mesh_frame.py.)"""
+    """A mesh of more than 1,024 tiles (the streamed plan's capacity) was
+    refused by a scene gate while the chunked chain was missing.  The gate
+    is gone: the only thing a Renderer raises for before it builds anything
+    is a CUDA device that is not there, and a table of 1,025 tiles goes
+    through the traversal (the chain, ``tests/test_torch_mesh_chain.py``)."""
+    import project3_cuda_path_tracer_2025_tpu_torch.scene as scene_pkg
+
+    assert not hasattr(scene_pkg, "check_scene")
     scene = load_scene(str(REPO / "scenes" / "cornell_mesh_5k.json"))
-    t = 1024 * mxu.TRI_TILE + 1
-    # Zero-stride views: the triangle count is all the gate reads.
-    for f, shape in (("tri_positions", (3, 3)), ("tri_normals", (3, 3)), ("tri_uvs", (3, 2))):
-        setattr(scene, f, np.broadcast_to(np.zeros(shape, np.float32), (t, *shape)))
-    scene.tri_material_ids = np.broadcast_to(np.zeros((), np.int32), (t,))
-    with pytest.raises(NotImplementedError, match="Queue 1 #2, larger meshes: the chunked planned chain"):
-        Renderer(scene, device=device)
+    if device == "cuda" and not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            Renderer(scene, device=device)
+        return
+    dev, static = build_device_scene(scene, device)
+    t = dev.mxu_mesh
+    ct, big = t.tile_aabb.shape[0], 1025
+    far = t.tile_aabb.new_tensor([1e4] * 3 + [1e4 + 1.0] * 3 + [0.0] * 2).expand(big - ct, 8)
+    grown = mxu.tables_from_arrays(
+        np.concatenate([t.features.cpu().numpy(),
+                        np.zeros((mxu.NUM_F, (big - ct) * 4 * mxu.TRI_TILE), np.float32)], 1),
+        torch.cat([t.tile_aabb, far]).cpu().numpy(), center=t.center.cpu().numpy(),
+        device=device)
+    rng, c = np.random.default_rng(5), t.center.cpu().numpy().astype(np.float64)
+    o = rng.normal(size=(300, 3))
+    o = c + 3.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = c + rng.uniform(-0.5, 0.5, (300, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = o.astype(np.float32), d.astype(np.float32)
+    ro, rd = (Vec3(*(torch.tensor(a[:, i], device=device) for i in range(3))) for a in (o, d))
+    args = (ro, rd, torch.ones(300, dtype=torch.bool, device=device),
+            torch.full((300,), 3.4e38, device=device), 1e-5)
+    got = mxu.mesh_intersect_mxu(grown, static.num_triangles, big * mxu.TRI_TILE, *args,
+                                 compute_uv=False, planned=True, streamed=True)
+    want = mxu.mesh_intersect_mxu(t, static.num_triangles, static.mxu_padded_tris, *args,
+                                  compute_uv=False, planned=True)
+    assert torch.equal(got.tri, want.tri) and torch.equal(got.t, want.t)
+    assert (got.tri >= 0).sum() > 20

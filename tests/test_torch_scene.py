@@ -174,7 +174,9 @@ print("ok")
                      id="kw0-wavefront"),
         pytest.param(dict(devices=2), "parallel/", id="kw1-parallel/"),
         pytest.param(dict(pixel_chunks=4), "parallel/", id="kw2-parallel/"),
-        pytest.param(dict(mxu_traversal="sweep"), "meshes", id="kw3-meshes"),
+        # Every traversal is ported ("sweep" too); of the mesh knobs only the
+        # do-not-port ones still raise.
+        pytest.param(dict(mxu_plan="frustum"), "do-not-port", id="kw3-meshes"),
         pytest.param(dict(native_bvh=True), "native/", id="kw4-native/"),
     ],
 )
@@ -208,17 +210,17 @@ def test_wavefront_config_dispatches(monkeypatch):
 
 
 def test_mesh_scene_raises_not_ported():
-    """Meshes up to 1,024 tiles of 1,024 triangles are ported (the 20,480
-    triangles of cornell_mesh_20k.json build); a larger one, which the JAX
-    package walks with the chunked planned chain, raises naming its
-    ROADMAP.md item."""
+    """Meshes of every size are ported (the 20,480 triangles of
+    cornell_mesh_20k.json build; one past the streamed plan's 1,024 tiles,
+    which both packages walk with the chunked planned chain, has no gate
+    left and pads to 1,025 tiles).  What still raises for a mesh scene is
+    the native BVH builder, naming its ROADMAP.md item."""
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import device
+
     _, static = build_device_scene(load_scene(str(REPO / "scenes" / "cornell_mesh_20k.json")),
                                    "cpu")
     assert static.mxu_padded_tris == 20 * 1024
-    scene = load_scene(str(REPO / "scenes" / "cornell_mesh_5k.json"))
-    t = 1024 * 1024 + 1  # one triangle past the streamed plan's capacity
-    for f, shape in (("tri_positions", (3, 3)), ("tri_normals", (3, 3)), ("tri_uvs", (3, 2))):
-        setattr(scene, f, np.broadcast_to(np.zeros(shape, np.float32), (t, *shape)))
-    scene.tri_material_ids = np.broadcast_to(np.zeros((), np.int32), (t,))
-    with pytest.raises(NotImplementedError, match="larger meshes"):
-        build_device_scene(scene, "cpu")
+    assert not hasattr(device, "_check_slice")
+    assert device._padded_tris(1024 * 1024 + 1) == 1025 * 1024
+    with pytest.raises(NotImplementedError, match="native/"):
+        RenderConfig(native_bvh=True)

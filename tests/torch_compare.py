@@ -199,3 +199,46 @@ def bmp_bytes(rgb: np.ndarray) -> bytes:
     header = struct.pack("<2sIHHI", b"BM", 54 + rows.size, 0, 0, 54)
     info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0)
     return header + info + rows.tobytes()
+
+
+def never_hit_padded(jt, total_tiles: int, far: bool = False):
+    """``jt`` (the JAX package's tables) grown to ``total_tiles`` tiles by
+    all-zero feature columns (det == 0: no hit) under the inverted boxes of
+    the JAX package's padding tiles, the synthetic tables of
+    ``tests/test_intersect_mxu.py:126-135``.  An inverted box passes every
+    slab test (its zero features are what never hit), so every ray
+    evaluates it; ``far`` gives unit boxes 10,000 units away instead, which
+    no ray of the tests enters.  Returns (the arrays ``_run`` of the JAX
+    package takes first: features, tile_aabb, group_aabb, center; the
+    port's tables of the same numpy arrays)."""
+    from project3_cuda_path_tracer_2025_tpu_torch.ops.intersect_mxu import tables_from_arrays
+
+    feat, aabb = np.asarray(jt.features), np.asarray(jt.tile_aabb)
+    extra = total_tiles - aabb.shape[0]
+    never = np.full((extra, 8), 1e30, np.float32)
+    never[:, 3:6] = -1e30
+    if far:
+        never[:, 0:3], never[:, 3:6] = 1e4, 1e4 + 1.0
+    feat = np.concatenate([feat, np.zeros((feat.shape[0], extra * 4 * 1024), np.float32)], 1)
+    aabb = np.concatenate([aabb, never], 0)
+    center = np.asarray(jt.center)
+    return ((jnp.asarray(feat), jnp.asarray(aabb), jnp.asarray(aabb), jnp.asarray(center)),
+            tables_from_arrays(feat, aabb, center=center))
+
+
+def run_tables_both(jarrs, pt, num_tris, padded_tris, rays_j, rays_t, eps=1e-5, sort=False,
+                    bounds=(0.0, 0.0, 0.0, 1.0, 1.0, 1.0), **flags):
+    """The same traversal of the same table arrays in both packages: the JAX
+    package's ``_run`` in interpret mode (``jarrs`` from ``never_hit_padded``
+    or a tables' own arrays) -> (t, tri) numpy, and the port's
+    ``mesh_intersect_mxu`` on its plain versions -> (t, tri) numpy."""
+    from project3_cuda_path_tracer_2025_tpu.ops import intersect_mxu as jm
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
+
+    ro, rd, active, lim = rays_j
+    want = jm._run(*jarrs, ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, active, lim,
+                   num_tris=num_tris, padded_tris=padded_tris, baby_eps=eps, interpret=True,
+                   sort_rays=sort, mesh_bounds=bounds, **flags)
+    got = mxu.mesh_intersect_mxu(pt, num_tris, padded_tris, *rays_t, eps, sort_rays=sort,
+                                 mesh_bounds=bounds, compute_uv=False, **flags)
+    return (got.t.numpy(), got.tri.numpy()), tuple(np.asarray(a) for a in want)
