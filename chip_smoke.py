@@ -46,6 +46,13 @@ sys.path.insert(0, str(ROOT))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+# The card's label, CUDA-event timing and the bound (bytes over the card's
+# memory rate against float32 operations over its peak) are the measuring
+# scripts' too.
+from project3_cuda_path_tracer_2025_tpu_torch.utils.measure import (  # noqa: E402
+    bound_ms, card_label, event_ms as cuda_time_ms,
+)
+
 PKG = "project3_cuda_path_tracer_2025_tpu_torch"
 SCENE = ROOT / "scenes" / "cornell_dof.json"
 SCENE_LOBES = ROOT / "scenes" / "cornell_all_lobes.json"
@@ -65,11 +72,6 @@ TEX_GOLDENS = {PRIM_TEX: "prim_textured", MESH_TEX: "mesh_textured",
 # rays first), to keep the run short.
 PLAIN_BLOCKS = 64
 OUT_DIR = ROOT / "build" / "chip_smoke"
-
-# The card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s
-# and float32 operations/s outside the tensor cores.
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_S = 67e12
 
 # Float32 operations per call of the kernels' device functions, counted
 # from csrc/prim_path.cuh and csrc/mesh_path.cuh: each add, multiply,
@@ -105,32 +107,6 @@ TIMING_ROUNDS = 8
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_time_ms(fn, reps: int) -> float:
-    """Mean ms per call of ``fn`` over ``reps`` calls, by CUDA events."""
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    t1.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
-def bound_ms(nbytes: float, ops: float) -> tuple:
-    """The least time the card could take: (ms, "bytes" | "operations")."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
 def prim_ops(static) -> int:
@@ -1572,6 +1548,7 @@ def slice5_phases(device, smi: str) -> tuple:
     t_write = time.perf_counter() - t0
     t0 = time.perf_counter()
     big_scene = load_scene(str(big_path))
+    big_scene.state.trace_depth = 2  # its frame and states at depth 2: the run's time
     t_load = time.perf_counter() - t0
     t0 = time.perf_counter()
     big_dev, big_static = build_device_scene(big_scene, device)
@@ -1586,7 +1563,7 @@ def slice5_phases(device, smi: str) -> tuple:
     sample = torch.arange(0, n, 97, device=device)  # 6,598 rays of each state
     hits = 0
     for d, (paths, tl, live) in enumerate(sorted_bounces(big_dev, big_static, big_cam, cfg,
-                                                         device)):
+                                                         device, bounces=2)):
         for c in counters.values():
             c.launches = 0
         got = mxu.mesh_intersect_mxu(
@@ -1625,7 +1602,7 @@ def slice5_phases(device, smi: str) -> tuple:
     torch.cuda.synchronize()
     if not bool(torch.isfinite(film_big.x).all()) or not float(film_big.x.sum()) > 0:
         raise AssertionError("the big mesh's film is empty or not finite")
-    paths_t = {"big-mesh frame, 'auto' (planned chain)": (fbig, 1)}
+    paths_t = {"big-mesh frame at depth 2, 'auto' (planned chain)": (fbig, 1)}
     log_times("17g", smi, time_paths(paths_t, {k: 2 for k in paths_t}), paths_t,
               {k: 2 for k in paths_t},
               {k: float(n + alive_big.sum().item()) for k in paths_t})
@@ -1794,38 +1771,20 @@ def slice5_phases(device, smi: str) -> tuple:
     return kernels, profiled
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA GPU",
-              file=sys.stderr)
-        return 2
-
+def prim_phases(device, smi: str) -> tuple:
+    """Phases 3-7: the prim path on scenes/cornell_dof.json at 800x800, depth
+    8.  Returns the two prim kernels' entries of the kernels line and the
+    prim path's frame functions for phase 9."""
     from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
     from project3_cuda_path_tracer_2025_tpu_torch.models import Renderer, megakernel_iteration
     from project3_cuda_path_tracer_2025_tpu_torch.ops import camera as camera_ops
-    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused, kernels
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused
     from project3_cuda_path_tracer_2025_tpu_torch.ops import film as film_ops
     from project3_cuda_path_tracer_2025_tpu_torch.scene import (
         build_device_scene, camera_state, derive_render_camera, load_scene,
         set_resolution,
     )
     from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
-
-    device = torch.device("cuda:0")
-    smi = nvidia_smi()
-    log(f"[1] card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"python {sys.version.split()[0]}")
-
-    # -- 2. build ---------------------------------------------------------
-    t0 = time.perf_counter()
-    libs = kernels.load_all()
-    log(f"[2] built {len(libs)} libraries for sm_90a in parallel in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for lib in libs.values():
-        log(f"    {lib.path.relative_to(ROOT)}: nvcc {lib.build_seconds:.1f} s")
-        for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log("    ptxas: " + line.strip())
 
     # -- 3. RNG: kernel Threefry == plain, bit for bit ----------------------
     n_rng = 640_000
@@ -2025,22 +1984,7 @@ def main() -> int:
     log(f"    bounds: iteration kernel {it_bound[0]:.4f} ms ({it_bound[1]}), "
         f"bounce kernel {b_bound[0]:.4f} ms ({b_bound[1]})")
 
-    mesh_kernels, mesh_frames = mesh_phases(device, smi)
-    walk_kernels, walk_frames = larger_mesh_phases(device, smi)
-    tex_kernels, tex_frames = texture_phases(device, smi)
-    wave_kernels, wave_frames = wavefront_phases(device, smi)
-    slice5_kernels, slice5_frames = slice5_phases(device, smi)
-    profile_paths({
-        "prim iteration kernel (Renderer default)": run_iter_kernel,
-        "prim bounce-kernel path": run_bounce_path,
-        **mesh_frames,
-        **walk_frames,
-        **tex_frames,
-        **wave_frames,
-        **slice5_frames,
-    })
-
-    result = {"kernels": [
+    kernels_line = [
         {
             "name": "fused_prim_iteration",
             "route": "cuda",
@@ -2067,14 +2011,352 @@ def main() -> int:
             "bound_by": b_bound[1],
             "library_ms": None,
         },
-        *mesh_kernels,
-        *walk_kernels,
-        *tex_kernels,
-        *wave_kernels,
-        *slice5_kernels,
-    ]}
+    ]
+    return kernels_line, {
+        "prim iteration kernel (Renderer default)": run_iter_kernel,
+        "prim bounce-kernel path": run_bounce_path,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Slice 6: the epilogue variants (#13), the prim kernels beyond their old
+# capacity, the measuring scripts
+# ---------------------------------------------------------------------------
+
+EPILOGUE_K = 24  # timed launches per variant, the measuring script's default
+
+
+def epilogue_phases(device, smi: str) -> tuple:
+    """Phase 20: ``scripts/torch_profile_epilogue.py`` in-process at 800x800 on
+    the 5k mesh (mid-bounce population) and the 20k mesh: the script's own
+    gate (every exact variant == prod_lanebest on every ray, each new kernel
+    == its plain version bit for bit), then its timing.  The launch counters
+    are set to 0 just before each script run and read just after.  Returns the
+    new kernels' entries of the kernels line (times of the 5k run for the
+    mono flavors, of the 20k run, where a plan matters, for lb_asc)."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_profile_epilogue as tpe
+
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
+
+    runs = {}
+    for tag, path in (("5k", MESH_SCENE), ("20k", LARGE["20k"])):
+        log(f"[20] torch_profile_epilogue on {path.name}, 800x800, --check-plain, "
+            f"k={EPILOGUE_K} (the floor flavors against their plain version on the first "
+            f"{PLAIN_BLOCKS} blocks):")
+        mxu.lb_asc_intersect.launches = 0
+        mxu.epilogue_mono_intersect.launches = 0
+        recs = tpe.run(["--scene", str(path), "--res", "800", "--k", str(EPILOGUE_K),
+                        "--check-plain", "--mm-plain-blocks", str(PLAIN_BLOCKS)])
+        torch.cuda.synchronize()
+        got = (mxu.lb_asc_intersect.launches, mxu.epilogue_mono_intersect.launches)
+        runs[tag] = {r["variant"]: r for r in recs}
+        want = (2 * (1 + EPILOGUE_K), 3 * (1 + EPILOGUE_K))  # lb_asc + lb_mm; full, gate, mm
+        log(f"[20] {path.name}: launches lb_asc_intersect {got[0]}, epilogue_mono_intersect "
+            f"{got[1]} (1 check + {EPILOGUE_K} timed per variant)")
+        if got != want:
+            raise AssertionError(f"the script launched {got}, not {want}")
+        for name, r in runs[tag].items():
+            if r["exact"] and name != "prod_lanebest" and not r["identical_to_prod_lanebest"]:
+                raise AssertionError(f"{name} differs from prod_lanebest on {path.name}")
+            if "plain_mismatch" in r and (r["plain_mismatch"] or r["max_abs_err"]):
+                raise AssertionError(f"{name} differs from its plain version on {path.name}")
+        floors = {k: v["ms"] for k, v in runs[tag].items() if not v["exact"]}
+        log(f"[20] {path.name} floors (numerators and a minimum fold only, wrong results by "
+            f"design, equal to their plain versions): {floors} ms per launch on {smi}")
+        wasted = {k: v["wasted_pairs"] for k, v in runs[tag].items() if v["wasted_pairs"]}
+        log(f"[20] {path.name} (ray, tile) pairs a schedule evaluates beyond what its bound "
+            f"counts (non-members and dead rays of a visiting block): {wasted}")
+
+    def entry(name, variant, tag, line):
+        r = runs[tag][variant]
+        return {
+            "name": name, "route": "cuda", "source": f"{PKG}/csrc/mesh_walk.cu",
+            "replaces": f"scripts/profile_epilogue.py:{line}", "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+        }
+
+    return [entry("lb_asc", "lb_asc", "20k", 239),
+            entry("epilogue_mono full", "mono", "5k", 285),
+            entry("epilogue_mono gate", "mono_gate", "5k", 285)], {}
+
+
+def capacity_phases(device, smi: str) -> tuple:
+    """Phase 21: a generated scene of 40 primitives and 40 materials at
+    depth 80 (the box of cornell_dof.json filled with a grid of spheres and
+    cubes), beyond what the prim kernels' fixed tables and key array once
+    held: the bounce kernel and the iteration kernel against their plain
+    versions to the bars of phases 4-5, and the Renderer's main path through
+    the iteration kernel; then 1,600 primitives at a small frame, whose tables
+    exceed the card's shared memory, through the bounce, mesh-shade and
+    iteration kernels' device-memory instantiations."""
+    from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
+    from project3_cuda_path_tracer_2025_tpu_torch.models import Renderer
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import camera as camera_ops
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import film as film_ops
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused
+    from project3_cuda_path_tracer_2025_tpu_torch.ops.intersect import intersect_scene
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import (
+        build_device_scene, camera_state, derive_render_camera, many_prims_scene,
+        scene_from_dict, set_resolution,
+    )
+    from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
+
+    res, prims, mats, depth = 400, 40, 40, 80
+    make = lambda: set_resolution(
+        scene_from_dict(many_prims_scene(str(SCENE), prims, mats, depth=depth)), res, res)
+    scene = make()
+    _, static = build_device_scene(scene, device)
+    cam = camera_state(derive_render_camera(scene.state.camera))
+    cfg = RenderConfig()
+    n = static.pixel_count
+    log(f"[21] generated scene: {len(static.geoms)} primitives, {static.num_materials} "
+        f"materials, depth {static.trace_depth}, {res}x{res}")
+    if (len(static.geoms), static.num_materials, static.trace_depth) != (prims, mats, depth):
+        raise AssertionError("the generated scene is not the one asked for")
+    ik = prng.iteration_key(prng.prng_key(0), 1)
+    idx = torch.arange(n, device=device)
+    paths = camera_ops.generate_camera_rays(
+        cam, static.width, static.height, static.trace_depth,
+        prng.uniforms_at(prng.stage_key(ik, 0, 0), idx, 4, n))
+    for d in range(3):
+        su = prng.uniforms_at(prng.stage_key(ik, d, 1), idx, 3, n)
+        out_k = fused.fused_prim_bounce(static, cfg, paths, su)
+        out_p = fused.fused_prim_bounce_plain(static, cfg, paths, su)
+        torch.cuda.synchronize()
+        lane_bad = torch.zeros(n, dtype=torch.bool, device=device)
+        for a, b in zip((*out_k.origin, *out_k.direction, *out_k.color),
+                        (*out_p.origin, *out_p.direction, *out_p.color)):
+            lane_bad |= ~torch.isclose(a, b, rtol=STAGE_RTOL, atol=STAGE_ATOL)
+        bn_diff = int((out_k.bounces != out_p.bounces).sum())
+        share = float(lane_bad.float().mean())
+        log(f"[21a] bounce kernel, bounce {d}: lanes with bounces differing {bn_diff}; lanes "
+            f"outside rtol={STAGE_RTOL} atol={STAGE_ATOL}: {share:.5%}")
+        if bn_diff / n > MAX_STAGE_LANE_SHARE or share > MAX_STAGE_LANE_SHARE:
+            raise AssertionError("the bounce kernel disagrees with its plain version at 40 prims")
+        paths = out_p
+    base_key = prng.prng_key(0)
+    film_k, alive_k = fused.fused_prim_iteration(static, cfg, cam, film_ops.new_film(n, device),
+                                                 1, base_key)
+    film_p, alive_p = fused.fused_prim_iteration_plain(static, cfg, cam,
+                                                       film_ops.new_film(n, device), 1, base_key)
+    torch.cuda.synchronize()
+    log(f"[21b] iteration kernel vs plain, {prims} primitives, depth {depth}:")
+    r_p = compare_films("vs fused_prim_iteration_plain", film_k, film_p)
+    ak, ap = alive_k.cpu().numpy(), alive_p.cpu().numpy()
+    log(f"  alive at depths 0-3 / the last 3: kernel {ak[:4].tolist()} / {ak[-3:].tolist()}, "
+        f"plain {ap[:4].tolist()} / {ap[-3:].tolist()}; depths with a live ray: "
+        f"{int((ak > 0).sum())} of {depth}")
+    if not (r_p["finite"] and r_p["sum_rel"] <= MAX_SUM_REL
+            and r_p["pixel_share"] <= MAX_PIXEL_SHARE):
+        raise AssertionError(f"the iteration kernel disagrees with its plain version: {r_p}")
+    if (np.abs(ak - ap) > np.maximum(MAX_ALIVE_REL * np.maximum(ap, 1), 2)).any():
+        raise AssertionError("alive counts differ at 40 prims, depth 80")
+    counters = {"fused_prim_iteration": fused.fused_prim_iteration,
+                "fused_prim_bounce": fused.fused_prim_bounce}
+    r, got = drive(make(), 4, counters)
+    log(f"[21c] Renderer(generated scene) step_many(4): launches {got}")
+    if got["fused_prim_iteration"] != 4:
+        raise AssertionError("the Renderer did not take the iteration kernel at 40 prims")
+    big = set_resolution(
+        scene_from_dict(many_prims_scene(str(SCENE), prims, mats, depth=depth)), 800, 800)
+    _, bstatic = build_device_scene(big, device)
+    bcam = camera_state(derive_render_camera(big.state.camera))
+    film_t = film_ops.new_film(bstatic.pixel_count, device)
+    it = [0]
+
+    def frame():
+        it[0] += 1
+        fused.fused_prim_iteration(bstatic, cfg, bcam, film_t, it[0], base_key)
+
+    paths_t = {f"iteration kernel, {prims} prims, depth {depth}, 800x800": (frame, 5)}
+    log_times("21d", smi, time_paths(paths_t, {k: 4 for k in paths_t}), paths_t,
+              {k: 4 for k in paths_t}, {})
+
+    # 21e: tables beyond the card's shared memory (1,600 primitives: 243 KB),
+    # which the three kernels that read the scene then leave in device
+    # memory: their other instantiations, at a small frame and depth 8 (the
+    # plain version takes some 50,000 launches a bounce at this length).
+    res_e, prims_e, mats_e, depth_e = 32, 1600, 200, 8
+    scene = set_resolution(
+        scene_from_dict(many_prims_scene(str(SCENE), prims_e, mats_e, depth=depth_e)), res_e, res_e)
+    _, static = build_device_scene(scene, device)
+    cam = camera_state(derive_render_camera(scene.state.camera))
+    n = static.pixel_count
+    table_bytes = prims_e * 152 + mats_e * 36
+    log(f"[21e] {len(static.geoms)} primitives, {static.num_materials} materials, depth "
+        f"{static.trace_depth}, {res_e}x{res_e}: tables of {table_bytes} bytes stay in device memory")
+    if table_bytes <= 232448 or len(static.geoms) != prims_e:
+        raise AssertionError("the tables of phase 21e fit the shared memory after all")
+    idx = torch.arange(n, device=device)
+    paths = camera_ops.generate_camera_rays(
+        cam, static.width, static.height, static.trace_depth,
+        prng.uniforms_at(prng.stage_key(ik, 0, 0), idx, 4, n))
+    far = 0
+    for d in range(3):
+        skey = prng.stage_key(ik, d, 1)
+        su = prng.uniforms_at(skey, idx, 3, n)
+        # The mesh shade with a made-up mesh hit on every third lane.
+        hit = (idx % 3 == 0) & paths.alive
+        mesh_t = torch.where(hit, 0.5, 0.0).float()
+        zero = torch.zeros(n, device=device)
+        mesh_n = type(paths.origin)(zero, zero, torch.where(hit, 1.0, 0.0).float())
+        mesh_mat = torch.where(hit, idx % mats_e, -1).to(torch.int32)
+        sargs = (static, cfg, paths, mesh_t, mesh_n, mesh_mat, skey, n, "tlim")
+        pairs = {
+            "bounce": (fused.fused_prim_bounce(static, cfg, paths, su), None,
+                       fused.fused_prim_bounce_plain(static, cfg, paths, su), None),
+            "mesh shade": (*fused.fused_mesh_shade(*sargs), *fused.fused_mesh_shade_plain(*sargs)),
+        }
+        torch.cuda.synchronize()
+        for what, (out_k, tl_k, out_p, tl_p) in pairs.items():
+            fk = [*out_k.origin, *out_k.direction, *out_k.color] + ([tl_k[0]] if tl_k else [])
+            fp = [*out_p.origin, *out_p.direction, *out_p.color] + ([tl_p[0]] if tl_p else [])
+            lane_bad = torch.zeros(n, dtype=torch.bool, device=device)
+            for a, b in zip(fk, fp):
+                lane_bad |= ~torch.isclose(a, b, rtol=STAGE_RTOL, atol=STAGE_ATOL)
+            bn_diff = int((out_k.bounces != out_p.bounces).sum())
+            share = float(lane_bad.float().mean())
+            log(f"[21e] {what} kernel, bounce {d}: lanes with bounces differing {bn_diff}; "
+                f"lanes outside rtol={STAGE_RTOL} atol={STAGE_ATOL}: {share:.5%}")
+            if bn_diff / n > MAX_STAGE_LANE_SHARE or share > MAX_STAGE_LANE_SHARE:
+                raise AssertionError(f"the {what} kernel disagrees with its plain version when "
+                                     "it reads the tables from device memory")
+        isect = intersect_scene(None, static, paths, cfg)
+        far += int(((isect.material_id >= 40) & (isect.t > 0) & paths.alive).sum())
+        paths = pairs["bounce"][2]
+    log(f"[21e] hits on materials beyond the first 40 over 3 bounces: {far}")
+    if far < 50:
+        raise AssertionError("the far end of the long tables was hardly hit")
+    film_k, alive_k = fused.fused_prim_iteration(static, cfg, cam, film_ops.new_film(n, device),
+                                                 1, base_key)
+    film_p, alive_p = fused.fused_prim_iteration_plain(static, cfg, cam,
+                                                       film_ops.new_film(n, device), 1, base_key)
+    torch.cuda.synchronize()
+    log(f"[21e] iteration kernel vs plain, {prims_e} primitives, depth {depth_e}:")
+    r_p = compare_films("vs fused_prim_iteration_plain", film_k, film_p)
+    ak, ap = alive_k.cpu().numpy(), alive_p.cpu().numpy()
+    log(f"  depths with a live ray: kernel {int((ak > 0).sum())}, plain {int((ap > 0).sum())} "
+        f"of {depth_e}; largest difference of an alive count {int(np.abs(ak - ap).max())}")
+    # 1,024 pixels: the pixel bar of the large frames is 5 of them.
+    if not (r_p["finite"] and r_p["sum_rel"] <= 1e-3 and r_p["pixel_share"] <= 5 / n):
+        raise AssertionError(f"the iteration kernel disagrees with its plain version: {r_p}")
+    if (np.abs(ak - ap) > 2).any():
+        raise AssertionError("alive counts differ at 1,600 primitives")
+    return [], {}
+
+
+def bench_script_phase(device, smi: str) -> tuple:
+    """Phase 22: ``scripts/torch_bench_scenes.py --quick`` as a subprocess on
+    two scenes; its JSON lines parsed; a non-zero exit fails the run."""
+    cmd = [sys.executable, str(ROOT / "scripts" / "torch_bench_scenes.py"), "--quick", "--spp",
+           "8", "--batch", "4", "--scenes", "scenes/cornell_dof.json",
+           "scenes/cornell_mesh_5k.json"]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    recs = []
+    for line in out.stdout.splitlines():
+        if line.startswith("{"):
+            recs.append(json.loads(line))
+    for r in recs:
+        log(f"[22] {r.get('scene')}: {r.get('ms_per_frame')} ms/frame, "
+            f"{r.get('mrays_per_s')} Mrays/s, finite {r.get('finite')}, on {r.get('card')}")
+    if out.returncode != 0 or len(recs) != 2 or any(
+            "error" in r or not r["finite"] or not r["ms_per_frame"] > 0 for r in recs):
+        raise AssertionError(f"torch_bench_scenes.py failed (exit {out.returncode}):\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    return [], {}
+
+
+# The phases in groups that run whole, in this order (phases 1-2, the card
+# and the build, always run; 9, the profile, goes last over the frames of the
+# groups that ran).  needs: a group whose cached state this one reads.
+GROUPS = (
+    ("prim", (3, 4, 5, 6, 7), prim_phases, None,
+     "the prim path: RNG, bounce and iteration kernels, Renderer on cornell_dof.json"),
+    ("mesh", (8,), mesh_phases, None, "the mono mesh path on cornell_mesh_5k.json"),
+    ("larger", (10, 11, 12), larger_mesh_phases, None,
+     "planned (20k), streamed (80k, 500k) and binned (200k) traversals"),
+    ("textures", (13, 14), texture_phases, None, "textured prims and textured meshes"),
+    ("wavefront", (15,), wavefront_phases, None, "the scan kernel and the wavefront integrator"),
+    ("slice5", (16, 17, 18, 19), slice5_phases, "larger",
+     "the sweep, the chunked chains, the super-tile walk, the plan prepass kernel"),
+    ("epilogue", (20,), epilogue_phases, None,
+     "scripts/torch_profile_epilogue.py at 800x800 on the 5k and 20k meshes (#13)"),
+    ("capacity", (21,), capacity_phases, None,
+     "40 primitives, 40 materials, depth 80 through the prim kernels"),
+    ("bench", (22,), bench_script_phase, None,
+     "scripts/torch_bench_scenes.py --quick as a subprocess on two scenes"),
+)
+
+
+def parse_phases(text: str) -> set:
+    """"1-7,20" -> {1, ..., 7, 20}."""
+    out = set()
+    for part in text.split(","):
+        lo, _, hi = part.partition("-")
+        out.update(range(int(lo), int(hi or lo) + 1))
+    return out
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one GPU")
+    ap.add_argument("--phases", default=None,
+                    help="phases to run, e.g. 1-7,20 (default: all); a group of phases runs "
+                    "whole, and a group whose state another needs runs before it")
+    ap.add_argument("--list", action="store_true", help="list the phases and exit")
+    args = ap.parse_args(argv)
+    if args.list:
+        print("1-2   the card, the kernels' build (always run)")
+        for name, phases, _, needs, what in GROUPS:
+            span = f"{phases[0]}-{phases[-1]}" if len(phases) > 1 else str(phases[0])
+            print(f"{span:5s} {what}" + (f" (runs {needs} first)" if needs else ""))
+        print("9     torch.profiler over whole frames of the groups that ran (last)")
+        return 0
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA GPU",
+              file=sys.stderr)
+        return 2
+    wanted = parse_phases(args.phases) if args.phases else None
+    chosen = [g for g in GROUPS if wanted is None or wanted & set(g[1])]
+    for g in list(chosen):
+        dep = next((d for d in GROUPS if d[0] == g[3]), None)
+        if dep is not None and dep not in chosen:
+            chosen.append(dep)
+    chosen = [g for g in GROUPS if g in chosen]
+
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import kernels
+
+    device = torch.device("cuda:0")
+    smi = card_label("cuda")
+    log(f"[1] card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"python {sys.version.split()[0]}; phase groups: {[g[0] for g in chosen]}")
+
+    # -- 2. build ---------------------------------------------------------
+    t0 = time.perf_counter()
+    libs = kernels.load_all()
+    log(f"[2] built {len(libs)} libraries for sm_90a in parallel in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for lib in libs.values():
+        log(f"    {lib.path.relative_to(ROOT)}: nvcc {lib.build_seconds:.1f} s")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log("    ptxas: " + line.strip())
+
+    kernels_line, frames = [], {}
+    for name, _, fn, _, _ in chosen:
+        t0 = time.perf_counter()
+        k, f = fn(device, smi)
+        kernels_line += k
+        frames.update(f)
+        log(f"    (phase group {name}: {time.perf_counter() - t0:.0f} s)")
+    if wanted is None or 9 in wanted:
+        profile_paths(frames)
+
     print(smi)
-    print(json.dumps(result))
+    print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,12 @@ shell (``src/main.cpp:341-393``).
 
 Like the reference binary it takes a scene file, renders ITERATIONS spp and
 writes ``{FILE}.{timestamp}.{N}samp.png``.  It renders on the CUDA device by
-default; ``--device cpu`` is an explicit choice, never a fallback.  The JAX
-package's other flags (toggles, multi-device, interactive shell) raise until
-their paths are ported (``ROADMAP.md``, Queue 1: the rest of the CLI).
+default; ``--device cpu`` (or the JAX CLI's ``--cpu``) is an explicit choice,
+never a fallback.  The toggles of the JAX package's CLI pass the same
+``RenderConfig`` fields (``--no-bvh``, ``--raw-camera``, ``--ray-sorting``,
+``--fused-bounce``, ``--bounce-prefix-tiers``, ``--spp-per-launch``); its
+multi-device, pixel-chunk, preview and interactive flags raise until their
+paths are ported (``ROADMAP.md``, Queue 1).
 """
 
 from __future__ import annotations
@@ -18,10 +21,7 @@ import sys
 
 # Flags of the JAX package's CLI that this one does not take yet.
 _NOT_PORTED = (
-    "--no-bvh", "--raw-camera", "--ray-sorting",
-    "--bounce-prefix-tiers", "--fused-bounce",
-    "--spp-per-launch", "--cpu", "--pixel-chunks", "--devices",
-    "--parallel-mode", "--preview-every", "--interactive",
+    "--pixel-chunks", "--devices", "--parallel-mode", "--preview-every", "--interactive",
 )
 
 
@@ -58,7 +58,17 @@ def build_parser() -> argparse.ArgumentParser:
         action="store_true",
         help="enable material sorting (ref MATERIAL_SORTING=1)",
     )
+    p.add_argument(
+        "--no-bvh",
+        action="store_true",
+        help="brute-force triangles (ref BVH_ACCELERATION=0)",
+    )
     p.add_argument("--no-mirror", action="store_true", help="disable saveImage x-mirror")
+    p.add_argument(
+        "--raw-camera",
+        action="store_true",
+        help="render from EYE directly instead of the reference's spherical reconstruction",
+    )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument(
         "--mesh-intersector",
@@ -68,11 +78,35 @@ def build_parser() -> argparse.ArgumentParser:
         "on a CUDA device, the threaded BVH walk on the CPU)",
     )
     p.add_argument(
+        "--ray-sorting",
+        choices=("auto", "on", "off"),
+        default="auto",
+        help="per-bounce ray-coherence sorting for the MXU intersector",
+    )
+    p.add_argument(
         "--mxu-traversal",
         choices=("auto", "sweep", "planned", "streamed", "binned", "mono"),
         default="auto",
         help="MXU intersector traversal (bit-identical results)",
     )
+    p.add_argument(
+        "--bounce-prefix-tiers", default="auto",
+        help="comma-separated ray-count divisors (e.g. '4,2'), parsed as the JAX "
+        "CLI parses them; 'auto' (default) and 'off' run no tiers, anything "
+        "else raises until the tiers are ported",
+    )
+    p.add_argument(
+        "--fused-bounce",
+        choices=("auto", "on", "off"),
+        default="auto",
+        help="fused bounce kernels (auto: on a CUDA device)",
+    )
+    p.add_argument(
+        "--spp-per-launch", type=int, default=1,
+        help="samples traced per batch of launches (one timing and one log "
+        "check per batch)",
+    )
+    p.add_argument("--cpu", action="store_true", help="alias of --device cpu")
     p.add_argument("--checkpoint", default=None, help="write a .npz checkpoint here at exit")
     p.add_argument("--resume", default=None, help="resume from a .npz checkpoint")
     p.add_argument("--checkpoint-every", type=int, default=0, help="checkpoint every N spp")
@@ -92,9 +126,11 @@ def main(argv=None) -> int:
         if a.split("=", 1)[0] in _NOT_PORTED:
             raise NotImplementedError(
                 f"{a.split('=', 1)[0]} is not ported yet (ROADMAP.md, "
-                "Queue 1: the rest of the CLI)"
+                "Queue 1: parallel/ and the interactive shell)"
             )
     args = build_parser().parse_args(argv)
+    if args.cpu:
+        args.device = "cpu"
 
     from .config import RenderConfig
     from .models import Renderer
@@ -120,8 +156,23 @@ def main(argv=None) -> int:
         integrator=args.integrator,
         stream_compaction=compaction,
         material_sorting=args.material_sort,
-        mirror_output=not args.no_mirror, mesh_intersector=args.mesh_intersector,
+        bvh_acceleration=not args.no_bvh,
+        mirror_output=not args.no_mirror,
+        spherical_camera_reconstruction=not args.raw_camera,
+        mesh_intersector=args.mesh_intersector,
+        ray_sorting=args.ray_sorting,
         mxu_traversal=args.mxu_traversal,
+        bounce_prefix_tiers=(
+            "auto"
+            if args.bounce_prefix_tiers == "auto"
+            else tuple(
+                int(s)
+                for s in args.bounce_prefix_tiers.replace("off", "").split(",")
+                if s.strip()
+            )
+        ),
+        fused_bounce=args.fused_bounce,
+        spp_per_launch=args.spp_per_launch,
     )
     r = Renderer(scene, cfg, seed=args.seed, device=args.device)
     if args.resume:
@@ -132,14 +183,14 @@ def main(argv=None) -> int:
     if not args.quiet:
         print(
             f"{r.static.width}x{r.static.height}, depth {r.static.trace_depth}, "
-            f"{total} spp, integrator={cfg.integrator}, device={r.device}, "
-            f"{len(r.static.geoms)} prims, "
-            f"{r.static.num_triangles} triangles"
+            f"{total} spp, integrator={cfg.integrator}, "
+            f"{r.static.num_triangles} tris, {len(r.static.geoms)} prims, "
+            f"device={r.device}"
         )
 
     try:
         while r.iteration < total:
-            r.step()
+            r.step_many(min(max(1, args.spp_per_launch), total - r.iteration))
             it = r.iteration
             if not args.quiet and args.log_every and (
                 it % args.log_every == 0 or it == total

@@ -74,6 +74,8 @@ struct PttMeshShadeArgs {
   uint32_t k0, k1, rng_n;
   int32_t n, ct, emit;       // emit: 0 none, 1 t_lim, 2 t_lim + key
   int32_t mode;              // PTT_SHADE_PLAIN / _TEXTURED / _PRECOMPUTED
+  int32_t num_geoms, num_materials;  // the scene's counts, for the launcher
+  int32_t pad;
 };
 
 __global__ void __launch_bounds__(PTT_THREADS) ptt_mono_kernel(const PttMonoArgs a) {
@@ -94,11 +96,15 @@ __global__ void __launch_bounds__(PTT_THREADS) ptt_mono_kernel(const PttMonoArgs
   a.out_tri[idx] = tri;
 }
 
+extern __shared__ __align__(16) unsigned char ptt_smem[];
+
+// Dynamic shared memory: the scene's tables (STAGE_SCENE), sized by the
+// launcher from the scene; any number of primitives and materials.
+template <bool STAGE_SCENE>
 __global__ void __launch_bounds__(PTT_THREADS) ptt_mesh_shade_kernel(const PttMeshShadeArgs a) {
-  __shared__ PttScene sh_scene;
   __shared__ float sh_aabb[PTT_KEY_MAX_CT * 8];
   __shared__ float sh_center[3];
-  load_scene(&sh_scene, a.scene);
+  const PttScene sh_scene = load_scene<STAGE_SCENE>(a.scene, ptt_smem);
   if (a.emit == 2) {
     for (int i = threadIdx.x; i < a.ct * 8; i += blockDim.x) sh_aabb[i] = a.tile_aabb[i];
     if (threadIdx.x < 3) sh_center[threadIdx.x] = a.center[threadIdx.x];
@@ -154,6 +160,10 @@ int ptt_mesh_abi(int32_t* out, int32_t len) {
       (int32_t)offsetof(PttMeshShadeArgs, k0),
       (int32_t)offsetof(PttMeshShadeArgs, n),
       (int32_t)offsetof(PttMeshShadeArgs, mode),
+      (int32_t)offsetof(PttMeshShadeArgs, num_geoms),
+      (int32_t)sizeof(PttGeom),
+      (int32_t)sizeof(PttMaterial),
+      (int32_t)offsetof(PttScene, geoms),
       PTT_TRI_TILE,
       PTT_COEF_W,
       PTT_MONO_MAX_TILES,
@@ -177,8 +187,26 @@ int ptt_launch_mesh_shade(const PttMeshShadeArgs* a, void* stream) {
   if (a->mode < PTT_SHADE_PLAIN || a->mode > PTT_SHADE_PRECOMPUTED) {
     return (int)cudaErrorInvalidValue;
   }
+  if (a->num_geoms < 0 || a->num_materials < 0) return (int)cudaErrorInvalidValue;
   if (a->n > 0) {
-    ptt_mesh_shade_kernel<<<blocks_for(a->n), PTT_THREADS, 0, (cudaStream_t)stream>>>(*a);
+    // The kernel's static shared memory (the key's tile boxes) counts
+    // against the same per-block limit.
+    const size_t fixed = (PTT_KEY_MAX_CT * 8 + 3) * sizeof(float);
+    const size_t tables = scene_table_bytes(a->num_geoms, a->num_materials);
+    const bool stage_scene = tables + fixed <= PTT_SMEM_LIMIT;
+    const size_t smem = stage_scene ? tables : 0;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          ptt_mesh_shade_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    if (stage_scene) {
+      ptt_mesh_shade_kernel<true><<<blocks_for(a->n), PTT_THREADS, smem, (cudaStream_t)stream>>>(
+          *a);
+    } else {
+      ptt_mesh_shade_kernel<false><<<blocks_for(a->n), PTT_THREADS, 0, (cudaStream_t)stream>>>(
+          *a);
+    }
   }
   return (int)cudaGetLastError();
 }

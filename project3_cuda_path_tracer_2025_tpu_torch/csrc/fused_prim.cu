@@ -26,8 +26,14 @@
 //
 // The TPU kernels padded rays to 8192-ray blocks and baked the camera and
 // scene into the program; here each thread is one ray, masked by idx < n,
-// the scene is a struct uploaded once per scene, and the camera and RNG
-// keys are plain arguments, so an orbit rebuilds nothing.
+// the scene is a header and two tables uploaded once per scene, the camera
+// and the iteration's RNG key are plain arguments, so an orbit rebuilds
+// nothing and a frame copies nothing to the card.  Nothing here bounds the
+// scene or the depth: a block stages the tables in dynamic shared memory
+// sized by the launcher from the scene (tables beyond the card's shared
+// memory stay in device memory, read through L1), and walks the depths in
+// windows of PTT_DEPTH_WINDOW, deriving each window's shade keys and
+// keeping its alive counters in a fixed piece of shared memory.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC (ops/kernels.py).  Plain C interface, loaded with
@@ -40,7 +46,8 @@
 #include "prim_path.cuh"
 
 #define PTT_THREADS 256
-#define PTT_NKEYS (2 * (PTT_MAX_DEPTH + 1))
+// Depths a block handles between two flushes of its alive counters.
+#define PTT_DEPTH_WINDOW 64
 
 struct PttIterArgs {
   const PttScene* scene;
@@ -50,8 +57,10 @@ struct PttIterArgs {
   int32_t* alive;  // [depth], zeroed by the caller
   PttCamera cam;
   int32_t width, height, n, depth;
-  // keys[0:2] = camera stage key; keys[2+2d : 4+2d] = shade key of depth d.
-  uint32_t keys[PTT_NKEYS];
+  int32_t num_geoms, num_materials;  // the scene's counts, for the launcher
+  uint32_t cam_key[2];   // prng.stage_key(iter_key, 0, 0)
+  uint32_t iter_key[2];  // prng.iteration_key(base_key, iteration); the shade
+                         // key of depth d is shade_stage_key(iter_key, d)
 };
 
 struct PttBounceArgs {
@@ -62,17 +71,18 @@ struct PttBounceArgs {
   float* out_f[9];
   int32_t* out_bounces;
   int32_t n;
+  int32_t num_geoms, num_materials;  // the scene's counts, for the launcher
   int32_t pad;
 };
 
+extern __shared__ __align__(16) unsigned char ptt_smem[];
+
+// Dynamic shared memory: the scene's tables (STAGE_SCENE).
+template <bool STAGE_SCENE>
 __global__ void __launch_bounds__(PTT_THREADS) ptt_iteration_kernel(const PttIterArgs a) {
-  __shared__ PttScene sh_scene;
-  __shared__ uint32_t sh_keys[PTT_NKEYS];
-  __shared__ int32_t sh_alive[PTT_MAX_DEPTH];
-  load_scene(&sh_scene, a.scene);
-  for (int i = threadIdx.x; i < 2 * (a.depth + 1); i += blockDim.x) sh_keys[i] = a.keys[i];
-  for (int i = threadIdx.x; i < a.depth; i += blockDim.x) sh_alive[i] = 0;
-  __syncthreads();
+  __shared__ int32_t sh_alive[PTT_DEPTH_WINDOW];
+  __shared__ uint32_t sh_key[PTT_DEPTH_WINDOW][2];
+  const PttScene sh_scene = load_scene<STAGE_SCENE>(a.scene, ptt_smem);
 
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in_range = idx < a.n;
@@ -80,12 +90,28 @@ __global__ void __launch_bounds__(PTT_THREADS) ptt_iteration_kernel(const PttIte
   Ray ray;
   ray.bounces = 0;
   if (in_range) {
-    ray = camera_ray(a.cam, a.width, a.height, a.depth, idx, n, sh_keys[0], sh_keys[1]);
+    ray = camera_ray(a.cam, a.width, a.height, a.depth, idx, n, a.cam_key[0], a.cam_key[1]);
   }
-  for (int d = 0; d < a.depth; ++d) {
-    bounce_ray_inline(sh_scene, ray, sh_keys[2 + 2 * d], sh_keys[3 + 2 * d], n, idx);
-    const unsigned ballot = __ballot_sync(0xffffffffu, ray.bounces > 0);
-    if ((threadIdx.x & 31) == 0 && ballot) atomicAdd(&sh_alive[d], __popc(ballot));
+  // Every thread of the block walks every depth (a dead ray's bounce is a
+  // return), so the window's barriers are uniform.
+  for (int d0 = 0; d0 < a.depth; d0 += PTT_DEPTH_WINDOW) {
+    const int span = min(PTT_DEPTH_WINDOW, a.depth - d0);
+    if ((int)threadIdx.x < span) {
+      sh_alive[threadIdx.x] = 0;
+      shade_stage_key(a.iter_key[0], a.iter_key[1], (uint32_t)(d0 + (int)threadIdx.x),
+                      &sh_key[threadIdx.x][0], &sh_key[threadIdx.x][1]);
+    }
+    __syncthreads();  // also orders load_scene's writes before the first read
+    for (int i = 0; i < span; ++i) {
+      bounce_ray_inline(sh_scene, ray, sh_key[i][0], sh_key[i][1], n, idx);
+      const unsigned ballot = __ballot_sync(0xffffffffu, ray.bounces > 0);
+      if ((threadIdx.x & 31) == 0 && ballot) atomicAdd(&sh_alive[i], __popc(ballot));
+    }
+    __syncthreads();
+    // The thread that flushes a slot is the one that clears it next window.
+    if ((int)threadIdx.x < span && sh_alive[threadIdx.x]) {
+      atomicAdd(&a.alive[d0 + threadIdx.x], sh_alive[threadIdx.x]);
+    }
   }
   if (in_range) {
     // In place: the film is the caller's accumulator (the JAX package
@@ -94,15 +120,11 @@ __global__ void __launch_bounds__(PTT_THREADS) ptt_iteration_kernel(const PttIte
     a.film_y[idx] = a.film_y[idx] + ray.c.y;
     a.film_z[idx] = a.film_z[idx] + ray.c.z;
   }
-  __syncthreads();
-  for (int d = threadIdx.x; d < a.depth; d += blockDim.x) {
-    if (sh_alive[d]) atomicAdd(&a.alive[d], sh_alive[d]);
-  }
 }
 
+template <bool STAGE_SCENE>
 __global__ void __launch_bounds__(PTT_THREADS) ptt_bounce_kernel(const PttBounceArgs a) {
-  __shared__ PttScene sh_scene;
-  load_scene(&sh_scene, a.scene);
+  const PttScene sh_scene = load_scene<STAGE_SCENE>(a.scene, ptt_smem);
   __syncthreads();
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= a.n) return;
@@ -135,6 +157,14 @@ static unsigned blocks_for(long long n) {
   return (unsigned)((n + PTT_THREADS - 1) / PTT_THREADS);
 }
 
+// Raise a kernel's dynamic shared memory bound when a launch needs more than
+// the default 48 KB.
+template <typename K>
+static cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 extern "C" {
 
 // Struct sizes and offsets, checked against the ctypes mirror at load time.
@@ -144,12 +174,12 @@ int ptt_abi(int32_t* out, int32_t len) {
       (int32_t)sizeof(PttCamera),
       (int32_t)sizeof(PttIterArgs),
       (int32_t)offsetof(PttIterArgs, cam),
-      (int32_t)offsetof(PttIterArgs, keys),
+      (int32_t)offsetof(PttIterArgs, cam_key),
       (int32_t)sizeof(PttBounceArgs),
       (int32_t)offsetof(PttBounceArgs, n),
-      PTT_MAX_GEOMS,
-      PTT_MAX_MATERIALS,
-      PTT_MAX_DEPTH,
+      (int32_t)sizeof(PttGeom),
+      (int32_t)sizeof(PttMaterial),
+      (int32_t)offsetof(PttScene, geoms),
   };
   const int32_t count = (int32_t)(sizeof(v) / sizeof(v[0]));
   for (int32_t i = 0; i < count && i < len; ++i) out[i] = v[i];
@@ -157,15 +187,37 @@ int ptt_abi(int32_t* out, int32_t len) {
 }
 
 int ptt_launch_iteration(const PttIterArgs* a, void* stream) {
+  if (a->depth < 0 || a->num_geoms < 0 || a->num_materials < 0) return (int)cudaErrorInvalidValue;
   if (a->n > 0) {
-    ptt_iteration_kernel<<<blocks_for(a->n), PTT_THREADS, 0, (cudaStream_t)stream>>>(*a);
+    // The kernel's fixed shared memory counts against the same 227 KB.
+    const size_t fixed = PTT_DEPTH_WINDOW * (sizeof(int32_t) + 2 * sizeof(uint32_t));
+    const size_t tables = scene_table_bytes(a->num_geoms, a->num_materials);
+    const bool stage_scene = tables + fixed <= PTT_SMEM_LIMIT;
+    const size_t smem = stage_scene ? tables : 0;
+    const cudaError_t err = allow_smem(ptt_iteration_kernel<true>, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (stage_scene) {
+      ptt_iteration_kernel<true><<<blocks_for(a->n), PTT_THREADS, smem, (cudaStream_t)stream>>>(*a);
+    } else {
+      ptt_iteration_kernel<false><<<blocks_for(a->n), PTT_THREADS, 0, (cudaStream_t)stream>>>(*a);
+    }
   }
   return (int)cudaGetLastError();
 }
 
 int ptt_launch_bounce(const PttBounceArgs* a, void* stream) {
+  if (a->num_geoms < 0 || a->num_materials < 0) return (int)cudaErrorInvalidValue;
   if (a->n > 0) {
-    ptt_bounce_kernel<<<blocks_for(a->n), PTT_THREADS, 0, (cudaStream_t)stream>>>(*a);
+    const size_t tables = scene_table_bytes(a->num_geoms, a->num_materials);
+    const bool stage_scene = tables <= PTT_SMEM_LIMIT;
+    const size_t smem = stage_scene ? tables : 0;
+    const cudaError_t err = allow_smem(ptt_bounce_kernel<true>, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (stage_scene) {
+      ptt_bounce_kernel<true><<<blocks_for(a->n), PTT_THREADS, smem, (cudaStream_t)stream>>>(*a);
+    } else {
+      ptt_bounce_kernel<false><<<blocks_for(a->n), PTT_THREADS, 0, (cudaStream_t)stream>>>(*a);
+    }
   }
   return (int)cudaGetLastError();
 }

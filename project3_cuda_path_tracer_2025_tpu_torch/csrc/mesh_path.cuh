@@ -5,6 +5,12 @@
 //   walk_visit      = one (ray, tile) pair of ops/intersect_mxu.py::_tile_min
 //                     (the member slab, _mt_hit) folded in with the
 //                     contract's tie rule, as walk_plain folds it;
+//   asc_visit       = the same pair folded with a strict "<" only, for the
+//                     walks that take tiles in ascending id
+//                     (ops/intersect_mxu.py::lb_asc_plain, epilogue_mono_plain);
+//   mm_fold         = one (ray, tile) pair of the timing-floor flavors
+//                     (ops/intersect_mxu.py::_mm_plain): numerators and a
+//                     minimum, no acceptance;
 //   binned_pair     = one pair row of ops/intersect_mxu.py::binned_intersect_plain;
 //   sweep_ray       = one ray of ops/intersect_mxu.py::sweep_intersect_plain;
 //   super_visit     = one ray's visit of a super-tile plan entry
@@ -174,22 +180,33 @@ PTT_HD WalkRay walk_ray(V3 center, V3 o, V3 d, bool live, float tlim) {
   return r;
 }
 
-// _mt_hit on one coefficient row: the four numerators as fused multiply-add
-// chains in ascending feature order, the sign of det XORed into u and v,
-// |det| for their sum, and the hit confined to [t_lo, t_hi].
-PTT_HD bool mt_accept(const float f[10], const float* row, float baby_eps, float t_lo,
-                      float t_hi, float* tt) {
+// The four Moller-Trumbore numerators of one coefficient row, each a chain
+// of fused multiply-adds in ascending feature order.
+struct Numerators {
+  float det, un, vn, tn;
+};
+
+PTT_HD Numerators numerators(const float f[10], const float* row) {
   float k[PTT_COEF_W];
   load_coef(row, k);
-  float det = 0.0f, un = 0.0f, vn = 0.0f, tn = 0.0f;
+  Numerators m = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-  for (int q = 0; q < 3; ++q) det = fmaf(f[q], k[q], det);
+  for (int q = 0; q < 3; ++q) m.det = fmaf(f[q], k[q], m.det);
 #pragma unroll
-  for (int q = 0; q < 6; ++q) un = fmaf(f[q], k[3 + q], un);
+  for (int q = 0; q < 6; ++q) m.un = fmaf(f[q], k[3 + q], m.un);
 #pragma unroll
-  for (int q = 0; q < 6; ++q) vn = fmaf(f[q], k[9 + q], vn);
+  for (int q = 0; q < 6; ++q) m.vn = fmaf(f[q], k[9 + q], m.vn);
 #pragma unroll
-  for (int q = 0; q < 4; ++q) tn = fmaf(f[6 + q], k[15 + q], tn);
+  for (int q = 0; q < 4; ++q) m.tn = fmaf(f[6 + q], k[15 + q], m.tn);
+  return m;
+}
+
+// _mt_hit on one coefficient row: the numerators, the sign of det XORed
+// into u and v, |det| for their sum, and the hit confined to [t_lo, t_hi].
+PTT_HD bool mt_accept(const float f[10], const float* row, float baby_eps, float t_lo,
+                      float t_hi, float* tt) {
+  const Numerators m = numerators(f, row);
+  const float det = m.det, un = m.un, vn = m.vn, tn = m.tn;
   const float abs_det = fabsf(det);
   const bool det_ok = abs_det >= baby_eps;
   const float inv_det = 1.0f / (det_ok ? det : 1.0f);
@@ -235,6 +252,80 @@ PTT_HD void walk_visit(WalkRay& r, const float* coef, const float* row, int tile
   if (!slab_enters(s, r.tlim)) return;  // not a candidate tile for this ray
   if (gate && !(s.lo <= r.best)) return;
   tile_fold(r, coef, tile, s, baby_eps, eps_succ);
+}
+
+// The epilogue variants (scripts/profile_epilogue.py of the JAX package):
+// walks that take tiles in ascending id.  A later tile holds only higher
+// triangle ids, so the contract's tie rule needs no id comparison: a strict
+// "<" keeps the first, lowest, id at the minimum.  One compare and two
+// selects a pair, against tile_fold's three compares.
+//
+// One (ray, tile) pair of such a walk.  A ray that is not a member of the
+// tile (or not live) is skipped with skip_nonmember; without, its 1,024
+// pairs are evaluated all the same behind an interval nothing can enter
+// (t_lo = +inf, t_hi = -inf), as the TPU kernel evaluates every lane of a
+// tile it visits.  asc_member: the ray is live and a member of the tile
+// (s: its k = 1 widened slab).
+PTT_HD bool asc_member(const WalkRay& r, const float* row, Slab* s) {
+  *s = widen(slab(row, row + 3, r.os, r.inv), PTT_SLAB_REL1, PTT_SLAB_ABS1);
+  return r.live && slab_enters(*s, r.tlim);
+}
+
+PTT_HD void asc_fold(WalkRay& r, const float* coef, int tile, bool member, Slab s, float baby_eps,
+                     float eps_succ) {
+  const float t_lo = member ? ptt_max(s.lo, eps_succ) : ptt_inf();
+  const float t_hi = member ? s.hi : -ptt_inf();
+  const float* cf = coef + (size_t)tile * PTT_TRI_TILE * PTT_COEF_W;
+  const int32_t base = tile * PTT_TRI_TILE;
+  for (int j = 0; j < PTT_TRI_TILE; ++j, cf += PTT_COEF_W) {
+    float tt;
+    if (mt_accept(r.f, cf, baby_eps, t_lo, t_hi, &tt) && tt < r.best) {
+      r.best = tt;
+      r.best_tri = base + j;
+    }
+  }
+}
+
+PTT_HD void asc_visit(WalkRay& r, const float* coef, const float* row, int tile,
+                      bool skip_nonmember, float baby_eps, float eps_succ) {
+  Slab s;
+  const bool member = asc_member(r, row, &s);
+  if (skip_nonmember && !member) return;
+  asc_fold(r, coef, tile, member, s, baby_eps, eps_succ);
+}
+
+// The timing-floor flavors ("mm": wrong results by design).  Per pair the
+// four numerators and one minimum fold, nothing else: the least of the four
+// numerators is folded into the ray's running minimum, ties to the lower
+// lane (the triangle's index inside its tile), whatever tile it came from.
+// A ray that is not live runs with all-zero features, as the TPU kernel's
+// zeroed feature rows do.  mm_ray prepares the ray, mm_fold takes one tile,
+// mm_resolve gives (min, lane) below the ray's t_limit, else (t_limit, -1).
+PTT_HD void mm_ray(WalkRay& r) {
+  if (!r.live) {
+    for (int q = 0; q < 10; ++q) r.f[q] = 0.0f;
+  }
+  r.best = ptt_inf();
+  r.best_tri = PTT_INT_MAX;
+}
+
+PTT_HD void mm_fold(WalkRay& r, const float* coef, int tile) {
+  const float* cf = coef + (size_t)tile * PTT_TRI_TILE * PTT_COEF_W;
+  for (int j = 0; j < PTT_TRI_TILE; ++j, cf += PTT_COEF_W) {
+    const Numerators m = numerators(r.f, cf);
+    const float q = ptt_min(ptt_min(m.det, m.un), ptt_min(m.vn, m.tn));
+    if (q < r.best || (q == r.best && j < r.best_tri)) {
+      r.best = q;
+      r.best_tri = j;
+    }
+  }
+}
+
+PTT_HD void mm_resolve(WalkRay& r) {
+  if (!(r.best < r.tlim)) {
+    r.best = r.tlim;
+    r.best_tri = -1;
+  }
 }
 
 // The early exit of the ordered walks: a block stops before a plan entry

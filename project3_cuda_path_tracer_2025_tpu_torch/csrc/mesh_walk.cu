@@ -22,6 +22,13 @@
 //   ptt_plan_prepass_kernel      _plan_prepass_kernel :946 (_build_tile_plan_pallas):
 //                                per (ray block, tile), whether any ray enters
 //                                and the least entry distance.
+// and the two kernels of that package's scripts/profile_epilogue.py, variants
+// of #5 and #4 that take tiles in ascending id and so fold with a strict "<":
+//   ptt_lb_asc_kernel            lb_asc_kernel :239 (flavors lb_asc, lb_mm): the
+//                                lane-best walk over a plan row sorted by tile id;
+//   ptt_epilogue_mono_kernel     mono_kernel :285 (flavors full, gate, mm): no
+//                                plan, every tile in order, one skip of a block
+//                                with no live ray.
 // The traversals compute one function, fixed by the candidate contract
 // (intersect_mxu.py:106-131): per ray, the minimum t over the triangles of
 // the tiles whose widened slab the ray itself enters before its t_limit,
@@ -72,6 +79,17 @@
 //   (min over non-negative floats as ints, or).  min and any do not depend
 //   on order, so (h, lb) are bit-equal to the torch plan's.  Traffic: the
 //   rays once, [nb, ct] out, whatever the tile count.
+//   #13a (lb_asc) is #5's schedule over the ascending plan row with
+//   asc_visit: the per-ray "best" is the TPU kernel's [256, 1,024] lane
+//   planes and its resolve at once, since one thread owns all of a ray's
+//   lanes; none of the planes is copied.  #13b (mono) reads no plan: "full"
+//   has every thread of a live block evaluate all 1,024 pairs of every tile,
+//   members or not (what it skips, against #4, is nothing but the dead
+//   blocks); "gate" takes a tile only when the block votes
+//   (__syncthreads_or) that some live ray is a member, and then at full
+//   width too.  The "mm" flavors are timing floors (numerators and a
+//   minimum, wrong results by design), reachable from the measuring script
+//   only.
 //
 // What bounds them on the H100: operations.  Per candidate (ray, tile) pair
 // a thread does 1,024 x (19 fused multiply-adds, one division, ~12
@@ -217,6 +235,65 @@ __global__ void __launch_bounds__(PTT_RAY_TILE) ptt_sweep_kernel(const PttWalkAr
   }
 }
 
+// #13a: the block's plan row holds its candidate tiles in ascending id.
+template <bool MM>
+__global__ void __launch_bounds__(PTT_RAY_TILE) ptt_lb_asc_kernel(const PttWalkArgs a) {
+  __shared__ float sh_aabb[PTT_PLANNED_MAX_CT * 8];
+  for (int i = threadIdx.x; i < a.ct * 8; i += blockDim.x) sh_aabb[i] = a.tile_aabb[i];
+  __syncthreads();
+  const int b = blockIdx.x;
+  const int idx = b * PTT_RAY_TILE + threadIdx.x;
+  WalkRay r = load_walk_ray(a, idx, v3(__ldg(a.center), __ldg(a.center + 1), __ldg(a.center + 2)));
+  if (MM) mm_ray(r);
+  const int cnt = __ldg(a.cnt + b);
+  const int32_t* ids = a.ids + (size_t)b * a.ct;
+  for (int t = 0; t < cnt; ++t) {
+    const int tile = __ldg(ids + t);
+    if (MM) {
+      mm_fold(r, a.coef, tile);
+    } else {
+      asc_visit(r, a.coef, sh_aabb + 8 * tile, tile, true, a.baby_eps, a.eps_succ);
+    }
+  }
+  if (MM) mm_resolve(r);
+  if (idx < a.n) {
+    a.out_t[idx] = r.best;
+    a.out_tri[idx] = r.best_tri;
+  }
+}
+
+#define PTT_EPI_FULL 0
+#define PTT_EPI_GATE 1
+#define PTT_EPI_MM 2
+
+// #13b: every tile 0..ct-1 in order, no plan.
+template <int FLAVOR>
+__global__ void __launch_bounds__(PTT_RAY_TILE) ptt_epilogue_mono_kernel(const PttWalkArgs a) {
+  __shared__ float sh_aabb[PTT_PLANNED_MAX_CT * 8];
+  for (int i = threadIdx.x; i < a.ct * 8; i += blockDim.x) sh_aabb[i] = a.tile_aabb[i];
+  __syncthreads();
+  const int idx = blockIdx.x * PTT_RAY_TILE + threadIdx.x;
+  WalkRay r = load_walk_ray(a, idx, v3(__ldg(a.center), __ldg(a.center + 1), __ldg(a.center + 2)));
+  if (__syncthreads_or(r.live)) {  // a block with no live ray is skipped whole
+    if (FLAVOR == PTT_EPI_MM) mm_ray(r);
+    for (int c = 0; c < a.ct; ++c) {
+      if (FLAVOR == PTT_EPI_MM) {
+        mm_fold(r, a.coef, c);
+        continue;
+      }
+      Slab s;
+      const bool member = asc_member(r, sh_aabb + 8 * c, &s);
+      if (FLAVOR == PTT_EPI_GATE && !__syncthreads_or(member)) continue;
+      asc_fold(r, a.coef, c, member, s, a.baby_eps, a.eps_succ);
+    }
+    if (FLAVOR == PTT_EPI_MM) mm_resolve(r);
+  }
+  if (idx < a.n) {
+    a.out_t[idx] = r.best;
+    a.out_tri[idx] = r.best_tri;
+  }
+}
+
 // One tile against the rays s, s + stride, ... of the staged block.
 __device__ __forceinline__ bool plan_tile(const float* row, const float4* sh_o, const float4* sh_i,
                                           int s, int stride, float* lb) {
@@ -337,9 +414,11 @@ int ptt_walk_abi(int32_t* out, int32_t len) {
 }
 
 // kind: 0 planned lane-best (#5), 1 planned (#6), 2 streamed (#7), 3 the
-// super-tile streamed walk (#8), 4 the sweep (#9).
+// super-tile streamed walk (#8), 4 the sweep (#9), 5 lb_asc and 6 its floor
+// lb_mm (#13a), 7 the epilogue mono "full", 8 "gate" and 9 its floor "mm"
+// (#13b).
 int ptt_launch_walk(const PttWalkArgs* a, int32_t kind, void* stream) {
-  if (kind < 0 || kind > 4) return (int)cudaErrorInvalidValue;
+  if (kind < 0 || kind > 9) return (int)cudaErrorInvalidValue;
   const int cols = kind == 3 ? a->cs : a->ct;  // plan columns, or the sweep's tiles
   const int max_cols = (kind == 2 || kind == 3) ? PTT_STREAMED_MAX_CT : PTT_PLANNED_MAX_CT;
   if (a->ct < 1 || cols < 1 || cols > max_cols) return (int)cudaErrorInvalidValue;
@@ -357,8 +436,18 @@ int ptt_launch_walk(const PttWalkArgs* a, int32_t kind, void* stream) {
       ptt_streamed_kernel<<<grid, PTT_RAY_TILE, 0, s>>>(*a);
     } else if (kind == 3) {
       ptt_streamed_super_kernel<<<grid, PTT_RAY_TILE, 0, s>>>(*a);
-    } else {
+    } else if (kind == 4) {
       ptt_sweep_kernel<<<grid, PTT_RAY_TILE, 0, s>>>(*a);
+    } else if (kind == 5) {
+      ptt_lb_asc_kernel<false><<<grid, PTT_RAY_TILE, 0, s>>>(*a);
+    } else if (kind == 6) {
+      ptt_lb_asc_kernel<true><<<grid, PTT_RAY_TILE, 0, s>>>(*a);
+    } else if (kind == 7) {
+      ptt_epilogue_mono_kernel<PTT_EPI_FULL><<<grid, PTT_RAY_TILE, 0, s>>>(*a);
+    } else if (kind == 8) {
+      ptt_epilogue_mono_kernel<PTT_EPI_GATE><<<grid, PTT_RAY_TILE, 0, s>>>(*a);
+    } else {
+      ptt_epilogue_mono_kernel<PTT_EPI_MM><<<grid, PTT_RAY_TILE, 0, s>>>(*a);
     }
   }
   return (int)cudaGetLastError();

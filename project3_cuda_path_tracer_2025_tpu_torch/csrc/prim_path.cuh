@@ -21,6 +21,7 @@
 #pragma once
 
 #include <math.h>
+#include <stddef.h>
 #include <stdint.h>
 #include <string.h>
 
@@ -31,10 +32,6 @@
 #else
 #define PTT_HD inline
 #endif
-
-#define PTT_MAX_GEOMS 32
-#define PTT_MAX_MATERIALS 32
-#define PTT_MAX_DEPTH 64
 
 // float32 values of the JAX package's constants (utils/mathutil.py), written
 // exactly.
@@ -53,8 +50,12 @@
 #define PTT_F0_DIELECTRIC 0x1.47ae14p-5f  // float32(0.04)
 
 // ---------------------------------------------------------------------------
-// Scene constants.  Plain 4-byte fields only, so the Python side mirrors the
-// layout with ctypes (ops/kernels.py) and checks it against ptt_abi().
+// Scene constants.  The Python side mirrors the layout with ctypes
+// (ops/kernels.py) and checks it against ptt_abi().  The primitive and
+// material tables have any length: the scene holds their counts and two
+// pointers, into device memory for the kernels (ops/fused.py::_scene_buffer
+// uploads header and tables as one buffer) and into host memory for the host
+// build of the tests.
 // ---------------------------------------------------------------------------
 
 struct PttGeom {
@@ -86,8 +87,8 @@ struct PttScene {
   float larger_eps;
   float ray_eps;
   int32_t pad;
-  PttGeom geoms[PTT_MAX_GEOMS];
-  PttMaterial materials[PTT_MAX_MATERIALS];
+  const PttGeom* geoms;          // [num_geoms]
+  const PttMaterial* materials;  // [num_materials]
 };
 
 struct PttCamera {
@@ -180,7 +181,8 @@ PTT_HD uint32_t ptt_rotl(uint32_t x, int r) {
   x1 = ptt_rotl(x1, r); \
   x1 ^= x0;
 
-PTT_HD uint32_t threefry_bits(uint32_t k0, uint32_t k1, uint32_t flat) {
+// Both output words at counter (0, flat).
+PTT_HD void threefry2x32(uint32_t k0, uint32_t k1, uint32_t flat, uint32_t* y0, uint32_t* y1) {
   const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
   uint32_t x0 = k0;  // counter hi word is 0
   uint32_t x1 = flat + k1;
@@ -194,7 +196,23 @@ PTT_HD uint32_t threefry_bits(uint32_t k0, uint32_t k1, uint32_t flat) {
   x0 += k1; x1 += k2 + 4u;
   PTT_TF_ROUND(13) PTT_TF_ROUND(15) PTT_TF_ROUND(26) PTT_TF_ROUND(6)
   x0 += k2; x1 += k0 + 5u;
-  return x0 ^ x1;
+  *y0 = x0;
+  *y1 = x1;
+}
+
+PTT_HD uint32_t threefry_bits(uint32_t k0, uint32_t k1, uint32_t flat) {
+  uint32_t y0, y1;
+  threefry2x32(k0, k1, flat, &y0, &y1);
+  return y0 ^ y1;
+}
+
+// prng.stage_key(iter_key, depth, 1): fold_in(fold_in(iter_key, depth), 1),
+// a fold being the two words at counter (0, data) under the key.
+PTT_HD void shade_stage_key(uint32_t ik0, uint32_t ik1, uint32_t depth, uint32_t* k0,
+                            uint32_t* k1) {
+  uint32_t d0, d1;
+  threefry2x32(ik0, ik1, depth, &d0, &d1);
+  threefry2x32(d0, d1, 1u, k0, k1);
 }
 
 // bits_to_uniform: mantissa of a float in [1, 2), minus 1, max(0, u).
@@ -584,12 +602,36 @@ PTT_HD void scatter(const PttScene& s, Ray& ray, const Hit& h, float u_choice, f
 }
 
 #if defined(__CUDACC__)
-// Copy the scene struct into shared memory (every ray of the block reads it).
-__device__ __forceinline__ void load_scene(PttScene* dst, const PttScene* src) {
-  const int words = (int)(sizeof(PttScene) / 4);
-  const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
-  uint32_t* d = reinterpret_cast<uint32_t*>(dst);
-  for (int i = threadIdx.x; i < words; i += blockDim.x) d[i] = s[i];
+// Bytes of shared memory the scene's tables take when a block stages them.
+inline size_t scene_table_bytes(int num_geoms, int num_materials) {
+  return (size_t)num_geoms * sizeof(PttGeom) + (size_t)num_materials * sizeof(PttMaterial);
+}
+
+// The most dynamic shared memory a block of these kernels asks for (the
+// H100's 227 KB); tables beyond it are read from device memory through L1.
+#define PTT_SMEM_LIMIT 232448
+
+// The block's view of the scene: the header by value and, with STAGE, the
+// two tables copied into the shared memory at smem (scene_table_bytes of
+// it) where every ray of the block reads them as broadcasts; without, the
+// tables stay where they are in device memory.  STAGE is a template
+// argument so that each instantiation's table pointers have one address
+// space the compiler can see (shared loads, not generic ones).  The caller
+// synchronises the block before the first read.
+template <bool STAGE>
+__device__ __forceinline__ PttScene load_scene(const PttScene* src, unsigned char* smem) {
+  PttScene s = *src;
+  if (!STAGE) return s;
+  const int gw = s.num_geoms * (int)(sizeof(PttGeom) / 4);
+  const int mw = s.num_materials * (int)(sizeof(PttMaterial) / 4);
+  const uint32_t* g = reinterpret_cast<const uint32_t*>(s.geoms);
+  const uint32_t* m = reinterpret_cast<const uint32_t*>(s.materials);
+  uint32_t* d = reinterpret_cast<uint32_t*>(smem);
+  for (int i = threadIdx.x; i < gw; i += blockDim.x) d[i] = g[i];
+  for (int i = threadIdx.x; i < mw; i += blockDim.x) d[gw + i] = m[i];
+  s.geoms = reinterpret_cast<const PttGeom*>(d);
+  s.materials = reinterpret_cast<const PttMaterial*>(d + gw);
+  return s;
 }
 #endif
 

@@ -134,28 +134,39 @@ def _rows12(m) -> list:
 
 
 def scene_struct(static: SceneStatic, cfg: RenderConfig) -> kernels.PttScene:
-    """The scene constants as the kernels' ``PttScene`` struct."""
-    return _scene_struct(static, _eps(cfg))
+    """The scene constants as the kernels' ``PttScene`` header with its two
+    tables in host memory (what the host build of the per-ray body reads).
+    The returned struct keeps the tables alive."""
+    s, geoms, mats = _scene_tables(static, _eps(cfg))
+    s.geoms = ctypes.addressof(geoms)
+    s.materials = ctypes.addressof(mats)
+    s._tables = (geoms, mats)
+    return s
 
 
 @functools.lru_cache(maxsize=8)
 def _scene_buffer(static: SceneStatic, eps: tuple, device: torch.device) -> torch.Tensor:
-    """The scene's ``PttScene`` struct, uploaded once per (scene, device)."""
-    blob = np.frombuffer(bytes(_scene_struct(static, eps)), dtype=np.uint8).copy()
-    return torch.from_numpy(blob).to(device)
+    """The scene on the device, uploaded once per (scene, device): one
+    buffer holding the ``PttScene`` header, then the primitive table, then
+    the material table, the header's pointers aimed at the buffer's own
+    tables.  The cache holds the tensor, so the addresses live as long as
+    the entry; a scene of any number of primitives and materials fits."""
+    s, geoms, mats = _scene_tables(static, eps)
+    off_g = (ctypes.sizeof(s) + 15) // 16 * 16
+    off_m = off_g + (ctypes.sizeof(geoms) + 15) // 16 * 16
+    buf = torch.empty((off_m + max(ctypes.sizeof(mats), 1),), dtype=torch.uint8, device=device)
+    s.geoms = buf.data_ptr() + off_g
+    s.materials = buf.data_ptr() + off_m
+    blob = np.zeros((buf.shape[0],), np.uint8)
+    for off, part in ((0, s), (off_g, geoms), (off_m, mats)):
+        raw = np.frombuffer(bytes(part), dtype=np.uint8)
+        blob[off:off + raw.shape[0]] = raw
+    buf.copy_(torch.from_numpy(blob))
+    return buf
 
 
-def _scene_struct(static: SceneStatic, eps: tuple) -> kernels.PttScene:
-    if len(static.geoms) > kernels.MAX_GEOMS:
-        raise ValueError(
-            f"{len(static.geoms)} primitives exceed the kernels' capacity of "
-            f"{kernels.MAX_GEOMS} (PTT_MAX_GEOMS in csrc/prim_path.cuh)"
-        )
-    if static.num_materials > kernels.MAX_MATERIALS:
-        raise ValueError(
-            f"{static.num_materials} materials exceed the kernels' capacity of "
-            f"{kernels.MAX_MATERIALS} (PTT_MAX_MATERIALS in csrc/prim_path.cuh)"
-        )
+def _scene_tables(static: SceneStatic, eps: tuple):
+    """(header without pointers, PttGeom array, PttMaterial array)."""
     s = kernels.PttScene()
     s.num_geoms = len(static.geoms)
     s.num_materials = static.num_materials
@@ -163,14 +174,16 @@ def _scene_struct(static: SceneStatic, eps: tuple) -> kernels.PttScene:
         int(b) for b in shade_ops.lobes_present(static)
     )
     s.baby_eps, s.larger_eps, s.ray_eps = (f32(e) for e in eps)
+    geoms = (kernels.PttGeom * len(static.geoms))()
     for i, g in enumerate(static.geoms):
-        s.geoms[i].type = 1 if g.gtype == int(GeomType.CUBE) else 0
-        s.geoms[i].material_id = g.material_id
-        s.geoms[i].inverse[:] = _rows12(g.inverse)
-        s.geoms[i].transform[:] = _rows12(g.transform)
-        s.geoms[i].inv_transpose[:] = _rows12(g.inv_transpose)
+        geoms[i].type = 1 if g.gtype == int(GeomType.CUBE) else 0
+        geoms[i].material_id = g.material_id
+        geoms[i].inverse[:] = _rows12(g.inverse)
+        geoms[i].transform[:] = _rows12(g.transform)
+        geoms[i].inv_transpose[:] = _rows12(g.inv_transpose)
+    mats = (kernels.PttMaterial * len(static.material_consts))()
     for i, m in enumerate(static.material_consts):
-        mat = s.materials[i]
+        mat = mats[i]
         mat.color[:] = [f32(c) for c in m.color]
         mat.emittance = m.emittance
         mat.has_reflective = m.has_reflective
@@ -178,7 +191,12 @@ def _scene_struct(static: SceneStatic, eps: tuple) -> kernels.PttScene:
         mat.ior = m.ior
         mat.roughness = m.roughness
         mat.metallic = m.metallic
-    return s
+    return s, geoms, mats
+
+
+def _scene_counts(static: SceneStatic) -> tuple:
+    """(primitives, materials): the launchers size shared memory from them."""
+    return len(static.geoms), len(static.material_consts)
 
 
 def _eps(cfg: RenderConfig) -> tuple:
@@ -248,6 +266,7 @@ def fused_prim_bounce(
     a.out_f[:] = [t.data_ptr() for t in f_out]
     a.out_bounces = b_out.data_ptr()
     a.n = n
+    a.num_geoms, a.num_materials = _scene_counts(static)
     code = lib.lib.ptt_launch_bounce(ctypes.byref(a), kernels.stream_handle(device))
     lib.check(code, "fused_prim_bounce")
     fused_prim_bounce.launches += 1
@@ -272,6 +291,13 @@ def iteration_keys(static: SceneStatic, iteration: int, base_key: tuple):
     cam_key = prng.stage_key(ik, 0, 0)
     shade_keys = [prng.stage_key(ik, d, 1) for d in range(static.trace_depth)]
     return cam_key, shade_keys
+
+
+def kernel_key_words(iteration: int, base_key: tuple) -> tuple:
+    """What the iteration kernel takes by value: (camera key, iteration
+    key); it derives the shade key of each depth from the latter."""
+    ik = prng.iteration_key(base_key, iteration)
+    return prng.stage_key(ik, 0, 0), ik
 
 
 def fused_prim_iteration_plain(
@@ -308,26 +334,20 @@ def fused_prim_iteration(
 ):
     """One full spp iteration in a single kernel.
 
-    The uniforms are drawn inside the kernel from the stage keys derived
-    here (the same ``(iteration, depth, stage)`` streams as
-    ``megakernel_iteration``), and the camera is an argument, so an orbit
-    rebuilds nothing.  The film is updated in place (the JAX package donates
+    The uniforms are drawn inside the kernel, which derives each depth's
+    stage key from the iteration key (the same ``(iteration, depth, stage)``
+    streams as ``megakernel_iteration``), and the camera is an argument, so
+    an orbit rebuilds nothing.  The film is updated in place (the JAX package donates
     it).  Returns (film, alive_counts[depth])."""
     device = film.x.device
     if device.type == "cpu":
         return fused_prim_iteration_plain(static, cfg, cam, film, iteration, base_key)
     _require_cuda(device, "fused_prim_iteration")
     n, depth = static.pixel_count, static.trace_depth
-    if depth > kernels.MAX_DEPTH:
-        raise ValueError(
-            f"depth {depth} exceeds the iteration kernel's capacity of "
-            f"{kernels.MAX_DEPTH} (PTT_MAX_DEPTH in csrc/prim_path.cuh)"
-        )
     _check_planes("fused_prim_iteration film", film, n, torch.float32, device)
     lib = kernels.load()
     scene = _scene_buffer(static, _eps(cfg), device)
     alive = torch.zeros((depth,), dtype=torch.int32, device=device)
-    cam_key, shade_keys = iteration_keys(static, iteration, base_key)
 
     a = kernels.PttIterArgs()
     a.scene = scene.data_ptr()
@@ -335,8 +355,12 @@ def fused_prim_iteration(
     a.alive = alive.data_ptr()
     a.cam = camera_struct(cam)
     a.width, a.height, a.n, a.depth = static.width, static.height, n, depth
-    keys = [*cam_key] + [k for sk in shade_keys for k in sk]
-    a.keys[: len(keys)] = keys
+    a.num_geoms, a.num_materials = _scene_counts(static)
+    # The keys travel by value: the camera's, and the iteration's, from which
+    # the kernel derives the shade key of each depth (any depth).
+    cam_key, ik = kernel_key_words(iteration, base_key)
+    a.cam_key[:] = cam_key
+    a.iter_key[:] = ik
     code = lib.lib.ptt_launch_iteration(ctypes.byref(a), kernels.stream_handle(device))
     lib.check(code, "fused_prim_iteration")
     fused_prim_iteration.launches += 1
@@ -559,6 +583,7 @@ def fused_mesh_shade(
     a.rng_n = rng_n
     a.n, a.ct, a.emit = n, ct, EMIT_MODES.index(emit)
     a.mode = SHADE_MODES.index(mode)
+    a.num_geoms, a.num_materials = _scene_counts(prim_static)
     code = lib.lib.ptt_launch_mesh_shade(ctypes.byref(a), kernels.stream_handle(device))
     lib.check(code, "fused_mesh_shade")
     fused_mesh_shade.launches += 1

@@ -34,7 +34,15 @@ CUDA tensors and runs its plain version on CPU tensors:
   ``sweep_intersect_plain``;
 * the plan's per-(ray block, tile) slab stage ``_plan_prepass_kernel``
   (``plan_impl="pallas"`` / ``PTT_PLAN_IMPL=pallas``, the JAX package's
-  switch): ``plan_prepass``, plain ``plan_prepass_plain``.
+  switch): ``plan_prepass``, plain ``plan_prepass_plain``;
+* the two kernel variants of the JAX package's ``scripts/profile_epilogue.py``
+  (its op-level A/B of the walk's epilogue), which take tiles in ascending
+  id and so fold with a strict "<": ``lb_asc_kernel`` as ``lb_asc_intersect``
+  (plain ``lb_asc_plain``) over ``ascending_plan``, and ``mono_kernel`` as
+  ``epilogue_mono_intersect`` (plain ``epilogue_mono_plain``; flavors
+  "full" and "gate").  Their "mm" flavors are timing floors with wrong
+  results by design.  No traversal of ``_traverse`` takes them: the
+  measuring script ``scripts/torch_profile_epilogue.py`` does.
 
 A mesh of more tiles than one call of the planned walk or the sweep holds
 (``chunk_tris``) runs as the JAX package's chunked chain, ``_chain``: a call
@@ -888,11 +896,13 @@ def _plan_visits(plan: TilePlan, ct: int):
 
 
 def _visit_plain(tables: MXUMeshTables, ro: Vec3, rd: Vec3, live, tlim, visits,
-                 baby_eps: float):
+                 baby_eps: float, strict: bool = False):
     """Every live ray against the tiles its block visits (``visits`` [NB,
     Ct]) that it is a member of, tile by tile, each pair once, folded in
     with the contract's rule (a smaller t wins, an equal t goes to the lower
-    id) -> (t, tri), ``(tlim, -1)`` where nothing closer is hit."""
+    id) -> (t, tri), ``(tlim, -1)`` where nothing closer is hit.  ``strict``
+    folds with "<" alone, which in this ascending tile order is the same
+    rule (a later tile holds only higher ids)."""
     n = ro.x.shape[0]
     device = ro.x.device
     block = torch.arange(n, device=device) // RAY_TILE
@@ -903,7 +913,9 @@ def _visit_plain(tables: MXUMeshTables, ro: Vec3, rd: Vec3, live, tlim, visits,
         i = torch.nonzero(member & live & visits[block, c]).flatten()
         tmin, gid = _eval_tile(tables, c, rf.feat, i, s_tlo, s_thi, baby_eps)
         bt, btri = best_t[i], best_tri[i]
-        upd = (tmin < bt) | ((tmin == bt) & (tmin < float("inf")) & (gid < btri))
+        upd = tmin < bt
+        if not strict:
+            upd = upd | ((tmin == bt) & (tmin < float("inf")) & (gid < btri))
         best_t[i] = torch.where(upd, tmin, bt)
         best_tri[i] = torch.where(upd, gid, btri)
     return best_t, best_tri
@@ -1095,6 +1107,144 @@ def sweep_intersect(tables, ro, rd, live, tlim, baby_eps):
 
 
 sweep_intersect.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The epilogue variants  (replace scripts/profile_epilogue.py::lb_asc_kernel
+# and ::mono_kernel of the JAX package)
+# ---------------------------------------------------------------------------
+
+EPILOGUE_MONO_FLAVORS = ("full", "gate", "mm")
+
+
+def ascending_plan(plan: TilePlan, ct: int) -> TilePlan:
+    """A front-to-back plan re-ordered by tile id (the script's ``ids_asc``):
+    each block's candidate tiles first, in ascending id, then the others
+    (a stable sort of the candidate mask); ``cnt`` is shared, ``tlo`` the
+    block entry bounds in the new order."""
+    nb = plan.cnt.shape[0]
+    device = plan.cnt.device
+    cand = _plan_visits(plan, ct)
+    ar = torch.arange(ct, dtype=torch.int32, device=device)[None, :]
+    ids = torch.argsort(torch.where(cand, ar, ct + ar), dim=1, stable=True)
+    by_tile = torch.full((nb, ct), float("inf"), dtype=torch.float32, device=device)
+    by_tile.scatter_(1, plan.ids.reshape(nb, ct).long(), plan.tlo.reshape(nb, ct))
+    return TilePlan(ids.to(torch.int32).reshape(-1),
+                    torch.gather(by_tile, 1, ids).reshape(-1), plan.cnt)
+
+
+def _mm_plain(tables: MXUMeshTables, ro: Vec3, rd: Vec3, live, tlim, visits):
+    """The "mm" flavors' definition (a timing floor, not an intersection):
+    every ray of a block, live or not (a ray that is not live with all-zero
+    features), against every tile the block visits; per pair the least of
+    the four numerators, folded into the ray's minimum with ties to the
+    lower lane (the triangle's index inside its tile) -> (minimum, lane)
+    where the minimum is below ``tlim``, else ``(tlim, -1)``."""
+    n = ro.x.shape[0]
+    device = ro.x.device
+    block = torch.arange(n, device=device) // RAY_TILE
+    feat = [torch.where(live, f, 0.0) for f in _features(tables, ro, rd).feat]
+    best = torch.full((n,), float("inf"), dtype=torch.float32, device=device)
+    lane_at = torch.full((n,), INT_MAX, dtype=torch.int32, device=device)
+    lane = torch.arange(TRI_TILE, dtype=torch.int32, device=device)[None, :]
+    step = _chunk(device)
+    for c in range(tables.tile_aabb.shape[0]):
+        coef = tables.coef[c * TRI_TILE:(c + 1) * TRI_TILE]
+        rows = torch.nonzero(visits[block, c]).flatten()
+        for s in range(0, rows.shape[0], step):
+            k = rows[s:s + step]
+            det, un, vn, tn = _numerators([f[k][:, None] for f in feat], coef)
+            q = torch.minimum(torch.minimum(det, un), torch.minimum(vn, tn))
+            qmin = torch.min(q, dim=1, keepdim=True).values
+            jmin = torch.min(torch.where(q <= qmin, lane, INT_MAX), dim=1).values
+            qmin = qmin[:, 0]
+            upd = (qmin < best[k]) | ((qmin == best[k]) & (jmin < lane_at[k]))
+            best[k] = torch.where(upd, qmin, best[k])
+            lane_at[k] = torch.where(upd, jmin, lane_at[k])
+    hit = best < tlim
+    return torch.where(hit, best, tlim), torch.where(hit, lane_at, -1)
+
+
+def lb_asc_plain(tables: MXUMeshTables, ro: Vec3, rd: Vec3, live, tlim, plan: TilePlan,
+                 baby_eps: float, mm_only: bool = False):
+    """The plain PyTorch version of ``ptt_lb_asc_kernel`` -> (t, tri):
+    ``plan`` an ``ascending_plan``; each block's candidate tiles in
+    ascending id, a ray against the tiles it is a member of, a strictly
+    smaller t wins.  ``mm_only``: the floor flavor (``_mm_plain``)."""
+    visits = _plan_visits(plan, tables.tile_aabb.shape[0])
+    if mm_only:
+        return _mm_plain(tables, ro, rd, live, tlim, visits)
+    return _visit_plain(tables, ro, rd, live, tlim, visits, baby_eps, strict=True)
+
+
+def lb_asc_intersect(tables, ro, rd, live, tlim, plan, baby_eps, mm_only=False):
+    """The lane-best walk over an ascending-tile-id plan (the script's
+    ``lb_asc``, up to ``PLANNED_MAX_TILES`` tiles): ``ptt_lb_asc_kernel`` on
+    CUDA tensors, ``lb_asc_plain`` on CPU tensors.  The same function as
+    ``planned_lanebest_intersect`` on the front-to-back plan; ``mm_only``
+    (the script's ``lb_mm``) is a timing floor with wrong results."""
+    if ro.x.device.type == "cpu":
+        return lb_asc_plain(tables, ro, rd, live, tlim, plan, baby_eps, mm_only)
+    out = _launch_walk("lb_mm" if mm_only else "lb_asc", tables, ro, rd, live, tlim, plan,
+                       baby_eps)
+    lb_asc_intersect.launches += 1
+    return out
+
+
+lb_asc_intersect.launches = 0
+
+
+def _mono_visits(tables, ro, rd, live, tlim, gate: bool):
+    """[NB, Ct] bool: the tiles a block of the epilogue mono walk takes:
+    all of them for a block with a live ray and, with ``gate``, only those
+    some live ray of the block is a member of."""
+    n = ro.x.shape[0]
+    nb = (n + RAY_TILE - 1) // RAY_TILE
+    ct = tables.tile_aabb.shape[0]
+    block = torch.arange(n, device=live.device) // RAY_TILE
+    zeros = torch.zeros((nb,), dtype=torch.int32, device=live.device)
+    any_of = lambda m: zeros.index_add(0, block, m.to(torch.int32)) > 0
+    if not gate:
+        return any_of(live)[:, None].expand(nb, ct)
+    rf = _features(tables, ro, rd)
+    return torch.stack([any_of(_member_slab(row, rf.os, rf.inv, tlim)[0] & live)
+                        for row in tables.tile_aabb.tolist()], dim=1)
+
+
+def epilogue_mono_plain(tables: MXUMeshTables, ro: Vec3, rd: Vec3, live, tlim,
+                        baby_eps: float, flavor: str = "full"):
+    """The plain PyTorch version of ``ptt_epilogue_mono_kernel`` -> (t,
+    tri): every tile in ascending id for a block with a live ray ("gate":
+    only the tiles some live ray of the block is a member of), a ray against
+    the tiles it is a member of, a strictly smaller t wins; ``(tlim, -1)``
+    where nothing closer is hit.  "mm": the floor flavor (``_mm_plain``)
+    over every tile of a live block."""
+    if flavor not in EPILOGUE_MONO_FLAVORS:
+        raise ValueError(f"flavor={flavor!r}: use one of {EPILOGUE_MONO_FLAVORS}")
+    visits = _mono_visits(tables, ro, rd, live, tlim, gate=flavor == "gate")
+    if flavor == "mm":
+        return _mm_plain(tables, ro, rd, live, tlim, visits)
+    return _visit_plain(tables, ro, rd, live, tlim, visits, baby_eps, strict=True)
+
+
+def epilogue_mono_intersect(tables, ro, rd, live, tlim, baby_eps, flavor="full"):
+    """The plan-less walk of every tile in ascending id (the script's
+    ``mono`` "full", ``mono_gate`` "gate" and the floor ``mono_mm`` "mm", up
+    to ``PLANNED_MAX_TILES`` tiles): ``ptt_epilogue_mono_kernel`` on CUDA
+    tensors, ``epilogue_mono_plain`` on CPU tensors.  ``live``: active and
+    inside the root box, as the walks take it.  "full" and "gate" compute
+    the function of ``mono_intersect``; they differ from it in the work
+    they skip."""
+    if flavor not in EPILOGUE_MONO_FLAVORS:
+        raise ValueError(f"flavor={flavor!r}: use one of {EPILOGUE_MONO_FLAVORS}")
+    if ro.x.device.type == "cpu":
+        return epilogue_mono_plain(tables, ro, rd, live, tlim, baby_eps, flavor)
+    out = _launch_walk(f"epilogue_mono_{flavor}", tables, ro, rd, live, tlim, None, baby_eps)
+    epilogue_mono_intersect.launches += 1
+    return out
+
+
+epilogue_mono_intersect.launches = 0
 
 
 # ---------------------------------------------------------------------------

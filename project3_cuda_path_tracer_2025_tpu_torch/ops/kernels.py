@@ -43,10 +43,6 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-MAX_GEOMS = 32
-MAX_MATERIALS = 32
-MAX_DEPTH = 64
-
 _f = ctypes.c_float
 _i = ctypes.c_int32
 _u = ctypes.c_uint32
@@ -68,11 +64,15 @@ class PttMaterial(ctypes.Structure):
 
 
 class PttScene(ctypes.Structure):
+    """The scene's header: counts, and pointers to the primitive and material
+    tables (``PttGeom[num_geoms]``, ``PttMaterial[num_materials]``), which
+    have any length and live where the reader runs (device or host)."""
+
     _fields_ = [
         ("num_geoms", _i), ("num_materials", _i),
         ("lobe_glass", _i), ("lobe_mirror", _i), ("lobe_trans", _i), ("lobe_micro", _i),
         ("baby_eps", _f), ("larger_eps", _f), ("ray_eps", _f), ("pad", _i),
-        ("geoms", PttGeom * MAX_GEOMS), ("materials", PttMaterial * MAX_MATERIALS),
+        ("geoms", _p), ("materials", _p),
     ]
 
 
@@ -88,14 +88,16 @@ class PttIterArgs(ctypes.Structure):
         ("scene", _p), ("film_x", _p), ("film_y", _p), ("film_z", _p), ("alive", _p),
         ("cam", PttCamera),
         ("width", _i), ("height", _i), ("n", _i), ("depth", _i),
-        ("keys", ctypes.c_uint32 * (2 * (MAX_DEPTH + 1))),
+        ("num_geoms", _i), ("num_materials", _i),
+        ("cam_key", _u * 2), ("iter_key", _u * 2),
     ]
 
 
 class PttBounceArgs(ctypes.Structure):
     _fields_ = [
         ("scene", _p), ("in_f", _p * 9), ("in_bounces", _p), ("u", _p),
-        ("out_f", _p * 9), ("out_bounces", _p), ("n", _i), ("pad", _i),
+        ("out_f", _p * 9), ("out_bounces", _p), ("n", _i),
+        ("num_geoms", _i), ("num_materials", _i), ("pad", _i),
     ]
 
 
@@ -116,6 +118,7 @@ class PttMeshShadeArgs(ctypes.Structure):
         ("out_f", _p * 9), ("out_bounces", _p), ("out_tlim", _p), ("out_key", _p),
         ("k0", _u), ("k1", _u), ("rng_n", _u),
         ("n", _i), ("ct", _i), ("emit", _i), ("mode", _i),
+        ("num_geoms", _i), ("num_materials", _i), ("pad", _i),
     ]
 
 
@@ -148,7 +151,9 @@ class PttBinnedArgs(ctypes.Structure):
 
 
 # ptt_launch_walk's kind: which of the walk kernels.
-WALK_KINDS = ("planned_lanebest", "planned", "streamed", "streamed_super", "sweep")
+WALK_KINDS = ("planned_lanebest", "planned", "streamed", "streamed_super", "sweep",
+              "lb_asc", "lb_mm", "epilogue_mono_full", "epilogue_mono_gate",
+              "epilogue_mono_mm")
 
 
 def _walk_abi_expected() -> list:
@@ -186,6 +191,10 @@ def _mesh_abi_expected() -> list:
         PttMeshShadeArgs.k0.offset,
         PttMeshShadeArgs.n.offset,
         PttMeshShadeArgs.mode.offset,
+        PttMeshShadeArgs.num_geoms.offset,
+        ctypes.sizeof(PttGeom),
+        ctypes.sizeof(PttMaterial),
+        PttScene.geoms.offset,
         mxu.TRI_TILE,
         mxu.COEF_W,
         mxu.MONO_MAX_TILES,
@@ -199,12 +208,12 @@ def _prim_abi_expected() -> list:
         ctypes.sizeof(PttCamera),
         ctypes.sizeof(PttIterArgs),
         PttIterArgs.cam.offset,
-        PttIterArgs.keys.offset,
+        PttIterArgs.cam_key.offset,
         ctypes.sizeof(PttBounceArgs),
         PttBounceArgs.n.offset,
-        MAX_GEOMS,
-        MAX_MATERIALS,
-        MAX_DEPTH,
+        ctypes.sizeof(PttGeom),
+        ctypes.sizeof(PttMaterial),
+        PttScene.geoms.offset,
     ]
 
 

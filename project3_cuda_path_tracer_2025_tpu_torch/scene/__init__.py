@@ -7,7 +7,8 @@ from .types import (
     RenderState,
     TextureData,
 )
-from .loader import load_scene, set_resolution
+from .loader import load_scene, scene_from_dict, set_resolution
+from .procedural import many_prims_scene
 from .device import DeviceScene, build_device_scene, from_jax_scene
 from .camera import derive_render_camera, camera_state
 
@@ -20,6 +21,8 @@ __all__ = [
     "RenderState",
     "TextureData",
     "load_scene",
+    "scene_from_dict",
+    "many_prims_scene",
     "set_resolution",
     "DeviceScene",
     "build_device_scene",

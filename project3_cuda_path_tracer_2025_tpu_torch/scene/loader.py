@@ -61,8 +61,20 @@ def load_scene(
         raise ValueError(f"Couldn't read from {path} (expected .json)")
     with open(path, "r") as f:
         data = json.load(f)
+    return scene_from_dict(data, os.path.dirname(path), leaf_size, native_bvh,
+                           build_acceleration)
 
-    base_dir = os.path.dirname(path)
+
+def scene_from_dict(
+    data: dict,
+    base_dir: str = ".",
+    leaf_size: int = 4,
+    native_bvh: bool = False,
+    build_acceleration: bool = True,
+) -> HostScene:
+    """Build the scene from a reference-format document already in memory
+    (what ``load_scene`` reads from a file); ``base_dir`` resolves the
+    relative paths of its textures and OBJ files."""
 
     materials: list[Material] = []
     textures: list[TextureData] = []

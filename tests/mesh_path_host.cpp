@@ -144,6 +144,83 @@ void ptt_host_super(const float* coef, const float* aabb, const float* saabb, in
   }
 }
 
+// ptt_lb_asc_kernel (mm 0: lb_asc, 1: lb_mm): each block walks its plan row
+// of ascending tile ids.
+void ptt_host_lb_asc(const float* coef, const float* aabb, int32_t ct, const float* center,
+                     const float* const* ray, const uint8_t* live, const float* tlim,
+                     const int32_t* ids, const int32_t* cnt, int32_t mm, float baby_eps,
+                     float eps_succ, int32_t n, float* out_t, int32_t* out_tri) {
+  const V3 c = v3(center[0], center[1], center[2]);
+  for (int32_t i = 0; i < n; ++i) {
+    const int32_t b = i / PTT_RAY_TILE;
+    WalkRay r = walk_ray(c, v3(ray[0][i], ray[1][i], ray[2][i]),
+                         v3(ray[3][i], ray[4][i], ray[5][i]), live[i] != 0, tlim[i]);
+    if (mm) mm_ray(r);
+    for (int32_t t = 0; t < cnt[b]; ++t) {
+      const int32_t tile = ids[b * ct + t];
+      if (mm) {
+        mm_fold(r, coef, tile);
+      } else {
+        asc_visit(r, coef, aabb + 8 * tile, tile, true, baby_eps, eps_succ);
+      }
+    }
+    if (mm) mm_resolve(r);
+    out_t[i] = r.best;
+    out_tri[i] = r.best_tri;
+  }
+}
+
+// ptt_epilogue_mono_kernel (flavor 0 full, 1 gate, 2 mm): the block's live
+// vote and, for "gate", its member vote per tile become loops over its rays.
+void ptt_host_epilogue_mono(const float* coef, const float* aabb, int32_t ct, const float* center,
+                            const float* const* ray, const uint8_t* live, const float* tlim,
+                            int32_t flavor, float baby_eps, float eps_succ, int32_t n,
+                            float* out_t, int32_t* out_tri) {
+  const V3 c = v3(center[0], center[1], center[2]);
+  const int32_t nb = (n + PTT_RAY_TILE - 1) / PTT_RAY_TILE;
+  std::vector<WalkRay> r(PTT_RAY_TILE);
+  std::vector<Slab> s(PTT_RAY_TILE);
+  std::vector<uint8_t> member(PTT_RAY_TILE);
+  for (int32_t b = 0; b < nb; ++b) {
+    bool block_live = false;
+    for (int32_t i = 0; i < PTT_RAY_TILE; ++i) {
+      const int32_t idx = b * PTT_RAY_TILE + i;
+      const bool in = idx < n;
+      r[i] = walk_ray(c, in ? v3(ray[0][idx], ray[1][idx], ray[2][idx]) : v3(0.0f, 0.0f, 0.0f),
+                      in ? v3(ray[3][idx], ray[4][idx], ray[5][idx]) : v3(0.0f, 0.0f, 0.0f),
+                      in && live[idx] != 0, in ? tlim[idx] : 0.0f);
+      block_live = block_live || r[i].live;
+    }
+    if (block_live) {
+      if (flavor == 2) {
+        for (int32_t i = 0; i < PTT_RAY_TILE; ++i) mm_ray(r[i]);
+      }
+      for (int32_t t = 0; t < ct; ++t) {
+        if (flavor == 2) {
+          for (int32_t i = 0; i < PTT_RAY_TILE; ++i) mm_fold(r[i], coef, t);
+          continue;
+        }
+        bool any = false;
+        for (int32_t i = 0; i < PTT_RAY_TILE; ++i) {
+          member[i] = asc_member(r[i], aabb + 8 * t, &s[i]) ? 1 : 0;
+          any = any || member[i];
+        }
+        if (flavor == 1 && !any) continue;
+        for (int32_t i = 0; i < PTT_RAY_TILE; ++i) {
+          asc_fold(r[i], coef, t, member[i] != 0, s[i], baby_eps, eps_succ);
+        }
+      }
+      if (flavor == 2) {
+        for (int32_t i = 0; i < PTT_RAY_TILE; ++i) mm_resolve(r[i]);
+      }
+    }
+    for (int32_t i = 0; i < PTT_RAY_TILE && b * PTT_RAY_TILE + i < n; ++i) {
+      out_t[b * PTT_RAY_TILE + i] = r[i].best;
+      out_tri[b * PTT_RAY_TILE + i] = r[i].best_tri;
+    }
+  }
+}
+
 // ptt_sweep_kernel: one ray per thread, every tile in order.
 void ptt_host_sweep(const float* coef, const float* aabb, int32_t ct, const float* center,
                     const float* const* ray, const uint8_t* live, const float* tlim,

@@ -45,15 +45,18 @@ void ptt_host_bounce(const PttScene* s, const float* const* in_f, const int32_t*
   }
 }
 
-// ptt_iteration_kernel: keys as in PttIterArgs (camera key, then one shade
-// key per depth); film += color in place; alive[d] += rays alive after d.
+// ptt_iteration_kernel: keys as in PttIterArgs (the camera key's two words,
+// then the iteration key's, from which each depth's shade key is derived);
+// film += color in place; alive[d] += rays alive after d.
 void ptt_host_iteration(const PttScene* s, const PttCamera* cam, int32_t width,
                         int32_t height, int32_t n, int32_t depth, const uint32_t* keys,
                         float* film_x, float* film_y, float* film_z, int32_t* alive) {
   for (int32_t idx = 0; idx < n; ++idx) {
     Ray ray = camera_ray(*cam, width, height, depth, idx, (uint32_t)n, keys[0], keys[1]);
     for (int32_t d = 0; d < depth; ++d) {
-      bounce_ray_inline(*s, ray, keys[2 + 2 * d], keys[3 + 2 * d], (uint32_t)n, idx);
+      uint32_t k0, k1;
+      shade_stage_key(keys[2], keys[3], (uint32_t)d, &k0, &k1);
+      bounce_ray_inline(*s, ray, k0, k1, (uint32_t)n, idx);
       alive[d] += ray.bounces > 0 ? 1 : 0;
     }
     film_x[idx] = film_x[idx] + ray.c.x;

@@ -12,6 +12,7 @@ run the same float32 operations in the same order (``--fmad=false``), so
 stages are compared exactly and films at the goldens' tolerance.
 """
 
+import ctypes
 import dataclasses
 import pathlib
 
@@ -23,7 +24,7 @@ from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
 from project3_cuda_path_tracer_2025_tpu_torch.models import Renderer, megakernel_iteration
 from project3_cuda_path_tracer_2025_tpu_torch.ops import camera as camera_ops
 from project3_cuda_path_tracer_2025_tpu_torch.ops import film as film_ops
-from project3_cuda_path_tracer_2025_tpu_torch.ops import fused, intersect_mxu
+from project3_cuda_path_tracer_2025_tpu_torch.ops import fused, intersect_mxu, kernels
 from project3_cuda_path_tracer_2025_tpu_torch.ops.compaction import permute_path_state
 from project3_cuda_path_tracer_2025_tpu_torch.ops.intersect import prim_t_min
 from project3_cuda_path_tracer_2025_tpu_torch.scene import (
@@ -531,3 +532,163 @@ def test_textured_and_wavefront_renderers_take_the_kernels(cuda):
             for a, b in zip(wf.film, ref.film):
                 assert torch.equal(a, b), (name, compaction)
         assert np.isfinite(r.image()).all() and r.image().sum() > 0
+
+
+# ---------------------------------------------------------------------------
+# The epilogue variants (csrc/mesh_walk.cu), the prim kernels beyond their
+# old capacity, the measuring scripts on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["cornell_mesh_5k.json", "cornell_mesh_20k.json"])
+def test_epilogue_kernels_match_plain_and_the_lanebest_walk(cuda, name):
+    """Sorted camera rays and two bounces: ptt_lb_asc_kernel and
+    ptt_epilogue_mono_kernel (every flavor) bit-equal to their plain
+    versions, the exact flavors also to the lane-best planned walk."""
+    dev, static, states = _bounce_states(name, 96, cuda)
+    tables = dev.mxu_mesh
+    ct = tables.tile_aabb.shape[0]
+    hits = 0
+    for ro, rd, alive, tl in states:
+        live = alive & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+        plan = _plan(tables, ro, rd, live, tl)
+        asc = intersect_mxu.ascending_plan(plan, ct)
+        ref_t, ref_tri = intersect_mxu.planned_lanebest_intersect(tables, ro, rd, live, tl, plan,
+                                                                 1e-5)
+        for mm in (False, True):
+            before = intersect_mxu.lb_asc_intersect.launches
+            got = intersect_mxu.lb_asc_intersect(tables, ro, rd, live, tl, asc, 1e-5, mm_only=mm)
+            assert intersect_mxu.lb_asc_intersect.launches == before + 1
+            want = intersect_mxu.lb_asc_plain(tables, ro, rd, live, tl, asc, 1e-5, mm_only=mm)
+            assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]), mm
+            if not mm:
+                assert torch.equal(got[1], ref_tri) and torch.equal(got[0], ref_t)
+        for flavor in intersect_mxu.EPILOGUE_MONO_FLAVORS:
+            before = intersect_mxu.epilogue_mono_intersect.launches
+            got = intersect_mxu.epilogue_mono_intersect(tables, ro, rd, live, tl, 1e-5, flavor)
+            assert intersect_mxu.epilogue_mono_intersect.launches == before + 1
+            want = intersect_mxu.epilogue_mono_plain(tables, ro, rd, live, tl, 1e-5, flavor)
+            assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]), flavor
+            if flavor != "mm":
+                assert torch.equal(got[1], ref_tri) and torch.equal(got[0], ref_t), flavor
+        hits += int((ref_tri >= 0).sum())
+    assert hits > 100
+
+
+def test_prim_kernels_beyond_the_old_capacity(cuda):
+    """40 primitives, 40 materials, depth 80: the bounce kernel bit-equal
+    in its integers and close in its floats to the plain version, the
+    iteration kernel's film at the goldens' tolerance, the Renderer through
+    the iteration kernel."""
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import many_prims_scene, scene_from_dict
+
+    base = str(REPO / "scenes" / "cornell_dof.json")
+    make = lambda: set_resolution(scene_from_dict(many_prims_scene(base, 40, 40, depth=80)), 96, 96)
+    scene = make()
+    _, static = build_device_scene(scene, cuda)
+    cam = camera_state(derive_render_camera(scene.state.camera))
+    assert (len(static.geoms), static.num_materials, static.trace_depth) == (40, 40, 80)
+    cfg, n = RenderConfig(), static.pixel_count
+    ik, paths = _camera_paths(static, cam, cuda)
+    idx = torch.arange(n, device=cuda)
+    for d in range(3):
+        su = prng.uniforms_at(prng.stage_key(ik, d, 1), idx, 3, n)
+        got = fused.fused_prim_bounce(static, cfg, paths, su)
+        want = fused.fused_prim_bounce_plain(static, cfg, paths, su)
+        assert torch.equal(got.bounces, want.bounces)
+        for a, b in zip((*got.origin, *got.direction, *got.color),
+                        (*want.origin, *want.direction, *want.color)):
+            assert float((~torch.isclose(a, b, rtol=1e-5, atol=1e-6)).float().mean()) <= 1e-3
+        paths = want
+    base_key = prng.prng_key(0)
+    film_k, alive_k = fused.fused_prim_iteration(static, cfg, cam, film_ops.new_film(n, cuda), 1,
+                                                 base_key)
+    film_p, alive_p = fused.fused_prim_iteration_plain(static, cfg, cam,
+                                                       film_ops.new_film(n, cuda), 1, base_key)
+    assert alive_k.shape == (80,) and int((alive_k - alive_p).abs().max()) <= 2
+    got, want = torch.stack(list(film_k), 1), torch.stack(list(film_p), 1)
+    outside = ~torch.isclose(got, want, rtol=2e-4, atol=2e-5)
+    assert float(outside.any(dim=1).float().mean()) <= 5e-3
+    r = Renderer(make())
+    before = fused.fused_prim_iteration.launches
+    r.step_many(2)
+    assert fused.fused_prim_iteration.launches == before + 2
+    assert np.isfinite(r.image()).all() and r.image().sum() > 0
+
+
+def test_prim_tables_beyond_shared_memory(cuda):
+    """1,600 primitives (243 KB of tables, beyond a block's 227 KB of shared
+    memory): the bounce, mesh-shade and iteration kernels read the tables
+    from device memory and agree with their plain versions (integers equal,
+    floats to ``rtol=1e-5, atol=1e-6`` on all but one lane in a thousand;
+    the film of 1,024 pixels with at most 5 outside ``rtol=2e-4,
+    atol=2e-5``)."""
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import many_prims_scene, scene_from_dict
+
+    base = str(REPO / "scenes" / "cornell_dof.json")
+    scene = set_resolution(scene_from_dict(many_prims_scene(base, 1600, 200, depth=8)), 32, 32)
+    _, static = build_device_scene(scene, cuda)
+    cam = camera_state(derive_render_camera(scene.state.camera))
+    assert len(static.geoms) * ctypes.sizeof(kernels.PttGeom) > 232448
+    cfg, n = RenderConfig(), static.pixel_count
+    ik, paths = _camera_paths(static, cam, cuda)
+    idx = torch.arange(n, device=cuda)
+    zero = torch.zeros(n, device=cuda)
+    for d in range(2):
+        skey = prng.stage_key(ik, d, 1)
+        su = prng.uniforms_at(skey, idx, 3, n)
+        hit = (idx % 3 == 0) & paths.alive  # a made-up mesh hit on every third lane
+        sargs = (static, cfg, paths, torch.where(hit, 0.5, 0.0).float(),
+                 type(paths.origin)(zero, zero, torch.where(hit, 1.0, 0.0).float()),
+                 torch.where(hit, idx % 200, -1).to(torch.int32), skey, n, "tlim")
+        got_s, (got_tl, _) = fused.fused_mesh_shade(*sargs)
+        want_s, (want_tl, _) = fused.fused_mesh_shade_plain(*sargs)
+        got = fused.fused_prim_bounce(static, cfg, paths, su)
+        want = fused.fused_prim_bounce_plain(static, cfg, paths, su)
+        for g, w, extra in ((got, want, ()), (got_s, want_s, ((got_tl, want_tl),))):
+            assert torch.equal(g.bounces, w.bounces)
+            for a, b in (*zip((*g.origin, *g.direction, *g.color),
+                              (*w.origin, *w.direction, *w.color)), *extra):
+                assert float((~torch.isclose(a, b, rtol=1e-5, atol=1e-6)).float().mean()) <= 1e-3
+        paths = want
+    base_key = prng.prng_key(0)
+    film_k, alive_k = fused.fused_prim_iteration(static, cfg, cam, film_ops.new_film(n, cuda), 1,
+                                                 base_key)
+    film_p, alive_p = fused.fused_prim_iteration_plain(static, cfg, cam,
+                                                       film_ops.new_film(n, cuda), 1, base_key)
+    assert int((alive_k - alive_p).abs().max()) <= 2
+    got, want = torch.stack(list(film_k), 1), torch.stack(list(film_p), 1)
+    assert int((~torch.isclose(got, want, rtol=2e-4, atol=2e-5)).any(dim=1).sum()) <= 5
+
+
+def test_measuring_scripts_run_on_the_card(cuda, capsys):
+    """Each script's main() at a small size on the card: exit 0, JSON lines
+    with times and the card's name."""
+    import importlib.util
+    import json
+    import sys
+
+    sys.path.insert(0, str(REPO / "scripts"))
+    runs = {
+        "torch_profile_epilogue": ["--res", "128", "--k", "2", "--check-plain"],
+        "torch_scene_matrix": ["--res", "64", "--spp", "1", "--batch", "1", "--only", "5k"],
+        "torch_bench_binned": ["--res", "128", "--k", "2", "scenes/cornell_mesh_200k.json"],
+        "torch_profile_mesh_bounce": ["--res", "128", "--k", "2"],
+        "torch_profile_wavefront": ["--res", "128", "--k", "2"],
+        "torch_diag_mesh_traversal": ["--res", "128", "--k", "2"],
+        "torch_bench_scenes": ["--res", "64", "--spp", "2", "--batch", "1", "--quick", "--scenes",
+                               "scenes/cornell_dof.json"],
+    }
+    try:
+        for name, argv in runs.items():
+            spec = importlib.util.spec_from_file_location(name, REPO / "scripts" / f"{name}.py")
+            mod = importlib.util.module_from_spec(spec)
+            sys.modules[name] = mod
+            spec.loader.exec_module(mod)
+            assert mod.main(argv) == 0, name
+            recs = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+                    if x.startswith("{")]
+            assert recs and all("NVIDIA" in r["card"] for r in recs), name
+            timed = [r.get("ms", r.get("ms_per_frame")) for r in recs if "sort" not in r]
+            assert all(t is not None and t > 0 for t in timed), name
+    finally:
+        sys.path.remove(str(REPO / "scripts"))

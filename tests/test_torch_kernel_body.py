@@ -142,8 +142,8 @@ def test_host_iteration_matches_plain(host_lib, name):
     film_p, alive_p = fused.fused_prim_iteration_plain(
         static, cfg, cam, film_ops.new_film(n), 1, base_key)
 
-    cam_key, shade_keys = fused.iteration_keys(static, 1, base_key)
-    keys = np.asarray([*cam_key] + [k for sk in shade_keys for k in sk], np.uint32)
+    cam_key, iter_key = fused.kernel_key_words(1, base_key)
+    keys = np.asarray([*cam_key, *iter_key], np.uint32)
     film_h = film_ops.new_film(n)
     alive_h = np.zeros(depth, np.int32)
     scene = fused.scene_struct(static, cfg)
@@ -609,3 +609,80 @@ def test_host_plan_prepass_matches_plain(slice5_lib, name):
     assert want_h.sum() > 2
     assert torch.equal(got_h.bool(), want_h)
     assert torch.equal(got_lb.view(torch.int32), want_lb.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The epilogue variants' bodies (asc_visit, asc_member / asc_fold, mm_fold)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def epilogue_lib(walk_lib):
+    i32, f32_ = ctypes.c_int32, ctypes.c_float
+    walk_lib.ptt_host_lb_asc.argtypes = [P, P, i32] + [P] * 6 + [i32, f32_, f32_, i32, P, P]
+    walk_lib.ptt_host_epilogue_mono.argtypes = [P, P, i32, P, P, P, P, i32, f32_, f32_, i32, P, P]
+    return walk_lib
+
+
+def _epilogue_case(name):
+    """A walk case with a fifth of its rays dead and a whole block dead
+    (the mono walk's block skip), its plan and its ascending plan."""
+    _, tables, ro, rd, active, tl = next(c for c in _walk_cases() if c[0] == name)
+    rng = np.random.default_rng(13)
+    active = active & torch.from_numpy(rng.random(active.shape[0]) > 0.2)
+    active[512:768] = False
+    live = active & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+    plan = _plan_for(tables, ro, rd, live, tl)
+    return tables, ro, rd, live, tl, plan, intersect_mxu.ascending_plan(
+        plan, tables.tile_aabb.shape[0])
+
+
+@pytest.mark.parametrize("mm", [0, 1])
+@pytest.mark.parametrize("name", ["20k", "tie"])
+def test_host_lb_asc_matches_plain(epilogue_lib, name, mm):
+    """ptt_lb_asc_kernel's per-ray body over the ascending plan: t and tri
+    equal to lb_asc_plain's (mm: the floor flavor's definition) and, for the
+    exact flavor, to the lane-best walk over the front-to-back plan."""
+    tables, ro, rd, live, tl, plan, asc = _epilogue_case(name)
+    want_t, want_tri = intersect_mxu.lb_asc_plain(tables, ro, rd, live, tl, asc, 1e-5,
+                                                  mm_only=bool(mm))
+    n = ro.x.shape[0]
+    got_t, got_tri = torch.empty(n), torch.empty(n, dtype=torch.int32)
+    rays = [p.contiguous() for p in (*ro, *rd)]
+    lv, tlc = live.to(torch.uint8).contiguous(), tl.contiguous()
+    epilogue_lib.ptt_host_lb_asc(
+        tables.coef.data_ptr(), tables.tile_aabb.data_ptr(), tables.tile_aabb.shape[0],
+        tables.center.data_ptr(), _ptrs(rays), lv.data_ptr(), tlc.data_ptr(),
+        asc.ids.data_ptr(), asc.cnt.data_ptr(), mm, *_eps_args(), n, got_t.data_ptr(),
+        got_tri.data_ptr())
+    assert (want_tri >= 0).sum() > 20
+    assert torch.equal(got_tri, want_tri) and torch.equal(got_t, want_t)
+    if not mm:
+        walk_t, walk_tri = intersect_mxu.walk_plain(tables, ro, rd, live, tl, plan, 1e-5)
+        assert torch.equal(got_tri, walk_tri) and torch.equal(got_t, walk_t)
+
+
+@pytest.mark.parametrize("flavor", ["full", "gate", "mm"])
+@pytest.mark.parametrize("name", ["20k", "tie"])
+def test_host_epilogue_mono_matches_plain(epilogue_lib, name, flavor):
+    """ptt_epilogue_mono_kernel's body in the kernel's block schedule (the
+    live vote, "gate"'s member vote per tile, every thread of a visiting
+    block evaluating the tile): t and tri equal to epilogue_mono_plain's and,
+    for the exact flavors, to the lane-best walk; a dead block returns
+    (t_limit, -1)."""
+    tables, ro, rd, live, tl, plan, _ = _epilogue_case(name)
+    want_t, want_tri = intersect_mxu.epilogue_mono_plain(tables, ro, rd, live, tl, 1e-5, flavor)
+    n = ro.x.shape[0]
+    got_t, got_tri = torch.empty(n), torch.empty(n, dtype=torch.int32)
+    rays = [p.contiguous() for p in (*ro, *rd)]
+    lv, tlc = live.to(torch.uint8).contiguous(), tl.contiguous()
+    epilogue_lib.ptt_host_epilogue_mono(
+        tables.coef.data_ptr(), tables.tile_aabb.data_ptr(), tables.tile_aabb.shape[0],
+        tables.center.data_ptr(), _ptrs(rays), lv.data_ptr(), tlc.data_ptr(),
+        intersect_mxu.EPILOGUE_MONO_FLAVORS.index(flavor), *_eps_args(), n, got_t.data_ptr(),
+        got_tri.data_ptr())
+    assert (want_tri >= 0).sum() > 20
+    assert torch.equal(got_tri, want_tri) and torch.equal(got_t, want_t)
+    assert (got_tri[512:768] == -1).all() and torch.equal(got_t[512:768], tl[512:768])
+    if flavor != "mm":
+        walk_t, walk_tri = intersect_mxu.walk_plain(tables, ro, rd, live, tl, plan, 1e-5)
+        assert torch.equal(got_tri, walk_tri) and torch.equal(got_t, walk_t)

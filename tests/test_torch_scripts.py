@@ -1,0 +1,176 @@
+"""The measuring scripts of the port (``scripts/torch_*.py``) on the CPU:
+each ``main([... "--device", "cpu", "--res", "8", ...])`` runs in this
+process, exits 0 and prints parseable JSON lines that name the device and
+time nothing; none of them imports JAX or the JAX package (checked in a
+subprocess, where no test has imported either); ``chip_smoke.py`` lists its
+phases and refuses to run without a card.
+"""
+
+import importlib.util
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+SCRIPTS = ("torch_profile_epilogue", "torch_bench_scenes", "torch_scene_matrix",
+           "torch_bench_binned", "torch_profile_mesh_bounce", "torch_profile_wavefront",
+           "torch_compaction_study", "torch_diag_mesh_traversal")
+ARGS = {
+    "torch_profile_epilogue": ["--res", "8", "--k", "1"],
+    "torch_bench_scenes": ["--res", "8", "--spp", "1", "--batch", "1", "--quick", "--scenes",
+                           "scenes/cornell_dof.json", "scenes/cornell_mesh_5k.json"],
+    "torch_scene_matrix": ["--res", "8", "--spp", "1", "--batch", "1", "--only", "textured"],
+    "torch_bench_binned": ["--res", "8", "--depth", "1", "--k", "1",
+                           "scenes/cornell_mesh_20k.json"],
+    "torch_profile_mesh_bounce": ["--res", "8", "--k", "1"],
+    "torch_profile_wavefront": ["--res", "8", "--k", "1"],
+    "torch_compaction_study": ["--res", "8", "--spp", "1", "--batch", "1"],
+    "torch_diag_mesh_traversal": ["--res", "8", "--k", "1", "--scene",
+                                  "scenes/cornell_mesh_20k.json"],
+}
+MIN_LINES = {"torch_profile_epilogue": 8, "torch_bench_scenes": 2, "torch_scene_matrix": 5,
+             "torch_bench_binned": 2, "torch_profile_mesh_bounce": 12,
+             "torch_profile_wavefront": 9, "torch_compaction_study": 6,
+             "torch_diag_mesh_traversal": 9}
+
+
+def _load(name):
+    spec = importlib.util.spec_from_file_location(name, REPO / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod  # torch_compaction_study imports torch_bench_scenes by name
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _json_lines(text):
+    return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+
+@pytest.mark.parametrize("name", SCRIPTS)
+def test_script_runs_on_the_cpu_and_prints_json(name, capsys):
+    sys.path.insert(0, str(REPO / "scripts"))
+    try:
+        rc = _load(name).main(ARGS[name] + ["--device", "cpu"])
+    finally:
+        sys.path.remove(str(REPO / "scripts"))
+    assert rc == 0
+    recs = _json_lines(capsys.readouterr().out)
+    assert len(recs) >= MIN_LINES[name]
+    for r in recs:
+        assert "error" not in r
+        # Nothing is timed on the CPU, and every line says where it ran.
+        for key in ("ms", "ms_per_frame", "plain_ms"):
+            assert r.get(key) is None
+        assert r.get("card", "cpu") == "cpu" and r.get("device", "cpu") == "cpu"
+        assert r["script"].startswith("torch_")
+    if name == "torch_scene_matrix":
+        # The scenes whose textures are not in the repository are recorded
+        # as expected load errors; the local stand-ins render sanely.
+        assert sum("load_error" in r for r in recs) == 2
+        assert all(r["sane"] for r in recs if "load_error" not in r)
+
+
+def test_profile_epilogue_gates_before_timing(capsys):
+    """The epilogue script's records: every exact variant identical to the
+    reference, the floors marked inexact, bounds for all, by the function's
+    work and not the schedule's."""
+    recs = {r["variant"]: r for r in _load("torch_profile_epilogue").run(
+        ["--res", "12", "--k", "1", "--device", "cpu", "--scene", "scenes/cornell_mesh_20k.json"])}
+    capsys.readouterr()
+    assert set(recs) == {"prod_lanebest", "prod_planned", "lb_asc", "mono", "mono_gate", "lb_mm",
+                         "mono_mm"}  # 20 tiles: no prod_mono
+    for name in ("prod_planned", "lb_asc", "mono", "mono_gate"):
+        assert recs[name]["exact"] and recs[name]["identical_to_prod_lanebest"] is True
+    assert not recs["lb_mm"]["exact"] and not recs["mono_mm"]["exact"]
+    assert all(r["bound_ms"] > 0 and r["bound_by"] in ("bytes", "operations")
+               for r in recs.values())
+    # A bound counts what the function needs: full and gate compute one
+    # function; what their schedules evaluate beyond it is reported apart.
+    assert recs["mono"]["bound_ms"] == recs["mono_gate"]["bound_ms"]
+    assert recs["mono"]["wasted_pairs"] >= recs["mono_gate"]["wasted_pairs"] > 0
+    assert recs["lb_asc"]["wasted_pairs"] == 0 and recs["lb_mm"]["wasted_pairs"] is None
+
+
+def test_profile_epilogue_exits_nonzero_on_a_wrong_variant(monkeypatch, capsys):
+    """A variant that disagrees with the reference is reported (its first
+    rays printed) and nothing is timed: the script exits 1."""
+    tpe = _load("torch_profile_epilogue")
+    real = tpe.mxu.lb_asc_intersect
+
+    def wrong(*a, **kw):
+        t, tri = real(*a, **kw)
+        return t, tri + (tri >= 0).to(tri.dtype)
+
+    wrong.launches = 0
+    monkeypatch.setattr(tpe.mxu, "lb_asc_intersect", wrong)
+    with pytest.raises(SystemExit) as exc:
+        tpe.run(["--res", "12", "--k", "1", "--device", "cpu", "--only", "lb_asc"])
+    out = capsys.readouterr().out
+    assert exc.value.code == 1
+    assert "lb_asc             bit-identical: False" in out and "  ray " in out
+    assert not _json_lines(out)
+
+
+def test_traversal_runs_cover_every_mode_and_plan():
+    tbs = _load("torch_bench_scenes")
+    runs = tbs.traversal_runs(tbs.MESH_SCENES)
+    for scene in tbs.MESH_SCENES:
+        mine = [(cfg["mxu_traversal"], env.get("PTT_PLAN_IMPL"), env.get("PTT_STREAM_SUPER"))
+                for p, cfg, env in runs if p == scene]
+        for mode in ("auto", "planned", "streamed", "binned"):
+            assert (mode, "xla", None) in mine and (mode, "pallas", None) in mine
+        assert ("sweep", "xla", None) in mine
+        assert (("mono", "xla", None) in mine) == scene.endswith("_5k.json")
+    assert ("scenes/cornell_mesh_500k.json", {"mxu_traversal": "streamed",
+                                             "mesh_intersector": "mxu"},
+            {"PTT_PLAN_IMPL": "pallas", "PTT_STREAM_SUPER": "1"}) in runs
+
+
+def test_scripts_and_smoke_import_no_jax():
+    """Importing every script (and chip_smoke) pulls in neither jax nor the
+    JAX package."""
+    code = (
+        "import sys, importlib.util\n"
+        f"sys.path.insert(0, {str(REPO / 'scripts')!r})\n"
+        f"for name in {SCRIPTS + ('../chip_smoke',)!r}:\n"
+        f"    path = {str(REPO / 'scripts')!r} + '/' + name + '.py'\n"
+        "    spec = importlib.util.spec_from_file_location(name.split('/')[-1], path)\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    sys.modules[name.split('/')[-1]] = mod\n"
+        "    spec.loader.exec_module(mod)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m.split('.')[0] == 'project3_cuda_path_tracer_2025_tpu']\n"
+        "print('BAD', bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=str(REPO))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "BAD []" in out.stdout
+
+
+def test_chip_smoke_lists_its_phases_and_needs_a_card():
+    smoke = [sys.executable, str(REPO / "chip_smoke.py")]
+    listed = subprocess.run(smoke + ["--list"], capture_output=True, text=True, timeout=300)
+    assert listed.returncode == 0
+    for span in ("1-2", "3-7", "8 ", "10-12", "13-14", "15", "16-19", "20", "21", "22", "9 "):
+        assert any(line.startswith(span) for line in listed.stdout.splitlines()), span
+    import torch
+
+    if not torch.cuda.is_available():
+        run = subprocess.run(smoke + ["--phases", "20"], capture_output=True, text=True,
+                             timeout=300)
+        assert run.returncode == 2 and '"ok"' not in run.stdout
+
+
+def test_chip_smoke_parses_phase_lists():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.parse_phases("1-7,20") == {1, 2, 3, 4, 5, 6, 7, 20}
+    assert smoke.parse_phases("22") == {22}
+    numbered = sorted(p for g in smoke.GROUPS for p in g[1])
+    assert numbered == [3, 4, 5, 6, 7, 8] + list(range(10, 23))
+    assert {g[3] for g in smoke.GROUPS if g[3]} <= {g[0] for g in smoke.GROUPS}
