@@ -53,6 +53,12 @@ from project3_cuda_path_tracer_2025_tpu_torch.utils.measure import (  # noqa: E4
     bound_ms, card_label, event_ms as cuda_time_ms,
 )
 
+sys.path.insert(0, str(ROOT / "scripts"))
+# The sorted bounce states of phase 11 and the film hashes are the A/B
+# script's, so that its numbers and this script's describe the same rays
+# and films.
+from torch_bench_kernels import sha, sorted_bounces  # noqa: E402
+
 PKG = "project3_cuda_path_tracer_2025_tpu_torch"
 SCENE = ROOT / "scenes" / "cornell_dof.json"
 SCENE_LOBES = ROOT / "scenes" / "cornell_all_lobes.json"
@@ -89,7 +95,6 @@ OPS_MONO_TILE = 35  # member slab of one tile
 OPS_MONO_PAIR = 41  # 19 fma, division, t, the acceptance tests
 OPS_KEY_TILE, OPS_KEY_RAY = 28, 60  # coherence_key per tile / per ray
 OPS_MERGE = 10  # mesh-hit merge and normal flip
-OPS_SCAN = 1  # one add per element of the row scan
 
 # Film comparisons between the kernel and the plain path: the goldens'
 # per-pixel tolerance (tests/test_goldens.py), a bound on the share of pixels
@@ -447,41 +452,6 @@ def bit_diff(got: tuple, want: tuple) -> tuple:
     return int((trk != trp).sum()), int(t_bad.sum()), float(diff.max()) if diff.numel() else 0.0
 
 
-def sorted_bounces(dev, static, cam, cfg, device, bounces: int = 3) -> list:
-    """Camera rays and the next bounces, each in the main path's coherence
-    order: [(paths, t_lim, live)].  A bounce's hits come from the kernel
-    traversal (held to its plain version in the same phase), its shade from
-    the plain shade."""
-    import dataclasses
-
-    from project3_cuda_path_tracer_2025_tpu_torch.ops import camera as camera_ops
-    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused, intersect_mxu as mxu
-    from project3_cuda_path_tracer_2025_tpu_torch.ops.compaction import permute_path_state
-    from project3_cuda_path_tracer_2025_tpu_torch.ops.intersect import prim_t_min
-    from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
-
-    tables = dev.mxu_mesh
-    n = static.pixel_count
-    prim_static = dataclasses.replace(static, num_triangles=0)
-    ik = prng.iteration_key(prng.prng_key(0), 1)
-    paths = camera_ops.generate_camera_rays(
-        cam, static.width, static.height, static.trace_depth,
-        prng.uniforms_at(prng.stage_key(ik, 0, 0), torch.arange(n, device=device), 4, n))
-    out = []
-    for d in range(bounces):
-        tl = prim_t_min(static, cfg, paths.origin, paths.direction)
-        perm = mxu.coherence_perm(tables, paths.origin, paths.direction, paths.alive, tl,
-                                  cfg.ray_sort_bits, cfg.ray_sort_dir_bits, mode="signature")
-        paths, (tl,) = permute_path_state(paths, perm, extra=(tl,))
-        live = paths.alive & mxu.root_hit_mask(tables.tile_aabb, tables.center, *paths.origin,
-                                               *paths.direction, tl)
-        out.append((paths, tl, live))
-        mt, mn, mm = fused.mesh_surface(tables, static, cfg, paths, tl)
-        paths = fused.fused_mesh_shade_plain(prim_static, cfg, paths, mt, mn, mm,
-                                             prng.stage_key(ik, d, 1), n)
-    return out
-
-
 def walk_args(tables, paths, tl, live, blocks: int = None) -> tuple:
     """The walk kernels' arguments for one state (its full plan), cut to
     its first ``blocks`` blocks when given (a plan row covers one block, so
@@ -822,11 +792,27 @@ def larger_mesh_phases(device, smi: str) -> tuple:
     del states, a0
 
     # -- 11. streamed, cornell_mesh_80k.json and cornell_mesh_500k.json ------
+    def per_bounce(tag, states, reps):
+        """#7 on each sorted bounce at full size: ms per launch (median of 3
+        samples of ``reps`` launches), its bound and share of it."""
+        for d, st in enumerate(states):
+            args = walk_args(tables, *st)
+            fn = lambda: mxu.streamed_intersect(*args)
+            fn()
+            torch.cuda.synchronize()
+            ms = float(np.median([cuda_time_ms(fn, reps) for _ in range(3)]))
+            b = walk_bound(args)
+            log(f"[{tag}] streamed_intersect bounce {d}: {ms:.4f} ms per launch on {smi}; "
+                f"{int(args[3].sum())} live rays, {b[2]} candidate (ray, tile) pairs; bound "
+                f"{b[0]:.4f} ms ({b[1]}), {b[0] / ms:.1%} of it")
+
     log("[11] streamed walk (#7):")
     scene, dev, static, cam = setup("80k")
     tables, n, depth = dev.mxu_mesh, static.pixel_count, static.trace_depth
-    states = STATES["80k"] = sorted_bounces(dev, static, cam, cfg, device)
+    states = sorted_bounces(dev, static, cam, cfg, device, bounces=depth)
+    STATES["80k"] = states[:3]
     check_walks("11a", ("streamed",), states, tables)
+    per_bounce("11a", states, 10)
     frame = lambda c, plain=False: megakernel_iteration(
         dev, static, c, cam, film_ops.new_film(n, device), 1, base_key, plain=plain)
     film_s, alive_s = frame(cfg)
@@ -837,7 +823,8 @@ def larger_mesh_phases(device, smi: str) -> tuple:
     r_frame = compare_films("sorted kernel path vs plain", film_s, film_p)
     sorted_eq = all(torch.equal(a, b) for a, b in zip(film_s, film_u))
     log(f"  sorted and unsorted kernel films bit-identical: {sorted_eq}; alive per depth "
-        f"kernel {alive_s.tolist()}, plain {alive_p.tolist()}")
+        f"kernel {alive_s.tolist()}, plain {alive_p.tolist()}; film sha256 "
+        f"{sha(*film_s)}")
     alive_rel = np.abs(alive_s.cpu().numpy() - alive_p.cpu().numpy()) / np.maximum(
         alive_p.cpu().numpy(), 1)
     if not (sorted_eq and torch.equal(alive_s, alive_u) and r_frame["finite"]
@@ -881,14 +868,17 @@ def larger_mesh_phases(device, smi: str) -> tuple:
 
     scene, dev, static, cam = setup("500k")
     tables, n, depth = dev.mxu_mesh, static.pixel_count, static.trace_depth
-    states = STATES["500k"] = sorted_bounces(dev, static, cam, cfg, device)
+    states = sorted_bounces(dev, static, cam, cfg, device, bounces=depth)
+    STATES["500k"] = states[:3]
     check_walks("11f", ("streamed",), states, tables, blocks=PLAIN_BLOCKS)
+    per_bounce("11f", states, 5)
     film_s, alive_s = megakernel_iteration(dev, static, cfg, cam, film_ops.new_film(n, device),
                                            1, base_key)
     film_u, _ = megakernel_iteration(dev, static, RenderConfig(ray_sorting="off"), cam,
                                      film_ops.new_film(n, device), 1, base_key)
     sorted_eq = all(torch.equal(a, b) for a, b in zip(film_s, film_u))
-    log(f"[11g] 500k frame: sorted and unsorted kernel films bit-identical: {sorted_eq}")
+    log(f"[11g] 500k frame: sorted and unsorted kernel films bit-identical: {sorted_eq}; film "
+        f"sha256 {sha(*film_s)}")
     if not sorted_eq:
         raise AssertionError("the 500k sorted and unsorted films differ")
     r, got = drive(scene, 2, counters)
@@ -1073,7 +1063,7 @@ def texture_phases(device, smi: str) -> tuple:
     base_key = prng.prng_key(0)
     counters = {c.__name__: c for c in (
         mxu.mono_intersect, fused.fused_mesh_shade, fused.fused_prim_iteration,
-        fused.fused_prim_bounce, scan.scan_tiles)}
+        fused.fused_prim_bounce, scan.scan_flat)}
     entries, profiled = [], {}
     for tag, mode, scenes in (("13", "precomputed", (PRIM_TEX,)),
                               ("14", "textured", (MESH_TEX, MESH_BUMP))):
@@ -1192,8 +1182,10 @@ def texture_phases(device, smi: str) -> tuple:
 # ---------------------------------------------------------------------------
 
 def wavefront_phases(device, smi: str) -> tuple:
-    """Phase 15: the scan kernel against torch.cumsum and its plain
-    version, the radix sort against a stable argsort, and
+    """Phase 15: the scan kernels against torch.cumsum and their plain
+    version (exact on int32), one exclusive_scan timed against
+    torch.cumsum with its device launches and host reads counted and its
+    host cost split, the radix sort against a stable argsort, and
     ``Renderer(integrator="wavefront")`` on cornell_dof.json (every
     compaction policy, with and without material sorting),
     cornell_mesh_5k.json and the textured mesh: each film bit-identical to
@@ -1229,19 +1221,22 @@ def wavefront_phases(device, smi: str) -> tuple:
             f"(torch.cumsum in float32: {rel_lib:.3e}); bar 1e-5")
         if rel > 1e-5:
             raise AssertionError("the float scan is outside its tolerance")
-    rows = (scan.TILE * 40) // scan.LANES
-    xp = (torch.rand(rows, scan.LANES, generator=g, device=device) > 0.5).float()
-    lk, tk = scan.scan_tiles(xp)
-    lp, tp = scan.scan_tiles_plain(xp)
-    torch.cuda.synchronize()
-    bad = bits_differ(lk, lp) + bits_differ(tk.contiguous(), tp.contiguous())
-    xf = torch.rand(rows, scan.LANES, generator=g, device=device)
-    (lk, tk), (lp, tp) = scan.scan_tiles(xf), scan.scan_tiles_plain(xf)
-    err = max(float((lk - lp).abs().max()), float((tk - tp).abs().max()))
-    log(f"[15a] scan_tiles on [{rows}, 128] 0/1 rows: elements not bit-equal to "
-        f"scan_tiles_plain: {bad}; on U[0,1) rows: max abs diff {err:.3g} (row sums < 128)")
-    if bad or err > 1e-4:
-        raise AssertionError("the scan kernel disagrees with its plain version")
+    # the kernels against their plain version on both dtypes, one tile and many
+    err = 0.0
+    for n in (640_000, scan.KERNEL_TILE * 7 + 5, 1000):
+        xi = torch.randint(0, 3, (n,), generator=g, device=device, dtype=torch.int32)
+        xf = torch.rand(n, generator=g, device=device)
+        for inclusive in (False, True):
+            bad = bits_differ(scan.scan_flat(xi, inclusive), scan.scan_flat_plain(xi, inclusive))
+            got = scan.scan_flat(xf, inclusive).double()
+            ref = scan.scan_flat_plain(xf.double(), inclusive)
+            rel = float(((got - ref).abs() / ref.abs().clamp_min(1.0)).max())
+            err = max(err, float((got - scan.scan_flat_plain(xf, inclusive).double()).abs().max()))
+            log(f"[15a] scan_flat N={n} {'inclusive' if inclusive else 'exclusive'}: int32 "
+                f"elements differing from scan_flat_plain {bad}; float32 max relative error vs "
+                f"a float64 scan {rel:.3e} (bar 1e-5)")
+            if bad or rel > 1e-5:
+                raise AssertionError("the scan kernels disagree with their plain version")
     keys = torch.randint(0, 64, (640_000,), generator=g, device=device, dtype=torch.int32)
     perm = scan.radix_sort_permutation(keys, num_bits=6)
     same = torch.equal(perm.long(), torch.argsort(keys, stable=True))
@@ -1266,11 +1261,11 @@ def wavefront_phases(device, smi: str) -> tuple:
         fast.step_many(1)
         depth = ref.static.trace_depth
         for name, kw in cfgs:
-            scan.scan_tiles.launches = 0
+            scan.scan_flat.launches = 0
             wf = Renderer(scene, RenderConfig(integrator="wavefront", **kw))
             wf.step_many(1)
             torch.cuda.synchronize()
-            launches = scan.scan_tiles.launches
+            launches = scan.scan_flat.launches
             same = all(torch.equal(a, b) for a, b in zip(wf.film, ref.film))
             log(f"[15c] {path.name} wavefront ({name}): scan launches {launches}, alive "
                 f"{wf._alive_counts.tolist()}; film bit-identical to the unfused megakernel "
@@ -1298,41 +1293,90 @@ def wavefront_phases(device, smi: str) -> tuple:
     rounds = {k: 3 for k in timed}
     log_times("15d", smi, time_paths(timed, rounds), timed, rounds, rays)
 
-    # e. the scan kernel alone, at a compacting bounce's shape
-    x = (torch.rand(640_000, generator=g, device=device) > 0.5).float()
-    n_pad = ((x.shape[0] + scan.TILE - 1) // scan.TILE) * scan.TILE
-    xp = torch.nn.functional.pad(x, (0, n_pad - x.shape[0])).reshape(-1, scan.LANES)
+    # e. one exclusive_scan at a compacting bounce's shape: the kernels, the
+    # plain version and the one torch call of the same function, by events
+    # and on the device; the wrapper's host cost split into its steps
+    x = (torch.rand(640_000, generator=g, device=device) > 0.5).to(torch.int32)
+    want = torch.cumsum(x, 0, dtype=torch.int32)
+    if not (torch.equal(scan.exclusive_scan(x), want - x)
+            and torch.equal(scan.inclusive_scan(x), want)):
+        raise AssertionError("exclusive_scan / inclusive_scan of int32 flags are not exact")
     t = {
-        "scan_tiles kernel (1 launch)": (lambda: scan.scan_tiles(xp), 50),
-        "scan_tiles_plain (1 call)": (lambda: scan.scan_tiles_plain(xp), 50),
-        "library torch.cumsum(xp, 1)": (lambda: torch.cumsum(xp, 1), 50),
-        "exclusive_scan, kernel path": (lambda: scan.exclusive_scan(x), 20),
-        "library torch.cumsum(x, 0)": (lambda: torch.cumsum(x, 0), 50),
+        "exclusive_scan, kernels (1 call)": (lambda: scan.exclusive_scan(x), 50),
+        "inclusive_scan, kernels (1 call)": (lambda: scan.inclusive_scan(x), 50),
+        "plain exclusive_scan_jnp (1 call)": (lambda: scan.exclusive_scan_jnp(x), 50),
+        "library torch.cumsum(x, 0) (1 call)":
+            (lambda: torch.cumsum(x, 0, dtype=torch.int32), 50),
     }
     rounds = {k: TIMING_ROUNDS for k in t}
     ms = log_times("15e", smi, time_paths(t, rounds), t, rounds, {})
-    for name in ("scan_tiles kernel (1 launch)", "scan_tiles_plain (1 call)",
-                 "library torch.cumsum(xp, 1)"):
+    dev_ms = {}
+    for name in t:
         busy, wall, count, _ = device_busy(t[name][0], 50)
+        dev_ms[name] = busy
         log(f"    {name}: device time {busy:.4f} ms per call under the profiler "
-            f"({count:.0f} device launches per call; the rest of the event time above is "
-            f"the host's launch cost)")
-    bound = bound_ms(xp.numel() * 8 + xp.shape[0] * 4, xp.numel() * OPS_SCAN)
-    log(f"    bound of one scan_tiles launch on [{xp.shape[0]}, 128]: {bound[0]:.4f} ms "
-        f"({bound[1]})")
+            f"({count:.0f} device launches per call)")
+        if name.startswith("exclusive_scan") and count > 2:
+            raise AssertionError(f"exclusive_scan took {count} device launches, not <= 2")
+    syncs = host_syncs(lambda: scan.exclusive_scan(x))
+    log(f"    host reads in one exclusive_scan: {syncs}")
+    if not syncs.startswith("0 "):
+        raise AssertionError("exclusive_scan reads the device")
+    scan_host_split(x)
+    bound = bound_ms(x.numel() * 8, 0)
+    log(f"    bound of one scan of {x.numel()} int32 elements: {bound[0]:.4f} ms ({bound[1]}; "
+        f"each element read once and its prefix written once); exclusive_scan at "
+        f"{bound[0] / ms['exclusive_scan, kernels (1 call)']:.1%} of it by events, "
+        f"{bound[0] / dev_ms['exclusive_scan, kernels (1 call)']:.1%} on the device")
     return [{
-        "name": "scan_tiles",
+        "name": "scan_flat",
         "route": "cuda",
         "source": f"{PKG}/csrc/scan.cu",
         "replaces": "project3_cuda_path_tracer_2025_tpu/ops/scan.py:75",
         "launches": main_launches,
         "max_abs_err": err,
-        "ms": ms["scan_tiles kernel (1 launch)"],
-        "plain_ms": ms["scan_tiles_plain (1 call)"],
+        "ms": ms["exclusive_scan, kernels (1 call)"],
+        "plain_ms": ms["plain exclusive_scan_jnp (1 call)"],
         "bound_ms": bound[0],
         "bound_by": bound[1],
-        "library_ms": ms["library torch.cumsum(xp, 1)"],
+        "library_ms": ms["library torch.cumsum(x, 0) (1 call)"],
     }], profiled
+
+
+def scan_host_split(x, calls: int = 10_000) -> None:
+    """The host cost of one ``scan_flat`` call split into its steps, each
+    timed alone over ``calls`` calls with ``time.perf_counter`` (the launch
+    step enqueues the two kernels; one synchronisation after the loop)."""
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import kernels, scan
+
+    n, device = x.shape[0], x.device
+    tiles = (n + scan.KERNEL_TILE - 1) // scan.KERNEL_TILE
+    buf = torch.empty((n + tiles,), dtype=x.dtype, device=device)
+    lib = kernels.load("scan")
+    args = (x.data_ptr(), buf.data_ptr(), buf.data_ptr() + 4 * n, n, 0, 0)
+    steps = {
+        "checks (check_flat)": lambda: scan.check_flat(x),
+        "torch.empty of the output and totals": lambda: torch.empty(
+            (n + tiles,), dtype=x.dtype, device=device),
+        "kernels.load('scan')": lambda: kernels.load("scan"),
+        "kernels.stream_handle (raw handle)": lambda: kernels.stream_handle(device),
+        "torch.cuda.current_stream(device).cuda_stream (before)":
+            lambda: torch.cuda.current_stream(device).cuda_stream,
+        "ctypes launch (two kernels)": lambda: lib.lib.ptt_launch_scan(
+            *args, kernels.stream_handle(device)),
+        "the whole scan_flat call": lambda: scan.scan_flat(x, False),
+    }
+    log(f"[15e] host cost of one scan_flat call, split ({calls} calls each, "
+        "time.perf_counter, us per call):")
+    for name, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t0) * 1e6 / calls
+        torch.cuda.synchronize()
+        log(f"    {name:56s} {us:8.3f} us")
 
 
 # ---------------------------------------------------------------------------
@@ -2034,7 +2078,6 @@ def epilogue_phases(device, smi: str) -> tuple:
     are set to 0 just before each script run and read just after.  Returns the
     new kernels' entries of the kernels line (times of the 5k run for the
     mono flavors, of the 20k run, where a plan matters, for lb_asc)."""
-    sys.path.insert(0, str(ROOT / "scripts"))
     import torch_profile_epilogue as tpe
 
     from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
@@ -2062,8 +2105,9 @@ def epilogue_phases(device, smi: str) -> tuple:
             if "plain_mismatch" in r and (r["plain_mismatch"] or r["max_abs_err"]):
                 raise AssertionError(f"{name} differs from its plain version on {path.name}")
         floors = {k: v["ms"] for k, v in runs[tag].items() if not v["exact"]}
-        log(f"[20] {path.name} floors (numerators and a minimum fold only, wrong results by "
-            f"design, equal to their plain versions): {floors} ms per launch on {smi}")
+        log(f"[20] {path.name} floors (the four numerators and a minimum fold of det, as the "
+            f"JAX script's; wrong results by design, equal to their plain versions): {floors} "
+            f"ms per launch on {smi}")
         wasted = {k: v["wasted_pairs"] for k, v in runs[tag].items() if v["wasted_pairs"]}
         log(f"[20] {path.name} (ray, tile) pairs a schedule evaluates beyond what its bound "
             f"counts (non-members and dead rays of a visiting block): {wasted}")

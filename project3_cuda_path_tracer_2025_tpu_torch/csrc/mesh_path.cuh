@@ -9,8 +9,8 @@
 //                     walks that take tiles in ascending id
 //                     (ops/intersect_mxu.py::lb_asc_plain, epilogue_mono_plain);
 //   mm_fold         = one (ray, tile) pair of the timing-floor flavors
-//                     (ops/intersect_mxu.py::_mm_plain): numerators and a
-//                     minimum, no acceptance;
+//                     (ops/intersect_mxu.py::_mm_plain): the numerators and
+//                     a minimum of det, no acceptance;
 //   binned_pair     = one pair row of ops/intersect_mxu.py::binned_intersect_plain;
 //   sweep_ray       = one ray of ops/intersect_mxu.py::sweep_intersect_plain;
 //   super_visit     = one ray's visit of a super-tile plan entry
@@ -186,9 +186,7 @@ struct Numerators {
   float det, un, vn, tn;
 };
 
-PTT_HD Numerators numerators(const float f[10], const float* row) {
-  float k[PTT_COEF_W];
-  load_coef(row, k);
+PTT_HD Numerators numerators_k(const float f[10], const float k[PTT_COEF_W]) {
   Numerators m = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
   for (int q = 0; q < 3; ++q) m.det = fmaf(f[q], k[q], m.det);
@@ -201,11 +199,17 @@ PTT_HD Numerators numerators(const float f[10], const float* row) {
   return m;
 }
 
-// _mt_hit on one coefficient row: the numerators, the sign of det XORed
+PTT_HD Numerators numerators(const float f[10], const float* row) {
+  float k[PTT_COEF_W];
+  load_coef(row, k);
+  return numerators_k(f, k);
+}
+
+// _mt_hit on one coefficient row k: the numerators, the sign of det XORed
 // into u and v, |det| for their sum, and the hit confined to [t_lo, t_hi].
-PTT_HD bool mt_accept(const float f[10], const float* row, float baby_eps, float t_lo,
-                      float t_hi, float* tt) {
-  const Numerators m = numerators(f, row);
+PTT_HD bool mt_accept_k(const float f[10], const float k[PTT_COEF_W], float baby_eps, float t_lo,
+                        float t_hi, float* tt) {
+  const Numerators m = numerators_k(f, k);
   const float det = m.det, un = m.un, vn = m.vn, tn = m.tn;
   const float abs_det = fabsf(det);
   const bool det_ok = abs_det >= baby_eps;
@@ -216,6 +220,13 @@ PTT_HD bool mt_accept(const float f[10], const float* row, float baby_eps, float
   const float vs = ptt_as_float(ptt_as_int(vn) ^ sign);
   return det_ok && (ptt_min(us, vs) >= 0.0f) && (us + vs <= abs_det) && (*tt >= t_lo) &&
          (*tt <= t_hi);
+}
+
+PTT_HD bool mt_accept(const float f[10], const float* row, float baby_eps, float t_lo,
+                      float t_hi, float* tt) {
+  float k[PTT_COEF_W];
+  load_coef(row, k);
+  return mt_accept_k(f, k, baby_eps, t_lo, t_hi, tt);
 }
 
 // The ray's 1,024 triangles of one tile, folded into its running closest
@@ -294,13 +305,22 @@ PTT_HD void asc_visit(WalkRay& r, const float* coef, const float* row, int tile,
   asc_fold(r, coef, tile, member, s, baby_eps, eps_succ);
 }
 
-// The timing-floor flavors ("mm": wrong results by design).  Per pair the
-// four numerators and one minimum fold, nothing else: the least of the four
-// numerators is folded into the ray's running minimum, ties to the lower
-// lane (the triangle's index inside its tile), whatever tile it came from.
-// A ray that is not live runs with all-zero features, as the TPU kernel's
-// zeroed feature rows do.  mm_ray prepares the ray, mm_fold takes one tile,
-// mm_resolve gives (min, lane) below the ray's t_limit, else (t_limit, -1).
+// The timing-floor flavors ("mm": wrong results by design), the JAX
+// script's lb_mm and mono_call("mm") (scripts/profile_epilogue.py, the
+// mm_only branch of lb_asc_kernel and mono_kernel's "mm" tile_eval).  There
+// each visited tile's matmul gives all four numerator columns and only
+// det's is kept: lane_t = min(lane_t, det) per lane, lane_tile left at
+// 1 << 30.  Its resolve then takes the row minimum, and the lowest lane at
+// it as tri_lane = lane_tile * 1,024 + lane, which wraps in int32 to the
+// lane itself; so per ray: the least det over the visited tiles' pairs,
+// ties to the lower lane (the triangle's index inside its tile) whatever
+// tile it came from.  A ray that is not live runs with all-zero features,
+// as the script's zeroed feature rows do.  The other three numerator chains
+// are computed and kept live by an empty asm volatile that takes them as
+// operands (on the card; the host build has no such sink and needs none),
+// so the floor still pays for the four chains the matmul computes.  mm_ray
+// prepares the ray, mm_fold takes one tile, mm_resolve gives (min, lane)
+// below the ray's t_limit, else (t_limit, -1).
 PTT_HD void mm_ray(WalkRay& r) {
   if (!r.live) {
     for (int q = 0; q < 10; ++q) r.f[q] = 0.0f;
@@ -313,9 +333,11 @@ PTT_HD void mm_fold(WalkRay& r, const float* coef, int tile) {
   const float* cf = coef + (size_t)tile * PTT_TRI_TILE * PTT_COEF_W;
   for (int j = 0; j < PTT_TRI_TILE; ++j, cf += PTT_COEF_W) {
     const Numerators m = numerators(r.f, cf);
-    const float q = ptt_min(ptt_min(m.det, m.un), ptt_min(m.vn, m.tn));
-    if (q < r.best || (q == r.best && j < r.best_tri)) {
-      r.best = q;
+#if defined(__CUDA_ARCH__)
+    asm volatile("" ::"f"(m.un), "f"(m.vn), "f"(m.tn));
+#endif
+    if (m.det < r.best || (m.det == r.best && j < r.best_tri)) {
+      r.best = m.det;
       r.best_tri = j;
     }
   }
@@ -333,6 +355,76 @@ PTT_HD void mm_resolve(WalkRay& r) {
 // ray's share of that vote (dead rays count as 0, as in the JAX package).
 PTT_HD bool walk_goes_on(const WalkRay& r, float tile_tlo) {
   return tile_tlo <= (r.live ? r.best : 0.0f);
+}
+
+// The streamed walk's block schedule (ptt_streamed_kernel): a plan entry's
+// (ray, triangle) pairs are spread over the block's threads instead of one
+// thread walking its ray's 1,024 triangles.  Per entry:
+//   walk_take    each ray's share of the member test and the improvability
+//                gate of walk_visit, and its pair window [t_lo, t_hi] of
+//                tile_fold; the rays that take the tile are listed;
+//   spread_load  thread tid loads the rows of its triangles tid + T i,
+//                i < 1,024 / T, into registers (T: PTT_SPREAD_THREADS);
+//   spread_key   and evaluates them against each listed ray: the least key
+//                of its accepted pairs;
+// and each ray's running best is the minimum of the keys it is given.  A
+// key orders (t, tri) as tile_fold's rule does: a smaller t, then a lower
+// id.  Its high word is t's bits mapped so that unsigned order is float
+// order (negative values included), its low word tri + 1: the initial
+// (t_limit, -1) becomes (t_limit, 0), below every (t_limit, tri >= 0), so a
+// hit at exactly t_limit never replaces it (tile_fold's "tri < -1" is never
+// true).  The minimum of keys is the lexicographic minimum tile_fold folds
+// to in any order, so the schedule gives the per-ray walk's (t, tri) bit
+// for bit.
+#ifndef PTT_SPREAD_THREADS
+#define PTT_SPREAD_THREADS 512  // threads a block spreads an entry's pairs over
+#endif
+#define PTT_SPREAD (PTT_TRI_TILE / PTT_SPREAD_THREADS)  // triangles a thread takes per entry
+#define PTT_NO_KEY 0xFFFFFFFFFFFFFFFFull
+
+PTT_HD uint64_t walk_key(float t, int32_t tri) {
+  const uint32_t b = (uint32_t)ptt_as_int(t);
+  const uint32_t u = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return ((uint64_t)u << 32) | (uint32_t)(tri + 1);
+}
+
+PTT_HD void walk_unkey(uint64_t key, float* t, int32_t* tri) {
+  const uint32_t u = (uint32_t)(key >> 32);
+  *t = ptt_as_float((int32_t)((u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u));
+  *tri = (int32_t)(uint32_t)key - 1;
+}
+
+PTT_HD bool walk_take(const WalkRay& r, const float* row, float eps_succ, float* t_lo,
+                      float* t_hi) {
+  if (!r.live) return false;
+  const Slab s = widen(slab(row, row + 3, r.os, r.inv), PTT_SLAB_REL1, PTT_SLAB_ABS1);
+  if (!slab_enters(s, r.tlim) || !(s.lo <= r.best)) return false;
+  *t_lo = ptt_max(s.lo, eps_succ);
+  *t_hi = s.hi;
+  return true;
+}
+
+PTT_HD void spread_load(const float* coef, int tile, int tid, float k[PTT_SPREAD][PTT_COEF_W]) {
+  const float* cf = coef + ((size_t)tile * PTT_TRI_TILE + tid) * PTT_COEF_W;
+#pragma unroll
+  for (int i = 0; i < PTT_SPREAD; ++i) {
+    load_coef(cf + (size_t)i * PTT_SPREAD_THREADS * PTT_COEF_W, k[i]);
+  }
+}
+
+// tri0: the global id of the thread's first triangle, tile * 1,024 + tid.
+PTT_HD uint64_t spread_key(const float f[10], float t_lo, float t_hi,
+                           const float k[PTT_SPREAD][PTT_COEF_W], int32_t tri0, float baby_eps) {
+  uint64_t best = PTT_NO_KEY;
+#pragma unroll
+  for (int i = 0; i < PTT_SPREAD; ++i) {
+    float tt;
+    if (mt_accept_k(f, k[i], baby_eps, t_lo, t_hi, &tt)) {
+      const uint64_t key = walk_key(tt, tri0 + i * PTT_SPREAD_THREADS);
+      best = key < best ? key : best;
+    }
+  }
+  return best;
 }
 
 // The sweep for one ray (_intersect_kernel): every tile of the table in

@@ -51,9 +51,31 @@
 //   best (the improvability gate, taken per ray instead of per block).
 //   #5 and #6 stage the (at most 32) tile boxes in shared memory; #7 reads
 //   its boxes and plan rows through the read-only cache (up to 1,024 tiles:
-//   32 KB of boxes, 8 KB of plan row per block).  The TPU kernel streams
-//   feature tiles HBM->VMEM with DMA double buffering; here the L1/L2
-//   caches serve the coefficient rows (cp.async/TMA staging is later work).
+//   32 KB of boxes, 8 KB of plan row per block).
+//   #7 has a block schedule of its own (the others keep one thread a ray).
+//   In the per-ray schedule a member ray walked its tile's 1,024 triangles
+//   alone while the rest of its warp waited, a chain of ~1 us a
+//   block-visit at 0.8% of the walk's operations bound.  The TPU kernel
+//   evaluates a 256-ray block against a whole tile as one matmul, its
+//   feature tiles double-buffered HBM->VMEM by DMA.  Here, per plan entry,
+//   after the exit vote, the rays that take the tile (live, member, past
+//   the gate) are listed in shared memory (warp ballots and a prefix over
+//   the eight ray warps), and the list's (ray, triangle) pairs are dealt
+//   over the block: PTT_SPREAD_THREADS = 512 threads, thread t holding the
+//   rows of triangles t and t + 512 in registers and evaluating them
+//   against every listed ray.  Each ray's running best is a 64-bit key in
+//   shared memory that the threads lower with atomicMin (csrc/mesh_path.cuh,
+//   walk_key: the ordered bits of t, then tri + 1), the lexicographic
+//   minimum the per-ray fold computes in any order, so the results are bit
+//   for bit the per-ray walk's.  Shared memory: the 256 rays' features (10
+//   KB), keys (2 KB), the list with its pair windows (3 KB), 64 B of
+//   counts: 15,424 B, so registers (84 a thread) set the occupancy, one
+//   block of 16 warps an SM.  Measured (scripts/torch_ab_streamed_walk.py,
+//   PERF.md): 512 threads beat 256 (two blocks an SM, four triangles a
+//   thread) and 1,024 (one triangle a thread) summed over a frame's eight
+//   sorted bounces at 80k and 500k; staging the next entry's rows in shared
+//   memory by cp.async (two 80 KB stages, one block an SM) lost to reading
+//   them from L2 into registers on every bounce, and was left out.
 //   #10 is stateless: block v takes visit v's tile (vt[v], -1 = an empty
 //   slot region, which writes (inf, -1)); thread r takes pair row r, the
 //   ray (src[32 v + r / 8]) * 8 + r % 8 of the packet in that slot.  The
@@ -98,6 +120,9 @@
 // Divergence is the cost beyond the bound: a warp runs a tile for as long
 // as its slowest member, whatever number of its rays are members.  The
 // coherence sort in front of the traversal is what keeps warps coherent.
+// #7's block schedule removes that cost (every thread evaluates pairs); what
+// it leaves is a block-visit's fixed part (three barriers, the list, 80 KB
+// of rows from L2) and a few live blocks an SM on the early bounces.
 // #11 is bound by operations too (a slab test of ~35 operations per (ray,
 // tile) pair against 36 bytes a ray and 5 bytes an output).
 //
@@ -164,7 +189,7 @@ __device__ __forceinline__ WalkRay load_walk_ray(const PttWalkArgs& a, int idx, 
 }
 
 // One block's walk of its plan row.  EXIT: the early exit and the per-ray
-// improvability gate (#6, #7).  aabb: the tile boxes (shared or global).
+// improvability gate (#6).  aabb: the tile boxes (shared or global).
 template <bool EXIT>
 __device__ __forceinline__ void walk_block(const PttWalkArgs& a, const float* aabb, V3 center) {
   const int b = blockIdx.x;
@@ -200,8 +225,77 @@ __global__ void __launch_bounds__(PTT_RAY_TILE) ptt_planned_kernel(const PttWalk
   walk_block_shared<true>(a);
 }
 
-__global__ void __launch_bounds__(PTT_RAY_TILE) ptt_streamed_kernel(const PttWalkArgs a) {
-  walk_block<true>(a, a.tile_aabb, v3(__ldg(a.center), __ldg(a.center + 1), __ldg(a.center + 2)));
+// #7: the block schedule of csrc/mesh_path.cuh (walk_take, spread_load,
+// spread_key), PTT_SPREAD_THREADS threads a block of 256 rays.  Thread t <
+// 256 owns ray t of the block (its state, its exit vote, its member test);
+// at each entry every thread t takes triangles t + PTT_SPREAD_THREADS i of
+// the tile.
+__global__ void __launch_bounds__(PTT_SPREAD_THREADS,
+                                  PTT_SPREAD_THREADS >= 512 ? 1 : 512 / PTT_SPREAD_THREADS)
+    ptt_streamed_kernel(const PttWalkArgs a) {
+  constexpr int kRayWarps = PTT_RAY_TILE / 32;
+  __shared__ float sh_f[10][PTT_RAY_TILE];          // the rays' features
+  __shared__ unsigned long long sh_key[PTT_RAY_TILE];  // each ray's running best as a key
+  __shared__ int sh_list[PTT_RAY_TILE];             // the rays that take the entry
+  __shared__ float sh_lo[PTT_RAY_TILE], sh_hi[PTT_RAY_TILE];  // and their pair windows
+  __shared__ int sh_count[2][kRayWarps];            // takers per warp, by entry parity
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool owner = tid < PTT_RAY_TILE;            // the thread owns a ray
+  const int b = blockIdx.x;
+  const int idx = b * PTT_RAY_TILE + tid;
+  const V3 center = v3(__ldg(a.center), __ldg(a.center + 1), __ldg(a.center + 2));
+  WalkRay r = owner ? load_walk_ray(a, idx, center)
+                    : walk_ray(center, v3(0.0f, 0.0f, 0.0f), v3(0.0f, 0.0f, 0.0f), false, 0.0f);
+  if (owner) {
+#pragma unroll
+    for (int q = 0; q < 10; ++q) sh_f[q][tid] = r.f[q];
+    sh_key[tid] = walk_key(r.best, r.best_tri);
+  }
+  const int cnt = __ldg(a.cnt + b);
+  const int32_t* ids = a.ids + (size_t)b * a.ct;
+  const float* tlo = a.tlo + (size_t)b * a.ct;
+  for (int t = 0; t < cnt; ++t) {
+    const int tile = __ldg(ids + t);
+    float lo = 0.0f, hi = 0.0f;
+    const bool take = walk_take(r, a.tile_aabb + 8 * tile, a.eps_succ, &lo, &hi);
+    const unsigned ballot = __ballot_sync(0xFFFFFFFFu, take);
+    int* count = sh_count[t & 1];
+    if (owner && lane == 0) count[warp] = __popc(ballot);
+    // The exit vote; also the barrier after the counts (and, at t = 0, the
+    // features and keys) are written.
+    if (!__syncthreads_or(owner && walk_goes_on(r, __ldg(tlo + t)))) break;
+    int below = 0, m = 0;
+#pragma unroll
+    for (int w = 0; w < kRayWarps; ++w) {
+      below += w < warp ? count[w] : 0;
+      m += count[w];
+    }
+    if (m == 0) continue;  // the same for every thread
+    if (take) {
+      const int p = below + __popc(ballot & ((1u << lane) - 1u));
+      sh_list[p] = tid;
+      sh_lo[p] = lo;
+      sh_hi[p] = hi;
+    }
+    __syncthreads();
+    float k[PTT_SPREAD][PTT_COEF_W];
+    spread_load(a.coef, tile, tid, k);
+    const int32_t tri0 = tile * PTT_TRI_TILE + tid;
+    for (int j = 0; j < m; ++j) {
+      const int ray = sh_list[j];
+      float f[10];
+#pragma unroll
+      for (int q = 0; q < 10; ++q) f[q] = sh_f[q][ray];
+      const uint64_t key = spread_key(f, sh_lo[j], sh_hi[j], k, tri0, a.baby_eps);
+      if (key != PTT_NO_KEY) atomicMin(&sh_key[ray], (unsigned long long)key);
+    }
+    __syncthreads();
+    if (owner) walk_unkey(sh_key[tid], &r.best, &r.best_tri);
+  }
+  if (owner && idx < a.n) {
+    a.out_t[idx] = r.best;
+    a.out_tri[idx] = r.best_tri;
+  }
 }
 
 __global__ void __launch_bounds__(PTT_RAY_TILE) ptt_streamed_super_kernel(const PttWalkArgs a) {
@@ -433,7 +527,7 @@ int ptt_launch_walk(const PttWalkArgs* a, int32_t kind, void* stream) {
     } else if (kind == 1) {
       ptt_planned_kernel<<<grid, PTT_RAY_TILE, 0, s>>>(*a);
     } else if (kind == 2) {
-      ptt_streamed_kernel<<<grid, PTT_RAY_TILE, 0, s>>>(*a);
+      ptt_streamed_kernel<<<grid, PTT_SPREAD_THREADS, 0, s>>>(*a);
     } else if (kind == 3) {
       ptt_streamed_super_kernel<<<grid, PTT_RAY_TILE, 0, s>>>(*a);
     } else if (kind == 4) {

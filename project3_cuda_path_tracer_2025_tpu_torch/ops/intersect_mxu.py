@@ -1134,12 +1134,15 @@ def ascending_plan(plan: TilePlan, ct: int) -> TilePlan:
 
 
 def _mm_plain(tables: MXUMeshTables, ro: Vec3, rd: Vec3, live, tlim, visits):
-    """The "mm" flavors' definition (a timing floor, not an intersection):
-    every ray of a block, live or not (a ray that is not live with all-zero
-    features), against every tile the block visits; per pair the least of
-    the four numerators, folded into the ray's minimum with ties to the
-    lower lane (the triangle's index inside its tile) -> (minimum, lane)
-    where the minimum is below ``tlim``, else ``(tlim, -1)``."""
+    """The "mm" flavors' definition (a timing floor, not an intersection),
+    the JAX script's ``lb_mm`` / ``mono_call("mm")``: every ray of a block,
+    live or not (a ray that is not live with all-zero features), against
+    every tile the block visits; per pair the ``det`` numerator (the other
+    three are computed, as the script's matmul computes all four columns,
+    and dropped), folded into the ray's minimum with ties to the lower lane
+    (the triangle's index inside its tile: the script's ``tri_lane`` wraps in
+    int32 to the lane) -> (minimum, lane) where the minimum is below
+    ``tlim``, else ``(tlim, -1)``."""
     n = ro.x.shape[0]
     device = ro.x.device
     block = torch.arange(n, device=device) // RAY_TILE
@@ -1153,10 +1156,9 @@ def _mm_plain(tables: MXUMeshTables, ro: Vec3, rd: Vec3, live, tlim, visits):
         rows = torch.nonzero(visits[block, c]).flatten()
         for s in range(0, rows.shape[0], step):
             k = rows[s:s + step]
-            det, un, vn, tn = _numerators([f[k][:, None] for f in feat], coef)
-            q = torch.minimum(torch.minimum(det, un), torch.minimum(vn, tn))
-            qmin = torch.min(q, dim=1, keepdim=True).values
-            jmin = torch.min(torch.where(q <= qmin, lane, INT_MAX), dim=1).values
+            det = _numerators([f[k][:, None] for f in feat], coef)[0]
+            qmin = torch.min(det, dim=1, keepdim=True).values
+            jmin = torch.min(torch.where(det <= qmin, lane, INT_MAX), dim=1).values
             qmin = qmin[:, 0]
             upd = (qmin < best[k]) | ((qmin == best[k]) & (jmin < lane_at[k]))
             best[k] = torch.where(upd, qmin, best[k])

@@ -271,9 +271,9 @@ def _bind_walk(lib) -> tuple:
 def _bind_scan(lib) -> tuple:
     from . import scan
 
-    lib.ptt_launch_scan_tiles.argtypes = [_p, _p, _p, _i, _p]
-    lib.ptt_launch_scan_tiles.restype = _i
-    return lib.ptt_scan_abi, [scan.LANES, scan.KERNEL_ROWS_PER_BLOCK], lib.ptt_scan_error_string
+    lib.ptt_launch_scan.argtypes = [_p, _p, _p, ctypes.c_int64, _i, _i, _p]
+    lib.ptt_launch_scan.restype = _i
+    return lib.ptt_scan_abi, [scan.KERNEL_TILE, scan.KERNEL_THREADS], lib.ptt_scan_error_string
 
 
 _BIND = {"fused_prim": _bind_prim, "fused_mesh": _bind_mesh, "mesh_walk": _bind_walk,
@@ -360,4 +360,11 @@ def load_all() -> dict:
 
 
 def stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle of ``device``'s current CUDA stream, read on every call
+    (never cached: the caller may have made another stream current).
+    PyTorch's own binding for it, the one its code generators call, returns
+    the handle as an int; ``torch.cuda.current_stream()`` builds a Stream
+    object around the same handle, at some ten times the host cost (PERF.md,
+    the scan's host split)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -8,13 +8,15 @@ wavefront integrator's stream compaction (``ops.compaction``) is built on
 the same scan.
 
 The JAX package scans [128, 128] float32 tiles with a triangular matmul in
-a Pallas kernel (``_scan_tile_kernel``).  Here ``scan_tiles`` launches the
-hand-written CUDA kernel ``csrc/scan.cu`` (one warp per 128-lane row,
-shuffle scan), and torch adds the row offsets (an exclusive scan of the row
-totals) as jnp does there.  Inputs are scanned in float32, which is exact
-for integer values while every prefix stays <= 2^24: the kernel path refuses
-longer integer inputs, as the JAX package does.  Below ``TILE`` elements and
-on the CPU the plain ``torch.cumsum`` path runs (``_kernel_ok``).
+a Pallas kernel (``_scan_tile_kernel``) and adds the row offsets in jnp.
+Here ``scan_flat`` launches the hand-written CUDA kernels of ``csrc/scan.cu``
+on the flat int32 or float32 array: the tile totals, then each tile's scan
+with its carry folded in, written straight into the output (two launches,
+no pad, no dtype trip, no host read).  Integer inputs are scanned in int32,
+exactly; the kernel path still refuses integer inputs beyond N = 2^24, as
+the JAX package does (its float32 scan is exact only that far).  Below
+``TILE`` elements and on the CPU the plain ``torch.cumsum`` path runs
+(``_kernel_ok``), as the JAX package takes its jnp path there.
 """
 
 from __future__ import annotations
@@ -23,13 +25,14 @@ import torch
 
 from . import kernels
 
-LANES = 128
-SUBLANES = 128  # rows per tile of the JAX kernel (the padding unit)
-TILE = LANES * SUBLANES
-KERNEL_ROWS_PER_BLOCK = 8  # csrc/scan.cu: PTT_SCAN_WARPS
+TILE = 128 * 128  # the JAX package's [128, 128] tile: shorter inputs take cumsum
+KERNEL_TILE = 2048  # elements per block of csrc/scan.cu (PTT_SCAN_TILE)
+KERNEL_THREADS = 256  # threads per block (PTT_SCAN_THREADS)
+KERNEL_DTYPES = (torch.int32, torch.float32)  # the kernels' dtype codes 0 and 1
 
-# The float32 accumulation is exact only while every prefix sum stays
-# <= 2^24: for 0/1 flags, N <= 2^24 (a 4096 x 4096 film).
+# The JAX package's float32 accumulation is exact only while every prefix
+# sum stays <= 2^24: for 0/1 flags, N <= 2^24 (a 4096 x 4096 film).  The
+# kernel path keeps its refusal of longer integer inputs.
 _F32_EXACT_N = 1 << 24
 
 
@@ -64,58 +67,47 @@ def exclusive_scan_naive(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# The tile kernel (replaces ops/scan.py::_scan_tile_kernel)
+# The whole-array scan kernel (replaces ops/scan.py::_scan_tile_kernel and
+# the jnp of _scan_pallas_f32 around it)
 # ---------------------------------------------------------------------------
 
-def scan_tiles_plain(xp: torch.Tensor):
-    """The plain PyTorch version of the tile kernel: per row of ``xp``
-    [R, 128] float32, the inclusive scan and the row total [R, 1]."""
-    lane = torch.cumsum(xp, 1)
-    return lane, lane[:, LANES - 1:]
+def scan_flat_plain(x: torch.Tensor, inclusive: bool) -> torch.Tensor:
+    """The plain PyTorch version of ``scan_flat``: the prefix sum of ``x``
+    [N] in its own dtype."""
+    return inclusive_scan_jnp(x) if inclusive else exclusive_scan_jnp(x)
 
 
-def scan_tiles(xp: torch.Tensor):
-    """Per 128-lane row of ``xp`` [R, 128] float32: (inclusive scan [R,
-    128], row totals [R, 1]).  CUDA tensors launch ``csrc/scan.cu``; CPU
-    tensors run ``scan_tiles_plain``."""
-    device = xp.device
-    if device.type == "cpu":
-        return scan_tiles_plain(xp)
-    if device.type != "cuda":
-        raise ValueError(f"scan_tiles: the kernel takes CUDA tensors, got {device}")
-    if xp.dim() != 2 or xp.shape[1] != LANES or xp.dtype != torch.float32 \
-            or not xp.is_contiguous() or xp.data_ptr() % 16:
-        raise ValueError(
-            f"scan_tiles: expected contiguous 16-byte-aligned float32 [R, {LANES}], got "
-            f"{xp.dtype} {tuple(xp.shape)}")
-    rows = xp.shape[0]
-    if rows >= 2**31:
-        raise ValueError(f"scan_tiles: {rows} rows exceed the kernel's 32-bit row count")
-    lane = torch.empty_like(xp)
-    tot = torch.empty((rows, 1), dtype=torch.float32, device=device)
-    lib = kernels.load("scan")
-    code = lib.lib.ptt_launch_scan_tiles(xp.data_ptr(), lane.data_ptr(), tot.data_ptr(), rows,
-                                         kernels.stream_handle(device))
-    lib.check(code, "scan_tiles")
-    scan_tiles.launches += 1
-    return lane, tot
+def check_flat(x: torch.Tensor) -> None:
+    """What the kernels take: a contiguous [N] int32 or float32 CUDA tensor."""
+    if x.device.type != "cuda":
+        raise ValueError(f"scan_flat: the kernel takes CUDA tensors, got {x.device}")
+    if x.dim() != 1 or x.dtype not in KERNEL_DTYPES or not x.is_contiguous():
+        raise ValueError(f"scan_flat: expected a contiguous [N] int32 or float32 tensor, got "
+                         f"{x.dtype} {tuple(x.shape)}")
 
 
-scan_tiles.launches = 0
-
-
-def _scan_tiled(x: torch.Tensor, inclusive: bool) -> torch.Tensor:
-    """The JAX package's ``_scan_pallas_f32``: pad to whole tiles, scan the
-    rows, add the exclusive scan of the row totals."""
+def scan_flat(x: torch.Tensor, inclusive: bool) -> torch.Tensor:
+    """The inclusive or exclusive prefix sum of ``x`` [N] (int32, exact; or
+    float32) in its dtype.  CUDA tensors launch ``csrc/scan.cu`` (the tile
+    totals, then the scan with the carries; one launch for N <= 2,048);
+    CPU tensors run ``scan_flat_plain``."""
+    if x.device.type == "cpu":
+        return scan_flat_plain(x, inclusive)
+    check_flat(x)
     n = x.shape[0]
-    n_pad = ((n + TILE - 1) // TILE) * TILE
-    xp = torch.nn.functional.pad(x, (0, n_pad - n)).reshape(-1, LANES)
-    lane_scan, row_tot = scan_tiles(xp)
-    row_off = exclusive_scan_jnp(row_tot[:, 0])
-    out = lane_scan + row_off[:, None]
-    if not inclusive:
-        out = out - xp
-    return out.reshape(-1)[:n]
+    tiles = (n + KERNEL_TILE - 1) // KERNEL_TILE
+    buf = torch.empty((n + tiles,), dtype=x.dtype, device=x.device)  # the output, then the totals
+    lib = kernels.load("scan")
+    code = lib.lib.ptt_launch_scan(x.data_ptr(), buf.data_ptr(),
+                                   buf.data_ptr() + n * x.element_size(), n,
+                                   KERNEL_DTYPES.index(x.dtype), int(inclusive),
+                                   kernels.stream_handle(x.device))
+    lib.check(code, "scan_flat")
+    scan_flat.launches += 1
+    return buf[:n]
+
+
+scan_flat.launches = 0
 
 
 def _kernel_ok(x: torch.Tensor, use_kernel: bool) -> bool:
@@ -131,11 +123,10 @@ def _kernel_ok(x: torch.Tensor, use_kernel: bool) -> bool:
 
 def _scan(x: torch.Tensor, use_kernel: bool, inclusive: bool) -> torch.Tensor:
     if not _kernel_ok(x, use_kernel):
-        return inclusive_scan_jnp(x) if inclusive else exclusive_scan_jnp(x)
-    out = _scan_tiled(x.to(torch.float32), inclusive)
-    if not torch.is_floating_point(x):
-        out = torch.round(out).to(x.dtype)
-    return out
+        return scan_flat_plain(x, inclusive)
+    floating = torch.is_floating_point(x)  # floats give the JAX package's float32 result
+    out = scan_flat(x.to(torch.float32 if floating else torch.int32).contiguous(), inclusive)
+    return out if floating else out.to(x.dtype)
 
 
 def exclusive_scan(x: torch.Tensor, use_kernel: bool = True) -> torch.Tensor:

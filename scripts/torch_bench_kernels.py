@@ -1,0 +1,199 @@
+"""Time the paths of the port's redesigned kernels on one checkout, so that
+two checkouts can be compared on one card in one session (run it on each,
+in turns: parent, change, change, parent).
+
+    python scripts/torch_bench_kernels.py                       # this checkout
+    python scripts/torch_bench_kernels.py --root build/parent   # the package of
+                                                                # another checkout
+    python scripts/torch_bench_kernels.py --device cpu --res 8 --scenes 80k \\
+        --bounces 2                                             # plain versions, no times
+
+One JSON line per measurement:
+
+* ``walk``: the streamed walk (#7, ``streamed_intersect``) on each sorted
+  bounce of the 80k and 500k meshes at 800x800 (camera rays of iteration 1
+  and the bounces after them, each in the main path's signature order; a
+  bounce's hits from the kernel traversal, its shade from the plain shade,
+  as ``chip_smoke.py`` phase 11 builds them): ms per launch and a sha256 of
+  its ``(t, tri)``, which two checkouts that compute the same function print
+  alike;
+* ``frame``: the 80k and 500k frames (``megakernel_iteration``, the default
+  path): ms per frame and the sha256 of iteration 1's film;
+* ``scan``: one ``exclusive_scan`` of 640,000 int32 0/1 flags (a compacting
+  bounce's shape, made from ``--seed``) against ``torch.cumsum(x, 0)`` of
+  the same flags, and whether it is exact;
+* ``wavefront``: the ``cornell_dof.json`` wavefront frame with compaction
+  on: ms per frame and the sha256 of its first frame's film.
+
+Times are CUDA events: the median of ``--samples`` samples of ``--k`` calls
+(frames: of ``--frames``) after a warm-up call.  On the CPU nothing is timed.
+"""
+
+import argparse
+import hashlib
+import importlib.util
+import os
+import sys
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCENE_FILES = {k: f"scenes/cornell_mesh_{k}.json" for k in ("80k", "500k")}
+
+
+def sorted_bounces(dev, static, cam, cfg, device, bounces: int = 3) -> list:
+    """Camera rays and the next bounces, each in the main path's coherence
+    order: [(paths, t_lim, live)].  A bounce's hits come from the kernel
+    traversal, its shade from the plain shade.  Imports the package of the
+    first checkout on ``sys.path``."""
+    import dataclasses
+
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import camera as camera_ops
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused, intersect_mxu as mxu
+    from project3_cuda_path_tracer_2025_tpu_torch.ops.compaction import permute_path_state
+    from project3_cuda_path_tracer_2025_tpu_torch.ops.intersect import prim_t_min
+    from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
+
+    tables = dev.mxu_mesh
+    n = static.pixel_count
+    prim_static = dataclasses.replace(static, num_triangles=0)
+    ik = prng.iteration_key(prng.prng_key(0), 1)
+    paths = camera_ops.generate_camera_rays(
+        cam, static.width, static.height, static.trace_depth,
+        prng.uniforms_at(prng.stage_key(ik, 0, 0), torch.arange(n, device=device), 4, n))
+    out = []
+    for d in range(bounces):
+        tl = prim_t_min(static, cfg, paths.origin, paths.direction)
+        perm = mxu.coherence_perm(tables, paths.origin, paths.direction, paths.alive, tl,
+                                  cfg.ray_sort_bits, cfg.ray_sort_dir_bits, mode="signature")
+        paths, (tl,) = permute_path_state(paths, perm, extra=(tl,))
+        live = paths.alive & mxu.root_hit_mask(tables.tile_aabb, tables.center, *paths.origin,
+                                               *paths.direction, tl)
+        out.append((paths, tl, live))
+        mt, mn, mm = fused.mesh_surface(tables, static, cfg, paths, tl)
+        paths = fused.fused_mesh_shade_plain(prim_static, cfg, paths, mt, mn, mm,
+                                             prng.stage_key(ik, d, 1), n)
+    return out
+
+
+def sha(*tensors) -> str:
+    """The first 16 hex digits of the sha256 of the tensors' bytes, in
+    order: equal results or films print alike, in any tree or run."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def run(argv=None) -> list:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default: cuda; 'cpu' runs the plain versions and "
+                    "times nothing)")
+    ap.add_argument("--root", default=None,
+                    help="the checkout whose package is timed (default: this one)")
+    ap.add_argument("--res", type=int, default=800, help="film width and height")
+    ap.add_argument("--scenes", nargs="+", default=list(SCENE_FILES), choices=list(SCENE_FILES))
+    ap.add_argument("--bounces", type=int, default=None,
+                    help="sorted bounces a mesh (default: the scene's depth)")
+    ap.add_argument("--k", type=int, default=10, help="launches per sample")
+    ap.add_argument("--frames", type=int, default=3, help="frames per sample")
+    ap.add_argument("--samples", type=int, default=3)
+    ap.add_argument("--scan-n", type=int, default=640_000)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    root = os.path.abspath(args.root or REPO)
+    sys.path.insert(0, root)  # the package of that checkout, ahead of this one's
+    from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
+    from project3_cuda_path_tracer_2025_tpu_torch.models import Renderer, megakernel_iteration
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import film as film_ops
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import scan
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import (
+        build_device_scene, camera_state, derive_render_camera, load_scene, set_resolution,
+    )
+    from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
+
+    # The helpers of this checkout (another one may predate them); the file
+    # imports nothing of the package when it is loaded.
+    mspec = importlib.util.spec_from_file_location("ptt_measure", os.path.join(
+        REPO, "project3_cuda_path_tracer_2025_tpu_torch", "utils", "measure.py"))
+    measure = importlib.util.module_from_spec(mspec)
+    mspec.loader.exec_module(measure)
+
+    device = measure.open_device(args.device)
+    common = dict(script="torch_bench_kernels", card=measure.card_label(device),
+                  device=device.type, root=os.path.relpath(root, REPO))
+
+    def timed(fn, reps):
+        fn()
+        if device.type != "cuda":
+            return None
+        torch.cuda.synchronize()
+        return float(np.median([measure.event_ms(fn, reps) for _ in range(args.samples)]))
+
+    def scene_at(path):
+        scene = load_scene(os.path.join(REPO, path))
+        return set_resolution(scene, args.res, args.res)
+
+    recs = []
+    cfg = RenderConfig()
+    for name in args.scenes:
+        scene = scene_at(SCENE_FILES[name])
+        dev, static = build_device_scene(scene, device)
+        cam = camera_state(derive_render_camera(scene.state.camera))
+        tables = dev.mxu_mesh
+        states = sorted_bounces(dev, static, cam, cfg, device,
+                                args.bounces or static.trace_depth)
+        for d, (paths, tl, live) in enumerate(states):
+            ro, rd = paths.origin, paths.direction
+            plan = mxu.plan_with_prefix(tables.tile_aabb,
+                                        *mxu.plan_rays(tables, ro, rd, live, tl))
+            fn = lambda: mxu.streamed_intersect(tables, ro, rd, live, tl, plan, cfg.baby_epsilon)
+            t, tri = fn()
+            recs.append(measure.emit(dict(
+                kind="walk", scene=name, bounce=d, live=int(live.sum()),
+                hits=int((tri >= 0).sum()), ms=timed(fn, args.k), result_sha=sha(t, tri),
+                **common)))
+        del states
+        n, it = static.pixel_count, [0]
+
+        def frame():
+            it[0] += 1
+            return megakernel_iteration(dev, static, cfg, cam, film_ops.new_film(n, device),
+                                        it[0], prng.prng_key(0))
+
+        film, _ = frame()
+        recs.append(measure.emit(dict(
+            kind="frame", scene=name, ms=timed(frame, args.frames),
+            film_sha=sha(*film), **common)))
+
+    x = torch.from_numpy(
+        (np.random.default_rng(args.seed).random(args.scan_n) > 0.5).astype(np.int32)).to(device)
+    exact = bool(torch.equal(scan.exclusive_scan(x), torch.cumsum(x, 0, dtype=torch.int32) - x))
+    recs.append(measure.emit(dict(
+        kind="scan", n=args.scan_n, exact=exact,
+        ms=timed(lambda: scan.exclusive_scan(x), 50),
+        library_ms=timed(lambda: torch.cumsum(x, 0, dtype=torch.int32), 50), **common)))
+
+    dof = scene_at("scenes/cornell_dof.json")
+    wf = Renderer(dof, RenderConfig(integrator="wavefront", stream_compaction=True),
+                  device=device)
+    wf.step_many(1)
+    film_sha = sha(*wf.film)
+    recs.append(measure.emit(dict(
+        kind="wavefront", scene="cornell_dof",
+        ms=timed(lambda: wf.step_many(1, sync=False), args.frames),
+        film_sha=film_sha, **common)))
+    return recs
+
+
+def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

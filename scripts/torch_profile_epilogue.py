@@ -15,8 +15,8 @@ bookkeeping costs on the card:
                   ray, every pair evaluated, members or not
   mono_gate       mono, a tile only when the block votes that some live ray
                   is a member of it
-  lb_mm, mono_mm  timing floors: numerators and a minimum fold only (WRONG
-                  results by design)
+  lb_mm, mono_mm  timing floors: the four numerators and a minimum fold of
+                  det only, as the JAX script's (WRONG results by design)
 
 The exact variants are asserted EQUAL in (t, tri) to prod_lanebest on every
 ray before anything is timed; a mismatch prints the first five rays and the
@@ -51,9 +51,9 @@ from project3_cuda_path_tracer_2025_tpu_torch.utils import measure  # noqa: E402
 # Float32 operations of the kernels' device functions (csrc/mesh_path.cuh;
 # an fma counts two): a ray's features and reciprocal direction, the member
 # slab of one tile, one (ray, triangle) pair of an exact walk (19 fma, the
-# division, t, the acceptance tests) and of a floor flavor (19 fma, 3
-# minimums, the fold's compare).
-OPS_WALK_RAY, OPS_TILE, OPS_PAIR, OPS_MM_PAIR = 25, 35, 41, 42
+# division, t, the acceptance tests) and of a floor flavor (19 fma, the
+# fold's compare of det).
+OPS_WALK_RAY, OPS_TILE, OPS_PAIR, OPS_MM_PAIR = 25, 35, 41, 39
 
 
 def capture_population(r, cfg, bounce0: bool):

@@ -72,10 +72,10 @@ def main(argv=None) -> int:
     }
     print(f"n = {n} rays, k = {args.k}, device = {device} ({measure.card_label(device)}), "
           f"live {int(paths.alive.sum())}", flush=True)
-    before = scan_ops.scan_tiles.launches
+    before = scan_ops.scan_flat.launches
     measure.stage_records("torch_profile_wavefront", device, stages, args.k, args.only,
                           scene=os.path.basename(args.scene), res=args.res, rays=n)
-    print(f"scan kernel launches: {scan_ops.scan_tiles.launches - before}", flush=True)
+    print(f"scan kernel launches: {scan_ops.scan_flat.launches - before}", flush=True)
     return 0
 
 

@@ -74,9 +74,10 @@ void ptt_host_mesh_shade(const PttScene* s, const float* const* in_f, const int3
   }
 }
 
-// ptt_planned_lanebest_kernel (exit 0), ptt_planned_kernel and
-// ptt_streamed_kernel (exit 1): each block of 256 rays walks its plan row;
-// with exit, __syncthreads_or becomes the loop over the block's rays.
+// ptt_planned_lanebest_kernel (exit 0) and ptt_planned_kernel (exit 1), and
+// the per-ray schedule ptt_streamed_kernel had before its block schedule
+// (exit 1): each block of 256 rays walks its plan row; with exit,
+// __syncthreads_or becomes the loop over the block's rays.
 void ptt_host_walk(const float* coef, const float* aabb, int32_t ct, const float* center,
                    const float* const* ray, const uint8_t* live, const float* tlim,
                    const int32_t* ids, const float* tlo, const int32_t* cnt, int32_t exit_,
@@ -102,6 +103,67 @@ void ptt_host_walk(const float* coef, const float* aabb, int32_t ct, const float
       for (int32_t i = 0; i < PTT_RAY_TILE; ++i) {
         walk_visit(r[i], coef, aabb + 8 * tile, tile, exit_ != 0, baby_eps, eps_succ);
       }
+    }
+    for (int32_t i = 0; i < PTT_RAY_TILE && b * PTT_RAY_TILE + i < n; ++i) {
+      out_t[b * PTT_RAY_TILE + i] = r[i].best;
+      out_tri[b * PTT_RAY_TILE + i] = r[i].best_tri;
+    }
+  }
+}
+
+// ptt_streamed_kernel's block schedule: per plan entry, every ray's take
+// (member, gate, pair window) and the exit vote; the takers listed in
+// thread order, as the warp ballots and per-warp counts list them; each
+// thread's four triangles (spread_load) against every listed ray
+// (spread_key); each ray's key the minimum of the keys it is given, as the
+// shared-memory atomicMin leaves it; then every ray's best read back.
+void ptt_host_streamed_block(const float* coef, const float* aabb, int32_t ct,
+                             const float* center, const float* const* ray, const uint8_t* live,
+                             const float* tlim, const int32_t* ids, const float* tlo,
+                             const int32_t* cnt, float baby_eps, float eps_succ, int32_t n,
+                             float* out_t, int32_t* out_tri) {
+  const V3 c = v3(center[0], center[1], center[2]);
+  const int32_t nb = (n + PTT_RAY_TILE - 1) / PTT_RAY_TILE;
+  std::vector<WalkRay> r(PTT_RAY_TILE);
+  std::vector<uint64_t> key(PTT_RAY_TILE);
+  std::vector<int32_t> list(PTT_RAY_TILE);
+  std::vector<float> lo(PTT_RAY_TILE), hi(PTT_RAY_TILE);
+  std::vector<float> k((size_t)PTT_SPREAD * PTT_COEF_W);
+  float(*kk)[PTT_COEF_W] = reinterpret_cast<float(*)[PTT_COEF_W]>(k.data());
+  for (int32_t b = 0; b < nb; ++b) {
+    for (int32_t i = 0; i < PTT_RAY_TILE; ++i) {
+      const int32_t idx = b * PTT_RAY_TILE + i;
+      const bool in = idx < n;
+      r[i] = walk_ray(c, in ? v3(ray[0][idx], ray[1][idx], ray[2][idx]) : v3(0.0f, 0.0f, 0.0f),
+                      in ? v3(ray[3][idx], ray[4][idx], ray[5][idx]) : v3(0.0f, 0.0f, 0.0f),
+                      in && live[idx] != 0, in ? tlim[idx] : 0.0f);
+      key[i] = walk_key(r[i].best, r[i].best_tri);
+    }
+    for (int32_t t = 0; t < cnt[b]; ++t) {
+      const int32_t tile = ids[b * ct + t];
+      int32_t m = 0;
+      bool go = false;
+      for (int32_t i = 0; i < PTT_RAY_TILE; ++i) {
+        float l = 0.0f, h = 0.0f;
+        if (walk_take(r[i], aabb + 8 * tile, eps_succ, &l, &h)) {
+          list[m] = i;
+          lo[m] = l;
+          hi[m] = h;
+          ++m;
+        }
+        go = go || walk_goes_on(r[i], tlo[b * ct + t]);
+      }
+      if (!go) break;
+      if (m == 0) continue;
+      for (int32_t tid = 0; tid < PTT_SPREAD_THREADS; ++tid) {
+        spread_load(coef, tile, tid, kk);
+        for (int32_t j = 0; j < m; ++j) {
+          const uint64_t got = spread_key(r[list[j]].f, lo[j], hi[j], kk,
+                                          tile * PTT_TRI_TILE + tid, baby_eps);
+          key[list[j]] = got < key[list[j]] ? got : key[list[j]];
+        }
+      }
+      for (int32_t i = 0; i < PTT_RAY_TILE; ++i) walk_unkey(key[i], &r[i].best, &r[i].best_tri);
     }
     for (int32_t i = 0; i < PTT_RAY_TILE && b * PTT_RAY_TILE + i < n; ++i) {
       out_t[b * PTT_RAY_TILE + i] = r[i].best;

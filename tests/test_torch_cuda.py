@@ -32,6 +32,7 @@ from project3_cuda_path_tracer_2025_tpu_torch.scene import (
     set_resolution,
 )
 from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
+from project3_cuda_path_tracer_2025_tpu_torch.utils.vec import Vec3
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SCENES = ["cornell_dof.json", "cornell_all_lobes.json"]
@@ -281,6 +282,39 @@ def test_walk_kernels_match_plain(cuda, name, kinds):
     assert hits > 100
 
 
+def test_streamed_kernel_ties_and_limit(cuda):
+    """The streamed kernel's block schedule on the two-tile tie mesh (every
+    hit ties across tiles; a quarter of the rays hit at exactly t = 5, some
+    with t_limit 5) and again with every other hit ray's t_limit moved onto
+    its hit: t and tri bit-equal to walk_plain, ties to the lower copy, a
+    hit at exactly t_limit left at (t_limit, -1)."""
+    from torch_fixtures import TIE_TRIS, tie_mesh
+
+    pos, o, d, lim = tie_mesh(np.random.default_rng(60), 2000)
+    nrm = np.zeros_like(pos)
+    nrm[:] = [0.0, 0.0, 1.0]
+    t3 = lambda a: np.zeros(a, np.float32)
+    tables = intersect_mxu.build_mxu_tables(pos, nrm, t3((2048, 3, 2)), t3((2048, 3)),
+                                            t3((2048, 3)), np.zeros(2048, np.int32), cuda)
+    col = lambda a: Vec3(*(torch.from_numpy(np.ascontiguousarray(a[:, i])).to(cuda)
+                           for i in range(3)))
+    ro, rd = col(o), col(d)
+    tl = torch.from_numpy(lim).to(cuda)
+    for moved in (False, True):
+        live = intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+        want_t, want_tri = intersect_mxu.walk_plain(tables, ro, rd, live, tl,
+                                                    _plan(tables, ro, rd, live, tl), 1e-5)
+        if moved:
+            at = (torch.arange(2000, device=cuda) % 2 == 0) & (hit_tri >= 0)
+            assert torch.equal(want_t[at], tl[at]) and (want_tri[at] == -1).all()
+        got_t, got_tri = intersect_mxu.streamed_intersect(tables, ro, rd, live, tl,
+                                                          _plan(tables, ro, rd, live, tl), 1e-5)
+        assert torch.equal(got_tri, want_tri) and torch.equal(got_t, want_t), moved
+        assert set(got_tri[got_tri >= 0].tolist()) == {TIE_TRIS[0]}
+        hit_tri, hit_t = got_tri, got_t
+        tl = torch.where((torch.arange(2000, device=cuda) % 2 == 0) & (hit_tri >= 0), hit_t, tl)
+
+
 def test_binned_kernel_matches_plain(cuda):
     """Pair by pair on the 20k mesh's sorted camera rays, the bins built
     over the whole ray range."""
@@ -488,7 +522,7 @@ def test_scan_kernel_matches_cumsum(cuda, n):
     from project3_cuda_path_tracer_2025_tpu_torch.ops import scan
 
     g = torch.Generator(device=cuda).manual_seed(0)
-    before = scan.scan_tiles.launches
+    before = scan.scan_flat.launches
     flags = (torch.rand(n, generator=g, device=cuda) > 0.5).to(torch.int32)
     ramp = torch.arange(n, device=cuda, dtype=torch.int32) % 7
     for x in (flags, ramp):
@@ -497,7 +531,7 @@ def test_scan_kernel_matches_cumsum(cuda, n):
     xf = torch.rand(n, generator=g, device=cuda)
     torch.testing.assert_close(scan.inclusive_scan(xf), torch.cumsum(xf.double(), 0).float(),
                                rtol=1e-5, atol=1e-2)
-    assert scan.scan_tiles.launches == before + 5
+    assert scan.scan_flat.launches == before + 5
     keys = torch.randint(0, 64, (n,), generator=g, device=cuda, dtype=torch.int32)
     assert torch.equal(scan.radix_sort_permutation(keys, num_bits=6).long(),
                        torch.argsort(keys, stable=True))
@@ -510,7 +544,7 @@ def test_textured_and_wavefront_renderers_take_the_kernels(cuda):
     every wavefront film is bit-identical to the unfused megakernel film."""
     from project3_cuda_path_tracer_2025_tpu_torch.ops import scan
 
-    counters = (intersect_mxu.mono_intersect, fused.fused_mesh_shade, scan.scan_tiles)
+    counters = (intersect_mxu.mono_intersect, fused.fused_mesh_shade, scan.scan_flat)
     for name in (MESH_TEX, PRIM_TEX, "cornell_dof.json"):
         scene = set_resolution(load_scene(str(REPO / "scenes" / name)), 128, 128)
         r = Renderer(scene, RenderConfig(), device=cuda)
@@ -525,10 +559,10 @@ def test_textured_and_wavefront_renderers_take_the_kernels(cuda):
         for compaction in (True, "adaptive", False):
             wf = Renderer(scene, RenderConfig(integrator="wavefront",
                                               stream_compaction=compaction), device=cuda)
-            before = scan.scan_tiles.launches
+            before = scan.scan_flat.launches
             wf.step_many(2)
             if compaction is True:
-                assert scan.scan_tiles.launches - before == 2 * 2 * depth
+                assert scan.scan_flat.launches - before == 2 * 2 * depth
             for a, b in zip(wf.film, ref.film):
                 assert torch.equal(a, b), (name, compaction)
         assert np.isfinite(r.image()).all() and r.image().sum() > 0

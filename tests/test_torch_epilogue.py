@@ -15,8 +15,10 @@ Tolerance: none.  ``tri`` is exact and ``t`` is exact (``==`` on float32, so
 -0.0 equals 0.0): both sides evaluate every candidate pair with the same
 float32 operations in the same order, and a strict "<" over tiles taken in
 ascending id keeps the lowest id at the minimum on both.  The "mm" flavors
-are timing floors with wrong results by design; they are held to their
-definition (``_mm_plain``) on a tiny case, not to the JAX script.
+are timing floors with wrong results by design: the least ``det`` numerator
+over the visited tiles, the lowest lane at it.  They are held to the JAX
+script's ``lb_mm`` and ``mono_call("mm")`` on the same three cases, and to
+their definition written out in numpy on a tiny case.
 """
 
 import ast
@@ -162,12 +164,26 @@ def test_exact_variants_equal_the_lanebest_walk(case):
         assert set(ref[1][hit].tolist()) == {TIE_TRIS[0]}
 
 
+@pytest.mark.parametrize("variant", ["lb_mm", "mono_mm"])
+def test_mm_flavors_match_the_jax_script(case, variant):
+    """The floors (plain versions on CPU tensors) against the script's
+    ``lb_mm`` and ``mono_call("mm")`` in interpret mode: ``t`` and ``tri``
+    exact, dead rays of a visiting block included (zeroed features: det 0,
+    lane 0)."""
+    tab, rays = case["tab"], case["rays"]
+    if variant == "lb_mm":
+        got = mxu.lb_asc_intersect(tab, *rays, case["asc"], EPS, mm_only=True)
+    else:
+        got = mxu.epilogue_mono_intersect(tab, *rays, EPS, "mm")
+    _assert_equal(got, _jax(case, variant), 15)
+
+
 def test_mm_flavors_follow_their_definition():
     """The floor flavors on a tiny case, against the definition written out
-    in numpy over per-lane minimum planes (the fused multiply-adds by
-    ``fma32``): per ray the least of the four numerators over the visited tiles' pairs,
-    ties to the lower lane; dead rays run with all-zero features; a block
-    without a visit returns (t_limit, -1)."""
+    in numpy over per-lane minimum planes, as the JAX script keeps them (the
+    fused multiply-adds by ``fma32``): per ray the least ``det`` numerator
+    over the visited tiles' pairs, ties to the lower lane; dead rays run
+    with all-zero features; a block without a visit returns (t_limit, -1)."""
     tab, ro, rd, live, tl = _case("tie")
     n, ct = 300, tab.tile_aabb.shape[0]
     cut = lambda v: Vec3(*(x[:n].contiguous() for x in v))
@@ -179,23 +195,19 @@ def test_mm_flavors_follow_their_definition():
     feat = torch.stack([torch.where(live, f, 0.0) for f in mxu._features(tab, ro, rd).feat], 1)
     coef = tab.coef.numpy()
 
-    def numerators(tile):
+    def det(tile):
         c = coef[tile * 1024:(tile + 1) * 1024]
-        out, col = [], 0
-        for _, rows in mxu.MONO_COEF:
-            acc = np.zeros((n, 1024), np.float32)
-            for f in rows:
-                acc = mxu.fma32(feat[:, f][:, None], torch.from_numpy(c[None, :, col].copy()),
-                                torch.from_numpy(acc)).numpy()
-                col += 1
-            out.append(acc)
-        return np.minimum(np.minimum(out[0], out[1]), np.minimum(out[2], out[3]))
+        acc = np.zeros((n, 1024), np.float32)
+        for col, f in enumerate(dict(mxu.MONO_COEF)["det"]):
+            acc = mxu.fma32(feat[:, f][:, None], torch.from_numpy(c[None, :, col].copy()),
+                            torch.from_numpy(acc)).numpy()
+        return acc
 
     def define(visits):
         q = np.full((n, 1024), np.inf, np.float32)  # per-lane minimum over the visited tiles
         for tile in range(ct):
             rows = visits[np.arange(n) // 256, tile]
-            q[rows] = np.minimum(q[rows], numerators(tile)[rows])
+            q[rows] = np.minimum(q[rows], det(tile)[rows])
         best = q.min(axis=1)
         lane = np.where(q <= best[:, None], np.arange(1024)[None, :], 2**31 - 1).min(axis=1)
         hit = best < tl.numpy()

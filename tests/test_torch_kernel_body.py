@@ -5,12 +5,12 @@ plain torch versions.
 for the host as well as for the card, and ``tests/prim_path_host.cpp`` /
 ``tests/mesh_path_host.cpp`` loop them over rays exactly as the kernels in
 ``csrc/fused_prim.cu`` / ``csrc/fused_mesh.cu`` do one ray per thread
-(``tests/scan_host.cpp`` runs a warp's 32 lanes of ``csrc/scan.cu`` in
+(``tests/scan_host.cpp`` runs a block's 256 threads of ``csrc/scan.cu`` in
 lockstep).  So the arithmetic the card runs is checked here, on the CPU,
 against ``fused_prim_bounce_plain`` / ``fused_prim_iteration_plain`` /
 ``mono_intersect_plain`` / ``fused_mesh_shade_plain`` (all three modes) /
 ``walk_plain`` / ``binned_intersect_plain`` / ``sweep_intersect_plain`` /
-``streamed_super_plain`` / ``plan_prepass_plain`` / ``scan_tiles_plain`` on
+``streamed_super_plain`` / ``plan_prepass_plain`` / ``scan_flat_plain`` on
 identical inputs.  (The kernels themselves run only
 on the card: ``tests/test_torch_cuda.py``.)
 
@@ -22,15 +22,13 @@ cos/sin are libm's here and SLEEF's in torch (an ulp or so apart); the
 sort key, a function of the scattered ray, may differ only on lanes whose
 ray differs.  Films use the goldens' tolerance (``test_goldens.py``) on
 every pixel (``tests/torch_compare.py``).  The scan body equals
-``torch.cumsum`` exactly on integer-valued rows and agrees to ``rtol=1e-6``
-on float rows (another summation order).
+``torch.cumsum`` exactly on integer values and agrees to ``rtol=1e-6`` on
+floats (another summation order).
 """
 
 import ctypes
 import dataclasses
 import pathlib
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -48,7 +46,7 @@ from project3_cuda_path_tracer_2025_tpu_torch.scene import (
 )
 from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
 from project3_cuda_path_tracer_2025_tpu_torch.utils.vec import Vec3
-from torch_compare import assert_films_close
+from torch_compare import assert_films_close, build_host
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 HARNESS = REPO / "tests" / "prim_path_host.cpp"
@@ -59,22 +57,9 @@ MESH = REPO / "scenes" / "cornell_mesh_5k.json"
 P = ctypes.c_void_p
 
 
-def _build_host(tmp_path_factory, src, name):
-    cxx = shutil.which("c++") or shutil.which("g++")
-    if cxx is None:
-        pytest.skip("no C++ compiler to build the kernel body for the host")
-    out = tmp_path_factory.mktemp("host") / name
-    subprocess.run(
-        [cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
-         "-I", str(kernels.CSRC), "-o", str(out), str(src)],
-        check=True, capture_output=True, text=True,
-    )
-    return ctypes.CDLL(str(out))
-
-
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    lib = _build_host(tmp_path_factory, HARNESS, "libprim_path_host.so")
+    lib = build_host(tmp_path_factory, HARNESS, "libprim_path_host.so")
     lib.ptt_host_sizes.argtypes = [ctypes.POINTER(ctypes.c_int32)]
     lib.ptt_host_uniforms.argtypes = [ctypes.c_uint32] * 3 + [P]
     lib.ptt_host_bounce.argtypes = [P, P, P, P, P, P, ctypes.c_int32]
@@ -176,7 +161,7 @@ def test_kernel_wrappers_refuse_non_cuda_devices():
 
 @pytest.fixture(scope="module")
 def mesh_lib(tmp_path_factory):
-    lib = _build_host(tmp_path_factory, MESH_HARNESS, "libmesh_path_host.so")
+    lib = build_host(tmp_path_factory, MESH_HARNESS, "libmesh_path_host.so")
     lib.ptt_host_mesh_sizes.argtypes = [ctypes.POINTER(ctypes.c_int32)]
     lib.ptt_host_mono.argtypes = (
         [P, P, ctypes.c_int32, P, P, P, P, ctypes.c_int32, ctypes.c_float,
@@ -370,32 +355,52 @@ def test_host_mesh_shade_modes_match_plain(mesh_lib, mode):
 
 @pytest.fixture(scope="module")
 def scan_lib(tmp_path_factory):
-    lib = _build_host(tmp_path_factory, SCAN_HARNESS, "libscan_host.so")
-    lib.ptt_host_scan_tiles.argtypes = [P, P, P, ctypes.c_int32]
+    lib = build_host(tmp_path_factory, SCAN_HARNESS, "libscan_host.so")
+    lib.ptt_host_scan.argtypes = [P, P, P, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32]
     return lib
 
 
-@pytest.mark.parametrize("kind", ["flags", "ints", "floats"])
+def host_scan(lib, x: torch.Tensor, inclusive: bool):
+    """ptt_launch_scan's two kernels on the host -> (out [N], tile totals)."""
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import scan
+
+    n = x.shape[0]
+    out = torch.empty_like(x)
+    tot = torch.full(((n + scan.KERNEL_TILE - 1) // scan.KERNEL_TILE,), -1, dtype=x.dtype)
+    lib.ptt_host_scan(x.data_ptr(), out.data_ptr(), tot.data_ptr(), n,
+                      scan.KERNEL_DTYPES.index(x.dtype), int(inclusive))
+    return out, tot
+
+
+@pytest.mark.parametrize("kind", ["flags", "ints", "floats", "flags-int32", "ints-int32"])
 def test_host_scan_body_matches_plain(scan_lib, kind):
-    """The warp scan of csrc/scan.cu (lanes in lockstep) against
-    ``scan_tiles_plain`` (per-row torch.cumsum) on 300 rows of 128."""
+    """The whole-array scan of csrc/scan.cu (the tile totals, each tile's
+    carry from the totals below it, the threads of a block in lockstep)
+    against ``scan_flat_plain`` (torch.cumsum), inclusive and exclusive, on
+    six tiles and a ragged end and on a single short tile: integer values
+    exact in either dtype, floats within rtol=1e-6; each tile total is the
+    tile's own sum."""
     from project3_cuda_path_tracer_2025_tpu_torch.ops import scan
 
     rng = np.random.default_rng(5)
-    x = {"flags": lambda: (rng.random((300, 128)) > 0.5),
-         "ints": lambda: rng.integers(0, 200, (300, 128)),
-         "floats": lambda: rng.random((300, 128))}[kind]()
-    xp = torch.from_numpy(np.ascontiguousarray(x, np.float32))
-    lane, tot = torch.empty_like(xp), torch.empty(300)
-    scan_lib.ptt_host_scan_tiles(xp.data_ptr(), lane.data_ptr(), tot.data_ptr(), 300)
-    want_lane, want_tot = scan.scan_tiles_plain(xp)
-    if kind == "floats":
-        np.testing.assert_allclose(lane.numpy(), want_lane.numpy(), rtol=1e-6)
-        np.testing.assert_allclose(tot.numpy(), want_tot[:, 0].numpy(), rtol=1e-6)
-    else:
-        assert torch.equal(lane, want_lane)
-        assert torch.equal(tot, want_tot[:, 0])
-    assert torch.equal(tot, lane[:, -1])
+    values, _, dtype = kind.partition("-")
+    for n in (scan.KERNEL_TILE * 5 + 777, 1000):
+        x = {"flags": lambda: rng.random(n) > 0.5,
+             "ints": lambda: rng.integers(0, 200, n),
+             "floats": lambda: rng.random(n)}[values]()
+        xt = torch.from_numpy(np.ascontiguousarray(x, dtype or "float32"))
+        for inclusive in (False, True):
+            got, tot = host_scan(scan_lib, xt, inclusive)
+            want = scan.scan_flat_plain(xt, inclusive)
+            if values == "floats":
+                np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6)
+            else:
+                assert torch.equal(got, want), (n, inclusive)
+        sums = [xt[i:i + scan.KERNEL_TILE].double().sum() for i in range(0, n, scan.KERNEL_TILE)]
+        if len(sums) > 1:
+            np.testing.assert_allclose(tot.double().numpy(), np.array(sums), rtol=1e-6)
+        else:
+            assert int(tot[0]) == -1  # one tile: no totals pass
 
 
 # ---------------------------------------------------------------------------
@@ -423,6 +428,10 @@ def walk_lib(mesh_lib):
     mesh_lib.ptt_host_walk.argtypes = (
         [P, P, ctypes.c_int32, P, P, P, P, P, P, P, ctypes.c_int32, ctypes.c_float,
          ctypes.c_float, ctypes.c_int32, P, P]
+    )
+    mesh_lib.ptt_host_streamed_block.argtypes = (
+        [P, P, ctypes.c_int32, P, P, P, P, P, P, P, ctypes.c_float, ctypes.c_float,
+         ctypes.c_int32, P, P]
     )
     mesh_lib.ptt_host_binned.argtypes = (
         [P] * 8 + [ctypes.c_int32] * 3 + [ctypes.c_float] * 2 + [P, P]
@@ -487,6 +496,72 @@ def test_host_walks_match_plain(walk_lib):
             np.testing.assert_array_equal(got_tri.numpy(), np.asarray(jr.tri))
             np.testing.assert_array_equal(got_t.numpy(), np.asarray(jr.t))
             assert set(np.unique(got_tri.numpy()[got_tri.numpy() >= 0])) == {TIE_TRIS[0]}
+
+
+def _streamed_case(name):
+    """A walk case with its live mask and plan.  "limit": the tie mesh with
+    every other hit ray's t_limit moved onto its own closest hit, which then
+    lies at exactly t_limit on both tiles and must not replace (t_limit,
+    -1)."""
+    _, tables, ro, rd, active, tl = next(c for c in _walk_cases()
+                                         if c[0] == ("tie" if name == "limit" else name))
+    if name == "limit":
+        live = active & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd,
+                                                    tl)
+        t, tri = intersect_mxu.walk_plain(tables, ro, rd, live, tl,
+                                          _plan_for(tables, ro, rd, live, tl), 1e-5)
+        moved = (tri >= 0) & (torch.arange(tl.shape[0]) % 2 == 0)
+        tl = torch.where(moved, t, tl)
+    live = active & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+    return tables, ro, rd, live, tl, _plan_for(tables, ro, rd, live, tl)
+
+
+@pytest.fixture(scope="module")
+def spread_libs(walk_lib, tmp_path_factory):
+    """The harness at each block width of the streamed kernel: the default
+    (512 threads, two triangles a thread), 256 and 1,024."""
+    libs = {512: walk_lib}
+    for w in (256, 1024):
+        libs[w] = build_host(tmp_path_factory, MESH_HARNESS, f"libmesh_path_host_{w}.so",
+                             defines=[f"-DPTT_SPREAD_THREADS={w}"])
+        libs[w].ptt_host_streamed_block.argtypes = walk_lib.ptt_host_streamed_block.argtypes
+    return libs
+
+
+@pytest.mark.parametrize("threads", [256, 512, 1024])
+@pytest.mark.parametrize("name", ["20k", "tie", "limit"])
+def test_host_streamed_block_schedule_matches_plain(walk_lib, spread_libs, name, threads):
+    """ptt_streamed_kernel's block schedule at three block widths (takers
+    listed by ballot order, each thread's 1,024 / width triangles against
+    every taker, per-ray 64-bit key minimum): t and tri equal to
+    walk_plain's and to the per-ray walk's, equal-t ties across the tie
+    mesh's two tiles to the lower copy, and a hit at exactly t_limit left at
+    (t_limit, -1)."""
+    from torch_compare import TIE_TRIS
+
+    tables, ro, rd, live, tl, plan = _streamed_case(name)
+    n = ro.x.shape[0]
+    want_t, want_tri = intersect_mxu.walk_plain(tables, ro, rd, live, tl, plan, 1e-5)
+    got_t, got_tri = torch.empty(n), torch.empty(n, dtype=torch.int32)
+    rays = [p.contiguous() for p in (*ro, *rd)]
+    lv, tlc = live.to(torch.uint8).contiguous(), tl.contiguous()
+    spread_libs[threads].ptt_host_streamed_block(
+        tables.coef.data_ptr(), tables.tile_aabb.data_ptr(), tables.tile_aabb.shape[0],
+        tables.center.data_ptr(), _ptrs(rays), lv.data_ptr(), tlc.data_ptr(),
+        plan.ids.data_ptr(), plan.tlo.data_ptr(), plan.cnt.data_ptr(), *_eps_args(), n,
+        got_t.data_ptr(), got_tri.data_ptr())
+    assert torch.equal(got_tri, want_tri) and torch.equal(got_t, want_t)
+    per_ray = _host_walk(walk_lib, tables, ro, rd, live, tl, plan, 1)
+    assert torch.equal(got_tri, per_ray[1]) and torch.equal(got_t, per_ray[0])
+    if name == "limit":
+        moved = torch.arange(n) % 2 == 0
+        at_limit = moved & live & (got_t == tl)
+        assert int(at_limit.sum()) > 100 and (got_tri[at_limit] == -1).all()
+        assert (got_tri[~moved] >= 0).sum() > 100
+    else:
+        assert (want_tri >= 0).sum() > 20
+    if name == "tie":
+        assert set(got_tri[got_tri >= 0].tolist()) == {TIE_TRIS[0]}
 
 
 def test_host_binned_matches_plain(walk_lib):

@@ -2,18 +2,20 @@
 
 * The torch oracles and the Hillis-Steele flavours against ``ops/scan.py``'s
   jnp ones, on integers (equal).
-* The tiled path (``_scan_tiled``: pad to 16,384-element tiles, scan each
-  128-lane row, add the exclusive scan of the row totals; on the CPU the
-  tile step is ``scan_tiles_plain``) against the JAX package's
-  ``_scan_pallas_f32`` with its Pallas tile kernel in interpret mode, over
-  several tiles and a ragged end: integer-valued inputs equal, floats
-  within ``rtol=1e-5, atol=1e-3`` (the TPU kernel sums a row by a matmul,
-  torch by a running sum; the prefixes reach ~2e4).
+* The whole-array scan (``scan_flat``: on CPU tensors its plain version,
+  and the two kernels of ``csrc/scan.cu`` built for the host,
+  ``tests/scan_host.cpp``) against the JAX package's ``_scan_pallas_f32``
+  with its Pallas tile kernel in interpret mode, inclusive and exclusive,
+  on float32 and int32 inputs (the JAX side scans the int32 inputs in
+  float32 and rounds back, as its ``exclusive_scan`` does), over several
+  tiles and a ragged end: integer values equal, floats within ``rtol=1e-5,
+  atol=1e-3`` (the TPU kernel sums a row by a matmul, the port by running
+  sums; the prefixes reach ~2e4).
 * ``compact_indices``, ``compact`` and ``radix_sort_permutation`` against the
   JAX package's (permutations and counts equal) and the radix sort against a
   stable ``torch.argsort``.
 * The kernel path's guards: integer inputs past 2^24 raise ``ValueError``
-  as in the JAX package, and the tile wrapper refuses a tensor that is
+  as in the JAX package, and the kernel wrapper refuses a tensor that is
   neither on the CPU nor on a CUDA device.  (The kernel itself runs on the
   card: ``tests/test_torch_cuda.py``.)
 """
@@ -25,6 +27,8 @@ import torch
 
 from project3_cuda_path_tracer_2025_tpu.ops import scan as jscan
 from project3_cuda_path_tracer_2025_tpu_torch.ops import scan
+from test_torch_kernel_body import SCAN_HARNESS, host_scan
+from torch_compare import build_host
 
 
 @pytest.mark.parametrize("n", [1, 2, 7, 128, 1000, 4097])
@@ -58,41 +62,38 @@ def jax_tiled(monkeypatch):
     return jscan._scan_pallas_f32
 
 
-@pytest.mark.parametrize("kind", ["flags", "ints", "floats"])
-def test_tiled_scan_matches_pallas(jax_tiled, kind):
+@pytest.fixture(scope="module")
+def scan_lib(tmp_path_factory):
+    import ctypes
+
+    lib = build_host(tmp_path_factory, SCAN_HARNESS, "libscan_host.so")
+    lib.ptt_host_scan.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int32,
+                                                          ctypes.c_int32]
+    return lib
+
+
+@pytest.mark.parametrize("kind", ["flags", "ints", "floats", "flags-int32", "ints-int32"])
+def test_tiled_scan_matches_pallas(jax_tiled, scan_lib, kind):
     rng = np.random.default_rng(7)
     n = scan.TILE * 2 + 777
+    values, _, dtype = kind.partition("-")
     x = {"flags": lambda: (rng.random(n) > 0.5).astype(np.float32),
          "ints": lambda: rng.integers(0, 3, n).astype(np.float32),
-         "floats": lambda: rng.random(n).astype(np.float32)}[kind]()
+         "floats": lambda: rng.random(n).astype(np.float32)}[values]()
+    xt = torch.from_numpy(x.astype(dtype or "float32"))
     for inclusive in (False, True):
-        got = scan._scan_tiled(torch.from_numpy(x), inclusive).numpy()
         want = np.asarray(jax_tiled(jnp.asarray(x), inclusive=inclusive))
+        if dtype:
+            want = np.round(want).astype(np.int32)
         ref = np.cumsum(x.astype(np.float64)) - (0 if inclusive else x)
-        if kind == "floats":
-            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
-            np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-3)
-        else:
-            np.testing.assert_array_equal(got, want)
-            np.testing.assert_array_equal(got, ref)
-
-
-def test_tile_step_matches_pallas_kernel():
-    """``scan_tiles_plain`` against ``_scan_tile_kernel`` on one [128, 128]
-    tile of small integers (exact) in interpret mode."""
-    import jax
-    from jax.experimental import pallas as pl
-
-    x = np.random.default_rng(1).integers(0, 4, (128, 128)).astype(np.float32)
-    lane, tot = pl.pallas_call(
-        jscan._scan_tile_kernel,
-        out_shape=(jax.ShapeDtypeStruct(x.shape, jnp.float32),
-                   jax.ShapeDtypeStruct((128, 1), jnp.float32)),
-        interpret=True,
-    )(jnp.asarray(x))
-    got_lane, got_tot = scan.scan_tiles(torch.from_numpy(x))
-    np.testing.assert_array_equal(got_lane.numpy(), np.asarray(lane))
-    np.testing.assert_array_equal(got_tot.numpy(), np.asarray(tot))
+        for got in (scan.scan_flat(xt, inclusive), host_scan(scan_lib, xt, inclusive)[0]):
+            assert got.dtype == xt.dtype
+            if values == "floats":
+                np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-3)
+                np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-3)
+            else:
+                np.testing.assert_array_equal(got.numpy(), want)
+                np.testing.assert_array_equal(got.numpy(), ref)
 
 
 @pytest.mark.parametrize("n", [500, scan.TILE + 3])
@@ -134,4 +135,4 @@ def test_kernel_path_guards():
     assert not scan._kernel_ok(big, False)
     assert not scan._kernel_ok(torch.empty(scan.TILE - 1, device="meta"), True)
     with pytest.raises(ValueError, match="CUDA"):
-        scan.scan_tiles(torch.empty((128, 128), device="meta"))
+        scan.scan_flat(torch.empty(scan.TILE, device="meta"), True)

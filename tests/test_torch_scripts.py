@@ -17,7 +17,7 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SCRIPTS = ("torch_profile_epilogue", "torch_bench_scenes", "torch_scene_matrix",
            "torch_bench_binned", "torch_profile_mesh_bounce", "torch_profile_wavefront",
-           "torch_compaction_study", "torch_diag_mesh_traversal")
+           "torch_compaction_study", "torch_diag_mesh_traversal", "torch_bench_kernels")
 ARGS = {
     "torch_profile_epilogue": ["--res", "8", "--k", "1"],
     "torch_bench_scenes": ["--res", "8", "--spp", "1", "--batch", "1", "--quick", "--scenes",
@@ -30,11 +30,13 @@ ARGS = {
     "torch_compaction_study": ["--res", "8", "--spp", "1", "--batch", "1"],
     "torch_diag_mesh_traversal": ["--res", "8", "--k", "1", "--scene",
                                   "scenes/cornell_mesh_20k.json"],
+    "torch_bench_kernels": ["--res", "8", "--scenes", "80k", "--bounces", "2", "--k", "1",
+                            "--scan-n", "20000"],
 }
 MIN_LINES = {"torch_profile_epilogue": 8, "torch_bench_scenes": 2, "torch_scene_matrix": 5,
              "torch_bench_binned": 2, "torch_profile_mesh_bounce": 12,
              "torch_profile_wavefront": 9, "torch_compaction_study": 6,
-             "torch_diag_mesh_traversal": 9}
+             "torch_diag_mesh_traversal": 9, "torch_bench_kernels": 5}
 
 
 def _load(name):

@@ -20,6 +20,7 @@ import torch
 
 from project3_cuda_path_tracer_2025_tpu.utils.vec import Vec3 as JVec3
 from project3_cuda_path_tracer_2025_tpu_torch.utils.vec import Vec3
+from torch_fixtures import TIE_TRIS, tie_mesh  # noqa: F401  (numpy only: the card's tests use them)
 
 # The suite runs several worker processes on a few cores.  The port's tests
 # use tensors of at most a few thousand lanes, where one intra-op thread is
@@ -31,6 +32,31 @@ RTOL, ATOL = 1e-5, 1e-6
 ATOL_WORLD = ATOL * 10.0  # world-space points: terms of the scene's size
 ILL_SHARE = 1e-3  # share of elements allowed outside (RTOL, ATOL)...
 ILL_RTOL = 1e-4  # ...which must still agree to (ILL_RTOL, 10 * atol)
+
+
+def build_host(tmp_path_factory, src, name, defines=()):
+    """A test harness of ``tests/`` built with the host C++ compiler against
+    the kernels' ``csrc/`` headers (no contraction, as nvcc's
+    ``--fmad=false``; ``defines``: extra ``-D`` flags), loaded with ctypes;
+    the test skips without a compiler."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    import pytest
+
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import kernels
+
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no C++ compiler to build the kernel body for the host")
+    out = tmp_path_factory.mktemp("host") / name
+    subprocess.run(
+        [cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC", *defines,
+         "-I", str(kernels.CSRC), "-o", str(out), str(src)],
+        check=True, capture_output=True, text=True,
+    )
+    return ctypes.CDLL(str(out))
 
 
 def close(got, want, mask=None, atol=ATOL, share=ILL_SHARE, ill_rtol=ILL_RTOL):
@@ -103,32 +129,6 @@ def sphere_rays(rng, n, center=(0.0, 0.0, 0.0)):
     d = rng.uniform(-0.8, 0.8, (n, 3)) - o
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     return (o + np.asarray(center)).astype(np.float32), d.astype(np.float32)
-
-
-TIE_TRIS = (5, 1024 + 7)  # the two copies of the shared triangle
-
-
-def tie_mesh(rng, n):
-    """Two tiles that hold the same triangle (ids 5 and 1031), so every ray
-    that hits it has an exact tie across tiles, and whose boxes make the
-    plan visit tile 1 first: tile 1 reaches back toward the rays' origins,
-    tile 0 away from them.  The lower id must win.  Returns (pos [2048, 3,
-    3], origins, directions, t_limit) float32; the other triangles lie off
-    the rays' paths."""
-    pos = np.zeros((2048, 3, 3), np.float32)
-    small = np.array([[0.0, 0.0, 0.0], [0.3, 0.0, 0.0], [0.0, 0.3, 0.0]], np.float32)
-    u = rng.random((2048, 1, 3)).astype(np.float32)
-    pos[:1024] = small + np.array([40.0, -1.0, 0.0], np.float32) + u[:1024] * [1.0, 2.0, 3.0]
-    pos[1024:] = small + np.array([20.0, -1.0, -4.0], np.float32) + u[1024:] * [1.0, 2.0, 4.0]
-    shared = np.array([[-1.0, -1.0, 0.0], [3.0, -1.0, 0.0], [-1.0, 3.0, 0.0]], np.float32)
-    pos[list(TIE_TRIS)] = shared
-    o = np.concatenate([rng.uniform(-0.8, 0.8, (n, 2)), np.full((n, 1), -5.0)], 1)
-    d = np.concatenate([rng.uniform(-0.05, 0.05, (n, 2)), np.ones((n, 1))], 1)
-    d[: n // 4, :2] = 0.0  # straight down the axis: the hit is exactly t = 5
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    lim = np.where(rng.random(n) > 0.3, 3.4e38, rng.uniform(4.0, 6.0, n))
-    lim[: n // 16] = 5.0  # a hit exactly at t_limit loses to it
-    return pos, o.astype(np.float32), d.astype(np.float32), lim.astype(np.float32)
 
 
 def mesh_tables_pair(pos):
