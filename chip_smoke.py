@@ -57,7 +57,9 @@ sys.path.insert(0, str(ROOT / "scripts"))
 # The sorted bounce states of phase 11 and the film hashes are the A/B
 # script's, so that its numbers and this script's describe the same rays
 # and films.
-from torch_bench_kernels import sha, sorted_bounces  # noqa: E402
+from torch_bench_kernels import (  # noqa: E402
+    env_set, sha, sorted_bounces, super_args, sweep_calls,
+)
 
 PKG = "project3_cuda_path_tracer_2025_tpu_torch"
 SCENE = ROOT / "scenes" / "cornell_dof.json"
@@ -443,6 +445,19 @@ def mesh_phases(device, smi: str) -> tuple:
 # Phases 10-12: the meshes beyond the mono band (csrc/mesh_walk.cu)
 # ---------------------------------------------------------------------------
 
+def launch(tag, what, fn, reps, bound, live, smi) -> float:
+    """One kernel's ms per launch on the card (median of 3 samples of
+    ``reps`` launches, after one), logged with its ``bound`` (walk_bound or
+    visit_bound) and its share of it."""
+    fn()
+    torch.cuda.synchronize()
+    ms = float(np.median([cuda_time_ms(fn, reps) for _ in range(3)]))
+    log(f"[{tag}] {what}: {ms:.4f} ms per launch on {smi}; {int(live.sum())} live rays, "
+        f"{bound[2]} candidate (ray, tile) pairs; bound {bound[0]:.4f} ms ({bound[1]}), "
+        f"{bound[0] / ms:.1%} of it")
+    return ms
+
+
 def bit_diff(got: tuple, want: tuple) -> tuple:
     """(rays with tri differing, rays with t not bit-equal, max |t diff|)
     of two (t, tri) results."""
@@ -624,24 +639,6 @@ def frame_fn(dev, static, cam, cfg, base_key, device):
     return fn
 
 
-class env_set:
-    """Environment variables set for the length of a ``with`` block."""
-
-    def __init__(self, **env):
-        self.env = env
-
-    def __enter__(self):
-        self.old = {k: os.environ.get(k) for k in self.env}
-        os.environ.update(self.env)
-
-    def __exit__(self, *exc):
-        for k, v in self.old.items():
-            if v is None:
-                del os.environ[k]
-            else:
-                os.environ[k] = v
-
-
 def with_env(fn, **env):
     def run():
         with env_set(**env):
@@ -687,7 +684,8 @@ def log_times(tag, smi, times, paths_t, rounds, rays: dict) -> dict:
 
 
 # Scenes and sorted bounce states that phases 10-12 loaded, kept for phases
-# 16-19: name -> (scene, dev, static, cam) and name -> [(paths, t_lim, live)].
+# 16-19: name -> (scene, dev, static, cam) and name -> [(paths, t_lim, live)]
+# (all eight bounces of the 20k, 80k and 500k frames, three of 200k).
 LOADED, STATES = {}, {}
 
 
@@ -750,7 +748,8 @@ def larger_mesh_phases(device, smi: str) -> tuple:
     log("[10] planned walks (#5 lane-best, #6 with the early exit):")
     scene, dev, static, cam = setup("20k")
     tables, n, depth = dev.mxu_mesh, static.pixel_count, static.trace_depth
-    states = STATES["20k"] = sorted_bounces(dev, static, cam, cfg, device)
+    STATES["20k"] = sorted_bounces(dev, static, cam, cfg, device, bounces=depth)
+    states = STATES["20k"][:3]
     check_walks("10a", ("planned_lanebest", "planned"), states, tables)
     traversals_agree("10b", tables, static, states, ("planned", "streamed", "binned"))
     r, got = drive(scene, 4, counters)
@@ -793,24 +792,17 @@ def larger_mesh_phases(device, smi: str) -> tuple:
 
     # -- 11. streamed, cornell_mesh_80k.json and cornell_mesh_500k.json ------
     def per_bounce(tag, states, reps):
-        """#7 on each sorted bounce at full size: ms per launch (median of 3
-        samples of ``reps`` launches), its bound and share of it."""
+        """#7 on each sorted bounce at full size."""
         for d, st in enumerate(states):
             args = walk_args(tables, *st)
-            fn = lambda: mxu.streamed_intersect(*args)
-            fn()
-            torch.cuda.synchronize()
-            ms = float(np.median([cuda_time_ms(fn, reps) for _ in range(3)]))
-            b = walk_bound(args)
-            log(f"[{tag}] streamed_intersect bounce {d}: {ms:.4f} ms per launch on {smi}; "
-                f"{int(args[3].sum())} live rays, {b[2]} candidate (ray, tile) pairs; bound "
-                f"{b[0]:.4f} ms ({b[1]}), {b[0] / ms:.1%} of it")
+            launch(tag, f"streamed_intersect bounce {d}", lambda: mxu.streamed_intersect(*args),
+                   reps, walk_bound(args), args[3], smi)
 
     log("[11] streamed walk (#7):")
     scene, dev, static, cam = setup("80k")
     tables, n, depth = dev.mxu_mesh, static.pixel_count, static.trace_depth
     states = sorted_bounces(dev, static, cam, cfg, device, bounces=depth)
-    STATES["80k"] = states[:3]
+    STATES["80k"] = states
     check_walks("11a", ("streamed",), states, tables)
     per_bounce("11a", states, 10)
     frame = lambda c, plain=False: megakernel_iteration(
@@ -869,7 +861,7 @@ def larger_mesh_phases(device, smi: str) -> tuple:
     scene, dev, static, cam = setup("500k")
     tables, n, depth = dev.mxu_mesh, static.pixel_count, static.trace_depth
     states = sorted_bounces(dev, static, cam, cfg, device, bounces=depth)
-    STATES["500k"] = states[:3]
+    STATES["500k"] = states
     check_walks("11f", ("streamed",), states, tables, blocks=PLAIN_BLOCKS)
     per_bounce("11f", states, 5)
     film_s, alive_s = megakernel_iteration(dev, static, cfg, cam, film_ops.new_film(n, device),
@@ -1491,9 +1483,11 @@ def slice5_phases(device, smi: str) -> tuple:
             raise AssertionError(f"[{tag}] the frame differs from the 'auto' frame")
 
     # -- 16. the sweep -------------------------------------------------------
-    log("[16] the sweep (#9: every tile in ascending id, no plan):")
+    log("[16] the sweep (#9: every tile in ascending id, no plan; the block schedule):")
     scene20, dev, static, cam = LOADED["20k"]
     tables, n, depth = dev.mxu_mesh, static.pixel_count, static.trace_depth
+    every = lambda tab, k: torch.ones((-(-k // mxu.RAY_TILE), tab.tile_aabb.shape[0]),
+                                      dtype=torch.bool, device=device)
     for d, (paths, tl, live) in enumerate(STATES["20k"]):
         a = walk_args(tables, paths, tl, live)
         sargs = a[:5] + (a[6],)
@@ -1510,6 +1504,31 @@ def slice5_phases(device, smi: str) -> tuple:
         if tri_bad or t_bad or any(x or y for x, y in vs.values()) or not int((want[1] >= 0).sum()):
             raise AssertionError("sweep_intersect disagrees")
         err["sweep_intersect"] = max(err["sweep_intersect"], e)
+        launch("16a", f"sweep_intersect 20k bounce {d}", lambda: mxu.sweep_intersect(*sargs), 20,
+               visit_bound(*sargs[:5], every(tables, n), 0, gate_t=got[0]), live, smi)
+    _, dev80, static80, cam80 = LOADED["80k"]
+    tab80 = dev80.mxu_mesh
+    m = PLAIN_BLOCKS * mxu.RAY_TILE
+    for d, (paths, tl, live) in enumerate(STATES["80k"]):
+        calls = sweep_calls(mxu, tab80, static80.mxu_padded_tris, paths.origin, paths.direction,
+                            live, tl, 1e-5)
+        for i, c in enumerate(calls):
+            cut = lambda v: type(v)(*(x[:m].contiguous() for x in v))
+            head = (c[0], cut(c[1]), cut(c[2]), c[3][:m].contiguous(), c[4][:m].contiguous(), c[5])
+            got = mxu.sweep_intersect(*c)
+            tri_bad, t_bad, e = bit_diff(mxu.sweep_intersect(*head),
+                                         mxu.sweep_intersect_plain(*head))
+            torch.cuda.synchronize()
+            log(f"[16a] 80k bounce {d}, chain call {i} ({c[0].tile_aabb.shape[0]} tiles): "
+                f"against the plain version on the first {PLAIN_BLOCKS} blocks, rays with tri "
+                f"differing {tri_bad}, with t not bit-equal {t_bad}")
+            if tri_bad or t_bad:
+                raise AssertionError("sweep_intersect disagrees in the 80k chain")
+            err["sweep_intersect"] = max(err["sweep_intersect"], e)
+            launch("16a", f"sweep_intersect 80k bounce {d} call {i}",
+                   lambda c=c: mxu.sweep_intersect(*c), 10,
+                   visit_bound(*c[:5], every(c[0], n), 0, gate_t=got[0]), c[3], smi)
+    traversals_agree("16a 80k", tab80, static80, STATES["80k"], ("streamed", "sweep"))
     sweep_cfg = RenderConfig(mxu_traversal="sweep")
     auto20 = one_frame("20k", cfg)
     same_film("16b 20k sweep", one_frame("20k", sweep_cfg), auto20)
@@ -1529,7 +1548,6 @@ def slice5_phases(device, smi: str) -> tuple:
     s0 = a0[:5] + (a0[6],)
     f20s = frame_fn(dev, static, cam, sweep_cfg, base_key, device)
     f20a = frame_fn(dev, static, cam, cfg, base_key, device)
-    _, dev80, static80, cam80 = LOADED["80k"]
     f80s = frame_fn(dev80, static80, cam80, sweep_cfg, base_key, device)
     f80a = frame_fn(dev80, static80, cam80, cfg, base_key, device)
     profiled["80k frame, mxu_traversal='sweep' (chain of 3 sweeps a bounce)"] = f80s
@@ -1549,9 +1567,7 @@ def slice5_phases(device, smi: str) -> tuple:
                     if "frame" in k})
     log(f"    host reads in one 20k sweep frame: {host_syncs(f20s)}; 'auto': {host_syncs(f20a)}")
     log(f"    host reads in one 80k sweep frame: {host_syncs(f80s)}; 'auto': {host_syncs(f80a)}")
-    every = torch.ones((a0[5].cnt.shape[0], tables.tile_aabb.shape[0]), dtype=torch.bool,
-                       device=device)
-    b9 = visit_bound(*s0[:5], every, 0, gate_t=mxu.sweep_intersect(*s0)[0])
+    b9 = visit_bound(*s0[:5], every(tables, n), 0, gate_t=mxu.sweep_intersect(*s0)[0])
     log(f"    bound of one sweep launch: {b9[0]:.4f} ms ({b9[1]}; {b9[2]} (ray, tile) pairs whose "
         f"entry is no farther than the ray's hit, of {int(s0[3].sum())} live rays)")
     entries["sweep_intersect"] = dict(ms=ms["sweep_intersect, 20k (1 bounce)"],
@@ -1560,8 +1576,8 @@ def slice5_phases(device, smi: str) -> tuple:
 
     # -- 17. the chunked chains ------------------------------------------------
     log("[17] the chunked chains (planned: a plan and a walk per chunk of 32 tiles):")
-    traversals_agree("17a 80k", dev80.mxu_mesh, static80, STATES["80k"],
-                     ("streamed", "planned", "sweep"))
+    traversals_agree("17a 80k", dev80.mxu_mesh, static80, STATES["80k"][:3],
+                     ("streamed", "planned"))
     _, dev200, static200, cam200 = LOADED["200k"]
     traversals_agree("17a 200k", dev200.mxu_mesh, static200, STATES["200k"],
                      ("streamed", "planned"))
@@ -1665,23 +1681,29 @@ def slice5_phases(device, smi: str) -> tuple:
     if stab.tile_aabb.shape[0] % mxu.SUPER_TILES or sstatic != static500:
         raise AssertionError("the super-padded tables have the wrong shape")
 
-    def super_args(paths, tl, live, blocks=None):
-        ro, rd = paths.origin, paths.direction
-        splan = mxu.plan_with_prefix(saabb, *mxu.plan_rays(stab, ro, rd, live, tl))
-        if blocks is not None:
-            m, cs = blocks * mxu.RAY_TILE, saabb.shape[0]
-            cut = lambda v: type(v)(*(x[:m].contiguous() for x in v))
-            ro, rd, live, tl = cut(ro), cut(rd), live[:m].contiguous(), tl[:m].contiguous()
-            splan = mxu.TilePlan(splan.ids[:blocks * cs].contiguous(),
-                                 splan.tlo[:blocks * cs].contiguous(),
-                                 splan.cnt[:blocks].contiguous())
-        return stab, ro, rd, live, tl, splan, 1e-5
+    def sargs(paths, tl, live, blocks=None):
+        full = super_args(mxu, stab, saabb, paths.origin, paths.direction, live, tl, 1e-5)
+        if blocks is None:
+            return full
+        m, cs = blocks * mxu.RAY_TILE, saabb.shape[0]
+        cut = lambda v: type(v)(*(x[:m].contiguous() for x in v))
+        splan = full[5]
+        return (stab, cut(full[1]), cut(full[2]), live[:m].contiguous(), tl[:m].contiguous(),
+                mxu.TilePlan(splan.ids[:blocks * cs].contiguous(),
+                             splan.tlo[:blocks * cs].contiguous(),
+                             splan.cnt[:blocks].contiguous()), 1e-5)
+
+    def super_bound(u):
+        visits = mxu._plan_visits(u[5], saabb.shape[0]).repeat_interleave(
+            mxu.SUPER_TILES, dim=1)[:, :stab.tile_aabb.shape[0]]
+        return visit_bound(*u[:5], visits, u[5].cnt.shape[0] * (saabb.shape[0] * 8 + 4)
+                           + saabb.numel() * 4)
 
     for d, (paths, tl, live) in enumerate(STATES["500k"]):
-        cut_args = super_args(paths, tl, live, PLAIN_BLOCKS)
+        cut_args = sargs(paths, tl, live, PLAIN_BLOCKS)
         tri_bad, t_bad, e = bit_diff(mxu.streamed_super_intersect(*cut_args, saabb),
                                      mxu.streamed_super_plain(*cut_args))
-        full = super_args(paths, tl, live)
+        full = sargs(paths, tl, live)
         vs = bit_diff(mxu.streamed_super_intersect(*full, saabb),
                       mxu.streamed_intersect(*walk_args(stab, paths, tl, live)))
         torch.cuda.synchronize()
@@ -1692,6 +1714,8 @@ def slice5_phases(device, smi: str) -> tuple:
         if tri_bad or t_bad or vs[0] or vs[1]:
             raise AssertionError("streamed_super_intersect disagrees")
         err["streamed_super_intersect"] = max(err["streamed_super_intersect"], e)
+        launch("18a", f"streamed_super_intersect 500k bounce {d}",
+               lambda: mxu.streamed_super_intersect(*full, saabb), 5, super_bound(full), live, smi)
     auto500 = one_frame("500k", cfg)
     with env_set(PTT_STREAM_SUPER="1"):
         sup = megakernel_iteration(sdev, sstatic, cfg, cam500, film_ops.new_film(n, device), 1,
@@ -1704,11 +1728,12 @@ def slice5_phases(device, smi: str) -> tuple:
     if (got["streamed_super_intersect"], got["streamed_intersect"]) != (depth, 0):
         raise AssertionError("the 500k Renderer did not take the super walk once per bounce")
     main_launches["streamed_super_intersect"] = got["streamed_super_intersect"]
-    u0 = super_args(*STATES["500k"][0])
+    u0 = sargs(*STATES["500k"][0])
     w0 = walk_args(stab, *STATES["500k"][0])
-    c0 = super_args(*STATES["500k"][0], PLAIN_BLOCKS)
+    c0 = sargs(*STATES["500k"][0], PLAIN_BLOCKS)
     f500s = with_env(frame_fn(sdev, sstatic, cam500, cfg, base_key, device), PTT_STREAM_SUPER="1")
     f500a = frame_fn(dev500, static500, cam500, cfg, base_key, device)
+    profiled["500k frame, PTT_STREAM_SUPER=1 (the super-tile walk)"] = f500s
     paths_t = {
         "streamed_super_intersect, 500k (1 bounce)":
             (lambda: mxu.streamed_super_intersect(*u0, saabb), 5),
@@ -1724,24 +1749,21 @@ def slice5_phases(device, smi: str) -> tuple:
     rays500 = float(n + auto500[1].sum().item())
     ms = log_times("18d", smi, time_paths(paths_t, rounds), paths_t, rounds,
                    {k: rays500 for k in paths_t if "frame" in k})
-    visits = mxu._plan_visits(u0[5], saabb.shape[0]).repeat_interleave(
-        mxu.SUPER_TILES, dim=1)[:, :stab.tile_aabb.shape[0]]
-    b8 = visit_bound(*u0[:5], visits, u0[5].cnt.shape[0] * (saabb.shape[0] * 8 + 4)
-                     + saabb.numel() * 4)
+    b8 = super_bound(u0)
     log(f"    bound of one super launch on all rays: {b8[0]:.4f} ms ({b8[1]}; {b8[2]} candidate "
         f"(ray, tile) pairs of {int(u0[3].sum())} live rays); the plain version is timed on "
         f"the first {PLAIN_BLOCKS} blocks only")
     entries["streamed_super_intersect"] = dict(
         ms=ms["streamed_super_intersect, 500k (1 bounce)"],
         plain_ms=ms[f"plain streamed_super_plain, first {PLAIN_BLOCKS} blocks"], bound=b8)
-    del sdev, stab, u0, w0, c0, f500s
+    del u0, w0, c0
 
     # -- 19. the plan prepass ---------------------------------------------------
     log("[19] plan prepass (#11), plan_impl='pallas' / PTT_PLAN_IMPL=pallas:")
     cases = {}
     for name in ("20k", "80k", "500k"):
         tab = LOADED[name][1].mxu_mesh
-        for d, (paths, tl, live) in enumerate(STATES[name]):
+        for d, (paths, tl, live) in enumerate(STATES[name][:3]):
             pr = mxu.plan_rays(tab, paths.origin, paths.direction, live, tl)
             h, lb = mxu.plan_prepass(tab.tile_aabb, *pr)
             hp, lbp = mxu.plan_prepass_plain(tab.tile_aabb, *pr)

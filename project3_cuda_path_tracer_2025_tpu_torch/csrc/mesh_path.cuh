@@ -13,8 +13,8 @@
 //                     a minimum of det, no acceptance;
 //   binned_pair     = one pair row of ops/intersect_mxu.py::binned_intersect_plain;
 //   sweep_ray       = one ray of ops/intersect_mxu.py::sweep_intersect_plain;
-//   super_visit     = one ray's visit of a super-tile plan entry
-//                     (ops/intersect_mxu.py::streamed_super_plain);
+//   super_take,     = one ray's gate on, and visit of, a super-tile plan
+//   super_visit       entry (ops/intersect_mxu.py::streamed_super_plain);
 //   plan_pair       = one (ray, tile) pair of ops/intersect_mxu.py::_pair_slabs,
 //                     the slab stage of the tile plan (plan_prepass_plain);
 //   mono_ray        = ops/intersect_mxu.py::mono_intersect_plain (the root
@@ -357,9 +357,11 @@ PTT_HD bool walk_goes_on(const WalkRay& r, float tile_tlo) {
   return tile_tlo <= (r.live ? r.best : 0.0f);
 }
 
-// The streamed walk's block schedule (ptt_streamed_kernel): a plan entry's
-// (ray, triangle) pairs are spread over the block's threads instead of one
-// thread walking its ray's 1,024 triangles.  Per entry:
+// The block schedule of the streamed, super-tile and sweep walks
+// (ptt_streamed_kernel, ptt_streamed_super_kernel, ptt_sweep_kernel; their
+// shared per-entry body is spread_entry in mesh_walk.cu): a tile's (ray,
+// triangle) pairs are spread over the block's threads instead of one thread
+// walking its ray's 1,024 triangles.  Per tile:
 //   walk_take    each ray's share of the member test and the improvability
 //                gate of walk_visit, and its pair window [t_lo, t_hi] of
 //                tile_fold; the rays that take the tile are listed;
@@ -438,18 +440,30 @@ PTT_HD void sweep_ray(WalkRay& r, const float* coef, const float* aabb, int ct, 
   for (int c = 0; c < ct; ++c) walk_visit(r, coef, aabb + 8 * c, c, true, baby_eps, eps_succ);
 }
 
-// One visit of a super-tile plan entry by one ray (_streamed_super_kernel):
-// one gate on the super box (srow: the min/max over its member boxes; a
-// member of any of its tiles is a member of it, and its entry is at or below
-// every member tile's), then the member tiles sid * 8 .. sid * 8 + 7, each
-// with the ray's own member window.  A tile past the last (ct) is padding
-// and never a member.  The per-tile gate of walk_visit is exact here as in
-// the other ordered walks.
+// The gate of a super-tile plan entry (_streamed_super_kernel) for one ray:
+// live, a member of the super box (srow: the min/max over its member boxes;
+// a member of any of its tiles is a member of it), and its entry there no
+// farther than the running best (it is at or below every member tile's).
+PTT_HD bool super_take(const WalkRay& r, const float* srow) {
+  if (!r.live) return false;
+  const Slab s = widen(slab(srow, srow + 3, r.os, r.inv), PTT_SLAB_REL1, PTT_SLAB_ABS1);
+  return slab_enters(s, r.tlim) && s.lo <= r.best;
+}
+
+// A padding tile of tables padded to whole super-tiles
+// (ops/intersect_mxu.py::build_mxu_tables): its box is inverted (lo 1e30 >
+// hi -1e30) and its coefficient rows are zero.  The slab test is symmetric
+// in lo and hi, so it passes for every ray; the zero rows never accept a
+// pair (det = 0), so a walk may skip the tile.
+PTT_HD bool padding_tile(const float* row) { return row[0] > row[3]; }
+
+// One visit of a super-tile plan entry by one ray: the gate, then the
+// member tiles sid * 8 .. sid * 8 + 7, each with the ray's own member
+// window.  A tile past the last (ct) does not exist.  The per-tile gate of
+// walk_visit is exact here as in the other ordered walks.
 PTT_HD void super_visit(WalkRay& r, const float* coef, const float* aabb, const float* srow,
                         int sid, int ct, float baby_eps, float eps_succ) {
-  if (!r.live) return;
-  const Slab s = widen(slab(srow, srow + 3, r.os, r.inv), PTT_SLAB_REL1, PTT_SLAB_ABS1);
-  if (!slab_enters(s, r.tlim) || !(s.lo <= r.best)) return;
+  if (!super_take(r, srow)) return;
   for (int k = 0; k < PTT_SUPER_TILES; ++k) {
     const int tile = sid * PTT_SUPER_TILES + k;
     if (tile >= ct) break;

@@ -34,65 +34,79 @@
 // the tiles whose widened slab the ray itself enters before its t_limit,
 // exact ties to the lowest global triangle id.  They differ in schedule only.
 //
-// Design.  One CUDA block is one plan block of 256 rays, one thread one ray
-// (RAY_TILE is the plan's block, so a block reads one plan row).  A block
-// walks its plan row in order (ascending entry bound): every thread takes
-// the same tile at the same step, so the 80-byte coefficient rows a warp
-// reads are the same address and broadcast from L1/L2.  A thread evaluates
-// a tile only when its ray is live and a member of it (csrc/mesh_path.cuh,
-// walk_visit); the others of the warp wait.  The tie rule in tile_fold
-// (t < best, or t == best and a lower id) makes the result independent of
-// the visit order, which is ascending entry bound, not ascending id.
-//   #5 walks all cnt entries of its plan row.
-//   #6 and #7 add the JAX package's two exact cuts: before each entry the
-//   block votes (__syncthreads_or) and stops when the entry's bound exceeds
-//   every live ray's running best (strictly: equal bounds may still tie);
-//   and a ray skips a tile whose slab entry lies beyond its own running
-//   best (the improvability gate, taken per ray instead of per block).
-//   #5 and #6 stage the (at most 32) tile boxes in shared memory; #7 reads
-//   its boxes and plan rows through the read-only cache (up to 1,024 tiles:
-//   32 KB of boxes, 8 KB of plan row per block).
-//   #7 has a block schedule of its own (the others keep one thread a ray).
-//   In the per-ray schedule a member ray walked its tile's 1,024 triangles
-//   alone while the rest of its warp waited, a chain of ~1 us a
-//   block-visit at 0.8% of the walk's operations bound.  The TPU kernel
-//   evaluates a 256-ray block against a whole tile as one matmul, its
-//   feature tiles double-buffered HBM->VMEM by DMA.  Here, per plan entry,
-//   after the exit vote, the rays that take the tile (live, member, past
-//   the gate) are listed in shared memory (warp ballots and a prefix over
-//   the eight ray warps), and the list's (ray, triangle) pairs are dealt
-//   over the block: PTT_SPREAD_THREADS = 512 threads, thread t holding the
-//   rows of triangles t and t + 512 in registers and evaluating them
+// Design.  One CUDA block is one plan block of 256 rays (RAY_TILE is the
+// plan's block, so a block reads one plan row).  A block walks its plan row
+// in order (ascending entry bound): every thread takes the same tile at the
+// same step, so the coefficient rows a warp reads are the same tile's and
+// come from L1/L2.  The tie rule in tile_fold (t < best, or t == best and a
+// lower id) makes the result independent of the visit order, which is
+// ascending entry bound, not ascending id.
+//   #5 and #6 (and #13a, #13b below) keep one thread a ray: a thread
+//   evaluates a tile only when its ray is live and a member of it
+//   (csrc/mesh_path.cuh, walk_visit) while the others of the warp wait.
+//   #5 walks all cnt entries of its plan row.  #6 (and #7, #8) add the JAX
+//   package's two exact cuts: before each entry the block votes
+//   (__syncthreads_or) and stops when the entry's bound exceeds every live
+//   ray's running best (strictly: equal bounds may still tie); and a ray
+//   skips a tile whose slab entry lies beyond its own running best (the
+//   improvability gate, taken per ray instead of per block).  #5 and #6
+//   stage the (at most 32) tile boxes in shared memory.
+//   #7, #8 and #9 share the block schedule.  In the per-ray schedule a
+//   member ray walked its tile's 1,024 triangles alone while the rest of its
+//   warp waited, a chain of ~1 us a block-visit at 0.5-1.6% of the walks'
+//   operations bound.  The TPU kernels evaluate a 256-ray block against a
+//   whole tile as one matmul, their feature tiles double-buffered
+//   HBM->VMEM by DMA.  Here, per tile, the rays that take it (live, member,
+//   past the gate) are listed in shared memory (warp ballots and a prefix
+//   over the eight ray warps), and the list's (ray, triangle) pairs are
+//   dealt over the block: PTT_SPREAD_THREADS = 512 threads, thread t holding
+//   the rows of triangles t and t + 512 in registers and evaluating them
 //   against every listed ray.  Each ray's running best is a 64-bit key in
 //   shared memory that the threads lower with atomicMin (csrc/mesh_path.cuh,
 //   walk_key: the ordered bits of t, then tri + 1), the lexicographic
 //   minimum the per-ray fold computes in any order, so the results are bit
-//   for bit the per-ray walk's.  Shared memory: the 256 rays' features (10
-//   KB), keys (2 KB), the list with its pair windows (3 KB), 64 B of
-//   counts: 15,424 B, so registers (84 a thread) set the occupancy, one
-//   block of 16 warps an SM.  Measured (scripts/torch_ab_streamed_walk.py,
-//   PERF.md): 512 threads beat 256 (two blocks an SM, four triangles a
-//   thread) and 1,024 (one triangle a thread) summed over a frame's eight
-//   sorted bounces at 80k and 500k; staging the next entry's rows in shared
-//   memory by cp.async (two 80 KB stages, one block an SM) lost to reading
-//   them from L2 into registers on every bounce, and was left out.
+//   for bit the per-ray walk's.  One device function, spread_entry, is that
+//   per-tile step for all three kernels; they differ only in which tiles
+//   they feed it and which votes and gates come with them.  Shared memory:
+//   the 256 rays' features (10 KB), keys (2 KB), the list with its pair
+//   windows (3 KB), 64 B of counts: 15,424 B (the sweep adds 1 KB of boxes),
+//   so registers set the occupancy, one block of 16 warps an SM.  Measured
+//   on #7 (scripts/torch_ab_streamed_walk.py, PERF.md): 512 threads beat 256
+//   (two blocks an SM, four triangles a thread) and 1,024 (one triangle a
+//   thread) summed over a frame's eight sorted bounces at 80k and 500k;
+//   staging the next entry's rows in shared memory by cp.async (two 80 KB
+//   stages, one block an SM) lost to reading them from L2 into registers on
+//   every bounce, and was left out.
+//   #7 reads its boxes and plan rows through the read-only cache (up to
+//   1,024 tiles: 32 KB of boxes, 8 KB of plan row per block) and feeds each
+//   plan entry's tile to spread_entry behind the exit vote.
+//   #8 walks a plan whose entries are super-tiles (8 contiguous tiles, the
+//   box their envelope).  Per entry: one exit vote (strict: the super box's
+//   entry is at or below every member tile's, so nothing past it can
+//   improve or tie), taken at the first member tile's barrier; one gate per
+//   ray on the super box (super_take), against the best as it stood before
+//   the entry; then each member tile sid * 8 + k < ct through spread_entry,
+//   taken only by rays past the gate, each with its own window and
+//   improvability gate.  The TPU kernel moves a super-tile's features in one
+//   DMA and so wants tables padded to whole super-tiles;
+//   ops/intersect_mxu.py::build_mxu_tables pads them so when the switch is
+//   on, as the JAX package does.  A padding tile's box is inverted (lo
+//   1e30, hi -1e30) and its rows are zero.  The slab test is symmetric in
+//   lo and hi, so every ray would take it and evaluate 1,024 pairs that
+//   never accept (det = 0): the kernel skips it (padding_tile), which
+//   changes no result.  An unpadded table works too (no tile past ct).
+//   #9 has no plan and no exit vote: tiles 0..ct-1 in ascending id, each
+//   through spread_entry, the boxes in shared memory.  In ascending order
+//   the key minimum is the TPU kernel's strict "<" (a later tile holds
+//   only higher ids), and each ray's gate reads its best after the tile
+//   before, as the per-ray sweep did.  A tile no ray takes costs one
+//   barrier: the TPU kernel's per-block any_hit cull.  A block with no live
+//   ray (a chain call masks the rays that miss its chunk) is skipped whole.
 //   #10 is stateless: block v takes visit v's tile (vt[v], -1 = an empty
 //   slot region, which writes (inf, -1)); thread r takes pair row r, the
 //   ray (src[32 v + r / 8]) * 8 + r % 8 of the packet in that slot.  The
 //   per-ray reduce over a packet's visits and the bin construction stay in
 //   torch (ops/intersect_mxu.py).
-//   #8 walks a plan whose entries are super-tiles (8 contiguous tiles, the
-//   box their envelope): one exit vote per entry (strict: the super box's
-//   entry is at or below every member tile's, so nothing past it can
-//   improve or tie), one gate per ray on the super box, then the member
-//   tiles with the ray's own window each (csrc/mesh_path.cuh, super_visit).
-//   The TPU kernel moves a super-tile's features in one DMA and so wants
-//   tables padded to whole super-tiles; here a tile past the last is simply
-//   never taken, and no padded copy exists.
-//   #9 has no plan: a thread takes tiles 0..ct-1 in order behind the member
-//   test and the improvability gate (sweep_ray); the boxes sit in shared
-//   memory.  The TPU kernel's per-block any_hit cond is a visit cull only,
-//   and the per-ray gate subsumes it.
 //   #11 is one block per ray block: the 256 rays (recentred origin,
 //   reciprocal direction, t_limit, live: two float4 a ray) are staged in
 //   shared memory; a thread owns a tile (tiles t, t + 256, ... beyond 256
@@ -117,12 +131,13 @@
 // a thread does 1,024 x (19 fused multiply-adds, one division, ~12
 // compares) against one 80-byte row per triangle shared by the warp; the
 // rays' state (7 planes, 29 bytes a ray) and the plan are read once.
-// Divergence is the cost beyond the bound: a warp runs a tile for as long
-// as its slowest member, whatever number of its rays are members.  The
-// coherence sort in front of the traversal is what keeps warps coherent.
-// #7's block schedule removes that cost (every thread evaluates pairs); what
-// it leaves is a block-visit's fixed part (three barriers, the list, 80 KB
-// of rows from L2) and a few live blocks an SM on the early bounces.
+// In the per-ray schedule divergence is the cost beyond the bound: a warp
+// runs a tile for as long as its slowest member, whatever number of its
+// rays are members.  The coherence sort in front of the traversal is what
+// keeps warps coherent.  The block schedule of #7, #8 and #9 removes that
+// cost (every thread evaluates pairs); what it leaves is a tile-visit's
+// fixed part (three barriers, the list, 80 KB of rows from L2) and a few
+// live blocks an SM on the early bounces.
 // #11 is bound by operations too (a slab test of ~35 operations per (ray,
 // tile) pair against 36 bytes a ray and 5 bytes an output).
 //
@@ -225,108 +240,173 @@ __global__ void __launch_bounds__(PTT_RAY_TILE) ptt_planned_kernel(const PttWalk
   walk_block_shared<true>(a);
 }
 
-// #7: the block schedule of csrc/mesh_path.cuh (walk_take, spread_load,
-// spread_key), PTT_SPREAD_THREADS threads a block of 256 rays.  Thread t <
-// 256 owns ray t of the block (its state, its exit vote, its member test);
-// at each entry every thread t takes triangles t + PTT_SPREAD_THREADS i of
-// the tile.
-__global__ void __launch_bounds__(PTT_SPREAD_THREADS,
-                                  PTT_SPREAD_THREADS >= 512 ? 1 : 512 / PTT_SPREAD_THREADS)
-    ptt_streamed_kernel(const PttWalkArgs a) {
-  constexpr int kRayWarps = PTT_RAY_TILE / 32;
-  __shared__ float sh_f[10][PTT_RAY_TILE];          // the rays' features
-  __shared__ unsigned long long sh_key[PTT_RAY_TILE];  // each ray's running best as a key
-  __shared__ int sh_list[PTT_RAY_TILE];             // the rays that take the entry
-  __shared__ float sh_lo[PTT_RAY_TILE], sh_hi[PTT_RAY_TILE];  // and their pair windows
-  __shared__ int sh_count[2][kRayWarps];            // takers per warp, by entry parity
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const bool owner = tid < PTT_RAY_TILE;            // the thread owns a ray
-  const int b = blockIdx.x;
-  const int idx = b * PTT_RAY_TILE + tid;
-  const V3 center = v3(__ldg(a.center), __ldg(a.center + 1), __ldg(a.center + 2));
-  WalkRay r = owner ? load_walk_ray(a, idx, center)
-                    : walk_ray(center, v3(0.0f, 0.0f, 0.0f), v3(0.0f, 0.0f, 0.0f), false, 0.0f);
+// The block schedule of #7, #8 and #9 (csrc/mesh_path.cuh: walk_take,
+// spread_load, spread_key, walk_key, walk_unkey): PTT_SPREAD_THREADS threads
+// a block of 256 rays.  Thread t < 256 owns ray t of the block (its state,
+// its share of an exit vote, its member test); for each tile every thread t
+// takes triangles t + PTT_SPREAD_THREADS i of it.  The block's shared state:
+struct SpreadShared {
+  float f[10][PTT_RAY_TILE];                 // the rays' features
+  unsigned long long key[PTT_RAY_TILE];      // each ray's running best as a key
+  int list[PTT_RAY_TILE];                    // the rays that take the tile
+  float lo[PTT_RAY_TILE], hi[PTT_RAY_TILE];  // and their pair windows
+  int count[2][PTT_RAY_TILE / 32];           // takers per ray warp, by tile parity
+};
+
+// Thread tid's ray (a thread that owns none gets a ray that is not live),
+// its features and key written for the block.  The first spread_entry's
+// first barrier comes before they are read.
+__device__ __forceinline__ WalkRay spread_ray(SpreadShared& sh, const PttWalkArgs& a,
+                                              bool owner, V3 center) {
+  const int tid = threadIdx.x;
+  const WalkRay r = owner ? load_walk_ray(a, blockIdx.x * PTT_RAY_TILE + tid, center)
+                          : walk_ray(center, v3(0.0f, 0.0f, 0.0f), v3(0.0f, 0.0f, 0.0f), false,
+                                     0.0f);
   if (owner) {
 #pragma unroll
-    for (int q = 0; q < 10; ++q) sh_f[q][tid] = r.f[q];
-    sh_key[tid] = walk_key(r.best, r.best_tri);
+    for (int q = 0; q < 10; ++q) sh.f[q][tid] = r.f[q];
+    sh.key[tid] = walk_key(r.best, r.best_tri);
   }
-  const int cnt = __ldg(a.cnt + b);
-  const int32_t* ids = a.ids + (size_t)b * a.ct;
-  const float* tlo = a.tlo + (size_t)b * a.ct;
-  for (int t = 0; t < cnt; ++t) {
-    const int tile = __ldg(ids + t);
-    float lo = 0.0f, hi = 0.0f;
-    const bool take = walk_take(r, a.tile_aabb + 8 * tile, a.eps_succ, &lo, &hi);
-    const unsigned ballot = __ballot_sync(0xFFFFFFFFu, take);
-    int* count = sh_count[t & 1];
-    if (owner && lane == 0) count[warp] = __popc(ballot);
-    // The exit vote; also the barrier after the counts (and, at t = 0, the
-    // features and keys) are written.
-    if (!__syncthreads_or(owner && walk_goes_on(r, __ldg(tlo + t)))) break;
-    int below = 0, m = 0;
+  return r;
+}
+
+// The per-entry body of the three walks: one tile (row: its box) against
+// the block's rays.  Each ray may take it (may: the thread's own condition
+// besides walk_take's, e.g. a super-tile gate); the takers are listed in
+// shared memory (warp ballots and a prefix over the eight ray warps), each
+// thread's rows are evaluated against every listed ray, and each ray's key
+// is lowered with atomicMin, then read back into r.  vote: the thread's
+// share of an exit vote, taken at the barrier after the counts; when no
+// thread votes to go on the body returns false and evaluates nothing.  A
+// tile no ray takes costs that one barrier (the TPU kernel's any_hit cull).
+// parity alternates from one call to the next: the counts are
+// double-buffered, since a tile with no taker has no closing barrier.
+__device__ __forceinline__ bool spread_entry(SpreadShared& sh, WalkRay& r, bool owner, bool may,
+                                             bool vote, const float* coef, const float* row,
+                                             int tile, int parity, float baby_eps,
+                                             float eps_succ) {
+  constexpr int kRayWarps = PTT_RAY_TILE / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float lo = 0.0f, hi = 0.0f;
+  const bool take = may && walk_take(r, row, eps_succ, &lo, &hi);
+  const unsigned ballot = __ballot_sync(0xFFFFFFFFu, take);
+  int* count = sh.count[parity];
+  if (owner && lane == 0) count[warp] = __popc(ballot);
+  // The exit vote; also the barrier after the counts (and, on the first
+  // call, the features and keys) are written.
+  if (!__syncthreads_or(vote)) return false;
+  int below = 0, m = 0;
 #pragma unroll
-    for (int w = 0; w < kRayWarps; ++w) {
-      below += w < warp ? count[w] : 0;
-      m += count[w];
-    }
-    if (m == 0) continue;  // the same for every thread
-    if (take) {
-      const int p = below + __popc(ballot & ((1u << lane) - 1u));
-      sh_list[p] = tid;
-      sh_lo[p] = lo;
-      sh_hi[p] = hi;
-    }
-    __syncthreads();
-    float k[PTT_SPREAD][PTT_COEF_W];
-    spread_load(a.coef, tile, tid, k);
-    const int32_t tri0 = tile * PTT_TRI_TILE + tid;
-    for (int j = 0; j < m; ++j) {
-      const int ray = sh_list[j];
-      float f[10];
-#pragma unroll
-      for (int q = 0; q < 10; ++q) f[q] = sh_f[q][ray];
-      const uint64_t key = spread_key(f, sh_lo[j], sh_hi[j], k, tri0, a.baby_eps);
-      if (key != PTT_NO_KEY) atomicMin(&sh_key[ray], (unsigned long long)key);
-    }
-    __syncthreads();
-    if (owner) walk_unkey(sh_key[tid], &r.best, &r.best_tri);
+  for (int w = 0; w < kRayWarps; ++w) {
+    below += w < warp ? count[w] : 0;
+    m += count[w];
   }
+  if (m == 0) return true;  // the same for every thread
+  if (take) {
+    const int p = below + __popc(ballot & ((1u << lane) - 1u));
+    sh.list[p] = tid;
+    sh.lo[p] = lo;
+    sh.hi[p] = hi;
+  }
+  __syncthreads();
+  float k[PTT_SPREAD][PTT_COEF_W];
+  spread_load(coef, tile, tid, k);
+  const int32_t tri0 = tile * PTT_TRI_TILE + tid;
+  for (int j = 0; j < m; ++j) {
+    const int ray = sh.list[j];
+    float f[10];
+#pragma unroll
+    for (int q = 0; q < 10; ++q) f[q] = sh.f[q][ray];
+    const uint64_t key = spread_key(f, sh.lo[j], sh.hi[j], k, tri0, baby_eps);
+    if (key != PTT_NO_KEY) atomicMin(&sh.key[ray], (unsigned long long)key);
+  }
+  __syncthreads();
+  if (owner) walk_unkey(sh.key[tid], &r.best, &r.best_tri);
+  return true;
+}
+
+__device__ __forceinline__ void spread_out(const PttWalkArgs& a, const WalkRay& r, bool owner) {
+  const int idx = blockIdx.x * PTT_RAY_TILE + threadIdx.x;
   if (owner && idx < a.n) {
     a.out_t[idx] = r.best;
     a.out_tri[idx] = r.best_tri;
   }
 }
 
-__global__ void __launch_bounds__(PTT_RAY_TILE) ptt_streamed_super_kernel(const PttWalkArgs a) {
+#define PTT_SPREAD_BOUNDS \
+  __launch_bounds__(PTT_SPREAD_THREADS, PTT_SPREAD_THREADS >= 512 ? 1 : 512 / PTT_SPREAD_THREADS)
+
+// #7: each plan entry behind the block's exit vote.
+__global__ void PTT_SPREAD_BOUNDS ptt_streamed_kernel(const PttWalkArgs a) {
+  __shared__ SpreadShared sh;
+  const bool owner = threadIdx.x < PTT_RAY_TILE;
+  const V3 center = v3(__ldg(a.center), __ldg(a.center + 1), __ldg(a.center + 2));
+  WalkRay r = spread_ray(sh, a, owner, center);
   const int b = blockIdx.x;
-  const int idx = b * PTT_RAY_TILE + threadIdx.x;
-  WalkRay r = load_walk_ray(a, idx, v3(__ldg(a.center), __ldg(a.center + 1), __ldg(a.center + 2)));
+  const int cnt = __ldg(a.cnt + b);
+  const int32_t* ids = a.ids + (size_t)b * a.ct;
+  const float* tlo = a.tlo + (size_t)b * a.ct;
+  for (int t = 0; t < cnt; ++t) {
+    const int tile = __ldg(ids + t);
+    if (!spread_entry(sh, r, owner, true, owner && walk_goes_on(r, __ldg(tlo + t)), a.coef,
+                      a.tile_aabb + 8 * tile, tile, t & 1, a.baby_eps, a.eps_succ)) {
+      break;
+    }
+  }
+  spread_out(a, r, owner);
+}
+
+// #8: per plan entry (a super-tile), the exit vote on its bound, taken at
+// the first member tile's barrier, and each owner ray's gate on the super
+// box against its best before the entry, as super_visit takes it; then the
+// member tiles sid * 8 + k < ct that are no padding, each a spread_entry
+// that a ray past the gate may take.
+__global__ void PTT_SPREAD_BOUNDS ptt_streamed_super_kernel(const PttWalkArgs a) {
+  __shared__ SpreadShared sh;
+  const bool owner = threadIdx.x < PTT_RAY_TILE;
+  const V3 center = v3(__ldg(a.center), __ldg(a.center + 1), __ldg(a.center + 2));
+  WalkRay r = spread_ray(sh, a, owner, center);
+  const int b = blockIdx.x;
   const int cnt = __ldg(a.cnt + b);
   const int32_t* ids = a.ids + (size_t)b * a.cs;
   const float* tlo = a.tlo + (size_t)b * a.cs;
+  int parity = 0;
   for (int t = 0; t < cnt; ++t) {
-    if (!__syncthreads_or(walk_goes_on(r, __ldg(tlo + t)))) break;
     const int sid = __ldg(ids + t);
-    super_visit(r, a.coef, a.tile_aabb, a.saabb + 8 * sid, sid, a.ct, a.baby_eps, a.eps_succ);
+    const bool vote = owner && walk_goes_on(r, __ldg(tlo + t));
+    const bool gate = super_take(r, a.saabb + 8 * sid);
+    bool go = true, first = true;
+    for (int k = 0; k < PTT_SUPER_TILES && go; ++k) {
+      const int tile = sid * PTT_SUPER_TILES + k;
+      if (tile >= a.ct) break;
+      if (padding_tile(a.tile_aabb + 8 * tile)) continue;  // the same for every thread
+      go = spread_entry(sh, r, owner, gate, !first || vote, a.coef, a.tile_aabb + 8 * tile,
+                        tile, parity, a.baby_eps, a.eps_succ);
+      first = false;
+      parity ^= 1;
+    }
+    if (!go) break;
   }
-  if (idx < a.n) {
-    a.out_t[idx] = r.best;
-    a.out_tri[idx] = r.best_tri;
-  }
+  spread_out(a, r, owner);
 }
 
-__global__ void __launch_bounds__(PTT_RAY_TILE) ptt_sweep_kernel(const PttWalkArgs a) {
+// #9: every tile 0..ct-1 in ascending id, no plan and no exit vote (the
+// tiles come in no order of distance); the boxes staged in shared memory.
+// A block with no live ray is skipped whole.
+__global__ void PTT_SPREAD_BOUNDS ptt_sweep_kernel(const PttWalkArgs a) {
+  __shared__ SpreadShared sh;
   __shared__ float sh_aabb[PTT_PLANNED_MAX_CT * 8];
   for (int i = threadIdx.x; i < a.ct * 8; i += blockDim.x) sh_aabb[i] = a.tile_aabb[i];
-  __syncthreads();
-  const int idx = blockIdx.x * PTT_RAY_TILE + threadIdx.x;
-  WalkRay r = load_walk_ray(a, idx, v3(__ldg(a.center), __ldg(a.center + 1), __ldg(a.center + 2)));
-  sweep_ray(r, a.coef, sh_aabb, a.ct, a.baby_eps, a.eps_succ);
-  if (idx < a.n) {
-    a.out_t[idx] = r.best;
-    a.out_tri[idx] = r.best_tri;
+  const bool owner = threadIdx.x < PTT_RAY_TILE;
+  const V3 center = v3(__ldg(a.center), __ldg(a.center + 1), __ldg(a.center + 2));
+  WalkRay r = spread_ray(sh, a, owner, center);
+  if (__syncthreads_or(r.live)) {  // also the barrier after the boxes are staged
+    for (int c = 0; c < a.ct; ++c) {
+      spread_entry(sh, r, owner, true, true, a.coef, sh_aabb + 8 * c, c, c & 1, a.baby_eps,
+                   a.eps_succ);
+    }
   }
+  spread_out(a, r, owner);
 }
 
 // #13a: the block's plan row holds its candidate tiles in ascending id.
@@ -529,9 +609,9 @@ int ptt_launch_walk(const PttWalkArgs* a, int32_t kind, void* stream) {
     } else if (kind == 2) {
       ptt_streamed_kernel<<<grid, PTT_SPREAD_THREADS, 0, s>>>(*a);
     } else if (kind == 3) {
-      ptt_streamed_super_kernel<<<grid, PTT_RAY_TILE, 0, s>>>(*a);
+      ptt_streamed_super_kernel<<<grid, PTT_SPREAD_THREADS, 0, s>>>(*a);
     } else if (kind == 4) {
-      ptt_sweep_kernel<<<grid, PTT_RAY_TILE, 0, s>>>(*a);
+      ptt_sweep_kernel<<<grid, PTT_SPREAD_THREADS, 0, s>>>(*a);
     } else if (kind == 5) {
       ptt_lb_asc_kernel<false><<<grid, PTT_RAY_TILE, 0, s>>>(*a);
     } else if (kind == 6) {

@@ -1,18 +1,23 @@
-"""A/B of the streamed walk's block width (#7, ``ptt_streamed_kernel``): the
-threads a block spreads a plan entry's (ray, triangle) pairs over.
+"""A/B of the block width of the walks on the block schedule: the threads a
+block spreads a tile's (ray, triangle) pairs over, in the streamed walk (#7,
+``ptt_streamed_kernel``), the sweep (#9, ``ptt_sweep_kernel``) or the
+super-tile walk (#8, ``ptt_streamed_super_kernel``).
 
-    python scripts/torch_ab_streamed_walk.py                 # 256, 512, 1024
+    python scripts/torch_ab_streamed_walk.py                 # #7 at 256, 512, 1024
     python scripts/torch_ab_streamed_walk.py --variants 256 512 --scenes 80k
+    python scripts/torch_ab_streamed_walk.py --walk sweep    # 20k, 80k (chain of 3)
+    python scripts/torch_ab_streamed_walk.py --walk super    # 500k, PTT_STREAM_SUPER=1
 
 Builds ``csrc/mesh_walk.cu`` once for each width (``-DPTT_SPREAD_THREADS``;
 one ``nvcc`` each, in parallel, into ``build/kernels_ab/``), then on each sorted
-bounce of the 80k and 500k meshes at 800x800 (``torch_bench_kernels``'s
-states) launches every build's kernel through ``streamed_intersect`` and
-times it with CUDA events, the builds in turns (the order reversed every
-sample).  Every build's ``(t, tri)`` must equal the package's own build's
-bit for bit: a variant that differs is reported, timed no further, and the
-script exits 1 at the end.  One JSON line per (scene, bounce, variant).
-Needs a CUDA device.
+bounce of the walk's meshes at 800x800 (``torch_bench_kernels``'s states and
+calls: the sweep one line per call of the 80k chain, the super walk over
+tables padded to whole super-tiles) launches every build's kernel through
+its wrapper and times it with CUDA events, the builds in turns (the order
+reversed every sample).  Every build's ``(t, tri)`` must equal the
+package's own build's bit for bit: a variant that differs is reported,
+timed no further, and the script exits 1 at the end.  One JSON line per
+(scene, bounce, call, variant).  Needs a CUDA device.
 """
 
 import argparse
@@ -34,10 +39,15 @@ from project3_cuda_path_tracer_2025_tpu_torch.scene import (  # noqa: E402
     build_device_scene, camera_state, derive_render_camera, load_scene, set_resolution,
 )
 from project3_cuda_path_tracer_2025_tpu_torch.utils import measure  # noqa: E402
-from torch_bench_kernels import SCENE_FILES, sorted_bounces  # noqa: E402
+from torch_bench_kernels import (  # noqa: E402
+    SCENE_FILES, WALK_SCENES, WALKS, env_set, sorted_bounces, super_args, sweep_calls,
+)
+
+ENTRY = {"streamed": "ptt_streamed_kernel", "sweep": "ptt_sweep_kernel",
+         "super": "ptt_streamed_super_kernel"}
 
 
-def build_variants(variants) -> dict:
+def build_variants(variants, walk: str = "streamed") -> dict:
     """width ("256", ...) -> a loaded ``KernelLibrary`` of mesh_walk.cu
     built with it."""
     out_dir = kernels.BUILD_ROOT.parent / "kernels_ab" / kernels._source_hash()
@@ -56,10 +66,10 @@ def build_variants(variants) -> dict:
             raise RuntimeError(f"nvcc failed for {w}:\n{log}")
         lines = log.splitlines()
         at = next(i for i, ln in enumerate(lines) if "Compiling entry" in ln
-                  and "ptt_streamed_kernel" in ln)
+                  and f"{len(ENTRY[walk])}{ENTRY[walk]}" in ln)  # as the name is mangled
         used = next(ln.strip() for ln in lines[at:] if "Used" in ln and "registers" in ln)
         spill = next(ln.strip() for ln in lines[at:] if "spill" in ln)
-        print(f"{w}: ptt_streamed_kernel {used}; {spill}", flush=True)
+        print(f"{w}: {ENTRY[walk]} {used}; {spill}", flush=True)
         libs[w] = kernels.KernelLibrary("mesh_walk", path, 0.0, log)
     return libs
 
@@ -68,58 +78,81 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variants", nargs="+", default=["256", "512", "1024"],
                     help="block widths (threads a block)")
-    ap.add_argument("--scenes", nargs="+", default=list(SCENE_FILES), choices=list(SCENE_FILES))
+    ap.add_argument("--walk", default="streamed", choices=WALKS,
+                    help="the kernel compared (default: the streamed walk)")
+    ap.add_argument("--scenes", nargs="+", default=None, choices=list(SCENE_FILES),
+                    help="default: the walk's scenes (streamed 80k 500k, sweep 20k 80k, "
+                    "super 500k)")
     ap.add_argument("--k", type=int, default=10, help="launches per sample")
     ap.add_argument("--samples", type=int, default=3)
     args = ap.parse_args(argv)
     device = measure.open_device("cuda")
     card = measure.card_label(device)
-    libs = build_variants(args.variants)
+    libs = build_variants(args.variants, args.walk)
     own = kernels.load
     bad = set()
     cfg = RenderConfig()
-    for name in args.scenes:
+
+    def ab_call(name, d, i, call, live):
+        """Every build's kernel on one call: checked against the package's
+        build, then timed in turns."""
+        want = call()
+        try:
+            for w, lib in list(libs.items()):
+                kernels.load = lambda n="fused_prim", lib=lib: lib if n == "mesh_walk" \
+                    else own(n)
+                try:
+                    got = call()
+                    same = torch.equal(got[1], want[1]) and torch.equal(
+                        got[0].view(torch.int32), want[0].view(torch.int32))
+                except RuntimeError as exc:  # a launch the runtime refused
+                    print(f"{w}: {exc}", flush=True)
+                    same = False
+                if not same:
+                    print(f"{w} differs from the package's build on {name} bounce {d}",
+                          flush=True)
+                    del libs[w]
+                    bad.add(w)
+            times = {w: [] for w in libs}
+            order = list(libs)
+            for s in range(args.samples):
+                for w in (order if s % 2 == 0 else order[::-1]):
+                    kernels.load = lambda n="fused_prim", lib=libs[w]: lib \
+                        if n == "mesh_walk" else own(n)
+                    times[w].append(measure.event_ms(call, args.k))
+        finally:
+            kernels.load = own
+        for w, ts in times.items():
+            measure.emit(dict(script="torch_ab_streamed_walk", walk=args.walk, scene=name,
+                              bounce=d, call=i, variant=w, live=int(live.sum()),
+                              ms=float(np.median(ts)), card=card))
+
+    for name in args.scenes or WALK_SCENES[args.walk]:
         scene = set_resolution(load_scene(os.path.join(REPO, SCENE_FILES[name])), 800, 800)
         dev, static = build_device_scene(scene, device)
         cam = camera_state(derive_render_camera(scene.state.camera))
         tables = dev.mxu_mesh
+        if args.walk == "super":
+            with env_set(PTT_STREAM_SUPER="1"):
+                stab = build_device_scene(scene, device)[0].mxu_mesh
+            saabb = mxu.super_aabb(stab.tile_aabb)
+        eps = cfg.baby_epsilon
         for d, (paths, tl, live) in enumerate(sorted_bounces(dev, static, cam, cfg, device,
                                                              static.trace_depth)):
             ro, rd = paths.origin, paths.direction
-            plan = mxu.plan_with_prefix(tables.tile_aabb,
-                                        *mxu.plan_rays(tables, ro, rd, live, tl))
-            call = lambda: mxu.streamed_intersect(tables, ro, rd, live, tl, plan,
-                                                  cfg.baby_epsilon)
-            want = call()
-            try:
-                for w, lib in list(libs.items()):
-                    kernels.load = lambda n="fused_prim", lib=lib: lib if n == "mesh_walk" \
-                        else own(n)
-                    try:
-                        got = call()
-                        same = torch.equal(got[1], want[1]) and torch.equal(
-                            got[0].view(torch.int32), want[0].view(torch.int32))
-                    except RuntimeError as exc:  # a launch the runtime refused
-                        print(f"{w}: {exc}", flush=True)
-                        same = False
-                    if not same:
-                        print(f"{w} differs from the package's build on {name} bounce {d}",
-                              flush=True)
-                        del libs[w]
-                        bad.add(w)
-                times = {w: [] for w in libs}
-                order = list(libs)
-                for s in range(args.samples):
-                    for w in (order if s % 2 == 0 else order[::-1]):
-                        kernels.load = lambda n="fused_prim", lib=libs[w]: lib \
-                            if n == "mesh_walk" else own(n)
-                        times[w].append(measure.event_ms(call, args.k))
-            finally:
-                kernels.load = own
-            for w, ts in times.items():
-                measure.emit(dict(script="torch_ab_streamed_walk", scene=name, bounce=d,
-                                  variant=w, live=int(live.sum()), ms=float(np.median(ts)),
-                                  card=card))
+            if args.walk == "streamed":
+                plan = mxu.plan_with_prefix(tables.tile_aabb,
+                                            *mxu.plan_rays(tables, ro, rd, live, tl))
+                calls = [(lambda: mxu.streamed_intersect(tables, ro, rd, live, tl, plan, eps),
+                          live)]
+            elif args.walk == "sweep":
+                calls = [(lambda a=a: mxu.sweep_intersect(*a), a[3]) for a in sweep_calls(
+                    mxu, tables, static.mxu_padded_tris, ro, rd, live, tl, eps)]
+            else:
+                a = super_args(mxu, stab, saabb, ro, rd, live, tl, eps)
+                calls = [(lambda: mxu.streamed_super_intersect(*a, saabb), live)]
+            for i, (call, call_live) in enumerate(calls):
+                ab_call(name, d, i, call, call_live)
     if bad:
         print(f"variants that differ from the package's build: {sorted(bad)}", flush=True)
         return 1

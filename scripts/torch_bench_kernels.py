@@ -5,20 +5,30 @@ in turns: parent, change, change, parent).
     python scripts/torch_bench_kernels.py                       # this checkout
     python scripts/torch_bench_kernels.py --root build/parent   # the package of
                                                                 # another checkout
+    python scripts/torch_bench_kernels.py --walks sweep super   # two walks only
     python scripts/torch_bench_kernels.py --device cpu --res 8 --scenes 80k \\
         --bounces 2                                             # plain versions, no times
 
 One JSON line per measurement:
 
-* ``walk``: the streamed walk (#7, ``streamed_intersect``) on each sorted
-  bounce of the 80k and 500k meshes at 800x800 (camera rays of iteration 1
-  and the bounces after them, each in the main path's signature order; a
-  bounce's hits from the kernel traversal, its shade from the plain shade,
-  as ``chip_smoke.py`` phase 11 builds them): ms per launch and a sha256 of
-  its ``(t, tri)``, which two checkouts that compute the same function print
-  alike;
-* ``frame``: the 80k and 500k frames (``megakernel_iteration``, the default
-  path): ms per frame and the sha256 of iteration 1's film;
+* ``walk``: a walk kernel on each sorted bounce at 800x800 (camera rays of
+  iteration 1 and the bounces after them, each in the main path's signature
+  order; a bounce's hits from the kernel traversal, its shade from the plain
+  shade, as ``chip_smoke.py`` phase 11 builds them): ms per launch and a
+  sha256 of its ``(t, tri)``, which two checkouts that compute the same
+  function print alike.  ``walk`` names the kernel: "streamed" (#7,
+  ``streamed_intersect``) on the 80k and 500k meshes; "sweep" (#9,
+  ``sweep_intersect``) on the 20k mesh (one call) and on the 80k mesh,
+  one line for each call of the chain of 3 (``call`` 0-2: tiles 0-31,
+  32-63, 64-78, each call's t_limit the running best, the rays that miss
+  the chunk's envelope masked, as ``mxu_traversal="sweep"`` calls it);
+  "super" (#8, ``streamed_super_intersect``) on the 500k mesh, its tables
+  built with ``PTT_STREAM_SUPER=1`` (padded to whole super-tiles) and its
+  plan over their super boxes;
+* ``frame``: the frame of each walk's path (``megakernel_iteration``):
+  "auto" (the default: #7 at 80k and 500k), "sweep" (20k, 80k) and "super"
+  (500k with ``PTT_STREAM_SUPER=1``): ms per frame and the sha256 of
+  iteration 1's film;
 * ``scan``: one ``exclusive_scan`` of 640,000 int32 0/1 flags (a compacting
   bounce's shape, made from ``--seed``) against ``torch.cumsum(x, 0)`` of
   the same flags, and whether it is exact;
@@ -39,7 +49,10 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SCENE_FILES = {k: f"scenes/cornell_mesh_{k}.json" for k in ("80k", "500k")}
+SCENE_FILES = {k: f"scenes/cornell_mesh_{k}.json" for k in ("20k", "80k", "500k")}
+WALKS = ("streamed", "sweep", "super")
+# The scenes each walk is timed on.
+WALK_SCENES = {"streamed": ("80k", "500k"), "sweep": ("20k", "80k"), "super": ("500k",)}
 
 
 def sorted_bounces(dev, static, cam, cfg, device, bounces: int = 3) -> list:
@@ -77,6 +90,58 @@ def sorted_bounces(dev, static, cam, cfg, device, bounces: int = 3) -> list:
     return out
 
 
+def sweep_calls(mxu, tables, padded_tris, ro, rd, live, tl, baby_eps) -> list:
+    """The arguments of each call of the sweep as ``mxu_traversal="sweep"``
+    makes them (``ops/intersect_mxu.py::_chain`` without a plan; one call up
+    to 32 tiles): per chunk of 32 tiles its tables, the rays that enter its
+    envelope (k = 2) before the running best, and that best as t_limit.
+    Runs each call (the kernel on the card) to give the next its best."""
+    if padded_tris <= mxu.CHUNK_TRIS:
+        return [(tables, ro, rd, live, tl, baby_eps)]
+    per = mxu.CHUNK_TRIS // mxu.GROUP_TRIS
+    c = tables.center
+    os = type(ro)(ro.x - c[0], ro.y - c[1], ro.z - c[2])
+    inv = mxu._inv_dir(rd)
+    calls, best_t = [], tl
+    for g0 in range(0, padded_tris // mxu.GROUP_TRIS, per):
+        sub = mxu._chunk_tables(tables, g0, min(padded_tris // mxu.GROUP_TRIS, g0 + per))
+        lo = torch.min(sub.tile_aabb[:, 0:3], dim=0).values
+        hi = torch.max(sub.tile_aabb[:, 3:6], dim=0).values
+        ctlo, cthi = mxu._widen_slab(*mxu._slab(lo, hi, os, inv), k=2)
+        ok = (cthi >= ctlo) & (cthi > 0.0) & (ctlo < best_t)
+        args = (sub, ro, rd, live & ok, best_t, baby_eps)
+        calls.append(args)
+        t_c, tri_c = mxu.sweep_intersect(*args)
+        best_t = torch.where(tri_c >= 0, t_c, best_t)
+    return calls
+
+
+def super_args(mxu, stab, saabb, ro, rd, live, tl, baby_eps) -> tuple:
+    """The super-tile walk's arguments for one state: the tables padded to
+    whole super-tiles (``stab``), the plan over their super boxes."""
+    splan = mxu.plan_with_prefix(saabb, *mxu.plan_rays(stab, ro, rd, live, tl))
+    return stab, ro, rd, live, tl, splan, baby_eps
+
+
+class env_set:
+    """Environment variables set for the length of a ``with`` block (the
+    package reads its switches at call time)."""
+
+    def __init__(self, **env):
+        self.env = env
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
 def sha(*tensors) -> str:
     """The first 16 hex digits of the sha256 of the tensors' bytes, in
     order: equal results or films print alike, in any tree or run."""
@@ -95,6 +160,8 @@ def run(argv=None) -> list:
                     help="the checkout whose package is timed (default: this one)")
     ap.add_argument("--res", type=int, default=800, help="film width and height")
     ap.add_argument("--scenes", nargs="+", default=list(SCENE_FILES), choices=list(SCENE_FILES))
+    ap.add_argument("--walks", nargs="+", default=list(WALKS), choices=WALKS,
+                    help="the walks timed, each on its scenes (default: all three)")
     ap.add_argument("--bounces", type=int, default=None,
                     help="sorted bounces a mesh (default: the scene's depth)")
     ap.add_argument("--k", type=int, default=10, help="launches per sample")
@@ -140,35 +207,70 @@ def run(argv=None) -> list:
 
     recs = []
     cfg = RenderConfig()
-    for name in args.scenes:
-        scene = scene_at(SCENE_FILES[name])
-        dev, static = build_device_scene(scene, device)
-        cam = camera_state(derive_render_camera(scene.state.camera))
-        tables = dev.mxu_mesh
-        states = sorted_bounces(dev, static, cam, cfg, device,
-                                args.bounces or static.trace_depth)
-        for d, (paths, tl, live) in enumerate(states):
-            ro, rd = paths.origin, paths.direction
-            plan = mxu.plan_with_prefix(tables.tile_aabb,
-                                        *mxu.plan_rays(tables, ro, rd, live, tl))
-            fn = lambda: mxu.streamed_intersect(tables, ro, rd, live, tl, plan, cfg.baby_epsilon)
-            t, tri = fn()
-            recs.append(measure.emit(dict(
-                kind="walk", scene=name, bounce=d, live=int(live.sum()),
-                hits=int((tri >= 0).sum()), ms=timed(fn, args.k), result_sha=sha(t, tri),
-                **common)))
-        del states
+
+    def frame_of(dev, static, cam, c):
         n, it = static.pixel_count, [0]
 
         def frame():
             it[0] += 1
-            return megakernel_iteration(dev, static, cfg, cam, film_ops.new_film(n, device),
+            return megakernel_iteration(dev, static, c, cam, film_ops.new_film(n, device),
                                         it[0], prng.prng_key(0))
+        return frame
 
-        film, _ = frame()
+    def time_frame(name, traversal, frame, **env):
+        with env_set(**env):
+            film, _ = frame()
+            recs.append(measure.emit(dict(
+                kind="frame", scene=name, traversal=traversal, ms=timed(frame, args.frames),
+                film_sha=sha(*film), **common)))
+
+    def time_walk(name, walk, d, live, fn, **extra):
+        t, tri = fn()
         recs.append(measure.emit(dict(
-            kind="frame", scene=name, ms=timed(frame, args.frames),
-            film_sha=sha(*film), **common)))
+            kind="walk", walk=walk, scene=name, bounce=d, **extra, live=int(live.sum()),
+            hits=int((tri >= 0).sum()), ms=timed(fn, args.k), result_sha=sha(t, tri),
+            **common)))
+
+    for name in args.scenes:
+        walks = [w for w in args.walks if name in WALK_SCENES[w]]
+        if not walks:
+            continue
+        scene = scene_at(SCENE_FILES[name])
+        dev, static = build_device_scene(scene, device)
+        cam = camera_state(derive_render_camera(scene.state.camera))
+        tables = dev.mxu_mesh
+        eps = cfg.baby_epsilon
+        states = sorted_bounces(dev, static, cam, cfg, device,
+                                args.bounces or static.trace_depth)
+        if "super" in walks:
+            with env_set(PTT_STREAM_SUPER="1"):
+                sdev, sstatic = build_device_scene(scene, device)
+            saabb = mxu.super_aabb(sdev.mxu_mesh.tile_aabb)
+        for d, (paths, tl, live) in enumerate(states):
+            ro, rd = paths.origin, paths.direction
+            if "streamed" in walks:
+                plan = mxu.plan_with_prefix(tables.tile_aabb,
+                                            *mxu.plan_rays(tables, ro, rd, live, tl))
+                time_walk(name, "streamed", d, live,
+                          lambda: mxu.streamed_intersect(tables, ro, rd, live, tl, plan, eps))
+            if "sweep" in walks:
+                calls = sweep_calls(mxu, tables, static.mxu_padded_tris, ro, rd, live, tl, eps)
+                for i, a in enumerate(calls):
+                    time_walk(name, "sweep", d, a[3], lambda a=a: mxu.sweep_intersect(*a),
+                              call=i, tiles=a[0].tile_aabb.shape[0])
+            if "super" in walks:
+                a = super_args(mxu, sdev.mxu_mesh, saabb, ro, rd, live, tl, eps)
+                time_walk(name, "super", d, live,
+                          lambda: mxu.streamed_super_intersect(*a, saabb))
+        del states
+        if "streamed" in walks:
+            time_frame(name, "auto", frame_of(dev, static, cam, cfg))
+        if "sweep" in walks:
+            time_frame(name, "sweep",
+                       frame_of(dev, static, cam, RenderConfig(mxu_traversal="sweep")))
+        if "super" in walks:
+            time_frame(name, "super", frame_of(sdev, sstatic, cam, cfg), PTT_STREAM_SUPER="1")
+            del sdev
 
     x = torch.from_numpy(
         (np.random.default_rng(args.seed).random(args.scan_n) > 0.5).astype(np.int32)).to(device)

@@ -4,7 +4,10 @@
 // matching kernel in csrc/fused_mesh.cu or csrc/mesh_walk.cu runs as one
 // thread per ray; the walks keep the kernels' block schedule (256 rays a
 // block, the plan row in order, the block's exit vote), and the plan
-// prepass its reduction over a block's rays.
+// prepass its reduction over a block's rays.  ptt_host_walk, ptt_host_super
+// and ptt_host_sweep are the per-ray schedules, the references the block
+// schedules (ptt_host_*_block: each tile's pairs spread over the threads)
+// are held to.
 //
 // Built by tests/test_torch_kernel_body.py with
 //   c++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC -I<csrc>
@@ -111,64 +114,140 @@ void ptt_host_walk(const float* coef, const float* aabb, int32_t ct, const float
   }
 }
 
-// ptt_streamed_kernel's block schedule: per plan entry, every ray's take
-// (member, gate, pair window) and the exit vote; the takers listed in
+// The block schedule of ptt_streamed_kernel, ptt_streamed_super_kernel and
+// ptt_sweep_kernel, one block at a time: its 256 rays and their keys.
+struct HostBlock {
+  std::vector<WalkRay> r = std::vector<WalkRay>(PTT_RAY_TILE);
+  std::vector<uint64_t> key = std::vector<uint64_t>(PTT_RAY_TILE);
+  std::vector<int32_t> list = std::vector<int32_t>(PTT_RAY_TILE);
+  std::vector<float> lo = std::vector<float>(PTT_RAY_TILE), hi = std::vector<float>(PTT_RAY_TILE);
+  std::vector<float> k = std::vector<float>((size_t)PTT_SPREAD * PTT_COEF_W);
+};
+
+// spread_ray for every thread of block b: rays past n are not live.
+static void host_block_rays(HostBlock& hb, int32_t b, V3 c, const float* const* ray,
+                            const uint8_t* live, const float* tlim, int32_t n) {
+  for (int32_t i = 0; i < PTT_RAY_TILE; ++i) {
+    const int32_t idx = b * PTT_RAY_TILE + i;
+    const bool in = idx < n;
+    hb.r[i] = walk_ray(c, in ? v3(ray[0][idx], ray[1][idx], ray[2][idx]) : v3(0.0f, 0.0f, 0.0f),
+                       in ? v3(ray[3][idx], ray[4][idx], ray[5][idx]) : v3(0.0f, 0.0f, 0.0f),
+                       in && live[idx] != 0, in ? tlim[idx] : 0.0f);
+    hb.key[i] = walk_key(hb.r[i].best, hb.r[i].best_tri);
+  }
+}
+
+// spread_entry: every ray's take (may[i] besides walk_take's member test,
+// gate and pair window; may nullptr: every ray may), the takers listed in
 // thread order, as the warp ballots and per-warp counts list them; each
-// thread's four triangles (spread_load) against every listed ray
-// (spread_key); each ray's key the minimum of the keys it is given, as the
-// shared-memory atomicMin leaves it; then every ray's best read back.
+// thread's triangles (spread_load) against every listed ray (spread_key);
+// each ray's key the minimum of the keys it is given, as the shared-memory
+// atomicMin leaves it; then every ray's best read back.
+static void host_spread_entry(HostBlock& hb, const float* coef, const float* row, int32_t tile,
+                              const uint8_t* may, float baby_eps, float eps_succ) {
+  float(*kk)[PTT_COEF_W] = reinterpret_cast<float(*)[PTT_COEF_W]>(hb.k.data());
+  int32_t m = 0;
+  for (int32_t i = 0; i < PTT_RAY_TILE; ++i) {
+    float l = 0.0f, h = 0.0f;
+    if ((may == nullptr || may[i]) && walk_take(hb.r[i], row, eps_succ, &l, &h)) {
+      hb.list[m] = i;
+      hb.lo[m] = l;
+      hb.hi[m] = h;
+      ++m;
+    }
+  }
+  if (m == 0) return;
+  for (int32_t tid = 0; tid < PTT_SPREAD_THREADS; ++tid) {
+    spread_load(coef, tile, tid, kk);
+    for (int32_t j = 0; j < m; ++j) {
+      const int32_t i = hb.list[j];
+      const uint64_t got =
+          spread_key(hb.r[i].f, hb.lo[j], hb.hi[j], kk, tile * PTT_TRI_TILE + tid, baby_eps);
+      hb.key[i] = got < hb.key[i] ? got : hb.key[i];
+    }
+  }
+  for (int32_t i = 0; i < PTT_RAY_TILE; ++i) {
+    walk_unkey(hb.key[i], &hb.r[i].best, &hb.r[i].best_tri);
+  }
+}
+
+// The block's exit vote before a plan entry of bound tlo.
+static bool host_block_goes_on(const HostBlock& hb, float tlo) {
+  bool go = false;
+  for (int32_t i = 0; i < PTT_RAY_TILE; ++i) go = go || walk_goes_on(hb.r[i], tlo);
+  return go;
+}
+
+static void host_block_out(const HostBlock& hb, int32_t b, int32_t n, float* out_t,
+                           int32_t* out_tri) {
+  for (int32_t i = 0; i < PTT_RAY_TILE && b * PTT_RAY_TILE + i < n; ++i) {
+    out_t[b * PTT_RAY_TILE + i] = hb.r[i].best;
+    out_tri[b * PTT_RAY_TILE + i] = hb.r[i].best_tri;
+  }
+}
+
+// ptt_streamed_kernel: per plan entry the exit vote, then the entry's tile.
 void ptt_host_streamed_block(const float* coef, const float* aabb, int32_t ct,
                              const float* center, const float* const* ray, const uint8_t* live,
                              const float* tlim, const int32_t* ids, const float* tlo,
                              const int32_t* cnt, float baby_eps, float eps_succ, int32_t n,
                              float* out_t, int32_t* out_tri) {
   const V3 c = v3(center[0], center[1], center[2]);
-  const int32_t nb = (n + PTT_RAY_TILE - 1) / PTT_RAY_TILE;
-  std::vector<WalkRay> r(PTT_RAY_TILE);
-  std::vector<uint64_t> key(PTT_RAY_TILE);
-  std::vector<int32_t> list(PTT_RAY_TILE);
-  std::vector<float> lo(PTT_RAY_TILE), hi(PTT_RAY_TILE);
-  std::vector<float> k((size_t)PTT_SPREAD * PTT_COEF_W);
-  float(*kk)[PTT_COEF_W] = reinterpret_cast<float(*)[PTT_COEF_W]>(k.data());
-  for (int32_t b = 0; b < nb; ++b) {
-    for (int32_t i = 0; i < PTT_RAY_TILE; ++i) {
-      const int32_t idx = b * PTT_RAY_TILE + i;
-      const bool in = idx < n;
-      r[i] = walk_ray(c, in ? v3(ray[0][idx], ray[1][idx], ray[2][idx]) : v3(0.0f, 0.0f, 0.0f),
-                      in ? v3(ray[3][idx], ray[4][idx], ray[5][idx]) : v3(0.0f, 0.0f, 0.0f),
-                      in && live[idx] != 0, in ? tlim[idx] : 0.0f);
-      key[i] = walk_key(r[i].best, r[i].best_tri);
-    }
+  HostBlock hb;
+  for (int32_t b = 0; b < (n + PTT_RAY_TILE - 1) / PTT_RAY_TILE; ++b) {
+    host_block_rays(hb, b, c, ray, live, tlim, n);
     for (int32_t t = 0; t < cnt[b]; ++t) {
+      if (!host_block_goes_on(hb, tlo[b * ct + t])) break;
       const int32_t tile = ids[b * ct + t];
-      int32_t m = 0;
-      bool go = false;
-      for (int32_t i = 0; i < PTT_RAY_TILE; ++i) {
-        float l = 0.0f, h = 0.0f;
-        if (walk_take(r[i], aabb + 8 * tile, eps_succ, &l, &h)) {
-          list[m] = i;
-          lo[m] = l;
-          hi[m] = h;
-          ++m;
-        }
-        go = go || walk_goes_on(r[i], tlo[b * ct + t]);
-      }
-      if (!go) break;
-      if (m == 0) continue;
-      for (int32_t tid = 0; tid < PTT_SPREAD_THREADS; ++tid) {
-        spread_load(coef, tile, tid, kk);
-        for (int32_t j = 0; j < m; ++j) {
-          const uint64_t got = spread_key(r[list[j]].f, lo[j], hi[j], kk,
-                                          tile * PTT_TRI_TILE + tid, baby_eps);
-          key[list[j]] = got < key[list[j]] ? got : key[list[j]];
-        }
-      }
-      for (int32_t i = 0; i < PTT_RAY_TILE; ++i) walk_unkey(key[i], &r[i].best, &r[i].best_tri);
+      host_spread_entry(hb, coef, aabb + 8 * tile, tile, nullptr, baby_eps, eps_succ);
     }
-    for (int32_t i = 0; i < PTT_RAY_TILE && b * PTT_RAY_TILE + i < n; ++i) {
-      out_t[b * PTT_RAY_TILE + i] = r[i].best;
-      out_tri[b * PTT_RAY_TILE + i] = r[i].best_tri;
+    host_block_out(hb, b, n, out_t, out_tri);
+  }
+}
+
+// ptt_streamed_super_kernel: per plan entry (a super-tile of cs = ceil(ct /
+// 8) columns) the exit vote and every ray's gate on the super box, then its
+// member tiles below ct that are no padding.
+void ptt_host_super_block(const float* coef, const float* aabb, const float* saabb, int32_t ct,
+                          int32_t cs, const float* center, const float* const* ray,
+                          const uint8_t* live, const float* tlim, const int32_t* ids,
+                          const float* tlo, const int32_t* cnt, float baby_eps, float eps_succ,
+                          int32_t n, float* out_t, int32_t* out_tri) {
+  const V3 c = v3(center[0], center[1], center[2]);
+  HostBlock hb;
+  std::vector<uint8_t> gate(PTT_RAY_TILE);
+  for (int32_t b = 0; b < (n + PTT_RAY_TILE - 1) / PTT_RAY_TILE; ++b) {
+    host_block_rays(hb, b, c, ray, live, tlim, n);
+    for (int32_t t = 0; t < cnt[b]; ++t) {
+      if (!host_block_goes_on(hb, tlo[b * cs + t])) break;
+      const int32_t sid = ids[b * cs + t];
+      for (int32_t i = 0; i < PTT_RAY_TILE; ++i) gate[i] = super_take(hb.r[i], saabb + 8 * sid);
+      for (int32_t k = 0; k < PTT_SUPER_TILES; ++k) {
+        const int32_t tile = sid * PTT_SUPER_TILES + k;
+        if (tile >= ct) break;
+        if (padding_tile(aabb + 8 * tile)) continue;
+        host_spread_entry(hb, coef, aabb + 8 * tile, tile, gate.data(), baby_eps, eps_succ);
+      }
     }
+    host_block_out(hb, b, n, out_t, out_tri);
+  }
+}
+
+// ptt_sweep_kernel: tiles 0..ct-1 in order, a block with no live ray skipped.
+void ptt_host_sweep_block(const float* coef, const float* aabb, int32_t ct, const float* center,
+                          const float* const* ray, const uint8_t* live, const float* tlim,
+                          float baby_eps, float eps_succ, int32_t n, float* out_t,
+                          int32_t* out_tri) {
+  const V3 c = v3(center[0], center[1], center[2]);
+  HostBlock hb;
+  for (int32_t b = 0; b < (n + PTT_RAY_TILE - 1) / PTT_RAY_TILE; ++b) {
+    host_block_rays(hb, b, c, ray, live, tlim, n);
+    bool any = false;
+    for (int32_t i = 0; i < PTT_RAY_TILE; ++i) any = any || hb.r[i].live;
+    for (int32_t t = 0; any && t < ct; ++t) {
+      host_spread_entry(hb, coef, aabb + 8 * t, t, nullptr, baby_eps, eps_succ);
+    }
+    host_block_out(hb, b, n, out_t, out_tri);
   }
 }
 

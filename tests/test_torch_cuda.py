@@ -315,6 +315,51 @@ def test_streamed_kernel_ties_and_limit(cuda):
         tl = torch.where((torch.arange(2000, device=cuda) % 2 == 0) & (hit_tri >= 0), hit_t, tl)
 
 
+@pytest.mark.parametrize("kind", ["sweep", "super", "super padded"])
+def test_sweep_and_super_kernels_ties_and_limit(cuda, kind):
+    """The sweep's and the super-tile walk's block schedules on the two-tile
+    tie mesh (the super walk also over the tables padded to a whole
+    super-tile), then with every other hit ray's t_limit moved onto its
+    hit: t and tri bit-equal to the plain versions, ties to the lower copy,
+    a hit at exactly t_limit left at (t_limit, -1)."""
+    from torch_fixtures import TIE_TRIS, pad_to_supers, tie_mesh
+
+    pos, o, d, lim = tie_mesh(np.random.default_rng(60), 2000)
+    nrm = np.zeros_like(pos)
+    nrm[:] = [0.0, 0.0, 1.0]
+    t3 = lambda a: np.zeros(a, np.float32)
+    tables = intersect_mxu.build_mxu_tables(pos, nrm, t3((2048, 3, 2)), t3((2048, 3)),
+                                            t3((2048, 3)), np.zeros(2048, np.int32), cuda)
+    if kind == "super padded":
+        tables = pad_to_supers(tables)
+    col = lambda a: Vec3(*(torch.from_numpy(np.ascontiguousarray(a[:, i])).to(cuda)
+                           for i in range(3)))
+    ro, rd = col(o), col(d)
+    tl = torch.from_numpy(lim).to(cuda)
+    saabb = intersect_mxu.super_aabb(tables.tile_aabb)
+    even = torch.arange(2000, device=cuda) % 2 == 0
+    for moved in (False, True):
+        live = intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+        if kind == "sweep":
+            args = (tables, ro, rd, live, tl, 1e-5)
+            got = intersect_mxu.sweep_intersect(*args)
+            want = intersect_mxu.sweep_intersect_plain(*args)
+        else:
+            splan = intersect_mxu.plan_with_prefix(
+                saabb, *intersect_mxu.plan_rays(tables, ro, rd, live, tl))
+            args = (tables, ro, rd, live, tl, splan, 1e-5)
+            got = intersect_mxu.streamed_super_intersect(*args, saabb)
+            want = intersect_mxu.streamed_super_plain(*args)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]), moved
+        assert set(got[1][got[1] >= 0].tolist()) == {TIE_TRIS[0]}
+        if moved:
+            at = even & (hit_tri >= 0)
+            assert int(at.sum()) > 100
+            assert torch.equal(got[0][at], tl[at]) and (got[1][at] == -1).all()
+        hit_tri, hit_t = got[1], got[0]
+        tl = torch.where(even & (hit_tri >= 0), hit_t, tl)
+
+
 def test_binned_kernel_matches_plain(cuda):
     """Pair by pair on the 20k mesh's sorted camera rays, the bins built
     over the whole ray range."""

@@ -520,11 +520,16 @@ def _streamed_case(name):
 def spread_libs(walk_lib, tmp_path_factory):
     """The harness at each block width of the streamed kernel: the default
     (512 threads, two triangles a thread), 256 and 1,024."""
+    i32, f32_ = ctypes.c_int32, ctypes.c_float
+    walk_lib.ptt_host_sweep_block.argtypes = [P, P, i32, P, P, P, P, f32_, f32_, i32, P, P]
+    walk_lib.ptt_host_super_block.argtypes = (
+        [P, P, P, i32, i32] + [P] * 7 + [f32_, f32_, i32, P, P])
     libs = {512: walk_lib}
     for w in (256, 1024):
         libs[w] = build_host(tmp_path_factory, MESH_HARNESS, f"libmesh_path_host_{w}.so",
                              defines=[f"-DPTT_SPREAD_THREADS={w}"])
-        libs[w].ptt_host_streamed_block.argtypes = walk_lib.ptt_host_streamed_block.argtypes
+        for f in ("ptt_host_streamed_block", "ptt_host_sweep_block", "ptt_host_super_block"):
+            getattr(libs[w], f).argtypes = getattr(walk_lib, f).argtypes
     return libs
 
 
@@ -537,8 +542,6 @@ def test_host_streamed_block_schedule_matches_plain(walk_lib, spread_libs, name,
     walk_plain's and to the per-ray walk's, equal-t ties across the tie
     mesh's two tiles to the lower copy, and a hit at exactly t_limit left at
     (t_limit, -1)."""
-    from torch_compare import TIE_TRIS
-
     tables, ro, rd, live, tl, plan = _streamed_case(name)
     n = ro.x.shape[0]
     want_t, want_tri = intersect_mxu.walk_plain(tables, ro, rd, live, tl, plan, 1e-5)
@@ -553,6 +556,15 @@ def test_host_streamed_block_schedule_matches_plain(walk_lib, spread_libs, name,
     assert torch.equal(got_tri, want_tri) and torch.equal(got_t, want_t)
     per_ray = _host_walk(walk_lib, tables, ro, rd, live, tl, plan, 1)
     assert torch.equal(got_tri, per_ray[1]) and torch.equal(got_t, per_ray[0])
+    _check_limit_and_tie(name, got_t, got_tri, tl, live, want_tri)
+
+
+def _check_limit_and_tie(name, got_t, got_tri, tl, live, want_tri):
+    """The "limit" case's hits at exactly t_limit left at (t_limit, -1), the
+    tie mesh's ties with the lower copy."""
+    from torch_compare import TIE_TRIS
+
+    n = got_t.shape[0]
     if name == "limit":
         moved = torch.arange(n) % 2 == 0
         at_limit = moved & live & (got_t == tl)
@@ -562,6 +574,67 @@ def test_host_streamed_block_schedule_matches_plain(walk_lib, spread_libs, name,
         assert (want_tri >= 0).sum() > 20
     if name == "tie":
         assert set(got_tri[got_tri >= 0].tolist()) == {TIE_TRIS[0]}
+
+
+@pytest.mark.parametrize("threads", [256, 512, 1024])
+@pytest.mark.parametrize("name", ["20k", "tie", "limit"])
+def test_host_sweep_block_schedule_matches_plain(walk_lib, slice5_lib, spread_libs, name,
+                                                 threads):
+    """ptt_sweep_kernel's block schedule (every tile in ascending id through
+    the shared per-entry body, no exit vote) at three block widths: t and
+    tri equal to sweep_intersect_plain's and to the per-ray sweep's, ties to
+    the lower copy, a hit at exactly t_limit left at (t_limit, -1)."""
+    tables, ro, rd, live, tl, _ = _streamed_case(name)
+    n = ro.x.shape[0]
+    want_t, want_tri = intersect_mxu.sweep_intersect_plain(tables, ro, rd, live, tl, 1e-5)
+    rays = [p.contiguous() for p in (*ro, *rd)]
+    lv, tlc = live.to(torch.uint8).contiguous(), tl.contiguous()
+    got, per_ray = [(torch.empty(n), torch.empty(n, dtype=torch.int32)) for _ in range(2)]
+    for fn, (t, tri) in ((spread_libs[threads].ptt_host_sweep_block, got),
+                         (slice5_lib.ptt_host_sweep, per_ray)):
+        fn(tables.coef.data_ptr(), tables.tile_aabb.data_ptr(), tables.tile_aabb.shape[0],
+           tables.center.data_ptr(), _ptrs(rays), lv.data_ptr(), tlc.data_ptr(), *_eps_args(),
+           n, t.data_ptr(), tri.data_ptr())
+    got_t, got_tri = got
+    assert torch.equal(got_tri, want_tri) and torch.equal(got_t, want_t)
+    assert torch.equal(got_tri, per_ray[1]) and torch.equal(got_t, per_ray[0])
+    _check_limit_and_tie(name, got_t, got_tri, tl, live, want_tri)
+
+
+@pytest.mark.parametrize("threads", [256, 512, 1024])
+@pytest.mark.parametrize("name", ["20k", "tie", "limit"])
+def test_host_super_block_schedule_matches_plain(walk_lib, slice5_lib, spread_libs, name,
+                                                 threads):
+    """ptt_streamed_super_kernel's block schedule (per super entry the exit
+    vote and the super gate, then each member tile through the shared
+    per-entry body) at three block widths, over the tables as they are and
+    padded to whole super-tiles (20 tiles -> 24; 2 -> 8): t and tri equal to
+    streamed_super_plain's and to the per-ray super walk's, ties to the
+    lower copy, a hit at exactly t_limit left at (t_limit, -1)."""
+    from torch_fixtures import pad_to_supers
+
+    base, ro, rd, live, tl, _ = _streamed_case(name)
+    n = ro.x.shape[0]
+    rays = [p.contiguous() for p in (*ro, *rd)]
+    lv, tlc = live.to(torch.uint8).contiguous(), tl.contiguous()
+    for tables in (base, pad_to_supers(base)):
+        saabb = intersect_mxu.super_aabb(tables.tile_aabb)
+        ct, cs = tables.tile_aabb.shape[0], saabb.shape[0]
+        splan = intersect_mxu.build_tile_plan(
+            saabb, *intersect_mxu.plan_rays(tables, ro, rd, live, tl))
+        want_t, want_tri = intersect_mxu.streamed_super_plain(tables, ro, rd, live, tl, splan,
+                                                              1e-5)
+        got, per_ray = [(torch.empty(n), torch.empty(n, dtype=torch.int32)) for _ in range(2)]
+        for fn, (t, tri) in ((spread_libs[threads].ptt_host_super_block, got),
+                             (slice5_lib.ptt_host_super, per_ray)):
+            fn(tables.coef.data_ptr(), tables.tile_aabb.data_ptr(), saabb.data_ptr(), ct, cs,
+               tables.center.data_ptr(), _ptrs(rays), lv.data_ptr(), tlc.data_ptr(),
+               splan.ids.data_ptr(), splan.tlo.data_ptr(), splan.cnt.data_ptr(), *_eps_args(),
+               n, t.data_ptr(), tri.data_ptr())
+        got_t, got_tri = got
+        assert torch.equal(got_tri, want_tri) and torch.equal(got_t, want_t), ct
+        assert torch.equal(got_tri, per_ray[1]) and torch.equal(got_t, per_ray[0]), ct
+        _check_limit_and_tie(name, got_t, got_tri, tl, live, want_tri)
 
 
 def test_host_binned_matches_plain(walk_lib):

@@ -1,7 +1,8 @@
-"""Test inputs made with numpy alone (no JAX), so that the tests that run on
-the card, where JAX is not installed, can build them too."""
+"""Test inputs made with numpy and torch alone (no JAX), so that the tests
+that run on the card, where JAX is not installed, can build them too."""
 
 import numpy as np
+import torch
 
 
 TIE_TRIS = (5, 1024 + 7)  # the two copies of the shared triangle
@@ -28,3 +29,16 @@ def tie_mesh(rng, n):
     lim = np.where(rng.random(n) > 0.3, 3.4e38, rng.uniform(4.0, 6.0, n))
     lim[: n // 16] = 5.0  # a hit exactly at t_limit loses to it
     return pos, o.astype(np.float32), d.astype(np.float32), lim.astype(np.float32)
+
+
+def pad_to_supers(tables, super_tiles=8, tri_tile=1024):
+    """``tables`` (the port's ``MXUMeshTables``) padded to whole super-tiles
+    as ``build_mxu_tables`` pads them with ``PTT_STREAM_SUPER`` on:
+    never-hit tiles of zero coefficient rows and inverted boxes."""
+    ct = tables.tile_aabb.shape[0]
+    extra = -ct % super_tiles
+    never = tables.tile_aabb.new_tensor([1e30] * 3 + [-1e30] * 3 + [0.0] * 2).expand(extra, 8)
+    return tables._replace(
+        tile_aabb=torch.cat([tables.tile_aabb, never]).contiguous(),
+        coef=torch.cat([tables.coef, tables.coef.new_zeros(
+            (extra * tri_tile, tables.coef.shape[1]))]).contiguous())
