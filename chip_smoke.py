@@ -58,7 +58,7 @@ sys.path.insert(0, str(ROOT / "scripts"))
 # script's, so that its numbers and this script's describe the same rays
 # and films.
 from torch_bench_kernels import (  # noqa: E402
-    env_set, sha, sorted_bounces, super_args, sweep_calls,
+    chain_calls, env_set, sha, sorted_bounces, super_args,
 )
 
 PKG = "project3_cuda_path_tracer_2025_tpu_torch"
@@ -388,10 +388,11 @@ def mesh_phases(device, smi: str) -> tuple:
     act = active & intersect_mxu.root_hit_mask(tabs.tile_aabb, tabs.center, *ro, *rd, tl)
     osv = type(ro)(ro.x - tabs.center[0], ro.y - tabs.center[1], ro.z - tabs.center[2])
     inv = intersect_mxu._inv_dir(rd)
+    hit_t = intersect_mxu.mono_intersect(*mono_case)[0]  # the pairs past the hit are not needed
     pairs = 0
     for row in tabs.tile_aabb.tolist():
-        member, _, _ = intersect_mxu._member_slab(row, osv, inv, tl)
-        pairs += int((member & act).sum())
+        member, s_tlo, _ = intersect_mxu._member_slab(row, osv, inv, tl)
+        pairs += int((member & act & (s_tlo <= hit_t)).sum())
     mono_bound = bound_ms(
         n * (6 * 4 + 1 + 4 + 8) + tabs.coef.numel() * 4 + tabs.tile_aabb.numel() * 4,
         n * OPS_MONO_RAY + int(act.sum()) * ct * OPS_MONO_TILE
@@ -403,8 +404,9 @@ def mesh_phases(device, smi: str) -> tuple:
         live * (prim_ops(prim_static) + OPS_MERGE + OPS_SCATTER)
         + n * (prim_ops(prim_static) + OPS_KEY_RAY + ct * OPS_KEY_TILE),
     )
-    log(f"    bounds: mono kernel {mono_bound[0]:.4f} ms ({mono_bound[1]}; {pairs} candidate "
-        f"(ray, tile) pairs of {int(act.sum())} root-hitting rays), mesh-shade kernel "
+    log(f"    bounds: mono kernel {mono_bound[0]:.4f} ms ({mono_bound[1]}; {pairs} (ray, tile) "
+        f"pairs whose entry is no farther than the ray's hit, of {int(act.sum())} root-hitting "
+        f"rays), mesh-shade kernel "
         f"{shade_bound[0]:.4f} ms ({shade_bound[1]}; {live} live rays)")
 
     profiled = {
@@ -453,7 +455,7 @@ def launch(tag, what, fn, reps, bound, live, smi) -> float:
     torch.cuda.synchronize()
     ms = float(np.median([cuda_time_ms(fn, reps) for _ in range(3)]))
     log(f"[{tag}] {what}: {ms:.4f} ms per launch on {smi}; {int(live.sum())} live rays, "
-        f"{bound[2]} candidate (ray, tile) pairs; bound {bound[0]:.4f} ms ({bound[1]}), "
+        f"{bound[2]} (ray, tile) pairs the result needs; bound {bound[0]:.4f} ms ({bound[1]}), "
         f"{bound[0] / ms:.1%} of it")
     return ms
 
@@ -507,31 +509,18 @@ def binned_args(tables, paths, tl, live, tiers) -> "tuple | None":
     return (tables, ro, rd, live, tl, bins.vt, bins.src, npre // mxu.BINNED_G, 1e-5), bins
 
 
-def walk_bound(args) -> tuple:
-    """Bound of one walk launch: the live rays read once, the plan, the
-    coefficient rows of the tiles the plan lists, the outputs; operations of
-    the rays' features, a member test per (live ray, plan entry) and the
-    candidate (ray, tile) pairs x 1,024 triangles."""
+def walk_bound(args, gate_t) -> tuple:
+    """Bound of one walk launch (#5, #6, #7): ``visit_bound`` over the
+    tiles each block's plan row lists, with the plan's bytes, counting only
+    the pairs whose slab entry is no farther than ``gate_t``, the walk's
+    own result t (past a ray's final hit no order of tiles needs a pair:
+    the candidate contract)."""
     from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
 
     tables, ro, rd, live, tl, plan, _ = args
-    n, nb = ro.x.shape[0], plan.cnt.shape[0]
-    ct = tables.tile_aabb.shape[0]
-    block = torch.arange(n, device=live.device) // mxu.RAY_TILE
-    slots = torch.arange(ct, device=live.device)[None, :] < plan.cnt[:, None]
-    visits = torch.zeros((nb, ct), dtype=torch.bool, device=live.device).scatter_(
-        1, plan.ids.reshape(nb, ct).long(), slots)
-    rf = mxu._features(tables, ro, rd)
-    pairs = 0
-    for c, row in enumerate(tables.tile_aabb.tolist()):
-        member, _, _ = mxu._member_slab(row, rf.os, rf.inv, tl)
-        pairs += int((member & live & visits[block, c]).sum())
-    entries = int((plan.cnt.long()[block] * live).sum())
-    tiles = int(visits.any(dim=0).sum())
-    nbytes = n * (6 * 4 + 1 + 4 + 8) + nb * (ct * 8 + 4) + tiles * mxu.TRI_TILE * mxu.COEF_W * 4
-    ops = int(live.sum()) * OPS_WALK_RAY + entries * OPS_MONO_TILE \
-        + pairs * mxu.TRI_TILE * OPS_MONO_PAIR
-    return bound_ms(nbytes, ops) + (pairs,)
+    nb, ct = plan.cnt.shape[0], tables.tile_aabb.shape[0]
+    return visit_bound(tables, ro, rd, live, tl, mxu._plan_visits(plan, ct), nb * (ct * 8 + 4),
+                       gate_t)
 
 
 def binned_bound(args) -> tuple:
@@ -744,14 +733,25 @@ def larger_mesh_phases(device, smi: str) -> tuple:
         if hits == 0:
             raise AssertionError(f"[{tag}] no mesh hit to compare")
 
+    def per_bounce(tag, states, reps, kinds=("streamed",)):
+        """Each walk kernel of ``kinds`` on each sorted bounce at full size,
+        with its bound and share."""
+        for d, st in enumerate(states):
+            args = walk_args(tables, *st)
+            bound = walk_bound(args, mxu.WALKS[kinds[0]](*args)[0])
+            for kind in kinds:
+                fn = mxu.WALKS[kind]
+                launch(tag, f"{fn.__name__} bounce {d}", lambda fn=fn: fn(*args), reps, bound,
+                       args[3], smi)
+
     # -- 10. planned, cornell_mesh_20k.json --------------------------------
-    log("[10] planned walks (#5 lane-best, #6 with the early exit):")
+    log("[10] planned walks (#5 lane-best, #6 with the early exit; the block schedule):")
     scene, dev, static, cam = setup("20k")
     tables, n, depth = dev.mxu_mesh, static.pixel_count, static.trace_depth
-    STATES["20k"] = sorted_bounces(dev, static, cam, cfg, device, bounces=depth)
-    states = STATES["20k"][:3]
+    states = STATES["20k"] = sorted_bounces(dev, static, cam, cfg, device, bounces=depth)
     check_walks("10a", ("planned_lanebest", "planned"), states, tables)
-    traversals_agree("10b", tables, static, states, ("planned", "streamed", "binned"))
+    per_bounce("10a", states, 20, ("planned_lanebest", "planned"))
+    traversals_agree("10b", tables, static, states[:3], ("planned", "streamed", "binned"))
     r, got = drive(scene, 4, counters)
     log(f"[10c] Renderer('{LARGE['20k'].name}') step_many(4): launches {got}")
     if (got["planned_lanebest_intersect"], got["mono_intersect"], got["planned_intersect"],
@@ -767,6 +767,7 @@ def larger_mesh_phases(device, smi: str) -> tuple:
     check_golden(LARGE["20k"], GOLDEN_20K)
     a0 = walk_args(tables, *states[0])
     frame20 = frame_fn(dev, static, cam, cfg, base_key, device)
+    profiled["20k mesh, 'auto' (the lane-best planned walk #5)"] = frame20
     _, alive20 = frame20()
     paths_t = {
         "planned_lanebest_intersect (1 bounce)":
@@ -782,22 +783,15 @@ def larger_mesh_phases(device, smi: str) -> tuple:
     ms = log_times("10e", smi, time_paths(paths_t, rounds), paths_t, rounds,
                    {"20k frame (Renderer default path)": rays20})
     log(f"    host reads in one 20k frame: {host_syncs(frame20)}")
-    b5 = walk_bound(a0)
-    log(f"    bounds: each planned walk {b5[0]:.4f} ms ({b5[1]}; {b5[2]} candidate (ray, tile) "
-        f"pairs of {int(a0[3].sum())} live rays)")
+    b5 = walk_bound(a0, mxu.planned_lanebest_intersect(*a0)[0])
+    log(f"    bounds: each planned walk {b5[0]:.4f} ms ({b5[1]}; {b5[2]} (ray, tile) pairs whose "
+        f"entry is no farther than the ray's hit, of {int(a0[3].sum())} live rays)")
     for k in ("planned_lanebest_intersect", "planned_intersect"):
         entries[k] = dict(ms=ms[f"{k} (1 bounce)"], plain_ms=ms["plain walk_plain (1 bounce)"],
                           bound=b5)
     del states, a0
 
     # -- 11. streamed, cornell_mesh_80k.json and cornell_mesh_500k.json ------
-    def per_bounce(tag, states, reps):
-        """#7 on each sorted bounce at full size."""
-        for d, st in enumerate(states):
-            args = walk_args(tables, *st)
-            launch(tag, f"streamed_intersect bounce {d}", lambda: mxu.streamed_intersect(*args),
-                   reps, walk_bound(args), args[3], smi)
-
     log("[11] streamed walk (#7):")
     scene, dev, static, cam = setup("80k")
     tables, n, depth = dev.mxu_mesh, static.pixel_count, static.trace_depth
@@ -851,9 +845,9 @@ def larger_mesh_phases(device, smi: str) -> tuple:
                    {"80k frame (Renderer default path)": rays80,
                     "80k frame, mxu_traversal='binned'": rays80})
     log(f"    host reads in one 80k frame: {host_syncs(frame80)}")
-    b7 = walk_bound(a0)
-    log(f"    bounds: streamed walk {b7[0]:.4f} ms ({b7[1]}; {b7[2]} candidate (ray, tile) "
-        f"pairs of {int(a0[3].sum())} live rays)")
+    b7 = walk_bound(a0, mxu.streamed_intersect(*a0)[0])
+    log(f"    bounds: streamed walk {b7[0]:.4f} ms ({b7[1]}; {b7[2]} (ray, tile) pairs whose "
+        f"entry is no farther than the ray's hit, of {int(a0[3].sum())} live rays)")
     entries["streamed_intersect"] = dict(ms=ms["streamed_intersect (1 bounce)"],
                                          plain_ms=ms["plain walk_plain (1 bounce)"], bound=b7)
     del states, a0
@@ -1386,8 +1380,8 @@ def visit_bound(tables, ro, rd, live, tl, visits, plan_bytes: int, gate_t=None) 
     coefficient rows of the tiles visited, the outputs; operations of the
     rays' features, a member test per (live ray, visited tile) and the
     candidate (ray, tile) pairs x 1,024 triangles.  ``gate_t``: count only
-    pairs whose slab entry is no farther than this t per ray (for the sweep:
-    the final hit, beyond which no order of tiles needs a pair)."""
+    pairs whose slab entry is no farther than this t per ray (the final
+    hit, beyond which no order of tiles needs a pair)."""
     from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
 
     n = ro.x.shape[0]
@@ -1510,9 +1504,9 @@ def slice5_phases(device, smi: str) -> tuple:
     tab80 = dev80.mxu_mesh
     m = PLAIN_BLOCKS * mxu.RAY_TILE
     for d, (paths, tl, live) in enumerate(STATES["80k"]):
-        calls = sweep_calls(mxu, tab80, static80.mxu_padded_tris, paths.origin, paths.direction,
-                            live, tl, 1e-5)
-        for i, c in enumerate(calls):
+        calls = chain_calls(mxu, "sweep", tab80, static80.mxu_padded_tris, paths.origin,
+                            paths.direction, live, tl, 1e-5)
+        for i, (_, c) in enumerate(calls):
             cut = lambda v: type(v)(*(x[:m].contiguous() for x in v))
             head = (c[0], cut(c[1]), cut(c[2]), c[3][:m].contiguous(), c[4][:m].contiguous(), c[5])
             got = mxu.sweep_intersect(*c)
@@ -1576,6 +1570,21 @@ def slice5_phases(device, smi: str) -> tuple:
 
     # -- 17. the chunked chains ------------------------------------------------
     log("[17] the chunked chains (planned: a plan and a walk per chunk of 32 tiles):")
+    for d, (paths, tl, live) in enumerate(STATES["80k"]):
+        calls = chain_calls(mxu, "planned", tab80, static80.mxu_padded_tris, paths.origin,
+                            paths.direction, live, tl, 1e-5)
+        for i, (kind, c) in enumerate(calls):
+            fn = mxu.WALKS[kind]
+            got = fn(*c)
+            tri_bad, t_bad, _ = bit_diff(got, mxu.walk_plain(*c))
+            torch.cuda.synchronize()
+            log(f"[17a] 80k bounce {d}, planned chain call {i} ({fn.__name__}, "
+                f"{c[0].tile_aabb.shape[0]} tiles): against walk_plain on all {n} rays, rays "
+                f"with tri differing {tri_bad}, with t not bit-equal {t_bad}")
+            if tri_bad or t_bad:
+                raise AssertionError(f"{fn.__name__} disagrees in the 80k planned chain")
+            launch("17a", f"{fn.__name__} 80k bounce {d} call {i}", lambda fn=fn, c=c: fn(*c), 10,
+                   walk_bound(c, got[0]), c[3], smi)
     traversals_agree("17a 80k", dev80.mxu_mesh, static80, STATES["80k"][:3],
                      ("streamed", "planned"))
     _, dev200, static200, cam200 = LOADED["200k"]
@@ -1592,6 +1601,7 @@ def slice5_phases(device, smi: str) -> tuple:
             != (2 * depth, depth, 0):
         raise AssertionError("the 80k planned Renderer did not walk 3 chunks per bounce")
     f80p = frame_fn(dev80, static80, cam80, plan_cfg, base_key, device)
+    profiled["80k frame, mxu_traversal='planned' (chain of 3: #6, #6, #5)"] = f80p
     f200p = frame_fn(dev200, static200, cam200, plan_cfg, base_key, device)
     f200a = frame_fn(dev200, static200, cam200, cfg, base_key, device)
     paths_t = {"80k frame, mxu_traversal='planned'": (f80p, 2), "80k frame, 'auto'": (f80a, 2),
@@ -1697,7 +1707,7 @@ def slice5_phases(device, smi: str) -> tuple:
         visits = mxu._plan_visits(u[5], saabb.shape[0]).repeat_interleave(
             mxu.SUPER_TILES, dim=1)[:, :stab.tile_aabb.shape[0]]
         return visit_bound(*u[:5], visits, u[5].cnt.shape[0] * (saabb.shape[0] * 8 + 4)
-                           + saabb.numel() * 4)
+                           + saabb.numel() * 4, mxu.streamed_super_intersect(*u, saabb)[0])
 
     for d, (paths, tl, live) in enumerate(STATES["500k"]):
         cut_args = sargs(paths, tl, live, PLAIN_BLOCKS)
@@ -1750,8 +1760,9 @@ def slice5_phases(device, smi: str) -> tuple:
     ms = log_times("18d", smi, time_paths(paths_t, rounds), paths_t, rounds,
                    {k: rays500 for k in paths_t if "frame" in k})
     b8 = super_bound(u0)
-    log(f"    bound of one super launch on all rays: {b8[0]:.4f} ms ({b8[1]}; {b8[2]} candidate "
-        f"(ray, tile) pairs of {int(u0[3].sum())} live rays); the plain version is timed on "
+    log(f"    bound of one super launch on all rays: {b8[0]:.4f} ms ({b8[1]}; {b8[2]} (ray, "
+        f"tile) pairs whose entry is no farther than the ray's hit, of {int(u0[3].sum())} live "
+        f"rays); the plain version is timed on "
         f"the first {PLAIN_BLOCKS} blocks only")
     entries["streamed_super_intersect"] = dict(
         ms=ms["streamed_super_intersect, 500k (1 bounce)"],

@@ -250,9 +250,10 @@ PTT_HD void tile_fold(WalkRay& r, const float* coef, int tile, Slab s, float bab
   }
 }
 
-// One visit of a plan entry by one ray (_planned_kernel, _streamed_kernel,
-// _planned_kernel_lanebest, _binned_kernel): the member test against the
-// tile's box (row: 8 floats) and, for a member, the fold.  With gate, a
+// One visit of a tile by one ray (the per-ray walks: mono_ray, sweep_ray,
+// super_visit, binned_pair, and the host twin of the planned walks): the
+// member test against the tile's box (row: 8 floats) and, for a member,
+// the fold.  With gate, a
 // member whose slab entry lies beyond its running best skips the tile:
 // every t the tile can give it is >= that entry, so nothing it holds can
 // change (the improvability gate of the ordered walks, per ray).
@@ -357,9 +358,10 @@ PTT_HD bool walk_goes_on(const WalkRay& r, float tile_tlo) {
   return tile_tlo <= (r.live ? r.best : 0.0f);
 }
 
-// The block schedule of the streamed, super-tile and sweep walks
-// (ptt_streamed_kernel, ptt_streamed_super_kernel, ptt_sweep_kernel; their
-// shared per-entry body is spread_entry in mesh_walk.cu): a tile's (ray,
+// The block schedule of the planned, streamed, super-tile and sweep walks
+// (ptt_planned_lanebest_kernel, ptt_planned_kernel, ptt_streamed_kernel,
+// ptt_streamed_super_kernel, ptt_sweep_kernel; their shared per-entry body
+// is spread_entry in mesh_walk.cu): a tile's (ray,
 // triangle) pairs are spread over the block's threads instead of one thread
 // walking its ray's 1,024 triangles.  Per tile:
 //   walk_take    each ray's share of the member test and the improvability

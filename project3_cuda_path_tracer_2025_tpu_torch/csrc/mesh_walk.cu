@@ -41,21 +41,20 @@
 // come from L1/L2.  The tie rule in tile_fold (t < best, or t == best and a
 // lower id) makes the result independent of the visit order, which is
 // ascending entry bound, not ascending id.
-//   #5 and #6 (and #13a, #13b below) keep one thread a ray: a thread
-//   evaluates a tile only when its ray is live and a member of it
-//   (csrc/mesh_path.cuh, walk_visit) while the others of the warp wait.
-//   #5 walks all cnt entries of its plan row.  #6 (and #7, #8) add the JAX
-//   package's two exact cuts: before each entry the block votes
-//   (__syncthreads_or) and stops when the entry's bound exceeds every live
-//   ray's running best (strictly: equal bounds may still tie); and a ray
-//   skips a tile whose slab entry lies beyond its own running best (the
-//   improvability gate, taken per ray instead of per block).  #5 and #6
-//   stage the (at most 32) tile boxes in shared memory.
-//   #7, #8 and #9 share the block schedule.  In the per-ray schedule a
-//   member ray walked its tile's 1,024 triangles alone while the rest of its
-//   warp waited, a chain of ~1 us a block-visit at 0.5-1.6% of the walks'
-//   operations bound.  The TPU kernels evaluate a 256-ray block against a
-//   whole tile as one matmul, their feature tiles double-buffered
+//   The five walks #5-#9 share the block schedule and one per-tile body.
+//   #5 walks all cnt entries of its plan row.  #6, #7 and #8 add the JAX
+//   package's two exact cuts: before each entry the block votes and stops
+//   when the entry's bound exceeds every live ray's running best
+//   (strictly: equal bounds may still tie); and a ray skips a tile whose
+//   slab entry lies beyond its own running best (the improvability gate,
+//   taken per ray instead of per block; #5 and #9 take it too, exact in any
+//   walk).  #5, #6 and #9 stage the (at most 32) tile boxes in shared
+//   memory.  #13a and #13b (below) keep one thread a ray.
+//   The block schedule.  In the per-ray schedule that the walks had before
+//   it a member ray walked its tile's 1,024 triangles alone while the rest
+//   of its warp waited, a chain of ~1 us a block-visit at 0.5-1.6% of the
+//   walks' operations bound.  The TPU kernels evaluate a 256-ray block
+//   against a whole tile as one matmul, their feature tiles double-buffered
 //   HBM->VMEM by DMA.  Here, per tile, the rays that take it (live, member,
 //   past the gate) are listed in shared memory (warp ballots and a prefix
 //   over the eight ray warps), and the list's (ray, triangle) pairs are
@@ -66,20 +65,23 @@
 //   walk_key: the ordered bits of t, then tri + 1), the lexicographic
 //   minimum the per-ray fold computes in any order, so the results are bit
 //   for bit the per-ray walk's.  One device function, spread_entry, is that
-//   per-tile step for all three kernels; they differ only in which tiles
+//   per-tile step for all five kernels; they differ only in which tiles
 //   they feed it and which votes and gates come with them.  Shared memory:
 //   the 256 rays' features (10 KB), keys (2 KB), the list with its pair
-//   windows (3 KB), 64 B of counts: 15,424 B (the sweep adds 1 KB of boxes),
-//   so registers set the occupancy, one block of 16 warps an SM.  Measured
-//   on #7 (scripts/torch_ab_streamed_walk.py, PERF.md): 512 threads beat 256
-//   (two blocks an SM, four triangles a thread) and 1,024 (one triangle a
-//   thread) summed over a frame's eight sorted bounces at 80k and 500k;
-//   staging the next entry's rows in shared memory by cp.async (two 80 KB
-//   stages, one block an SM) lost to reading them from L2 into registers on
-//   every bounce, and was left out.
+//   windows (3 KB), 64 B of counts: 15,424 B (#5, #6 and #9 add 1 KB of
+//   boxes), so registers set the occupancy, one block of 16 warps an SM.
+//   Measured on #7 (scripts/torch_ab_streamed_walk.py, PERF.md): 512
+//   threads beat 256 (two blocks an SM, four triangles a thread) and 1,024
+//   (one triangle a thread) summed over a frame's eight sorted bounces at
+//   80k and 500k; staging the next entry's rows in shared memory by
+//   cp.async (two 80 KB stages, one block an SM) lost to reading them from
+//   L2 into registers on every bounce, and was left out.
 //   #7 reads its boxes and plan rows through the read-only cache (up to
 //   1,024 tiles: 32 KB of boxes, 8 KB of plan row per block) and feeds each
-//   plan entry's tile to spread_entry behind the exit vote.
+//   plan entry's tile to spread_entry behind the exit vote.  #6 is the same
+//   loop over a plan of at most 32 tiles with the boxes in shared memory;
+//   #5 is #6 with a vote that always goes on.  One template, plan_spread,
+//   is the loop of all three.
 //   #8 walks a plan whose entries are super-tiles (8 contiguous tiles, the
 //   box their envelope).  Per entry: one exit vote (strict: the super box's
 //   entry is at or below every member tile's, so nothing past it can
@@ -115,7 +117,7 @@
 //   (min over non-negative floats as ints, or).  min and any do not depend
 //   on order, so (h, lb) are bit-equal to the torch plan's.  Traffic: the
 //   rays once, [nb, ct] out, whatever the tile count.
-//   #13a (lb_asc) is #5's schedule over the ascending plan row with
+//   #13a (lb_asc) walks the ascending plan row one thread a ray, with
 //   asc_visit: the per-ray "best" is the TPU kernel's [256, 1,024] lane
 //   planes and its resolve at once, since one thread owns all of a ray's
 //   lanes; none of the planes is copied.  #13b (mono) reads no plan: "full"
@@ -131,10 +133,9 @@
 // a thread does 1,024 x (19 fused multiply-adds, one division, ~12
 // compares) against one 80-byte row per triangle shared by the warp; the
 // rays' state (7 planes, 29 bytes a ray) and the plan are read once.
-// In the per-ray schedule divergence is the cost beyond the bound: a warp
-// runs a tile for as long as its slowest member, whatever number of its
-// rays are members.  The coherence sort in front of the traversal is what
-// keeps warps coherent.  The block schedule of #7, #8 and #9 removes that
+// In the per-ray schedule (#13a, #13b) divergence is the cost beyond the
+// bound: a warp runs a tile for as long as its slowest member, whatever
+// number of its rays are members.  The block schedule of #5-#9 removes that
 // cost (every thread evaluates pairs); what it leaves is a tile-visit's
 // fixed part (three barriers, the list, 80 KB of rows from L2) and a few
 // live blocks an SM on the early bounces.
@@ -203,44 +204,7 @@ __device__ __forceinline__ WalkRay load_walk_ray(const PttWalkArgs& a, int idx, 
   return walk_ray(center, o, d, in && a.live[idx] != 0, in ? a.tlim[idx] : 0.0f);
 }
 
-// One block's walk of its plan row.  EXIT: the early exit and the per-ray
-// improvability gate (#6).  aabb: the tile boxes (shared or global).
-template <bool EXIT>
-__device__ __forceinline__ void walk_block(const PttWalkArgs& a, const float* aabb, V3 center) {
-  const int b = blockIdx.x;
-  const int idx = b * PTT_RAY_TILE + threadIdx.x;
-  WalkRay r = load_walk_ray(a, idx, center);
-  const int cnt = __ldg(a.cnt + b);
-  const int32_t* ids = a.ids + (size_t)b * a.ct;
-  const float* tlo = a.tlo + (size_t)b * a.ct;
-  for (int t = 0; t < cnt; ++t) {
-    if (EXIT && !__syncthreads_or(walk_goes_on(r, __ldg(tlo + t)))) break;
-    const int tile = __ldg(ids + t);
-    walk_visit(r, a.coef, aabb + 8 * tile, tile, EXIT, a.baby_eps, a.eps_succ);
-  }
-  if (idx < a.n) {
-    a.out_t[idx] = r.best;
-    a.out_tri[idx] = r.best_tri;
-  }
-}
-
-template <bool EXIT>
-__device__ __forceinline__ void walk_block_shared(const PttWalkArgs& a) {
-  __shared__ float sh_aabb[PTT_PLANNED_MAX_CT * 8];
-  for (int i = threadIdx.x; i < a.ct * 8; i += blockDim.x) sh_aabb[i] = a.tile_aabb[i];
-  __syncthreads();
-  walk_block<EXIT>(a, sh_aabb, v3(__ldg(a.center), __ldg(a.center + 1), __ldg(a.center + 2)));
-}
-
-__global__ void __launch_bounds__(PTT_RAY_TILE) ptt_planned_lanebest_kernel(const PttWalkArgs a) {
-  walk_block_shared<false>(a);
-}
-
-__global__ void __launch_bounds__(PTT_RAY_TILE) ptt_planned_kernel(const PttWalkArgs a) {
-  walk_block_shared<true>(a);
-}
-
-// The block schedule of #7, #8 and #9 (csrc/mesh_path.cuh: walk_take,
+// The block schedule of #5-#9 (csrc/mesh_path.cuh: walk_take,
 // spread_load, spread_key, walk_key, walk_unkey): PTT_SPREAD_THREADS threads
 // a block of 256 rays.  Thread t < 256 owns ray t of the block (its state,
 // its share of an exit vote, its member test); for each tile every thread t
@@ -270,7 +234,7 @@ __device__ __forceinline__ WalkRay spread_ray(SpreadShared& sh, const PttWalkArg
   return r;
 }
 
-// The per-entry body of the three walks: one tile (row: its box) against
+// The per-entry body of the five walks: one tile (row: its box) against
 // the block's rays.  Each ray may take it (may: the thread's own condition
 // besides walk_take's, e.g. a super-tile gate); the takers are listed in
 // shared memory (warp ballots and a prefix over the eight ray warps), each
@@ -336,9 +300,28 @@ __device__ __forceinline__ void spread_out(const PttWalkArgs& a, const WalkRay& 
 #define PTT_SPREAD_BOUNDS \
   __launch_bounds__(PTT_SPREAD_THREADS, PTT_SPREAD_THREADS >= 512 ? 1 : 512 / PTT_SPREAD_THREADS)
 
-// #7: each plan entry behind the block's exit vote.
-__global__ void PTT_SPREAD_BOUNDS ptt_streamed_kernel(const PttWalkArgs a) {
+// #5, #6 and #7: each plan entry's tile through spread_entry.  EXIT (#6,
+// #7): the block's exit vote on the entry's bound, taken at spread_entry's
+// first barrier.  #5 votes to go on at every entry and so walks all cnt of
+// them, as _planned_kernel_lanebest does (it reads no tlo).  walk_take's
+// improvability gate (s.lo <= best) stays in #5 too: a tile whose entry
+// lies strictly beyond the ray's running best holds no t that can win or
+// tie, so the results are bit-equal with the gate or without it (the TPU
+// kernel takes none).  SHARED_BOXES (#5, #6: at most 32 tiles): the tile
+// boxes staged in shared memory as the sweep stages them; #7 (up to 1,024
+// tiles) reads them through the read-only cache.  A block whose plan row
+// is empty (cnt = 0, as in a chain call where no ray of the block can
+// improve) writes its rays' (t_limit, -1).
+template <bool EXIT, bool SHARED_BOXES>
+__device__ __forceinline__ void plan_spread(const PttWalkArgs& a) {
   __shared__ SpreadShared sh;
+  const float* boxes = a.tile_aabb;
+  if constexpr (SHARED_BOXES) {
+    __shared__ float sh_aabb[PTT_PLANNED_MAX_CT * 8];
+    for (int i = threadIdx.x; i < a.ct * 8; i += blockDim.x) sh_aabb[i] = a.tile_aabb[i];
+    __syncthreads();  // the boxes are read by the first walk_take, before any barrier
+    boxes = sh_aabb;
+  }
   const bool owner = threadIdx.x < PTT_RAY_TILE;
   const V3 center = v3(__ldg(a.center), __ldg(a.center + 1), __ldg(a.center + 2));
   WalkRay r = spread_ray(sh, a, owner, center);
@@ -348,12 +331,25 @@ __global__ void PTT_SPREAD_BOUNDS ptt_streamed_kernel(const PttWalkArgs a) {
   const float* tlo = a.tlo + (size_t)b * a.ct;
   for (int t = 0; t < cnt; ++t) {
     const int tile = __ldg(ids + t);
-    if (!spread_entry(sh, r, owner, true, owner && walk_goes_on(r, __ldg(tlo + t)), a.coef,
-                      a.tile_aabb + 8 * tile, tile, t & 1, a.baby_eps, a.eps_succ)) {
+    const bool vote = !EXIT || (owner && walk_goes_on(r, __ldg(tlo + t)));
+    if (!spread_entry(sh, r, owner, true, vote, a.coef, boxes + 8 * tile, tile, t & 1,
+                      a.baby_eps, a.eps_succ)) {
       break;
     }
   }
   spread_out(a, r, owner);
+}
+
+__global__ void PTT_SPREAD_BOUNDS ptt_planned_lanebest_kernel(const PttWalkArgs a) {
+  plan_spread<false, true>(a);
+}
+
+__global__ void PTT_SPREAD_BOUNDS ptt_planned_kernel(const PttWalkArgs a) {
+  plan_spread<true, true>(a);
+}
+
+__global__ void PTT_SPREAD_BOUNDS ptt_streamed_kernel(const PttWalkArgs a) {
+  plan_spread<true, false>(a);
 }
 
 // #8: per plan entry (a super-tile), the exit vote on its bound, taken at
@@ -603,9 +599,9 @@ int ptt_launch_walk(const PttWalkArgs* a, int32_t kind, void* stream) {
     const unsigned grid = blocks_for(a->n);
     cudaStream_t s = (cudaStream_t)stream;
     if (kind == 0) {
-      ptt_planned_lanebest_kernel<<<grid, PTT_RAY_TILE, 0, s>>>(*a);
+      ptt_planned_lanebest_kernel<<<grid, PTT_SPREAD_THREADS, 0, s>>>(*a);
     } else if (kind == 1) {
-      ptt_planned_kernel<<<grid, PTT_RAY_TILE, 0, s>>>(*a);
+      ptt_planned_kernel<<<grid, PTT_SPREAD_THREADS, 0, s>>>(*a);
     } else if (kind == 2) {
       ptt_streamed_kernel<<<grid, PTT_SPREAD_THREADS, 0, s>>>(*a);
     } else if (kind == 3) {

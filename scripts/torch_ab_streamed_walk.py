@@ -40,7 +40,7 @@ from project3_cuda_path_tracer_2025_tpu_torch.scene import (  # noqa: E402
 )
 from project3_cuda_path_tracer_2025_tpu_torch.utils import measure  # noqa: E402
 from torch_bench_kernels import (  # noqa: E402
-    SCENE_FILES, WALK_SCENES, WALKS, env_set, sorted_bounces, super_args, sweep_calls,
+    SCENE_FILES, WALK_SCENES, WALKS, chain_calls, env_set, sorted_bounces, super_args,
 )
 
 ENTRY = {"streamed": "ptt_streamed_kernel", "sweep": "ptt_sweep_kernel",
@@ -146,8 +146,8 @@ def main(argv=None) -> int:
                 calls = [(lambda: mxu.streamed_intersect(tables, ro, rd, live, tl, plan, eps),
                           live)]
             elif args.walk == "sweep":
-                calls = [(lambda a=a: mxu.sweep_intersect(*a), a[3]) for a in sweep_calls(
-                    mxu, tables, static.mxu_padded_tris, ro, rd, live, tl, eps)]
+                calls = [(lambda a=a: mxu.sweep_intersect(*a), a[3]) for _, a in chain_calls(
+                    mxu, "sweep", tables, static.mxu_padded_tris, ro, rd, live, tl, eps)]
             else:
                 a = super_args(mxu, stab, saabb, ro, rd, live, tl, eps)
                 calls = [(lambda: mxu.streamed_super_intersect(*a, saabb), live)]

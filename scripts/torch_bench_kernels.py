@@ -6,6 +6,7 @@ in turns: parent, change, change, parent).
     python scripts/torch_bench_kernels.py --root build/parent   # the package of
                                                                 # another checkout
     python scripts/torch_bench_kernels.py --walks sweep super   # two walks only
+    python scripts/torch_bench_kernels.py --walks lanebest planned  # the planned walks
     python scripts/torch_bench_kernels.py --device cpu --res 8 --scenes 80k \\
         --bounces 2                                             # plain versions, no times
 
@@ -24,11 +25,16 @@ One JSON line per measurement:
   the chunk's envelope masked, as ``mxu_traversal="sweep"`` calls it);
   "super" (#8, ``streamed_super_intersect``) on the 500k mesh, its tables
   built with ``PTT_STREAM_SUPER=1`` (padded to whole super-tiles) and its
-  plan over their super boxes;
+  plan over their super boxes; "lanebest" (#5,
+  ``planned_lanebest_intersect``) and "planned" (#6, ``planned_intersect``)
+  on the 20k mesh (one call, the full plan) and on the 80k mesh, one line
+  for each call of the planned chain of 3 that is that walk's (calls 0-1,
+  tiles 0-31 and 32-63: #6; call 2, tiles 64-78: #5), each call's plan
+  built against the running best, as ``mxu_traversal="planned"`` calls it;
 * ``frame``: the frame of each walk's path (``megakernel_iteration``):
-  "auto" (the default: #7 at 80k and 500k), "sweep" (20k, 80k) and "super"
-  (500k with ``PTT_STREAM_SUPER=1``): ms per frame and the sha256 of
-  iteration 1's film;
+  "auto" (the default: #5 at 20k, #7 at 80k and 500k), "sweep" (20k, 80k),
+  "super" (500k with ``PTT_STREAM_SUPER=1``) and "planned" (80k, the
+  chain): ms per frame and the sha256 of iteration 1's film;
 * ``scan``: one ``exclusive_scan`` of 640,000 int32 0/1 flags (a compacting
   bounce's shape, made from ``--seed``) against ``torch.cumsum(x, 0)`` of
   the same flags, and whether it is exact;
@@ -50,9 +56,12 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENE_FILES = {k: f"scenes/cornell_mesh_{k}.json" for k in ("20k", "80k", "500k")}
-WALKS = ("streamed", "sweep", "super")
+WALKS = ("streamed", "sweep", "super", "lanebest", "planned")
 # The scenes each walk is timed on.
-WALK_SCENES = {"streamed": ("80k", "500k"), "sweep": ("20k", "80k"), "super": ("500k",)}
+WALK_SCENES = {"streamed": ("80k", "500k"), "sweep": ("20k", "80k"), "super": ("500k",),
+               "lanebest": ("20k", "80k"), "planned": ("20k", "80k")}
+# The walk kernels by their names here (``ops/intersect_mxu.py::WALKS``).
+PLANNED_KINDS = {"lanebest": "planned_lanebest", "planned": "planned"}
 
 
 def sorted_bounces(dev, static, cam, cfg, device, bounces: int = 3) -> list:
@@ -90,29 +99,34 @@ def sorted_bounces(dev, static, cam, cfg, device, bounces: int = 3) -> list:
     return out
 
 
-def sweep_calls(mxu, tables, padded_tris, ro, rd, live, tl, baby_eps) -> list:
-    """The arguments of each call of the sweep as ``mxu_traversal="sweep"``
-    makes them (``ops/intersect_mxu.py::_chain`` without a plan; one call up
-    to 32 tiles): per chunk of 32 tiles its tables, the rays that enter its
-    envelope (k = 2) before the running best, and that best as t_limit.
-    Runs each call (the kernel on the card) to give the next its best."""
-    if padded_tris <= mxu.CHUNK_TRIS:
-        return [(tables, ro, rd, live, tl, baby_eps)]
-    per = mxu.CHUNK_TRIS // mxu.GROUP_TRIS
-    c = tables.center
-    os = type(ro)(ro.x - c[0], ro.y - c[1], ro.z - c[2])
-    inv = mxu._inv_dir(rd)
-    calls, best_t = [], tl
-    for g0 in range(0, padded_tris // mxu.GROUP_TRIS, per):
-        sub = mxu._chunk_tables(tables, g0, min(padded_tris // mxu.GROUP_TRIS, g0 + per))
-        lo = torch.min(sub.tile_aabb[:, 0:3], dim=0).values
-        hi = torch.max(sub.tile_aabb[:, 3:6], dim=0).values
-        ctlo, cthi = mxu._widen_slab(*mxu._slab(lo, hi, os, inv), k=2)
-        ok = (cthi >= ctlo) & (cthi > 0.0) & (ctlo < best_t)
-        args = (sub, ro, rd, live & ok, best_t, baby_eps)
-        calls.append(args)
-        t_c, tri_c = mxu.sweep_intersect(*args)
-        best_t = torch.where(tri_c >= 0, t_c, best_t)
+def chain_calls(mxu, mode, tables, padded_tris, ro, rd, live, tl, baby_eps) -> list:
+    """The walk calls that the traversal ``mxu_traversal=mode`` makes on these
+    rays (already in traversal order): [(kind, args)], kind a key of
+    ``WALKS`` or "sweep".  Read from the traversal itself, run once on the
+    card: its walk entry points are wrapped while it runs
+    (``ops/intersect_mxu.py::_traverse`` and ``_chain`` look them up at each
+    call), so each call's arguments are the chain's own (its chunk of 32
+    tiles, its plan, the running best as t_limit, the sweep's envelope
+    mask).  Works on any checkout's package."""
+    calls = []
+
+    def recorded(kind, fn):
+        def call(*args):
+            calls.append((kind, args))
+            return fn(*args)
+        call.launches = fn.launches
+        return call
+
+    walks, sweep = dict(mxu.WALKS), mxu.sweep_intersect
+    try:
+        mxu.WALKS.update({k: recorded(k, fn) for k, fn in walks.items()})
+        mxu.sweep_intersect = recorded("sweep", sweep)
+        mxu.mesh_intersect_mxu(tables, padded_tris, padded_tris, ro, rd, live, tl, baby_eps,
+                               compute_uv=False, **mxu.traversal_flags(mode, padded_tris))
+    finally:
+        mxu.WALKS.update(walks)
+        # sweep_intersect counts its launches on the module's name, the wrapper's while it ran
+        sweep.launches, mxu.sweep_intersect = mxu.sweep_intersect.launches, sweep
     return calls
 
 
@@ -161,7 +175,7 @@ def run(argv=None) -> list:
     ap.add_argument("--res", type=int, default=800, help="film width and height")
     ap.add_argument("--scenes", nargs="+", default=list(SCENE_FILES), choices=list(SCENE_FILES))
     ap.add_argument("--walks", nargs="+", default=list(WALKS), choices=WALKS,
-                    help="the walks timed, each on its scenes (default: all three)")
+                    help="the walks timed, each on its scenes (default: all five)")
     ap.add_argument("--bounces", type=int, default=None,
                     help="sorted bounces a mesh (default: the scene's depth)")
     ap.add_argument("--k", type=int, default=10, help="launches per sample")
@@ -235,6 +249,7 @@ def run(argv=None) -> list:
         walks = [w for w in args.walks if name in WALK_SCENES[w]]
         if not walks:
             continue
+        planned = [w for w in walks if w in PLANNED_KINDS]
         scene = scene_at(SCENE_FILES[name])
         dev, static = build_device_scene(scene, device)
         cam = camera_state(derive_render_camera(scene.state.camera))
@@ -254,16 +269,32 @@ def run(argv=None) -> list:
                 time_walk(name, "streamed", d, live,
                           lambda: mxu.streamed_intersect(tables, ro, rd, live, tl, plan, eps))
             if "sweep" in walks:
-                calls = sweep_calls(mxu, tables, static.mxu_padded_tris, ro, rd, live, tl, eps)
-                for i, a in enumerate(calls):
+                calls = chain_calls(mxu, "sweep", tables, static.mxu_padded_tris, ro, rd, live,
+                                    tl, eps)
+                for i, (_, a) in enumerate(calls):
                     time_walk(name, "sweep", d, a[3], lambda a=a: mxu.sweep_intersect(*a),
                               call=i, tiles=a[0].tile_aabb.shape[0])
             if "super" in walks:
                 a = super_args(mxu, sdev.mxu_mesh, saabb, ro, rd, live, tl, eps)
                 time_walk(name, "super", d, live,
                           lambda: mxu.streamed_super_intersect(*a, saabb))
+            if planned and name == "20k":
+                plan = mxu.plan_with_prefix(tables.tile_aabb,
+                                            *mxu.plan_rays(tables, ro, rd, live, tl))
+                for w in planned:
+                    fn = mxu.WALKS[PLANNED_KINDS[w]]
+                    time_walk(name, w, d, live,
+                              lambda fn=fn: fn(tables, ro, rd, live, tl, plan, eps))
+            elif planned:
+                calls = chain_calls(mxu, "planned", tables, static.mxu_padded_tris, ro, rd,
+                                    live, tl, eps)
+                for i, (kind, a) in enumerate(calls):
+                    w = next(k for k, v in PLANNED_KINDS.items() if v == kind)
+                    if w in planned:
+                        time_walk(name, w, d, live, lambda a=a, kind=kind: mxu.WALKS[kind](*a),
+                                  call=i, tiles=a[0].tile_aabb.shape[0])
         del states
-        if "streamed" in walks:
+        if "streamed" in walks or (name == "20k" and planned):
             time_frame(name, "auto", frame_of(dev, static, cam, cfg))
         if "sweep" in walks:
             time_frame(name, "sweep",
@@ -271,6 +302,9 @@ def run(argv=None) -> list:
         if "super" in walks:
             time_frame(name, "super", frame_of(sdev, sstatic, cam, cfg), PTT_STREAM_SUPER="1")
             del sdev
+        if planned and name == "80k":
+            time_frame(name, "planned",
+                       frame_of(dev, static, cam, RenderConfig(mxu_traversal="planned")))
 
     x = torch.from_numpy(
         (np.random.default_rng(args.seed).random(args.scan_n) > 0.5).astype(np.int32)).to(device)

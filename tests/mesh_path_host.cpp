@@ -77,10 +77,11 @@ void ptt_host_mesh_shade(const PttScene* s, const float* const* in_f, const int3
   }
 }
 
-// ptt_planned_lanebest_kernel (exit 0) and ptt_planned_kernel (exit 1), and
-// the per-ray schedule ptt_streamed_kernel had before its block schedule
-// (exit 1): each block of 256 rays walks its plan row; with exit,
-// __syncthreads_or becomes the loop over the block's rays.
+// The per-ray schedule of the planned walks, without (exit 0) and with
+// (exit 1) the early exit, which the planned and streamed kernels had
+// before their block schedule: each block of 256 rays walks its plan row,
+// one thread a ray; with exit, the block's vote becomes the loop over its
+// rays.  The reference the block schedules are held to.
 void ptt_host_walk(const float* coef, const float* aabb, int32_t ct, const float* center,
                    const float* const* ray, const uint8_t* live, const float* tlim,
                    const int32_t* ids, const float* tlo, const int32_t* cnt, int32_t exit_,
@@ -114,8 +115,9 @@ void ptt_host_walk(const float* coef, const float* aabb, int32_t ct, const float
   }
 }
 
-// The block schedule of ptt_streamed_kernel, ptt_streamed_super_kernel and
-// ptt_sweep_kernel, one block at a time: its 256 rays and their keys.
+// The block schedule of ptt_planned_lanebest_kernel, ptt_planned_kernel,
+// ptt_streamed_kernel, ptt_streamed_super_kernel and ptt_sweep_kernel, one
+// block at a time: its 256 rays and their keys.
 struct HostBlock {
   std::vector<WalkRay> r = std::vector<WalkRay>(PTT_RAY_TILE);
   std::vector<uint64_t> key = std::vector<uint64_t>(PTT_RAY_TILE);
@@ -186,18 +188,20 @@ static void host_block_out(const HostBlock& hb, int32_t b, int32_t n, float* out
   }
 }
 
-// ptt_streamed_kernel: per plan entry the exit vote, then the entry's tile.
+// ptt_streamed_kernel and ptt_planned_kernel (exit 1: per plan entry the
+// exit vote, then the entry's tile) and ptt_planned_lanebest_kernel (exit
+// 0: every entry's tile, no vote).
 void ptt_host_streamed_block(const float* coef, const float* aabb, int32_t ct,
                              const float* center, const float* const* ray, const uint8_t* live,
                              const float* tlim, const int32_t* ids, const float* tlo,
-                             const int32_t* cnt, float baby_eps, float eps_succ, int32_t n,
-                             float* out_t, int32_t* out_tri) {
+                             const int32_t* cnt, int32_t exit_, float baby_eps, float eps_succ,
+                             int32_t n, float* out_t, int32_t* out_tri) {
   const V3 c = v3(center[0], center[1], center[2]);
   HostBlock hb;
   for (int32_t b = 0; b < (n + PTT_RAY_TILE - 1) / PTT_RAY_TILE; ++b) {
     host_block_rays(hb, b, c, ray, live, tlim, n);
     for (int32_t t = 0; t < cnt[b]; ++t) {
-      if (!host_block_goes_on(hb, tlo[b * ct + t])) break;
+      if (exit_ && !host_block_goes_on(hb, tlo[b * ct + t])) break;
       const int32_t tile = ids[b * ct + t];
       host_spread_entry(hb, coef, aabb + 8 * tile, tile, nullptr, baby_eps, eps_succ);
     }

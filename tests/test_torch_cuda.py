@@ -360,6 +360,55 @@ def test_sweep_and_super_kernels_ties_and_limit(cuda, kind):
         tl = torch.where(even & (hit_tri >= 0), hit_t, tl)
 
 
+@pytest.mark.parametrize("n", [2048, 1000])
+@pytest.mark.parametrize("kind", ["planned_lanebest", "planned"])
+def test_planned_kernels_ties_limit_and_empty_rows(cuda, kind, n):
+    """The planned walks' block schedule on the two-tile tie mesh with n
+    rays (1000: the last block holds 232), then with every other hit ray's
+    t_limit moved onto its hit, then with the second block's rays dead (its
+    plan row empty, as a chain call leaves the rows of blocks that cannot
+    improve): t and tri bit-equal to walk_plain, ties to the lower copy, a
+    hit at exactly t_limit left at (t_limit, -1), an empty row's rays at
+    (t_limit, -1)."""
+    from torch_fixtures import TIE_TRIS, tie_mesh
+
+    pos, o, d, lim = tie_mesh(np.random.default_rng(60), n)
+    nrm = np.zeros_like(pos)
+    nrm[:] = [0.0, 0.0, 1.0]
+    t3 = lambda a: np.zeros(a, np.float32)
+    tables = intersect_mxu.build_mxu_tables(pos, nrm, t3((2048, 3, 2)), t3((2048, 3)),
+                                            t3((2048, 3)), np.zeros(2048, np.int32), cuda)
+    col = lambda a: Vec3(*(torch.from_numpy(np.ascontiguousarray(a[:, i])).to(cuda)
+                           for i in range(3)))
+    ro, rd = col(o), col(d)
+    tl = torch.from_numpy(lim).to(cuda)
+    fn = intersect_mxu.WALKS[kind]
+    ray = torch.arange(n, device=cuda)
+    even, second = ray % 2 == 0, ray // intersect_mxu.RAY_TILE == 1
+    for step in ("as made", "moved", "empty row"):
+        live = intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+        if step == "empty row":
+            live = live & ~second
+        plan = _plan(tables, ro, rd, live, tl)
+        args = (tables, ro, rd, live, tl, plan, 1e-5)
+        before = fn.launches
+        got = fn(*args)
+        want = intersect_mxu.walk_plain(*args)
+        assert fn.launches == before + 1
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]), step
+        assert set(got[1][got[1] >= 0].tolist()) == {TIE_TRIS[0]}
+        if step == "as made":
+            hit_tri, hit_t = got[1], got[0]
+            tl = torch.where(even & (hit_tri >= 0), hit_t, tl)
+        elif step == "moved":
+            at = even & (hit_tri >= 0)
+            assert int(at.sum()) > 50
+            assert torch.equal(got[0][at], tl[at]) and (got[1][at] == -1).all()
+        else:
+            assert int(plan.cnt[1]) == 0
+            assert torch.equal(got[0][second], tl[second]) and (got[1][second] == -1).all()
+
+
 def test_binned_kernel_matches_plain(cuda):
     """Pair by pair on the 20k mesh's sorted camera rays, the bins built
     over the whole ray range."""

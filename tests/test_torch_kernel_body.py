@@ -429,10 +429,7 @@ def walk_lib(mesh_lib):
         [P, P, ctypes.c_int32, P, P, P, P, P, P, P, ctypes.c_int32, ctypes.c_float,
          ctypes.c_float, ctypes.c_int32, P, P]
     )
-    mesh_lib.ptt_host_streamed_block.argtypes = (
-        [P, P, ctypes.c_int32, P, P, P, P, P, P, P, ctypes.c_float, ctypes.c_float,
-         ctypes.c_int32, P, P]
-    )
+    mesh_lib.ptt_host_streamed_block.argtypes = mesh_lib.ptt_host_walk.argtypes
     mesh_lib.ptt_host_binned.argtypes = (
         [P] * 8 + [ctypes.c_int32] * 3 + [ctypes.c_float] * 2 + [P, P]
     )
@@ -551,10 +548,38 @@ def test_host_streamed_block_schedule_matches_plain(walk_lib, spread_libs, name,
     spread_libs[threads].ptt_host_streamed_block(
         tables.coef.data_ptr(), tables.tile_aabb.data_ptr(), tables.tile_aabb.shape[0],
         tables.center.data_ptr(), _ptrs(rays), lv.data_ptr(), tlc.data_ptr(),
-        plan.ids.data_ptr(), plan.tlo.data_ptr(), plan.cnt.data_ptr(), *_eps_args(), n,
+        plan.ids.data_ptr(), plan.tlo.data_ptr(), plan.cnt.data_ptr(), 1, *_eps_args(), n,
         got_t.data_ptr(), got_tri.data_ptr())
     assert torch.equal(got_tri, want_tri) and torch.equal(got_t, want_t)
     per_ray = _host_walk(walk_lib, tables, ro, rd, live, tl, plan, 1)
+    assert torch.equal(got_tri, per_ray[1]) and torch.equal(got_t, per_ray[0])
+    _check_limit_and_tie(name, got_t, got_tri, tl, live, want_tri)
+
+
+@pytest.mark.parametrize("exit_", [0, 1])
+@pytest.mark.parametrize("threads", [256, 512, 1024])
+@pytest.mark.parametrize("name", ["20k", "tie", "limit"])
+def test_host_planned_block_schedule_matches_plain(walk_lib, spread_libs, name, threads,
+                                                   exit_):
+    """The block schedule of ptt_planned_lanebest_kernel (exit 0: every plan
+    entry, no vote) and ptt_planned_kernel (exit 1: #7's exit vote; the
+    kernels differ from #7 only in where the tile boxes are read), at three
+    block widths: t and tri equal to walk_plain's and to the per-ray walk's
+    without and with the exit, ties to the lower copy, a hit at exactly
+    t_limit left at (t_limit, -1)."""
+    tables, ro, rd, live, tl, plan = _streamed_case(name)
+    n = ro.x.shape[0]
+    want_t, want_tri = intersect_mxu.walk_plain(tables, ro, rd, live, tl, plan, 1e-5)
+    got_t, got_tri = torch.empty(n), torch.empty(n, dtype=torch.int32)
+    rays = [p.contiguous() for p in (*ro, *rd)]
+    lv, tlc = live.to(torch.uint8).contiguous(), tl.contiguous()
+    spread_libs[threads].ptt_host_streamed_block(
+        tables.coef.data_ptr(), tables.tile_aabb.data_ptr(), tables.tile_aabb.shape[0],
+        tables.center.data_ptr(), _ptrs(rays), lv.data_ptr(), tlc.data_ptr(),
+        plan.ids.data_ptr(), plan.tlo.data_ptr(), plan.cnt.data_ptr(), exit_, *_eps_args(), n,
+        got_t.data_ptr(), got_tri.data_ptr())
+    assert torch.equal(got_tri, want_tri) and torch.equal(got_t, want_t)
+    per_ray = _host_walk(walk_lib, tables, ro, rd, live, tl, plan, exit_)
     assert torch.equal(got_tri, per_ray[1]) and torch.equal(got_t, per_ray[0])
     _check_limit_and_tie(name, got_t, got_tri, tl, live, want_tri)
 

@@ -176,3 +176,86 @@ def test_chip_smoke_parses_phase_lists():
     numbered = sorted(p for g in smoke.GROUPS for p in g[1])
     assert numbered == [3, 4, 5, 6, 7, 8] + list(range(10, 23))
     assert {g[3] for g in smoke.GROUPS if g[3]} <= {g[0] for g in smoke.GROUPS}
+
+
+def test_bench_kernels_planned_calls_are_the_chain():
+    """``chain_calls`` (the A/B script's, also used by ``chip_smoke.py``
+    phases 16 and 17) reads the calls of the 80k planned chain from the
+    traversal ``mxu_traversal="planned"`` runs: #6 on the two 32-tile
+    chunks, #5 on the last 15 tiles, each call's t_limit the running best;
+    folded as the chain folds them, the calls give the traversal's (t, tri)
+    on each sorted bounce at 32x32, and the walk entry points are the
+    package's again afterwards."""
+    import torch
+
+    from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import (
+        build_device_scene, camera_state, derive_render_camera, load_scene, set_resolution,
+    )
+
+    bench = _load("torch_bench_kernels")
+    scene = set_resolution(load_scene(str(REPO / "scenes" / "cornell_mesh_80k.json")), 32, 32)
+    dev, static = build_device_scene(scene, "cpu")
+    cam = camera_state(derive_render_camera(scene.state.camera))
+    cfg, tables = RenderConfig(), dev.mxu_mesh
+    hits = 0
+    for paths, tl, live in bench.sorted_bounces(dev, static, cam, cfg, "cpu", 2):
+        ro, rd = paths.origin, paths.direction
+        calls = bench.chain_calls(mxu, "planned", tables, static.mxu_padded_tris, ro, rd, live,
+                                  tl, 1e-5)
+        assert mxu.WALKS["planned"] is mxu.planned_intersect
+        assert mxu.WALKS["planned_lanebest"] is mxu.planned_lanebest_intersect
+        assert [(k, a[0].tile_aabb.shape[0]) for k, a in calls] == [
+            ("planned", 32), ("planned", 32), ("planned_lanebest", 15)]
+        best_t, best_tri = tl, torch.full_like(paths.bounces, -1)
+        for i, (kind, a) in enumerate(calls):
+            assert torch.equal(a[4], best_t)
+            t_c, tri_c = mxu.WALKS[kind](*a)
+            better = tri_c >= 0
+            best_t = torch.where(better, t_c, best_t)
+            best_tri = torch.where(better, tri_c + i * mxu.CHUNK_TRIS, best_tri)
+        want = mxu.mesh_intersect_mxu(
+            tables, static.num_triangles, static.mxu_padded_tris, ro, rd, paths.alive, tl,
+            cfg.baby_epsilon, compute_uv=False,
+            **mxu.traversal_flags("planned", static.mxu_padded_tris))
+        best_tri = torch.where(best_tri >= static.num_triangles, -1, best_tri)
+        assert torch.equal(best_t, want.t) and torch.equal(best_tri, want.tri)
+        hits += int((best_tri >= 0).sum())
+    assert hits > 20
+
+
+def test_chip_smoke_walk_bound_counts_the_pairs_the_result_needs():
+    """``chip_smoke.py``'s bound of a planned walk counts the (ray, tile)
+    pairs whose slab entry is no farther than the ray's final hit: the
+    same pairs as the sweep's bound over every tile (the plan lists every
+    tile a ray of its block enters), fewer than the plan's member pairs,
+    on each sorted 20k bounce at 32x32."""
+    import torch
+
+    from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import (
+        build_device_scene, camera_state, derive_render_camera, load_scene, set_resolution,
+    )
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    bench = _load("torch_bench_kernels")
+    scene = set_resolution(load_scene(str(REPO / "scenes" / "cornell_mesh_20k.json")), 32, 32)
+    dev, static = build_device_scene(scene, "cpu")
+    cam = camera_state(derive_render_camera(scene.state.camera))
+    tables = dev.mxu_mesh
+    every = torch.ones((-(-static.pixel_count // mxu.RAY_TILE), tables.tile_aabb.shape[0]),
+                       dtype=torch.bool)
+    gated = listed = 0
+    for st in bench.sorted_bounces(dev, static, cam, RenderConfig(), "cpu", 2):
+        args = smoke.walk_args(tables, *st)
+        hit_t = mxu.planned_lanebest_intersect(*args)[0]
+        walk = smoke.walk_bound(args, hit_t)
+        sweep = smoke.visit_bound(*args[:5], every, 0, gate_t=hit_t)
+        member = smoke.visit_bound(*args[:5], mxu._plan_visits(args[5], every.shape[1]), 0)
+        assert walk[2] == sweep[2] and walk[0] > 0.0
+        gated, listed = gated + walk[2], listed + member[2]
+    assert 0 < gated < listed
