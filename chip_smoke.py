@@ -58,7 +58,7 @@ sys.path.insert(0, str(ROOT / "scripts"))
 # script's, so that its numbers and this script's describe the same rays
 # and films.
 from torch_bench_kernels import (  # noqa: E402
-    chain_calls, env_set, sha, sorted_bounces, super_args,
+    binned_args, chain_calls, env_set, sha, sorted_bounces, super_args,
 )
 
 PKG = "project3_cuda_path_tracer_2025_tpu_torch"
@@ -237,6 +237,7 @@ def mesh_phases(device, smi: str) -> tuple:
         prng.uniforms_at(prng.stage_key(ik, 0, 0), idx, 4, n))
     log(f"[8] mesh path: {MESH_SCENE.name}, {static.width}x{static.height} depth {depth}, "
         f"{static.num_triangles} triangles in {ct} tiles")
+    cam_paths = paths
 
     # -- 8a/8b. both kernels against their plain versions, on the camera rays
     #    and two bounces, in the main path's (sorted) order ----------------
@@ -384,30 +385,38 @@ def mesh_phases(device, smi: str) -> tuple:
             f"({paths_t[k][1]} calls/sample, {rounds[k]} samples)")
 
     # Bounds at the timed shapes (bounce 0 of the main path, sorted).
-    tabs, _, ro, rd, active, tl, _ = mono_case
-    act = active & intersect_mxu.root_hit_mask(tabs.tile_aabb, tabs.center, *ro, *rd, tl)
-    osv = type(ro)(ro.x - tabs.center[0], ro.y - tabs.center[1], ro.z - tabs.center[2])
-    inv = intersect_mxu._inv_dir(rd)
-    hit_t = intersect_mxu.mono_intersect(*mono_case)[0]  # the pairs past the hit are not needed
-    pairs = 0
-    for row in tabs.tile_aabb.tolist():
-        member, s_tlo, _ = intersect_mxu._member_slab(row, osv, inv, tl)
-        pairs += int((member & act & (s_tlo <= hit_t)).sum())
-    mono_bound = bound_ms(
-        n * (6 * 4 + 1 + 4 + 8) + tabs.coef.numel() * 4 + tabs.tile_aabb.numel() * 4,
-        n * OPS_MONO_RAY + int(act.sum()) * ct * OPS_MONO_TILE
-        + pairs * intersect_mxu.TRI_TILE * OPS_MONO_PAIR,
-    )
+    mono_b = mono_bound(mono_case)
+    act, pairs = mono_b[3], mono_b[2]
     live = int(shade_case[2].alive.sum())
     shade_bound = bound_ms(
         n * (16 + 12) * 4,  # 16 planes in, 12 out
         live * (prim_ops(prim_static) + OPS_MERGE + OPS_SCATTER)
         + n * (prim_ops(prim_static) + OPS_KEY_RAY + ct * OPS_KEY_TILE),
     )
-    log(f"    bounds: mono kernel {mono_bound[0]:.4f} ms ({mono_bound[1]}; {pairs} (ray, tile) "
+    log(f"    bounds: mono kernel {mono_b[0]:.4f} ms ({mono_b[1]}; {pairs} (ray, tile) "
         f"pairs whose entry is no farther than the ray's hit, of {int(act.sum())} root-hitting "
         f"rays), mesh-shade kernel "
         f"{shade_bound[0]:.4f} ms ({shade_bound[1]}; {live} live rays)")
+
+    # The mono kernel on each of the frame's eight sorted bounces (the A/B
+    # script's states), checked against its plain version and timed with its
+    # bound; then on the unsorted camera rays.
+    for d, (p, tl_d, live_d) in enumerate(sorted_bounces(dev, static, cam, cfg, device,
+                                                         bounces=depth)):
+        a = (tables, static.num_triangles, p.origin, p.direction, p.alive, tl_d,
+             cfg.baby_epsilon)
+        tri_bad, t_bad, _ = bit_diff(intersect_mxu.mono_intersect(*a),
+                                     intersect_mxu.mono_intersect_plain(*a))
+        if tri_bad or t_bad:
+            raise AssertionError(f"the mono kernel disagrees with its plain version, bounce {d}")
+        launch("8e", f"mono_intersect sorted bounce {d}",
+               lambda a=a: intersect_mxu.mono_intersect(*a), 20, mono_bound(a), live_d, smi)
+    tl_u = prim_t_min(static, cfg, cam_paths.origin, cam_paths.direction)
+    a = (tables, static.num_triangles, cam_paths.origin, cam_paths.direction, cam_paths.alive,
+         tl_u, cfg.baby_epsilon)
+    bu = mono_bound(a)
+    launch("8e", "mono_intersect unsorted bounce 0", lambda: intersect_mxu.mono_intersect(*a), 20,
+           bu, bu[3], smi)
 
     profiled = {
         "mesh kernel path, sorted": paths_t["mesh kernel path, sorted"][0],
@@ -417,14 +426,14 @@ def mesh_phases(device, smi: str) -> tuple:
         {
             "name": "mono_intersect",
             "route": "cuda",
-            "source": f"{PKG}/csrc/fused_mesh.cu",
+            "source": f"{PKG}/csrc/mesh_walk.cu",
             "replaces": "project3_cuda_path_tracer_2025_tpu/ops/intersect_mxu.py:1423",
             "launches": launches["mono_intersect"],
             "max_abs_err": mono_err,
             "ms": ms["mono kernel (1 bounce)"],
             "plain_ms": ms["plain mono (1 bounce)"],
-            "bound_ms": mono_bound[0],
-            "bound_by": mono_bound[1],
+            "bound_ms": mono_b[0],
+            "bound_by": mono_b[1],
             "library_ms": None,
         },
         {
@@ -486,27 +495,30 @@ def walk_args(tables, paths, tl, live, blocks: int = None) -> tuple:
     return tables, ro, rd, live, tl, plan, 1e-5
 
 
-def binned_args(tables, paths, tl, live, tiers) -> "tuple | None":
-    """The binned kernel's arguments for one state at the tier the
-    traversal engages (None: no tier holds the live rays, or the bins
-    overflow, and the traversal walks the streamed plan instead), and the
-    bins."""
+def mono_bound(args) -> tuple:
+    """Bound of one mono launch: the rays and the tables read once, (t,
+    tri) written; the features and root cull of every ray, the member slab
+    of every tile for each root-hitting ray, and 1,024 triangles for each
+    (ray, tile) pair whose slab entry is no farther than the ray's hit (the
+    kernel's own result).  Returns (ms, bound_by, pairs, root-hitting rays
+    mask)."""
     from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
 
-    ro, rd = paths.origin, paths.direction
-    pr = mxu.plan_rays(tables, ro, rd, live, tl)
-    n_pad = pr.tl.shape[0]
-    live_pos = mxu.live_position(pr.live)
-    npre = next((p for p in mxu.binned_prefixes(n_pad, tiers) if live_pos < p), None)
-    if npre is None:
-        return None
-    cut = lambda v: type(v)(*(x[:npre] for x in v))
-    budget = mxu.pair_budget(max(npre, ro.x.shape[0] // 4), tables.tile_aabb.shape[0])
-    bins = mxu.packet_bins(tables.tile_aabb, cut(pr.os), cut(pr.d), pr.live[:npre],
-                           pr.tl[:npre], budget, mxu.BINNED_TOPK)
-    if bool(bins.overflow):
-        return None
-    return (tables, ro, rd, live, tl, bins.vt, bins.src, npre // mxu.BINNED_G, 1e-5), bins
+    tabs, _, ro, rd, active, tl, _ = args
+    n, ct = ro.x.shape[0], tabs.tile_aabb.shape[0]
+    act = active & mxu.root_hit_mask(tabs.tile_aabb, tabs.center, *ro, *rd, tl)
+    osv = type(ro)(ro.x - tabs.center[0], ro.y - tabs.center[1], ro.z - tabs.center[2])
+    inv = mxu._inv_dir(rd)
+    hit_t = mxu.mono_intersect(*args)[0]  # the pairs past the hit are not needed
+    pairs = 0
+    for row in tabs.tile_aabb.tolist():
+        member, s_tlo, _ = mxu._member_slab(row, osv, inv, tl)
+        pairs += int((member & act & (s_tlo <= hit_t)).sum())
+    return bound_ms(
+        n * (6 * 4 + 1 + 4 + 8) + tabs.coef.numel() * 4 + tabs.tile_aabb.numel() * 4,
+        n * OPS_MONO_RAY + int(act.sum()) * ct * OPS_MONO_TILE
+        + pairs * mxu.TRI_TILE * OPS_MONO_PAIR,
+    ) + (pairs, act)
 
 
 def walk_bound(args, gate_t) -> tuple:
@@ -526,7 +538,8 @@ def walk_bound(args, gate_t) -> tuple:
 def binned_bound(args) -> tuple:
     """Bound of one binned launch: the rays, the bins and the visited
     tiles' rows read once, the pair rows written; a member test per live
-    pair row and the candidate pairs x 1,024 triangles."""
+    pair row and the candidate pairs x 1,024 triangles.  Returns (ms,
+    bound_by, member pair rows, (live pair rows, all pair rows))."""
     from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
 
     tables, ro, rd, live, tl, vt, src, n_g, _ = args
@@ -546,7 +559,7 @@ def binned_bound(args) -> tuple:
     nbytes = n * (6 * 4 + 1 + 4) + vt.numel() * 4 + src.numel() * 4 \
         + tiles * mxu.TRI_TILE * mxu.COEF_W * 4 + vt.numel() * mxu.RAY_TILE * 8
     ops = int(ok.sum()) * (OPS_WALK_RAY + OPS_MONO_TILE) + pairs * mxu.TRI_TILE * OPS_MONO_PAIR
-    return bound_ms(nbytes, ops) + (pairs,)
+    return bound_ms(nbytes, ops) + (pairs, (int(ok.sum()), vt.numel() * mxu.RAY_TILE))
 
 
 def traversals_agree(tag, tables, static, states, modes) -> None:
@@ -682,8 +695,8 @@ def larger_mesh_phases(device, smi: str) -> tuple:
     """Phases 10-12: the planned (cornell_mesh_20k.json), streamed
     (cornell_mesh_80k.json, the slice's main path, and cornell_mesh_500k.json)
     and binned (cornell_mesh_200k.json) traversals at 800x800, depth 8.
-    Returns the four walk kernels' entries of the kernels line and the 80k
-    frame for phase 9."""
+    Returns the four walk kernels' entries of the kernels line and the 20k,
+    80k and 200k frames for phase 9."""
     from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
     from project3_cuda_path_tracer_2025_tpu_torch.models import megakernel_iteration
     from project3_cuda_path_tracer_2025_tpu_torch.ops import film as film_ops
@@ -893,10 +906,11 @@ def larger_mesh_phases(device, smi: str) -> tuple:
     log("[12] packet-binned traversal (#10, the streamed walk as its fallback):")
     scene, dev, static, cam = setup("200k")
     tables, n, depth = dev.mxu_mesh, static.pixel_count, static.trace_depth
-    states = STATES["200k"] = sorted_bounces(dev, static, cam, cfg, device)
+    # All eight sorted bounces for 12a; phases 12b, 12c and 17 take three.
+    states = sorted_bounces(dev, static, cam, cfg, device, bounces=depth)
     engaged, b_case = 0, None
     for d, (paths, tl, live) in enumerate(states):
-        found = binned_args(tables, paths, tl, live, cfg.mxu_binned_tiers)
+        found = binned_args(mxu, tables, paths, tl, live, cfg.mxu_binned_tiers)
         if found is None:
             log(f"[12a] bounce {d}: no binned tier engages (the streamed walk runs)")
             continue
@@ -911,10 +925,18 @@ def larger_mesh_phases(device, smi: str) -> tuple:
         if tri_bad or t_bad:
             raise AssertionError("binned_intersect disagrees with its plain version")
         err["binned_intersect"] = max(err["binned_intersect"], e)
+        bound = binned_bound(args)
+        (ok_rows, rows), members = bound[3], bound[2]
+        log(f"[12a] bounce {d}: pair rows {rows}: {members} members of their visit's tile, "
+            f"{ok_rows - members} live non-members, {rows - ok_rows} dead, empty slots or "
+            "empty visits")
+        launch("12a", f"binned_intersect bounce {d}", lambda a=args: mxu.binned_intersect(*a),
+               10, bound, args[3], smi)
         engaged += 1
         b_case = b_case or args
     if not engaged:
         raise AssertionError("no bounce of the 200k frame engaged the binned traversal")
+    states = STATES["200k"] = states[:3]
     check_walks("12b", ("streamed",), states, tables, blocks=PLAIN_BLOCKS)
     traversals_agree("12c", tables, static, states, ("binned", "streamed"))
     r, got = drive(scene, 2, counters)
@@ -924,6 +946,7 @@ def larger_mesh_phases(device, smi: str) -> tuple:
         raise AssertionError("the 200k Renderer did not take binned (+ streamed) per bounce")
     main_launches["binned_intersect"] = got["binned_intersect"]
     frame200 = frame_fn(dev, static, cam, cfg, base_key, device)
+    profiled["200k mesh, 'auto' (the binned visits #10)"] = frame200
     _, alive200 = frame200()
     paths_t = {
         "binned_intersect (1 bounce)": (lambda: mxu.binned_intersect(*b_case), 10),

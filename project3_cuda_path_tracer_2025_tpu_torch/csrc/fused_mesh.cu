@@ -1,10 +1,5 @@
-// Hand-written Hopper (sm_90a) kernels of a mesh scene's bounce.
+// Hand-written Hopper (sm_90a) kernel of a mesh scene's bounce.
 //
-// ptt_mono_kernel replaces the TPU kernel
-//   project3_cuda_path_tracer_2025_tpu/ops/intersect_mxu.py::_mono_kernel
-//   (launched by _run.run_mono): the closest (t, tri) of every ray over a
-//   mesh of at most 8 tiles of 1,024 triangles, under the candidate
-//   contract (per-ray member windows, ties to the lowest triangle id).
 // ptt_mesh_shade_kernel replaces
 //   project3_cuda_path_tracer_2025_tpu/ops/fused.py::_mesh_bounce_kernel
 //   in its three modes (launched by _fused_mesh_shade): analytic-prim
@@ -14,25 +9,16 @@
 //   (texture and bump resolved in torch before the launch); mode
 //   "precomputed" takes every lane's resolved surface and skips the prim
 //   intersection (a scene with a textured prim).
+// The bounce's traversal kernels (the mono walk of meshes of at most 8
+// tiles among them) are in mesh_walk.cu.
 //
-// What bounds them on the H100.  The traversal is bound by operations: per
-// candidate (ray, triangle) pair it loads one 80-byte coefficient row
-// (the same row for every ray of a warp, so one broadcast transaction from
-// L1/L2; the 5k mesh's 410 KB of rows sits in the 50 MB L2) and does 19
-// fused multiply-adds, a division and ~12 compares, against 44 bytes of
-// ray state per ray.  The TPU kernel ran the numerators as a
-// [256,16]x[16,4096] matmul on the matrix unit; here one thread owns one
-// ray and walks the tiles it is a candidate for, skipping the others (the
-// contract allows any visit set that covers the candidates).  Tensor cores
-// would need the numerators in TF32 or a split-float scheme to stay exact;
-// staging tiles in shared memory and warp-cooperative culling are for a
-// later performance PR.  The shade kernel is bound by arithmetic, like the
-// prim bounce kernel: ~76 B per ray in and out against a few thousand flops
-// (prim intersect, BSDF, 3 x 20 Threefry rounds, prim t and the key).
+// What bounds it on the H100: arithmetic, like the prim bounce kernel: ~76
+// B per ray in and out against a few thousand flops (prim intersect, BSDF,
+// 3 x 20 Threefry rounds, prim t and the key).  One thread a ray.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC (ops/kernels.py).  Plain C interface, loaded with
-// ctypes; each launcher returns cudaGetLastError().
+// ctypes; the launcher returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -41,20 +27,6 @@
 #include "mesh_path.cuh"
 
 #define PTT_THREADS 256
-
-struct PttMonoArgs {
-  const float* ray[6];       // origin xyz, direction xyz
-  const uint8_t* active;     // bool
-  const float* tlim;
-  const float* coef;         // [ct * 1024, 20]
-  const float* tile_aabb;    // [ct, 8]
-  const float* center;       // [3]
-  float* out_t;
-  int32_t* out_tri;
-  float baby_eps;
-  float eps_succ;            // nextafter(baby_eps, +inf)
-  int32_t n, ct, num_tris, pad;
-};
 
 struct PttMeshShadeArgs {
   const PttScene* scene;     // prims only
@@ -77,24 +49,6 @@ struct PttMeshShadeArgs {
   int32_t num_geoms, num_materials;  // the scene's counts, for the launcher
   int32_t pad;
 };
-
-__global__ void __launch_bounds__(PTT_THREADS) ptt_mono_kernel(const PttMonoArgs a) {
-  __shared__ float sh_aabb[PTT_MONO_MAX_TILES * 8];
-  __shared__ float sh_center[3];
-  for (int i = threadIdx.x; i < a.ct * 8; i += blockDim.x) sh_aabb[i] = a.tile_aabb[i];
-  if (threadIdx.x < 3) sh_center[threadIdx.x] = a.center[threadIdx.x];
-  __syncthreads();
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= a.n) return;
-  const V3 o = v3(a.ray[0][idx], a.ray[1][idx], a.ray[2][idx]);
-  const V3 d = v3(a.ray[3][idx], a.ray[4][idx], a.ray[5][idx]);
-  float t;
-  int32_t tri;
-  mono_ray(a.coef, sh_aabb, a.ct, v3(sh_center[0], sh_center[1], sh_center[2]), o, d,
-           a.active[idx] != 0, a.tlim[idx], a.num_tris, a.baby_eps, a.eps_succ, &t, &tri);
-  a.out_t[idx] = t;
-  a.out_tri[idx] = tri;
-}
 
 extern __shared__ __align__(16) unsigned char ptt_smem[];
 
@@ -153,9 +107,6 @@ extern "C" {
 int ptt_mesh_abi(int32_t* out, int32_t len) {
   const int32_t v[] = {
       (int32_t)sizeof(PttScene),
-      (int32_t)sizeof(PttMonoArgs),
-      (int32_t)offsetof(PttMonoArgs, baby_eps),
-      (int32_t)offsetof(PttMonoArgs, n),
       (int32_t)sizeof(PttMeshShadeArgs),
       (int32_t)offsetof(PttMeshShadeArgs, k0),
       (int32_t)offsetof(PttMeshShadeArgs, n),
@@ -166,20 +117,11 @@ int ptt_mesh_abi(int32_t* out, int32_t len) {
       (int32_t)offsetof(PttScene, geoms),
       PTT_TRI_TILE,
       PTT_COEF_W,
-      PTT_MONO_MAX_TILES,
       PTT_KEY_MAX_CT,
   };
   const int32_t count = (int32_t)(sizeof(v) / sizeof(v[0]));
   for (int32_t i = 0; i < count && i < len; ++i) out[i] = v[i];
   return count;
-}
-
-int ptt_launch_mono(const PttMonoArgs* a, void* stream) {
-  if (a->ct < 1 || a->ct > PTT_MONO_MAX_TILES) return (int)cudaErrorInvalidValue;
-  if (a->n > 0) {
-    ptt_mono_kernel<<<blocks_for(a->n), PTT_THREADS, 0, (cudaStream_t)stream>>>(*a);
-  }
-  return (int)cudaGetLastError();
 }
 
 int ptt_launch_mesh_shade(const PttMeshShadeArgs* a, void* stream) {

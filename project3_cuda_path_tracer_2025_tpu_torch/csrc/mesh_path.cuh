@@ -1,7 +1,12 @@
 // Per-ray bodies of the mesh kernels in fused_mesh.cu and mesh_walk.cu.
 //
 // Each function is the per-ray form of a torch function of the port (and so
-// of the JAX package), written operation for operation in the same order:
+// of the JAX package), written operation for operation in the same order.
+// The kernels of #4-#10 run the block schedule (walk_take, spread_load,
+// spread_key below); the per-ray walks (walk_visit, tile_fold, sweep_ray,
+// super_visit, binned_pair, mono_ray) are the schedule they had before it,
+// kept as the references tests/mesh_path_host.cpp holds the block schedule
+// to:
 //   walk_visit      = one (ray, tile) pair of ops/intersect_mxu.py::_tile_min
 //                     (the member slab, _mt_hit) folded in with the
 //                     contract's tie rule, as walk_plain folds it;
@@ -251,7 +256,8 @@ PTT_HD void tile_fold(WalkRay& r, const float* coef, int tile, Slab s, float bab
 }
 
 // One visit of a tile by one ray (the per-ray walks: mono_ray, sweep_ray,
-// super_visit, binned_pair, and the host twin of the planned walks): the
+// super_visit, binned_pair, and the host twin of the planned walks, all
+// references of the block schedule now): the
 // member test against the tile's box (row: 8 floats) and, for a member,
 // the fold.  With gate, a
 // member whose slab entry lies beyond its running best skips the tile:
@@ -358,10 +364,11 @@ PTT_HD bool walk_goes_on(const WalkRay& r, float tile_tlo) {
   return tile_tlo <= (r.live ? r.best : 0.0f);
 }
 
-// The block schedule of the planned, streamed, super-tile and sweep walks
-// (ptt_planned_lanebest_kernel, ptt_planned_kernel, ptt_streamed_kernel,
-// ptt_streamed_super_kernel, ptt_sweep_kernel; their shared per-entry body
-// is spread_entry in mesh_walk.cu): a tile's (ray,
+// The block schedule of the mono, planned, streamed, super-tile and sweep
+// walks and the binned visits (ptt_mono_kernel, ptt_planned_lanebest_kernel,
+// ptt_planned_kernel, ptt_streamed_kernel, ptt_streamed_super_kernel,
+// ptt_sweep_kernel, ptt_binned_kernel; their shared per-entry body is
+// spread_entry in mesh_walk.cu): a tile's (ray,
 // triangle) pairs are spread over the block's threads instead of one thread
 // walking its ray's 1,024 triangles.  Per tile:
 //   walk_take    each ray's share of the member test and the improvability

@@ -1,10 +1,13 @@
-// Hand-written Hopper (sm_90a) kernels of the mesh traversals beyond the
-// mono band, over tiles of 1,024 triangles: the planned walks and the sweep
-// (up to 32 tiles a call; a larger mesh is a chain of calls,
+// Hand-written Hopper (sm_90a) kernels of the mesh traversals, over tiles
+// of 1,024 triangles: the mono walk (up to 8 tiles), the planned walks and
+// the sweep (up to 32 tiles a call; a larger mesh is a chain of calls,
 // ops/intersect_mxu.py::_chain), the streamed and super-tile walks and the
 // binned visits (up to 1,024 tiles), and the tile plan's slab stage.
 //
 // They replace the TPU kernels of project3_cuda_path_tracer_2025_tpu/ops/intersect_mxu.py
+//   ptt_mono_kernel              _mono_kernel :1423 (run_mono, up to 8 tiles):
+//                                every tile in ascending id behind a root cull,
+//                                ids of the table's padding rows written -1;
 //   ptt_planned_lanebest_kernel  _planned_kernel_lanebest :1330 (run_chunk_planned,
 //                                up to 24 tiles): walk every plan entry;
 //   ptt_planned_kernel           _planned_kernel :1231 (run_chunk_planned, up to 32
@@ -41,15 +44,15 @@
 // come from L1/L2.  The tie rule in tile_fold (t < best, or t == best and a
 // lower id) makes the result independent of the visit order, which is
 // ascending entry bound, not ascending id.
-//   The five walks #5-#9 share the block schedule and one per-tile body.
+//   The walks #4-#10 share the block schedule and one per-tile body.
 //   #5 walks all cnt entries of its plan row.  #6, #7 and #8 add the JAX
 //   package's two exact cuts: before each entry the block votes and stops
 //   when the entry's bound exceeds every live ray's running best
 //   (strictly: equal bounds may still tie); and a ray skips a tile whose
 //   slab entry lies beyond its own running best (the improvability gate,
 //   taken per ray instead of per block; #5 and #9 take it too, exact in any
-//   walk).  #5, #6 and #9 stage the (at most 32) tile boxes in shared
-//   memory.  #13a and #13b (below) keep one thread a ray.
+//   walk; #4 takes it too).  #4, #5, #6 and #9 stage the (at most 32) tile
+//   boxes in shared memory.  #13a and #13b (below) keep one thread a ray.
 //   The block schedule.  In the per-ray schedule that the walks had before
 //   it a member ray walked its tile's 1,024 triangles alone while the rest
 //   of its warp waited, a chain of ~1 us a block-visit at 0.5-1.6% of the
@@ -65,10 +68,10 @@
 //   walk_key: the ordered bits of t, then tri + 1), the lexicographic
 //   minimum the per-ray fold computes in any order, so the results are bit
 //   for bit the per-ray walk's.  One device function, spread_entry, is that
-//   per-tile step for all five kernels; they differ only in which tiles
+//   per-tile step for all seven kernels; they differ only in which tiles
 //   they feed it and which votes and gates come with them.  Shared memory:
 //   the 256 rays' features (10 KB), keys (2 KB), the list with its pair
-//   windows (3 KB), 64 B of counts: 15,424 B (#5, #6 and #9 add 1 KB of
+//   windows (3 KB), 64 B of counts: 15,424 B (#4, #5, #6 and #9 add 1 KB of
 //   boxes), so registers set the occupancy, one block of 16 warps an SM.
 //   Measured on #7 (scripts/torch_ab_streamed_walk.py, PERF.md): 512
 //   threads beat 256 (two blocks an SM, four triangles a thread) and 1,024
@@ -104,11 +107,19 @@
 //   before, as the per-ray sweep did.  A tile no ray takes costs one
 //   barrier: the TPU kernel's per-block any_hit cull.  A block with no live
 //   ray (a chain call masks the rays that miss its chunk) is skipped whole.
+//   #4 is #9's loop (one template, sweep_spread) over at most 8 tiles with
+//   the two steps the mono kernel adds: each ray's root cull (the k = 2
+//   envelope of the boxes) joins its live flag before the block's vote, so
+//   a block of culled rays is skipped whole, and a tri at or past num_tris
+//   is written -1, after the minimum.
 //   #10 is stateless: block v takes visit v's tile (vt[v], -1 = an empty
-//   slot region, which writes (inf, -1)); thread r takes pair row r, the
-//   ray (src[32 v + r / 8]) * 8 + r % 8 of the packet in that slot.  The
-//   per-ray reduce over a packet's visits and the bin construction stay in
-//   torch (ops/intersect_mxu.py).
+//   slot region, which writes (inf, -1)) through one spread_entry; owner
+//   thread r takes pair row r, the ray (src[32 v + r / 8]) * 8 + r % 8 of
+//   the packet in that slot.  Pair rows whose ray is not a member of the
+//   tile, dead, or an empty slot's take nothing: the pairs of the rows that
+//   are members are dealt over the block.  The per-ray reduce over a
+//   packet's visits and the bin construction stay in torch
+//   (ops/intersect_mxu.py).
 //   #11 is one block per ray block: the 256 rays (recentred origin,
 //   reciprocal direction, t_limit, live: two float4 a ray) are staged in
 //   shared memory; a thread owns a tile (tiles t, t + 256, ... beyond 256
@@ -135,7 +146,7 @@
 // rays' state (7 planes, 29 bytes a ray) and the plan are read once.
 // In the per-ray schedule (#13a, #13b) divergence is the cost beyond the
 // bound: a warp runs a tile for as long as its slowest member, whatever
-// number of its rays are members.  The block schedule of #5-#9 removes that
+// number of its rays are members.  The block schedule of #4-#10 removes that
 // cost (every thread evaluates pairs); what it leaves is a tile-visit's
 // fixed part (three barriers, the list, 80 KB of rows from L2) and a few
 // live blocks an SM on the early bounces.
@@ -197,14 +208,38 @@ struct PttBinnedArgs {
   int32_t n, n_g, nv, ct;
 };
 
-__device__ __forceinline__ WalkRay load_walk_ray(const PttWalkArgs& a, int idx, V3 center) {
-  const bool in = idx < a.n;
-  const V3 o = in ? v3(a.ray[0][idx], a.ray[1][idx], a.ray[2][idx]) : v3(0.0f, 0.0f, 0.0f);
-  const V3 d = in ? v3(a.ray[3][idx], a.ray[4][idx], a.ray[5][idx]) : v3(0.0f, 0.0f, 0.0f);
-  return walk_ray(center, o, d, in && a.live[idx] != 0, in ? a.tlim[idx] : 0.0f);
+struct PttMonoArgs {
+  const float* ray[6];       // origin xyz, direction xyz [n]
+  const uint8_t* active;     // bool [n] (the kernel takes the root cull itself)
+  const float* tlim;         // [n]
+  const float* coef;         // [ct * 1024, 20]
+  const float* tile_aabb;    // [ct, 8], ct <= 8
+  const float* center;       // [3]
+  float* out_t;              // [n]
+  int32_t* out_tri;          // [n]
+  float baby_eps;
+  float eps_succ;
+  int32_t n, ct, num_tris, pad;
+};
+
+// Ray idx of the planes ray (origin xyz, direction xyz) as a walk sees it;
+// a thread that owns no ray (in false) gets one that is not live.
+__device__ __forceinline__ WalkRay load_ray(const float* const* ray, const uint8_t* live,
+                                            const float* tlim, long long idx, bool in, V3 center) {
+  const V3 o = in ? v3(ray[0][idx], ray[1][idx], ray[2][idx]) : v3(0.0f, 0.0f, 0.0f);
+  const V3 d = in ? v3(ray[3][idx], ray[4][idx], ray[5][idx]) : v3(0.0f, 0.0f, 0.0f);
+  return walk_ray(center, o, d, in && live[idx] != 0, in ? tlim[idx] : 0.0f);
 }
 
-// The block schedule of #5-#9 (csrc/mesh_path.cuh: walk_take,
+__device__ __forceinline__ WalkRay load_walk_ray(const PttWalkArgs& a, int idx, V3 center) {
+  return load_ray(a.ray, a.live, a.tlim, idx, idx < a.n, center);
+}
+
+__device__ __forceinline__ V3 load_center(const float* center) {
+  return v3(__ldg(center), __ldg(center + 1), __ldg(center + 2));
+}
+
+// The block schedule of #4-#10 (csrc/mesh_path.cuh: walk_take,
 // spread_load, spread_key, walk_key, walk_unkey): PTT_SPREAD_THREADS threads
 // a block of 256 rays.  Thread t < 256 owns ray t of the block (its state,
 // its share of an exit vote, its member test); for each tile every thread t
@@ -217,15 +252,15 @@ struct SpreadShared {
   int count[2][PTT_RAY_TILE / 32];           // takers per ray warp, by tile parity
 };
 
-// Thread tid's ray (a thread that owns none gets a ray that is not live),
-// its features and key written for the block.  The first spread_entry's
-// first barrier comes before they are read.
-__device__ __forceinline__ WalkRay spread_ray(SpreadShared& sh, const PttWalkArgs& a,
-                                              bool owner, V3 center) {
+// Thread tid's ray, ray idx of the planes (load_ray; a thread that owns
+// none, or whose ray is not in, gets a ray that is not live), its features
+// and key written for the block.  The first spread_entry's first barrier
+// comes before they are read.
+__device__ __forceinline__ WalkRay spread_ray(SpreadShared& sh, bool owner, V3 center,
+                                              const float* const* ray, const uint8_t* live,
+                                              const float* tlim, long long idx, bool in) {
   const int tid = threadIdx.x;
-  const WalkRay r = owner ? load_walk_ray(a, blockIdx.x * PTT_RAY_TILE + tid, center)
-                          : walk_ray(center, v3(0.0f, 0.0f, 0.0f), v3(0.0f, 0.0f, 0.0f), false,
-                                     0.0f);
+  const WalkRay r = load_ray(ray, live, tlim, idx, owner && in, center);
   if (owner) {
 #pragma unroll
     for (int q = 0; q < 10; ++q) sh.f[q][tid] = r.f[q];
@@ -234,7 +269,7 @@ __device__ __forceinline__ WalkRay spread_ray(SpreadShared& sh, const PttWalkArg
   return r;
 }
 
-// The per-entry body of the five walks: one tile (row: its box) against
+// The per-entry body of the seven walks: one tile (row: its box) against
 // the block's rays.  Each ray may take it (may: the thread's own condition
 // besides walk_take's, e.g. a super-tile gate); the takers are listed in
 // shared memory (warp ballots and a prefix over the eight ray warps), each
@@ -289,11 +324,17 @@ __device__ __forceinline__ bool spread_entry(SpreadShared& sh, WalkRay& r, bool 
   return true;
 }
 
-__device__ __forceinline__ void spread_out(const PttWalkArgs& a, const WalkRay& r, bool owner) {
+// The owner's (t, tri) written for ray blockIdx.x * 256 + tid.  A tri at or
+// past num_tris (#4: a padding row of the mono tables) is written as -1,
+// after the minimum, as mono_ray clamps it: a padding row can only win
+// where it accepts.
+template <typename Args>
+__device__ __forceinline__ void spread_out(const Args& a, const WalkRay& r, bool owner,
+                                           int32_t num_tris = PTT_INT_MAX) {
   const int idx = blockIdx.x * PTT_RAY_TILE + threadIdx.x;
   if (owner && idx < a.n) {
     a.out_t[idx] = r.best;
-    a.out_tri[idx] = r.best_tri;
+    a.out_tri[idx] = r.best_tri >= num_tris ? -1 : r.best_tri;
   }
 }
 
@@ -323,8 +364,8 @@ __device__ __forceinline__ void plan_spread(const PttWalkArgs& a) {
     boxes = sh_aabb;
   }
   const bool owner = threadIdx.x < PTT_RAY_TILE;
-  const V3 center = v3(__ldg(a.center), __ldg(a.center + 1), __ldg(a.center + 2));
-  WalkRay r = spread_ray(sh, a, owner, center);
+  const int idx = blockIdx.x * PTT_RAY_TILE + threadIdx.x;
+  WalkRay r = spread_ray(sh, owner, load_center(a.center), a.ray, a.live, a.tlim, idx, idx < a.n);
   const int b = blockIdx.x;
   const int cnt = __ldg(a.cnt + b);
   const int32_t* ids = a.ids + (size_t)b * a.ct;
@@ -360,8 +401,8 @@ __global__ void PTT_SPREAD_BOUNDS ptt_streamed_kernel(const PttWalkArgs a) {
 __global__ void PTT_SPREAD_BOUNDS ptt_streamed_super_kernel(const PttWalkArgs a) {
   __shared__ SpreadShared sh;
   const bool owner = threadIdx.x < PTT_RAY_TILE;
-  const V3 center = v3(__ldg(a.center), __ldg(a.center + 1), __ldg(a.center + 2));
-  WalkRay r = spread_ray(sh, a, owner, center);
+  const int idx = blockIdx.x * PTT_RAY_TILE + threadIdx.x;
+  WalkRay r = spread_ray(sh, owner, load_center(a.center), a.ray, a.live, a.tlim, idx, idx < a.n);
   const int b = blockIdx.x;
   const int cnt = __ldg(a.cnt + b);
   const int32_t* ids = a.ids + (size_t)b * a.cs;
@@ -386,23 +427,46 @@ __global__ void PTT_SPREAD_BOUNDS ptt_streamed_super_kernel(const PttWalkArgs a)
   spread_out(a, r, owner);
 }
 
-// #9: every tile 0..ct-1 in ascending id, no plan and no exit vote (the
-// tiles come in no order of distance); the boxes staged in shared memory.
-// A block with no live ray is skipped whole.
-__global__ void PTT_SPREAD_BOUNDS ptt_sweep_kernel(const PttWalkArgs a) {
+// #4 and #9: every tile 0..ct-1 in ascending id through spread_entry, no
+// plan and no exit vote (the tiles come in no order of distance); the boxes
+// staged in shared memory.  A block with no live ray is skipped whole (the
+// TPU kernels' block_live).  MONO (#4, at most 8 tiles): each owner ray's
+// root cull (root_hit, the k = 2 envelope of the boxes, as mono_ray takes
+// it) joins its live flag, and the num_tris clamp comes with the output.
+// #4 takes walk_take's improvability gate too, as #5 does: exact in any
+// walk, so the results are bit-equal with the gate or without it (the TPU
+// kernel takes none).  Its rays start at (t_limit, -1), the sweep's start,
+// where mono_ray starts at (inf, -1) and writes (t_limit, -1) unless the
+// minimum lies below t_limit.  The two agree: a hit past t_limit, or at
+// exactly t_limit (key low word tri + 1 >= 1 against the start's 0), never
+// lowers the (t_limit, -1) key, so both end on the least hit below t_limit
+// with its lowest id, or on (t_limit, -1).
+template <bool MONO, typename Args>
+__device__ __forceinline__ void sweep_spread(const Args& a, const uint8_t* live,
+                                             int32_t num_tris) {
   __shared__ SpreadShared sh;
   __shared__ float sh_aabb[PTT_PLANNED_MAX_CT * 8];
   for (int i = threadIdx.x; i < a.ct * 8; i += blockDim.x) sh_aabb[i] = a.tile_aabb[i];
+  if constexpr (MONO) __syncthreads();  // root_hit reads the boxes before the first barrier
   const bool owner = threadIdx.x < PTT_RAY_TILE;
-  const V3 center = v3(__ldg(a.center), __ldg(a.center + 1), __ldg(a.center + 2));
-  WalkRay r = spread_ray(sh, a, owner, center);
+  const int idx = blockIdx.x * PTT_RAY_TILE + threadIdx.x;
+  WalkRay r = spread_ray(sh, owner, load_center(a.center), a.ray, live, a.tlim, idx, idx < a.n);
+  if constexpr (MONO) r.live = r.live && root_hit(sh_aabb, a.ct, r.os, r.inv, r.tlim);
   if (__syncthreads_or(r.live)) {  // also the barrier after the boxes are staged
     for (int c = 0; c < a.ct; ++c) {
       spread_entry(sh, r, owner, true, true, a.coef, sh_aabb + 8 * c, c, c & 1, a.baby_eps,
                    a.eps_succ);
     }
   }
-  spread_out(a, r, owner);
+  spread_out(a, r, owner, num_tris);
+}
+
+__global__ void PTT_SPREAD_BOUNDS ptt_sweep_kernel(const PttWalkArgs a) {
+  sweep_spread<false>(a, a.live, PTT_INT_MAX);
+}
+
+__global__ void PTT_SPREAD_BOUNDS ptt_mono_kernel(const PttMonoArgs a) {
+  sweep_spread<true>(a, a.active, a.num_tris);
 }
 
 // #13a: the block's plan row holds its candidate tiles in ascending id.
@@ -413,7 +477,7 @@ __global__ void __launch_bounds__(PTT_RAY_TILE) ptt_lb_asc_kernel(const PttWalkA
   __syncthreads();
   const int b = blockIdx.x;
   const int idx = b * PTT_RAY_TILE + threadIdx.x;
-  WalkRay r = load_walk_ray(a, idx, v3(__ldg(a.center), __ldg(a.center + 1), __ldg(a.center + 2)));
+  WalkRay r = load_walk_ray(a, idx, load_center(a.center));
   if (MM) mm_ray(r);
   const int cnt = __ldg(a.cnt + b);
   const int32_t* ids = a.ids + (size_t)b * a.ct;
@@ -443,7 +507,7 @@ __global__ void __launch_bounds__(PTT_RAY_TILE) ptt_epilogue_mono_kernel(const P
   for (int i = threadIdx.x; i < a.ct * 8; i += blockDim.x) sh_aabb[i] = a.tile_aabb[i];
   __syncthreads();
   const int idx = blockIdx.x * PTT_RAY_TILE + threadIdx.x;
-  WalkRay r = load_walk_ray(a, idx, v3(__ldg(a.center), __ldg(a.center + 1), __ldg(a.center + 2)));
+  WalkRay r = load_walk_ray(a, idx, load_center(a.center));
   if (__syncthreads_or(r.live)) {  // a block with no live ray is skipped whole
     if (FLAVOR == PTT_EPI_MM) mm_ray(r);
     for (int c = 0; c < a.ct; ++c) {
@@ -530,26 +594,42 @@ __global__ void __launch_bounds__(PTT_RAY_TILE) ptt_plan_prepass_kernel(const Pt
   }
 }
 
-__global__ void __launch_bounds__(PTT_RAY_TILE) ptt_binned_kernel(const PttBinnedArgs a) {
-  const int v = blockIdx.x;
-  const int row = threadIdx.x;
+// #10: block v takes visit v's tile, one spread_entry (no running best
+// carries across visits, which are independent).  Owner thread r < 256 is
+// pair row r, the ray src[32 v + r / 8] * 8 + r % 8 of the packet in that
+// slot (not live for an empty slot, p >= n_g, or a ray past n).  A packet
+// holds at most one slot of a tile's run, but the keys are the pair rows'
+// (owner tid's) in any case, so no two rows share one.  Each row starts at
+// (t_limit, -1) and ends on the least hit below t_limit (a hit at or past
+// it never lowers that key) with its lowest id, or on tri -1, which is
+// written (inf, -1): binned_pair's rule, which starts at (inf, -1) and
+// writes (inf, -1) unless the minimum lies below t_limit.
+__global__ void PTT_SPREAD_BOUNDS ptt_binned_kernel(const PttBinnedArgs a) {
+  __shared__ SpreadShared sh;
+  const int v = blockIdx.x, tid = threadIdx.x;
+  const bool owner = tid < PTT_RAY_TILE;
+  const size_t out = (size_t)v * PTT_RAY_TILE + tid;
   const int tile = __ldg(a.vt + v);
-  float t = ptt_inf();
-  int32_t tri = -1;
-  if (tile >= 0) {
-    const int p = __ldg(a.src + (size_t)v * (PTT_RAY_TILE / PTT_BINNED_G) + row / PTT_BINNED_G);
-    const long long ray = (long long)p * PTT_BINNED_G + row % PTT_BINNED_G;
-    if (p < a.n_g && ray < a.n) {
-      const V3 o = v3(a.ray[0][ray], a.ray[1][ray], a.ray[2][ray]);
-      const V3 d = v3(a.ray[3][ray], a.ray[4][ray], a.ray[5][ray]);
-      binned_pair(a.coef, a.tile_aabb + 8 * tile, tile,
-                  v3(__ldg(a.center), __ldg(a.center + 1), __ldg(a.center + 2)), o, d,
-                  a.live[ray] != 0, a.tlim[ray], a.baby_eps, a.eps_succ, &t, &tri);
+  if (tile < 0) {  // an empty visit: the same for every thread, before any barrier
+    if (owner) {
+      a.out_t[out] = ptt_inf();
+      a.out_tri[out] = -1;
     }
+    return;
   }
-  const size_t out = (size_t)v * PTT_RAY_TILE + row;
-  a.out_t[out] = t;
-  a.out_tri[out] = tri;
+  const int p =
+      owner ? __ldg(a.src + (size_t)v * (PTT_RAY_TILE / PTT_BINNED_G) + tid / PTT_BINNED_G)
+            : a.n_g;
+  const long long ray = (long long)p * PTT_BINNED_G + tid % PTT_BINNED_G;
+  WalkRay r = spread_ray(sh, owner, load_center(a.center), a.ray, a.live, a.tlim, ray,
+                         p < a.n_g && ray < a.n);
+  spread_entry(sh, r, owner, true, true, a.coef, a.tile_aabb + 8 * tile, tile, 0, a.baby_eps,
+               a.eps_succ);
+  if (owner) {
+    const bool hit = r.best_tri >= 0;
+    a.out_t[out] = hit ? r.best : ptt_inf();
+    a.out_tri[out] = hit ? r.best_tri : -1;
+  }
 }
 
 static unsigned blocks_for(long long n) {
@@ -570,6 +650,9 @@ int ptt_walk_abi(int32_t* out, int32_t len) {
       (int32_t)sizeof(PttBinnedArgs),
       (int32_t)offsetof(PttBinnedArgs, baby_eps),
       (int32_t)offsetof(PttBinnedArgs, n),
+      (int32_t)sizeof(PttMonoArgs),
+      (int32_t)offsetof(PttMonoArgs, baby_eps),
+      (int32_t)offsetof(PttMonoArgs, n),
       PTT_TRI_TILE,
       PTT_COEF_W,
       PTT_RAY_TILE,
@@ -577,6 +660,7 @@ int ptt_walk_abi(int32_t* out, int32_t len) {
       PTT_PLANNED_MAX_CT,
       PTT_STREAMED_MAX_CT,
       PTT_SUPER_TILES,
+      PTT_MONO_MAX_TILES,
   };
   const int32_t count = (int32_t)(sizeof(v) / sizeof(v[0]));
   for (int32_t i = 0; i < count && i < len; ++i) out[i] = v[i];
@@ -634,7 +718,15 @@ int ptt_launch_plan_prepass(const PttPlanArgs* a, void* stream) {
 int ptt_launch_binned(const PttBinnedArgs* a, void* stream) {
   if (a->ct < 1 || a->ct > PTT_STREAMED_MAX_CT) return (int)cudaErrorInvalidValue;
   if (a->nv > 0) {
-    ptt_binned_kernel<<<(unsigned)a->nv, PTT_RAY_TILE, 0, (cudaStream_t)stream>>>(*a);
+    ptt_binned_kernel<<<(unsigned)a->nv, PTT_SPREAD_THREADS, 0, (cudaStream_t)stream>>>(*a);
+  }
+  return (int)cudaGetLastError();
+}
+
+int ptt_launch_mono(const PttMonoArgs* a, void* stream) {
+  if (a->ct < 1 || a->ct > PTT_MONO_MAX_TILES) return (int)cudaErrorInvalidValue;
+  if (a->n > 0) {
+    ptt_mono_kernel<<<blocks_for(a->n), PTT_SPREAD_THREADS, 0, (cudaStream_t)stream>>>(*a);
   }
   return (int)cudaGetLastError();
 }

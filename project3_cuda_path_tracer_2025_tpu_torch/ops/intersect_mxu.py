@@ -19,7 +19,7 @@ the JAX package as a CUDA kernel, each behind a wrapper that launches it on
 CUDA tensors and runs its plain version on CPU tensors:
 
 * up to ``MONO_MAX_TILES`` tiles, ``_mono_kernel``: ``mono_intersect``
-  (``csrc/fused_mesh.cu``), plain ``mono_intersect_plain``;
+  (``csrc/mesh_walk.cu``), plain ``mono_intersect_plain``;
 * up to 32 tiles a call, the planned walks ``_planned_kernel_lanebest`` and
   ``_planned_kernel``: ``planned_lanebest_intersect``, ``planned_intersect``;
 * up to 1,024 tiles, ``_streamed_kernel``: ``streamed_intersect``, and with
@@ -679,7 +679,7 @@ def mono_intersect(tables: MXUMeshTables, num_tris: int, ro: Vec3, rd: Vec3,
     _check_rays("mono_intersect rays", [*ro, *rd, t_limit], n, device)
     _check_tensor("mono_intersect active", active, torch.bool, (n,), device)
     _check_tables("mono_intersect", tables, ct, device)
-    lib = kernels.load("fused_mesh")
+    lib = kernels.load("mesh_walk")
     out_t = torch.empty((n,), dtype=torch.float32, device=device)
     out_tri = torch.empty((n,), dtype=torch.int32, device=device)
     a = kernels.PttMonoArgs()

@@ -169,6 +169,9 @@ def _walk_abi_expected() -> list:
         ctypes.sizeof(PttBinnedArgs),
         PttBinnedArgs.baby_eps.offset,
         PttBinnedArgs.n.offset,
+        ctypes.sizeof(PttMonoArgs),
+        PttMonoArgs.baby_eps.offset,
+        PttMonoArgs.n.offset,
         mxu.TRI_TILE,
         mxu.COEF_W,
         mxu.RAY_TILE,
@@ -176,6 +179,7 @@ def _walk_abi_expected() -> list:
         mxu.PLANNED_MAX_TILES,
         mxu.STREAMED_MAX_TILES,
         mxu.SUPER_TILES,
+        mxu.MONO_MAX_TILES,
     ]
 
 
@@ -184,9 +188,6 @@ def _mesh_abi_expected() -> list:
 
     return [
         ctypes.sizeof(PttScene),
-        ctypes.sizeof(PttMonoArgs),
-        PttMonoArgs.baby_eps.offset,
-        PttMonoArgs.n.offset,
         ctypes.sizeof(PttMeshShadeArgs),
         PttMeshShadeArgs.k0.offset,
         PttMeshShadeArgs.n.offset,
@@ -197,7 +198,6 @@ def _mesh_abi_expected() -> list:
         PttScene.geoms.offset,
         mxu.TRI_TILE,
         mxu.COEF_W,
-        mxu.MONO_MAX_TILES,
         mxu.KEY_INLINE_MAX_CT,
     ]
 
@@ -251,8 +251,6 @@ def _bind_prim(lib) -> tuple:
 
 
 def _bind_mesh(lib) -> tuple:
-    lib.ptt_launch_mono.argtypes = [ctypes.POINTER(PttMonoArgs), _p]
-    lib.ptt_launch_mono.restype = _i
     lib.ptt_launch_mesh_shade.argtypes = [ctypes.POINTER(PttMeshShadeArgs), _p]
     lib.ptt_launch_mesh_shade.restype = _i
     return lib.ptt_mesh_abi, _mesh_abi_expected(), lib.ptt_mesh_error_string
@@ -263,6 +261,8 @@ def _bind_walk(lib) -> tuple:
     lib.ptt_launch_walk.restype = _i
     lib.ptt_launch_binned.argtypes = [ctypes.POINTER(PttBinnedArgs), _p]
     lib.ptt_launch_binned.restype = _i
+    lib.ptt_launch_mono.argtypes = [ctypes.POINTER(PttMonoArgs), _p]
+    lib.ptt_launch_mono.restype = _i
     lib.ptt_launch_plan_prepass.argtypes = [ctypes.POINTER(PttPlanArgs), _p]
     lib.ptt_launch_plan_prepass.restype = _i
     return lib.ptt_walk_abi, _walk_abi_expected(), lib.ptt_walk_error_string

@@ -1,18 +1,22 @@
 """A/B of the block width of the walks on the block schedule: the threads a
 block spreads a tile's (ray, triangle) pairs over, in the streamed walk (#7,
-``ptt_streamed_kernel``), the sweep (#9, ``ptt_sweep_kernel``) or the
-super-tile walk (#8, ``ptt_streamed_super_kernel``).
+``ptt_streamed_kernel``), the sweep (#9, ``ptt_sweep_kernel``), the
+super-tile walk (#8, ``ptt_streamed_super_kernel``), the mono walk (#4,
+``ptt_mono_kernel``) or the binned visits (#10, ``ptt_binned_kernel``).
 
     python scripts/torch_ab_streamed_walk.py                 # #7 at 256, 512, 1024
     python scripts/torch_ab_streamed_walk.py --variants 256 512 --scenes 80k
     python scripts/torch_ab_streamed_walk.py --walk sweep    # 20k, 80k (chain of 3)
     python scripts/torch_ab_streamed_walk.py --walk super    # 500k, PTT_STREAM_SUPER=1
+    python scripts/torch_ab_streamed_walk.py --walk mono     # 5k
+    python scripts/torch_ab_streamed_walk.py --walk binned   # 200k, the engaged bounces
 
 Builds ``csrc/mesh_walk.cu`` once for each width (``-DPTT_SPREAD_THREADS``;
 one ``nvcc`` each, in parallel, into ``build/kernels_ab/``), then on each sorted
 bounce of the walk's meshes at 800x800 (``torch_bench_kernels``'s states and
 calls: the sweep one line per call of the 80k chain, the super walk over
-tables padded to whole super-tiles) launches every build's kernel through
+tables padded to whole super-tiles, the binned visits on the bounces where
+a binned tier engages) launches every build's kernel through
 its wrapper and times it with CUDA events, the builds in turns (the order
 reversed every sample).  Every build's ``(t, tri)`` must equal the
 package's own build's bit for bit: a variant that differs is reported,
@@ -40,11 +44,12 @@ from project3_cuda_path_tracer_2025_tpu_torch.scene import (  # noqa: E402
 )
 from project3_cuda_path_tracer_2025_tpu_torch.utils import measure  # noqa: E402
 from torch_bench_kernels import (  # noqa: E402
-    SCENE_FILES, WALK_SCENES, WALKS, chain_calls, env_set, sorted_bounces, super_args,
+    SCENE_FILES, WALK_SCENES, binned_args, chain_calls, env_set, sorted_bounces, super_args,
 )
 
 ENTRY = {"streamed": "ptt_streamed_kernel", "sweep": "ptt_sweep_kernel",
-         "super": "ptt_streamed_super_kernel"}
+         "super": "ptt_streamed_super_kernel", "mono": "ptt_mono_kernel",
+         "binned": "ptt_binned_kernel"}
 
 
 def build_variants(variants, walk: str = "streamed") -> dict:
@@ -78,11 +83,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variants", nargs="+", default=["256", "512", "1024"],
                     help="block widths (threads a block)")
-    ap.add_argument("--walk", default="streamed", choices=WALKS,
+    ap.add_argument("--walk", default="streamed", choices=list(ENTRY),
                     help="the kernel compared (default: the streamed walk)")
     ap.add_argument("--scenes", nargs="+", default=None, choices=list(SCENE_FILES),
                     help="default: the walk's scenes (streamed 80k 500k, sweep 20k 80k, "
-                    "super 500k)")
+                    "super 500k, mono 5k, binned 200k)")
     ap.add_argument("--k", type=int, default=10, help="launches per sample")
     ap.add_argument("--samples", type=int, default=3)
     args = ap.parse_args(argv)
@@ -148,9 +153,16 @@ def main(argv=None) -> int:
             elif args.walk == "sweep":
                 calls = [(lambda a=a: mxu.sweep_intersect(*a), a[3]) for _, a in chain_calls(
                     mxu, "sweep", tables, static.mxu_padded_tris, ro, rd, live, tl, eps)]
-            else:
+            elif args.walk == "super":
                 a = super_args(mxu, stab, saabb, ro, rd, live, tl, eps)
                 calls = [(lambda: mxu.streamed_super_intersect(*a, saabb), live)]
+            elif args.walk == "mono":
+                calls = [(lambda: mxu.mono_intersect(tables, static.num_triangles, ro, rd,
+                                                     paths.alive, tl, eps), live)]
+            else:
+                found = binned_args(mxu, tables, paths, tl, live, cfg.mxu_binned_tiers)
+                calls = [] if found is None else [
+                    (lambda a=found[0]: mxu.binned_intersect(*a), live)]
             for i, (call, call_live) in enumerate(calls):
                 ab_call(name, d, i, call, call_live)
     if bad:

@@ -7,6 +7,7 @@ in turns: parent, change, change, parent).
                                                                 # another checkout
     python scripts/torch_bench_kernels.py --walks sweep super   # two walks only
     python scripts/torch_bench_kernels.py --walks lanebest planned  # the planned walks
+    python scripts/torch_bench_kernels.py --walks mono binned   # 5k mono, 200k binned
     python scripts/torch_bench_kernels.py --device cpu --res 8 --scenes 80k \\
         --bounces 2                                             # plain versions, no times
 
@@ -31,10 +32,18 @@ One JSON line per measurement:
   for each call of the planned chain of 3 that is that walk's (calls 0-1,
   tiles 0-31 and 32-63: #6; call 2, tiles 64-78: #5), each call's plan
   built against the running best, as ``mxu_traversal="planned"`` calls it;
+  "mono" (#4, ``mono_intersect``) on the 5k mesh (the rays' alive flags as
+  its ``active``: the kernel takes the root cull itself); "binned" (#10,
+  ``binned_intersect``) on the 200k mesh, on each bounce where a binned
+  tier engages (``binned_args``: the tier, budget and bins the traversal
+  builds; other bounces print no line), its sha256 over the pair rows;
 * ``frame``: the frame of each walk's path (``megakernel_iteration``):
-  "auto" (the default: #5 at 20k, #7 at 80k and 500k), "sweep" (20k, 80k),
-  "super" (500k with ``PTT_STREAM_SUPER=1``) and "planned" (80k, the
-  chain): ms per frame and the sha256 of iteration 1's film;
+  "auto" (the default: #4 at 5k, #5 at 20k, #7 at 80k and 500k, #10 with
+  its streamed fallback at 200k; with "mono" also the 5k "auto, unsorted"
+  frame, ray sorting off, and the "auto" frame of the textured mesh
+  ``scenes/cornell_mesh_textured_local.json``, #4 too), "sweep" (20k, 80k), "super" (500k with ``PTT_STREAM_SUPER=1``) and
+  "planned" (80k, the chain): ms per frame and the sha256 of iteration 1's
+  film;
 * ``scan``: one ``exclusive_scan`` of 640,000 int32 0/1 flags (a compacting
   bounce's shape, made from ``--seed``) against ``torch.cumsum(x, 0)`` of
   the same flags, and whether it is exact;
@@ -55,11 +64,13 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SCENE_FILES = {k: f"scenes/cornell_mesh_{k}.json" for k in ("20k", "80k", "500k")}
-WALKS = ("streamed", "sweep", "super", "lanebest", "planned")
+SCENE_FILES = {k: f"scenes/cornell_mesh_{k}.json" for k in ("5k", "20k", "80k", "200k", "500k")}
+WALKS = ("streamed", "sweep", "super", "lanebest", "planned", "mono", "binned")
 # The scenes each walk is timed on.
 WALK_SCENES = {"streamed": ("80k", "500k"), "sweep": ("20k", "80k"), "super": ("500k",),
-               "lanebest": ("20k", "80k"), "planned": ("20k", "80k")}
+               "lanebest": ("20k", "80k"), "planned": ("20k", "80k"), "mono": ("5k",),
+               "binned": ("200k",)}
+TEXTURED_MESH = "scenes/cornell_mesh_textured_local.json"  # a mono frame of "mono"
 # The walk kernels by their names here (``ops/intersect_mxu.py::WALKS``).
 PLANNED_KINDS = {"lanebest": "planned_lanebest", "planned": "planned"}
 
@@ -130,6 +141,27 @@ def chain_calls(mxu, mode, tables, padded_tris, ro, rd, live, tl, baby_eps) -> l
     return calls
 
 
+def binned_args(mxu, tables, paths, tl, live, tiers) -> "tuple | None":
+    """The binned kernel's arguments for one state at the tier the
+    traversal engages, and the bins (None: no tier holds the live rays, or
+    the bins overflow, and the traversal walks the streamed plan instead).
+    Works on any checkout's package."""
+    ro, rd = paths.origin, paths.direction
+    pr = mxu.plan_rays(tables, ro, rd, live, tl)
+    n_pad = pr.tl.shape[0]
+    live_pos = mxu.live_position(pr.live)
+    npre = next((p for p in mxu.binned_prefixes(n_pad, tiers) if live_pos < p), None)
+    if npre is None:
+        return None
+    cut = lambda v: type(v)(*(x[:npre] for x in v))
+    budget = mxu.pair_budget(max(npre, ro.x.shape[0] // 4), tables.tile_aabb.shape[0])
+    bins = mxu.packet_bins(tables.tile_aabb, cut(pr.os), cut(pr.d), pr.live[:npre],
+                           pr.tl[:npre], budget, mxu.BINNED_TOPK)
+    if bool(bins.overflow):
+        return None
+    return (tables, ro, rd, live, tl, bins.vt, bins.src, npre // mxu.BINNED_G, 1e-5), bins
+
+
 def super_args(mxu, stab, saabb, ro, rd, live, tl, baby_eps) -> tuple:
     """The super-tile walk's arguments for one state: the tables padded to
     whole super-tiles (``stab``), the plan over their super boxes."""
@@ -175,7 +207,7 @@ def run(argv=None) -> list:
     ap.add_argument("--res", type=int, default=800, help="film width and height")
     ap.add_argument("--scenes", nargs="+", default=list(SCENE_FILES), choices=list(SCENE_FILES))
     ap.add_argument("--walks", nargs="+", default=list(WALKS), choices=WALKS,
-                    help="the walks timed, each on its scenes (default: all five)")
+                    help="the walks timed, each on its scenes (default: all seven)")
     ap.add_argument("--bounces", type=int, default=None,
                     help="sorted bounces a mesh (default: the scene's depth)")
     ap.add_argument("--k", type=int, default=10, help="launches per sample")
@@ -293,9 +325,26 @@ def run(argv=None) -> list:
                     if w in planned:
                         time_walk(name, w, d, live, lambda a=a, kind=kind: mxu.WALKS[kind](*a),
                                   call=i, tiles=a[0].tile_aabb.shape[0])
+            if "mono" in walks:
+                time_walk(name, "mono", d, live, lambda: mxu.mono_intersect(
+                    tables, static.num_triangles, ro, rd, paths.alive, tl, eps))
+            if "binned" in walks:
+                found = binned_args(mxu, tables, paths, tl, live, cfg.mxu_binned_tiers)
+                if found is not None:
+                    a = found[0]
+                    time_walk(name, "binned", d, live, lambda a=a: mxu.binned_intersect(*a),
+                              visits=int(a[5].numel()), prefix=a[7] * mxu.BINNED_G)
         del states
-        if "streamed" in walks or (name == "20k" and planned):
+        if {"streamed", "mono", "binned"} & set(walks) or (name == "20k" and planned):
             time_frame(name, "auto", frame_of(dev, static, cam, cfg))
+        if "mono" in walks:
+            time_frame(name, "auto, unsorted",
+                       frame_of(dev, static, cam, RenderConfig(ray_sorting="off")))
+            tex = scene_at(TEXTURED_MESH)
+            tdev, tstatic = build_device_scene(tex, device)
+            time_frame("mesh_textured", "auto", frame_of(
+                tdev, tstatic, camera_state(derive_render_camera(tex.state.camera)), cfg))
+            del tdev
         if "sweep" in walks:
             time_frame(name, "sweep",
                        frame_of(dev, static, cam, RenderConfig(mxu_traversal="sweep")))

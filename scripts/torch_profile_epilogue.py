@@ -18,11 +18,13 @@ bookkeeping costs on the card:
   lb_mm, mono_mm  timing floors: the four numerators and a minimum fold of
                   det only, as the JAX script's (WRONG results by design)
 
-prod_lanebest and prod_planned run the block schedule (each tile's pairs
-spread over a block of 512 threads); lb_asc, the mono variants and the
-floors keep one thread a ray.  So a time against prod_lanebest compares
-schedules as well as epilogues: what the strict fold is worth can no longer
-be read off lb_asc against prod_lanebest.
+prod_lanebest, prod_planned and prod_mono run the block schedule (each
+tile's pairs spread over a block of 512 threads); lb_asc, mono, mono_gate
+and the floors keep one thread a ray.  So a time against prod_lanebest or
+prod_mono compares schedules as well as epilogues: what the strict fold is
+worth can no longer be read off lb_asc against prod_lanebest, nor what the
+member vote is worth off mono_gate against prod_mono (both compared
+epilogues alone while the production walks ran one thread a ray).
 
 The exact variants are asserted EQUAL in (t, tri) to prod_lanebest on every
 ray before anything is timed; a mismatch prints the first five rays and the

@@ -4,10 +4,10 @@
 // matching kernel in csrc/fused_mesh.cu or csrc/mesh_walk.cu runs as one
 // thread per ray; the walks keep the kernels' block schedule (256 rays a
 // block, the plan row in order, the block's exit vote), and the plan
-// prepass its reduction over a block's rays.  ptt_host_walk, ptt_host_super
-// and ptt_host_sweep are the per-ray schedules, the references the block
-// schedules (ptt_host_*_block: each tile's pairs spread over the threads)
-// are held to.
+// prepass its reduction over a block's rays.  ptt_host_mono, ptt_host_walk,
+// ptt_host_super, ptt_host_sweep and ptt_host_binned are the per-ray
+// schedules, the references the block schedules (ptt_host_*_block: each
+// tile's pairs spread over the threads) are held to.
 //
 // Built by tests/test_torch_kernel_body.py with
 //   c++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC -I<csrc>
@@ -26,7 +26,8 @@ int ptt_host_mesh_sizes(int32_t* out) {
   return 2;
 }
 
-// ptt_mono_kernel
+// The per-ray schedule that ptt_mono_kernel had before its block schedule
+// (ptt_host_mono_block): one thread a ray, mono_ray.
 void ptt_host_mono(const float* coef, const float* aabb, int32_t ct, const float* center,
                    const float* const* ray, const uint8_t* active, const float* tlim,
                    int32_t num_tris, float baby_eps, float eps_succ, int32_t n, float* out_t,
@@ -115,9 +116,10 @@ void ptt_host_walk(const float* coef, const float* aabb, int32_t ct, const float
   }
 }
 
-// The block schedule of ptt_planned_lanebest_kernel, ptt_planned_kernel,
-// ptt_streamed_kernel, ptt_streamed_super_kernel and ptt_sweep_kernel, one
-// block at a time: its 256 rays and their keys.
+// The block schedule of ptt_mono_kernel, ptt_planned_lanebest_kernel,
+// ptt_planned_kernel, ptt_streamed_kernel, ptt_streamed_super_kernel,
+// ptt_sweep_kernel and ptt_binned_kernel, one block at a time: its 256 rays
+// and their keys.
 struct HostBlock {
   std::vector<WalkRay> r = std::vector<WalkRay>(PTT_RAY_TILE);
   std::vector<uint64_t> key = std::vector<uint64_t>(PTT_RAY_TILE);
@@ -126,16 +128,21 @@ struct HostBlock {
   std::vector<float> k = std::vector<float>((size_t)PTT_SPREAD * PTT_COEF_W);
 };
 
+// spread_ray for thread i: ray idx, not live unless in.
+static void host_ray(HostBlock& hb, int32_t i, V3 c, const float* const* ray, const uint8_t* live,
+                     const float* tlim, long long idx, bool in) {
+  hb.r[i] = walk_ray(c, in ? v3(ray[0][idx], ray[1][idx], ray[2][idx]) : v3(0.0f, 0.0f, 0.0f),
+                     in ? v3(ray[3][idx], ray[4][idx], ray[5][idx]) : v3(0.0f, 0.0f, 0.0f),
+                     in && live[idx] != 0, in ? tlim[idx] : 0.0f);
+  hb.key[i] = walk_key(hb.r[i].best, hb.r[i].best_tri);
+}
+
 // spread_ray for every thread of block b: rays past n are not live.
 static void host_block_rays(HostBlock& hb, int32_t b, V3 c, const float* const* ray,
                             const uint8_t* live, const float* tlim, int32_t n) {
   for (int32_t i = 0; i < PTT_RAY_TILE; ++i) {
     const int32_t idx = b * PTT_RAY_TILE + i;
-    const bool in = idx < n;
-    hb.r[i] = walk_ray(c, in ? v3(ray[0][idx], ray[1][idx], ray[2][idx]) : v3(0.0f, 0.0f, 0.0f),
-                       in ? v3(ray[3][idx], ray[4][idx], ray[5][idx]) : v3(0.0f, 0.0f, 0.0f),
-                       in && live[idx] != 0, in ? tlim[idx] : 0.0f);
-    hb.key[i] = walk_key(hb.r[i].best, hb.r[i].best_tri);
+    host_ray(hb, i, c, ray, live, tlim, idx, idx < n);
   }
 }
 
@@ -180,11 +187,12 @@ static bool host_block_goes_on(const HostBlock& hb, float tlo) {
   return go;
 }
 
+// spread_out: a tri at or past num_tris is written -1.
 static void host_block_out(const HostBlock& hb, int32_t b, int32_t n, float* out_t,
-                           int32_t* out_tri) {
+                           int32_t* out_tri, int32_t num_tris = PTT_INT_MAX) {
   for (int32_t i = 0; i < PTT_RAY_TILE && b * PTT_RAY_TILE + i < n; ++i) {
     out_t[b * PTT_RAY_TILE + i] = hb.r[i].best;
-    out_tri[b * PTT_RAY_TILE + i] = hb.r[i].best_tri;
+    out_tri[b * PTT_RAY_TILE + i] = hb.r[i].best_tri >= num_tris ? -1 : hb.r[i].best_tri;
   }
 }
 
@@ -237,21 +245,72 @@ void ptt_host_super_block(const float* coef, const float* aabb, const float* saa
   }
 }
 
-// ptt_sweep_kernel: tiles 0..ct-1 in order, a block with no live ray skipped.
-void ptt_host_sweep_block(const float* coef, const float* aabb, int32_t ct, const float* center,
-                          const float* const* ray, const uint8_t* live, const float* tlim,
-                          float baby_eps, float eps_succ, int32_t n, float* out_t,
-                          int32_t* out_tri) {
+// sweep_spread: tiles 0..ct-1 in order, a block with no live ray skipped;
+// with mono, each ray's root cull joins its live flag and a tri at or past
+// num_tris is written -1.
+static void host_sweep_blocks(const float* coef, const float* aabb, int32_t ct,
+                              const float* center, const float* const* ray, const uint8_t* live,
+                              const float* tlim, bool mono, int32_t num_tris, float baby_eps,
+                              float eps_succ, int32_t n, float* out_t, int32_t* out_tri) {
   const V3 c = v3(center[0], center[1], center[2]);
   HostBlock hb;
   for (int32_t b = 0; b < (n + PTT_RAY_TILE - 1) / PTT_RAY_TILE; ++b) {
     host_block_rays(hb, b, c, ray, live, tlim, n);
     bool any = false;
-    for (int32_t i = 0; i < PTT_RAY_TILE; ++i) any = any || hb.r[i].live;
+    for (int32_t i = 0; i < PTT_RAY_TILE; ++i) {
+      WalkRay& r = hb.r[i];
+      if (mono) r.live = r.live && root_hit(aabb, ct, r.os, r.inv, r.tlim);
+      any = any || r.live;
+    }
     for (int32_t t = 0; any && t < ct; ++t) {
       host_spread_entry(hb, coef, aabb + 8 * t, t, nullptr, baby_eps, eps_succ);
     }
-    host_block_out(hb, b, n, out_t, out_tri);
+    host_block_out(hb, b, n, out_t, out_tri, num_tris);
+  }
+}
+
+// ptt_sweep_kernel.
+void ptt_host_sweep_block(const float* coef, const float* aabb, int32_t ct, const float* center,
+                          const float* const* ray, const uint8_t* live, const float* tlim,
+                          float baby_eps, float eps_succ, int32_t n, float* out_t,
+                          int32_t* out_tri) {
+  host_sweep_blocks(coef, aabb, ct, center, ray, live, tlim, false, PTT_INT_MAX, baby_eps,
+                    eps_succ, n, out_t, out_tri);
+}
+
+// ptt_mono_kernel (the arguments of ptt_host_mono).
+void ptt_host_mono_block(const float* coef, const float* aabb, int32_t ct, const float* center,
+                         const float* const* ray, const uint8_t* active, const float* tlim,
+                         int32_t num_tris, float baby_eps, float eps_succ, int32_t n,
+                         float* out_t, int32_t* out_tri) {
+  host_sweep_blocks(coef, aabb, ct, center, ray, active, tlim, true, num_tris, baby_eps,
+                    eps_succ, n, out_t, out_tri);
+}
+
+// ptt_binned_kernel: per visit v one spread_entry of its tile against its
+// 256 pair rows (an empty slot's row, or one past n, not live); a row with
+// no hit below its t_limit (tri -1) written (inf, -1), as is every row of
+// an empty visit.  The arguments of ptt_host_binned.
+void ptt_host_binned_block(const float* coef, const float* aabb, const float* center,
+                           const float* const* ray, const uint8_t* live, const float* tlim,
+                           const int32_t* vt, const int32_t* src, int32_t n, int32_t n_g,
+                           int32_t nv, float baby_eps, float eps_succ, float* out_t,
+                           int32_t* out_tri) {
+  const V3 c = v3(center[0], center[1], center[2]);
+  HostBlock hb;
+  for (int32_t v = 0; v < nv; ++v) {
+    const int32_t tile = vt[v];
+    for (int32_t row = 0; row < PTT_RAY_TILE; ++row) {
+      const int32_t p = src[v * (PTT_RAY_TILE / PTT_BINNED_G) + row / PTT_BINNED_G];
+      const long long i = (long long)p * PTT_BINNED_G + row % PTT_BINNED_G;
+      host_ray(hb, row, c, ray, live, tlim, i, tile >= 0 && p < n_g && i < n);
+    }
+    if (tile >= 0) host_spread_entry(hb, coef, aabb + 8 * tile, tile, nullptr, baby_eps, eps_succ);
+    for (int32_t row = 0; row < PTT_RAY_TILE; ++row) {
+      const bool hit = hb.r[row].best_tri >= 0;
+      out_t[v * PTT_RAY_TILE + row] = hit ? hb.r[row].best : ptt_inf();
+      out_tri[v * PTT_RAY_TILE + row] = hit ? hb.r[row].best_tri : -1;
+    }
   }
 }
 
@@ -404,7 +463,9 @@ void ptt_host_plan_prepass(const float* aabb, int32_t ct, const float* const* ra
   }
 }
 
-// ptt_binned_kernel: visit v's 256 pair rows against its tile.
+// The per-ray schedule that ptt_binned_kernel had before its block schedule
+// (ptt_host_binned_block): visit v's 256 pair rows against its tile, one
+// thread a row, binned_pair.
 void ptt_host_binned(const float* coef, const float* aabb, const float* center,
                      const float* const* ray, const uint8_t* live, const float* tlim,
                      const int32_t* vt, const int32_t* src, int32_t n, int32_t n_g, int32_t nv,

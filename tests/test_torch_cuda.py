@@ -124,7 +124,7 @@ def test_wrappers_raise_on_bad_input(cuda):
 
 
 # ---------------------------------------------------------------------------
-# The mesh kernels (csrc/fused_mesh.cu) on scenes/cornell_mesh_5k.json
+# The mesh kernels (csrc/mesh_walk.cu, csrc/fused_mesh.cu) on scenes/cornell_mesh_5k.json
 # ---------------------------------------------------------------------------
 
 MESH = "cornell_mesh_5k.json"
@@ -407,6 +407,75 @@ def test_planned_kernels_ties_limit_and_empty_rows(cuda, kind, n):
         else:
             assert int(plan.cnt[1]) == 0
             assert torch.equal(got[0][second], tl[second]) and (got[1][second] == -1).all()
+
+
+@pytest.mark.parametrize("n", [2048, 1003])
+@pytest.mark.parametrize("kind", ["mono", "binned"])
+def test_mono_and_binned_kernels_ties_limit_and_tails(cuda, kind, n):
+    """The mono walk's and the binned visits' block schedules on the
+    two-tile tie mesh with n rays (1003: the last block holds 235 rays and
+    the last packet 3), then with every other hit ray's t_limit moved onto
+    its hit, then with the second block's rays inactive (mono: a dead
+    block, skipped whole): (t, tri) bit-equal to the plain versions (binned:
+    every pair row), ties to the lower copy, a hit at exactly t_limit left
+    at (t_limit, -1) by mono and at (inf, -1) in each of its ray's pair rows
+    by binned, whose rows of empty visits (vt = -1) and empty slots (p =
+    n_g) are (inf, -1)."""
+    from torch_fixtures import TIE_TRIS, tie_mesh
+
+    pos, o, d, lim = tie_mesh(np.random.default_rng(60), n)
+    nrm = np.zeros_like(pos)
+    nrm[:] = [0.0, 0.0, 1.0]
+    t3 = lambda a: np.zeros(a, np.float32)
+    tables = intersect_mxu.build_mxu_tables(pos, nrm, t3((2048, 3, 2)), t3((2048, 3)),
+                                            t3((2048, 3)), np.zeros(2048, np.int32), cuda)
+    col = lambda a: Vec3(*(torch.from_numpy(np.ascontiguousarray(a[:, i])).to(cuda)
+                           for i in range(3)))
+    ro, rd = col(o), col(d)
+    tl = torch.from_numpy(lim).to(cuda)
+    ray = torch.arange(n, device=cuda)
+    even, second = ray % 2 == 0, ray // intersect_mxu.RAY_TILE == 1
+    fn = intersect_mxu.mono_intersect if kind == "mono" else intersect_mxu.binned_intersect
+    for step in ("as made", "moved", "dead block"):
+        active = ~second if step == "dead block" else torch.ones(n, dtype=torch.bool, device=cuda)
+        before = fn.launches
+        if kind == "mono":
+            args = (tables, 2048, ro, rd, active, tl, 1e-5)
+            got = fn(*args)
+            want = intersect_mxu.mono_intersect_plain(*args)
+            t, tri = got
+        else:
+            live = active & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro,
+                                                        *rd, tl)
+            pr = intersect_mxu.plan_rays(tables, ro, rd, live, tl)
+            n_g = pr.tl.shape[0] // intersect_mxu.BINNED_G
+            bins = intersect_mxu.packet_bins(
+                tables.tile_aabb, *pr, intersect_mxu.pair_budget(pr.tl.shape[0], 2), 128)
+            assert not bool(bins.overflow)
+            assert bool((bins.vt == -1).any()) and bool((bins.src == n_g).any())
+            args = (tables, ro, rd, live, tl, bins.vt, bins.src, n_g, 1e-5)
+            got = fn(*args)
+            want = intersect_mxu.binned_intersect_plain(*args)
+            _, pray, ok = intersect_mxu._pair_rays(bins.vt, bins.src, n_g, n)
+            assert torch.isinf(got[0][~ok]).all() and (got[1][~ok] == -1).all()
+            t, tri = intersect_mxu.binned_reduce(*got, bins, pr.tl, n_g)
+            t, tri = t[:n], tri[:n]
+        assert fn.launches == before + 1
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]), step
+        assert set(tri[tri >= 0].tolist()) == {TIE_TRIS[0]}
+        if step == "as made":
+            hit_tri, hit_t = tri, t
+            tl = torch.where(even & (hit_tri >= 0), hit_t, tl)
+        elif step == "moved":
+            at = even & (hit_tri >= 0)
+            assert int(at.sum()) > 50
+            assert torch.equal(t[at], tl[at]) and (tri[at] == -1).all()
+            if kind == "binned":
+                rows = ok & at[torch.clamp(pray, max=n - 1)]
+                assert int(rows.sum()) > 50
+                assert torch.isinf(got[0][rows]).all() and (got[1][rows] == -1).all()
+        else:
+            assert torch.equal(t[second], tl[second]) and (tri[second] == -1).all()
 
 
 def test_binned_kernel_matches_plain(cuda):

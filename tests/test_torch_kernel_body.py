@@ -521,11 +521,14 @@ def spread_libs(walk_lib, tmp_path_factory):
     walk_lib.ptt_host_sweep_block.argtypes = [P, P, i32, P, P, P, P, f32_, f32_, i32, P, P]
     walk_lib.ptt_host_super_block.argtypes = (
         [P, P, P, i32, i32] + [P] * 7 + [f32_, f32_, i32, P, P])
+    walk_lib.ptt_host_mono_block.argtypes = walk_lib.ptt_host_mono.argtypes
+    walk_lib.ptt_host_binned_block.argtypes = walk_lib.ptt_host_binned.argtypes
     libs = {512: walk_lib}
     for w in (256, 1024):
         libs[w] = build_host(tmp_path_factory, MESH_HARNESS, f"libmesh_path_host_{w}.so",
                              defines=[f"-DPTT_SPREAD_THREADS={w}"])
-        for f in ("ptt_host_streamed_block", "ptt_host_sweep_block", "ptt_host_super_block"):
+        for f in ("ptt_host_streamed_block", "ptt_host_sweep_block", "ptt_host_super_block",
+                  "ptt_host_mono_block", "ptt_host_binned_block"):
             getattr(libs[w], f).argtypes = getattr(walk_lib, f).argtypes
     return libs
 
@@ -660,6 +663,130 @@ def test_host_super_block_schedule_matches_plain(walk_lib, slice5_lib, spread_li
         assert torch.equal(got_tri, want_tri) and torch.equal(got_t, want_t), ct
         assert torch.equal(got_tri, per_ray[1]) and torch.equal(got_t, per_ray[0]), ct
         _check_limit_and_tie(name, got_t, got_tri, tl, live, want_tri)
+
+
+def _mono_case(name, mesh_scene):
+    """A mono case: (tables, num_tris, ro, rd, active, t_limit).  "5k": the
+    5k mesh's camera rays and 3,000 rays shot at it from a sphere around it
+    (3,768 rays: the last block holds 184), a fifth of them inactive, every
+    fifth sphere ray turned away from the mesh (root-culled), random
+    t_limits; "clamp": the same with num_tris cut to the median id of the
+    hits, so that a ray's best id may lie at or past it; "tie" and "limit":
+    the two-tile tie mesh as the walks take it (the kernel takes the root
+    cull itself, so every ray is active)."""
+    if name in ("tie", "limit"):
+        tables, ro, rd, _, tl, _ = _streamed_case(name)
+        return tables, 2048, ro, rd, torch.ones(tl.shape[0], dtype=torch.bool), tl
+    dev, static, cam = mesh_scene
+    n = static.pixel_count
+    idx = torch.arange(n, dtype=torch.int32)
+    ik = prng.iteration_key(prng.prng_key(0), 1)
+    paths = camera_ops.generate_camera_rays(
+        cam, static.width, static.height, static.trace_depth,
+        prng.uniforms_at(prng.stage_key(ik, 0, 0), idx, 4, n), idx=idx)
+    rng = np.random.default_rng(3)
+    m = 3000
+    c = dev.mxu_mesh.center.numpy().astype(np.float64)
+    o = rng.normal(size=(m, 3))
+    o = c + 4.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = c + rng.uniform(-1.5, 1.5, (m, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[::5] *= -1.0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    ro = Vec3(*(torch.cat([a, t(o[:, i])]) for i, a in enumerate(paths.origin)))
+    rd = Vec3(*(torch.cat([a, t(d[:, i])]) for i, a in enumerate(paths.direction)))
+    active = torch.from_numpy(rng.random(n + m) > 0.2)
+    tl = torch.cat([prim_t_min(static, RenderConfig(), paths.origin, paths.direction),
+                    t(np.where(rng.random(m) > 0.5, 3.4e38, rng.uniform(2.0, 6.0, m)))])
+    num_tris = static.num_triangles
+    if name == "clamp":
+        _, tri = intersect_mxu.mono_intersect_plain(dev.mxu_mesh, num_tris, ro, rd, active, tl,
+                                                    1e-5)
+        num_tris = int(tri[tri >= 0].median())
+    return dev.mxu_mesh, num_tris, ro, rd, active, tl
+
+
+@pytest.mark.parametrize("threads", [256, 512, 1024])
+@pytest.mark.parametrize("name", ["5k", "clamp", "tie", "limit"])
+def test_host_mono_block_schedule_matches_plain(mesh_lib, mesh_scene, spread_libs, name,
+                                                threads):
+    """ptt_mono_kernel's block schedule (the sweep's loop over at most 8
+    tiles, each ray's root cull in its live flag, a dead block skipped, the
+    num_tris clamp after the minimum) at three block widths: t and tri
+    bit-equal to mono_intersect_plain's and to the per-ray mono walk's;
+    root-culled and inactive rays at (t_limit, -1); with num_tris cut, rays
+    whose best id lies past it at (t, -1); ties across the tie mesh's two
+    tiles to the lower copy; a hit at exactly t_limit left at (t_limit,
+    -1)."""
+    tables, num_tris, ro, rd, active, tl = _mono_case(name, mesh_scene)
+    n = ro.x.shape[0]
+    want_t, want_tri = intersect_mxu.mono_intersect_plain(tables, num_tris, ro, rd, active, tl,
+                                                          1e-5)
+    rays = [p.contiguous() for p in (*ro, *rd)]
+    act, tlc = active.to(torch.uint8).contiguous(), tl.contiguous()
+    got, per_ray = [(torch.empty(n), torch.empty(n, dtype=torch.int32)) for _ in range(2)]
+    for fn, (t, tri) in ((spread_libs[threads].ptt_host_mono_block, got),
+                         (mesh_lib.ptt_host_mono, per_ray)):
+        fn(tables.coef.data_ptr(), tables.tile_aabb.data_ptr(), tables.tile_aabb.shape[0],
+           tables.center.data_ptr(), _ptrs(rays), act.data_ptr(), tlc.data_ptr(), num_tris,
+           *_eps_args(), n, t.data_ptr(), tri.data_ptr())
+    got_t, got_tri = got
+    assert torch.equal(got_tri, want_tri) and torch.equal(got_t, want_t)
+    assert torch.equal(got_tri, per_ray[1]) and torch.equal(got_t, per_ray[0])
+    live = active & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+    assert torch.equal(got_t[~live], tl[~live]) and (got_tri[~live] == -1).all()
+    if name in ("5k", "clamp"):
+        assert int((active & ~live).sum()) > 100  # root-culled rays
+    if name == "clamp":
+        assert int(((got_tri == -1) & (got_t < tl)).sum()) > 20  # hits past num_tris
+    else:
+        _check_limit_and_tie(name, got_t, got_tri, tl, live, want_tri)
+
+
+@pytest.mark.parametrize("threads", [256, 512, 1024])
+@pytest.mark.parametrize("name", ["20k", "tie", "limit"])
+def test_host_binned_block_schedule_matches_plain(walk_lib, spread_libs, name, threads):
+    """ptt_binned_kernel's block schedule (one spread_entry of the visit's
+    tile against its 256 pair rows) at three block widths, over bins with
+    empty visits (vt = -1) and empty slots (p = n_g): every pair row's (t,
+    tri) bit-equal to binned_intersect_plain's and to the per-ray binned
+    body's, the rows of empty visits and slots at (inf, -1); reduced per
+    ray, ties across the tie mesh's two tiles to the lower copy, and a hit
+    at exactly t_limit left at (inf, -1) in every row of its ray."""
+    tables, ro, rd, live, tl, _ = _streamed_case(name)
+    n = ro.x.shape[0]
+    pr = intersect_mxu.plan_rays(tables, ro, rd, live, tl)
+    n_pad = pr.tl.shape[0]
+    n_g = n_pad // intersect_mxu.BINNED_G
+    bins = intersect_mxu.packet_bins(
+        tables.tile_aabb, *pr, intersect_mxu.pair_budget(n_pad, tables.tile_aabb.shape[0]), 128)
+    assert not bool(bins.overflow)
+    assert bool((bins.vt == -1).any()) and bool((bins.src == n_g).any())
+    nv = bins.vt.shape[0]
+    want_t, want_tri = intersect_mxu.binned_intersect_plain(
+        tables, ro, rd, live, tl, bins.vt, bins.src, n_g, 1e-5)
+    rays = [p.contiguous() for p in (*ro, *rd)]
+    lv, tlc = live.to(torch.uint8).contiguous(), tl.contiguous()
+    got, per_row = [(torch.empty(nv * 256), torch.empty(nv * 256, dtype=torch.int32))
+                    for _ in range(2)]
+    for fn, (t, tri) in ((spread_libs[threads].ptt_host_binned_block, got),
+                         (walk_lib.ptt_host_binned, per_row)):
+        fn(tables.coef.data_ptr(), tables.tile_aabb.data_ptr(), tables.center.data_ptr(),
+           _ptrs(rays), lv.data_ptr(), tlc.data_ptr(), bins.vt.data_ptr(), bins.src.data_ptr(),
+           n, n_g, nv, *_eps_args(), t.data_ptr(), tri.data_ptr())
+    got_t, got_tri = got
+    assert torch.equal(got_tri, want_tri) and torch.equal(got_t, want_t)
+    assert torch.equal(got_tri, per_row[1]) and torch.equal(got_t, per_row[0])
+    _, ray, ok = intersect_mxu._pair_rays(bins.vt, bins.src, n_g, n)
+    assert torch.isinf(got_t[~ok]).all() and (got_tri[~ok] == -1).all()
+    red_t, red_tri = intersect_mxu.binned_reduce(got_t, got_tri, bins, pr.tl, n_g)
+    red_t, red_tri = red_t[:n], red_tri[:n]
+    _check_limit_and_tie(name, red_t, red_tri, tl, live, red_tri)
+    if name == "limit":
+        at = (torch.arange(n) % 2 == 0) & live & (red_t == tl)
+        rows = ok & at[torch.clamp(ray, max=n - 1)]
+        assert int(rows.sum()) > 100
+        assert torch.isinf(got_t[rows]).all() and (got_tri[rows] == -1).all()
 
 
 def test_host_binned_matches_plain(walk_lib):

@@ -259,3 +259,75 @@ def test_chip_smoke_walk_bound_counts_the_pairs_the_result_needs():
         assert walk[2] == sweep[2] and walk[0] > 0.0
         gated, listed = gated + walk[2], listed + member[2]
     assert 0 < gated < listed
+
+
+def test_bench_kernels_mono_and_binned_lines_on_the_cpu(capsys):
+    """``torch_bench_kernels.py --walks mono binned`` on the CPU at 8x8: a
+    mono line per sorted 5k bounce, a binned line per 200k bounce where a
+    binned tier engages (with its visits and prefix), the 5k sorted and
+    unsorted frames with one film hash (the sort changes no film), the
+    textured-mesh and 200k "auto" frames; nothing timed."""
+    sys.path.insert(0, str(REPO / "scripts"))
+    try:
+        recs = _load("torch_bench_kernels").run(
+            ["--device", "cpu", "--res", "8", "--scenes", "5k", "200k", "--walks", "mono",
+             "binned", "--bounces", "2", "--k", "1", "--scan-n", "2000"])
+    finally:
+        sys.path.remove(str(REPO / "scripts"))
+    walks = [(r["walk"], r["scene"], r["bounce"]) for r in recs if r["kind"] == "walk"]
+    assert walks[:2] == [("mono", "5k", 0), ("mono", "5k", 1)]
+    binned = [r for r in recs if r["kind"] == "walk" and r["walk"] == "binned"]
+    assert binned and all(r["visits"] > 0 and r["prefix"] % 256 == 0 for r in binned)
+    frames = {(r["scene"], r["traversal"]): r["film_sha"] for r in recs if r["kind"] == "frame"}
+    assert set(frames) == {("5k", "auto"), ("5k", "auto, unsorted"), ("mesh_textured", "auto"),
+                           ("200k", "auto")}
+    assert frames[("5k", "auto")] == frames[("5k", "auto, unsorted")]
+    assert all(r["ms"] is None for r in recs if "ms" in r)
+
+
+def test_chip_smoke_mono_and_binned_bounds():
+    """``chip_smoke.py``'s bound of a mono launch counts the same (ray,
+    tile) pairs as the sweep's bound over every tile behind the root cull
+    (the pairs whose entry is within the ray's final hit); its binned bound
+    splits the pair rows into members of their visit's tile, live rows and
+    all rows, on the sorted 5k and 200k bounces at 32x32."""
+    import torch
+
+    from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import (
+        build_device_scene, camera_state, derive_render_camera, load_scene, set_resolution,
+    )
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    bench = _load("torch_bench_kernels")
+    cfg = RenderConfig()
+    members = 0
+    for name in ("5k", "200k"):
+        scene = set_resolution(load_scene(str(REPO / "scenes" / f"cornell_mesh_{name}.json")),
+                               32, 32)
+        dev, static = build_device_scene(scene, "cpu")
+        cam = camera_state(derive_render_camera(scene.state.camera))
+        tables = dev.mxu_mesh
+        for paths, tl, live in bench.sorted_bounces(dev, static, cam, cfg, "cpu", 2):
+            if name == "5k":
+                args = (tables, static.num_triangles, paths.origin, paths.direction,
+                        paths.alive, tl, cfg.baby_epsilon)
+                b = smoke.mono_bound(args)
+                every = torch.ones((-(-static.pixel_count // mxu.RAY_TILE),
+                                    tables.tile_aabb.shape[0]), dtype=torch.bool)
+                hit_t = mxu.mono_intersect(*args)[0]
+                sweep = smoke.visit_bound(tables, paths.origin, paths.direction, live, tl,
+                                          every, 0, gate_t=hit_t)
+                assert torch.equal(b[3], live) and b[2] == sweep[2] > 0 and b[0] > 0.0
+                continue
+            found = bench.binned_args(mxu, tables, paths, tl, live, cfg.mxu_binned_tiers)
+            if found is None:
+                continue
+            b = smoke.binned_bound(found[0])
+            (ok_rows, rows), pairs = b[3], b[2]
+            assert 0 < pairs <= ok_rows <= rows == found[0][5].numel() * mxu.RAY_TILE
+            members += pairs
+    assert members > 0
