@@ -24,7 +24,10 @@ into ``build/chip_smoke/``; phase 17), the super-tile streamed walk
 (``PTT_PLAN_IMPL=pallas``, phase 19) --
 checks the results against the committed golden films, and times the
 kernel paths against the plain versions with CUDA events; phase 9 profiles
-whole frames.  Any failure raises and exits non-zero.
+whole frames.  Phases 8e and 14e check and time the mesh-shade kernel on
+each sorted bounce as the main path launches it, with the carried prim
+winner; phase 7 logs the iteration kernel's lane use from a counting build
+of it.  Any failure raises and exits non-zero.
 
 Output: progress lines, then the card's ``nvidia-smi`` name and power
 limit, then one JSON line describing the kernels, and last one JSON line
@@ -58,7 +61,8 @@ sys.path.insert(0, str(ROOT / "scripts"))
 # script's, so that its numbers and this script's describe the same rays
 # and films.
 from torch_bench_kernels import (  # noqa: E402
-    binned_args, chain_calls, env_set, sha, sorted_bounces, super_args,
+    binned_args, chain_calls, env_set, lane_use, sha, shade_outputs, shade_states,
+    sorted_bounces, super_args, variant_library,
 )
 
 PKG = "project3_cuda_path_tracer_2025_tpu_torch"
@@ -244,11 +248,11 @@ def mesh_phases(device, smi: str) -> tuple:
     mono_err, shade_err = 0.0, 0.0
     mono_case = shade_case = None
     for d in range(3):
-        tl = prim_t_min(static, cfg, paths.origin, paths.direction)
+        tl, win = prim_t_min(static, cfg, paths.origin, paths.direction, winner=True)
         perm = intersect_mxu.coherence_perm(tables, paths.origin, paths.direction, paths.alive,
                                             tl, cfg.ray_sort_bits, cfg.ray_sort_dir_bits,
                                             mode="signature")
-        paths, (tl,) = permute_path_state(paths, perm, extra=(tl,))
+        paths, (tl, win) = permute_path_state(paths, perm, extra=(tl, win))
         margs = (tables, static.num_triangles, paths.origin, paths.direction, paths.alive, tl,
                  cfg.baby_epsilon)
         t_k, tri_k = intersect_mxu.mono_intersect(*margs)
@@ -269,8 +273,10 @@ def mesh_phases(device, smi: str) -> tuple:
         for emit in fused.EMIT_MODES:
             sargs = (prim_static, cfg, paths, mt, mn, mm, skey, n, emit, tables.tile_aabb,
                      tables.center)
-            got = fused.fused_mesh_shade(*sargs)
-            want = fused.fused_mesh_shade_plain(*sargs)
+            # The main path's carried prim winner (here the prepass's).
+            skw = dict(prim_winner=win, want_winner=bool(emit))
+            got = fused.fused_mesh_shade(*sargs, **skw)
+            want = fused.fused_mesh_shade_plain(*sargs, **skw)
             torch.cuda.synchronize()
             (gp, gc), (wp, wc) = (got, want) if emit else ((got, None), (want, None))
             fk = [*gp.origin, *gp.direction, *gp.color] + ([gc[0]] if emit else [])
@@ -280,6 +286,7 @@ def mesh_phases(device, smi: str) -> tuple:
                 lane_bad |= ~torch.isclose(a, b, rtol=STAGE_RTOL, atol=STAGE_ATOL)
             bn_diff = int((gp.bounces != wp.bounces).sum())
             key_diff = int((gc[1] != wc[1]).sum()) if emit == "tlim+key" else 0
+            key_diff += int((gc[2] != wc[2]).sum()) if emit else 0  # the emitted winner
             err = max(float((a - b).abs().max()) for a, b in zip(fk, fp))
             share = float(lane_bad.float().mean())
             log(f"[8b] shade bounce {d} emit={emit or 'none'}: max abs diff {err:.3g}; lanes "
@@ -289,7 +296,7 @@ def mesh_phases(device, smi: str) -> tuple:
                 raise AssertionError("the mesh-shade kernel disagrees with its plain version")
             shade_err = max(shade_err, err)
             if emit == "tlim+key" and shade_case is None:
-                shade_case = sargs
+                shade_case = (sargs, skw)
         paths = want[0]
 
     # -- 8c. one frame: the kernel path against the plain fused-mesh path,
@@ -300,16 +307,21 @@ def mesh_phases(device, smi: str) -> tuple:
     film_s, alive_s = frame(cfg)
     film_u, alive_u = frame(RenderConfig(ray_sorting="off"))
     film_p, alive_p = frame(cfg, plain=True)
+    film_e, alive_e = megakernel_iteration(dev, static, cfg, cam, film_ops.new_film(n, device), 1,
+                                           base_key, carry_winner=False)
     torch.cuda.synchronize()
     log("[8c] one frame, kernel path vs the plain fused-mesh path (megakernel_iteration "
         "plain=True):")
     r_frame = compare_films("sorted kernel path vs plain", film_s, film_p)
     sorted_eq = all(torch.equal(a, b) for a, b in zip(film_s, film_u))
-    log(f"  sorted and unsorted kernel films bit-identical: {sorted_eq}; alive per depth "
+    carry_eq = all(torch.equal(a, b) for a, b in zip(film_s, film_e))
+    log(f"  sorted and unsorted kernel films bit-identical: {sorted_eq}; with and without the "
+        f"carried prim winner: {carry_eq}; alive per depth "
         f"kernel {alive_s.tolist()}, plain {alive_p.tolist()}")
     alive_rel = np.abs(alive_s.cpu().numpy() - alive_p.cpu().numpy()) / np.maximum(
         alive_p.cpu().numpy(), 1)
-    if not (sorted_eq and torch.equal(alive_s, alive_u) and r_frame["finite"]
+    if not (sorted_eq and carry_eq and torch.equal(alive_s, alive_e)
+            and torch.equal(alive_s, alive_u) and r_frame["finite"]
             and r_frame["sum_rel"] <= MAX_SUM_REL and r_frame["pixel_share"] <= MAX_PIXEL_SHARE
             and (alive_rel <= MAX_ALIVE_REL).all()):
         raise AssertionError("the mesh kernel path disagrees with the plain path")
@@ -363,8 +375,10 @@ def mesh_phases(device, smi: str) -> tuple:
         "mesh kernel path, unsorted": (run_path(RenderConfig(ray_sorting="off")), 5),
         "mono kernel (1 bounce)": (lambda: intersect_mxu.mono_intersect(*mono_case), 10),
         "plain mono (1 bounce)": (lambda: intersect_mxu.mono_intersect_plain(*mono_case), 1),
-        "mesh-shade kernel (1 bounce)": (lambda: fused.fused_mesh_shade(*shade_case), 20),
-        "plain mesh shade (1 bounce)": (lambda: fused.fused_mesh_shade_plain(*shade_case), 1),
+        "mesh-shade kernel (1 bounce)": (
+            lambda: fused.fused_mesh_shade(*shade_case[0], **shade_case[1]), 20),
+        "plain mesh shade (1 bounce)": (
+            lambda: fused.fused_mesh_shade_plain(*shade_case[0], **shade_case[1]), 1),
     }
     rounds = {k: (3 if k.startswith("plain") else TIMING_ROUNDS) for k in paths_t}
     times = time_paths(paths_t, rounds)
@@ -387,7 +401,7 @@ def mesh_phases(device, smi: str) -> tuple:
     # Bounds at the timed shapes (bounce 0 of the main path, sorted).
     mono_b = mono_bound(mono_case)
     act, pairs = mono_b[3], mono_b[2]
-    live = int(shade_case[2].alive.sum())
+    live = int(shade_case[0][2].alive.sum())
     shade_bound = bound_ms(
         n * (16 + 12) * 4,  # 16 planes in, 12 out
         live * (prim_ops(prim_static) + OPS_MERGE + OPS_SCATTER)
@@ -417,6 +431,7 @@ def mesh_phases(device, smi: str) -> tuple:
     bu = mono_bound(a)
     launch("8e", "mono_intersect unsorted bounce 0", lambda: intersect_mxu.mono_intersect(*a), 20,
            bu, bu[3], smi)
+    shade_bounces("8e", dev, static, cam, cfg, device, smi)
 
     profiled = {
         "mesh kernel path, sorted": paths_t["mesh kernel path, sorted"][0],
@@ -991,11 +1006,12 @@ def larger_mesh_phases(device, smi: str) -> tuple:
 
 def tex_states(dev, static, cam, cfg, device, mode: str, bounces: int = 4) -> list:
     """Camera rays and the next bounces of a textured scene as the main path
-    shades them: [(paths, surface, shade key)], ``surface`` the kernel's
-    resolved inputs (mesh_t, normal, material, albedo).  Mode "textured"
-    (a textured mesh): each state in coherence order with the mesh surface
-    stage; mode "precomputed" (a textured prim): intersect_scene and
-    textured_surface.  The next state comes from the plain shade."""
+    shades them: [(paths, surface, shade key, winner)], ``surface`` the
+    kernel's resolved inputs (mesh_t, normal, material, albedo).  Mode
+    "textured" (a textured mesh): each state in coherence order with the
+    mesh surface stage and the carried prim winner; mode "precomputed" (a
+    textured prim): intersect_scene and textured_surface, no winner.  The
+    next state comes from the plain shade."""
     import dataclasses
 
     from project3_cuda_path_tracer_2025_tpu_torch.ops import camera as camera_ops
@@ -1014,12 +1030,13 @@ def tex_states(dev, static, cam, cfg, device, mode: str, bounces: int = 4) -> li
         prng.uniforms_at(prng.stage_key(ik, 0, 0), torch.arange(n, device=device), 4, n))
     out = []
     for d in range(bounces):
+        win = None
         if mode == "textured":
             tables = dev.mxu_mesh
-            tl = prim_t_min(static, cfg, paths.origin, paths.direction)
+            tl, win = prim_t_min(static, cfg, paths.origin, paths.direction, winner=True)
             perm = mxu.coherence_perm(tables, paths.origin, paths.direction, paths.alive, tl,
                                       cfg.ray_sort_bits, cfg.ray_sort_dir_bits, mode="signature")
-            paths, (tl,) = permute_path_state(paths, perm, extra=(tl,))
+            paths, (tl, win) = permute_path_state(paths, perm, extra=(tl, win))
             surf = fused.textured_mesh_surface(dev, static, cfg, paths, tl)
         else:
             isect = intersect_scene(dev, static, paths, cfg)
@@ -1029,7 +1046,7 @@ def tex_states(dev, static, cam, cfg, device, mode: str, bounces: int = 4) -> li
                 live=paths.alive & (isect.t > 0.0))
             surf = (isect.t, nrm, isect.material_id, alb)
         skey = prng.stage_key(ik, d, 1)
-        out.append((paths, surf, skey))
+        out.append((paths, surf, skey, win))
         paths = fused.fused_mesh_shade_plain(prim_static, cfg, paths, *surf[:3], skey, n,
                                              mode=mode, mesh_albedo=surf[3])
     return out
@@ -1049,6 +1066,48 @@ def shade_mode_bound(n: int, live: int, prim_static, mode: str, emit: str, ct: i
     if emit == "tlim+key":
         ops += n * (OPS_KEY_RAY + ct * OPS_KEY_TILE)
     return bound_ms(n * planes * 4, ops)
+
+
+def shade_bounces(tag, dev, static, cam, cfg, device, smi) -> None:
+    """The mesh-shade kernel on each of a frame's sorted bounces as the main
+    path launches it (``torch_bench_kernels.shade_states``: the carried prim
+    winner, the emit the main path asks): bit-equal to its plain version
+    given the same winner, and to itself testing every prim; both timed
+    (median of 3 samples of 20 launches), with the bound of the function
+    (``shade_mode_bound``) and its share."""
+    import dataclasses
+
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused
+
+    prim_static = dataclasses.replace(static, num_triangles=0)
+    ct = dev.mxu_mesh.tile_aabb.shape[0]
+    n = static.pixel_count
+    for d, (a, kw) in enumerate(shade_states(dev, static, cam, cfg, device, static.trace_depth)):
+        every = {k: v for k, v in kw.items() if k not in ("prim_winner", "want_winner")}
+        got = fused.fused_mesh_shade(*a, **kw)
+        want = fused.fused_mesh_shade_plain(*a, **kw)
+        got_e = fused.fused_mesh_shade(*a, **every)
+        torch.cuda.synchronize()
+        outs = lambda o: (*shade_outputs(o, a[8]), *(o[1][2:] if a[8] else ()))
+        bad = sum(bits_differ(x, y) for x, y in zip(outs(got), outs(want)))
+        bad += sum(bits_differ(x, y) for x, y in zip(shade_outputs(got, a[8]),
+                                                       shade_outputs(got_e, a[8])))
+        if bad:
+            raise AssertionError(f"[{tag}] the mesh-shade kernel with the carried winner is not "
+                                 f"bit-equal to its plain version, bounce {d}")
+        ms = {}
+        for what, k in (("carried", kw), ("every prim", every)):
+            fn = lambda k=k: fused.fused_mesh_shade(*a, **k)
+            fn()
+            torch.cuda.synchronize()
+            ms[what] = float(np.median([cuda_time_ms(fn, 20) for _ in range(3)]))
+        live = int(a[2].alive.sum())
+        b = shade_mode_bound(n, live, prim_static, kw["mode"], a[8], ct)
+        log(f"[{tag}] fused_mesh_shade[{kw['mode']}] sorted bounce {d} (emit "
+            f"{a[8] or 'none'}): {ms['carried']:.4f} ms per launch with the carried winner, "
+            f"{ms['every prim']:.4f} testing every prim, on {smi}; {live} live rays; bound "
+            f"{b[0]:.4f} ms ({b[1]}), {b[0] / ms['carried']:.1%} of it; bit-equal to the plain "
+            "version and to the launch without the winner")
 
 
 def texture_phases(device, smi: str) -> tuple:
@@ -1096,12 +1155,16 @@ def texture_phases(device, smi: str) -> tuple:
             # a. the kernel against its plain version, bit for bit
             states = tex_states(dev, static, cam, cfg, device, mode)
             case = None
-            for d, (paths, surf, skey) in enumerate(states):
+            for d, (paths, surf, skey, win) in enumerate(states):
                 args = (prim_static, cfg, paths, *surf[:3], skey, n, emit,
                         dev.mxu_mesh.tile_aabb if emit else None,
                         dev.mxu_mesh.center if emit else None)
-                got = fused.fused_mesh_shade(*args, mode=mode, mesh_albedo=surf[3])
-                want = fused.fused_mesh_shade_plain(*args, mode=mode, mesh_albedo=surf[3])
+                # the main path's carried prim winner (textured), none (precomputed)
+                kw = dict(mode=mode, mesh_albedo=surf[3])
+                if win is not None:
+                    kw.update(prim_winner=win, want_winner=bool(emit))
+                got = fused.fused_mesh_shade(*args, **kw)
+                want = fused.fused_mesh_shade_plain(*args, **kw)
                 torch.cuda.synchronize()
                 (gp, gc), (wp, wc) = (got, want) if emit else ((got, ()), (want, ()))
                 fk = [*gp.origin, *gp.direction, *gp.color, gp.bounces, *gc]
@@ -1116,7 +1179,7 @@ def texture_phases(device, smi: str) -> tuple:
                     raise AssertionError(f"the mesh-shade kernel in mode {mode!r} is not "
                                          "bit-equal to its plain version")
                 err = max(err, max(float((a.float() - b.float()).abs().max()) for a, b in zip(fk, fp)))
-                case = case or (args, surf[3])
+                case = case or (args, kw)
             # b. one frame: the kernel path against the plain path
             frame = lambda c, plain=False: megakernel_iteration(
                 dev, static, c, cam, film_ops.new_film(n, device), 1, base_key, plain=plain)
@@ -1155,16 +1218,19 @@ def texture_phases(device, smi: str) -> tuple:
             timed[fname] = (fr, 3)
             rays[fname] = float(n + alive_k.sum().item())
             if k == 0:
-                args, alb = case
+                args, kw = case
                 timed[f"mesh-shade kernel, {mode} (1 bounce)"] = (
-                    lambda: fused.fused_mesh_shade(*args, mode=mode, mesh_albedo=alb), 20)
+                    lambda: fused.fused_mesh_shade(*args, **kw), 20)
                 timed[f"plain mesh shade, {mode} (1 bounce)"] = (
-                    lambda: fused.fused_mesh_shade_plain(*args, mode=mode, mesh_albedo=alb), 1)
+                    lambda: fused.fused_mesh_shade_plain(*args, **kw), 1)
                 live = int(args[2].alive.sum())
                 entries[-1]["bound"] = shade_mode_bound(n, live, prim_static, mode, emit, ct)
                 log(f"    bound of one {mode} launch (bounce 0): {entries[-1]['bound'][0]:.4f} "
                     f"ms ({entries[-1]['bound'][1]}; {live} live rays)")
                 profiled[f"{path.stem} (textured, kernel path)"] = fr
+            if k == 0 and mode == "textured":
+                # e. every sorted bounce, with the carried winner
+                shade_bounces(f"{tag}e", dev, static, cam, cfg, device, smi)
         rounds = {k: (3 if "plain" in k else 5) for k in timed}
         ms = log_times(f"{tag}d", smi, time_paths(timed, rounds), timed, rounds, rays)
         entries[-1]["ms"] = ms[f"mesh-shade kernel, {mode} (1 bounce)"]
@@ -2083,6 +2149,18 @@ def prim_phases(device, smi: str) -> tuple:
     b_bound = bound_ms(nb * 92, nb * (prim_ops(b_static) + OPS_SCATTER))
     log(f"    bounds: iteration kernel {it_bound[0]:.4f} ms ({it_bound[1]}), "
         f"bounce kernel {b_bound[0]:.4f} ms ({b_bound[1]})")
+    # The iteration kernel's lane use, from a counting build of it
+    # (-DPTT_COUNT_LANES; the shipped kernel counts nothing), against the
+    # per-pixel schedule's on the same paths.
+    use = lane_use(static, RenderConfig(), cam, device, variant_library(("PTT_COUNT_LANES",)))
+    log(f"    lane use (live lane-bounces / issued) of one frame: regenerating schedule "
+        f"{use['regen_live']} / {use['regen_issued']} = "
+        f"{use['regen_live'] / use['regen_issued']:.1%}; the per-pixel schedule "
+        f"{use['per_pixel_live']} / {use['per_pixel_issued']} = "
+        f"{use['per_pixel_live'] / use['per_pixel_issued']:.1%} (of pixels x depth: "
+        f"{use['per_pixel_live'] / (n * depth):.1%})")
+    if use["regen_live"] != use["per_pixel_live"]:
+        raise AssertionError("the counting build bounced another number of live paths")
 
     kernels_line = [
         {
@@ -2442,7 +2520,7 @@ def main(argv=None) -> int:
     for lib in libs.values():
         log(f"    {lib.path.relative_to(ROOT)}: nvcc {lib.build_seconds:.1f} s")
         for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log("    ptxas: " + line.strip())
 
     kernels_line, frames = [], {}

@@ -4,7 +4,8 @@
 //   project3_cuda_path_tracer_2025_tpu/ops/fused.py::_mesh_bounce_kernel
 //   in its three modes (launched by _fused_mesh_shade): analytic-prim
 //   intersect, merge with the mesh hit, BSDF scatter with inline Threefry,
-//   and optionally the next bounce's prim t_limit and coherence sort key.
+//   and optionally the next bounce's prim t_limit (with the prim that gives
+//   it) and coherence sort key.
 //   Mode "textured" takes the mesh lanes' albedo and final shading normal
 //   (texture and bump resolved in torch before the launch); mode
 //   "precomputed" takes every lane's resolved surface and skips the prim
@@ -12,9 +13,20 @@
 // The bounce's traversal kernels (the mono walk of meshes of at most 8
 // tiles among them) are in mesh_walk.cu.
 //
-// What bounds it on the H100: arithmetic, like the prim bounce kernel: ~76
-// B per ray in and out against a few thousand flops (prim intersect, BSDF,
-// 3 x 20 Threefry rounds, prim t and the key).  One thread a ray.
+// What bounds it on the H100: arithmetic, like the prim bounce kernel: ~80
+// B per ray in and out against a few thousand flops (BSDF, 3 x 20 Threefry
+// rounds, the prim tests and the key).  The JAX kernel's function tests
+// every prim twice per ray and bounce: once for the ray it shades and once,
+// with emit, for the ray it scatters -- the next bounce's t_limit.  The
+// walk between two bounces leaves each ray's origin and direction as they
+// are, so the first pass repeats the second one of the bounce before.  So
+// the design carries the second pass's winner across the bounce (out_win
+// here, prim_win in the next launch, permuted with the rays when they are
+// sorted): a lane with a mesh hit tests no prim, and a lane without one
+// tests its winner alone, which gives the same hit bit for bit.  What is
+// left is one pass over the prims per ray with emit, the scatter and the
+// key.  A launch given no winner (bounce 0 without one) tests every prim of
+// the lanes without a mesh hit.  One thread a ray.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC (ops/kernels.py).  Plain C interface, loaded with
@@ -37,12 +49,14 @@ struct PttMeshShadeArgs {
   const float* mesh_n[3];
   const int32_t* mesh_mat;   // -1 = no mesh hit
   const float* mesh_alb[3];  // albedo rgb (mode >= 1)
+  const int32_t* prim_win;   // the carried prim winner (-1 none); null: test every prim
   const float* tile_aabb;    // [ct, 8] (emit == 2)
   const float* center;       // [3] (emit == 2)
   float* out_f[9];
   int32_t* out_bounces;
   float* out_tlim;           // emit >= 1
   int32_t* out_key;          // emit == 2
+  int32_t* out_win;          // emit >= 1, optional: the prim that gives out_tlim
   uint32_t k0, k1, rng_n;
   int32_t n, ct, emit;       // emit: 0 none, 1 t_lim, 2 t_lim + key
   int32_t mode;              // PTT_SHADE_PLAIN / _TEXTURED / _PRECOMPUTED
@@ -76,7 +90,7 @@ __global__ void __launch_bounds__(PTT_THREADS) ptt_mesh_shade_kernel(const PttMe
                      ? v3(0.0f, 0.0f, 0.0f)
                      : v3(a.mesh_alb[0][idx], a.mesh_alb[1][idx], a.mesh_alb[2][idx]);
   mesh_shade_ray(sh_scene, ray, a.mesh_t[idx], mn, a.mesh_mat[idx], a.mode, alb, a.k0, a.k1,
-                 a.rng_n, a.pixel[idx]);
+                 a.rng_n, a.pixel[idx], a.prim_win ? a.prim_win[idx] : PTT_NO_WINNER);
   a.out_f[0][idx] = ray.o.x;
   a.out_f[1][idx] = ray.o.y;
   a.out_f[2][idx] = ray.o.z;
@@ -88,8 +102,10 @@ __global__ void __launch_bounds__(PTT_THREADS) ptt_mesh_shade_kernel(const PttMe
   a.out_f[8][idx] = ray.c.z;
   a.out_bounces[idx] = ray.bounces;
   if (a.emit >= 1) {
-    const float tl = prim_t_min(sh_scene, ray.o, ray.d);
+    int32_t win;
+    const float tl = prim_t_min_win(sh_scene, ray.o, ray.d, &win);
     a.out_tlim[idx] = tl;
+    if (a.out_win) a.out_win[idx] = win;
     if (a.emit == 2) {
       a.out_key[idx] = coherence_key(sh_aabb, a.ct, v3(sh_center[0], sh_center[1], sh_center[2]),
                                      ray.o, ray.d, ray.bounces > 0, tl);
@@ -108,6 +124,8 @@ int ptt_mesh_abi(int32_t* out, int32_t len) {
   const int32_t v[] = {
       (int32_t)sizeof(PttScene),
       (int32_t)sizeof(PttMeshShadeArgs),
+      (int32_t)offsetof(PttMeshShadeArgs, prim_win),
+      (int32_t)offsetof(PttMeshShadeArgs, out_win),
       (int32_t)offsetof(PttMeshShadeArgs, k0),
       (int32_t)offsetof(PttMeshShadeArgs, n),
       (int32_t)offsetof(PttMeshShadeArgs, mode),

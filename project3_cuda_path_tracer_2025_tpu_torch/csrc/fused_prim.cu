@@ -18,22 +18,36 @@
 // uniforms in) and the iteration kernel 24 B of film per pixel per
 // iteration, against a few thousand flops per ray per bounce, dominated by
 // the divisions, square roots and cos/sin of box/sphere intersection and
-// the BSDFs, plus 20 Threefry rounds per uniform.  So the design keeps
-// every intermediate in registers, keeps the scene constants in shared
-// memory where every warp reads them as broadcasts, lets each ray branch to
-// the one lobe it needs, and retires a dead ray at once.  wgmma and TMA do
-// not apply: there is no matrix product and no tile to stage.
+// the BSDFs, plus 20 Threefry rounds per uniform.  So both keep every
+// intermediate in registers, keep the scene constants in shared memory
+// where every warp reads them as broadcasts, and let each ray branch to the
+// one lobe it needs.  wgmma and TMA do not apply: there is no matrix
+// product and no tile to stage.  The scene is a header and two tables
+// uploaded once per scene, the camera and the iteration's RNG key plain
+// arguments, so an orbit rebuilds nothing and a frame copies nothing to
+// the card.  Tables beyond the card's shared memory stay in device memory,
+// read through L1.
 //
-// The TPU kernels padded rays to 8192-ray blocks and baked the camera and
-// scene into the program; here each thread is one ray, masked by idx < n,
-// the scene is a header and two tables uploaded once per scene, the camera
-// and the iteration's RNG key are plain arguments, so an orbit rebuilds
-// nothing and a frame copies nothing to the card.  Nothing here bounds the
-// scene or the depth: a block stages the tables in dynamic shared memory
-// sized by the launcher from the scene (tables beyond the card's shared
-// memory stay in device memory, read through L1), and walks the depths in
-// windows of PTT_DEPTH_WINDOW, deriving each window's shade keys and
-// keeping its alive counters in a fixed piece of shared memory.
+// The iteration kernel's work is the paths' live bounces, and paths end at
+// every depth (a miss, a light): on cornell_dof.json 46% of the
+// lane-bounces a thread-per-pixel schedule issues are dead, since a warp
+// issues until its longest path ends.  So its schedule regenerates: a
+// persistent grid (the SMs times the blocks each holds), in which each warp
+// loops while any lane holds a path, and a free lane takes the next pixel
+// from a grid-wide counter (one atomicAdd a warp for all its free lanes,
+// the pixels handed out consecutively, in lane order) and computes its
+// camera ray.  Each lane carries its pixel and its path, bounces at its own
+// depth with that depth's shade key, and writes film[pixel] += color once
+// when the path is done: each pixel is written exactly once, a plain
+// store.  Lanes at different depths diverge where coherent rays did not, so
+// the bounce takes the nearest prim's normal once after the prim loop
+// (prim_nearest, prim_hit) instead of at every closer prim.  The shade
+// keys of every depth are derived once per block into shared memory beside
+// the tables, with the per-depth alive counters (shared atomics, one per
+// group of a warp's lanes at one depth, flushed at the block's end); a
+// depth too long for shared memory keeps both in device memory.  Every
+// path, and so the film and the counts, is the per-pixel schedule's bit for
+// bit.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC (ops/kernels.py).  Plain C interface, loaded with
@@ -46,15 +60,16 @@
 #include "prim_path.cuh"
 
 #define PTT_THREADS 256
-// Depths a block handles between two flushes of its alive counters.
-#define PTT_DEPTH_WINDOW 64
 
 struct PttIterArgs {
   const PttScene* scene;
   float* film_x;
   float* film_y;
   float* film_z;
-  int32_t* alive;  // [depth], zeroed by the caller
+  int32_t* alive;       // [depth], zeroed by the caller
+  int32_t* next_pixel;  // [1], the pixel counter, zeroed by the caller
+  uint32_t* keys;       // [2 * depth] scratch for the shade keys when they
+                        // exceed shared memory
   PttCamera cam;
   int32_t width, height, n, depth;
   int32_t num_geoms, num_materials;  // the scene's counts, for the launcher
@@ -77,48 +92,86 @@ struct PttBounceArgs {
 
 extern __shared__ __align__(16) unsigned char ptt_smem[];
 
-// Dynamic shared memory: the scene's tables (STAGE_SCENE).
-template <bool STAGE_SCENE>
-__global__ void __launch_bounds__(PTT_THREADS) ptt_iteration_kernel(const PttIterArgs a) {
-  __shared__ int32_t sh_alive[PTT_DEPTH_WINDOW];
-  __shared__ uint32_t sh_key[PTT_DEPTH_WINDOW][2];
-  const PttScene sh_scene = load_scene<STAGE_SCENE>(a.scene, ptt_smem);
+#ifdef PTT_COUNT_LANES
+// Measuring builds only (scripts/torch_bench_kernels.py): lane-bounces
+// issued (32 for each step in which a warp bounces) and live.
+__device__ unsigned long long ptt_lane_counts[2];
+#endif
 
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in_range = idx < a.n;
+// Bytes of the tables' part of the iteration kernel's dynamic shared memory
+// (16-byte aligned), the shade keys and alive counters after it.
+__host__ __device__ inline size_t iter_table_bytes(int num_geoms, int num_materials) {
+  return (scene_table_bytes(num_geoms, num_materials) + 15) / 16 * 16;
+}
+
+// Dynamic shared memory: the scene's tables (STAGE_SCENE), then the shade
+// keys [2 * depth] and alive counters [depth] (SHARED_KEYS; else the keys
+// go to a.keys, each block writing the same words, and the counts straight
+// to a.alive).
+template <bool STAGE_SCENE, bool SHARED_KEYS>
+__global__ void __launch_bounds__(PTT_THREADS) ptt_iteration_kernel(const PttIterArgs a) {
+  const PttScene sh_scene = load_scene<STAGE_SCENE>(a.scene, ptt_smem);
+  const int depth = a.depth;
+  uint32_t* keys = a.keys;
+  int32_t* cnt = a.alive;
+  if (SHARED_KEYS) {
+    keys = reinterpret_cast<uint32_t*>(
+        ptt_smem + (STAGE_SCENE ? iter_table_bytes(a.num_geoms, a.num_materials) : 0));
+    cnt = reinterpret_cast<int32_t*>(keys + 2 * depth);
+  }
+  for (int d = threadIdx.x; d < depth; d += blockDim.x) {
+    shade_stage_key(a.iter_key[0], a.iter_key[1], (uint32_t)d, &keys[2 * d], &keys[2 * d + 1]);
+    if (SHARED_KEYS) cnt[d] = 0;
+  }
+  __syncthreads();  // also orders load_scene's writes before the first read
+
   const uint32_t n = (uint32_t)a.n;
-  Ray ray;
-  ray.bounces = 0;
-  if (in_range) {
-    ray = camera_ray(a.cam, a.width, a.height, a.depth, idx, n, a.cam_key[0], a.cam_key[1]);
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned below = (1u << lane) - 1u;
+  IterLane l;
+  l.pixel = -1;
+  l.ray.bounces = 0;
+  bool more = true;  // the counter has pixels left (warp-uniform)
+  for (;;) {
+    if (l.pixel >= 0 && l.ray.bounces <= 0) lane_finish(l, a.film_x, a.film_y, a.film_z);
+    if (more) {
+      const unsigned free_lanes = __ballot_sync(0xffffffffu, l.pixel < 0);
+      const int k = __popc(free_lanes);
+      if (k >= PTT_REFILL_MIN) {
+        int base = 0;
+        if (lane == 0) base = atomicAdd(a.next_pixel, k);
+        base = __shfl_sync(0xffffffffu, base, 0);
+        if (l.pixel < 0) {
+          const int p = base + __popc(free_lanes & below);
+          if (p < a.n) {
+            lane_start(l, p, a.cam, a.width, a.height, depth, n, a.cam_key[0], a.cam_key[1]);
+          }
+        }
+        more = base + k < a.n;
+      }
+    }
+    const unsigned held = __ballot_sync(0xffffffffu, l.pixel >= 0);
+    if (!held && !more) break;
+    const bool live = l.pixel >= 0 && l.ray.bounces > 0;
+#ifdef PTT_COUNT_LANES
+    const unsigned live_lanes = __ballot_sync(0xffffffffu, live);
+    if (lane == 0 && live_lanes) {
+      atomicAdd(&ptt_lane_counts[0], 32ull);
+      atomicAdd(&ptt_lane_counts[1], (unsigned long long)__popc(live_lanes));
+    }
+#endif
+    const int d = live ? lane_bounce(sh_scene, l, keys, depth, n) : -1;
+    const unsigned counted = __ballot_sync(0xffffffffu, d >= 0);
+    if (d >= 0) {
+      const unsigned peers = __match_any_sync(counted, d);
+      if ((int)lane == __ffs(peers) - 1) atomicAdd(&cnt[d], __popc(peers));
+    }
   }
-  // Every thread of the block walks every depth (a dead ray's bounce is a
-  // return), so the window's barriers are uniform.
-  for (int d0 = 0; d0 < a.depth; d0 += PTT_DEPTH_WINDOW) {
-    const int span = min(PTT_DEPTH_WINDOW, a.depth - d0);
-    if ((int)threadIdx.x < span) {
-      sh_alive[threadIdx.x] = 0;
-      shade_stage_key(a.iter_key[0], a.iter_key[1], (uint32_t)(d0 + (int)threadIdx.x),
-                      &sh_key[threadIdx.x][0], &sh_key[threadIdx.x][1]);
-    }
-    __syncthreads();  // also orders load_scene's writes before the first read
-    for (int i = 0; i < span; ++i) {
-      bounce_ray_inline(sh_scene, ray, sh_key[i][0], sh_key[i][1], n, idx);
-      const unsigned ballot = __ballot_sync(0xffffffffu, ray.bounces > 0);
-      if ((threadIdx.x & 31) == 0 && ballot) atomicAdd(&sh_alive[i], __popc(ballot));
-    }
+  if (SHARED_KEYS) {
     __syncthreads();
-    // The thread that flushes a slot is the one that clears it next window.
-    if ((int)threadIdx.x < span && sh_alive[threadIdx.x]) {
-      atomicAdd(&a.alive[d0 + threadIdx.x], sh_alive[threadIdx.x]);
+    for (int d = threadIdx.x; d < depth; d += blockDim.x) {
+      if (cnt[d]) atomicAdd(&a.alive[d], cnt[d]);
     }
-  }
-  if (in_range) {
-    // In place: the film is the caller's accumulator (the JAX package
-    // donates it to the kernel for the same effect).
-    a.film_x[idx] = a.film_x[idx] + ray.c.x;
-    a.film_y[idx] = a.film_y[idx] + ray.c.y;
-    a.film_z[idx] = a.film_z[idx] + ray.c.z;
   }
 }
 
@@ -165,6 +218,26 @@ static cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// The persistent grid of the iteration kernel: as many blocks as the SMs
+// hold at once at this shared memory, and no more than the pixels need.
+template <bool STAGE_SCENE, bool SHARED_KEYS>
+static cudaError_t launch_iteration(const PttIterArgs& a, size_t smem, cudaStream_t stream) {
+  const auto kernel = ptt_iteration_kernel<STAGE_SCENE, SHARED_KEYS>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, device = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, PTT_THREADS, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  const long long need = blocks_for(a.n);
+  kernel<<<(unsigned)(resident < need ? resident : need), PTT_THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 extern "C" {
 
 // Struct sizes and offsets, checked against the ctypes mirror at load time.
@@ -173,6 +246,8 @@ int ptt_abi(int32_t* out, int32_t len) {
       (int32_t)sizeof(PttScene),
       (int32_t)sizeof(PttCamera),
       (int32_t)sizeof(PttIterArgs),
+      (int32_t)offsetof(PttIterArgs, next_pixel),
+      (int32_t)offsetof(PttIterArgs, keys),
       (int32_t)offsetof(PttIterArgs, cam),
       (int32_t)offsetof(PttIterArgs, cam_key),
       (int32_t)sizeof(PttBounceArgs),
@@ -188,20 +263,25 @@ int ptt_abi(int32_t* out, int32_t len) {
 
 int ptt_launch_iteration(const PttIterArgs* a, void* stream) {
   if (a->depth < 0 || a->num_geoms < 0 || a->num_materials < 0) return (int)cudaErrorInvalidValue;
-  if (a->n > 0) {
-    // The kernel's fixed shared memory counts against the same 227 KB.
-    const size_t fixed = PTT_DEPTH_WINDOW * (sizeof(int32_t) + 2 * sizeof(uint32_t));
-    const size_t tables = scene_table_bytes(a->num_geoms, a->num_materials);
-    const bool stage_scene = tables + fixed <= PTT_SMEM_LIMIT;
-    const size_t smem = stage_scene ? tables : 0;
-    const cudaError_t err = allow_smem(ptt_iteration_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    if (stage_scene) {
-      ptt_iteration_kernel<true><<<blocks_for(a->n), PTT_THREADS, smem, (cudaStream_t)stream>>>(*a);
-    } else {
-      ptt_iteration_kernel<false><<<blocks_for(a->n), PTT_THREADS, 0, (cudaStream_t)stream>>>(*a);
-    }
+  if (a->n <= 0) return (int)cudaGetLastError();
+  // Shared memory: the keys and counters first (12 B a depth), then the
+  // tables if they fit beside them.
+  const size_t keys = (size_t)a->depth * (2 * sizeof(uint32_t) + sizeof(int32_t));
+  const size_t tables = iter_table_bytes(a->num_geoms, a->num_materials);
+  const bool shared_keys = keys <= PTT_SMEM_LIMIT;
+  const bool stage_scene = tables + (shared_keys ? keys : 0) <= PTT_SMEM_LIMIT;
+  if (!shared_keys && a->keys == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = (stage_scene ? tables : 0) + (shared_keys ? keys : 0);
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  if (stage_scene) {
+    err = shared_keys ? launch_iteration<true, true>(*a, smem, st)
+                      : launch_iteration<true, false>(*a, smem, st);
+  } else {
+    err = shared_keys ? launch_iteration<false, true>(*a, smem, st)
+                      : launch_iteration<false, false>(*a, smem, st);
   }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -230,5 +310,19 @@ int ptt_launch_uniforms(uint32_t k0, uint32_t k1, uint32_t total, float* out, vo
 }
 
 const char* ptt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+#ifdef PTT_COUNT_LANES
+// The measuring build's lane counts since the last reset: out[0] issued,
+// out[1] live; reset: zero them after reading.  Synchronises the device.
+int ptt_lane_counts_read(unsigned long long* out, int reset) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(out, ptt_lane_counts, 2 * sizeof(*out));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[2] = {0ull, 0ull};
+    err = cudaMemcpyToSymbol(ptt_lane_counts, zero, sizeof(zero));
+  }
+  return (int)err;
+}
+#endif
 
 }  // extern "C"

@@ -25,10 +25,13 @@
 //   mono_ray        = ops/intersect_mxu.py::mono_intersect_plain (the root
 //                     cull, then walk_visit over the tiles in order);
 //   coherence_key   = ops/intersect_mxu.py::coherence_key_planes;
-//   prim_t_min      = ops/intersect.py::prim_t_min;
+//   prim_t_min_win  = ops/intersect.py::prim_t_min with its winner;
+//   prim_hit_of     = the prim half of ops/intersect.py::intersect_scene
+//                     given that winner (ops/intersect.py::intersect_winner);
 //   mesh_shade_ray  = ops/fused.py::fused_mesh_shade_plain in its three modes
-//                     (prim intersect, merge with the mesh hit or the
-//                     resolved surface, scatter, inline uniforms).
+//                     (prim intersect or the carried winner, merge with the
+//                     mesh hit or the resolved surface, scatter, inline
+//                     uniforms).
 // The prim intersection, scatter and Threefry come from prim_path.cuh.
 // Build with --fmad=false and without fast math, as prim_path.cuh says; the
 // only fused multiply-adds are the explicit fmaf chains of the numerators,
@@ -531,17 +534,32 @@ PTT_HD void mono_ray(const float* coef, const float* aabb, int ct, V3 center, V3
 // The next bounce's prune and sort key (ops/fused.py emit outputs)
 // ---------------------------------------------------------------------------
 
-// ops/intersect.py::prim_t_min: nearest analytic-prim t, FLT_MAX for none.
-PTT_HD float prim_t_min(const PttScene& s, V3 ro, V3 rd) {
-  float t_min = PTT_FLT_MAX;
-  for (int i = 0; i < s.num_geoms; ++i) {
-    const PttGeom& g = s.geoms[i];
-    V3 local;
-    const float t = (g.type == 1) ? box_t(g, ro, rd, s.ray_eps, &local)
-                                  : sphere_t(g, ro, rd, s.ray_eps, &local);
-    t_min = ptt_min(t_min, (t > 0.0f) ? t : PTT_FLT_MAX);
+// ops/intersect.py::prim_t_min: nearest analytic-prim t, FLT_MAX for none;
+// *win: the prim that gives it by intersect_prims' rule (ascending index, a
+// strict "<", so the lowest index wins a tie), -1 for none.  The next
+// bounce's shade takes it back (prim_hit_of) instead of testing every prim
+// again: the walk between the two leaves the ray's origin and direction as
+// they are.
+PTT_HD float prim_t_min_win(const PttScene& s, V3 ro, V3 rd, int32_t* win) {
+  const PrimNearest p = prim_nearest(s, ro, rd);
+  *win = p.win;
+  return p.t;
+}
+
+// intersect_prims' Hit for a ray whose nearest prim is known to be win
+// (prim_t_min_win of the same origin and direction; -1: none): the winner's
+// test alone gives the same t and object-space vector bit for bit, since
+// its inputs and arithmetic are the same.
+PTT_HD Hit prim_hit_of(const PttScene& s, V3 ro, V3 rd, int32_t win) {
+  PrimNearest p;
+  p.win = win;
+  p.t = -1.0f;
+  if (win >= 0 && win < s.num_geoms) {
+    const PttGeom& g = s.geoms[win];
+    p.t = (g.type == 1) ? box_t(g, ro, rd, s.ray_eps, &p.local)
+                        : sphere_t(g, ro, rd, s.ray_eps, &p.local);
   }
-  return t_min;
+  return prim_hit(s, rd, p);
 }
 
 PTT_HD int32_t morton_spread3(int32_t v) {
@@ -615,6 +633,9 @@ PTT_HD int32_t coherence_key(const float* aabb, int ct, V3 center, V3 o, V3 d, b
 #define PTT_SHADE_TEXTURED 1
 #define PTT_SHADE_PRECOMPUTED 2
 
+// The shade's prim winner input when none is carried: intersect every prim.
+#define PTT_NO_WINNER (-2)
+
 // One ray of the shade kernel; dead rays are left untouched.  The uniforms
 // of this pixel are drawn inline at counters j * rng_n + pixel.
 // mode PTT_SHADE_PLAIN: prim intersect, merged with the mesh hit (mt, the
@@ -624,8 +645,13 @@ PTT_HD int32_t coherence_key(const float* aabb, int ct, V3 center, V3 o, V3 d, b
 //   normal (not flipped) and a mesh lane scatters with the albedo malb.
 // mode PTT_SHADE_PRECOMPUTED: no prim intersection; (mt, mn, mmat, malb) is
 //   the lane's resolved surface (t = -1 for a miss).
+// In the first two modes a mesh hit is closer than every prim (the walk ran
+// below the prim t), so such a lane tests no prim; a lane without one takes
+// its prim hit from the carried winner prim_win (prim_hit_of), or, given
+// PTT_NO_WINNER, from every prim (intersect_prims).
 PTT_HD void mesh_shade_ray(const PttScene& s, Ray& ray, float mt, V3 mn, int32_t mmat, int mode,
-                           V3 malb, uint32_t k0, uint32_t k1, uint32_t rng_n, int32_t pixel) {
+                           V3 malb, uint32_t k0, uint32_t k1, uint32_t rng_n, int32_t pixel,
+                           int32_t prim_win) {
   if (ray.bounces <= 0) return;
   Hit h;
   bool given_albedo = mode == PTT_SHADE_PRECOMPUTED;
@@ -633,15 +659,15 @@ PTT_HD void mesh_shade_ray(const PttScene& s, Ray& ray, float mt, V3 mn, int32_t
     h.t = mt;
     h.normal = mn;
     h.material_id = mmat;
+  } else if (mmat >= 0) {
+    if (mode == PTT_SHADE_PLAIN && dot(ray.d, mn) > 0.0f) mn = -mn;
+    h.t = mt;
+    h.normal = mn;
+    h.material_id = mmat;
+    given_albedo = mode == PTT_SHADE_TEXTURED;
   } else {
-    h = intersect_prims(s, ray.o, ray.d);
-    if (mmat >= 0) {  // the traversal ran below the prim t: the mesh is closer
-      if (mode == PTT_SHADE_PLAIN && dot(ray.d, mn) > 0.0f) mn = -mn;
-      h.t = mt;
-      h.normal = mn;
-      h.material_id = mmat;
-      given_albedo = mode == PTT_SHADE_TEXTURED;
-    }
+    h = prim_win == PTT_NO_WINNER ? intersect_prims(s, ray.o, ray.d)
+                                  : prim_hit_of(s, ray.o, ray.d, prim_win);
   }
   const uint32_t px = (uint32_t)pixel;
   const float u0 = uniform_at(k0, k1, px);

@@ -357,6 +357,51 @@ PTT_HD Hit intersect_prims(const PttScene& s, V3 ro, V3 rd) {
   return h;
 }
 
+// The same nearest hit in two steps, the winner's normal computed once after
+// the loop instead of at each closer prim: lanes of one warp that find
+// their closer prims at different indices (paths at different depths) do
+// not take turns at the normalization.  prim_nearest is the loop; prim_hit
+// turns its result into intersect_prims' Hit bit for bit (the winner's
+// normal from the winner's own object-space vector, the flip, the material;
+// win -1: t = -1, a zero normal, material 0).
+struct PrimNearest {
+  float t;      // FLT_MAX with no prim hit (ops/intersect.py::prim_t_min)
+  int32_t win;  // the first prim at that t, -1 for none
+  V3 local;     // its box_t / sphere_t object-space vector
+};
+
+PTT_HD PrimNearest prim_nearest(const PttScene& s, V3 ro, V3 rd) {
+  PrimNearest p;
+  p.t = PTT_FLT_MAX;
+  p.win = -1;
+  p.local = v3(0.0f, 0.0f, 0.0f);
+  for (int i = 0; i < s.num_geoms; ++i) {
+    const PttGeom& g = s.geoms[i];
+    V3 local;
+    const float t = (g.type == 1) ? box_t(g, ro, rd, s.ray_eps, &local)
+                                  : sphere_t(g, ro, rd, s.ray_eps, &local);
+    const bool closer = (t > 0.0f) && (t < p.t);
+    p.t = closer ? t : p.t;
+    p.win = closer ? i : p.win;
+    p.local = closer ? local : p.local;
+  }
+  return p;
+}
+
+PTT_HD Hit prim_hit(const PttScene& s, V3 rd, const PrimNearest& p) {
+  Hit h;
+  h.t = -1.0f;
+  h.normal = v3(0.0f, 0.0f, 0.0f);
+  h.material_id = 0;
+  if (p.win < 0 || p.win >= s.num_geoms) return h;
+  const PttGeom& g = s.geoms[p.win];
+  h.t = p.t;
+  h.normal = normalize(xform_vector(g.inv_transpose, p.local));
+  if (dot(rd, h.normal) > 0.0f) h.normal = -h.normal;
+  h.material_id = g.material_id;
+  return h;
+}
+
 // ---------------------------------------------------------------------------
 // BSDF lobes (ops/bsdf.py)
 // ---------------------------------------------------------------------------
@@ -603,7 +648,7 @@ PTT_HD void scatter(const PttScene& s, Ray& ray, const Hit& h, float u_choice, f
 
 #if defined(__CUDACC__)
 // Bytes of shared memory the scene's tables take when a block stages them.
-inline size_t scene_table_bytes(int num_geoms, int num_materials) {
+__host__ __device__ inline size_t scene_table_bytes(int num_geoms, int num_materials) {
   return (size_t)num_geoms * sizeof(PttGeom) + (size_t)num_materials * sizeof(PttMaterial);
 }
 
@@ -654,9 +699,10 @@ PTT_HD void bounce_ray(const PttScene& s, Ray& ray, float u0, float u1, float u2
   scatter(s, ray, h, u0, u1, u2);
 }
 
-// One bounce of the iteration kernel: the uniforms of pixel idx at depth d
-// are drawn inline (counters j*n + idx under the depth's shade key), and
-// only for a live ray.
+// One bounce of pixel idx at depth d as the iteration kernel's per-pixel
+// schedule ran it (tests/prim_path_host.cpp keeps that schedule as the
+// reference of the regenerating one): the uniforms drawn inline (counters
+// j*n + idx under the depth's shade key), and only for a live ray.
 PTT_HD void bounce_ray_inline(const PttScene& s, Ray& ray, uint32_t k0, uint32_t k1,
                               uint32_t n, int idx) {
   if (ray.bounces <= 0) return;
@@ -664,4 +710,57 @@ PTT_HD void bounce_ray_inline(const PttScene& s, Ray& ray, uint32_t k0, uint32_t
   const float u1 = uniform_at(k0, k1, n + (uint32_t)idx);
   const float u2 = uniform_at(k0, k1, 2u * n + (uint32_t)idx);
   bounce_ray(s, ray, u0, u1, u2);
+}
+
+// ---------------------------------------------------------------------------
+// The iteration kernel's regenerating schedule, one lane at a time (the
+// kernel in fused_prim.cu runs it with warp votes; the host twin in
+// tests/prim_path_host.cpp steps 32 lanes of a warp in lock step).  A lane
+// holds one pixel's path at a time; a free lane takes the next pixel from a
+// counter shared by the whole grid.  Each path is the one the per-pixel
+// schedule (ptt_host_iteration) traces: its camera ray, then its bounces
+// at its own depths with those depths' shade keys.
+// ---------------------------------------------------------------------------
+
+// A warp takes new pixels once at least this many of its 32 lanes are free
+// (1: as soon as one is).
+#ifndef PTT_REFILL_MIN
+#define PTT_REFILL_MIN 1
+#endif
+
+struct IterLane {
+  Ray ray;
+  int32_t pixel;  // -1: the lane is free
+};
+
+// Start pixel p's path: its camera ray, bounces = depth.
+PTT_HD void lane_start(IterLane& l, int32_t p, const PttCamera& cam, int width, int height,
+                       int depth, uint32_t n, uint32_t k0, uint32_t k1) {
+  l.pixel = p;
+  l.ray = camera_ray(cam, width, height, depth, p, n, k0, k1);
+}
+
+// One bounce of a live path at its own depth d = depth - bounces (a path
+// that is alive after b bounces has bounces = depth - b): bounce_ray_inline
+// under that depth's shade key keys[2d], keys[2d + 1], with the nearest hit
+// from prim_nearest and prim_hit.  Returns d if the path is still alive
+// after it (it counts in alive[d]), else -1.
+PTT_HD int lane_bounce(const PttScene& s, IterLane& l, const uint32_t* keys, int depth,
+                       uint32_t n) {
+  const int d = depth - l.ray.bounces;
+  const uint32_t k0 = keys[2 * d], k1 = keys[2 * d + 1], px = (uint32_t)l.pixel;
+  const float u0 = uniform_at(k0, k1, px);
+  const float u1 = uniform_at(k0, k1, n + px);
+  const float u2 = uniform_at(k0, k1, 2u * n + px);
+  scatter(s, l.ray, prim_hit(s, l.ray.d, prim_nearest(s, l.ray.o, l.ray.d)), u0, u1, u2);
+  return l.ray.bounces > 0 ? d : -1;
+}
+
+// A path that is done (dead, or depth bounces traced): film[pixel] +=
+// color, the pixel's one write of the iteration, and the lane is free.
+PTT_HD void lane_finish(IterLane& l, float* film_x, float* film_y, float* film_z) {
+  film_x[l.pixel] = film_x[l.pixel] + l.ray.c.x;
+  film_y[l.pixel] = film_y[l.pixel] + l.ray.c.y;
+  film_z[l.pixel] = film_z[l.pixel] + l.ray.c.z;
+  l.pixel = -1;
 }

@@ -14,8 +14,10 @@ On a CUDA device with ``fused_bounce`` "auto" or "on" (on the CPU with
 * a mesh scene runs ``ops.fused.fused_mesh_bounce`` per bounce: the
   traversal kernel ``cfg.mxu_traversal`` names or "auto" picks for the
   mesh's size (mono, planned, streamed or binned), then the mesh-shade
-  kernel, which draws its uniforms inline and emits the next bounce's prim t_limit and sort key (threaded
-  through ``mesh_carry``).  The path state stays in coherence order across
+  kernel, which draws its uniforms inline and emits the next bounce's prim
+  t_limit, the prim that gives it and the sort key (threaded through
+  ``mesh_carry``: the next shade tests that prim alone, not every prim).
+  The path state stays in coherence order across
   bounces (resorted every ``ray_sort_every`` bounces) and the film
   scatter-adds by pixel id.  A mesh with textures on its materials
   resolves albedo and the bump normal in torch between the two kernels and
@@ -56,11 +58,15 @@ def megakernel_iteration(
     iteration: int,  # 1-based, like the reference
     base_key: tuple,
     plain: bool = False,
+    carry_winner: bool = True,
 ) -> Tuple[Vec3, torch.Tensor]:
     """One full spp iteration. Returns (film, alive_counts[depth]).
 
     ``plain`` runs every kernel's plain PyTorch version in its place, on
-    any device: the reference the kernel path is held to on the card."""
+    any device: the reference the kernel path is held to on the card.
+    ``carry_winner=False`` has a mesh scene's shade test every prim instead
+    of taking the carried winner (``fused.fused_mesh_bounce``): the
+    reference the carry is held to, the same film bit for bit."""
     device = film.x.device
     depth = static.trace_depth
     n = static.pixel_count
@@ -89,7 +95,7 @@ def megakernel_iteration(
     # Liveness-packed textured-prim bounces (False while prefix tiers
     # resolve to none; see fused.tex_sort_active).
     tex_sorted = use_fused_tex and fused.tex_sort_active(cfg, device)
-    mesh_carry = None  # the mesh-shade kernel's (t_lim, key) for the next bounce
+    mesh_carry = None  # the mesh-shade kernel's (t_lim, key[, win]) for the next bounce
 
     alive_counts = torch.zeros((depth,), dtype=torch.int32, device=device)
     for d in range(depth):
@@ -103,6 +109,7 @@ def megakernel_iteration(
                     and (d > 0 or cfg.ray_sort_first_bounce)
                 ),
                 rng_n=n, carry=mesh_carry, want_carry=want, plain=plain,
+                carry_winner=carry_winner,
             )
             paths, mesh_carry = out if want else (out, None)
         elif use_fused:

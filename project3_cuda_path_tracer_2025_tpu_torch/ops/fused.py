@@ -46,7 +46,7 @@ from . import film as film_ops
 from . import intersect_mxu, kernels
 from . import shade as shade_ops
 from .compaction import permute_path_state
-from .intersect import intersect_scene, prim_t_min, ray_sorting_on
+from .intersect import intersect_scene, intersect_winner, prim_t_min, ray_sorting_on
 from .rays import Intersections, PathState
 
 
@@ -338,7 +338,9 @@ def fused_prim_iteration(
     stage key from the iteration key (the same ``(iteration, depth, stage)``
     streams as ``megakernel_iteration``), and the camera is an argument, so
     an orbit rebuilds nothing.  The film is updated in place (the JAX package donates
-    it).  Returns (film, alive_counts[depth])."""
+    it).  The kernel hands pixels to free lanes as paths end (its schedule,
+    ``csrc/fused_prim.cu``), tracing each pixel's path as the plain version
+    does.  Returns (film, alive_counts[depth])."""
     device = film.x.device
     if device.type == "cpu":
         return fused_prim_iteration_plain(static, cfg, cam, film, iteration, base_key)
@@ -347,12 +349,18 @@ def fused_prim_iteration(
     _check_planes("fused_prim_iteration film", film, n, torch.float32, device)
     lib = kernels.load()
     scene = _scene_buffer(static, _eps(cfg), device)
-    alive = torch.zeros((depth,), dtype=torch.int32, device=device)
+    # One zeroed buffer: the alive counts [depth], the kernel's pixel
+    # counter [1] and room for the shade keys [2 * depth] should they
+    # exceed shared memory.
+    scratch = torch.zeros((3 * depth + 1,), dtype=torch.int32, device=device)
+    alive = scratch[:depth]
 
     a = kernels.PttIterArgs()
     a.scene = scene.data_ptr()
     a.film_x, a.film_y, a.film_z = (t.data_ptr() for t in film)
     a.alive = alive.data_ptr()
+    a.next_pixel = scratch[depth:].data_ptr()
+    a.keys = scratch[depth + 1:].data_ptr()
     a.cam = camera_struct(cam)
     a.width, a.height, a.n, a.depth = static.width, static.height, n, depth
     a.num_geoms, a.num_materials = _scene_counts(static)
@@ -419,7 +427,8 @@ def fused_mesh_applicable(static: SceneStatic, cfg: RenderConfig) -> bool:
     )
 
 
-def _check_mode(mode: str, emit: str, mesh_albedo) -> None:
+def _check_mode(mode: str, emit: str, mesh_albedo, prim_winner=None,
+                want_winner: bool = False) -> None:
     if mode not in SHADE_MODES:
         raise ValueError(f"mode={mode!r}: use one of {SHADE_MODES}")
     if (mode == "plain") != (mesh_albedo is None):
@@ -427,6 +436,10 @@ def _check_mode(mode: str, emit: str, mesh_albedo) -> None:
                          "precomputed modes and only there")
     if emit not in EMIT_MODES:
         raise ValueError(f"emit={emit!r}: use one of {EMIT_MODES}")
+    if prim_winner is not None and mode == "precomputed":
+        raise ValueError("mode='precomputed' tests no prim: it takes no prim_winner")
+    if want_winner and not emit:
+        raise ValueError("want_winner needs emit: the winner is the emitted t_limit's prim")
 
 
 def fused_mesh_shade_plain(
@@ -443,10 +456,15 @@ def fused_mesh_shade_plain(
     center: torch.Tensor = None,
     mode: str = "plain",
     mesh_albedo: Vec3 = None,
+    prim_winner: torch.Tensor = None,
+    want_winner: bool = False,
 ):
     """The plain PyTorch version of the mesh-shade kernel (see
-    ``fused_mesh_shade``)."""
-    _check_mode(mode, emit, mesh_albedo)
+    ``fused_mesh_shade``).  It uses ``prim_winner`` as the kernel does: the
+    prim hit of every lane comes from its winner's test alone
+    (``intersect_winner``), which gives the same outputs bit for bit as
+    testing every prim (``intersect_scene``) does without it."""
+    _check_mode(mode, emit, mesh_albedo, prim_winner, want_winner)
     uni = prng.uniforms_at(su_key, paths.pixel, 3, rng_n)
     if mode == "precomputed":
         # The whole surface arrives resolved: (t, shading normal, material,
@@ -457,7 +475,8 @@ def fused_mesh_shade_plain(
                               dpdu=Vec3(zero, zero, zero), dpdv=Vec3(zero, zero, zero),
                               is_triangle=zero > 0.0)
     else:
-        isect_p = intersect_scene(None, prim_static, paths, cfg)
+        isect_p = (intersect_scene(None, prim_static, paths, cfg) if prim_winner is None
+                   else intersect_winner(prim_static, paths, cfg, prim_winner))
         # The traversal ran with the prim nearest t as its t_limit, so a mesh
         # hit is closer than every prim (an exact tie stays with the prim).
         tri_hit = mesh_mat >= 0
@@ -489,14 +508,14 @@ def fused_mesh_shade_plain(
     )
     if not emit:
         return out
-    tl_n = prim_t_min(prim_static, cfg, out.origin, out.direction)
+    tl_n, win_n = prim_t_min(prim_static, cfg, out.origin, out.direction, winner=True)
     key_n = None
     if emit == "tlim+key":
         key_n = intersect_mxu.coherence_key_planes(
             tile_aabb, center[0], center[1], center[2],
             *out.origin, *out.direction, out.bounces > 0, tl_n,
         )
-    return out, (tl_n, key_n)
+    return out, ((tl_n, key_n, win_n) if want_winner else (tl_n, key_n))
 
 
 def fused_mesh_shade(
@@ -513,6 +532,8 @@ def fused_mesh_shade(
     center: torch.Tensor = None,  # [3] (emit == "tlim+key")
     mode: str = "plain",  # "plain" | "textured" | "precomputed"
     mesh_albedo: Vec3 = None,  # [N] f32 each, textured/precomputed only
+    prim_winner: torch.Tensor = None,  # [N] i32, the carried winner (plain/textured)
+    want_winner: bool = False,  # with emit: also return the emitted t_lim's prim
 ):
     """Prim intersect + merge with the mesh hit + BSDF scatter of one
     bounce, with the uniforms drawn inline at ``(su_key, j*rng_n + pixel)``
@@ -526,21 +547,29 @@ def fused_mesh_shade(
     toward the ray here.  "textured": it is the final shading normal (not
     flipped), and mesh lanes take ``mesh_albedo``.  "precomputed": no prim
     intersection; ``(mesh_t, mesh_normal, mesh_mat, mesh_albedo)`` is every
-    lane's resolved surface (``fused_tex_bounce``)."""
-    _check_mode(mode, emit, mesh_albedo)
+    lane's resolved surface (``fused_tex_bounce``).
+
+    The prim winner: with ``want_winner`` the emitted tuple is ``(t_lim,
+    key | None, win)``, ``win`` [N] int32 the prim that gives ``t_lim``
+    (``prim_t_min(..., winner=True)``; -1: none).  Given back as
+    ``prim_winner`` on the next bounce (permuted with the rays), it spares
+    that shade every prim test but the winner's, with the same outputs bit
+    for bit; a lane with a mesh hit tests no prim either way."""
+    _check_mode(mode, emit, mesh_albedo, prim_winner, want_winner)
     device = paths.origin.x.device
     if device.type == "cpu":
         return fused_mesh_shade_plain(
             prim_static, cfg, paths, mesh_t, mesh_normal, mesh_mat, su_key,
-            rng_n, emit, tile_aabb, center, mode, mesh_albedo,
+            rng_n, emit, tile_aabb, center, mode, mesh_albedo, prim_winner, want_winner,
         )
     _require_cuda(device, "fused_mesh_shade")
     n = paths.pixel.shape[0]
     f_in = (*paths.origin, *paths.direction, *paths.color)
     _check_planes("fused_mesh_shade paths", (*f_in, mesh_t, *mesh_normal), n,
                   torch.float32, device)
-    _check_planes("fused_mesh_shade ints", (paths.bounces, paths.pixel, mesh_mat), n,
-                  torch.int32, device)
+    ints = (paths.bounces, paths.pixel, mesh_mat)
+    _check_planes("fused_mesh_shade ints",
+                  ints if prim_winner is None else (*ints, prim_winner), n, torch.int32, device)
     if mode != "plain":
         mesh_albedo = Vec3(*(c.contiguous() for c in mesh_albedo))
         _check_planes("fused_mesh_shade albedo", mesh_albedo, n, torch.float32, device)
@@ -561,6 +590,7 @@ def fused_mesh_shade(
     b_out = torch.empty_like(paths.bounces)
     tl_out = torch.empty_like(mesh_t) if emit else None
     key_out = torch.empty_like(mesh_mat) if emit == "tlim+key" else None
+    win_out = torch.empty_like(mesh_mat) if want_winner else None
     a = kernels.PttMeshShadeArgs()
     a.scene = scene.data_ptr()
     a.in_f[:] = [t.data_ptr() for t in f_in]
@@ -571,6 +601,10 @@ def fused_mesh_shade(
     a.mesh_mat = mesh_mat.data_ptr()
     if mode != "plain":
         a.mesh_alb[:] = [t.data_ptr() for t in mesh_albedo]
+    if prim_winner is not None:
+        a.prim_win = prim_winner.data_ptr()
+    if win_out is not None:
+        a.out_win = win_out.data_ptr()
     a.out_f[:] = [t.data_ptr() for t in f_out]
     a.out_bounces = b_out.data_ptr()
     if emit:
@@ -594,7 +628,9 @@ def fused_mesh_shade(
         pixel=paths.pixel,
         bounces=b_out,
     )
-    return (out, (tl_out, key_out)) if emit else out
+    if not emit:
+        return out
+    return out, ((tl_out, key_out, win_out) if want_winner else (tl_out, key_out))
 
 
 fused_mesh_shade.launches = 0
@@ -608,9 +644,10 @@ def fused_mesh_bounce(
     su_key: tuple,
     resort: bool = True,
     rng_n: int = None,
-    carry: tuple = None,  # the previous bounce's (t_lim, key | None)
+    carry: tuple = None,  # the previous bounce's (t_lim, key | None[, win])
     want_carry: bool = False,
     plain: bool = False,
+    carry_winner: bool = False,
 ):
     """One mesh-scene bounce: the prim t prepass (or the carried one), the
     persistent coherence sort, the traversal, the winner's attributes
@@ -619,8 +656,12 @@ def fused_mesh_bounce(
     ``carry``/``want_carry`` thread the shade kernel's next-bounce outputs
     across bounces, so the prim prepass and the key build run only when no
     carry exists; the carry lives in the current (sorted) order.  With
-    ``want_carry`` the return is ``(paths, (t_lim, key | None))``.  The
-    JAX package's bounce prefix tiers resolve to none in the port
+    ``want_carry`` the return is ``(paths, (t_lim, key | None))``, and with
+    ``carry_winner`` too ``(paths, (t_lim, key | None, win))``: the prim
+    that gives each ray's t_lim, which the next bounce's shade takes instead
+    of testing every prim (the prepass gives it at the first bounce).  The
+    film is the same bit for bit either way.  The JAX package's bounce
+    prefix tiers resolve to none in the port
     (``RenderConfig.bounce_prefix_tiers``).  ``plain`` runs both kernels'
     plain versions instead, on any device (the reference the kernels are
     held to on the card)."""
@@ -628,7 +669,7 @@ def fused_mesh_bounce(
     sort_rays = ray_sorting_on(cfg, paths.origin.x.device)
     return _fused_mesh_bounce_at(
         dev, static, cfg, paths, resort, su_key, rng_n, sort_rays, carry,
-        want_carry, plain,
+        want_carry, plain, carry_winner,
     )
 
 
@@ -709,10 +750,13 @@ def textured_mesh_surface(dev, static: SceneStatic, cfg: RenderConfig, paths: Pa
 
 
 def _fused_mesh_bounce_at(dev, static, cfg, paths, resort, su_key, rng_n,
-                          sort_rays, carry, want_carry, plain):
-    ckey = None
+                          sort_rays, carry, want_carry, plain, carry_winner):
+    ckey = win = None
     if carry is not None:
-        t_lim, ckey = carry
+        t_lim, ckey, *rest = carry
+        win = rest[0] if rest else None
+    elif carry_winner:
+        t_lim, win = prim_t_min(static, cfg, paths.origin, paths.direction, winner=True)
     else:
         t_lim = prim_t_min(static, cfg, paths.origin, paths.direction)
     tables = dev.mxu_mesh
@@ -725,7 +769,9 @@ def _fused_mesh_bounce_at(dev, static, cfg, paths, resort, su_key, rng_n,
                 tables, paths.origin, paths.direction, paths.alive, t_lim,
                 cfg.ray_sort_bits, cfg.ray_sort_dir_bits, mode=mode,
             )
-        paths, (t_lim,) = permute_path_state(paths, perm, extra=(t_lim,))
+        paths, extra = permute_path_state(
+            paths, perm, extra=(t_lim,) if win is None else (t_lim, win))
+        t_lim, win = extra[0], (extra[1] if win is not None else None)
 
     if static.num_textures > 0:
         mesh_t, mesh_normal, mesh_mat, albedo = textured_mesh_surface(
@@ -745,7 +791,8 @@ def _fused_mesh_bounce_at(dev, static, cfg, paths, resort, su_key, rng_n,
         emit=emit,
         tile_aabb=tables.tile_aabb if emit == "tlim+key" else None,
         center=tables.center if emit == "tlim+key" else None,
-        mode=mode, mesh_albedo=albedo,
+        mode=mode, mesh_albedo=albedo, prim_winner=win,
+        want_winner=want_carry and carry_winner,
     )
 
 
@@ -764,8 +811,9 @@ def tex_sort_active(cfg: RenderConfig, device) -> bool:
     """Whether the textured-prim bounce runs liveness-packed (and so prefix
     tiered, its film scattered by pixel).  A pure liveness sort only buys
     the tier slicing, so it engages only when tiers are configured; the
-    port's prefix tiers resolve to none (``RenderConfig.resolved_prefix_tiers``,
-    ``ROADMAP.md`` Queue 1 #9), so this is False there."""
+    port's prefix tiers resolve to none (``RenderConfig.resolved_prefix_tiers``;
+    ``ROADMAP.md`` Queue 1, "Launch count: prefix tiers, or launches shrunk
+    to the alive prefix"), so this is False there."""
     return bool(cfg.resolved_prefix_tiers()) and ray_sorting_on(cfg, device)
 
 
@@ -786,7 +834,8 @@ def fused_tex_bounce(
 
     The JAX package's liveness pack (``_liveness_pack``, behind
     ``tex_sort_active``) serves only its prefix tiers, which resolve to none
-    here; it comes with them (``ROADMAP.md`` Queue 1 #9)."""
+    here; it comes with them (``ROADMAP.md`` Queue 1, "Launch count: prefix
+    tiers, or launches shrunk to the alive prefix")."""
     rng_n = rng_n or paths.pixel.shape[0]
     isect = intersect_scene(dev, static, paths, cfg, plain=plain)
     mid = torch.clamp(isect.material_id, 0, static.num_materials - 1)

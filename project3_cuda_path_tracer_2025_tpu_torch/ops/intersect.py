@@ -118,14 +118,50 @@ def _prim_intersection(g: GeomConst, ro: Vec3, rd: Vec3, ray_eps: float):
     return sphere_intersection(g, ro, rd, ray_eps)
 
 
-def prim_t_min(static: SceneStatic, cfg: RenderConfig, ro: Vec3, rd: Vec3):
+def prim_t_min(static: SceneStatic, cfg: RenderConfig, ro: Vec3, rd: Vec3,
+               winner: bool = False):
     """Nearest analytic-prim t per ray (FLT_MAX = none): the mesh
-    intersector's t_limit prune."""
+    intersector's t_limit prune.  With ``winner``, returns ``(t_min, win)``:
+    ``win`` [N] int32 is the prim that gives ``t_min`` by
+    ``intersect_scene``'s rule (ascending index, a strict "<", so the lowest
+    index wins a tie), -1 where no prim is hit; ``intersect_winner`` takes it
+    back."""
     t_min = torch.full_like(ro.x, FLT_MAX)
-    for g in static.geoms:
+    win = torch.full_like(ro.x, -1, dtype=torch.int32) if winner else None
+    for i, g in enumerate(static.geoms):
         t, _, _ = _prim_intersection(g, ro, rd, cfg.ray_advance_epsilon)
-        t_min = torch.minimum(t_min, torch.where(t > 0.0, t, FLT_MAX))
-    return t_min
+        cand = torch.where(t > 0.0, t, FLT_MAX)
+        if winner:
+            win = torch.where(cand < t_min, i, win)
+        t_min = torch.minimum(t_min, cand)
+    return (t_min, win) if winner else t_min
+
+
+def intersect_winner(static: SceneStatic, paths: PathState, cfg: RenderConfig,
+                     win: torch.Tensor) -> Intersections:
+    """``intersect_scene`` of a prim-only ``static`` for rays whose nearest
+    prim is known: ``win`` from ``prim_t_min(..., winner=True)`` on the same
+    origins and directions (-1: none).  Each lane takes its winner's t,
+    normal (flipped toward the ray) and material, which are the nearest
+    hit's bit for bit; -1 gives the miss (t = -1, a zero normal, material
+    0)."""
+    ro, rd = paths.origin, paths.direction
+    zero = torch.zeros_like(ro.x)
+    t = torch.full_like(ro.x, -1.0)
+    normal = Vec3(zero, zero, zero)
+    mat_id = torch.zeros_like(win)
+    for i, g in enumerate(static.geoms):
+        t_i, _, nrm = _prim_intersection(g, ro, rd, cfg.ray_advance_epsilon)
+        sel = win == i
+        t = torch.where(sel, t_i, t)
+        normal = vec.where(sel, nrm, normal)
+        mat_id = torch.where(sel, g.material_id, mat_id)
+    flip = vec.dot(rd, normal) > 0.0
+    return Intersections(
+        t=t, normal=vec.where(flip, -normal, normal), material_id=mat_id,
+        uv_u=zero, uv_v=zero, dpdu=Vec3(zero, zero, zero), dpdv=Vec3(zero, zero, zero),
+        is_triangle=torch.zeros_like(win, dtype=torch.bool),
+    )
 
 
 class MeshHit(NamedTuple):

@@ -86,6 +86,7 @@ class PttCamera(ctypes.Structure):
 class PttIterArgs(ctypes.Structure):
     _fields_ = [
         ("scene", _p), ("film_x", _p), ("film_y", _p), ("film_z", _p), ("alive", _p),
+        ("next_pixel", _p), ("keys", _p),
         ("cam", PttCamera),
         ("width", _i), ("height", _i), ("n", _i), ("depth", _i),
         ("num_geoms", _i), ("num_materials", _i),
@@ -114,8 +115,9 @@ class PttMeshShadeArgs(ctypes.Structure):
     _fields_ = [
         ("scene", _p), ("in_f", _p * 9), ("in_bounces", _p), ("pixel", _p),
         ("mesh_t", _p), ("mesh_n", _p * 3), ("mesh_mat", _p), ("mesh_alb", _p * 3),
-        ("tile_aabb", _p), ("center", _p),
+        ("prim_win", _p), ("tile_aabb", _p), ("center", _p),
         ("out_f", _p * 9), ("out_bounces", _p), ("out_tlim", _p), ("out_key", _p),
+        ("out_win", _p),
         ("k0", _u), ("k1", _u), ("rng_n", _u),
         ("n", _i), ("ct", _i), ("emit", _i), ("mode", _i),
         ("num_geoms", _i), ("num_materials", _i), ("pad", _i),
@@ -189,6 +191,8 @@ def _mesh_abi_expected() -> list:
     return [
         ctypes.sizeof(PttScene),
         ctypes.sizeof(PttMeshShadeArgs),
+        PttMeshShadeArgs.prim_win.offset,
+        PttMeshShadeArgs.out_win.offset,
         PttMeshShadeArgs.k0.offset,
         PttMeshShadeArgs.n.offset,
         PttMeshShadeArgs.mode.offset,
@@ -207,6 +211,8 @@ def _prim_abi_expected() -> list:
         ctypes.sizeof(PttScene),
         ctypes.sizeof(PttCamera),
         ctypes.sizeof(PttIterArgs),
+        PttIterArgs.next_pixel.offset,
+        PttIterArgs.keys.offset,
         PttIterArgs.cam.offset,
         PttIterArgs.cam_key.offset,
         ctypes.sizeof(PttBounceArgs),

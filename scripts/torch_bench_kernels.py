@@ -8,6 +8,9 @@ in turns: parent, change, change, parent).
     python scripts/torch_bench_kernels.py --walks sweep super   # two walks only
     python scripts/torch_bench_kernels.py --walks lanebest planned  # the planned walks
     python scripts/torch_bench_kernels.py --walks mono binned   # 5k mono, 200k binned
+    python scripts/torch_bench_kernels.py --kernels shade iteration  # #3 and #1 alone
+    python scripts/torch_bench_kernels.py --kernels iteration --refill 1 16  # #1's refill
+                                                                # rule, both builds
     python scripts/torch_bench_kernels.py --device cpu --res 8 --scenes 80k \\
         --bounces 2                                             # plain versions, no times
 
@@ -50,6 +53,30 @@ One JSON line per measurement:
 * ``wavefront``: the ``cornell_dof.json`` wavefront frame with compaction
   on: ms per frame and the sha256 of its first frame's film.
 
+``--kernels`` picks what is timed: "walks" (the default: the lines above),
+"shade" and "iteration":
+
+* ``shade``: the mesh-shade kernel (#3, ``fused_mesh_shade``) on each
+  sorted bounce of the 5k mesh (mode "plain"), the textured mesh (mode
+  "textured") and the 200k mesh (mode "plain", emit "tlim": more than 24
+  tiles), as the main path launches it (``shade_states``: the emit it asks,
+  none on the last bounce; the carried prim winner where the package has
+  it, ``carried``): ms per launch and a sha256 of its outputs without the
+  winner, which two checkouts print alike; then the 5k sorted and unsorted,
+  textured-mesh, 200k, 20k and 80k "auto" frames;
+* ``iteration``: the iteration kernel (#1, ``fused_prim_iteration``) per
+  frame on ``cornell_dof.json``, ``cornell_all_lobes.json`` and the
+  40-primitive scene at depth 80 (``many_prims_scene``): ms per frame and the
+  sha256 of the film and of the alive counts; with them each scene's lane
+  use (``lane_use``): live lane-bounces over lane-bounces issued, of the
+  per-pixel schedule (counted from the plain version's paths: a warp of 32
+  consecutive pixels issues until its longest path ends) and, where the
+  package's kernel has the counting build (``PTT_COUNT_LANES``), of its
+  own schedule on the card.  ``--refill`` also builds the kernel with each
+  refill rule given (``-DPTT_REFILL_MIN``: a warp takes new pixels once that
+  many of its lanes are free) and times the builds in turns; every build's
+  film must be the package's.
+
 Times are CUDA events: the median of ``--samples`` samples of ``--k`` calls
 (frames: of ``--frames``) after a warm-up call.  On the CPU nothing is timed.
 """
@@ -73,6 +100,11 @@ WALK_SCENES = {"streamed": ("80k", "500k"), "sweep": ("20k", "80k"), "super": ("
 TEXTURED_MESH = "scenes/cornell_mesh_textured_local.json"  # a mono frame of "mono"
 # The walk kernels by their names here (``ops/intersect_mxu.py::WALKS``).
 PLANNED_KINDS = {"lanebest": "planned_lanebest", "planned": "planned"}
+KERNELS = ("walks", "shade", "iteration")
+# The shade kernel's scenes: name -> scene file.
+SHADE_SCENES = {"5k": SCENE_FILES["5k"], "mesh_textured": TEXTURED_MESH,
+                "200k": SCENE_FILES["200k"]}
+ITERATION_SCENES = ("cornell_dof", "cornell_all_lobes", "depth80")
 
 
 def sorted_bounces(dev, static, cam, cfg, device, bounces: int = 3) -> list:
@@ -107,6 +139,166 @@ def sorted_bounces(dev, static, cam, cfg, device, bounces: int = 3) -> list:
         mt, mn, mm = fused.mesh_surface(tables, static, cfg, paths, tl)
         paths = fused.fused_mesh_shade_plain(prim_static, cfg, paths, mt, mn, mm,
                                              prng.stage_key(ik, d, 1), n)
+    return out
+
+
+def shade_states(dev, static, cam, cfg, device, bounces: int):
+    """Each sorted bounce of a mesh frame as the main path shades it, for
+    the shade kernel (#3): yields (args, kwargs) of ``fused_mesh_shade``.
+    The rays are in the main path's coherence order with their t_limit and,
+    where the package carries it, their prim winner
+    (``prim_t_min(..., winner=True)``, permuted with them: the winner the
+    bounce before emits); the mesh surface is ``mesh_surface``, or
+    ``textured_mesh_surface`` in mode "textured" for a textured mesh; emit
+    is the main path's ("tlim+key" up to ``KEY_INLINE_MAX_CT`` tiles, else
+    "tlim"; none on the frame's last bounce).  The next bounce comes from the
+    plain shade.  Works on any checkout's package."""
+    import dataclasses
+    import inspect
+
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import camera as camera_ops
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused, intersect_mxu as mxu
+    from project3_cuda_path_tracer_2025_tpu_torch.ops.compaction import permute_path_state
+    from project3_cuda_path_tracer_2025_tpu_torch.ops.intersect import prim_t_min
+    from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
+
+    carries = "prim_winner" in inspect.signature(fused.fused_mesh_shade).parameters
+    tables = dev.mxu_mesh
+    ct = tables.tile_aabb.shape[0]
+    mode = "textured" if static.num_textures > 0 else "plain"
+    n = static.pixel_count
+    prim_static = dataclasses.replace(static, num_triangles=0)
+    ik = prng.iteration_key(prng.prng_key(0), 1)
+    paths = camera_ops.generate_camera_rays(
+        cam, static.width, static.height, static.trace_depth,
+        prng.uniforms_at(prng.stage_key(ik, 0, 0), torch.arange(n, device=device), 4, n))
+    for d in range(bounces):
+        ro, rd = paths.origin, paths.direction
+        if carries:
+            tl, win = prim_t_min(static, cfg, ro, rd, winner=True)
+        else:
+            tl, win = prim_t_min(static, cfg, ro, rd), None
+        perm = mxu.coherence_perm(tables, ro, rd, paths.alive, tl, cfg.ray_sort_bits,
+                                  cfg.ray_sort_dir_bits, mode="signature")
+        paths, extra = permute_path_state(paths, perm, extra=(tl,) if win is None else (tl, win))
+        tl, win = extra[0], (extra[1] if carries else None)
+        if mode == "plain":
+            (mt, mn, mm), alb = fused.mesh_surface(tables, static, cfg, paths, tl), None
+        else:
+            mt, mn, mm, alb = fused.textured_mesh_surface(dev, static, cfg, paths, tl)
+        emit = "" if d == static.trace_depth - 1 else (
+            "tlim+key" if ct <= mxu.KEY_INLINE_MAX_CT else "tlim")
+        key = emit == "tlim+key"
+        skey = prng.stage_key(ik, d, 1)
+        args = (prim_static, cfg, paths, mt, mn, mm, skey, n, emit,
+                tables.tile_aabb if key else None, tables.center if key else None)
+        kwargs = dict(mode=mode, mesh_albedo=alb)
+        if carries:
+            kwargs.update(prim_winner=win, want_winner=bool(emit))
+        yield args, kwargs
+        paths = fused.fused_mesh_shade_plain(prim_static, cfg, paths, mt, mn, mm, skey, n,
+                                             mode=mode, mesh_albedo=alb)
+
+
+def shade_outputs(out, emit: str) -> tuple:
+    """The outputs of a shade call with ``emit`` without the carried
+    winner: the path state, then t_lim and the key where it emits them."""
+    paths, extra = out if emit else (out, ())
+    return (*paths.origin, *paths.direction, *paths.color, paths.bounces,
+            *(x for x in extra[:2] if x is not None))
+
+
+def iteration_scene(name: str, res: int):
+    """A scene of the iteration kernel's A/B at ``res`` x ``res``:
+    ``scenes/<name>.json``, or "depth80", the 40-primitive, 40-material
+    scene at depth 80 that ``many_prims_scene`` makes from
+    ``cornell_dof.json``."""
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import (
+        load_scene, many_prims_scene, scene_from_dict, set_resolution,
+    )
+
+    base = os.path.join(REPO, "scenes", "cornell_dof.json")
+    if name == "depth80":
+        scene = scene_from_dict(many_prims_scene(base, 40, 40, depth=80))
+    else:
+        scene = load_scene(os.path.join(REPO, "scenes", f"{name}.json"))
+    return set_resolution(scene, res, res)
+
+
+def variant_library(defines: tuple):
+    """The package's ``fused_prim.cu`` built with ``defines`` (``-D``
+    flags) into ``build/kernels_ab/``, loaded: a ``KernelLibrary``."""
+    import subprocess
+
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import kernels
+
+    out_dir = kernels.BUILD_ROOT.parent / "kernels_ab" / kernels._source_hash()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tag = "_".join(d.replace("=", "") for d in defines) or "plain"
+    path = out_dir / f"libptt_fused_prim_{tag}.so"
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, *(f"-D{d}" for d in defines),
+           "-I", str(kernels.CSRC), "-o", str(path), str(kernels.CSRC / "fused_prim.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {defines}:\n{proc.stdout}{proc.stderr}")
+    return kernels.KernelLibrary("fused_prim", path, 0.0, proc.stdout + proc.stderr)
+
+
+class library_used:
+    """``ops.kernels.load`` returns ``lib`` for "fused_prim" inside a
+    ``with`` block: the wrappers launch that build's kernels."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __enter__(self):
+        from project3_cuda_path_tracer_2025_tpu_torch.ops import kernels
+
+        self.kernels, self.own = kernels, kernels.load
+        kernels.load = lambda name="fused_prim": self.lib if name == "fused_prim" \
+            else self.own(name)
+
+    def __exit__(self, *exc):
+        self.kernels.load = self.own
+
+
+def lane_use(static, cfg, cam, device, counting=None) -> dict:
+    """Lane use of the iteration kernel on one frame (iteration 1, seed 0):
+    ``live`` lane-bounces (every bounce of a live path) over ``issued``
+    ones.  The per-pixel schedule's, from the plain version's paths: each
+    warp of 32 consecutive pixels issues 32 lanes a depth until its longest
+    path ends.  With ``counting`` (a build with ``PTT_COUNT_LANES``), the
+    regenerating schedule's as that build counts it on the card: 32 lanes
+    for every step in which a warp bounces."""
+    import ctypes
+
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import camera as camera_ops
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import film as film_ops
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused
+    from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
+
+    n, depth = static.pixel_count, static.trace_depth
+    idx = torch.arange(n, dtype=torch.int32, device=device)
+    cam_key, ik = fused.kernel_key_words(1, prng.prng_key(0))
+    paths = camera_ops.generate_camera_rays(
+        cam, static.width, static.height, depth, prng.uniforms_at(cam_key, idx, 4, n), idx=idx)
+    length = torch.zeros(n, dtype=torch.int64, device=device)
+    for d in range(depth):
+        length += paths.alive
+        paths = fused.fused_prim_bounce_plain(
+            static, cfg, paths, prng.uniforms_at(prng.stage_key(ik, d, 1), idx, 3, n))
+    warp_max = torch.nn.functional.pad(length, (0, -n % 32)).view(-1, 32).max(1).values
+    out = dict(per_pixel_live=int(length.sum()), per_pixel_issued=32 * int(warp_max.sum()))
+    if counting is not None:
+        counts = (ctypes.c_ulonglong * 2)()
+        fn = counting.lib.ptt_lane_counts_read
+        fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+        counting.check(fn(counts, 1), "ptt_lane_counts_read")
+        with library_used(counting):
+            fused.fused_prim_iteration(static, cfg, cam, film_ops.new_film(n, device), 1,
+                                       prng.prng_key(0))
+        counting.check(fn(counts, 1), "ptt_lane_counts_read")
+        out.update(regen_issued=int(counts[0]), regen_live=int(counts[1]))
     return out
 
 
@@ -208,6 +400,12 @@ def run(argv=None) -> list:
     ap.add_argument("--scenes", nargs="+", default=list(SCENE_FILES), choices=list(SCENE_FILES))
     ap.add_argument("--walks", nargs="+", default=list(WALKS), choices=WALKS,
                     help="the walks timed, each on its scenes (default: all seven)")
+    ap.add_argument("--kernels", nargs="+", default=["walks"], choices=KERNELS,
+                    help="what is timed: the walks with the scan and the wavefront frame "
+                    "(default), the mesh shade (#3), the iteration kernel (#1)")
+    ap.add_argument("--refill", nargs="+", type=int, default=[],
+                    help="with iteration: also build and time the kernel with each of these "
+                    "refill rules (PTT_REFILL_MIN)")
     ap.add_argument("--bounces", type=int, default=None,
                     help="sorted bounces a mesh (default: the scene's depth)")
     ap.add_argument("--k", type=int, default=10, help="launches per sample")
@@ -276,6 +474,13 @@ def run(argv=None) -> list:
             kind="walk", walk=walk, scene=name, bounce=d, **extra, live=int(live.sum()),
             hits=int((tri >= 0).sum()), ms=timed(fn, args.k), result_sha=sha(t, tri),
             **common)))
+
+    if "shade" in args.kernels:
+        run_shade(args, measure, recs, common, timed, scene_at, frame_of, time_frame)
+    if "iteration" in args.kernels:
+        run_iteration(args, measure, recs, common, timed, device)
+    if "walks" not in args.kernels:
+        return recs
 
     for name in args.scenes:
         walks = [w for w in args.walks if name in WALK_SCENES[w]]
@@ -375,8 +580,108 @@ def run(argv=None) -> list:
     return recs
 
 
+def run_shade(args, measure, recs, common, timed, scene_at, frame_of,
+              time_frame) -> None:
+    """The ``shade`` lines: #3 on each sorted bounce of its scenes, then
+    their frames."""
+    from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import (
+        build_device_scene, camera_state, derive_render_camera,
+    )
+
+    cfg = RenderConfig()
+    device = torch.device(args.device)
+    for name, path in SHADE_SCENES.items():
+        scene = scene_at(path)
+        dev, static = build_device_scene(scene, device)
+        cam = camera_state(derive_render_camera(scene.state.camera))
+        bounces = args.bounces or static.trace_depth
+        for d, (a, kw) in enumerate(shade_states(dev, static, cam, cfg, device, bounces)):
+            fn = lambda a=a, kw=kw: fused.fused_mesh_shade(*a, **kw)
+            recs.append(measure.emit(dict(
+                kind="shade", scene=name, bounce=d, mode=kw["mode"], emit=a[8],
+                carried="prim_winner" in kw, live=int(a[2].alive.sum()),
+                ms=timed(fn, args.k), result_sha=sha(*shade_outputs(fn(), a[8])), **common)))
+        time_frame(name, "auto", frame_of(dev, static, cam, cfg))
+        if name == "5k":
+            time_frame(name, "auto, unsorted",
+                       frame_of(dev, static, cam, RenderConfig(ray_sorting="off")))
+        del dev
+    for name in ("20k", "80k"):  # the other "auto" mesh frames, each shading 8 times
+        scene = scene_at(SCENE_FILES[name])
+        dev, static = build_device_scene(scene, device)
+        time_frame(name, "auto", frame_of(dev, static,
+                                          camera_state(derive_render_camera(scene.state.camera)),
+                                          cfg))
+        del dev
+
+
+def run_iteration(args, measure, recs, common, timed, device) -> None:
+    """The ``iteration`` lines: #1 per frame on its scenes with the lane
+    use, and with ``--refill`` each refill rule's build in turns."""
+    from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import film as film_ops
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused, kernels
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import (
+        build_device_scene, camera_state, derive_render_camera,
+    )
+    from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
+
+    cfg = RenderConfig()
+    on_card = device.type == "cuda"
+    countable = on_card and "PTT_COUNT_LANES" in (kernels.CSRC / "fused_prim.cu").read_text()
+    counting = variant_library(("PTT_COUNT_LANES",)) if countable else None
+    builds = {f"refill {k}": variant_library((f"PTT_REFILL_MIN={k}",))
+              for k in (args.refill if on_card else [])}
+    for name in ITERATION_SCENES:
+        scene = iteration_scene(name, args.res)
+        _, static = build_device_scene(scene, device)
+        cam = camera_state(derive_render_camera(scene.state.camera))
+        n, it = static.pixel_count, [0]
+        film = film_ops.new_film(n, device)
+
+        def frame():
+            it[0] += 1
+            return fused.fused_prim_iteration(static, cfg, cam, film, it[0], prng.prng_key(0))
+
+        film1, alive1 = fused.fused_prim_iteration(static, cfg, cam, film_ops.new_film(n, device),
+                                                   1, prng.prng_key(0))
+        recs.append(measure.emit(dict(
+            kind="iteration", scene=name, depth=static.trace_depth, build="package",
+            ms=timed(frame, args.frames), film_sha=sha(*film1), alive_sha=sha(alive1),
+            **lane_use(static, cfg, cam, device, counting), **common)))
+        if not builds:
+            continue
+        times = {b: [] for b in builds}
+        shas = {}
+        for b, lib in builds.items():
+            with library_used(lib):
+                f, al = fused.fused_prim_iteration(static, cfg, cam,
+                                                   film_ops.new_film(n, device), 1,
+                                                   prng.prng_key(0))
+                shas[b] = (sha(*f), sha(al))
+                frame()
+        torch.cuda.synchronize()
+        for rnd in range(args.samples):
+            for b in (list(builds) if rnd % 2 == 0 else list(builds)[::-1]):
+                with library_used(builds[b]):
+                    times[b].append(measure.event_ms(frame, args.frames))
+        for b in builds:
+            recs.append(measure.emit(dict(
+                kind="iteration", scene=name, depth=static.trace_depth, build=b,
+                ms=float(np.median(times[b])), film_sha=shas[b][0], alive_sha=shas[b][1],
+                **common)))
+
+
 def main(argv=None) -> int:
-    run(argv)
+    recs = run(argv)
+    bad = [r for r in recs if r.get("kind") == "iteration" and r["build"] != "package"
+           and r["film_sha"] != next(q["film_sha"] for q in recs if q.get("kind") == "iteration"
+                                     and q["scene"] == r["scene"] and q["build"] == "package")]
+    if bad:
+        print(f"builds whose film differs from the package's: {bad}", flush=True)
+        return 1
     return 0
 
 

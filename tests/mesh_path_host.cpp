@@ -41,13 +41,18 @@ void ptt_host_mono(const float* coef, const float* aabb, int32_t ct, const float
 }
 
 // ptt_mesh_shade_kernel; emit: 0 none, 1 t_lim, 2 t_lim + key; mode: 0
-// plain, 1 textured, 2 precomputed (mesh_alb is read in modes 1 and 2).
-void ptt_host_mesh_shade(const PttScene* s, const float* const* in_f, const int32_t* in_bounces,
-                         const int32_t* pixel, const float* mesh_t, const float* const* mesh_n,
-                         const int32_t* mesh_mat, const float* aabb, const float* center,
-                         float* const* out_f, int32_t* out_bounces, float* out_tlim,
-                         int32_t* out_key, uint32_t k0, uint32_t k1, uint32_t rng_n, int32_t n,
-                         int32_t ct, int32_t emit, int32_t mode, const float* const* mesh_alb) {
+// plain, 1 textured, 2 precomputed (mesh_alb is read in modes 1 and 2);
+// prim_win: the carried prim winner of each ray (null: test every prim);
+// out_win (emit >= 1, may be null): the prim that gives out_tlim.
+void ptt_host_mesh_shade_win(const PttScene* s, const float* const* in_f,
+                             const int32_t* in_bounces, const int32_t* pixel,
+                             const float* mesh_t, const float* const* mesh_n,
+                             const int32_t* mesh_mat, const float* aabb, const float* center,
+                             float* const* out_f, int32_t* out_bounces, float* out_tlim,
+                             int32_t* out_key, uint32_t k0, uint32_t k1, uint32_t rng_n,
+                             int32_t n, int32_t ct, int32_t emit, int32_t mode,
+                             const float* const* mesh_alb, const int32_t* prim_win,
+                             int32_t* out_win) {
   for (int32_t i = 0; i < n; ++i) {
     Ray ray;
     ray.o = v3(in_f[0][i], in_f[1][i], in_f[2][i]);
@@ -57,7 +62,7 @@ void ptt_host_mesh_shade(const PttScene* s, const float* const* in_f, const int3
     const V3 alb = mode == PTT_SHADE_PLAIN ? v3(0.0f, 0.0f, 0.0f)
                                            : v3(mesh_alb[0][i], mesh_alb[1][i], mesh_alb[2][i]);
     mesh_shade_ray(*s, ray, mesh_t[i], v3(mesh_n[0][i], mesh_n[1][i], mesh_n[2][i]), mesh_mat[i],
-                   mode, alb, k0, k1, rng_n, pixel[i]);
+                   mode, alb, k0, k1, rng_n, pixel[i], prim_win ? prim_win[i] : PTT_NO_WINNER);
     out_f[0][i] = ray.o.x;
     out_f[1][i] = ray.o.y;
     out_f[2][i] = ray.o.z;
@@ -69,13 +74,27 @@ void ptt_host_mesh_shade(const PttScene* s, const float* const* in_f, const int3
     out_f[8][i] = ray.c.z;
     out_bounces[i] = ray.bounces;
     if (emit >= 1) {
-      out_tlim[i] = prim_t_min(*s, ray.o, ray.d);
+      int32_t win;
+      out_tlim[i] = prim_t_min_win(*s, ray.o, ray.d, &win);
+      if (out_win) out_win[i] = win;
       if (emit == 2) {
         out_key[i] = coherence_key(aabb, ct, v3(center[0], center[1], center[2]), ray.o, ray.d,
                                    ray.bounces > 0, out_tlim[i]);
       }
     }
   }
+}
+
+// The same without the winner: every prim tested.
+void ptt_host_mesh_shade(const PttScene* s, const float* const* in_f, const int32_t* in_bounces,
+                         const int32_t* pixel, const float* mesh_t, const float* const* mesh_n,
+                         const int32_t* mesh_mat, const float* aabb, const float* center,
+                         float* const* out_f, int32_t* out_bounces, float* out_tlim,
+                         int32_t* out_key, uint32_t k0, uint32_t k1, uint32_t rng_n, int32_t n,
+                         int32_t ct, int32_t emit, int32_t mode, const float* const* mesh_alb) {
+  ptt_host_mesh_shade_win(s, in_f, in_bounces, pixel, mesh_t, mesh_n, mesh_mat, aabb, center,
+                          out_f, out_bounces, out_tlim, out_key, k0, k1, rng_n, n, ct, emit, mode,
+                          mesh_alb, nullptr, nullptr);
 }
 
 // The per-ray schedule of the planned walks, without (exit 0) and with

@@ -857,6 +857,145 @@ def test_prim_tables_beyond_shared_memory(cuda):
     assert int((~torch.isclose(got, want, rtol=2e-4, atol=2e-5)).any(dim=1).sum()) <= 5
 
 
+def _plain_until_dead(static, cfg, cam, base_key, device):
+    """``fused_prim_iteration_plain``, stopped once no path is alive (a dead
+    path is left as it is, so the later depths add nothing): the reference
+    of the iteration kernel at any depth.  Returns (film [N, 3], alive)."""
+    n, depth = static.pixel_count, static.trace_depth
+    idx = torch.arange(n, dtype=torch.int32, device=device)
+    cam_key, ik = fused.kernel_key_words(1, base_key)
+    paths = camera_ops.generate_camera_rays(
+        cam, static.width, static.height, depth, prng.uniforms_at(cam_key, idx, 4, n), idx=idx)
+    alive = torch.zeros(depth, dtype=torch.int32, device=device)
+    for d in range(depth):
+        if not bool(paths.alive.any()):
+            break
+        paths = fused.fused_prim_bounce_plain(
+            static, cfg, paths, prng.uniforms_at(prng.stage_key(ik, d, 1), idx, 3, n))
+        alive[d] = paths.alive.sum()
+    return torch.stack(list(paths.color), 1), alive
+
+
+@pytest.mark.parametrize("case", ["32x32", "depth 80", "tables beyond shared memory",
+                                  "keys beyond shared memory"])
+def test_iteration_kernel_regenerates_at_any_size(cuda, case):
+    """The iteration kernel's persistent, regenerating grid where it is
+    thin or long: 1,024 pixels (fewer than the grid's resident lanes), the
+    40-primitive scene at depth 80, 1,600 primitives (tables in device
+    memory), and depth 20,000 (shade keys and counters beyond shared memory,
+    in device memory) on 64 pixels.  Alive counts equal the plain path's
+    (within 2 at 40 and 1,600 primitives, as the tests above hold them),
+    films at the goldens' tolerance."""
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import many_prims_scene, scene_from_dict
+
+    base = str(REPO / "scenes" / "cornell_dof.json")
+    doc, res = {
+        "32x32": (None, 32),
+        "depth 80": (many_prims_scene(base, 40, 40, depth=80), 64),
+        "tables beyond shared memory": (many_prims_scene(base, 1600, 200, depth=8), 16),
+        "keys beyond shared memory": (None, 8),
+    }[case]
+    scene = load_scene(base) if doc is None else scene_from_dict(doc)
+    if case == "keys beyond shared memory":
+        scene.state.trace_depth = 20_000
+    scene = set_resolution(scene, res, res)
+    _, static = build_device_scene(scene, cuda)
+    cam = camera_state(derive_render_camera(scene.state.camera))
+    cfg, n = RenderConfig(), static.pixel_count
+    before = fused.fused_prim_iteration.launches
+    film_k, alive_k = fused.fused_prim_iteration(static, cfg, cam, film_ops.new_film(n, cuda), 1,
+                                                 prng.prng_key(0))
+    want, alive_p = _plain_until_dead(static, cfg, cam, prng.prng_key(0), cuda)
+    assert alive_k.shape == (static.trace_depth,)
+    if case in ("depth 80", "tables beyond shared memory"):
+        assert int((alive_k - alive_p).abs().max()) <= 2
+    else:
+        assert torch.equal(alive_k, alive_p)
+    got = torch.stack(list(film_k), 1)
+    assert bool(torch.isfinite(got).all())
+    outside = ~torch.isclose(got, want, rtol=2e-4, atol=2e-5)
+    assert int(outside.any(dim=1).sum()) <= max(3, n // 200)
+    assert fused.fused_prim_iteration.launches == before + 1
+
+
+def _sorted_shade_states(static, dev, cam, device, bounces):
+    """Each sorted bounce of a mesh frame as the main path shades it: the
+    rays in coherence order with their t_limit and carried prim winner
+    (``prim_t_min(..., winner=True)``, permuted with them), the mesh
+    surface; the next bounce from the plain shade."""
+    cfg = RenderConfig()
+    tables = dev.mxu_mesh
+    ik, paths = _camera_paths(static, cam, device)
+    prim_static = dataclasses.replace(static, num_triangles=0)
+    for d in range(bounces):
+        tl, win = prim_t_min(static, cfg, paths.origin, paths.direction, winner=True)
+        perm = intersect_mxu.coherence_perm(tables, paths.origin, paths.direction, paths.alive,
+                                            tl, cfg.ray_sort_bits, cfg.ray_sort_dir_bits,
+                                            mode="signature")
+        paths, (tl, win) = permute_path_state(paths, perm, extra=(tl, win))
+        mt, mn, mm = fused.mesh_surface(tables, static, cfg, paths, tl, plain=True)
+        args = (prim_static, cfg, paths, mt, mn, mm, prng.stage_key(ik, d, 1),
+                static.pixel_count, "tlim+key", tables.tile_aabb, tables.center)
+        yield args, win
+        paths = fused.fused_mesh_shade_plain(*args)[0]
+
+
+def _shade_bits(out):
+    p, (tl, key, *win) = out
+    return [x.view(torch.int32) if x.dtype == torch.float32 else x
+            for x in (*p.origin, *p.direction, *p.color, p.bounces, tl, key, *win)
+            if x is not None]
+
+
+def test_mesh_shade_kernel_carried_winner_on_sorted_bounces(cuda):
+    """All eight sorted bounces of the 5k mesh at 160x160: the shade kernel
+    given the carried winner is bit-equal to its plain version given it, and
+    to itself without it; the winner it emits is the plain version's."""
+    dev, static, cam = _setup(MESH, 160, cuda)
+    before = fused.fused_mesh_shade.launches
+    taken = 0
+    for args, win in _sorted_shade_states(static, dev, cam, cuda, static.trace_depth):
+        got = fused.fused_mesh_shade(*args, prim_winner=win, want_winner=True)
+        want = fused.fused_mesh_shade_plain(*args, prim_winner=win, want_winner=True)
+        every = fused.fused_mesh_shade(*args)
+        for a, b in zip(_shade_bits(got), _shade_bits(want)):
+            assert torch.equal(a, b)
+        for a, b in zip(_shade_bits(got)[:-1], _shade_bits(every)):
+            assert torch.equal(a, b)
+        taken += int((args[2].alive & (args[5] < 0) & (win >= 0)).sum())
+    assert fused.fused_mesh_shade.launches == before + 2 * static.trace_depth
+    assert taken > 1000
+
+
+def test_mesh_shade_kernel_winner_tie_and_inside(cuda):
+    """``tests/torch_fixtures.py::winner_case`` on the card: a two-sphere
+    tie at equal t, origins inside a cube and within ray_eps of its face,
+    rays that hit no prim, mesh-hit and dead lanes; both emit modes: the
+    kernel with the winner bit-equal to its plain version and to itself
+    without it."""
+    from torch_fixtures import winner_case
+
+    dev, static, _ = _setup(MESH, 8, cuda)
+    prim_static, paths, mt, mn, mm = winner_case(static, np.random.default_rng(7), n=4096)
+    to = lambda x: x.to(cuda)
+    paths = type(paths)(*(type(f)(*map(to, f)) if isinstance(f, tuple) else to(f)
+                          for f in paths))
+    mt, mm = to(mt), to(mm)
+    mn = type(mn)(*map(to, mn))
+    cfg = RenderConfig()
+    win = prim_t_min(prim_static, cfg, paths.origin, paths.direction, winner=True)[1]
+    for emit in ("tlim", "tlim+key"):
+        args = (prim_static, cfg, paths, mt, mn, mm, prng.prng_key(4), 4096, emit,
+                dev.mxu_mesh.tile_aabb, dev.mxu_mesh.center)
+        got = fused.fused_mesh_shade(*args, prim_winner=win, want_winner=True)
+        want = fused.fused_mesh_shade_plain(*args, prim_winner=win, want_winner=True)
+        every = fused.fused_mesh_shade(*args)
+        for a, b in zip(_shade_bits(got), _shade_bits(want)):
+            assert torch.equal(a, b)
+        for a, b in zip(_shade_bits(got)[:-1], _shade_bits(every)):
+            assert torch.equal(a, b)
+
+
 def test_measuring_scripts_run_on_the_card(cuda, capsys):
     """Each script's main() at a small size on the card: exit 0, JSON lines
     with times and the card's name."""

@@ -41,12 +41,13 @@ from project3_cuda_path_tracer_2025_tpu_torch.ops import fused, intersect_mxu, k
 from project3_cuda_path_tracer_2025_tpu_torch.ops import shade as shade_ops
 from project3_cuda_path_tracer_2025_tpu_torch.ops.intersect import intersect_scene, prim_t_min
 from project3_cuda_path_tracer_2025_tpu_torch.scene import (
-    build_device_scene, camera_state, derive_render_camera, load_scene,
-    set_resolution,
+    build_device_scene, camera_state, derive_render_camera, load_scene, many_prims_scene,
+    scene_from_dict, set_resolution,
 )
 from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
 from project3_cuda_path_tracer_2025_tpu_torch.utils.vec import Vec3
-from torch_compare import assert_films_close, build_host
+from torch_compare import FILM_ATOL, FILM_RTOL, assert_films_close, build_host
+from torch_fixtures import winner_case
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 HARNESS = REPO / "tests" / "prim_path_host.cpp"
@@ -64,6 +65,8 @@ def host_lib(tmp_path_factory):
     lib.ptt_host_uniforms.argtypes = [ctypes.c_uint32] * 3 + [P]
     lib.ptt_host_bounce.argtypes = [P, P, P, P, P, P, ctypes.c_int32]
     lib.ptt_host_iteration.argtypes = [P, P] + [ctypes.c_int32] * 4 + [P] * 5
+    lib.ptt_host_iteration_regen.argtypes = (
+        [P, P] + [ctypes.c_int32] * 4 + [P] * 5 + [ctypes.c_int32] * 2 + [P])
     sizes = (ctypes.c_int32 * 2)()
     lib.ptt_host_sizes(sizes)
     assert list(sizes) == [ctypes.sizeof(kernels.PttScene), ctypes.sizeof(kernels.PttCamera)]
@@ -144,6 +147,94 @@ def test_host_iteration_matches_plain(host_lib, name):
     np.testing.assert_array_equal(alive_h, alive_p.numpy())
 
 
+# The iteration kernel's regenerating schedule (ptt_host_iteration_regen):
+# name -> (scene, width, height, warps).  "odd": 391 pixels, not a multiple
+# of 32; "few": 256 lanes for 64 pixels; "depth80": 40 primitives and 40
+# materials at depth 80 (scene.many_prims_scene, as
+# tests/test_torch_prim_capacity.py).
+REGEN_CASES = {
+    "dof": ("cornell_dof.json", 24, 24, 4),
+    "lobes": ("cornell_all_lobes.json", 24, 24, 4),
+    "odd": ("cornell_dof.json", 23, 17, 3),
+    "few": ("cornell_dof.json", 8, 8, 8),
+    "depth80": ("depth80", 12, 12, 4),
+}
+
+
+@pytest.fixture(scope="module")
+def regen_refs(host_lib):
+    """name -> (static, cam, keys, the per-pixel schedule's film and alive
+    counts, the plain version's), each made once."""
+    cache = {}
+
+    def get(name):
+        if name in cache:
+            return cache[name]
+        what, w, h, _ = REGEN_CASES[name]
+        if what == "depth80":
+            doc = many_prims_scene(str(REPO / "scenes" / "cornell_dof.json"), 40, 40, depth=80)
+            scene = set_resolution(scene_from_dict(doc), w, h)
+            _, static = build_device_scene(scene, "cpu")
+            cam = camera_state(derive_render_camera(scene.state.camera))
+        else:
+            static, cam = _scene(what, w, h)
+        n, depth = static.pixel_count, static.trace_depth
+        base_key = prng.prng_key(0)
+        film_p, alive_p = fused.fused_prim_iteration_plain(
+            static, RenderConfig(), cam, film_ops.new_film(n), 1, base_key)
+        cam_key, iter_key = fused.kernel_key_words(1, base_key)
+        keys = np.asarray([*cam_key, *iter_key], np.uint32)
+        film_h = film_ops.new_film(n)
+        alive_h = np.zeros(depth, np.int32)
+        host_lib.ptt_host_iteration(
+            ctypes.byref(fused.scene_struct(static, RenderConfig())),
+            ctypes.byref(fused.camera_struct(cam)), static.width, static.height, n, depth,
+            keys.ctypes.data, *(c.data_ptr() for c in film_h), alive_h.ctypes.data)
+        cache[name] = (static, cam, keys, film_h, alive_h, film_p, alive_p.numpy())
+        return cache[name]
+
+    return get
+
+
+@pytest.mark.parametrize("refill_min", [1, 16])
+@pytest.mark.parametrize("name", list(REGEN_CASES))
+def test_host_iteration_regen_matches_per_pixel(host_lib, regen_refs, name, refill_min):
+    """The regenerating schedule (warps of 32 lanes in lock step, one pixel
+    counter, a warp refilling once 1 or 16 of its lanes are free) traces
+    every pixel's path as the per-pixel schedule does: film and alive counts
+    bit for bit, and so the plain version's to its tolerance.  Its lane
+    counts: every live lane-bounce once (the camera rays and the rays alive
+    after each depth but the last)."""
+    static, cam, keys, film_h, alive_h, film_p, alive_p = regen_refs(name)
+    n, depth = static.pixel_count, static.trace_depth
+    warps = REGEN_CASES[name][3]
+    film_r = film_ops.new_film(n)
+    alive_r = np.zeros(depth, np.int32)
+    lanes = np.zeros(2, np.int64)
+    host_lib.ptt_host_iteration_regen(
+        ctypes.byref(fused.scene_struct(static, RenderConfig())),
+        ctypes.byref(fused.camera_struct(cam)), static.width, static.height, n, depth,
+        keys.ctypes.data, *(c.data_ptr() for c in film_r), alive_r.ctypes.data,
+        warps, refill_min, lanes.ctypes.data)
+    for got, want in zip(film_r, film_h):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    np.testing.assert_array_equal(alive_r, alive_h)
+    assert lanes[1] == n + int(alive_h[:-1].sum())
+    assert lanes[0] % 32 == 0 and lanes[1] <= lanes[0]
+    got = torch.stack(list(film_r), 1).numpy()
+    want = torch.stack(list(film_p), 1).numpy()
+    if name != "depth80":
+        assert_films_close(got, want)
+        np.testing.assert_array_equal(alive_r, alive_p)
+    else:
+        # Over 80 bounces a last bit of libm's cos/sin against torch's forks
+        # a path or two: tests/test_torch_prim_capacity.py's bars.
+        assert np.abs(alive_r.astype(np.int64) - alive_p).max() <= 2
+        outside = ~np.isclose(got, want, rtol=FILM_RTOL, atol=FILM_ATOL)
+        assert outside.any(axis=1).sum() <= 3
+        np.testing.assert_allclose(got.sum(), want.sum(), rtol=1e-3)
+
+
 def test_kernel_wrappers_refuse_non_cuda_devices():
     """A wrapper runs its plain version only for CPU tensors; anything else
     that is not CUDA is refused, never silently computed elsewhere."""
@@ -169,6 +260,9 @@ def mesh_lib(tmp_path_factory):
     )
     lib.ptt_host_mesh_shade.argtypes = (
         [P] * 13 + [ctypes.c_uint32] * 3 + [ctypes.c_int32] * 4 + [P]
+    )
+    lib.ptt_host_mesh_shade_win.argtypes = (
+        [P] * 13 + [ctypes.c_uint32] * 3 + [ctypes.c_int32] * 4 + [P] * 3
     )
     sizes = (ctypes.c_int32 * 2)()
     lib.ptt_host_mesh_sizes(sizes)
@@ -351,6 +445,130 @@ def test_host_mesh_shade_modes_match_plain(mesh_lib, mode):
         textured_lanes += int(((mm >= 0) & paths.alive).sum()) if mode == "textured" else \
             int((alb.y != alb.x).sum())
     assert textured_lanes > 20
+
+
+def _host_shade(lib, prim_static, cfg, paths, surf, skey, n, emit, tables, mode, win):
+    """The shade body with the carried winner (``ptt_host_mesh_shade_win``;
+    ``win`` None: every prim tested) on one state; ``surf`` the kernel's
+    mesh inputs (t, normal, material[, albedo]).  Returns the output planes
+    (origin, direction, color), bounces, t_lim, key and winner."""
+    c = lambda x: x.contiguous()
+    mt, mn, mm = c(surf[0]), [c(x) for x in surf[1]], c(surf[2])
+    alb = None if mode == "plain" else _ptrs([c(x) for x in surf[3]])
+    f_in = [*paths.origin, *paths.direction, *paths.color]
+    f_out = [torch.empty(n) for _ in range(9)]
+    b_out = torch.empty(n, dtype=torch.int32)
+    tl_out = torch.empty(n)
+    key_out = torch.zeros(n, dtype=torch.int32)
+    win_out = torch.empty(n, dtype=torch.int32)
+    win_in = None if win is None else c(win)
+    key = emit == "tlim+key"
+    lib.ptt_host_mesh_shade_win(
+        ctypes.byref(fused.scene_struct(prim_static, cfg)), _ptrs(f_in),
+        paths.bounces.data_ptr(), paths.pixel.data_ptr(), mt.data_ptr(), _ptrs(mn),
+        mm.data_ptr(), tables.tile_aabb.data_ptr() if key else None,
+        tables.center.data_ptr() if key else None, _ptrs(f_out), b_out.data_ptr(),
+        tl_out.data_ptr(), key_out.data_ptr(), skey[0], skey[1], n, n,
+        tables.tile_aabb.shape[0], fused.EMIT_MODES.index(emit), fused.SHADE_MODES.index(mode),
+        alb, None if win_in is None else win_in.data_ptr(), win_out.data_ptr(),
+    )
+    return f_out, b_out, tl_out, key_out, win_out
+
+
+def _bits_equal(got, want):
+    for a, b in zip(got, want):
+        a = a.view(torch.int32) if a.dtype == torch.float32 else a
+        b = b.view(torch.int32) if b.dtype == torch.float32 else b
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("emit", ["tlim", "tlim+key"])
+@pytest.mark.parametrize("mode", ["plain", "textured"])
+def test_host_mesh_shade_carried_winner(mesh_lib, mode, emit):
+    """Three chained bounces through the shade body, each fed the one
+    before's emitted rays, t_lim and prim winner (the first the torch
+    prepass's, ``prim_t_min(..., winner=True)``), as the main path chains
+    them: with the carried winner the outputs equal those of the body that
+    tests every prim bit for bit, the emitted winner is the one
+    ``prim_t_min`` finds on the scattered rays (its t within the shade
+    tolerance: the body built for the host and torch's CPU kernels may part
+    in the last bit of a transformed point), and the plain version
+    (without the winner) agrees to this file's shade tolerance."""
+    name = "cornell_mesh_5k.json" if mode == "plain" else "cornell_mesh_textured_local.json"
+    scene = set_resolution(load_scene(str(REPO / "scenes" / name)), 32, 24)
+    dev, static = build_device_scene(scene, "cpu")
+    cam = camera_state(derive_render_camera(scene.state.camera))
+    cfg = RenderConfig()
+    n = static.pixel_count
+    idx = torch.arange(n, dtype=torch.int32)
+    ik = prng.iteration_key(prng.prng_key(0), 1)
+    paths = camera_ops.generate_camera_rays(
+        cam, static.width, static.height, static.trace_depth,
+        prng.uniforms_at(prng.stage_key(ik, 0, 0), idx, 4, n), idx=idx,
+    )
+    prim_static = dataclasses.replace(static, num_triangles=0)
+    tables = dev.mxu_mesh
+    tl, win = prim_t_min(static, cfg, paths.origin, paths.direction, winner=True)
+    carried = 0
+    for d in range(3):
+        if mode == "plain":
+            surf = fused.mesh_surface(tables, static, cfg, paths, tl)
+        else:
+            surf = fused.textured_mesh_surface(dev, static, cfg, paths, tl)
+        skey = prng.stage_key(ik, d, 1)
+        args = (mesh_lib, prim_static, cfg, paths, surf, skey, n, emit, tables, mode)
+        f_out, b_out, tl_out, key_out, win_out = _host_shade(*args, win)
+        ref = _host_shade(*args, None)
+        _bits_equal([*f_out, b_out, tl_out, key_out, win_out], [*ref[0], *ref[1:]])
+        out_o, out_d = Vec3(*f_out[0:3]), Vec3(*f_out[3:6])
+        tl_t, win_t = prim_t_min(prim_static, cfg, out_o, out_d, winner=True)
+        assert torch.equal(win_out, win_t)
+        np.testing.assert_allclose(tl_out.numpy(), tl_t.numpy(), rtol=1e-5)
+        want_p, (want_tl, want_key) = fused.fused_mesh_shade_plain(
+            prim_static, cfg, paths, *surf[:3], skey, n, emit, tables.tile_aabb,
+            tables.center, mode=mode, mesh_albedo=None if mode == "plain" else surf[3])
+        np.testing.assert_array_equal(b_out.numpy(), want_p.bounces.numpy())
+        for got, exp in zip(f_out, [*want_p.origin, *want_p.direction, *want_p.color]):
+            np.testing.assert_allclose(got.numpy(), exp.numpy(), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(tl_out.numpy(), want_tl.numpy(), rtol=1e-5)
+        carried += int((paths.alive & (surf[2] < 0) & (win >= 0)).sum())
+        paths = want_p._replace(origin=out_o, direction=out_d, color=Vec3(*f_out[6:9]),
+                                bounces=b_out)
+        tl, win = tl_out, win_out
+    assert carried > 100
+
+
+def test_host_mesh_shade_winner_crafted(mesh_lib, mesh_scene):
+    """``tests/torch_fixtures.py::winner_case``: a two-sphere tie at equal
+    t, origins inside a cube, origins within ray_eps of its face, rays that
+    hit no prim, made-up mesh hits and dead lanes.  The winner is the lower
+    sphere on a tie, the cube from inside and from within eps (t still
+    positive), -1 on a miss; with it the shade body's outputs equal those of
+    the body that tests every prim bit for bit, over two chained bounces."""
+    _, static, _ = mesh_scene
+    cfg = RenderConfig()
+    prim_static, paths, mt, mn, mm = winner_case(static, np.random.default_rng(5))
+    n, q, k = paths.pixel.shape[0], paths.pixel.shape[0] // 4, len(static.geoms)
+    tl, win = prim_t_min(prim_static, cfg, paths.origin, paths.direction, winner=True)
+    free = paths.alive & (mm < 0)
+    assert int((win[:q] == k)[free[:q]].sum()) > 100  # the lower of the tied spheres
+    assert not bool((win == k + 1).any())
+    assert bool((win[q:3 * q] == k + 2).all())  # the cube, from inside and within eps
+    assert bool((tl[2 * q:3 * q] > 0).all()) and float(tl[2 * q:3 * q].max()) < 1e-3
+    assert bool((win[3 * q:] == -1).all())
+    ik = prng.iteration_key(prng.prng_key(3), 2)
+    surf = (mt, mn, mm)
+    tables = mesh_scene[0].mxu_mesh
+    for d in range(2):
+        args = (mesh_lib, prim_static, cfg, paths, surf, prng.stage_key(ik, d, 1), n, "tlim",
+                tables, "plain")
+        got = _host_shade(*args, win)
+        ref = _host_shade(*args, None)
+        _bits_equal([*got[0], *got[1:]], [*ref[0], *ref[1:]])
+        paths = paths._replace(origin=Vec3(*got[0][0:3]), direction=Vec3(*got[0][3:6]),
+                               color=Vec3(*got[0][6:9]), bounces=got[1])
+        tl, win = got[2], got[4]
+        surf = (mt, mn, torch.full_like(mm, -1))
 
 
 @pytest.fixture(scope="module")

@@ -2,7 +2,10 @@
 ``_mesh_bounce_kernel`` (via ``_fused_mesh_shade``, mode "plain", inline
 RNG, interpret mode), for every ``emit`` mode.
 
-Both sides get identical inputs on ``scenes/cornell_mesh_5k.json`` at
+The port's side runs once testing every prim and once given the carried
+prim winner (``prim_winner``, the winner each bounce's shade emits), which
+must change nothing.  Both sides get identical inputs on
+``scenes/cornell_mesh_5k.json`` at
 16x16 (the JAX scene carried across with ``from_jax_scene``): the JAX
 package's camera rays, then for each of three chained bounces the mesh
 surface (``fused.mesh_surface``: the mono traversal and the winner's
@@ -98,6 +101,18 @@ def _jax_surface(jdev, jstatic, jpaths, t_lim):
 
 @pytest.mark.parametrize("emit", fused.EMIT_MODES)
 def test_mesh_shade_plain_matches_pallas(scene, emit):
+    _compare_with_pallas(scene, emit, carry=False)
+
+
+@pytest.mark.parametrize("emit", ["tlim", "tlim+key"])
+def test_mesh_shade_plain_with_carried_winner_matches_pallas(scene, emit):
+    """The port's plain shade given the carried prim winner (the prepass's
+    at the first bounce, then the one each shade emits), against the JAX
+    kernel, which tests every prim: the same bars."""
+    _compare_with_pallas(scene, emit, carry=True)
+
+
+def _compare_with_pallas(scene, emit, carry):
     dev, static, jdev, jstatic, jcam = scene
     cfg, jcfg = RenderConfig(), JConfig()
     n = RES * RES
@@ -108,9 +123,12 @@ def test_mesh_shade_plain_matches_pallas(scene, emit):
     prim_static = dataclasses.replace(static, num_triangles=0)
     jprim_static = dataclasses.replace(jstatic, num_triangles=0)
     tables = dev.mxu_mesh
+    win = None
     for d in range(3):
         paths = _to_port(jpaths)
         t_lim = prim_t_min(static, cfg, paths.origin, paths.direction)
+        if carry and win is None:
+            win = prim_t_min(static, cfg, paths.origin, paths.direction, winner=True)[1]
         mt, mn, mm = fused.mesh_surface(tables, static, cfg, paths, t_lim)
         jt, jn, jm = _jax_surface(jdev, jstatic, jpaths,
                                   j_prim_t_min(jstatic, jcfg, jpaths.origin, jpaths.direction))
@@ -129,10 +147,11 @@ def test_mesh_shade_plain_matches_pallas(scene, emit):
         )
         got = fused.fused_mesh_shade(
             prim_static, cfg, paths, mt, mn, mm, prng.stage_key(pik, d, 1), n, emit,
-            tables.tile_aabb, tables.center,
+            tables.tile_aabb, tables.center, prim_winner=win, want_winner=carry,
         )
         want_p, (want_tl, want_key) = want if emit else (want, (None, None))
-        got_p, (got_tl, got_key) = got if emit else (got, (None, None))
+        got_p, (got_tl, got_key, *got_win) = got if emit else (got, (None, None))
+        win = got_win[0] if carry else None
         close(got_p.bounces, want_p.bounces)
         close(got_p.pixel, want_p.pixel)
         close3(got_p.origin, want_p.origin, atol=ATOL_WORLD, **LOOSE)

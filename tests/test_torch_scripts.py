@@ -285,6 +285,39 @@ def test_bench_kernels_mono_and_binned_lines_on_the_cpu(capsys):
     assert all(r["ms"] is None for r in recs if "ms" in r)
 
 
+def test_bench_kernels_shade_and_iteration_lines_on_the_cpu(capsys):
+    """``torch_bench_kernels.py --kernels shade iteration`` on the CPU at
+    8x8: a shade line per sorted bounce of the 5k, textured and 200k meshes,
+    with the carried winner and the main path's emit (the key up to 24
+    tiles, none on the frame's last bounce); the five "auto" frames; an
+    iteration line per scene with the per-pixel schedule's lane counts (the
+    counting build needs the card); nothing timed."""
+    sys.path.insert(0, str(REPO / "scripts"))
+    try:
+        recs = _load("torch_bench_kernels").run(
+            ["--device", "cpu", "--res", "8", "--kernels", "shade", "iteration", "--bounces", "8",
+             "--k", "1"])
+    finally:
+        sys.path.remove(str(REPO / "scripts"))
+    shade = [r for r in recs if r["kind"] == "shade"]
+    assert [(r["scene"], r["bounce"]) for r in shade] == [
+        (s, d) for s in ("5k", "mesh_textured", "200k") for d in range(8)]
+    assert all(r["carried"] for r in shade)
+    emits = {(r["scene"], r["bounce"]): r["emit"] for r in shade}
+    assert emits[("5k", 0)] == emits[("mesh_textured", 0)] == "tlim+key"
+    assert emits[("200k", 0)] == "tlim" and emits[("5k", 7)] == ""
+    assert {r["mode"] for r in shade if r["scene"] == "mesh_textured"} == {"textured"}
+    frames = {(r["scene"], r["traversal"]) for r in recs if r["kind"] == "frame"}
+    assert frames == {("5k", "auto"), ("5k", "auto, unsorted"), ("mesh_textured", "auto"),
+                      ("200k", "auto"), ("20k", "auto"), ("80k", "auto")}
+    its = [r for r in recs if r["kind"] == "iteration"]
+    assert [(r["scene"], r["depth"]) for r in its] == [
+        ("cornell_dof", 8), ("cornell_all_lobes", 8), ("depth80", 80)]
+    for r in its:
+        assert 0 < r["per_pixel_live"] <= r["per_pixel_issued"] and "regen_live" not in r
+    assert all(r["ms"] is None for r in recs if "ms" in r)
+
+
 def test_chip_smoke_mono_and_binned_bounds():
     """``chip_smoke.py``'s bound of a mono launch counts the same (ray,
     tile) pairs as the sweep's bound over every tile behind the root cull

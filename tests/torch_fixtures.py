@@ -42,3 +42,78 @@ def pad_to_supers(tables, super_tiles=8, tri_tile=1024):
         tile_aabb=torch.cat([tables.tile_aabb, never]).contiguous(),
         coef=torch.cat([tables.coef, tables.coef.new_zeros(
             (extra * tri_tile, tables.coef.shape[1]))]).contiguous())
+
+
+def _scaled_prim(gtype, material_id, center, scale):
+    """A ``GeomConst`` of a unit cube or sphere scaled by ``scale`` about
+    ``center`` (no rotation): its transform, inverse and inverse transpose."""
+    from project3_cuda_path_tracer_2025_tpu_torch.scene.device import GeomConst
+
+    m = np.diag([scale, scale, scale, 1.0])
+    m[:3, 3] = center
+    inv = np.linalg.inv(m)
+    rows = lambda a: tuple(tuple(float(v) for v in r) for r in a)
+    return GeomConst(int(gtype), material_id, rows(m), rows(inv), rows(inv.T))
+
+
+def winner_case(static, rng, n=1024):
+    """Rays for the mesh shade's carried prim winner, around the Cornell box
+    of ``static`` (a mesh scene's; materials 2 and 3 are its red and green).
+    Three prims join the box's: a sphere (material 2), the same sphere again
+    (material 3: every ray that hits it ties at equal t, and the lower
+    index must win), and a cube of half-size 1.  The rays, a quarter each:
+    aimed at the sphere pair; starting inside the cube (its test takes the
+    exit); starting outside a face of the cube within ``ray_eps`` of it in
+    its own space and entering it (t_obj < ray_eps: the hit lies behind the
+    origin and t is still positive); leaving the open front of the box (no
+    prim hit).  Every fifth lane carries a made-up mesh hit, every seventh
+    is dead.  Returns (prim_static, paths, mesh_t, mesh_normal, mesh_mat);
+    the sphere pair are prims ``len(static.geoms)`` and one after it."""
+    import dataclasses
+
+    from project3_cuda_path_tracer_2025_tpu_torch.ops.rays import PathState
+    from project3_cuda_path_tracer_2025_tpu_torch.scene.types import GeomType
+    from project3_cuda_path_tracer_2025_tpu_torch.utils.vec import Vec3
+
+    sphere_c, cube_c = np.array([1.0, 3.0, 0.0]), np.array([-2.0, 6.0, 1.0])
+    extra = (_scaled_prim(GeomType.SPHERE, 2, sphere_c, 2.0),
+             _scaled_prim(GeomType.SPHERE, 3, sphere_c, 2.0),
+             _scaled_prim(GeomType.CUBE, 1, cube_c, 2.0))
+    prim_static = dataclasses.replace(static, geoms=tuple(static.geoms) + extra,
+                                      num_triangles=0)
+    q = n // 4
+    o = np.empty((n, 3))
+    d = np.empty((n, 3))
+    # aimed at the sphere pair from the camera's side
+    o[:q] = [0.0, 5.0, 10.0]
+    d[:q] = sphere_c + rng.uniform(-0.8, 0.8, (q, 3)) - o[:q]
+    # inside the cube
+    o[q:2 * q] = cube_c + rng.uniform(-0.9, 0.9, (q, 3))
+    d[q:2 * q] = rng.normal(size=(q, 3))
+    # within ray_eps (1e-4 in the cube's space, 2e-4 in the world) of its
+    # face x = -1, entering it
+    o[2 * q:3 * q] = np.stack([np.full(q, -1.0 + 2.0 * 0.4e-4), cube_c[1] + rng.uniform(
+        -0.8, 0.8, q), cube_c[2] + rng.uniform(-0.8, 0.8, q)], 1)
+    d[2 * q:3 * q] = np.stack([-np.ones(q), rng.uniform(-0.3, 0.3, q),
+                               rng.uniform(-0.3, 0.3, q)], 1)
+    # out of the open front: no prim
+    o[3 * q:] = [0.0, 5.0, 20.0] + rng.uniform(-1.0, 1.0, (n - 3 * q, 3))
+    d[3 * q:] = np.stack([rng.uniform(-0.2, 0.2, n - 3 * q), rng.uniform(-0.2, 0.2, n - 3 * q),
+                          np.ones(n - 3 * q)], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    idx = torch.arange(n, dtype=torch.int32)
+    paths = PathState(
+        origin=Vec3(*(f(o[:, i]) for i in range(3))),
+        direction=Vec3(*(f(d[:, i]) for i in range(3))),
+        color=Vec3(*(torch.ones(n) for _ in range(3))),
+        pixel=idx,
+        bounces=torch.where(idx % 7 == 3, 0, 8).to(torch.int32),
+    )
+    hit = idx % 5 == 1
+    nrm = rng.normal(size=(n, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    mesh_t = torch.where(hit, 0.05, 0.0).float()
+    mesh_n = Vec3(*(torch.where(hit, f(nrm[:, i]), 0.0) for i in range(3)))
+    mesh_mat = torch.where(hit, 4, -1).to(torch.int32)
+    return prim_static, paths, mesh_t, mesh_n, mesh_mat
