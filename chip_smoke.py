@@ -61,7 +61,8 @@ sys.path.insert(0, str(ROOT / "scripts"))
 # script's, so that its numbers and this script's describe the same rays
 # and films.
 from torch_bench_kernels import (  # noqa: E402
-    binned_args, chain_calls, env_set, lane_use, sha, shade_outputs, shade_states,
+    binned_args, bounce_lane_use, chain_calls, device_ms, env_set, iteration_scene, lane_use,
+    prepass_pairs, prepass_work, prim_bounce_states, sha, shade_outputs, shade_states,
     sorted_bounces, super_args, variant_library,
 )
 
@@ -100,6 +101,7 @@ OPS_WALK_RAY = 25  # features and reciprocal direction (the root cull runs in to
 OPS_MONO_TILE = 35  # member slab of one tile
 OPS_MONO_PAIR = 41  # 19 fma, division, t, the acceptance tests
 OPS_KEY_TILE, OPS_KEY_RAY = 28, 60  # coherence_key per tile / per ray
+OPS_UNIFORM = 80  # uniform_at: Threefry-2x32's 20 rounds and 5 key injections, the float
 OPS_MERGE = 10  # mesh-hit merge and normal flip
 
 # Film comparisons between the kernel and the plain path: the goldens'
@@ -598,6 +600,12 @@ def traversals_agree(tag, tables, static, states, modes) -> None:
             f"({int((base.tri >= 0).sum())} hits), (tri, t) rays differing from {modes[0]}: {bad}")
         if any(a or b for a, b in bad.values()) or not int((base.tri >= 0).sum()):
             raise AssertionError("the traversals disagree")
+
+
+def on_device(ms) -> str:
+    """A device time for a log line: "not measured" where the profiler
+    caught no record of the kernel."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def bits_differ(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -1459,7 +1467,6 @@ def scan_host_split(x, calls: int = 10_000) -> None:
 # plan prepass (csrc/mesh_walk.cu)
 # ---------------------------------------------------------------------------
 
-OPS_PLAN_PAIR = 34  # plan_pair: slab 22, widening 8, clamp, three compares
 BIG_SEG = (1100, 500)  # torus-knot segments of the mesh beyond 1,024 tiles: 1.1 M triangles
 
 
@@ -1860,10 +1867,10 @@ def slice5_phases(device, smi: str) -> tuple:
 
     # -- 19. the plan prepass ---------------------------------------------------
     log("[19] plan prepass (#11), plan_impl='pallas' / PTT_PLAN_IMPL=pallas:")
-    cases = {}
-    for name in ("20k", "80k", "500k"):
+    cases, per_bounce = {}, []
+    for name, bounces in (("20k", 3), ("80k", 8), ("200k", 1), ("500k", 3)):
         tab = LOADED[name][1].mxu_mesh
-        for d, (paths, tl, live) in enumerate(STATES[name][:3]):
+        for d, (paths, tl, live) in enumerate(STATES[name][:bounces]):
             pr = mxu.plan_rays(tab, paths.origin, paths.direction, live, tl)
             h, lb = mxu.plan_prepass(tab.tile_aabb, *pr)
             hp, lbp = mxu.plan_prepass_plain(tab.tile_aabb, *pr)
@@ -1874,14 +1881,21 @@ def slice5_phases(device, smi: str) -> tuple:
             plan_bad = sum(bits_differ(x, y) for x, y in zip(got, want))
             e = float(torch.where(torch.isfinite(lbp), (lb - lbp).abs(),
                                   torch.zeros_like(lb)).max())
-            log(f"[19a] {name} bounce {d}: (h, lb) over {h.shape[0]} blocks x {h.shape[1]} tiles "
+            pairs = prepass_pairs(mxu, pr.live)
+            ct = h.shape[1]
+            log(f"[19a] {name} bounce {d}: (h, lb) over {h.shape[0]} blocks x {ct} tiles "
                 f"({int(hp.sum())} candidate pairs): values not bit-equal to the plain version "
-                f"{bad}; plan (ids, tlo, cnt) values differing from the torch plan {plan_bad}")
+                f"{bad}; plan (ids, tlo, cnt) values differing from the torch plan {plan_bad}; "
+                f"{pairs['live']} live rays in {pairs['live_blocks']} blocks: (ray, tile) pairs "
+                f"tested {pairs['live'] * ct} (the per-block design: "
+                f"{pairs['rays_per_block_design'] * ct})")
             if bad or plan_bad or not int(hp.sum()):
                 raise AssertionError("plan_prepass disagrees with the torch plan")
             err["plan_prepass"] = max(err["plan_prepass"], e)
             if d == 0:
                 cases[name] = (tab.tile_aabb, *pr)
+            if name in ("80k", "200k", "500k") and (name == "80k" or d == 0):
+                per_bounce.append((name, d, (tab.tile_aabb, *pr), pairs))
     for name, auto in (("20k", auto20), ("80k", auto80)):
         same_film(f"19b {name} PTT_PLAN_IMPL=pallas",
                   one_frame(name, cfg, PTT_PLAN_IMPL="pallas"), auto)
@@ -1895,8 +1909,20 @@ def slice5_phases(device, smi: str) -> tuple:
     f20k = with_env(f20a, PTT_PLAN_IMPL="pallas")
     f80k = with_env(f80a, PTT_PLAN_IMPL="pallas")
     profiled["80k frame, PTT_PLAN_IMPL=pallas (the plan kernel)"] = f80k
+    for name, d, a, pairs in per_bounce:
+        ms = float(np.median([cuda_time_ms(lambda a=a: mxu.plan_prepass(*a), 10)
+                              for _ in range(5)]))
+        dev = device_ms(lambda a=a: mxu.plan_prepass(*a), 20, ("ptt_plan_prepass_kernel",))
+        ct = a[0].shape[0]
+        b = bound_ms(*prepass_work(mxu, ct, a[3]))
+        log(f"[19e] plan_prepass {name} bounce {d}: {ms:.4f} ms per launch by events, "
+            f"{on_device(dev)} on the device (torch.profiler), on {smi}; {pairs['live']} live "
+            f"rays in {pairs['live_blocks']} blocks x {ct} tiles; bound {b[0]:.4f} ms ({b[1]}), "
+            f"{b[0] / (dev or ms):.1%} of the {'device time' if dev else 'time by events'}")
     paths_t = {}
     for name, a in cases.items():
+        if name == "200k":
+            continue
         paths_t[f"plan_prepass, {name} (1 bounce)"] = (lambda a=a: mxu.plan_prepass(*a), 10)
         paths_t[f"plain plan_prepass_plain, {name} (1 bounce)"] = (
             lambda a=a: mxu.plan_prepass_plain(*a), 2)
@@ -1910,10 +1936,8 @@ def slice5_phases(device, smi: str) -> tuple:
                    {k: (rays20 if k.startswith("20k") else rays80) for k in paths_t
                     if "frame" in k})
     log(f"    host reads in one 80k frame with the plan kernel: {host_syncs(f80k)}")
-    aabb, os_, _, live, tl = cases["80k"]
-    nb = tl.shape[0] // mxu.RAY_TILE
-    b11 = bound_ms(tl.shape[0] * (6 * 4 + 1 + 4) + aabb.numel() * 4 + nb * aabb.shape[0] * 5,
-                   int(live.sum()) * aabb.shape[0] * OPS_PLAN_PAIR)
+    aabb, live = cases["80k"][0], cases["80k"][3]
+    b11 = bound_ms(*prepass_work(mxu, aabb.shape[0], live))
     log(f"    bound of one prepass launch (80k, bounce 0): {b11[0]:.4f} ms ({b11[1]}; "
         f"{int(live.sum())} live rays x {aabb.shape[0]} tiles)")
     entries["plan_prepass"] = dict(ms=ms["plan_prepass, 80k (1 bounce)"],
@@ -1943,7 +1967,6 @@ def prim_phases(device, smi: str) -> tuple:
     prim path's frame functions for phase 9."""
     from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
     from project3_cuda_path_tracer_2025_tpu_torch.models import Renderer, megakernel_iteration
-    from project3_cuda_path_tracer_2025_tpu_torch.ops import camera as camera_ops
     from project3_cuda_path_tracer_2025_tpu_torch.ops import fused
     from project3_cuda_path_tracer_2025_tpu_torch.ops import film as film_ops
     from project3_cuda_path_tracer_2025_tpu_torch.scene import (
@@ -1963,24 +1986,18 @@ def prim_phases(device, smi: str) -> tuple:
     if not rng_equal:
         raise AssertionError("in-kernel Threefry uniforms differ from the plain version")
 
-    # -- 4. bounce kernel vs plain ------------------------------------------
+    # -- 4. bounce kernel vs plain, both uniform forms ------------------------
     bounce_err = 0.0
-    bounce_case = None
     for path in (SCENE, SCENE_LOBES):
         scene = load_scene(str(path))
         _, static = build_device_scene(scene, device)
         cfg = RenderConfig()
         cam = camera_state(derive_render_camera(scene.state.camera))
         n = static.pixel_count
-        ik = prng.iteration_key(prng.prng_key(0), 1)
-        cam_u = prng.uniforms_at(prng.stage_key(ik, 0, 0), torch.arange(n, device=device), 4, n)
-        paths = camera_ops.generate_camera_rays(
-            cam, static.width, static.height, static.trace_depth, cam_u)
-        for d in range(2):
-            su = prng.uniforms_at(prng.stage_key(ik, d, 1), torch.arange(n, device=device), 3, n)
-            if bounce_case is None:  # timed in phase 7
-                bounce_case = (static, cfg, paths, su)
+        for d, (paths, skey) in enumerate(prim_bounce_states(static, cam, cfg, device, 2)):
+            su = prng.uniforms_at(skey, paths.pixel, 3, n)
             out_k = fused.fused_prim_bounce(static, cfg, paths, su)
+            out_i = fused.fused_prim_bounce(static, cfg, paths, su_key=skey, rng_n=n)
             out_p = fused.fused_prim_bounce_plain(static, cfg, paths, su)
             torch.cuda.synchronize()
             names = ("ox", "oy", "oz", "dx", "dy", "dz", "r", "g", "b")
@@ -1992,15 +2009,23 @@ def prim_phases(device, smi: str) -> tuple:
                 lane_bad |= ~torch.isclose(a, b, rtol=STAGE_RTOL, atol=STAGE_ATOL)
             bn_diff = int((out_k.bounces != out_p.bounces).sum())
             share = float(lane_bad.float().mean())
+            not_bits = sum(bits_differ(a, b) for a, b in zip(
+                (*fk, out_k.bounces), (*fp, out_p.bounces)))
+            forms_differ = sum(bits_differ(a, b) for a, b in zip(
+                (*fk, out_k.bounces),
+                (*out_i.origin, *out_i.direction, *out_i.color, out_i.bounces)))
             log(f"[4] bounce {d} {path.name} {static.width}x{static.height}: max abs diff "
                 + " ".join(f"{k}={v:.3g}" for k, v in diffs.items())
                 + f"; lanes with bounces differing: {bn_diff}; lanes outside "
-                f"rtol={STAGE_RTOL} atol={STAGE_ATOL}: {share:.5%}")
-            if bn_diff / n > MAX_STAGE_LANE_SHARE or share > MAX_STAGE_LANE_SHARE:
+                f"rtol={STAGE_RTOL} atol={STAGE_ATOL}: {share:.5%}; values not bit-equal to "
+                f"the plain version {not_bits}; inline draw vs [3, n] form: {forms_differ}")
+            if bn_diff / n > MAX_STAGE_LANE_SHARE or share > MAX_STAGE_LANE_SHARE \
+                    or not_bits:
                 raise AssertionError(
                     f"bounce kernel disagrees with its plain version on {path.name}")
+            if forms_differ:
+                raise AssertionError("the bounce kernel's inline draw differs from its [3, n] form")
             bounce_err = max(bounce_err, max(diffs.values()))
-            paths = out_p
 
     # -- 5. iteration kernel vs the plain unfused path, 800x800 depth 8 -----
     scene = load_scene(str(SCENE))
@@ -2052,6 +2077,9 @@ def prim_phases(device, smi: str) -> tuple:
         raise AssertionError("the Renderer did not take the iteration kernel 16 times")
     if launches["fused_prim_bounce"] != depth:
         raise AssertionError("megakernel_iteration did not take the bounce kernel")
+    if fused.kernel_uniforms.launches != 1:
+        raise AssertionError("the bounce-kernel frame drew uniforms by the Threefry kernel "
+                             "beyond the camera's")
     if img.shape != (static.height, static.width, 3) or not np.isfinite(img).all() \
             or not img.sum() > 0:
         raise AssertionError("main-path film is empty or not finite")
@@ -2098,13 +2126,15 @@ def prim_phases(device, smi: str) -> tuple:
         it[0] += 1
         fused.fused_prim_iteration_plain(static, RenderConfig(), cam, film_t, it[0], base_key)
 
-    b_static, b_cfg, b_paths, b_su = bounce_case
+    # The bounce kernel as the frame launches it: bounce 0, drawing inline.
+    b_paths, b_key = next(prim_bounce_states(static, cam, RenderConfig(), device, 1))
+    b_live = int((b_paths.bounces > 0).sum())
 
     def run_bounce_kernel():
-        fused.fused_prim_bounce(b_static, b_cfg, b_paths, b_su)
+        fused.fused_prim_bounce(static, RenderConfig(), b_paths, su_key=b_key)
 
     def run_bounce_plain():
-        fused.fused_prim_bounce_plain(b_static, b_cfg, b_paths, b_su)
+        fused.fused_prim_bounce_plain(static, RenderConfig(), b_paths, su_key=b_key)
 
     paths_t = {
         "iteration kernel": (run_iter_kernel, 20),
@@ -2145,14 +2175,15 @@ def prim_phases(device, smi: str) -> tuple:
         n * 24 + depth * 4,  # film read and written; alive counts
         n * OPS_RAYGEN + sum(live_before) * (prim_ops(static) + OPS_SCATTER),
     )
-    nb = b_paths.pixel.shape[0]
-    b_bound = bound_ms(nb * 92, nb * (prim_ops(b_static) + OPS_SCATTER))
+    b_bound = bounce_bound(static, n, b_live)
     log(f"    bounds: iteration kernel {it_bound[0]:.4f} ms ({it_bound[1]}), "
-        f"bounce kernel {b_bound[0]:.4f} ms ({b_bound[1]})")
+        f"bounce kernel {b_bound[0]:.4f} ms ({b_bound[1]}; with the [3, n] plane "
+        f"{bounce_bound(static, n, b_live, drawn=False)[0]:.4f})")
     # The iteration kernel's lane use, from a counting build of it
     # (-DPTT_COUNT_LANES; the shipped kernel counts nothing), against the
     # per-pixel schedule's on the same paths.
-    use = lane_use(static, RenderConfig(), cam, device, variant_library(("PTT_COUNT_LANES",)))
+    counting = variant_library(("PTT_COUNT_LANES",))
+    use = lane_use(static, RenderConfig(), cam, device, counting)
     log(f"    lane use (live lane-bounces / issued) of one frame: regenerating schedule "
         f"{use['regen_live']} / {use['regen_issued']} = "
         f"{use['regen_live'] / use['regen_issued']:.1%}; the per-pixel schedule "
@@ -2161,6 +2192,7 @@ def prim_phases(device, smi: str) -> tuple:
         f"{use['per_pixel_live'] / (n * depth):.1%})")
     if use["regen_live"] != use["per_pixel_live"]:
         raise AssertionError("the counting build bounced another number of live paths")
+    bounce_lines(smi, counting, device)
 
     kernels_line = [
         {
@@ -2194,6 +2226,72 @@ def prim_phases(device, smi: str) -> tuple:
         "prim iteration kernel (Renderer default)": run_iter_kernel,
         "prim bounce-kernel path": run_bounce_path,
     }
+
+
+def bounce_bound(static, n: int, live: int, drawn: bool = True) -> tuple:
+    """Bound of one bounce-kernel launch over n rays, ``live`` of them live:
+    every ray's 9 float planes and bounces read once and written once, the
+    live rays' pixels (``drawn``: the uniforms drawn inline, three Threefry
+    draws a live ray) or every ray's three uniforms (the [3, n] plane);
+    operations of the live rays' prim tests and scatter."""
+    ops = live * (prim_ops(static) + OPS_SCATTER + (3 * OPS_UNIFORM if drawn else 0))
+    return bound_ms(n * 80 + (live * 4 if drawn else n * 12), ops)
+
+
+def bounce_lines(smi: str, counting, device) -> None:
+    """Phase 7's per-bounce lines of the bounce kernel: on every bounce of
+    cornell_dof.json, cornell_all_lobes.json and the 40-primitive scene at
+    depth 80 (800x800, iteration 1), both uniform forms bit-equal to the
+    plain version; on cornell_dof.json each bounce timed as the frame
+    launches it (drawing inline) with its bound share and the lane use of
+    the counting build against the per-ray schedule's."""
+    from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import (
+        build_device_scene, camera_state, derive_render_camera,
+    )
+    from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
+
+    cfg = RenderConfig()
+    for name in ("cornell_dof", "cornell_all_lobes", "depth80"):
+        scene = iteration_scene(name, 800)
+        _, static = build_device_scene(scene, device)
+        cam = camera_state(derive_render_camera(scene.state.camera))
+        n, depth = static.pixel_count, static.trace_depth
+        bad = forms = 0
+        for d, (paths, skey) in enumerate(prim_bounce_states(static, cam, cfg, device, depth)):
+            want = fused.fused_prim_bounce_plain(static, cfg, paths, su_key=skey)
+            got = fused.fused_prim_bounce(static, cfg, paths, su_key=skey)
+            given = fused.fused_prim_bounce(static, cfg, paths,
+                                            prng.uniforms_at(skey, paths.pixel, 3, n))
+            planes = lambda p: (*p.origin, *p.direction, *p.color, p.bounces)
+            bad += sum(bits_differ(a, b) for a, b in zip(planes(got), planes(want)))
+            forms += sum(bits_differ(a, b) for a, b in zip(planes(got), planes(given)))
+            if name != "cornell_dof":
+                continue
+            live = int((paths.bounces > 0).sum())
+            run = lambda: fused.fused_prim_bounce(static, cfg, paths, su_key=skey)
+            ms = float(np.median([cuda_time_ms(run, 20) for _ in range(5)]))
+            dev = device_ms(run, 20, ("ptt_bounce_kernel",))
+            b = bounce_bound(static, n, live)
+            use = bounce_lane_use(fused, static, cfg, paths, skey, counting)
+            log(f"[7] fused_prim_bounce {name} bounce {d}: {ms:.4f} ms per launch by events, "
+                f"{on_device(dev)} on the device (torch.profiler), on {smi}; {live} live rays "
+                f"of {n}; bound {b[0]:.4f} ms ({b[1]}), {b[0] / (dev or ms):.1%} of the "
+                f"{'device time' if dev else 'time by events'}; "
+                f"lane use {use['kernel_live']} / {use['kernel_issued']} = "
+                f"{use['kernel_live'] / max(use['kernel_issued'], 1):.1%} (per-ray schedule "
+                f"{use['live'] / max(use['per_ray_issued'], 1):.1%})")
+            if use["kernel_live"] != live:
+                raise AssertionError("the counting build bounced another number of live rays")
+        log(f"[7] fused_prim_bounce {name}: {depth} bounces at {static.width}x{static.height}, "
+            f"values not bit-equal to the plain version {bad}, inline draw vs the [3, n] "
+            f"form {forms}")
+        if bad:
+            raise AssertionError(f"the bounce kernel is not bit-equal to its plain version "
+                                 f"on {name}")
+        if forms:
+            raise AssertionError("the bounce kernel's inline draw differs from its [3, n] form")
 
 
 # ---------------------------------------------------------------------------

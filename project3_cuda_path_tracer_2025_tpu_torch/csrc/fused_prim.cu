@@ -8,14 +8,14 @@
 // ptt_bounce_kernel replaces
 //   project3_cuda_path_tracer_2025_tpu/ops/fused.py::_bounce_kernel
 //   (launched by fused_prim_bounce): one bounce, path-state planes in,
-//   path-state planes out.
+//   path-state planes out, its uniforms given as [3, n] or drawn inline.
 // ptt_uniforms_kernel draws jax.random.uniform's [k, n] rows with the same
 // in-kernel Threefry the iteration kernel uses (utils/prng.py::uniforms on
-// a CUDA device).
+// a CUDA device; the camera's uniforms of megakernel_iteration).
 //
 // What bounds them on the H100: arithmetic, not bytes.  The bounce kernel
-// moves about 92 B per ray per bounce (9 floats + 1 int in and out, 3
-// uniforms in) and the iteration kernel 24 B of film per pixel per
+// moves 84 B per ray per bounce with the uniforms drawn inline (9 floats +
+// 1 int in and out, the pixel) and the iteration kernel 24 B of film per pixel per
 // iteration, against a few thousand flops per ray per bounce, dominated by
 // the divisions, square roots and cos/sin of box/sphere intersection and
 // the BSDFs, plus 20 Threefry rounds per uniform.  So both keep every
@@ -48,6 +48,29 @@
 // depth too long for shared memory keeps both in device memory.  Every
 // path, and so the film and the counts, is the per-pixel schedule's bit for
 // bit.
+//
+// The bounce kernel has no new pixels to take, but the live rays of a
+// bounce are a fraction of its n (a half to a fifth after the first
+// bounces of cornell_dof.json), spread over warps of 32 consecutive rays.
+// So it packs them into full warps: a persistent grid in which each warp
+// takes chunks of 32 consecutive rays from a grid-wide counter (one
+// atomicAdd a chunk; the last warp to finish zeroes it for the next launch,
+// so no launch resets it), reads their bounces coalesced, copies the dead
+// rays' planes through, and appends the live rays' indices to its queue in
+// shared memory (ballot and popc); whenever the queue holds 32 it bounces
+// them as one full warp, each ray read and written at its own index.  A
+// chunk that is live whole, with the queue empty, bounces in place (every
+// ray of the first bounce).  Both go through one call site of the bounce,
+// so the loop holds one copy of its body: with a copy for each, the
+// mixed steps of the second bounce ran up to twice as long (PERF.md §6).  At the end the block's leftovers are dealt over its threads in
+// order, so they fill whole warps too.  The uniforms are drawn inline,
+// only for the live rays, at their pixels' counters (the mesh shade's and
+// the JAX package's draw3 counters), which saves the [3, n] plane and its
+// launch; the [3, n] form stays.  The bounce takes the nearest prim's
+// normal once after the prim loop, as the iteration kernel does.  A ray's
+// output depends only on its own planes and pixel, so any schedule gives
+// the per-ray schedule's outputs bit for bit.  A counting build
+// (-DPTT_COUNT_LANES) counts both kernels' lane-bounces.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC (ops/kernels.py).  Plain C interface, loaded with
@@ -82,12 +105,17 @@ struct PttBounceArgs {
   const PttScene* scene;
   const float* in_f[9];  // origin xyz, direction xyz, color rgb
   const int32_t* in_bounces;
-  const float* u;  // [3, n]
+  const float* u;        // [3, n], or null: each live ray draws its own
+  const int32_t* pixel;  // [n] (u null): ray i draws at counters j * rng_n + pixel[i]
+  int32_t* chunks;       // [2]: the chunk counter and the warps done, zero
+                         // between launches (the last warp to finish resets
+                         // both); one a stream, so launches never share it
   float* out_f[9];
   int32_t* out_bounces;
+  uint32_t k0, k1;       // the bounce's shade key (u null)
+  uint32_t rng_n;        // the RNG stream's length (u null)
   int32_t n;
   int32_t num_geoms, num_materials;  // the scene's counts, for the launcher
-  int32_t pad;
 };
 
 extern __shared__ __align__(16) unsigned char ptt_smem[];
@@ -96,6 +124,18 @@ extern __shared__ __align__(16) unsigned char ptt_smem[];
 // Measuring builds only (scripts/torch_bench_kernels.py): lane-bounces
 // issued (32 for each step in which a warp bounces) and live.
 __device__ unsigned long long ptt_lane_counts[2];
+// One warp step in which the lanes live_lanes bounce (every lane evaluates
+// the argument: it may be a vote).
+#define PTT_COUNT_STEP(live_lanes)                                              \
+  {                                                                             \
+    const unsigned ptt_live = (live_lanes);                                     \
+    if ((threadIdx.x & 31u) == 0 && ptt_live) {                                 \
+      atomicAdd(&ptt_lane_counts[0], 32ull);                                    \
+      atomicAdd(&ptt_lane_counts[1], (unsigned long long)__popc(ptt_live));     \
+    }                                                                           \
+  }
+#else
+#define PTT_COUNT_STEP(live_lanes)
 #endif
 
 // Bytes of the tables' part of the iteration kernel's dynamic shared memory
@@ -153,13 +193,7 @@ __global__ void __launch_bounds__(PTT_THREADS) ptt_iteration_kernel(const PttIte
     const unsigned held = __ballot_sync(0xffffffffu, l.pixel >= 0);
     if (!held && !more) break;
     const bool live = l.pixel >= 0 && l.ray.bounces > 0;
-#ifdef PTT_COUNT_LANES
-    const unsigned live_lanes = __ballot_sync(0xffffffffu, live);
-    if (lane == 0 && live_lanes) {
-      atomicAdd(&ptt_lane_counts[0], 32ull);
-      atomicAdd(&ptt_lane_counts[1], (unsigned long long)__popc(live_lanes));
-    }
-#endif
+    PTT_COUNT_STEP(__ballot_sync(0xffffffffu, live))
     const int d = live ? lane_bounce(sh_scene, l, keys, depth, n) : -1;
     const unsigned counted = __ballot_sync(0xffffffffu, d >= 0);
     if (d >= 0) {
@@ -175,29 +209,113 @@ __global__ void __launch_bounds__(PTT_THREADS) ptt_iteration_kernel(const PttIte
   }
 }
 
-template <bool STAGE_SCENE>
-__global__ void __launch_bounds__(PTT_THREADS) ptt_bounce_kernel(const PttBounceArgs a) {
-  const PttScene sh_scene = load_scene<STAGE_SCENE>(a.scene, ptt_smem);
-  __syncthreads();
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= a.n) return;
+// The bounce kernel's warps and each warp's queue of live rays in shared
+// memory: up to 31 held over from the chunks before and one chunk's 32.
+#define PTT_WARPS (PTT_THREADS / 32)
+#define PTT_QUEUE 64
+
+// Live ray i: its planes in, one bounce, its planes out.
+template <bool INLINE>
+__device__ __forceinline__ void bounce_one(const PttBounceArgs& a, const PttScene& s, int i) {
   Ray ray;
-  ray.o = v3(a.in_f[0][idx], a.in_f[1][idx], a.in_f[2][idx]);
-  ray.d = v3(a.in_f[3][idx], a.in_f[4][idx], a.in_f[5][idx]);
-  ray.c = v3(a.in_f[6][idx], a.in_f[7][idx], a.in_f[8][idx]);
-  ray.bounces = a.in_bounces[idx];
-  const size_t n = (size_t)a.n;
-  bounce_ray(sh_scene, ray, a.u[idx], a.u[n + idx], a.u[2 * n + idx]);
-  a.out_f[0][idx] = ray.o.x;
-  a.out_f[1][idx] = ray.o.y;
-  a.out_f[2][idx] = ray.o.z;
-  a.out_f[3][idx] = ray.d.x;
-  a.out_f[4][idx] = ray.d.y;
-  a.out_f[5][idx] = ray.d.z;
-  a.out_f[6][idx] = ray.c.x;
-  a.out_f[7][idx] = ray.c.y;
-  a.out_f[8][idx] = ray.c.z;
-  a.out_bounces[idx] = ray.bounces;
+  ray.o = v3(a.in_f[0][i], a.in_f[1][i], a.in_f[2][i]);
+  ray.d = v3(a.in_f[3][i], a.in_f[4][i], a.in_f[5][i]);
+  ray.c = v3(a.in_f[6][i], a.in_f[7][i], a.in_f[8][i]);
+  ray.bounces = a.in_bounces[i];
+  float u[3];
+  if (INLINE) {
+    draw3(a.k0, a.k1, a.rng_n, (uint32_t)a.pixel[i], u);
+  } else {
+    const size_t n = (size_t)a.n;
+    u[0] = a.u[i];
+    u[1] = a.u[n + i];
+    u[2] = a.u[2 * n + i];
+  }
+  bounce_live(s, ray, u[0], u[1], u[2]);
+  a.out_f[0][i] = ray.o.x;
+  a.out_f[1][i] = ray.o.y;
+  a.out_f[2][i] = ray.o.z;
+  a.out_f[3][i] = ray.d.x;
+  a.out_f[4][i] = ray.d.y;
+  a.out_f[5][i] = ray.d.z;
+  a.out_f[6][i] = ray.c.x;
+  a.out_f[7][i] = ray.c.y;
+  a.out_f[8][i] = ray.c.z;
+  a.out_bounces[i] = ray.bounces;
+}
+
+// The warp's next chunk of 32 rays from the grid-wide counter.
+__device__ __forceinline__ long long next_chunk(const PttBounceArgs& a) {
+  int got = 0;
+  if ((threadIdx.x & 31u) == 0) got = atomicAdd(&a.chunks[0], 1);
+  return __shfl_sync(0xffffffffu, got, 0);
+}
+
+// Dynamic shared memory: the scene's tables (STAGE_SCENE), then the warps'
+// queues.  INLINE: the uniforms drawn in the kernel (a.u null).
+template <bool STAGE_SCENE, bool INLINE>
+__global__ void __launch_bounds__(PTT_THREADS) ptt_bounce_kernel(const PttBounceArgs a) {
+  __shared__ int32_t held_of[PTT_WARPS];
+  const PttScene sh_scene = load_scene<STAGE_SCENE>(a.scene, ptt_smem);
+  int32_t* queues = reinterpret_cast<int32_t*>(
+      ptt_smem + (STAGE_SCENE ? iter_table_bytes(a.num_geoms, a.num_materials) : 0));
+  const unsigned lane = threadIdx.x & 31u, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  int32_t* q = queues + warp * PTT_QUEUE;
+  __syncthreads();  // orders load_scene's writes before the first read
+
+  const long long chunks = ((long long)a.n + 31) / 32;
+  const long long warps = (long long)gridDim.x * PTT_WARPS;
+  int held = 0;  // live rays in the warp's queue (warp-uniform)
+  for (long long c = next_chunk(a); c < chunks; c = next_chunk(a)) {
+    const long long i = c * 32 + lane;
+    const bool in = i < a.n;
+    const int32_t b = in ? a.in_bounces[i] : 0;
+    const bool live = b > 0;
+    const unsigned lv = __ballot_sync(0xffffffffu, live);
+    int32_t r = -1;  // the ray this lane bounces at this step
+    if (held == 0 && lv == 0xffffffffu) {  // a whole chunk live: bounce it in place
+      r = (int32_t)i;
+    } else {
+      if (in && !live) {  // a dead ray keeps its planes
+#pragma unroll
+        for (int k = 0; k < 9; ++k) a.out_f[k][i] = a.in_f[k][i];
+        a.out_bounces[i] = b;
+      }
+      if (live) q[held + __popc(lv & below)] = (int32_t)i;
+      held += __popc(lv);
+      __syncwarp();
+      if (held >= 32) {  // one full warp of live rays
+        r = q[lane];
+        held -= 32;
+        const int32_t kept = lane < (unsigned)held ? q[32 + lane] : 0;
+        __syncwarp();
+        if (lane < (unsigned)held) q[lane] = kept;
+        __syncwarp();
+      }
+    }
+    PTT_COUNT_STEP(__ballot_sync(0xffffffffu, r >= 0))
+    if (r >= 0) bounce_one<INLINE>(a, sh_scene, r);  // one call site: one copy of the body
+  }
+  // The last warp to finish zeroes the counter for the next launch.
+  if (lane == 0 && atomicAdd(&a.chunks[1], 1) == (int)warps - 1) {
+    atomicExch(&a.chunks[0], 0);
+    atomicExch(&a.chunks[1], 0);
+  }
+  // The block's leftovers (under 32 a warp), dealt over its threads in order:
+  // thread j takes the block's j-th leftover ray, so they fill whole warps.
+  if (lane == 0) held_of[warp] = held;
+  __syncthreads();
+  int start = 0, r = -1;
+#pragma unroll
+  for (int w = 0; w < PTT_WARPS; ++w) {
+    const int h = held_of[w];
+    const int j = (int)threadIdx.x - start;
+    if (j >= 0 && j < h) r = queues[w * PTT_QUEUE + j];
+    start += h;
+  }
+  PTT_COUNT_STEP(__ballot_sync(0xffffffffu, r >= 0))
+  if (r >= 0) bounce_one<INLINE>(a, sh_scene, r);
 }
 
 __global__ void __launch_bounds__(PTT_THREADS) ptt_uniforms_kernel(uint32_t k0, uint32_t k1,
@@ -218,11 +336,12 @@ static cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// The persistent grid of the iteration kernel: as many blocks as the SMs
-// hold at once at this shared memory, and no more than the pixels need.
-template <bool STAGE_SCENE, bool SHARED_KEYS>
-static cudaError_t launch_iteration(const PttIterArgs& a, size_t smem, cudaStream_t stream) {
-  const auto kernel = ptt_iteration_kernel<STAGE_SCENE, SHARED_KEYS>;
+// A persistent grid (the iteration and bounce kernels): as many blocks as
+// the SMs hold at once at this shared memory, and no more than the n rays
+// or pixels need at one a thread.
+template <typename A>
+static cudaError_t launch_persistent(void (*kernel)(const A), const A& a, size_t smem,
+                                     cudaStream_t stream) {
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int per_sm = 0, device = 0, sms = 0;
@@ -251,6 +370,9 @@ int ptt_abi(int32_t* out, int32_t len) {
       (int32_t)offsetof(PttIterArgs, cam),
       (int32_t)offsetof(PttIterArgs, cam_key),
       (int32_t)sizeof(PttBounceArgs),
+      (int32_t)offsetof(PttBounceArgs, pixel),
+      (int32_t)offsetof(PttBounceArgs, chunks),
+      (int32_t)offsetof(PttBounceArgs, k0),
       (int32_t)offsetof(PttBounceArgs, n),
       (int32_t)sizeof(PttGeom),
       (int32_t)sizeof(PttMaterial),
@@ -275,11 +397,11 @@ int ptt_launch_iteration(const PttIterArgs* a, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (stage_scene) {
-    err = shared_keys ? launch_iteration<true, true>(*a, smem, st)
-                      : launch_iteration<true, false>(*a, smem, st);
+    err = shared_keys ? launch_persistent(ptt_iteration_kernel<true, true>, *a, smem, st)
+                      : launch_persistent(ptt_iteration_kernel<true, false>, *a, smem, st);
   } else {
-    err = shared_keys ? launch_iteration<false, true>(*a, smem, st)
-                      : launch_iteration<false, false>(*a, smem, st);
+    err = shared_keys ? launch_persistent(ptt_iteration_kernel<false, true>, *a, smem, st)
+                      : launch_persistent(ptt_iteration_kernel<false, false>, *a, smem, st);
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -287,18 +409,25 @@ int ptt_launch_iteration(const PttIterArgs* a, void* stream) {
 
 int ptt_launch_bounce(const PttBounceArgs* a, void* stream) {
   if (a->num_geoms < 0 || a->num_materials < 0) return (int)cudaErrorInvalidValue;
-  if (a->n > 0) {
-    const size_t tables = scene_table_bytes(a->num_geoms, a->num_materials);
-    const bool stage_scene = tables <= PTT_SMEM_LIMIT;
-    const size_t smem = stage_scene ? tables : 0;
-    const cudaError_t err = allow_smem(ptt_bounce_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    if (stage_scene) {
-      ptt_bounce_kernel<true><<<blocks_for(a->n), PTT_THREADS, smem, (cudaStream_t)stream>>>(*a);
-    } else {
-      ptt_bounce_kernel<false><<<blocks_for(a->n), PTT_THREADS, 0, (cudaStream_t)stream>>>(*a);
-    }
+  if (a->u == nullptr && a->pixel == nullptr) return (int)cudaErrorInvalidValue;
+  if (a->chunks == nullptr) return (int)cudaErrorInvalidValue;
+  if (a->n <= 0) return (int)cudaGetLastError();
+  // Shared memory: the tables if they fit, then the warps' queues.
+  const size_t queues = (size_t)PTT_WARPS * PTT_QUEUE * sizeof(int32_t);
+  const size_t tables = iter_table_bytes(a->num_geoms, a->num_materials);
+  const bool stage_scene = tables + queues <= PTT_SMEM_LIMIT;
+  const size_t smem = (stage_scene ? tables : 0) + queues;
+  const bool inline_u = a->u == nullptr;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  if (stage_scene) {
+    err = inline_u ? launch_persistent(ptt_bounce_kernel<true, true>, *a, smem, st)
+                   : launch_persistent(ptt_bounce_kernel<true, false>, *a, smem, st);
+  } else {
+    err = inline_u ? launch_persistent(ptt_bounce_kernel<false, true>, *a, smem, st)
+                   : launch_persistent(ptt_bounce_kernel<false, false>, *a, smem, st);
   }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -120,14 +120,19 @@
 //   are members are dealt over the block.  The per-ray reduce over a
 //   packet's visits and the bin construction stay in torch
 //   (ops/intersect_mxu.py).
-//   #11 is one block per ray block: the 256 rays (recentred origin,
-//   reciprocal direction, t_limit, live: two float4 a ray) are staged in
-//   shared memory; a thread owns a tile (tiles t, t + 256, ... beyond 256
-//   tiles) and loops the rays; below 256 tiles 256 / ct threads share a
-//   tile, each a stride of the rays, and meet in shared-memory atomics
-//   (min over non-negative floats as ints, or).  min and any do not depend
-//   on order, so (h, lb) are bit-equal to the torch plan's.  Traffic: the
-//   rays once, [nb, ct] out, whatever the tile count.
+//   #11 tests only the live rays of a ray block: its CTA stages them,
+//   compacted (warp ballots and a prefix over the warps; recentred origin,
+//   reciprocal direction and t_limit, two float4 a ray), in shared memory,
+//   and deals the L x Ct pairs over every thread, whatever Ct: each warp
+//   takes tiles, its lanes the live rays, and two warp votes give the
+//   tile's h (any) and lb (the minimum of the keys' int bits: for the
+//   non-negative keys their float order).  A sorted bounce's live rays fill
+//   few blocks (80k, bounce 0: 32,787 of 640,000 rays), so a CTA takes a
+//   slice of PTT_PREPASS_SPLIT tiles of its block's row (a 2-D grid), and those
+//   blocks' pairs spread over more SMs; a block with no live ray writes
+//   (0, inf) and stops.  min and any do not depend on order, so (h, lb) are
+//   bit-equal to the torch plan's.  Traffic: every ray's live flag, the
+//   live rays' state (once for each slice of their row), [nb, ct] out.
 //   #13a (lb_asc) walks the ascending plan row one thread a ray, with
 //   asc_visit: the per-ray "best" is the TPU kernel's [256, 1,024] lane
 //   planes and its resolve at once, since one thread owns all of a ray's
@@ -150,8 +155,9 @@
 // cost (every thread evaluates pairs); what it leaves is a tile-visit's
 // fixed part (three barriers, the list, 80 KB of rows from L2) and a few
 // live blocks an SM on the early bounces.
-// #11 is bound by operations too (a slab test of ~35 operations per (ray,
-// tile) pair against 36 bytes a ray and 5 bytes an output).
+// #11 is bound by operations: a slab test of ~34 per live (ray, tile) pair,
+// against 1 byte a dead ray (its live flag), 28 a live one and 5 an output
+// (80k, bounce 0: 2.6 M pairs against 2.5 MB).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC (ops/kernels.py).  Plain C interface, loaded with
@@ -528,69 +534,85 @@ __global__ void __launch_bounds__(PTT_RAY_TILE) ptt_epilogue_mono_kernel(const P
   }
 }
 
-// One tile against the rays s, s + stride, ... of the staged block.
-__device__ __forceinline__ bool plan_tile(const float* row, const float4* sh_o, const float4* sh_i,
-                                          int s, int stride, float* lb) {
-  const float box[6] = {__ldg(row), __ldg(row + 1), __ldg(row + 2),
-                        __ldg(row + 3), __ldg(row + 4), __ldg(row + 5)};
-  bool any = false;
-  float best = ptt_inf();
-  for (int r = s; r < PTT_RAY_TILE; r += stride) {
-    const float4 o = sh_o[r], i = sh_i[r];
-    float key;
-    if (plan_pair(box, v3(o.x, o.y, o.z), v3(i.x, i.y, i.z), i.w != 0.0f, o.w, &key)) {
-      any = true;
-      best = key < best ? key : best;
-    }
-  }
-  *lb = best;
-  return any;
-}
+// The tiles of its ray block's plan row that one CTA of the plan prepass
+// takes (its shared row): 64 timed best of 16-1,024 at 79, 196 and 489
+// tiles.  Other widths build with -DPTT_PREPASS_SPLIT=k.
+#ifndef PTT_PREPASS_SPLIT
+#define PTT_PREPASS_SPLIT 64
+#endif
+static_assert(PTT_PREPASS_SPLIT >= 1 && PTT_PREPASS_SPLIT <= 1024,
+              "PTT_PREPASS_SPLIT: 1 to 1,024 tiles");
 
+// CTA (b, y) of ray block b takes the tiles [y * S, (y + 1) * S) of
+// its row.  Its 256 threads stage the block's live rays, L of them, in
+// shared memory, compacted (warp ballots and a prefix over the warps); each
+// warp then takes tiles c = warp, warp + 8, ... of the slice, its lanes the
+// live rays r = lane, lane + 32, ... < L, and reduces the tile's pairs
+// with two warp votes (any; the minimum of the keys' int bits, which is the
+// float order of the non-negative keys).  The slice's (h, lb) go to a
+// shared row, written out coalesced.
 __global__ void __launch_bounds__(PTT_RAY_TILE) ptt_plan_prepass_kernel(const PttPlanArgs a) {
-  __shared__ float4 sh_o[PTT_RAY_TILE];  // recentred origin, t_limit
-  __shared__ float4 sh_i[PTT_RAY_TILE];  // reciprocal direction, live
-  __shared__ int sh_lb[PTT_RAY_TILE];
-  __shared__ int sh_h[PTT_RAY_TILE];
-  const int b = blockIdx.x, tid = threadIdx.x;
+  __shared__ float4 sh_o[PTT_RAY_TILE];  // live ray k: recentred origin, t_limit
+  __shared__ float4 sh_i[PTT_RAY_TILE];  // live ray k: reciprocal direction
+  __shared__ int sh_cnt[PTT_RAY_TILE / 32];
+  __shared__ int sh_lb[PTT_PREPASS_SPLIT];
+  __shared__ uint8_t sh_h[PTT_PREPASS_SPLIT];
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c0 = blockIdx.y * PTT_PREPASS_SPLIT;
+  const int c1 = min(a.ct, c0 + PTT_PREPASS_SPLIT);
   const size_t idx = (size_t)b * PTT_RAY_TILE + tid;
   const bool live = a.live[idx] != 0;
-  const V3 inv = inv_dir(v3(a.ray[3][idx], a.ray[4][idx], a.ray[5][idx]));
-  sh_o[tid] = make_float4(a.ray[0][idx], a.ray[1][idx], a.ray[2][idx], a.tlim[idx]);
-  sh_i[tid] = make_float4(inv.x, inv.y, inv.z, live ? 1.0f : 0.0f);
-  sh_lb[tid] = ptt_as_int(ptt_inf());
-  sh_h[tid] = 0;
-  const bool block_live = __syncthreads_or(live);  // also the barrier after staging
+  const unsigned lv = __ballot_sync(0xffffffffu, live);
+  if (lane == 0) sh_cnt[warp] = __popc(lv);
+  __syncthreads();
+  int base = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < PTT_RAY_TILE / 32; ++w) {
+    const int k = sh_cnt[w];
+    base += w < warp ? k : 0;
+    total += k;
+  }
   uint8_t* out_h = a.out_h + (size_t)b * a.ct;
   float* out_lb = a.out_lb + (size_t)b * a.ct;
-  if (!block_live) {
-    for (int c = tid; c < a.ct; c += PTT_RAY_TILE) {
+  if (total == 0) {  // no live ray: no tile (block-uniform, before any barrier)
+    for (int c = c0 + tid; c < c1; c += PTT_RAY_TILE) {
       out_h[c] = 0;
       out_lb[c] = ptt_inf();
     }
     return;
   }
-  const int share = a.ct < PTT_RAY_TILE ? PTT_RAY_TILE / a.ct : 1;  // threads per tile
-  if (share == 1) {
-    for (int c = tid; c < a.ct; c += PTT_RAY_TILE) {
-      float lb;
-      out_h[c] = plan_tile(a.tile_aabb + 8 * c, sh_o, sh_i, 0, 1, &lb) ? 1 : 0;
-      out_lb[c] = lb;
-    }
-    return;
+  if (live) {
+    const int k = base + __popc(lv & ((1u << lane) - 1u));
+    const V3 inv = inv_dir(v3(a.ray[3][idx], a.ray[4][idx], a.ray[5][idx]));
+    sh_o[k] = make_float4(a.ray[0][idx], a.ray[1][idx], a.ray[2][idx], a.tlim[idx]);
+    sh_i[k] = make_float4(inv.x, inv.y, inv.z, 0.0f);
   }
-  if (tid < share * a.ct) {
-    const int c = tid % a.ct;
-    float lb;
-    if (plan_tile(a.tile_aabb + 8 * c, sh_o, sh_i, tid / a.ct, share, &lb)) {
-      atomicOr(&sh_h[c], 1);
-      atomicMin(&sh_lb[c], ptt_as_int(lb));  // lb >= 0: float order is int order
+  __syncthreads();
+  for (int c = c0 + warp; c < c1; c += PTT_RAY_TILE / 32) {
+    const float* row = a.tile_aabb + 8 * c;
+    const float box[6] = {__ldg(row), __ldg(row + 1), __ldg(row + 2),
+                          __ldg(row + 3), __ldg(row + 4), __ldg(row + 5)};
+    bool any = false;
+    int best = ptt_as_int(ptt_inf());
+    for (int r = lane; r < total; r += 32) {
+      const float4 o = sh_o[r], i = sh_i[r];
+      float key;
+      if (plan_pair(box, v3(o.x, o.y, o.z), v3(i.x, i.y, i.z), true, o.w, &key)) {
+        any = true;
+        best = min(best, ptt_as_int(key));
+      }
+    }
+    any = __any_sync(0xffffffffu, any);
+    best = __reduce_min_sync(0xffffffffu, best);
+    if (lane == 0) {
+      sh_h[c - c0] = any ? 1 : 0;
+      sh_lb[c - c0] = best;
     }
   }
   __syncthreads();
-  if (tid < a.ct) {
-    out_h[tid] = sh_h[tid] ? 1 : 0;
-    out_lb[tid] = ptt_as_float(sh_lb[tid]);
+  for (int c = c0 + tid; c < c1; c += PTT_RAY_TILE) {
+    out_h[c] = sh_h[c - c0];
+    out_lb[c] = ptt_as_float(sh_lb[c - c0]);
   }
 }
 
@@ -710,7 +732,9 @@ int ptt_launch_walk(const PttWalkArgs* a, int32_t kind, void* stream) {
 int ptt_launch_plan_prepass(const PttPlanArgs* a, void* stream) {
   if (a->ct < 1 || a->nb < 0) return (int)cudaErrorInvalidValue;
   if (a->nb > 0) {
-    ptt_plan_prepass_kernel<<<(unsigned)a->nb, PTT_RAY_TILE, 0, (cudaStream_t)stream>>>(*a);
+    const dim3 grid((unsigned)a->nb,
+                    (unsigned)((a->ct + PTT_PREPASS_SPLIT - 1) / PTT_PREPASS_SPLIT));
+    ptt_plan_prepass_kernel<<<grid, PTT_RAY_TILE, 0, (cudaStream_t)stream>>>(*a);
   }
   return (int)cudaGetLastError();
 }

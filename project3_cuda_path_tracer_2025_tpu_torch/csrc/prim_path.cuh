@@ -692,11 +692,24 @@ PTT_HD Ray camera_ray(const PttCamera& cam, int width, int height, int depth,
   return raygen(cam, width, height, depth, idx, u);
 }
 
-// One bounce of a live ray with the given uniforms.
+// One bounce of a live ray with the given uniforms (the bounce kernel's
+// per-ray schedule, which tests/prim_path_host.cpp keeps as the reference).
 PTT_HD void bounce_ray(const PttScene& s, Ray& ray, float u0, float u1, float u2) {
   if (ray.bounces <= 0) return;
   const Hit h = intersect_prims(s, ray.o, ray.d);
   scatter(s, ray, h, u0, u1, u2);
+}
+
+// One bounce of a live ray as the bounce kernel runs it: the nearest hit
+// from prim_nearest and prim_hit, intersect_prims' Hit bit for bit.
+PTT_HD void bounce_live(const PttScene& s, Ray& ray, float u0, float u1, float u2) {
+  scatter(s, ray, prim_hit(s, ray.d, prim_nearest(s, ray.o, ray.d)), u0, u1, u2);
+}
+
+// The bounce's three uniforms of the ray at `pixel`, drawn at counters
+// j * rng_n + pixel under the bounce's shade key (prng.uniforms_at).
+PTT_HD void draw3(uint32_t k0, uint32_t k1, uint32_t rng_n, uint32_t pixel, float u[3]) {
+  for (uint32_t j = 0; j < 3; ++j) u[j] = uniform_at(k0, k1, j * rng_n + pixel);
 }
 
 // One bounce of pixel idx at depth d as the iteration kernel's per-pixel

@@ -10,7 +10,8 @@ On a CUDA device with ``fused_bounce`` "auto" or "on" (on the CPU with
 "on", where the kernels' plain versions run):
 
 * a prim-only scene runs one launch of the bounce kernel per bounce
-  (``ops.fused.fused_prim_bounce``), with uniforms from the Threefry kernel;
+  (``ops.fused.fused_prim_bounce``), which draws its uniforms inline at
+  each ray's pixel (the camera's come from the Threefry kernel);
 * a mesh scene runs ``ops.fused.fused_mesh_bounce`` per bounce: the
   traversal kernel ``cfg.mxu_traversal`` names or "auto" picks for the
   mesh's size (mono, planned, streamed or binned), then the mesh-shade
@@ -114,7 +115,7 @@ def megakernel_iteration(
             paths, mesh_carry = out if want else (out, None)
         elif use_fused:
             bounce = fused.fused_prim_bounce_plain if plain else fused.fused_prim_bounce
-            paths = bounce(static, cfg, paths, uniforms(skey, 3))
+            paths = bounce(static, cfg, paths, su_key=skey, rng_n=n)
         elif use_fused_tex:
             paths = fused.fused_tex_bounce(dev, static, cfg, paths, su_key=skey, rng_n=n,
                                            plain=plain)

@@ -224,30 +224,73 @@ def _require_cuda(device: torch.device, what: str) -> None:
 # fused_prim_bounce  (replaces ops/fused.py::_bounce_kernel)
 # ---------------------------------------------------------------------------
 
+def _bounce_uniforms(paths: PathState, uniforms, su_key, rng_n):
+    """Check the bounce's uniform form: exactly one of ``uniforms`` ([3, n])
+    and ``su_key``; returns ``rng_n`` (the pixel count ``n`` by default)."""
+    if (uniforms is None) == (su_key is None):
+        raise ValueError("fused_prim_bounce: give exactly one of uniforms and su_key")
+    if su_key is None:
+        return None
+    rng_n = rng_n or paths.pixel.shape[0]
+    if rng_n * 3 >= 2**32:
+        raise ValueError(f"3 x {rng_n} uniforms exceed the 32-bit counter")
+    return rng_n
+
+
 def fused_prim_bounce_plain(
     static: SceneStatic, cfg: RenderConfig, paths: PathState,
-    uniforms: torch.Tensor,
+    uniforms: torch.Tensor = None, *, su_key: tuple = None, rng_n: int = None,
 ) -> PathState:
-    """The plain PyTorch version of the bounce kernel."""
+    """The plain PyTorch version of the bounce kernel (its arguments)."""
+    rng_n = _bounce_uniforms(paths, uniforms, su_key, rng_n)
+    if su_key is not None:
+        uniforms = prng.uniforms_at(su_key, paths.pixel, 3, rng_n)
     return _prim_bounce(static, cfg, paths, uniforms)
+
+
+_CHUNK_COUNTERS = {}
+
+
+def _chunk_counter(device: torch.device, stream: int) -> torch.Tensor:
+    """The bounce kernel's chunk counter for the launches on ``stream`` of
+    ``device``: zeroed once, on that stream; each launch's last warp zeroes
+    it again for the next.  One counter a stream, because the launches of
+    one stream run one after another and those of two streams may overlap."""
+    key = (device, stream)
+    if key not in _CHUNK_COUNTERS:
+        _CHUNK_COUNTERS[key] = torch.zeros((2,), dtype=torch.int32, device=device)
+    return _CHUNK_COUNTERS[key]
 
 
 def fused_prim_bounce(
     static: SceneStatic,
     cfg: RenderConfig,
     paths: PathState,
-    uniforms: torch.Tensor,  # [3, N]
+    uniforms: torch.Tensor = None,  # [3, N]
+    *,
+    su_key: tuple = None,  # the bounce's shade key: uniforms drawn inline
+    rng_n: int = None,  # RNG stream length (default N)
 ) -> PathState:
-    """One bounce of intersect + shade for a prim-only, untextured scene."""
+    """One bounce of intersect + shade for a prim-only, untextured scene.
+
+    The uniforms come as ``uniforms`` [3, N] (the JAX package's signature)
+    or, with ``su_key``, are drawn in the kernel: ray i draws
+    ``uniform_at(su_key, j * rng_n + paths.pixel[i])`` for j = 0, 1, 2
+    (``prng.uniforms_at(su_key, paths.pixel, 3, rng_n)``, the JAX
+    ``megakernel_iteration``'s ``draw3`` unsharded and sharded), and only
+    when it is live.  Exactly one of the two is given."""
+    rng_n = _bounce_uniforms(paths, uniforms, su_key, rng_n)
     device = paths.origin.x.device
     if device.type == "cpu":
-        return fused_prim_bounce_plain(static, cfg, paths, uniforms)
+        return fused_prim_bounce_plain(static, cfg, paths, uniforms, su_key=su_key, rng_n=rng_n)
     _require_cuda(device, "fused_prim_bounce")
     n = paths.pixel.shape[0]
     f_in = (*paths.origin, *paths.direction, *paths.color)
     _check_planes("fused_prim_bounce paths", f_in, n, torch.float32, device)
     _check_planes("fused_prim_bounce bounces", (paths.bounces,), n, torch.int32, device)
-    if uniforms.shape != (3, n) or uniforms.dtype != torch.float32 \
+    if su_key is not None:
+        _check_planes("fused_prim_bounce pixel", (paths.pixel,), n, torch.int32, device)
+    elif uniforms.shape != (3, n) or uniforms.dtype != torch.float32 \
             or uniforms.device != device or not uniforms.is_contiguous():
         raise ValueError(
             f"fused_prim_bounce uniforms: expected contiguous float32 [3, {n}] "
@@ -262,12 +305,19 @@ def fused_prim_bounce(
     a.scene = scene.data_ptr()
     a.in_f[:] = [t.data_ptr() for t in f_in]
     a.in_bounces = paths.bounces.data_ptr()
-    a.u = uniforms.data_ptr()
+    if su_key is None:
+        a.u = uniforms.data_ptr()
+    else:
+        a.pixel = paths.pixel.data_ptr()
+        a.k0, a.k1 = su_key
+        a.rng_n = rng_n
+    stream = kernels.stream_handle(device)
+    a.chunks = _chunk_counter(device, stream).data_ptr()
     a.out_f[:] = [t.data_ptr() for t in f_out]
     a.out_bounces = b_out.data_ptr()
     a.n = n
     a.num_geoms, a.num_materials = _scene_counts(static)
-    code = lib.lib.ptt_launch_bounce(ctypes.byref(a), kernels.stream_handle(device))
+    code = lib.lib.ptt_launch_bounce(ctypes.byref(a), stream)
     lib.check(code, "fused_prim_bounce")
     fused_prim_bounce.launches += 1
     return PathState(

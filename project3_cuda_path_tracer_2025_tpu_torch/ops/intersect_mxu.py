@@ -778,7 +778,10 @@ def plan_prepass(tile_aabb, os: Vec3, d: Vec3, live, tl):
     (``_plan_prepass_kernel``): ``ptt_plan_prepass_kernel`` on CUDA tensors,
     ``plan_prepass_plain`` on CPU tensors.  Rays padded to whole blocks
     (``plan_rays``); returns (h [NB, Ct] bool, lb [NB, Ct] float32), bit-equal
-    to the plain version: min and any do not depend on the order of the rays."""
+    to the plain version: min and any do not depend on the order of the rays.
+    The kernel tests only the live rays of a block, and a CTA takes 64
+    tiles of its block's row (``PTT_PREPASS_SPLIT``), so that the few live
+    blocks of a sorted bounce spread over more SMs."""
     device = tl.device
     if device.type == "cpu":
         return plan_prepass_plain(tile_aabb, os, d, live, tl)

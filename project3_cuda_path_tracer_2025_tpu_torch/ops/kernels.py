@@ -96,9 +96,10 @@ class PttIterArgs(ctypes.Structure):
 
 class PttBounceArgs(ctypes.Structure):
     _fields_ = [
-        ("scene", _p), ("in_f", _p * 9), ("in_bounces", _p), ("u", _p),
-        ("out_f", _p * 9), ("out_bounces", _p), ("n", _i),
-        ("num_geoms", _i), ("num_materials", _i), ("pad", _i),
+        ("scene", _p), ("in_f", _p * 9), ("in_bounces", _p), ("u", _p), ("pixel", _p),
+        ("chunks", _p), ("out_f", _p * 9), ("out_bounces", _p),
+        ("k0", _u), ("k1", _u), ("rng_n", _u), ("n", _i),
+        ("num_geoms", _i), ("num_materials", _i),
     ]
 
 
@@ -216,6 +217,9 @@ def _prim_abi_expected() -> list:
         PttIterArgs.cam.offset,
         PttIterArgs.cam_key.offset,
         ctypes.sizeof(PttBounceArgs),
+        PttBounceArgs.pixel.offset,
+        PttBounceArgs.chunks.offset,
+        PttBounceArgs.k0.offset,
         PttBounceArgs.n.offset,
         ctypes.sizeof(PttGeom),
         ctypes.sizeof(PttMaterial),

@@ -11,6 +11,9 @@ in turns: parent, change, change, parent).
     python scripts/torch_bench_kernels.py --kernels shade iteration  # #3 and #1 alone
     python scripts/torch_bench_kernels.py --kernels iteration --refill 1 16  # #1's refill
                                                                 # rule, both builds
+    python scripts/torch_bench_kernels.py --kernels bounce prepass  # #2 and #11 per bounce
+    python scripts/torch_bench_kernels.py --kernels prepass --split 32 64 1024  # #11's CTA
+                                                                # slices
     python scripts/torch_bench_kernels.py --device cpu --res 8 --scenes 80k \\
         --bounces 2                                             # plain versions, no times
 
@@ -54,7 +57,7 @@ One JSON line per measurement:
   on: ms per frame and the sha256 of its first frame's film.
 
 ``--kernels`` picks what is timed: "walks" (the default: the lines above),
-"shade" and "iteration":
+"shade", "iteration", "bounce" and "prepass":
 
 * ``shade``: the mesh-shade kernel (#3, ``fused_mesh_shade``) on each
   sorted bounce of the 5k mesh (mode "plain"), the textured mesh (mode
@@ -76,6 +79,27 @@ One JSON line per measurement:
   refill rule given (``-DPTT_REFILL_MIN``: a warp takes new pixels once that
   many of its lanes are free) and times the builds in turns; every build's
   film must be the package's.
+
+* ``bounce``: the bounce kernel (#2, ``fused_prim_bounce``) on each bounce
+  of ``cornell_dof.json``, ``cornell_all_lobes.json`` and the 40-primitive
+  scene at depth 80 (``prim_bounce_states``: the camera rays of iteration 1
+  and the bounces after them, traced by the plain version), as
+  ``megakernel_iteration`` launches it ("main": the uniforms drawn inline
+  where the package's kernel draws them, else the Threefry kernel's [3, n]
+  plane and the kernel) and with the [3, n] plane given ("uniforms"): ms per
+  launch, the live rays, a sha256 of its outputs, and the lane use of the
+  per-ray schedule (warps of 32 consecutive rays) and, where the package
+  has the counting build, of the kernel's own; then the ``cornell_dof``
+  bounce-kernel frame;
+* ``prepass``: the plan prepass kernel (#11, ``plan_prepass``) on each
+  sorted bounce of the 80k mesh and at bounce 0 of the 200k and 500k
+  meshes: ms per launch, the live rays and live blocks, the (ray, tile)
+  pairs the per-block design tests (every ray of a block with a live ray)
+  and the live ones (``prepass_pairs``), the bytes and operations its
+  bound counts (``prepass_work``), a sha256 of (h, lb); then the 80k
+  frame with ``PTT_PLAN_IMPL=pallas``.  ``--split`` also builds the kernel
+  with each CTA slice given (``-DPTT_PREPASS_SPLIT``, tiles a CTA takes)
+  and times the builds in turns, where the package has the slice.
 
 Times are CUDA events: the median of ``--samples`` samples of ``--k`` calls
 (frames: of ``--frames``) after a warm-up call.  On the CPU nothing is timed.
@@ -100,7 +124,8 @@ WALK_SCENES = {"streamed": ("80k", "500k"), "sweep": ("20k", "80k"), "super": ("
 TEXTURED_MESH = "scenes/cornell_mesh_textured_local.json"  # a mono frame of "mono"
 # The walk kernels by their names here (``ops/intersect_mxu.py::WALKS``).
 PLANNED_KINDS = {"lanebest": "planned_lanebest", "planned": "planned"}
-KERNELS = ("walks", "shade", "iteration")
+KERNELS = ("walks", "shade", "iteration", "bounce", "prepass")
+BOUNCE_SCENES = ("cornell_dof", "cornell_all_lobes", "depth80")
 # The shade kernel's scenes: name -> scene file.
 SHADE_SCENES = {"5k": SCENE_FILES["5k"], "mesh_textured": TEXTURED_MESH,
                 "200k": SCENE_FILES["200k"]}
@@ -225,9 +250,10 @@ def iteration_scene(name: str, res: int):
     return set_resolution(scene, res, res)
 
 
-def variant_library(defines: tuple):
-    """The package's ``fused_prim.cu`` built with ``defines`` (``-D``
-    flags) into ``build/kernels_ab/``, loaded: a ``KernelLibrary``."""
+def variant_library(defines: tuple, name: str = "fused_prim"):
+    """The package's kernel library ``name`` (a key of ``kernels.LIBRARIES``)
+    built with ``defines`` (``-D`` flags) into ``build/kernels_ab/``,
+    loaded: a ``KernelLibrary``."""
     import subprocess
 
     from project3_cuda_path_tracer_2025_tpu_torch.ops import kernels
@@ -235,17 +261,17 @@ def variant_library(defines: tuple):
     out_dir = kernels.BUILD_ROOT.parent / "kernels_ab" / kernels._source_hash()
     out_dir.mkdir(parents=True, exist_ok=True)
     tag = "_".join(d.replace("=", "") for d in defines) or "plain"
-    path = out_dir / f"libptt_fused_prim_{tag}.so"
+    path = out_dir / f"libptt_{name}_{tag}.so"
     cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, *(f"-D{d}" for d in defines),
-           "-I", str(kernels.CSRC), "-o", str(path), str(kernels.CSRC / "fused_prim.cu")]
+           "-I", str(kernels.CSRC), "-o", str(path), str(kernels.CSRC / kernels.LIBRARIES[name])]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {defines}:\n{proc.stdout}{proc.stderr}")
-    return kernels.KernelLibrary("fused_prim", path, 0.0, proc.stdout + proc.stderr)
+    return kernels.KernelLibrary(name, path, 0.0, proc.stdout + proc.stderr)
 
 
 class library_used:
-    """``ops.kernels.load`` returns ``lib`` for "fused_prim" inside a
+    """``ops.kernels.load`` returns ``lib`` for its library's name inside a
     ``with`` block: the wrappers launch that build's kernels."""
 
     def __init__(self, lib):
@@ -255,7 +281,7 @@ class library_used:
         from project3_cuda_path_tracer_2025_tpu_torch.ops import kernels
 
         self.kernels, self.own = kernels, kernels.load
-        kernels.load = lambda name="fused_prim": self.lib if name == "fused_prim" \
+        kernels.load = lambda name="fused_prim": self.lib if name == self.lib.name \
             else self.own(name)
 
     def __exit__(self, *exc):
@@ -300,6 +326,110 @@ def lane_use(static, cfg, cam, device, counting=None) -> dict:
         counting.check(fn(counts, 1), "ptt_lane_counts_read")
         out.update(regen_issued=int(counts[0]), regen_live=int(counts[1]))
     return out
+
+
+def device_ms(fn, reps: int, names: tuple):
+    """Device ms per call of ``fn`` spent in the kernels whose names contain
+    one of ``names``, by ``torch.profiler`` over ``reps`` calls after a
+    warm-up: the kernels' own time, without the host's gaps between short
+    launches that CUDA events count.  Each kernel's time is its mean over
+    the launches the profiler recorded (it may drop some), summed over the
+    kernels a call launches once each.  None on the CPU."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    if not torch.cuda.is_available():
+        return None
+    for k in (reps, 10 * reps):  # a short window can close before its records arrive
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(k):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and any(n in e.key for n in names)]
+        if kernels:
+            return sum(e.self_device_time_total / e.count for e in kernels) / 1e3
+    return None
+
+
+def prim_bounce_states(static, cam, cfg, device, bounces: int):
+    """The bounce kernel's inputs on each bounce of iteration 1 as
+    ``megakernel_iteration`` runs it (seed 0): yields (paths, shade key),
+    the camera rays first and each next bounce from the plain version.
+    Works on any checkout's package."""
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import camera as camera_ops
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused
+    from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
+
+    n = static.pixel_count
+    idx = torch.arange(n, dtype=torch.int32, device=device)
+    ik = prng.iteration_key(prng.prng_key(0), 1)
+    paths = camera_ops.generate_camera_rays(
+        cam, static.width, static.height, static.trace_depth,
+        prng.uniforms_at(prng.stage_key(ik, 0, 0), idx, 4, n), idx=idx)
+    for d in range(bounces):
+        skey = prng.stage_key(ik, d, 1)
+        yield paths, skey
+        paths = fused.fused_prim_bounce_plain(static, cfg, paths,
+                                              prng.uniforms_at(skey, idx, 3, n))
+
+
+def draws_inline(fused) -> bool:
+    """Whether the package's bounce kernel draws its uniforms (``su_key``)."""
+    import inspect
+
+    return "su_key" in inspect.signature(fused.fused_prim_bounce).parameters
+
+
+def bounce_lane_use(fused, static, cfg, paths, skey, counting=None) -> dict:
+    """Lane use of one bounce launch: live lane-bounces over issued ones.
+    The per-ray schedule's: a warp of 32 consecutive rays issues 32 lanes
+    when any of them is live.  With ``counting`` (a build with
+    ``PTT_COUNT_LANES`` whose bounce kernel counts), the kernel's own, as
+    that build counts one launch in the main path's form on the card."""
+    import ctypes
+
+    live = paths.bounces > 0
+    n = live.shape[0]
+    warps = torch.nn.functional.pad(live, (0, -n % 32)).view(-1, 32).any(1)
+    out = dict(live=int(live.sum()), per_ray_issued=32 * int(warps.sum()))
+    if counting is not None:
+        counts = (ctypes.c_ulonglong * 2)()
+        fn = counting.lib.ptt_lane_counts_read
+        fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+        counting.check(fn(counts, 1), "ptt_lane_counts_read")
+        with library_used(counting):
+            fused.fused_prim_bounce(static, cfg, paths, su_key=skey)
+        counting.check(fn(counts, 1), "ptt_lane_counts_read")
+        out.update(kernel_issued=int(counts[0]), kernel_live=int(counts[1]))
+    return out
+
+
+def prepass_pairs(mxu, live) -> dict:
+    """What the plan prepass tests on these padded rays: the live rays and
+    the blocks that hold one, the (ray, block) count the per-block design
+    tests per tile (all 256 rays of every live block) and the live rays
+    alone, each over the tiles."""
+    blocks = live.view(-1, mxu.RAY_TILE).any(1)
+    return dict(live=int(live.sum()), live_blocks=int(blocks.sum()),
+                rays_per_block_design=mxu.RAY_TILE * int(blocks.sum()))
+
+
+OPS_PLAN_PAIR = 34  # plan_pair: slab 22, widening 8, clamp, three compares
+
+
+def prepass_work(mxu, ct: int, live) -> tuple:
+    """The least work of one plan prepass on these padded rays and ``ct``
+    tiles: (bytes, float32 operations).  Bytes: every ray's live flag, the
+    live rays' state (recentred origin, direction, t_limit: 28 B), the tile
+    boxes and the [nb, ct] (h, lb) written; operations: the live (ray, tile)
+    pairs' tests."""
+    n_live = int(live.sum())
+    nb = live.shape[0] // mxu.RAY_TILE
+    return (live.shape[0] + n_live * 7 * 4 + ct * 8 * 4 + nb * ct * 5,
+            n_live * ct * OPS_PLAN_PAIR)
 
 
 def chain_calls(mxu, mode, tables, padded_tris, ro, rd, live, tl, baby_eps) -> list:
@@ -406,6 +536,9 @@ def run(argv=None) -> list:
     ap.add_argument("--refill", nargs="+", type=int, default=[],
                     help="with iteration: also build and time the kernel with each of these "
                     "refill rules (PTT_REFILL_MIN)")
+    ap.add_argument("--split", nargs="+", type=int, default=[],
+                    help="with prepass: also build and time the prepass kernel with each of "
+                    "these CTA slices (PTT_PREPASS_SPLIT, tiles a CTA takes)")
     ap.add_argument("--bounces", type=int, default=None,
                     help="sorted bounces a mesh (default: the scene's depth)")
     ap.add_argument("--k", type=int, default=10, help="launches per sample")
@@ -479,6 +612,10 @@ def run(argv=None) -> list:
         run_shade(args, measure, recs, common, timed, scene_at, frame_of, time_frame)
     if "iteration" in args.kernels:
         run_iteration(args, measure, recs, common, timed, device)
+    if "bounce" in args.kernels:
+        run_bounce(args, measure, recs, common, timed, device, time_frame)
+    if "prepass" in args.kernels:
+        run_prepass(args, measure, recs, common, timed, device, scene_at, frame_of, time_frame)
     if "walks" not in args.kernels:
         return recs
 
@@ -674,13 +811,124 @@ def run_iteration(args, measure, recs, common, timed, device) -> None:
                 **common)))
 
 
+def run_bounce(args, measure, recs, common, timed, device, time_frame) -> None:
+    """The ``bounce`` lines: #2 on each bounce of its scenes and the
+    ``cornell_dof`` bounce-kernel frame."""
+    from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
+    from project3_cuda_path_tracer_2025_tpu_torch.models import megakernel_iteration
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import film as film_ops
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import (
+        build_device_scene, camera_state, derive_render_camera,
+    )
+    from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
+
+    cfg = RenderConfig()
+    inline = draws_inline(fused)  # the package's bounce kernel counts lanes where it draws
+    counting = variant_library(("PTT_COUNT_LANES",)) if device.type == "cuda" and inline else None
+    for name in BOUNCE_SCENES:
+        scene = iteration_scene(name, args.res)
+        dev, static = build_device_scene(scene, device)
+        cam = camera_state(derive_render_camera(scene.state.camera))
+        n = static.pixel_count
+        bounces = min(args.bounces or static.trace_depth, static.trace_depth)
+        for d, (paths, skey) in enumerate(prim_bounce_states(static, cam, cfg, device, bounces)):
+            u = prng.uniforms_at(skey, paths.pixel, 3, n)
+            if inline:
+                main = lambda p=paths, k=skey: fused.fused_prim_bounce(static, cfg, p, su_key=k)
+            else:  # megakernel_iteration's form before the inline draw
+                main = lambda p=paths, k=skey: fused.fused_prim_bounce(
+                    static, cfg, p, prng.uniforms(k, n, 3, device))
+            given = lambda p=paths, u=u: fused.fused_prim_bounce(static, cfg, p, u)
+            out = given()
+            shas = {"main": sha(*_bounce_planes(main())), "uniforms": sha(*_bounce_planes(out))}
+            use = bounce_lane_use(fused, static, cfg, paths, skey, counting)
+            for form, fn in (("main", main), ("uniforms", given)):
+                recs.append(measure.emit(dict(
+                    kind="bounce", scene=name, bounce=d, form=form, inline=inline,
+                    ms=timed(fn, args.k),
+                    device_ms=device_ms(fn, args.k, ("ptt_bounce_kernel", "ptt_uniforms_kernel")),
+                    result_sha=shas[form], **use, **common)))
+        if name == "cornell_dof":
+            it = [0]
+
+            def frame():
+                it[0] += 1
+                return megakernel_iteration(dev, static, cfg, cam, film_ops.new_film(n, device),
+                                            it[0], prng.prng_key(0))
+            time_frame(name, "bounce kernel", frame)
+        del dev
+
+
+def _bounce_planes(p) -> tuple:
+    return (*p.origin, *p.direction, *p.color, p.bounces)
+
+
+def run_prepass(args, measure, recs, common, timed, device, scene_at, frame_of,
+                time_frame) -> None:
+    """The ``prepass`` lines: #11 on each sorted 80k bounce and at bounce 0
+    of 200k and 500k, then the 80k frame with ``PTT_PLAN_IMPL=pallas``."""
+    from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import kernels
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import (
+        build_device_scene, camera_state, derive_render_camera,
+    )
+
+    cfg = RenderConfig()
+    # A build of the package's prepass for each CTA slice, where it has one.
+    sliced = device.type == "cuda" and "PTT_PREPASS_SPLIT" in \
+        (kernels.CSRC / "mesh_walk.cu").read_text()
+    builds = {k: variant_library((f"PTT_PREPASS_SPLIT={k}",), "mesh_walk")
+              for k in (args.split if sliced else [])}
+    for name in ("80k", "200k", "500k"):
+        scene = scene_at(SCENE_FILES[name])
+        dev, static = build_device_scene(scene, device)
+        cam = camera_state(derive_render_camera(scene.state.camera))
+        tables = dev.mxu_mesh
+        ct = tables.tile_aabb.shape[0]
+        bounces = (args.bounces or static.trace_depth) if name == "80k" else 1
+        for d, (paths, tl, live) in enumerate(sorted_bounces(dev, static, cam, cfg, device,
+                                                             bounces)):
+            pr = mxu.plan_rays(tables, paths.origin, paths.direction, live, tl)
+            fn = lambda pr=pr: mxu.plan_prepass(tables.tile_aabb, *pr)
+            h, lb = fn()
+            pairs = prepass_pairs(mxu, pr.live)
+            recs.append(measure.emit(dict(
+                kind="prepass", scene=name, bounce=d, tiles=ct, **pairs,
+                pairs_per_block_design=pairs["rays_per_block_design"] * ct,
+                pairs_live=pairs["live"] * ct,
+                **dict(zip(("bytes_needed", "operations"), prepass_work(mxu, ct, pr.live))),
+                ms=timed(fn, args.k),
+                device_ms=device_ms(fn, args.k, ("ptt_plan_prepass_kernel",)),
+                result_sha=sha(h, lb), **common)))
+            for k, lib in builds.items():
+                with library_used(lib):
+                    recs.append(measure.emit(dict(
+                        kind="prepass", scene=name, bounce=d, tiles=ct, split=k,
+                        device_ms=device_ms(fn, args.k, ("ptt_plan_prepass_kernel",)),
+                        result_sha=sha(*fn()), **common)))
+        if name == "80k":
+            time_frame(name, "auto, PTT_PLAN_IMPL=pallas", frame_of(dev, static, cam, cfg),
+                       PTT_PLAN_IMPL="pallas")
+        del dev
+
+
 def main(argv=None) -> int:
     recs = run(argv)
-    bad = [r for r in recs if r.get("kind") == "iteration" and r["build"] != "package"
+    ref = {(r["scene"], r["bounce"]): r["result_sha"] for r in recs
+           if r.get("kind") == "bounce" and r["form"] == "main"}
+    bad = [r for r in recs if r.get("kind") == "bounce"
+           and r["result_sha"] != ref[(r["scene"], r["bounce"])]]
+    pre = {(r["scene"], r["bounce"]): r["result_sha"] for r in recs
+           if r.get("kind") == "prepass" and "split" not in r}
+    bad += [r for r in recs if r.get("kind") == "prepass"
+            and r["result_sha"] != pre[(r["scene"], r["bounce"])]]
+    bad += [r for r in recs if r.get("kind") == "iteration" and r["build"] != "package"
            and r["film_sha"] != next(q["film_sha"] for q in recs if q.get("kind") == "iteration"
                                      and q["scene"] == r["scene"] and q["build"] == "package")]
     if bad:
-        print(f"builds whose film differs from the package's: {bad}", flush=True)
+        print(f"results or films that differ from the package's: {bad}", flush=True)
         return 1
     return 0
 

@@ -4,7 +4,8 @@
 // matching kernel in csrc/fused_mesh.cu or csrc/mesh_walk.cu runs as one
 // thread per ray; the walks keep the kernels' block schedule (256 rays a
 // block, the plan row in order, the block's exit vote), and the plan
-// prepass its reduction over a block's rays.  ptt_host_mono, ptt_host_walk,
+// prepass its reduction over a block's rays (ptt_host_plan_prepass_live its
+// compacted live rays, warps over tiles).  ptt_host_mono, ptt_host_walk,
 // ptt_host_super, ptt_host_sweep and ptt_host_binned are the per-ray
 // schedules, the references the block schedules (ptt_host_*_block: each
 // tile's pairs spread over the threads) are held to.
@@ -458,8 +459,10 @@ void ptt_host_sweep(const float* coef, const float* aabb, int32_t ct, const floa
   }
 }
 
-// ptt_plan_prepass_kernel: per (block, tile), any and min over the block's
-// 256 rays (ray: recentred origins and directions, padded to whole blocks).
+// ptt_plan_prepass_kernel's per-block schedule before its live rays were
+// compacted (the reference of ptt_host_plan_prepass_live): per (block,
+// tile), any and min over the block's 256 rays (ray: recentred origins and
+// directions, padded to whole blocks).
 void ptt_host_plan_prepass(const float* aabb, int32_t ct, const float* const* ray,
                            const uint8_t* live, const float* tlim, int32_t nb, uint8_t* out_h,
                            float* out_lb) {
@@ -478,6 +481,52 @@ void ptt_host_plan_prepass(const float* aabb, int32_t ct, const float* const* ra
       }
       out_h[b * ct + c] = any ? 1 : 0;
       out_lb[b * ct + c] = best;
+    }
+  }
+}
+
+// ptt_plan_prepass_kernel's schedule: CTA (b, y) of ray block b takes the
+// tiles [y * split, (y + 1) * split) of its row; its live rays, compacted
+// in order, are dealt over 8 warps of 32 lanes (tiles c = c0 + w, c0 + w
+// + 8, ... to warp w; rays r = lane, lane + 32, ... to each lane), each lane
+// folding its rays' keys as ints, then the warp's any and int minimum.
+void ptt_host_plan_prepass_live(const float* aabb, int32_t ct, const float* const* ray,
+                                const uint8_t* live, const float* tlim, int32_t nb,
+                                int32_t split, uint8_t* out_h, float* out_lb) {
+  const int warps = PTT_RAY_TILE / 32;
+  std::vector<int32_t> rays;
+  for (int32_t b = 0; b < nb; ++b) {
+    rays.clear();
+    for (int32_t i = b * PTT_RAY_TILE; i < (b + 1) * PTT_RAY_TILE; ++i) {
+      if (live[i]) rays.push_back(i);
+    }
+    const int total = (int)rays.size();
+    for (int32_t c0 = 0; c0 < ct; c0 += split) {
+      const int32_t c1 = c0 + split < ct ? c0 + split : ct;
+      for (int w = 0; w < warps; ++w) {
+        for (int32_t c = c0 + w; c < c1; c += warps) {
+          bool any = false;
+          int32_t best = ptt_as_int(ptt_inf());
+          for (int lane = 0; lane < 32; ++lane) {
+            bool lane_any = false;
+            int32_t lane_best = ptt_as_int(ptt_inf());
+            for (int r = lane; r < total; r += 32) {
+              const int32_t i = rays[r];
+              float key;
+              if (plan_pair(aabb + 8 * c, v3(ray[0][i], ray[1][i], ray[2][i]),
+                            inv_dir(v3(ray[3][i], ray[4][i], ray[5][i])), true, tlim[i],
+                            &key)) {
+                lane_any = true;
+                lane_best = ptt_as_int(key) < lane_best ? ptt_as_int(key) : lane_best;
+              }
+            }
+            any = any || lane_any;
+            best = lane_best < best ? lane_best : best;
+          }
+          out_h[(size_t)b * ct + c] = any ? 1 : 0;
+          out_lb[(size_t)b * ct + c] = ptt_as_float(best);
+        }
+      }
     }
   }
 }

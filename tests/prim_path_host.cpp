@@ -4,13 +4,15 @@
 // in csrc/fused_prim.cu runs as one thread per ray; ptt_host_iteration is
 // the iteration kernel's per-pixel schedule (one thread a pixel, every
 // depth), the reference its regenerating schedule (ptt_host_iteration_regen)
-// is held to.
+// is held to, and ptt_host_bounce the bounce kernel's per-ray schedule, the
+// reference of its packed one (ptt_host_bounce_packed).
 //
 // Built by tests/test_torch_kernel_body.py with
 //   c++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC -I<csrc>
 
 #include <stdint.h>
 
+#include <algorithm>
 #include <vector>
 
 #include "prim_path.cuh"
@@ -27,7 +29,7 @@ void ptt_host_uniforms(uint32_t k0, uint32_t k1, uint32_t total, float* out) {
   for (uint32_t flat = 0; flat < total; ++flat) out[flat] = uniform_at(k0, k1, flat);
 }
 
-// ptt_bounce_kernel
+// ptt_bounce_kernel's per-ray schedule (one thread a ray, intersect_prims)
 void ptt_host_bounce(const PttScene* s, const float* const* in_f, const int32_t* in_bounces,
                      const float* u, float* const* out_f, int32_t* out_bounces, int32_t n) {
   for (int32_t idx = 0; idx < n; ++idx) {
@@ -47,6 +49,102 @@ void ptt_host_bounce(const PttScene* s, const float* const* in_f, const int32_t*
     out_f[7][idx] = ray.c.y;
     out_f[8][idx] = ray.c.z;
     out_bounces[idx] = ray.bounces;
+  }
+}
+
+// Live ray i of the packed schedule: bounce_live with its uniforms (u
+// [3, n], or drawn at counters j * rng_n + pixel[i] under (k0, k1)).
+static void packed_bounce_one(const PttScene* s, const float* const* in_f,
+                              const int32_t* in_bounces, const float* u, const int32_t* pixel,
+                              uint32_t k0, uint32_t k1, uint32_t rng_n, float* const* out_f,
+                              int32_t* out_bounces, int32_t n, int32_t i) {
+  Ray ray;
+  ray.o = v3(in_f[0][i], in_f[1][i], in_f[2][i]);
+  ray.d = v3(in_f[3][i], in_f[4][i], in_f[5][i]);
+  ray.c = v3(in_f[6][i], in_f[7][i], in_f[8][i]);
+  ray.bounces = in_bounces[i];
+  float uu[3];
+  if (u == nullptr) {
+    draw3(k0, k1, rng_n, (uint32_t)pixel[i], uu);
+  } else {
+    for (int j = 0; j < 3; ++j) uu[j] = u[(size_t)j * n + i];
+  }
+  bounce_live(*s, ray, uu[0], uu[1], uu[2]);
+  const float o[9] = {ray.o.x, ray.o.y, ray.o.z, ray.d.x, ray.d.y, ray.d.z,
+                      ray.c.x, ray.c.y, ray.c.z};
+  for (int k = 0; k < 9; ++k) out_f[k][i] = o[k];
+  out_bounces[i] = ray.bounces;
+}
+
+// ptt_bounce_kernel's packed schedule (the arguments of ptt_host_bounce,
+// then the inline draw's pixel, key and stream length, used when u is
+// null): `blocks` blocks of 8 warps of 32 lanes in lock step, the warps
+// stepped in turn, each step one chunk of 32 consecutive rays, the next of
+// one counter for all warps.  A chunk live whole with the queue empty bounces in place, else
+// the dead rays are copied through and the live ones appended to the
+// warp's queue, which bounces 32 whenever it holds 32.  Then each block
+// deals its warps' leftovers, in order, over its 256 threads.  lanes[0] +=
+// lane-bounces issued (32 a warp step that bounces), lanes[1] += live ones.
+void ptt_host_bounce_packed(const PttScene* s, const float* const* in_f,
+                            const int32_t* in_bounces, const float* u, float* const* out_f,
+                            int32_t* out_bounces, int32_t n, const int32_t* pixel, uint32_t k0,
+                            uint32_t k1, uint32_t rng_n, int32_t blocks, int64_t* lanes) {
+  const int warps_per_block = 8;
+  const int64_t chunks = ((int64_t)n + 31) / 32;
+  const int64_t warps = (int64_t)blocks * warps_per_block;
+  auto bounce = [&](int32_t i) {
+    packed_bounce_one(s, in_f, in_bounces, u, pixel, k0, k1, rng_n, out_f, out_bounces, n, i);
+  };
+  std::vector<std::vector<int32_t>> q(warps);
+  std::vector<int64_t> c(warps);
+  int64_t next = 0;  // the counter
+  for (int64_t w = 0; w < warps; ++w) c[w] = next++;
+  for (bool stepped = true; stepped;) {
+    stepped = false;
+    for (int64_t w = 0; w < warps; ++w) {
+      if (c[w] >= chunks) continue;
+      stepped = true;
+      int live = 0;
+      for (int lane = 0; lane < 32; ++lane) {
+        const int64_t i = c[w] * 32 + lane;
+        live += (i < n && in_bounces[i] > 0) ? 1 : 0;
+      }
+      if (q[w].empty() && live == 32) {
+        lanes[0] += 32;
+        lanes[1] += 32;
+        for (int lane = 0; lane < 32; ++lane) bounce((int32_t)(c[w] * 32 + lane));
+      } else {
+        for (int lane = 0; lane < 32; ++lane) {
+          const int64_t i = c[w] * 32 + lane;
+          if (i >= n) break;
+          if (in_bounces[i] > 0) {
+            q[w].push_back((int32_t)i);
+          } else {
+            for (int k = 0; k < 9; ++k) out_f[k][i] = in_f[k][i];
+            out_bounces[i] = in_bounces[i];
+          }
+        }
+        if (q[w].size() >= 32) {
+          lanes[0] += 32;
+          lanes[1] += 32;
+          for (int lane = 0; lane < 32; ++lane) bounce(q[w][lane]);
+          q[w].erase(q[w].begin(), q[w].begin() + 32);
+        }
+      }
+      c[w] = next++;
+    }
+  }
+  for (int32_t b = 0; b < blocks; ++b) {
+    std::vector<int32_t> left;
+    for (int w = 0; w < warps_per_block; ++w) {
+      const std::vector<int32_t>& qw = q[(size_t)b * warps_per_block + w];
+      left.insert(left.end(), qw.begin(), qw.end());
+    }
+    for (size_t t = 0; t < left.size(); t += 32) {
+      lanes[0] += 32;
+      lanes[1] += (int64_t)std::min<size_t>(32, left.size() - t);
+    }
+    for (int32_t i : left) bounce(i);
   }
 }
 

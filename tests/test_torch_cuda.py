@@ -62,28 +62,90 @@ def test_kernel_uniforms_bit_exact(cuda):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("name", SCENES)
-def test_bounce_kernel_matches_plain(cuda, name):
-    _, static, cam = _setup(name, 96, cuda)
+# The bounce kernel's cases: (scene, case).  "chain": four bounces in turn;
+# "dead": every ray's bounces 0; "live": the camera rays; "one a warp":
+# lane 7 of every 32 rays live; "odd": 99 x 99 rays (not a multiple of 32);
+# "offset": the pixels shifted by 1,000 in a stream of n + 2,000.
+BOUNCE_CASES = [("cornell_dof.json", "chain"), ("cornell_all_lobes.json", "chain"),
+                ("cornell_dof.json", "dead"), ("cornell_dof.json", "live"),
+                ("cornell_dof.json", "one a warp"), ("cornell_dof.json", "odd"),
+                ("cornell_all_lobes.json", "offset")]
+
+
+def _bits_equal(got, want) -> bool:
+    return all(torch.equal(a, b) for a, b in zip(
+        (*got.origin, *got.direction, *got.color, got.bounces),
+        (*want.origin, *want.direction, *want.color, want.bounces)))
+
+
+@pytest.mark.parametrize("form", ["uniforms", "inline"])
+@pytest.mark.parametrize("name,case", BOUNCE_CASES)
+def test_bounce_kernel_matches_plain(cuda, name, case, form):
+    """The packed bounce kernel bit-equal to its plain version in both
+    uniform forms (the [3, n] plane; drawn inline at each ray's pixel), on
+    chained bounces and on rays all dead, all live, one live a warp, a count
+    that is not a multiple of 32 and a shard's pixel offset."""
+    _, static, cam = _setup(name, 99 if case == "odd" else 96, cuda)
     cfg = RenderConfig()
     n = static.pixel_count
-    idx = torch.arange(n, device=cuda)
+    idx = torch.arange(n, device=cuda, dtype=torch.int32)
     ik = prng.iteration_key(prng.prng_key(0), 1)
     paths = camera_ops.generate_camera_rays(
         cam, static.width, static.height, static.trace_depth,
         prng.uniforms_at(prng.stage_key(ik, 0, 0), idx, 4, n),
     )
+    rng_n = n
+    if case == "dead":
+        paths = paths._replace(bounces=torch.zeros_like(paths.bounces))
+    elif case == "one a warp":
+        paths = paths._replace(bounces=torch.where(idx % 32 == 7, paths.bounces, 0))
+    elif case == "offset":
+        paths = paths._replace(pixel=idx + 1000)
+        rng_n = n + 2000
     before = fused.fused_prim_bounce.launches
-    for d in range(4):
-        su = prng.uniforms_at(prng.stage_key(ik, d, 1), idx, 3, n)
-        got = fused.fused_prim_bounce(static, cfg, paths, su)
-        want = fused.fused_prim_bounce_plain(static, cfg, paths, su)
-        assert torch.equal(got.bounces, want.bounces)
-        for a, b in zip([*got.origin, *got.direction, *got.color],
-                        [*want.origin, *want.direction, *want.color]):
-            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    bounces = 4 if case == "chain" else 2
+    for d in range(bounces):
+        skey = prng.stage_key(ik, d, 1)
+        if form == "inline":
+            got = fused.fused_prim_bounce(static, cfg, paths, su_key=skey, rng_n=rng_n)
+            want = fused.fused_prim_bounce_plain(static, cfg, paths, su_key=skey, rng_n=rng_n)
+        else:
+            su = prng.uniforms_at(skey, paths.pixel, 3, rng_n)
+            got = fused.fused_prim_bounce(static, cfg, paths, su)
+            want = fused.fused_prim_bounce_plain(static, cfg, paths, su)
+        assert _bits_equal(got, want)
+        assert torch.equal(got.pixel, paths.pixel)
         paths = want
-    assert fused.fused_prim_bounce.launches == before + 4
+    assert fused.fused_prim_bounce.launches == before + bounces
+    if case == "dead":
+        assert int(paths.bounces.sum()) == 0
+
+
+def test_bounce_kernel_on_two_streams(cuda):
+    """Bounce launches on two streams at once, each stream with its own
+    chunk counter: every launch bit-equal to the plain version (a shared
+    counter would skip the chunks the other launch took)."""
+    _, static, cam = _setup("cornell_dof.json", 256, cuda)
+    cfg = RenderConfig()
+    n = static.pixel_count
+    idx = torch.arange(n, device=cuda, dtype=torch.int32)
+    ik = prng.iteration_key(prng.prng_key(0), 1)
+    paths = camera_ops.generate_camera_rays(
+        cam, static.width, static.height, static.trace_depth,
+        prng.uniforms_at(prng.stage_key(ik, 0, 0), idx, 4, n),
+    )
+    keys = [prng.stage_key(ik, d, 1) for d in range(8)]
+    want = [fused.fused_prim_bounce_plain(static, cfg, paths, su_key=k) for k in keys]
+    fused.fused_prim_bounce(static, cfg, paths, su_key=keys[0])  # the scene tables
+    torch.cuda.synchronize(cuda)
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    got = []
+    for i, k in enumerate(keys):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append(fused.fused_prim_bounce(static, cfg, paths, su_key=k))
+    torch.cuda.synchronize(cuda)
+    for g, w in zip(got, want):
+        assert _bits_equal(g, w)
 
 
 @pytest.mark.parametrize("name", SCENES)
@@ -600,6 +662,24 @@ def test_plan_prepass_kernel_matches_plain(cuda, name):
         assert int(want.cnt.sum()) > 0
 
 
+@pytest.mark.parametrize("ct", [1, 79, 300, 1024])
+def test_plan_prepass_kernel_edge_cases(cuda, ct):
+    """The prepass kernel (the live rays of a block compacted, warps over
+    the tiles of a CTA's slice of 64) on synthetic boxes at 1, 79, 300 and
+    1,024 tiles, with a dead block, a block live only in its last lane and
+    a ray that starts on a tile's face: (h, lb) bit-equal to the plain
+    version."""
+    from torch_fixtures import prepass_case
+
+    aabb, os_, d, live, tl = (x.to(cuda) if isinstance(x, torch.Tensor) else
+                              type(x)(*(c.to(cuda) for c in x)) for x in prepass_case(ct))
+    h, lb = intersect_mxu.plan_prepass(aabb, os_, d, live, tl)
+    want_h, want_lb = intersect_mxu.plan_prepass_plain(aabb, os_, d, live, tl)
+    assert torch.equal(h, want_h)
+    assert torch.equal(lb.view(torch.int32), want_lb.view(torch.int32))
+    assert bool(want_h[2, 0]) and bool(want_h[4, 0]) and not bool(want_h[1].any())
+
+
 def test_chains_and_switches_take_the_kernels(cuda, monkeypatch):
     """cornell_mesh_80k.json (79 tiles) at 64x64: "sweep" (the sweep chain, 3
     launches a bounce), "planned" (the planned chain: 2 launches of the walk
@@ -773,7 +853,8 @@ def test_epilogue_kernels_match_plain_and_the_lanebest_walk(cuda, name):
 
 def test_prim_kernels_beyond_the_old_capacity(cuda):
     """40 primitives, 40 materials, depth 80: the bounce kernel bit-equal
-    in its integers and close in its floats to the plain version, the
+    in its integers and close in its floats to the plain version (and its
+    inline draw bit-equal to its [3, n] form), the
     iteration kernel's film at the goldens' tolerance, the Renderer through
     the iteration kernel."""
     from project3_cuda_path_tracer_2025_tpu_torch.scene import many_prims_scene, scene_from_dict
@@ -795,6 +876,8 @@ def test_prim_kernels_beyond_the_old_capacity(cuda):
         for a, b in zip((*got.origin, *got.direction, *got.color),
                         (*want.origin, *want.direction, *want.color)):
             assert float((~torch.isclose(a, b, rtol=1e-5, atol=1e-6)).float().mean()) <= 1e-3
+        assert _bits_equal(fused.fused_prim_bounce(static, cfg, paths,
+                                                   su_key=prng.stage_key(ik, d, 1)), got)
         paths = want
     base_key = prng.prng_key(0)
     film_k, alive_k = fused.fused_prim_iteration(static, cfg, cam, film_ops.new_film(n, cuda), 1,
@@ -814,8 +897,9 @@ def test_prim_kernels_beyond_the_old_capacity(cuda):
 
 def test_prim_tables_beyond_shared_memory(cuda):
     """1,600 primitives (243 KB of tables, beyond a block's 227 KB of shared
-    memory): the bounce, mesh-shade and iteration kernels read the tables
-    from device memory and agree with their plain versions (integers equal,
+    memory): the bounce (both uniform forms, bit-equal to each other),
+    mesh-shade and iteration kernels read the tables from device memory and
+    agree with their plain versions (integers equal,
     floats to ``rtol=1e-5, atol=1e-6`` on all but one lane in a thousand;
     the film of 1,024 pixels with at most 5 outside ``rtol=2e-4,
     atol=2e-5``)."""
@@ -841,6 +925,7 @@ def test_prim_tables_beyond_shared_memory(cuda):
         want_s, (want_tl, _) = fused.fused_mesh_shade_plain(*sargs)
         got = fused.fused_prim_bounce(static, cfg, paths, su)
         want = fused.fused_prim_bounce_plain(static, cfg, paths, su)
+        assert _bits_equal(fused.fused_prim_bounce(static, cfg, paths, su_key=skey), got)
         for g, w, extra in ((got, want, ()), (got_s, want_s, ((got_tl, want_tl),))):
             assert torch.equal(g.bounces, w.bounces)
             for a, b in (*zip((*g.origin, *g.direction, *g.color),

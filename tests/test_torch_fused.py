@@ -54,6 +54,15 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 SCENE = str(REPO / "scenes" / "cornell_all_lobes.json")
 RES = 16
 BOUNCE_SHARE, BOUNCE_ILL_RTOL = 0.01, 1e-3
+# The sharded draw's lanes outside the stage tolerance beyond the 1%
+# allowance (2 of 256 lanes), by bounce.  At bounce 1, lane 86 hits the
+# microfacet sphere (radius 1) 6.75 units away at cos 0.12, the badly
+# conditioned quadratic above (t differs by 9e-6 relative); lanes 147 and
+# 151 graze the glass sphere (cos 0.073, 0.027; t and normal equal on both
+# sides) and reflect, so the reflected direction's small component carries
+# the inputs' last bits magnified (up to 4.4e-4 relative).  They are held to
+# ``BOUNCE_ILL_RTOL``; every other lane to the module's allowance.
+SHARDED_ILL = {1: [86, 147, 151]}
 
 
 @pytest.fixture(scope="module")
@@ -75,25 +84,56 @@ def _to_port(jp: JPaths) -> PathState:
     )
 
 
-def test_fused_prim_bounce_matches_pallas(both):
+@pytest.mark.parametrize("form", ["uniforms", "inline", "inline sharded"])
+def test_fused_prim_bounce_matches_pallas(both, form):
+    """``form`` "uniforms": the [3, n] plane, the JAX signature; "inline":
+    the port draws each ray's uniforms from ``su_key`` at its pixel, as the
+    JAX ``megakernel_iteration``'s ``draw3`` unsharded (pixel == index,
+    ``rng_n`` == n).  "inline sharded": a shard's pixels (offset 1,000 in a
+    stream of n + 2,000), the JAX kernel given ``uniforms_at(skey, pixel, 3,
+    rng_n)``; the port's inline draw must give the same outputs bit for bit
+    as its [3, n] form given those uniforms, and both are held to the JAX
+    kernel, the lanes of ``SHARDED_ILL`` to ``BOUNCE_ILL_RTOL`` alone."""
     static, jstatic, _, jcam = both
     n = RES * RES
     ik = jprng.iteration_key(jax.random.PRNGKey(0), jnp.int32(1))
     jpaths = jcamera.generate_camera_rays(
         jcam, RES, RES, jstatic.trace_depth, jprng.uniforms(jprng.stage_key(ik, 0, 0), n, 4)
     )
+    rng_n = n
+    if form == "inline sharded":
+        jpaths = jpaths._replace(pixel=jnp.arange(n, dtype=jnp.int32) + 1000)
+        rng_n = n + 2000
     for d in range(3):
-        u = np.array(jprng.uniforms(jprng.stage_key(ik, d, 1), n, 3))
+        skey = jprng.stage_key(ik, d, 1)
+        key = prng.stage_key(prng.iteration_key(prng.prng_key(0), 1), d, 1)
+        assert key == tuple(int(w) for w in np.asarray(skey))
+        u = np.array(jprng.uniforms_at(skey, jpaths.pixel, 3, rng_n))
+        if form == "uniforms":
+            assert np.array_equal(u, np.array(jprng.uniforms(skey, n, 3)))
         want = jfused.fused_prim_bounce(jstatic, JConfig(), jpaths, jnp.asarray(u),
                                         interpret=True)
-        got = fused.fused_prim_bounce(static, RenderConfig(), _to_port(jpaths),
-                                      torch.from_numpy(u))
+        paths = _to_port(jpaths)
+        if form == "uniforms":
+            got = fused.fused_prim_bounce(static, RenderConfig(), paths, torch.from_numpy(u))
+        else:
+            got = fused.fused_prim_bounce(static, RenderConfig(), paths, su_key=key,
+                                          rng_n=rng_n)
+        named = np.zeros(n, bool)
+        if form == "inline sharded":
+            given = fused.fused_prim_bounce(static, RenderConfig(), paths, torch.from_numpy(u))
+            for a, b in zip((*got.origin, *got.direction, *got.color, got.bounces),
+                            (*given.origin, *given.direction, *given.color, given.bounces)):
+                assert torch.equal(a, b)
+            named[SHARDED_ILL.get(d, [])] = True
         close(got.bounces, want.bounces)
         close(got.pixel, want.pixel)
         loose = dict(share=BOUNCE_SHARE, ill_rtol=BOUNCE_ILL_RTOL)
-        close3(got.origin, want.origin, atol=ATOL_WORLD, **loose)
-        close3(got.direction, want.direction, **loose)
-        close3(got.color, want.color, **loose)
+        for mask, kw in ((~named, loose), (named, dict(share=1.0, ill_rtol=BOUNCE_ILL_RTOL))):
+            if mask.any():
+                close3(got.origin, want.origin, mask, atol=ATOL_WORLD, **kw)
+                close3(got.direction, want.direction, mask, **kw)
+                close3(got.color, want.color, mask, **kw)
         jpaths = want  # identical inputs for the next bounce
 
 

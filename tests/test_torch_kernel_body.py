@@ -46,8 +46,10 @@ from project3_cuda_path_tracer_2025_tpu_torch.scene import (
 )
 from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
 from project3_cuda_path_tracer_2025_tpu_torch.utils.vec import Vec3
-from torch_compare import FILM_ATOL, FILM_RTOL, assert_films_close, build_host
-from torch_fixtures import winner_case
+from torch_compare import (
+    ATOL_WORLD, FILM_ATOL, FILM_RTOL, assert_films_close, build_host, close3,
+)
+from torch_fixtures import prepass_case, winner_case
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 HARNESS = REPO / "tests" / "prim_path_host.cpp"
@@ -67,6 +69,8 @@ def host_lib(tmp_path_factory):
     lib.ptt_host_iteration.argtypes = [P, P] + [ctypes.c_int32] * 4 + [P] * 5
     lib.ptt_host_iteration_regen.argtypes = (
         [P, P] + [ctypes.c_int32] * 4 + [P] * 5 + [ctypes.c_int32] * 2 + [P])
+    lib.ptt_host_bounce_packed.argtypes = (
+        [P] * 6 + [ctypes.c_int32, P] + [ctypes.c_uint32] * 3 + [ctypes.c_int32, P])
     sizes = (ctypes.c_int32 * 2)()
     lib.ptt_host_sizes(sizes)
     assert list(sizes) == [ctypes.sizeof(kernels.PttScene), ctypes.sizeof(kernels.PttCamera)]
@@ -233,6 +237,106 @@ def test_host_iteration_regen_matches_per_pixel(host_lib, regen_refs, name, refi
         outside = ~np.isclose(got, want, rtol=FILM_RTOL, atol=FILM_ATOL)
         assert outside.any(axis=1).sum() <= 3
         np.testing.assert_allclose(got.sum(), want.sum(), rtol=1e-3)
+
+
+# The bounce kernel's packed schedule (ptt_host_bounce_packed): name ->
+# (scene, width, height, bounces traced before).  "all_dead": every
+# ray's bounces 0; "all_live": the camera rays; "one_a_warp": lane 7 of
+# every 32 rays live; "odd": 391 rays, not a multiple of 32; "offset": the
+# pixels shifted by 1,000 in a stream of 2,000 + n (a shard's slice).
+PACKED_CASES = {
+    "dof": ("cornell_dof.json", 48, 40, 2),
+    "lobes": ("cornell_all_lobes.json", 48, 40, 3),
+    "depth80": ("depth80", 24, 24, 5),
+    "all_dead": ("cornell_dof.json", 24, 16, 0),
+    "all_live": ("cornell_dof.json", 48, 40, 0),
+    "one_a_warp": ("cornell_dof.json", 48, 40, 0),
+    "odd": ("cornell_dof.json", 23, 17, 2),
+    "offset": ("cornell_all_lobes.json", 32, 24, 1),
+}
+
+
+def _packed_case(name):
+    """(static, paths, skey, rng_n) of a PACKED_CASES entry: the camera
+    rays of iteration 1 and the bounces traced before, by the plain
+    version."""
+    what, w, h, before = PACKED_CASES[name]
+    if what == "depth80":
+        doc = many_prims_scene(str(REPO / "scenes" / "cornell_dof.json"), 40, 40, depth=80)
+        scene = set_resolution(scene_from_dict(doc), w, h)
+        _, static = build_device_scene(scene, "cpu")
+        cam = camera_state(derive_render_camera(scene.state.camera))
+    else:
+        static, cam = _scene(what, w, h)
+    n = static.pixel_count
+    idx = torch.arange(n, dtype=torch.int32)
+    ik = prng.iteration_key(prng.prng_key(0), 1)
+    paths = camera_ops.generate_camera_rays(
+        cam, static.width, static.height, static.trace_depth,
+        prng.uniforms_at(prng.stage_key(ik, 0, 0), idx, 4, n), idx=idx)
+    for d in range(before):
+        paths = fused.fused_prim_bounce_plain(static, RenderConfig(), paths,
+                                              su_key=prng.stage_key(ik, d, 1))
+    rng_n = n
+    if name == "all_dead":
+        paths = paths._replace(bounces=torch.zeros_like(paths.bounces))
+    elif name == "one_a_warp":
+        paths = paths._replace(bounces=torch.where(idx % 32 == 7, paths.bounces, 0))
+    elif name == "offset":
+        paths = paths._replace(pixel=idx + 1000)
+        rng_n = n + 2000
+    return static, paths, prng.stage_key(ik, before, 1), rng_n
+
+
+@pytest.mark.parametrize("form", ["inline", "uniforms"])
+@pytest.mark.parametrize("blocks", [1, 3])
+@pytest.mark.parametrize("name", list(PACKED_CASES))
+def test_host_bounce_packed_matches_per_ray(host_lib, name, blocks, form):
+    """The bounce kernel's packed schedule (1 or 3 blocks of 8 warps of 32
+    lanes in lock step, taking chunks of 32 rays from one counter, each
+    warp's live queue, the block's leftovers dealt in order; the deferred normal;
+    uniforms drawn inline at the rays' pixels or given as [3, n]) gives the
+    per-ray
+    schedule's outputs bit for bit, and the plain version's to the port's
+    stage tolerance (``torch_compare.close``: libm's cos/sin here, SLEEF's
+    in torch).  Its lane counts: every live ray once, at most 31 idle lanes
+    a warp of a block's leftovers."""
+    static, paths, skey, rng_n = _packed_case(name)
+    cfg = RenderConfig()
+    n = static.pixel_count
+    su = prng.uniforms_at(skey, paths.pixel, 3, rng_n).contiguous()
+    scene = fused.scene_struct(static, cfg)
+    f_in = [c.contiguous() for c in (*paths.origin, *paths.direction, *paths.color)]
+
+    def outputs():
+        return [torch.full((n,), float("nan")) for _ in range(9)], torch.full((n,), -7, dtype=torch.int32)
+
+    want_f, want_b = outputs()
+    host_lib.ptt_host_bounce(ctypes.byref(scene), _ptrs(f_in), paths.bounces.data_ptr(),
+                             su.data_ptr(), _ptrs(want_f), want_b.data_ptr(), n)
+    got_f, got_b = outputs()
+    lanes = np.zeros(2, np.int64)
+    host_lib.ptt_host_bounce_packed(
+        ctypes.byref(scene), _ptrs(f_in), paths.bounces.data_ptr(),
+        su.data_ptr() if form == "uniforms" else None, _ptrs(got_f), got_b.data_ptr(), n,
+        paths.pixel.contiguous().data_ptr(), skey[0], skey[1], rng_n, blocks,
+        lanes.ctypes.data)
+    assert torch.equal(got_b, want_b)
+    for got, want in zip(got_f, want_f):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    live = int((paths.bounces > 0).sum())
+    assert lanes[1] == live and lanes[0] % 32 == 0
+    assert lanes[0] - lanes[1] <= 31 * 8 * blocks
+    if name == "all_live":
+        assert lanes[0] == lanes[1] == n
+    if name == "all_dead":
+        assert lanes[0] == 0
+    plain = (fused.fused_prim_bounce_plain(static, cfg, paths, su_key=skey, rng_n=rng_n)
+             if form == "inline" else fused.fused_prim_bounce_plain(static, cfg, paths, su))
+    np.testing.assert_array_equal(got_b.numpy(), plain.bounces.numpy())
+    close3(got_f[0:3], plain.origin, atol=ATOL_WORLD)
+    close3(got_f[3:6], plain.direction)
+    close3(got_f[6:9], plain.color)
 
 
 def test_kernel_wrappers_refuse_non_cuda_devices():
@@ -1047,6 +1151,7 @@ def slice5_lib(walk_lib):
     walk_lib.ptt_host_sweep.argtypes = [P, P, i32, P, P, P, P, f32_, f32_, i32, P, P]
     walk_lib.ptt_host_super.argtypes = [P, P, P, i32, i32] + [P] * 7 + [f32_, f32_, i32, P, P]
     walk_lib.ptt_host_plan_prepass.argtypes = [P, i32, P, P, P, i32, P, P]
+    walk_lib.ptt_host_plan_prepass_live.argtypes = [P, i32, P, P, P, i32, i32, P, P]
     return walk_lib
 
 
@@ -1127,6 +1232,34 @@ def test_host_plan_prepass_matches_plain(slice5_lib, name):
     assert want_h.sum() > 2
     assert torch.equal(got_h.bool(), want_h)
     assert torch.equal(got_lb.view(torch.int32), want_lb.view(torch.int32))
+
+
+@pytest.mark.parametrize("split", [64, 1024])
+@pytest.mark.parametrize("ct", [1, 79, 300, 1024])
+def test_host_plan_prepass_live_matches_plain(slice5_lib, ct, split):
+    """The prepass kernel's schedule (only the live rays of a block,
+    compacted; warps over the tiles of a CTA's slice of ``split`` tiles,
+    lanes over the rays, int-bits minimum): (h, lb) bit-equal to
+    plan_prepass_plain's and to the per-block twin's, at 1, 79, 300 and
+    1,024 tiles, with a block live only in its last lane and a ray that
+    starts on a tile's face."""
+    aabb, os_, d, live, tl = prepass_case(ct)
+    want_h, want_lb = intersect_mxu.plan_prepass_plain(aabb, os_, d, live, tl)
+    nb = want_h.shape[0]
+    rays = _ptrs([p.contiguous() for p in (*os_, *d)])
+    lv = live.to(torch.uint8).contiguous()
+    outs = {}
+    for fn, extra in (("ptt_host_plan_prepass", ()), ("ptt_host_plan_prepass_live", (split,))):
+        h = torch.full((nb, ct), 7, dtype=torch.uint8)
+        lb = torch.full((nb, ct), float("nan"))
+        getattr(slice5_lib, fn)(aabb.data_ptr(), ct, rays, lv.data_ptr(), tl.data_ptr(), nb,
+                                *extra, h.data_ptr(), lb.data_ptr())
+        outs[fn] = (h, lb)
+    for h, lb in outs.values():
+        assert torch.equal(h.bool(), want_h)
+        assert torch.equal(lb.view(torch.int32), want_lb.view(torch.int32))
+    assert not want_h[1].any() and want_h[2, 0] and want_h[4, 0]
+    assert float(want_lb[4, 0]) == 0.0
 
 
 # ---------------------------------------------------------------------------

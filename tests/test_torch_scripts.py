@@ -364,3 +364,57 @@ def test_chip_smoke_mono_and_binned_bounds():
             assert 0 < pairs <= ok_rows <= rows == found[0][5].numel() * mxu.RAY_TILE
             members += pairs
     assert members > 0
+
+
+def test_bench_kernels_bounce_and_prepass_lines_on_the_cpu(capsys):
+    """``torch_bench_kernels.py --kernels bounce prepass`` on the CPU at
+    8x8: two bounce lines ("main", drawing inline, and "uniforms", the
+    [3, n] plane) per bounce of ``cornell_dof``, ``cornell_all_lobes`` and
+    the depth-80 scene, with one result hash a bounce and the per-ray
+    schedule's lane counts; a prepass line per sorted 80k bounce and at
+    bounce 0 of 200k and 500k, with its pair counts (the live rays' pairs
+    no more than the per-block design's) and the work its bound counts (the
+    live pairs' tests; the dead rays' live flags, the live rays' 28 bytes);
+    the ``cornell_dof`` bounce-kernel
+    frame and the 80k frame with the plan kernel; nothing timed.  The
+    chip_smoke bound of a bounce counts the live rays' pixels and draws."""
+    sys.path.insert(0, str(REPO / "scripts"))
+    try:
+        bench = _load("torch_bench_kernels")
+        recs = bench.run(
+            ["--device", "cpu", "--res", "8", "--kernels", "bounce", "prepass", "--bounces",
+             "3", "--k", "1"])
+    finally:
+        sys.path.remove(str(REPO / "scripts"))
+    bounces = [r for r in recs if r["kind"] == "bounce"]
+    assert [(r["scene"], r["bounce"], r["form"]) for r in bounces] == [
+        (s, d, f) for s in ("cornell_dof", "cornell_all_lobes", "depth80") for d in range(3)
+        for f in ("main", "uniforms")]
+    for main, given in zip(bounces[::2], bounces[1::2]):
+        assert main["result_sha"] == given["result_sha"] and main["inline"]
+        assert 0 < main["live"] <= main["per_ray_issued"] and "kernel_live" not in main
+    pre = [r for r in recs if r["kind"] == "prepass"]
+    assert [(r["scene"], r["bounce"]) for r in pre] == [
+        ("80k", 0), ("80k", 1), ("80k", 2), ("200k", 0), ("500k", 0)]
+    for r in pre:
+        assert r["pairs_live"] == r["live"] * r["tiles"] <= r["pairs_per_block_design"]
+        assert r["pairs_per_block_design"] == 256 * r["live_blocks"] * r["tiles"]
+        assert r["operations"] == r["pairs_live"] * bench.OPS_PLAN_PAIR
+        rows = r["bytes_needed"] - 28 * r["live"] - 32 * r["tiles"]  # live flags, (h, lb)
+        assert rows > 0 and rows % (256 + 5 * r["tiles"]) == 0
+    frames = {(r["scene"], r["traversal"]) for r in recs if r["kind"] == "frame"}
+    assert frames == {("cornell_dof", "bounce kernel"), ("80k", "auto, PTT_PLAN_IMPL=pallas")}
+    assert all(r["ms"] is None for r in recs if "ms" in r)
+
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import build_device_scene, load_scene
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    _, static = build_device_scene(load_scene(str(REPO / "scenes" / "cornell_dof.json")), "cpu")
+    drawn, given = smoke.bounce_bound(static, 1000, 400), smoke.bounce_bound(
+        static, 1000, 400, drawn=False)
+    assert drawn[0] > 0.0 and given[0] > 0.0
+    live_ops = 400 * (smoke.prim_ops(static) + smoke.OPS_SCATTER)
+    assert smoke.bound_ms(1000 * 80 + 400 * 4, live_ops + 400 * 3 * smoke.OPS_UNIFORM) == drawn
+    assert smoke.bound_ms(1000 * 92, live_ops) == given

@@ -117,3 +117,42 @@ def winner_case(static, rng, n=1024):
     mesh_n = Vec3(*(torch.where(hit, f(nrm[:, i]), 0.0) for i in range(3)))
     mesh_mat = torch.where(hit, 4, -1).to(torch.int32)
     return prim_static, paths, mesh_t, mesh_n, mesh_mat
+
+
+def prepass_case(ct):
+    """Synthetic plan inputs over ``ct`` boxes (recentred frame): 6 blocks
+    of 256 rays with a third of them live and a tenth axis-aligned; block 1
+    dead, block 2 live only in its last lane (aimed at tile 0's centre),
+    block 3 all live; ray 0 of block 4 starts on tile 0's lower x face,
+    heading in.  Returns (tile_aabb, os, d, live, tl), the arguments of
+    ``plan_prepass`` (tensors on the CPU; Vec3 of the port's utils)."""
+    from project3_cuda_path_tracer_2025_tpu_torch.utils.vec import Vec3
+
+    rng = np.random.default_rng(ct)
+    nb = 6
+    n = nb * 256
+    lo = rng.uniform(-1.0, 1.0, (ct, 3))
+    hi = lo + rng.uniform(0.02, 0.4, (ct, 3))
+    aabb = np.zeros((ct, 8), np.float32)
+    aabb[:, 0:3], aabb[:, 3:6] = lo, hi
+    o = rng.uniform(-2.0, 2.0, (n, 3))
+    d = rng.normal(size=(n, 3))
+    d[rng.random(n) < 0.1, 0] = 0.0
+    live = rng.random(n) < 0.35
+    tl = rng.uniform(0.5, 6.0, n)
+    tl[rng.random(n) < 0.1] = 3.4e38
+    blk = lambda b: slice(b * 256, (b + 1) * 256)
+    live[blk(1)] = False
+    live[blk(2)] = False
+    last = 2 * 256 + 255
+    live[last], o[last], tl[last] = True, (4.0, 4.0, 4.0), 3.4e38
+    d[last] = (lo[0] + hi[0]) / 2 - o[last]
+    live[blk(3)] = True
+    face = 4 * 256
+    live[face], tl[face] = True, 3.4e38
+    o[face] = (lo[0, 0], (lo[0, 1] + hi[0, 1]) / 2, (lo[0, 2] + hi[0, 2]) / 2)
+    d[face] = (1.0, 0.1, -0.05)
+    d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-12)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    return (t(aabb), Vec3(*(t(o[:, i]) for i in range(3))), Vec3(*(t(d[:, i]) for i in range(3))),
+            torch.from_numpy(live), t(tl))
