@@ -2,11 +2,12 @@
 //
 // Each function is the per-ray form of a torch function of the port (and so
 // of the JAX package), written operation for operation in the same order.
-// The kernels of #4-#10 run the block schedule (walk_take, spread_load,
-// spread_key below); the per-ray walks (walk_visit, tile_fold, sweep_ray,
-// super_visit, binned_pair, mono_ray) are the schedule they had before it,
-// kept as the references tests/mesh_path_host.cpp holds the block schedule
-// to:
+// The kernels of #4-#10 and #13 run the block schedule (walk_take,
+// spread_load, spread_key below; #13's full-width flavors wide_key,
+// wide_sink, wide_mm_key); the per-ray walks (walk_visit, tile_fold,
+// sweep_ray, super_visit, binned_pair, mono_ray, asc_visit, mm_fold) are the
+// schedule they had before it, kept as the references
+// tests/mesh_path_host.cpp holds the block schedule to:
 //   walk_visit      = one (ray, tile) pair of ops/intersect_mxu.py::_tile_min
 //                     (the member slab, _mt_hit) folded in with the
 //                     contract's tie rule, as walk_plain folds it;
@@ -213,6 +214,18 @@ PTT_HD Numerators numerators(const float f[10], const float* row) {
   return numerators_k(f, k);
 }
 
+// Keeps the four numerators live on the card, where a caller that reads
+// none of them must still pay for them (the timing floors, the full-width
+// flavors' non-member pairs): an empty asm volatile takes them as operands.
+// The host build needs no sink.
+PTT_HD void numerators_sink(const Numerators& m) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("" ::"f"(m.det), "f"(m.un), "f"(m.vn), "f"(m.tn));
+#else
+  (void)m;
+#endif
+}
+
 // _mt_hit on one coefficient row k: the numerators, the sign of det XORed
 // into u and v, |det| for their sum, and the hit confined to [t_lo, t_hi].
 PTT_HD bool mt_accept_k(const float f[10], const float k[PTT_COEF_W], float baby_eps, float t_lo,
@@ -326,9 +339,8 @@ PTT_HD void asc_visit(WalkRay& r, const float* coef, const float* row, int tile,
 // ties to the lower lane (the triangle's index inside its tile) whatever
 // tile it came from.  A ray that is not live runs with all-zero features,
 // as the script's zeroed feature rows do.  The other three numerator chains
-// are computed and kept live by an empty asm volatile that takes them as
-// operands (on the card; the host build has no such sink and needs none),
-// so the floor still pays for the four chains the matmul computes.  mm_ray
+// are computed and kept live (numerators_sink), so the floor still pays for
+// the four chains the matmul computes.  mm_ray
 // prepares the ray, mm_fold takes one tile, mm_resolve gives (min, lane)
 // below the ray's t_limit, else (t_limit, -1).
 PTT_HD void mm_ray(WalkRay& r) {
@@ -343,9 +355,7 @@ PTT_HD void mm_fold(WalkRay& r, const float* coef, int tile) {
   const float* cf = coef + (size_t)tile * PTT_TRI_TILE * PTT_COEF_W;
   for (int j = 0; j < PTT_TRI_TILE; ++j, cf += PTT_COEF_W) {
     const Numerators m = numerators(r.f, cf);
-#if defined(__CUDA_ARCH__)
-    asm volatile("" ::"f"(m.un), "f"(m.vn), "f"(m.tn));
-#endif
+    numerators_sink(m);
     if (m.det < r.best || (m.det == r.best && j < r.best_tri)) {
       r.best = m.det;
       r.best_tri = j;
@@ -427,6 +437,8 @@ PTT_HD void spread_load(const float* coef, int tile, int tid, float k[PTT_SPREAD
 }
 
 // tri0: the global id of the thread's first triangle, tile * 1,024 + tid.
+// wide_key below is this function with the u/v tests before the division;
+// the two are to become one body in that order.
 PTT_HD uint64_t spread_key(const float f[10], float t_lo, float t_hi,
                            const float k[PTT_SPREAD][PTT_COEF_W], int32_t tri0, float baby_eps) {
   uint64_t best = PTT_NO_KEY;
@@ -437,6 +449,81 @@ PTT_HD uint64_t spread_key(const float f[10], float t_lo, float t_hi,
       const uint64_t key = walk_key(tt, tri0 + i * PTT_SPREAD_THREADS);
       best = key < best ? key : best;
     }
+  }
+  return best;
+}
+
+// The full-width schedule of the epilogue variants' "full" and "gate"
+// flavors and of the timing floors (ptt_epilogue_mono_kernel, the floor of
+// ptt_lb_asc_kernel; wide_spread in mesh_walk.cu): every ray of a visiting
+// block against every triangle of the tile, the pairs dealt over the
+// block's threads as spread_load deals them.  The flavors are defined to
+// evaluate the pairs of rays that are not members of the tile too, so each
+// such pair costs its four numerators (wide_sink); only a member pair runs
+// the epilogue (wide_key), and the floors fold det alone (wide_mm_key).
+PTT_HD void wide_sink(const float f[10], const float k[PTT_SPREAD][PTT_COEF_W]) {
+#pragma unroll
+  for (int i = 0; i < PTT_SPREAD; ++i) numerators_sink(numerators_k(f, k[i]));
+}
+
+// spread_key's function with the acceptance reordered: det_ok and the u/v
+// conditions before the division, which then runs only for a pair inside
+// its triangle.  tt is computed as mt_accept_k computes it (tn times the
+// correctly rounded 1 / det), and the conditions are the same conjunction,
+// so the keys are spread_key's bit for bit.  Dividing on every member pair
+// first, as spread_key does, took 31-48% longer on the H100 (PERF.md).
+PTT_HD uint64_t wide_key(const float f[10], float t_lo, float t_hi,
+                         const float k[PTT_SPREAD][PTT_COEF_W], int32_t tri0, float baby_eps) {
+  uint64_t best = PTT_NO_KEY;
+#pragma unroll
+  for (int i = 0; i < PTT_SPREAD; ++i) {
+    const Numerators m = numerators_k(f, k[i]);
+    const float abs_det = fabsf(m.det);
+    const int32_t sign = ptt_as_int(m.det) & INT32_MIN;
+    const float us = ptt_as_float(ptt_as_int(m.un) ^ sign);
+    const float vs = ptt_as_float(ptt_as_int(m.vn) ^ sign);
+    if (abs_det >= baby_eps && ptt_min(us, vs) >= 0.0f && us + vs <= abs_det) {
+      const float tt = m.tn * (1.0f / m.det);
+      if (tt >= t_lo && tt <= t_hi) {
+        const uint64_t key = walk_key(tt, tri0 + i * PTT_SPREAD_THREADS);
+        best = key < best ? key : best;
+      }
+    }
+  }
+  return best;
+}
+
+// A floor pair's key: det's ordered bits (walk_key's high word), then the
+// lane (the triangle's index inside its tile) as the low word, so the key
+// minimum is mm_fold's (least det, ties to the lower lane).  -0 is keyed as
+// +0: the fold's "==" takes them as equal and goes to the lower lane, where
+// the ordered bits put -0 below +0.  mm_unkey is the key read back through
+// mm_resolve: (det, lane) below t_limit, else (t_limit, -1).
+PTT_HD uint64_t mm_key(float det, int32_t lane) {
+  return walk_key(det == 0.0f ? 0.0f : det, lane - 1);
+}
+
+PTT_HD void mm_unkey(uint64_t key, float tlim, float* t, int32_t* lane) {
+  WalkRay r;
+  walk_unkey(key, &r.best, &r.best_tri);
+  r.best_tri += 1;
+  r.tlim = tlim;
+  mm_resolve(r);
+  *t = r.best;
+  *lane = r.best_tri;
+}
+
+// A thread's floor pairs against one ray: the least key of its triangles
+// (lanes lane0 + PTT_SPREAD_THREADS i), the other three numerators kept.
+PTT_HD uint64_t wide_mm_key(const float f[10], const float k[PTT_SPREAD][PTT_COEF_W],
+                            int32_t lane0) {
+  uint64_t best = PTT_NO_KEY;
+#pragma unroll
+  for (int i = 0; i < PTT_SPREAD; ++i) {
+    const Numerators m = numerators_k(f, k[i]);
+    numerators_sink(m);
+    const uint64_t key = mm_key(m.det, lane0 + i * PTT_SPREAD_THREADS);
+    best = key < best ? key : best;
   }
   return best;
 }

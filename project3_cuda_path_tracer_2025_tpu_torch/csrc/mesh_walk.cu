@@ -26,7 +26,8 @@
 //                                per (ray block, tile), whether any ray enters
 //                                and the least entry distance.
 // and the two kernels of that package's scripts/profile_epilogue.py, variants
-// of #5 and #4 that take tiles in ascending id and so fold with a strict "<":
+// of #5 and #4 that take tiles in ascending id (the TPU kernels fold with a
+// strict "<"):
 //   ptt_lb_asc_kernel            lb_asc_kernel :239 (flavors lb_asc, lb_mm): the
 //                                lane-best walk over a plan row sorted by tile id;
 //   ptt_epilogue_mono_kernel     mono_kernel :285 (flavors full, gate, mm): no
@@ -52,7 +53,9 @@
 //   slab entry lies beyond its own running best (the improvability gate,
 //   taken per ray instead of per block; #5 and #9 take it too, exact in any
 //   walk; #4 takes it too).  #4, #5, #6 and #9 stage the (at most 32) tile
-//   boxes in shared memory.  #13a and #13b (below) keep one thread a ray.
+//   boxes in shared memory.  #13a and #13b (below) run the block schedule
+//   too: lb_asc through spread_entry, the full-width flavors through their
+//   own per-tile steps.
 //   The block schedule.  In the per-ray schedule that the walks had before
 //   it a member ray walked its tile's 1,024 triangles alone while the rest
 //   of its warp waited, a chain of ~1 us a block-visit at 0.5-1.6% of the
@@ -133,28 +136,46 @@
 //   (0, inf) and stops.  min and any do not depend on order, so (h, lb) are
 //   bit-equal to the torch plan's.  Traffic: every ray's live flag, the
 //   live rays' state (once for each slice of their row), [nb, ct] out.
-//   #13a (lb_asc) walks the ascending plan row one thread a ray, with
-//   asc_visit: the per-ray "best" is the TPU kernel's [256, 1,024] lane
-//   planes and its resolve at once, since one thread owns all of a ray's
-//   lanes; none of the planes is copied.  #13b (mono) reads no plan: "full"
-//   has every thread of a live block evaluate all 1,024 pairs of every tile,
-//   members or not (what it skips, against #4, is nothing but the dead
-//   blocks); "gate" takes a tile only when the block votes
-//   (__syncthreads_or) that some live ray is a member, and then at full
-//   width too.  The "mm" flavors are timing floors (numerators and a
-//   minimum, wrong results by design), reachable from the measuring script
+//   #13a's exact flavor lb_asc is #5's loop, plan_spread<false, true>, fed
+//   the ascending plan row: the same improvability gate, the same key
+//   minimum, so against #5 it varies the visit order alone.  The TPU
+//   kernel's fold, a strict "<" with no id compare, has no counterpart on
+//   this schedule: a tile's pairs are evaluated by 512 threads at once and
+//   folded by atomics in no order, so an equal t from two triangles of one
+//   tile is resolved by the id in the key whatever the visit order.
+//   #13b's "full" and "gate" and both floors are defined at full width:
+//   every ray of a visiting block against every triangle of the tile
+//   ("full": every tile of a block with a live ray; "gate": only the tiles
+//   the block votes some live ray is a member of; the floors: the four
+//   numerators and a minimum of det).  wide_spread deals those pairs over
+//   the block as spread_entry deals a list's: thread t holds the rows of
+//   triangles t and t + 512, each ray's features and pair window come from
+//   shared memory (three float4 broadcasts), and the branch on a ray's
+//   window is the same for every thread at each step.  A pair of a ray
+//   that is not a member (or not live) costs its four numerators, kept live
+//   so the flavor still pays for them; a member pair tests det and the u/v
+//   conditions before the division (wide_key), so the division runs only
+//   in a warp where some pair lies inside its triangle.  The floors' keys
+//   (det, lane) are reduced over the warp (__reduce_min_sync on the high
+//   word, then on the low word) and each lane lowers one ray's key a 32
+//   rays, so their atomics do not serialise.  #13b's kernel is built for
+//   two blocks an SM (kWideMinBlocks).  The "mm" flavors are timing
+//   floors (wrong results by design), reachable from the measuring script
 //   only.
 //
 // What bounds them on the H100: operations.  Per candidate (ray, tile) pair
 // a thread does 1,024 x (19 fused multiply-adds, one division, ~12
 // compares) against one 80-byte row per triangle shared by the warp; the
 // rays' state (7 planes, 29 bytes a ray) and the plan are read once.
-// In the per-ray schedule (#13a, #13b) divergence is the cost beyond the
-// bound: a warp runs a tile for as long as its slowest member, whatever
-// number of its rays are members.  The block schedule of #4-#10 removes that
-// cost (every thread evaluates pairs); what it leaves is a tile-visit's
-// fixed part (three barriers, the list, 80 KB of rows from L2) and a few
-// live blocks an SM on the early bounces.
+// In the per-ray schedule the walks had before, divergence was the cost
+// beyond the bound: a warp ran a tile for as long as its slowest member,
+// whatever number of its rays were members.  The block schedule removes
+// that cost (every thread evaluates pairs); what it leaves is a
+// tile-visit's fixed part (three barriers, the list, 80 KB of rows from L2)
+// and a few live blocks an SM on the early bounces.  #13b's full-width
+// flavors evaluate the pairs the function does not need by definition: their
+// bound is the function's, and the numerators of every pair of a visiting
+// block stand between the two.
 // #11 is bound by operations: a slab test of ~34 per live (ray, tile) pair,
 // against 1 byte a dead ray (its live flag), 28 a live one and 5 an output
 // (80k, bounce 0: 2.6 M pairs against 2.5 MB).
@@ -235,10 +256,6 @@ __device__ __forceinline__ WalkRay load_ray(const float* const* ray, const uint8
   const V3 o = in ? v3(ray[0][idx], ray[1][idx], ray[2][idx]) : v3(0.0f, 0.0f, 0.0f);
   const V3 d = in ? v3(ray[3][idx], ray[4][idx], ray[5][idx]) : v3(0.0f, 0.0f, 0.0f);
   return walk_ray(center, o, d, in && live[idx] != 0, in ? tlim[idx] : 0.0f);
-}
-
-__device__ __forceinline__ WalkRay load_walk_ray(const PttWalkArgs& a, int idx, V3 center) {
-  return load_ray(a.ray, a.live, a.tlim, idx, idx < a.n, center);
 }
 
 __device__ __forceinline__ V3 load_center(const float* center) {
@@ -475,63 +492,177 @@ __global__ void PTT_SPREAD_BOUNDS ptt_mono_kernel(const PttMonoArgs a) {
   sweep_spread<true>(a, a.active, a.num_tris);
 }
 
-// #13a: the block's plan row holds its candidate tiles in ascending id.
-template <bool MM>
-__global__ void __launch_bounds__(PTT_RAY_TILE) ptt_lb_asc_kernel(const PttWalkArgs a) {
-  __shared__ float sh_aabb[PTT_PLANNED_MAX_CT * 8];
-  for (int i = threadIdx.x; i < a.ct * 8; i += blockDim.x) sh_aabb[i] = a.tile_aabb[i];
-  __syncthreads();
-  const int b = blockIdx.x;
-  const int idx = b * PTT_RAY_TILE + threadIdx.x;
-  WalkRay r = load_walk_ray(a, idx, load_center(a.center));
-  if (MM) mm_ray(r);
-  const int cnt = __ldg(a.cnt + b);
-  const int32_t* ids = a.ids + (size_t)b * a.ct;
-  for (int t = 0; t < cnt; ++t) {
-    const int tile = __ldg(ids + t);
-    if (MM) {
-      mm_fold(r, a.coef, tile);
-    } else {
-      asc_visit(r, a.coef, sh_aabb + 8 * tile, tile, true, a.baby_eps, a.eps_succ);
-    }
-  }
-  if (MM) mm_resolve(r);
-  if (idx < a.n) {
-    a.out_t[idx] = r.best;
-    a.out_tri[idx] = r.best_tri;
-  }
-}
-
 #define PTT_EPI_FULL 0
 #define PTT_EPI_GATE 1
 #define PTT_EPI_MM 2
 
-// #13b: every tile 0..ct-1 in order, no plan.
-template <int FLAVOR>
-__global__ void __launch_bounds__(PTT_RAY_TILE) ptt_epilogue_mono_kernel(const PttWalkArgs a) {
-  __shared__ float sh_aabb[PTT_PLANNED_MAX_CT * 8];
-  for (int i = threadIdx.x; i < a.ct * 8; i += blockDim.x) sh_aabb[i] = a.tile_aabb[i];
-  __syncthreads();
-  const int idx = blockIdx.x * PTT_RAY_TILE + threadIdx.x;
-  WalkRay r = load_walk_ray(a, idx, load_center(a.center));
-  if (__syncthreads_or(r.live)) {  // a block with no live ray is skipped whole
-    if (FLAVOR == PTT_EPI_MM) mm_ray(r);
-    for (int c = 0; c < a.ct; ++c) {
-      if (FLAVOR == PTT_EPI_MM) {
-        mm_fold(r, a.coef, c);
-        continue;
-      }
-      Slab s;
-      const bool member = asc_member(r, sh_aabb + 8 * c, &s);
-      if (FLAVOR == PTT_EPI_GATE && !__syncthreads_or(member)) continue;
-      asc_fold(r, a.coef, c, member, s, a.baby_eps, a.eps_succ);
+// The full-width schedule of #13b and of #13a's floor (csrc/mesh_path.cuh:
+// wide_key, wide_sink, wide_mm_key): PTT_SPREAD_THREADS threads a block of
+// 256 rays, thread t < 256 owning ray t, every thread holding the rows of
+// triangles t + PTT_SPREAD_THREADS i of the tile and evaluating them against
+// every ray of the block.  The block's shared state:
+struct WideShared {
+  float4 f[PTT_RAY_TILE][3];             // ray j: its features, then its pair window
+  unsigned long long key[PTT_RAY_TILE];  // each ray's running best as a key
+};
+
+// Ray j's features and pair window [lo, hi] (lo > hi: no pair can enter).
+__device__ __forceinline__ void wide_read(const WideShared& sh, int j, float f[10], float* lo,
+                                          float* hi) {
+  const float4 a = sh.f[j][0], b = sh.f[j][1], c = sh.f[j][2];
+  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+  f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+  f[8] = c.x, f[9] = c.y;
+  *lo = c.z;
+  *hi = c.w;
+}
+
+// One tile of "full" (every tile of a live block) or "gate" (GATE: the
+// block votes, at the barrier after the windows, whether some live ray is
+// a member; a tile without one is skipped).  Each owner writes its ray's
+// window: asc_fold's [t_lo, t_hi], (inf, -inf) for a ray that is not a
+// member or not live.  Then every pair of the tile: a ray whose window no t
+// can enter (lo > hi; the same for every thread at step j, so the branch is
+// uniform) costs the four numerators; a member's pairs take wide_key and
+// lower the ray's key with atomicMin where one accepts.  The closing barrier
+// keeps the next tile's windows from overwriting this tile's.
+template <bool GATE>
+__device__ __forceinline__ void wide_tile(WideShared& sh, const WalkRay& r, bool owner,
+                                          const float* coef, const float* row, int tile,
+                                          float baby_eps, float eps_succ) {
+  const int tid = threadIdx.x;
+  Slab s;
+  const bool member = owner && asc_member(r, row, &s);
+  if (owner) {
+    sh.f[tid][2].z = member ? ptt_max(s.lo, eps_succ) : ptt_inf();
+    sh.f[tid][2].w = member ? s.hi : -ptt_inf();
+  }
+  if (GATE) {
+    if (!__syncthreads_or(member)) return;  // the same for every thread
+  } else {
+    __syncthreads();
+  }
+  float k[PTT_SPREAD][PTT_COEF_W];
+  spread_load(coef, tile, tid, k);
+  const int32_t tri0 = tile * PTT_TRI_TILE + tid;
+  for (int j = 0; j < PTT_RAY_TILE; ++j) {
+    float f[10], lo, hi;
+    wide_read(sh, j, f, &lo, &hi);
+    if (lo <= hi) {
+      const uint64_t key = wide_key(f, lo, hi, k, tri0, baby_eps);
+      if (key != PTT_NO_KEY) atomicMin(&sh.key[j], (unsigned long long)key);
+    } else {
+      wide_sink(f, k);
     }
-    if (FLAVOR == PTT_EPI_MM) mm_resolve(r);
   }
-  if (idx < a.n) {
-    a.out_t[idx] = r.best;
-    a.out_tri[idx] = r.best_tri;
+  __syncthreads();
+}
+
+// One tile of a floor: every ray of the block, live or not.  Each thread's
+// least key of a ray (wide_mm_key) goes through two warp reductions (the
+// high word, then the low word among the lanes at that high word), and lane
+// jj keeps the warp's key of ray g + jj: after 32 rays each lane lowers one
+// ray's shared key with one atomicMin, so a ray's key takes one atomic a
+// warp and a tile instead of one a thread and a pair.
+__device__ __forceinline__ void wide_mm_tile(WideShared& sh, const float* coef, int tile) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  float k[PTT_SPREAD][PTT_COEF_W];
+  spread_load(coef, tile, tid, k);
+  for (int g = 0; g < PTT_RAY_TILE; g += 32) {
+    unsigned long long mine = PTT_NO_KEY;
+    for (int jj = 0; jj < 32; ++jj) {
+      float f[10], lo, hi;
+      wide_read(sh, g + jj, f, &lo, &hi);
+      const uint64_t key = wide_mm_key(f, k, tid);
+      const unsigned khi = __reduce_min_sync(0xFFFFFFFFu, (unsigned)(key >> 32));
+      const unsigned klo = __reduce_min_sync(
+          0xFFFFFFFFu, (unsigned)(key >> 32) == khi ? (unsigned)key : 0xFFFFFFFFu);
+      if (lane == jj) mine = ((unsigned long long)khi << 32) | klo;
+    }
+    atomicMin(&sh.key[g + lane], mine);
   }
+}
+
+// #13b ("full", "gate", the floor "mm": every tile 0..ct-1 in order, a
+// block with no live ray skipped whole) and #13a's floor (PLAN: the tiles
+// of the block's ascending plan row, no skip).  The owners write their
+// rays' features (a floor's dead rays with zero features, mm_ray) and
+// first keys: (t_limit, -1), or the floor's (inf, lane INT_MAX); the exact
+// flavors' tile boxes are staged in shared memory.  After the last tile,
+// each owner reads its key back: the exact flavors' (t, tri) by
+// walk_unkey, a floor's through mm_resolve.
+template <int FLAVOR, bool PLAN>
+__device__ __forceinline__ void wide_spread(const PttWalkArgs& a) {
+  static_assert(!PLAN || FLAVOR == PTT_EPI_MM, "the plan row is the floor's only");
+  constexpr bool MM = FLAVOR == PTT_EPI_MM;
+  __shared__ WideShared sh;
+  __shared__ float sh_aabb[MM ? 1 : PTT_PLANNED_MAX_CT * 8];
+  if constexpr (!MM) {
+    for (int i = threadIdx.x; i < a.ct * 8; i += blockDim.x) sh_aabb[i] = a.tile_aabb[i];
+  }
+  const int tid = threadIdx.x, b = blockIdx.x;
+  const bool owner = tid < PTT_RAY_TILE;
+  const int idx = b * PTT_RAY_TILE + tid;
+  WalkRay r = load_ray(a.ray, a.live, a.tlim, idx, owner && idx < a.n, load_center(a.center));
+  if (owner) {
+    if (MM) mm_ray(r);
+    sh.f[tid][0] = make_float4(r.f[0], r.f[1], r.f[2], r.f[3]);
+    sh.f[tid][1] = make_float4(r.f[4], r.f[5], r.f[6], r.f[7]);
+    sh.f[tid][2] = make_float4(r.f[8], r.f[9], ptt_inf(), -ptt_inf());
+    sh.key[tid] = MM ? mm_key(r.best, r.best_tri) : walk_key(r.best, r.best_tri);
+  }
+  // The barrier after the boxes, features and keys are written.
+  if (__syncthreads_or(PLAN || r.live)) {
+    const int cnt = PLAN ? __ldg(a.cnt + b) : a.ct;
+    for (int t = 0; t < cnt; ++t) {
+      const int tile = PLAN ? __ldg(a.ids + (size_t)b * a.ct + t) : t;
+      if constexpr (MM) {
+        wide_mm_tile(sh, a.coef, tile);
+      } else {
+        wide_tile<FLAVOR == PTT_EPI_GATE>(sh, r, owner, a.coef, sh_aabb + 8 * tile, tile,
+                                          a.baby_eps, a.eps_succ);
+      }
+    }
+  }
+  __syncthreads();
+  if (owner && idx < a.n) {
+    float t;
+    int32_t tri;
+    if (MM) {
+      mm_unkey(sh.key[tid], r.tlim, &t, &tri);
+    } else {
+      walk_unkey(sh.key[tid], &t, &tri);
+    }
+    a.out_t[idx] = t;
+    a.out_tri[idx] = tri;
+  }
+}
+
+// #13a: lb_asc is #5's block schedule (plan_spread) fed the ascending plan
+// row; lb_mm the floor over the same row at full width.  The <false>
+// instantiation has ptt_planned_lanebest_kernel's body: it is kept so that
+// launch kind 5 and the profiler's kernel name stay #13a's.
+template <bool MM>
+__global__ void PTT_SPREAD_BOUNDS ptt_lb_asc_kernel(const PttWalkArgs a) {
+  if constexpr (MM) {
+    wide_spread<PTT_EPI_MM, true>(a);
+  } else {
+    plan_spread<false, true>(a);
+  }
+}
+
+// Blocks of #13b an SM holds at once: two at 512 threads, which caps a
+// thread at 64 registers (the exact flavors take 79 with one).  A block's
+// tiles take as long as its 256 rays, and a population leaves a few live
+// blocks an SM (534 on 132 SMs at 5k), so the second block is the latency
+// hiding: "full" 19-25% faster mid-bounce against one block (PERF.md).
+constexpr int kWideMinBlocks = PTT_SPREAD_THREADS >= 1024 ? 1 : 1024 / PTT_SPREAD_THREADS;
+
+// #13b.
+template <int FLAVOR>
+__global__ void __launch_bounds__(PTT_SPREAD_THREADS, kWideMinBlocks)
+    ptt_epilogue_mono_kernel(const PttWalkArgs a) {
+  wide_spread<FLAVOR, false>(a);
 }
 
 // The tiles of its ray block's plan row that one CTA of the plan prepass
@@ -715,15 +846,15 @@ int ptt_launch_walk(const PttWalkArgs* a, int32_t kind, void* stream) {
     } else if (kind == 4) {
       ptt_sweep_kernel<<<grid, PTT_SPREAD_THREADS, 0, s>>>(*a);
     } else if (kind == 5) {
-      ptt_lb_asc_kernel<false><<<grid, PTT_RAY_TILE, 0, s>>>(*a);
+      ptt_lb_asc_kernel<false><<<grid, PTT_SPREAD_THREADS, 0, s>>>(*a);
     } else if (kind == 6) {
-      ptt_lb_asc_kernel<true><<<grid, PTT_RAY_TILE, 0, s>>>(*a);
+      ptt_lb_asc_kernel<true><<<grid, PTT_SPREAD_THREADS, 0, s>>>(*a);
     } else if (kind == 7) {
-      ptt_epilogue_mono_kernel<PTT_EPI_FULL><<<grid, PTT_RAY_TILE, 0, s>>>(*a);
+      ptt_epilogue_mono_kernel<PTT_EPI_FULL><<<grid, PTT_SPREAD_THREADS, 0, s>>>(*a);
     } else if (kind == 8) {
-      ptt_epilogue_mono_kernel<PTT_EPI_GATE><<<grid, PTT_RAY_TILE, 0, s>>>(*a);
+      ptt_epilogue_mono_kernel<PTT_EPI_GATE><<<grid, PTT_SPREAD_THREADS, 0, s>>>(*a);
     } else {
-      ptt_epilogue_mono_kernel<PTT_EPI_MM><<<grid, PTT_RAY_TILE, 0, s>>>(*a);
+      ptt_epilogue_mono_kernel<PTT_EPI_MM><<<grid, PTT_SPREAD_THREADS, 0, s>>>(*a);
     }
   }
   return (int)cudaGetLastError();

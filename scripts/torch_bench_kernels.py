@@ -12,8 +12,11 @@ in turns: parent, change, change, parent).
     python scripts/torch_bench_kernels.py --kernels iteration --refill 1 16  # #1's refill
                                                                 # rule, both builds
     python scripts/torch_bench_kernels.py --kernels bounce prepass  # #2 and #11 per bounce
-    python scripts/torch_bench_kernels.py --kernels prepass --split 32 64 1024  # #11's CTA
-                                                                # slices
+    python scripts/torch_bench_kernels.py --kernels prepass \\
+        --builds PTT_PREPASS_SPLIT=32 PTT_PREPASS_SPLIT=1024    # #11's CTA slices
+    python scripts/torch_bench_kernels.py --kernels epilogue    # #13a and #13b per flavor
+    python scripts/torch_bench_kernels.py --kernels epilogue --builds PTT_SPREAD_THREADS=256
+                                                                # and a build of 256 threads
     python scripts/torch_bench_kernels.py --device cpu --res 8 --scenes 80k \\
         --bounces 2                                             # plain versions, no times
 
@@ -57,7 +60,7 @@ One JSON line per measurement:
   on: ms per frame and the sha256 of its first frame's film.
 
 ``--kernels`` picks what is timed: "walks" (the default: the lines above),
-"shade", "iteration", "bounce" and "prepass":
+"shade", "iteration", "bounce", "prepass" and "epilogue":
 
 * ``shade``: the mesh-shade kernel (#3, ``fused_mesh_shade``) on each
   sorted bounce of the 5k mesh (mode "plain"), the textured mesh (mode
@@ -96,10 +99,24 @@ One JSON line per measurement:
   meshes: ms per launch, the live rays and live blocks, the (ray, tile)
   pairs the per-block design tests (every ray of a block with a live ray)
   and the live ones (``prepass_pairs``), the bytes and operations its
-  bound counts (``prepass_work``), a sha256 of (h, lb); then the 80k
-  frame with ``PTT_PLAN_IMPL=pallas``.  ``--split`` also builds the kernel
-  with each CTA slice given (``-DPTT_PREPASS_SPLIT``, tiles a CTA takes)
-  and times the builds in turns, where the package has the slice.
+  bound counts (``prepass_work``), a sha256 of (h, lb), and a line for each
+  of ``--builds`` (e.g. ``PTT_PREPASS_SPLIT=32``, the tiles a CTA takes);
+  then the 80k frame with ``PTT_PLAN_IMPL=pallas``.
+* ``epilogue``: the epilogue variants (#13a ``lb_asc_intersect``: "lb_asc"
+  and its floor "lb_mm" over the ascending plan; #13b
+  ``epilogue_mono_intersect``: "full", "gate" and the floor "mm") on the
+  populations of ``scripts/torch_profile_epilogue.py`` (800x800, the 5k
+  and 20k meshes, mid-bounce and with ``bounce0`` the camera rays), with
+  the lane-best planned walk (#5, "lanebest") that the exact flavors equal
+  and, at 5k, the mono walk (#4, "mono"): ms per launch by events and
+  device ms, the bound of the flavor's function and of the pairs its
+  schedule evaluates (``variant_bound``), whether an exact flavor equals
+  #5 on every ray, and a sha256 of its ``(t, tri)``; a line for each of
+  ``--builds`` (e.g. ``PTT_SPREAD_THREADS=256``) and flavor.
+
+``--builds`` builds the walk library (``csrc/mesh_walk.cu``) once with each
+``-D`` define given and times the prepass and epilogue lines from each build
+in turn; their hashes must be the package's.
 
 Times are CUDA events: the median of ``--samples`` samples of ``--k`` calls
 (frames: of ``--frames``) after a warm-up call.  On the CPU nothing is timed.
@@ -124,7 +141,10 @@ WALK_SCENES = {"streamed": ("80k", "500k"), "sweep": ("20k", "80k"), "super": ("
 TEXTURED_MESH = "scenes/cornell_mesh_textured_local.json"  # a mono frame of "mono"
 # The walk kernels by their names here (``ops/intersect_mxu.py::WALKS``).
 PLANNED_KINDS = {"lanebest": "planned_lanebest", "planned": "planned"}
-KERNELS = ("walks", "shade", "iteration", "bounce", "prepass")
+KERNELS = ("walks", "shade", "iteration", "bounce", "prepass", "epilogue")
+# The epilogue flavors: name -> the measuring script's variant of it.
+EPILOGUE_VARIANTS = {"lanebest": "prod_lanebest", "mono": "prod_mono", "lb_asc": "lb_asc",
+                     "lb_mm": "lb_mm", "full": "mono", "gate": "mono_gate", "mm": "mono_mm"}
 BOUNCE_SCENES = ("cornell_dof", "cornell_all_lobes", "depth80")
 # The shade kernel's scenes: name -> scene file.
 SHADE_SCENES = {"5k": SCENE_FILES["5k"], "mesh_textured": TEXTURED_MESH,
@@ -536,9 +556,10 @@ def run(argv=None) -> list:
     ap.add_argument("--refill", nargs="+", type=int, default=[],
                     help="with iteration: also build and time the kernel with each of these "
                     "refill rules (PTT_REFILL_MIN)")
-    ap.add_argument("--split", nargs="+", type=int, default=[],
-                    help="with prepass: also build and time the prepass kernel with each of "
-                    "these CTA slices (PTT_PREPASS_SPLIT, tiles a CTA takes)")
+    ap.add_argument("--builds", nargs="+", default=[],
+                    help="with prepass or epilogue: also build the walk library with each of "
+                    "these -D defines (e.g. PTT_PREPASS_SPLIT=32, PTT_SPREAD_THREADS=256) and "
+                    "time those kernels from it")
     ap.add_argument("--bounces", type=int, default=None,
                     help="sorted bounces a mesh (default: the scene's depth)")
     ap.add_argument("--k", type=int, default=10, help="launches per sample")
@@ -614,8 +635,14 @@ def run(argv=None) -> list:
         run_iteration(args, measure, recs, common, timed, device)
     if "bounce" in args.kernels:
         run_bounce(args, measure, recs, common, timed, device, time_frame)
+    # The walk library built with each define of --builds, once.
+    builds = {d: variant_library((d,), "mesh_walk")
+              for d in (args.builds if device.type == "cuda" else [])}
     if "prepass" in args.kernels:
-        run_prepass(args, measure, recs, common, timed, device, scene_at, frame_of, time_frame)
+        run_prepass(args, measure, recs, common, timed, device, scene_at, frame_of,
+                    time_frame, builds)
+    if "epilogue" in args.kernels:
+        run_epilogue(args, measure, recs, common, timed, device, builds)
     if "walks" not in args.kernels:
         return recs
 
@@ -865,22 +892,17 @@ def _bounce_planes(p) -> tuple:
 
 
 def run_prepass(args, measure, recs, common, timed, device, scene_at, frame_of,
-                time_frame) -> None:
+                time_frame, builds) -> None:
     """The ``prepass`` lines: #11 on each sorted 80k bounce and at bounce 0
-    of 200k and 500k, then the 80k frame with ``PTT_PLAN_IMPL=pallas``."""
+    of 200k and 500k (and from each of ``builds``), then the 80k frame with
+    ``PTT_PLAN_IMPL=pallas``."""
     from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
     from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
-    from project3_cuda_path_tracer_2025_tpu_torch.ops import kernels
     from project3_cuda_path_tracer_2025_tpu_torch.scene import (
         build_device_scene, camera_state, derive_render_camera,
     )
 
     cfg = RenderConfig()
-    # A build of the package's prepass for each CTA slice, where it has one.
-    sliced = device.type == "cuda" and "PTT_PREPASS_SPLIT" in \
-        (kernels.CSRC / "mesh_walk.cu").read_text()
-    builds = {k: variant_library((f"PTT_PREPASS_SPLIT={k}",), "mesh_walk")
-              for k in (args.split if sliced else [])}
     for name in ("80k", "200k", "500k"):
         scene = scene_at(SCENE_FILES[name])
         dev, static = build_device_scene(scene, device)
@@ -902,16 +924,87 @@ def run_prepass(args, measure, recs, common, timed, device, scene_at, frame_of,
                 ms=timed(fn, args.k),
                 device_ms=device_ms(fn, args.k, ("ptt_plan_prepass_kernel",)),
                 result_sha=sha(h, lb), **common)))
-            for k, lib in builds.items():
+            for define, lib in builds.items():
                 with library_used(lib):
                     recs.append(measure.emit(dict(
-                        kind="prepass", scene=name, bounce=d, tiles=ct, split=k,
+                        kind="prepass", scene=name, bounce=d, tiles=ct, build=define,
                         device_ms=device_ms(fn, args.k, ("ptt_plan_prepass_kernel",)),
                         result_sha=sha(*fn()), **common)))
         if name == "80k":
             time_frame(name, "auto, PTT_PLAN_IMPL=pallas", frame_of(dev, static, cam, cfg),
                        PTT_PLAN_IMPL="pallas")
         del dev
+
+
+def run_epilogue(args, measure, recs, common, timed, device, builds) -> None:
+    """The ``epilogue`` lines: #13a and #13b, every flavor, with #5 (and #4
+    at 5k) on the measuring script's populations (and from each of
+    ``builds``)."""
+    from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
+    from project3_cuda_path_tracer_2025_tpu_torch.models import Renderer
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import load_scene, set_resolution
+
+    # This checkout's measuring script (its population and bounds); the
+    # package it drives is the one imported above.
+    spec = importlib.util.spec_from_file_location(
+        "ptt_profile_epilogue", os.path.join(REPO, "scripts", "torch_profile_epilogue.py"))
+    tpe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tpe)
+    cfg = RenderConfig(mesh_intersector="mxu", ray_sorting="off")
+    eps = cfg.baby_epsilon
+    kernel_of = {"lanebest": "ptt_planned_lanebest_kernel", "mono": "ptt_mono_kernel",
+                 "lb_asc": "ptt_lb_asc_kernel", "lb_mm": "ptt_lb_asc_kernel",
+                 "full": "ptt_epilogue_mono_kernel", "gate": "ptt_epilogue_mono_kernel",
+                 "mm": "ptt_epilogue_mono_kernel"}
+    for name in ("5k", "20k"):
+        scene = set_resolution(load_scene(os.path.join(REPO, SCENE_FILES[name])), args.res,
+                               args.res)
+        r = Renderer(scene, cfg, device=device)
+        tables = r.dev.mxu_mesh
+        ct = tables.tile_aabb.shape[0]
+        for bounce0 in (False, True):
+            paths, tl, live = tpe.capture_population(r, cfg, bounce0)
+            ro, rd = paths.origin, paths.direction
+            plan = mxu.plan_with_prefix(tables.tile_aabb, *mxu.plan_rays(tables, ro, rd, live, tl))
+            asc = mxu.ascending_plan(plan, ct)
+            gate_visits = mxu._mono_visits(tables, ro, rd, live, tl, gate=True)
+            mono = lambda f: lambda: mxu.epilogue_mono_intersect(tables, ro, rd, live, tl, eps, f)
+            fns = {
+                "lanebest": lambda: mxu.planned_lanebest_intersect(tables, ro, rd, live, tl, plan,
+                                                                   eps),
+                "mono": lambda: mxu.mono_intersect(tables, r.static.num_triangles, ro, rd,
+                                                   paths.alive.contiguous(), tl, eps),
+                "lb_asc": lambda: mxu.lb_asc_intersect(tables, ro, rd, live, tl, asc, eps),
+                "lb_mm": lambda: mxu.lb_asc_intersect(tables, ro, rd, live, tl, asc, eps,
+                                                      mm_only=True),
+                "full": mono("full"), "gate": mono("gate"), "mm": mono("mm"),
+            }
+            if ct > mxu.MONO_MAX_TILES:
+                del fns["mono"]
+            ref = fns["lanebest"]()
+            for flavor, fn in fns.items():
+                t, tri = fn()
+                b_ms, b_by, wasted, sched_ms = tpe.variant_bound(
+                    EPILOGUE_VARIANTS[flavor], tables, ro, rd, live, tl, plan, gate_visits)
+                exact = flavor not in ("lb_mm", "mm")
+                line = dict(
+                    kind="epilogue", scene=name, bounce0=bounce0, flavor=flavor, tiles=ct,
+                    live=int(live.sum()), visits=int(plan.cnt.sum()),
+                    equal_to_lanebest=bool(torch.equal(t.view(torch.int32),
+                                                       ref[0].view(torch.int32))
+                                           and torch.equal(tri, ref[1])) if exact else None,
+                    bound_ms=b_ms, bound_by=b_by, schedule_bound_ms=sched_ms,
+                    wasted_pairs=wasted, result_sha=sha(t, tri), **common)
+                recs.append(measure.emit(dict(
+                    line, ms=timed(fn, args.k),
+                    device_ms=device_ms(fn, args.k, (kernel_of[flavor],)))))
+                for define, lib in builds.items():
+                    with library_used(lib):
+                        recs.append(measure.emit(dict(
+                            line, build=define, result_sha=sha(*fn()), ms=timed(fn, args.k),
+                            device_ms=device_ms(fn, args.k, (kernel_of[flavor],)))))
+        del r
 
 
 def main(argv=None) -> int:
@@ -921,12 +1014,17 @@ def main(argv=None) -> int:
     bad = [r for r in recs if r.get("kind") == "bounce"
            and r["result_sha"] != ref[(r["scene"], r["bounce"])]]
     pre = {(r["scene"], r["bounce"]): r["result_sha"] for r in recs
-           if r.get("kind") == "prepass" and "split" not in r}
+           if r.get("kind") == "prepass" and "build" not in r}
     bad += [r for r in recs if r.get("kind") == "prepass"
             and r["result_sha"] != pre[(r["scene"], r["bounce"])]]
     bad += [r for r in recs if r.get("kind") == "iteration" and r["build"] != "package"
            and r["film_sha"] != next(q["film_sha"] for q in recs if q.get("kind") == "iteration"
                                      and q["scene"] == r["scene"] and q["build"] == "package")]
+    epi = {(r["scene"], r["bounce0"], r["flavor"]): r["result_sha"] for r in recs
+           if r.get("kind") == "epilogue" and "build" not in r}
+    bad += [r for r in recs if r.get("kind") == "epilogue" and (
+        r["equal_to_lanebest"] is False
+        or r["result_sha"] != epi[(r["scene"], r["bounce0"], r["flavor"])])]
     if bad:
         print(f"results or films that differ from the package's: {bad}", flush=True)
         return 1

@@ -9,22 +9,32 @@ bookkeeping costs on the card:
                   reference every exact variant is held to
   prod_planned    ``planned_intersect`` (early exit + per-ray gate)
   prod_mono       ``mono_intersect`` (meshes of at most 8 tiles)
-  lb_asc          the lane-best walk over an ASCENDING-TILE-ID plan: ties
-                  resolve by visit order, so the fold is a strict "<" only
+  lb_asc          the lane-best walk over an ASCENDING-TILE-ID plan
+                  (the TPU kernel's ties resolve by visit order, its fold a
+                  strict "<" only)
   mono            no plan: every tile in id order for a block with a live
-                  ray, every pair evaluated, members or not
+                  ray, every pair of the block evaluated, members or not
   mono_gate       mono, a tile only when the block votes that some live ray
                   is a member of it
   lb_mm, mono_mm  timing floors: the four numerators and a minimum fold of
                   det only, as the JAX script's (WRONG results by design)
 
-prod_lanebest, prod_planned and prod_mono run the block schedule (each
-tile's pairs spread over a block of 512 threads); lb_asc, mono, mono_gate
-and the floors keep one thread a ray.  So a time against prod_lanebest or
-prod_mono compares schedules as well as epilogues: what the strict fold is
-worth can no longer be read off lb_asc against prod_lanebest, nor what the
-member vote is worth off mono_gate against prod_mono (both compared
-epilogues alone while the production walks ran one thread a ray).
+Every variant runs the block schedule (each tile's pairs dealt over a
+block of 512 threads).  lb_asc is prod_lanebest's kernel fed the ascending
+plan (the same improvability gate and key minimum: the strict fold has no
+counterpart where a tile's pairs are folded by atomics in no order), so
+lb_asc against prod_lanebest measures the visit order alone, ascending id
+against front to back.  mono, mono_gate and the floors evaluate every
+(ray, triangle) pair of the tiles a block takes: a pair of a ray that is
+not a member costs its four numerators, a member's pair the epilogue too.
+So mono against prod_mono measures the full width (every non-member's
+numerators), mono_gate against mono what the member vote saves, and mono
+against mono_mm what the members' epilogue costs beyond every pair's
+numerators and the floor's fold.  ``wasted_pairs`` is still the full-width
+flavors' (ray, tile) pairs beyond those the function needs, and
+``schedule_bound_ms`` the bound of the pairs the schedule evaluates (the
+wasted pairs at their four numerators each), beside ``bound_ms``, the
+function's.
 
 The exact variants are asserted EQUAL in (t, tri) to prod_lanebest on every
 ray before anything is timed; a mismatch prints the first five rays and the
@@ -59,9 +69,9 @@ from project3_cuda_path_tracer_2025_tpu_torch.utils import measure  # noqa: E402
 # Float32 operations of the kernels' device functions (csrc/mesh_path.cuh;
 # an fma counts two): a ray's features and reciprocal direction, the member
 # slab of one tile, one (ray, triangle) pair of an exact walk (19 fma, the
-# division, t, the acceptance tests) and of a floor flavor (19 fma, the
-# fold's compare of det).
-OPS_WALK_RAY, OPS_TILE, OPS_PAIR, OPS_MM_PAIR = 25, 35, 41, 39
+# division, t, the acceptance tests), of a floor flavor (19 fma, the fold's
+# compare of det) and a pair's four numerators alone (19 fma).
+OPS_WALK_RAY, OPS_TILE, OPS_PAIR, OPS_MM_PAIR, OPS_NUMERATORS = 25, 35, 41, 39, 38
 
 
 def capture_population(r, cfg, bounce0: bool):
@@ -94,8 +104,8 @@ def member_pairs(tables, ro, rd, live, tl, visits) -> int:
 
 
 def variant_bound(name, tables, ro, rd, live, tl, plan, gate_visits) -> tuple:
-    """(bound ms, "bytes" | "operations", wasted pairs) of one launch of a
-    variant on this population.  The bound counts what the variant's FUNCTION
+    """(bound ms, "bytes" | "operations", wasted pairs, schedule bound ms) of
+    one launch of a variant on this population.  The bound counts what the variant's FUNCTION
     needs of these inputs, not what its schedule does: rays, plan and the
     visited tiles' coefficient rows read once, the outputs written once; a
     live ray's features, its member slab of every tile it is offered, and
@@ -105,7 +115,9 @@ def variant_bound(name, tables, ro, rd, live, tl, plan, gate_visits) -> tuple:
     third value is the schedule's extra work, (ray, tile) pairs it evaluates
     that the function does not need: every non-member or dead ray of a block
     times the tiles the block takes (0 for the walks that skip them, None
-    for the floors)."""
+    for the floors).  The fourth is the bound of the pairs the schedule
+    evaluates: the function's work and the wasted pairs' four numerators
+    (the function's bound where nothing is wasted)."""
     n, nb, ct = ro.x.shape[0], plan.cnt.shape[0], tables.tile_aabb.shape[0]
     n_live = int(live.sum())
     block = torch.arange(n, device=live.device) // mxu.RAY_TILE
@@ -140,7 +152,8 @@ def variant_bound(name, tables, ro, rd, live, tl, plan, gate_visits) -> tuple:
             nbytes = ray_bytes + ct * row_bytes
             ops = live_blocks * mxu.RAY_TILE * (OPS_WALK_RAY + ct * OPS_TILE) \
                 + int(full_visits.sum()) * mxu.RAY_TILE * mxu.TRI_TILE * OPS_MM_PAIR
-    return (*measure.bound_ms(nbytes, ops), wasted)
+    schedule_ops = ops + (wasted or 0) * mxu.TRI_TILE * OPS_NUMERATORS
+    return (*measure.bound_ms(nbytes, ops), wasted, measure.bound_ms(nbytes, schedule_ops)[0])
 
 
 def cut_blocks(blocks, ro, rd, live, tl, plan, ct):
@@ -292,7 +305,8 @@ def run(argv=None) -> list:
             before = counter.launches
             ms = measure.event_ms(fn, args.k)
             launches[name] += counter.launches - before
-        b_ms, b_by, wasted = variant_bound(name, tables, ro, rd, live, tl, plan, gate_visits)
+        b_ms, b_by, wasted, sched_ms = variant_bound(name, tables, ro, rd, live, tl, plan,
+                                                     gate_visits)
         rec = dict(
             script="torch_profile_epilogue", variant=name, scene=os.path.basename(args.scene),
             res=args.res, bounce0=bool(args.bounce0), rays=n, tiles=ct, visits=visits,
@@ -300,7 +314,8 @@ def run(argv=None) -> list:
             identical_to_prod_lanebest=identical.get(name), ms=ms,
             us_per_visit=None if ms is None else ms * 1e3 / max(visits, 1),
             us_per_sweep_visit=None if ms is None else ms * 1e3 / max(live_blocks * ct, 1),
-            bound_ms=b_ms, bound_by=b_by, wasted_pairs=wasted, launches=launches[name],
+            bound_ms=b_ms, bound_by=b_by, wasted_pairs=wasted, schedule_bound_ms=sched_ms,
+            launches=launches[name],
             k=args.k, card=card,
             **plain_check.get(name, {}),
         )

@@ -6,9 +6,10 @@
 // block, the plan row in order, the block's exit vote), and the plan
 // prepass its reduction over a block's rays (ptt_host_plan_prepass_live its
 // compacted live rays, warps over tiles).  ptt_host_mono, ptt_host_walk,
-// ptt_host_super, ptt_host_sweep and ptt_host_binned are the per-ray
-// schedules, the references the block schedules (ptt_host_*_block: each
-// tile's pairs spread over the threads) are held to.
+// ptt_host_super, ptt_host_sweep, ptt_host_binned, ptt_host_lb_asc and
+// ptt_host_epilogue_mono are the per-ray schedules, the references the
+// block schedules (ptt_host_*_block: each tile's pairs spread over the
+// threads) are held to.
 //
 // Built by tests/test_torch_kernel_body.py with
 //   c++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC -I<csrc>
@@ -368,8 +369,9 @@ void ptt_host_super(const float* coef, const float* aabb, const float* saabb, in
   }
 }
 
-// ptt_lb_asc_kernel (mm 0: lb_asc, 1: lb_mm): each block walks its plan row
-// of ascending tile ids.
+// The per-ray schedule that ptt_lb_asc_kernel had before its block
+// schedules (ptt_host_lb_asc_block; mm 0: lb_asc, 1: lb_mm): each block
+// walks its plan row of ascending tile ids, one thread a ray.
 void ptt_host_lb_asc(const float* coef, const float* aabb, int32_t ct, const float* center,
                      const float* const* ray, const uint8_t* live, const float* tlim,
                      const int32_t* ids, const int32_t* cnt, int32_t mm, float baby_eps,
@@ -394,8 +396,10 @@ void ptt_host_lb_asc(const float* coef, const float* aabb, int32_t ct, const flo
   }
 }
 
-// ptt_epilogue_mono_kernel (flavor 0 full, 1 gate, 2 mm): the block's live
-// vote and, for "gate", its member vote per tile become loops over its rays.
+// The per-ray schedule that ptt_epilogue_mono_kernel had before its
+// full-width schedule (ptt_host_epilogue_mono_block; flavor 0 full, 1
+// gate, 2 mm): the block's live vote and, for "gate", its member vote per
+// tile become loops over its rays.
 void ptt_host_epilogue_mono(const float* coef, const float* aabb, int32_t ct, const float* center,
                             const float* const* ray, const uint8_t* live, const float* tlim,
                             int32_t flavor, float baby_eps, float eps_succ, int32_t n,
@@ -443,6 +447,119 @@ void ptt_host_epilogue_mono(const float* coef, const float* aabb, int32_t ct, co
       out_tri[b * PTT_RAY_TILE + i] = r[i].best_tri;
     }
   }
+}
+
+// wide_spread's per-tile step: the exact flavors' (0 full, 1 gate) pair
+// windows by ray (asc_fold's, or (inf, -inf) for a ray that is not a live
+// member) and gate's member vote; then every thread's triangles
+// (spread_load) against every ray of the block: wide_key where the ray's
+// window can be entered, and the floor's (2) wide_mm_key for every ray;
+// each ray's key the minimum of the keys it is given, as the shared-memory
+// atomicMin (after the floors' warp reductions) leaves it.
+static void host_wide_tile(HostBlock& hb, const float* coef, const float* row, int32_t tile,
+                           int32_t flavor, float baby_eps, float eps_succ) {
+  float(*kk)[PTT_COEF_W] = reinterpret_cast<float(*)[PTT_COEF_W]>(hb.k.data());
+  if (flavor != 2) {
+    bool any = false;
+    for (int32_t i = 0; i < PTT_RAY_TILE; ++i) {
+      Slab s;
+      const bool member = asc_member(hb.r[i], row, &s);
+      hb.lo[i] = member ? ptt_max(s.lo, eps_succ) : ptt_inf();
+      hb.hi[i] = member ? s.hi : -ptt_inf();
+      any = any || member;
+    }
+    if (flavor == 1 && !any) return;
+  }
+  for (int32_t tid = 0; tid < PTT_SPREAD_THREADS; ++tid) {
+    spread_load(coef, tile, tid, kk);
+    for (int32_t j = 0; j < PTT_RAY_TILE; ++j) {
+      uint64_t got;
+      if (flavor == 2) {
+        got = wide_mm_key(hb.r[j].f, kk, tid);
+      } else if (hb.lo[j] <= hb.hi[j]) {
+        got = wide_key(hb.r[j].f, hb.lo[j], hb.hi[j], kk, tile * PTT_TRI_TILE + tid, baby_eps);
+      } else {
+        continue;
+      }
+      hb.key[j] = got < hb.key[j] ? got : hb.key[j];
+    }
+  }
+}
+
+// wide_spread: per block its rays (a floor's through mm_ray, its keys the
+// floor's first keys), then the tiles of its plan row (ids, cnt: #13a's
+// floor) or, with ids null, every tile 0..ct-1 when some ray of the block is
+// live (#13b); each ray's key read back by walk_unkey or, for a floor,
+// mm_unkey.
+static void host_wide_blocks(const float* coef, const float* aabb, int32_t ct,
+                             const float* center, const float* const* ray, const uint8_t* live,
+                             const float* tlim, const int32_t* ids, const int32_t* cnt,
+                             int32_t flavor, float baby_eps, float eps_succ, int32_t n,
+                             float* out_t, int32_t* out_tri) {
+  const V3 c = v3(center[0], center[1], center[2]);
+  HostBlock hb;
+  for (int32_t b = 0; b < (n + PTT_RAY_TILE - 1) / PTT_RAY_TILE; ++b) {
+    host_block_rays(hb, b, c, ray, live, tlim, n);
+    bool go = ids != nullptr;
+    for (int32_t i = 0; i < PTT_RAY_TILE; ++i) {
+      WalkRay& r = hb.r[i];
+      go = go || r.live;
+      if (flavor == 2) {
+        mm_ray(r);
+        hb.key[i] = mm_key(r.best, r.best_tri);
+      }
+    }
+    const int32_t tiles = !go ? 0 : ids ? cnt[b] : ct;
+    for (int32_t t = 0; t < tiles; ++t) {
+      const int32_t tile = ids ? ids[b * ct + t] : t;
+      host_wide_tile(hb, coef, aabb + 8 * tile, tile, flavor, baby_eps, eps_succ);
+    }
+    for (int32_t i = 0; i < PTT_RAY_TILE && b * PTT_RAY_TILE + i < n; ++i) {
+      float* t = &out_t[b * PTT_RAY_TILE + i];
+      int32_t* tri = &out_tri[b * PTT_RAY_TILE + i];
+      if (flavor == 2) {
+        mm_unkey(hb.key[i], hb.r[i].tlim, t, tri);
+      } else {
+        walk_unkey(hb.key[i], t, tri);
+      }
+    }
+  }
+}
+
+// ptt_lb_asc_kernel's block schedules (the arguments of ptt_host_lb_asc):
+// mm 0, lb_asc, the planned lane-best walk's (host_spread_entry per entry
+// of the ascending plan row); mm 1, lb_mm, the full-width floor over the
+// same rows.
+void ptt_host_lb_asc_block(const float* coef, const float* aabb, int32_t ct, const float* center,
+                           const float* const* ray, const uint8_t* live, const float* tlim,
+                           const int32_t* ids, const int32_t* cnt, int32_t mm, float baby_eps,
+                           float eps_succ, int32_t n, float* out_t, int32_t* out_tri) {
+  if (mm) {
+    host_wide_blocks(coef, aabb, ct, center, ray, live, tlim, ids, cnt, 2, baby_eps, eps_succ,
+                     n, out_t, out_tri);
+    return;
+  }
+  const V3 c = v3(center[0], center[1], center[2]);
+  HostBlock hb;
+  for (int32_t b = 0; b < (n + PTT_RAY_TILE - 1) / PTT_RAY_TILE; ++b) {
+    host_block_rays(hb, b, c, ray, live, tlim, n);
+    for (int32_t t = 0; t < cnt[b]; ++t) {
+      const int32_t tile = ids[b * ct + t];
+      host_spread_entry(hb, coef, aabb + 8 * tile, tile, nullptr, baby_eps, eps_succ);
+    }
+    host_block_out(hb, b, n, out_t, out_tri);
+  }
+}
+
+// ptt_epilogue_mono_kernel's full-width schedule (flavor 0 full, 1 gate, 2
+// mm; the arguments of ptt_host_epilogue_mono).
+void ptt_host_epilogue_mono_block(const float* coef, const float* aabb, int32_t ct,
+                                  const float* center, const float* const* ray,
+                                  const uint8_t* live, const float* tlim, int32_t flavor,
+                                  float baby_eps, float eps_succ, int32_t n, float* out_t,
+                                  int32_t* out_tri) {
+  host_wide_blocks(coef, aabb, ct, center, ray, live, tlim, nullptr, nullptr, flavor, baby_eps,
+                   eps_succ, n, out_t, out_tri);
 }
 
 // ptt_sweep_kernel: one ray per thread, every tile in order.

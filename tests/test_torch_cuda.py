@@ -851,6 +851,85 @@ def test_epilogue_kernels_match_plain_and_the_lanebest_walk(cuda, name):
     assert hits > 100
 
 
+def _tie_tables(pos, device):
+    nrm = np.zeros_like(pos)
+    nrm[:] = [0.0, 0.0, 1.0]
+    t = pos.shape[0]
+    z = lambda *shape: np.zeros(shape, np.float32)
+    return intersect_mxu.build_mxu_tables(pos, nrm, z(t, 3, 2), z(t, 3), z(t, 3),
+                                          np.zeros(t, np.int32), device)
+
+
+# The epilogue kernels' edge cases: "odd" 1,003 rays (the last block holds
+# 235); "dead block" the second block's rays dead (the mono flavors skip it,
+# its ascending plan row is empty); "dead rays" the floors' signed zeros and
+# an all-dead block (torch_fixtures.signed_zero_case); "tie" the two-tile
+# tie mesh; "one tile" its first tile alone; "32 tiles" sixteen copies of it
+# stacked along the rays, the most tiles a call takes.
+EPILOGUE_EDGE_CASES = ["odd", "dead block", "dead rays", "tie", "one tile", "32 tiles"]
+
+
+@pytest.mark.parametrize("case", EPILOGUE_EDGE_CASES)
+def test_epilogue_kernels_edge_cases(cuda, case):
+    """The five epilogue flavors (lb_asc, lb_mm, "full", "gate", "mm") on
+    the edge cases above: (t, tri) equal to the plain versions, the exact
+    flavors also to the lane-best planned walk (ties to the lower copy),
+    rays of a dead block at (t_limit, -1) in the mono flavors, one launch a
+    call."""
+    from torch_fixtures import SIGNED_ZERO_LANE, TIE_TRIS, signed_zero_case, tie_mesh
+
+    n = 1003 if case == "odd" else 2048
+    pos, o, d, lim = tie_mesh(np.random.default_rng(60), n)
+    if case == "one tile":
+        pos = pos[:1024]
+    elif case == "32 tiles":
+        pos = np.concatenate([pos + np.float32([0.0, 0.0, 0.5 * k]) for k in range(16)])
+    tables = _tie_tables(pos, cuda)
+    col = lambda a: Vec3(*(torch.from_numpy(np.ascontiguousarray(a[:, i])).to(cuda)
+                           for i in range(3)))
+    ro, rd, tl = col(o), col(d), torch.from_numpy(lim).to(cuda)
+    live = intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+    second = torch.arange(n, device=cuda) // intersect_mxu.RAY_TILE == 1
+    if case == "dead block":
+        live = live & ~second
+    ct = tables.tile_aabb.shape[0]
+    assert ct == {"one tile": 1, "32 tiles": 32}.get(case, 2)
+    if case == "dead rays":
+        tables, ro, rd, live, tl, asc = signed_zero_case(tables)
+        plan = asc
+        second = torch.arange(tl.shape[0], device=cuda) // intersect_mxu.RAY_TILE == 1
+    else:
+        plan = _plan(tables, ro, rd, live, tl)
+        asc = intersect_mxu.ascending_plan(plan, ct)
+    ref = intersect_mxu.planned_lanebest_intersect(tables, ro, rd, live, tl, plan, 1e-5)
+    flavors = [("lb_asc", False), ("lb_mm", True)] + [
+        (f, f == "mm") for f in intersect_mxu.EPILOGUE_MONO_FLAVORS]
+    for flavor, floor in flavors:
+        if flavor.startswith("lb_"):
+            fn = intersect_mxu.lb_asc_intersect
+            args = (tables, ro, rd, live, tl, asc, 1e-5, flavor == "lb_mm")
+            plain = intersect_mxu.lb_asc_plain
+        else:
+            fn = intersect_mxu.epilogue_mono_intersect
+            args = (tables, ro, rd, live, tl, 1e-5, flavor)
+            plain = intersect_mxu.epilogue_mono_plain
+        before = fn.launches
+        got = fn(*args)
+        assert fn.launches == before + 1
+        want = plain(*args)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]), flavor
+        if not floor:
+            assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0]), flavor
+        if case in ("dead block", "dead rays") and flavor in intersect_mxu.EPILOGUE_MONO_FLAVORS:
+            assert torch.equal(got[0][second], tl[second]) and (got[1][second] == -1).all()
+        if case == "dead rays" and floor:
+            assert (got[1][:256] == 0).all() and not (got[1] == SIGNED_ZERO_LANE).any()
+    if case in ("tie", "odd", "dead block"):
+        assert set(ref[1][ref[1] >= 0].tolist()) == {TIE_TRIS[0]}
+    if case == "dead block":
+        assert int(plan.cnt[1]) == 0
+
+
 def test_prim_kernels_beyond_the_old_capacity(cuda):
     """40 primitives, 40 materials, depth 80: the bounce kernel bit-equal
     in its integers and close in its floats to the plain version (and its

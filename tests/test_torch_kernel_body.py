@@ -1337,3 +1337,105 @@ def test_host_epilogue_mono_matches_plain(epilogue_lib, name, flavor):
     if flavor != "mm":
         walk_t, walk_tri = intersect_mxu.walk_plain(tables, ro, rd, live, tl, plan, 1e-5)
         assert torch.equal(got_tri, walk_tri) and torch.equal(got_t, walk_t)
+
+
+EPILOGUE_FLAVORS = ("lb_asc", "lb_mm", "full", "gate", "mm")
+
+
+@pytest.fixture(scope="module")
+def epilogue_libs(epilogue_lib, spread_libs):
+    """The harness at each block width with the epilogue variants' block
+    schedules bound (the argument lists of their per-ray twins)."""
+    for lib in spread_libs.values():
+        lib.ptt_host_lb_asc.argtypes = epilogue_lib.ptt_host_lb_asc.argtypes
+        lib.ptt_host_lb_asc_block.argtypes = epilogue_lib.ptt_host_lb_asc.argtypes
+        lib.ptt_host_epilogue_mono.argtypes = epilogue_lib.ptt_host_epilogue_mono.argtypes
+        lib.ptt_host_epilogue_mono_block.argtypes = epilogue_lib.ptt_host_epilogue_mono.argtypes
+    return spread_libs
+
+
+def _host_epilogue(lib, flavor, block, tables, ro, rd, live, tl, asc):
+    """One epilogue flavor through the harness: the block schedule
+    (``block``) or the per-ray twin -> (t, tri)."""
+    n = ro.x.shape[0]
+    got_t, got_tri = torch.empty(n), torch.empty(n, dtype=torch.int32)
+    rays = [p.contiguous() for p in (*ro, *rd)]
+    lv, tlc = live.to(torch.uint8).contiguous(), tl.contiguous()
+    head = (tables.coef.data_ptr(), tables.tile_aabb.data_ptr(), tables.tile_aabb.shape[0],
+            tables.center.data_ptr(), _ptrs(rays), lv.data_ptr(), tlc.data_ptr())
+    tail = (*_eps_args(), n, got_t.data_ptr(), got_tri.data_ptr())
+    suffix = "_block" if block else ""
+    if flavor.startswith("lb_"):
+        getattr(lib, "ptt_host_lb_asc" + suffix)(*head, asc.ids.data_ptr(), asc.cnt.data_ptr(),
+                                                 int(flavor == "lb_mm"), *tail)
+    else:
+        getattr(lib, "ptt_host_epilogue_mono" + suffix)(
+            *head, intersect_mxu.EPILOGUE_MONO_FLAVORS.index(flavor), *tail)
+    return got_t, got_tri
+
+
+def _epilogue_plain(flavor, tables, ro, rd, live, tl, asc):
+    if flavor.startswith("lb_"):
+        return intersect_mxu.lb_asc_plain(tables, ro, rd, live, tl, asc, 1e-5,
+                                          mm_only=flavor == "lb_mm")
+    return intersect_mxu.epilogue_mono_plain(tables, ro, rd, live, tl, 1e-5, flavor)
+
+
+def _same_bits(a, b) -> bool:
+    return torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("threads", [256, 512, 1024])
+@pytest.mark.parametrize("flavor", EPILOGUE_FLAVORS)
+@pytest.mark.parametrize("name", ["20k", "tie"])
+def test_host_epilogue_block_schedules_match_plain(epilogue_libs, name, flavor, threads):
+    """The epilogue variants' block schedules at three block widths:
+    lb_asc (#5's schedule over the ascending plan), lb_mm, "full", "gate"
+    and "mm" (every ray of a visiting block against every triangle; the
+    windows, the member vote, wide_key's u/v tests before the division, the
+    floors' (det, lane) keys): t and tri bit-equal to the plain version and
+    to the per-ray twin, the exact flavors also to walk_plain (ties to the
+    lower copy on the tie mesh), a dead block (rays 512-767) at (t_limit,
+    -1) in the mono flavors."""
+    tables, ro, rd, live, tl, plan, asc = _epilogue_case(name)
+    lib = epilogue_libs[threads]
+    want = _epilogue_plain(flavor, tables, ro, rd, live, tl, asc)
+    got = _host_epilogue(lib, flavor, True, tables, ro, rd, live, tl, asc)
+    assert (want[1] >= 0).sum() > 20
+    assert _same_bits(got, want), (name, flavor)
+    assert _same_bits(got, _host_epilogue(lib, flavor, False, tables, ro, rd, live, tl, asc))
+    if flavor not in ("lb_mm", "mm"):
+        assert _same_bits(got, intersect_mxu.walk_plain(tables, ro, rd, live, tl, plan, 1e-5))
+    if flavor in ("full", "gate", "mm"):
+        assert (got[1][512:768] == -1).all() and torch.equal(got[0][512:768], tl[512:768])
+
+
+@pytest.mark.parametrize("threads", [256, 512, 1024])
+@pytest.mark.parametrize("flavor", ["lb_mm", "mm"])
+def test_host_epilogue_floors_signed_zero(epilogue_libs, flavor, threads):
+    """The floors' keys where det is -0 on one lane and +0 on the others
+    (``torch_fixtures.signed_zero_case``): every live ray's minimum is a
+    zero at lane 0, not at the -0 lane, as in the plain version and the
+    per-ray fold (equal zeros go to the lower lane); the all-dead block's
+    rays (zero features, +0 everywhere) at lane 0 where a block with a
+    live ray visits the tiles (lb_mm's plan visits every block; "mm" skips
+    the dead block: (t_limit, -1)).  t compared by value: the sign of a
+    zero minimum is the plain version's reduction's choice."""
+    from torch_compare import mesh_tables_pair, tie_mesh
+    from torch_fixtures import SIGNED_ZERO_LANE, signed_zero_case
+
+    pos = tie_mesh(np.random.default_rng(60), 8)[0]
+    tables, ro, rd, live, tl, asc = signed_zero_case(mesh_tables_pair(pos)[1])
+    lib = epilogue_libs[threads]
+    want = _epilogue_plain(flavor, tables, ro, rd, live, tl, asc)
+    for block in (True, False):
+        got = _host_epilogue(lib, flavor, block, tables, ro, rd, live, tl, asc)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]), block
+    assert (want[1][:256] == 0).all() and (want[0][:256] == 0).all()
+    assert not (want[1] == SIGNED_ZERO_LANE).any()
+    dead = want[1][256:512]
+    assert (dead == (0 if flavor == "lb_mm" else -1)).all()
+    feat = intersect_mxu._features(tables, ro, rd).feat
+    det = intersect_mxu._numerators([f[:4, None] for f in feat], tables.coef[:1024])[0]
+    assert (det == 0).all() and torch.signbit(det[:, SIGNED_ZERO_LANE]).all()
+    assert not torch.signbit(det[:, 0]).any()

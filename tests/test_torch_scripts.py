@@ -418,3 +418,41 @@ def test_bench_kernels_bounce_and_prepass_lines_on_the_cpu(capsys):
     live_ops = 400 * (smoke.prim_ops(static) + smoke.OPS_SCATTER)
     assert smoke.bound_ms(1000 * 80 + 400 * 4, live_ops + 400 * 3 * smoke.OPS_UNIFORM) == drawn
     assert smoke.bound_ms(1000 * 92, live_ops) == given
+
+
+def test_bench_kernels_epilogue_lines_on_the_cpu(capsys):
+    """``torch_bench_kernels.py --kernels epilogue`` on the CPU at 8x8: a
+    line per flavor on the 5k and 20k populations, mid-bounce and at bounce
+    0 (#4 at 5k only); every exact flavor equal to the lane-best walk, with
+    its hash; the schedule's bound above the function's by the wasted
+    pairs' numerators for "full" and "gate", equal to it elsewhere; nothing
+    timed."""
+    from project3_cuda_path_tracer_2025_tpu_torch.utils.measure import PEAK_F32_S
+
+    sys.path.insert(0, str(REPO / "scripts"))
+    try:
+        recs = _load("torch_bench_kernels").run(
+            ["--device", "cpu", "--res", "8", "--kernels", "epilogue", "--k", "1"])
+    finally:
+        sys.path.remove(str(REPO / "scripts"))
+    capsys.readouterr()
+    lines = [r for r in recs if r["kind"] == "epilogue"]
+    flavors = ("lanebest", "mono", "lb_asc", "lb_mm", "full", "gate", "mm")
+    assert [(r["scene"], r["bounce0"], r["flavor"]) for r in lines] == [
+        (s, b, f) for s in ("5k", "20k") for b in (False, True) for f in flavors
+        if s == "5k" or f != "mono"]
+    tpe = _load("torch_profile_epilogue")
+    for r in lines:
+        ref = next(q for q in lines if (q["scene"], q["bounce0"], q["flavor"]) ==
+                   (r["scene"], r["bounce0"], "lanebest"))
+        if r["flavor"] in ("lb_mm", "mm"):
+            assert r["equal_to_lanebest"] is None and r["wasted_pairs"] is None
+        else:
+            assert r["equal_to_lanebest"] is True and r["result_sha"] == ref["result_sha"]
+        if r["flavor"] in ("full", "gate"):
+            assert r["wasted_pairs"] > 0
+            numerators_ms = r["wasted_pairs"] * 1024 * tpe.OPS_NUMERATORS / PEAK_F32_S * 1e3
+            assert r["schedule_bound_ms"] > max(r["bound_ms"], numerators_ms)
+        else:
+            assert r["schedule_bound_ms"] == r["bound_ms"]
+        assert r["ms"] is None and r["device_ms"] is None

@@ -156,3 +156,43 @@ def prepass_case(ct):
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))
     return (t(aabb), Vec3(*(t(o[:, i]) for i in range(3))), Vec3(*(t(d[:, i]) for i in range(3))),
             torch.from_numpy(live), t(tl))
+
+
+SIGNED_ZERO_LANE = 5  # the lane whose det is -0 in ``signed_zero_case``
+
+
+def signed_zero_case(tables, n=600):
+    """Inputs of the floor flavors where det is -0 on one lane and +0 on the
+    others: ``tables`` (the port's ``MXUMeshTables``, e.g. the tie mesh's)
+    with every coefficient row zero but lane ``SIGNED_ZERO_LANE``'s first
+    two det coefficients of each tile, 1e-45 (the least denormal), and n rays
+    whose direction components are all negative, x and y below 0.5 in
+    magnitude, so that each of that lane's det products underflows to -0
+    (and the third, d_z times 0, is -0) while a zero row's chain sums to +0.  The floors' fold takes
+    the two zeros as equal and goes to lane 0, a minimum of the raw ordered
+    bits to the -0 lane.  The first block's rays are live, the second's dead
+    (all-zero features: +0 on every lane), the third holds the last 88.
+    Returns (tables, ro, rd, live, tl, plan): ``plan`` visits every tile in
+    ascending id for every block, as an ``ascending_plan`` whose rows hold
+    every tile."""
+    from project3_cuda_path_tracer_2025_tpu_torch.ops.intersect_mxu import TilePlan
+    from project3_cuda_path_tracer_2025_tpu_torch.utils.vec import Vec3
+
+    device = tables.coef.device
+    ct = tables.tile_aabb.shape[0]
+    coef = torch.zeros_like(tables.coef).view(ct, 1024, -1)
+    coef[:, SIGNED_ZERO_LANE, 0:2] = 1e-45
+    rng = np.random.default_rng(45)
+    o = np.concatenate([rng.uniform(-0.5, 0.5, (n, 2)), np.full((n, 1), 5.0)], 1)
+    d = -np.concatenate([rng.uniform(0.1, 0.4, (n, 2)), np.ones((n, 1))], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    live = np.ones(n, bool)
+    live[256:512] = False
+    nb = -(-n // 256)
+    col = lambda a: Vec3(*(torch.from_numpy(np.ascontiguousarray(a[:, i], np.float32)).to(device)
+                           for i in range(3)))
+    plan = TilePlan(torch.arange(ct, dtype=torch.int32, device=device).repeat(nb),
+                    torch.zeros(nb * ct, dtype=torch.float32, device=device),
+                    torch.full((nb,), ct, dtype=torch.int32, device=device))
+    return (tables._replace(coef=coef.reshape(tables.coef.shape).contiguous()), col(o), col(d),
+            torch.from_numpy(live).to(device), torch.full((n,), 50.0, device=device), plan)
