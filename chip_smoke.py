@@ -27,7 +27,11 @@ kernel paths against the plain versions with CUDA events; phase 9 profiles
 whole frames.  Phases 8e and 14e check and time the mesh-shade kernel on
 each sorted bounce as the main path launches it, with the carried prim
 winner; phase 7 logs the iteration kernel's lane use from a counting build
-of it.  Any failure raises and exits non-zero.
+of it.  Phase 23 drives multi-device and chunked rendering on the one card
+(``cuda:0`` named nd times): the block draw of the Threefry kernel, pixel
+mode, ``pixel_chunks``, the 5k mesh and the wavefront held bit for bit to
+the unsharded films, sample mode, and their ms/frame.  Any failure raises
+and exits non-zero.
 
 Output: progress lines, then the card's ``nvidia-smi`` name and power
 limit, then one JSON line describing the kernels, and last one JSON line
@@ -2544,6 +2548,209 @@ def bench_script_phase(device, smi: str) -> tuple:
     return [], {}
 
 
+def parallel_phases(device, smi: str) -> tuple:
+    """Phase 23: multi-device and chunked rendering (``parallel``) at 800x800,
+    depth 8, on the one card named nd times (each shard on a CUDA stream of
+    its own): the camera draw of a block (the Threefry kernel with ``base``
+    and ``rng_n``) against ``uniforms_at`` bit for bit; the main path,
+    ``Renderer(devices=2)`` in pixel mode on cornell_dof.json, with the
+    counters reset; pixel mode at nd = 2 and 4, ``pixel_chunks=8``, the 5k
+    mesh and the wavefront at nd = 2 bit-equal to the unsharded
+    ``megakernel_iteration`` / ``wavefront_iteration`` film; sample mode at
+    nd = 2 against two single steps (§2's film comparison); then ms/frame
+    by CUDA events.  nd shards on one card show the split's host cost, not
+    a multi-GPU time."""
+    from project3_cuda_path_tracer_2025_tpu_torch import parallel
+    from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
+    from project3_cuda_path_tracer_2025_tpu_torch.models import (
+        Renderer, megakernel_iteration, wavefront_iteration,
+    )
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import film as film_ops
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import scan
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import load_scene
+    from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
+
+    # -- 23a. the camera draw of a block: kernel == plain, bit for bit --------
+    n = 640_000
+    key = prng.stage_key(prng.iteration_key(prng.prng_key(0), 1), 0, 0)
+    shapes = [(0, n)] + [(d * n // nd, n // nd) for nd in (2, 4, 8) for d in range(nd)]
+    u_err, u_bits = 0.0, 0
+    for base, ln in shapes:
+        got = fused.kernel_uniforms(key, ln, 4, device, base=base, rng_n=n)
+        want = prng.uniforms_at(key, base + torch.arange(ln, device=device), 4, n)
+        u_bits += bits_differ(got, want)
+        u_err = max(u_err, float((got - want).abs().max()))
+    torch.cuda.synchronize()
+    log(f"[23a] Threefry kernel on {len(shapes)} blocks [4, ln] at base, rng_n={n} "
+        f"(nd = 1, 2, 4, 8): values not bit-equal to uniforms_at {u_bits}, max abs diff {u_err}")
+    if u_bits:
+        raise AssertionError("the block draw of the Threefry kernel differs from uniforms_at")
+    ln, base = n // 2, n // 2
+    idx = base + torch.arange(ln, device=device)
+    u_ms = cuda_time_ms(lambda: fused.kernel_uniforms(key, ln, 4, device, base=base, rng_n=n), 50)
+    u_plain = cuda_time_ms(lambda: prng.uniforms_at(key, idx, 4, n), 5)
+    u_bound = bound_ms(4 * ln * 4, 4 * ln * OPS_UNIFORM)
+    log(f"    block [4, {ln}] at base {base} (shard 1 of 2): kernel {u_ms:.4f} ms, plain "
+        f"uniforms_at {u_plain:.4f} ms, bound {u_bound[0]:.4f} ms ({u_bound[1]}) on {smi}")
+
+    def reference(r, iterate, its):
+        """The unsharded film of iterations ``its`` (the renderer's dev,
+        static, camera and config)."""
+        film = film_ops.new_film(r.static.pixel_count, device)
+        for it in its:
+            film, alive = iterate(r.dev, r.static, r.cfg, r._cam_state, film, it, r._base_key)
+        return film, alive
+
+    def bit_equal(tag, r, iterate, its):
+        want, want_alive = reference(r, iterate, its)
+        got = r._flat_film()
+        torch.cuda.synchronize()
+        bits = sum(bits_differ(a, b) for a, b in zip(got, want))
+        alive_eq = np.array_equal(r._alive_counts, want_alive.cpu().numpy())
+        img = r.image()
+        log(f"[{tag}] film values not bit-equal to the unsharded film {bits}; alive counts "
+            f"equal {alive_eq} ({r._alive_counts.tolist()}); film sum {img.sum():.3f}")
+        if bits or not alive_eq or not np.isfinite(img).all() or not img.sum() > 0:
+            raise AssertionError(f"{tag}: the film differs from the unsharded one")
+
+    # -- 23b. the main path: Renderer(devices=2), pixel mode, counters reset ----
+    counters = {"kernel_uniforms": fused.kernel_uniforms,
+                "fused_prim_bounce": fused.fused_prim_bounce,
+                "fused_prim_iteration": fused.fused_prim_iteration}
+    scene = load_scene(str(SCENE))
+    depth = scene.state.trace_depth
+    r2 = Renderer(scene, RenderConfig(devices=2), shard_devices=[device] * 2)
+    for c in counters.values():
+        c.launches = 0
+    r2.step_many(2)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    log(f"[23b] Renderer('{SCENE.name}', devices=2) on {[str(d) for d in r2._devices]}, "
+        f"step_many(2): iteration {r2.iteration}, launches {launches}")
+    if launches != {"kernel_uniforms": 4, "fused_prim_bounce": 4 * depth,
+                    "fused_prim_iteration": 0}:
+        raise AssertionError("the pixel-mode step did not launch the block draw and the "
+                             "bounce kernel once a shard (and never the iteration kernel)")
+    bit_equal("23b", r2, megakernel_iteration, (1, 2))
+    renderers = {"prim pixel nd=2": r2}
+    for tag, cfg, nd in (("prim pixel nd=4", RenderConfig(devices=4), 4),
+                         ("prim pixel_chunks=8", RenderConfig(pixel_chunks=8), 1)):
+        r = Renderer(scene, cfg, shard_devices=[device] * nd)
+        r.step_many(2)
+        log(f"    {tag}:")
+        bit_equal("23b", r, megakernel_iteration, (1, 2))
+        renderers[tag] = r
+    rs = Renderer(scene, RenderConfig(devices=2, parallel_mode="sample"),
+                  shard_devices=[device] * 2)
+    rs.step()
+    want, _ = reference(rs, megakernel_iteration, (1, 2))
+    log(f"[23b] sample mode nd=2, one step (iteration {rs.iteration}) against two single steps:")
+    res = compare_films("sample nd=2 vs 2 x megakernel_iteration", rs._flat_film(), want)
+    if rs.iteration != 2 or not (res["finite"] and res["sum_rel"] <= MAX_SUM_REL
+                                 and res["pixel_share"] <= MAX_PIXEL_SHARE):
+        raise AssertionError(f"sample mode disagrees with two single steps: {res}")
+    renderers["prim sample nd=2"] = rs
+
+    # -- 23c. the 5k mesh and the wavefront in pixel mode, nd = 2 -----------------
+    mesh_counters = {"mono_intersect": mxu.mono_intersect,
+                     "fused_mesh_shade": fused.fused_mesh_shade,
+                     "kernel_uniforms": fused.kernel_uniforms}
+    mesh = load_scene(str(MESH_SCENE))
+    rm = Renderer(mesh, RenderConfig(devices=2), shard_devices=[device] * 2)
+    for c in mesh_counters.values():
+        c.launches = 0
+    rm.step()
+    torch.cuda.synchronize()
+    ml = {k: c.launches for k, c in mesh_counters.items()}
+    log(f"[23c] Renderer('{MESH_SCENE.name}', devices=2) step: launches {ml}")
+    if ml != {"mono_intersect": 2 * depth, "fused_mesh_shade": 2 * depth, "kernel_uniforms": 2}:
+        raise AssertionError("the 5k mesh's pixel-mode step did not launch #4, #3 and the "
+                             "block draw once a shard and bounce")
+    bit_equal("23c", rm, megakernel_iteration, (1,))
+    rw = Renderer(scene, RenderConfig(devices=2, integrator="wavefront", stream_compaction=True),
+                  shard_devices=[device] * 2)
+    scan.scan_flat.launches = 0
+    rw.step()
+    torch.cuda.synchronize()
+    log(f"[23c] wavefront (compaction on), devices=2 step: scan launches "
+        f"{scan.scan_flat.launches}")
+    if not scan.scan_flat.launches:
+        raise AssertionError("the wavefront's pixel-mode step launched no scan")
+    bit_equal("23c", rw, wavefront_iteration, (1,))
+
+    # -- 23d. ms/frame by CUDA events --------------------------------------------
+    single = Renderer(scene)
+    one = parallel.make_sharded_step({device: r2.dev}, r2.static, RenderConfig(), [device],
+                                     "pixel")[0]
+    film1 = parallel.sharded_film(r2.static, [device], "pixel")
+    it1 = [0]
+
+    def nd1():
+        it1[0] += 1
+        one(r2._cam_state, film1, it1[0], r2._base_key)
+
+    def stepper(r):
+        return lambda: r.step(sync=False)
+
+    bounce_path = frame_fn(r2.dev, r2.static, r2._cam_state, RenderConfig(), r2._base_key,
+                           device)
+    mesh_single = Renderer(mesh)
+    wf_film = film_ops.new_film(rw.static.pixel_count, device)
+    wf_it = [0]
+
+    def wave_unsharded():
+        wf_it[0] += 1
+        wavefront_iteration(rw.dev, rw.static, rw.cfg, rw._cam_state, wf_film, wf_it[0],
+                            rw._base_key)
+
+    paths_t = {
+        "prim unsharded, iteration kernel (Renderer)": (stepper(single), 20),
+        "prim unsharded megakernel_iteration": (bounce_path, 10),
+        "prim pixel nd=1 (sharded step)": (nd1, 10),
+        "prim pixel nd=2": (stepper(r2), 10),
+        "prim pixel nd=4": (stepper(renderers["prim pixel nd=4"]), 10),
+        "prim sample nd=2 (2 spp a call)": (stepper(rs), 5),
+        "prim pixel_chunks=8": (stepper(renderers["prim pixel_chunks=8"]), 10),
+        "5k mesh unsharded (Renderer)": (stepper(mesh_single), 3),
+        "5k mesh pixel nd=2": (stepper(rm), 3),
+        "wavefront unsharded": (wave_unsharded, 2),
+        "wavefront pixel nd=2": (stepper(rw), 2),
+    }
+    rounds = {k: 3 for k in paths_t}
+    times = {k: [] for k in paths_t}
+    for fn, _ in paths_t.values():
+        fn()  # warm-up
+    torch.cuda.synchronize()
+    order = list(paths_t)
+    for rnd in range(3):
+        for k in (order if rnd % 2 == 0 else order[::-1]):
+            fn, reps = paths_t[k]
+            times[k].append(cuda_time_ms(fn, reps))
+    spp = {k: 2 if "sample" in k else 1 for k in paths_t}
+    times = {k: [t / spp[k] for t in v] for k, v in times.items()}
+    rays = {k: float(n + (rm if "mesh" in k else rw if "wavefront" in k else r2)
+                     ._alive_counts.sum()) for k in paths_t}
+    log("[23d] per frame (one spp; sample mode's call of 2 spp halved); nd shards on one "
+        "card: the split's host cost, not a multi-GPU time")
+    log_times("23d", smi, times, paths_t, rounds, rays)
+    return [{
+        "name": "kernel_uniforms",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/fused_prim.cu",
+        "replaces": "project3_cuda_path_tracer_2025_tpu/utils/prng.py:103 (uniforms_at, "
+                    "XLA's Threefry; no Pallas kernel)",
+        "launches": launches["kernel_uniforms"],
+        "max_abs_err": u_err,
+        "ms": u_ms,
+        "plain_ms": u_plain,
+        "bound_ms": u_bound[0],
+        "bound_by": u_bound[1],
+        "library_ms": None,
+    }], {"prim pixel mode nd=2 (Renderer, cuda:0 twice)": stepper(r2)}
+
+
 # The phases in groups that run whole, in this order (phases 1-2, the card
 # and the build, always run; 9, the profile, goes last over the frames of the
 # groups that ran).  needs: a group whose cached state this one reads.
@@ -2563,6 +2770,8 @@ GROUPS = (
      "40 primitives, 40 materials, depth 80 through the prim kernels"),
     ("bench", (22,), bench_script_phase, None,
      "scripts/torch_bench_scenes.py --quick as a subprocess on two scenes"),
+    ("parallel", (23,), parallel_phases, None,
+     "multi-device (pixel, sample) and chunked rendering, cuda:0 named nd times"),
 )
 
 

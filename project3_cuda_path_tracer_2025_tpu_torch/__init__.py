@@ -10,9 +10,10 @@ Ported so far: the megakernel and wavefront renders of scenes of analytic
 primitives and of triangle meshes of any size in tiles of 1,024 triangles,
 textured or not (scene loading, the RNG, camera rays, box/sphere
 intersection, the mesh tables and traversals, textures and bump maps, every
-BSDF lobe, stream compaction and material sort, the film, ``Renderer``, the
-CLI).  Multi-device rendering and the interactive shell raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+BSDF lobe, stream compaction and material sort, the film, ``Renderer``,
+multi-device and chunked rendering (``parallel``), the CLI with every flag
+of the JAX CLI, and the interactive shell).  The native BVH builder and
+prefix tiers raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 
 Conventional import alias::
 

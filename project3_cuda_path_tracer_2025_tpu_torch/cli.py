@@ -8,21 +8,19 @@ writes ``{FILE}.{timestamp}.{N}samp.png``.  It renders on the CUDA device by
 default; ``--device cpu`` (or the JAX CLI's ``--cpu``) is an explicit choice,
 never a fallback.  The toggles of the JAX package's CLI pass the same
 ``RenderConfig`` fields (``--no-bvh``, ``--raw-camera``, ``--ray-sorting``,
-``--fused-bounce``, ``--bounce-prefix-tiers``, ``--spp-per-launch``); its
-multi-device, pixel-chunk, preview and interactive flags raise until their
-paths are ported (``ROADMAP.md``, Queue 1).
+``--fused-bounce``, ``--bounce-prefix-tiers``, ``--spp-per-launch``,
+``--devices``, ``--parallel-mode``, ``--pixel-chunks``, ``--preview-every``,
+``--interactive``): it takes every flag of the JAX CLI.  ``--devices N``
+shards over ``cuda:0`` .. ``cuda:{N-1}`` (or N times the CPU with
+``--device cpu``).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import shutil
 import sys
-
-# Flags of the JAX package's CLI that this one does not take yet.
-_NOT_PORTED = (
-    "--pixel-chunks", "--devices", "--parallel-mode", "--preview-every", "--interactive",
-)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -107,11 +105,36 @@ def build_parser() -> argparse.ArgumentParser:
         "check per batch)",
     )
     p.add_argument("--cpu", action="store_true", help="alias of --device cpu")
+    p.add_argument(
+        "--pixel-chunks", type=int, default=0,
+        help="split each iteration into C sequential dispatches over pixel "
+        "blocks (bit-identical; C must divide the pixel count); 0 (auto) and "
+        "1 run unchunked",
+    )
+    p.add_argument(
+        "--devices", type=int, default=1,
+        help="render across N devices (cuda:0 .. cuda:N-1; N times the CPU "
+        "with --device cpu; 1 = single)",
+    )
+    p.add_argument(
+        "--parallel-mode", choices=("pixel", "sample"), default="pixel",
+        help="pixel: split the frame's pixels over the devices (bit-identical); "
+        "sample: each device renders other spp of the full frame, films summed",
+    )
     p.add_argument("--checkpoint", default=None, help="write a .npz checkpoint here at exit")
     p.add_argument("--resume", default=None, help="resume from a .npz checkpoint")
     p.add_argument("--checkpoint-every", type=int, default=0, help="checkpoint every N spp")
+    p.add_argument(
+        "--preview-every", type=int, default=0,
+        help="write OUT/preview.png every N spp (the reference shows a live window)",
+    )
     p.add_argument("--log-every", type=int, default=50)
     p.add_argument("--quiet", action="store_true")
+    p.add_argument(
+        "--interactive", action="store_true",
+        help="live in-terminal render with orbit-camera keys (the headless "
+        "counterpart of the reference's GLFW window; needs a TTY)",
+    )
     p.add_argument(
         "--device", default="cuda",
         help="torch device to render on (default: cuda; 'cpu' runs the plain "
@@ -121,13 +144,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    argv = list(sys.argv[1:] if argv is None else argv)
-    for a in argv:
-        if a.split("=", 1)[0] in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{a.split('=', 1)[0]} is not ported yet (ROADMAP.md, "
-                "Queue 1: parallel/ and the interactive shell)"
-            )
     args = build_parser().parse_args(argv)
     if args.cpu:
         args.device = "cpu"
@@ -173,6 +189,9 @@ def main(argv=None) -> int:
         ),
         fused_bounce=args.fused_bounce,
         spp_per_launch=args.spp_per_launch,
+        devices=args.devices,
+        parallel_mode=args.parallel_mode,
+        pixel_chunks=args.pixel_chunks,
     )
     r = Renderer(scene, cfg, seed=args.seed, device=args.device)
     if args.resume:
@@ -180,6 +199,11 @@ def main(argv=None) -> int:
         print(f"Resumed at iteration {r.iteration} from {args.resume}")
 
     total = args.spp if args.spp is not None else scene.state.iterations
+    if args.interactive:
+        from .interactive import InteractiveShell
+
+        shell = InteractiveShell(r, out_dir=args.out)
+        return shell.run(spp_per_frame=max(1, args.spp_per_launch), max_iters=total)
     if not args.quiet:
         print(
             f"{r.static.width}x{r.static.height}, depth {r.static.trace_depth}, "
@@ -202,6 +226,11 @@ def main(argv=None) -> int:
                 )
             if args.checkpoint_every and it % args.checkpoint_every == 0 and args.checkpoint:
                 r.checkpoint(args.checkpoint)
+            if args.preview_every and it % args.preview_every == 0 and it < total:
+                target = os.path.join(args.out, "preview.png")
+                shutil.move(r.save(out_dir=args.out), target)
+                if not args.quiet:
+                    print(f"preview -> {target}")
     except KeyboardInterrupt:
         print(f"\ninterrupted at iteration {r.iteration}; saving partial render")
 

@@ -4,9 +4,9 @@ One frozen dataclass, field for field the JAX package's ``RenderConfig``
 (``project3_cuda_path_tracer_2025_tpu/config.py``), so a configuration
 moves between the two packages unchanged.  The port runs both integrators
 on scenes of analytic primitives, textures and meshes of any number of tiles
-of 1,024 triangles; a field that selects a path not ported yet
-raises ``NotImplementedError`` here, at construction, naming the
-``ROADMAP.md`` item that will port it.
+of 1,024 triangles, on one device, several, or in chunks of pixels; a field
+that selects a path not ported yet raises ``NotImplementedError`` here, at
+construction, naming the ``ROADMAP.md`` item that will port it.
 """
 
 from __future__ import annotations
@@ -80,12 +80,15 @@ class RenderConfig:
     # none in the port; whether they pay on the card is open (ROADMAP.md).
     bounce_prefix_tiers: "tuple | str" = "auto"
 
-    # Split each iteration into C dispatches over pixel blocks.  In the JAX
-    # package it works around a fault of its remote TPU backend; 0 (auto)
-    # and 1 run unchunked; larger values wait for Queue 1: parallel/.
+    # Split each iteration into C sequential dispatches over pixel blocks
+    # (C must divide the pixel count; the same film bit for bit).  In the
+    # JAX package 0 (auto) works around a fault of its remote TPU backend;
+    # here 0 and 1 run unchunked (``resolved_pixel_chunks``).
     pixel_chunks: int = 0
 
-    # Multi-device rendering (Queue 1: parallel/).
+    # Multi-device rendering (``parallel``): "pixel" splits the frame's
+    # pixels over the devices, "sample" has each device render other spp
+    # of the full frame.  Chunks never compose with devices.
     devices: int = 1
     parallel_mode: str = "pixel"
 
@@ -137,10 +140,12 @@ class RenderConfig:
             raise ValueError(
                 f"integrator={self.integrator!r}: use 'megakernel'/'wavefront'"
             )
-        if self.devices != 1:
-            raise _not_ported(f"devices={self.devices}", "Queue 1: parallel/")
-        if self.pixel_chunks not in (0, 1):
-            raise _not_ported(f"pixel_chunks={self.pixel_chunks}", "Queue 1: parallel/")
+        if self.devices < 1:
+            raise ValueError(f"devices={self.devices}: at least 1")
+        if self.parallel_mode not in ("pixel", "sample"):
+            raise ValueError(f"parallel_mode={self.parallel_mode!r}: use 'pixel'/'sample'")
+        if self.pixel_chunks < 0:
+            raise ValueError(f"pixel_chunks={self.pixel_chunks}: 0 (auto) or a count >= 1")
         if self.mesh_intersector not in ("auto", "mxu", "threaded", "brute"):
             raise ValueError(
                 f"mesh_intersector={self.mesh_intersector!r}: use "
@@ -186,3 +191,11 @@ class RenderConfig:
         """``bounce_prefix_tiers`` resolved: none in the port (the JAX
         package resolves "auto" to (4, 2) on a TPU and () on the CPU)."""
         return ()
+
+    def resolved_pixel_chunks(self, pixel_count: int) -> int:
+        """``pixel_chunks`` with 0 (auto) resolved to 1: the JAX package's
+        auto rule works around a fault of its remote TPU backend and is on
+        the do-not-port list (ROADMAP.md).  Any other value is returned as
+        it is; ``Renderer`` checks that it divides ``pixel_count``."""
+        del pixel_count  # the JAX package's rule reads it
+        return self.pixel_chunks or 1

@@ -11,7 +11,9 @@
 //   path-state planes out, its uniforms given as [3, n] or drawn inline.
 // ptt_uniforms_kernel draws jax.random.uniform's [k, n] rows with the same
 // in-kernel Threefry the iteration kernel uses (utils/prng.py::uniforms on
-// a CUDA device; the camera's uniforms of megakernel_iteration).
+// a CUDA device; the camera's uniforms of megakernel_iteration), or the
+// columns [base, base + ln) of the [k, rng_n] rows: a block of pixels of a
+// sharded or chunked frame.
 //
 // What bounds them on the H100: arithmetic, not bytes.  The bounce kernel
 // moves 84 B per ray per bounce with the uniforms drawn inline (9 floats +
@@ -319,9 +321,11 @@ __global__ void __launch_bounds__(PTT_THREADS) ptt_bounce_kernel(const PttBounce
 }
 
 __global__ void __launch_bounds__(PTT_THREADS) ptt_uniforms_kernel(uint32_t k0, uint32_t k1,
-                                                                   uint32_t total, float* out) {
+                                                                   uint32_t ln, uint32_t total,
+                                                                   uint32_t base, uint32_t rng_n,
+                                                                   float* out) {
   const uint32_t flat = blockIdx.x * blockDim.x + threadIdx.x;
-  if (flat < total) out[flat] = uniform_at(k0, k1, flat);
+  if (flat < total) out[flat] = uniform_block(k0, k1, ln, base, rng_n, flat);
 }
 
 static unsigned blocks_for(long long n) {
@@ -431,9 +435,12 @@ int ptt_launch_bounce(const PttBounceArgs* a, void* stream) {
   return (int)cudaGetLastError();
 }
 
-int ptt_launch_uniforms(uint32_t k0, uint32_t k1, uint32_t total, float* out, void* stream) {
+int ptt_launch_uniforms(uint32_t k0, uint32_t k1, uint32_t ln, uint32_t k, uint32_t base,
+                        uint32_t rng_n, float* out, void* stream) {
+  const uint32_t total = ln * k;
   if (total > 0) {
-    ptt_uniforms_kernel<<<blocks_for(total), PTT_THREADS, 0, (cudaStream_t)stream>>>(k0, k1, total, out);
+    ptt_uniforms_kernel<<<blocks_for(total), PTT_THREADS, 0, (cudaStream_t)stream>>>(
+        k0, k1, ln, total, base, rng_n, out);
   }
   return (int)cudaGetLastError();
 }

@@ -229,6 +229,16 @@ PTT_HD float uniform_at(uint32_t k0, uint32_t k1, uint32_t flat) {
   return ptt_max(0.0f, u);
 }
 
+// Element flat of the [k, ln] block drawn at pixels [base, base + ln) of an
+// rng_n-pixel stream: row j = flat / ln, pixel base + flat % ln, counter
+// j * rng_n + base + i (prng.uniforms_at(key, base + arange(ln), k, rng_n)).
+// base 0 and rng_n == ln give counter flat, the unsharded draw.
+PTT_HD float uniform_block(uint32_t k0, uint32_t k1, uint32_t ln, uint32_t base,
+                           uint32_t rng_n, uint32_t flat) {
+  const uint32_t j = flat / ln;
+  return uniform_at(k0, k1, j * rng_n + base + (flat - j * ln));
+}
+
 // ---------------------------------------------------------------------------
 // Ray state
 // ---------------------------------------------------------------------------

@@ -60,6 +60,7 @@ def megakernel_iteration(
     base_key: tuple,
     plain: bool = False,
     carry_winner: bool = True,
+    shard: tuple = None,  # (block: range of global pixel ids, global N)
 ) -> Tuple[Vec3, torch.Tensor]:
     """One full spp iteration. Returns (film, alive_counts[depth]).
 
@@ -67,20 +68,28 @@ def megakernel_iteration(
     any device: the reference the kernel path is held to on the card.
     ``carry_winner=False`` has a mesh scene's shade test every prim instead
     of taking the carried winner (``fused.fused_mesh_bounce``): the
-    reference the carry is held to, the same film bit for bit."""
+    reference the carry is held to, the same film bit for bit.
+
+    ``shard=(block, n_global)`` traces only the pixels of ``block``, a
+    contiguous ``range`` of global pixel ids (the JAX package passes them
+    as a vector; a range gives the first one without a read from the
+    device), into ``film``, which holds those pixels (``parallel``, the
+    chunked step).  Every draw is the whole frame's stream at the block's
+    pixels (stream length ``n_global``), so the block's film equals the
+    unsharded film's slice bit for bit."""
     device = film.x.device
     depth = static.trace_depth
-    n = static.pixel_count
-    idx = torch.arange(n, device=device)
+    base, n, n_global = block_of(static, shard)
+    idx = torch.arange(base, base + n, dtype=torch.int32, device=device)
     uniforms = (
-        (lambda key, k: prng.uniforms_at(key, idx, k, n)) if plain
-        else (lambda key, k: prng.uniforms(key, n, k, device))
+        (lambda key, k: prng.uniforms_at(key, idx, k, n_global)) if plain
+        else (lambda key, k: prng.uniforms(key, n, k, device, base=base, rng_n=n_global))
     )
 
     ikey = prng.iteration_key(base_key, iteration)
     cam_u = uniforms(prng.stage_key(ikey, 0, 0), 4)
     paths = camera_ops.generate_camera_rays(
-        cam, static.width, static.height, depth, cam_u
+        cam, static.width, static.height, depth, cam_u, idx=idx
     )
 
     force = cfg.fused_bounce == "on"
@@ -109,15 +118,15 @@ def megakernel_iteration(
                     d % max(1, cfg.ray_sort_every) == 0
                     and (d > 0 or cfg.ray_sort_first_bounce)
                 ),
-                rng_n=n, carry=mesh_carry, want_carry=want, plain=plain,
+                rng_n=n_global, carry=mesh_carry, want_carry=want, plain=plain,
                 carry_winner=carry_winner,
             )
             paths, mesh_carry = out if want else (out, None)
         elif use_fused:
             bounce = fused.fused_prim_bounce_plain if plain else fused.fused_prim_bounce
-            paths = bounce(static, cfg, paths, su_key=skey, rng_n=n)
+            paths = bounce(static, cfg, paths, su_key=skey, rng_n=n_global)
         elif use_fused_tex:
-            paths = fused.fused_tex_bounce(dev, static, cfg, paths, su_key=skey, rng_n=n,
+            paths = fused.fused_tex_bounce(dev, static, cfg, paths, su_key=skey, rng_n=n_global,
                                            plain=plain)
         else:
             su = uniforms(skey, 3)
@@ -125,5 +134,20 @@ def megakernel_iteration(
             paths = shade_ops.shade(dev, static, paths, isect, su, cfg)
         alive_counts[d] = torch.sum(paths.alive.to(torch.int32))
 
-    film = film_ops.accumulate(film, paths, permuted=use_fused_mesh or tex_sorted)
+    film = film_ops.accumulate(film, paths, permuted=use_fused_mesh or tex_sorted, base=base)
     return film, alive_counts
+
+
+def block_of(static: SceneStatic, shard) -> tuple:
+    """``(base, n, n_global)`` of an iteration's block: the whole frame
+    without ``shard``, else the block's first pixel and length and the
+    frame's pixel count."""
+    n_global = static.pixel_count
+    if shard is None:
+        return 0, n_global, n_global
+    block, n_global = shard
+    if not isinstance(block, range) or block.step != 1 or not (
+            0 <= block.start < block.stop <= n_global):
+        raise ValueError(f"shard block {block!r}: give a range of pixel ids within "
+                         f"[0, {n_global})")
+    return block.start, len(block), n_global

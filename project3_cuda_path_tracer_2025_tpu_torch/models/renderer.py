@@ -14,6 +14,13 @@ kernel and recompiles).  A mesh or textured scene steps through
 (meshes) and the mesh-shade kernel.  ``integrator="wavefront"`` steps
 through ``wavefront_iteration`` instead, on any scene.
 
+``cfg.devices > 1`` steps through ``parallel.shardmap``'s sharded step
+(pixel or sample mode; the film is a list of per-shard films), and
+``cfg.pixel_chunks > 1`` through the chunked step: C sequential
+``shard=`` calls on one device, each writing into its slice of the film.
+Both run ``megakernel_iteration`` (or the wavefront), never the iteration
+kernel, as the JAX package's do.  Checkpoints are always the flat film.
+
 Camera orbit parity: ``orbit_camera()`` applies the reference's mouse
 controls and, like ``runCuda`` (``src/main.cpp:423-453``), resets
 accumulation.
@@ -21,6 +28,7 @@ accumulation.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass
 from typing import Optional
@@ -58,7 +66,12 @@ class Renderer:
         cfg: RenderConfig = RenderConfig(),
         seed: int = 0,
         device="cuda",
+        shard_devices=None,
     ) -> None:
+        """``shard_devices`` names the devices of ``cfg.devices`` shards (the
+        JAX Renderer's ``devices``; a list may name one device more than
+        once): by default ``"cpu"`` nd times on the CPU, else ``cuda:0`` ..
+        ``cuda:{nd-1}``, which must exist."""
         if isinstance(scene, str):
             scene = load_scene(
                 scene, leaf_size=cfg.bvh_leaf_size, native_bvh=cfg.native_bvh
@@ -75,7 +88,31 @@ class Renderer:
         self.orbit = OrbitState.from_camera(scene.state.camera)
         self._base_key = prng.prng_key(seed)
         self.iteration = 0
-        self.film: Vec3 = self._new_film()
+        self._spp_stride = 1  # spp advanced per dispatch (sample mode: nd)
+        self._devices = self._sharded_step = None
+        if cfg.devices > 1:
+            from .. import parallel
+
+            if shard_devices is None and self.device.type == "cpu":
+                shard_devices = [self.device] * cfg.devices
+            self._devices = parallel.make_device_list(cfg.devices, shard_devices)
+            here = self.device
+            if here.type == "cuda" and here.index is None:
+                here = torch.device("cuda", torch.cuda.current_device())
+            self._sharded_step, self._spp_stride = parallel.make_sharded_step(
+                parallel.replicate_scene(scene, self._devices, {here: self.dev}),
+                self.static, cfg, self._devices, cfg.parallel_mode,
+            )
+        # Chunking never composes with devices, as in the JAX package.
+        self._pixel_chunks = (
+            1 if self._devices else cfg.resolved_pixel_chunks(self.static.pixel_count)
+        )
+        if self.static.pixel_count % self._pixel_chunks:
+            raise ValueError(
+                f"pixel_chunks={self._pixel_chunks} must divide the pixel count "
+                f"{self.static.pixel_count}"
+            )
+        self.film = self._new_film()  # Vec3; a list of them when sharded
         self.stats = FrameStats()
         self._alive_counts = np.zeros(self.static.trace_depth, np.int64)
         self._refresh_camera()
@@ -103,8 +140,21 @@ class Renderer:
     def _alive_counts(self, value) -> None:
         self._alive_raw = value
 
-    def _new_film(self) -> Vec3:
+    def _new_film(self):
+        if self._devices:
+            from ..parallel import sharded_film
+
+            return sharded_film(self.static, self._devices, self.cfg.parallel_mode)
         return film_ops.new_film(self.static.pixel_count, device=self.device)
+
+    def _flat_film(self) -> Vec3:
+        """The film as the one-device ``[N]`` film (sharded films joined or
+        summed on ``self.device``)."""
+        if self._devices:
+            from ..parallel import film_to_flat
+
+            return film_to_flat(self.film, self.cfg.parallel_mode, self.device)
+        return self.film
 
     # -- camera --------------------------------------------------------------
     def _refresh_camera(self) -> None:
@@ -131,9 +181,15 @@ class Renderer:
 
     # -- rendering -------------------------------------------------------------
     def _dispatch(self):
-        """Trace one spp iteration; the film is updated in place (the JAX
-        package donates it to its jitted step for the same effect)."""
-        self.iteration += 1
+        """Trace one step (``_spp_stride`` spp); the film is updated in place
+        (the JAX package donates it to its jitted step for the same
+        effect)."""
+        self.iteration += self._spp_stride
+        if self._sharded_step is not None:
+            return self._sharded_step(self._cam_state, self.film, self.iteration,
+                                      self._base_key)
+        if self._pixel_chunks > 1:
+            return self._chunked_step()
         if self._use_fused_iter:
             return fused.fused_prim_iteration(
                 self.static, self.cfg, self._cam_state, self.film,
@@ -147,33 +203,66 @@ class Renderer:
             self.iteration, self._base_key,
         )
 
+    def _chunked_step(self):
+        """C sequential ``shard=`` calls over the frame's pixel blocks, each
+        writing into its slice of the film: the unchunked film bit for
+        bit."""
+        n = self.static.pixel_count
+        size = n // self._pixel_chunks
+        iteration = (
+            wavefront_iteration if self.cfg.integrator == "wavefront" else megakernel_iteration
+        )
+        alive = None
+        for c in range(self._pixel_chunks):
+            sl = slice(c * size, (c + 1) * size)
+            _, a = iteration(
+                self.dev, self.static, self.cfg, self._cam_state,
+                Vec3(self.film.x[sl], self.film.y[sl], self.film.z[sl]),
+                self.iteration, self._base_key, shard=(range(sl.start, sl.stop), n),
+            )
+            alive = a if alive is None else alive + a
+        return self.film, alive
+
     def step(self, sync: bool = True) -> None:
-        """Trace one spp iteration (reference: one ``pathtrace()`` frame)."""
+        """Trace one spp iteration (reference: one ``pathtrace()`` frame);
+        sample mode advances ``cfg.devices`` spp a call."""
         self.step_many(1, sync=sync)
 
     def step_many(self, k: int, sync: bool = True) -> None:
-        """Trace k spp, launched back to back from the host.
+        """Trace k spp, launched back to back from the host: ``ceil(k /
+        stride)`` dispatches of ``stride`` spp each (sample mode cannot
+        trace less than a stride; ``iteration`` says what ran).
 
         With ``sync`` the batch is timed on the device (CUDA events, which
         wait for it to finish); without, the per-frame time recorded is the
         host's enqueue time."""
-        k = max(1, int(k))
-        timer = PerformanceTimer(self.device if sync else "cpu")
-        timer.start()
-        for _ in range(k):
-            self.film, alive = self._dispatch()
-        dt_ms = timer.stop() / k
-        for _ in range(k):
+        n_disp = max(1, -(-int(k) // self._spp_stride))
+        spp = n_disp * self._spp_stride
+        with self._on_device():
+            timer = PerformanceTimer(self.device if sync else "cpu")
+            timer.start()
+            for _ in range(n_disp):
+                self.film, alive = self._dispatch()
+            dt_ms = timer.stop() / spp
+        for _ in range(spp):
             self.stats.add(dt_ms)
         self._alive_counts = alive
         if self.cfg.debug_nan_checks:
             self._check_finite()
 
+    def _on_device(self):
+        """The kernels launch on the CUDA runtime's current device: make it
+        this Renderer's (the sharded step sets each shard's its own)."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
     def _check_finite(self) -> None:
         """Debug-config runtime checking (the reference's analogue is the
         ERRORCHECK sync-after-every-launch, src/pathtrace.cu:26-49)."""
-        for name, arr in (("film.r", self.film.x), ("film.g", self.film.y),
-                          ("film.b", self.film.z)):
+        film = self._flat_film()
+        for name, arr in (("film.r", film.x), ("film.g", film.y),
+                          ("film.b", film.z)):
             bad = int(torch.sum(~torch.isfinite(arr)))
             if bad:
                 raise FloatingPointError(
@@ -222,7 +311,7 @@ class Renderer:
 
     def image(self) -> np.ndarray:
         """Accumulated film as [H, W, 3] (host copy happens here only)."""
-        return film_ops.to_host_image(self.film, self.static.width, self.static.height)
+        return film_ops.to_host_image(self._flat_film(), self.static.width, self.static.height)
 
     def preview_image(self, out_h: int, out_w: int) -> np.ndarray:
         """[out_h, out_w, 3] normalized preview, downsampled on the device
@@ -233,7 +322,7 @@ class Renderer:
         ys_t = torch.as_tensor(ys, device=self.device)
         xs_t = torch.as_tensor(xs, device=self.device)
         img = torch.stack(
-            [a.reshape(h, w)[ys_t][:, xs_t] for a in self.film], dim=-1
+            [a.reshape(h, w)[ys_t][:, xs_t] for a in self._flat_film()], dim=-1
         )
         return (img / float(max(1, self.iteration))).cpu().numpy()
 
@@ -252,14 +341,17 @@ class Renderer:
 
     # -- checkpoint / resume ---------------------------------------------------
     def checkpoint(self, path: str) -> None:
-        """The JAX package's format: film_x/y/z, iteration, key (uint32 [2])."""
+        """The JAX package's format: film_x/y/z, iteration, key (uint32 [2]).
+        Always the flat ``[N]`` film (sample mode's films summed), so a
+        checkpoint moves between the packages and between layouts."""
         parent = os.path.dirname(os.path.abspath(path))
         os.makedirs(parent, exist_ok=True)
+        film = self._flat_film()
         np.savez_compressed(
             path,
-            film_x=self.film.x.cpu().numpy(),
-            film_y=self.film.y.cpu().numpy(),
-            film_z=self.film.z.cpu().numpy(),
+            film_x=film.x.cpu().numpy(),
+            film_y=film.y.cpu().numpy(),
+            film_z=film.z.cpu().numpy(),
             iteration=self.iteration,
             key=np.asarray(self._base_key, np.uint32),
         )
@@ -275,7 +367,26 @@ class Renderer:
                     f"{path}: {name} has shape {a.shape}, this scene has {n} pixels"
                 )
             film.append(torch.as_tensor(a, device=self.device).clone())
-        self.film = Vec3(*film)
+        self.film = self._layout(Vec3(*film))
         self.iteration = int(d["iteration"])
         key = np.asarray(d["key"]).astype(np.uint32).reshape(-1)
         self._base_key = (int(key[0]), int(key[1]))
+
+    def _layout(self, flat: Vec3):
+        """A flat film in this Renderer's layout.  Sample mode puts it in
+        the first shard's film and zeroes the others: the summed film is
+        the same, and each shard goes on with its own iterations."""
+        if not self._devices:
+            return flat
+        films = self._new_film()
+        if self.cfg.parallel_mode == "sample":
+            for f, a in zip(films[0], flat):
+                f.copy_(a)
+            return films
+        from ..parallel.shardmap import pixel_blocks
+
+        blocks = pixel_blocks(self.static.pixel_count, len(self._devices))
+        for film, b in zip(films, blocks):
+            for f, a in zip(film, flat):
+                f.copy_(a[b.start:b.stop])
+        return films

@@ -36,6 +36,7 @@ from ..scene.camera import CameraState
 from ..scene.device import DeviceScene, SceneStatic
 from ..utils import prng
 from ..utils.vec import Vec3
+from .megakernel import block_of
 
 
 def wavefront_iteration(
@@ -46,15 +47,18 @@ def wavefront_iteration(
     film: Vec3,  # updated in place
     iteration: int,  # 1-based, like the reference
     base_key: tuple,
+    shard: tuple = None,  # (block: range of global pixel ids, global N)
 ) -> Tuple[Vec3, torch.Tensor]:
-    """One full spp iteration. Returns (film, alive_counts[depth])."""
+    """One full spp iteration. Returns (film, alive_counts[depth]).
+    ``shard``: one block of the frame, as in ``megakernel_iteration``."""
     device = film.x.device
     depth = static.trace_depth
-    n = static.pixel_count
+    base, n, n_global = block_of(static, shard)
     ikey = prng.iteration_key(base_key, iteration)
     paths = camera_ops.generate_camera_rays(
         cam, static.width, static.height, depth,
-        prng.uniforms(prng.stage_key(ikey, 0, 0), n, 4, device),
+        prng.uniforms(prng.stage_key(ikey, 0, 0), n, 4, device, base=base, rng_n=n_global),
+        idx=torch.arange(base, base + n, dtype=torch.int32, device=device),
     )
     alive_counts = torch.zeros((depth,), dtype=torch.int32, device=device)
     for d in range(depth):
@@ -62,15 +66,16 @@ def wavefront_iteration(
         if cfg.material_sorting:
             paths, isect = sort_paths_by_material(paths, isect)
         # Each slot draws its pixel's stream: permutations are invisible.
-        su = prng.uniforms_at(prng.stage_key(ikey, d, 1), paths.pixel, 3, n)
+        su = prng.uniforms_at(prng.stage_key(ikey, d, 1), paths.pixel, 3, n_global)
         paths = shade_ops.shade(dev, static, paths, isect, su, cfg)
         if cfg.stream_compaction == "adaptive":
             # Pack only when mostly dead: the permutation is pure overhead on
-            # mostly-live bounces.  Image-identical either way.
+            # mostly-live bounces.  Image-identical either way.  A block
+            # decides on its own rays, as the JAX package's shard does.
             if 2 * int(torch.sum(paths.alive.to(torch.int32))) < n:
                 paths = compact_paths(paths)[0]
         elif cfg.stream_compaction:
             paths = compact_paths(paths)[0]
         alive_counts[d] = torch.sum(paths.alive.to(torch.int32))
-    film = film_ops.accumulate(film, paths, permuted=True)
+    film = film_ops.accumulate(film, paths, permuted=True, base=base)
     return film, alive_counts

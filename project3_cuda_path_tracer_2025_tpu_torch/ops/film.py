@@ -20,12 +20,18 @@ def new_film(n: int, device="cpu") -> Vec3:
     return Vec3.zeros((n,), device=device)
 
 
-def accumulate(film: Vec3, paths: PathState, permuted: bool = False) -> Vec3:
-    """film[pixel] += color, in place.  Slots in pixel order are a plain
-    vector add; permuted slots (the fused mesh bounce's persistent sort)
-    scatter-add by pixel id, which is exact: each pixel has one ray."""
+def accumulate(film: Vec3, paths: PathState, permuted: bool = False, base: int = 0) -> Vec3:
+    """film[pixel - base] += color, in place.  Slots in pixel order are a
+    plain vector add; permuted slots (the fused mesh bounce's persistent
+    sort, the wavefront's compaction) scatter-add by pixel id, which is
+    exact: each pixel has one ray.  ``base`` is the first pixel of a block
+    (a shard or chunk of the frame, ``parallel.shardmap``), whose film
+    holds pixels ``[base, base + len(film))``; the sort permutes only
+    within the block, so the shifted ids index its film exactly."""
     if permuted:
         idx = paths.pixel.long()
+        if base:
+            idx = idx - base
         for f, c in zip(film, paths.color):
             f.index_add_(0, idx, c)
         return film

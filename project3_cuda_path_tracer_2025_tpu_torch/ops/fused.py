@@ -432,18 +432,24 @@ fused_prim_iteration.launches = 0
 # Threefry uniforms on the card (utils/prng.py::uniforms on a CUDA device)
 # ---------------------------------------------------------------------------
 
-def kernel_uniforms(key: tuple, n: int, k: int, device) -> torch.Tensor:
-    """``prng.uniforms(key, n, k)`` drawn by the in-kernel Threefry:
-    bit-identical to the plain version."""
+def kernel_uniforms(key: tuple, n: int, k: int, device, base: int = 0,
+                    rng_n: int = None) -> torch.Tensor:
+    """``prng.uniforms(key, n, k, base=base, rng_n=rng_n)`` drawn by the
+    in-kernel Threefry: the columns ``[base, base + n)`` of the ``[k, rng_n]``
+    rows (``rng_n`` defaults to ``n``), bit-identical to the plain version
+    ``prng.uniforms_at(key, base + arange(n), k, rng_n)``."""
     device = torch.device(device)
     _require_cuda(device, "kernel_uniforms")
-    total = n * k
-    if total >= 2**32:
-        raise ValueError(f"{k} x {n} uniforms exceed the 32-bit counter")
+    rng_n = n if rng_n is None else rng_n
+    if not 0 <= base <= rng_n - n:
+        raise ValueError(f"kernel_uniforms: pixels [{base}, {base + n}) outside a "
+                         f"stream of {rng_n}")
+    if rng_n * k >= 2**32:
+        raise ValueError(f"{k} x {rng_n} uniforms exceed the 32-bit counter")
     out = torch.empty((k, n), dtype=torch.float32, device=device)
     lib = kernels.load()
     code = lib.lib.ptt_launch_uniforms(
-        key[0], key[1], total, out.data_ptr(), kernels.stream_handle(device)
+        key[0], key[1], n, k, base, rng_n, out.data_ptr(), kernels.stream_handle(device)
     )
     lib.check(code, "kernel_uniforms")
     kernel_uniforms.launches += 1

@@ -255,7 +255,7 @@ def _bind_prim(lib) -> tuple:
     lib.ptt_launch_iteration.restype = _i
     lib.ptt_launch_bounce.argtypes = [ctypes.POINTER(PttBounceArgs), _p]
     lib.ptt_launch_bounce.restype = _i
-    lib.ptt_launch_uniforms.argtypes = [_u, _u, _u, _p, _p]
+    lib.ptt_launch_uniforms.argtypes = [_u] * 6 + [_p, _p]
     lib.ptt_launch_uniforms.restype = _i
     return lib.ptt_abi, _prim_abi_expected(), lib.ptt_error_string
 
@@ -375,6 +375,16 @@ def stream_handle(device: torch.device) -> int:
     PyTorch's own binding for it, the one its code generators call, returns
     the handle as an int; ``torch.cuda.current_stream()`` builds a Stream
     object around the same handle, at some ten times the host cost (PERF.md,
-    the scan's host split)."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    return torch._C._cuda_getCurrentRawStream(index)
+    the scan's host split).
+
+    A kernel launches on the CUDA runtime's current device, so a device
+    that names another index is refused: its launch would fail or land on
+    the current device.  Launch under ``torch.cuda.device(device)``, as
+    ``Renderer`` and ``parallel.shardmap`` do."""
+    current = torch._C._cuda_getDevice()  # torch.cuda.current_device() without its checks
+    if device.index is not None and device.index != current:
+        raise RuntimeError(
+            f"a kernel for {device} would launch on the current device cuda:{current}; "
+            f"launch it under torch.cuda.device({device.index})"
+        )
+    return torch._C._cuda_getCurrentRawStream(current)

@@ -93,8 +93,12 @@ def uniforms_at(key: tuple, idx: torch.Tensor, k: int, n: int) -> torch.Tensor:
     )
 
 
-def uniforms(key: tuple, n: int, k: int, device="cpu") -> torch.Tensor:
-    """Draw ``k`` independent U[0,1) rows of length ``n`` -> ``[k, n]``.
+def uniforms(key: tuple, n: int, k: int, device="cpu", base: int = 0,
+             rng_n: int = None) -> torch.Tensor:
+    """Draw ``k`` independent U[0,1) rows of length ``n`` -> ``[k, n]``: the
+    columns ``[base, base + n)`` of ``jax.random.uniform``'s ``[k, rng_n]``
+    rows (``rng_n`` defaults to ``n``; a block of pixels of a sharded or
+    chunked frame draws its slice of the whole frame's stream).
 
     On a CUDA device the draw is the Threefry kernel of ``csrc``
     (``ops.fused.kernel_uniforms``), bit-identical to the plain version
@@ -103,5 +107,6 @@ def uniforms(key: tuple, n: int, k: int, device="cpu") -> torch.Tensor:
     if device.type == "cuda":
         from ..ops.fused import kernel_uniforms
 
-        return kernel_uniforms(key, n, k, device)
-    return uniforms_at(key, torch.arange(n, device=device), k, n)
+        return kernel_uniforms(key, n, k, device, base=base, rng_n=rng_n)
+    rng_n = n if rng_n is None else rng_n
+    return uniforms_at(key, base + torch.arange(n, device=device), k, rng_n)

@@ -25,8 +25,12 @@ int ptt_host_sizes(int32_t* out) {
   return 2;
 }
 
-void ptt_host_uniforms(uint32_t k0, uint32_t k1, uint32_t total, float* out) {
-  for (uint32_t flat = 0; flat < total; ++flat) out[flat] = uniform_at(k0, k1, flat);
+// ptt_uniforms_kernel's element loop: the [k, ln] block at pixels
+// [base, base + ln) of an rng_n-pixel stream.
+void ptt_host_uniforms(uint32_t k0, uint32_t k1, uint32_t ln, uint32_t k, uint32_t base,
+                       uint32_t rng_n, float* out) {
+  for (uint32_t flat = 0; flat < ln * k; ++flat)
+    out[flat] = uniform_block(k0, k1, ln, base, rng_n, flat);
 }
 
 // ptt_bounce_kernel's per-ray schedule (one thread a ray, intersect_prims)

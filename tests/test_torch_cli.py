@@ -108,8 +108,15 @@ def test_prefix_tiers_parse_and_raise_from_the_config():
 @pytest.mark.parametrize("flag", ["--devices", "--parallel-mode", "--pixel-chunks",
                                   "--preview-every", "--interactive"])
 def test_flags_of_unported_paths_still_raise(flag):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.main([DOF, flag, "2"])
+    """These five flags are ported now: each parses as the JAX CLI's does
+    (name, choices, default, nargs, type), and argparse refuses a value
+    that is not one of its own, as the JAX CLI does."""
+    pick = lambda parser: next(a for a in parser._actions if flag in a.option_strings)
+    ours, theirs = pick(cli.build_parser()), pick(jcli.build_parser())
+    assert ours.default == theirs.default and ours.choices == theirs.choices
+    assert ours.nargs == theirs.nargs and ours.type == theirs.type
+    with pytest.raises(SystemExit):
+        cli.main([DOF, "--cpu", flag, "x"])
 
 
 def _film(ck):

@@ -21,7 +21,9 @@ import pytest
 import torch
 
 from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
-from project3_cuda_path_tracer_2025_tpu_torch.models import Renderer, megakernel_iteration
+from project3_cuda_path_tracer_2025_tpu_torch.models import (
+    Renderer, megakernel_iteration, wavefront_iteration,
+)
 from project3_cuda_path_tracer_2025_tpu_torch.ops import camera as camera_ops
 from project3_cuda_path_tracer_2025_tpu_torch.ops import film as film_ops
 from project3_cuda_path_tracer_2025_tpu_torch.ops import fused, intersect_mxu, kernels
@@ -60,6 +62,43 @@ def test_kernel_uniforms_bit_exact(cuda):
     got = fused.kernel_uniforms(key, n, 3, cuda)
     want = prng.uniforms_at(key, torch.arange(n, device=cuda), 3, n)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("ln,base,rng_n", [(1000, 0, 4000), (1000, 3000, 4000),
+                                           (320_000, 320_000, 640_000), (333, 1234, 100_003)])
+def test_kernel_uniforms_block_bit_exact(cuda, ln, base, rng_n):
+    """The camera draw of a block of pixels (a shard or chunk of a frame)."""
+    key = prng.stage_key(prng.iteration_key(prng.prng_key(0), 9), 0, 0)
+    got = fused.kernel_uniforms(key, ln, 4, cuda, base=base, rng_n=rng_n)
+    want = prng.uniforms_at(key, base + torch.arange(ln, device=cuda), 4, rng_n)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name,cfg", [
+    ("cornell_dof.json", dict(devices=2)), ("cornell_dof.json", dict(devices=4)),
+    ("cornell_dof.json", dict(pixel_chunks=8)),
+    ("cornell_mesh_5k.json", dict(devices=2)),
+    ("cornell_dof.json", dict(devices=2, integrator="wavefront")),
+])
+def test_sharded_and_chunked_films_bit_equal_on_one_card(cuda, name, cfg):
+    """Pixel mode (cuda:0 named nd times, each shard on a stream of its
+    own) and chunks give the unsharded megakernel_iteration's film bit for
+    bit on the card, through the kernels."""
+    dev, static, cam = _setup(name, 64, cuda)
+    n = static.pixel_count
+    base_cfg = RenderConfig(**{k: v for k, v in cfg.items() if k == "integrator"})
+    iteration = (wavefront_iteration if base_cfg.integrator == "wavefront"
+                 else megakernel_iteration)
+    want = film_ops.new_film(n, cuda)
+    for it in (1, 2):
+        want, alive = iteration(dev, static, base_cfg, cam, want, it, prng.prng_key(0))
+    scene = set_resolution(load_scene(str(REPO / "scenes" / name)), 64, 64)
+    r = Renderer(scene, RenderConfig(**cfg), shard_devices=[cuda] * cfg.get("devices", 1))
+    r.step()
+    r.step()
+    got = r._flat_film()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(torch.as_tensor(r._alive_counts), alive.cpu())
 
 
 # The bounce kernel's cases: (scene, case).  "chain": four bounces in turn;

@@ -64,7 +64,7 @@ P = ctypes.c_void_p
 def host_lib(tmp_path_factory):
     lib = build_host(tmp_path_factory, HARNESS, "libprim_path_host.so")
     lib.ptt_host_sizes.argtypes = [ctypes.POINTER(ctypes.c_int32)]
-    lib.ptt_host_uniforms.argtypes = [ctypes.c_uint32] * 3 + [P]
+    lib.ptt_host_uniforms.argtypes = [ctypes.c_uint32] * 6 + [P]
     lib.ptt_host_bounce.argtypes = [P, P, P, P, P, P, ctypes.c_int32]
     lib.ptt_host_iteration.argtypes = [P, P] + [ctypes.c_int32] * 4 + [P] * 5
     lib.ptt_host_iteration_regen.argtypes = (
@@ -92,9 +92,20 @@ def test_host_uniforms_bit_exact(host_lib):
     key = prng.stage_key(prng.iteration_key(prng.prng_key(7), 3), 2, 1)
     n, k = 1000, 3
     out = torch.empty((k, n), dtype=torch.float32)
-    host_lib.ptt_host_uniforms(key[0], key[1], n * k, out.data_ptr())
+    host_lib.ptt_host_uniforms(key[0], key[1], n, k, 0, n, out.data_ptr())
     want = prng.uniforms_at(key, torch.arange(n), k, n)
     assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("ln,base,rng_n", [(1000, 0, 4000), (1000, 3000, 4000),
+                                           (333, 1234, 100_003)])
+def test_host_uniforms_block_bit_exact(host_lib, ln, base, rng_n):
+    """The kernel's draw of a block of pixels (a shard or chunk of a frame):
+    ``prng.uniforms_at`` at the block's pixels in the whole frame's stream."""
+    key = prng.stage_key(prng.iteration_key(prng.prng_key(7), 3), 0, 0)
+    out = torch.empty((4, ln), dtype=torch.float32)
+    host_lib.ptt_host_uniforms(key[0], key[1], ln, 4, base, rng_n, out.data_ptr())
+    assert torch.equal(out, prng.uniforms_at(key, base + torch.arange(ln), 4, rng_n))
 
 
 @pytest.mark.parametrize("name", ["cornell_dof.json", "cornell_all_lobes.json"])

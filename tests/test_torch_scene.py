@@ -172,8 +172,10 @@ print("ok")
         # its prefix tiers are not.
         pytest.param(dict(integrator="wavefront", bounce_prefix_tiers=(4, 2)), "prefix tiers",
                      id="kw0-wavefront"),
-        pytest.param(dict(devices=2), "parallel/", id="kw1-parallel/"),
-        pytest.param(dict(pixel_chunks=4), "parallel/", id="kw2-parallel/"),
+        # Ported: multi-device and chunked rendering build (item None), and
+        # their invalid values raise ValueError.
+        pytest.param(dict(devices=2), None, id="kw1-parallel/"),
+        pytest.param(dict(pixel_chunks=4), None, id="kw2-parallel/"),
         # Every traversal is ported ("sweep" too); of the mesh knobs only the
         # do-not-port ones still raise.
         pytest.param(dict(mxu_plan="frustum"), "do-not-port", id="kw3-meshes"),
@@ -181,6 +183,12 @@ print("ok")
     ],
 )
 def test_config_raises_for_unported_paths(kw, item):
+    if item is None:
+        cfg = RenderConfig(**kw)
+        assert all(getattr(cfg, k) == v for k, v in kw.items())
+        with pytest.raises(ValueError):
+            RenderConfig(**{k: -v for k, v in kw.items()})
+        return
     with pytest.raises(NotImplementedError, match=item):
         RenderConfig(**kw)
 
