@@ -1723,10 +1723,11 @@ def slice5_phases(device, smi: str) -> tuple:
     t0 = time.perf_counter()
     big_dev, big_static = build_device_scene(big_scene, device)
     big_cam = camera_state(derive_render_camera(big_scene.state.camera))
+    LOADED["big"] = (big_scene, big_dev, big_static, big_cam)
     big_ct = big_dev.mxu_mesh.tile_aabb.shape[0]
     log(f"[17e] {big_path.relative_to(ROOT)}: {big_static.num_triangles} triangles in {big_ct} "
         f"tiles (beyond the streamed plan's {mxu.STREAMED_MAX_TILES}); OBJ written in "
-        f"{t_write:.1f} s, parsed and its BVH built (NumPy) in {t_load:.1f} s, tables built and "
+        f"{t_write:.1f} s, parsed and its BVH built (native) in {t_load:.1f} s, tables built and "
         f"uploaded in {time.perf_counter() - t0:.1f} s")
     if big_ct <= mxu.STREAMED_MAX_TILES:
         raise AssertionError("the big mesh does not pass the streamed plan's capacity")
@@ -2751,6 +2752,319 @@ def parallel_phases(device, smi: str) -> tuple:
     }], {"prim pixel mode nd=2 (Renderer, cuda:0 twice)": stepper(r2)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: bounce prefix tiers and the native BVH builder
+# ---------------------------------------------------------------------------
+
+TIERS = (4, 2)
+
+
+def bvh_invariants(tree, verts: np.ndarray, leaf: int) -> None:
+    """A tree's invariants, vectorised: pre-order numbering (the left child
+    follows its parent), leaves of 1 to ``leaf`` triangles tiling
+    ``tri_indices`` in order, a permutation of every triangle, leaf boxes
+    holding their triangles, internal boxes the union of their children's,
+    the root's miss link past the end.  Raises on a violation."""
+    t, m = verts.shape[0], tree.num_nodes
+    internal = tree.left >= 0
+    leaves = np.nonzero(~internal)[0]
+    l, r = tree.left[internal], tree.right[internal]
+    s, c = tree.start[leaves], tree.tri_count[leaves]
+    o = np.argsort(s)
+    s, c, leaves = s[o], c[o], leaves[o]
+    tri = tree.tri_indices
+    owner = np.repeat(leaves, c)  # the leaf of each position of tri_indices
+    v = verts[tri]  # [T, 3, 3] in leaf order
+    checks = {
+        "pre-order": np.array_equal(l, np.nonzero(internal)[0] + 1) and (r > l).all(),
+        "leaf sizes": bool((c >= 1).all() and c.max() <= leaf
+                           and (internal ^ (tree.tri_count > 0)).all()),
+        "leaves tile the triangles": bool(s[0] == 0 and np.array_equal(s[1:], (s + c)[:-1])
+                                          and s[-1] + c[-1] == t),
+        "a permutation": np.array_equal(np.sort(tri), np.arange(t)),
+        "leaf boxes": bool((v >= tree.aabb_min[owner][:, None, :]).all()
+                           and (v <= tree.aabb_max[owner][:, None, :]).all()),
+        "internal boxes": np.array_equal(
+            tree.aabb_min[internal], np.minimum(tree.aabb_min[l], tree.aabb_min[r]))
+        and np.array_equal(
+            tree.aabb_max[internal], np.maximum(tree.aabb_max[l], tree.aabb_max[r])),
+        "miss links": bool(tree.miss_link[0] == m),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"BVH invariants violated: {bad}")
+
+
+# The rows a spied kernel wrapper was given: its ray or flag argument.
+HEAD_ARG = {"mesh_intersect_mxu": lambda a: a[3].x, "fused_mesh_shade": lambda a: a[2].origin.x,
+            "scan_flat": lambda a: a[0], "plan_prepass": lambda a: a[1].x}
+
+
+def tensors(o) -> list:
+    """The tensors of a nest of tuples (PathState, Vec3, carries)."""
+    if isinstance(o, torch.Tensor):
+        return [o]
+    return [] if o is None else [x for e in o for x in tensors(e)]
+
+
+class Spy:
+    """Replaces ``module.name`` with a wrapper that hands each call's
+    arguments to ``record`` before calling the function; ``with`` restores
+    it.  The wrapper shares the function's attributes, so a wrapper that
+    counts its launches through its module's name (``f.launches += 1``)
+    counts on the function."""
+
+    def __init__(self, module, name, record):
+        self.module, self.name, self.record = module, name, record
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.module, self.name)
+
+        def run(*args, **kw):
+            self.record(args, kw)
+            return fn(*args, **kw)
+        run.__dict__ = fn.__dict__
+        setattr(self.module, self.name, run)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def tier_phases(device, smi: str) -> tuple:
+    """Phase 24 at 800x800, depth 8: the native BVH builder (24a: the
+    library's build seconds; the BVH build, native against NumPy, on the
+    5k, 80k and 500k meshes and the 1.1 M-triangle knot, with each tree's
+    invariants; the 5k "auto" film with the native tree against the NumPy
+    tree, §2's bar) and prefix tiers (24b: ``bounce_prefix_tiers=(4, 2)``
+    against ``()`` on the 5k, 20k and 80k "auto", 200k binned, textured-prim
+    and textured-mesh frames and the ``cornell_dof`` wavefront with
+    compaction on and "adaptive": films and alive counts bit-equal, the
+    rows each bounce ran on, launches and host reads per frame, ms/frame by
+    CUDA events, the two in turns; 24c: kernels #3 (modes plain, textured,
+    precomputed), #4, #5, #7, #10, #11 and #12 on the heads the tiered
+    frames gave them, bit-equal to their plain versions).  No new kernel:
+    nothing is added to the kernels line."""
+    import dataclasses
+
+    from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
+    from project3_cuda_path_tracer_2025_tpu_torch.models import (
+        megakernel_iteration, wavefront, wavefront_iteration,
+    )
+    from project3_cuda_path_tracer_2025_tpu_torch.native import bvh_native
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import film as film_ops
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused, intersect_mxu as mxu
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import scan
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import (
+        build_device_scene, camera_state, derive_render_camera, load_scene,
+    )
+    from project3_cuda_path_tracer_2025_tpu_torch.scene.bvh import build_bvh
+    from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
+
+    base_key = prng.prng_key(0)
+
+    def scene_of(cached, path):
+        if cached in LOADED:
+            return LOADED[cached]
+        scene = load_scene(str(path))
+        dev, static = build_device_scene(scene, device)
+        return scene, dev, static, camera_state(derive_render_camera(scene.state.camera))
+
+    heads = {}  # (kernel wrapper, frame) -> [(args, kwargs)] of calls on a sliced head
+
+    def keep(name, tag, n):
+        def record(args, kwargs):
+            if HEAD_ARG[name](args).shape[0] < n and len(heads.setdefault((name, tag), [])) < 2:
+                heads[(name, tag)].append((args, kwargs))
+        return record
+
+    # -- 24a. the native BVH builder ----------------------------------------
+    secs = bvh_native.compile_library(OUT_DIR / "native" / "libptt_bvh_builder.so")
+    t0 = time.perf_counter()
+    bvh_native.load()  # the package's own, built at its first use if no phase loaded a mesh
+    log(f"[24a] native BVH library (csrc/bvh_builder.cpp) built with {bvh_native.CXX} "
+        f"{' '.join(bvh_native.CXX_FLAGS)} in {secs:.2f} s; the package's own at "
+        f"{bvh_native.library_path().relative_to(ROOT)} ready in "
+        f"{time.perf_counter() - t0:.2f} s")
+    big = OUT_DIR / "cornell_mesh_big.json"
+    if not big.is_file():
+        big = write_big_mesh()
+    for name, path in (("5k", MESH_SCENE), ("80k", LARGE["80k"]), ("500k", LARGE["500k"]),
+                       ("1.1 M knot", big)):
+        key = {"80k": "80k", "500k": "500k", "1.1 M knot": "big"}.get(name)
+        if key in LOADED:
+            scene, parsed = LOADED[key][0], "cached"
+        else:
+            t0 = time.perf_counter()
+            scene = load_scene(str(path), build_acceleration=False)
+            parsed = f"parsed in {time.perf_counter() - t0:.2f} s"
+        verts, cents = scene.tri_positions, scene.tri_centroids
+        t0 = time.perf_counter()
+        native = build_bvh(verts, cents, 4, use_native=True)
+        t_nat = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        numpy_tree = build_bvh(verts, cents, 4, use_native=False)
+        t_np = time.perf_counter() - t0
+        bvh_invariants(native, verts, 4)
+        bvh_invariants(numpy_tree, verts, 4)
+        log(f"    {name} ({verts.shape[0]} triangles; {parsed}): BVH build native "
+            f"{t_nat:.3f} s ({native.num_nodes} nodes), NumPy {t_np:.3f} s "
+            f"({numpy_tree.num_nodes} nodes), {t_np / t_nat:.1f}x; invariants hold for both; "
+            f"leaf order {'equal' if np.array_equal(native.tri_indices, numpy_tree.tri_indices) else 'differs'}")
+
+    films = {}
+    for native in (True, False):
+        scene = load_scene(str(MESH_SCENE), native_bvh=native)
+        dev, static = build_device_scene(scene, device)
+        cam = camera_state(derive_render_camera(scene.state.camera))
+        film = film_ops.new_film(static.pixel_count, device)
+        films[native] = megakernel_iteration(dev, static, RenderConfig(native_bvh=native), cam,
+                                             film, 1, base_key)
+    differ = int(torch.stack([a != b for a, b in zip(films[True][0], films[False][0])])
+                 .any(0).sum())
+    log(f"[24a] 5k 'auto' frame, native tree against the NumPy tree: {differ} of "
+        f"{static.pixel_count} pixels differ; alive counts equal "
+        f"{torch.equal(films[True][1], films[False][1])}")
+    res = compare_films("5k native vs NumPy tree", films[True][0], films[False][0])
+    if not (res["finite"] and res["sum_rel"] <= MAX_SUM_REL
+            and res["pixel_share"] <= MAX_PIXEL_SHARE):
+        raise AssertionError(f"the native tree's 5k film disagrees with the NumPy tree's: {res}")
+
+    # -- 24b. tiers against none, frame by frame ---------------------------
+    frames = (
+        ("5k auto", MESH_SCENE, None, {}, "mesh"),
+        ("20k auto", LARGE["20k"], "20k", {}, "mesh"),
+        ("80k auto", LARGE["80k"], "80k", {}, "mesh"),
+        ("200k binned", LARGE["200k"], "200k", dict(mxu_traversal="binned"), "mesh"),
+        ("textured prims", PRIM_TEX, None, {}, "tex"),
+        ("textured mesh", MESH_TEX, None, {}, "mesh"),
+        ("wavefront, compaction on", SCENE, None,
+         dict(integrator="wavefront", stream_compaction=True), "wavefront"),
+        ("wavefront, adaptive", SCENE, None,
+         dict(integrator="wavefront", stream_compaction="adaptive"), "wavefront"),
+    )
+    body_of = {"mesh": (fused, "_fused_mesh_bounce_at", 3),
+               "tex": (fused, "_fused_tex_bounce_at", 3),
+               "wavefront": (wavefront, "intersect_scene", 2)}
+    counters = {c.__name__: c for c in (
+        mxu.mono_intersect, mxu.planned_lanebest_intersect, mxu.streamed_intersect,
+        mxu.binned_intersect, fused.fused_mesh_shade, scan.scan_flat)}
+    reps = {"80k auto": 1, "200k binned": 1, "wavefront, compaction on": 1,
+            "wavefront, adaptive": 1}
+    log(f"[24b] bounce_prefix_tiers={TIERS} against () at 800x800, depth 8, one spp a frame, "
+        f"on {smi}:")
+    verdicts = {}
+    for tag, path, cached, kw, kind in frames:
+        scene, dev, static, cam = scene_of(cached, path)
+        n = static.pixel_count
+        iterate = wavefront_iteration if kind == "wavefront" else megakernel_iteration
+        cfgs = {t: RenderConfig(bounce_prefix_tiers=t, **kw) for t in (TIERS, ())}
+        rows, out = [], {}
+        mod, fname, at = body_of[kind]
+        for t, cfg in cfgs.items():
+            rows.clear()
+            before = {k: c.launches for k, c in counters.items()}
+            film = film_ops.new_film(n, device)
+            with Spy(mod, fname, lambda a, k: rows.append(a[at].pixel.shape[0])), \
+                    Spy(mxu, "mesh_intersect_mxu", keep("mesh_intersect_mxu", tag, n)), \
+                    Spy(fused, "fused_mesh_shade", keep("fused_mesh_shade", tag, n)), \
+                    Spy(scan, "scan_flat", keep("scan_flat", tag, n)):
+                film, alive = iterate(dev, static, cfg, cam, film, 1, base_key)
+            torch.cuda.synchronize()
+            launches = {k: c.launches - before[k] for k, c in counters.items()
+                        if c.launches - before[k]}
+            out[t] = (film, alive, list(rows), launches)
+        (f1, a1, r1, l1), (f0, a0, r0, l0) = out[TIERS], out[()]
+        bits = sum(bits_differ(a, b) for a, b in zip(f1, f0))
+        alive_eq = torch.equal(a1, a0)
+        log(f"  [24b] {tag} ({n} rays): film values not bit-equal {bits}, alive counts equal "
+            f"{alive_eq} ({a1.tolist()})")
+        log(f"        rows each bounce ran on, tiers {TIERS}: {r1}; (): {r0}")
+        log(f"        launches a frame, tiers: {l1}; (): {l0}")
+        if bits or not alive_eq:
+            raise AssertionError(f"{tag}: the tiered film differs from the untiered one")
+        if kind != "wavefront" or kw["stream_compaction"] is True:
+            if not any(r < n for r in r1):
+                raise AssertionError(f"{tag}: no tier engaged ({r1})")
+        fns = {}
+        for t, cfg in cfgs.items():
+            film = film_ops.new_film(n, device)
+            it = [1]
+
+            def fn(cfg=cfg, film=film, it=it):
+                it[0] += 1
+                iterate(dev, static, cfg, cam, film, it[0], base_key)
+            fns[t] = fn
+        for t in cfgs:
+            log(f"        host reads a frame, tiers {t}: {host_syncs(fns[t])}")
+        times = {t: [] for t in cfgs}
+        for fn in fns.values():
+            fn()
+        torch.cuda.synchronize()
+        order = list(cfgs)
+        for rnd in range(3):
+            for t in (order if rnd % 2 == 0 else order[::-1]):
+                times[t].append(cuda_time_ms(fns[t], reps.get(tag, 3)))
+        med = {t: float(np.median(v)) for t, v in times.items()}
+        spread = max(max(v) - min(v) for v in times.values())
+        slower = med[TIERS] - med[()] > spread and any(r < n for r in r1)
+        verdicts[tag] = slower
+        log(f"        ms/frame by CUDA events on {smi}, median of 3 [min, max] "
+            f"({reps.get(tag, 3)} frames a sample, in turns): tiers {TIERS} {med[TIERS]:.4f} "
+            f"{[round(min(times[TIERS]), 4), round(max(times[TIERS]), 4)]}, () {med[()]:.4f} "
+            f"{[round(min(times[()]), 4), round(max(times[()]), 4)]}; "
+            f"tiers/() {med[TIERS] / med[()]:.4f}; slower beyond the spread: {slower}")
+    log(f"[24b] frames where tiers engage and are slower than () beyond their spread: "
+        f"{[k for k, v in verdicts.items() if v]}")
+
+    # -- 24c. the kernels on sliced heads against their plain versions ------
+    tag = "80k auto, PTT_PLAN_IMPL=pallas"
+    scene, dev, static, cam = scene_of("80k", LARGE["80k"])
+    with env_set(PTT_PLAN_IMPL="pallas"), \
+            Spy(mxu, "plan_prepass", keep("plan_prepass", tag, static.pixel_count)):
+        megakernel_iteration(dev, static, RenderConfig(bounce_prefix_tiers=TIERS), cam,
+                             film_ops.new_film(static.pixel_count, device), 1, base_key)
+    torch.cuda.synchronize()
+    log("[24c] kernels on the sliced heads of the tiered frames against their plain versions:")
+    checked = {}
+    for (name, tag), calls in heads.items():
+        for args, kw in calls:
+            if name == "mesh_intersect_mxu":
+                g = mxu.mesh_intersect_mxu(*args, **{**kw, "plain": False})
+                w = mxu.mesh_intersect_mxu(*args, **{**kw, "plain": True})
+                got, want = [g.t, g.tri], [w.t, w.tri]
+                what = ("#10 binned" if kw.get("binned") else "#4 mono" if kw.get("mono")
+                        else "#7 streamed" if kw.get("streamed") else "#5 planned"
+                        if kw.get("planned") else "#9 sweep")
+            elif name == "fused_mesh_shade":
+                got = tensors(fused.fused_mesh_shade(*args, **kw))
+                want = tensors(fused.fused_mesh_shade_plain(*args, **kw))
+                what = f"#3 shade, mode {kw.get('mode', 'plain')!r}"
+            elif name == "scan_flat":
+                got, want = [scan.scan_flat(*args, **kw)], [scan.scan_flat_plain(*args, **kw)]
+                what = "#12 scan_flat"
+            else:
+                got = list(mxu.plan_prepass(*args, **kw))
+                want = list(mxu.plan_prepass_plain(*args, **kw))
+                what = "#11 plan prepass"
+            torch.cuda.synchronize()
+            diff = sum(bits_differ(a, b) for a, b in zip(got, want))
+            rows = HEAD_ARG[name](args).shape[0]
+            checked.setdefault(what, []).append((tag, rows, diff))
+            if diff or len(got) != len(want):
+                raise AssertionError(f"{what} on a {rows}-row head of {tag}: {diff} values "
+                                     "differ from its plain version")
+    for what, cases in sorted(checked.items()):
+        log(f"    {what}: bit-equal on {len(cases)} heads "
+            f"({sorted({(t, r) for t, r, _ in cases})})")
+    need = {"#3 shade, mode 'plain'", "#3 shade, mode 'textured'", "#3 shade, mode 'precomputed'",
+            "#4 mono", "#5 planned", "#7 streamed", "#10 binned", "#11 plan prepass",
+            "#12 scan_flat"}
+    if not need <= set(checked):
+        raise AssertionError(f"no sliced head reached {sorted(need - set(checked))}")
+    return [], {}
+
+
 # The phases in groups that run whole, in this order (phases 1-2, the card
 # and the build, always run; 9, the profile, goes last over the frames of the
 # groups that ran).  needs: a group whose cached state this one reads.
@@ -2772,6 +3086,8 @@ GROUPS = (
      "scripts/torch_bench_scenes.py --quick as a subprocess on two scenes"),
     ("parallel", (23,), parallel_phases, None,
      "multi-device (pixel, sample) and chunked rendering, cuda:0 named nd times"),
+    ("tiers", (24,), tier_phases, None,
+     "bounce prefix tiers against none on eight frames, the native BVH builder"),
 )
 
 

@@ -6,14 +6,16 @@ tensors with an explicit ``device``, and replaces each Pallas kernel on its
 path with a hand-written CUDA kernel for ``sm_90a`` (``csrc/``), built with
 ``nvcc`` at first use.  It never imports JAX.
 
-Ported so far: the megakernel and wavefront renders of scenes of analytic
-primitives and of triangle meshes of any size in tiles of 1,024 triangles,
-textured or not (scene loading, the RNG, camera rays, box/sphere
+It does everything the JAX package does: the megakernel and wavefront
+renders of scenes of analytic primitives and of triangle meshes of any size
+in tiles of 1,024 triangles, textured or not (scene loading with the native
+C++ BVH builder (``native/``) or NumPy's, the RNG, camera rays, box/sphere
 intersection, the mesh tables and traversals, textures and bump maps, every
-BSDF lobe, stream compaction and material sort, the film, ``Renderer``,
-multi-device and chunked rendering (``parallel``), the CLI with every flag
-of the JAX CLI, and the interactive shell).  The native BVH builder and
-prefix tiers raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+BSDF lobe, stream compaction and material sort, bounce prefix tiers, the
+film, ``Renderer``, multi-device and chunked rendering (``parallel``), the
+CLI with every flag of the JAX CLI, and the interactive shell).  Only the
+TPU workarounds on ``ROADMAP.md``'s do-not-port list raise
+``NotImplementedError``.
 
 Conventional import alias::
 

@@ -89,9 +89,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--bounce-prefix-tiers", default="auto",
-        help="comma-separated ray-count divisors (e.g. '4,2'), parsed as the JAX "
-        "CLI parses them; 'auto' (default) and 'off' run no tiers, anything "
-        "else raises until the tiers are ported",
+        help="comma-separated ray-count divisors (e.g. '4,2'): the mesh, "
+        "textured-prim and wavefront bounces run over the smallest prefix "
+        "holding every alive ray (the same film); 'off' and 'auto' "
+        "(default) run none",
     )
     p.add_argument(
         "--fused-bounce",

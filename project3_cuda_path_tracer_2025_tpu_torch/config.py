@@ -2,21 +2,19 @@
 
 One frozen dataclass, field for field the JAX package's ``RenderConfig``
 (``project3_cuda_path_tracer_2025_tpu/config.py``), so a configuration
-moves between the two packages unchanged.  The port runs both integrators
-on scenes of analytic primitives, textures and meshes of any number of tiles
-of 1,024 triangles, on one device, several, or in chunks of pixels; a field
-that selects a path not ported yet raises ``NotImplementedError`` here, at
-construction, naming the ``ROADMAP.md`` item that will port it.
+moves between the two packages unchanged.  The port runs every path of the
+JAX package: both integrators on scenes of analytic primitives, textures
+and meshes of any number of tiles of 1,024 triangles, with or without
+bounce prefix tiers, the native or the NumPy BVH build, on one device,
+several, or in chunks of pixels.  Only the TPU workarounds on the
+do-not-port list (``ROADMAP.md``) raise ``NotImplementedError``, here, at
+construction.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,8 +47,9 @@ class RenderConfig:
     # BVH build/traversal (meshes only).
     bvh_leaf_size: int = 4
     traversal_max_steps: Optional[int] = None
-    # The native C++ BVH build is not ported (Queue 1: native/).
-    native_bvh: bool = False
+    # The native C++ BVH build (``native/bvh_native.py``; the same tree as
+    # the JAX package's native build).  False builds with NumPy.
+    native_bvh: bool = True
 
     # Fused bounce kernels for prim-only, untextured scenes: "auto" (on a
     # CUDA device), "on" (everywhere; on the CPU the kernel wrappers run
@@ -76,8 +75,10 @@ class RenderConfig:
     mxu_plan: str = "auto"
     mesh_state_order: str = "auto"
     mxu_binned_tiers: tuple = (8, 4, 2)
-    # Static-shape prefix tiers of the fused mesh bounce: "auto" resolves to
-    # none in the port; whether they pay on the card is open (ROADMAP.md).
+    # Prefix tiers of the fused mesh, textured-prim and wavefront bounces:
+    # divisors d, each a prefix of n/d rows that a bounce runs over once
+    # every alive ray lies inside it ("auto": ``resolved_prefix_tiers``).
+    # The film is the same bit for bit with or without them.
     bounce_prefix_tiers: "tuple | str" = "auto"
 
     # Split each iteration into C sequential dispatches over pixel blocks
@@ -176,21 +177,21 @@ class RenderConfig:
                 "mesh_state_order='pixel' is on the do-not-port list (ROADMAP.md, "
                 "Queue 1: a TPU A/B toggle that measured as a loss there)"
             )
-        if self.bounce_prefix_tiers not in ("auto", ()):
-            raise _not_ported(
-                f"bounce_prefix_tiers={self.bounce_prefix_tiers!r}",
-                "Queue 1: prefix tiers and sorting on the card",
-            )
-        if self.native_bvh:
-            raise _not_ported("native_bvh=True", "Queue 1: native/")
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
 
-    def resolved_prefix_tiers(self) -> tuple:
-        """``bounce_prefix_tiers`` resolved: none in the port (the JAX
-        package resolves "auto" to (4, 2) on a TPU and () on the CPU)."""
-        return ()
+    def resolved_prefix_tiers(self, device) -> tuple:
+        """``bounce_prefix_tiers`` with "auto" resolved for ``device``: none,
+        on every device.  The JAX package resolves it to (4, 2) on an
+        accelerator; on the H100 that rule cost the host-bound 5k and 20k
+        mesh frames their tier's host read a bounce (+20% and +7% ms/frame)
+        while it saved 15-17% on the 80k and 200k frames (PERF.md §6,
+        ``chip_smoke.py`` phase 24), so "auto" runs none and (4, 2) is asked
+        for by name."""
+        del device  # the JAX package's rule reads the backend
+        t = self.bounce_prefix_tiers
+        return () if t == "auto" else t
 
     def resolved_pixel_chunks(self, pixel_count: int) -> int:
         """``pixel_chunks`` with 0 (auto) resolved to 1: the JAX package's

@@ -27,6 +27,12 @@ On a CUDA device with ``fused_bounce`` "auto" or "on" (on the CPU with
   ``ops.fused.fused_tex_bounce`` per bounce: the whole intersect and surface
   in torch, the scatter in the mesh-shade kernel's mode "precomputed".
 
+With prefix tiers (``RenderConfig.bounce_prefix_tiers``, by name: "auto"
+runs none) and ray sorting on, the mesh and textured-prim bounces run over the
+smallest prefix of the state that holds every alive ray (``fused.run_tiered``;
+one host read a bounce), the textured prims liveness-packed from bounce 1
+on (every ``ray_sort_every`` bounces); the film is the same bit for bit.
+
 With "off", or ``shader="fake"``, each bounce runs the unfused torch ops
 (the port of the JAX package's XLA path), chosen only by explicit config,
 as in the JAX package.  Termination is the bounces mask.
@@ -102,8 +108,8 @@ def megakernel_iteration(
         (force or auto) and not use_fused and not use_fused_mesh
         and fused.fused_tex_applicable(static, cfg)
     )
-    # Liveness-packed textured-prim bounces (False while prefix tiers
-    # resolve to none; see fused.tex_sort_active).
+    # Liveness-packed (and prefix-tiered) textured-prim bounces: the film
+    # then scatters by pixel.
     tex_sorted = use_fused_tex and fused.tex_sort_active(cfg, device)
     mesh_carry = None  # the mesh-shade kernel's (t_lim, key[, win]) for the next bounce
 
@@ -126,8 +132,12 @@ def megakernel_iteration(
             bounce = fused.fused_prim_bounce_plain if plain else fused.fused_prim_bounce
             paths = bounce(static, cfg, paths, su_key=skey, rng_n=n_global)
         elif use_fused_tex:
-            paths = fused.fused_tex_bounce(dev, static, cfg, paths, su_key=skey, rng_n=n_global,
-                                           plain=plain)
+            # The liveness pack from bounce 1 on: every camera ray is alive
+            # at bounce 0, so a pack there is pure cost.
+            paths = fused.fused_tex_bounce(
+                dev, static, cfg, paths, su_key=skey, rng_n=n_global, plain=plain,
+                resort=tex_sorted and d > 0 and d % max(1, cfg.ray_sort_every) == 0,
+            )
         else:
             su = uniforms(skey, 3)
             isect = intersect_scene(dev, static, paths, cfg)

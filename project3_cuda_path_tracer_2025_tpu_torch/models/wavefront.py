@@ -16,8 +16,14 @@ wavefront film is bit-identical to the megakernel's unfused
 ``stream_compaction="adaptive"`` packs only once fewer than half the slots
 are alive: the JAX package decides with a ``lax.cond`` on the device; here
 the alive count is read to the host, one synchronizing read per bounce.
-The JAX package's prefix tiers resolve to none in the port
-(``RenderConfig.resolved_prefix_tiers``).
+
+Prefix tiers (``RenderConfig.resolved_prefix_tiers``), with compaction on:
+compaction packs every alive ray into a front prefix, so the whole bounce
+-- intersect, material sort, draws, shade and the compaction itself --
+runs over the smallest tier holding them (``fused.run_tiered``; one host
+read a bounce), the dead tail untouched.  "adaptive" then compares the
+alive count with the engaged tier's rows.  The film is the same bit for
+bit.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from ..ops import camera as camera_ops
 from ..ops import film as film_ops
 from ..ops import shade as shade_ops
 from ..ops.compaction import compact_paths, sort_paths_by_material
+from ..ops.fused import run_tiered, tier_sizes
 from ..ops.intersect import intersect_scene
 from ..scene.camera import CameraState
 from ..scene.device import DeviceScene, SceneStatic
@@ -60,22 +67,30 @@ def wavefront_iteration(
         prng.uniforms(prng.stage_key(ikey, 0, 0), n, 4, device, base=base, rng_n=n_global),
         idx=torch.arange(base, base + n, dtype=torch.int32, device=device),
     )
+    tiers = cfg.resolved_prefix_tiers(device)
+    npres = tier_sizes(n, tiers) if tiers and cfg.stream_compaction else []
     alive_counts = torch.zeros((depth,), dtype=torch.int32, device=device)
     for d in range(depth):
-        isect = intersect_scene(dev, static, paths, cfg)
-        if cfg.material_sorting:
-            paths, isect = sort_paths_by_material(paths, isect)
-        # Each slot draws its pixel's stream: permutations are invisible.
-        su = prng.uniforms_at(prng.stage_key(ikey, d, 1), paths.pixel, 3, n_global)
-        paths = shade_ops.shade(dev, static, paths, isect, su, cfg)
-        if cfg.stream_compaction == "adaptive":
-            # Pack only when mostly dead: the permutation is pure overhead on
-            # mostly-live bounces.  Image-identical either way.  A block
-            # decides on its own rays, as the JAX package's shard does.
-            if 2 * int(torch.sum(paths.alive.to(torch.int32))) < n:
-                paths = compact_paths(paths)[0]
-        elif cfg.stream_compaction:
-            paths = compact_paths(paths)[0]
+
+        def stages(head, d=d):
+            isect = intersect_scene(dev, static, head, cfg)
+            if cfg.material_sorting:
+                head, isect = sort_paths_by_material(head, isect)
+            # Each slot draws its pixel's stream: permutations are invisible.
+            su = prng.uniforms_at(prng.stage_key(ikey, d, 1), head.pixel, 3, n_global)
+            head = shade_ops.shade(dev, static, head, isect, su, cfg)
+            if cfg.stream_compaction == "adaptive":
+                # Pack only when mostly dead: the permutation is pure overhead
+                # on mostly-live bounces.  Image-identical either way.  A block
+                # decides on its own rays, as the JAX package's shard does, and
+                # a tier on its own rows.
+                if 2 * int(torch.sum(head.alive.to(torch.int32))) < head.pixel.shape[0]:
+                    head = compact_paths(head)[0]
+            elif cfg.stream_compaction:
+                head = compact_paths(head)[0]
+            return head
+
+        paths = run_tiered(paths, npres, stages)
         alive_counts[d] = torch.sum(paths.alive.to(torch.int32))
     film = film_ops.accumulate(film, paths, permuted=True, base=base)
     return film, alive_counts

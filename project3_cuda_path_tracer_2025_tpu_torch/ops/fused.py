@@ -45,8 +45,8 @@ from . import camera as camera_ops
 from . import film as film_ops
 from . import intersect_mxu, kernels
 from . import shade as shade_ops
-from .compaction import permute_path_state
-from .intersect import intersect_scene, intersect_winner, prim_t_min, ray_sorting_on
+from .compaction import front_pack_permutation, permute_path_state
+from .intersect import FLT_MAX, intersect_scene, intersect_winner, prim_t_min, ray_sorting_on
 from .rays import Intersections, PathState
 
 
@@ -716,21 +716,117 @@ def fused_mesh_bounce(
     ``carry_winner`` too ``(paths, (t_lim, key | None, win))``: the prim
     that gives each ray's t_lim, which the next bounce's shade takes instead
     of testing every prim (the prepass gives it at the first bounce).  The
-    film is the same bit for bit either way.  The JAX package's bounce
-    prefix tiers resolve to none in the port
-    (``RenderConfig.bounce_prefix_tiers``).  ``plain`` runs both kernels'
+    film is the same bit for bit either way.  ``plain`` runs both kernels'
     plain versions instead, on any device (the reference the kernels are
-    held to on the card)."""
-    rng_n = rng_n or paths.pixel.shape[0]
-    sort_rays = ray_sorting_on(cfg, paths.origin.x.device)
-    return _fused_mesh_bounce_at(
-        dev, static, cfg, paths, resort, su_key, rng_n, sort_rays, carry,
-        want_carry, plain, carry_winner,
+    held to on the card).
+
+    With prefix tiers (``cfg.resolved_prefix_tiers``) and sorting on, the
+    whole bounce runs over the smallest tier holding every alive ray
+    (``run_tiered_carry``): the persistent sort packs the alive rays into
+    the previous bounce's alive prefix, so every stage -- prepass, sort,
+    traversal, attributes, the shade kernel -- takes ``[:npre]`` rows and
+    the dead tail passes through.  Every stage is per ray with
+    pixel-keyed draws, so only the dead rows' layout differs, which the
+    by-pixel film scatter erases: the film is the same bit for bit."""
+    n = paths.pixel.shape[0]
+    rng_n = rng_n or n
+    device = paths.origin.x.device
+    sort_rays = ray_sorting_on(cfg, device)
+    npres = tier_sizes(n, cfg.resolved_prefix_tiers(device)) if sort_rays else []
+
+    def body(head, head_carry):
+        # The binned pair budget stays anchored to the unsliced count: a
+        # budget of the head's own would overflow on mid bounces and fall
+        # back to the streamed walk (the JAX package's budget_anchor_n).
+        return _fused_mesh_bounce_at(
+            dev, static, cfg, head, resort, su_key, rng_n, sort_rays, head_carry,
+            want_carry, plain, carry_winner, budget_rays=n,
+        )
+
+    return run_tiered_carry(paths, carry, npres, body, want_carry)
+
+
+def tier_sizes(n: int, tiers) -> list:
+    """Prefix-tier row counts for an n-ray state: each configured divisor d
+    yields an n/d prefix rounded UP to intersect-block units (256 rows --
+    every kernel pads internally so any multiple works, and 256 keeps tiers
+    engageable at test-sized ray counts)."""
+    npres = []
+    unit = 256
+    for div in sorted({int(d) for d in tiers}, reverse=True):
+        npre = min(n, ((n // max(1, div) + unit - 1) // unit) * unit)
+        if 0 < npre < n and npre not in npres:
+            npres.append(npre)
+    return npres
+
+
+def engaged_tier(paths: PathState, npres: list):
+    """The smallest of ``npres`` that holds every alive ray (the last alive
+    position below it; one host read), or None for the full state.  The
+    JAX package's ``lax.cond`` chain on the same predicate."""
+    if not npres:
+        return None
+    live_pos = intersect_mxu.live_position(paths.alive)
+    return next((p for p in sorted(npres) if live_pos < p), None)
+
+
+def _head(paths: PathState, npre: int) -> PathState:
+    """The first ``npre`` rows of ``paths`` (views)."""
+    cut = lambda a: a[:npre]
+    return PathState(Vec3(*map(cut, paths.origin)), Vec3(*map(cut, paths.direction)),
+                     Vec3(*map(cut, paths.color)), cut(paths.pixel), cut(paths.bounces))
+
+
+def _join(head: PathState, paths: PathState, npre: int) -> PathState:
+    """``head`` over the first ``npre`` rows of ``paths``, its tail after."""
+    cat = lambda a, b: torch.cat([a, b[npre:]])
+    return PathState(*(Vec3(*map(cat, h, p)) for h, p in zip(head[:3], paths[:3])),
+                     cat(head.pixel, paths.pixel), cat(head.bounces, paths.bounces))
+
+
+def run_tiered(paths: PathState, npres: list, body) -> PathState:
+    """Run ``body`` (a whole bounce, PathState -> PathState) over the
+    smallest of the prefixes ``npres`` that holds every alive ray (the
+    caller keeps the alive rays packed at the front), the dead tail
+    passing through untouched; over the full state when none holds them."""
+    return run_tiered_carry(paths, None, npres, lambda head, _: body(head), False)
+
+
+def run_tiered_carry(paths: PathState, carry, npres: list, body, want_carry: bool):
+    """``run_tiered`` for the mesh bounce, whose body also takes and (with
+    ``want_carry``) returns the carry ``(t_lim, key | None[, win])``: the
+    carry is cut to the head, and the full-length carry out gets constant
+    tails.  A row past the engaged tier is dead, and stays past every later
+    bounce's tier (the alive rays only shrink into the prefix), so no later
+    bounce reads its tail values for a live ray: t_lim ``FLT_MAX``, the key
+    ``DEAD_KEY`` (which a dead ray's key is, so the sort keeps those rows
+    last), and the winner -1, "no prim" (a dead lane's prim hit is never
+    used, and -1 is the value the shade already takes for a lane no prim
+    bounds, so it indexes nothing)."""
+    npre = engaged_tier(paths, npres)
+    if npre is None:
+        return body(paths, carry)
+    head_carry = None if carry is None else tuple(
+        None if c is None else c[:npre] for c in carry)
+    out = body(_head(paths, npre), head_carry)
+    out_p, out_c = out if want_carry else (out, None)
+    full_p = _join(out_p, paths, npre)
+    if not want_carry:
+        return full_p
+    tail = paths.pixel.shape[0] - npre
+    fills = (FLT_MAX, intersect_mxu.DEAD_KEY, -1)
+    full_c = tuple(
+        None if c is None else torch.cat([c, c.new_full((tail,), fill)])
+        for c, fill in zip(out_c, fills)
     )
+    return full_p, full_c
 
 
 def _mesh_traversal(tables, static: SceneStatic, cfg: RenderConfig, paths: PathState,
-                    t_lim: torch.Tensor, plain: bool):
+                    t_lim: torch.Tensor, plain: bool, budget_rays: int = None):
+    """The traversal of a fused bounce's rays; ``budget_rays`` anchors the
+    binned pair budget (the frame's unsliced ray count under a prefix tier;
+    by default the rays given)."""
     return intersect_mxu.mesh_intersect_mxu(
         tables, static.num_triangles, static.mxu_padded_tris, paths.origin,
         paths.direction, paths.alive, t_lim, cfg.baby_epsilon,
@@ -738,20 +834,19 @@ def _mesh_traversal(tables, static: SceneStatic, cfg: RenderConfig, paths: PathS
         **intersect_mxu.traversal_flags(
             cfg.mxu_traversal, static.mxu_padded_tris,
             binned_tiers=cfg.mxu_binned_tiers,
-            # the pair budget's anchor: the unsliced ray count
-            binned_budget_rays=paths.pixel.shape[0],
+            binned_budget_rays=budget_rays or paths.pixel.shape[0],
         ),
     )
 
 
 def mesh_surface(tables, static: SceneStatic, cfg: RenderConfig, paths: PathState,
-                 t_lim: torch.Tensor, plain: bool = False):
+                 t_lim: torch.Tensor, plain: bool = False, budget_rays: int = None):
     """The mesh half of a fused bounce's surface, in torch around the
     traversal: ``(mesh_t, mesh_normal, mesh_mat)`` -- the traversal's t,
     the winner's interpolated vertex normal (zero without a mesh hit) and
     its material (-1 without a mesh hit)."""
     ro, rd = paths.origin, paths.direction
-    mh = _mesh_traversal(tables, static, cfg, paths, t_lim, plain)
+    mh = _mesh_traversal(tables, static, cfg, paths, t_lim, plain, budget_rays)
     tri_hit = mh.tri >= 0
     at = intersect_mxu.resolve_shade_attributes(tables, static.mxu_padded_tris, mh.tri)
     uu, vv = intersect_mxu.winner_uv_from_geom(
@@ -768,7 +863,7 @@ def mesh_surface(tables, static: SceneStatic, cfg: RenderConfig, paths: PathStat
 
 
 def textured_mesh_surface(dev, static: SceneStatic, cfg: RenderConfig, paths: PathState,
-                          t_lim: torch.Tensor, plain: bool = False):
+                          t_lim: torch.Tensor, plain: bool = False, budget_rays: int = None):
     """``mesh_surface`` of a scene with textures on mesh materials:
     ``(mesh_t, shading_normal, mesh_mat, albedo)``.  The full attribute rows
     (``resolve_attributes``: normals 0-8, uv 9-14, dpdu/dpdv 15-20, the
@@ -778,7 +873,7 @@ def textured_mesh_surface(dev, static: SceneStatic, cfg: RenderConfig, paths: Pa
     albedo and the bump-perturbed normal (zero without a mesh hit)."""
     tables = dev.mxu_mesh
     ro, rd = paths.origin, paths.direction
-    mh = _mesh_traversal(tables, static, cfg, paths, t_lim, plain)
+    mh = _mesh_traversal(tables, static, cfg, paths, t_lim, plain, budget_rays)
     tri_hit = mh.tri >= 0
     at = intersect_mxu.resolve_attributes(tables, static.mxu_padded_tris, mh.tri)
     uu, vv = intersect_mxu.winner_uv_from_geom(
@@ -806,7 +901,10 @@ def textured_mesh_surface(dev, static: SceneStatic, cfg: RenderConfig, paths: Pa
 
 
 def _fused_mesh_bounce_at(dev, static, cfg, paths, resort, su_key, rng_n,
-                          sort_rays, carry, want_carry, plain, carry_winner):
+                          sort_rays, carry, want_carry, plain, carry_winner,
+                          budget_rays=None):
+    """The mesh bounce's body (``fused_mesh_bounce``), over the whole state
+    or a prefix tier's head of it."""
     ckey = win = None
     if carry is not None:
         t_lim, ckey, *rest = carry
@@ -831,10 +929,11 @@ def _fused_mesh_bounce_at(dev, static, cfg, paths, resort, su_key, rng_n,
 
     if static.num_textures > 0:
         mesh_t, mesh_normal, mesh_mat, albedo = textured_mesh_surface(
-            dev, static, cfg, paths, t_lim, plain)
+            dev, static, cfg, paths, t_lim, plain, budget_rays)
         mode = "textured"
     else:
-        mesh_t, mesh_normal, mesh_mat = mesh_surface(tables, static, cfg, paths, t_lim, plain)
+        mesh_t, mesh_normal, mesh_mat = mesh_surface(tables, static, cfg, paths, t_lim, plain,
+                                                     budget_rays)
         mode, albedo = "plain", None
     prim_static = dataclasses.replace(static, num_triangles=0)
     emit = ""
@@ -866,11 +965,9 @@ def fused_tex_applicable(static: SceneStatic, cfg: RenderConfig) -> bool:
 def tex_sort_active(cfg: RenderConfig, device) -> bool:
     """Whether the textured-prim bounce runs liveness-packed (and so prefix
     tiered, its film scattered by pixel).  A pure liveness sort only buys
-    the tier slicing, so it engages only when tiers are configured; the
-    port's prefix tiers resolve to none (``RenderConfig.resolved_prefix_tiers``;
-    ``ROADMAP.md`` Queue 1, "Launch count: prefix tiers, or launches shrunk
-    to the alive prefix"), so this is False there."""
-    return bool(cfg.resolved_prefix_tiers()) and ray_sorting_on(cfg, device)
+    the tier slicing, so it engages only when tiers are configured
+    (``RenderConfig.resolved_prefix_tiers``) and sorting is on."""
+    return bool(cfg.resolved_prefix_tiers(device)) and ray_sorting_on(cfg, device)
 
 
 def fused_tex_bounce(
@@ -881,6 +978,7 @@ def fused_tex_bounce(
     su_key: tuple,
     rng_n: int = None,
     plain: bool = False,
+    resort: bool = True,
 ) -> PathState:
     """One bounce of a textured-prim scene: ``intersect_scene`` (any mesh
     intersector) and ``shade.textured_surface`` in torch, exactly as the
@@ -888,11 +986,40 @@ def fused_tex_bounce(
     with the uniforms drawn inline.  ``plain`` runs the traversal's and the
     shade kernel's plain versions.
 
-    The JAX package's liveness pack (``_liveness_pack``, behind
-    ``tex_sort_active``) serves only its prefix tiers, which resolve to none
-    here; it comes with them (``ROADMAP.md`` Queue 1, "Launch count: prefix
-    tiers, or launches shrunk to the alive prefix")."""
-    rng_n = rng_n or paths.pixel.shape[0]
+    With ``tex_sort_active``, the bounce runs liveness-packed: with
+    ``resort`` a stable alive-first permutation (``_liveness_pack``; pixel
+    order kept within the alive and the dead rays, so texel locality is
+    unchanged) packs the alive rays into a prefix, and the whole bounce --
+    intersect, surface, the shade kernel -- runs over the smallest prefix
+    tier holding them (``run_tiered``; the pack runs inside the tier, so
+    its cost shrinks with the population).  The same film bit for bit:
+    every stage is per ray with pixel-keyed draws (``rng_n``, the frame's
+    pixel count, whatever the rows), and the film scatters by pixel."""
+    n = paths.pixel.shape[0]
+    rng_n = rng_n or n
+    device = paths.origin.x.device
+    sort_rays = tex_sort_active(cfg, device)
+    npres = tier_sizes(n, cfg.resolved_prefix_tiers(device)) if sort_rays else []
+
+    def body(head):
+        if sort_rays and resort:
+            head = _liveness_pack(head)
+        return _fused_tex_bounce_at(dev, static, cfg, head, su_key, rng_n, plain)
+
+    return run_tiered(paths, npres, body)
+
+
+def _liveness_pack(paths: PathState) -> PathState:
+    """Stable alive-first permutation of the whole path state: the
+    compaction's front pack (the scan kernel on the card), which is the
+    stable argsort of ``where(alive, 0, 1)``."""
+    perm, _ = front_pack_permutation(paths.alive)
+    return permute_path_state(paths, perm)[0]
+
+
+def _fused_tex_bounce_at(dev, static, cfg, paths, su_key, rng_n, plain) -> PathState:
+    """The textured-prim bounce's body, over the whole state or a prefix
+    tier's head of it."""
     isect = intersect_scene(dev, static, paths, cfg, plain=plain)
     mid = torch.clamp(isect.material_id, 0, static.num_materials - 1)
     base = vec.select_gather(dev.materials.color, mid.long())

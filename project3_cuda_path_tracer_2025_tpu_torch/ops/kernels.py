@@ -241,12 +241,14 @@ def _nvcc() -> str:
     return found
 
 
-def _source_hash() -> str:
+def _source_hash(sources=SOURCES, flags=NVCC_FLAGS) -> str:
+    """The build directory's name: a hash of the ``csrc/`` files
+    ``sources`` and the compiler ``flags``."""
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in sources:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 

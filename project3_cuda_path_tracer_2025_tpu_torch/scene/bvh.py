@@ -17,12 +17,14 @@ pre-order); miss, or finish a leaf -> jump to ``miss_link[i]``.  Each node is
 visited at most once, so traversal terminates in <= num_nodes steps with one
 ``int32`` of state per ray.
 
-The JAX package can also delegate the build to native C++ code
-(``native/bvh_builder.cpp``) that replicates the reference's in-place swap
-partition ordering bit-for-bit.  That code is not ported yet (ROADMAP.md,
-Queue 1: ``native/``), so this copy builds with the NumPy stable partition
-only (same triangle *sets* per node, possibly different intra-node order --
-renders are identical since closest-hit is order independent).
+The build runs in native C++ code by default (``csrc/bvh_builder.cpp``
+through ``native/bvh_native.py``, the JAX package's builder), which
+replicates the reference's in-place swap partition ordering bit-for-bit.
+``use_native=False`` builds with the NumPy stable partition instead (same
+triangle *sets* per node, possibly different intra-node order -- renders
+are identical since closest-hit is order independent).  Unlike the JAX
+package, the native build never falls back to NumPy: it raises when its
+library cannot be built, so a tree always comes from the builder asked for.
 """
 
 from __future__ import annotations
@@ -74,14 +76,15 @@ def build_bvh(
     tri_vertices: np.ndarray,
     centroids: np.ndarray,
     leaf_size: int = 4,
-    use_native: bool = False,
+    use_native: bool = True,
 ) -> BVH:
-    """Build the BVH. ``tri_vertices``: [T, 3, 3], ``centroids``: [T, 3]."""
+    """Build the BVH. ``tri_vertices``: [T, 3, 3], ``centroids``: [T, 3].
+    ``use_native``: the C++ build (raises ``NativeBuildError`` where its
+    library cannot be built), else the NumPy build."""
     if use_native:
-        raise NotImplementedError(
-            "the native C++ BVH build is not ported yet (ROADMAP.md, "
-            "Queue 1: native/); build with use_native=False"
-        )
+        from ..native import bvh_native
+
+        return _finish(bvh_native.build(tri_vertices, centroids, leaf_size), leaf_size)
     return _build_numpy(tri_vertices, centroids, leaf_size)
 
 

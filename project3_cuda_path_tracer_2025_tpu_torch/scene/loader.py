@@ -53,7 +53,7 @@ def _vec3(x) -> np.ndarray:
 def load_scene(
     path: str,
     leaf_size: int = 4,
-    native_bvh: bool = False,
+    native_bvh: bool = True,
     build_acceleration: bool = True,
 ) -> HostScene:
     """Load a reference-format JSON scene file."""
@@ -69,7 +69,7 @@ def scene_from_dict(
     data: dict,
     base_dir: str = ".",
     leaf_size: int = 4,
-    native_bvh: bool = False,
+    native_bvh: bool = True,
     build_acceleration: bool = True,
 ) -> HostScene:
     """Build the scene from a reference-format document already in memory

@@ -82,6 +82,7 @@ def _captured_config(monkeypatch, argv):
     (["--fused-bounce", "on"], "fused_bounce", "on"),
     (["--spp-per-launch", "5"], "spp_per_launch", 5),
     (["--bounce-prefix-tiers", "off"], "bounce_prefix_tiers", ()),
+    (["--bounce-prefix-tiers", "4,2"], "bounce_prefix_tiers", (4, 2)),
     ([], "bounce_prefix_tiers", "auto"),
 ])
 def test_each_flag_reaches_its_config_field(monkeypatch, argv, field, value):
@@ -98,11 +99,13 @@ def test_cpu_is_device_cpu(monkeypatch):
     assert _captured_config(monkeypatch, [DOF])["device"] == "cuda"
 
 
-def test_prefix_tiers_parse_and_raise_from_the_config():
-    with pytest.raises(NotImplementedError, match="prefix tiers"):
-        cli.main([DOF, "--cpu", "--bounce-prefix-tiers", "4,2"])
-    with pytest.raises(NotImplementedError, match=r"\(4, 2\)"):
-        cli.main([DOF, "--cpu", "--bounce-prefix-tiers=4,2"])
+def test_prefix_tiers_parse_and_raise_from_the_config(monkeypatch):
+    """Prefix tiers are ported: both spellings of the flag build the JAX
+    CLI's tuple (before the slice that ported them, the config raised)."""
+    for argv in (["--bounce-prefix-tiers", "4,2"], ["--bounce-prefix-tiers=4,2"]):
+        seen = _captured_config(monkeypatch, [DOF, "--cpu", *argv])
+        assert seen["cfg"].bounce_prefix_tiers == (4, 2)
+        assert seen["cfg"].resolved_prefix_tiers("cpu") == (4, 2)
 
 
 @pytest.mark.parametrize("flag", ["--devices", "--parallel-mode", "--pixel-chunks",

@@ -1231,3 +1231,122 @@ def test_measuring_scripts_run_on_the_card(cuda, capsys):
             assert all(t is not None and t > 0 for t in timed), name
     finally:
         sys.path.remove(str(REPO / "scripts"))
+
+
+# ---------------------------------------------------------------------------
+# Bounce prefix tiers (the kernels on a sliced head) and the native BVH
+# builder on the card's machine
+# ---------------------------------------------------------------------------
+
+# case -> (scene, resolution, config, the bounce body the tiers slice).  The
+# wavefront at 256x256: its heads (16,384 and 32,768 rows) reach the scan
+# kernel, which takes 16,384 flags and more.
+TIER_CASES = {
+    "mesh 5k": (MESH, 128, {}, "mesh"),
+    "mesh 20k binned": ("cornell_mesh_20k.json", 128, dict(mxu_traversal="binned"), "mesh"),
+    "mesh 80k streamed": ("cornell_mesh_80k.json", 128, {}, "mesh"),
+    "textured prims": (PRIM_TEX, 128, {}, "tex"),
+    "textured mesh": (MESH_TEX, 128, {}, "mesh"),
+    "wavefront": ("cornell_dof.json", 256, dict(integrator="wavefront", stream_compaction=True),
+                  "wavefront"),
+}
+
+
+@pytest.mark.parametrize("case", list(TIER_CASES))
+def test_tiered_paths_match_plain_on_sliced_heads(cuda, case, monkeypatch):
+    """Tiers (4, 2) against none on the card: the kernel frames bit-equal
+    with equal alive counts, a tier engaged (the bounce bodies' rows), each
+    kernel called on a head (the traversal, the shade in its mode, the scan)
+    bit-equal to its plain version on the same head, and the tiered kernel
+    frame against the tiered ``plain=True`` frame at the film bars."""
+    from project3_cuda_path_tracer_2025_tpu_torch.models import wavefront
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import scan
+
+    name, res, kw, kind = TIER_CASES[case]
+    dev, static, cam = _setup(name, res, cuda)
+    n = static.pixel_count
+    rows, heads = [], []
+    body = {"mesh": (fused, "_fused_mesh_bounce_at", 3), "tex": (fused, "_fused_tex_bounce_at", 3),
+            "wavefront": (wavefront, "intersect_scene", 2)}[kind]
+
+    def spy(mod, fname, take):
+        fn = getattr(mod, fname)
+
+        def run(*args, **k):
+            take(fname, fn, args, k)
+            return fn(*args, **k)
+        run.__dict__ = fn.__dict__  # the wrapper's launch count is the function's
+        monkeypatch.setattr(mod, fname, run)
+
+    spy(body[0], body[1], lambda f, fn, a, k: rows.append(a[body[2]].pixel.shape[0]))
+    head_rows = {"mesh_intersect_mxu": lambda a: a[3].x.shape[0],
+                 "fused_mesh_shade": lambda a: a[2].origin.x.shape[0],
+                 "scan_flat": lambda a: a[0].shape[0]}
+
+    def keep(fname, fn, args, k):
+        if head_rows[fname](args) < n:
+            heads.append((fname, fn, args, k))
+    spy(intersect_mxu, "mesh_intersect_mxu", keep)
+    spy(fused, "fused_mesh_shade", keep)
+    spy(scan, "scan_flat", keep)
+    iterate = wavefront_iteration if kind == "wavefront" else megakernel_iteration
+    out = {}
+    for tiers in ((4, 2), ()):
+        rows.clear()
+        film = film_ops.new_film(n, cuda)
+        out[tiers] = iterate(dev, static, RenderConfig(bounce_prefix_tiers=tiers, **kw), cam,
+                             film, 1, prng.prng_key(0)) + (list(rows),)
+    (f1, a1, r1), (f0, a0, r0) = out[(4, 2)], out[()]
+    assert all(torch.equal(a, b) for a, b in zip(f1, f0))
+    assert torch.equal(a1, a0)
+    assert min(r1) < n and set(r0) == {n}, (r1, r0)
+    kinds = set()
+    for fname, fn, args, k in heads:
+        if fname == "mesh_intersect_mxu":
+            got, want = fn(*args, **{**k, "plain": False}), fn(*args, **{**k, "plain": True})
+            pairs = [(got.t, want.t), (got.tri, want.tri)]
+        elif fname == "fused_mesh_shade":
+            flat = lambda o: [o] if isinstance(o, torch.Tensor) else (
+                [] if o is None else [x for e in o for x in flat(e)])
+            pairs = list(zip(flat(fn(*args, **k)), flat(fused.fused_mesh_shade_plain(*args, **k))))
+            fname = f"shade {k.get('mode', 'plain')}"
+        else:
+            pairs = [(fn(*args, **k), scan.scan_flat_plain(*args, **k))]
+        assert all(torch.equal(a, b) for a, b in pairs), (case, fname)
+        kinds.add(fname)
+    want_kinds = {"mesh": {"mesh_intersect_mxu", "shade plain"}, "wavefront": {"scan_flat"},
+                  "tex": {"mesh_intersect_mxu", "shade precomputed"}}[kind]
+    if name == MESH_TEX:
+        want_kinds = {"mesh_intersect_mxu", "shade textured"}
+    assert want_kinds <= kinds, (case, kinds)
+    if kind != "wavefront":
+        film_p, alive_p = megakernel_iteration(
+            dev, static, RenderConfig(bounce_prefix_tiers=(4, 2), **kw), cam,
+            film_ops.new_film(n, cuda), 1, prng.prng_key(0), plain=True)
+        got = torch.stack(list(f1), 1).cpu().numpy()
+        want = torch.stack(list(film_p), 1).cpu().numpy()
+        outside = ~np.isclose(got, want, rtol=2e-4, atol=2e-5)
+        assert outside.any(axis=1).mean() <= 0.005
+        np.testing.assert_allclose(got.sum(), want.sum(), rtol=1e-4)
+
+
+def test_native_bvh_on_the_cards_machine(cuda):
+    """The native BVH builder builds and loads where the card is; the
+    renderer's default tree is its tree, and the 5k frame with it agrees
+    with the NumPy tree's at the film bars."""
+    from project3_cuda_path_tracer_2025_tpu_torch.native import bvh_native
+
+    assert bvh_native.load() is not None and bvh_native.library_path().is_file()
+    path = str(REPO / "scenes" / MESH)
+    scene = set_resolution(load_scene(path), 64, 64)
+    native = bvh_native.build(scene.tri_positions, scene.tri_centroids, 4)
+    assert np.array_equal(scene.bvh.tri_indices, native["tri_indices"])
+    films = []
+    for tree in (True, False):
+        r = Renderer(set_resolution(load_scene(path, native_bvh=tree), 64, 64),
+                     RenderConfig(native_bvh=tree), device=cuda)
+        r.step_many(2)
+        films.append(torch.stack(list(r.film), 1).cpu().numpy())
+    outside = ~np.isclose(films[0], films[1], rtol=2e-4, atol=2e-5)
+    assert outside.any(axis=1).mean() <= 0.005
+    np.testing.assert_allclose(films[0].sum(), films[1].sum(), rtol=1e-4)

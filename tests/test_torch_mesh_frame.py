@@ -4,7 +4,8 @@ the JAX package's ``Renderer``.
 
 At 16x16, depth 3 (cut from the scene's 8 to keep the JAX compile short),
 2 spp, seed 0, ``mesh_intersector="mxu"``, ``fused_bounce="on"``, both
-scenes built by the NumPy BVH construction.  The port renders once per
+scenes built by the NumPy BVH construction (``native_bvh=False`` on both
+sides: the port's default is the native build).  The port renders once per
 traversal (``mxu_traversal`` auto = planned with the lane-best walk,
 planned, streamed, binned; the plain versions of their kernels here): the
 films must be bit-identical, since every traversal gives each ray the same
@@ -37,7 +38,7 @@ CONFIG = dict(mesh_intersector="mxu", fused_bounce="on")
 
 @pytest.fixture(scope="module")
 def port_films():
-    scene = set_resolution(load_scene(MESH), RES, RES)
+    scene = set_resolution(load_scene(MESH, native_bvh=False), RES, RES)
     scene.state.trace_depth = DEPTH
     out = {}
     for mode in ("auto", "planned", "streamed", "binned"):

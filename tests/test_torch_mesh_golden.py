@@ -3,8 +3,9 @@
 Each ``tests/torch_goldens/<name>.npz`` is a 32x32, 2 spp, seed 0 film of
 one mesh scene (its own depth 8) rendered by the JAX package on the CPU
 with ``mesh_intersector="mxu"`` and ``fused_bounce="on"``, the scene built
-by the NumPy BVH construction (``native_bvh=False``, the one the port
-has), so triangle ids are the same on both sides:
+by the NumPy BVH construction (``native_bvh=False``; the port renders
+with it too, not with its default native build), so triangle ids are the
+same on both sides:
 
 * ``mesh5k.npz``: ``scenes/cornell_mesh_5k.json`` (5 tiles: the mono
   traversal);
@@ -78,7 +79,8 @@ def test_port_cpu_render_matches_golden(name):
     from project3_cuda_path_tracer_2025_tpu_torch.scene import load_scene, set_resolution
 
     g = np.load(golden_path(name))
-    r = Renderer(set_resolution(load_scene(str(REPO / "scenes" / GOLDENS[name])), RES, RES),
+    r = Renderer(set_resolution(load_scene(str(REPO / "scenes" / GOLDENS[name]),
+                                        native_bvh=False), RES, RES),
                  RenderConfig(**CONFIG), seed=0, device="cpu")
     r.step_many(SPP)
     assert_films_close(torch.stack(list(r.film), 1).numpy(), g["film"])

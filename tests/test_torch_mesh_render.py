@@ -43,7 +43,7 @@ CONFIGS = {
 
 
 def _port(**cfg):
-    scene = set_resolution(load_scene(MESH), RES, RES)
+    scene = set_resolution(load_scene(MESH, native_bvh=False), RES, RES)
     scene.state.trace_depth = DEPTH
     r = Renderer(scene, RenderConfig(**cfg), seed=0, device="cpu")
     r.step_many(SPP)

@@ -55,13 +55,24 @@ def _assert_tables_equal(dev, jdev):
 
 @pytest.fixture(scope="module")
 def mesh5k():
+    # Both packages' NumPy BVH build (the port's default is the native one).
     jdev, jstatic = j_build(j_load(MESH5K, native_bvh=False))
-    dev, static = build_device_scene(load_scene(MESH5K), "cpu")
+    dev, static = build_device_scene(load_scene(MESH5K, native_bvh=False), "cpu")
     return dev, static, jdev, jstatic
 
 
-def test_mesh_device_scene_matches_jax(mesh5k):
-    dev, static, jdev, jstatic = mesh5k
+@pytest.fixture(scope="module")
+def mesh5k_native():
+    """Both packages' native C++ BVH build: the same source, the same tree,
+    so the same leaf order and tables."""
+    jdev, jstatic = j_build(j_load(MESH5K, native_bvh=True))
+    dev, static = build_device_scene(load_scene(MESH5K, native_bvh=True), "cpu")
+    return dev, static, jdev, jstatic
+
+
+@pytest.mark.parametrize("built", ["mesh5k", "mesh5k_native"])
+def test_mesh_device_scene_matches_jax(built, request):
+    dev, static, jdev, jstatic = request.getfixturevalue(built)
     fields = lambda st: {f.name: getattr(st, f.name) for f in dataclasses.fields(st)}
     assert fields(static) == fields(jstatic)
     assert (static.num_triangles, static.mxu_padded_tris) == (5120, 5120)
@@ -84,7 +95,7 @@ def test_from_jax_scene_carries_a_20k_mesh():
     path = str(REPO / "scenes" / "cornell_mesh_20k.json")
     jdev, jstatic = j_build(j_load(path, native_bvh=False))
     dev_a, static_a = from_jax_scene(jax.tree_util.tree_map(np.asarray, jdev), jstatic)
-    dev, static = build_device_scene(load_scene(path), "cpu")
+    dev, static = build_device_scene(load_scene(path, native_bvh=False), "cpu")
     assert static_a == static and static.mxu_padded_tris == 20 * 1024
     _assert_tables_equal(dev_a, jdev)
     assert torch.equal(dev_a.mxu_mesh.coef, dev.mxu_mesh.coef)
@@ -192,13 +203,18 @@ def test_traversal_resolution():
         == dict(planned=False, streamed=False)
     with pytest.raises(ValueError):
         RenderConfig(mxu_traversal="bogus")
-    with pytest.raises(NotImplementedError, match="Queue 1: prefix tiers"):
-        RenderConfig(bounce_prefix_tiers=(4, 2))
+    # Prefix tiers are ported: any tuple builds, and "auto" resolves by the
+    # JAX package's rule for the device.
+    assert RenderConfig(bounce_prefix_tiers=[4, 2]).bounce_prefix_tiers == (4, 2)
+    assert RenderConfig(bounce_prefix_tiers=(4, 2)).resolved_prefix_tiers("cpu") == (4, 2)
     with pytest.raises(NotImplementedError, match="do-not-port"):
         RenderConfig(mesh_state_order="pixel")
     with pytest.raises(NotImplementedError, match="do-not-port"):
         RenderConfig(mxu_plan="frustum")
-    assert RenderConfig(bounce_prefix_tiers=()).resolved_prefix_tiers() == ()
+    assert RenderConfig(bounce_prefix_tiers=()).resolved_prefix_tiers("cuda") == ()
+    assert RenderConfig().resolved_prefix_tiers("cpu") == ()
+    # "auto" runs none on the card either, unlike the JAX package's TPU rule
+    assert RenderConfig().resolved_prefix_tiers(torch.device("cuda", 0)) == ()
 
 
 @pytest.mark.parametrize("device", ["cuda", "cpu"])

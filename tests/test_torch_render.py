@@ -147,14 +147,19 @@ def test_cli_renders_checkpoints_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--integrator", "--devices", "--interactive"])
-def test_cli_unported_flags_raise(flag):
+def test_cli_unported_flags_raise(flag, monkeypatch, capsys):
     if flag in ("--integrator", "--devices"):
         # Ported; "x" is not one of their values, which argparse refuses as
         # the JAX CLI does.
         with pytest.raises(SystemExit):
             cli.main([DOF, flag, "x"])
         return
-    # --interactive is ported; what still raises is the config's unported
-    # prefix tiers, before the shell starts.
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.main([DOF, "--cpu", flag, "--bounce-prefix-tiers", "4,2"])
+    # --interactive and prefix tiers are ported: the config builds and the
+    # shell starts, which without a terminal exits 1 as the JAX CLI's does.
+    import io
+
+    from project3_cuda_path_tracer_2025_tpu_torch import interactive
+
+    monkeypatch.setattr(interactive.sys, "stdin", io.StringIO(""))
+    assert cli.main([DOF, "--cpu", "--res", "8", "8", flag, "--bounce-prefix-tiers", "4,2"]) == 1
+    assert "needs a TTY" in capsys.readouterr().err

@@ -48,9 +48,9 @@ def _load_both(name):
         want = j_load(path, native_bvh=False)
     except Exception as e:  # the port must fail the same way
         with pytest.raises(type(e)):
-            load_scene(path)
+            load_scene(path, native_bvh=False)
         return None, None
-    return want, load_scene(path)
+    return want, load_scene(path, native_bvh=False)
 
 
 @pytest.mark.parametrize("name", LOAD_SCENES)
@@ -168,9 +168,9 @@ print("ok")
 @pytest.mark.parametrize(
     "kw,item",
     [
-        # The wavefront integrator is ported (test_wavefront_config_dispatches);
-        # its prefix tiers are not.
-        pytest.param(dict(integrator="wavefront", bounce_prefix_tiers=(4, 2)), "prefix tiers",
+        # The wavefront integrator is ported (test_wavefront_config_dispatches),
+        # and its prefix tiers (tests/test_torch_tiers.py).
+        pytest.param(dict(integrator="wavefront", bounce_prefix_tiers=(4, 2)), None,
                      id="kw0-wavefront"),
         # Ported: multi-device and chunked rendering build (item None), and
         # their invalid values raise ValueError.
@@ -179,15 +179,20 @@ print("ok")
         # Every traversal is ported ("sweep" too); of the mesh knobs only the
         # do-not-port ones still raise.
         pytest.param(dict(mxu_plan="frustum"), "do-not-port", id="kw3-meshes"),
-        pytest.param(dict(native_bvh=True), "native/", id="kw4-native/"),
+        # The native BVH build is ported (tests/test_torch_native_bvh.py).
+        pytest.param(dict(native_bvh=True), None, id="kw4-native/"),
     ],
 )
 def test_config_raises_for_unported_paths(kw, item):
+    """Only the do-not-port list still raises; a ported path's config
+    builds, and its invalid counts raise ValueError."""
     if item is None:
         cfg = RenderConfig(**kw)
         assert all(getattr(cfg, k) == v for k, v in kw.items())
-        with pytest.raises(ValueError):
-            RenderConfig(**{k: -v for k, v in kw.items()})
+        counts = {k: -v for k, v in kw.items() if type(v) is int}
+        if counts:
+            with pytest.raises(ValueError):
+                RenderConfig(**counts)
         return
     with pytest.raises(NotImplementedError, match=item):
         RenderConfig(**kw)
@@ -221,14 +226,17 @@ def test_mesh_scene_raises_not_ported():
     """Meshes of every size are ported (the 20,480 triangles of
     cornell_mesh_20k.json build; one past the streamed plan's 1,024 tiles,
     which both packages walk with the chunked planned chain, has no gate
-    left and pads to 1,025 tiles).  What still raises for a mesh scene is
-    the native BVH builder, naming its ROADMAP.md item."""
+    left and pads to 1,025 tiles), and so is the native BVH builder that
+    the JAX package's loader defaults to: nothing raises for a mesh scene,
+    with either builder."""
     from project3_cuda_path_tracer_2025_tpu_torch.scene import device
 
-    _, static = build_device_scene(load_scene(str(REPO / "scenes" / "cornell_mesh_20k.json")),
-                                   "cpu")
-    assert static.mxu_padded_tris == 20 * 1024
+    path = str(REPO / "scenes" / "cornell_mesh_20k.json")
+    assert RenderConfig().native_bvh and RenderConfig(native_bvh=True).native_bvh
+    for native in (True, False):
+        scene = load_scene(path, native_bvh=native)
+        _, static = build_device_scene(scene, "cpu")
+        assert static.mxu_padded_tris == 20 * 1024
+        assert sorted(scene.bvh.tri_indices.tolist()) == list(range(20 * 1024))
     assert not hasattr(device, "_check_slice")
     assert device._padded_tris(1024 * 1024 + 1) == 1025 * 1024
-    with pytest.raises(NotImplementedError, match="native/"):
-        RenderConfig(native_bvh=True)

@@ -4,8 +4,9 @@ Each ``tests/torch_goldens/<name>.npz`` is a 32x32, 2 spp, seed 0 film of
 one stand-in scene (its own depth 8) rendered by the JAX package on the CPU
 with ``mesh_intersector="mxu"`` and ``fused_bounce="on"`` (its Pallas shade
 kernel in interpret mode, modes "precomputed" and "textured"), the scene
-built by the NumPy BVH construction (``native_bvh=False``, the one the port
-has), so triangle ids are the same on both sides:
+built by the NumPy BVH construction (``native_bvh=False``; the port renders
+with it too, not with its default native build), so triangle ids are the
+same on both sides:
 
 * ``prim_textured.npz``: ``scenes/cornell_prim_textured_local.json`` (a
   textured sphere beside a mesh: the textured-prim bounce, mode
@@ -98,7 +99,8 @@ def test_port_cpu_tex_render_matches_golden(name):
     from project3_cuda_path_tracer_2025_tpu_torch.scene import load_scene, set_resolution
 
     g = np.load(golden_path(name))
-    r = Renderer(set_resolution(load_scene(str(REPO / "scenes" / GOLDENS[name])), RES, RES),
+    r = Renderer(set_resolution(load_scene(str(REPO / "scenes" / GOLDENS[name]),
+                                        native_bvh=False), RES, RES),
                  RenderConfig(**CONFIG), seed=0, device="cpu")
     assert r.static.num_textures > 0
     r.step_many(SPP)

@@ -59,7 +59,7 @@ def test_texture_fixtures_are_the_generator_output():
 def test_texture_tables_match_jax(name):
     path = str(REPO / "scenes" / name)
     jdev, jstatic = j_build(j_load(path, native_bvh=False))
-    dev, static = build_device_scene(load_scene(path), "cpu")
+    dev, static = build_device_scene(load_scene(path, native_bvh=False), "cpu")
     for f in ("num_textures", "tex_wmax", "tex_hmax", "tex_dims", "prim_textured"):
         assert getattr(static, f) == getattr(jstatic, f), f
     assert static.material_consts == jstatic.material_consts
@@ -75,7 +75,7 @@ def tables():
     """Both packages' tables of the two fixtures (ids 0 and 1)."""
     path = str(REPO / "scenes" / "cornell_mesh_textured_bump_local.json")
     jdev, jstatic = j_build(j_load(path, native_bvh=False))
-    dev, static = build_device_scene(load_scene(path), "cpu")
+    dev, static = build_device_scene(load_scene(path, native_bvh=False), "cpu")
     return dev.textures, static, jdev.textures
 
 
