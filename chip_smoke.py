@@ -30,7 +30,10 @@ winner; phase 7 logs the iteration kernel's lane use from a counting build
 of it.  Phase 23 drives multi-device and chunked rendering on the one card
 (``cuda:0`` named nd times): the block draw of the Threefry kernel, pixel
 mode, ``pixel_chunks``, the 5k mesh and the wavefront held bit for bit to
-the unsharded films, sample mode, and their ms/frame.  Any failure raises
+the unsharded films, sample mode, and their ms/frame.  Phase 25 drives the
+repo's entry points in the port: ``bench_torch.py`` (its line printed),
+``entry()``'s step against the same step on the CPU, and every tag of
+``dryrun_multichip(4)`` on ``cuda:0`` named four times.  Any failure raises
 and exits non-zero.
 
 Output: progress lines, then the card's ``nvidia-smi`` name and power
@@ -53,11 +56,11 @@ sys.path.insert(0, str(ROOT))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# The card's label, CUDA-event timing and the bound (bytes over the card's
-# memory rate against float32 operations over its peak) are the measuring
-# scripts' too.
+# The card's label, CUDA-event timing, the bound (bytes over the card's
+# memory rate against float32 operations over its peak) and the mono walk's
+# work are the measuring scripts' too.
 from project3_cuda_path_tracer_2025_tpu_torch.utils.measure import (  # noqa: E402
-    bound_ms, card_label, event_ms as cuda_time_ms,
+    OPS_MONO_PAIR, OPS_MONO_TILE, bound_ms, card_label, event_ms as cuda_time_ms, mono_work,
 )
 
 sys.path.insert(0, str(ROOT / "scripts"))
@@ -90,8 +93,9 @@ TEX_GOLDENS = {PRIM_TEX: "prim_textured", MESH_TEX: "mesh_textured",
 PLAIN_BLOCKS = 64
 OUT_DIR = ROOT / "build" / "chip_smoke"
 
-# Float32 operations per call of the kernels' device functions, counted
-# from csrc/prim_path.cuh and csrc/mesh_path.cuh: each add, multiply,
+# Float32 operations per call of the kernels' device functions (the mono
+# walk's are utils/measure.py's), counted from csrc/prim_path.cuh and
+# csrc/mesh_path.cuh: each add, multiply,
 # division, square root, sin/cos, min/max, compare and abs is one, an fma
 # two.  Transforms are counted at their folded minimum (a scale and a
 # translation per row), scatter at the diffuse lobe, and integer work
@@ -100,10 +104,7 @@ OPS_BOX, OPS_SPHERE = 78, 60  # box_t, sphere_t
 OPS_NEAREST = 25  # intersect_prims around the tests: compares, winner normal, flip
 OPS_SCATTER = 100  # scatter (diffuse lobe, new origin, throughput)
 OPS_RAYGEN = 45
-OPS_MONO_RAY = 60  # features, reciprocal direction, root cull
 OPS_WALK_RAY = 25  # features and reciprocal direction (the root cull runs in torch)
-OPS_MONO_TILE = 35  # member slab of one tile
-OPS_MONO_PAIR = 41  # 19 fma, division, t, the acceptance tests
 OPS_KEY_TILE, OPS_KEY_RAY = 28, 60  # coherence_key per tile / per ray
 OPS_UNIFORM = 80  # uniform_at: Threefry-2x32's 20 rounds and 5 key injections, the float
 OPS_MERGE = 10  # mesh-hit merge and normal flip
@@ -119,7 +120,8 @@ MAX_ALIVE_REL = 1e-3
 # Stage comparisons (one bounce from identical inputs) are held tighter.
 STAGE_RTOL, STAGE_ATOL = 1e-5, 1e-6
 MAX_STAGE_LANE_SHARE = 1e-4
-TIMING_ROUNDS = 8
+TIMING_ROUNDS = 4  # per-kernel and frame repeats: scripts/torch_bench_kernels.py
+# and torch_bench_scenes.py take the many samples of an A/B
 
 
 def log(msg: str) -> None:
@@ -136,6 +138,9 @@ def prim_ops(static) -> int:
 
 
 def film_np(film) -> np.ndarray:
+    """[N, 3] on the host, from a ``Film`` or an [N, 3] array."""
+    if isinstance(film, np.ndarray):
+        return film
     return torch.stack([film.x, film.y, film.z], dim=1).cpu().numpy()
 
 
@@ -172,43 +177,66 @@ def time_paths(paths_t: dict, rounds: dict) -> dict:
 
 
 def device_busy(fn, calls: int) -> tuple:
-    """``torch.profiler`` over ``calls`` back-to-back calls of ``fn`` (after
-    one warm-up call): (device ms per call, wall ms per call under the
-    profiler, device launches per call, the six device functions that took
-    the most time)."""
+    """``torch.profiler`` over ``calls`` back-to-back calls of ``fn``, after
+    one call under a warm-up step of the profiler's schedule (tracing runs
+    but is not kept: the first records after tracing starts can be lost):
+    (device ms per call, wall ms per call under the profiler, device
+    launches per call, the device events)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / calls
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        prof.step()
+    # The schedule's step annotation ("ProfilerStep#") has a device span too:
+    # the whole step, not a launch.
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
     busy = sum(e.self_device_time_total for e in dev) / 1e3 / calls
     count = sum(e.count for e in dev) / calls
-    return busy, wall, count, sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    return busy, wall, count, dev
 
 
-def profile_paths(paths: dict, frames: int = 3) -> None:
-    """Phase 9: ``torch.profiler`` over ``frames`` back-to-back frames of
-    each path (name -> zero-argument frame function): device busy time per
-    frame (the sum of the kernels' and copies' device time; one stream, so
-    nothing overlaps), wall time per frame under the profiler (inflated by
-    its own host overhead), device launches per frame and the top device
-    functions."""
-    for name, fn in paths.items():
-        k = frames
-        busy, wall, count, top = device_busy(fn, k)
-        if count == 0:  # a window of a few ms can close before its records arrive
-            k = 10 * frames
-            busy, wall, count, top = device_busy(fn, k)
-        log(f"[9] {name}: device busy {busy:.4f} ms/frame, wall under the profiler "
-            f"{wall:.4f} ms/frame ({busy / wall:.1%} busy), {count:.0f} device launches/frame")
-        for e in top:
+PROFILE_FEW_MS = 15.0  # a frame faster than this is profiled three times
+
+
+def profile_paths(paths: dict) -> None:
+    """Phase 9: ``torch.profiler`` over whole frames of each path (name ->
+    (zero-argument frame function, the name of its main kernel)): device
+    busy time per frame (the sum of the kernels' and copies' device time;
+    one stream, so nothing overlaps), wall time per frame under the profiler
+    (inflated by its own host overhead), device launches per frame and the
+    top device functions.  Three frames of a path whose frame takes under
+    ``PROFILE_FEW_MS`` (the prim paths, a few launches), one of the others
+    (thousands of launches a mesh frame, and the profiler's processing
+    grows with them).  A profile that holds no launch of the main kernel is
+    taken again over ten times the frames; one that still holds none is
+    flagged and its device time not reported."""
+    for name, (fn, kernel) in paths.items():
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        k = 3 if (time.perf_counter() - t0) * 1e3 < PROFILE_FEW_MS else 1
+        busy, wall, count, dev = device_busy(fn, k)
+        if not any(kernel in e.key for e in dev):
+            k *= 10
+            busy, wall, count, dev = device_busy(fn, k)
+        if not any(kernel in e.key for e in dev):
+            log(f"[9] {name}: FLAGGED, the profile of {k} frames holds no launch of {kernel} "
+                f"({count:.0f} device launches/frame recorded); device time not reported")
+            continue
+        log(f"[9] {name} ({k} frame{'s' if k > 1 else ''}): device busy {busy:.4f} ms/frame, "
+            f"wall under the profiler {wall:.4f} ms/frame ({busy / wall:.1%} busy), "
+            f"{count:.0f} device launches/frame")
+        for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:6]:
             log(f"      {e.self_device_time_total / 1e3 / k:9.4f} ms/frame "
                 f"x{e.count / k:5.1f}  {e.key[:90]}")
 
@@ -386,7 +414,7 @@ def mesh_phases(device, smi: str) -> tuple:
         "plain mesh shade (1 bounce)": (
             lambda: fused.fused_mesh_shade_plain(*shade_case[0], **shade_case[1]), 1),
     }
-    rounds = {k: (3 if k.startswith("plain") else TIMING_ROUNDS) for k in paths_t}
+    rounds = {k: (1 if k.startswith("plain") else TIMING_ROUNDS) for k in paths_t}
     times = time_paths(paths_t, rounds)
     ms = {k: float(np.median(v)) for k, v in times.items()}
     clocks = subprocess.run(
@@ -440,8 +468,10 @@ def mesh_phases(device, smi: str) -> tuple:
     shade_bounces("8e", dev, static, cam, cfg, device, smi)
 
     profiled = {
-        "mesh kernel path, sorted": paths_t["mesh kernel path, sorted"][0],
-        "mesh kernel path, unsorted": paths_t["mesh kernel path, unsorted"][0],
+        "mesh kernel path, sorted": (paths_t["mesh kernel path, sorted"][0],
+                                     "ptt_mono_kernel"),
+        "mesh kernel path, unsorted": (paths_t["mesh kernel path, unsorted"][0],
+                                       "ptt_mono_kernel"),
     }
     return [
         {
@@ -517,29 +547,10 @@ def walk_args(tables, paths, tl, live, blocks: int = None) -> tuple:
 
 
 def mono_bound(args) -> tuple:
-    """Bound of one mono launch: the rays and the tables read once, (t,
-    tri) written; the features and root cull of every ray, the member slab
-    of every tile for each root-hitting ray, and 1,024 triangles for each
-    (ray, tile) pair whose slab entry is no farther than the ray's hit (the
-    kernel's own result).  Returns (ms, bound_by, pairs, root-hitting rays
-    mask)."""
-    from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
-
-    tabs, _, ro, rd, active, tl, _ = args
-    n, ct = ro.x.shape[0], tabs.tile_aabb.shape[0]
-    act = active & mxu.root_hit_mask(tabs.tile_aabb, tabs.center, *ro, *rd, tl)
-    osv = type(ro)(ro.x - tabs.center[0], ro.y - tabs.center[1], ro.z - tabs.center[2])
-    inv = mxu._inv_dir(rd)
-    hit_t = mxu.mono_intersect(*args)[0]  # the pairs past the hit are not needed
-    pairs = 0
-    for row in tabs.tile_aabb.tolist():
-        member, s_tlo, _ = mxu._member_slab(row, osv, inv, tl)
-        pairs += int((member & act & (s_tlo <= hit_t)).sum())
-    return bound_ms(
-        n * (6 * 4 + 1 + 4 + 8) + tabs.coef.numel() * 4 + tabs.tile_aabb.numel() * 4,
-        n * OPS_MONO_RAY + int(act.sum()) * ct * OPS_MONO_TILE
-        + pairs * mxu.TRI_TILE * OPS_MONO_PAIR,
-    ) + (pairs, act)
+    """Bound of one mono launch (``mono_work``): (ms, bound_by, pairs,
+    root-hitting rays mask)."""
+    nbytes, ops, pairs, act = mono_work(args)
+    return bound_ms(nbytes, ops) + (pairs, act)
 
 
 def walk_bound(args, gate_t) -> tuple:
@@ -807,7 +818,8 @@ def larger_mesh_phases(device, smi: str) -> tuple:
     check_golden(LARGE["20k"], GOLDEN_20K)
     a0 = walk_args(tables, *states[0])
     frame20 = frame_fn(dev, static, cam, cfg, base_key, device)
-    profiled["20k mesh, 'auto' (the lane-best planned walk #5)"] = frame20
+    profiled["20k mesh, 'auto' (the lane-best planned walk #5)"] = (
+        frame20, "ptt_planned_lanebest_kernel")
     _, alive20 = frame20()
     paths_t = {
         "planned_lanebest_intersect (1 bounce)":
@@ -818,7 +830,7 @@ def larger_mesh_phases(device, smi: str) -> tuple:
             tables.tile_aabb, *mxu.plan_rays(tables, a0[1], a0[2], a0[3], a0[4])), 5),
         "20k frame (Renderer default path)": (frame20, 3),
     }
-    rounds = {k: (3 if "plain" in k else TIMING_ROUNDS) for k in paths_t}
+    rounds = {k: (1 if "plain" in k else TIMING_ROUNDS) for k in paths_t}
     rays20 = float(n + alive20.sum().item())
     ms = log_times("10e", smi, time_paths(paths_t, rounds), paths_t, rounds,
                    {"20k frame (Renderer default path)": rays20})
@@ -869,21 +881,19 @@ def larger_mesh_phases(device, smi: str) -> tuple:
     check_golden(LARGE["80k"], GOLDEN_80K)
     a0 = walk_args(tables, *states[0])
     frame80 = frame_fn(dev, static, cam, cfg, base_key, device)
-    profiled["80k mesh kernel path, sorted (the slice's main path)"] = frame80
+    profiled["80k mesh kernel path, sorted (the slice's main path)"] = (
+        frame80, "ptt_streamed_kernel")
     paths_t = {
         "streamed_intersect (1 bounce)": (lambda: mxu.streamed_intersect(*a0), 10),
         "plain walk_plain (1 bounce)": (lambda: mxu.walk_plain(*a0), 1),
         "plan prepass build_tile_plan (1 bounce)": (lambda: mxu.build_tile_plan(
             tables.tile_aabb, *mxu.plan_rays(tables, a0[1], a0[2], a0[3], a0[4])), 5),
         "80k frame (Renderer default path)": (frame80, 3),
-        "80k frame, mxu_traversal='binned'": (frame_fn(
-            dev, static, cam, RenderConfig(mxu_traversal="binned"), base_key, device), 3),
     }
-    rounds = {k: (3 if "plain" in k else TIMING_ROUNDS) for k in paths_t}
+    rounds = {k: (1 if "plain" in k else TIMING_ROUNDS) for k in paths_t}
     rays80 = float(n + alive_s.sum().item())
     ms = log_times("11e", smi, time_paths(paths_t, rounds), paths_t, rounds,
-                   {"80k frame (Renderer default path)": rays80,
-                    "80k frame, mxu_traversal='binned'": rays80})
+                   {"80k frame (Renderer default path)": rays80})
     log(f"    host reads in one 80k frame: {host_syncs(frame80)}")
     b7 = walk_bound(a0, mxu.streamed_intersect(*a0)[0])
     log(f"    bounds: streamed walk {b7[0]:.4f} ms ({b7[1]}; {b7[2]} (ray, tile) pairs whose "
@@ -918,14 +928,11 @@ def larger_mesh_phases(device, smi: str) -> tuple:
         "plan prepass build_tile_plan, 500k (1 bounce)": (lambda: mxu.build_tile_plan(
             tables.tile_aabb, *mxu.plan_rays(tables, a0[1], a0[2], a0[3], a0[4])), 3),
         "500k frame (Renderer default path)": (frame500, 2),
-        "500k frame, mxu_traversal='binned'": (frame_fn(
-            dev, static, cam, RenderConfig(mxu_traversal="binned"), base_key, device), 2),
     }
-    rounds = {k: 5 for k in paths_t}
+    rounds = {k: 3 for k in paths_t}
     rays500 = float(n + alive_s.sum().item())
     log_times("11i", smi, time_paths(paths_t, rounds), paths_t, rounds,
-              {"500k frame (Renderer default path)": rays500,
-               "500k frame, mxu_traversal='binned'": rays500})
+              {"500k frame (Renderer default path)": rays500})
     log(f"    host reads in one 500k frame: {host_syncs(frame500)}")
     del states, a0
 
@@ -973,7 +980,7 @@ def larger_mesh_phases(device, smi: str) -> tuple:
         raise AssertionError("the 200k Renderer did not take binned (+ streamed) per bounce")
     main_launches["binned_intersect"] = got["binned_intersect"]
     frame200 = frame_fn(dev, static, cam, cfg, base_key, device)
-    profiled["200k mesh, 'auto' (the binned visits #10)"] = frame200
+    profiled["200k mesh, 'auto' (the binned visits #10)"] = (frame200, "ptt_binned_kernel")
     _, alive200 = frame200()
     paths_t = {
         "binned_intersect (1 bounce)": (lambda: mxu.binned_intersect(*b_case), 10),
@@ -981,7 +988,7 @@ def larger_mesh_phases(device, smi: str) -> tuple:
             (lambda: mxu.binned_intersect_plain(*b_case), 1),
         "200k frame (Renderer default path)": (frame200, 2),
     }
-    rounds = {k: (3 if "plain" in k else 5) for k in paths_t}
+    rounds = {k: (1 if "plain" in k else 3) for k in paths_t}
     ms = log_times("12e", smi, time_paths(paths_t, rounds), paths_t, rounds,
                    {"200k frame (Renderer default path)": float(n + alive200.sum().item())})
     log(f"    host reads in one 200k frame: {host_syncs(frame200)}")
@@ -1239,15 +1246,16 @@ def texture_phases(device, smi: str) -> tuple:
                 entries[-1]["bound"] = shade_mode_bound(n, live, prim_static, mode, emit, ct)
                 log(f"    bound of one {mode} launch (bounce 0): {entries[-1]['bound'][0]:.4f} "
                     f"ms ({entries[-1]['bound'][1]}; {live} live rays)")
-                profiled[f"{path.stem} (textured, kernel path)"] = fr
+                profiled[f"{path.stem} (textured, kernel path)"] = (
+                    fr, "ptt_mesh_shade_kernel")
             if k == 0 and mode == "textured":
                 # e. every sorted bounce, with the carried winner
                 shade_bounces(f"{tag}e", dev, static, cam, cfg, device, smi)
-        rounds = {k: (3 if "plain" in k else 5) for k in timed}
+        rounds = {k: (1 if "plain" in k else 3) for k in timed}
         ms = log_times(f"{tag}d", smi, time_paths(timed, rounds), timed, rounds, rays)
         entries[-1]["ms"] = ms[f"mesh-shade kernel, {mode} (1 bounce)"]
         entries[-1]["plain_ms"] = ms[f"plain mesh shade, {mode} (1 bounce)"]
-        log(f"    host reads in one frame: {host_syncs(profiled[f'{scenes[0].stem} (textured, kernel path)'])}")
+        log(f"    host reads in one frame: {host_syncs(profiled[f'{scenes[0].stem} (textured, kernel path)'][0])}")
     kernels = [{
         "name": e["name"],
         "route": "cuda",
@@ -1376,7 +1384,7 @@ def wavefront_phases(device, smi: str) -> tuple:
                 log(f"    host reads in one {path.stem} wavefront frame ({name}): "
                     f"{host_syncs(fn)}")
             if path == SCENE and name == "compaction":
-                profiled[f"{path.stem} wavefront (compaction)"] = fn
+                profiled[f"{path.stem} wavefront (compaction)"] = (fn, "ptt_scan_kernel")
     rounds = {k: 3 for k in timed}
     log_times("15d", smi, time_paths(timed, rounds), timed, rounds, rays)
 
@@ -1644,7 +1652,8 @@ def slice5_phases(device, smi: str) -> tuple:
     f20a = frame_fn(dev, static, cam, cfg, base_key, device)
     f80s = frame_fn(dev80, static80, cam80, sweep_cfg, base_key, device)
     f80a = frame_fn(dev80, static80, cam80, cfg, base_key, device)
-    profiled["80k frame, mxu_traversal='sweep' (chain of 3 sweeps a bounce)"] = f80s
+    profiled["80k frame, mxu_traversal='sweep' (chain of 3 sweeps a bounce)"] = (
+        f80s, "ptt_sweep_kernel")
     paths_t = {
         "sweep_intersect, 20k (1 bounce)": (lambda: mxu.sweep_intersect(*s0), 20),
         "planned_intersect, 20k (1 bounce)": (lambda: mxu.planned_intersect(*a0), 20),
@@ -1654,7 +1663,7 @@ def slice5_phases(device, smi: str) -> tuple:
         "80k frame, mxu_traversal='sweep'": (f80s, 2),
         "80k frame, 'auto'": (f80a, 2),
     }
-    rounds = {k: (2 if "plain" in k else 5) for k in paths_t}
+    rounds = {k: (1 if "plain" in k else 3) for k in paths_t}
     rays20, rays80 = (float(n + f[1].sum().item()) for f in (auto20, auto80))
     ms = log_times("16d", smi, time_paths(paths_t, rounds), paths_t, rounds,
                    {k: (rays20 if k.startswith("20k") else rays80) for k in paths_t
@@ -1701,7 +1710,8 @@ def slice5_phases(device, smi: str) -> tuple:
             != (2 * depth, depth, 0):
         raise AssertionError("the 80k planned Renderer did not walk 3 chunks per bounce")
     f80p = frame_fn(dev80, static80, cam80, plan_cfg, base_key, device)
-    profiled["80k frame, mxu_traversal='planned' (chain of 3: #6, #6, #5)"] = f80p
+    profiled["80k frame, mxu_traversal='planned' (chain of 3: #6, #6, #5)"] = (
+        f80p, "ptt_planned_kernel")
     f200p = frame_fn(dev200, static200, cam200, plan_cfg, base_key, device)
     f200a = frame_fn(dev200, static200, cam200, cfg, base_key, device)
     paths_t = {"80k frame, mxu_traversal='planned'": (f80p, 2), "80k frame, 'auto'": (f80a, 2),
@@ -1844,7 +1854,8 @@ def slice5_phases(device, smi: str) -> tuple:
     c0 = sargs(*STATES["500k"][0], PLAIN_BLOCKS)
     f500s = with_env(frame_fn(sdev, sstatic, cam500, cfg, base_key, device), PTT_STREAM_SUPER="1")
     f500a = frame_fn(dev500, static500, cam500, cfg, base_key, device)
-    profiled["500k frame, PTT_STREAM_SUPER=1 (the super-tile walk)"] = f500s
+    profiled["500k frame, PTT_STREAM_SUPER=1 (the super-tile walk)"] = (
+        f500s, "ptt_streamed_super_kernel")
     paths_t = {
         "streamed_super_intersect, 500k (1 bounce)":
             (lambda: mxu.streamed_super_intersect(*u0, saabb), 5),
@@ -1856,7 +1867,7 @@ def slice5_phases(device, smi: str) -> tuple:
         "500k frame, PTT_STREAM_SUPER=1": (f500s, 1),
         "500k frame, 'auto' (streamed)": (f500a, 1),
     }
-    rounds = {k: (2 if "plain" in k else 3) for k in paths_t}
+    rounds = {k: (1 if "plain" in k else 3) for k in paths_t}
     rays500 = float(n + auto500[1].sum().item())
     ms = log_times("18d", smi, time_paths(paths_t, rounds), paths_t, rounds,
                    {k: rays500 for k in paths_t if "frame" in k})
@@ -1913,7 +1924,8 @@ def slice5_phases(device, smi: str) -> tuple:
     main_launches["plan_prepass"] = got["plan_prepass"]
     f20k = with_env(f20a, PTT_PLAN_IMPL="pallas")
     f80k = with_env(f80a, PTT_PLAN_IMPL="pallas")
-    profiled["80k frame, PTT_PLAN_IMPL=pallas (the plan kernel)"] = f80k
+    profiled["80k frame, PTT_PLAN_IMPL=pallas (the plan kernel)"] = (
+        f80k, "ptt_plan_prepass_kernel")
     for name, d, a, pairs in per_bounce:
         ms = float(np.median([cuda_time_ms(lambda a=a: mxu.plan_prepass(*a), 10)
                               for _ in range(5)]))
@@ -1936,7 +1948,7 @@ def slice5_phases(device, smi: str) -> tuple:
         paths_t[f"whole plan, torch, {name}"] = (lambda a=a: mxu.plan_with_prefix(*a), 2)
     paths_t.update({"20k frame, PTT_PLAN_IMPL=pallas": (f20k, 3), "20k frame, torch plan": (f20a, 3),
                     "80k frame, PTT_PLAN_IMPL=pallas": (f80k, 2), "80k frame, torch plan": (f80a, 2)})
-    rounds = {k: (3 if "plain" in k or "torch" in k else 5) for k in paths_t}
+    rounds = {k: (1 if "plain" in k else 3) for k in paths_t}
     ms = log_times("19d", smi, time_paths(paths_t, rounds), paths_t, rounds,
                    {k: (rays20 if k.startswith("20k") else rays80) for k in paths_t
                     if "frame" in k})
@@ -2228,8 +2240,8 @@ def prim_phases(device, smi: str) -> tuple:
         },
     ]
     return kernels_line, {
-        "prim iteration kernel (Renderer default)": run_iter_kernel,
-        "prim bounce-kernel path": run_bounce_path,
+        "prim iteration kernel (Renderer default)": (run_iter_kernel, "ptt_iteration_kernel"),
+        "prim bounce-kernel path": (run_bounce_path, "ptt_bounce_kernel"),
     }
 
 
@@ -2749,7 +2761,7 @@ def parallel_phases(device, smi: str) -> tuple:
         "bound_ms": u_bound[0],
         "bound_by": u_bound[1],
         "library_ms": None,
-    }], {"prim pixel mode nd=2 (Renderer, cuda:0 twice)": stepper(r2)}
+    }], {"prim pixel mode nd=2 (Renderer, cuda:0 twice)": (stepper(r2), "ptt_bounce_kernel")}
 
 
 # ---------------------------------------------------------------------------
@@ -2833,9 +2845,9 @@ class Spy:
 
 def tier_phases(device, smi: str) -> tuple:
     """Phase 24 at 800x800, depth 8: the native BVH builder (24a: the
-    library's build seconds; the BVH build, native against NumPy, on the
-    5k, 80k and 500k meshes and the 1.1 M-triangle knot, with each tree's
-    invariants; the 5k "auto" film with the native tree against the NumPy
+    library's build seconds; the BVH build, native against NumPy on the 5k
+    and 80k meshes, native alone on 500k and the 1.1 M-triangle knot, with
+    each tree's invariants; the 5k "auto" film with the native tree against the NumPy
     tree, §2's bar) and prefix tiers (24b: ``bounce_prefix_tiers=(4, 2)``
     against ``()`` on the 5k, 20k and 80k "auto", 200k binned, textured-prim
     and textured-mesh frames and the ``cornell_dof`` wavefront with
@@ -2889,6 +2901,9 @@ def tier_phases(device, smi: str) -> tuple:
     big = OUT_DIR / "cornell_mesh_big.json"
     if not big.is_file():
         big = write_big_mesh()
+    # Native against NumPy on 5k and 80k; the larger meshes' NumPy builds
+    # (8.6 and 20.9 s, PERF.md section 6) are left to the native build and its
+    # invariants.
     for name, path in (("5k", MESH_SCENE), ("80k", LARGE["80k"]), ("500k", LARGE["500k"]),
                        ("1.1 M knot", big)):
         key = {"80k": "80k", "500k": "500k", "1.1 M knot": "big"}.get(name)
@@ -2902,10 +2917,14 @@ def tier_phases(device, smi: str) -> tuple:
         t0 = time.perf_counter()
         native = build_bvh(verts, cents, 4, use_native=True)
         t_nat = time.perf_counter() - t0
+        bvh_invariants(native, verts, 4)
+        if name not in ("5k", "80k"):
+            log(f"    {name} ({verts.shape[0]} triangles; {parsed}): BVH build native "
+                f"{t_nat:.3f} s ({native.num_nodes} nodes); invariants hold")
+            continue
         t0 = time.perf_counter()
         numpy_tree = build_bvh(verts, cents, 4, use_native=False)
         t_np = time.perf_counter() - t0
-        bvh_invariants(native, verts, 4)
         bvh_invariants(numpy_tree, verts, 4)
         log(f"    {name} ({verts.shape[0]} triangles; {parsed}): BVH build native "
             f"{t_nat:.3f} s ({native.num_nodes} nodes), NumPy {t_np:.3f} s "
@@ -3065,6 +3084,102 @@ def tier_phases(device, smi: str) -> tuple:
     return [], {}
 
 
+def entry_point_phases(device, smi: str) -> tuple:
+    """Phases 25a-c: the repo's entry points in the port.  25a runs
+    ``bench_torch.py`` as a subprocess and prints its line (bench.py's keys,
+    a value, a finite film, a mesh roofline without an error); 25b runs
+    ``entry()``'s step on the card with the counters reset (the bounce
+    kernel, eight launches) and holds it to the same step on the CPU (the
+    film at §2's bar, alive counts equal); 25c runs every tag of
+    ``dryrun_multichip(4)`` with ``cuda:0`` named four times, each tag's
+    launches counted, holds each to the same tag on the CPU (the same bar)
+    and each ``shardmap+*`` film to the unsharded Renderer's on the card
+    (bit-equal), and needs #2, #3, #4, #7 and #10 launched by the tags."""
+    from project3_cuda_path_tracer_2025_tpu_torch import bench, entry
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import scan
+
+    # -- 25a. bench_torch.py ---------------------------------------------------
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(ROOT / "bench_torch.py")], capture_output=True,
+                         text=True, timeout=600, cwd=str(ROOT))
+    lines = [x for x in out.stdout.splitlines() if x.startswith("{")]
+    log(f"[25a] bench_torch.py (exit {out.returncode}, {time.perf_counter() - t0:.0f} s):")
+    for x in lines:
+        log("    " + x)
+    rec = json.loads(lines[-1]) if lines else {}
+    roof = rec.get("mesh_roofline") or {"error": "missing"}
+    if out.returncode != 0 or set(rec) != set(bench.KEYS) or rec["value"] is None \
+            or rec["film_finite"] is not True or "error" in roof \
+            or any(roof.get(k) is None for k in ("kernel_ms_per_bounce", "bound_ms",
+                                                  "share_of_bound")):
+        raise AssertionError(f"bench_torch.py failed:\n{out.stdout[-2000:]}\n"
+                             f"{out.stderr[-2000:]}")
+
+    # -- 25b. entry(): the step on the card against the same step on the CPU --
+    counters = {c.__name__: c for c in (
+        fused.fused_prim_iteration, fused.fused_prim_bounce, fused.kernel_uniforms,
+        fused.fused_mesh_shade, mxu.mono_intersect, mxu.streamed_intersect,
+        mxu.binned_intersect, scan.scan_flat)}
+    step, args = entry.entry(device)
+    for c in counters.values():
+        c.launches = 0
+    film, alive = step(*args)
+    torch.cuda.synchronize()
+    got = {k: c.launches for k, c in counters.items() if c.launches}
+    step_p, args_p = entry.entry("cpu")
+    film_p, alive_p = step_p(*args_p)
+    log(f"[25b] entry() step at 128x128 on the card: launches {got}")
+    res = compare_films("vs entry('cpu') (the CPU's torch path)", film, film_p)
+    a, ap = alive.cpu().numpy(), alive_p.numpy()
+    log(f"  alive per depth: card {a.tolist()}, cpu {ap.tolist()}")
+    if got.get("fused_prim_bounce") != 8 or not np.array_equal(a, ap) or not (
+            res["finite"] and res["sum_rel"] <= MAX_SUM_REL
+            and res["pixel_share"] <= MAX_PIXEL_SHARE):
+        raise AssertionError("entry()'s step on the card disagrees with the CPU's")
+
+    # -- 25c. dryrun_multichip(4) on cuda:0 named four times, each tag held
+    #    to the same tag on ["cpu"] * 4 (the plain versions) at §2's bar
+    #    with alive counts equal, and each shardmap+* tag's film to one
+    #    unsharded Renderer's on the card, bit for bit -----------------------
+    reached = set()
+    for row in entry.TAGS:
+        tag = row[0]
+        for c in counters.values():
+            c.launches = 0
+        film, alive = entry.run_tag(row, 4, [device] * 4)
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items() if c.launches}
+        reached |= set(got)
+        log(f"[25c] {tag}: launches {got}")
+        film_p, alive_p = entry.run_tag(row, 4, ["cpu"] * 4)
+        res = compare_films("vs the same tag on ['cpu'] * 4", film, film_p)
+        log(f"  alive per depth: card {alive.tolist()}, cpu {alive_p.tolist()}")
+        bad = not (np.array_equal(alive, alive_p) and res["finite"]
+                   and res["sum_rel"] <= MAX_SUM_REL and res["pixel_share"] <= MAX_PIXEL_SHARE)
+        if row[1] == "renderer":
+            one, one_alive = entry.run_unsharded(row, 4, device)
+            differ = int((film != one).any(axis=1).sum())
+            # One step of four sample-mode shards is four frames: the alive
+            # counts are of different frames.
+            same_alive = row[5].get("parallel_mode") == "sample" \
+                or np.array_equal(alive, one_alive)
+            log(f"  vs one unsharded Renderer on the card: {differ} pixels not equal, "
+                f"alive counts {'equal' if same_alive else 'differ'}")
+            bad = bad or differ or not same_alive
+        if bad:
+            raise AssertionError(f"dry-run tag {tag} on the card disagrees with its reference")
+    # The wavefront tag (32x32, 256 rays a shard) compacts with torch.cumsum:
+    # scan_flat takes arrays of a [128, 128] tile or more, as the JAX
+    # package's Pallas scan does.
+    need = {"fused_prim_bounce", "fused_mesh_shade", "mono_intersect", "streamed_intersect",
+            "binned_intersect"}
+    if not need <= reached:
+        raise AssertionError(f"no dry-run tag launched {sorted(need - reached)}")
+    return [], {}
+
+
 # The phases in groups that run whole, in this order (phases 1-2, the card
 # and the build, always run; 9, the profile, goes last over the frames of the
 # groups that ran).  needs: a group whose cached state this one reads.
@@ -3088,6 +3203,8 @@ GROUPS = (
      "multi-device (pixel, sample) and chunked rendering, cuda:0 named nd times"),
     ("tiers", (24,), tier_phases, None,
      "bounce prefix tiers against none on eight frames, the native BVH builder"),
+    ("entry", (25,), entry_point_phases, None,
+     "bench_torch.py; entry() and dryrun_multichip(4) (cuda:0 four times) against the CPU"),
 )
 
 
@@ -3154,7 +3271,9 @@ def main(argv=None) -> int:
         frames.update(f)
         log(f"    (phase group {name}: {time.perf_counter() - t0:.0f} s)")
     if wanted is None or 9 in wanted:
+        t0 = time.perf_counter()
         profile_paths(frames)
+        log(f"    (phase 9: {time.perf_counter() - t0:.0f} s)")
 
     print(smi)
     print(json.dumps({"kernels": kernels_line}))

@@ -19,6 +19,13 @@ import torch
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 
+# Float32 operations of the mono walk's device functions (csrc/mesh_path.cuh;
+# an fma counts two), which ``mono_work`` and the walk bounds of
+# ``chip_smoke.py`` count: lower bounds.
+OPS_MONO_RAY = 60  # features, reciprocal direction, root cull
+OPS_MONO_TILE = 35  # member slab of one tile
+OPS_MONO_PAIR = 41  # 19 fma, division, t, the acceptance tests
+
 
 def add_device_argument(parser: argparse.ArgumentParser) -> None:
     parser.add_argument(
@@ -77,6 +84,30 @@ def bound_ms(nbytes: float, ops: float) -> tuple:
     """The least time the card could take: (ms, "bytes" | "operations")."""
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def mono_work(args) -> tuple:
+    """The work one mono launch (``mono_intersect(*args)``) must do: the
+    rays and the tables read once, (t, tri) written; the features and root
+    cull of every ray, the member slab of every tile for each root-hitting
+    ray, and 1,024 triangles for each (ray, tile) pair whose slab entry is
+    no farther than the ray's hit (the kernel's own result).  Returns
+    (bytes, operations, pairs, root-hitting rays mask)."""
+    from ..ops import intersect_mxu as mxu
+
+    tabs, _, ro, rd, active, tl, _ = args
+    n, ct = ro.x.shape[0], tabs.tile_aabb.shape[0]
+    act = active & mxu.root_hit_mask(tabs.tile_aabb, tabs.center, *ro, *rd, tl)
+    osv = type(ro)(ro.x - tabs.center[0], ro.y - tabs.center[1], ro.z - tabs.center[2])
+    inv = mxu._inv_dir(rd)
+    hit_t = mxu.mono_intersect(*args)[0]  # the pairs past the hit are not needed
+    pairs = 0
+    for row in tabs.tile_aabb.tolist():
+        member, s_tlo, _ = mxu._member_slab(row, osv, inv, tl)
+        pairs += int((member & act & (s_tlo <= hit_t)).sum())
+    return (n * (6 * 4 + 1 + 4 + 8) + tabs.coef.numel() * 4 + tabs.tile_aabb.numel() * 4,
+            n * OPS_MONO_RAY + int(act.sum()) * ct * OPS_MONO_TILE
+            + pairs * mxu.TRI_TILE * OPS_MONO_PAIR, pairs, act)
 
 
 def emit(record: dict) -> dict:

@@ -157,7 +157,8 @@ def test_chip_smoke_lists_its_phases_and_needs_a_card():
     smoke = [sys.executable, str(REPO / "chip_smoke.py")]
     listed = subprocess.run(smoke + ["--list"], capture_output=True, text=True, timeout=300)
     assert listed.returncode == 0
-    for span in ("1-2", "3-7", "8 ", "10-12", "13-14", "15", "16-19", "20", "21", "22", "9 "):
+    for span in ("1-2", "3-7", "8 ", "10-12", "13-14", "15", "16-19", "20", "21", "22", "25",
+                 "9 "):
         assert any(line.startswith(span) for line in listed.stdout.splitlines()), span
     import torch
 
@@ -174,7 +175,7 @@ def test_chip_smoke_parses_phase_lists():
     assert smoke.parse_phases("1-7,20") == {1, 2, 3, 4, 5, 6, 7, 20}
     assert smoke.parse_phases("22") == {22}
     numbered = sorted(p for g in smoke.GROUPS for p in g[1])
-    assert numbered == [3, 4, 5, 6, 7, 8] + list(range(10, 25))
+    assert numbered == [3, 4, 5, 6, 7, 8] + list(range(10, 26))
     assert {g[3] for g in smoke.GROUPS if g[3]} <= {g[0] for g in smoke.GROUPS}
 
 
