@@ -196,10 +196,13 @@ def device_busy(fn, calls: int) -> tuple:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / calls
         prof.step()
-    # The schedule's step annotation ("ProfilerStep#") has a device span too:
-    # the whole step, not a launch.
+    # The schedule's step annotation ("ProfilerStep#") and each of the port's
+    # spans ("ptt.", utils/timers.py) have a device span too: annotations
+    # mirrored onto the device's timeline, not launches.
     dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
+           if e.device_type == DeviceType.CUDA
+           and not e.key.startswith(("ProfilerStep", "ptt."))
+           and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in dev) / 1e3 / calls
     count = sum(e.count for e in dev) / calls
     return busy, wall, count, dev

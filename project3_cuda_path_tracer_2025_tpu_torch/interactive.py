@@ -106,8 +106,9 @@ class InteractiveShell:
 
     def status_line(self) -> str:
         """ImGui-equivalent telemetry.  Frame time is the LOOP wall time
-        (dispatch + preview fetch): with pipelined dispatch the renderer's
-        own per-call stats are enqueue times, not frame times."""
+        (dispatch + preview fetch): the loop's pipelined ``step_many(...,
+        sync=False)`` records no frame times in the renderer's ``stats``,
+        which hold only synced steps'."""
         r = self.r
         # The per-depth alive fetch is a host read of its own; refresh the
         # Mrays/s denominator every 16th frame only.

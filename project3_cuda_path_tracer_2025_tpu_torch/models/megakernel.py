@@ -53,6 +53,7 @@ from ..ops.intersect import intersect_scene
 from ..scene.camera import CameraState
 from ..scene.device import DeviceScene, SceneStatic
 from ..utils import prng
+from ..utils.timers import span
 from ..utils.vec import Vec3
 
 
@@ -118,15 +119,16 @@ def megakernel_iteration(
         skey = prng.stage_key(ikey, d, 1)
         if use_fused_mesh:
             want = d < depth - 1
-            out = fused.fused_mesh_bounce(
-                dev, static, cfg, paths, su_key=skey,
-                resort=(
-                    d % max(1, cfg.ray_sort_every) == 0
-                    and (d > 0 or cfg.ray_sort_first_bounce)
-                ),
-                rng_n=n_global, carry=mesh_carry, want_carry=want, plain=plain,
-                carry_winner=carry_winner,
-            )
+            with span("mesh.bounce"):
+                out = fused.fused_mesh_bounce(
+                    dev, static, cfg, paths, su_key=skey,
+                    resort=(
+                        d % max(1, cfg.ray_sort_every) == 0
+                        and (d > 0 or cfg.ray_sort_first_bounce)
+                    ),
+                    rng_n=n_global, carry=mesh_carry, want_carry=want, plain=plain,
+                    carry_winner=carry_winner,
+                )
             paths, mesh_carry = out if want else (out, None)
         elif use_fused:
             bounce = fused.fused_prim_bounce_plain if plain else fused.fused_prim_bounce
@@ -144,7 +146,9 @@ def megakernel_iteration(
             paths = shade_ops.shade(dev, static, paths, isect, su, cfg)
         alive_counts[d] = torch.sum(paths.alive.to(torch.int32))
 
-    film = film_ops.accumulate(film, paths, permuted=use_fused_mesh or tex_sorted, base=base)
+    with span("film.accumulate"):
+        film = film_ops.accumulate(film, paths, permuted=use_fused_mesh or tex_sorted,
+                                   base=base)
     return film, alive_counts
 
 

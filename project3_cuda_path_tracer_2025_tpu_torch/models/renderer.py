@@ -44,7 +44,7 @@ from ..scene.camera import OrbitState, camera_state, derive_render_camera
 from ..scene.device import build_device_scene
 from ..scene.types import HostScene
 from ..utils import image_io, prng
-from ..utils.timers import FrameStats, PerformanceTimer
+from ..utils.timers import FrameStats, PerformanceTimer, host_read, span
 from ..utils.vec import Vec3
 from .megakernel import megakernel_iteration
 from .wavefront import wavefront_iteration
@@ -168,11 +168,12 @@ class Renderer:
     def orbit_camera(self, dphi=0.0, dtheta=0.0, dzoom=0.0, look_at=None) -> None:
         """Orbit controls; resets accumulation like the reference
         (``src/main.cpp:423-425``)."""
-        self.orbit.orbit(dphi=dphi, dtheta=dtheta, dzoom=dzoom)
-        if look_at is not None:
-            self.orbit.look_at = np.asarray(look_at, np.float64)
-        self._refresh_camera()
-        self.reset()
+        with span("renderer.orbit_camera"):
+            self.orbit.orbit(dphi=dphi, dtheta=dtheta, dzoom=dzoom)
+            if look_at is not None:
+                self.orbit.look_at = np.asarray(look_at, np.float64)
+            self._refresh_camera()
+            self.reset()
 
     def reset(self) -> None:
         self.iteration = 0
@@ -234,18 +235,22 @@ class Renderer:
         trace less than a stride; ``iteration`` says what ran).
 
         With ``sync`` the batch is timed on the device (CUDA events, which
-        wait for it to finish); without, the per-frame time recorded is the
-        host's enqueue time."""
+        wait for it to finish) and ``stats`` gets its ms/frame once per spp;
+        without, nothing waits and ``stats`` gets nothing (the host's
+        enqueue time is the ``renderer.step_many`` span's, under a
+        profiler)."""
         n_disp = max(1, -(-int(k) // self._spp_stride))
         spp = n_disp * self._spp_stride
-        with self._on_device():
-            timer = PerformanceTimer(self.device if sync else "cpu")
-            timer.start()
+        with self._on_device(), span("renderer.step_many"):
+            if sync:
+                timer = PerformanceTimer(self.device)
+                timer.start()
             for _ in range(n_disp):
                 self.film, alive = self._dispatch()
-            dt_ms = timer.stop() / spp
-        for _ in range(spp):
-            self.stats.add(dt_ms)
+            if sync:
+                dt_ms = timer.stop() / spp
+                for _ in range(spp):
+                    self.stats.add(dt_ms)
         self._alive_counts = alive
         if self.cfg.debug_nan_checks:
             self._check_finite()
@@ -311,20 +316,28 @@ class Renderer:
 
     def image(self) -> np.ndarray:
         """Accumulated film as [H, W, 3] (host copy happens here only)."""
-        return film_ops.to_host_image(self._flat_film(), self.static.width, self.static.height)
+        with span("renderer.image"):
+            return film_ops.to_host_image(self._flat_film(), self.static.width,
+                                          self.static.height)
 
     def preview_image(self, out_h: int, out_w: int) -> np.ndarray:
         """[out_h, out_w, 3] normalized preview, downsampled on the device
         with the nearest-neighbor grid of the JAX package's preview."""
         h, w = self.static.height, self.static.width
-        ys = np.clip((np.arange(out_h) + 0.5) * h / out_h, 0, h - 1).astype(int)
-        xs = np.clip((np.arange(out_w) + 0.5) * w / out_w, 0, w - 1).astype(int)
-        ys_t = torch.as_tensor(ys, device=self.device)
-        xs_t = torch.as_tensor(xs, device=self.device)
-        img = torch.stack(
-            [a.reshape(h, w)[ys_t][:, xs_t] for a in self._flat_film()], dim=-1
-        )
-        return (img / float(max(1, self.iteration))).cpu().numpy()
+        with span("renderer.preview"):
+            ys = np.clip((np.arange(out_h) + 0.5) * h / out_h, 0, h - 1).astype(int)
+            xs = np.clip((np.arange(out_w) + 0.5) * w / out_w, 0, w - 1).astype(int)
+            # A copy from pageable host memory waits for the device.
+            with host_read("preview_grid"):
+                ys_t = torch.as_tensor(ys, device=self.device)
+            with host_read("preview_grid"):
+                xs_t = torch.as_tensor(xs, device=self.device)
+            img = torch.stack(
+                [a.reshape(h, w)[ys_t][:, xs_t] for a in self._flat_film()], dim=-1
+            )
+            img = img / float(max(1, self.iteration))
+            with host_read("preview"):
+                return img.cpu().numpy()
 
     def image_normalized(self) -> np.ndarray:
         return self.image() / max(1, self.iteration)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.timers import host_read
 from ..utils.vec import Vec3
 from .rays import PathState
 
@@ -44,4 +45,5 @@ def accumulate(film: Vec3, paths: PathState, permuted: bool = False, base: int =
 def to_host_image(film: Vec3, width: int, height: int) -> np.ndarray:
     """[H, W, 3] float32 accumulator (still un-divided by iterations)."""
     arr = torch.stack([film.x, film.y, film.z], dim=-1)
-    return arr.cpu().numpy().reshape(height, width, 3)
+    with host_read("film"):
+        return arr.cpu().numpy().reshape(height, width, 3)

@@ -40,6 +40,7 @@ from ..scene.device import SceneStatic
 from ..scene.types import GeomType
 from ..utils import prng
 from ..utils import vec
+from ..utils.timers import span
 from ..utils.vec import Vec3, f32
 from . import camera as camera_ops
 from . import film as film_ops
@@ -847,18 +848,19 @@ def mesh_surface(tables, static: SceneStatic, cfg: RenderConfig, paths: PathStat
     its material (-1 without a mesh hit)."""
     ro, rd = paths.origin, paths.direction
     mh = _mesh_traversal(tables, static, cfg, paths, t_lim, plain, budget_rays)
-    tri_hit = mh.tri >= 0
-    at = intersect_mxu.resolve_shade_attributes(tables, static.mxu_padded_tris, mh.tri)
-    uu, vv = intersect_mxu.winner_uv_from_geom(
-        at[:, 10:13], at[:, 13:16], at[:, 16:19], mh.tri, ro, rd, cfg.baby_epsilon,
-    )
-    w = 1.0 - uu - vv
-    cols = lambda a: Vec3(at[:, a], at[:, a + 1], at[:, a + 2])
-    mesh_normal = vec.normalize(cols(0) * w + cols(3) * uu + cols(6) * vv)
-    # Miss rows are all zero, whose normalize is NaN: mask them out.
-    zero = torch.zeros_like(uu)
-    mesh_normal = vec.where(tri_hit, mesh_normal, Vec3(zero, zero, zero))
-    mesh_mat = torch.where(tri_hit, at[:, 9].to(torch.int32), -1)
+    with span("mesh.surface"):
+        tri_hit = mh.tri >= 0
+        at = intersect_mxu.resolve_shade_attributes(tables, static.mxu_padded_tris, mh.tri)
+        uu, vv = intersect_mxu.winner_uv_from_geom(
+            at[:, 10:13], at[:, 13:16], at[:, 16:19], mh.tri, ro, rd, cfg.baby_epsilon,
+        )
+        w = 1.0 - uu - vv
+        cols = lambda a: Vec3(at[:, a], at[:, a + 1], at[:, a + 2])
+        mesh_normal = vec.normalize(cols(0) * w + cols(3) * uu + cols(6) * vv)
+        # Miss rows are all zero, whose normalize is NaN: mask them out.
+        zero = torch.zeros_like(uu)
+        mesh_normal = vec.where(tri_hit, mesh_normal, Vec3(zero, zero, zero))
+        mesh_mat = torch.where(tri_hit, at[:, 9].to(torch.int32), -1)
     return mh.t, mesh_normal, mesh_mat
 
 
@@ -909,23 +911,27 @@ def _fused_mesh_bounce_at(dev, static, cfg, paths, resort, su_key, rng_n,
     if carry is not None:
         t_lim, ckey, *rest = carry
         win = rest[0] if rest else None
-    elif carry_winner:
-        t_lim, win = prim_t_min(static, cfg, paths.origin, paths.direction, winner=True)
     else:
-        t_lim = prim_t_min(static, cfg, paths.origin, paths.direction)
+        with span("mesh.prepass"):
+            if carry_winner:
+                t_lim, win = prim_t_min(static, cfg, paths.origin, paths.direction,
+                                        winner=True)
+            else:
+                t_lim = prim_t_min(static, cfg, paths.origin, paths.direction)
     tables = dev.mxu_mesh
     if sort_rays and resort:
-        if ckey is not None:
-            perm = torch.argsort(ckey, stable=True)
-        else:
-            mode = "signature" if cfg.ray_sort_mode == "auto" else cfg.ray_sort_mode
-            perm = intersect_mxu.coherence_perm(
-                tables, paths.origin, paths.direction, paths.alive, t_lim,
-                cfg.ray_sort_bits, cfg.ray_sort_dir_bits, mode=mode,
-            )
-        paths, extra = permute_path_state(
-            paths, perm, extra=(t_lim,) if win is None else (t_lim, win))
-        t_lim, win = extra[0], (extra[1] if win is not None else None)
+        with span("mesh.sort"):
+            if ckey is not None:
+                perm = torch.argsort(ckey, stable=True)
+            else:
+                mode = "signature" if cfg.ray_sort_mode == "auto" else cfg.ray_sort_mode
+                perm = intersect_mxu.coherence_perm(
+                    tables, paths.origin, paths.direction, paths.alive, t_lim,
+                    cfg.ray_sort_bits, cfg.ray_sort_dir_bits, mode=mode,
+                )
+            paths, extra = permute_path_state(
+                paths, perm, extra=(t_lim,) if win is None else (t_lim, win))
+            t_lim, win = extra[0], (extra[1] if win is not None else None)
 
     if static.num_textures > 0:
         mesh_t, mesh_normal, mesh_mat, albedo = textured_mesh_surface(
@@ -935,20 +941,21 @@ def _fused_mesh_bounce_at(dev, static, cfg, paths, resort, su_key, rng_n,
         mesh_t, mesh_normal, mesh_mat = mesh_surface(tables, static, cfg, paths, t_lim, plain,
                                                      budget_rays)
         mode, albedo = "plain", None
-    prim_static = dataclasses.replace(static, num_triangles=0)
-    emit = ""
-    if want_carry:
-        ct = tables.tile_aabb.shape[0]
-        emit = "tlim+key" if ct <= intersect_mxu.KEY_INLINE_MAX_CT else "tlim"
-    shade = fused_mesh_shade_plain if plain else fused_mesh_shade
-    return shade(
-        prim_static, cfg, paths, mesh_t, mesh_normal, mesh_mat, su_key, rng_n,
-        emit=emit,
-        tile_aabb=tables.tile_aabb if emit == "tlim+key" else None,
-        center=tables.center if emit == "tlim+key" else None,
-        mode=mode, mesh_albedo=albedo, prim_winner=win,
-        want_winner=want_carry and carry_winner,
-    )
+    with span("mesh.shade"):
+        prim_static = dataclasses.replace(static, num_triangles=0)
+        emit = ""
+        if want_carry:
+            ct = tables.tile_aabb.shape[0]
+            emit = "tlim+key" if ct <= intersect_mxu.KEY_INLINE_MAX_CT else "tlim"
+        shade = fused_mesh_shade_plain if plain else fused_mesh_shade
+        return shade(
+            prim_static, cfg, paths, mesh_t, mesh_normal, mesh_mat, su_key, rng_n,
+            emit=emit,
+            tile_aabb=tables.tile_aabb if emit == "tlim+key" else None,
+            center=tables.center if emit == "tlim+key" else None,
+            mode=mode, mesh_albedo=albedo, prim_winner=win,
+            want_winner=want_carry and carry_winner,
+        )
 
 
 # ---------------------------------------------------------------------------

@@ -81,6 +81,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.timers import host_read, span
 from ..utils.vec import Vec3, f32
 from . import kernels
 from .intersect import MeshHit
@@ -1534,6 +1535,27 @@ def _chain(tables, padded_tris, chunk_tris, ro, rd, live, tlim, baby_eps, planne
     return best_t, best_tri
 
 
+def _binning(tile_aabb, os: Vec3, d: Vec3, livep, tlp, live_pos: int, binned_tiers,
+             binned_topk, binned_budget_rays):
+    """The binned walk's ``(npre, bins)`` over the padded plan rays: the
+    smallest tier of whole blocks holding the last live ray and its packet
+    bins; None, for the streamed walk in its place, where the live rays
+    exceed every tier or the bins cannot hold every candidate (one host
+    read)."""
+    n_pad = os.x.shape[0]
+    tiers = binned_tiers if binned_tiers is not None else BINNED_PREFIX_TIERS
+    topk = binned_topk if binned_topk is not None else BINNED_TOPK
+    npre = next((p for p in binned_prefixes(n_pad, tiers) if live_pos < p), None)
+    if npre is None:
+        return None
+    budget = pair_budget(max(npre, (binned_budget_rays or n_pad) // 4), tile_aabb.shape[0])
+    cut = lambda v: Vec3(*(x[:npre] for x in v))
+    bins = packet_bins(tile_aabb, cut(os), cut(d), livep[:npre], tlp[:npre], budget, topk)
+    with host_read("overflow"):
+        overflow = bool(bins.overflow)
+    return None if overflow else (npre, bins)
+
+
 def _traverse(tables, num_tris, padded_tris, ro, rd, active, tlim, baby_eps, planned,
               streamed, binned, mono, binned_tiers, binned_topk, binned_budget_rays,
               planned_epilogue, plan_impl, chunk_tris, plain):
@@ -1558,11 +1580,17 @@ def _traverse(tables, num_tris, padded_tris, ro, rd, active, tlim, baby_eps, pla
         return traverse(tables, num_tris, ro, rd, active, tlim, baby_eps)
 
     ct = tables.tile_aabb.shape[0]
-    live = active & root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tlim)
     n_pad = nb * RAY_TILE
-    os, dp, livep, tlp = plan_rays(tables, ro, rd, live, tlim)
-    plans = binned or streamed or planned  # the sweep builds no plan, reads nothing
-    live_pos = live_position(livep) if (binned or (plans and nb >= 8)) else -1
+    with span("mesh.plan"):
+        live = active & root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tlim)
+        os, dp, livep, tlp = plan_rays(tables, ro, rd, live, tlim)
+        plans = binned or streamed or planned  # the sweep builds no plan, reads nothing
+        live_pos = -1
+        if binned or (plans and nb >= 8):
+            with host_read("live_pos"):
+                live_pos = live_position(livep)
+        binning = _binning(tables.tile_aabb, os, dp, livep, tlp, live_pos, binned_tiers,
+                           binned_topk, binned_budget_rays) if binned else None
 
     def plan_for(aabb, tl=None):
         tl_p = tlp if tl is None else torch.cat([tl, tlp[n:]])
@@ -1570,30 +1598,24 @@ def _traverse(tables, num_tris, padded_tris, ro, rd, active, tlim, baby_eps, pla
                                 plain=plain)
 
     def walk(kind):
-        fn = walk_plain if plain else WALKS[kind]
-        return fn(tables, ro, rd, live, tlim, plan_for(tables.tile_aabb), baby_eps)
+        with span("mesh.plan"):
+            plan = plan_for(tables.tile_aabb)
+        with span("mesh.walk"):
+            return (walk_plain if plain else WALKS[kind])(tables, ro, rd, live, tlim, plan,
+                                                          baby_eps)
 
     lanebest = planned_epilogue in ("lanebest", "lanebest_force")
-    if binned:
-        tiers = binned_tiers if binned_tiers is not None else BINNED_PREFIX_TIERS
-        topk = binned_topk if binned_topk is not None else BINNED_TOPK
-        npre = next((p for p in binned_prefixes(n_pad, tiers) if live_pos < p), None)
-        if npre is None:  # the live rays exceed every tier
-            t, tri = walk("streamed")
-        else:
-            budget = pair_budget(max(npre, (binned_budget_rays or n_pad) // 4), ct)
-            cut = lambda v: Vec3(*(x[:npre] for x in v))
-            bins = packet_bins(tables.tile_aabb, cut(os), cut(dp), livep[:npre], tlp[:npre],
-                               budget, topk)
-            if bool(bins.overflow):  # the bins cannot hold every candidate
-                t, tri = walk("streamed")
-            else:
-                fn = binned_intersect_plain if plain else binned_intersect
-                pt, ptri = fn(tables, ro, rd, live, tlim, bins.vt, bins.src,
-                              npre // BINNED_G, baby_eps)
-                t_p, tri_p = binned_reduce(pt, ptri, bins, tlp[:npre], npre // BINNED_G)
-                t = torch.cat([t_p, tlp[npre:]])[:n]
-                tri = torch.cat([tri_p, tri_p.new_full((n_pad - npre,), -1)])[:n]
+    if binning is not None:
+        npre, bins = binning
+        with span("mesh.walk"):
+            fn = binned_intersect_plain if plain else binned_intersect
+            pt, ptri = fn(tables, ro, rd, live, tlim, bins.vt, bins.src, npre // BINNED_G,
+                          baby_eps)
+            t_p, tri_p = binned_reduce(pt, ptri, bins, tlp[:npre], npre // BINNED_G)
+            t = torch.cat([t_p, tlp[npre:]])[:n]
+            tri = torch.cat([tri_p, tri_p.new_full((n_pad - npre,), -1)])[:n]
+    elif binned:  # no tier holds the live rays, or the bins overflow
+        t, tri = walk("streamed")
     elif streamed and stream_super_enabled(padded_tris):
         saabb = super_aabb(tables.tile_aabb)
         fn = streamed_super_plain if plain else streamed_super_intersect

@@ -9,15 +9,47 @@ to the host, because ``block_until_ready`` did not wait on its remote TPU
 backend.  PyTorch on CUDA has no such gap: a pair of ``torch.cuda.Event`` on
 the current stream times the device work itself, without a host round trip
 inside the timed region, so ``device_sync`` is not ported.
+
+``span`` and ``host_read`` mark the program's layers for ``torch.profiler``:
+each is a ``record_function`` span named ``ptt.<name>`` (``ptt.read.<site>``
+for a synchronizing device-to-host read) while a profiler is running, so the
+spans land in the profiler's trace on the clock of its device activities,
+and one shared no-op behind one flag test otherwise.  The trace is their
+only store: the number of ``ptt.read.<site>`` spans counts that site's
+reads, and their durations are the host's wait there.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import List
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+SPAN_PREFIX = "ptt."
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A span ``ptt.<name>`` around a layer's work while a torch profiler
+    records; the shared no-op otherwise.  Nesting on the host thread gives
+    a span its parent, and order its index: the k-th ``mesh.bounce`` of a
+    step is bounce k (the trace keeps no ``record_function`` string args)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _NO_SPAN
+
+
+def host_read(site: str):
+    """``span("read.<site>")``: wrap one synchronizing device-to-host read
+    (``int``, ``bool``, ``.item()``, ``.tolist()``, ``.cpu()`` of a CUDA
+    tensor) or host-to-device copy that waits for the device."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(SPAN_PREFIX + "read." + site)
+    return _NO_SPAN
 
 
 class PerformanceTimer:

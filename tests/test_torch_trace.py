@@ -1,0 +1,134 @@
+"""The port's spans (``utils/timers.py``: ``span``, ``host_read``) on the CPU.
+
+Without a profiler a span is one shared no-op.  Under
+``torch.profiler.profile``, one step of the 5k mesh at 16x16 with the fused
+mesh bounce and the binned traversal (their plain versions here) records
+``ptt.mesh.bounce`` once a bounce, in bounce order, inside it the
+prepass (first bounce), the sort (where the bounce resorts), the plan, the
+walk, the surface and the shade, nested in time, with ``read.live_pos``
+and ``read.overflow`` once each inside the plan; the film and the alive
+counts are the same bit for bit with the profiler as without.  An orbit
+display records the camera, the step and the preview with its reads.
+"""
+
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
+from project3_cuda_path_tracer_2025_tpu_torch.models import Renderer
+from project3_cuda_path_tracer_2025_tpu_torch.scene import load_scene, set_resolution
+from project3_cuda_path_tracer_2025_tpu_torch.utils import timers
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+MESH = str(REPO / "scenes" / "cornell_mesh_5k.json")
+DOF = str(REPO / "scenes" / "cornell_dof.json")
+DEPTH = 4
+BINNED_MESH = dict(mesh_intersector="mxu", fused_bounce="on", ray_sorting="on",
+                   mxu_traversal="binned")
+
+torch.set_num_threads(1)
+
+
+def _scene(path, res, depth):
+    s = set_resolution(load_scene(path), res, res)
+    s.state.trace_depth = depth
+    return s
+
+
+def _profiled(fn):
+    """``fn()`` under a CPU profiler -> [(name, start_ns, end_ns)] of the
+    port's spans, by start."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as p:
+        fn()
+    spans = []
+    for e in p.profiler.kineto_results.events():
+        if e.name().startswith(timers.SPAN_PREFIX):
+            spans.append((e.name()[len(timers.SPAN_PREFIX):], e.start_ns(), e.end_ns()))
+    return sorted(spans, key=lambda s: (s[1], -s[2]))
+
+
+def _inside(spans, outer):
+    _, s0, e0 = outer
+    return [s for s in spans if s is not outer and s0 <= s[1] and s[2] <= e0]
+
+
+@pytest.mark.parametrize("make", [
+    lambda: timers.span("mesh.plan"),
+    lambda: timers.span("mesh.bounce"),
+    lambda: timers.host_read("live_pos"),
+], ids=["plan", "bounce", "host_read"])
+def test_no_profiler_gives_the_shared_noop(make):
+    first = make()
+    assert first is make() is timers._NO_SPAN
+    with first:
+        pass
+
+
+@pytest.mark.parametrize("sort_every", [1, 2])
+def test_mesh_step_spans_by_stage(sort_every):
+    scene = _scene(MESH, 16, DEPTH)
+    cfg = RenderConfig(ray_sort_every=sort_every, **BINNED_MESH)
+    plain = Renderer(scene, cfg, seed=3, device="cpu")
+    plain.step()
+    traced = Renderer(scene, cfg, seed=3, device="cpu")
+    spans = _profiled(traced.step)
+
+    for a, b in zip(plain._flat_film(), traced._flat_film()):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    np.testing.assert_array_equal(plain._alive_counts, traced._alive_counts)
+    assert sum(float(x.sum()) for x in plain._flat_film()) > 0
+
+    step = [s for s in spans if s[0] == "renderer.step_many"]
+    assert len(step) == 1
+    bounces = [s for s in spans if s[0] == "mesh.bounce"]
+    assert len(bounces) == DEPTH
+    assert all(b in _inside(spans, step[0]) for b in bounces)
+    for d, bounce in enumerate(bounces):
+        names = [s[0] for s in _inside(spans, bounce)]
+        assert names.count("mesh.prepass") == (d == 0)
+        assert names.count("mesh.sort") == (d % sort_every == 0)
+        for stage in ("mesh.plan", "mesh.walk", "mesh.surface", "mesh.shade"):
+            assert names.count(stage) == 1, (d, stage, names)
+        assert names.count("read.live_pos") == names.count("read.overflow") == 1
+        plan = [s for s in _inside(spans, bounce) if s[0] == "mesh.plan"][0]
+        assert sorted(s[0] for s in _inside(spans, plan)) == ["read.live_pos", "read.overflow"]
+        order = [n for n in names if n in ("mesh.prepass", "mesh.sort", "mesh.plan",
+                                           "mesh.walk", "mesh.surface", "mesh.shade")]
+        assert order == [n for n in ("mesh.prepass", "mesh.sort", "mesh.plan", "mesh.walk",
+                                     "mesh.surface", "mesh.shade") if n in order]
+    accumulate = [s for s in spans if s[0] == "film.accumulate"]
+    assert len(accumulate) == 1 and accumulate[0][1] >= bounces[-1][2]
+    assert all(s[0] in ("renderer.step_many", "film.accumulate")
+               or s[0].startswith(("mesh.", "read.")) for s in spans)
+
+
+def test_orbit_display_spans():
+    r = Renderer(_scene(DOF, 16, 3), RenderConfig(), seed=1, device="cpu")
+    r.step_many(1, sync=False)
+
+    def display():
+        r.orbit_camera(0.01, -0.02)
+        r.step_many(1, sync=False)
+        r.preview_image(8, 8)
+        r.image()
+
+    spans = _profiled(display)
+    top = [s[0] for s in spans if not any(s in _inside(spans, o) for o in spans)]
+    assert top == ["renderer.orbit_camera", "renderer.step_many", "renderer.preview",
+                   "renderer.image"]
+    preview = [s for s in spans if s[0] == "renderer.preview"][0]
+    assert [s[0] for s in _inside(spans, preview)] == ["read.preview_grid", "read.preview_grid",
+                                                       "read.preview"]
+    image = [s for s in spans if s[0] == "renderer.image"][0]
+    assert [s[0] for s in _inside(spans, image)] == ["read.film"]
+
+
+def test_step_many_records_frame_times_only_when_synced():
+    r = Renderer(_scene(DOF, 8, 2), RenderConfig(), seed=1, device="cpu")
+    r.step_many(3, sync=False)
+    assert r.stats.times_ms == [] and r.iteration == 3
+    r.step_many(2)
+    assert len(r.stats.times_ms) == 2 and r.stats.mean_ms > 0
