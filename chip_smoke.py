@@ -24,11 +24,13 @@ into ``build/chip_smoke/``; phase 17), the super-tile streamed walk
 (``PTT_PLAN_IMPL=pallas``, phase 19) --
 checks the results against the committed golden films, and times the
 kernel paths against the plain versions with CUDA events; phase 9 profiles
-whole frames.  Phases 8e and 14e check and time the mesh-shade kernel on
-each sorted bounce as the main path launches it, with the carried prim
-winner; phase 7 logs the iteration kernel's lane use from a counting build
-of it.  Phase 23 drives multi-device and chunked rendering on the one card
-(``cuda:0`` named nd times): the block draw of the Threefry kernel, pixel
+whole frames.  Phases 8e, 12g and 14e check and time the mesh-shade kernel
+on each sorted bounce as the main path launches it, with the carried prim
+winner (12g with the key at the 200k mesh's 196 tiles), and phase 12f
+the prelude kernel (bounce 0's key) on the 200k camera rays; phase 7
+logs the iteration kernel's lane use from a counting build of it.  Phase
+23 drives multi-device and chunked rendering on the one card (``cuda:0``
+named nd times): the block draw of the Threefry kernel, pixel
 mode, ``pixel_chunks``, the 5k mesh and the wavefront held bit for bit to
 the unsharded films, sample mode, and their ms/frame.  Phase 25 drives the
 repo's entry points in the port: ``bench_torch.py`` (its line printed),
@@ -365,7 +367,7 @@ def mesh_phases(device, smi: str) -> tuple:
 
     # -- 8d. the main path, counters reset ---------------------------------
     counters = (intersect_mxu.mono_intersect, fused.fused_mesh_shade,
-                fused.fused_prim_iteration, fused.fused_prim_bounce)
+                fused.fused_prim_iteration, fused.fused_prim_bounce, fused.mesh_prelude)
     for c in counters:
         c.launches = 0
     r = Renderer(str(MESH_SCENE))
@@ -376,9 +378,10 @@ def mesh_phases(device, smi: str) -> tuple:
     log(f"[8d] Renderer('{MESH_SCENE.name}') step_many(4): iteration {r.iteration}, launches "
         f"{launches}, film sum {img.sum():.3f}, alive {r._alive_counts.tolist()}")
     if (launches["mono_intersect"], launches["fused_mesh_shade"],
-            launches["fused_prim_iteration"], launches["fused_prim_bounce"]) != (
-            4 * depth, 4 * depth, 0, 0):
-        raise AssertionError("the mesh Renderer did not take the mesh kernels 8 times per spp")
+            launches["fused_prim_iteration"], launches["fused_prim_bounce"],
+            launches["mesh_prelude"]) != (4 * depth, 4 * depth, 0, 0, 4):
+        raise AssertionError("the mesh Renderer did not take the mesh kernels 8 times per spp "
+                             "and the prelude once")
     if not np.isfinite(img).all() or not img.sum() > 0:
         raise AssertionError("mesh main-path film is empty or not finite")
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -736,8 +739,8 @@ def larger_mesh_phases(device, smi: str) -> tuple:
     """Phases 10-12: the planned (cornell_mesh_20k.json), streamed
     (cornell_mesh_80k.json, the slice's main path, and cornell_mesh_500k.json)
     and binned (cornell_mesh_200k.json) traversals at 800x800, depth 8.
-    Returns the four walk kernels' entries of the kernels line and the 20k,
-    80k and 200k frames for phase 9."""
+    Returns the four walk kernels' and the prelude kernel's entries of the
+    kernels line and the 20k, 80k and 200k frames for phase 9."""
     from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
     from project3_cuda_path_tracer_2025_tpu_torch.models import megakernel_iteration
     from project3_cuda_path_tracer_2025_tpu_torch.ops import film as film_ops
@@ -751,7 +754,8 @@ def larger_mesh_phases(device, smi: str) -> tuple:
     base_key = prng.prng_key(0)
     counters = {c.__name__: c for c in (
         mxu.mono_intersect, mxu.planned_lanebest_intersect, mxu.planned_intersect,
-        mxu.streamed_intersect, mxu.binned_intersect, fused.fused_mesh_shade)}
+        mxu.streamed_intersect, mxu.binned_intersect, fused.fused_mesh_shade,
+        fused.mesh_prelude)}
     err = {k: 0.0 for k in counters}
     main_launches, entries, profiled = {}, {}, {}
 
@@ -976,12 +980,19 @@ def larger_mesh_phases(device, smi: str) -> tuple:
     states = STATES["200k"] = states[:3]
     check_walks("12b", ("streamed",), states, tables, blocks=PLAIN_BLOCKS)
     traversals_agree("12c", tables, static, states, ("binned", "streamed"))
+    prelude = prelude_phase("12f", dev, static, cam, cfg, device, smi,
+                            [p for p, _, _ in states])
+    shade_bounces("12g", dev, static, cam, cfg, device, smi)
     r, got = drive(scene, 2, counters)
     log(f"[12d] Renderer('{LARGE['200k'].name}') step_many(2): launches {got}")
     if got["binned_intersect"] == 0 or got["mono_intersect"] or (
             got["binned_intersect"] + got["streamed_intersect"] != 2 * depth):
         raise AssertionError("the 200k Renderer did not take binned (+ streamed) per bounce")
+    if (got["fused_mesh_shade"], got["mesh_prelude"]) != (2 * depth, 2):
+        raise AssertionError("the 200k Renderer did not take #3 per bounce and the prelude per "
+                             "frame")
     main_launches["binned_intersect"] = got["binned_intersect"]
+    prelude["launches"] = got["mesh_prelude"]
     frame200 = frame_fn(dev, static, cam, cfg, base_key, device)
     profiled["200k mesh, 'auto' (the binned visits #10)"] = (frame200, "ptt_binned_kernel")
     _, alive200 = frame200()
@@ -1017,8 +1028,68 @@ def larger_mesh_phases(device, smi: str) -> tuple:
         "bound_ms": entries[k]["bound"][0],
         "bound_by": entries[k]["bound"][1],
         "library_ms": None,
-    } for k, line in replaces.items()]
+    } for k, line in replaces.items()] + [prelude]
     return kernels, profiled
+
+
+def prelude_phase(tag, dev, static, cam, cfg, device, smi, sorted_paths) -> dict:
+    """The prelude kernel (bounce 0's t_lim, winner and key, ``mesh_prelude``)
+    on a frame's camera rays and on ``sorted_paths`` (sorted bounce states):
+    bit-equal to ``mesh_prelude_plain`` in each plane; timed on the camera
+    rays (median of 3 samples of 20 launches) with its bound.  Returns its
+    entry of the kernels line, launches to be filled in."""
+    import dataclasses
+
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import camera as camera_ops
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused
+    from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
+
+    tables, n = dev.mxu_mesh, static.pixel_count
+    ct = tables.tile_aabb.shape[0]
+    prim_static = dataclasses.replace(static, num_triangles=0)
+    ik = prng.iteration_key(prng.prng_key(0), 1)
+    cam_paths = camera_ops.generate_camera_rays(
+        cam, static.width, static.height, static.trace_depth,
+        prng.uniforms_at(prng.stage_key(ik, 0, 0), torch.arange(n, device=device), 4, n))
+    args = lambda p: (prim_static, cfg, p, tables.tile_aabb, tables.center)
+    for what, p in [("camera rays", cam_paths)] + [
+            (f"sorted bounce {d}", q) for d, q in enumerate(sorted_paths)]:
+        got = fused.mesh_prelude(*args(p))
+        want = fused.mesh_prelude_plain(*args(p))
+        torch.cuda.synchronize()
+        bad = [bits_differ(a, b) for a, b in zip(got, want)]
+        keyed = int((got[1] < (1 << 30)).sum())
+        log(f"[{tag}] mesh_prelude on the {what} ({ct} tiles): {int(p.alive.sum())} alive "
+            f"rays, {keyed} keyed live; rays whose t_lim, key, winner are not bit-equal to "
+            f"mesh_prelude_plain: {bad}")
+        if any(bad) or keyed == 0:
+            raise AssertionError("the prelude kernel disagrees with its plain version")
+    fn = lambda: fused.mesh_prelude(*args(cam_paths))
+    fn()
+    torch.cuda.synchronize()
+    ms = float(np.median([cuda_time_ms(fn, 20) for _ in range(3)]))
+    plain_ms = cuda_time_ms(lambda: fused.mesh_prelude_plain(*args(cam_paths)), 1)
+    keyed = int((fn()[1] < (1 << 30)).sum())
+    # Rays in (6 planes and bounces), t_lim, key and winner out; every ray's
+    # prim test and key set-up, and the tile loop of the rays it keys live.
+    bound = bound_ms(n * (7 + 3) * 4, n * (prim_ops(prim_static) + OPS_KEY_RAY)
+                     + keyed * ct * OPS_KEY_TILE)
+    log(f"[{tag}] mesh_prelude on the camera rays: {ms:.4f} ms per launch on {smi} (plain "
+        f"{plain_ms:.4f} ms); {keyed} rays keyed live over {ct} tiles; bound {bound[0]:.4f} ms "
+        f"({bound[1]}), {bound[0] / ms:.1%} of it")
+    return {
+        "name": "mesh_prelude",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/fused_mesh.cu",
+        "replaces": "project3_cuda_path_tracer_2025_tpu/ops/intersect.py:156",
+        "launches": None,
+        "max_abs_err": 0.0,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound[0],
+        "bound_by": bound[1],
+        "library_ms": None,
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -1074,19 +1145,21 @@ def tex_states(dev, static, cam, cfg, device, mode: str, bounces: int = 4) -> li
     return out
 
 
-def shade_mode_bound(n: int, live: int, prim_static, mode: str, emit: str, ct: int) -> tuple:
+def shade_mode_bound(n: int, live: int, prim_static, mode: str, emit: str, ct: int,
+                     keyed: int = None) -> tuple:
     """Bound of one mesh-shade launch: every input plane read once (16, and
     3 albedo planes in the textured modes), every output written once (10,
     and t_lim and the key with emit); the operations of the live rays' prim
     intersection (none in "precomputed"), merge and scatter, and with emit
-    the scattered rays' prim t and sort key."""
+    the scattered rays' prim t and sort key: its set-up on every ray, its
+    tile loop on the ``keyed`` rays it keys live (default every ray)."""
     planes = 16 + (3 if mode != "plain" else 0) + 10 + (emit != "") + (emit == "tlim+key")
     ops = live * ((0 if mode == "precomputed" else prim_ops(prim_static))
                   + OPS_MERGE + OPS_SCATTER)
     if emit:
         ops += n * prim_ops(prim_static)
     if emit == "tlim+key":
-        ops += n * (OPS_KEY_RAY + ct * OPS_KEY_TILE)
+        ops += n * OPS_KEY_RAY + (n if keyed is None else keyed) * ct * OPS_KEY_TILE
     return bound_ms(n * planes * 4, ops)
 
 
@@ -1124,9 +1197,11 @@ def shade_bounces(tag, dev, static, cam, cfg, device, smi) -> None:
             torch.cuda.synchronize()
             ms[what] = float(np.median([cuda_time_ms(fn, 20) for _ in range(3)]))
         live = int(a[2].alive.sum())
-        b = shade_mode_bound(n, live, prim_static, kw["mode"], a[8], ct)
+        keyed = int((got[1][1] < (1 << 30)).sum()) if a[8] == "tlim+key" else None
+        b = shade_mode_bound(n, live, prim_static, kw["mode"], a[8], ct, keyed)
         log(f"[{tag}] fused_mesh_shade[{kw['mode']}] sorted bounce {d} (emit "
-            f"{a[8] or 'none'}): {ms['carried']:.4f} ms per launch with the carried winner, "
+            f"{a[8] or 'none'}, {ct} tiles, {keyed} rays keyed live): {ms['carried']:.4f} ms "
+            "per launch with the carried winner, "
             f"{ms['every prim']:.4f} testing every prim, on {smi}; {live} live rays; bound "
             f"{b[0]:.4f} ms ({b[1]}), {b[0] / ms['carried']:.1%} of it; bit-equal to the plain "
             "version and to the launch without the winner")

@@ -5,11 +5,15 @@
 //   in its three modes (launched by _fused_mesh_shade): analytic-prim
 //   intersect, merge with the mesh hit, BSDF scatter with inline Threefry,
 //   and optionally the next bounce's prim t_limit (with the prim that gives
-//   it) and coherence sort key.
+//   it) and coherence sort key, at any number of tiles.
 //   Mode "textured" takes the mesh lanes' albedo and final shading normal
 //   (texture and bump resolved in torch before the launch); mode
 //   "precomputed" takes every lane's resolved surface and skips the prim
 //   intersection (a scene with a textured prim).
+// ptt_mesh_prelude_kernel gives bounce 0 the same three planes from the
+//   camera rays (ops/fused.py::mesh_prelude_plain: ops/intersect.py::prim_t_min
+//   with its winner and ops/intersect_mxu.py::coherence_key_planes), so no
+//   bounce builds its sort key or prim t_limit in torch.
 // The bounce's traversal kernels (the mono walk of meshes of at most 8
 // tiles among them) are in mesh_walk.cu.
 //
@@ -25,8 +29,14 @@
 // sorted): a lane with a mesh hit tests no prim, and a lane without one
 // tests its winner alone, which gives the same hit bit for bit.  What is
 // left is one pass over the prims per ray with emit, the scatter and the
-// key.  A launch given no winner (bounce 0 without one) tests every prim of
-// the lanes without a mesh hit.  One thread a ray.
+// key.  A launch given no winner tests every prim of the lanes without a
+// mesh hit.  One thread a ray.
+//
+// The key reads the tile boxes (32 B a tile: 6.3 KB at the 200k mesh's
+// 196) from device memory, at any number of tiles: every thread of a warp
+// reads the same word in the same iteration, which the L1 serves as one
+// broadcast.  A ray that is not live takes no tile (coherence_key), and the
+// rays of a sorted state sit with their kind, so the warps stay whole.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC (ops/kernels.py).  Plain C interface, loaded with
@@ -40,6 +50,8 @@
 
 #define PTT_THREADS 256
 
+// The arguments of both kernels; the prelude reads the ray (in_f[0..5],
+// in_bounces), the key's inputs and the outputs of emit.
 struct PttMeshShadeArgs {
   const PttScene* scene;     // prims only
   const float* in_f[9];      // origin xyz, direction xyz, color rgb
@@ -66,17 +78,26 @@ struct PttMeshShadeArgs {
 
 extern __shared__ __align__(16) unsigned char ptt_smem[];
 
+// The next bounce's planes of ray idx (origin o, direction d): its prim
+// t_limit, the prim that gives it (out_win, optional) and with emit 2 its
+// sort key.
+__device__ __forceinline__ void emit_next(const PttMeshShadeArgs& a, const PttScene& s, int idx,
+                                          V3 o, V3 d, bool alive) {
+  int32_t win;
+  const float tl = prim_t_min_win(s, o, d, &win);
+  a.out_tlim[idx] = tl;
+  if (a.out_win) a.out_win[idx] = win;
+  if (a.emit == 2) {
+    a.out_key[idx] = coherence_key(a.tile_aabb, a.ct, v3(a.center[0], a.center[1], a.center[2]),
+                                   o, d, alive, tl);
+  }
+}
+
 // Dynamic shared memory: the scene's tables (STAGE_SCENE), sized by the
 // launcher from the scene; any number of primitives and materials.
 template <bool STAGE_SCENE>
 __global__ void __launch_bounds__(PTT_THREADS) ptt_mesh_shade_kernel(const PttMeshShadeArgs a) {
-  __shared__ float sh_aabb[PTT_KEY_MAX_CT * 8];
-  __shared__ float sh_center[3];
   const PttScene sh_scene = load_scene<STAGE_SCENE>(a.scene, ptt_smem);
-  if (a.emit == 2) {
-    for (int i = threadIdx.x; i < a.ct * 8; i += blockDim.x) sh_aabb[i] = a.tile_aabb[i];
-    if (threadIdx.x < 3) sh_center[threadIdx.x] = a.center[threadIdx.x];
-  }
   __syncthreads();
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= a.n) return;
@@ -102,19 +123,53 @@ __global__ void __launch_bounds__(PTT_THREADS) ptt_mesh_shade_kernel(const PttMe
   a.out_f[8][idx] = ray.c.z;
   a.out_bounces[idx] = ray.bounces;
   if (a.emit >= 1) {
-    int32_t win;
-    const float tl = prim_t_min_win(sh_scene, ray.o, ray.d, &win);
-    a.out_tlim[idx] = tl;
-    if (a.out_win) a.out_win[idx] = win;
-    if (a.emit == 2) {
-      a.out_key[idx] = coherence_key(sh_aabb, a.ct, v3(sh_center[0], sh_center[1], sh_center[2]),
-                                     ray.o, ray.d, ray.bounces > 0, tl);
-    }
+    emit_next(a, sh_scene, idx, ray.o, ray.d, ray.bounces > 0);
   }
+}
+
+// Bounce 0's emit from the camera rays, as #3 emits it for the bounces
+// after it: the rays themselves are not written.
+template <bool STAGE_SCENE>
+__global__ void __launch_bounds__(PTT_THREADS) ptt_mesh_prelude_kernel(const PttMeshShadeArgs a) {
+  const PttScene sh_scene = load_scene<STAGE_SCENE>(a.scene, ptt_smem);
+  __syncthreads();
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= a.n) return;
+  emit_next(a, sh_scene, idx, v3(a.in_f[0][idx], a.in_f[1][idx], a.in_f[2][idx]),
+            v3(a.in_f[3][idx], a.in_f[4][idx], a.in_f[5][idx]), a.in_bounces[idx] > 0);
 }
 
 static unsigned blocks_for(long long n) {
   return (unsigned)((n + PTT_THREADS - 1) / PTT_THREADS);
+}
+
+template <bool STAGE_SCENE>
+static cudaError_t launch_mesh(bool prelude, const PttMeshShadeArgs* a, size_t smem,
+                               cudaStream_t st) {
+  void (*kernel)(const PttMeshShadeArgs) =
+      prelude ? ptt_mesh_prelude_kernel<STAGE_SCENE> : ptt_mesh_shade_kernel<STAGE_SCENE>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<blocks_for(a->n), PTT_THREADS, smem, st>>>(*a);
+  return cudaGetLastError();
+}
+
+// Either kernel over a->n rays, with the scene's tables in shared memory
+// where they fit.
+static int launch_either(bool prelude, const PttMeshShadeArgs* a, void* stream) {
+  if (a->emit == 2 && (a->ct < 1 || a->tile_aabb == nullptr || a->center == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (a->num_geoms < 0 || a->num_materials < 0) return (int)cudaErrorInvalidValue;
+  if (a->n <= 0) return (int)cudaGetLastError();
+  const size_t tables = scene_table_bytes(a->num_geoms, a->num_materials);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t err = tables <= PTT_SMEM_LIMIT ? launch_mesh<true>(prelude, a, tables, st)
+                                                   : launch_mesh<false>(prelude, a, 0, st);
+  return (int)err;
 }
 
 extern "C" {
@@ -135,7 +190,6 @@ int ptt_mesh_abi(int32_t* out, int32_t len) {
       (int32_t)offsetof(PttScene, geoms),
       PTT_TRI_TILE,
       PTT_COEF_W,
-      PTT_KEY_MAX_CT,
   };
   const int32_t count = (int32_t)(sizeof(v) / sizeof(v[0]));
   for (int32_t i = 0; i < count && i < len; ++i) out[i] = v[i];
@@ -143,32 +197,17 @@ int ptt_mesh_abi(int32_t* out, int32_t len) {
 }
 
 int ptt_launch_mesh_shade(const PttMeshShadeArgs* a, void* stream) {
-  if (a->emit == 2 && (a->ct < 1 || a->ct > PTT_KEY_MAX_CT)) return (int)cudaErrorInvalidValue;
   if (a->mode < PTT_SHADE_PLAIN || a->mode > PTT_SHADE_PRECOMPUTED) {
     return (int)cudaErrorInvalidValue;
   }
-  if (a->num_geoms < 0 || a->num_materials < 0) return (int)cudaErrorInvalidValue;
-  if (a->n > 0) {
-    // The kernel's static shared memory (the key's tile boxes) counts
-    // against the same per-block limit.
-    const size_t fixed = (PTT_KEY_MAX_CT * 8 + 3) * sizeof(float);
-    const size_t tables = scene_table_bytes(a->num_geoms, a->num_materials);
-    const bool stage_scene = tables + fixed <= PTT_SMEM_LIMIT;
-    const size_t smem = stage_scene ? tables : 0;
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          ptt_mesh_shade_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    if (stage_scene) {
-      ptt_mesh_shade_kernel<true><<<blocks_for(a->n), PTT_THREADS, smem, (cudaStream_t)stream>>>(
-          *a);
-    } else {
-      ptt_mesh_shade_kernel<false><<<blocks_for(a->n), PTT_THREADS, 0, (cudaStream_t)stream>>>(
-          *a);
-    }
-  }
-  return (int)cudaGetLastError();
+  return launch_either(false, a, stream);
+}
+
+// Bounce 0's t_lim (out_tlim), winner (out_win, optional) and with emit 2
+// key (out_key) of the rays in_f[0..5] / in_bounces.
+int ptt_launch_mesh_prelude(const PttMeshShadeArgs* a, void* stream) {
+  if (a->emit < 1 || a->out_tlim == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_either(true, a, stream);
 }
 
 const char* ptt_mesh_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -50,7 +50,6 @@
 #define PTT_RAY_TILE 256          // rays per plan block (ops/intersect_mxu.py::RAY_TILE)
 #define PTT_BINNED_G 8            // rays per packet (ops/intersect_mxu.py::BINNED_G)
 #define PTT_SUPER_TILES 8         // tiles per super-tile (ops/intersect_mxu.py::SUPER_TILES)
-#define PTT_KEY_MAX_CT 24   // ops/intersect_mxu.py::KEY_INLINE_MAX_CT
 #define PTT_INT_MAX 0x7FFFFFFF
 
 // float32 values of the JAX package's Python constants, written exactly.
@@ -672,7 +671,11 @@ PTT_HD int32_t bit_length(int32_t v) {
 
 // coherence_key_planes for one ray: root mask, the ids of the nearest
 // n_sig candidate tiles by sorted insertion, a direction morton, and the
-// three-level layering (live & root < live & prim-only < dead).
+// three-level layering (live & root < live & prim-only < dead).  Any number
+// of tiles.  A ray that is not live (dead, or outside the root box) takes
+// no tile: every one of its candidates would be INT_MAX, and its key is
+// 1 << 30 or DEAD_KEY whatever they are, so skipping the loop gives the
+// same key bit for bit.
 PTT_HD int32_t coherence_key(const float* aabb, int ct, V3 center, V3 o, V3 d, bool alive,
                              float tlim) {
   const int32_t bits_id = ct > 1 ? (bit_length(ct - 1) > 1 ? bit_length(ct - 1) : 1) : 1;
@@ -682,23 +685,30 @@ PTT_HD int32_t coherence_key(const float* aabb, int ct, V3 center, V3 o, V3 d, b
   const V3 os = v3(o.x - center.x, o.y - center.y, o.z - center.z);
   const V3 inv = inv_dir(d);
   const bool livem = alive && root_hit(aabb, ct, os, inv, tlim);
+  if (!livem) return alive ? (1 << 30) : ((1 << 30) + 1);
   int32_t tops[3] = {PTT_INT_MAX, PTT_INT_MAX, PTT_INT_MAX};
   for (int c = 0; c < ct; ++c) {
     const float* row = aabb + 8 * c;
     const Slab s = slab(row, row + 3, os, inv);
-    const bool hit = slab_enters(s, tlim) && livem;
     const int32_t b = ptt_as_int(ptt_max(s.lo, 0.0f));
-    int32_t p = hit ? ((b & ~id_mask) | c) : PTT_INT_MAX;
-    for (int k = 0; k < n_sig; ++k) {
-      const int32_t lo_k = tops[k] < p ? tops[k] : p;
-      p = tops[k] < p ? p : tops[k];
-      tops[k] = lo_k;
+    int32_t p = slab_enters(s, tlim) ? ((b & ~id_mask) | c) : PTT_INT_MAX;
+    // Static indices (k < 3, guarded) keep tops in registers.
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      if (k < n_sig) {
+        const int32_t lo_k = tops[k] < p ? tops[k] : p;
+        p = tops[k] < p ? p : tops[k];
+        tops[k] = lo_k;
+      }
     }
   }
   int32_t sig = 0;
-  for (int k = 0; k < n_sig; ++k) {
-    const int32_t idk = tops[k] == PTT_INT_MAX ? id_mask : (tops[k] & id_mask);
-    sig = k == 0 ? idk : ((sig << bits_id) | idk);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (k < n_sig) {
+      const int32_t idk = tops[k] == PTT_INT_MAX ? id_mask : (tops[k] & id_mask);
+      sig = k == 0 ? idk : ((sig << bits_id) | idk);
+    }
   }
   if (dir_total >= 3) {
     const int32_t db = dir_total / 3;
@@ -708,8 +718,7 @@ PTT_HD int32_t coherence_key(const float* aabb, int ct, V3 center, V3 o, V3 d, b
                        (morton_spread3(quant_dir(d.z, dscale)) << 2);
     sig = (sig << (3 * db)) | dm;
   }
-  const int32_t key = livem ? sig : (1 << 30);
-  return alive ? key : ((1 << 30) + 1);
+  return sig;
 }
 
 // ---------------------------------------------------------------------------

@@ -115,6 +115,11 @@ def megakernel_iteration(
     mesh_carry = None  # the mesh-shade kernel's (t_lim, key[, win]) for the next bounce
 
     alive_counts = torch.zeros((depth,), dtype=torch.int32, device=device)
+    every = max(1, cfg.ray_sort_every)
+
+    def resorts(d: int) -> bool:  # whether the mesh bounce d sorts its rays
+        return d % every == 0 and (d > 0 or cfg.ray_sort_first_bounce)
+
     for d in range(depth):
         skey = prng.stage_key(ikey, d, 1)
         if use_fused_mesh:
@@ -122,12 +127,8 @@ def megakernel_iteration(
             with span("mesh.bounce"):
                 out = fused.fused_mesh_bounce(
                     dev, static, cfg, paths, su_key=skey,
-                    resort=(
-                        d % max(1, cfg.ray_sort_every) == 0
-                        and (d > 0 or cfg.ray_sort_first_bounce)
-                    ),
-                    rng_n=n_global, carry=mesh_carry, want_carry=want, plain=plain,
-                    carry_winner=carry_winner,
+                    resort=resorts(d), rng_n=n_global, carry=mesh_carry, want_carry=want,
+                    plain=plain, carry_winner=carry_winner, next_resort=resorts(d + 1),
                 )
             paths, mesh_carry = out if want else (out, None)
         elif use_fused:
@@ -138,7 +139,7 @@ def megakernel_iteration(
             # at bounce 0, so a pack there is pure cost.
             paths = fused.fused_tex_bounce(
                 dev, static, cfg, paths, su_key=skey, rng_n=n_global, plain=plain,
-                resort=tex_sorted and d > 0 and d % max(1, cfg.ray_sort_every) == 0,
+                resort=tex_sorted and d > 0 and d % every == 0,
             )
         else:
             su = uniforms(skey, 3)

@@ -632,15 +632,8 @@ def fused_mesh_shade(
         _check_planes("fused_mesh_shade albedo", mesh_albedo, n, torch.float32, device)
     if rng_n * 3 >= 2**32:
         raise ValueError(f"3 x {rng_n} uniforms exceed the 32-bit counter")
-    ct = 0
-    if emit == "tlim+key":
-        ct = tile_aabb.shape[0]
-        if tile_aabb.shape != (ct, 8) or tile_aabb.dtype != torch.float32 \
-                or tile_aabb.device != device or not tile_aabb.is_contiguous() \
-                or center.shape != (3,) or center.device != device \
-                or center.dtype != torch.float32:
-            raise ValueError("fused_mesh_shade: tile_aabb [ct, 8] and center [3] "
-                             f"float32 on {device} are required for the key")
+    ct = _check_key_tables("fused_mesh_shade", tile_aabb, center, device) \
+        if emit == "tlim+key" else 0
     lib = kernels.load("fused_mesh")
     scene = _scene_buffer(prim_static, _eps(cfg), device)
     f_out = [torch.empty_like(t) for t in f_in]
@@ -693,6 +686,80 @@ def fused_mesh_shade(
 fused_mesh_shade.launches = 0
 
 
+def _check_key_tables(who: str, tile_aabb, center, device) -> int:
+    """The key's inputs as the kernels take them -> ct: tile_aabb [ct, 8]
+    float32 and contiguous, center [3] float32, on ``device``."""
+    ct = tile_aabb.shape[0]
+    if tile_aabb.shape != (ct, 8) or ct < 1 or tile_aabb.dtype != torch.float32 \
+            or tile_aabb.device != device or not tile_aabb.is_contiguous() \
+            or center.shape != (3,) or center.device != device \
+            or center.dtype != torch.float32:
+        raise ValueError(f"{who}: tile_aabb [ct, 8] and center [3] float32 on {device} "
+                         "are required for the key")
+    return ct
+
+
+def mesh_prelude_plain(prim_static: SceneStatic, cfg: RenderConfig, paths: PathState,
+                       tile_aabb: torch.Tensor = None, center: torch.Tensor = None):
+    """The plain PyTorch version of the prelude kernel (``mesh_prelude``):
+    ``prim_t_min(..., winner=True)`` and, given the tile boxes,
+    ``coherence_key_planes`` of the rays as they are."""
+    t_lim, win = prim_t_min(prim_static, cfg, paths.origin, paths.direction, winner=True)
+    key = None
+    if tile_aabb is not None:
+        key = intersect_mxu.coherence_key_planes(
+            tile_aabb, center[0], center[1], center[2],
+            *paths.origin, *paths.direction, paths.alive, t_lim,
+        )
+    return t_lim, key, win
+
+
+def mesh_prelude(prim_static: SceneStatic, cfg: RenderConfig, paths: PathState,
+                 tile_aabb: torch.Tensor = None, center: torch.Tensor = None,
+                 plain: bool = False):
+    """Bounce 0's carry from the camera rays, in one launch of the prelude
+    kernel (``csrc/fused_mesh.cu``): ``(t_lim, key | None, win)``, the
+    planes the mesh-shade kernel emits for the bounces after it -- each
+    ray's prim nearest t, the prim that gives it (-1: none) and, given
+    ``tile_aabb`` [ct, 8] and ``center`` [3], its coherence sort key at any
+    ``ct``.  ``prim_static`` is the scene's static with ``num_triangles=0``.
+    On the CPU, or with ``plain``, ``mesh_prelude_plain``."""
+    device = paths.origin.x.device
+    if plain or device.type == "cpu":
+        return mesh_prelude_plain(prim_static, cfg, paths, tile_aabb, center)
+    _require_cuda(device, "mesh_prelude")
+    n = paths.pixel.shape[0]
+    f_in = (*paths.origin, *paths.direction)
+    _check_planes("mesh_prelude rays", f_in, n, torch.float32, device)
+    _check_planes("mesh_prelude bounces", (paths.bounces,), n, torch.int32, device)
+    keyed = tile_aabb is not None
+    ct = _check_key_tables("mesh_prelude", tile_aabb, center, device) if keyed else 0
+    lib = kernels.load("fused_mesh")
+    scene = _scene_buffer(prim_static, _eps(cfg), device)
+    tl_out = torch.empty_like(paths.origin.x)
+    win_out = torch.empty_like(paths.bounces)
+    key_out = torch.empty_like(paths.bounces) if keyed else None
+    a = kernels.PttMeshShadeArgs()
+    a.scene = scene.data_ptr()
+    a.in_f[:6] = [t.data_ptr() for t in f_in]
+    a.in_bounces = paths.bounces.data_ptr()
+    a.out_tlim = tl_out.data_ptr()
+    a.out_win = win_out.data_ptr()
+    if keyed:
+        a.out_key = key_out.data_ptr()
+        a.tile_aabb = tile_aabb.data_ptr()
+        a.center = center.data_ptr()
+    a.n, a.ct, a.emit = n, ct, EMIT_MODES.index("tlim+key" if keyed else "tlim")
+    a.num_geoms, a.num_materials = _scene_counts(prim_static)
+    code = lib.lib.ptt_launch_mesh_prelude(ctypes.byref(a), kernels.stream_handle(device))
+    lib.check(code, "mesh_prelude")
+    mesh_prelude.launches += 1
+    return tl_out, key_out, win_out
+
+
+mesh_prelude.launches = 0
+
+
 def fused_mesh_bounce(
     dev,
     static: SceneStatic,
@@ -705,26 +772,30 @@ def fused_mesh_bounce(
     want_carry: bool = False,
     plain: bool = False,
     carry_winner: bool = False,
+    next_resort: bool = True,
 ):
-    """One mesh-scene bounce: the prim t prepass (or the carried one), the
-    persistent coherence sort, the traversal, the winner's attributes
+    """One mesh-scene bounce: the prelude kernel (or the carried planes),
+    the persistent coherence sort, the traversal, the winner's attributes
     and normal (torch), and the fused shade kernel.
 
     ``carry``/``want_carry`` thread the shade kernel's next-bounce outputs
-    across bounces, so the prim prepass and the key build run only when no
-    carry exists; the carry lives in the current (sorted) order.  With
+    (prim t_lim and, at any tile count, the signature sort key where
+    ``next_resort`` says the next bounce sorts by it) across bounces;
+    without a carry the prelude kernel (``mesh_prelude``) gives the same
+    planes from the rays as they are, so no bounce builds the signature key
+    in torch.  The carry lives in the current (sorted) order.  With
     ``want_carry`` the return is ``(paths, (t_lim, key | None))``, and with
     ``carry_winner`` too ``(paths, (t_lim, key | None, win))``: the prim
     that gives each ray's t_lim, which the next bounce's shade takes instead
-    of testing every prim (the prepass gives it at the first bounce).  The
-    film is the same bit for bit either way.  ``plain`` runs both kernels'
+    of testing every prim (the prelude gives it at the first bounce).  The
+    film is the same bit for bit either way.  ``plain`` runs the kernels'
     plain versions instead, on any device (the reference the kernels are
     held to on the card).
 
     With prefix tiers (``cfg.resolved_prefix_tiers``) and sorting on, the
     whole bounce runs over the smallest tier holding every alive ray
     (``run_tiered_carry``): the persistent sort packs the alive rays into
-    the previous bounce's alive prefix, so every stage -- prepass, sort,
+    the previous bounce's alive prefix, so every stage -- prelude, sort,
     traversal, attributes, the shade kernel -- takes ``[:npre]`` rows and
     the dead tail passes through.  Every stage is per ray with
     pixel-keyed draws, so only the dead rows' layout differs, which the
@@ -741,7 +812,7 @@ def fused_mesh_bounce(
         # back to the streamed walk (the JAX package's budget_anchor_n).
         return _fused_mesh_bounce_at(
             dev, static, cfg, head, resort, su_key, rng_n, sort_rays, head_carry,
-            want_carry, plain, carry_winner, budget_rays=n,
+            want_carry, plain, carry_winner, next_resort, budget_rays=n,
         )
 
     return run_tiered_carry(paths, carry, npres, body, want_carry)
@@ -904,30 +975,34 @@ def textured_mesh_surface(dev, static: SceneStatic, cfg: RenderConfig, paths: Pa
 
 def _fused_mesh_bounce_at(dev, static, cfg, paths, resort, su_key, rng_n,
                           sort_rays, carry, want_carry, plain, carry_winner,
-                          budget_rays=None):
+                          next_resort=True, budget_rays=None):
     """The mesh bounce's body (``fused_mesh_bounce``), over the whole state
-    or a prefix tier's head of it."""
-    ckey = win = None
+    or a prefix tier's head of it.  The signature sort key comes from the
+    kernels: the carry's (the shade kernel of the bounce before) or, at the
+    first bounce, the prelude kernel's.  ``ray_sort_mode="morton"`` builds
+    its key in torch at every sorted bounce (``intersect_mxu.sort_key``)."""
+    tables = dev.mxu_mesh
+    prim_static = dataclasses.replace(static, num_triangles=0)
+    sort_mode = "signature" if cfg.ray_sort_mode == "auto" else cfg.ray_sort_mode
     if carry is not None:
         t_lim, ckey, *rest = carry
         win = rest[0] if rest else None
     else:
-        with span("mesh.prepass"):
-            if carry_winner:
-                t_lim, win = prim_t_min(static, cfg, paths.origin, paths.direction,
-                                        winner=True)
-            else:
-                t_lim = prim_t_min(static, cfg, paths.origin, paths.direction)
-    tables = dev.mxu_mesh
+        keyed = sort_rays and resort and sort_mode == "signature"
+        with span("mesh.prelude"):
+            t_lim, ckey, win = mesh_prelude(
+                prim_static, cfg, paths, tables.tile_aabb if keyed else None,
+                tables.center if keyed else None, plain=plain)
+        if not carry_winner:
+            win = None
     if sort_rays and resort:
         with span("mesh.sort"):
             if ckey is not None:
                 perm = torch.argsort(ckey, stable=True)
             else:
-                mode = "signature" if cfg.ray_sort_mode == "auto" else cfg.ray_sort_mode
                 perm = intersect_mxu.coherence_perm(
                     tables, paths.origin, paths.direction, paths.alive, t_lim,
-                    cfg.ray_sort_bits, cfg.ray_sort_dir_bits, mode=mode,
+                    cfg.ray_sort_bits, cfg.ray_sort_dir_bits, mode=sort_mode,
                 )
             paths, extra = permute_path_state(
                 paths, perm, extra=(t_lim,) if win is None else (t_lim, win))
@@ -942,11 +1017,9 @@ def _fused_mesh_bounce_at(dev, static, cfg, paths, resort, su_key, rng_n,
                                                      budget_rays)
         mode, albedo = "plain", None
     with span("mesh.shade"):
-        prim_static = dataclasses.replace(static, num_triangles=0)
-        emit = ""
-        if want_carry:
-            ct = tables.tile_aabb.shape[0]
-            emit = "tlim+key" if ct <= intersect_mxu.KEY_INLINE_MAX_CT else "tlim"
+        # The key rides along wherever the next bounce sorts by it.
+        keyed = sort_rays and next_resort and sort_mode == "signature"
+        emit = ("tlim+key" if keyed else "tlim") if want_carry else ""
         shade = fused_mesh_shade_plain if plain else fused_mesh_shade
         return shade(
             prim_static, cfg, paths, mesh_t, mesh_normal, mesh_mat, su_key, rng_n,

@@ -103,7 +103,6 @@ BINNED_G = 8  # rays per packet
 BINNED_PAIR_MEAN = 14  # pair budget per packet
 BINNED_PREFIX_TIERS = (8, 4)  # live-prefix tiers when the caller names none
 BINNED_TOPK = 128  # per-packet slot list length
-KEY_INLINE_MAX_CT = 24  # the shade kernel emits sort keys up to this many tiles
 SUPER_TILES = 8  # tiles per super-tile of the super streamed walk
 STREAM_SUPER_MIN = 320 * 1024  # PTT_STREAM_SUPER's "auto" band starts beyond this
 
@@ -431,8 +430,8 @@ def coherence_key_planes(aabb_rows, cx, cy, cz, ox, oy, oz, dx, dy, dz, alive,
     time, and the three-level layering (live & root < live & prim-only <
     dead).  ``aabb_rows``: [ct, 8] recentred tile bounds; ``cx/cy/cz``: the
     recentring offset; ``t_limit``: the next bounce's prim prune.  The
-    mesh-shade kernel computes the same key per ray (``csrc/mesh_path.cuh``,
-    ``coherence_key``)."""
+    mesh-shade and prelude kernels compute the same key per ray at any
+    number of tiles (``csrc/mesh_path.cuh``, ``coherence_key``)."""
     rows = [[float(v) for v in r] for r in aabb_rows.tolist()]
     ct = len(rows)
     bits_id, n_sig, dir_total = _key_layout(ct)
@@ -459,21 +458,39 @@ def coherence_key_planes(aabb_rows, cx, cy, cz, ox, oy, oz, dx, dy, dz, alive,
     return torch.where(alive, key, DEAD_KEY)
 
 
+def sort_key(tables: MXUMeshTables, ro: Vec3, rd: Vec3, active, t_limit,
+             sort_bits: int, sort_dir_bits: int, mode: str = "morton",
+             mesh_bounds=None) -> torch.Tensor:
+    """The coherence key built in torch (live & root < live & prim-only <
+    dead), in the span ``mesh.key_glue``: in a trace, one span for each
+    bounce whose key the kernels did not give.  In mode "signature" it is
+    the key the mesh-shade and prelude kernels emit
+    (``coherence_key_planes``) bit for bit; mode "morton" quantises the
+    origins within ``mesh_bounds`` (the mesh's [6] world bounds), or
+    without them within the tile boxes' envelope."""
+    with span("mesh.key_glue"):
+        c = tables.center
+        root = root_hit_mask(tables.tile_aabb, c, *ro, *rd, t_limit)
+        live = (active & root).to(torch.float32)
+        os = (ro.x - c[0], ro.y - c[1], ro.z - c[2])
+        if mode == "signature":
+            key = _signature_keys(tables.tile_aabb, *os, *rd, live, t_limit)
+        else:
+            if mesh_bounds is None:
+                lo = torch.min(tables.tile_aabb[:, 0:3], dim=0).values
+                hi = torch.max(tables.tile_aabb[:, 3:6], dim=0).values
+            else:
+                b = torch.tensor(mesh_bounds, dtype=torch.float32, device=c.device)
+                lo, hi = b[:3] - c, b[3:] - c
+            key = _coherence_keys(*os, *rd, live, lo, hi, sort_bits, sort_dir_bits)
+        return torch.where(active, key, DEAD_KEY)
+
+
 def coherence_perm(tables: MXUMeshTables, ro: Vec3, rd: Vec3, active, t_limit,
                    sort_bits: int, sort_dir_bits: int, mode: str = "morton"):
     """Stable sort order of the whole bounce state by coherence key
-    (live & root < live & prim-only < dead)."""
-    root = root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, t_limit)
-    live = (active & root).to(torch.float32)
-    c = tables.center
-    os = (ro.x - c[0], ro.y - c[1], ro.z - c[2])
-    if mode == "signature":
-        key = _signature_keys(tables.tile_aabb, *os, *rd, live, t_limit)
-    else:
-        lo = torch.min(tables.tile_aabb[:, 0:3], dim=0).values
-        hi = torch.max(tables.tile_aabb[:, 3:6], dim=0).values
-        key = _coherence_keys(*os, *rd, live, lo, hi, sort_bits, sort_dir_bits)
-    key = torch.where(active, key, DEAD_KEY)
+    (``sort_key``)."""
+    key = sort_key(tables, ro, rd, active, t_limit, sort_bits, sort_dir_bits, mode)
     return torch.argsort(key, stable=True)
 
 
@@ -1688,16 +1705,8 @@ def mesh_intersect_mxu(
                  planned_epilogue=planned_epilogue, plan_impl=plan_impl,
                  chunk_tris=chunk_tris, plain=plain)
     if sort_rays:
-        c = tables.center
-        os = (ro.x - c[0], ro.y - c[1], ro.z - c[2])
-        root = root_hit_mask(tables.tile_aabb, c, *ro, *rd, t_limit)
-        live = (active & root).to(torch.float32)
-        if sort_mode == "signature":
-            key = _signature_keys(tables.tile_aabb, *os, *rd, live, t_limit)
-        else:
-            b = torch.tensor(mesh_bounds, dtype=torch.float32, device=c.device)
-            key = _coherence_keys(*os, *rd, live, b[:3] - c, b[3:] - c,
-                                  sort_bits, sort_dir_bits)
+        key = sort_key(tables, ro, rd, active, t_limit, sort_bits, sort_dir_bits, sort_mode,
+                       mesh_bounds)
         perm = torch.argsort(key, stable=True)
         sro, srd = Vec3(*(p[perm] for p in ro)), Vec3(*(p[perm] for p in rd))
         t_s, tri_s = _traverse(tables, num_tris, padded_tris, sro, srd, active[perm],

@@ -203,7 +203,6 @@ def _mesh_abi_expected() -> list:
         PttScene.geoms.offset,
         mxu.TRI_TILE,
         mxu.COEF_W,
-        mxu.KEY_INLINE_MAX_CT,
     ]
 
 
@@ -265,6 +264,8 @@ def _bind_prim(lib) -> tuple:
 def _bind_mesh(lib) -> tuple:
     lib.ptt_launch_mesh_shade.argtypes = [ctypes.POINTER(PttMeshShadeArgs), _p]
     lib.ptt_launch_mesh_shade.restype = _i
+    lib.ptt_launch_mesh_prelude.argtypes = [ctypes.POINTER(PttMeshShadeArgs), _p]
+    lib.ptt_launch_mesh_prelude.restype = _i
     return lib.ptt_mesh_abi, _mesh_abi_expected(), lib.ptt_mesh_error_string
 
 

@@ -195,9 +195,10 @@ def shade_states(dev, static, cam, cfg, device, bounces: int):
     (``prim_t_min(..., winner=True)``, permuted with them: the winner the
     bounce before emits); the mesh surface is ``mesh_surface``, or
     ``textured_mesh_surface`` in mode "textured" for a textured mesh; emit
-    is the main path's ("tlim+key" up to ``KEY_INLINE_MAX_CT`` tiles, else
-    "tlim"; none on the frame's last bounce).  The next bounce comes from the
-    plain shade.  Works on any checkout's package."""
+    is the main path's ("tlim+key", or "tlim" past ``KEY_INLINE_MAX_CT``
+    tiles in a package that still has that rule; none on the frame's last
+    bounce).  The next bounce comes from the plain shade.  Works on any
+    checkout's package."""
     import dataclasses
     import inspect
 
@@ -232,7 +233,7 @@ def shade_states(dev, static, cam, cfg, device, bounces: int):
         else:
             mt, mn, mm, alb = fused.textured_mesh_surface(dev, static, cfg, paths, tl)
         emit = "" if d == static.trace_depth - 1 else (
-            "tlim+key" if ct <= mxu.KEY_INLINE_MAX_CT else "tlim")
+            "tlim+key" if ct <= getattr(mxu, "KEY_INLINE_MAX_CT", ct) else "tlim")
         key = emit == "tlim+key"
         skey = prng.stage_key(ik, d, 1)
         args = (prim_static, cfg, paths, mt, mn, mm, skey, n, emit,

@@ -99,6 +99,36 @@ void ptt_host_mesh_shade(const PttScene* s, const float* const* in_f, const int3
                           mesh_alb, nullptr, nullptr);
 }
 
+// coherence_key over rays (ray: origin xyz, direction xyz; alive: 0/1).
+void ptt_host_coherence_key(const float* aabb, int32_t ct, const float* center,
+                            const float* const* ray, const uint8_t* alive, const float* tlim,
+                            int32_t n, int32_t* out_key) {
+  const V3 c = v3(center[0], center[1], center[2]);
+  for (int32_t i = 0; i < n; ++i) {
+    out_key[i] = coherence_key(aabb, ct, c, v3(ray[0][i], ray[1][i], ray[2][i]),
+                               v3(ray[3][i], ray[4][i], ray[5][i]), alive[i] != 0, tlim[i]);
+  }
+}
+
+// ptt_mesh_prelude_kernel: bounce 0's t_lim, winner (out_win, may be null)
+// and with emit 2 key of the rays in_f[0..5], alive where in_bounces > 0.
+void ptt_host_mesh_prelude(const PttScene* s, const float* const* in_f,
+                           const int32_t* in_bounces, const float* aabb, const float* center,
+                           float* out_tlim, int32_t* out_key, int32_t* out_win, int32_t n,
+                           int32_t ct, int32_t emit) {
+  for (int32_t i = 0; i < n; ++i) {
+    const V3 o = v3(in_f[0][i], in_f[1][i], in_f[2][i]);
+    const V3 d = v3(in_f[3][i], in_f[4][i], in_f[5][i]);
+    int32_t win;
+    out_tlim[i] = prim_t_min_win(*s, o, d, &win);
+    if (out_win) out_win[i] = win;
+    if (emit == 2) {
+      out_key[i] = coherence_key(aabb, ct, v3(center[0], center[1], center[2]), o, d,
+                                 in_bounces[i] > 0, out_tlim[i]);
+    }
+  }
+}
+
 // The per-ray schedule of the planned walks, without (exit 0) and with
 // (exit 1) the early exit, which the planned and streamed kernels had
 // before their block schedule: each block of 256 rays walks its plan row,

@@ -15,6 +15,7 @@ stages are compared exactly and films at the goldens' tolerance.
 import ctypes
 import dataclasses
 import pathlib
+import types
 
 import numpy as np
 import pytest
@@ -1168,6 +1169,117 @@ def test_mesh_shade_kernel_carried_winner_on_sorted_bounces(cuda):
         taken += int((args[2].alive & (args[5] < 0) & (win >= 0)).sum())
     assert fused.fused_mesh_shade.launches == before + 2 * static.trace_depth
     assert taken > 1000
+
+
+MESH_200K = "cornell_mesh_200k.json"
+
+
+def _torch_key(tables, paths, tl):
+    """The key of the torch glue (``intersect_mxu.sort_key``, signature)."""
+    cfg = RenderConfig()
+    return intersect_mxu.sort_key(tables, paths.origin, paths.direction, paths.alive, tl,
+                                  cfg.ray_sort_bits, cfg.ray_sort_dir_bits, mode="signature")
+
+
+def _large_table(center, device):
+    """``key_case``'s boxes and rays at 8,192 tiles (256 KB of boxes, more
+    than a block's shared memory would hold), on ``device``."""
+    from torch_fixtures import key_case
+
+    aabb, c, paths, tl = key_case(8192, center.cpu().numpy(), np.random.default_rng(11))
+    to = lambda x: x.to(device)
+    paths = type(paths)(*(type(f)(*map(to, f)) if isinstance(f, tuple) else to(f)
+                          for f in paths))
+    return types.SimpleNamespace(tile_aabb=to(aabb), center=to(c)), paths, to(tl)
+
+
+@pytest.mark.parametrize("table", ["200k", "8192 tiles"])
+def test_mesh_shade_kernel_key_at_any_tile_count(cuda, table):
+    """#3 with "tlim+key" past the old 24-tile rule: on three sorted bounces
+    of the 200k mesh at 128x128 with the knot's table (196 tiles) and with
+    ``key_case``'s 8,192 tiles, every plane -- rays, t_lim, key, winner -- is
+    bit-equal to ``fused_mesh_shade_plain``, and the key is the torch
+    glue's on the scattered rays."""
+    dev, static, cam = _setup(MESH_200K, 128, cuda)
+    tables = dev.mxu_mesh
+    assert tables.tile_aabb.shape[0] == 196
+    key_tables = tables if table == "200k" else _large_table(tables.center, cuda)[0]
+    live = 0
+    for args, win in _sorted_shade_states(static, dev, cam, cuda, 3):
+        args = (*args[:9], key_tables.tile_aabb, key_tables.center)
+        got = fused.fused_mesh_shade(*args, prim_winner=win, want_winner=True)
+        want = fused.fused_mesh_shade_plain(*args, prim_winner=win, want_winner=True)
+        for a, b in zip(_shade_bits(got), _shade_bits(want)):
+            assert torch.equal(a, b)
+        p, (tl, key, _) = got
+        assert torch.equal(key, _torch_key(key_tables, p, tl))
+        live += int((key < (1 << 30)).sum())
+    assert live > 1000
+
+
+@pytest.mark.parametrize("case", ["200k camera", "8192 tiles"])
+def test_mesh_prelude_kernel_matches_plain(cuda, case):
+    """The prelude kernel (bounce 0's t_lim, winner and key) on the 200k
+    mesh's camera rays at 128x128 and on ``key_case``'s rays over 8,192
+    tiles: bit-equal to ``mesh_prelude_plain``, its key the torch glue's on
+    the same t_lim; without the boxes it gives no key and the same t_lim
+    and winner."""
+    dev, static, cam = _setup(MESH_200K, 128, cuda)
+    prim_static = dataclasses.replace(static, num_triangles=0)
+    cfg = RenderConfig()
+    if case == "200k camera":
+        tables, paths = dev.mxu_mesh, _camera_paths(static, cam, cuda)[1]
+    else:
+        tables, paths, _ = _large_table(dev.mxu_mesh.center, cuda)
+    before = fused.mesh_prelude.launches
+    got = fused.mesh_prelude(prim_static, cfg, paths, tables.tile_aabb, tables.center)
+    want = fused.mesh_prelude_plain(prim_static, cfg, paths, tables.tile_aabb, tables.center)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b)
+    assert torch.equal(got[1], _torch_key(tables, paths, got[0]))
+    assert int((got[1] < (1 << 30)).sum()) > 500
+    bare = fused.mesh_prelude(prim_static, cfg, paths)
+    assert bare[1] is None
+    assert torch.equal(bare[0], got[0]) and torch.equal(bare[2], got[2])
+    assert fused.mesh_prelude.launches == before + 2
+
+
+def test_mesh_frame_carried_keys_match_the_torch_key_route(cuda):
+    """One 200k frame at 200x200 on the main path (the prelude's key at
+    bounce 0, #3's after it) against the same frame by the route that
+    built every key in torch: bounce 0 from ``prim_t_min``, and the carry
+    handed on without its key, so each bounce sorts by ``coherence_perm``.
+    The kernels' keys equal the torch keys at every bounce, and so the
+    permutations, and the films are bit-equal."""
+    scene = set_resolution(load_scene(str(REPO / "scenes" / MESH_200K)), 200, 200)
+    r = Renderer(scene, RenderConfig(), seed=5, device=cuda)
+    dev, static, cfg = r.dev, r.static, r.cfg
+    n, depth = static.pixel_count, static.trace_depth
+    film_k, alive_k = megakernel_iteration(dev, static, cfg, r._cam_state,
+                                           film_ops.new_film(n, cuda), 1, r._base_key)
+    prim_static = dataclasses.replace(static, num_triangles=0)
+    tables = dev.mxu_mesh
+    ikey = prng.iteration_key(r._base_key, 1)
+    paths = camera_ops.generate_camera_rays(
+        r._cam_state, static.width, static.height, depth,
+        prng.uniforms(prng.stage_key(ikey, 0, 0), n, 4, cuda),
+        idx=torch.arange(n, dtype=torch.int32, device=cuda))
+    tl, win = prim_t_min(static, cfg, paths.origin, paths.direction, winner=True)
+    carry = (tl, fused.mesh_prelude(prim_static, cfg, paths, tables.tile_aabb, tables.center)[1],
+             win)
+    live = 0
+    for d in range(depth):
+        assert torch.equal(carry[1], _torch_key(tables, paths, carry[0])), d
+        live += int((carry[1] < (1 << 30)).sum())
+        want = d < depth - 1
+        out = fused.fused_mesh_bounce(dev, static, cfg, paths, su_key=prng.stage_key(ikey, d, 1),
+                                      rng_n=n, carry=(carry[0], None, carry[2]),
+                                      want_carry=want, carry_winner=True)
+        paths, carry = out if want else (out, None)
+    film_t = film_ops.accumulate(film_ops.new_film(n, cuda), paths, permuted=True)
+    assert torch.equal(torch.stack(list(film_k), 1), torch.stack(list(film_t), 1))
+    assert live > 1000 and float(film_k.x.sum()) > 0
 
 
 def test_mesh_shade_kernel_winner_tie_and_inside(cuda):

@@ -29,6 +29,7 @@ floats (another summation order).
 import ctypes
 import dataclasses
 import pathlib
+import types
 
 import numpy as np
 import pytest
@@ -49,7 +50,7 @@ from project3_cuda_path_tracer_2025_tpu_torch.utils.vec import Vec3
 from torch_compare import (
     ATOL_WORLD, FILM_ATOL, FILM_RTOL, assert_films_close, build_host, close3,
 )
-from torch_fixtures import prepass_case, winner_case
+from torch_fixtures import key_case, prepass_case, winner_case
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 HARNESS = REPO / "tests" / "prim_path_host.cpp"
@@ -379,6 +380,8 @@ def mesh_lib(tmp_path_factory):
     lib.ptt_host_mesh_shade_win.argtypes = (
         [P] * 13 + [ctypes.c_uint32] * 3 + [ctypes.c_int32] * 4 + [P] * 3
     )
+    lib.ptt_host_coherence_key.argtypes = [P, ctypes.c_int32, P, P, P, P, ctypes.c_int32, P]
+    lib.ptt_host_mesh_prelude.argtypes = [P] * 8 + [ctypes.c_int32] * 3
     sizes = (ctypes.c_int32 * 2)()
     lib.ptt_host_mesh_sizes(sizes)
     assert list(sizes) == [ctypes.sizeof(kernels.PttScene), intersect_mxu.COEF_W]
@@ -684,6 +687,67 @@ def test_host_mesh_shade_winner_crafted(mesh_lib, mesh_scene):
                                color=Vec3(*got[0][6:9]), bounces=got[1])
         tl, win = got[2], got[4]
         surf = (mt, mn, torch.full_like(mm, -1))
+
+
+def _torch_key(aabb, center, paths, tl):
+    """The key the torch glue builds (``intersect_mxu.sort_key``: root_hit_mask,
+    _signature_keys, DEAD_KEY for the dead rays)."""
+    tables = types.SimpleNamespace(tile_aabb=aabb, center=center)
+    cfg = RenderConfig()
+    return intersect_mxu.sort_key(tables, paths.origin, paths.direction, paths.alive, tl,
+                                  cfg.ray_sort_bits, cfg.ray_sort_dir_bits, mode="signature")
+
+
+@pytest.mark.parametrize("ct", [25, 196, 1000])
+@pytest.mark.parametrize("body", ["host key", "host prelude", "plain prelude"])
+def test_key_at_any_tile_count(mesh_lib, mesh_scene, body, ct):
+    """The sort key the kernels emit at any tile count, against the torch
+    glue's (``_torch_key``) bit for bit, on ``key_case``'s rays: random,
+    axis-parallel, root misses, grazing tile 0's face, starting among the
+    boxes, and dead.  "host key": ``coherence_key`` built for the host,
+    with its early exit for the rays that are not live; "host prelude":
+    the prelude kernel's body (t_lim, winner and key of the rays as they
+    are) against ``prim_t_min(..., winner=True)`` and the torch key on its
+    t_lim (the t within the shade tolerance: the host's and torch's
+    transformed points may part in the last bit; the key equal wherever the
+    t is); "plain prelude": ``mesh_prelude_plain`` against the same,
+    exactly."""
+    dev, static, _ = mesh_scene
+    cfg = RenderConfig()
+    prim_static = dataclasses.replace(static, num_triangles=0)
+    aabb, center, paths, tl = key_case(ct, dev.mxu_mesh.center.numpy(),
+                                       np.random.default_rng(ct))
+    n = paths.pixel.shape[0]
+    rays = [p.contiguous() for p in (*paths.origin, *paths.direction)]
+    if body != "host key":
+        tl, win = prim_t_min(prim_static, cfg, paths.origin, paths.direction, winner=True)
+    want = _torch_key(aabb, center, paths, tl)
+    live = want < (1 << 30)
+    assert int(live.sum()) > n // 4 and int((want == 1 << 30).sum()) > n // 16
+    assert int((want == intersect_mxu.DEAD_KEY).sum()) == n // 8
+    if body == "host key":
+        got = torch.empty(n, dtype=torch.int32)
+        alive = paths.alive.to(torch.uint8)
+        mesh_lib.ptt_host_coherence_key(
+            aabb.data_ptr(), ct, center.data_ptr(), _ptrs(rays), alive.data_ptr(),
+            tl.data_ptr(), n, got.data_ptr())
+        assert torch.equal(got, want)
+    elif body == "host prelude":
+        got_tl, got_win = torch.empty(n), torch.empty(n, dtype=torch.int32)
+        got = torch.empty(n, dtype=torch.int32)
+        mesh_lib.ptt_host_mesh_prelude(
+            ctypes.byref(fused.scene_struct(prim_static, cfg)), _ptrs(rays),
+            paths.bounces.data_ptr(), aabb.data_ptr(), center.data_ptr(), got_tl.data_ptr(),
+            got.data_ptr(), got_win.data_ptr(), n, ct, fused.EMIT_MODES.index("tlim+key"))
+        assert torch.equal(got_win, win)
+        np.testing.assert_allclose(got_tl.numpy(), tl.numpy(), rtol=1e-5)
+        same = got_tl == tl
+        assert int(same.sum()) > n * 9 // 10
+        assert torch.equal(got[same], want[same])
+    else:
+        got_tl, got, got_win = fused.mesh_prelude_plain(prim_static, cfg, paths, aabb, center)
+        _bits_equal([got_tl, got, got_win], [tl, want, win])
+        assert fused.mesh_prelude(prim_static, cfg, paths)[1] is None
 
 
 @pytest.fixture(scope="module")

@@ -4,7 +4,7 @@ Without a profiler a span is one shared no-op.  Under
 ``torch.profiler.profile``, one step of the 5k mesh at 16x16 with the fused
 mesh bounce and the binned traversal (their plain versions here) records
 ``ptt.mesh.bounce`` once a bounce, in bounce order, inside it the
-prepass (first bounce), the sort (where the bounce resorts), the plan, the
+prelude (first bounce), the sort (where the bounce resorts), the plan, the
 walk, the surface and the shade, nested in time, with ``read.live_pos``
 and ``read.overflow`` once each inside the plan; the film and the alive
 counts are the same bit for bit with the profiler as without.  An orbit
@@ -88,21 +88,60 @@ def test_mesh_step_spans_by_stage(sort_every):
     assert all(b in _inside(spans, step[0]) for b in bounces)
     for d, bounce in enumerate(bounces):
         names = [s[0] for s in _inside(spans, bounce)]
-        assert names.count("mesh.prepass") == (d == 0)
+        assert names.count("mesh.prelude") == (d == 0)
         assert names.count("mesh.sort") == (d % sort_every == 0)
         for stage in ("mesh.plan", "mesh.walk", "mesh.surface", "mesh.shade"):
             assert names.count(stage) == 1, (d, stage, names)
         assert names.count("read.live_pos") == names.count("read.overflow") == 1
         plan = [s for s in _inside(spans, bounce) if s[0] == "mesh.plan"][0]
         assert sorted(s[0] for s in _inside(spans, plan)) == ["read.live_pos", "read.overflow"]
-        order = [n for n in names if n in ("mesh.prepass", "mesh.sort", "mesh.plan",
+        order = [n for n in names if n in ("mesh.prelude", "mesh.sort", "mesh.plan",
                                            "mesh.walk", "mesh.surface", "mesh.shade")]
-        assert order == [n for n in ("mesh.prepass", "mesh.sort", "mesh.plan", "mesh.walk",
+        assert order == [n for n in ("mesh.prelude", "mesh.sort", "mesh.plan", "mesh.walk",
                                      "mesh.surface", "mesh.shade") if n in order]
     accumulate = [s for s in spans if s[0] == "film.accumulate"]
     assert len(accumulate) == 1 and accumulate[0][1] >= bounces[-1][2]
     assert all(s[0] in ("renderer.step_many", "film.accumulate")
                or s[0].startswith(("mesh.", "read.")) for s in spans)
+
+
+@pytest.mark.parametrize("kw,glue_per_bounce", [
+    (dict(fused_bounce="on"), 0),
+    (dict(fused_bounce="on", ray_sort_every=2), 0),
+    (dict(fused_bounce="on", ray_sort_mode="morton"), 1),
+    (dict(fused_bounce="off"), 1),
+], ids=["fused", "fused, every 2", "fused, morton", "unfused"])
+def test_key_glue_spans_count_the_torch_keys(kw, glue_per_bounce, monkeypatch):
+    """``ptt.mesh.key_glue`` marks a sort key built in torch.  On the 80k
+    mesh (79 tiles, past the old 24-tile rule) with sorting on, the fused
+    bounce takes every signature key from the kernels (the prelude's at
+    bounce 0, the shade's after it; their plain versions here): no span in
+    the frame, and the shade emits the key only for a next bounce that
+    sorts by it.  Mode "morton" and the unfused route (``fused_bounce="off"``,
+    the MXU intersector) build one in torch a sorted bounce."""
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused
+
+    emits, shade = [], fused.fused_mesh_shade_plain
+
+    def spy(*a, **k):
+        emits.append(a[8])
+        return shade(*a, **k)
+
+    monkeypatch.setattr(fused, "fused_mesh_shade_plain", spy)
+    depth = 4
+    scene = _scene(str(REPO / "scenes" / "cornell_mesh_80k.json"), 8, depth)
+    cfg = RenderConfig(mesh_intersector="mxu", ray_sorting="on", **kw)
+    r = Renderer(scene, cfg, seed=2, device="cpu")
+    assert r.dev.mxu_mesh.tile_aabb.shape[0] > 24
+    names = [s[0] for s in _profiled(r.step)]
+    sorted_bounces = len(range(0, depth, cfg.ray_sort_every))
+    assert names.count("mesh.key_glue") == glue_per_bounce * sorted_bounces
+    fused_on = cfg.fused_bounce == "on"
+    assert names.count("mesh.bounce") == (depth if fused_on else 0)
+    if fused_on:
+        keyed = [cfg.ray_sort_mode != "morton" and (d + 1) % cfg.ray_sort_every == 0
+                 for d in range(depth - 1)]
+        assert emits == [("tlim+key" if k else "tlim") for k in keyed] + [""]
 
 
 def test_orbit_display_spans():

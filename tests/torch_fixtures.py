@@ -119,6 +119,60 @@ def winner_case(static, rng, n=1024):
     return prim_static, paths, mesh_t, mesh_n, mesh_mat
 
 
+def key_case(ct, center, rng, n=4096):
+    """Rays for the coherence key over ``ct`` random tile boxes (recentred
+    frame, within 2 of ``center``, a world point), an eighth each: aimed at
+    the boxes from 5 away; the same with one or two direction components
+    exactly 0 (the slab's 1e-20 stand-in); aimed away from the boxes (the
+    root misses); starting on tile 0's lower x face and running in its
+    plane (grazing); starting among the boxes; dead (``bounces`` 0) but
+    aimed at them; and the rest aimed at them again.  Returns (tile_aabb
+    [ct, 8], center [3] (``center`` rounded to quarter units), paths,
+    t_lim): t_lim is FLT_MAX on three rays in ten and between 1 and 8 on
+    the others."""
+    from project3_cuda_path_tracer_2025_tpu_torch.ops.intersect import FLT_MAX
+    from project3_cuda_path_tracer_2025_tpu_torch.ops.rays import PathState
+    from project3_cuda_path_tracer_2025_tpu_torch.utils.vec import Vec3
+
+    # Quarter units for the centre and 1/256 for tile 0's corner, so that
+    # the grazing origins recentre onto the face exactly.
+    c = np.round(np.asarray(center, np.float64) * 4.0) / 4.0
+    lo = rng.uniform(-2.0, 2.0, (ct, 3))
+    lo[0] = np.round(lo[0] * 256.0) / 256.0
+    hi = lo + rng.uniform(0.05, 0.6, (ct, 3))
+    aabb = np.zeros((ct, 8), np.float32)
+    aabb[:, 0:3], aabb[:, 3:6] = lo, hi
+    e = n // 8
+    part = lambda k: slice(k * e, (k + 1) * e)
+    o = rng.normal(size=(n, 3))
+    o = 5.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = rng.uniform(-1.5, 1.5, (n, 3)) - o
+    flat = d[part(1)]
+    flat[:, 0] = 0.0
+    flat[::2, 2] = 0.0
+    d[part(1)] = np.where(np.abs(flat).sum(1, keepdims=True) > 0, flat, [0.0, 1.0, 0.0])
+    d[part(2)] = o[part(2)]
+    o[part(3)] = np.stack([np.full(e, lo[0, 0]), rng.uniform(lo[0, 1], hi[0, 1], e),
+                           rng.uniform(lo[0, 2], hi[0, 2], e)], 1)
+    d[part(3)] = np.stack([np.zeros(e), rng.normal(size=e), rng.normal(size=e)], 1)
+    o[part(4)] = rng.uniform(-2.0, 2.0, (e, 3))
+    d[part(4)] = rng.normal(size=(e, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o += c
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    bounces = np.full(n, 5, np.int32)
+    bounces[part(5)] = 0
+    tl = np.where(rng.random(n) < 0.3, FLT_MAX, rng.uniform(1.0, 8.0, n))
+    paths = PathState(
+        origin=Vec3(*(f(o[:, i]) for i in range(3))),
+        direction=Vec3(*(f(d[:, i]) for i in range(3))),
+        color=Vec3(*(torch.ones(n) for _ in range(3))),
+        pixel=torch.arange(n, dtype=torch.int32),
+        bounces=torch.from_numpy(bounces),
+    )
+    return f(aabb), f(c), paths, f(tl)
+
+
 def prepass_case(ct):
     """Synthetic plan inputs over ``ct`` boxes (recentred frame): 6 blocks
     of 256 rays with a third of them live and a tenth axis-aligned; block 1
