@@ -79,6 +79,14 @@ def alive_gap(tracer: Tracer, camera, iteration: int, program_alive) -> float:
     return float(np.max(np.abs(prog - ref) / np.maximum(ref, 1.0)))
 
 
+def walk_counts(scene, tracer: Tracer, out: dict) -> list:
+    """[rays alive before, (ray, triangle) pairs, triangles entered] at each
+    bounce of the window's last iteration over the whole frame, the one
+    ``alive_gap`` traces (``Tracer.walk_counts``)."""
+    cameras, counts = replay(scene, out["moves"], [out["steps"] - 1], out["spp"])
+    return tracer.walk_counts(cameras[0], counts[0])
+
+
 def checked_steps(out: dict, rng: np.random.Generator, traffic: dict) -> list:
     """The steps whose image the check compares: of those that brought an
     image to the host, ``check_drag_frames`` drag steps and

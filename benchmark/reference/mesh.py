@@ -4,8 +4,14 @@ The triangles are grouped by the Morton order of their centroids into
 groups of ``GROUP``, each with an axis-aligned box rounded outward.  A ray
 tests every box, and every triangle of each box it enters nearer than its
 limit (Moller-Trumbore, the reference's ``intersectTriangle``): the same
-nearest hit as testing every triangle, found with less work.  Nothing here
-comes from the program's BVH, tiles or tables.
+nearest hit as testing every triangle, found with less work.  The hit is
+shaded with the winner's vertex normals, interpolated at its barycentric
+coordinates.  Nothing here comes from the program's BVH, tiles or tables.
+
+``walk_count`` counts the least work of any exact nearest-hit walk whose
+nodes are axis-aligned boxes: the triangles whose own box a ray's segment
+up to its nearest hit enters.  Every box that holds such a triangle holds
+its box too, so the walk has to reach and test each of them.
 """
 
 from __future__ import annotations
@@ -47,17 +53,24 @@ class MeshIndex:
         hi = np.nextafter(hi + 1e-6 * span, np.inf, dtype=np.float32)
 
         tv = lambda a: torch.as_tensor(a, device=device)
+        corners = mesh.vertices[np.maximum(ids, 0)]  # [G, GROUP, 3, 3] float32
         self.lo, self.hi = tv(lo).to(dtype), tv(hi).to(dtype)  # [G, 3]
-        self.verts = tv(mesh.vertices[np.maximum(ids, 0)]).to(dtype)  # [G, GROUP, 3, 3]
+        self.verts = tv(corners).to(dtype)
         self.valid = tv(valid)
-        self.normals = tv(mesh.normals).to(dtype)  # [T, 3], file order
+        self.normals = tv(mesh.vertex_normals).to(dtype)  # [T, 3, 3], file order
+        # Each triangle's own box, exact in float32 (its corners' extremes).
+        self.tri_lo = tv(corners.min(axis=2)).to(dtype)  # [G, GROUP, 3]
+        self.tri_hi = tv(corners.max(axis=2)).to(dtype)
         self.ids = tv(ids)
+        self.triangles = t
         self.material = mesh.material
         self.dtype = dtype
 
     def nearest(self, ro, rd, t_limit):
-        """(t, flat normal) of the nearest triangle hit closer than
-        ``t_limit`` (t = the dtype's largest value where there is none)."""
+        """(t, normal) of the nearest triangle hit closer than ``t_limit``
+        (t = the dtype's largest value where there is none): the normal is
+        ``normalize(n0 (1 - u - v) + n1 u + n2 v)`` of the winner's vertex
+        normals."""
         big = torch.finfo(self.dtype).max
         n = ro[0].numel()
         best_t = torch.full_like(ro[0], big)
@@ -72,9 +85,9 @@ class MeshIndex:
         tri = torch.clamp_min(best_id, 0)
         v = self.verts.reshape(-1, 3, 3)[self._slot(tri)]
         _, t, u, w = _triangle(ro, rd, v[:, 0], v[:, 1], v[:, 2])
-        nrm = self.normals[tri]
+        nrm = self.normals[tri]  # [N, 3 corners, 3]
         b = 1.0 - u - w
-        nx = [nrm[:, i] * b + nrm[:, i] * u + nrm[:, i] * w for i in range(3)]
+        nx = [nrm[:, 0, i] * b + nrm[:, 1, i] * u + nrm[:, 2, i] * w for i in range(3)]
         inv = 1.0 / torch.sqrt(nx[0] * nx[0] + nx[1] * nx[1] + nx[2] * nx[2])
         zero = torch.zeros_like(t)
         normal = tuple(torch.where(hit, c * inv, zero) for c in nx)
@@ -90,16 +103,32 @@ class MeshIndex:
             self._slots = slots
         return self._slots[tri]
 
+    def walk_count(self, ro, rd, t_end, entered) -> int:
+        """The (ray, triangle) pairs whose triangle's own box the ray's
+        segment from its origin to ``t_end`` (its nearest hit over the whole
+        scene; the dtype's largest value where it escapes) enters; each such
+        triangle is set in ``entered`` [T] bool.  A group's box holds its
+        triangles' boxes, so only the groups the segment enters are looked
+        into."""
+        pairs = 0
+        for s in range(0, ro[0].numel(), RAY_CHUNK):
+            sl = slice(s, s + RAY_CHUNK)
+            o = tuple(c[sl] for c in ro)
+            inv = [1.0 / c[sl] for c in rd]
+            ray, grp = torch.nonzero(_enters(self.lo[None], self.hi[None], o, inv,
+                                             t_end[sl], strict=False), as_tuple=True)
+            for p in range(0, ray.numel(), PAIR_CHUNK):
+                r, g = ray[p:p + PAIR_CHUNK], grp[p:p + PAIR_CHUNK]
+                hit = _enters(self.tri_lo[g], self.tri_hi[g], tuple(c[r] for c in o),
+                              [c[r] for c in inv], t_end[sl][r], strict=False)
+                hit &= self.valid[g]
+                pairs += int(hit.sum())
+                entered[self.ids[g][hit]] = True
+        return pairs
+
     def _search(self, ro, rd, t_limit):
         inv = [1.0 / c for c in rd]
-        near = far = None
-        for a in range(3):
-            t1 = (self.lo[None, :, a] - ro[a][:, None]) * inv[a][:, None]
-            t2 = (self.hi[None, :, a] - ro[a][:, None]) * inv[a][:, None]
-            lo, hi = torch.minimum(t1, t2), torch.maximum(t1, t2)
-            near = lo if near is None else torch.maximum(near, lo)
-            far = hi if far is None else torch.minimum(far, hi)
-        enter = (far >= near) & (far > 0) & (near < t_limit[:, None])
+        enter = _enters(self.lo[None], self.hi[None], ro, inv, t_limit)
         ray, grp = torch.nonzero(enter, as_tuple=True)
         big = torch.finfo(self.dtype).max
         pair_t, pair_id = [], []
@@ -124,6 +153,21 @@ class MeshIndex:
             at_min = (pair_t == best_t[ray]) & (pair_id >= 0)
             best_id.scatter_reduce_(0, ray, torch.where(at_min, pair_id, none), "amin")
         return best_t, torch.where(best_id == none, -1, best_id)
+
+
+def _enters(lo, hi, ro, inv, t_limit, strict=True):
+    """Slab test of rays against boxes ``lo``/``hi`` [R or 1, B, 3]: the
+    ray's segment from its origin to ``t_limit`` enters the box (before the
+    limit, or with ``strict`` False up to it).  Returns [R, B] bool."""
+    near = far = None
+    for a in range(3):
+        t1 = (lo[..., a] - ro[a][:, None]) * inv[a][:, None]
+        t2 = (hi[..., a] - ro[a][:, None]) * inv[a][:, None]
+        lo_t, hi_t = torch.minimum(t1, t2), torch.maximum(t1, t2)
+        near = lo_t if near is None else torch.maximum(near, lo_t)
+        far = hi_t if far is None else torch.minimum(far, hi_t)
+    before = near < t_limit[:, None] if strict else near <= t_limit[:, None]
+    return (far >= near) & (far > 0) & before
 
 
 def _triangle(ro, rd, v0, v1, v2):

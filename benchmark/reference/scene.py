@@ -6,9 +6,11 @@ document (and from an orbit of it).
 Plain NumPy in float64, cast to float32 where the tracer takes its
 constants.  It implements what the benchmark's configurations use:
 "Diffuse" and "Emitting" materials, "cube", "sphere" and "obj" objects
-whose OBJ files hold triangles with no vertex normals (flat shading).
-Anything else raises, so a configuration the reference cannot follow
-is refused rather than judged by a different scene.
+whose OBJ files hold triangles of positions, with or without vertex
+normals (``f v`` or ``f v//vn``; a face without them is shaded flat).
+Texture coordinates, textures, polygons and anything else raise, so a
+configuration the reference cannot follow is refused rather than judged
+by a different scene.
 """
 
 from __future__ import annotations
@@ -66,11 +68,13 @@ class Prim:
 
 @dataclass
 class Mesh:
-    """World-space triangles: vertices [T, 3, 3] and flat normals [T, 3],
-    float32, in file order; one material for the whole mesh."""
+    """World-space triangles: vertices [T, 3, 3] and the normals at each
+    corner [T, 3, 3] (the file's vertex normals, or the flat normal three
+    times on a face without them), float32, in file order; one material for
+    the whole mesh."""
 
     vertices: np.ndarray
-    normals: np.ndarray
+    vertex_normals: np.ndarray
     material: int
 
 
@@ -200,27 +204,48 @@ def load(doc: dict, base_dir: str, res: tuple = None) -> Scene:
     return Scene(width, height, int(c["DEPTH"]), camera, materials, prims, meshes)
 
 
+def _unit_rows(a: np.ndarray) -> np.ndarray:
+    """Rows over their length; a row of length 0 stays 0."""
+    length = np.linalg.norm(a, axis=-1, keepdims=True)
+    return np.where(length > 0, a / np.where(length == 0, 1.0, length), a)
+
+
 def load_obj(path: str, transform: np.ndarray, material: int) -> Mesh:
-    """Triangles of an OBJ file of ``v`` and triangular ``f`` records, baked
-    to world space in float64 and rounded to float32, with flat normals."""
-    verts, faces = [], []
+    """Triangles of an OBJ file of ``v``, ``vn`` and triangular ``f``
+    records (``f a b c`` or ``f a//na b//nb c//nc``), baked to world space
+    in float64 and rounded to float32.  A vertex normal is carried by the
+    inverse transpose of the transform and normalised; a face whose three
+    normals are absent or zero takes its flat normal at every corner."""
+    verts, normals, faces = [], [], []
     with open(path) as f:
         for line in f:
             tag, _, rest = line.partition(" ")
             if tag == "v":
                 verts.append(rest)
+            elif tag == "vn":
+                normals.append(rest)
             elif tag == "f":
                 faces.append(rest)
-            elif tag in ("vn", "vt"):
-                raise NotImplementedError(f"{path}: the reference reads no {tag!r} records")
+            elif tag == "vt":
+                raise NotImplementedError(f"{path}: the reference reads no 'vt' records")
     v = np.array(" ".join(verts).split(), np.float64).reshape(-1, 3)
-    idx = np.array([tok.split("/")[0] for tok in " ".join(faces).split()], np.int64)
-    if idx.size != 3 * len(faces):
+    vn = np.array(" ".join(normals).split(), np.float64).reshape(-1, 3)
+    parts = [tok.partition("//") for tok in " ".join(faces).split()]
+    if len(parts) != 3 * len(faces):
         raise NotImplementedError(f"{path}: the reference reads triangles only")
-    idx = idx.reshape(-1, 3)
-    idx = np.where(idx > 0, idx - 1, len(v) + idx)
+    if any("/" in a or (sep and not b) for a, sep, b in parts):
+        raise NotImplementedError(f"{path}: the reference reads faces 'v' and 'v//vn' only")
+    resolve = lambda idx, count: np.where(idx > 0, idx - 1, count + idx)
+    idx = resolve(np.array([a for a, _, _ in parts], np.int64), len(v)).reshape(-1, 3)
+    has_n = np.array([bool(sep) for _, sep, _ in parts]).reshape(-1, 3)
+    nidx = resolve(np.array([b or "1" for _, _, b in parts], np.int64), len(vn)).reshape(-1, 3)
     p = v[idx] @ transform[:3, :3].T + transform[:3, 3]  # [T, 3, 3]
-    n = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
-    length = np.linalg.norm(n, axis=1, keepdims=True)
-    n = np.where(length > 0, n / np.where(length == 0, 1.0, length), n)
-    return Mesh(p.astype(np.float32), n.astype(np.float32), material)
+    flat = _unit_rows(np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]))
+    corner = np.zeros(p.shape)
+    if len(vn):
+        inv_t = np.linalg.inv(transform).T[:3, :3]
+        corner = np.where(has_n[..., None], _unit_rows(vn[np.where(has_n, nidx, 0)] @ inv_t.T),
+                          0.0)
+    missing = (np.linalg.norm(corner, axis=-1) <= 1e-6).all(axis=1)
+    corner = np.where(missing[:, None, None], flat[:, None, :], corner)
+    return Mesh(p.astype(np.float32), corner.astype(np.float32), material)

@@ -13,6 +13,10 @@ every path's final colour is added to its pixel once an iteration.
 draws are made in float32 and rounded to it, and colours come back in
 float32.  float32 is the reference; a lower precision is the control that
 the comparison must refuse.  Nothing here reads anything the program made.
+
+``walk_counts`` traces one whole-frame iteration and counts, at each
+bounce, the least work of any box-bounded walk over the scene's meshes
+(``MeshIndex.walk_count``).
 """
 
 from __future__ import annotations
@@ -146,6 +150,7 @@ class Tracer:
         self.meshes = [MeshIndex(m, self.device, dtype) for m in scene.meshes]
         self.colors = [tuple(f32(c) for c in m.color) for m in scene.materials]
         self.emittance = [f32(m.emittance) for m in scene.materials]
+        self.walk = None  # a bounce's [rays, pairs, [entered [T] a mesh]] in walk_counts
 
     # -- keys ------------------------------------------------------------------
     def _keys(self, iterations: torch.Tensor):
@@ -199,7 +204,7 @@ class Tracer:
                 o = tuple(v[live] for v in origin)
                 w = tuple(v[live] for v in direction)
                 col = tuple(v[live] for v in color)
-                o2, w2, col2, b2 = self._bounce(o, w, col, bounces[live], su)
+                o2, w2, col2, b2 = self._bounce(o, w, col, bounces[live], su, d)
                 for full, part in zip(origin + direction + color, o2 + w2 + col2):
                     full[live] = part
                 bounces[live] = b2
@@ -224,8 +229,8 @@ class Tracer:
         origin = (pos[0] + r * torch.cos(theta), pos[1] + r * torch.sin(theta), pos[2].clone())
         return origin, _unit(_sub(focal, origin))
 
-    def _bounce(self, ro, rd, color, bounces, su):
-        t, normal, mat = self._nearest(ro, rd)
+    def _bounce(self, ro, rd, color, bounces, su, depth):
+        t, normal, mat = self._nearest(ro, rd, depth)
         hit = t > 0.0
         flip = _dot(rd, normal) > 0.0
         normal = _where(flip, tuple(-c for c in normal), normal)
@@ -285,7 +290,22 @@ class Tracer:
         return out
 
     # -- intersection ------------------------------------------------------------
-    def _nearest(self, ro, rd):
+    def walk_counts(self, camera, iteration: int) -> list:
+        """For each bounce of iteration ``iteration`` over the whole frame
+        through ``camera``: [rays alive before it, (ray, triangle) pairs
+        whose triangle's own box the ray's segment up to its nearest hit
+        enters, distinct triangles entered]."""
+        n = self.scene.pixel_count
+        self.walk = [[0, 0, [torch.zeros(m.triangles, dtype=torch.bool, device=self.device)
+                             for m in self.meshes]] for _ in range(self.scene.depth)]
+        try:
+            self.radiance([camera], torch.arange(n), torch.full((n,), iteration))
+            walk = self.walk
+        finally:
+            self.walk = None
+        return [[rays, pairs, sum(int(m.sum()) for m in seen)] for rays, pairs, seen in walk]
+
+    def _nearest(self, ro, rd, depth):
         """(t [-1: miss], normal toward nowhere in particular, material)."""
         big = torch.finfo(self.dtype).max
         t_min = torch.full_like(ro[0], big)
@@ -307,6 +327,11 @@ class Tracer:
             hit_any = hit_any | closer
             normal = _where(closer, nrm, normal)
             mat = torch.where(closer, index.material, mat)
+        if self.walk is not None:
+            row = self.walk[depth]
+            row[0] += ro[0].numel()
+            row[1] += sum(index.walk_count(ro, rd, t_min, seen)
+                          for index, seen in zip(self.meshes, row[2]))
         return torch.where(hit_any, t_min, -1.0), normal, mat
 
 

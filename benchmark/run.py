@@ -65,6 +65,14 @@ def _card_label(device: str) -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "unknown"
 
 
+def _peaks(device: str) -> str:
+    """The peaks a roofline share is read against, and the card it ran on."""
+    import work
+
+    return (f"against {work.PEAK_F32_S:.3g} float32 operations/s and {work.PEAK_BYTES_S:.3g} "
+            f"bytes/s (H100 SXM at 700 W); this card: {_card_label(device)}")
+
+
 def forbidden_modules() -> list:
     """Top-level names of loaded modules that a run may not load: compared
     whole, since the port's name begins with the JAX package's."""
@@ -143,13 +151,22 @@ def run_cell(spec, cell: dict, seed: int, seconds: float, traced: bool, device: 
         boxes = sum(p.kind == ref_scene.CUBE for p in scene.prims)
         rec["work"] = work.iteration_work(n, boxes, len(scene.prims) - boxes, out["alive"])
     correct, rows = check.decide(numbers, limits)
-    if rec is not None and "work" in rec:
-        ms, by = work.bound_ms(*rec["work"])
-        print(f"roofline: one iteration's bound {ms!r} ms, set by {by}, against "
-              f"{work.PEAK_F32_S:.3g} float32 operations/s and {work.PEAK_BYTES_S:.3g} bytes/s "
-              f"(H100 SXM at 700 W); this card: {_card_label(device)}", file=sys.stderr)
     print(f"check: the reference took {time.perf_counter() - t_check:.3f} s; every number "
           f"{json.dumps(numbers)}", file=sys.stderr)
+    if rec is not None and "work" in rec:
+        ms, by = work.bound_ms(*rec["work"])
+        print(f"roofline: one iteration's bound {ms!r} ms, set by {by}, {_peaks(device)}",
+              file=sys.stderr)
+    if rec is not None and scene.meshes:
+        t_walk = time.perf_counter()
+        walk = check.walk_counts(scene, tracer, out)
+        nbytes, ops = rec["walk_work"] = work.walk_work(walk)
+        ms, by = work.bound_ms(nbytes, ops)
+        print(f"walk roofline: the last iteration's mesh walks' bound {ms!r} ms, set by {by} "
+              f"({nbytes} bytes, {ops} operations), {_peaks(device)}; a bounce's [rays alive "
+              f"before, (ray, triangle) pairs, triangles entered]: {json.dumps(walk)}; counted "
+              f"in {time.perf_counter() - t_walk:.3f} s",
+              file=sys.stderr)
 
     specs = spec.per_layer(cell) if traced else spec.end_to_end(cell)
     source = rec if traced else clock

@@ -89,6 +89,7 @@ def _rec():
         "spans": [("traced", 0, 10 * ms), ("input", 0, 1 * ms), ("step", 1 * ms, 2 * ms),
                   ("preview", 4 * ms, 8 * ms), ("input", 8 * ms, 9 * ms)],
         "work": (1.0e9, 67e9),  # 1 ms by operations, 0.3 ms by bytes
+        "walk_work": (3.35e8, 67e8),  # 0.1 ms by bytes and by operations
     }
 
 
@@ -110,6 +111,7 @@ def test_interval_arithmetic():
     ("host_reads_per_frame", 2.0),
     ("host_enqueue_ms.orbit", 3.0 / 2),
     ("iteration_roofline_pct", 100.0 * 1.0 / (2.0 / 4)),
+    ("walk_roofline_pct", 100.0 * 0.1 / (3.0 / 4)),  # ptt_streamed_kernel, 3 ms
 ])
 def test_per_layer_arithmetic(metric, expected):
     assert Spec.load().reader(metric)(_rec()) == pytest.approx(expected)
@@ -121,6 +123,24 @@ def test_reader_finds_nothing():
     assert Spec.load().reader("iteration_roofline_pct")(rec) is None
     del rec["work"]
     assert Spec.load().reader("iteration_roofline_pct")(rec) is None
+
+
+def test_walk_reader_finds_nothing():
+    """No walk kernel in the record (the iteration kernel alone), or no
+    count: nothing to read."""
+    rec = _rec()
+    rec["device"] = [d for d in rec["device"] if "streamed" not in d[0]]
+    assert Spec.load().reader("walk_roofline_pct")(rec) is None
+    rec = _rec()
+    del rec["walk_work"]
+    assert Spec.load().reader("walk_roofline_pct")(rec) is None
+
+
+def test_walk_roofline_is_the_200k_cells_alone():
+    spec = Spec.load()
+    reports = [c["name"] for c in spec.doc["workloads"]
+               if "walk_roofline_pct" in {m["name"] for m in spec.per_layer(c)}]
+    assert reports == ["cornell_mesh_200k.progressive"]
 
 
 @pytest.mark.parametrize("metric,expected", [
@@ -150,6 +170,12 @@ def test_iteration_work_by_hand():
     assert ops == 4 * 45 + (4 + 3 + 1) * per_ray
     ms, by = work.bound_ms(3.35e12, 67e12 / 2)
     assert ms == pytest.approx(1e3) and by == "bytes"
+
+
+def test_walk_work_by_hand():
+    # Two bounces: 10 then 4 rays alive before, 7 then 2 pairs, 5 then 2 triangles.
+    nbytes, ops = work.walk_work([[10, 7, 5], [4, 2, 2]])
+    assert nbytes == 14 * 32 + 7 * 36 and ops == 9 * work.OPS_TRIANGLE
 
 
 def test_orbit_input_is_drawn_from_the_seed():
