@@ -1594,7 +1594,8 @@ def _traverse(tables, num_tris, padded_tris, ro, rd, active, tlim, baby_eps, pla
         planned = False
     if not binned and use_mono:
         traverse = mono_intersect_plain if plain else mono_intersect
-        return traverse(tables, num_tris, ro, rd, active, tlim, baby_eps)
+        with span("mesh.walk"):
+            return traverse(tables, num_tris, ro, rd, active, tlim, baby_eps)
 
     ct = tables.tile_aabb.shape[0]
     n_pad = nb * RAY_TILE

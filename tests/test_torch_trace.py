@@ -6,7 +6,8 @@ mesh bounce and the binned traversal (their plain versions here) records
 ``ptt.mesh.bounce`` once a bounce, in bounce order, inside it the
 prelude (first bounce), the sort (where the bounce resorts), the plan, the
 walk, the surface and the shade, nested in time, with ``read.live_pos``
-and ``read.overflow`` once each inside the plan; the film and the alive
+and ``read.overflow`` once each inside the plan; with the default (mono)
+traversal, the walk and no plan and no read; the film and the alive
 counts are the same bit for bit with the profiler as without.  An orbit
 display records the camera, the step and the preview with its reads.
 """
@@ -28,6 +29,7 @@ DOF = str(REPO / "scenes" / "cornell_dof.json")
 DEPTH = 4
 BINNED_MESH = dict(mesh_intersector="mxu", fused_bounce="on", ray_sorting="on",
                    mxu_traversal="binned")
+STAGES = ("mesh.prelude", "mesh.sort", "mesh.plan", "mesh.walk", "mesh.surface", "mesh.shade")
 
 torch.set_num_threads(1)
 
@@ -67,10 +69,11 @@ def test_no_profiler_gives_the_shared_noop(make):
         pass
 
 
-@pytest.mark.parametrize("sort_every", [1, 2])
-def test_mesh_step_spans_by_stage(sort_every):
-    scene = _scene(MESH, 16, DEPTH)
-    cfg = RenderConfig(ray_sort_every=sort_every, **BINNED_MESH)
+def _mesh_step_spans(cfg, depth):
+    """One step of the 5k mesh at 16x16 with and without the profiler: the
+    films and alive counts bit-equal -> (the traced step's spans, its
+    ``mesh.bounce`` spans, the inner span names of each bounce)."""
+    scene = _scene(MESH, 16, depth)
     plain = Renderer(scene, cfg, seed=3, device="cpu")
     plain.step()
     traced = Renderer(scene, cfg, seed=3, device="cpu")
@@ -84,25 +87,47 @@ def test_mesh_step_spans_by_stage(sort_every):
     step = [s for s in spans if s[0] == "renderer.step_many"]
     assert len(step) == 1
     bounces = [s for s in spans if s[0] == "mesh.bounce"]
-    assert len(bounces) == DEPTH
+    assert len(bounces) == depth
     assert all(b in _inside(spans, step[0]) for b in bounces)
-    for d, bounce in enumerate(bounces):
-        names = [s[0] for s in _inside(spans, bounce)]
-        assert names.count("mesh.prelude") == (d == 0)
-        assert names.count("mesh.sort") == (d % sort_every == 0)
-        for stage in ("mesh.plan", "mesh.walk", "mesh.surface", "mesh.shade"):
-            assert names.count(stage) == 1, (d, stage, names)
-        assert names.count("read.live_pos") == names.count("read.overflow") == 1
-        plan = [s for s in _inside(spans, bounce) if s[0] == "mesh.plan"][0]
-        assert sorted(s[0] for s in _inside(spans, plan)) == ["read.live_pos", "read.overflow"]
-        order = [n for n in names if n in ("mesh.prelude", "mesh.sort", "mesh.plan",
-                                           "mesh.walk", "mesh.surface", "mesh.shade")]
-        assert order == [n for n in ("mesh.prelude", "mesh.sort", "mesh.plan", "mesh.walk",
-                                     "mesh.surface", "mesh.shade") if n in order]
+    names = [[s[0] for s in _inside(spans, b)] for b in bounces]
+    for d, inner in enumerate(names):
+        assert inner.count("mesh.prelude") == (d == 0)
+        order = [n for n in inner if n in STAGES]
+        assert order == [n for n in STAGES if n in order], (d, order)
     accumulate = [s for s in spans if s[0] == "film.accumulate"]
     assert len(accumulate) == 1 and accumulate[0][1] >= bounces[-1][2]
     assert all(s[0] in ("renderer.step_many", "film.accumulate")
                or s[0].startswith(("mesh.", "read.")) for s in spans)
+    return spans, bounces, names
+
+
+
+@pytest.mark.parametrize("sort_every", [1, 2])
+def test_mesh_step_spans_by_stage(sort_every):
+    cfg = RenderConfig(ray_sort_every=sort_every, **BINNED_MESH)
+    spans, bounces, names = _mesh_step_spans(cfg, DEPTH)
+    for d, (bounce, inner) in enumerate(zip(bounces, names)):
+        assert inner.count("mesh.sort") == (d % sort_every == 0)
+        for stage in ("mesh.plan", "mesh.walk", "mesh.surface", "mesh.shade"):
+            assert inner.count(stage) == 1, (d, stage, inner)
+        assert inner.count("read.live_pos") == inner.count("read.overflow") == 1
+        plan = [s for s in _inside(spans, bounce) if s[0] == "mesh.plan"][0]
+        assert sorted(s[0] for s in _inside(spans, plan)) == ["read.live_pos", "read.overflow"]
+
+
+def test_mono_mesh_step_spans_by_stage():
+    """The default traversal of the 5k mesh (5 tiles: the mono walk, its
+    plain version here) at depth 8: each bounce opens one ``mesh.walk``
+    around the walk, and no ``mesh.plan`` and no host read, since the
+    route builds no plan and reads nothing."""
+    cfg = RenderConfig(**dict(BINNED_MESH, mxu_traversal="auto"))
+    _, _, names = _mesh_step_spans(cfg, 8)
+    for d, inner in enumerate(names):
+        assert inner.count("mesh.sort") == 1
+        for stage in ("mesh.walk", "mesh.surface", "mesh.shade"):
+            assert inner.count(stage) == 1, (d, stage, inner)
+        assert "mesh.plan" not in inner, (d, inner)
+        assert not [n for n in inner if n.startswith("read.")], (d, inner)
 
 
 @pytest.mark.parametrize("kw,glue_per_bounce", [
