@@ -26,8 +26,9 @@ checks the results against the committed golden films, and times the
 kernel paths against the plain versions with CUDA events; phase 9 profiles
 whole frames.  Phases 8e, 12g and 14e check and time the mesh-shade kernel
 on each sorted bounce as the main path launches it, with the carried prim
-winner (12g with the key at the 200k mesh's 196 tiles), and phase 12f
-the prelude kernel (bounce 0's key) on the 200k camera rays; phase 7
+winner (12g with the key at the 200k mesh's 196 tiles), phase 12f
+the prelude kernel (bounce 0's key) on the 200k camera rays, and phase
+12h the packet bins kernels on every 200k bounce a binned tier holds; phase 7
 logs the iteration kernel's lane use from a counting build of it.  Phase
 23 drives multi-device and chunked rendering on the one card (``cuda:0``
 named nd times): the block draw of the Threefry kernel, pixel
@@ -70,8 +71,9 @@ sys.path.insert(0, str(ROOT / "scripts"))
 # script's, so that its numbers and this script's describe the same rays
 # and films.
 from torch_bench_kernels import (  # noqa: E402
-    binned_args, bounce_lane_use, chain_calls, device_ms, env_set, iteration_scene, lane_use,
-    prepass_pairs, prepass_work, prim_bounce_states, sha, shade_outputs, shade_states,
+    OPS_PLAN_PAIR, binned_args, bins_inputs, bins_work, bounce_lane_use, chain_calls, device_ms,
+    env_set, iteration_scene, lane_use, prepass_pairs, prepass_work, prim_bounce_states, sha,
+    shade_outputs, shade_states,
     sorted_bounces, super_args, variant_library,
 )
 
@@ -754,7 +756,7 @@ def larger_mesh_phases(device, smi: str) -> tuple:
     base_key = prng.prng_key(0)
     counters = {c.__name__: c for c in (
         mxu.mono_intersect, mxu.planned_lanebest_intersect, mxu.planned_intersect,
-        mxu.streamed_intersect, mxu.binned_intersect, fused.fused_mesh_shade,
+        mxu.streamed_intersect, mxu.binned_intersect, mxu.packet_bins, fused.fused_mesh_shade,
         fused.mesh_prelude)}
     err = {k: 0.0 for k in counters}
     main_launches, entries, profiled = {}, {}, {}
@@ -977,22 +979,29 @@ def larger_mesh_phases(device, smi: str) -> tuple:
         b_case = b_case or args
     if not engaged:
         raise AssertionError("no bounce of the 200k frame engaged the binned traversal")
+    bins_entry = bins_phase("12h", tables, states, cfg, smi)
     states = STATES["200k"] = states[:3]
     check_walks("12b", ("streamed",), states, tables, blocks=PLAIN_BLOCKS)
     traversals_agree("12c", tables, static, states, ("binned", "streamed"))
     prelude = prelude_phase("12f", dev, static, cam, cfg, device, smi,
                             [p for p, _, _ in states])
     shade_bounces("12g", dev, static, cam, cfg, device, smi)
+    overflows = mxu._binning.overflows
     r, got = drive(scene, 2, counters)
-    log(f"[12d] Renderer('{LARGE['200k'].name}') step_many(2): launches {got}")
+    overflows = mxu._binning.overflows - overflows
+    log(f"[12d] Renderer('{LARGE['200k'].name}') step_many(2): launches {got}, bins that "
+        f"overflowed to the streamed walk {overflows}")
     if got["binned_intersect"] == 0 or got["mono_intersect"] or (
             got["binned_intersect"] + got["streamed_intersect"] != 2 * depth):
         raise AssertionError("the 200k Renderer did not take binned (+ streamed) per bounce")
+    if got["packet_bins"] != got["binned_intersect"] + overflows:
+        raise AssertionError("a binned bounce of the 200k Renderer built no bins by the kernels")
     if (got["fused_mesh_shade"], got["mesh_prelude"]) != (2 * depth, 2):
         raise AssertionError("the 200k Renderer did not take #3 per bounce and the prelude per "
                              "frame")
     main_launches["binned_intersect"] = got["binned_intersect"]
     prelude["launches"] = got["mesh_prelude"]
+    bins_entry["launches"] = got["packet_bins"]
     frame200 = frame_fn(dev, static, cam, cfg, base_key, device)
     profiled["200k mesh, 'auto' (the binned visits #10)"] = (frame200, "ptt_binned_kernel")
     _, alive200 = frame200()
@@ -1028,8 +1037,63 @@ def larger_mesh_phases(device, smi: str) -> tuple:
         "bound_ms": entries[k]["bound"][0],
         "bound_by": entries[k]["bound"][1],
         "library_ms": None,
-    } for k, line in replaces.items()] + [prelude]
+    } for k, line in replaces.items()] + [prelude, bins_entry]
     return kernels, profiled
+
+
+def bins_phase(tag, tables, states, cfg, smi) -> dict:
+    """The packet bins kernels (``packet_bins``, ``csrc/mesh_bins.cu``) on
+    every sorted bounce whose live rays a binned tier holds, at that tier's
+    prefix and budget: ``src``, ``vt``, ``dst`` and ``overflow`` bit-equal
+    to ``packet_bins_plain``'s; each call timed by CUDA events (median of 3
+    samples of 10 calls) with its bound (``bins_work``: bytes and slab
+    operations), the plain version once.  Returns its entry of the kernels
+    line, launches to be filled in."""
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import intersect_mxu as mxu
+
+    first = None
+    for d, (paths, tl, live) in enumerate(states):
+        args = bins_inputs(mxu, tables, paths, tl, live, cfg.mxu_binned_tiers)
+        if args is None:
+            log(f"[{tag}] bounce {d}: no binned tier engages")
+            continue
+        before = mxu.packet_bins.launches
+        got = mxu.packet_bins(*args)
+        want = mxu.packet_bins_plain(*args)
+        torch.cuda.synchronize()
+        if mxu.packet_bins.launches != before + 1:
+            raise AssertionError("packet_bins did not count its launch")
+        bad = {k: bits_differ(getattr(got, k), getattr(want, k))
+               for k in ("src", "vt", "dst", "overflow")}
+        npre, ct = args[4].shape[0], args[0].shape[0]
+        log(f"[{tag}] bounce {d}: bins over the first {npre} rays ({int(args[3].sum())} live), "
+            f"{ct} tiles, budget {args[5]}, topk {args[6]}: {int((want.vt >= 0).sum())} visits, "
+            f"overflow {bool(want.overflow)}; entries differing from packet_bins_plain {bad}")
+        if any(bad.values()):
+            raise AssertionError("packet_bins disagrees with packet_bins_plain")
+        nbytes, ops = bins_work(args, want)
+        bound = (*bound_ms(nbytes, ops), ops // OPS_PLAN_PAIR)
+        ms = launch(tag, f"packet_bins bounce {d}", lambda a=args: mxu.packet_bins(*a), 10,
+                    bound, args[3], smi)
+        plain_ms = cuda_time_ms(lambda a=args: mxu.packet_bins_plain(*a), 1)
+        log(f"[{tag}] bounce {d}: packet_bins_plain {plain_ms:.4f} ms by events")
+        if first is None:
+            first = dict(ms=ms, plain_ms=plain_ms, bound=bound)
+    if first is None:
+        raise AssertionError("no bounce of the 200k frame engaged a binned tier")
+    return {
+        "name": "packet_bins",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/mesh_bins.cu",
+        "replaces": "none (XLA glue in the JAX package: ops/intersect_mxu.py::_packet_bins)",
+        "launches": None,
+        "max_abs_err": 0.0,
+        "ms": first["ms"],
+        "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound"][0],
+        "bound_by": first["bound"][1],
+        "library_ms": None,
+    }
 
 
 def prelude_phase(tag, dev, static, cam, cfg, device, smi, sorted_paths) -> dict:

@@ -22,7 +22,13 @@
 //   super_take,     = one ray's gate on, and visit of, a super-tile plan
 //   super_visit       entry (ops/intersect_mxu.py::streamed_super_plain);
 //   plan_pair       = one (ray, tile) pair of ops/intersect_mxu.py::_pair_slabs,
-//                     the slab stage of the tile plan (plan_prepass_plain);
+//                     the slab stage of the tile plan (plan_prepass_plain)
+//                     and of the packet bins;
+//   bins_nibble,    = the packet bins' steps (packet_bins_plain): a warp's
+//   bins_pad,         packets that enter a tile, a tile's padded run, a
+//   bins_visit_tile,  visit's tile, a packet's slot, and which of its
+//   bins_slot,        slots are listed;
+//   bins_listed
 //   mono_ray        = ops/intersect_mxu.py::mono_intersect_plain (the root
 //                     cull, then walk_visit over the tiles in order);
 //   coherence_key   = ops/intersect_mxu.py::coherence_key_planes;
@@ -577,6 +583,65 @@ PTT_HD bool plan_pair(const float* row, V3 os, V3 inv, bool live, float tl, floa
   const Slab s = widen(slab(row, row + 3, os, inv), PTT_SLAB_REL2, PTT_SLAB_ABS2);
   *key = ptt_max(s.lo, 0.0f);
   return slab_enters(s, tl) && live;
+}
+
+// ---------------------------------------------------------------------------
+// The packet bins (ops/intersect_mxu.py::packet_bins_plain): the per-warp,
+// per-tile and per-packet steps of csrc/mesh_bins.cu
+// ---------------------------------------------------------------------------
+
+#define PTT_BINS_GP 32  // slots a visit: packets of one 256-ray pair row block
+
+PTT_HD int32_t ptt_popc(uint32_t x) {
+#if defined(__CUDA_ARCH__)
+  return __popc(x);
+#else
+  return __builtin_popcount(x);
+#endif
+}
+
+// One warp's ballot of plan_pair over its 32 rays -> which of its 4 packets
+// (8 lanes each) enter the tile: bit q for packet q.
+PTT_HD uint32_t bins_nibble(uint32_t ballot) {
+  uint32_t m = 0;
+  for (int q = 0; q < 4; ++q) m |= ((ballot >> (8 * q)) & 0xffu) ? (1u << q) : 0u;
+  return m;
+}
+
+// A tile's run of slots: its n_c packets rounded up to whole visits (pad_cnt).
+PTT_HD int32_t bins_pad(int32_t n_c) {
+  return (n_c + PTT_BINS_GP - 1) / PTT_BINS_GP * PTT_BINS_GP;
+}
+
+// Visit v's tile: the first c with cum_end[c] > 32 v (searchsorted with
+// right=True), -1 at or past the total cum_end[ct - 1].
+PTT_HD int32_t bins_visit_tile(const int32_t* cum_end, int32_t ct, int32_t v) {
+  const int32_t s = v * PTT_BINS_GP;
+  if (s >= cum_end[ct - 1]) return -1;
+  int32_t lo = 0, hi = ct - 1;  // cum_end[hi] > s
+  while (lo < hi) {
+    const int32_t mid = (lo + hi) / 2;
+    if (cum_end[mid] > s) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
+  }
+  return lo;
+}
+
+// Packet j (0-31) of a group of 32 in one tile: its slot.  word: bit i set
+// where packet i of the group enters the tile; base: the tile's first slot
+// plus the packets of the groups before that enter it.
+PTT_HD int32_t bins_slot(uint32_t word, int32_t base, int32_t j) {
+  return base + ptt_popc(word & ((1u << j) - 1u));
+}
+
+// Whether a packet's hit number pos (0-based, in tile order) has its slot
+// listed: topk 0 lists every hit (no dst), topk >= ct the dense [n_g, ct]
+// dst, else the first topk.
+PTT_HD bool bins_listed(int32_t pos, int32_t topk, int32_t ct) {
+  return topk == 0 || topk >= ct || pos < topk;
 }
 
 // One pair row of a binned visit (_binned_kernel): the ray against one

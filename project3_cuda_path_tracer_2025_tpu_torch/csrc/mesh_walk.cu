@@ -121,8 +121,8 @@
 //   the packet in that slot.  Pair rows whose ray is not a member of the
 //   tile, dead, or an empty slot's take nothing: the pairs of the rows that
 //   are members are dealt over the block.  The per-ray reduce over a
-//   packet's visits and the bin construction stay in torch
-//   (ops/intersect_mxu.py).
+//   packet's visits stays in torch (ops/intersect_mxu.py::binned_reduce);
+//   the bins come from the four kernels of csrc/mesh_bins.cu.
 //   #11 tests only the live rays of a ray block: its CTA stages them,
 //   compacted (warp ballots and a prefix over the warps; recentred origin,
 //   reciprocal direction and t_limit, two float4 a ray), in shared memory,

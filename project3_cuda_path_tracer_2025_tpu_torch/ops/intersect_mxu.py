@@ -103,6 +103,7 @@ BINNED_G = 8  # rays per packet
 BINNED_PAIR_MEAN = 14  # pair budget per packet
 BINNED_PREFIX_TIERS = (8, 4)  # live-prefix tiers when the caller names none
 BINNED_TOPK = 128  # per-packet slot list length
+BINS_SEG_GROUPS = 128  # groups of 32 packets a segment of the bins kernels' column scan
 SUPER_TILES = 8  # tiles per super-tile of the super streamed walk
 STREAM_SUPER_MIN = 320 * 1024  # PTT_STREAM_SUPER's "auto" band starts beyond this
 
@@ -1294,10 +1295,12 @@ def pair_budget(budget_rays: int, ct: int) -> int:
     return ((b + gp - 1) // gp) * gp
 
 
-def packet_bins(tile_aabb, os: Vec3, d: Vec3, live, tl, budget: int, topk: int) -> PacketBins:
-    """The JAX package's ``_packet_bins`` over a prefix of whole blocks:
-    the packets (8 rays) of each tile's k=2 candidates laid out tile-major
-    in 32-slot runs."""
+def packet_bins_plain(tile_aabb, os: Vec3, d: Vec3, live, tl, budget: int,
+                      topk: int) -> PacketBins:
+    """The plain PyTorch version of the packet bins kernels: the JAX
+    package's ``_packet_bins`` over a prefix of whole blocks, the packets
+    (8 rays) of each tile's k=2 candidates laid out tile-major in 32-slot
+    runs."""
     n_g = os.x.shape[0] // BINNED_G
     gp = RAY_TILE // BINNED_G
     ct = tile_aabb.shape[0]
@@ -1335,6 +1338,59 @@ def packet_bins(tile_aabb, os: Vec3, d: Vec3, live, tl, budget: int, topk: int) 
     vt = torch.searchsorted(cum_end, slots, right=True).to(torch.int32)
     vt = torch.where(slots < total, torch.clamp(vt, max=ct - 1), -1)
     return PacketBins(src, vt, dst if topk > 0 else None, overflow)
+
+
+def packet_bins(tile_aabb, os: Vec3, d: Vec3, live, tl, budget: int, topk: int) -> PacketBins:
+    """The packet bins of the binned visits (the JAX package's
+    ``_packet_bins``, XLA glue there): the four kernels of
+    ``csrc/mesh_bins.cu`` on CUDA tensors, ``packet_bins_plain`` on CPU
+    tensors; ``src``, ``vt``, ``dst`` and ``overflow`` bit-equal to it.
+    Rays padded to whole 256-ray blocks (a prefix of ``plan_rays``), at most
+    ``STREAMED_MAX_TILES`` tiles; ``topk`` 0 (no ``dst``), below the tile
+    count (each packet's first ``topk`` slots) or at or above it (the dense
+    [n_g, ct] slot plane)."""
+    device = tl.device
+    if device.type == "cpu":
+        return packet_bins_plain(tile_aabb, os, d, live, tl, budget, topk)
+    _require_cuda("packet_bins", device)
+    n_pad, ct = tl.shape[0], tile_aabb.shape[0]
+    if n_pad % RAY_TILE:
+        raise ValueError(f"packet_bins: {n_pad} rays are not whole blocks of {RAY_TILE}")
+    if ct > STREAMED_MAX_TILES:
+        raise ValueError(f"packet_bins: {ct} tiles exceed {STREAMED_MAX_TILES}")
+    if budget < 0 or topk < 0:
+        raise ValueError(f"packet_bins: budget {budget} and topk {topk} must be >= 0")
+    os, d = Vec3(*(x.contiguous() for x in os)), Vec3(*(x.contiguous() for x in d))
+    live, tl = live.contiguous(), tl.contiguous()
+    _check_rays("packet_bins rays", [*os, *d, tl], n_pad, device)
+    _check_tensor("packet_bins live", live, torch.bool, (n_pad,), device)
+    _check_tensor("packet_bins tile_aabb", tile_aabb, torch.float32, (ct, 8), device)
+    n_grp, n_g = n_pad // RAY_TILE, n_pad // BINNED_G
+    n_seg = -(-n_grp // BINS_SEG_GROUPS)
+    plane = n_grp * ct
+    work = torch.empty((2 * plane + n_seg * ct,), dtype=torch.int32, device=device)
+    src = torch.empty((budget,), dtype=torch.int32, device=device)
+    vt = torch.empty((budget // (RAY_TILE // BINNED_G),), dtype=torch.int32, device=device)
+    dst = torch.empty((n_g, min(topk, ct)), dtype=torch.int32, device=device) if topk else None
+    overflow = torch.empty((), dtype=torch.bool, device=device)
+    lib = kernels.load("mesh_bins")
+    a = kernels.PttBinsArgs()
+    a.ray[:] = [x.data_ptr() for x in (*os, *d)]
+    a.live, a.tlim = live.data_ptr(), tl.data_ptr()
+    a.tile_aabb = tile_aabb.data_ptr()
+    base = work.data_ptr()
+    a.words, a.rank, a.seg = base, base + 4 * plane, base + 8 * plane
+    a.src, a.vt = src.data_ptr(), vt.data_ptr()
+    a.dst = dst.data_ptr() if dst is not None else None
+    a.overflow = overflow.data_ptr()
+    a.n_grp, a.ct, a.budget, a.topk, a.n_seg, a.nv = n_grp, ct, budget, topk, n_seg, vt.shape[0]
+    code = lib.lib.ptt_launch_bins(ctypes.byref(a), kernels.stream_handle(device))
+    lib.check(code, "packet_bins")
+    packet_bins.launches += 1
+    return PacketBins(src, vt, dst, overflow)
+
+
+packet_bins.launches = 0
 
 
 def _pair_rays(vt, src, n_g: int, n: int):
@@ -1553,12 +1609,12 @@ def _chain(tables, padded_tris, chunk_tris, ro, rd, live, tlim, baby_eps, planne
 
 
 def _binning(tile_aabb, os: Vec3, d: Vec3, livep, tlp, live_pos: int, binned_tiers,
-             binned_topk, binned_budget_rays):
+             binned_topk, binned_budget_rays, plain):
     """The binned walk's ``(npre, bins)`` over the padded plan rays: the
     smallest tier of whole blocks holding the last live ray and its packet
     bins; None, for the streamed walk in its place, where the live rays
     exceed every tier or the bins cannot hold every candidate (one host
-    read)."""
+    read; ``_binning.overflows`` counts the latter)."""
     n_pad = os.x.shape[0]
     tiers = binned_tiers if binned_tiers is not None else BINNED_PREFIX_TIERS
     topk = binned_topk if binned_topk is not None else BINNED_TOPK
@@ -1567,10 +1623,17 @@ def _binning(tile_aabb, os: Vec3, d: Vec3, livep, tlp, live_pos: int, binned_tie
         return None
     budget = pair_budget(max(npre, (binned_budget_rays or n_pad) // 4), tile_aabb.shape[0])
     cut = lambda v: Vec3(*(x[:npre] for x in v))
-    bins = packet_bins(tile_aabb, cut(os), cut(d), livep[:npre], tlp[:npre], budget, topk)
+    fn = packet_bins_plain if plain else packet_bins
+    bins = fn(tile_aabb, cut(os), cut(d), livep[:npre], tlp[:npre], budget, topk)
     with host_read("overflow"):
         overflow = bool(bins.overflow)
-    return None if overflow else (npre, bins)
+    if overflow:
+        _binning.overflows += 1
+        return None
+    return npre, bins
+
+
+_binning.overflows = 0
 
 
 def _traverse(tables, num_tris, padded_tris, ro, rd, active, tlim, baby_eps, planned,
@@ -1608,7 +1671,7 @@ def _traverse(tables, num_tris, padded_tris, ro, rd, active, tlim, baby_eps, pla
             with host_read("live_pos"):
                 live_pos = live_position(livep)
         binning = _binning(tables.tile_aabb, os, dp, livep, tlp, live_pos, binned_tiers,
-                           binned_topk, binned_budget_rays) if binned else None
+                           binned_topk, binned_budget_rays, plain) if binned else None
 
     def plan_for(aabb, tl=None):
         tl_p = tlp if tl is None else torch.cat([tl, tlp[n:]])

@@ -10,10 +10,11 @@ with nvcc's output; a launch that the runtime refuses raises with its error
 string.
 
 The ctypes structures below mirror ``csrc/prim_path.cuh``,
-``csrc/fused_prim.cu``, ``csrc/fused_mesh.cu`` and ``csrc/mesh_walk.cu``
-field for field; loading a library checks their sizes and offsets against
-the library's own (``ptt_abi``, ``ptt_mesh_abi``, ``ptt_walk_abi``,
-``ptt_scan_abi``) before anything launches.
+``csrc/fused_prim.cu``, ``csrc/fused_mesh.cu``, ``csrc/mesh_walk.cu`` and
+``csrc/mesh_bins.cu`` field for field; loading a library checks their sizes
+and offsets against the library's own (``ptt_abi``, ``ptt_mesh_abi``,
+``ptt_walk_abi``, ``ptt_bins_abi``, ``ptt_scan_abi``) before anything
+launches.
 """
 
 from __future__ import annotations
@@ -32,10 +33,10 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("prim_path.cuh", "fused_prim.cu", "mesh_path.cuh", "fused_mesh.cu", "mesh_walk.cu",
-           "scan.cuh", "scan.cu")
+           "mesh_bins.cu", "scan.cuh", "scan.cu")
 # Library name -> its translation unit.
 LIBRARIES = {"fused_prim": "fused_prim.cu", "fused_mesh": "fused_mesh.cu",
-             "mesh_walk": "mesh_walk.cu", "scan": "scan.cu"}
+             "mesh_walk": "mesh_walk.cu", "mesh_bins": "mesh_bins.cu", "scan": "scan.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -153,6 +154,15 @@ class PttBinnedArgs(ctypes.Structure):
     ]
 
 
+class PttBinsArgs(ctypes.Structure):
+    _fields_ = [
+        ("ray", _p * 6), ("live", _p), ("tlim", _p), ("tile_aabb", _p),
+        ("words", _p), ("rank", _p), ("seg", _p), ("src", _p), ("vt", _p), ("dst", _p),
+        ("overflow", _p),
+        ("n_grp", _i), ("ct", _i), ("budget", _i), ("topk", _i), ("n_seg", _i), ("nv", _i),
+    ]
+
+
 # ptt_launch_walk's kind: which of the walk kernels.
 WALK_KINDS = ("planned_lanebest", "planned", "streamed", "streamed_super", "sweep",
               "lb_asc", "lb_mm", "epilogue_mono_full", "epilogue_mono_gate",
@@ -183,6 +193,22 @@ def _walk_abi_expected() -> list:
         mxu.STREAMED_MAX_TILES,
         mxu.SUPER_TILES,
         mxu.MONO_MAX_TILES,
+    ]
+
+
+def _bins_abi_expected() -> list:
+    from . import intersect_mxu as mxu
+
+    return [
+        ctypes.sizeof(PttBinsArgs),
+        PttBinsArgs.overflow.offset,
+        PttBinsArgs.n_grp.offset,
+        PttBinsArgs.nv.offset,
+        mxu.RAY_TILE,
+        mxu.BINNED_G,
+        mxu.STREAMED_MAX_TILES,
+        mxu.RAY_TILE // mxu.BINNED_G,
+        mxu.BINS_SEG_GROUPS,
     ]
 
 
@@ -281,6 +307,12 @@ def _bind_walk(lib) -> tuple:
     return lib.ptt_walk_abi, _walk_abi_expected(), lib.ptt_walk_error_string
 
 
+def _bind_bins(lib) -> tuple:
+    lib.ptt_launch_bins.argtypes = [ctypes.POINTER(PttBinsArgs), _p]
+    lib.ptt_launch_bins.restype = _i
+    return lib.ptt_bins_abi, _bins_abi_expected(), lib.ptt_bins_error_string
+
+
 def _bind_scan(lib) -> tuple:
     from . import scan
 
@@ -290,7 +322,7 @@ def _bind_scan(lib) -> tuple:
 
 
 _BIND = {"fused_prim": _bind_prim, "fused_mesh": _bind_mesh, "mesh_walk": _bind_walk,
-         "scan": _bind_scan}
+         "mesh_bins": _bind_bins, "scan": _bind_scan}
 
 
 class KernelLibrary:

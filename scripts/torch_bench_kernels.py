@@ -484,11 +484,11 @@ def chain_calls(mxu, mode, tables, padded_tris, ro, rd, live, tl, baby_eps) -> l
     return calls
 
 
-def binned_args(mxu, tables, paths, tl, live, tiers) -> "tuple | None":
-    """The binned kernel's arguments for one state at the tier the
-    traversal engages, and the bins (None: no tier holds the live rays, or
-    the bins overflow, and the traversal walks the streamed plan instead).
-    Works on any checkout's package."""
+def bins_inputs(mxu, tables, paths, tl, live, tiers) -> "tuple | None":
+    """The packet bins' arguments (``packet_bins(*args)``) for one state at
+    the tier the binned traversal engages (``_binning``'s prefix and
+    budget), or None where no tier holds the live rays.  Works on any
+    checkout's package."""
     ro, rd = paths.origin, paths.direction
     pr = mxu.plan_rays(tables, ro, rd, live, tl)
     n_pad = pr.tl.shape[0]
@@ -498,11 +498,39 @@ def binned_args(mxu, tables, paths, tl, live, tiers) -> "tuple | None":
         return None
     cut = lambda v: type(v)(*(x[:npre] for x in v))
     budget = mxu.pair_budget(max(npre, ro.x.shape[0] // 4), tables.tile_aabb.shape[0])
-    bins = mxu.packet_bins(tables.tile_aabb, cut(pr.os), cut(pr.d), pr.live[:npre],
-                           pr.tl[:npre], budget, mxu.BINNED_TOPK)
+    return (tables.tile_aabb, cut(pr.os), cut(pr.d), pr.live[:npre], pr.tl[:npre], budget,
+            mxu.BINNED_TOPK)
+
+
+def bins_work(args, bins) -> tuple:
+    """The least work of one ``packet_bins(*args)`` giving ``bins``: (bytes,
+    float32 operations).  Bytes: every ray's live flag, the live rays' state
+    (recentred origin, direction, t_limit: 28 B), the tile boxes, each
+    packet's tile mask (a bit a tile, whole words) and the outputs (src, vt,
+    dst) written; operations: the live (ray, tile) pairs' slab tests."""
+    aabb, _, _, live, _, _, _ = args
+    ct, n_live = aabb.shape[0], int(live.sum())
+    n_g = live.shape[0] // 8
+    dst = 0 if bins.dst is None else bins.dst.numel()
+    nbytes = live.shape[0] + n_live * 7 * 4 + ct * 8 * 4 + n_g * -(-ct // 32) * 4 \
+        + (bins.src.numel() + bins.vt.numel() + dst) * 4
+    return nbytes, n_live * ct * OPS_PLAN_PAIR
+
+
+def binned_args(mxu, tables, paths, tl, live, tiers) -> "tuple | None":
+    """The binned kernel's arguments for one state at the tier the
+    traversal engages, and the bins (None: no tier holds the live rays, or
+    the bins overflow, and the traversal walks the streamed plan instead).
+    Works on any checkout's package."""
+    args = bins_inputs(mxu, tables, paths, tl, live, tiers)
+    if args is None:
+        return None
+    bins = mxu.packet_bins(*args)
     if bool(bins.overflow):
         return None
-    return (tables, ro, rd, live, tl, bins.vt, bins.src, npre // mxu.BINNED_G, 1e-5), bins
+    npre = args[4].shape[0]
+    return (tables, paths.origin, paths.direction, live, tl, bins.vt, bins.src,
+            npre // mxu.BINNED_G, 1e-5), bins
 
 
 def super_args(mxu, stab, saabb, ro, rd, live, tl, baby_eps) -> tuple:

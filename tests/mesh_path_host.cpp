@@ -9,7 +9,9 @@
 // ptt_host_super, ptt_host_sweep, ptt_host_binned, ptt_host_lb_asc and
 // ptt_host_epilogue_mono are the per-ray schedules, the references the
 // block schedules (ptt_host_*_block: each tile's pairs spread over the
-// threads) are held to.
+// threads) are held to.  ptt_host_packet_bins runs the four packet bins
+// kernels of csrc/mesh_bins.cu in turn, each block's warps and lanes in
+// order.
 //
 // Built by tests/test_torch_kernel_body.py with
 //   c++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC -I<csrc>
@@ -703,4 +705,100 @@ void ptt_host_binned(const float* coef, const float* aabb, const float* center,
   }
 }
 
+// The packet bins kernels (csrc/mesh_bins.cu) in turn over n_grp groups of
+// 256 rays (ray: recentred origins and directions): the mask kernel's warp
+// ballots of plan_pair per tile (a warp of dead rays skips them) and its
+// src fill; the column scan in segments of seg_groups groups (the kernel's
+// PTT_BINS_SEG; the tests take smaller ones too, so that small cases span
+// several segments); the offsets kernel (segment sums scanned, pad_cnt,
+// cum_end, off, overflow, vt); the slots kernel, each packet's tiles in
+// order.  dst: [n_g, min(topk, ct)] (unused for topk 0).
+void ptt_host_packet_bins(const float* aabb, int32_t ct, const float* const* ray,
+                          const uint8_t* live, const float* tlim, int32_t n_grp, int32_t budget,
+                          int32_t topk, int32_t seg_groups, int32_t* src, int32_t* vt,
+                          int32_t* dst, uint8_t* overflow) {
+  const int32_t gpp = PTT_RAY_TILE / PTT_BINNED_G;  // packets a group
+  const int32_t n_g = n_grp * gpp;
+  std::vector<uint32_t> words((size_t)n_grp * ct, 0u);
+  for (int32_t i = 0; i < budget; ++i) src[i] = n_g;
+  for (int32_t g = 0; g < n_grp; ++g) {
+    for (int w = 0; w < PTT_RAY_TILE / 32; ++w) {
+      const int32_t i0 = g * PTT_RAY_TILE + 32 * w;
+      bool any = false;
+      for (int lane = 0; lane < 32; ++lane) any = any || live[i0 + lane] != 0;
+      if (!any) continue;
+      for (int32_t c = 0; c < ct; ++c) {
+        uint32_t ballot = 0;
+        for (int lane = 0; lane < 32; ++lane) {
+          const int32_t i = i0 + lane;
+          float key;
+          if (plan_pair(aabb + 8 * c, v3(ray[0][i], ray[1][i], ray[2][i]),
+                        inv_dir(v3(ray[3][i], ray[4][i], ray[5][i])), live[i] != 0, tlim[i],
+                        &key)) {
+            ballot |= 1u << lane;
+          }
+        }
+        words[(size_t)g * ct + c] |= bins_nibble(ballot) << (4 * w);
+      }
+    }
+  }
+  const int32_t n_seg = (n_grp + seg_groups - 1) / seg_groups;
+  std::vector<int32_t> rank((size_t)n_grp * ct), seg((size_t)n_seg * ct);
+  for (int32_t s = 0; s < n_seg; ++s) {
+    for (int32_t c = 0; c < ct; ++c) {
+      int32_t run = 0;
+      for (int32_t g = s * seg_groups; g < n_grp && g < (s + 1) * seg_groups; ++g) {
+        rank[(size_t)g * ct + c] = run;
+        run += ptt_popc(words[(size_t)g * ct + c]);
+      }
+      seg[(size_t)s * ct + c] = run;
+    }
+  }
+  std::vector<int32_t> cum_end(ct);
+  int32_t cum = 0;
+  for (int32_t c = 0; c < ct; ++c) {
+    int32_t n_c = 0;
+    for (int32_t s = 0; s < n_seg; ++s) {
+      const int32_t v = seg[(size_t)s * ct + c];
+      seg[(size_t)s * ct + c] = n_c;
+      n_c += v;
+    }
+    const int32_t pad = bins_pad(n_c);
+    cum += pad;
+    cum_end[c] = cum;
+    for (int32_t s = 0; s < n_seg; ++s) seg[(size_t)s * ct + c] += cum - pad;
+  }
+  *overflow = cum_end[ct - 1] > budget ? 1 : 0;
+  for (int32_t v = 0; v < budget / PTT_BINS_GP; ++v) vt[v] = bins_visit_tile(cum_end.data(), ct, v);
+  const bool dense = topk >= ct;
+  const int32_t cols = dense ? ct : topk;
+  for (int32_t g = 0; g < n_grp; ++g) {
+    for (int32_t j = 0; j < gpp; ++j) {
+      const int32_t p = g * gpp + j;
+      int32_t* row = dst + (size_t)p * cols;
+      int32_t count = 0;
+      for (int32_t c = 0; c < ct; ++c) {
+        const size_t i = (size_t)g * ct + c;
+        const bool hit = (words[i] >> j) & 1u;
+        const int32_t pos = count;
+        count += hit ? 1 : 0;
+        const int32_t slot =
+            hit ? bins_slot(words[i], seg[(size_t)(g / seg_groups) * ct + c] + rank[i], j)
+                : PTT_INT_MAX;
+        if (hit && bins_listed(pos, topk, ct) && slot < budget) src[slot] = p;
+        if (topk > 0 && dense) {
+          row[c] = slot;
+        } else if (topk > 0 && hit && pos < topk) {
+          row[pos] = slot;
+        }
+      }
+      if (topk > 0 && !dense) {
+        for (int32_t k = count; k < topk; ++k) row[k] = PTT_INT_MAX;
+        if (count > topk) *overflow = 1;
+      }
+    }
+  }
+}
+
 }  // extern "C"
+

@@ -1282,6 +1282,101 @@ def test_mesh_frame_carried_keys_match_the_torch_key_route(cuda):
     assert live > 1000 and float(film_k.x.sum()) > 0
 
 
+def _bins_args(tables, ro, rd, alive, tl, tiers=None):
+    """The packet bins' arguments as ``_binning`` builds them: the rays of
+    the smallest binned tier holding the last live one (all of them with
+    ``tiers`` None), its budget, top-K 128."""
+    live = alive & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+    pr = intersect_mxu.plan_rays(tables, ro, rd, live, tl)
+    n_pad = pr.tl.shape[0]
+    npre = n_pad
+    if tiers is not None:
+        last = intersect_mxu.live_position(pr.live)
+        npre = next(p for p in intersect_mxu.binned_prefixes(n_pad, tiers) + [n_pad] if last < p)
+    cut = lambda v: Vec3(*(x[:npre] for x in v))
+    budget = intersect_mxu.pair_budget(max(npre, ro.x.shape[0] // 4), tables.tile_aabb.shape[0])
+    return (tables.tile_aabb, cut(pr.os), cut(pr.d), pr.live[:npre], pr.tl[:npre], budget,
+            intersect_mxu.BINNED_TOPK)
+
+
+def test_packet_bins_kernels_match_plain_on_the_200k_knot(cuda):
+    """The packet bins kernels on the 200k knot (196 tiles) at 192x192 (144
+    groups of 32 packets: two segments of the column scan): its camera rays
+    unsorted, and three sorted bounces (camera rays, then two later
+    bounces), over all the rays and at the binned tier the traversal takes:
+    src, vt, dst and overflow bit-equal to ``packet_bins_plain``'s, one
+    launch counted a call."""
+    from torch_fixtures import assert_bins_equal
+
+    dev, static, states = _bounce_states(MESH_200K, 192, cuda, bounces=3)
+    tables = dev.mxu_mesh
+    assert tables.tile_aabb.shape[0] == 196
+    paths = _camera_paths(static, _setup(MESH_200K, 192, cuda)[2], cuda)[1]
+    cases = [(paths.origin, paths.direction, paths.alive,
+              prim_t_min(static, RenderConfig(), paths.origin, paths.direction))] + states
+    visits = 0
+    for d, state in enumerate(cases):
+        for tiers in (None, RenderConfig().mxu_binned_tiers):
+            args = _bins_args(tables, *state, tiers)
+            before = intersect_mxu.packet_bins.launches
+            got = intersect_mxu.packet_bins(*args)
+            assert intersect_mxu.packet_bins.launches == before + 1
+            want = intersect_mxu.packet_bins_plain(*args)
+            assert_bins_equal(got, want)
+            visits += int((want.vt >= 0).sum())
+    assert visits > 1000
+
+
+@pytest.mark.parametrize("ct", [1, 79, 300, 1024])
+def test_packet_bins_kernels_edge_cases(cuda, ct):
+    """``prepass_case``'s boxes and rays (a dead block, a block live in its
+    last lane only, a ray on a tile's face) at 1, 79, 300 and 1,024 tiles:
+    topk 0, 2, 128 and 2,000 (at or above the tile count: the dense plane
+    where 128 >= ct too), under the pair budget, one of 3 visits and none
+    (overflowing), over all 6 blocks and a prefix of 2: the kernels
+    bit-equal to ``packet_bins_plain``."""
+    from torch_fixtures import assert_bins_equal, prepass_case
+
+    aabb, os_, d, live, tl = (x.to(cuda) if isinstance(x, torch.Tensor)
+                              else Vec3(*(c.to(cuda) for c in x)) for x in prepass_case(ct))
+    overflowed = 0
+    for n in (tl.shape[0], 512):
+        cut = lambda v: Vec3(*(x[:n] for x in v))
+        rays = (cut(os_), cut(d), live[:n], tl[:n])
+        for budget in (intersect_mxu.pair_budget(n, ct), 96, 0):
+            for topk in (0, 2, 128, 2000):
+                want = intersect_mxu.packet_bins_plain(aabb, *rays, budget, topk)
+                assert_bins_equal(intersect_mxu.packet_bins(aabb, *rays, budget, topk), want)
+                overflowed += bool(want.overflow)
+    assert overflowed >= 4
+
+
+def test_binned_frame_film_matches_the_plain_bins(cuda, monkeypatch):
+    """Two 200k frames at 800x800 (the benchmark cell's) through the
+    Renderer: the kernels build the bins on every bounce (8 calls a frame)
+    and no bounce's bins overflow to the streamed walk; the film is
+    bit-equal to the same frames with ``packet_bins_plain`` in the kernels'
+    place."""
+    scene = load_scene(str(REPO / "scenes" / MESH_200K))
+    kernel_bins = intersect_mxu.packet_bins
+    films = {}
+    for how in ("kernels", "plain"):
+        if how == "plain":
+            monkeypatch.setattr(intersect_mxu, "packet_bins", intersect_mxu.packet_bins_plain)
+        r = Renderer(scene, RenderConfig(), seed=3, device=cuda)
+        counts = lambda: (kernel_bins.launches, intersect_mxu._binning.overflows,
+                          intersect_mxu.binned_intersect.launches)
+        before = counts()
+        r.step_many(2)
+        torch.cuda.synchronize()
+        got = [a - b for a, b in zip(counts(), before)]
+        depth = r.static.trace_depth
+        assert got == [2 * depth if how == "kernels" else 0, 0, 2 * depth], how
+        films[how] = torch.stack(list(r.film), 1)
+    assert torch.equal(films["kernels"], films["plain"])
+    assert float(films["kernels"].sum()) > 0
+
+
 def test_mesh_shade_kernel_winner_tie_and_inside(cuda):
     """``tests/torch_fixtures.py::winner_case`` on the card: a two-sphere
     tie at equal t, origins inside a cube and within ray_eps of its face,

@@ -10,8 +10,8 @@ lockstep).  So the arithmetic the card runs is checked here, on the CPU,
 against ``fused_prim_bounce_plain`` / ``fused_prim_iteration_plain`` /
 ``mono_intersect_plain`` / ``fused_mesh_shade_plain`` (all three modes) /
 ``walk_plain`` / ``binned_intersect_plain`` / ``sweep_intersect_plain`` /
-``streamed_super_plain`` / ``plan_prepass_plain`` / ``scan_flat_plain`` on
-identical inputs.  (The kernels themselves run only
+``streamed_super_plain`` / ``plan_prepass_plain`` / ``packet_bins_plain`` /
+``scan_flat_plain`` on identical inputs.  (The kernels themselves run only
 on the card: ``tests/test_torch_cuda.py``.)
 
 Tolerances: the RNG is compared bit for bit, and so is the mono traversal
@@ -50,7 +50,7 @@ from project3_cuda_path_tracer_2025_tpu_torch.utils.vec import Vec3
 from torch_compare import (
     ATOL_WORLD, FILM_ATOL, FILM_RTOL, assert_films_close, build_host, close3,
 )
-from torch_fixtures import key_case, prepass_case, winner_case
+from torch_fixtures import assert_bins_equal, key_case, prepass_case, winner_case
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 HARNESS = REPO / "tests" / "prim_path_host.cpp"
@@ -1335,6 +1335,135 @@ def test_host_plan_prepass_live_matches_plain(slice5_lib, ct, split):
         assert torch.equal(lb.view(torch.int32), want_lb.view(torch.int32))
     assert not want_h[1].any() and want_h[2, 0] and want_h[4, 0]
     assert float(want_lb[4, 0]) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# The packet bins kernels (csrc/mesh_bins.cu: bins_nibble, bins_pad,
+# bins_visit_tile, bins_slot, bins_listed over plan_pair)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def bins_lib(mesh_lib):
+    i32 = ctypes.c_int32
+    mesh_lib.ptt_host_packet_bins.argtypes = [P, i32, P, P, P] + [i32] * 4 + [P] * 4
+    return mesh_lib
+
+
+def _host_bins(lib, aabb, os_, d, live, tl, budget, topk, seg_groups):
+    """The four kernels' schedules on the host over a padded prefix ->
+    ``PacketBins`` (outputs prefilled with values no kernel writes)."""
+    n_pad, ct = tl.shape[0], aabb.shape[0]
+    src = torch.full((budget,), -7, dtype=torch.int32)
+    vt = torch.full((budget // 32,), -7, dtype=torch.int32)
+    dst = torch.full((n_pad // 8, max(1, min(topk, ct))), -7, dtype=torch.int32)
+    ovf = torch.full((1,), 7, dtype=torch.uint8)
+    planes = [p.contiguous() for p in (*os_, *d)]
+    lv, tlc = live.to(torch.uint8).contiguous(), tl.contiguous()
+    lib.ptt_host_packet_bins(aabb.data_ptr(), ct, _ptrs(planes), lv.data_ptr(), tlc.data_ptr(),
+                             n_pad // 256, budget, topk, seg_groups, src.data_ptr(),
+                             vt.data_ptr(), dst.data_ptr(), ovf.data_ptr())
+    assert int(ovf[0]) in (0, 1)
+    return intersect_mxu.PacketBins(src, vt, dst if topk else None, torch.tensor(bool(ovf[0])))
+
+
+def _plan_mesh_rays(n_tris, seed, n=1100, corridor=False, last_live=None):
+    """The meshes and rays of ``test_torch_mesh_plan.py``: a random soup of
+    ``n_tris`` triangles and sphere rays (or, with ``corridor``, +x rays
+    through a band of the mesh, so packets hit a strict subset of tiles),
+    padded as the plan pads them -> (tile_aabb, os, d, live, tl)."""
+    from test_torch_mesh_plan import _inputs, _mesh
+    from torch_compare import sphere_rays
+
+    rng, _, pt, js = _mesh(n_tris, seed)
+    if corridor:
+        lo3, hi3 = np.asarray(js.mesh_bounds[:3]), np.asarray(js.mesh_bounds[3:])
+        o = np.stack([np.full(n, lo3[0] - 1.0),
+                      lo3[1] + (hi3[1] - lo3[1]) * rng.random(n) * 0.2,
+                      lo3[2] + (hi3[2] - lo3[2]) * rng.random(n) * 0.2], 1).astype(np.float32)
+        d = np.tile(np.array([[1.0, 0.0, 0.0]], np.float32), (n, 1))
+        live = rng.random(n) < 0.9
+        lim = np.full(n, 3.4e38, np.float32)
+    else:
+        o, d = sphere_rays(rng, n)
+        d[::13, 1] = 0.0
+        live = rng.random(n) > 0.3
+        lim = np.where(rng.random(n) > 0.5, 3.4e38, 2.0).astype(np.float32)
+    if last_live is not None:
+        live &= np.arange(n) < last_live
+    _, (os_, dp, lv, tl) = _inputs(pt, o, d, live, lim)
+    return pt.tile_aabb, os_, dp, lv, tl
+
+
+@pytest.fixture(scope="module")
+def soup_rays():
+    return _plan_mesh_rays(2300, 80)
+
+
+@pytest.mark.parametrize("seg", [2, 128])
+@pytest.mark.parametrize("topk", [0, 1, 2, 128])
+def test_host_packet_bins_match_plain(bins_lib, soup_rays, topk, seg):
+    """The four kernels' schedules over the 2,300-triangle soup (3 tiles)
+    and 1,100 sphere rays (5 groups of 32 packets; segments of 2 groups, as
+    well as the kernel's 128): src, vt, dst and overflow bit-equal to
+    packet_bins_plain's, with topk 0 (no dst), 1 and 2 (fewer than the
+    tiles: overflowing packets, first slots only) and 128 (the dense
+    plane)."""
+    aabb, os_, d, live, tl = soup_rays
+    budget = intersect_mxu.pair_budget(tl.shape[0], aabb.shape[0])
+    want = intersect_mxu.packet_bins_plain(aabb, os_, d, live, tl, budget, topk)
+    assert_bins_equal(_host_bins(bins_lib, aabb, os_, d, live, tl, budget, topk, seg), want)
+    assert (want.vt >= 0).sum() > 3 and (want.vt == -1).any()
+    assert bool(want.overflow) == (0 < topk < 3)
+
+
+@pytest.mark.parametrize("seg", [2, 128])
+def test_host_packet_bins_engaged_top_k(bins_lib, seg):
+    """The corridor mesh (9,000 triangles, 9 tiles): for every K from Ct - 1
+    down to the first that overflows, the host bins equal the plain
+    version's; the largest K that holds every packet's tiles gives the
+    dense scatter's src and vt."""
+    aabb, os_, d, live, tl = _plan_mesh_rays(9000, 81, corridor=True)
+    ct = aabb.shape[0]
+    budget = intersect_mxu.pair_budget(tl.shape[0], ct)
+    dense = intersect_mxu.packet_bins_plain(aabb, os_, d, live, tl, budget, 0)
+    engaged = overflowed = None
+    for k in range(ct - 1, 0, -1):
+        want = intersect_mxu.packet_bins_plain(aabb, os_, d, live, tl, budget, k)
+        got = _host_bins(bins_lib, aabb, os_, d, live, tl, budget, k, seg)
+        assert_bins_equal(got, want)
+        if bool(want.overflow):
+            overflowed = k
+            break
+        engaged = got
+    assert engaged is not None and overflowed is not None
+    assert torch.equal(engaged.src, dense.src) and torch.equal(engaged.vt, dense.vt)
+
+
+@pytest.mark.parametrize("topk", [0, 2, 128])
+def test_host_packet_bins_overflowing_budget(bins_lib, soup_rays, topk):
+    """A budget of 3 visits, far below the candidates: overflow set, every
+    visit's tile and the slots below the budget as the plain version's."""
+    aabb, os_, d, live, tl = soup_rays
+    want = intersect_mxu.packet_bins_plain(aabb, os_, d, live, tl, 96, topk)
+    assert bool(want.overflow) and (want.src < tl.shape[0] // 8).all()
+    assert_bins_equal(_host_bins(bins_lib, aabb, os_, d, live, tl, 96, topk, 128), want)
+
+
+@pytest.mark.parametrize("npre", [256, 512])
+def test_host_packet_bins_tier_prefix(bins_lib, npre):
+    """As a binned tier slices it: 4,096 sphere rays live only below ray
+    400, bins over the first npre rays (whole blocks; warps past ray 415
+    hold no live ray) with the budget ``_binning`` gives them: equal to the
+    plain version's over the same prefix."""
+    aabb, os_, d, live, tl = _plan_mesh_rays(2300, 80, n=4096, last_live=400)
+    cut = lambda v: Vec3(*(x[:npre] for x in v))
+    budget = intersect_mxu.pair_budget(max(npre, 4096 // 4), aabb.shape[0])
+    want = intersect_mxu.packet_bins_plain(aabb, cut(os_), cut(d), live[:npre], tl[:npre],
+                                           budget, 128)
+    got = _host_bins(bins_lib, aabb, cut(os_), cut(d), live[:npre], tl[:npre], budget, 128,
+                     128)
+    assert_bins_equal(got, want)
+    assert not bool(want.overflow) and (want.vt >= 0).sum() >= 3
 
 
 # ---------------------------------------------------------------------------

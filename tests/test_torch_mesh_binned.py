@@ -46,7 +46,7 @@ def _with_rays(c, rng, live_frac):
 
 
 def _counts():
-    return mxu.binned_intersect.launches, mxu.streamed_intersect.launches
+    return mxu.binned_intersect.launches, mxu.streamed_intersect.launches, mxu.packet_bins.launches
 
 
 @pytest.fixture
@@ -93,3 +93,24 @@ def test_binned_tie_mesh_matches_jax():
     assert_bit_equal(got, want)
     hit = got.tri.numpy() >= 0
     assert set(np.unique(got.tri.numpy()[hit])) == {TIE_TRIS[0]}
+
+
+@pytest.mark.parametrize("k,path", [(128, "binned"), (2, "walk"), (1, "walk")])
+def test_binned_overflow_counts_its_fallback(taken, k, path):
+    """With one tier over every ray the bins are built on each call; with K
+    = 1 or 2 some packet has more candidate tiles (of 3) than its slot list
+    holds, the bins overflow and the streamed walk takes the rays, once
+    counted by ``_binning.overflows``: the same (t, tri) as the streamed
+    traversal."""
+    rng = np.random.default_rng(90 + k)
+    c = _with_rays(traversal_case("random_2300"), rng, 0.9)
+    num, padded, bounds = c["sizes"]
+    flags = dict(planned=True, streamed=True, sort_rays=True, mesh_bounds=bounds)
+    overflows = mxu._binning.overflows
+    got = mxu.mesh_intersect_mxu(c["pt"], num, padded, *c["t"], 1e-5, binned=True,
+                                 binned_tiers=(1,), binned_topk=k, **flags)
+    assert mxu._binning.overflows - overflows == (path == "walk")
+    assert taken == [path]
+    want = mxu.mesh_intersect_mxu(c["pt"], num, padded, *c["t"], 1e-5, **flags)
+    assert torch.equal(got.tri, want.tri) and torch.equal(got.t, want.t)
+    assert int((got.tri >= 0).sum()) >= 20

@@ -250,3 +250,14 @@ def signed_zero_case(tables, n=600):
                     torch.full((nb,), ct, dtype=torch.int32, device=device))
     return (tables._replace(coef=coef.reshape(tables.coef.shape).contiguous()), col(o), col(d),
             torch.from_numpy(live).to(device), torch.full((n,), 50.0, device=device), plan)
+
+
+def assert_bins_equal(got, want):
+    """Two ``PacketBins`` bit for bit: ``src``, ``vt``, ``dst`` (or both
+    None) and ``overflow``."""
+    assert torch.equal(got.src.cpu(), want.src.cpu()), "src"
+    assert torch.equal(got.vt.cpu(), want.vt.cpu()), "vt"
+    assert (got.dst is None) == (want.dst is None), "dst"
+    if want.dst is not None:
+        assert torch.equal(got.dst.cpu(), want.dst.cpu()), "dst"
+    assert bool(got.overflow) == bool(want.overflow), "overflow"
