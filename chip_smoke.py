@@ -312,10 +312,9 @@ def mesh_phases(device, smi: str) -> tuple:
         mt, mn, mm = fused.mesh_surface(tables, static, cfg, paths, tl)
         skey = prng.stage_key(ik, d, 1)
         for emit in fused.EMIT_MODES:
-            sargs = (prim_static, cfg, paths, mt, mn, mm, skey, n, emit, tables.tile_aabb,
-                     tables.center)
+            sargs = (prim_static, cfg, paths, mt, mn, mm, skey, n, emit)
             # The main path's carried prim winner (here the prepass's).
-            skw = dict(prim_winner=win, want_winner=bool(emit))
+            skw = dict(tables=tables, prim_winner=win)
             got = fused.fused_mesh_shade(*sargs, **skw)
             want = fused.fused_mesh_shade_plain(*sargs, **skw)
             torch.cuda.synchronize()
@@ -1115,7 +1114,7 @@ def prelude_phase(tag, dev, static, cam, cfg, device, smi, sorted_paths) -> dict
     cam_paths = camera_ops.generate_camera_rays(
         cam, static.width, static.height, static.trace_depth,
         prng.uniforms_at(prng.stage_key(ik, 0, 0), torch.arange(n, device=device), 4, n))
-    args = lambda p: (prim_static, cfg, p, tables.tile_aabb, tables.center)
+    args = lambda p: (prim_static, cfg, p, tables)
     for what, p in [("camera rays", cam_paths)] + [
             (f"sorted bounce {d}", q) for d, q in enumerate(sorted_paths)]:
         got = fused.mesh_prelude(*args(p))
@@ -1242,7 +1241,7 @@ def shade_bounces(tag, dev, static, cam, cfg, device, smi) -> None:
     ct = dev.mxu_mesh.tile_aabb.shape[0]
     n = static.pixel_count
     for d, (a, kw) in enumerate(shade_states(dev, static, cam, cfg, device, static.trace_depth)):
-        every = {k: v for k, v in kw.items() if k not in ("prim_winner", "want_winner")}
+        every = {k: v for k, v in kw.items() if k != "prim_winner"}
         got = fused.fused_mesh_shade(*a, **kw)
         want = fused.fused_mesh_shade_plain(*a, **kw)
         got_e = fused.fused_mesh_shade(*a, **every)
@@ -1317,13 +1316,12 @@ def texture_phases(device, smi: str) -> tuple:
             states = tex_states(dev, static, cam, cfg, device, mode)
             case = None
             for d, (paths, surf, skey, win) in enumerate(states):
-                args = (prim_static, cfg, paths, *surf[:3], skey, n, emit,
-                        dev.mxu_mesh.tile_aabb if emit else None,
-                        dev.mxu_mesh.center if emit else None)
+                args = (prim_static, cfg, paths, *surf[:3], skey, n, emit)
                 # the main path's carried prim winner (textured), none (precomputed)
-                kw = dict(mode=mode, mesh_albedo=surf[3])
+                kw = dict(tables=dev.mxu_mesh if emit else None, mode=mode,
+                          mesh_albedo=surf[3])
                 if win is not None:
-                    kw.update(prim_winner=win, want_winner=bool(emit))
+                    kw.update(prim_winner=win)
                 got = fused.fused_mesh_shade(*args, **kw)
                 want = fused.fused_mesh_shade_plain(*args, **kw)
                 torch.cuda.synchronize()

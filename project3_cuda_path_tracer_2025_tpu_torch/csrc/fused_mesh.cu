@@ -12,7 +12,7 @@
 //   intersection (a scene with a textured prim).
 // ptt_mesh_prelude_kernel gives bounce 0 the same three planes from the
 //   camera rays (ops/fused.py::mesh_prelude_plain: ops/intersect.py::prim_t_min
-//   with its winner and ops/intersect_mxu.py::coherence_key_planes), so no
+//   with its winner and ops/intersect_mxu.py::signature_key), so no
 //   bounce builds its sort key or prim t_limit in torch.
 // The bounce's traversal kernels (the mono walk of meshes of at most 8
 // tiles among them) are in mesh_walk.cu.
@@ -32,11 +32,12 @@
 // key.  A launch given no winner tests every prim of the lanes without a
 // mesh hit.  One thread a ray.
 //
-// The key reads the tile boxes (32 B a tile: 6.3 KB at the 200k mesh's
-// 196) from device memory, at any number of tiles: every thread of a warp
-// reads the same word in the same iteration, which the L1 serves as one
-// broadcast.  A ray that is not live takes no tile (coherence_key), and the
-// rays of a sorted state sit with their kind, so the warps stay whole.
+// The key reads the root box (root_box, 6 floats) and the tile boxes (32 B
+// a tile: 6.3 KB at the 200k mesh's 196) from device memory, at any number
+// of tiles: every thread of a warp reads the same word in the same
+// iteration, which the L1 serves as one broadcast.  A ray that is not live
+// takes no tile (coherence_key), and the rays of a sorted state sit with
+// their kind, so the warps stay whole.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC (ops/kernels.py).  Plain C interface, loaded with
@@ -64,6 +65,7 @@ struct PttMeshShadeArgs {
   const int32_t* prim_win;   // the carried prim winner (-1 none); null: test every prim
   const float* tile_aabb;    // [ct, 8] (emit == 2)
   const float* center;       // [3] (emit == 2)
+  const float* root_box;     // [8] the envelope of tile_aabb (emit == 2)
   float* out_f[9];
   int32_t* out_bounces;
   float* out_tlim;           // emit >= 1
@@ -88,8 +90,8 @@ __device__ __forceinline__ void emit_next(const PttMeshShadeArgs& a, const PttSc
   a.out_tlim[idx] = tl;
   if (a.out_win) a.out_win[idx] = win;
   if (a.emit == 2) {
-    a.out_key[idx] = coherence_key(a.tile_aabb, a.ct, v3(a.center[0], a.center[1], a.center[2]),
-                                   o, d, alive, tl);
+    a.out_key[idx] = coherence_key(a.tile_aabb, a.ct, a.root_box,
+                                   v3(a.center[0], a.center[1], a.center[2]), o, d, alive, tl);
   }
 }
 
@@ -160,7 +162,8 @@ static cudaError_t launch_mesh(bool prelude, const PttMeshShadeArgs* a, size_t s
 // Either kernel over a->n rays, with the scene's tables in shared memory
 // where they fit.
 static int launch_either(bool prelude, const PttMeshShadeArgs* a, void* stream) {
-  if (a->emit == 2 && (a->ct < 1 || a->tile_aabb == nullptr || a->center == nullptr)) {
+  if (a->emit == 2 &&
+      (a->ct < 1 || a->tile_aabb == nullptr || a->center == nullptr || a->root_box == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   if (a->num_geoms < 0 || a->num_materials < 0) return (int)cudaErrorInvalidValue;
@@ -180,6 +183,7 @@ int ptt_mesh_abi(int32_t* out, int32_t len) {
       (int32_t)sizeof(PttScene),
       (int32_t)sizeof(PttMeshShadeArgs),
       (int32_t)offsetof(PttMeshShadeArgs, prim_win),
+      (int32_t)offsetof(PttMeshShadeArgs, root_box),
       (int32_t)offsetof(PttMeshShadeArgs, out_win),
       (int32_t)offsetof(PttMeshShadeArgs, k0),
       (int32_t)offsetof(PttMeshShadeArgs, n),

@@ -31,7 +31,7 @@
 //   bins_listed
 //   mono_ray        = ops/intersect_mxu.py::mono_intersect_plain (the root
 //                     cull, then walk_visit over the tiles in order);
-//   coherence_key   = ops/intersect_mxu.py::coherence_key_planes;
+//   coherence_key   = ops/intersect_mxu.py::signature_key;
 //   prim_t_min_win  = ops/intersect.py::prim_t_min with its winner;
 //   prim_hit_of     = the prim half of ops/intersect.py::intersect_scene
 //                     given that winner (ops/intersect.py::intersect_winner);
@@ -122,20 +122,10 @@ PTT_HD bool slab_enters(Slab s, float tlim) {
   return (s.hi >= s.lo) && (s.hi > 0.0f) && (s.lo < tlim);
 }
 
-// root_hit_mask: the envelope of the tile boxes, k = 2 widening.
-PTT_HD bool root_hit(const float* aabb, int ct, V3 os, V3 inv, float tlim) {
-  float lo[3], hi[3];
-  for (int a = 0; a < 3; ++a) {
-    lo[a] = aabb[a];
-    hi[a] = aabb[3 + a];
-  }
-  for (int c = 1; c < ct; ++c) {
-    for (int a = 0; a < 3; ++a) {
-      lo[a] = ptt_min(lo[a], aabb[8 * c + a]);
-      hi[a] = ptt_max(hi[a], aabb[8 * c + 3 + a]);
-    }
-  }
-  return slab_enters(widen(slab(lo, hi, os, inv), PTT_SLAB_REL2, PTT_SLAB_ABS2), tlim);
+// root_hit_mask: box is the tables' root_box (the envelope of the tile
+// boxes, in a tile row's layout), k = 2 widening.
+PTT_HD bool root_hit(const float* box, V3 os, V3 inv, float tlim) {
+  return slab_enters(widen(slab(box, box + 3, os, inv), PTT_SLAB_REL2, PTT_SLAB_ABS2), tlim);
 }
 
 // ---------------------------------------------------------------------------
@@ -663,16 +653,17 @@ PTT_HD void binned_pair(const float* coef, const float* row, int tile, V3 center
 // ---------------------------------------------------------------------------
 
 // Closest (t, tri) of one ray.  coef: [ct * 1024, 20]; aabb: [ct, 8]
-// recentred tile boxes; center: the recentring offset.  An inactive or
-// root-culled ray, or one with no hit closer than tlim, gets (tlim, -1).
-PTT_HD void mono_ray(const float* coef, const float* aabb, int ct, V3 center, V3 o, V3 d,
-                     bool active, float tlim, int32_t num_tris, float baby_eps,
+// recentred tile boxes; box: their root_box; center: the recentring
+// offset.  An inactive or root-culled ray, or one with no hit closer than
+// tlim, gets (tlim, -1).
+PTT_HD void mono_ray(const float* coef, const float* aabb, int ct, const float* box, V3 center,
+                     V3 o, V3 d, bool active, float tlim, int32_t num_tris, float baby_eps,
                      float eps_succ, float* t_out, int32_t* tri_out) {
   *t_out = tlim;
   *tri_out = -1;
   if (!active) return;
   WalkRay r = walk_ray(center, o, d, true, tlim);
-  if (!root_hit(aabb, ct, r.os, r.inv, tlim)) return;
+  if (!root_hit(box, r.os, r.inv, tlim)) return;
   r.best = ptt_inf();
   for (int c = 0; c < ct; ++c) walk_visit(r, coef, aabb + 8 * c, c, false, baby_eps, eps_succ);
   if (r.best < tlim) {
@@ -734,22 +725,22 @@ PTT_HD int32_t bit_length(int32_t v) {
   return b;
 }
 
-// coherence_key_planes for one ray: root mask, the ids of the nearest
-// n_sig candidate tiles by sorted insertion, a direction morton, and the
-// three-level layering (live & root < live & prim-only < dead).  Any number
-// of tiles.  A ray that is not live (dead, or outside the root box) takes
-// no tile: every one of its candidates would be INT_MAX, and its key is
-// 1 << 30 or DEAD_KEY whatever they are, so skipping the loop gives the
-// same key bit for bit.
-PTT_HD int32_t coherence_key(const float* aabb, int ct, V3 center, V3 o, V3 d, bool alive,
-                             float tlim) {
+// signature_key for one ray: root mask (box: the tables' root_box), the
+// ids of the nearest n_sig candidate tiles by sorted insertion, a direction
+// morton, and the three-level layering (live & root < live & prim-only <
+// dead).  Any number of tiles.  A ray that is not live (dead, or outside
+// the root box) takes no tile: every one of its candidates would be
+// INT_MAX, and its key is 1 << 30 or DEAD_KEY whatever they are, so
+// skipping the loop gives the same key bit for bit.
+PTT_HD int32_t coherence_key(const float* aabb, int ct, const float* box, V3 center, V3 o, V3 d,
+                             bool alive, float tlim) {
   const int32_t bits_id = ct > 1 ? (bit_length(ct - 1) > 1 ? bit_length(ct - 1) : 1) : 1;
   const int32_t n_sig = (3 * bits_id <= 30) ? 3 : 2;
   const int32_t dir_total = (30 - n_sig * bits_id) < 6 ? (30 - n_sig * bits_id) : 6;
   const int32_t id_mask = (1 << bits_id) - 1;
   const V3 os = v3(o.x - center.x, o.y - center.y, o.z - center.z);
   const V3 inv = inv_dir(d);
-  const bool livem = alive && root_hit(aabb, ct, os, inv, tlim);
+  const bool livem = alive && root_hit(box, os, inv, tlim);
   if (!livem) return alive ? (1 << 30) : ((1 << 30) + 1);
   int32_t tops[3] = {PTT_INT_MAX, PTT_INT_MAX, PTT_INT_MAX};
   for (int c = 0; c < ct; ++c) {

@@ -112,7 +112,8 @@
 //   ray (a chain call masks the rays that miss its chunk) is skipped whole.
 //   #4 is #9's loop (one template, sweep_spread) over at most 8 tiles with
 //   the two steps the mono kernel adds: each ray's root cull (the k = 2
-//   envelope of the boxes) joins its live flag before the block's vote, so
+//   widened root_box, the envelope of the boxes) joins its live flag before
+//   the block's vote, so
 //   a block of culled rays is skipped whole, and a tri at or past num_tris
 //   is written -1, after the minimum.
 //   #10 is stateless: block v takes visit v's tile (vt[v], -1 = an empty
@@ -242,6 +243,7 @@ struct PttMonoArgs {
   const float* coef;         // [ct * 1024, 20]
   const float* tile_aabb;    // [ct, 8], ct <= 8
   const float* center;       // [3]
+  const float* root_box;     // [8] the envelope of tile_aabb
   float* out_t;              // [n]
   int32_t* out_tri;          // [n]
   float baby_eps;
@@ -454,8 +456,8 @@ __global__ void PTT_SPREAD_BOUNDS ptt_streamed_super_kernel(const PttWalkArgs a)
 // plan and no exit vote (the tiles come in no order of distance); the boxes
 // staged in shared memory.  A block with no live ray is skipped whole (the
 // TPU kernels' block_live).  MONO (#4, at most 8 tiles): each owner ray's
-// root cull (root_hit, the k = 2 envelope of the boxes, as mono_ray takes
-// it) joins its live flag, and the num_tris clamp comes with the output.
+// root cull (root_hit on the root_box, six floats, as mono_ray takes it)
+// joins its live flag, and the num_tris clamp comes with the output.
 // #4 takes walk_take's improvability gate too, as #5 does: exact in any
 // walk, so the results are bit-equal with the gate or without it (the TPU
 // kernel takes none).  Its rays start at (t_limit, -1), the sweep's start,
@@ -470,11 +472,10 @@ __device__ __forceinline__ void sweep_spread(const Args& a, const uint8_t* live,
   __shared__ SpreadShared sh;
   __shared__ float sh_aabb[PTT_PLANNED_MAX_CT * 8];
   for (int i = threadIdx.x; i < a.ct * 8; i += blockDim.x) sh_aabb[i] = a.tile_aabb[i];
-  if constexpr (MONO) __syncthreads();  // root_hit reads the boxes before the first barrier
   const bool owner = threadIdx.x < PTT_RAY_TILE;
   const int idx = blockIdx.x * PTT_RAY_TILE + threadIdx.x;
   WalkRay r = spread_ray(sh, owner, load_center(a.center), a.ray, live, a.tlim, idx, idx < a.n);
-  if constexpr (MONO) r.live = r.live && root_hit(sh_aabb, a.ct, r.os, r.inv, r.tlim);
+  if constexpr (MONO) r.live = r.live && root_hit(a.root_box, r.os, r.inv, r.tlim);
   if (__syncthreads_or(r.live)) {  // also the barrier after the boxes are staged
     for (int c = 0; c < a.ct; ++c) {
       spread_entry(sh, r, owner, true, true, a.coef, sh_aabb + 8 * c, c, c & 1, a.baby_eps,
@@ -804,6 +805,7 @@ int ptt_walk_abi(int32_t* out, int32_t len) {
       (int32_t)offsetof(PttBinnedArgs, baby_eps),
       (int32_t)offsetof(PttBinnedArgs, n),
       (int32_t)sizeof(PttMonoArgs),
+      (int32_t)offsetof(PttMonoArgs, root_box),
       (int32_t)offsetof(PttMonoArgs, baby_eps),
       (int32_t)offsetof(PttMonoArgs, n),
       PTT_TRI_TILE,
@@ -879,7 +881,9 @@ int ptt_launch_binned(const PttBinnedArgs* a, void* stream) {
 }
 
 int ptt_launch_mono(const PttMonoArgs* a, void* stream) {
-  if (a->ct < 1 || a->ct > PTT_MONO_MAX_TILES) return (int)cudaErrorInvalidValue;
+  if (a->ct < 1 || a->ct > PTT_MONO_MAX_TILES || a->root_box == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (a->n > 0) {
     ptt_mono_kernel<<<blocks_for(a->n), PTT_SPREAD_THREADS, 0, (cudaStream_t)stream>>>(*a);
   }

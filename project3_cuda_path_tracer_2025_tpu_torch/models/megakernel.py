@@ -112,7 +112,7 @@ def megakernel_iteration(
     # Liveness-packed (and prefix-tiered) textured-prim bounces: the film
     # then scatters by pixel.
     tex_sorted = use_fused_tex and fused.tex_sort_active(cfg, device)
-    mesh_carry = None  # the mesh-shade kernel's (t_lim, key[, win]) for the next bounce
+    mesh_carry = None  # the mesh-shade kernel's fused.MeshCarry for the next bounce
 
     alive_counts = torch.zeros((depth,), dtype=torch.int32, device=device)
     every = max(1, cfg.ray_sort_every)

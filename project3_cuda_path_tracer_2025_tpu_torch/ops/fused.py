@@ -30,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -470,6 +471,16 @@ EMIT_MODES = ("", "tlim", "tlim+key")
 SHADE_MODES = ("plain", "textured", "precomputed")
 
 
+class MeshCarry(NamedTuple):
+    """What a mesh bounce hands the next one, in the current (sorted) ray
+    order: the prelude kernel's planes at bounce 0, the shade kernel's emit
+    after it."""
+
+    t_lim: torch.Tensor  # [N] f32: each ray's prim nearest t, the walk's t_limit
+    key: Optional[torch.Tensor]  # [N] i32 signature key; None: the next bounce sorts by none
+    win: Optional[torch.Tensor]  # [N] i32 the prim that gives t_lim (-1: none)
+
+
 def fused_mesh_applicable(static: SceneStatic, cfg: RenderConfig) -> bool:
     """A mesh scene takes the fused mesh bounce when it runs the MXU
     tables' traversal.  Textures on mesh materials resolve in the surface
@@ -484,8 +495,7 @@ def fused_mesh_applicable(static: SceneStatic, cfg: RenderConfig) -> bool:
     )
 
 
-def _check_mode(mode: str, emit: str, mesh_albedo, prim_winner=None,
-                want_winner: bool = False) -> None:
+def _check_mode(mode: str, emit: str, mesh_albedo, prim_winner=None) -> None:
     if mode not in SHADE_MODES:
         raise ValueError(f"mode={mode!r}: use one of {SHADE_MODES}")
     if (mode == "plain") != (mesh_albedo is None):
@@ -495,8 +505,6 @@ def _check_mode(mode: str, emit: str, mesh_albedo, prim_winner=None,
         raise ValueError(f"emit={emit!r}: use one of {EMIT_MODES}")
     if prim_winner is not None and mode == "precomputed":
         raise ValueError("mode='precomputed' tests no prim: it takes no prim_winner")
-    if want_winner and not emit:
-        raise ValueError("want_winner needs emit: the winner is the emitted t_limit's prim")
 
 
 def fused_mesh_shade_plain(
@@ -509,19 +517,17 @@ def fused_mesh_shade_plain(
     su_key: tuple,
     rng_n: int,
     emit: str = "",
-    tile_aabb: torch.Tensor = None,
-    center: torch.Tensor = None,
+    tables: intersect_mxu.MXUMeshTables = None,
     mode: str = "plain",
     mesh_albedo: Vec3 = None,
     prim_winner: torch.Tensor = None,
-    want_winner: bool = False,
 ):
     """The plain PyTorch version of the mesh-shade kernel (see
     ``fused_mesh_shade``).  It uses ``prim_winner`` as the kernel does: the
     prim hit of every lane comes from its winner's test alone
     (``intersect_winner``), which gives the same outputs bit for bit as
     testing every prim (``intersect_scene``) does without it."""
-    _check_mode(mode, emit, mesh_albedo, prim_winner, want_winner)
+    _check_mode(mode, emit, mesh_albedo, prim_winner)
     uni = prng.uniforms_at(su_key, paths.pixel, 3, rng_n)
     if mode == "precomputed":
         # The whole surface arrives resolved: (t, shading normal, material,
@@ -568,11 +574,9 @@ def fused_mesh_shade_plain(
     tl_n, win_n = prim_t_min(prim_static, cfg, out.origin, out.direction, winner=True)
     key_n = None
     if emit == "tlim+key":
-        key_n = intersect_mxu.coherence_key_planes(
-            tile_aabb, center[0], center[1], center[2],
-            *out.origin, *out.direction, out.bounces > 0, tl_n,
-        )
-    return out, ((tl_n, key_n, win_n) if want_winner else (tl_n, key_n))
+        key_n = intersect_mxu.signature_key(tables, out.origin, out.direction,
+                                            out.bounces > 0, tl_n)
+    return out, MeshCarry(tl_n, key_n, win_n)
 
 
 def fused_mesh_shade(
@@ -585,20 +589,21 @@ def fused_mesh_shade(
     su_key: tuple,  # the bounce's shade key: uniforms drawn inline
     rng_n: int,  # RNG stream length (the pixel count)
     emit: str = "",  # "" | "tlim" | "tlim+key": next-bounce outputs
-    tile_aabb: torch.Tensor = None,  # [ct, 8] recentred (emit == "tlim+key")
-    center: torch.Tensor = None,  # [3] (emit == "tlim+key")
+    tables: intersect_mxu.MXUMeshTables = None,  # the key's boxes (emit == "tlim+key")
     mode: str = "plain",  # "plain" | "textured" | "precomputed"
     mesh_albedo: Vec3 = None,  # [N] f32 each, textured/precomputed only
     prim_winner: torch.Tensor = None,  # [N] i32, the carried winner (plain/textured)
-    want_winner: bool = False,  # with emit: also return the emitted t_lim's prim
 ):
     """Prim intersect + merge with the mesh hit + BSDF scatter of one
     bounce, with the uniforms drawn inline at ``(su_key, j*rng_n + pixel)``
     (a slot's stream follows its pixel, so a permuted state draws the same
     numbers).  ``prim_static`` is the scene's static with
-    ``num_triangles=0``.  With ``emit`` it also returns the scattered rays'
-    prim nearest t (the next bounce's t_limit) and, for "tlim+key", their
-    coherence sort key: ``(paths, (t_lim, key | None))``.
+    ``num_triangles=0``.  With ``emit`` it also returns the next bounce's
+    carry, ``(paths, MeshCarry(t_lim, key | None, win))``: the scattered
+    rays' prim nearest t (the next bounce's t_limit), the prim that gives
+    it (``prim_t_min(..., winner=True)``; -1: none) and, for "tlim+key",
+    their coherence sort key (``intersect_mxu.signature_key`` over
+    ``tables``).
 
     ``mode`` "plain": ``mesh_normal`` is the interpolated normal, flipped
     toward the ray here.  "textured": it is the final shading normal (not
@@ -606,18 +611,16 @@ def fused_mesh_shade(
     intersection; ``(mesh_t, mesh_normal, mesh_mat, mesh_albedo)`` is every
     lane's resolved surface (``fused_tex_bounce``).
 
-    The prim winner: with ``want_winner`` the emitted tuple is ``(t_lim,
-    key | None, win)``, ``win`` [N] int32 the prim that gives ``t_lim``
-    (``prim_t_min(..., winner=True)``; -1: none).  Given back as
-    ``prim_winner`` on the next bounce (permuted with the rays), it spares
-    that shade every prim test but the winner's, with the same outputs bit
-    for bit; a lane with a mesh hit tests no prim either way."""
-    _check_mode(mode, emit, mesh_albedo, prim_winner, want_winner)
+    The carried winner, given back as ``prim_winner`` on the next bounce
+    (permuted with the rays), spares that shade every prim test but the
+    winner's, with the same outputs bit for bit; a lane with a mesh hit
+    tests no prim either way."""
+    _check_mode(mode, emit, mesh_albedo, prim_winner)
     device = paths.origin.x.device
     if device.type == "cpu":
         return fused_mesh_shade_plain(
             prim_static, cfg, paths, mesh_t, mesh_normal, mesh_mat, su_key,
-            rng_n, emit, tile_aabb, center, mode, mesh_albedo, prim_winner, want_winner,
+            rng_n, emit, tables, mode, mesh_albedo, prim_winner,
         )
     _require_cuda(device, "fused_mesh_shade")
     n = paths.pixel.shape[0]
@@ -632,15 +635,14 @@ def fused_mesh_shade(
         _check_planes("fused_mesh_shade albedo", mesh_albedo, n, torch.float32, device)
     if rng_n * 3 >= 2**32:
         raise ValueError(f"3 x {rng_n} uniforms exceed the 32-bit counter")
-    ct = _check_key_tables("fused_mesh_shade", tile_aabb, center, device) \
-        if emit == "tlim+key" else 0
+    ct = _check_key_tables("fused_mesh_shade", tables, device) if emit == "tlim+key" else 0
     lib = kernels.load("fused_mesh")
     scene = _scene_buffer(prim_static, _eps(cfg), device)
     f_out = [torch.empty_like(t) for t in f_in]
     b_out = torch.empty_like(paths.bounces)
     tl_out = torch.empty_like(mesh_t) if emit else None
     key_out = torch.empty_like(mesh_mat) if emit == "tlim+key" else None
-    win_out = torch.empty_like(mesh_mat) if want_winner else None
+    win_out = torch.empty_like(mesh_mat) if emit else None
     a = kernels.PttMeshShadeArgs()
     a.scene = scene.data_ptr()
     a.in_f[:] = [t.data_ptr() for t in f_in]
@@ -653,16 +655,13 @@ def fused_mesh_shade(
         a.mesh_alb[:] = [t.data_ptr() for t in mesh_albedo]
     if prim_winner is not None:
         a.prim_win = prim_winner.data_ptr()
-    if win_out is not None:
-        a.out_win = win_out.data_ptr()
     a.out_f[:] = [t.data_ptr() for t in f_out]
     a.out_bounces = b_out.data_ptr()
     if emit:
         a.out_tlim = tl_out.data_ptr()
+        a.out_win = win_out.data_ptr()
     if key_out is not None:
-        a.out_key = key_out.data_ptr()
-        a.tile_aabb = tile_aabb.data_ptr()
-        a.center = center.data_ptr()
+        _set_key_tables(a, tables, key_out)
     a.k0, a.k1 = su_key
     a.rng_n = rng_n
     a.n, a.ct, a.emit = n, ct, EMIT_MODES.index(emit)
@@ -680,60 +679,65 @@ def fused_mesh_shade(
     )
     if not emit:
         return out
-    return out, ((tl_out, key_out, win_out) if want_winner else (tl_out, key_out))
+    return out, MeshCarry(tl_out, key_out, win_out)
 
 
 fused_mesh_shade.launches = 0
 
 
-def _check_key_tables(who: str, tile_aabb, center, device) -> int:
-    """The key's inputs as the kernels take them -> ct: tile_aabb [ct, 8]
-    float32 and contiguous, center [3] float32, on ``device``."""
-    ct = tile_aabb.shape[0]
-    if tile_aabb.shape != (ct, 8) or ct < 1 or tile_aabb.dtype != torch.float32 \
-            or tile_aabb.device != device or not tile_aabb.is_contiguous() \
-            or center.shape != (3,) or center.device != device \
-            or center.dtype != torch.float32:
-        raise ValueError(f"{who}: tile_aabb [ct, 8] and center [3] float32 on {device} "
-                         "are required for the key")
+def _check_key_tables(who: str, tables, device) -> int:
+    """The key's inputs as the kernels take them -> ct: ``tables``'
+    tile_aabb [ct, 8] (contiguous), center [3] and root_box [8], float32
+    on ``device``."""
+    ok = lambda t, shape: (t.shape == shape and t.dtype == torch.float32
+                           and t.device == device and t.is_contiguous())
+    ct = 0 if tables is None else tables.tile_aabb.shape[0]
+    if ct < 1 or not (ok(tables.tile_aabb, (ct, 8)) and ok(tables.center, (3,))
+                      and ok(tables.root_box, (8,))):
+        raise ValueError(f"{who}: tables with tile_aabb [ct, 8], center [3] and root_box [8] "
+                         f"float32 on {device} are required for the key")
     return ct
 
 
+def _set_key_tables(a: kernels.PttMeshShadeArgs, tables, key_out) -> None:
+    a.out_key = key_out.data_ptr()
+    a.tile_aabb = tables.tile_aabb.data_ptr()
+    a.center = tables.center.data_ptr()
+    a.root_box = tables.root_box.data_ptr()
+
+
 def mesh_prelude_plain(prim_static: SceneStatic, cfg: RenderConfig, paths: PathState,
-                       tile_aabb: torch.Tensor = None, center: torch.Tensor = None):
+                       tables: intersect_mxu.MXUMeshTables = None) -> MeshCarry:
     """The plain PyTorch version of the prelude kernel (``mesh_prelude``):
-    ``prim_t_min(..., winner=True)`` and, given the tile boxes,
-    ``coherence_key_planes`` of the rays as they are."""
+    ``prim_t_min(..., winner=True)`` and, given ``tables``,
+    ``intersect_mxu.signature_key`` of the rays as they are."""
     t_lim, win = prim_t_min(prim_static, cfg, paths.origin, paths.direction, winner=True)
     key = None
-    if tile_aabb is not None:
-        key = intersect_mxu.coherence_key_planes(
-            tile_aabb, center[0], center[1], center[2],
-            *paths.origin, *paths.direction, paths.alive, t_lim,
-        )
-    return t_lim, key, win
+    if tables is not None:
+        key = intersect_mxu.signature_key(tables, paths.origin, paths.direction, paths.alive,
+                                          t_lim)
+    return MeshCarry(t_lim, key, win)
 
 
 def mesh_prelude(prim_static: SceneStatic, cfg: RenderConfig, paths: PathState,
-                 tile_aabb: torch.Tensor = None, center: torch.Tensor = None,
-                 plain: bool = False):
+                 tables: intersect_mxu.MXUMeshTables = None, plain: bool = False) -> MeshCarry:
     """Bounce 0's carry from the camera rays, in one launch of the prelude
-    kernel (``csrc/fused_mesh.cu``): ``(t_lim, key | None, win)``, the
-    planes the mesh-shade kernel emits for the bounces after it -- each
+    kernel (``csrc/fused_mesh.cu``): ``MeshCarry(t_lim, key | None, win)``,
+    the planes the mesh-shade kernel emits for the bounces after it -- each
     ray's prim nearest t, the prim that gives it (-1: none) and, given
-    ``tile_aabb`` [ct, 8] and ``center`` [3], its coherence sort key at any
-    ``ct``.  ``prim_static`` is the scene's static with ``num_triangles=0``.
-    On the CPU, or with ``plain``, ``mesh_prelude_plain``."""
+    ``tables``, its coherence sort key at any tile count.  ``prim_static``
+    is the scene's static with ``num_triangles=0``.  On the CPU, or with
+    ``plain``, ``mesh_prelude_plain``."""
     device = paths.origin.x.device
     if plain or device.type == "cpu":
-        return mesh_prelude_plain(prim_static, cfg, paths, tile_aabb, center)
+        return mesh_prelude_plain(prim_static, cfg, paths, tables)
     _require_cuda(device, "mesh_prelude")
     n = paths.pixel.shape[0]
     f_in = (*paths.origin, *paths.direction)
     _check_planes("mesh_prelude rays", f_in, n, torch.float32, device)
     _check_planes("mesh_prelude bounces", (paths.bounces,), n, torch.int32, device)
-    keyed = tile_aabb is not None
-    ct = _check_key_tables("mesh_prelude", tile_aabb, center, device) if keyed else 0
+    keyed = tables is not None
+    ct = _check_key_tables("mesh_prelude", tables, device) if keyed else 0
     lib = kernels.load("fused_mesh")
     scene = _scene_buffer(prim_static, _eps(cfg), device)
     tl_out = torch.empty_like(paths.origin.x)
@@ -746,15 +750,13 @@ def mesh_prelude(prim_static: SceneStatic, cfg: RenderConfig, paths: PathState,
     a.out_tlim = tl_out.data_ptr()
     a.out_win = win_out.data_ptr()
     if keyed:
-        a.out_key = key_out.data_ptr()
-        a.tile_aabb = tile_aabb.data_ptr()
-        a.center = center.data_ptr()
+        _set_key_tables(a, tables, key_out)
     a.n, a.ct, a.emit = n, ct, EMIT_MODES.index("tlim+key" if keyed else "tlim")
     a.num_geoms, a.num_materials = _scene_counts(prim_static)
     code = lib.lib.ptt_launch_mesh_prelude(ctypes.byref(a), kernels.stream_handle(device))
     lib.check(code, "mesh_prelude")
     mesh_prelude.launches += 1
-    return tl_out, key_out, win_out
+    return MeshCarry(tl_out, key_out, win_out)
 
 
 mesh_prelude.launches = 0
@@ -768,7 +770,7 @@ def fused_mesh_bounce(
     su_key: tuple,
     resort: bool = True,
     rng_n: int = None,
-    carry: tuple = None,  # the previous bounce's (t_lim, key | None[, win])
+    carry: MeshCarry = None,  # the previous bounce's emit; None: the prelude gives it
     want_carry: bool = False,
     plain: bool = False,
     carry_winner: bool = False,
@@ -778,19 +780,18 @@ def fused_mesh_bounce(
     the persistent coherence sort, the traversal, the winner's attributes
     and normal (torch), and the fused shade kernel.
 
-    ``carry``/``want_carry`` thread the shade kernel's next-bounce outputs
-    (prim t_lim and, at any tile count, the signature sort key where
-    ``next_resort`` says the next bounce sorts by it) across bounces;
-    without a carry the prelude kernel (``mesh_prelude``) gives the same
-    planes from the rays as they are, so no bounce builds the signature key
-    in torch.  The carry lives in the current (sorted) order.  With
-    ``want_carry`` the return is ``(paths, (t_lim, key | None))``, and with
-    ``carry_winner`` too ``(paths, (t_lim, key | None, win))``: the prim
-    that gives each ray's t_lim, which the next bounce's shade takes instead
-    of testing every prim (the prelude gives it at the first bounce).  The
-    film is the same bit for bit either way.  ``plain`` runs the kernels'
-    plain versions instead, on any device (the reference the kernels are
-    held to on the card).
+    ``carry``/``want_carry`` thread the shade kernel's next-bounce outputs,
+    a ``MeshCarry`` (prim t_lim, the prim that gives it, and, at any tile
+    count, the signature sort key where ``next_resort`` says the next bounce
+    sorts by it), across bounces; without a carry the prelude kernel
+    (``mesh_prelude``) gives the same planes from the rays as they are, so
+    no bounce builds the signature key in torch.  The carry lives in the
+    current (sorted) order.  With ``want_carry`` the return is ``(paths,
+    MeshCarry)``.  With ``carry_winner`` the shade takes the carried winner
+    instead of testing every prim; without it the carry's ``win`` is not
+    read.  The film is the same bit for bit either way.  ``plain`` runs the
+    kernels' plain versions instead, on any device (the reference the
+    kernels are held to on the card).
 
     With prefix tiers (``cfg.resolved_prefix_tiers``) and sorting on, the
     whole bounce runs over the smallest tier holding every alive ray
@@ -864,33 +865,37 @@ def run_tiered(paths: PathState, npres: list, body) -> PathState:
     return run_tiered_carry(paths, None, npres, lambda head, _: body(head), False)
 
 
-def run_tiered_carry(paths: PathState, carry, npres: list, body, want_carry: bool):
+# The tails ``run_tiered_carry`` gives a carry's rows past the engaged tier.
+_CARRY_TAILS = MeshCarry(t_lim=FLT_MAX, key=intersect_mxu.DEAD_KEY, win=-1)
+
+
+def run_tiered_carry(paths: PathState, carry: MeshCarry, npres: list, body,
+                     want_carry: bool):
     """``run_tiered`` for the mesh bounce, whose body also takes and (with
-    ``want_carry``) returns the carry ``(t_lim, key | None[, win])``: the
-    carry is cut to the head, and the full-length carry out gets constant
-    tails.  A row past the engaged tier is dead, and stays past every later
-    bounce's tier (the alive rays only shrink into the prefix), so no later
-    bounce reads its tail values for a live ray: t_lim ``FLT_MAX``, the key
-    ``DEAD_KEY`` (which a dead ray's key is, so the sort keeps those rows
-    last), and the winner -1, "no prim" (a dead lane's prim hit is never
-    used, and -1 is the value the shade already takes for a lane no prim
-    bounds, so it indexes nothing)."""
+    ``want_carry``) returns a ``MeshCarry``: each field of the carry is cut
+    to the head, and each field of the full-length carry out gets a
+    constant tail (``_CARRY_TAILS``).  A row past the engaged tier is dead,
+    and stays past every later bounce's tier (the alive rays only shrink
+    into the prefix), so no later bounce reads its tail values for a live
+    ray: t_lim ``FLT_MAX``, the key ``DEAD_KEY`` (which a dead ray's key
+    is, so the sort keeps those rows last), and the winner -1, "no prim" (a
+    dead lane's prim hit is never used, and -1 is the value the shade
+    already takes for a lane no prim bounds, so it indexes nothing)."""
     npre = engaged_tier(paths, npres)
     if npre is None:
         return body(paths, carry)
-    head_carry = None if carry is None else tuple(
-        None if c is None else c[:npre] for c in carry)
+    head_carry = None if carry is None else MeshCarry(
+        *(None if c is None else c[:npre] for c in carry))
     out = body(_head(paths, npre), head_carry)
     out_p, out_c = out if want_carry else (out, None)
     full_p = _join(out_p, paths, npre)
     if not want_carry:
         return full_p
     tail = paths.pixel.shape[0] - npre
-    fills = (FLT_MAX, intersect_mxu.DEAD_KEY, -1)
-    full_c = tuple(
+    full_c = MeshCarry(*(
         None if c is None else torch.cat([c, c.new_full((tail,), fill)])
-        for c, fill in zip(out_c, fills)
-    )
+        for c, fill in zip(out_c, _CARRY_TAILS)
+    ))
     return full_p, full_c
 
 
@@ -984,17 +989,14 @@ def _fused_mesh_bounce_at(dev, static, cfg, paths, resort, su_key, rng_n,
     tables = dev.mxu_mesh
     prim_static = dataclasses.replace(static, num_triangles=0)
     sort_mode = "signature" if cfg.ray_sort_mode == "auto" else cfg.ray_sort_mode
-    if carry is not None:
-        t_lim, ckey, *rest = carry
-        win = rest[0] if rest else None
-    else:
+    if carry is None:
         keyed = sort_rays and resort and sort_mode == "signature"
         with span("mesh.prelude"):
-            t_lim, ckey, win = mesh_prelude(
-                prim_static, cfg, paths, tables.tile_aabb if keyed else None,
-                tables.center if keyed else None, plain=plain)
-        if not carry_winner:
-            win = None
+            carry = mesh_prelude(prim_static, cfg, paths, tables if keyed else None,
+                                 plain=plain)
+    t_lim, ckey, win = carry
+    if not carry_winner:
+        win = None
     if sort_rays and resort:
         with span("mesh.sort"):
             if ckey is not None:
@@ -1021,14 +1023,8 @@ def _fused_mesh_bounce_at(dev, static, cfg, paths, resort, su_key, rng_n,
         keyed = sort_rays and next_resort and sort_mode == "signature"
         emit = ("tlim+key" if keyed else "tlim") if want_carry else ""
         shade = fused_mesh_shade_plain if plain else fused_mesh_shade
-        return shade(
-            prim_static, cfg, paths, mesh_t, mesh_normal, mesh_mat, su_key, rng_n,
-            emit=emit,
-            tile_aabb=tables.tile_aabb if emit == "tlim+key" else None,
-            center=tables.center if emit == "tlim+key" else None,
-            mode=mode, mesh_albedo=albedo, prim_winner=win,
-            want_winner=want_carry and carry_winner,
-        )
+        return shade(prim_static, cfg, paths, mesh_t, mesh_normal, mesh_mat, su_key, rng_n,
+                     emit=emit, tables=tables, mode=mode, mesh_albedo=albedo, prim_winner=win)
 
 
 # ---------------------------------------------------------------------------

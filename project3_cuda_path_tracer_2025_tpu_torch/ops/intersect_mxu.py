@@ -182,7 +182,13 @@ class MXUMeshTables(NamedTuple):
     the traversal kernels read.  The JAX package's ``group_aabb`` is the
     coarse level of its sweep's two-level cull; with ``GROUP_TILES == 1`` a
     group is a tile and the sweep skips that level, so the port's sweep has
-    the single level and the tables carry no ``group_aabb``."""
+    the single level and the tables carry no ``group_aabb``.
+
+    ``root_box`` is the envelope of every tile row (padding tiles included,
+    whose inverted boxes change no min or max) in the tile-row layout: the
+    box of the mesh root that ``root_hit_mask``, ``signature_key``, the
+    morton key and the kernels' ``root_hit`` test.  A constant of the
+    table, built where a table is (``tables_from_arrays``, ``_chunk_tables``)."""
 
     features: torch.Tensor  # [NUM_F, 4*Tp] f32: (det|u|v|t) columns per tile
     tile_aabb: torch.Tensor  # [Ct, 8] f32: xyz min, xyz max (recentred), pad
@@ -190,6 +196,7 @@ class MXUMeshTables(NamedTuple):
     attrs_shade: torch.Tensor  # [Tp, 24] f32
     center: torch.Tensor  # [3] f32
     coef: torch.Tensor  # [Tp, COEF_W] f32
+    root_box: torch.Tensor  # [8] f32: the envelope of tile_aabb, same layout
 
 
 def mono_coefficients(features: torch.Tensor) -> torch.Tensor:
@@ -300,21 +307,21 @@ def tables_from_arrays(features, tile_aabb, attrs=None, attrs_shade=None, center
         attrs = np.zeros((tp, 40), np.float32)
     if attrs_shade is None:
         attrs_shade = np.zeros((tp, 24), np.float32)
+    aabb = f(tile_aabb)
     return MXUMeshTables(
-        features=features, tile_aabb=f(tile_aabb), attrs=f(attrs),
+        features=features, tile_aabb=aabb, attrs=f(attrs),
         attrs_shade=f(attrs_shade), center=f(center),
         coef=mono_coefficients(features),
+        root_box=torch.cat([aabb[:, 0:3].amin(0), aabb[:, 3:6].amax(0), aabb.new_zeros(2)]),
     )
 
 
-def root_hit_mask(tile_aabb, center, ox, oy, oz, dx, dy, dz, t_limit):
-    """Per-ray BVH-root test against the envelope of the tile boxes (k=2
-    widening): False only where no tile can be a candidate."""
-    lo = torch.min(tile_aabb[:, 0:3], dim=0).values
-    hi = torch.max(tile_aabb[:, 3:6], dim=0).values
-    os = Vec3(ox - center[0], oy - center[1], oz - center[2])
-    tlo, thi = _slab(lo, hi, os, _inv_dir(Vec3(dx, dy, dz)))
-    tlo, thi = _widen_slab(tlo, thi, k=2)
+def root_hit_mask(tables: MXUMeshTables, ro: Vec3, rd: Vec3, t_limit):
+    """Per-ray BVH-root test against ``tables.root_box`` (k=2 widening):
+    False only where no tile can be a candidate."""
+    c, box = tables.center, tables.root_box
+    os = Vec3(ro.x - c[0], ro.y - c[1], ro.z - c[2])
+    tlo, thi = _widen_slab(*_slab(box[0:3], box[3:6], os, _inv_dir(rd)), k=2)
     return (thi >= tlo) & (thi > 0.0) & (tlo < t_limit)
 
 
@@ -392,27 +399,29 @@ def _finish_signature(tops, bits_id, dir_total, dx, dy, dz):
     return sig
 
 
-def _signature_keys(tile_aabb, osx, osy, osz, dx, dy, dz, live, t_limit):
-    """Traversal-signature key: the ids of the ray's nearest candidate
-    tiles, front to back, then a direction morton; 1 << 30 for rays that
-    are not live.  Built over chunks of 16 tiles as [N, 16] passes."""
-    ct = tile_aabb.shape[0]
+def signature_key(tables: MXUMeshTables, ro: Vec3, rd: Vec3, alive, t_limit) -> torch.Tensor:
+    """The coherence key of the mesh-shade and prelude kernels
+    (``csrc/mesh_path.cuh``, ``coherence_key``) in torch, bit for bit: the
+    root test (``root_hit_mask``), then the signature -- the ids of the
+    ray's nearest candidate tiles, front to back, then a direction morton --
+    over chunks of 16 tiles as [N, 16] passes, and the three layers: live
+    and in the root box < live with a prim only (1 << 30) < dead
+    (``DEAD_KEY``).  ``t_limit``: the ray's prim prune."""
+    ct = tables.tile_aabb.shape[0]
     bits_id, n_sig, dir_total = _key_layout(ct)
     id_mask = (1 << bits_id) - 1
-    inv = _inv_dir(Vec3(dx, dy, dz))
-    livem = live > 0.0
-    os = Vec3(osx[:, None], osy[:, None], osz[:, None])
-    inv2 = Vec3(inv.x[:, None], inv.y[:, None], inv.z[:, None])
-    top = torch.full((osx.shape[0], n_sig), INT_MAX, dtype=torch.int32,
-                     device=osx.device)
+    c = tables.center
+    livem = alive & root_hit_mask(tables, ro, rd, t_limit)
+    os = Vec3(*((o - c[a])[:, None] for a, o in enumerate(ro)))
+    inv = Vec3(*(v[:, None] for v in _inv_dir(rd)))
+    top = torch.full((ro.x.shape[0], n_sig), INT_MAX, dtype=torch.int32, device=ro.x.device)
     for c0 in range(0, ct, 16):
-        rows = tile_aabb[c0:c0 + 16]
-        lo = [rows[None, :, a] for a in range(3)]
-        hi = [rows[None, :, 3 + a] for a in range(3)]
-        tlo, thi = _slab(lo, hi, os, inv2)
+        rows = tables.tile_aabb[c0:c0 + 16]
+        tlo, thi = _slab([rows[None, :, a] for a in range(3)],
+                         [rows[None, :, 3 + a] for a in range(3)], os, inv)
         hit = (thi >= tlo) & (thi > 0.0) & (tlo < t_limit[:, None]) & livem[:, None]
         tid = torch.arange(c0, c0 + rows.shape[0], dtype=torch.int32,
-                           device=osx.device)[None, :]
+                           device=ro.x.device)[None, :]
         cand = torch.cat([top, _pack_candidates(tlo, hit, tid, id_mask)], dim=1)
         new_top = []
         for _ in range(n_sig):
@@ -420,43 +429,8 @@ def _signature_keys(tile_aabb, osx, osy, osz, dx, dy, dz, live, t_limit):
             new_top.append(m[:, 0])
             cand = torch.where(cand == m, INT_MAX, cand)
         top = torch.stack(new_top, dim=1)
-    sig = _finish_signature(list(top.unbind(1)), bits_id, dir_total, dx, dy, dz)
-    return torch.where(livem, sig, 1 << 30)
-
-
-def coherence_key_planes(aabb_rows, cx, cy, cz, ox, oy, oz, dx, dy, dz, alive,
-                         t_limit) -> torch.Tensor:
-    """The coherence key as the fused shade kernel emits it: root mask,
-    signature by incremental sorted insertion over the tiles, one tile at a
-    time, and the three-level layering (live & root < live & prim-only <
-    dead).  ``aabb_rows``: [ct, 8] recentred tile bounds; ``cx/cy/cz``: the
-    recentring offset; ``t_limit``: the next bounce's prim prune.  The
-    mesh-shade and prelude kernels compute the same key per ray at any
-    number of tiles (``csrc/mesh_path.cuh``, ``coherence_key``)."""
-    rows = [[float(v) for v in r] for r in aabb_rows.tolist()]
-    ct = len(rows)
-    bits_id, n_sig, dir_total = _key_layout(ct)
-    id_mask = (1 << bits_id) - 1
-    os = Vec3(ox - cx, oy - cy, oz - cz)
-    inv = _inv_dir(Vec3(dx, dy, dz))
-    r_lo = [min(r[a] for r in rows) for a in range(3)]
-    r_hi = [max(r[3 + a] for r in rows) for a in range(3)]
-    tlo_r, thi_r = _slab(r_lo, r_hi, os, inv)
-    tlo_r, thi_r = _widen_slab(tlo_r, thi_r, k=2)
-    livem = alive & (thi_r >= tlo_r) & (thi_r > 0.0) & (tlo_r < t_limit)
-    tops = [torch.full(ox.shape, INT_MAX, dtype=torch.int32, device=ox.device)
-            for _ in range(n_sig)]
-    for c, r in enumerate(rows):
-        tlo, thi = _slab(r[0:3], r[3:6], os, inv)
-        hit = (thi >= tlo) & (thi > 0.0) & (tlo < t_limit) & livem
-        p = _pack_candidates(tlo, hit, c, id_mask)
-        for k in range(n_sig):
-            lo_k = torch.minimum(tops[k], p)
-            p = torch.maximum(tops[k], p)
-            tops[k] = lo_k
-    sig = _finish_signature(tops, bits_id, dir_total, dx, dy, dz)
-    key = torch.where(livem, sig, 1 << 30)
-    return torch.where(alive, key, DEAD_KEY)
+    sig = _finish_signature(list(top.unbind(1)), bits_id, dir_total, *rd)
+    return torch.where(alive, torch.where(livem, sig, 1 << 30), DEAD_KEY)
 
 
 def sort_key(tables: MXUMeshTables, ro: Vec3, rd: Vec3, active, t_limit,
@@ -464,26 +438,22 @@ def sort_key(tables: MXUMeshTables, ro: Vec3, rd: Vec3, active, t_limit,
              mesh_bounds=None) -> torch.Tensor:
     """The coherence key built in torch (live & root < live & prim-only <
     dead), in the span ``mesh.key_glue``: in a trace, one span for each
-    bounce whose key the kernels did not give.  In mode "signature" it is
-    the key the mesh-shade and prelude kernels emit
-    (``coherence_key_planes``) bit for bit; mode "morton" quantises the
-    origins within ``mesh_bounds`` (the mesh's [6] world bounds), or
-    without them within the tile boxes' envelope."""
+    bounce whose key the kernels did not give.  Mode "signature" is
+    ``signature_key``; mode "morton" quantises the origins within
+    ``mesh_bounds`` (the mesh's [6] world bounds), or without them within
+    ``tables.root_box``."""
     with span("mesh.key_glue"):
-        c = tables.center
-        root = root_hit_mask(tables.tile_aabb, c, *ro, *rd, t_limit)
-        live = (active & root).to(torch.float32)
-        os = (ro.x - c[0], ro.y - c[1], ro.z - c[2])
         if mode == "signature":
-            key = _signature_keys(tables.tile_aabb, *os, *rd, live, t_limit)
+            return signature_key(tables, ro, rd, active, t_limit)
+        c = tables.center
+        live = (active & root_hit_mask(tables, ro, rd, t_limit)).to(torch.float32)
+        os = (ro.x - c[0], ro.y - c[1], ro.z - c[2])
+        if mesh_bounds is None:
+            lo, hi = tables.root_box[0:3], tables.root_box[3:6]
         else:
-            if mesh_bounds is None:
-                lo = torch.min(tables.tile_aabb[:, 0:3], dim=0).values
-                hi = torch.max(tables.tile_aabb[:, 3:6], dim=0).values
-            else:
-                b = torch.tensor(mesh_bounds, dtype=torch.float32, device=c.device)
-                lo, hi = b[:3] - c, b[3:] - c
-            key = _coherence_keys(*os, *rd, live, lo, hi, sort_bits, sort_dir_bits)
+            b = torch.tensor(mesh_bounds, dtype=torch.float32, device=c.device)
+            lo, hi = b[:3] - c, b[3:] - c
+        key = _coherence_keys(*os, *rd, live, lo, hi, sort_bits, sort_dir_bits)
         return torch.where(active, key, DEAD_KEY)
 
 
@@ -629,7 +599,7 @@ def mono_intersect_plain(tables: MXUMeshTables, num_tris: int, ro: Vec3,
     n = ro.x.shape[0]
     device = ro.x.device
     tlim = t_limit.to(torch.float32)
-    act = active & root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tlim)
+    act = active & root_hit_mask(tables, ro, rd, tlim)
     rf = _features(tables, ro, rd)
     best_t = torch.full((n,), float("inf"), dtype=torch.float32, device=device)
     best_tri = torch.full((n,), INT_MAX, dtype=torch.int32, device=device)
@@ -676,7 +646,8 @@ def _require_cuda(what: str, device: torch.device) -> None:
 def _check_tables(what, tables, ct, device):
     for name, tab, shape in (("coef", tables.coef, (ct * TRI_TILE, COEF_W)),
                              ("tile_aabb", tables.tile_aabb, (ct, 8)),
-                             ("center", tables.center, (3,))):
+                             ("center", tables.center, (3,)),
+                             ("root_box", tables.root_box, (8,))):
         _check_tensor(f"{what} {name}", tab, torch.float32, shape, device)
 
 
@@ -708,6 +679,7 @@ def mono_intersect(tables: MXUMeshTables, num_tris: int, ro: Vec3, rd: Vec3,
     a.coef = tables.coef.data_ptr()
     a.tile_aabb = tables.tile_aabb.data_ptr()
     a.center = tables.center.data_ptr()
+    a.root_box = tables.root_box.data_ptr()
     a.out_t, a.out_tri = out_t.data_ptr(), out_tri.data_ptr()
     a.baby_eps = f32(baby_eps)
     a.eps_succ = _eps_succ(baby_eps)
@@ -1560,10 +1532,12 @@ def _chunk_tables(tables: MXUMeshTables, g0: int, g1: int) -> MXUMeshTables:
     """Tiles ``g0..g1-1`` as a table of their own (views, no copy): what a
     call of the chunked chain walks.  Its triangle ids start at 0."""
     rows = slice(g0 * TRI_TILE, g1 * TRI_TILE)
+    aabb = tables.tile_aabb[g0:g1]
     return tables._replace(
         features=tables.features[:, 4 * rows.start:4 * rows.stop],
-        tile_aabb=tables.tile_aabb[g0:g1], attrs=tables.attrs[rows],
-        attrs_shade=tables.attrs_shade[rows], coef=tables.coef[rows])
+        tile_aabb=aabb, attrs=tables.attrs[rows],
+        attrs_shade=tables.attrs_shade[rows], coef=tables.coef[rows],
+        root_box=torch.cat([aabb[:, 0:3].amin(0), aabb[:, 3:6].amax(0), aabb.new_zeros(2)]))
 
 
 def _chain(tables, padded_tris, chunk_tris, ro, rd, live, tlim, baby_eps, planned, plan_for,
@@ -1580,8 +1554,6 @@ def _chain(tables, padded_tris, chunk_tris, ro, rd, live, tlim, baby_eps, planne
     those same tensors."""
     per = max(1, chunk_tris // GROUP_TRIS)
     groups = padded_tris // GROUP_TRIS
-    c = tables.center
-    os, inv = Vec3(ro.x - c[0], ro.y - c[1], ro.z - c[2]), _inv_dir(rd)
     best_t, best_tri = tlim, None
     for g0 in range(0, groups, per):
         g1 = min(groups, g0 + per)
@@ -1592,12 +1564,9 @@ def _chain(tables, padded_tris, chunk_tris, ro, rd, live, tlim, baby_eps, planne
             fn = walk_plain if plain else WALKS[kind]
             t_c, tri_c = fn(sub, ro, rd, live, best_t, plan_for(sub.tile_aabb, best_t), baby_eps)
         else:
-            lo = torch.min(sub.tile_aabb[:, 0:3], dim=0).values
-            hi = torch.max(sub.tile_aabb[:, 3:6], dim=0).values
-            ctlo, cthi = _widen_slab(*_slab(lo, hi, os, inv), k=2)
-            ok = (cthi >= ctlo) & (cthi > 0.0) & (ctlo < best_t)
             fn = sweep_intersect_plain if plain else sweep_intersect
-            t_c, tri_c = fn(sub, ro, rd, live & ok, best_t, baby_eps)
+            t_c, tri_c = fn(sub, ro, rd, live & root_hit_mask(sub, ro, rd, best_t), best_t,
+                            baby_eps)
         better = tri_c >= 0  # a call reports only hits closer than its t_limit
         tri_glob = torch.where(better, tri_c + g0 * GROUP_TRIS, -1)
         if best_tri is None:
@@ -1663,7 +1632,7 @@ def _traverse(tables, num_tris, padded_tris, ro, rd, active, tlim, baby_eps, pla
     ct = tables.tile_aabb.shape[0]
     n_pad = nb * RAY_TILE
     with span("mesh.plan"):
-        live = active & root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tlim)
+        live = active & root_hit_mask(tables, ro, rd, tlim)
         os, dp, livep, tlp = plan_rays(tables, ro, rd, live, tlim)
         plans = binned or streamed or planned  # the sweep builds no plan, reads nothing
         live_pos = -1

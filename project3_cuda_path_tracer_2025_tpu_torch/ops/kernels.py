@@ -107,7 +107,7 @@ class PttBounceArgs(ctypes.Structure):
 class PttMonoArgs(ctypes.Structure):
     _fields_ = [
         ("ray", _p * 6), ("active", _p), ("tlim", _p), ("coef", _p),
-        ("tile_aabb", _p), ("center", _p), ("out_t", _p), ("out_tri", _p),
+        ("tile_aabb", _p), ("center", _p), ("root_box", _p), ("out_t", _p), ("out_tri", _p),
         ("baby_eps", _f), ("eps_succ", _f),
         ("n", _i), ("ct", _i), ("num_tris", _i), ("pad", _i),
     ]
@@ -117,7 +117,7 @@ class PttMeshShadeArgs(ctypes.Structure):
     _fields_ = [
         ("scene", _p), ("in_f", _p * 9), ("in_bounces", _p), ("pixel", _p),
         ("mesh_t", _p), ("mesh_n", _p * 3), ("mesh_mat", _p), ("mesh_alb", _p * 3),
-        ("prim_win", _p), ("tile_aabb", _p), ("center", _p),
+        ("prim_win", _p), ("tile_aabb", _p), ("center", _p), ("root_box", _p),
         ("out_f", _p * 9), ("out_bounces", _p), ("out_tlim", _p), ("out_key", _p),
         ("out_win", _p),
         ("k0", _u), ("k1", _u), ("rng_n", _u),
@@ -183,6 +183,7 @@ def _walk_abi_expected() -> list:
         PttBinnedArgs.baby_eps.offset,
         PttBinnedArgs.n.offset,
         ctypes.sizeof(PttMonoArgs),
+        PttMonoArgs.root_box.offset,
         PttMonoArgs.baby_eps.offset,
         PttMonoArgs.n.offset,
         mxu.TRI_TILE,
@@ -219,6 +220,7 @@ def _mesh_abi_expected() -> list:
         ctypes.sizeof(PttScene),
         ctypes.sizeof(PttMeshShadeArgs),
         PttMeshShadeArgs.prim_win.offset,
+        PttMeshShadeArgs.root_box.offset,
         PttMeshShadeArgs.out_win.offset,
         PttMeshShadeArgs.k0.offset,
         PttMeshShadeArgs.n.offset,

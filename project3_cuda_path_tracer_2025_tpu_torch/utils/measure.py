@@ -97,7 +97,7 @@ def mono_work(args) -> tuple:
 
     tabs, _, ro, rd, active, tl, _ = args
     n, ct = ro.x.shape[0], tabs.tile_aabb.shape[0]
-    act = active & mxu.root_hit_mask(tabs.tile_aabb, tabs.center, *ro, *rd, tl)
+    act = active & mxu.root_hit_mask(tabs, ro, rd, tl)
     osv = type(ro)(ro.x - tabs.center[0], ro.y - tabs.center[1], ro.z - tabs.center[2])
     inv = mxu._inv_dir(rd)
     hit_t = mxu.mono_intersect(*args)[0]  # the pairs past the hit are not needed

@@ -85,7 +85,7 @@ def profile(scn, args, device) -> list:
                               cfg.ray_sort_dir_bits, mode="signature")
     g = lambda a: a[perm].contiguous()
     ro, rd, tl = Vec3(*map(g, ro)), Vec3(*map(g, rd)), g(t_lim)
-    live = g(paths.alive) & mxu.root_hit_mask(tab.tile_aabb, tab.center, *ro, *rd, tl)
+    live = g(paths.alive) & mxu.root_hit_mask(tab, ro, rd, tl)
     pr = mxu.plan_rays(tab, ro, rd, live, tl)
     n_pad = pr.tl.shape[0]
     npre = min(n_pad, ((n_pad // args.tier + mxu.RAY_TILE - 1) // mxu.RAY_TILE) * mxu.RAY_TILE)

@@ -64,11 +64,10 @@ One JSON line per measurement:
 
 * ``shade``: the mesh-shade kernel (#3, ``fused_mesh_shade``) on each
   sorted bounce of the 5k mesh (mode "plain"), the textured mesh (mode
-  "textured") and the 200k mesh (mode "plain", emit "tlim": more than 24
-  tiles), as the main path launches it (``shade_states``: the emit it asks,
-  none on the last bounce; the carried prim winner where the package has
-  it, ``carried``): ms per launch and a sha256 of its outputs without the
-  winner, which two checkouts print alike; then the 5k sorted and unsorted,
+  "textured") and the 200k mesh (mode "plain"), as the main path launches
+  it (``shade_states``: the emit it asks, none on the last bounce; the
+  carried prim winner, ``carried``): ms per launch and a sha256 of its outputs without
+  the winner, which two checkouts print alike; then the 5k sorted and unsorted,
   textured-mesh, 200k, 20k and 80k "auto" frames;
 * ``iteration``: the iteration kernel (#1, ``fused_prim_iteration``) per
   frame on ``cornell_dof.json``, ``cornell_all_lobes.json`` and the
@@ -178,8 +177,7 @@ def sorted_bounces(dev, static, cam, cfg, device, bounces: int = 3) -> list:
         perm = mxu.coherence_perm(tables, paths.origin, paths.direction, paths.alive, tl,
                                   cfg.ray_sort_bits, cfg.ray_sort_dir_bits, mode="signature")
         paths, (tl,) = permute_path_state(paths, perm, extra=(tl,))
-        live = paths.alive & mxu.root_hit_mask(tables.tile_aabb, tables.center, *paths.origin,
-                                               *paths.direction, tl)
+        live = paths.alive & mxu.root_hit_mask(tables, paths.origin, paths.direction, tl)
         out.append((paths, tl, live))
         mt, mn, mm = fused.mesh_surface(tables, static, cfg, paths, tl)
         paths = fused.fused_mesh_shade_plain(prim_static, cfg, paths, mt, mn, mm,
@@ -190,17 +188,14 @@ def sorted_bounces(dev, static, cam, cfg, device, bounces: int = 3) -> list:
 def shade_states(dev, static, cam, cfg, device, bounces: int):
     """Each sorted bounce of a mesh frame as the main path shades it, for
     the shade kernel (#3): yields (args, kwargs) of ``fused_mesh_shade``.
-    The rays are in the main path's coherence order with their t_limit and,
-    where the package carries it, their prim winner
-    (``prim_t_min(..., winner=True)``, permuted with them: the winner the
-    bounce before emits); the mesh surface is ``mesh_surface``, or
-    ``textured_mesh_surface`` in mode "textured" for a textured mesh; emit
-    is the main path's ("tlim+key", or "tlim" past ``KEY_INLINE_MAX_CT``
-    tiles in a package that still has that rule; none on the frame's last
-    bounce).  The next bounce comes from the plain shade.  Works on any
-    checkout's package."""
+    The rays are in the main path's coherence order with their t_limit and
+    their prim winner (``prim_t_min(..., winner=True)``, permuted with them:
+    the winner the bounce before emits); the mesh surface is
+    ``mesh_surface``, or ``textured_mesh_surface`` in mode "textured" for a
+    textured mesh; emit is the main path's ("tlim+key"; none on the frame's
+    last bounce).  The next bounce comes from the plain shade.  Works on any
+    checkout's package whose shade takes the key's ``tables``."""
     import dataclasses
-    import inspect
 
     from project3_cuda_path_tracer_2025_tpu_torch.ops import camera as camera_ops
     from project3_cuda_path_tracer_2025_tpu_torch.ops import fused, intersect_mxu as mxu
@@ -208,9 +203,7 @@ def shade_states(dev, static, cam, cfg, device, bounces: int):
     from project3_cuda_path_tracer_2025_tpu_torch.ops.intersect import prim_t_min
     from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
 
-    carries = "prim_winner" in inspect.signature(fused.fused_mesh_shade).parameters
     tables = dev.mxu_mesh
-    ct = tables.tile_aabb.shape[0]
     mode = "textured" if static.num_textures > 0 else "plain"
     n = static.pixel_count
     prim_static = dataclasses.replace(static, num_triangles=0)
@@ -220,28 +213,18 @@ def shade_states(dev, static, cam, cfg, device, bounces: int):
         prng.uniforms_at(prng.stage_key(ik, 0, 0), torch.arange(n, device=device), 4, n))
     for d in range(bounces):
         ro, rd = paths.origin, paths.direction
-        if carries:
-            tl, win = prim_t_min(static, cfg, ro, rd, winner=True)
-        else:
-            tl, win = prim_t_min(static, cfg, ro, rd), None
+        tl, win = prim_t_min(static, cfg, ro, rd, winner=True)
         perm = mxu.coherence_perm(tables, ro, rd, paths.alive, tl, cfg.ray_sort_bits,
                                   cfg.ray_sort_dir_bits, mode="signature")
-        paths, extra = permute_path_state(paths, perm, extra=(tl,) if win is None else (tl, win))
-        tl, win = extra[0], (extra[1] if carries else None)
+        paths, (tl, win) = permute_path_state(paths, perm, extra=(tl, win))
         if mode == "plain":
             (mt, mn, mm), alb = fused.mesh_surface(tables, static, cfg, paths, tl), None
         else:
             mt, mn, mm, alb = fused.textured_mesh_surface(dev, static, cfg, paths, tl)
-        emit = "" if d == static.trace_depth - 1 else (
-            "tlim+key" if ct <= getattr(mxu, "KEY_INLINE_MAX_CT", ct) else "tlim")
-        key = emit == "tlim+key"
+        emit = "" if d == static.trace_depth - 1 else "tlim+key"
         skey = prng.stage_key(ik, d, 1)
-        args = (prim_static, cfg, paths, mt, mn, mm, skey, n, emit,
-                tables.tile_aabb if key else None, tables.center if key else None)
-        kwargs = dict(mode=mode, mesh_albedo=alb)
-        if carries:
-            kwargs.update(prim_winner=win, want_winner=bool(emit))
-        yield args, kwargs
+        args = (prim_static, cfg, paths, mt, mn, mm, skey, n, emit, tables if emit else None)
+        yield args, dict(mode=mode, mesh_albedo=alb, prim_winner=win)
         paths = fused.fused_mesh_shade_plain(prim_static, cfg, paths, mt, mn, mm, skey, n,
                                              mode=mode, mesh_albedo=alb)
 

@@ -59,7 +59,7 @@ def main(argv=None) -> int:
     paths = measure.advance_population(r, cfg, 1)
     ro, rd, active = paths.origin, paths.direction, paths.alive
     t_lim = prim_t_min(static, cfg, ro, rd)
-    live = active & mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, t_lim)
+    live = active & mxu.root_hit_mask(tables, ro, rd, t_lim)
 
     # ---- per-ray candidate counts (the k = 2 slab test the plan uses) ----
     pr = mxu.plan_rays(tables, ro, rd, live, t_lim)
@@ -108,8 +108,7 @@ def main(argv=None) -> int:
             tables, ro, rd, active, t_lim, cfg.ray_sort_bits, cfg.ray_sort_dir_bits, mode=m))
         for m in ("signature", "morton")
     }
-    stages["root cull alone"] = lambda: mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro,
-                                                          *rd, t_lim)
+    stages["root cull alone"] = lambda: mxu.root_hit_mask(tables, ro, rd, t_lim)
     stages["plan (all chunks)"] = lambda: [
         mxu.build_tile_plan(tables.tile_aabb[g0:g0 + chunk_tiles], *pr)
         for g0 in range(0, ct, chunk_tiles)]

@@ -87,8 +87,7 @@ def capture_population(r, cfg, bounce0: bool):
                               cfg.ray_sort_bits, cfg.ray_sort_dir_bits, mode="signature")
     paths, (tl,) = permute_path_state(paths, perm, extra=(tl,))
     tl = tl.contiguous()
-    live = paths.alive & mxu.root_hit_mask(tables.tile_aabb, tables.center, *paths.origin,
-                                           *paths.direction, tl)
+    live = paths.alive & mxu.root_hit_mask(tables, paths.origin, paths.direction, tl)
     return paths, tl, live.contiguous()
 
 

@@ -56,10 +56,7 @@ def main(argv=None) -> int:
                                              binned_tiers=cfg.mxu_binned_tiers,
                                              binned_budget_rays=n)
     t_lim0 = prim_t_min(static, cfg, paths.origin, paths.direction)
-    c = tables.center
-    os_ = [o - c[a] for a, o in enumerate(paths.origin)]
-    key = lambda: mxu._signature_keys(tables.tile_aabb, *os_, *paths.direction,
-                                      paths.alive.to(torch.float32), t_lim0)
+    key = lambda: mxu.signature_key(tables, paths.origin, paths.direction, paths.alive, t_lim0)
     key0 = key()
     perm = lambda: mxu.coherence_perm(tables, paths.origin, paths.direction, paths.alive, t_lim0,
                                       cfg.ray_sort_bits, cfg.ray_sort_dir_bits,
@@ -67,8 +64,7 @@ def main(argv=None) -> int:
     perm0 = perm()
     # The kernel's production conditions: the persistent sort has packed the state.
     s_paths, (s_tlim,) = permute_path_state(paths, perm0, extra=(t_lim0,))
-    s_live = s_paths.alive & mxu.root_hit_mask(tables.tile_aabb, c, *s_paths.origin,
-                                               *s_paths.direction, s_tlim)
+    s_live = s_paths.alive & mxu.root_hit_mask(tables, s_paths.origin, s_paths.direction, s_tlim)
     pr = mxu.plan_rays(tables, s_paths.origin, s_paths.direction, s_live, s_tlim)
 
     def isect(p, tl, mode):

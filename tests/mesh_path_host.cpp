@@ -32,13 +32,13 @@ int ptt_host_mesh_sizes(int32_t* out) {
 
 // The per-ray schedule that ptt_mono_kernel had before its block schedule
 // (ptt_host_mono_block): one thread a ray, mono_ray.
-void ptt_host_mono(const float* coef, const float* aabb, int32_t ct, const float* center,
-                   const float* const* ray, const uint8_t* active, const float* tlim,
-                   int32_t num_tris, float baby_eps, float eps_succ, int32_t n, float* out_t,
-                   int32_t* out_tri) {
+void ptt_host_mono(const float* coef, const float* aabb, int32_t ct, const float* box,
+                   const float* center, const float* const* ray, const uint8_t* active,
+                   const float* tlim, int32_t num_tris, float baby_eps, float eps_succ,
+                   int32_t n, float* out_t, int32_t* out_tri) {
   const V3 c = v3(center[0], center[1], center[2]);
   for (int32_t i = 0; i < n; ++i) {
-    mono_ray(coef, aabb, ct, c, v3(ray[0][i], ray[1][i], ray[2][i]),
+    mono_ray(coef, aabb, ct, box, c, v3(ray[0][i], ray[1][i], ray[2][i]),
              v3(ray[3][i], ray[4][i], ray[5][i]), active[i] != 0, tlim[i], num_tris, baby_eps,
              eps_succ, &out_t[i], &out_tri[i]);
   }
@@ -47,14 +47,15 @@ void ptt_host_mono(const float* coef, const float* aabb, int32_t ct, const float
 // ptt_mesh_shade_kernel; emit: 0 none, 1 t_lim, 2 t_lim + key; mode: 0
 // plain, 1 textured, 2 precomputed (mesh_alb is read in modes 1 and 2);
 // prim_win: the carried prim winner of each ray (null: test every prim);
-// out_win (emit >= 1, may be null): the prim that gives out_tlim.
+// out_win (emit >= 1, may be null): the prim that gives out_tlim; aabb,
+// box (the root box) and center: the key's tables (emit 2).
 void ptt_host_mesh_shade_win(const PttScene* s, const float* const* in_f,
                              const int32_t* in_bounces, const int32_t* pixel,
                              const float* mesh_t, const float* const* mesh_n,
-                             const int32_t* mesh_mat, const float* aabb, const float* center,
-                             float* const* out_f, int32_t* out_bounces, float* out_tlim,
-                             int32_t* out_key, uint32_t k0, uint32_t k1, uint32_t rng_n,
-                             int32_t n, int32_t ct, int32_t emit, int32_t mode,
+                             const int32_t* mesh_mat, const float* aabb, const float* box,
+                             const float* center, float* const* out_f, int32_t* out_bounces,
+                             float* out_tlim, int32_t* out_key, uint32_t k0, uint32_t k1,
+                             uint32_t rng_n, int32_t n, int32_t ct, int32_t emit, int32_t mode,
                              const float* const* mesh_alb, const int32_t* prim_win,
                              int32_t* out_win) {
   for (int32_t i = 0; i < n; ++i) {
@@ -82,8 +83,8 @@ void ptt_host_mesh_shade_win(const PttScene* s, const float* const* in_f,
       out_tlim[i] = prim_t_min_win(*s, ray.o, ray.d, &win);
       if (out_win) out_win[i] = win;
       if (emit == 2) {
-        out_key[i] = coherence_key(aabb, ct, v3(center[0], center[1], center[2]), ray.o, ray.d,
-                                   ray.bounces > 0, out_tlim[i]);
+        out_key[i] = coherence_key(aabb, ct, box, v3(center[0], center[1], center[2]), ray.o,
+                                   ray.d, ray.bounces > 0, out_tlim[i]);
       }
     }
   }
@@ -92,22 +93,23 @@ void ptt_host_mesh_shade_win(const PttScene* s, const float* const* in_f,
 // The same without the winner: every prim tested.
 void ptt_host_mesh_shade(const PttScene* s, const float* const* in_f, const int32_t* in_bounces,
                          const int32_t* pixel, const float* mesh_t, const float* const* mesh_n,
-                         const int32_t* mesh_mat, const float* aabb, const float* center,
-                         float* const* out_f, int32_t* out_bounces, float* out_tlim,
-                         int32_t* out_key, uint32_t k0, uint32_t k1, uint32_t rng_n, int32_t n,
-                         int32_t ct, int32_t emit, int32_t mode, const float* const* mesh_alb) {
-  ptt_host_mesh_shade_win(s, in_f, in_bounces, pixel, mesh_t, mesh_n, mesh_mat, aabb, center,
-                          out_f, out_bounces, out_tlim, out_key, k0, k1, rng_n, n, ct, emit, mode,
-                          mesh_alb, nullptr, nullptr);
+                         const int32_t* mesh_mat, const float* aabb, const float* box,
+                         const float* center, float* const* out_f, int32_t* out_bounces,
+                         float* out_tlim, int32_t* out_key, uint32_t k0, uint32_t k1,
+                         uint32_t rng_n, int32_t n, int32_t ct, int32_t emit, int32_t mode,
+                         const float* const* mesh_alb) {
+  ptt_host_mesh_shade_win(s, in_f, in_bounces, pixel, mesh_t, mesh_n, mesh_mat, aabb, box,
+                          center, out_f, out_bounces, out_tlim, out_key, k0, k1, rng_n, n, ct,
+                          emit, mode, mesh_alb, nullptr, nullptr);
 }
 
 // coherence_key over rays (ray: origin xyz, direction xyz; alive: 0/1).
-void ptt_host_coherence_key(const float* aabb, int32_t ct, const float* center,
+void ptt_host_coherence_key(const float* aabb, int32_t ct, const float* box, const float* center,
                             const float* const* ray, const uint8_t* alive, const float* tlim,
                             int32_t n, int32_t* out_key) {
   const V3 c = v3(center[0], center[1], center[2]);
   for (int32_t i = 0; i < n; ++i) {
-    out_key[i] = coherence_key(aabb, ct, c, v3(ray[0][i], ray[1][i], ray[2][i]),
+    out_key[i] = coherence_key(aabb, ct, box, c, v3(ray[0][i], ray[1][i], ray[2][i]),
                                v3(ray[3][i], ray[4][i], ray[5][i]), alive[i] != 0, tlim[i]);
   }
 }
@@ -115,9 +117,9 @@ void ptt_host_coherence_key(const float* aabb, int32_t ct, const float* center,
 // ptt_mesh_prelude_kernel: bounce 0's t_lim, winner (out_win, may be null)
 // and with emit 2 key of the rays in_f[0..5], alive where in_bounces > 0.
 void ptt_host_mesh_prelude(const PttScene* s, const float* const* in_f,
-                           const int32_t* in_bounces, const float* aabb, const float* center,
-                           float* out_tlim, int32_t* out_key, int32_t* out_win, int32_t n,
-                           int32_t ct, int32_t emit) {
+                           const int32_t* in_bounces, const float* aabb, const float* box,
+                           const float* center, float* out_tlim, int32_t* out_key,
+                           int32_t* out_win, int32_t n, int32_t ct, int32_t emit) {
   for (int32_t i = 0; i < n; ++i) {
     const V3 o = v3(in_f[0][i], in_f[1][i], in_f[2][i]);
     const V3 d = v3(in_f[3][i], in_f[4][i], in_f[5][i]);
@@ -125,7 +127,7 @@ void ptt_host_mesh_prelude(const PttScene* s, const float* const* in_f,
     out_tlim[i] = prim_t_min_win(*s, o, d, &win);
     if (out_win) out_win[i] = win;
     if (emit == 2) {
-      out_key[i] = coherence_key(aabb, ct, v3(center[0], center[1], center[2]), o, d,
+      out_key[i] = coherence_key(aabb, ct, box, v3(center[0], center[1], center[2]), o, d,
                                  in_bounces[i] > 0, out_tlim[i]);
     }
   }
@@ -299,11 +301,11 @@ void ptt_host_super_block(const float* coef, const float* aabb, const float* saa
 }
 
 // sweep_spread: tiles 0..ct-1 in order, a block with no live ray skipped;
-// with mono, each ray's root cull joins its live flag and a tri at or past
-// num_tris is written -1.
-static void host_sweep_blocks(const float* coef, const float* aabb, int32_t ct,
+// with a root box (mono), each ray's root cull joins its live flag and a
+// tri at or past num_tris is written -1.
+static void host_sweep_blocks(const float* coef, const float* aabb, int32_t ct, const float* box,
                               const float* center, const float* const* ray, const uint8_t* live,
-                              const float* tlim, bool mono, int32_t num_tris, float baby_eps,
+                              const float* tlim, int32_t num_tris, float baby_eps,
                               float eps_succ, int32_t n, float* out_t, int32_t* out_tri) {
   const V3 c = v3(center[0], center[1], center[2]);
   HostBlock hb;
@@ -312,7 +314,7 @@ static void host_sweep_blocks(const float* coef, const float* aabb, int32_t ct,
     bool any = false;
     for (int32_t i = 0; i < PTT_RAY_TILE; ++i) {
       WalkRay& r = hb.r[i];
-      if (mono) r.live = r.live && root_hit(aabb, ct, r.os, r.inv, r.tlim);
+      if (box) r.live = r.live && root_hit(box, r.os, r.inv, r.tlim);
       any = any || r.live;
     }
     for (int32_t t = 0; any && t < ct; ++t) {
@@ -327,16 +329,16 @@ void ptt_host_sweep_block(const float* coef, const float* aabb, int32_t ct, cons
                           const float* const* ray, const uint8_t* live, const float* tlim,
                           float baby_eps, float eps_succ, int32_t n, float* out_t,
                           int32_t* out_tri) {
-  host_sweep_blocks(coef, aabb, ct, center, ray, live, tlim, false, PTT_INT_MAX, baby_eps,
+  host_sweep_blocks(coef, aabb, ct, nullptr, center, ray, live, tlim, PTT_INT_MAX, baby_eps,
                     eps_succ, n, out_t, out_tri);
 }
 
 // ptt_mono_kernel (the arguments of ptt_host_mono).
-void ptt_host_mono_block(const float* coef, const float* aabb, int32_t ct, const float* center,
-                         const float* const* ray, const uint8_t* active, const float* tlim,
-                         int32_t num_tris, float baby_eps, float eps_succ, int32_t n,
-                         float* out_t, int32_t* out_tri) {
-  host_sweep_blocks(coef, aabb, ct, center, ray, active, tlim, true, num_tris, baby_eps,
+void ptt_host_mono_block(const float* coef, const float* aabb, int32_t ct, const float* box,
+                         const float* center, const float* const* ray, const uint8_t* active,
+                         const float* tlim, int32_t num_tris, float baby_eps, float eps_succ,
+                         int32_t n, float* out_t, int32_t* out_tri) {
+  host_sweep_blocks(coef, aabb, ct, box, center, ray, active, tlim, num_tris, baby_eps,
                     eps_succ, n, out_t, out_tri);
 }
 

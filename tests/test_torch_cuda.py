@@ -279,11 +279,11 @@ def test_mesh_shade_kernel_matches_plain(cuda, emit):
         tl = prim_t_min(static, cfg, paths.origin, paths.direction)
         mt, mn, mm = fused.mesh_surface(tables, static, cfg, paths, tl)
         args = (prim_static, cfg, paths, mt, mn, mm, prng.stage_key(ik, d, 1),
-                static.pixel_count, emit, tables.tile_aabb, tables.center)
+                static.pixel_count, emit, tables)
         got = fused.fused_mesh_shade(*args)
         want = fused.fused_mesh_shade_plain(*args)
-        got_p, got_c = got if emit else (got, (None, None))
-        want_p, want_c = want if emit else (want, (None, None))
+        got_p, got_c = got if emit else (got, (None, None, None))
+        want_p, want_c = want if emit else (want, (None, None, None))
         assert torch.equal(got_p.bounces, want_p.bounces)
         for a, b in zip([*got_p.origin, *got_p.direction, *got_p.color],
                         [*want_p.origin, *want_p.direction, *want_p.color]):
@@ -370,7 +370,7 @@ def test_walk_kernels_match_plain(cuda, name, kinds):
     tables = dev.mxu_mesh
     hits = 0
     for ro, rd, alive, tl in states:
-        live = alive & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+        live = alive & intersect_mxu.root_hit_mask(tables, ro, rd, tl)
         plan = _plan(tables, ro, rd, live, tl)
         want_t, want_tri = intersect_mxu.walk_plain(tables, ro, rd, live, tl, plan, 1e-5)
         for kind in kinds:
@@ -403,7 +403,7 @@ def test_streamed_kernel_ties_and_limit(cuda):
     ro, rd = col(o), col(d)
     tl = torch.from_numpy(lim).to(cuda)
     for moved in (False, True):
-        live = intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+        live = intersect_mxu.root_hit_mask(tables, ro, rd, tl)
         want_t, want_tri = intersect_mxu.walk_plain(tables, ro, rd, live, tl,
                                                     _plan(tables, ro, rd, live, tl), 1e-5)
         if moved:
@@ -441,7 +441,7 @@ def test_sweep_and_super_kernels_ties_and_limit(cuda, kind):
     saabb = intersect_mxu.super_aabb(tables.tile_aabb)
     even = torch.arange(2000, device=cuda) % 2 == 0
     for moved in (False, True):
-        live = intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+        live = intersect_mxu.root_hit_mask(tables, ro, rd, tl)
         if kind == "sweep":
             args = (tables, ro, rd, live, tl, 1e-5)
             got = intersect_mxu.sweep_intersect(*args)
@@ -488,7 +488,7 @@ def test_planned_kernels_ties_limit_and_empty_rows(cuda, kind, n):
     ray = torch.arange(n, device=cuda)
     even, second = ray % 2 == 0, ray // intersect_mxu.RAY_TILE == 1
     for step in ("as made", "moved", "empty row"):
-        live = intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+        live = intersect_mxu.root_hit_mask(tables, ro, rd, tl)
         if step == "empty row":
             live = live & ~second
         plan = _plan(tables, ro, rd, live, tl)
@@ -547,8 +547,7 @@ def test_mono_and_binned_kernels_ties_limit_and_tails(cuda, kind, n):
             want = intersect_mxu.mono_intersect_plain(*args)
             t, tri = got
         else:
-            live = active & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro,
-                                                        *rd, tl)
+            live = active & intersect_mxu.root_hit_mask(tables, ro, rd, tl)
             pr = intersect_mxu.plan_rays(tables, ro, rd, live, tl)
             n_g = pr.tl.shape[0] // intersect_mxu.BINNED_G
             bins = intersect_mxu.packet_bins(
@@ -587,7 +586,7 @@ def test_binned_kernel_matches_plain(cuda):
     tables = dev.mxu_mesh
     ct = tables.tile_aabb.shape[0]
     for ro, rd, alive, tl in states:
-        live = alive & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+        live = alive & intersect_mxu.root_hit_mask(tables, ro, rd, tl)
         pr = intersect_mxu.plan_rays(tables, ro, rd, live, tl)
         n_pad = pr.tl.shape[0]
         bins = intersect_mxu.packet_bins(tables.tile_aabb, *pr,
@@ -640,7 +639,7 @@ def test_sweep_kernel_matches_plain(cuda):
     tables = dev.mxu_mesh
     hits = 0
     for ro, rd, alive, tl in states:
-        live = alive & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+        live = alive & intersect_mxu.root_hit_mask(tables, ro, rd, tl)
         before = intersect_mxu.sweep_intersect.launches
         got = intersect_mxu.sweep_intersect(tables, ro, rd, live, tl, 1e-5)
         assert intersect_mxu.sweep_intersect.launches == before + 1
@@ -663,7 +662,7 @@ def test_super_kernel_matches_plain(cuda, name):
     saabb = intersect_mxu.super_aabb(tables.tile_aabb)
     hits = 0
     for ro, rd, alive, tl in states:
-        live = alive & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+        live = alive & intersect_mxu.root_hit_mask(tables, ro, rd, tl)
         splan = intersect_mxu.plan_with_prefix(
             saabb, *intersect_mxu.plan_rays(tables, ro, rd, live, tl))
         before = intersect_mxu.streamed_super_intersect.launches
@@ -687,7 +686,7 @@ def test_plan_prepass_kernel_matches_plain(cuda, name):
     dev, static, states = _bounce_states(name, 64, cuda, bounces=2)
     tables = dev.mxu_mesh
     for ro, rd, alive, tl in states:
-        live = alive & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+        live = alive & intersect_mxu.root_hit_mask(tables, ro, rd, tl)
         pr = intersect_mxu.plan_rays(tables, ro, rd, live, tl)
         before = intersect_mxu.plan_prepass.launches
         h, lb = intersect_mxu.plan_prepass(tables.tile_aabb, *pr)
@@ -866,7 +865,7 @@ def test_epilogue_kernels_match_plain_and_the_lanebest_walk(cuda, name):
     ct = tables.tile_aabb.shape[0]
     hits = 0
     for ro, rd, alive, tl in states:
-        live = alive & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+        live = alive & intersect_mxu.root_hit_mask(tables, ro, rd, tl)
         plan = _plan(tables, ro, rd, live, tl)
         asc = intersect_mxu.ascending_plan(plan, ct)
         ref_t, ref_tri = intersect_mxu.planned_lanebest_intersect(tables, ro, rd, live, tl, plan,
@@ -928,7 +927,7 @@ def test_epilogue_kernels_edge_cases(cuda, case):
     col = lambda a: Vec3(*(torch.from_numpy(np.ascontiguousarray(a[:, i])).to(cuda)
                            for i in range(3)))
     ro, rd, tl = col(o), col(d), torch.from_numpy(lim).to(cuda)
-    live = intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+    live = intersect_mxu.root_hit_mask(tables, ro, rd, tl)
     second = torch.arange(n, device=cuda) // intersect_mxu.RAY_TILE == 1
     if case == "dead block":
         live = live & ~second
@@ -1040,8 +1039,8 @@ def test_prim_tables_beyond_shared_memory(cuda):
         sargs = (static, cfg, paths, torch.where(hit, 0.5, 0.0).float(),
                  type(paths.origin)(zero, zero, torch.where(hit, 1.0, 0.0).float()),
                  torch.where(hit, idx % 200, -1).to(torch.int32), skey, n, "tlim")
-        got_s, (got_tl, _) = fused.fused_mesh_shade(*sargs)
-        want_s, (want_tl, _) = fused.fused_mesh_shade_plain(*sargs)
+        got_s, (got_tl, _, _) = fused.fused_mesh_shade(*sargs)
+        want_s, (want_tl, _, _) = fused.fused_mesh_shade_plain(*sargs)
         got = fused.fused_prim_bounce(static, cfg, paths, su)
         want = fused.fused_prim_bounce_plain(static, cfg, paths, su)
         assert _bits_equal(fused.fused_prim_bounce(static, cfg, paths, su_key=skey), got)
@@ -1139,15 +1138,15 @@ def _sorted_shade_states(static, dev, cam, device, bounces):
         paths, (tl, win) = permute_path_state(paths, perm, extra=(tl, win))
         mt, mn, mm = fused.mesh_surface(tables, static, cfg, paths, tl, plain=True)
         args = (prim_static, cfg, paths, mt, mn, mm, prng.stage_key(ik, d, 1),
-                static.pixel_count, "tlim+key", tables.tile_aabb, tables.center)
+                static.pixel_count, "tlim+key", tables)
         yield args, win
         paths = fused.fused_mesh_shade_plain(*args)[0]
 
 
 def _shade_bits(out):
-    p, (tl, key, *win) = out
+    p, (tl, key, win) = out
     return [x.view(torch.int32) if x.dtype == torch.float32 else x
-            for x in (*p.origin, *p.direction, *p.color, p.bounces, tl, key, *win)
+            for x in (*p.origin, *p.direction, *p.color, p.bounces, tl, key, win)
             if x is not None]
 
 
@@ -1159,12 +1158,12 @@ def test_mesh_shade_kernel_carried_winner_on_sorted_bounces(cuda):
     before = fused.fused_mesh_shade.launches
     taken = 0
     for args, win in _sorted_shade_states(static, dev, cam, cuda, static.trace_depth):
-        got = fused.fused_mesh_shade(*args, prim_winner=win, want_winner=True)
-        want = fused.fused_mesh_shade_plain(*args, prim_winner=win, want_winner=True)
+        got = fused.fused_mesh_shade(*args, prim_winner=win)
+        want = fused.fused_mesh_shade_plain(*args, prim_winner=win)
         every = fused.fused_mesh_shade(*args)
         for a, b in zip(_shade_bits(got), _shade_bits(want)):
             assert torch.equal(a, b)
-        for a, b in zip(_shade_bits(got)[:-1], _shade_bits(every)):
+        for a, b in zip(_shade_bits(got), _shade_bits(every)):
             assert torch.equal(a, b)
         taken += int((args[2].alive & (args[5] < 0) & (win >= 0)).sum())
     assert fused.fused_mesh_shade.launches == before + 2 * static.trace_depth
@@ -1186,11 +1185,12 @@ def _large_table(center, device):
     than a block's shared memory would hold), on ``device``."""
     from torch_fixtures import key_case
 
-    aabb, c, paths, tl = key_case(8192, center.cpu().numpy(), np.random.default_rng(11))
+    tables, paths, tl = key_case(8192, center.cpu().numpy(), np.random.default_rng(11))
     to = lambda x: x.to(device)
     paths = type(paths)(*(type(f)(*map(to, f)) if isinstance(f, tuple) else to(f)
                           for f in paths))
-    return types.SimpleNamespace(tile_aabb=to(aabb), center=to(c)), paths, to(tl)
+    tables = types.SimpleNamespace(**{k: to(v) for k, v in vars(tables).items()})
+    return tables, paths, to(tl)
 
 
 @pytest.mark.parametrize("table", ["200k", "8192 tiles"])
@@ -1206,9 +1206,9 @@ def test_mesh_shade_kernel_key_at_any_tile_count(cuda, table):
     key_tables = tables if table == "200k" else _large_table(tables.center, cuda)[0]
     live = 0
     for args, win in _sorted_shade_states(static, dev, cam, cuda, 3):
-        args = (*args[:9], key_tables.tile_aabb, key_tables.center)
-        got = fused.fused_mesh_shade(*args, prim_winner=win, want_winner=True)
-        want = fused.fused_mesh_shade_plain(*args, prim_winner=win, want_winner=True)
+        args = (*args[:9], key_tables)
+        got = fused.fused_mesh_shade(*args, prim_winner=win)
+        want = fused.fused_mesh_shade_plain(*args, prim_winner=win)
         for a, b in zip(_shade_bits(got), _shade_bits(want)):
             assert torch.equal(a, b)
         p, (tl, key, _) = got
@@ -1232,16 +1232,16 @@ def test_mesh_prelude_kernel_matches_plain(cuda, case):
     else:
         tables, paths, _ = _large_table(dev.mxu_mesh.center, cuda)
     before = fused.mesh_prelude.launches
-    got = fused.mesh_prelude(prim_static, cfg, paths, tables.tile_aabb, tables.center)
-    want = fused.mesh_prelude_plain(prim_static, cfg, paths, tables.tile_aabb, tables.center)
+    got = fused.mesh_prelude(prim_static, cfg, paths, tables)
+    want = fused.mesh_prelude_plain(prim_static, cfg, paths, tables)
     for a, b in zip(got, want):
         assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
                            b.view(torch.int32) if b.dtype == torch.float32 else b)
-    assert torch.equal(got[1], _torch_key(tables, paths, got[0]))
-    assert int((got[1] < (1 << 30)).sum()) > 500
+    assert torch.equal(got.key, _torch_key(tables, paths, got.t_lim))
+    assert int((got.key < (1 << 30)).sum()) > 500
     bare = fused.mesh_prelude(prim_static, cfg, paths)
-    assert bare[1] is None
-    assert torch.equal(bare[0], got[0]) and torch.equal(bare[2], got[2])
+    assert bare.key is None
+    assert torch.equal(bare.t_lim, got.t_lim) and torch.equal(bare.win, got.win)
     assert fused.mesh_prelude.launches == before + 2
 
 
@@ -1266,15 +1266,14 @@ def test_mesh_frame_carried_keys_match_the_torch_key_route(cuda):
         prng.uniforms(prng.stage_key(ikey, 0, 0), n, 4, cuda),
         idx=torch.arange(n, dtype=torch.int32, device=cuda))
     tl, win = prim_t_min(static, cfg, paths.origin, paths.direction, winner=True)
-    carry = (tl, fused.mesh_prelude(prim_static, cfg, paths, tables.tile_aabb, tables.center)[1],
-             win)
+    carry = fused.MeshCarry(tl, fused.mesh_prelude(prim_static, cfg, paths, tables).key, win)
     live = 0
     for d in range(depth):
-        assert torch.equal(carry[1], _torch_key(tables, paths, carry[0])), d
-        live += int((carry[1] < (1 << 30)).sum())
+        assert torch.equal(carry.key, _torch_key(tables, paths, carry.t_lim)), d
+        live += int((carry.key < (1 << 30)).sum())
         want = d < depth - 1
         out = fused.fused_mesh_bounce(dev, static, cfg, paths, su_key=prng.stage_key(ikey, d, 1),
-                                      rng_n=n, carry=(carry[0], None, carry[2]),
+                                      rng_n=n, carry=carry._replace(key=None),
                                       want_carry=want, carry_winner=True)
         paths, carry = out if want else (out, None)
     film_t = film_ops.accumulate(film_ops.new_film(n, cuda), paths, permuted=True)
@@ -1286,7 +1285,7 @@ def _bins_args(tables, ro, rd, alive, tl, tiers=None):
     """The packet bins' arguments as ``_binning`` builds them: the rays of
     the smallest binned tier holding the last live one (all of them with
     ``tiers`` None), its budget, top-K 128."""
-    live = alive & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+    live = alive & intersect_mxu.root_hit_mask(tables, ro, rd, tl)
     pr = intersect_mxu.plan_rays(tables, ro, rd, live, tl)
     n_pad = pr.tl.shape[0]
     npre = n_pad
@@ -1396,13 +1395,13 @@ def test_mesh_shade_kernel_winner_tie_and_inside(cuda):
     win = prim_t_min(prim_static, cfg, paths.origin, paths.direction, winner=True)[1]
     for emit in ("tlim", "tlim+key"):
         args = (prim_static, cfg, paths, mt, mn, mm, prng.prng_key(4), 4096, emit,
-                dev.mxu_mesh.tile_aabb, dev.mxu_mesh.center)
-        got = fused.fused_mesh_shade(*args, prim_winner=win, want_winner=True)
-        want = fused.fused_mesh_shade_plain(*args, prim_winner=win, want_winner=True)
+                dev.mxu_mesh)
+        got = fused.fused_mesh_shade(*args, prim_winner=win)
+        want = fused.fused_mesh_shade_plain(*args, prim_winner=win)
         every = fused.fused_mesh_shade(*args)
         for a, b in zip(_shade_bits(got), _shade_bits(want)):
             assert torch.equal(a, b)
-        for a, b in zip(_shade_bits(got)[:-1], _shade_bits(every)):
+        for a, b in zip(_shade_bits(got), _shade_bits(every)):
             assert torch.equal(a, b)
 
 

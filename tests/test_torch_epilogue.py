@@ -59,7 +59,7 @@ def _case(name):
         c = traversal_case("tie")
         ro, rd, active, tl = c["t"]
         tab = c["pt"]
-        live = active & mxu.root_hit_mask(tab.tile_aabb, tab.center, *ro, *rd, tl)
+        live = active & mxu.root_hit_mask(tab, ro, rd, tl)
         return tab, ro, rd, live, tl
     tpe = _script()
     cfg = RenderConfig(mesh_intersector="mxu", ray_sorting="off")

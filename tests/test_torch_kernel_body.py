@@ -29,7 +29,6 @@ floats (another summation order).
 import ctypes
 import dataclasses
 import pathlib
-import types
 
 import numpy as np
 import pytest
@@ -371,17 +370,17 @@ def mesh_lib(tmp_path_factory):
     lib = build_host(tmp_path_factory, MESH_HARNESS, "libmesh_path_host.so")
     lib.ptt_host_mesh_sizes.argtypes = [ctypes.POINTER(ctypes.c_int32)]
     lib.ptt_host_mono.argtypes = (
-        [P, P, ctypes.c_int32, P, P, P, P, ctypes.c_int32, ctypes.c_float,
+        [P, P, ctypes.c_int32, P, P, P, P, P, ctypes.c_int32, ctypes.c_float,
          ctypes.c_float, ctypes.c_int32, P, P]
     )
     lib.ptt_host_mesh_shade.argtypes = (
-        [P] * 13 + [ctypes.c_uint32] * 3 + [ctypes.c_int32] * 4 + [P]
+        [P] * 14 + [ctypes.c_uint32] * 3 + [ctypes.c_int32] * 4 + [P]
     )
     lib.ptt_host_mesh_shade_win.argtypes = (
-        [P] * 13 + [ctypes.c_uint32] * 3 + [ctypes.c_int32] * 4 + [P] * 3
+        [P] * 14 + [ctypes.c_uint32] * 3 + [ctypes.c_int32] * 4 + [P] * 3
     )
-    lib.ptt_host_coherence_key.argtypes = [P, ctypes.c_int32, P, P, P, P, ctypes.c_int32, P]
-    lib.ptt_host_mesh_prelude.argtypes = [P] * 8 + [ctypes.c_int32] * 3
+    lib.ptt_host_coherence_key.argtypes = [P, ctypes.c_int32, P, P, P, P, P, ctypes.c_int32, P]
+    lib.ptt_host_mesh_prelude.argtypes = [P] * 9 + [ctypes.c_int32] * 3
     sizes = (ctypes.c_int32 * 2)()
     lib.ptt_host_mesh_sizes(sizes)
     assert list(sizes) == [ctypes.sizeof(kernels.PttScene), intersect_mxu.COEF_W]
@@ -405,7 +404,8 @@ def _host_mono(lib, tables, num_tris, ro, rd, active, tlim, eps=1e-5):
     eps_succ = float(np.nextafter(np.float32(eps), np.float32(np.inf)))
     lib.ptt_host_mono(
         tables.coef.data_ptr(), tables.tile_aabb.data_ptr(), tables.tile_aabb.shape[0],
-        tables.center.data_ptr(), _ptrs(rays), act.data_ptr(), tlim.data_ptr(),
+        tables.root_box.data_ptr(), tables.center.data_ptr(), _ptrs(rays), act.data_ptr(),
+        tlim.data_ptr(),
         num_tris, eps, eps_succ, n, out_t.data_ptr(), out_tri.data_ptr(),
     )
     return out_t, out_tri
@@ -467,10 +467,9 @@ def test_host_mesh_shade_matches_plain(mesh_lib, mesh_scene, emit):
         tl = prim_t_min(static, cfg, paths.origin, paths.direction)
         mt, mn, mm = fused.mesh_surface(tables, static, cfg, paths, tl)
         skey = prng.stage_key(ik, d, 1)
-        want = fused.fused_mesh_shade_plain(
-            prim_static, cfg, paths, mt, mn, mm, skey, n, emit,
-            tables.tile_aabb, tables.center)
-        want_p, (want_tl, want_key) = want if emit else (want, (None, None))
+        want = fused.fused_mesh_shade_plain(prim_static, cfg, paths, mt, mn, mm, skey, n, emit,
+                                            tables)
+        want_p, (want_tl, want_key, _) = want if emit else (want, (None, None, None))
         f_in = [*paths.origin, *paths.direction, *paths.color]
         f_out = [torch.empty(n) for _ in range(9)]
         b_out = torch.empty(n, dtype=torch.int32)
@@ -480,8 +479,8 @@ def test_host_mesh_shade_matches_plain(mesh_lib, mesh_scene, emit):
             ctypes.byref(scene), _ptrs(f_in), paths.bounces.data_ptr(),
             paths.pixel.data_ptr(), mt.contiguous().data_ptr(),
             _ptrs([x.contiguous() for x in mn]), mm.contiguous().data_ptr(),
-            tables.tile_aabb.data_ptr(), tables.center.data_ptr(), _ptrs(f_out),
-            b_out.data_ptr(), tl_out.data_ptr(), key_out.data_ptr(),
+            tables.tile_aabb.data_ptr(), tables.root_box.data_ptr(), tables.center.data_ptr(),
+            _ptrs(f_out), b_out.data_ptr(), tl_out.data_ptr(), key_out.data_ptr(),
             skey[0], skey[1], n, n, tables.tile_aabb.shape[0],
             fused.EMIT_MODES.index(emit), 0, None,
         )
@@ -554,7 +553,7 @@ def test_host_mesh_shade_modes_match_plain(mesh_lib, mode):
         mesh_lib.ptt_host_mesh_shade(
             ctypes.byref(scene), _ptrs(f_in), paths.bounces.data_ptr(),
             paths.pixel.data_ptr(), mt_c.data_ptr(), _ptrs(mesh_n), mm_c.data_ptr(),
-            None, None, _ptrs(f_out), b_out.data_ptr(), None, None,
+            None, None, None, _ptrs(f_out), b_out.data_ptr(), None, None,
             skey[0], skey[1], n, n, 0, 0, fused.SHADE_MODES.index(mode), _ptrs(mesh_a),
         )
         np.testing.assert_array_equal(b_out.numpy(), want.bounces.numpy())
@@ -585,6 +584,7 @@ def _host_shade(lib, prim_static, cfg, paths, surf, skey, n, emit, tables, mode,
         ctypes.byref(fused.scene_struct(prim_static, cfg)), _ptrs(f_in),
         paths.bounces.data_ptr(), paths.pixel.data_ptr(), mt.data_ptr(), _ptrs(mn),
         mm.data_ptr(), tables.tile_aabb.data_ptr() if key else None,
+        tables.root_box.data_ptr() if key else None,
         tables.center.data_ptr() if key else None, _ptrs(f_out), b_out.data_ptr(),
         tl_out.data_ptr(), key_out.data_ptr(), skey[0], skey[1], n, n,
         tables.tile_aabb.shape[0], fused.EMIT_MODES.index(emit), fused.SHADE_MODES.index(mode),
@@ -642,9 +642,9 @@ def test_host_mesh_shade_carried_winner(mesh_lib, mode, emit):
         tl_t, win_t = prim_t_min(prim_static, cfg, out_o, out_d, winner=True)
         assert torch.equal(win_out, win_t)
         np.testing.assert_allclose(tl_out.numpy(), tl_t.numpy(), rtol=1e-5)
-        want_p, (want_tl, want_key) = fused.fused_mesh_shade_plain(
-            prim_static, cfg, paths, *surf[:3], skey, n, emit, tables.tile_aabb,
-            tables.center, mode=mode, mesh_albedo=None if mode == "plain" else surf[3])
+        want_p, (want_tl, want_key, _) = fused.fused_mesh_shade_plain(
+            prim_static, cfg, paths, *surf[:3], skey, n, emit, tables, mode=mode,
+            mesh_albedo=None if mode == "plain" else surf[3])
         np.testing.assert_array_equal(b_out.numpy(), want_p.bounces.numpy())
         for got, exp in zip(f_out, [*want_p.origin, *want_p.direction, *want_p.color]):
             np.testing.assert_allclose(got.numpy(), exp.numpy(), rtol=1e-5, atol=1e-6)
@@ -689,10 +689,9 @@ def test_host_mesh_shade_winner_crafted(mesh_lib, mesh_scene):
         surf = (mt, mn, torch.full_like(mm, -1))
 
 
-def _torch_key(aabb, center, paths, tl):
-    """The key the torch glue builds (``intersect_mxu.sort_key``: root_hit_mask,
-    _signature_keys, DEAD_KEY for the dead rays)."""
-    tables = types.SimpleNamespace(tile_aabb=aabb, center=center)
+def _torch_key(tables, paths, tl):
+    """The key the torch glue builds (``intersect_mxu.sort_key`` in mode
+    "signature": ``signature_key``)."""
     cfg = RenderConfig()
     return intersect_mxu.sort_key(tables, paths.origin, paths.direction, paths.alive, tl,
                                   cfg.ray_sort_bits, cfg.ray_sort_dir_bits, mode="signature")
@@ -715,39 +714,38 @@ def test_key_at_any_tile_count(mesh_lib, mesh_scene, body, ct):
     dev, static, _ = mesh_scene
     cfg = RenderConfig()
     prim_static = dataclasses.replace(static, num_triangles=0)
-    aabb, center, paths, tl = key_case(ct, dev.mxu_mesh.center.numpy(),
-                                       np.random.default_rng(ct))
+    tables, paths, tl = key_case(ct, dev.mxu_mesh.center.numpy(), np.random.default_rng(ct))
     n = paths.pixel.shape[0]
     rays = [p.contiguous() for p in (*paths.origin, *paths.direction)]
     if body != "host key":
         tl, win = prim_t_min(prim_static, cfg, paths.origin, paths.direction, winner=True)
-    want = _torch_key(aabb, center, paths, tl)
+    want = _torch_key(tables, paths, tl)
+    boxes = (tables.tile_aabb.data_ptr(), tables.root_box.data_ptr(), tables.center.data_ptr())
     live = want < (1 << 30)
     assert int(live.sum()) > n // 4 and int((want == 1 << 30).sum()) > n // 16
     assert int((want == intersect_mxu.DEAD_KEY).sum()) == n // 8
     if body == "host key":
         got = torch.empty(n, dtype=torch.int32)
         alive = paths.alive.to(torch.uint8)
-        mesh_lib.ptt_host_coherence_key(
-            aabb.data_ptr(), ct, center.data_ptr(), _ptrs(rays), alive.data_ptr(),
-            tl.data_ptr(), n, got.data_ptr())
+        mesh_lib.ptt_host_coherence_key(boxes[0], ct, *boxes[1:], _ptrs(rays), alive.data_ptr(),
+                                        tl.data_ptr(), n, got.data_ptr())
         assert torch.equal(got, want)
     elif body == "host prelude":
         got_tl, got_win = torch.empty(n), torch.empty(n, dtype=torch.int32)
         got = torch.empty(n, dtype=torch.int32)
         mesh_lib.ptt_host_mesh_prelude(
             ctypes.byref(fused.scene_struct(prim_static, cfg)), _ptrs(rays),
-            paths.bounces.data_ptr(), aabb.data_ptr(), center.data_ptr(), got_tl.data_ptr(),
-            got.data_ptr(), got_win.data_ptr(), n, ct, fused.EMIT_MODES.index("tlim+key"))
+            paths.bounces.data_ptr(), *boxes, got_tl.data_ptr(), got.data_ptr(),
+            got_win.data_ptr(), n, ct, fused.EMIT_MODES.index("tlim+key"))
         assert torch.equal(got_win, win)
         np.testing.assert_allclose(got_tl.numpy(), tl.numpy(), rtol=1e-5)
         same = got_tl == tl
         assert int(same.sum()) > n * 9 // 10
         assert torch.equal(got[same], want[same])
     else:
-        got_tl, got, got_win = fused.mesh_prelude_plain(prim_static, cfg, paths, aabb, center)
+        got_tl, got, got_win = fused.mesh_prelude_plain(prim_static, cfg, paths, tables)
         _bits_equal([got_tl, got, got_win], [tl, want, win])
-        assert fused.mesh_prelude(prim_static, cfg, paths)[1] is None
+        assert fused.mesh_prelude(prim_static, cfg, paths).key is None
 
 
 @pytest.fixture(scope="module")
@@ -873,7 +871,7 @@ def test_host_walks_match_plain(walk_lib):
     from torch_compare import TIE_TRIS, mesh_tables_pair, tie_mesh
 
     for name, tables, ro, rd, active, tl in _walk_cases():
-        live = active & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+        live = active & intersect_mxu.root_hit_mask(tables, ro, rd, tl)
         plan = _plan_for(tables, ro, rd, live, tl)
         want_t, want_tri = intersect_mxu.walk_plain(tables, ro, rd, live, tl, plan, 1e-5)
         assert (want_tri >= 0).sum() > 20
@@ -900,13 +898,12 @@ def _streamed_case(name):
     _, tables, ro, rd, active, tl = next(c for c in _walk_cases()
                                          if c[0] == ("tie" if name == "limit" else name))
     if name == "limit":
-        live = active & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd,
-                                                    tl)
+        live = active & intersect_mxu.root_hit_mask(tables, ro, rd, tl)
         t, tri = intersect_mxu.walk_plain(tables, ro, rd, live, tl,
                                           _plan_for(tables, ro, rd, live, tl), 1e-5)
         moved = (tri >= 0) & (torch.arange(tl.shape[0]) % 2 == 0)
         tl = torch.where(moved, t, tl)
-    live = active & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+    live = active & intersect_mxu.root_hit_mask(tables, ro, rd, tl)
     return tables, ro, rd, live, tl, _plan_for(tables, ro, rd, live, tl)
 
 
@@ -1125,12 +1122,12 @@ def test_host_mono_block_schedule_matches_plain(mesh_lib, mesh_scene, spread_lib
     for fn, (t, tri) in ((spread_libs[threads].ptt_host_mono_block, got),
                          (mesh_lib.ptt_host_mono, per_ray)):
         fn(tables.coef.data_ptr(), tables.tile_aabb.data_ptr(), tables.tile_aabb.shape[0],
-           tables.center.data_ptr(), _ptrs(rays), act.data_ptr(), tlc.data_ptr(), num_tris,
-           *_eps_args(), n, t.data_ptr(), tri.data_ptr())
+           tables.root_box.data_ptr(), tables.center.data_ptr(), _ptrs(rays), act.data_ptr(),
+           tlc.data_ptr(), num_tris, *_eps_args(), n, t.data_ptr(), tri.data_ptr())
     got_t, got_tri = got
     assert torch.equal(got_tri, want_tri) and torch.equal(got_t, want_t)
     assert torch.equal(got_tri, per_ray[1]) and torch.equal(got_t, per_ray[0])
-    live = active & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+    live = active & intersect_mxu.root_hit_mask(tables, ro, rd, tl)
     assert torch.equal(got_t[~live], tl[~live]) and (got_tri[~live] == -1).all()
     if name in ("5k", "clamp"):
         assert int((active & ~live).sum()) > 100  # root-culled rays
@@ -1191,7 +1188,7 @@ def test_host_binned_matches_plain(walk_lib):
     tri) equal to binned_intersect_plain's."""
     for name, tables, ro, rd, active, tl in _walk_cases():
         n = ro.x.shape[0]
-        live = active & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+        live = active & intersect_mxu.root_hit_mask(tables, ro, rd, tl)
         pr = intersect_mxu.plan_rays(tables, ro, rd, live, tl)
         n_pad = pr.tl.shape[0]
         bins = intersect_mxu.packet_bins(
@@ -1239,7 +1236,7 @@ def test_host_sweep_matches_plain(slice5_lib, name):
     """The sweep body (every tile in order behind the per-ray gate): t and
     tri equal to sweep_intersect_plain's and to the planned walk's."""
     _, tables, ro, rd, active, tl = next(c for c in _walk_cases() if c[0] == name)
-    live = active & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+    live = active & intersect_mxu.root_hit_mask(tables, ro, rd, tl)
     want_t, want_tri = intersect_mxu.sweep_intersect_plain(tables, ro, rd, live, tl, 1e-5)
     walk_t, walk_tri = intersect_mxu.walk_plain(tables, ro, rd, live, tl,
                                                 _plan_for(tables, ro, rd, live, tl), 1e-5)
@@ -1262,7 +1259,7 @@ def test_host_super_walk_matches_plain(slice5_lib, name):
     of the super boxes (20 tiles -> 3 supers, the last one short; 2 tiles ->
     1): t and tri equal to streamed_super_plain's and to walk_plain's."""
     _, tables, ro, rd, active, tl = next(c for c in _walk_cases() if c[0] == name)
-    live = active & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+    live = active & intersect_mxu.root_hit_mask(tables, ro, rd, tl)
     saabb = intersect_mxu.super_aabb(tables.tile_aabb)
     ct, cs = tables.tile_aabb.shape[0], saabb.shape[0]
     assert cs == -(-ct // 8)
@@ -1485,7 +1482,7 @@ def _epilogue_case(name):
     rng = np.random.default_rng(13)
     active = active & torch.from_numpy(rng.random(active.shape[0]) > 0.2)
     active[512:768] = False
-    live = active & intersect_mxu.root_hit_mask(tables.tile_aabb, tables.center, *ro, *rd, tl)
+    live = active & intersect_mxu.root_hit_mask(tables, ro, rd, tl)
     plan = _plan_for(tables, ro, rd, live, tl)
     return tables, ro, rd, live, tl, plan, intersect_mxu.ascending_plan(
         plan, tables.tile_aabb.shape[0])

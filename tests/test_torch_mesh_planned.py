@@ -106,7 +106,7 @@ def test_tie_case_visits_the_higher_tile_first():
     c = traversal_case("tie")
     ro, rd, active, lim = c["t"]
     tab = c["pt"]
-    live = active & mxu.root_hit_mask(tab.tile_aabb, tab.center, *ro, *rd, lim)
+    live = active & mxu.root_hit_mask(tab, ro, rd, lim)
     plan = mxu.build_tile_plan(tab.tile_aabb, *mxu.plan_rays(tab, ro, rd, live, lim))
     ids = plan.ids.reshape(-1, 2)
     assert (plan.cnt == 2).all() and (ids[:, 0] == 1).all()

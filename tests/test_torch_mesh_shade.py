@@ -146,12 +146,12 @@ def _compare_with_pallas(scene, emit, carry):
             center=jdev.mxu_mesh.center if emit == "tlim+key" else None,
         )
         got = fused.fused_mesh_shade(
-            prim_static, cfg, paths, mt, mn, mm, prng.stage_key(pik, d, 1), n, emit,
-            tables.tile_aabb, tables.center, prim_winner=win, want_winner=carry,
+            prim_static, cfg, paths, mt, mn, mm, prng.stage_key(pik, d, 1), n, emit, tables,
+            prim_winner=win,
         )
         want_p, (want_tl, want_key) = want if emit else (want, (None, None))
-        got_p, (got_tl, got_key, *got_win) = got if emit else (got, (None, None))
-        win = got_win[0] if carry else None
+        got_p, (got_tl, got_key, got_win) = got if emit else (got, (None, None, None))
+        win = got_win if carry else None
         close(got_p.bounces, want_p.bounces)
         close(got_p.pixel, want_p.pixel)
         close3(got_p.origin, want_p.origin, atol=ATOL_WORLD, **LOOSE)

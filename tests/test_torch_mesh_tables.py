@@ -31,6 +31,7 @@ from project3_cuda_path_tracer_2025_tpu_torch.scene import (
 )
 from project3_cuda_path_tracer_2025_tpu_torch.utils.vec import Vec3
 from tests.test_intersect import _random_mesh_scene
+from tests.torch_fixtures import pad_to_supers
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 MESH5K = str(REPO / "scenes" / "cornell_mesh_5k.json")
@@ -158,30 +159,34 @@ def test_root_cull_and_sort_keys_match_jax():
     cols = lambda a, f: [f(a[:, i]) for i in range(3)]
     tab, jtab = dev.mxu_mesh, jdev.mxu_mesh
 
-    root = mxu.root_hit_mask(tab.tile_aabb, tab.center, *cols(o, t), *cols(d, t), t(lim))
+    ro, rd = Vec3(*cols(o, t)), Vec3(*cols(d, t))
+
+    root = mxu.root_hit_mask(tab, ro, rd, t(lim))
     jroot = jmxu.root_hit_mask(jtab.tile_aabb, jtab.center, *cols(o, j), *cols(d, j), j(lim))
     np.testing.assert_array_equal(root.numpy(), np.asarray(jroot))
     assert 0 < root.sum() < n
 
+    # The one torch form of the signature key against both of the JAX
+    # package's: its kernels' per-tile insertion, and its top-k over chunks
+    # under the same root test and layers.
+    key = mxu.signature_key(tab, ro, rd, t(alive), t(lim)).numpy()
+    jplanes = jmxu.coherence_key_planes(jtab.tile_aabb, *jtab.center, *cols(o, j),
+                                        *cols(d, j), j(alive), j(lim))
+    np.testing.assert_array_equal(key, np.asarray(jplanes))
     c = tab.center.numpy()
     os_ = o - c
     live = (alive & root.numpy()).astype(np.float32)
-    sig = mxu._signature_keys(tab.tile_aabb, *cols(os_, t), *cols(d, t), t(live), t(lim))
     jsig = jmxu._signature_keys(jtab.tile_aabb, *cols(os_, j), *cols(d, j), j(live), j(lim))
-    np.testing.assert_array_equal(sig.numpy(), np.asarray(jsig))
+    np.testing.assert_array_equal(
+        key, np.where(alive, np.where(live > 0.0, np.asarray(jsig), 1 << 30), mxu.DEAD_KEY))
+    assert len(np.unique(key)) > 10
+    assert int((key == 1 << 30).sum()) > 0 and int((key == mxu.DEAD_KEY).sum()) > 0
 
-    lo, hi = tab.tile_aabb[:, 0:3].min(0).values, tab.tile_aabb[:, 3:6].max(0).values
+    lo, hi = tab.root_box[0:3], tab.root_box[3:6]
     mor = mxu._coherence_keys(*cols(os_, t), *cols(d, t), t(live), lo, hi, 2, 4)
     jmor = jmxu._coherence_keys(*cols(os_, j), *cols(d, j), j(live), j(lo.numpy()),
                                 j(hi.numpy()), 2, 4)
     np.testing.assert_array_equal(mor.numpy(), np.asarray(jmor))
-
-    planes = mxu.coherence_key_planes(tab.tile_aabb, *tab.center, *cols(o, t),
-                                      *cols(d, t), t(alive), t(lim))
-    jplanes = jmxu.coherence_key_planes(jtab.tile_aabb, *jtab.center, *cols(o, j),
-                                        *cols(d, j), j(alive), j(lim))
-    np.testing.assert_array_equal(planes.numpy(), np.asarray(jplanes))
-    assert len(np.unique(planes.numpy())) > 10
 
     for mode in ("signature", "morton"):
         perm = mxu.coherence_perm(tab, mxu.Vec3(*cols(o, t)), mxu.Vec3(*cols(d, t)),
@@ -189,6 +194,52 @@ def test_root_cull_and_sort_keys_match_jax():
         jperm = jmxu.coherence_perm(jtab, jmxu.Vec3(*cols(o, j)), jmxu.Vec3(*cols(d, j)),
                                     j(alive), j(lim), 2, 4, mode=mode)
         np.testing.assert_array_equal(perm.numpy(), np.asarray(jperm))
+
+
+@pytest.fixture(scope="module")
+def mesh80k_tables():
+    return build_device_scene(load_scene(str(REPO / "scenes" / "cornell_mesh_80k.json")),
+                              "cpu")[0].mxu_mesh
+
+
+@pytest.mark.parametrize("case", ["5k", "80k", "80k chunk with padding"])
+def test_root_box_is_the_envelope_of_the_rows(case, mesh5k, mesh80k_tables):
+    """``MXUMeshTables.root_box`` is the min and the max over every tile
+    row, padding tiles included, in the tile-row layout: for built tables
+    (5k, 80k) and for a ``_chunk_tables`` sub-table holding a padding tile
+    (the 80k tables padded to whole super-tiles, tiles 72-79).
+    ``root_hit_mask`` on it equals the JAX package's ``root_hit_mask`` on
+    the same rows."""
+    tables = mesh5k[0].mxu_mesh if case == "5k" else mesh80k_tables
+    if case == "80k chunk with padding":
+        padded = pad_to_supers(tables)
+        assert padded.tile_aabb.shape[0] == 80
+        tables = mxu._chunk_tables(padded, 72, 80)
+        assert tables.tile_aabb[-1, 0] == np.float32(1e30)  # the padding tile's inverted box
+    rows = tables.tile_aabb.numpy()
+    want = np.zeros(8, np.float32)
+    want[0:3], want[3:6] = rows[:, 0:3].min(0), rows[:, 3:6].max(0)
+    assert tables.root_box.dtype == torch.float32
+    np.testing.assert_array_equal(tables.root_box.numpy(), want)
+
+    rng, n = np.random.default_rng(17), 900
+    c = tables.center.numpy()
+    mid, half = (want[0:3] + want[3:6]) / 2, (want[3:6] - want[0:3]) / 2
+    o = rng.normal(size=(n, 3))
+    o = c + mid + 2.0 * np.abs(half).max() * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = c + mid + rng.uniform(-1.5, 1.5, (n, 3)) * half - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[::17, 1] = 0.0  # exact zero components take the 1e-20 guard
+    o, d = o.astype(np.float32), d.astype(np.float32)
+    lim = np.where(rng.random(n) > 0.5, 3.4e38, rng.uniform(0.5, 3.0, n)).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    j = lambda a: jnp.asarray(np.ascontiguousarray(a))
+    root = mxu.root_hit_mask(tables, Vec3(*(t(o[:, i]) for i in range(3))),
+                             Vec3(*(t(d[:, i]) for i in range(3))), t(lim))
+    jroot = jmxu.root_hit_mask(j(rows), j(c), *(j(o[:, i]) for i in range(3)),
+                               *(j(d[:, i]) for i in range(3)), j(lim))
+    np.testing.assert_array_equal(root.numpy(), np.asarray(jroot))
+    assert 0 < int(root.sum()) < n
 
 
 def test_traversal_resolution():

@@ -109,11 +109,10 @@ def test_plain_shade_with_the_carried_winner(mode, emit):
             surf, alb = fused.mesh_surface(tables, static, cfg, paths, tl), None
         else:
             *surf, alb = fused.textured_mesh_surface(dev, static, cfg, paths, tl)
-        args = (prim_static, cfg, paths, *surf, prng.stage_key(ik, d, 1), n, emit,
-                tables.tile_aabb, tables.center)
+        args = (prim_static, cfg, paths, *surf, prng.stage_key(ik, d, 1), n, emit, tables)
         got_p, (got_tl, got_key, got_win) = fused.fused_mesh_shade_plain(
-            *args, mode=mode, mesh_albedo=alb, prim_winner=win, want_winner=True)
-        want_p, (want_tl, want_key) = fused.fused_mesh_shade_plain(
+            *args, mode=mode, mesh_albedo=alb, prim_winner=win)
+        want_p, (want_tl, want_key, _) = fused.fused_mesh_shade_plain(
             *args, mode=mode, mesh_albedo=alb)
         _assert_same([*got_p.origin, *got_p.direction, *got_p.color, got_p.bounces, got_tl],
                      [*want_p.origin, *want_p.direction, *want_p.color, want_p.bounces, want_tl])
@@ -137,9 +136,8 @@ def test_plain_shade_winner_crafted():
     win = prim_t_min(prim_static, cfg, paths.origin, paths.direction, winner=True)[1]
     for d in range(2):
         args = (prim_static, cfg, paths, mt, mn, mm, prng.stage_key(ik, d, 1), n, "tlim")
-        got_p, (got_tl, _, got_win) = fused.fused_mesh_shade_plain(
-            *args, prim_winner=win, want_winner=True)
-        want_p, (want_tl, _) = fused.fused_mesh_shade_plain(*args)
+        got_p, (got_tl, _, got_win) = fused.fused_mesh_shade_plain(*args, prim_winner=win)
+        want_p, (want_tl, _, _) = fused.fused_mesh_shade_plain(*args)
         _assert_same([*got_p.origin, *got_p.direction, *got_p.color, got_p.bounces, got_tl],
                      [*want_p.origin, *want_p.direction, *want_p.color, want_p.bounces, want_tl])
         paths, win, mm = got_p, got_win, torch.full_like(mm, -1)
@@ -149,8 +147,6 @@ def test_shade_refuses_a_winner_it_cannot_use():
     _, _, static, _ = _setup("cornell_mesh_5k.json", 8)
     prim_static, paths, mt, mn, mm = winner_case(static, np.random.default_rng(0), n=64)
     args = (prim_static, RenderConfig(), paths, mt, mn, mm, prng.prng_key(0), 64)
-    with pytest.raises(ValueError, match="emit"):
-        fused.fused_mesh_shade_plain(*args, want_winner=True)
     with pytest.raises(ValueError, match="precomputed"):
         fused.fused_mesh_shade_plain(*args, mode="precomputed", mesh_albedo=mn,
                                      prim_winner=torch.zeros_like(mm))

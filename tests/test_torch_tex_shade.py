@@ -291,11 +291,10 @@ def test_mesh_shade_modes_match_pallas(mode, emit):
         got = fused.fused_mesh_shade(
             prim_static, cfg, paths, torch.from_numpy(np.array(jt)), _vec(jn),
             torch.from_numpy(np.array(jm)), prng.stage_key(pik, d, 1), n, emit,
-            tables.tile_aabb if emit else None, tables.center if emit else None,
-            mode=mode, mesh_albedo=_vec(jalb),
+            tables if emit else None, mode=mode, mesh_albedo=_vec(jalb),
         )
         want_p, (want_tl, want_key) = want if emit else (want, (None, None))
-        got_p, (got_tl, got_key) = got if emit else (got, (None, None))
+        got_p, (got_tl, got_key, _) = got if emit else (got, (None, None, None))
         close(got_p.bounces, want_p.bounces)
         close(got_p.pixel, want_p.pixel)
         close3(got_p.origin, want_p.origin, atol=ATOL_WORLD, **LOOSE)

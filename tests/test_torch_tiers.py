@@ -140,30 +140,32 @@ def test_run_tiered_carry_cuts_and_fills_the_carry(key, winner):
     n = 1024
     paths = _paths(n, [0, 200])
     rng = np.random.default_rng(1)
-    carry = (torch.from_numpy(rng.random(n).astype(np.float32)),
-             torch.arange(n, dtype=torch.int32) if key else None)
-    if winner:
-        carry = (*carry, torch.full((n,), 2, dtype=torch.int32))
+    carry = fused.MeshCarry(
+        t_lim=torch.from_numpy(rng.random(n).astype(np.float32)),
+        key=torch.arange(n, dtype=torch.int32) if key else None,
+        win=torch.full((n,), 2, dtype=torch.int32) if winner else None)
     got = {}
 
     def body(head, head_carry):
         got["rows"] = head.pixel.shape[0]
         got["carry"] = head_carry
-        return head, tuple(None if c is None else c + 1 for c in head_carry)
+        return head, fused.MeshCarry(*(None if c is None else c + 1 for c in head_carry))
 
     out_p, out_c = fused.run_tiered_carry(paths, carry, [256, 512], body, True)
     assert got["rows"] == 256
     assert all(c is None or c.shape[0] == 256 for c in got["carry"])
-    assert len(out_c) == len(carry)
-    np.testing.assert_array_equal(out_c[0][:256].numpy(), (carry[0][:256] + 1).numpy())
-    assert (out_c[0][256:] == np.float32(3.402823466e38)).all()
+    assert isinstance(got["carry"], fused.MeshCarry) and isinstance(out_c, fused.MeshCarry)
+    np.testing.assert_array_equal(out_c.t_lim[:256].numpy(), (carry.t_lim[:256] + 1).numpy())
+    assert (out_c.t_lim[256:] == np.float32(3.402823466e38)).all()
     if key:
-        assert (out_c[1][256:] == mxu.DEAD_KEY).all()
-        assert out_c[1].dtype == torch.int32
+        assert (out_c.key[256:] == mxu.DEAD_KEY).all()
+        assert out_c.key.dtype == torch.int32
     else:
-        assert out_c[1] is None
+        assert out_c.key is None
     if winner:
-        assert (out_c[2][256:] == -1).all() and (out_c[2][:256] == 3).all()
+        assert (out_c.win[256:] == -1).all() and (out_c.win[:256] == 3).all()
+    else:
+        assert out_c.win is None
     np.testing.assert_array_equal(out_p.pixel.numpy(), paths.pixel.numpy())
     # without want_carry the body returns paths alone
     out = fused.run_tiered_carry(paths, carry, [256, 512], lambda h, c: h, False)

@@ -126,10 +126,13 @@ def key_case(ct, center, rng, n=4096):
     exactly 0 (the slab's 1e-20 stand-in); aimed away from the boxes (the
     root misses); starting on tile 0's lower x face and running in its
     plane (grazing); starting among the boxes; dead (``bounces`` 0) but
-    aimed at them; and the rest aimed at them again.  Returns (tile_aabb
-    [ct, 8], center [3] (``center`` rounded to quarter units), paths,
-    t_lim): t_lim is FLT_MAX on three rays in ten and between 1 and 8 on
-    the others."""
+    aimed at them; and the rest aimed at them again.  Returns (tables,
+    paths, t_lim): ``tables`` holds the key's inputs of an
+    ``MXUMeshTables`` -- tile_aabb [ct, 8], center [3] (``center`` rounded
+    to quarter units) and root_box [8], the envelope of the boxes; t_lim is
+    FLT_MAX on three rays in ten and between 1 and 8 on the others."""
+    import types
+
     from project3_cuda_path_tracer_2025_tpu_torch.ops.intersect import FLT_MAX
     from project3_cuda_path_tracer_2025_tpu_torch.ops.rays import PathState
     from project3_cuda_path_tracer_2025_tpu_torch.utils.vec import Vec3
@@ -170,7 +173,10 @@ def key_case(ct, center, rng, n=4096):
         pixel=torch.arange(n, dtype=torch.int32),
         bounces=torch.from_numpy(bounces),
     )
-    return f(aabb), f(c), paths, f(tl)
+    box = np.zeros(8, np.float32)
+    box[0:3], box[3:6] = aabb[:, 0:3].min(0), aabb[:, 3:6].max(0)
+    tables = types.SimpleNamespace(tile_aabb=f(aabb), center=f(c), root_box=f(box))
+    return tables, paths, f(tl)
 
 
 def prepass_case(ct):
