@@ -52,6 +52,7 @@ import pathlib
 import subprocess
 import sys
 import time
+import types
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
@@ -112,6 +113,8 @@ OPS_WALK_RAY = 25  # features and reciprocal direction (the root cull runs in to
 OPS_KEY_TILE, OPS_KEY_RAY = 28, 60  # coherence_key per tile / per ray
 OPS_UNIFORM = 80  # uniform_at: Threefry-2x32's 20 rounds and 5 key injections, the float
 OPS_MERGE = 10  # mesh-hit merge and normal flip
+OPS_RESOLVE = 68  # mesh_surface: (u, v) by Moller-Trumbore, interpolated normal, normalize
+ROW_RESOLVE = 76  # bytes of attrs_shade mesh_surface reads a mesh-hit lane
 
 # Film comparisons between the kernel and the plain path: the goldens'
 # per-pixel tolerance (tests/test_goldens.py), a bound on the share of pixels
@@ -309,30 +312,30 @@ def mesh_phases(device, smi: str) -> tuple:
         mono_err = max(mono_err, float((t_k - t_p).abs().max()))
         if mono_case is None:
             mono_case = margs
-        mt, mn, mm = fused.mesh_surface(tables, static, cfg, paths, tl)
+        # Mode "plain": the shade resolves the winner's surface from the walk's (t, tri).
+        mh = fused.mesh_walk(tables, static, cfg, paths, tl)
         skey = prng.stage_key(ik, d, 1)
         for emit in fused.EMIT_MODES:
-            sargs = (prim_static, cfg, paths, mt, mn, mm, skey, n, emit)
+            sargs = (prim_static, cfg, paths, mh.t, None, None, skey, n, emit)
             # The main path's carried prim winner (here the prepass's).
-            skw = dict(tables=tables, prim_winner=win)
+            skw = dict(tables=tables, prim_winner=win, mesh_tri=mh.tri)
             got = fused.fused_mesh_shade(*sargs, **skw)
             want = fused.fused_mesh_shade_plain(*sargs, **skw)
             torch.cuda.synchronize()
             (gp, gc), (wp, wc) = (got, want) if emit else ((got, None), (want, None))
-            fk = [*gp.origin, *gp.direction, *gp.color] + ([gc[0]] if emit else [])
-            fp = [*wp.origin, *wp.direction, *wp.color] + ([wc[0]] if emit else [])
-            lane_bad = torch.zeros(n, dtype=torch.bool, device=device)
-            for a, b in zip(fk, fp):
-                lane_bad |= ~torch.isclose(a, b, rtol=STAGE_RTOL, atol=STAGE_ATOL)
-            bn_diff = int((gp.bounces != wp.bounces).sum())
-            key_diff = int((gc[1] != wc[1]).sum()) if emit == "tlim+key" else 0
-            key_diff += int((gc[2] != wc[2]).sum()) if emit else 0  # the emitted winner
-            err = max(float((a - b).abs().max()) for a, b in zip(fk, fp))
-            share = float(lane_bad.float().mean())
-            log(f"[8b] shade bounce {d} emit={emit or 'none'}: max abs diff {err:.3g}; lanes "
-                f"with bounces differing {bn_diff}, keys differing {key_diff}, lanes outside "
-                f"rtol={STAGE_RTOL} atol={STAGE_ATOL}: {share:.5%}")
-            if key_diff or bn_diff / n > MAX_STAGE_LANE_SHARE or share > MAX_STAGE_LANE_SHARE:
+            fk = [*gp.origin, *gp.direction, *gp.color, gp.bounces] + (
+                [x for x in gc if x is not None] if emit else [])
+            fp = [*wp.origin, *wp.direction, *wp.color, wp.bounces] + (
+                [x for x in wc if x is not None] if emit else [])
+            # Plane for plane: the lanes whose bits differ.
+            bad = [bits_differ(a, b) for a, b in zip(fk, fp)]
+            err = max(float((a - b).abs().max()) for a, b in zip(fk[:9], fp[:9]))
+            log(f"[8b] shade bounce {d} emit={emit or 'none'}: "
+                f"{int(((mh.tri >= 0) & paths.alive).sum())} lanes resolving a mesh hit; lanes "
+                f"not bit-equal to the plain version by plane (o xyz, d xyz, color rgb, bounces"
+                f"{', t_lim, key, winner' if emit == 'tlim+key' else ', t_lim, winner' if emit else ''}"
+                f"): {bad}; max abs diff {err:.3g}")
+            if any(bad):
                 raise AssertionError("the mesh-shade kernel disagrees with its plain version")
             shade_err = max(shade_err, err)
             if emit == "tlim+key" and shade_case is None:
@@ -443,15 +446,17 @@ def mesh_phases(device, smi: str) -> tuple:
     mono_b = mono_bound(mono_case)
     act, pairs = mono_b[3], mono_b[2]
     live = int(shade_case[0][2].alive.sum())
+    hits = int(((shade_case[1]["mesh_tri"] >= 0) & shade_case[0][2].alive).sum())
     shade_bound = bound_ms(
-        n * (16 + 12) * 4,  # 16 planes in, 12 out
-        live * (prim_ops(prim_static) + OPS_MERGE + OPS_SCATTER)
+        n * (13 + 12) * 4 + hits * ROW_RESOLVE,  # 13 planes in, 12 out, a hit's row
+        live * (prim_ops(prim_static) + OPS_MERGE + OPS_SCATTER) + hits * OPS_RESOLVE
         + n * (prim_ops(prim_static) + OPS_KEY_RAY + ct * OPS_KEY_TILE),
     )
     log(f"    bounds: mono kernel {mono_b[0]:.4f} ms ({mono_b[1]}; {pairs} (ray, tile) "
         f"pairs whose entry is no farther than the ray's hit, of {int(act.sum())} root-hitting "
         f"rays), mesh-shade kernel "
-        f"{shade_bound[0]:.4f} ms ({shade_bound[1]}; {live} live rays)")
+        f"{shade_bound[0]:.4f} ms ({shade_bound[1]}; {live} live rays, {hits} resolving a "
+        "mesh hit)")
 
     # The mono kernel on each of the frame's eight sorted bounces (the A/B
     # script's states), checked against its plain version and timed with its
@@ -1209,21 +1214,23 @@ def tex_states(dev, static, cam, cfg, device, mode: str, bounces: int = 4) -> li
 
 
 def shade_mode_bound(n: int, live: int, prim_static, mode: str, emit: str, ct: int,
-                     keyed: int = None) -> tuple:
-    """Bound of one mesh-shade launch: every input plane read once (16, and
-    3 albedo planes in the textured modes), every output written once (10,
-    and t_lim and the key with emit); the operations of the live rays' prim
-    intersection (none in "precomputed"), merge and scatter, and with emit
-    the scattered rays' prim t and sort key: its set-up on every ray, its
-    tile loop on the ``keyed`` rays it keys live (default every ray)."""
-    planes = 16 + (3 if mode != "plain" else 0) + 10 + (emit != "") + (emit == "tlim+key")
+                     keyed: int = None, hits: int = 0) -> tuple:
+    """Bound of one mesh-shade launch: every input plane read once (13 in
+    mode "plain", whose ``hits`` live mesh-hit lanes read 76 B of their
+    winner's row each; 16 and 3 albedo planes in the textured modes), every
+    output written once (10, and t_lim and the key with emit); the
+    operations of the live rays' prim intersection (none in "precomputed"),
+    merge and scatter, of the hits' surface resolve, and with emit the
+    scattered rays' prim t and sort key: its set-up on every ray, its tile
+    loop on the ``keyed`` rays it keys live (default every ray)."""
+    planes = (13 if mode == "plain" else 19) + 10 + (emit != "") + (emit == "tlim+key")
     ops = live * ((0 if mode == "precomputed" else prim_ops(prim_static))
-                  + OPS_MERGE + OPS_SCATTER)
+                  + OPS_MERGE + OPS_SCATTER) + hits * OPS_RESOLVE
     if emit:
         ops += n * prim_ops(prim_static)
     if emit == "tlim+key":
         ops += n * OPS_KEY_RAY + (n if keyed is None else keyed) * ct * OPS_KEY_TILE
-    return bound_ms(n * planes * 4, ops)
+    return bound_ms(n * planes * 4 + hits * ROW_RESOLVE, ops)
 
 
 def shade_bounces(tag, dev, static, cam, cfg, device, smi) -> None:
@@ -1261,11 +1268,13 @@ def shade_bounces(tag, dev, static, cam, cfg, device, smi) -> None:
             ms[what] = float(np.median([cuda_time_ms(fn, 20) for _ in range(3)]))
         live = int(a[2].alive.sum())
         keyed = int((got[1][1] < (1 << 30)).sum()) if a[8] == "tlim+key" else None
-        b = shade_mode_bound(n, live, prim_static, kw["mode"], a[8], ct, keyed)
+        hits = int(((kw["mesh_tri"] >= 0) & a[2].alive).sum()) if kw["mode"] == "plain" else 0
+        b = shade_mode_bound(n, live, prim_static, kw["mode"], a[8], ct, keyed, hits)
         log(f"[{tag}] fused_mesh_shade[{kw['mode']}] sorted bounce {d} (emit "
             f"{a[8] or 'none'}, {ct} tiles, {keyed} rays keyed live): {ms['carried']:.4f} ms "
             "per launch with the carried winner, "
-            f"{ms['every prim']:.4f} testing every prim, on {smi}; {live} live rays; bound "
+            f"{ms['every prim']:.4f} testing every prim, on {smi}; {live} live rays, {hits} "
+            f"resolving a mesh hit; bound "
             f"{b[0]:.4f} ms ({b[1]}), {b[0] / ms['carried']:.1%} of it; bit-equal to the plain "
             "version and to the launch without the winner")
 
@@ -2528,7 +2537,7 @@ def capacity_phases(device, smi: str) -> tuple:
     from project3_cuda_path_tracer_2025_tpu_torch.models import Renderer
     from project3_cuda_path_tracer_2025_tpu_torch.ops import camera as camera_ops
     from project3_cuda_path_tracer_2025_tpu_torch.ops import film as film_ops
-    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused, intersect_mxu as mxu
     from project3_cuda_path_tracer_2025_tpu_torch.ops.intersect import intersect_scene
     from project3_cuda_path_tracer_2025_tpu_torch.scene import (
         build_device_scene, camera_state, derive_render_camera, many_prims_scene,
@@ -2627,20 +2636,26 @@ def capacity_phases(device, smi: str) -> tuple:
         cam, static.width, static.height, static.trace_depth,
         prng.uniforms_at(prng.stage_key(ik, 0, 0), idx, 4, n))
     far = 0
+    # A made-up mesh of mats_e triangles, the k-th of material k, its vertex
+    # normals all +z.
+    rows = torch.zeros((mats_e, mxu.SHADE_ROW), device=device)
+    rows[:, [2, 5, 8]] = 1.0
+    rows[:, 9] = torch.arange(mats_e, device=device).float()
+    rows[:, 13], rows[:, 17] = 1.0, 1.0  # e1 = x, e2 = y
+    mesh = types.SimpleNamespace(attrs_shade=rows)
     for d in range(3):
         skey = prng.stage_key(ik, d, 1)
         su = prng.uniforms_at(skey, idx, 3, n)
         # The mesh shade with a made-up mesh hit on every third lane.
         hit = (idx % 3 == 0) & paths.alive
         mesh_t = torch.where(hit, 0.5, 0.0).float()
-        zero = torch.zeros(n, device=device)
-        mesh_n = type(paths.origin)(zero, zero, torch.where(hit, 1.0, 0.0).float())
-        mesh_mat = torch.where(hit, idx % mats_e, -1).to(torch.int32)
-        sargs = (static, cfg, paths, mesh_t, mesh_n, mesh_mat, skey, n, "tlim")
+        mesh_tri = torch.where(hit, idx % mats_e, -1).to(torch.int32)
+        sargs = (static, cfg, paths, mesh_t, None, None, skey, n, "tlim", mesh)
         pairs = {
             "bounce": (fused.fused_prim_bounce(static, cfg, paths, su), None,
                        fused.fused_prim_bounce_plain(static, cfg, paths, su), None),
-            "mesh shade": (*fused.fused_mesh_shade(*sargs), *fused.fused_mesh_shade_plain(*sargs)),
+            "mesh shade": (*fused.fused_mesh_shade(*sargs, mesh_tri=mesh_tri),
+                           *fused.fused_mesh_shade_plain(*sargs, mesh_tri=mesh_tri)),
         }
         torch.cuda.synchronize()
         for what, (out_k, tl_k, out_p, tl_p) in pairs.items():

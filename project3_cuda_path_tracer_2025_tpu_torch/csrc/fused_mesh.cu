@@ -6,10 +6,14 @@
 //   intersect, merge with the mesh hit, BSDF scatter with inline Threefry,
 //   and optionally the next bounce's prim t_limit (with the prim that gives
 //   it) and coherence sort key, at any number of tiles.
-//   Mode "textured" takes the mesh lanes' albedo and final shading normal
-//   (texture and bump resolved in torch before the launch); mode
-//   "precomputed" takes every lane's resolved surface and skips the prim
-//   intersection (a scene with a textured prim).
+//   Mode "plain" resolves each live lane's mesh surface itself from the
+//   walk's (t, tri) and the tables' attrs_shade rows (mesh_surface: the
+//   winner's (u, v), interpolated normal and material, which
+//   ops/fused.py::resolve_mesh_surface computes in torch for the plain
+//   version); mode "textured" takes the mesh lanes' albedo and final
+//   shading normal (texture and bump resolved in torch before the launch);
+//   mode "precomputed" takes every lane's resolved surface and skips the
+//   prim intersection (a scene with a textured prim).
 // ptt_mesh_prelude_kernel gives bounce 0 the same three planes from the
 //   camera rays (ops/fused.py::mesh_prelude_plain: ops/intersect.py::prim_t_min
 //   with its winner and ops/intersect_mxu.py::signature_key), so no
@@ -18,7 +22,8 @@
 // tiles among them) are in mesh_walk.cu.
 //
 // What bounds it on the H100: arithmetic, like the prim bounce kernel: ~80
-// B per ray in and out against a few thousand flops (BSDF, 3 x 20 Threefry
+// B per ray in and out (and in mode "plain" 76 B of a mesh-hit lane's
+// attrs_shade row) against a few thousand flops (BSDF, 3 x 20 Threefry
 // rounds, the prim tests and the key).  The JAX kernel's function tests
 // every prim twice per ray and bounce: once for the ray it shades and once,
 // with emit, for the ray it scatters -- the next bounce's t_limit.  The
@@ -59,9 +64,11 @@ struct PttMeshShadeArgs {
   const int32_t* in_bounces;
   const int32_t* pixel;
   const float* mesh_t;
-  const float* mesh_n[3];
-  const int32_t* mesh_mat;   // -1 = no mesh hit
+  const float* mesh_n[3];    // the resolved normal (mode >= 1)
+  const int32_t* mesh_mat;   // the material, -1 = no mesh hit (mode >= 1)
   const float* mesh_alb[3];  // albedo rgb (mode >= 1)
+  const int32_t* mesh_tri;   // the walk's winner, -1 = no mesh hit (mode 0)
+  const float* attrs_shade;  // [padded_tris, PTT_SHADE_ROW] (mode 0)
   const int32_t* prim_win;   // the carried prim winner (-1 none); null: test every prim
   const float* tile_aabb;    // [ct, 8] (emit == 2)
   const float* center;       // [3] (emit == 2)
@@ -75,7 +82,8 @@ struct PttMeshShadeArgs {
   int32_t n, ct, emit;       // emit: 0 none, 1 t_lim, 2 t_lim + key
   int32_t mode;              // PTT_SHADE_PLAIN / _TEXTURED / _PRECOMPUTED
   int32_t num_geoms, num_materials;  // the scene's counts, for the launcher
-  int32_t pad;
+  int32_t padded_tris;       // attrs_shade's rows (mode 0)
+  float baby_eps;            // the resolve's |det| floor (mode 0)
 };
 
 extern __shared__ __align__(16) unsigned char ptt_smem[];
@@ -108,12 +116,18 @@ __global__ void __launch_bounds__(PTT_THREADS) ptt_mesh_shade_kernel(const PttMe
   ray.d = v3(a.in_f[3][idx], a.in_f[4][idx], a.in_f[5][idx]);
   ray.c = v3(a.in_f[6][idx], a.in_f[7][idx], a.in_f[8][idx]);
   ray.bounces = a.in_bounces[idx];
-  const V3 mn = v3(a.mesh_n[0][idx], a.mesh_n[1][idx], a.mesh_n[2][idx]);
-  const V3 alb = a.mode == PTT_SHADE_PLAIN
-                     ? v3(0.0f, 0.0f, 0.0f)
-                     : v3(a.mesh_alb[0][idx], a.mesh_alb[1][idx], a.mesh_alb[2][idx]);
-  mesh_shade_ray(sh_scene, ray, a.mesh_t[idx], mn, a.mesh_mat[idx], a.mode, alb, a.k0, a.k1,
-                 a.rng_n, a.pixel[idx], a.prim_win ? a.prim_win[idx] : PTT_NO_WINNER);
+  V3 mn = v3(0.0f, 0.0f, 0.0f), alb = mn;
+  int32_t mmat = -1;
+  if (a.mode != PTT_SHADE_PLAIN) {
+    mn = v3(a.mesh_n[0][idx], a.mesh_n[1][idx], a.mesh_n[2][idx]);
+    mmat = a.mesh_mat[idx];
+    alb = v3(a.mesh_alb[0][idx], a.mesh_alb[1][idx], a.mesh_alb[2][idx]);
+  } else if (ray.bounces > 0) {  // a dead lane is left untouched: no row read
+    mmat = mesh_surface(a.attrs_shade, a.padded_tris, a.mesh_tri[idx], ray.o, ray.d, a.baby_eps,
+                        &mn);
+  }
+  mesh_shade_ray(sh_scene, ray, a.mesh_t[idx], mn, mmat, a.mode, alb, a.k0, a.k1, a.rng_n,
+                 a.pixel[idx], a.prim_win ? a.prim_win[idx] : PTT_NO_WINNER);
   a.out_f[0][idx] = ray.o.x;
   a.out_f[1][idx] = ray.o.y;
   a.out_f[2][idx] = ray.o.z;
@@ -182,6 +196,7 @@ int ptt_mesh_abi(int32_t* out, int32_t len) {
   const int32_t v[] = {
       (int32_t)sizeof(PttScene),
       (int32_t)sizeof(PttMeshShadeArgs),
+      (int32_t)offsetof(PttMeshShadeArgs, mesh_tri),
       (int32_t)offsetof(PttMeshShadeArgs, prim_win),
       (int32_t)offsetof(PttMeshShadeArgs, root_box),
       (int32_t)offsetof(PttMeshShadeArgs, out_win),
@@ -189,11 +204,13 @@ int ptt_mesh_abi(int32_t* out, int32_t len) {
       (int32_t)offsetof(PttMeshShadeArgs, n),
       (int32_t)offsetof(PttMeshShadeArgs, mode),
       (int32_t)offsetof(PttMeshShadeArgs, num_geoms),
+      (int32_t)offsetof(PttMeshShadeArgs, baby_eps),
       (int32_t)sizeof(PttGeom),
       (int32_t)sizeof(PttMaterial),
       (int32_t)offsetof(PttScene, geoms),
       PTT_TRI_TILE,
       PTT_COEF_W,
+      PTT_SHADE_ROW,
   };
   const int32_t count = (int32_t)(sizeof(v) / sizeof(v[0]));
   for (int32_t i = 0; i < count && i < len; ++i) out[i] = v[i];
@@ -202,6 +219,10 @@ int ptt_mesh_abi(int32_t* out, int32_t len) {
 
 int ptt_launch_mesh_shade(const PttMeshShadeArgs* a, void* stream) {
   if (a->mode < PTT_SHADE_PLAIN || a->mode > PTT_SHADE_PRECOMPUTED) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (a->mode == PTT_SHADE_PLAIN &&
+      (a->mesh_tri == nullptr || a->attrs_shade == nullptr || a->padded_tris < 1)) {
     return (int)cudaErrorInvalidValue;
   }
   return launch_either(false, a, stream);

@@ -35,6 +35,9 @@
 //   prim_t_min_win  = ops/intersect.py::prim_t_min with its winner;
 //   prim_hit_of     = the prim half of ops/intersect.py::intersect_scene
 //                     given that winner (ops/intersect.py::intersect_winner);
+//   mesh_surface    = ops/fused.py::resolve_mesh_surface (the winner's row,
+//                     (u, v), interpolated normal and material of mode
+//                     "plain");
 //   mesh_shade_ray  = ops/fused.py::fused_mesh_shade_plain in its three modes
 //                     (prim intersect or the carried winner, merge with the
 //                     mesh hit or the resolved surface, scatter, inline
@@ -788,11 +791,42 @@ PTT_HD int32_t coherence_key(const float* aabb, int ct, const float* box, V3 cen
 // The shade's prim winner input when none is carried: intersect every prim.
 #define PTT_NO_WINNER (-2)
 
+// Floats a row of the tables' attrs_shade: the vertex normals n0 n1 n2
+// (0-8), the material (9), v0 e1 e2 (10-18), padding.
+#define PTT_SHADE_ROW 24
+
+// The mesh surface of mode PTT_SHADE_PLAIN for one ray (o, d) from its
+// walk's winner tri: the row of attrs (rows of them; tri clamped into
+// them), (u, v) by ops/intersect_mxu.py::winner_uv_from_geom's
+// Moller-Trumbore, the vertex normal interpolated with w = 1 - u - v and
+// normalized into *mn.  Returns the material; -1 for tri < 0 (no mesh hit:
+// no row read, *mn untouched).  76 bytes of the row are read.
+PTT_HD int32_t mesh_surface(const float* attrs, int32_t rows, int32_t tri, V3 o, V3 d,
+                            float baby_eps, V3* mn) {
+  if (tri < 0) return -1;
+  const float* r = attrs + (size_t)(tri < rows ? tri : rows - 1) * PTT_SHADE_ROW;
+  const V3 v0 = v3(r[10], r[11], r[12]);
+  const V3 e1 = v3(r[13], r[14], r[15]);
+  const V3 e2 = v3(r[16], r[17], r[18]);
+  const V3 pvec = cross(d, e2);
+  const float det = dot(e1, pvec);
+  const float inv_det = 1.0f / (fabsf(det) >= baby_eps ? det : 1.0f);
+  const V3 tvec = o - v0;
+  const float u = dot(tvec, pvec) * inv_det;
+  const V3 qvec = cross(tvec, e1);
+  const float v = dot(d, qvec) * inv_det;
+  const float w = 1.0f - u - v;
+  *mn = normalize(v3(r[0], r[1], r[2]) * w + v3(r[3], r[4], r[5]) * u +
+                  v3(r[6], r[7], r[8]) * v);
+  return (int32_t)r[9];
+}
+
 // One ray of the shade kernel; dead rays are left untouched.  The uniforms
 // of this pixel are drawn inline at counters j * rng_n + pixel.
 // mode PTT_SHADE_PLAIN: prim intersect, merged with the mesh hit (mt, the
-//   interpolated normal mn flipped toward the ray, material mmat; mmat < 0
-//   = no mesh hit), scatter with the material's color.
+//   interpolated normal mn flipped toward the ray, material mmat, as
+//   mesh_surface resolves them; mmat < 0 = no mesh hit), scatter with the
+//   material's color.
 // mode PTT_SHADE_TEXTURED: the same merge, but mn is the final shading
 //   normal (not flipped) and a mesh lane scatters with the albedo malb.
 // mode PTT_SHADE_PRECOMPUTED: no prim intersection; (mt, mn, mmat, malb) is

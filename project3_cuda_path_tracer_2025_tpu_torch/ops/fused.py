@@ -7,7 +7,9 @@ via ``fused_prim_bounce`` and ``_iteration_kernel`` via
 ``fused_prim_iteration``.  A mesh scene's bounce runs the mesh traversal
 (``ops.intersect_mxu``) and then ``_mesh_bounce_kernel`` via
 ``_fused_mesh_shade``: prim intersect, merge with the mesh hit, BSDF
-scatter, inline RNG and the next bounce's prune and sort key.  A textured
+scatter, inline RNG and the next bounce's prune and sort key.  Here the
+shade kernel resolves an untextured mesh's surface (the winner's normal and
+material) itself, from the walk's t and triangle (mode "plain").  A textured
 mesh resolves its albedo and bump normal in the surface stage (torch, as
 XLA in the JAX package) and shades in mode "textured"; a scene with a
 textured prim resolves the whole surface there and shades in mode
@@ -495,12 +497,17 @@ def fused_mesh_applicable(static: SceneStatic, cfg: RenderConfig) -> bool:
     )
 
 
-def _check_mode(mode: str, emit: str, mesh_albedo, prim_winner=None) -> None:
+def _check_mode(mode: str, emit: str, mesh_normal, mesh_mat, mesh_albedo, mesh_tri, tables,
+                prim_winner=None) -> None:
     if mode not in SHADE_MODES:
         raise ValueError(f"mode={mode!r}: use one of {SHADE_MODES}")
-    if (mode == "plain") != (mesh_albedo is None):
-        raise ValueError(f"mode={mode!r}: mesh_albedo is required in the textured and "
-                         "precomputed modes and only there")
+    plain = mode == "plain"
+    if any(plain != (x is None) for x in (mesh_normal, mesh_mat, mesh_albedo)):
+        raise ValueError(f"mode={mode!r}: mesh_normal, mesh_mat and mesh_albedo are required in "
+                         "the textured and precomputed modes and only there")
+    if plain != (mesh_tri is not None) or (plain and tables is None):
+        raise ValueError(f"mode={mode!r}: mesh_tri and tables (the walk's winner and its rows) "
+                         "are required in mode 'plain' and only there")
     if emit not in EMIT_MODES:
         raise ValueError(f"emit={emit!r}: use one of {EMIT_MODES}")
     if prim_winner is not None and mode == "precomputed":
@@ -512,8 +519,8 @@ def fused_mesh_shade_plain(
     cfg: RenderConfig,
     paths: PathState,
     mesh_t: torch.Tensor,
-    mesh_normal: Vec3,
-    mesh_mat: torch.Tensor,
+    mesh_normal: Optional[Vec3],
+    mesh_mat: Optional[torch.Tensor],
     su_key: tuple,
     rng_n: int,
     emit: str = "",
@@ -521,14 +528,21 @@ def fused_mesh_shade_plain(
     mode: str = "plain",
     mesh_albedo: Vec3 = None,
     prim_winner: torch.Tensor = None,
+    mesh_tri: torch.Tensor = None,
 ):
     """The plain PyTorch version of the mesh-shade kernel (see
-    ``fused_mesh_shade``).  It uses ``prim_winner`` as the kernel does: the
-    prim hit of every lane comes from its winner's test alone
-    (``intersect_winner``), which gives the same outputs bit for bit as
-    testing every prim (``intersect_scene``) does without it."""
-    _check_mode(mode, emit, mesh_albedo, prim_winner)
+    ``fused_mesh_shade``).  In mode "plain" it resolves ``mesh_tri``'s
+    surface in torch (``resolve_mesh_surface``, inside a ``mesh.surface``
+    span).  It uses
+    ``prim_winner`` as the kernel does: the prim hit of every lane comes
+    from its winner's test alone (``intersect_winner``), which gives the
+    same outputs bit for bit as testing every prim (``intersect_scene``)
+    does without it."""
+    _check_mode(mode, emit, mesh_normal, mesh_mat, mesh_albedo, mesh_tri, tables, prim_winner)
     uni = prng.uniforms_at(su_key, paths.pixel, 3, rng_n)
+    if mode == "plain":
+        mesh_normal, mesh_mat = resolve_mesh_surface(tables, mesh_tri, paths.origin,
+                                                     paths.direction, cfg.baby_epsilon)
     if mode == "precomputed":
         # The whole surface arrives resolved: (t, shading normal, material,
         # albedo) of every lane; no prim intersection here.
@@ -584,15 +598,16 @@ def fused_mesh_shade(
     cfg: RenderConfig,
     paths: PathState,
     mesh_t: torch.Tensor,  # [N] f32, the traversal's t
-    mesh_normal: Vec3,  # [N] f32 each, interpolated (zero where no mesh hit)
-    mesh_mat: torch.Tensor,  # [N] i32, -1 = no mesh hit
+    mesh_normal: Optional[Vec3],  # [N] f32 each, textured/precomputed only (None in "plain")
+    mesh_mat: Optional[torch.Tensor],  # [N] i32, textured/precomputed only; -1 = no mesh hit
     su_key: tuple,  # the bounce's shade key: uniforms drawn inline
     rng_n: int,  # RNG stream length (the pixel count)
     emit: str = "",  # "" | "tlim" | "tlim+key": next-bounce outputs
-    tables: intersect_mxu.MXUMeshTables = None,  # the key's boxes (emit == "tlim+key")
+    tables: intersect_mxu.MXUMeshTables = None,  # "plain": the rows; "tlim+key": the boxes
     mode: str = "plain",  # "plain" | "textured" | "precomputed"
     mesh_albedo: Vec3 = None,  # [N] f32 each, textured/precomputed only
     prim_winner: torch.Tensor = None,  # [N] i32, the carried winner (plain/textured)
+    mesh_tri: torch.Tensor = None,  # [N] i32, "plain" only: the walk's winner; -1 = none
 ):
     """Prim intersect + merge with the mesh hit + BSDF scatter of one
     bounce, with the uniforms drawn inline at ``(su_key, j*rng_n + pixel)``
@@ -605,32 +620,44 @@ def fused_mesh_shade(
     their coherence sort key (``intersect_mxu.signature_key`` over
     ``tables``).
 
-    ``mode`` "plain": ``mesh_normal`` is the interpolated normal, flipped
-    toward the ray here.  "textured": it is the final shading normal (not
-    flipped), and mesh lanes take ``mesh_albedo``.  "precomputed": no prim
-    intersection; ``(mesh_t, mesh_normal, mesh_mat, mesh_albedo)`` is every
-    lane's resolved surface (``fused_tex_bounce``).
+    ``mode`` "plain": ``mesh_tri`` is the walk's winning triangle (``mesh_t``
+    its t), and the kernel resolves each live lane's surface from its row
+    of ``tables.attrs_shade``: the winner's (u, v), the interpolated vertex
+    normal, flipped toward the ray, and the material
+    (``resolve_mesh_surface`` is its plain version).  "textured":
+    ``mesh_normal`` is the final shading normal (not flipped), ``mesh_mat``
+    the material, and mesh lanes take ``mesh_albedo``.  "precomputed": no
+    prim intersection; ``(mesh_t, mesh_normal, mesh_mat, mesh_albedo)`` is
+    every lane's resolved surface (``fused_tex_bounce``).
 
     The carried winner, given back as ``prim_winner`` on the next bounce
     (permuted with the rays), spares that shade every prim test but the
     winner's, with the same outputs bit for bit; a lane with a mesh hit
     tests no prim either way."""
-    _check_mode(mode, emit, mesh_albedo, prim_winner)
+    _check_mode(mode, emit, mesh_normal, mesh_mat, mesh_albedo, mesh_tri, tables, prim_winner)
     device = paths.origin.x.device
     if device.type == "cpu":
         return fused_mesh_shade_plain(
             prim_static, cfg, paths, mesh_t, mesh_normal, mesh_mat, su_key,
-            rng_n, emit, tables, mode, mesh_albedo, prim_winner,
+            rng_n, emit, tables, mode, mesh_albedo, prim_winner, mesh_tri,
         )
     _require_cuda(device, "fused_mesh_shade")
     n = paths.pixel.shape[0]
     f_in = (*paths.origin, *paths.direction, *paths.color)
-    _check_planes("fused_mesh_shade paths", (*f_in, mesh_t, *mesh_normal), n,
-                  torch.float32, device)
-    ints = (paths.bounces, paths.pixel, mesh_mat)
+    plain = mode == "plain"
+    _check_planes("fused_mesh_shade paths", (*f_in, mesh_t, *(() if plain else mesh_normal)),
+                  n, torch.float32, device)
+    ints = (paths.bounces, paths.pixel, mesh_tri if plain else mesh_mat)
     _check_planes("fused_mesh_shade ints",
                   ints if prim_winner is None else (*ints, prim_winner), n, torch.int32, device)
-    if mode != "plain":
+    if plain:
+        rows, w = tables.attrs_shade, intersect_mxu.SHADE_ROW
+        if not (rows.dim() == 2 and rows.shape[0] >= 1 and rows.shape[1] == w
+                and rows.dtype == torch.float32 and rows.device == device
+                and rows.is_contiguous()):
+            raise ValueError(f"fused_mesh_shade: tables.attrs_shade must be [T, {w}] float32, "
+                             f"contiguous, on {device}")
+    else:
         mesh_albedo = Vec3(*(c.contiguous() for c in mesh_albedo))
         _check_planes("fused_mesh_shade albedo", mesh_albedo, n, torch.float32, device)
     if rng_n * 3 >= 2**32:
@@ -641,17 +668,22 @@ def fused_mesh_shade(
     f_out = [torch.empty_like(t) for t in f_in]
     b_out = torch.empty_like(paths.bounces)
     tl_out = torch.empty_like(mesh_t) if emit else None
-    key_out = torch.empty_like(mesh_mat) if emit == "tlim+key" else None
-    win_out = torch.empty_like(mesh_mat) if emit else None
+    key_out = torch.empty_like(paths.bounces) if emit == "tlim+key" else None
+    win_out = torch.empty_like(paths.bounces) if emit else None
     a = kernels.PttMeshShadeArgs()
     a.scene = scene.data_ptr()
     a.in_f[:] = [t.data_ptr() for t in f_in]
     a.in_bounces = paths.bounces.data_ptr()
     a.pixel = paths.pixel.data_ptr()
     a.mesh_t = mesh_t.data_ptr()
-    a.mesh_n[:] = [t.data_ptr() for t in mesh_normal]
-    a.mesh_mat = mesh_mat.data_ptr()
-    if mode != "plain":
+    if plain:
+        a.mesh_tri = mesh_tri.data_ptr()
+        a.attrs_shade = rows.data_ptr()
+        a.padded_tris = rows.shape[0]
+        a.baby_eps = cfg.baby_epsilon
+    else:
+        a.mesh_n[:] = [t.data_ptr() for t in mesh_normal]
+        a.mesh_mat = mesh_mat.data_ptr()
         a.mesh_alb[:] = [t.data_ptr() for t in mesh_albedo]
     if prim_winner is not None:
         a.prim_win = prim_winner.data_ptr()
@@ -899,11 +931,12 @@ def run_tiered_carry(paths: PathState, carry: MeshCarry, npres: list, body,
     return full_p, full_c
 
 
-def _mesh_traversal(tables, static: SceneStatic, cfg: RenderConfig, paths: PathState,
-                    t_lim: torch.Tensor, plain: bool, budget_rays: int = None):
-    """The traversal of a fused bounce's rays; ``budget_rays`` anchors the
-    binned pair budget (the frame's unsliced ray count under a prefix tier;
-    by default the rays given)."""
+def mesh_walk(tables, static: SceneStatic, cfg: RenderConfig, paths: PathState,
+              t_lim: torch.Tensor, plain: bool = False, budget_rays: int = None):
+    """The traversal of a fused bounce's rays -> ``MeshHit`` (its t and
+    winning triangle are what the shade takes in mode "plain");
+    ``budget_rays`` anchors the binned pair budget (the frame's unsliced ray
+    count under a prefix tier; by default the rays given)."""
     return intersect_mxu.mesh_intersect_mxu(
         tables, static.num_triangles, static.mxu_padded_tris, paths.origin,
         paths.direction, paths.alive, t_lim, cfg.baby_epsilon,
@@ -916,19 +949,19 @@ def _mesh_traversal(tables, static: SceneStatic, cfg: RenderConfig, paths: PathS
     )
 
 
-def mesh_surface(tables, static: SceneStatic, cfg: RenderConfig, paths: PathState,
-                 t_lim: torch.Tensor, plain: bool = False, budget_rays: int = None):
-    """The mesh half of a fused bounce's surface, in torch around the
-    traversal: ``(mesh_t, mesh_normal, mesh_mat)`` -- the traversal's t,
-    the winner's interpolated vertex normal (zero without a mesh hit) and
-    its material (-1 without a mesh hit)."""
-    ro, rd = paths.origin, paths.direction
-    mh = _mesh_traversal(tables, static, cfg, paths, t_lim, plain, budget_rays)
+def resolve_mesh_surface(tables, tri: torch.Tensor, ro: Vec3, rd: Vec3, baby_eps: float):
+    """The untextured mesh surface of the walk's winners ``tri`` (rays
+    ``ro``, ``rd``), in torch: the plain version of what the shade kernel
+    resolves in mode "plain" (``csrc/mesh_path.cuh::mesh_surface``).  One
+    row gather of ``tables.attrs_shade`` (``tri`` clamped into its rows),
+    the winner's (u, v), its interpolated vertex normal -> ``(mesh_normal,
+    mesh_mat)``: zero and -1 without a mesh hit.  Its ``mesh.surface`` span
+    counts the bounces whose surface no kernel resolved."""
     with span("mesh.surface"):
-        tri_hit = mh.tri >= 0
-        at = intersect_mxu.resolve_shade_attributes(tables, static.mxu_padded_tris, mh.tri)
+        tri_hit = tri >= 0
+        at = intersect_mxu.resolve_shade_attributes(tables, tables.attrs_shade.shape[0], tri)
         uu, vv = intersect_mxu.winner_uv_from_geom(
-            at[:, 10:13], at[:, 13:16], at[:, 16:19], mh.tri, ro, rd, cfg.baby_epsilon,
+            at[:, 10:13], at[:, 13:16], at[:, 16:19], tri, ro, rd, baby_eps,
         )
         w = 1.0 - uu - vv
         cols = lambda a: Vec3(at[:, a], at[:, a + 1], at[:, a + 2])
@@ -937,21 +970,22 @@ def mesh_surface(tables, static: SceneStatic, cfg: RenderConfig, paths: PathStat
         zero = torch.zeros_like(uu)
         mesh_normal = vec.where(tri_hit, mesh_normal, Vec3(zero, zero, zero))
         mesh_mat = torch.where(tri_hit, at[:, 9].to(torch.int32), -1)
-    return mh.t, mesh_normal, mesh_mat
+    return mesh_normal, mesh_mat
 
 
 def textured_mesh_surface(dev, static: SceneStatic, cfg: RenderConfig, paths: PathState,
                           t_lim: torch.Tensor, plain: bool = False, budget_rays: int = None):
-    """``mesh_surface`` of a scene with textures on mesh materials:
-    ``(mesh_t, shading_normal, mesh_mat, albedo)``.  The full attribute rows
-    (``resolve_attributes``: normals 0-8, uv 9-14, dpdu/dpdv 15-20, the
-    material 21, v0/e1/e2 24-32) give the interpolated uv and the tangents;
+    """The mesh surface of a scene with textures on mesh materials, in
+    torch around the walk: ``(mesh_t, shading_normal, mesh_mat, albedo)``.
+    The full attribute rows (``resolve_attributes``: normals 0-8, uv 9-14,
+    dpdu/dpdv 15-20, the material 21, v0/e1/e2 24-32) give the interpolated
+    uv and the tangents;
     the normal is oriented toward the ray before the bump, as the unfused
     path's ``isect.normal`` arrives, and ``shade.textured_surface`` gives the
     albedo and the bump-perturbed normal (zero without a mesh hit)."""
     tables = dev.mxu_mesh
     ro, rd = paths.origin, paths.direction
-    mh = _mesh_traversal(tables, static, cfg, paths, t_lim, plain, budget_rays)
+    mh = mesh_walk(tables, static, cfg, paths, t_lim, plain, budget_rays)
     tri_hit = mh.tri >= 0
     at = intersect_mxu.resolve_attributes(tables, static.mxu_padded_tris, mh.tri)
     uu, vv = intersect_mxu.winner_uv_from_geom(
@@ -1013,18 +1047,20 @@ def _fused_mesh_bounce_at(dev, static, cfg, paths, resort, su_key, rng_n,
     if static.num_textures > 0:
         mesh_t, mesh_normal, mesh_mat, albedo = textured_mesh_surface(
             dev, static, cfg, paths, t_lim, plain, budget_rays)
-        mode = "textured"
+        mode, mesh_tri = "textured", None
     else:
-        mesh_t, mesh_normal, mesh_mat = mesh_surface(tables, static, cfg, paths, t_lim, plain,
-                                                     budget_rays)
-        mode, albedo = "plain", None
+        # The shade kernel resolves the winner's surface itself.
+        mh = mesh_walk(tables, static, cfg, paths, t_lim, plain, budget_rays)
+        mesh_t, mesh_normal, mesh_mat, mode, albedo = mh.t, None, None, "plain", None
+        mesh_tri = mh.tri
     with span("mesh.shade"):
         # The key rides along wherever the next bounce sorts by it.
         keyed = sort_rays and next_resort and sort_mode == "signature"
         emit = ("tlim+key" if keyed else "tlim") if want_carry else ""
         shade = fused_mesh_shade_plain if plain else fused_mesh_shade
         return shade(prim_static, cfg, paths, mesh_t, mesh_normal, mesh_mat, su_key, rng_n,
-                     emit=emit, tables=tables, mode=mode, mesh_albedo=albedo, prim_winner=win)
+                     emit=emit, tables=tables, mode=mode, mesh_albedo=albedo, prim_winner=win,
+                     mesh_tri=mesh_tri)
 
 
 # ---------------------------------------------------------------------------

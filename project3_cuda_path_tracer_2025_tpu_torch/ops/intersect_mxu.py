@@ -118,6 +118,7 @@ DEAD_KEY = (1 << 30) + 1  # coherence key of a dead ray
 MONO_COEF = (("det", range(0, 3)), ("u", range(0, 6)), ("v", range(0, 6)),
              ("t", range(6, 10)))
 COEF_W = 20  # 19 coefficients + 1 pad
+SHADE_ROW = 24  # attrs_shade: n0 n1 n2 (0:9), material (9), v0 e1 e2 (10:19), pad
 
 
 def stream_super_enabled(padded_tris: int) -> bool:
@@ -287,7 +288,7 @@ def build_mxu_tables(
     attrs[:t, 24:27] = pos[:, 0]
     attrs[:t, 27:30] = pos[:, 1] - pos[:, 0]
     attrs[:t, 30:33] = pos[:, 2] - pos[:, 0]
-    attrs_shade = np.zeros((tp, 24), np.float32)
+    attrs_shade = np.zeros((tp, SHADE_ROW), np.float32)
     attrs_shade[:, 0:9] = attrs[:, 0:9]  # vertex normals
     attrs_shade[:, 9] = attrs[:, 21]  # material id
     attrs_shade[:, 10:19] = attrs[:, 24:33]  # v0, e1, e2
@@ -306,7 +307,7 @@ def tables_from_arrays(features, tile_aabb, attrs=None, attrs_shade=None, center
     if attrs is None:
         attrs = np.zeros((tp, 40), np.float32)
     if attrs_shade is None:
-        attrs_shade = np.zeros((tp, 24), np.float32)
+        attrs_shade = np.zeros((tp, SHADE_ROW), np.float32)
     aabb = f(tile_aabb)
     return MXUMeshTables(
         features=features, tile_aabb=aabb, attrs=f(attrs),

@@ -117,12 +117,12 @@ class PttMeshShadeArgs(ctypes.Structure):
     _fields_ = [
         ("scene", _p), ("in_f", _p * 9), ("in_bounces", _p), ("pixel", _p),
         ("mesh_t", _p), ("mesh_n", _p * 3), ("mesh_mat", _p), ("mesh_alb", _p * 3),
-        ("prim_win", _p), ("tile_aabb", _p), ("center", _p), ("root_box", _p),
+        ("mesh_tri", _p), ("attrs_shade", _p), ("prim_win", _p), ("tile_aabb", _p), ("center", _p), ("root_box", _p),
         ("out_f", _p * 9), ("out_bounces", _p), ("out_tlim", _p), ("out_key", _p),
         ("out_win", _p),
         ("k0", _u), ("k1", _u), ("rng_n", _u),
         ("n", _i), ("ct", _i), ("emit", _i), ("mode", _i),
-        ("num_geoms", _i), ("num_materials", _i), ("pad", _i),
+        ("num_geoms", _i), ("num_materials", _i), ("padded_tris", _i), ("baby_eps", _f),
     ]
 
 
@@ -219,6 +219,7 @@ def _mesh_abi_expected() -> list:
     return [
         ctypes.sizeof(PttScene),
         ctypes.sizeof(PttMeshShadeArgs),
+        PttMeshShadeArgs.mesh_tri.offset,
         PttMeshShadeArgs.prim_win.offset,
         PttMeshShadeArgs.root_box.offset,
         PttMeshShadeArgs.out_win.offset,
@@ -226,11 +227,13 @@ def _mesh_abi_expected() -> list:
         PttMeshShadeArgs.n.offset,
         PttMeshShadeArgs.mode.offset,
         PttMeshShadeArgs.num_geoms.offset,
+        PttMeshShadeArgs.baby_eps.offset,
         ctypes.sizeof(PttGeom),
         ctypes.sizeof(PttMaterial),
         PttScene.geoms.offset,
         mxu.TRI_TILE,
         mxu.COEF_W,
+        mxu.SHADE_ROW,
     ]
 
 

@@ -179,9 +179,10 @@ def sorted_bounces(dev, static, cam, cfg, device, bounces: int = 3) -> list:
         paths, (tl,) = permute_path_state(paths, perm, extra=(tl,))
         live = paths.alive & mxu.root_hit_mask(tables, paths.origin, paths.direction, tl)
         out.append((paths, tl, live))
-        mt, mn, mm = fused.mesh_surface(tables, static, cfg, paths, tl)
-        paths = fused.fused_mesh_shade_plain(prim_static, cfg, paths, mt, mn, mm,
-                                             prng.stage_key(ik, d, 1), n)
+        mh = fused.mesh_walk(tables, static, cfg, paths, tl)
+        paths = fused.fused_mesh_shade_plain(prim_static, cfg, paths, mh.t, None, None,
+                                             prng.stage_key(ik, d, 1), n, tables=tables,
+                                             mesh_tri=mh.tri)
     return out
 
 
@@ -190,11 +191,11 @@ def shade_states(dev, static, cam, cfg, device, bounces: int):
     the shade kernel (#3): yields (args, kwargs) of ``fused_mesh_shade``.
     The rays are in the main path's coherence order with their t_limit and
     their prim winner (``prim_t_min(..., winner=True)``, permuted with them:
-    the winner the bounce before emits); the mesh surface is
-    ``mesh_surface``, or ``textured_mesh_surface`` in mode "textured" for a
-    textured mesh; emit is the main path's ("tlim+key"; none on the frame's
-    last bounce).  The next bounce comes from the plain shade.  Works on any
-    checkout's package whose shade takes the key's ``tables``."""
+    the winner the bounce before emits); the mesh inputs are the walk's
+    ``(t, tri)`` (``fused.mesh_walk``; ``mesh_tri`` in the kwargs), or
+    ``textured_mesh_surface``'s in mode "textured" for a textured mesh; emit
+    is the main path's ("tlim+key"; none on the frame's last bounce).  The
+    next bounce comes from the plain shade."""
     import dataclasses
 
     from project3_cuda_path_tracer_2025_tpu_torch.ops import camera as camera_ops
@@ -218,15 +219,17 @@ def shade_states(dev, static, cam, cfg, device, bounces: int):
                                   cfg.ray_sort_dir_bits, mode="signature")
         paths, (tl, win) = permute_path_state(paths, perm, extra=(tl, win))
         if mode == "plain":
-            (mt, mn, mm), alb = fused.mesh_surface(tables, static, cfg, paths, tl), None
+            mh = fused.mesh_walk(tables, static, cfg, paths, tl)
+            (mt, mn, mm, alb), tri = (mh.t, None, None, None), mh.tri
         else:
-            mt, mn, mm, alb = fused.textured_mesh_surface(dev, static, cfg, paths, tl)
+            (mt, mn, mm, alb), tri = fused.textured_mesh_surface(dev, static, cfg, paths, tl), None
         emit = "" if d == static.trace_depth - 1 else "tlim+key"
         skey = prng.stage_key(ik, d, 1)
-        args = (prim_static, cfg, paths, mt, mn, mm, skey, n, emit, tables if emit else None)
-        yield args, dict(mode=mode, mesh_albedo=alb, prim_winner=win)
+        args = (prim_static, cfg, paths, mt, mn, mm, skey, n, emit, tables)
+        yield args, dict(mode=mode, mesh_albedo=alb, prim_winner=win, mesh_tri=tri)
         paths = fused.fused_mesh_shade_plain(prim_static, cfg, paths, mt, mn, mm, skey, n,
-                                             mode=mode, mesh_albedo=alb)
+                                             tables=tables, mode=mode, mesh_albedo=alb,
+                                             mesh_tri=tri)
 
 
 def shade_outputs(out, emit: str) -> tuple:

@@ -44,11 +44,29 @@ void ptt_host_mono(const float* coef, const float* aabb, int32_t ct, const float
   }
 }
 
+// mesh_surface over rays (ray: origin xyz, direction xyz): the normal
+// (zero without a mesh hit) and material (-1 without one) of each ray's
+// winner tri, from the rows of attrs (ops/fused.py::resolve_mesh_surface).
+void ptt_host_mesh_surface(const float* attrs, int32_t rows, const int32_t* tri,
+                           const float* const* ray, float baby_eps, int32_t n,
+                           float* const* out_n, int32_t* out_mat) {
+  for (int32_t i = 0; i < n; ++i) {
+    V3 mn = v3(0.0f, 0.0f, 0.0f);
+    out_mat[i] = mesh_surface(attrs, rows, tri[i], v3(ray[0][i], ray[1][i], ray[2][i]),
+                              v3(ray[3][i], ray[4][i], ray[5][i]), baby_eps, &mn);
+    out_n[0][i] = mn.x;
+    out_n[1][i] = mn.y;
+    out_n[2][i] = mn.z;
+  }
+}
+
 // ptt_mesh_shade_kernel; emit: 0 none, 1 t_lim, 2 t_lim + key; mode: 0
-// plain, 1 textured, 2 precomputed (mesh_alb is read in modes 1 and 2);
-// prim_win: the carried prim winner of each ray (null: test every prim);
-// out_win (emit >= 1, may be null): the prim that gives out_tlim; aabb,
-// box (the root box) and center: the key's tables (emit 2).
+// plain (each live lane's surface resolved from mesh_tri and the rows of
+// attrs, as the kernel resolves it), 1 textured, 2 precomputed (mesh_n,
+// mesh_mat and mesh_alb are read in modes 1 and 2); prim_win: the carried
+// prim winner of each ray (null: test every prim); out_win (emit >= 1, may
+// be null): the prim that gives out_tlim; aabb, box (the root box) and
+// center: the key's tables (emit 2).
 void ptt_host_mesh_shade_win(const PttScene* s, const float* const* in_f,
                              const int32_t* in_bounces, const int32_t* pixel,
                              const float* mesh_t, const float* const* mesh_n,
@@ -57,17 +75,25 @@ void ptt_host_mesh_shade_win(const PttScene* s, const float* const* in_f,
                              float* out_tlim, int32_t* out_key, uint32_t k0, uint32_t k1,
                              uint32_t rng_n, int32_t n, int32_t ct, int32_t emit, int32_t mode,
                              const float* const* mesh_alb, const int32_t* prim_win,
-                             int32_t* out_win) {
+                             int32_t* out_win, const int32_t* mesh_tri, const float* attrs,
+                             int32_t rows, float baby_eps) {
   for (int32_t i = 0; i < n; ++i) {
     Ray ray;
     ray.o = v3(in_f[0][i], in_f[1][i], in_f[2][i]);
     ray.d = v3(in_f[3][i], in_f[4][i], in_f[5][i]);
     ray.c = v3(in_f[6][i], in_f[7][i], in_f[8][i]);
     ray.bounces = in_bounces[i];
-    const V3 alb = mode == PTT_SHADE_PLAIN ? v3(0.0f, 0.0f, 0.0f)
-                                           : v3(mesh_alb[0][i], mesh_alb[1][i], mesh_alb[2][i]);
-    mesh_shade_ray(*s, ray, mesh_t[i], v3(mesh_n[0][i], mesh_n[1][i], mesh_n[2][i]), mesh_mat[i],
-                   mode, alb, k0, k1, rng_n, pixel[i], prim_win ? prim_win[i] : PTT_NO_WINNER);
+    V3 mn = v3(0.0f, 0.0f, 0.0f), alb = mn;
+    int32_t mmat = -1;
+    if (mode != PTT_SHADE_PLAIN) {
+      mn = v3(mesh_n[0][i], mesh_n[1][i], mesh_n[2][i]);
+      mmat = mesh_mat[i];
+      alb = v3(mesh_alb[0][i], mesh_alb[1][i], mesh_alb[2][i]);
+    } else if (ray.bounces > 0) {
+      mmat = mesh_surface(attrs, rows, mesh_tri[i], ray.o, ray.d, baby_eps, &mn);
+    }
+    mesh_shade_ray(*s, ray, mesh_t[i], mn, mmat, mode, alb, k0, k1, rng_n, pixel[i],
+                   prim_win ? prim_win[i] : PTT_NO_WINNER);
     out_f[0][i] = ray.o.x;
     out_f[1][i] = ray.o.y;
     out_f[2][i] = ray.o.z;
@@ -97,10 +123,12 @@ void ptt_host_mesh_shade(const PttScene* s, const float* const* in_f, const int3
                          const float* center, float* const* out_f, int32_t* out_bounces,
                          float* out_tlim, int32_t* out_key, uint32_t k0, uint32_t k1,
                          uint32_t rng_n, int32_t n, int32_t ct, int32_t emit, int32_t mode,
-                         const float* const* mesh_alb) {
+                         const float* const* mesh_alb, const int32_t* mesh_tri,
+                         const float* attrs, int32_t rows, float baby_eps) {
   ptt_host_mesh_shade_win(s, in_f, in_bounces, pixel, mesh_t, mesh_n, mesh_mat, aabb, box,
                           center, out_f, out_bounces, out_tlim, out_key, k0, k1, rng_n, n, ct,
-                          emit, mode, mesh_alb, nullptr, nullptr);
+                          emit, mode, mesh_alb, nullptr, nullptr, mesh_tri, attrs, rows,
+                          baby_eps);
 }
 
 // coherence_key over rays (ray: origin xyz, direction xyz; alive: 0/1).

@@ -259,10 +259,10 @@ def test_mono_kernel_matches_plain(cuda):
         assert torch.equal(tri_k, tri_p)
         assert torch.equal(t_k, t_p)
         hits += int((tri_k >= 0).sum())
-        mt, mn, mm = fused.mesh_surface(dev.mxu_mesh, static, cfg, paths, tl, plain=True)
+        mh = fused.mesh_walk(dev.mxu_mesh, static, cfg, paths, tl, plain=True)
         paths = fused.fused_mesh_shade_plain(
-            prim_static, cfg, paths, mt, mn, mm, prng.stage_key(ik, d, 1),
-            static.pixel_count)
+            prim_static, cfg, paths, mh.t, None, None, prng.stage_key(ik, d, 1),
+            static.pixel_count, tables=dev.mxu_mesh, mesh_tri=mh.tri)
     assert hits > 100
     assert intersect_mxu.mono_intersect.launches == before + 3
 
@@ -277,11 +277,11 @@ def test_mesh_shade_kernel_matches_plain(cuda, emit):
     before = fused.fused_mesh_shade.launches
     for d in range(3):
         tl = prim_t_min(static, cfg, paths.origin, paths.direction)
-        mt, mn, mm = fused.mesh_surface(tables, static, cfg, paths, tl)
-        args = (prim_static, cfg, paths, mt, mn, mm, prng.stage_key(ik, d, 1),
+        mh = fused.mesh_walk(tables, static, cfg, paths, tl)
+        args = (prim_static, cfg, paths, mh.t, None, None, prng.stage_key(ik, d, 1),
                 static.pixel_count, emit, tables)
-        got = fused.fused_mesh_shade(*args)
-        want = fused.fused_mesh_shade_plain(*args)
+        got = fused.fused_mesh_shade(*args, mesh_tri=mh.tri)
+        want = fused.fused_mesh_shade_plain(*args, mesh_tri=mh.tri)
         got_p, got_c = got if emit else (got, (None, None, None))
         want_p, want_c = want if emit else (want, (None, None, None))
         assert torch.equal(got_p.bounces, want_p.bounces)
@@ -348,9 +348,10 @@ def _bounce_states(name, res, device, bounces=3):
                                             mode="signature")
         paths, (tl,) = permute_path_state(paths, perm, extra=(tl,))
         states.append((paths.origin, paths.direction, paths.alive, tl))
-        mt, mn, mm = fused.mesh_surface(tables, static, cfg, paths, tl, plain=True)
-        paths = fused.fused_mesh_shade_plain(prim_static, cfg, paths, mt, mn, mm,
-                                             prng.stage_key(ik, d, 1), static.pixel_count)
+        mh = fused.mesh_walk(tables, static, cfg, paths, tl, plain=True)
+        paths = fused.fused_mesh_shade_plain(prim_static, cfg, paths, mh.t, None, None,
+                                             prng.stage_key(ik, d, 1), static.pixel_count,
+                                             tables=tables, mesh_tri=mh.tri)
     return dev, static, states
 
 
@@ -1031,16 +1032,22 @@ def test_prim_tables_beyond_shared_memory(cuda):
     cfg, n = RenderConfig(), static.pixel_count
     ik, paths = _camera_paths(static, cam, cuda)
     idx = torch.arange(n, device=cuda)
-    zero = torch.zeros(n, device=cuda)
+    # A made-up mesh of 200 triangles, the k-th of material k, its vertex
+    # normals all +z: a mesh hit on every third lane.
+    rows = torch.zeros((200, intersect_mxu.SHADE_ROW), device=cuda)
+    rows[:, [2, 5, 8]] = 1.0
+    rows[:, 9] = torch.arange(200, device=cuda).float()
+    rows[:, 13], rows[:, 17] = 1.0, 1.0  # e1 = x, e2 = y
+    mesh = types.SimpleNamespace(attrs_shade=rows)
     for d in range(2):
         skey = prng.stage_key(ik, d, 1)
         su = prng.uniforms_at(skey, idx, 3, n)
-        hit = (idx % 3 == 0) & paths.alive  # a made-up mesh hit on every third lane
-        sargs = (static, cfg, paths, torch.where(hit, 0.5, 0.0).float(),
-                 type(paths.origin)(zero, zero, torch.where(hit, 1.0, 0.0).float()),
-                 torch.where(hit, idx % 200, -1).to(torch.int32), skey, n, "tlim")
-        got_s, (got_tl, _, _) = fused.fused_mesh_shade(*sargs)
-        want_s, (want_tl, _, _) = fused.fused_mesh_shade_plain(*sargs)
+        hit = (idx % 3 == 0) & paths.alive
+        sargs = (static, cfg, paths, torch.where(hit, 0.5, 0.0).float(), None, None, skey, n,
+                 "tlim", mesh)
+        tri = torch.where(hit, idx % 200, -1).to(torch.int32)
+        got_s, (got_tl, _, _) = fused.fused_mesh_shade(*sargs, mesh_tri=tri)
+        want_s, (want_tl, _, _) = fused.fused_mesh_shade_plain(*sargs, mesh_tri=tri)
         got = fused.fused_prim_bounce(static, cfg, paths, su)
         want = fused.fused_prim_bounce_plain(static, cfg, paths, su)
         assert _bits_equal(fused.fused_prim_bounce(static, cfg, paths, su_key=skey), got)
@@ -1122,10 +1129,12 @@ def test_iteration_kernel_regenerates_at_any_size(cuda, case):
 
 
 def _sorted_shade_states(static, dev, cam, device, bounces):
-    """Each sorted bounce of a mesh frame as the main path shades it: the
-    rays in coherence order with their t_limit and carried prim winner
-    (``prim_t_min(..., winner=True)``, permuted with them), the mesh
-    surface; the next bounce from the plain shade."""
+    """Each sorted bounce of a mesh frame as the main path shades it:
+    yields (args, tri, win), the shade's arguments with the rays in
+    coherence order and their t_limit, the walk's winning triangles
+    (``mesh_tri``) and the carried prim winner (``prim_t_min(...,
+    winner=True)``, permuted with the rays); the next bounce from the plain
+    shade."""
     cfg = RenderConfig()
     tables = dev.mxu_mesh
     ik, paths = _camera_paths(static, cam, device)
@@ -1136,11 +1145,11 @@ def _sorted_shade_states(static, dev, cam, device, bounces):
                                             tl, cfg.ray_sort_bits, cfg.ray_sort_dir_bits,
                                             mode="signature")
         paths, (tl, win) = permute_path_state(paths, perm, extra=(tl, win))
-        mt, mn, mm = fused.mesh_surface(tables, static, cfg, paths, tl, plain=True)
-        args = (prim_static, cfg, paths, mt, mn, mm, prng.stage_key(ik, d, 1),
+        mh = fused.mesh_walk(tables, static, cfg, paths, tl, plain=True)
+        args = (prim_static, cfg, paths, mh.t, None, None, prng.stage_key(ik, d, 1),
                 static.pixel_count, "tlim+key", tables)
-        yield args, win
-        paths = fused.fused_mesh_shade_plain(*args)[0]
+        yield args, mh.tri, win
+        paths = fused.fused_mesh_shade_plain(*args, mesh_tri=mh.tri)[0]
 
 
 def _shade_bits(out):
@@ -1157,15 +1166,15 @@ def test_mesh_shade_kernel_carried_winner_on_sorted_bounces(cuda):
     dev, static, cam = _setup(MESH, 160, cuda)
     before = fused.fused_mesh_shade.launches
     taken = 0
-    for args, win in _sorted_shade_states(static, dev, cam, cuda, static.trace_depth):
-        got = fused.fused_mesh_shade(*args, prim_winner=win)
-        want = fused.fused_mesh_shade_plain(*args, prim_winner=win)
-        every = fused.fused_mesh_shade(*args)
+    for args, tri, win in _sorted_shade_states(static, dev, cam, cuda, static.trace_depth):
+        got = fused.fused_mesh_shade(*args, prim_winner=win, mesh_tri=tri)
+        want = fused.fused_mesh_shade_plain(*args, prim_winner=win, mesh_tri=tri)
+        every = fused.fused_mesh_shade(*args, mesh_tri=tri)
         for a, b in zip(_shade_bits(got), _shade_bits(want)):
             assert torch.equal(a, b)
         for a, b in zip(_shade_bits(got), _shade_bits(every)):
             assert torch.equal(a, b)
-        taken += int((args[2].alive & (args[5] < 0) & (win >= 0)).sum())
+        taken += int((args[2].alive & (tri < 0) & (win >= 0)).sum())
     assert fused.fused_mesh_shade.launches == before + 2 * static.trace_depth
     assert taken > 1000
 
@@ -1203,18 +1212,136 @@ def test_mesh_shade_kernel_key_at_any_tile_count(cuda, table):
     dev, static, cam = _setup(MESH_200K, 128, cuda)
     tables = dev.mxu_mesh
     assert tables.tile_aabb.shape[0] == 196
-    key_tables = tables if table == "200k" else _large_table(tables.center, cuda)[0]
+    # The surface rows stay the knot's, which the walk's winners index.
+    key_tables = tables if table == "200k" else types.SimpleNamespace(
+        **{**vars(_large_table(tables.center, cuda)[0]), "attrs_shade": tables.attrs_shade})
     live = 0
-    for args, win in _sorted_shade_states(static, dev, cam, cuda, 3):
+    for args, tri, win in _sorted_shade_states(static, dev, cam, cuda, 3):
         args = (*args[:9], key_tables)
-        got = fused.fused_mesh_shade(*args, prim_winner=win)
-        want = fused.fused_mesh_shade_plain(*args, prim_winner=win)
+        got = fused.fused_mesh_shade(*args, prim_winner=win, mesh_tri=tri)
+        want = fused.fused_mesh_shade_plain(*args, prim_winner=win, mesh_tri=tri)
         for a, b in zip(_shade_bits(got), _shade_bits(want)):
             assert torch.equal(a, b)
         p, (tl, key, _) = got
         assert torch.equal(key, _torch_key(key_tables, p, tl))
         live += int((key < (1 << 30)).sum())
     assert live > 1000
+
+
+# case -> (scene, resolution, the walk that feeds the shade, its traversal)
+SURFACE_CASES = {
+    "5k mono": (MESH, 160, "mono_intersect", "auto"),
+    "200k binned": (MESH_200K, 128, "binned_intersect", "binned"),
+}
+
+
+# emit -> the planes a shade call gives back: the paths' 11, then t_lim, the
+# key and the winner of its MeshCarry where it emits them
+SHADE_PLANES = {"": 11, "tlim": 13, "tlim+key": 14}
+
+
+def _flat_outputs(out):
+    """A shade's outputs as flat int32 views: the paths and the MeshCarry."""
+    if out is None:
+        return []
+    if isinstance(out, torch.Tensor):
+        return [out.view(torch.int32) if out.dtype == torch.float32 else out]
+    return [x for e in out for x in _flat_outputs(e)]
+
+
+@pytest.mark.parametrize("case", list(SURFACE_CASES))
+def test_mesh_shade_resolves_the_walks_surface(cuda, case, monkeypatch):
+    """#3 in mode "plain" on the main path's own calls: one frame, sorted,
+    with prefix tiers (4, 2), of the 5k mesh through mono walk #4 and of the
+    200k knot through binned #10.  Every shade call takes the walk's (t,
+    tri) and no resolved surface, and is bit-equal to
+    ``fused_mesh_shade_plain`` on the same arguments, paths and
+    ``MeshCarry``; calls on a tier's head among them."""
+    name, res, walk, traversal = SURFACE_CASES[case]
+    dev, static, cam = _setup(name, res, cuda)
+    n = static.pixel_count
+    calls, shade = [], fused.fused_mesh_shade
+
+    def spy(*a, **k):
+        got = shade(*a, **k)
+        want = fused.fused_mesh_shade_plain(*a, **k)
+        got_f, want_f = _flat_outputs(got), _flat_outputs(want)
+        calls.append((k["mode"], a[4] is None and a[5] is None, k["tables"] is dev.mxu_mesh,
+                      (len(got_f), len(want_f)), SHADE_PLANES[k["emit"]],
+                      all(torch.equal(x, y) for x, y in zip(got_f, want_f)),
+                      a[2].pixel.shape[0], int(((k["mesh_tri"] >= 0) & a[2].alive).sum())))
+        return got
+    spy.__dict__ = shade.__dict__
+    monkeypatch.setattr(fused, "fused_mesh_shade", spy)
+    walk_fn = getattr(intersect_mxu, walk)
+    before = walk_fn.launches
+    cfg = RenderConfig(ray_sorting="on", bounce_prefix_tiers=(4, 2), mxu_traversal=traversal)
+    megakernel_iteration(dev, static, cfg, cam, film_ops.new_film(n, cuda), 1, prng.prng_key(0))
+    assert walk_fn.launches > before
+    assert len(calls) == static.trace_depth
+    for mode, unresolved, own_tables, planes, want_planes, equal, _, _ in calls:
+        assert (mode, unresolved, own_tables) == ("plain", True, True)
+        assert planes == (want_planes, want_planes) and equal, (case, calls)
+    assert calls[0][4] == SHADE_PLANES["tlim+key"] and calls[-1][4] == SHADE_PLANES[""]
+    heads = sum(c[6] < n for c in calls)
+    hits = sum(c[7] for c in calls)
+    assert heads >= 1 and hits > 1000, (heads, hits)
+
+
+def _frame_launches(scene, wrap=None):
+    """Device activities (kernels, copies, fills) and ``mesh.surface`` spans
+    of one traced ``Renderer.step_many(1)``: the second frame of a fresh
+    renderer of seed 5 (the first warms it up), so two calls trace the
+    same frame.  ``wrap`` replaces ``fused.fused_mesh_shade`` meanwhile."""
+    from project3_cuda_path_tracer_2025_tpu_torch.utils import timers
+
+    r = Renderer(scene, RenderConfig(), seed=5, device="cuda:0")
+    r.step_many(1)
+    shade = fused.fused_mesh_shade
+    if wrap is not None:
+        fused.fused_mesh_shade = wrap(shade)
+        fused.fused_mesh_shade.__dict__ = shade.__dict__  # its launch count is the kernel's
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            r.step_many(1)
+            torch.cuda.synchronize()
+    finally:
+        fused.fused_mesh_shade = shade
+    launches = spans = 0
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == torch.autograd.DeviceType.CPU:
+            spans += name == timers.SPAN_PREFIX + "mesh.surface"
+        elif hasattr(e, "activity_type"):
+            launches += e.activity_type() in ("kernel", "gpu_memcpy", "gpu_memset")
+        else:
+            launches += not (name.startswith(("ProfilerStep#", timers.SPAN_PREFIX))
+                             or (hasattr(e, "is_user_annotation") and e.is_user_annotation()))
+    return launches, spans, r.static.trace_depth
+
+
+@pytest.mark.parametrize("name", [MESH, MESH_200K])
+def test_step_many_leaves_the_surface_to_the_shade(cuda, name):
+    """``Renderer.step_many`` on the 5k mesh and the 200k knot at 64x64:
+    no ``mesh.surface`` span opens, and the frame launches exactly 91 device
+    activities a bounce fewer than the same frame with the torch resolve
+    (``resolve_mesh_surface``, the surface stage the kernel took over) run
+    before each shade launch."""
+    scene = set_resolution(load_scene(str(REPO / "scenes" / name)), 64, 64)
+
+    def with_torch_resolve(shade):
+        def run(*a, **k):
+            paths = a[2]
+            fused.resolve_mesh_surface(k["tables"], k["mesh_tri"], paths.origin,
+                                       paths.direction, a[1].baby_epsilon)
+            return shade(*a, **k)
+        return run
+
+    got, got_spans, depth = _frame_launches(scene)
+    torch_resolve, resolve_spans, _ = _frame_launches(scene, with_torch_resolve)
+    assert (got_spans, resolve_spans) == (0, depth)
+    assert torch_resolve - got == 91 * depth, (got, torch_resolve)
 
 
 @pytest.mark.parametrize("case", ["200k camera", "8192 tiles"])
@@ -1385,20 +1512,19 @@ def test_mesh_shade_kernel_winner_tie_and_inside(cuda):
     from torch_fixtures import winner_case
 
     dev, static, _ = _setup(MESH, 8, cuda)
-    prim_static, paths, mt, mn, mm = winner_case(static, np.random.default_rng(7), n=4096)
+    prim_static, paths, mt, tri = winner_case(static, np.random.default_rng(7), n=4096)
     to = lambda x: x.to(cuda)
     paths = type(paths)(*(type(f)(*map(to, f)) if isinstance(f, tuple) else to(f)
                           for f in paths))
-    mt, mm = to(mt), to(mm)
-    mn = type(mn)(*map(to, mn))
+    mt, tri = to(mt), to(tri)
     cfg = RenderConfig()
     win = prim_t_min(prim_static, cfg, paths.origin, paths.direction, winner=True)[1]
     for emit in ("tlim", "tlim+key"):
-        args = (prim_static, cfg, paths, mt, mn, mm, prng.prng_key(4), 4096, emit,
+        args = (prim_static, cfg, paths, mt, None, None, prng.prng_key(4), 4096, emit,
                 dev.mxu_mesh)
-        got = fused.fused_mesh_shade(*args, prim_winner=win)
-        want = fused.fused_mesh_shade_plain(*args, prim_winner=win)
-        every = fused.fused_mesh_shade(*args)
+        got = fused.fused_mesh_shade(*args, prim_winner=win, mesh_tri=tri)
+        want = fused.fused_mesh_shade_plain(*args, prim_winner=win, mesh_tri=tri)
+        every = fused.fused_mesh_shade(*args, mesh_tri=tri)
         for a, b in zip(_shade_bits(got), _shade_bits(want)):
             assert torch.equal(a, b)
         for a, b in zip(_shade_bits(got), _shade_bits(every)):

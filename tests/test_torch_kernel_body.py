@@ -44,7 +44,7 @@ from project3_cuda_path_tracer_2025_tpu_torch.scene import (
     build_device_scene, camera_state, derive_render_camera, load_scene, many_prims_scene,
     scene_from_dict, set_resolution,
 )
-from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
+from project3_cuda_path_tracer_2025_tpu_torch.utils import prng, vec
 from project3_cuda_path_tracer_2025_tpu_torch.utils.vec import Vec3
 from torch_compare import (
     ATOL_WORLD, FILM_ATOL, FILM_RTOL, assert_films_close, build_host, close3,
@@ -373,12 +373,15 @@ def mesh_lib(tmp_path_factory):
         [P, P, ctypes.c_int32, P, P, P, P, P, ctypes.c_int32, ctypes.c_float,
          ctypes.c_float, ctypes.c_int32, P, P]
     )
+    resolve = [P, P, ctypes.c_int32, ctypes.c_float]  # mesh_tri, attrs, rows, baby_eps
     lib.ptt_host_mesh_shade.argtypes = (
-        [P] * 14 + [ctypes.c_uint32] * 3 + [ctypes.c_int32] * 4 + [P]
+        [P] * 14 + [ctypes.c_uint32] * 3 + [ctypes.c_int32] * 4 + [P] + resolve
     )
     lib.ptt_host_mesh_shade_win.argtypes = (
-        [P] * 14 + [ctypes.c_uint32] * 3 + [ctypes.c_int32] * 4 + [P] * 3
+        [P] * 14 + [ctypes.c_uint32] * 3 + [ctypes.c_int32] * 4 + [P] * 3 + resolve
     )
+    lib.ptt_host_mesh_surface.argtypes = (
+        [P, ctypes.c_int32, P, P, ctypes.c_float, ctypes.c_int32, P, P])
     lib.ptt_host_coherence_key.argtypes = [P, ctypes.c_int32, P, P, P, P, P, ctypes.c_int32, P]
     lib.ptt_host_mesh_prelude.argtypes = [P] * 9 + [ctypes.c_int32] * 3
     sizes = (ctypes.c_int32 * 2)()
@@ -447,10 +450,72 @@ def test_host_mono_matches_plain(mesh_lib, mesh_scene):
         assert torch.equal(got_t, want_t)
 
 
+def _surface_rays(rows, num_tris, rng, m=4000):
+    """Rays at random triangles of attrs_shade ``rows`` -> (tri, ro, rd,
+    kind): a quarter each from the front, from behind (back-facing hits:
+    det < 0), in the triangle's plane along e1 (|det| far below
+    baby_epsilon, so the resolve divides by 1), and misses (tri = -1)."""
+    q = m // 4
+    tri = rng.integers(0, num_tris, m)
+    r = rows[tri].astype(np.float64)
+    v0, e1, e2 = r[:, 10:13], r[:, 13:16], r[:, 16:19]
+    c = v0 + (e1 + e2) / 3.0
+    fn = np.cross(e1, e2)
+    fn /= np.linalg.norm(fn, axis=1, keepdims=True)
+    side = np.repeat([1.0, -1.0, 0.0, 1.0], q)[:, None]
+    o = c + side * fn * rng.uniform(0.05, 2.0, (m, 1))
+    o[2 * q:3 * q] -= e1[2 * q:3 * q]
+    aim = c + rng.uniform(-0.2, 0.2, (m, 1)) * e1 + rng.uniform(-0.2, 0.2, (m, 1)) * e2
+    d = aim - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    kind = np.repeat(["front", "back", "in plane", "miss"], q)
+    tri[kind == "miss"] = -1
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    return (torch.from_numpy(tri.astype(np.int32)), Vec3(*(f(o[:, i]) for i in range(3))),
+            Vec3(*(f(d[:, i]) for i in range(3))), kind)
+
+
+@pytest.mark.parametrize("name,flat", [("cornell_mesh_5k.json", False),
+                                       ("cornell_mesh_80k.json", True)], ids=["5k", "80k flat"])
+def test_host_mesh_surface_matches_resolve(mesh_lib, name, flat):
+    """``mesh_surface`` (mode "plain"'s resolve in the shade kernel) built
+    for the host against ``fused.resolve_mesh_surface`` bit for bit: the
+    normal and the material of ``_surface_rays``' front, back-facing,
+    in-plane (|det| below baby_epsilon) and missing rays, on the 5k mesh's
+    rows (ico4.obj's vertex normals) and the 80k knot's (an OBJ without
+    normals: the flat-normal fallback, n0 = n1 = n2)."""
+    scene = set_resolution(load_scene(str(REPO / "scenes" / name)), 8, 8)
+    dev, static = build_device_scene(scene, "cpu")
+    tables, cfg = dev.mxu_mesh, RenderConfig()
+    rows = tables.attrs_shade.numpy()[:static.num_triangles]
+    assert bool((rows[:, 0:3] == rows[:, 3:6]).all()) == flat
+    tri, ro, rd, kind = _surface_rays(rows, static.num_triangles, np.random.default_rng(4))
+    want_n, want_mat = fused.resolve_mesh_surface(tables, tri, ro, rd, cfg.baby_epsilon)
+    n = tri.shape[0]
+    got_n, got_mat = [torch.empty(n) for _ in range(3)], torch.empty(n, dtype=torch.int32)
+    mesh_lib.ptt_host_mesh_surface(
+        tables.attrs_shade.data_ptr(), tables.attrs_shade.shape[0], tri.data_ptr(),
+        _ptrs([p.contiguous() for p in (*ro, *rd)]), cfg.baby_epsilon, n, _ptrs(got_n),
+        got_mat.data_ptr())
+    _bits_equal([*got_n, got_mat], [*want_n, want_mat])
+    # Every kind is there: det's sign splits front from back, the in-plane
+    # rays fall below the floor, the misses give -1 and a zero normal.
+    at = intersect_mxu.resolve_shade_attributes(tables, tables.attrs_shade.shape[0], tri)
+    e1, e2 = (Vec3(*(at[:, a + i] for i in range(3))) for a in (13, 16))
+    det = vec.dot(e1, vec.cross(rd, e2)).numpy()
+    live = kind != "miss"
+    assert (det[kind == "front"] > 0).all() and (det[kind == "back"] < 0).all()
+    assert (np.abs(det[kind == "in plane"]) < np.float32(cfg.baby_epsilon)).all()
+    assert (want_mat.numpy()[~live] == -1).all() and (want_mat.numpy()[live] >= 0).all()
+    assert not any(bool(c[torch.from_numpy(~live)].any()) for c in want_n)
+    assert bool(torch.isfinite(torch.stack(list(want_n))).all())
+
+
 @pytest.mark.parametrize("emit", fused.EMIT_MODES)
 def test_host_mesh_shade_matches_plain(mesh_lib, mesh_scene, emit):
     """Three chained bounces of the 5k mesh scene from camera rays, with the
-    mesh surface of the plain traversal, through both shade bodies."""
+    walk's (t, tri) of the plain traversal, through both shade bodies (each
+    resolving the winner's surface itself)."""
     dev, static, cam = mesh_scene
     cfg = RenderConfig()
     n = static.pixel_count
@@ -465,10 +530,10 @@ def test_host_mesh_shade_matches_plain(mesh_lib, mesh_scene, emit):
     tables = dev.mxu_mesh
     for d in range(3):
         tl = prim_t_min(static, cfg, paths.origin, paths.direction)
-        mt, mn, mm = fused.mesh_surface(tables, static, cfg, paths, tl)
+        mh = fused.mesh_walk(tables, static, cfg, paths, tl)
         skey = prng.stage_key(ik, d, 1)
-        want = fused.fused_mesh_shade_plain(prim_static, cfg, paths, mt, mn, mm, skey, n, emit,
-                                            tables)
+        want = fused.fused_mesh_shade_plain(prim_static, cfg, paths, mh.t, None, None, skey,
+                                            n, emit, tables, mesh_tri=mh.tri)
         want_p, (want_tl, want_key, _) = want if emit else (want, (None, None, None))
         f_in = [*paths.origin, *paths.direction, *paths.color]
         f_out = [torch.empty(n) for _ in range(9)]
@@ -477,12 +542,11 @@ def test_host_mesh_shade_matches_plain(mesh_lib, mesh_scene, emit):
         key_out = torch.empty(n, dtype=torch.int32)
         mesh_lib.ptt_host_mesh_shade(
             ctypes.byref(scene), _ptrs(f_in), paths.bounces.data_ptr(),
-            paths.pixel.data_ptr(), mt.contiguous().data_ptr(),
-            _ptrs([x.contiguous() for x in mn]), mm.contiguous().data_ptr(),
+            paths.pixel.data_ptr(), mh.t.contiguous().data_ptr(), None, None,
             tables.tile_aabb.data_ptr(), tables.root_box.data_ptr(), tables.center.data_ptr(),
             _ptrs(f_out), b_out.data_ptr(), tl_out.data_ptr(), key_out.data_ptr(),
             skey[0], skey[1], n, n, tables.tile_aabb.shape[0],
-            fused.EMIT_MODES.index(emit), 0, None,
+            fused.EMIT_MODES.index(emit), 0, None, *_resolve_args(tables, mh.tri, cfg),
         )
         np.testing.assert_array_equal(b_out.numpy(), want_p.bounces.numpy())
         outs = [*want_p.origin, *want_p.direction, *want_p.color]
@@ -555,6 +619,7 @@ def test_host_mesh_shade_modes_match_plain(mesh_lib, mode):
             paths.pixel.data_ptr(), mt_c.data_ptr(), _ptrs(mesh_n), mm_c.data_ptr(),
             None, None, None, _ptrs(f_out), b_out.data_ptr(), None, None,
             skey[0], skey[1], n, n, 0, 0, fused.SHADE_MODES.index(mode), _ptrs(mesh_a),
+            None, None, 0, 0.0,
         )
         np.testing.assert_array_equal(b_out.numpy(), want.bounces.numpy())
         for got, exp in zip(f_out, [*want.origin, *want.direction, *want.color]):
@@ -564,14 +629,26 @@ def test_host_mesh_shade_modes_match_plain(mesh_lib, mode):
     assert textured_lanes > 20
 
 
+def _resolve_args(tables, tri, cfg):
+    """The shade body's mode "plain" arguments: the winners, the rows, their
+    count and the |det| floor."""
+    rows = tables.attrs_shade
+    return tri.contiguous().data_ptr(), rows.data_ptr(), rows.shape[0], cfg.baby_epsilon
+
+
 def _host_shade(lib, prim_static, cfg, paths, surf, skey, n, emit, tables, mode, win):
     """The shade body with the carried winner (``ptt_host_mesh_shade_win``;
     ``win`` None: every prim tested) on one state; ``surf`` the kernel's
-    mesh inputs (t, normal, material[, albedo]).  Returns the output planes
-    (origin, direction, color), bounces, t_lim, key and winner."""
+    mesh inputs: (t, None, tri) in mode "plain", else (t, normal, material,
+    albedo).  Returns the output planes (origin, direction, color), bounces,
+    t_lim, key and winner."""
     c = lambda x: x.contiguous()
-    mt, mn, mm = c(surf[0]), [c(x) for x in surf[1]], c(surf[2])
-    alb = None if mode == "plain" else _ptrs([c(x) for x in surf[3]])
+    plain = mode == "plain"
+    mt = c(surf[0])
+    mn = None if plain else _ptrs([c(x) for x in surf[1]])
+    mm = None if plain else c(surf[2]).data_ptr()
+    alb = None if plain else _ptrs([c(x) for x in surf[3]])
+    resolve = _resolve_args(tables, surf[2], cfg) if plain else (None, None, 0, 0.0)
     f_in = [*paths.origin, *paths.direction, *paths.color]
     f_out = [torch.empty(n) for _ in range(9)]
     b_out = torch.empty(n, dtype=torch.int32)
@@ -582,13 +659,13 @@ def _host_shade(lib, prim_static, cfg, paths, surf, skey, n, emit, tables, mode,
     key = emit == "tlim+key"
     lib.ptt_host_mesh_shade_win(
         ctypes.byref(fused.scene_struct(prim_static, cfg)), _ptrs(f_in),
-        paths.bounces.data_ptr(), paths.pixel.data_ptr(), mt.data_ptr(), _ptrs(mn),
-        mm.data_ptr(), tables.tile_aabb.data_ptr() if key else None,
+        paths.bounces.data_ptr(), paths.pixel.data_ptr(), mt.data_ptr(), mn,
+        mm, tables.tile_aabb.data_ptr() if key else None,
         tables.root_box.data_ptr() if key else None,
         tables.center.data_ptr() if key else None, _ptrs(f_out), b_out.data_ptr(),
         tl_out.data_ptr(), key_out.data_ptr(), skey[0], skey[1], n, n,
         tables.tile_aabb.shape[0], fused.EMIT_MODES.index(emit), fused.SHADE_MODES.index(mode),
-        alb, None if win_in is None else win_in.data_ptr(), win_out.data_ptr(),
+        alb, None if win_in is None else win_in.data_ptr(), win_out.data_ptr(), *resolve,
     )
     return f_out, b_out, tl_out, key_out, win_out
 
@@ -630,7 +707,8 @@ def test_host_mesh_shade_carried_winner(mesh_lib, mode, emit):
     carried = 0
     for d in range(3):
         if mode == "plain":
-            surf = fused.mesh_surface(tables, static, cfg, paths, tl)
+            mh = fused.mesh_walk(tables, static, cfg, paths, tl)
+            surf = (mh.t, None, mh.tri)
         else:
             surf = fused.textured_mesh_surface(dev, static, cfg, paths, tl)
         skey = prng.stage_key(ik, d, 1)
@@ -642,9 +720,11 @@ def test_host_mesh_shade_carried_winner(mesh_lib, mode, emit):
         tl_t, win_t = prim_t_min(prim_static, cfg, out_o, out_d, winner=True)
         assert torch.equal(win_out, win_t)
         np.testing.assert_allclose(tl_out.numpy(), tl_t.numpy(), rtol=1e-5)
+        plain = mode == "plain"
         want_p, (want_tl, want_key, _) = fused.fused_mesh_shade_plain(
-            prim_static, cfg, paths, *surf[:3], skey, n, emit, tables, mode=mode,
-            mesh_albedo=None if mode == "plain" else surf[3])
+            prim_static, cfg, paths, surf[0], surf[1], None if plain else surf[2], skey, n,
+            emit, tables, mode=mode, mesh_albedo=None if plain else surf[3],
+            mesh_tri=surf[2] if plain else None)
         np.testing.assert_array_equal(b_out.numpy(), want_p.bounces.numpy())
         for got, exp in zip(f_out, [*want_p.origin, *want_p.direction, *want_p.color]):
             np.testing.assert_allclose(got.numpy(), exp.numpy(), rtol=1e-5, atol=1e-6)
@@ -665,17 +745,17 @@ def test_host_mesh_shade_winner_crafted(mesh_lib, mesh_scene):
     the body that tests every prim bit for bit, over two chained bounces."""
     _, static, _ = mesh_scene
     cfg = RenderConfig()
-    prim_static, paths, mt, mn, mm = winner_case(static, np.random.default_rng(5))
+    prim_static, paths, mt, tri = winner_case(static, np.random.default_rng(5))
     n, q, k = paths.pixel.shape[0], paths.pixel.shape[0] // 4, len(static.geoms)
     tl, win = prim_t_min(prim_static, cfg, paths.origin, paths.direction, winner=True)
-    free = paths.alive & (mm < 0)
+    free = paths.alive & (tri < 0)
     assert int((win[:q] == k)[free[:q]].sum()) > 100  # the lower of the tied spheres
     assert not bool((win == k + 1).any())
     assert bool((win[q:3 * q] == k + 2).all())  # the cube, from inside and within eps
     assert bool((tl[2 * q:3 * q] > 0).all()) and float(tl[2 * q:3 * q].max()) < 1e-3
     assert bool((win[3 * q:] == -1).all())
     ik = prng.iteration_key(prng.prng_key(3), 2)
-    surf = (mt, mn, mm)
+    surf = (mt, None, tri)
     tables = mesh_scene[0].mxu_mesh
     for d in range(2):
         args = (mesh_lib, prim_static, cfg, paths, surf, prng.stage_key(ik, d, 1), n, "tlim",
@@ -686,7 +766,7 @@ def test_host_mesh_shade_winner_crafted(mesh_lib, mesh_scene):
         paths = paths._replace(origin=Vec3(*got[0][0:3]), direction=Vec3(*got[0][3:6]),
                                color=Vec3(*got[0][6:9]), bounces=got[1])
         tl, win = got[2], got[4]
-        surf = (mt, mn, torch.full_like(mm, -1))
+        surf = (mt, None, torch.full_like(tri, -1))
 
 
 def _torch_key(tables, paths, tl):

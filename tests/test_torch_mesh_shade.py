@@ -7,10 +7,11 @@ prim winner (``prim_winner``, the winner each bounce's shade emits), which
 must change nothing.  Both sides get identical inputs on
 ``scenes/cornell_mesh_5k.json`` at
 16x16 (the JAX scene carried across with ``from_jax_scene``): the JAX
-package's camera rays, then for each of three chained bounces the mesh
-surface (``fused.mesh_surface``: the mono traversal and the winner's
-normal and material, itself held to the JAX package's XLA glue here) and
-the shade key of that bounce.  Every output plane is compared: the path
+package's camera rays, then for each of three chained bounces the JAX
+mono traversal's (t, tri) and the shade key of that bounce.  The port's
+shade resolves the winner's normal and material itself (mode "plain":
+``fused.resolve_mesh_surface`` on the CPU, held to the JAX package's XLA
+glue here, which the JAX side composes with its kernel).  Every output plane is compared: the path
 state, and with ``emit`` the next bounce's prim t_limit and sort key.
 
 Tolerances: ``tests/torch_compare.py`` for the path state and t_limit,
@@ -79,7 +80,7 @@ def _to_port(jp: JPaths) -> PathState:
 
 def _jax_surface(jdev, jstatic, jpaths, t_lim):
     """The JAX package's XLA glue of ``_fused_mesh_bounce_at`` (untextured
-    branch) around its mono kernel."""
+    branch) around its mono kernel -> (t, tri, normal, material)."""
     cfg = JConfig()
     ro, rd = jpaths.origin, jpaths.direction
     mh = jmxu.mesh_intersect_mxu(
@@ -96,7 +97,7 @@ def _jax_surface(jdev, jstatic, jpaths, t_lim):
                        + JVec3(at[:, 6], at[:, 7], at[:, 8]) * vv)
     hit = mh.tri >= 0
     n = jvec.where(hit, n, JVec3.zeros(uu.shape))
-    return mh.t, n, jnp.where(hit, at[:, 9].astype(jnp.int32), -1)
+    return mh.t, mh.tri, n, jnp.where(hit, at[:, 9].astype(jnp.int32), -1)
 
 
 @pytest.mark.parametrize("emit", fused.EMIT_MODES)
@@ -129,16 +130,18 @@ def _compare_with_pallas(scene, emit, carry):
         t_lim = prim_t_min(static, cfg, paths.origin, paths.direction)
         if carry and win is None:
             win = prim_t_min(static, cfg, paths.origin, paths.direction, winner=True)[1]
-        mt, mn, mm = fused.mesh_surface(tables, static, cfg, paths, t_lim)
-        jt, jn, jm = _jax_surface(jdev, jstatic, jpaths,
-                                  j_prim_t_min(jstatic, jcfg, jpaths.origin, jpaths.direction))
-        close(mm, jm)
-        close(mt, jt, mask=np.asarray(jm) >= 0)
-        close3(mn, jn)
-        # Identical inputs from here on: the JAX package's surface.
+        mh = fused.mesh_walk(tables, static, cfg, paths, t_lim)
+        jt, jtri, jn, jm = _jax_surface(
+            jdev, jstatic, jpaths, j_prim_t_min(jstatic, jcfg, jpaths.origin, jpaths.direction))
+        close(mh.tri, jtri)
+        close(mh.t, jt, mask=np.asarray(jm) >= 0)
+        # Identical inputs from here on: the JAX package's walk.
         mt = torch.from_numpy(np.array(jt))
-        mn = Vec3(*(torch.from_numpy(np.array(c)) for c in jn))
-        mm = torch.from_numpy(np.array(jm))
+        tri = torch.from_numpy(np.array(jtri))
+        mn, mm = fused.resolve_mesh_surface(tables, tri, paths.origin, paths.direction,
+                                            cfg.baby_epsilon)
+        close(mm, jm)
+        close3(mn, jn)
         want = jfused._fused_mesh_shade(
             jprim_static, jcfg, jpaths, jt, jn, jm, None, interpret=True,
             su_key=jprng.stage_key(ik, d, 1), rng_n=n, emit=emit,
@@ -146,8 +149,8 @@ def _compare_with_pallas(scene, emit, carry):
             center=jdev.mxu_mesh.center if emit == "tlim+key" else None,
         )
         got = fused.fused_mesh_shade(
-            prim_static, cfg, paths, mt, mn, mm, prng.stage_key(pik, d, 1), n, emit, tables,
-            prim_winner=win,
+            prim_static, cfg, paths, mt, None, None, prng.stage_key(pik, d, 1), n, emit, tables,
+            prim_winner=win, mesh_tri=tri,
         )
         want_p, (want_tl, want_key) = want if emit else (want, (None, None))
         got_p, (got_tl, got_key, got_win) = got if emit else (got, (None, None, None))

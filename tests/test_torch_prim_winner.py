@@ -32,6 +32,7 @@ from project3_cuda_path_tracer_2025_tpu_torch.scene import (
     build_device_scene, camera_state, derive_render_camera, load_scene, set_resolution,
 )
 from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
+from project3_cuda_path_tracer_2025_tpu_torch.utils.vec import Vec3
 from torch_fixtures import winner_case
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -106,21 +107,23 @@ def test_plain_shade_with_the_carried_winner(mode, emit):
     taken = 0
     for d in range(3):
         if mode == "plain":
-            surf, alb = fused.mesh_surface(tables, static, cfg, paths, tl), None
+            mh = fused.mesh_walk(tables, static, cfg, paths, tl)
+            surf, alb, tri = (mh.t, None, None), None, mh.tri
         else:
             *surf, alb = fused.textured_mesh_surface(dev, static, cfg, paths, tl)
+            tri = None
         args = (prim_static, cfg, paths, *surf, prng.stage_key(ik, d, 1), n, emit, tables)
         got_p, (got_tl, got_key, got_win) = fused.fused_mesh_shade_plain(
-            *args, mode=mode, mesh_albedo=alb, prim_winner=win)
+            *args, mode=mode, mesh_albedo=alb, prim_winner=win, mesh_tri=tri)
         want_p, (want_tl, want_key, _) = fused.fused_mesh_shade_plain(
-            *args, mode=mode, mesh_albedo=alb)
+            *args, mode=mode, mesh_albedo=alb, mesh_tri=tri)
         _assert_same([*got_p.origin, *got_p.direction, *got_p.color, got_p.bounces, got_tl],
                      [*want_p.origin, *want_p.direction, *want_p.color, want_p.bounces, want_tl])
         if emit == "tlim+key":
             assert torch.equal(got_key, want_key)
         _assert_same([got_win], [prim_t_min(prim_static, cfg, want_p.origin, want_p.direction,
                                             winner=True)[1]])
-        taken += int((paths.alive & (surf[2] < 0) & (win >= 0)).sum())
+        taken += int((paths.alive & ((surf[2] if tri is None else tri) < 0) & (win >= 0)).sum())
         paths, tl, win = got_p, got_tl, got_win
     assert taken > 50
 
@@ -128,28 +131,57 @@ def test_plain_shade_with_the_carried_winner(mode, emit):
 def test_plain_shade_winner_crafted():
     """``winner_case``'s rays through the plain shade, two chained bounces:
     the same outputs with the winner as without."""
-    _, _, static, _ = _setup("cornell_mesh_5k.json", 8)
+    _, dev, static, _ = _setup("cornell_mesh_5k.json", 8)
     cfg = RenderConfig()
-    prim_static, paths, mt, mn, mm = winner_case(static, np.random.default_rng(2))
+    prim_static, paths, mt, tri = winner_case(static, np.random.default_rng(2))
     n = paths.pixel.shape[0]
     ik = prng.iteration_key(prng.prng_key(1), 4)
     win = prim_t_min(prim_static, cfg, paths.origin, paths.direction, winner=True)[1]
     for d in range(2):
-        args = (prim_static, cfg, paths, mt, mn, mm, prng.stage_key(ik, d, 1), n, "tlim")
-        got_p, (got_tl, _, got_win) = fused.fused_mesh_shade_plain(*args, prim_winner=win)
-        want_p, (want_tl, _, _) = fused.fused_mesh_shade_plain(*args)
+        args = (prim_static, cfg, paths, mt, None, None, prng.stage_key(ik, d, 1), n, "tlim",
+                dev.mxu_mesh)
+        got_p, (got_tl, _, got_win) = fused.fused_mesh_shade_plain(*args, prim_winner=win,
+                                                                   mesh_tri=tri)
+        want_p, (want_tl, _, _) = fused.fused_mesh_shade_plain(*args, mesh_tri=tri)
         _assert_same([*got_p.origin, *got_p.direction, *got_p.color, got_p.bounces, got_tl],
                      [*want_p.origin, *want_p.direction, *want_p.color, want_p.bounces, want_tl])
-        paths, win, mm = got_p, got_win, torch.full_like(mm, -1)
+        paths, win, tri = got_p, got_win, torch.full_like(tri, -1)
 
 
 def test_shade_refuses_a_winner_it_cannot_use():
     _, _, static, _ = _setup("cornell_mesh_5k.json", 8)
-    prim_static, paths, mt, mn, mm = winner_case(static, np.random.default_rng(0), n=64)
-    args = (prim_static, RenderConfig(), paths, mt, mn, mm, prng.prng_key(0), 64)
-    with pytest.raises(ValueError, match="precomputed"):
-        fused.fused_mesh_shade_plain(*args, mode="precomputed", mesh_albedo=mn,
+    prim_static, paths, mt, mm = winner_case(static, np.random.default_rng(0), n=64)
+    surface = Vec3(mt, mt, mt)
+    args = (prim_static, RenderConfig(), paths, mt, surface, mm, prng.prng_key(0), 64)
+    with pytest.raises(ValueError, match="takes no prim_winner"):
+        fused.fused_mesh_shade_plain(*args, mode="precomputed", mesh_albedo=surface,
                                      prim_winner=torch.zeros_like(mm))
+
+
+@pytest.mark.parametrize("case", ["plain with a normal", "plain with a material",
+                                  "plain without tables", "plain without a winner",
+                                  "textured without a normal", "textured with a winner"])
+def test_shade_checks_each_modes_mesh_inputs(case):
+    """Mode "plain" takes the walk's winner (``mesh_tri``) and the tables'
+    rows and no normal or material; the textured modes take a resolved
+    normal and the material and no winner."""
+    _, dev, static, _ = _setup("cornell_mesh_5k.json", 8)
+    prim_static, paths, mt, tri = winner_case(static, np.random.default_rng(0), n=64)
+    surface, mat = Vec3(mt, mt, mt), torch.zeros_like(tri)
+    resolved, walk = "mesh_normal, mesh_mat and mesh_albedo are required", "mesh_tri and tables"
+    normal, material, winner, tables, mode, match = {
+        "plain with a normal": (surface, None, tri, dev.mxu_mesh, "plain", resolved),
+        "plain with a material": (None, mat, tri, dev.mxu_mesh, "plain", resolved),
+        "plain without tables": (None, None, tri, None, "plain", walk),
+        "plain without a winner": (None, None, None, dev.mxu_mesh, "plain", walk),
+        "textured without a normal": (None, mat, None, dev.mxu_mesh, "textured", resolved),
+        "textured with a winner": (surface, mat, tri, dev.mxu_mesh, "textured", walk),
+    }[case]
+    with pytest.raises(ValueError, match=match):
+        fused.fused_mesh_shade(prim_static, RenderConfig(), paths, mt, normal, material,
+                               prng.prng_key(0), 64, tables=tables, mode=mode,
+                               mesh_albedo=None if mode == "plain" else surface,
+                               mesh_tri=winner)
 
 
 @pytest.mark.parametrize("sorting", ["on", "off"])

@@ -5,7 +5,9 @@ Without a profiler a span is one shared no-op.  Under
 mesh bounce and the binned traversal (their plain versions here) records
 ``ptt.mesh.bounce`` once a bounce, in bounce order, inside it the
 prelude (first bounce), the sort (where the bounce resorts), the plan, the
-walk, the surface and the shade, nested in time, with ``read.live_pos``
+walk and the shade, nested in time, and inside the shade the surface (the
+shade's plain version resolves it in torch; on the card the kernel does,
+and no ``mesh.surface`` opens), with ``read.live_pos``
 and ``read.overflow`` once each inside the plan; with the default (mono)
 traversal, the walk and no plan and no read; the film and the alive
 counts are the same bit for bit with the profiler as without.  An orbit
@@ -29,7 +31,7 @@ DOF = str(REPO / "scenes" / "cornell_dof.json")
 DEPTH = 4
 BINNED_MESH = dict(mesh_intersector="mxu", fused_bounce="on", ray_sorting="on",
                    mxu_traversal="binned")
-STAGES = ("mesh.prelude", "mesh.sort", "mesh.plan", "mesh.walk", "mesh.surface", "mesh.shade")
+STAGES = ("mesh.prelude", "mesh.sort", "mesh.plan", "mesh.walk", "mesh.shade", "mesh.surface")
 
 torch.set_num_threads(1)
 
@@ -113,6 +115,8 @@ def test_mesh_step_spans_by_stage(sort_every):
         assert inner.count("read.live_pos") == inner.count("read.overflow") == 1
         plan = [s for s in _inside(spans, bounce) if s[0] == "mesh.plan"][0]
         assert sorted(s[0] for s in _inside(spans, plan)) == ["read.live_pos", "read.overflow"]
+        shade = [s for s in _inside(spans, bounce) if s[0] == "mesh.shade"][0]
+        assert [s[0] for s in _inside(spans, shade)] == ["mesh.surface"]
 
 
 def test_mono_mesh_step_spans_by_stage():

@@ -66,9 +66,11 @@ def winner_case(static, rng, n=1024):
     exit); starting outside a face of the cube within ``ray_eps`` of it in
     its own space and entering it (t_obj < ray_eps: the hit lies behind the
     origin and t is still positive); leaving the open front of the box (no
-    prim hit).  Every fifth lane carries a made-up mesh hit, every seventh
-    is dead.  Returns (prim_static, paths, mesh_t, mesh_normal, mesh_mat);
-    the sphere pair are prims ``len(static.geoms)`` and one after it."""
+    prim hit).  Every fifth lane carries a made-up mesh hit (a random
+    triangle of the mesh at t = 0.05), every seventh is dead.  Returns
+    (prim_static, paths, mesh_t, mesh_tri): the shade's mode "plain"
+    inputs, which resolve the surface from ``mesh_tri``; the sphere pair are
+    prims ``len(static.geoms)`` and one after it."""
     import dataclasses
 
     from project3_cuda_path_tracer_2025_tpu_torch.ops.rays import PathState
@@ -111,12 +113,10 @@ def winner_case(static, rng, n=1024):
         bounces=torch.where(idx % 7 == 3, 0, 8).to(torch.int32),
     )
     hit = idx % 5 == 1
-    nrm = rng.normal(size=(n, 3))
-    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    tri = torch.from_numpy(rng.integers(0, static.num_triangles, n).astype(np.int32))
     mesh_t = torch.where(hit, 0.05, 0.0).float()
-    mesh_n = Vec3(*(torch.where(hit, f(nrm[:, i]), 0.0) for i in range(3)))
-    mesh_mat = torch.where(hit, 4, -1).to(torch.int32)
-    return prim_static, paths, mesh_t, mesh_n, mesh_mat
+    mesh_tri = torch.where(hit, tri, -1).to(torch.int32)
+    return prim_static, paths, mesh_t, mesh_tri
 
 
 def key_case(ct, center, rng, n=4096):
