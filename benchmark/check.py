@@ -87,6 +87,14 @@ def walk_counts(scene, tracer: Tracer, out: dict) -> list:
     return tracer.walk_counts(cameras[0], counts[0])
 
 
+def lobe_counts(scene, tracer: Tracer, out: dict) -> dict:
+    """The paths each lobe scatters at each bounce of the window's last
+    iteration over the whole frame, the one ``alive_gap`` traces
+    (``Tracer.lobe_counts``)."""
+    cameras, counts = replay(scene, out["moves"], [out["steps"] - 1], out["spp"])
+    return tracer.lobe_counts(cameras[0], counts[0])
+
+
 def checked_steps(out: dict, rng: np.random.Generator, traffic: dict) -> list:
     """The steps whose image the check compares: of those that brought an
     image to the host, ``check_drag_frames`` drag steps and

@@ -4,13 +4,16 @@ world space, and the render camera the reference tracer derives from the
 document (and from an orbit of it).
 
 Plain NumPy in float64, cast to float32 where the tracer takes its
-constants.  It implements what the benchmark's configurations use:
-"Diffuse" and "Emitting" materials, "cube", "sphere" and "obj" objects
-whose OBJ files hold triangles of positions, with or without vertex
-normals (``f v`` or ``f v//vn``; a face without them is shaded flat).
-Texture coordinates, textures, polygons and anything else raise, so a
-configuration the reference cannot follow is refused rather than judged
-by a different scene.
+constants.  It reads the materials as the reference tracer's loader does
+(``src/scene.cpp:59-100``): "Diffuse" (which ignores a ``ROUGHNESS`` key),
+"Emitting", "Reflective", "Transmissive", "Glass" and "Microfacet", with
+``RGB``, ``EMITTANCE``, ``IOR``, ``ROUGHNESS`` and ``METALLIC``; and
+"cube", "sphere" and "obj" objects whose OBJ files hold triangles of
+positions, with or without vertex normals (``f v`` or ``f v//vn``; a face
+without them is shaded flat).  Texture coordinates, textures, bump maps,
+polygons, a material ``TYPE`` it does not know and anything else raise,
+so a configuration the reference cannot follow is refused rather than
+judged by a different scene.
 """
 
 from __future__ import annotations
@@ -51,10 +54,35 @@ def _snap(m: np.ndarray) -> np.ndarray:
     return out
 
 
+# The lobes of ``scatterRay`` (``src/interactions.cu:438-542``), in the
+# order it tests them: the first that a material's flags select is its lobe.
+LOBES = ("glass", "mirror", "transmissive", "microfacet", "diffuse")
+
+
 @dataclass
 class Material:
     color: tuple
     emittance: float = 0.0
+    reflective: bool = False
+    refractive: bool = False
+    ior: float = 0.0
+    roughness: float = -1.0
+    metallic: float = -1.0
+
+    @property
+    def lobe(self) -> str:
+        """The lobe that scatters a path off this material: glass where it
+        reflects and refracts, then mirror, transmissive, Cook-Torrance
+        where roughness and metallic are both set (>= 0), else diffuse."""
+        if self.reflective and self.refractive:
+            return "glass"
+        if self.reflective:
+            return "mirror"
+        if self.refractive:
+            return "transmissive"
+        if self.roughness >= 0.0 and self.metallic >= 0.0:
+            return "microfacet"
+        return "diffuse"
 
 
 @dataclass
@@ -118,6 +146,11 @@ class Scene:
     def pixel_count(self) -> int:
         return self.width * self.height
 
+    @property
+    def lobes(self) -> set:
+        """The lobes of the scene's materials."""
+        return {m.lobe for m in self.materials}
+
     def orbit(self) -> Orbit:
         """The rig the reference starts from: angles from the loaded view."""
         cam = self.camera
@@ -151,6 +184,17 @@ class Scene:
                       focal_dist=float(np.linalg.norm(o.look_at - position)))
 
 
+# Each material type's numbers besides ``RGB``, and the fields they set.
+MATERIAL_KEYS = {
+    "Diffuse": {},
+    "Emitting": {"EMITTANCE": "emittance"},
+    "Reflective": {},
+    "Transmissive": {"IOR": "ior"},
+    "Glass": {"IOR": "ior"},
+    "Microfacet": {"ROUGHNESS": "roughness", "METALLIC": "metallic", "IOR": "ior"},
+}
+
+
 def _unit(v) -> np.ndarray:
     v = np.asarray(v, np.float64)
     return v / np.linalg.norm(v)
@@ -166,14 +210,15 @@ def load(doc: dict, base_dir: str, res: tuple = None) -> Scene:
     names, materials = {}, []
     for name, p in doc["Materials"].items():
         kind = p["TYPE"]
-        if kind == "Diffuse":
-            materials.append(Material(tuple(_vec3(p["RGB"]))))
-        elif kind == "Emitting":
-            materials.append(Material(tuple(_vec3(p["RGB"])), float(p["EMITTANCE"])))
-        else:
+        if kind not in MATERIAL_KEYS:
             raise NotImplementedError(f"the reference renders no {kind!r} material")
         if "TEXTURE" in p or "BUMP_MAP" in p:
             raise NotImplementedError("the reference renders no textures")
+        m = Material(tuple(_vec3(p["RGB"])), reflective=kind in ("Reflective", "Glass"),
+                     refractive=kind in ("Transmissive", "Glass"))
+        for key, attr in MATERIAL_KEYS[kind].items():
+            setattr(m, attr, float(p[key]))
+        materials.append(m)
         names[name] = len(materials) - 1
 
     prims, meshes = [], []

@@ -5,9 +5,15 @@ One path per (pixel, iteration) row: Threefry-2x32 draws keyed by the seed,
 the iteration, the depth and the stage (the JAX package's stream layout,
 which the port keeps); a jittered pinhole or thin-lens camera ray; then
 ``depth`` bounces of nearest hit over boxes, spheres and triangles, the
-normal turned toward the ray, and a cosine-weighted diffuse scatter or an
-emitter's end.  A path that runs out of bounces keeps its throughput, and
-every path's final colour is added to its pixel once an iteration.
+normal turned toward the ray, and an emitter's end or the scatter of
+``scatterRay`` (``src/interactions.cu:438-542``): glass (a Fresnel
+choice between mirror and refraction), mirror, transmissive (refraction,
+total internal reflection reflecting), Cook-Torrance (a Schlick choice
+between a GGX specular lobe and the diffuse one) or cosine-weighted
+diffuse, in that priority.  A lobe is evaluated only where some material
+of the scene uses it, so an all-diffuse scene runs the diffuse lobe alone.
+A path that runs out of bounces keeps its throughput, and every path's
+final colour is added to its pixel once an iteration.
 
 ``dtype`` is the precision of every geometric and shading operation; the
 draws are made in float32 and rounded to it, and colours come back in
@@ -16,7 +22,8 @@ the comparison must refuse.  Nothing here reads anything the program made.
 
 ``walk_counts`` traces one whole-frame iteration and counts, at each
 bounce, the least work of any box-bounded walk over the scene's meshes
-(``MeshIndex.walk_count``).
+(``MeshIndex.walk_count``); ``lobe_counts`` traces one and counts, at each
+bounce, the paths each lobe scatters.
 """
 
 from __future__ import annotations
@@ -37,7 +44,9 @@ PI_OVER_TWO = 1.57079632679489662
 INV_PI = 0.31830988618379067154
 RCP_PI = float(np.float32(1.0) / np.float32(PI))
 BABY_EPSILON = 1e-5
+LARGER_EPSILON = 1e-3
 RAY_EPSILON = 1e-4
+DIFFUSE = scene_mod.LOBES.index("diffuse")
 
 
 def f32(c: float) -> float:
@@ -150,7 +159,12 @@ class Tracer:
         self.meshes = [MeshIndex(m, self.device, dtype) for m in scene.meshes]
         self.colors = [tuple(f32(c) for c in m.color) for m in scene.materials]
         self.emittance = [f32(m.emittance) for m in scene.materials]
+        self.params = [[f32(getattr(m, k)) for m in scene.materials]
+                       for k in ("ior", "roughness", "metallic")]
+        self.lobe_of = [scene_mod.LOBES.index(m.lobe) for m in scene.materials]
+        self.lobes = [lobe for lobe in scene_mod.LOBES[:DIFFUSE] if lobe in scene.lobes]
         self.walk = None  # a bounce's [rays, pairs, [entered [T] a mesh]] in walk_counts
+        self.tally = None  # a bounce's scatters by lobe in lobe_counts
 
     # -- keys ------------------------------------------------------------------
     def _keys(self, iterations: torch.Tensor):
@@ -263,6 +277,17 @@ class Tracer:
 
         emissive = emit > 0.0
         scatter = hit & ~emissive
+        if self.lobes or self.tally is not None:
+            lobe = torch.full_like(mat, DIFFUSE)
+            for i, index in enumerate(self.lobe_of):
+                lobe = torch.where(mat == i, index, lobe)
+            if self.lobes:
+                new_dir, mult, new_origin = self._lobe_scatter(
+                    lobe, mat, rd, normal, (tan, bit), albedo, su, point,
+                    (wi, pdf), (new_dir, mult, new_origin))
+            if self.tally is not None:
+                for i, name in enumerate(scene_mod.LOBES):
+                    self.tally[depth][name] += int((scatter & (lobe == i)).sum())
         ends = ~hit | emissive
         zero = torch.zeros_like(t)
         color = _where(hit & emissive, tuple(c * (al * emit) for c, al in zip(color, albedo)),
@@ -272,6 +297,36 @@ class Tracer:
         bounces = torch.where(ends, 0, torch.where(scatter, bounces - 1, bounces))
         return (_where(scatter, new_origin, ro), _where(scatter, new_dir, rd), color,
                 bounces)
+
+    def _lobe_scatter(self, lobe, mat, rd, normal, frame, albedo, su, point, diffuse_sample,
+                      diffuse):
+        """(new direction, throughput multiplier, new origin): the diffuse
+        lobe's ``diffuse``, with each lane of another lobe of the scene
+        given that lobe's.  ``diffuse_sample``: the diffuse lobe's unit
+        direction and pdf, which Cook-Torrance's diffuse side takes."""
+        new_dir, mult, new_origin = diffuse
+        ior, rough, metal = (self._per_material(mat, v) for v in self.params)
+        for name in self.lobes:
+            if name == "microfacet":
+                d, f = _cook_torrance(albedo, normal, frame, _scale(_unit(rd), -1.0), rough,
+                                      metal, su, diffuse_sample)
+            else:
+                if name == "glass":
+                    wi, f = _glass(rd, normal, ior, su[0]), albedo
+                elif name == "mirror":
+                    wi, f = _reflect(rd, normal), albedo
+                else:
+                    wi, tir = _transmit(rd, normal, ior)
+                    f = tuple(torch.where(tir, 0.0, c) for c in albedo)
+                d = _unit(wi)
+            # Off the surface by BABY_EPSILON along the normal for the mirror,
+            # by LARGER_EPSILON along the new direction for the rest.
+            origin = (_add(point, _scale(normal, f32(BABY_EPSILON))) if name == "mirror"
+                      else _add(point, _scale(d, f32(LARGER_EPSILON))))
+            sel = lobe == scene_mod.LOBES.index(name)
+            new_dir, mult, new_origin = (_where(sel, d, new_dir), _where(sel, f, mult),
+                                         _where(sel, origin, new_origin))
+        return new_dir, mult, new_origin
 
     @staticmethod
     def _frame(n):
@@ -288,6 +343,19 @@ class Tracer:
         for i in range(1, len(values)):
             out = torch.where(mat == i, values[i], out)
         return out
+
+    def lobe_counts(self, camera, iteration: int) -> dict:
+        """For each lobe of ``scene.LOBES``: the paths it scatters at each
+        bounce of iteration ``iteration`` over the whole frame through
+        ``camera`` (a path that misses or ends on a light scatters none)."""
+        n = self.scene.pixel_count
+        self.tally = [dict.fromkeys(scene_mod.LOBES, 0) for _ in range(self.scene.depth)]
+        try:
+            self.radiance([camera], torch.arange(n), torch.full((n,), iteration))
+            tally = self.tally
+        finally:
+            self.tally = None
+        return {name: [b[name] for b in tally] for name in scene_mod.LOBES}
 
     # -- intersection ------------------------------------------------------------
     def walk_counts(self, camera, iteration: int) -> list:
@@ -384,3 +452,154 @@ def _sphere(p, ro, rd):
     normal = _unit(_vector(p.inv_transpose, local))
     t = torch.sqrt(_dot(_sub(ro, world), _sub(ro, world)))
     return torch.where(hit, t, -1.0), normal
+
+
+# -- the lobes of scatterRay besides the diffuse (src/interactions.cu) ----------
+
+def _reflect(i, n):
+    """glm::reflect: i - 2 dot(n, i) n."""
+    d = _dot(n, i)
+    return _sub(i, _scale(n, 2.0 * d))
+
+
+def _refract(i, n, eta):
+    """glm::refract: the zero vector under total internal reflection."""
+    cosi = _dot(n, i)
+    k = 1.0 - eta * eta * (1.0 - cosi * cosi)
+    kc = torch.sqrt(torch.clamp_min(k, 0.0))
+    out = _sub(_scale(i, eta), _scale(n, eta * cosi + kc))
+    return tuple(torch.where(k < 0.0, 0.0, c) for c in out)
+
+
+def _transmit(wo, n, ior):
+    """sampleFSpecularTrans (:146-168): refraction with eta 1/IOR entering
+    and IOR leaving; under total internal reflection (a refracted vector
+    shorter than BABY_EPSILON) a reflection, whose colour is black.
+    (direction, reflected)."""
+    entering = _dot(wo, n) < 0.0
+    eta = torch.where(entering, 1.0 / ior, ior)
+    toward = _where(entering, n, _scale(n, -1.0))
+    wt = _refract(_unit(wo), _unit(toward), eta)
+    tir = torch.sqrt(_dot(wt, wt)) < f32(BABY_EPSILON)
+    return _where(tir, _reflect(wo, n), wt), tir
+
+
+def _fresnel_dielectric(cos_theta_i, ior):
+    """FresnelDielectricEval (:173-194): the reflected share of unpolarised
+    light, the indices swapped where the cosine is positive."""
+    cos_i = torch.clamp(cos_theta_i, -1.0, 1.0)
+    swap = cos_i > 0.0
+    one = torch.ones_like(cos_i)
+    eta_i, eta_t = torch.where(swap, ior, one), torch.where(swap, one, ior)
+    cos_i = torch.abs(cos_i)
+    sin_i = torch.sqrt(torch.clamp_min(1.0 - cos_i * cos_i, 0.0))
+    sin_t = eta_i / eta_t * sin_i
+    cos_t = torch.sqrt(torch.clamp_min(1.0 - sin_t * sin_t, 0.0))
+    r_parl = (eta_t * cos_i - eta_i * cos_t) / (eta_t * cos_i + eta_i * cos_t)
+    r_perp = (eta_i * cos_i - eta_t * cos_t) / (eta_i * cos_i + eta_t * cos_t)
+    return (r_parl * r_parl + r_perp * r_perp) * 0.5
+
+
+def _glass(wo, n, ior, u):
+    """sampleFGlass (:204-235): the mirror where the bounce's first uniform
+    falls under the Fresnel share or the refraction is total, else the
+    refraction."""
+    fresnel = _fresnel_dielectric(_dot(wo, n), ior)
+    wt, tir = _transmit(wo, n, ior)
+    return _where((u < fresnel) | tir, _reflect(wo, n), wt)
+
+
+def _pow5(x):
+    x2 = x * x
+    return x * (x2 * x2)
+
+
+def _schlick(cos_theta, f0):
+    """Fresnel-Schlick (:197-201): F0 + (1 - F0) (1 - cos)^5."""
+    p = _pow5(1.0 - cos_theta)
+    return tuple(c + (1.0 - c) * p for c in f0)
+
+
+def _ggx_d(wh, roughness):
+    """TrowbridgeReitzD (:266-281), isotropic; 0 where cos(theta) is 0."""
+    cos2 = wh[2] * wh[2]
+    sin2 = torch.clamp_min(1.0 - cos2, 0.0)
+    tan2 = sin2 / torch.where(cos2 == 0.0, 1.0, cos2)
+    cos4 = cos2 * cos2
+    r2 = roughness * roughness
+    e = tan2 / r2
+    d = 1.0 / (PI * r2 * cos4 * (1.0 + e) * (1.0 + e))
+    return torch.where(cos2 == 0.0, 0.0, d)
+
+
+def _ggx_lambda(w, roughness):
+    """lambda (:283-295); 0 where tan(theta) is infinite."""
+    cos2 = w[2] * w[2]
+    sin2 = torch.clamp_min(1.0 - cos2, 0.0)
+    abs_tan = torch.sqrt(sin2) / torch.where(cos2 == 0.0, 1.0, torch.abs(w[2]))
+    rt = roughness * abs_tan
+    lam = (-1.0 + torch.sqrt(1.0 + rt * rt)) * 0.5
+    return torch.where(cos2 == 0.0, 0.0, lam)
+
+
+def _sample_wh(wo, roughness, xi0, xi1):
+    """sampleWH (:238-264): a GGX half vector on wo's side, local frame."""
+    phi = TWO_PI * xi1
+    tan2 = roughness * roughness * xi0 / torch.clamp_min(1.0 - xi0, f32(1e-12))
+    cos_t = 1.0 / torch.sqrt(1.0 + tan2)
+    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    wh = (sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t)
+    return _where(wo[2] * wh[2] > 0.0, wh, _scale(wh, -1.0))
+
+
+def _f0(albedo, metallic):
+    """mix(0.04, albedo, metallic)."""
+    return tuple(0.04 + (c - 0.04) * metallic for c in albedo)
+
+
+def _microfacet_eval(albedo, wo, wi, roughness, metallic):
+    """fMicrofacetRefl (:314-348), local frame: F D G / (4 cos_i cos_o),
+    0 where either cosine or the half vector is 0."""
+    cos_o, cos_i = torch.abs(wo[2]), torch.abs(wi[2])
+    wh = _add(wi, wo)
+    wh_len = torch.sqrt(_dot(wh, wh))
+    degenerate = (cos_i == 0.0) | (cos_o == 0.0) | (wh_len == 0.0)
+    wh = tuple(c / torch.where(wh_len == 0.0, 1.0, wh_len) for c in wh)
+    f = _schlick(_dot(wi, wh), _f0(albedo, metallic))
+    d = _ggx_d(wh, roughness)
+    g = 1.0 / (1.0 + _ggx_lambda(wo, roughness) + _ggx_lambda(wi, roughness))
+    denom = torch.where(degenerate, 1.0, 4.0 * cos_i * cos_o)
+    return tuple(torch.where(degenerate, 0.0, c * (d * g / denom)) for c in f)
+
+
+def _cook_torrance(albedo, n, frame, wo, roughness, metallic, su, diffuse_sample):
+    """sampleFCookTorrance (:383-435): the GGX specular lobe where the first
+    uniform falls under the largest channel of Schlick's F at wo, else the
+    diffuse lobe's sample; each weighted by its share of F.  ``wo``: the
+    unit direction back along the ray; ``diffuse_sample``: the diffuse
+    lobe's unit direction and pdf from the second and third uniforms.
+    (unit direction, throughput f cos / pdf; where the pdf is not above 0,
+    1: the colour is kept)."""
+    f = _schlick(torch.clamp(_dot(n, wo), 0.0, 1.0), _f0(albedo, metallic))
+    f_prob = torch.clamp(torch.maximum(f[0], torch.maximum(f[1], f[2])), 0.0, 1.0)
+    specular = su[0] < f_prob
+
+    tan, bit = frame
+    wo_local = (_dot(tan, wo), _dot(bit, wo), _dot(n, wo))
+    wh = _sample_wh(wo_local, roughness, su[1], su[2])
+    wh = _where(wh[2] < 0.0, _scale(wh, -1.0), wh)
+    wi_local = _reflect(_scale(wo_local, -1.0), wh)
+    wi_spec = _unit(_add(_add(_scale(tan, wi_local[0]), _scale(bit, wi_local[1])),
+                         _scale(n, wi_local[2])))
+    cos_wh = torch.clamp_min(_dot(wo_local, wh), f32(1e-6))
+    pdf_spec = _ggx_d(wh, roughness) * torch.abs(wh[2]) / (4.0 * cos_wh)
+    f_spec = _microfacet_eval(albedo, wo_local, wi_local, roughness, metallic)
+
+    wi_diff, pdf_diff = diffuse_sample
+    f_diff = tuple((c * INV_PI) * (1.0 - fc) for c, fc in zip(albedo, f))
+    d = _unit(_where(specular, wi_spec, wi_diff))
+    bsdf = _where(specular, tuple(s * fc for s, fc in zip(f_spec, f)), f_diff)
+    pdf = torch.where(specular, f_prob * pdf_spec, (1.0 - f_prob) * pdf_diff)
+    ok = pdf > 0.0
+    ratio = torch.clamp_min(_dot(n, d), 0.0) / torch.where(ok, pdf, 1.0)
+    return d, tuple(torch.where(ok, c * ratio, 1.0) for c in bsdf)

@@ -149,7 +149,14 @@ def run_cell(spec, cell: dict, seed: int, seconds: float, traced: bool, device: 
     numbers = check.judge(scene, tracer, out, traffic, frame_rng, set(limits))
     if rec is not None and not scene.meshes:
         boxes = sum(p.kind == ref_scene.CUBE for p in scene.prims)
-        rec["work"] = work.iteration_work(n, boxes, len(scene.prims) - boxes, out["alive"])
+        lobes = None
+        if scene.lobes - {"diffuse"}:
+            t_lobes = time.perf_counter()
+            lobes = check.lobe_counts(scene, tracer, out)
+            print(f"lobes: the last iteration's scatters a bounce by lobe {json.dumps(lobes)}; "
+                  f"counted in {time.perf_counter() - t_lobes:.3f} s", file=sys.stderr)
+        rec["work"] = work.iteration_work(n, boxes, len(scene.prims) - boxes, out["alive"],
+                                          lobes)
     correct, rows = check.decide(numbers, limits)
     print(f"check: the reference took {time.perf_counter() - t_check:.3f} s; every number "
           f"{json.dumps(numbers)}", file=sys.stderr)
