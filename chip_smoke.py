@@ -36,8 +36,10 @@ mode, ``pixel_chunks``, the 5k mesh and the wavefront held bit for bit to
 the unsharded films, sample mode, and their ms/frame.  Phase 25 drives the
 repo's entry points in the port: ``bench_torch.py`` (its line printed),
 ``entry()``'s step against the same step on the CPU, and every tag of
-``dryrun_multichip(4)`` on ``cuda:0`` named four times.  Any failure raises
-and exits non-zero.
+``dryrun_multichip(4)`` on ``cuda:0`` named four times.  Phase 26 holds the
+iteration kernel's lobes at 800x800 (``cornell_all_lobes.json``) to the
+plain path and to the benchmark's reference, the counting variant's lobe
+tally included.  Any failure raises and exits non-zero.
 
 Output: progress lines, then the card's ``nvidia-smi`` name and power
 limit, then one JSON line describing the kernels, and last one JSON line
@@ -2695,6 +2697,73 @@ def capacity_phases(device, smi: str) -> tuple:
     return [], {}
 
 
+def lobes_phases(device, smi: str) -> tuple:
+    """Phase 26: one iteration of ``cornell_all_lobes.json`` at 800x800,
+    depth 8: the iteration kernel's film and alive counts against the plain
+    path's, its counting variant's (lobe_counts set) against its own bit
+    for bit, and the variant's lobe tally against the plain path's and the
+    benchmark reference's (``benchmark/reference``, ``Tracer.lobe_counts``)
+    on the card, all equal; then both kernels timed by CUDA events."""
+    from benchmark.reference import scene as ref_scene
+    from benchmark.reference import tracer as ref_tracer
+    from project3_cuda_path_tracer_2025_tpu_torch.config import RenderConfig
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import film as film_ops
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import fused
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import shade as shade_ops
+    from project3_cuda_path_tracer_2025_tpu_torch.scene import (
+        build_device_scene, camera_state, derive_render_camera, load_scene,
+    )
+    from project3_cuda_path_tracer_2025_tpu_torch.utils import prng
+
+    seed = 1_234_567_891
+    scene = load_scene(str(SCENE_LOBES))
+    _, static = build_device_scene(scene, device)
+    cam = camera_state(derive_render_camera(scene.state.camera))
+    cfg, key = RenderConfig(), prng.prng_key(seed)
+    n, depth = static.pixel_count, static.trace_depth
+    tally = lambda: torch.zeros((depth, len(shade_ops.LOBES)), dtype=torch.int32,
+                                device=device)
+    film_k, alive_k = fused.fused_prim_iteration(static, cfg, cam, film_ops.new_film(n, device),
+                                                 1, key)
+    lobes_c = tally()
+    film_c, alive_c = fused.fused_prim_iteration(static, cfg, cam, film_ops.new_film(n, device),
+                                                 1, key, lobe_counts=lobes_c)
+    lobes_p = tally()
+    film_p, alive_p = fused.fused_prim_iteration_plain(
+        static, cfg, cam, film_ops.new_film(n, device), 1, key, lobes_p)
+    torch.cuda.synchronize()
+    doc = json.loads(SCENE_LOBES.read_text())
+    ref = ref_scene.load(doc, str(SCENE_LOBES.parent))
+    counts = ref_tracer.Tracer(ref, seed, device).lobe_counts(ref.render_camera(), 1)
+    lobes_r = np.stack([counts[name] for name in ref_scene.LOBES], axis=1)
+    log(f"[26] {static.width}x{static.height}, depth {depth}, seed {seed}; lobe tally "
+        f"{list(shade_ops.LOBES)} a depth: {lobes_c.cpu().tolist()}")
+    r = compare_films("iteration kernel vs fused_prim_iteration_plain", film_k, film_p)
+    equal = int((film_np(film_k) == film_np(film_p)).all(axis=1).sum())
+    log(f"  pixels bit-equal: {equal} of {n}")
+    same_variant = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(film_c, film_k)) and torch.equal(alive_c, alive_k)
+    if not same_variant:
+        raise AssertionError("the counting variant's film or alive counts are not the kernel's")
+    if not torch.equal(alive_k, alive_p):
+        raise AssertionError(f"alive counts: kernel {alive_k.tolist()}, plain {alive_p.tolist()}")
+    if not (torch.equal(lobes_c, lobes_p) and (lobes_c.cpu().numpy() == lobes_r).all()):
+        raise AssertionError(f"lobe tallies: kernel {lobes_c.tolist()}, plain "
+                             f"{lobes_p.tolist()}, reference {lobes_r.tolist()}")
+    if not (r["finite"] and r["sum_rel"] <= MAX_SUM_REL and r["pixel_share"] <= MAX_PIXEL_SHARE):
+        raise AssertionError(f"the iteration kernel disagrees with its plain version: {r}")
+    film = film_ops.new_film(n, device)
+    kernel = lambda: fused.fused_prim_iteration(static, cfg, cam, film, 1, key)
+    counting = lambda: fused.fused_prim_iteration(static, cfg, cam, film, 1, key,
+                                                  lobe_counts=lobes_c)
+    for fn in (kernel, counting):
+        fn()
+    ms = {what: float(np.median([cuda_time_ms(fn, 20) for _ in range(3)]))
+          for what, fn in (("kernel", kernel), ("counting variant", counting))}
+    log(f"[26] ms a launch on {smi}: " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+    return [], {}
+
+
 def bench_script_phase(device, smi: str) -> tuple:
     """Phase 22: ``scripts/torch_bench_scenes.py --quick`` as a subprocess on
     two scenes; its JSON lines parsed; a non-zero exit fails the run."""
@@ -3360,6 +3429,9 @@ GROUPS = (
      "bounce prefix tiers against none on eight frames, the native BVH builder"),
     ("entry", (25,), entry_point_phases, None,
      "bench_torch.py; entry() and dryrun_multichip(4) (cuda:0 four times) against the CPU"),
+    ("lobes", (26,), lobes_phases, None,
+     "the iteration kernel's lobes and its lobe tally at 800x800 against the plain path and "
+     "the benchmark's reference"),
 )
 
 

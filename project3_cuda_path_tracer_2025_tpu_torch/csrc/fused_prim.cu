@@ -51,6 +51,14 @@
 // path, and so the film and the counts, is the per-pixel schedule's bit for
 // bit.
 //
+// A counting variant of the iteration kernel (COUNT_LOBES, launched when
+// PttIterArgs.lobes is set) also tallies each lobe's scatters at each depth
+// into lobes[depth, PTT_LOBES], in shared memory beside the alive counters
+// and grouped the same way (one shared atomic for each group of a warp's
+// lanes that scattered by one lobe at one depth), flushed at the block's
+// end.  The timed path never launches it: the other instantiations compile
+// without a trace of it.
+//
 // The bounce kernel has no new pixels to take, but the live rays of a
 // bounce are a fraction of its n (a half to a fifth after the first
 // bounces of cornell_dof.json), spread over warps of 32 consecutive rays.
@@ -101,6 +109,8 @@ struct PttIterArgs {
   uint32_t cam_key[2];   // prng.stage_key(iter_key, 0, 0)
   uint32_t iter_key[2];  // prng.iteration_key(base_key, iteration); the shade
                          // key of depth d is shade_stage_key(iter_key, d)
+  int32_t* lobes;        // [depth, PTT_LOBES] += each lobe's scatters at each
+                         // depth (the counting variant), or null
 };
 
 struct PttBounceArgs {
@@ -147,19 +157,24 @@ __host__ __device__ inline size_t iter_table_bytes(int num_geoms, int num_materi
 }
 
 // Dynamic shared memory: the scene's tables (STAGE_SCENE), then the shade
-// keys [2 * depth] and alive counters [depth] (SHARED_KEYS; else the keys
-// go to a.keys, each block writing the same words, and the counts straight
-// to a.alive).
-template <bool STAGE_SCENE, bool SHARED_KEYS>
+// keys [2 * depth], alive counters [depth] and, COUNT_LOBES, the lobe tally
+// [depth * PTT_LOBES] (SHARED_KEYS; else the keys go to a.keys, each block
+// writing the same words, and the counts straight to a.alive and a.lobes).
+template <bool STAGE_SCENE, bool SHARED_KEYS, bool COUNT_LOBES>
 __global__ void __launch_bounds__(PTT_THREADS) ptt_iteration_kernel(const PttIterArgs a) {
   const PttScene sh_scene = load_scene<STAGE_SCENE>(a.scene, ptt_smem);
   const int depth = a.depth;
   uint32_t* keys = a.keys;
   int32_t* cnt = a.alive;
+  int32_t* lobes = a.lobes;
   if (SHARED_KEYS) {
     keys = reinterpret_cast<uint32_t*>(
         ptt_smem + (STAGE_SCENE ? iter_table_bytes(a.num_geoms, a.num_materials) : 0));
     cnt = reinterpret_cast<int32_t*>(keys + 2 * depth);
+    if constexpr (COUNT_LOBES) {
+      lobes = cnt + depth;
+      for (int i = threadIdx.x; i < depth * PTT_LOBES; i += blockDim.x) lobes[i] = 0;
+    }
   }
   for (int d = threadIdx.x; d < depth; d += blockDim.x) {
     shade_stage_key(a.iter_key[0], a.iter_key[1], (uint32_t)d, &keys[2 * d], &keys[2 * d + 1]);
@@ -196,17 +211,35 @@ __global__ void __launch_bounds__(PTT_THREADS) ptt_iteration_kernel(const PttIte
     if (!held && !more) break;
     const bool live = l.pixel >= 0 && l.ray.bounces > 0;
     PTT_COUNT_STEP(__ballot_sync(0xffffffffu, live))
-    const int d = live ? lane_bounce(sh_scene, l, keys, depth, n) : -1;
+    int slot = -1;  // COUNT_LOBES: the lane's cell of the lobe tally, -1 for none
+    int d;
+    if constexpr (COUNT_LOBES) {
+      d = live ? lane_bounce_lobe(sh_scene, l, keys, depth, n, &slot) : -1;
+    } else {
+      d = live ? lane_bounce(sh_scene, l, keys, depth, n) : -1;
+    }
     const unsigned counted = __ballot_sync(0xffffffffu, d >= 0);
     if (d >= 0) {
       const unsigned peers = __match_any_sync(counted, d);
       if ((int)lane == __ffs(peers) - 1) atomicAdd(&cnt[d], __popc(peers));
+    }
+    if constexpr (COUNT_LOBES) {
+      const unsigned scattered = __ballot_sync(0xffffffffu, slot >= 0);
+      if (slot >= 0) {
+        const unsigned peers = __match_any_sync(scattered, slot);
+        if ((int)lane == __ffs(peers) - 1) atomicAdd(&lobes[slot], __popc(peers));
+      }
     }
   }
   if (SHARED_KEYS) {
     __syncthreads();
     for (int d = threadIdx.x; d < depth; d += blockDim.x) {
       if (cnt[d]) atomicAdd(&a.alive[d], cnt[d]);
+    }
+    if constexpr (COUNT_LOBES) {
+      for (int i = threadIdx.x; i < depth * PTT_LOBES; i += blockDim.x) {
+        if (lobes[i]) atomicAdd(&a.lobes[i], lobes[i]);
+      }
     }
   }
 }
@@ -361,6 +394,16 @@ static cudaError_t launch_persistent(void (*kernel)(const A), const A& a, size_t
   return cudaGetLastError();
 }
 
+// The iteration kernel of one table and key placement, counting the lobes
+// where a.lobes is set.
+template <bool STAGE_SCENE, bool SHARED_KEYS>
+static cudaError_t launch_iteration(const PttIterArgs& a, size_t smem, cudaStream_t st) {
+  return a.lobes
+             ? launch_persistent(ptt_iteration_kernel<STAGE_SCENE, SHARED_KEYS, true>, a, smem, st)
+             : launch_persistent(ptt_iteration_kernel<STAGE_SCENE, SHARED_KEYS, false>, a, smem,
+                                 st);
+}
+
 extern "C" {
 
 // Struct sizes and offsets, checked against the ctypes mirror at load time.
@@ -381,6 +424,8 @@ int ptt_abi(int32_t* out, int32_t len) {
       (int32_t)sizeof(PttGeom),
       (int32_t)sizeof(PttMaterial),
       (int32_t)offsetof(PttScene, geoms),
+      (int32_t)offsetof(PttIterArgs, lobes),
+      PTT_LOBES,
   };
   const int32_t count = (int32_t)(sizeof(v) / sizeof(v[0]));
   for (int32_t i = 0; i < count && i < len; ++i) out[i] = v[i];
@@ -390,9 +435,10 @@ int ptt_abi(int32_t* out, int32_t len) {
 int ptt_launch_iteration(const PttIterArgs* a, void* stream) {
   if (a->depth < 0 || a->num_geoms < 0 || a->num_materials < 0) return (int)cudaErrorInvalidValue;
   if (a->n <= 0) return (int)cudaGetLastError();
-  // Shared memory: the keys and counters first (12 B a depth), then the
-  // tables if they fit beside them.
-  const size_t keys = (size_t)a->depth * (2 * sizeof(uint32_t) + sizeof(int32_t));
+  // Shared memory: the keys and counters first (12 B a depth, and 20 B more
+  // with the lobe tally), then the tables if they fit beside them.
+  const size_t keys = (size_t)a->depth * (2 * sizeof(uint32_t) + sizeof(int32_t) +
+                                          (a->lobes ? PTT_LOBES * sizeof(int32_t) : 0));
   const size_t tables = iter_table_bytes(a->num_geoms, a->num_materials);
   const bool shared_keys = keys <= PTT_SMEM_LIMIT;
   const bool stage_scene = tables + (shared_keys ? keys : 0) <= PTT_SMEM_LIMIT;
@@ -401,11 +447,11 @@ int ptt_launch_iteration(const PttIterArgs* a, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (stage_scene) {
-    err = shared_keys ? launch_persistent(ptt_iteration_kernel<true, true>, *a, smem, st)
-                      : launch_persistent(ptt_iteration_kernel<true, false>, *a, smem, st);
+    err = shared_keys ? launch_iteration<true, true>(*a, smem, st)
+                      : launch_iteration<true, false>(*a, smem, st);
   } else {
-    err = shared_keys ? launch_persistent(ptt_iteration_kernel<false, true>, *a, smem, st)
-                      : launch_persistent(ptt_iteration_kernel<false, false>, *a, smem, st);
+    err = shared_keys ? launch_iteration<false, true>(*a, smem, st)
+                      : launch_iteration<false, false>(*a, smem, st);
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

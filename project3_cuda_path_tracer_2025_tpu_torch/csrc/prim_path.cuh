@@ -656,6 +656,42 @@ PTT_HD void scatter(const PttScene& s, Ray& ray, const Hit& h, float u_choice, f
   ray.bounces -= 1;
 }
 
+// ---------------------------------------------------------------------------
+// The lobe that scatters a ray, for the counting variant of the iteration
+// kernel (fused_prim.cu, COUNT_LOBES) and the host twin's tally.  scatter
+// above selects by the same predicates, written out in place: a helper
+// shared with it moved registers and spills in the bounce and mesh-shade
+// kernels, which must compile as they did.  The tests hold the two to each
+// other (the tally against ops/shade.py::lobe_tally and the reference's).
+// ---------------------------------------------------------------------------
+
+// The lobes of scatterRay in the order it tests them (ops/shade.py::LOBES):
+// a material scatters by the first lobe it selects, else by the diffuse.
+#define PTT_LOBE_GLASS 0
+#define PTT_LOBE_MIRROR 1
+#define PTT_LOBE_TRANS 2
+#define PTT_LOBE_MICRO 3
+#define PTT_LOBE_DIFFUSE 4
+#define PTT_LOBES 5
+
+// The lobe (PTT_LOBE_*) that scatters a live ray at hit h, or -1 where it
+// scatters none (a miss or a light): scatter's choice, ops/shade.py's
+// lobe_masks for one ray.
+PTT_HD int scatter_lobe(const PttScene& s, const Hit& h) {
+  if (!(h.t > 0.0f)) return -1;
+  int mid = h.material_id;
+  mid = mid < 0 ? 0 : (mid > s.num_materials - 1 ? s.num_materials - 1 : mid);
+  const PttMaterial& m = s.materials[mid];
+  if (m.emittance > 0.0f) return -1;
+  if (s.lobe_glass && (m.has_refractive > 0.0f) && (m.has_reflective > 0.0f)) {
+    return PTT_LOBE_GLASS;
+  }
+  if (s.lobe_mirror && (m.has_reflective > 0.0f)) return PTT_LOBE_MIRROR;
+  if (s.lobe_trans && (m.has_refractive > 0.0f)) return PTT_LOBE_TRANS;
+  if (s.lobe_micro && (m.roughness >= 0.0f) && (m.metallic >= 0.0f)) return PTT_LOBE_MICRO;
+  return PTT_LOBE_DIFFUSE;
+}
+
 #if defined(__CUDACC__)
 // Bytes of shared memory the scene's tables take when a block stages them.
 __host__ __device__ inline size_t scene_table_bytes(int num_geoms, int num_materials) {
@@ -776,6 +812,23 @@ PTT_HD int lane_bounce(const PttScene& s, IterLane& l, const uint32_t* keys, int
   const float u1 = uniform_at(k0, k1, n + px);
   const float u2 = uniform_at(k0, k1, 2u * n + px);
   scatter(s, l.ray, prim_hit(s, l.ray.d, prim_nearest(s, l.ray.o, l.ray.d)), u0, u1, u2);
+  return l.ray.bounces > 0 ? d : -1;
+}
+
+// lane_bounce, and in *lobe_slot d * PTT_LOBES + the lobe that scattered
+// the path at its depth d (its cell of a [depth, PTT_LOBES] tally), or -1
+// where none did (a miss or a light): the counting variant's bounce.
+PTT_HD int lane_bounce_lobe(const PttScene& s, IterLane& l, const uint32_t* keys, int depth,
+                            uint32_t n, int* lobe_slot) {
+  const int d = depth - l.ray.bounces;
+  const uint32_t k0 = keys[2 * d], k1 = keys[2 * d + 1], px = (uint32_t)l.pixel;
+  const float u0 = uniform_at(k0, k1, px);
+  const float u1 = uniform_at(k0, k1, n + px);
+  const float u2 = uniform_at(k0, k1, 2u * n + px);
+  const Hit h = prim_hit(s, l.ray.d, prim_nearest(s, l.ray.o, l.ray.d));
+  const int lobe = scatter_lobe(s, h);
+  *lobe_slot = lobe < 0 ? -1 : d * PTT_LOBES + lobe;
+  scatter(s, l.ray, h, u0, u1, u2);
   return l.ray.bounces > 0 ? d : -1;
 }
 

@@ -114,13 +114,18 @@ def _const_material_params(static: SceneStatic, mid: torch.Tensor):
 
 
 def _prim_bounce(static: SceneStatic, cfg: RenderConfig, paths: PathState,
-                 uniforms) -> PathState:
-    """One bounce: the body both kernels run per ray, as tensor ops."""
+                 uniforms, lobe_row: torch.Tensor = None) -> PathState:
+    """One bounce: the body both kernels run per ray, as tensor ops.
+    ``lobe_row`` ([len(shade.LOBES)] int32), where given, += the paths each
+    lobe scatters (``shade.lobe_tally``)."""
     isect = intersect_scene(None, static, paths, cfg)
     mid = torch.clamp(isect.material_id, 0, static.num_materials - 1)
     albedo, emitt, refl, refr, ior, rough, metal = _const_material_params(
         static, mid
     )
+    if lobe_row is not None:
+        lobe_row += shade_ops.lobe_tally(paths, isect, emitt, refl, refr, rough, metal,
+                                         shade_ops.lobes_present(static))
     return shade_ops.scatter_compose(
         cfg, paths, isect, isect.normal,
         albedo, emitt, refl, refr, ior, rough, metal,
@@ -354,12 +359,27 @@ def kernel_key_words(iteration: int, base_key: tuple) -> tuple:
     return prng.stage_key(ik, 0, 0), ik
 
 
+def _check_lobe_counts(lobe_counts, depth: int, device: torch.device) -> None:
+    """A lobe tally the iteration adds into: int32 [depth, len(shade.LOBES)],
+    contiguous, on the film's device."""
+    shape = (depth, len(shade_ops.LOBES))
+    if (not isinstance(lobe_counts, torch.Tensor) or tuple(lobe_counts.shape) != shape
+            or lobe_counts.dtype != torch.int32 or lobe_counts.device != device
+            or not lobe_counts.is_contiguous()):
+        raise ValueError(
+            f"lobe_counts must be a contiguous int32 tensor of shape {shape} on {device}, "
+            f"not {getattr(lobe_counts, 'dtype', type(lobe_counts).__name__)} "
+            f"{tuple(getattr(lobe_counts, 'shape', ()))} on {getattr(lobe_counts, 'device', None)}")
+
+
 def fused_prim_iteration_plain(
     static: SceneStatic, cfg: RenderConfig, cam: CameraState, film: Vec3,
-    iteration: int, base_key: tuple,
+    iteration: int, base_key: tuple, lobe_counts: torch.Tensor = None,
 ):
     """The plain PyTorch version of the iteration kernel: raygen, depth x
-    bounce, film += color (in place).  Returns (film, alive_counts[depth])."""
+    bounce, film += color (in place); ``lobe_counts``, where given, += each
+    lobe's scatters at each depth, as ``fused_prim_iteration``'s.  Returns
+    (film, alive_counts[depth])."""
     n, depth = static.pixel_count, static.trace_depth
     device = film.x.device
     idx = torch.arange(n, dtype=torch.int32, device=device)
@@ -368,10 +388,13 @@ def fused_prim_iteration_plain(
         cam, static.width, static.height, depth,
         prng.uniforms_at(cam_key, idx, 4, n), idx=idx,
     )
+    if lobe_counts is not None:
+        _check_lobe_counts(lobe_counts, depth, device)
     counts = []
     for d in range(depth):
         paths = _prim_bounce(
-            static, cfg, paths, prng.uniforms_at(shade_keys[d], idx, 3, n)
+            static, cfg, paths, prng.uniforms_at(shade_keys[d], idx, 3, n),
+            None if lobe_counts is None else lobe_counts[d],
         )
         counts.append(torch.sum(paths.alive.to(torch.int32)))
     film_ops.accumulate(film, paths)
@@ -385,6 +408,7 @@ def fused_prim_iteration(
     film: Vec3,  # [N] float32 each; updated in place
     iteration: int,
     base_key: tuple,
+    lobe_counts: torch.Tensor = None,  # [depth, len(shade.LOBES)] int32, or None
 ):
     """One full spp iteration in a single kernel.
 
@@ -394,13 +418,21 @@ def fused_prim_iteration(
     an orbit rebuilds nothing.  The film is updated in place (the JAX package donates
     it).  The kernel hands pixels to free lanes as paths end (its schedule,
     ``csrc/fused_prim.cu``), tracing each pixel's path as the plain version
-    does.  Returns (film, alive_counts[depth])."""
+    does.  Returns (film, alive_counts[depth]).
+
+    ``lobe_counts``, where given, += the paths each lobe of ``shade.LOBES``
+    scatters at each depth (a miss, a light or a path already done scatters
+    none); on the card the kernel's counting variant does it, which no
+    caller on the timed path asks for."""
     device = film.x.device
     if device.type == "cpu":
-        return fused_prim_iteration_plain(static, cfg, cam, film, iteration, base_key)
+        return fused_prim_iteration_plain(static, cfg, cam, film, iteration, base_key,
+                                          lobe_counts)
     _require_cuda(device, "fused_prim_iteration")
     n, depth = static.pixel_count, static.trace_depth
     _check_planes("fused_prim_iteration film", film, n, torch.float32, device)
+    if lobe_counts is not None:
+        _check_lobe_counts(lobe_counts, depth, device)
     lib = kernels.load()
     scene = _scene_buffer(static, _eps(cfg), device)
     # One zeroed buffer: the alive counts [depth], the kernel's pixel
@@ -423,6 +455,7 @@ def fused_prim_iteration(
     cam_key, ik = kernel_key_words(iteration, base_key)
     a.cam_key[:] = cam_key
     a.iter_key[:] = ik
+    a.lobes = None if lobe_counts is None else lobe_counts.data_ptr()
     code = lib.lib.ptt_launch_iteration(ctypes.byref(a), kernels.stream_handle(device))
     lib.check(code, "fused_prim_iteration")
     fused_prim_iteration.launches += 1

@@ -92,6 +92,7 @@ class PttIterArgs(ctypes.Structure):
         ("width", _i), ("height", _i), ("n", _i), ("depth", _i),
         ("num_geoms", _i), ("num_materials", _i),
         ("cam_key", _u * 2), ("iter_key", _u * 2),
+        ("lobes", _p),
     ]
 
 
@@ -238,6 +239,8 @@ def _mesh_abi_expected() -> list:
 
 
 def _prim_abi_expected() -> list:
+    from .shade import LOBES
+
     return [
         ctypes.sizeof(PttScene),
         ctypes.sizeof(PttCamera),
@@ -254,6 +257,8 @@ def _prim_abi_expected() -> list:
         ctypes.sizeof(PttGeom),
         ctypes.sizeof(PttMaterial),
         PttScene.geoms.offset,
+        PttIterArgs.lobes.offset,
+        len(LOBES),
     ]
 
 

@@ -36,6 +36,12 @@ from . import bsdf, texture
 from .rays import Intersections, PathState
 
 
+# The lobes of ``scatterRay`` in the order it tests them: a material scatters
+# by the first it selects (``lobe_masks``), else by the diffuse.  The columns
+# of a lobe tally (``lobe_tally``, ``csrc/prim_path.cuh``'s ``PTT_LOBE_*``).
+LOBES = ("glass", "mirror", "transmissive", "microfacet", "diffuse")
+
+
 def lobes_present(static: SceneStatic) -> tuple:
     """Static per-scene lobe presence (glass, mirror, trans, micro): lobe
     families no material uses are skipped entirely."""
@@ -192,6 +198,40 @@ def shade(
     )
 
 
+def lobe_masks(has_refl: torch.Tensor, has_refr: torch.Tensor, roughness: torch.Tensor,
+               metallic: torch.Tensor, lobes: tuple) -> tuple:
+    """(is_glass, is_mirror, is_trans, is_micro): the lobe each lane's
+    material selects, at most one (diffuse where none); a lobe that
+    ``lobes`` (``lobes_present``) leaves out is never selected."""
+    lobe_glass, lobe_mirror, lobe_trans, lobe_micro = lobes
+    false = torch.zeros_like(has_refl, dtype=torch.bool)
+    is_glass = (has_refr > 0.0) & (has_refl > 0.0) if lobe_glass else false
+    is_mirror = ((has_refl > 0.0) & ~is_glass) if lobe_mirror else false
+    is_trans = (
+        (has_refr > 0.0) & ~is_glass & ~is_mirror if lobe_trans else false
+    )
+    is_micro = (
+        (roughness >= 0.0) & (metallic >= 0.0)
+        & ~is_glass & ~is_mirror & ~is_trans
+        if lobe_micro
+        else false
+    )
+    return is_glass, is_mirror, is_trans, is_micro
+
+
+def lobe_tally(paths: PathState, isect: Intersections, emittance: torch.Tensor,
+               has_refl: torch.Tensor, has_refr: torch.Tensor, roughness: torch.Tensor,
+               metallic: torch.Tensor, lobes: tuple) -> torch.Tensor:
+    """[len(LOBES)] int32: the lanes each lobe scatters in this bounce
+    (``scatter_compose``'s scatter mask; a miss, a light or a path already
+    done scatters none)."""
+    scatters = (paths.bounces > 0) & (isect.t > 0.0) & ~(emittance > 0.0)
+    masks = lobe_masks(has_refl, has_refr, roughness, metallic, lobes)
+    diffuse = ~(masks[0] | masks[1] | masks[2] | masks[3])
+    return torch.stack([torch.sum(scatters & m, dtype=torch.int32)
+                        for m in (*masks, diffuse)])
+
+
 def scatter_compose(
     cfg: RenderConfig,
     paths: PathState,
@@ -224,17 +264,8 @@ def scatter_compose(
     xi0 = uniforms[1]
     xi1 = uniforms[2]
 
-    false = torch.zeros_like(hit)
-    is_glass = (has_refr > 0.0) & (has_refl > 0.0) if lobe_glass else false
-    is_mirror = ((has_refl > 0.0) & ~is_glass) if lobe_mirror else false
-    is_trans = (
-        (has_refr > 0.0) & ~is_glass & ~is_mirror if lobe_trans else false
-    )
-    is_micro = (
-        (roughness >= 0.0) & (metallic >= 0.0)
-        & ~is_glass & ~is_mirror & ~is_trans
-        if lobe_micro
-        else false
+    is_glass, is_mirror, is_trans, is_micro = lobe_masks(
+        has_refl, has_refr, roughness, metallic, lobes
     )
 
     diffuse = bsdf.sample_f_diffuse(albedo, normal, xi0, xi1)

@@ -178,11 +178,14 @@ void ptt_host_iteration(const PttScene* s, const PttCamera* cam, int32_t width,
 // whose paths are done write their pixels; once at least refill_min lanes
 // are free they take the next pixels of one counter for all warps, in lane
 // order; the live lanes bounce.  lanes[0] += lane-bounces issued (32 a step
-// in which a warp bounces), lanes[1] += live ones.
+// in which a warp bounces), lanes[1] += live ones.  lobes, unless null, is
+// the counting variant's tally: lobes[d * PTT_LOBES + lobe] += the paths
+// that lobe scattered at depth d.
 void ptt_host_iteration_regen(const PttScene* s, const PttCamera* cam, int32_t width,
                               int32_t height, int32_t n, int32_t depth, const uint32_t* keys,
                               float* film_x, float* film_y, float* film_z, int32_t* alive,
-                              int32_t warps, int32_t refill_min, int64_t* lanes) {
+                              int32_t warps, int32_t refill_min, int64_t* lanes,
+                              int32_t* lobes) {
   std::vector<uint32_t> dkeys(2 * (size_t)depth);
   for (int32_t d = 0; d < depth; ++d) {
     shade_stage_key(keys[2], keys[3], (uint32_t)d, &dkeys[2 * d], &dkeys[2 * d + 1]);
@@ -230,8 +233,11 @@ void ptt_host_iteration_regen(const PttScene* s, const PttCamera* cam, int32_t w
       for (int i = 0; i < 32; ++i) {
         if (l[i].pixel < 0 || l[i].ray.bounces <= 0) continue;
         lanes[1] += 1;
-        const int d = lane_bounce(*s, l[i], dkeys.data(), depth, (uint32_t)n);
+        int slot = -1;
+        const int d = lobes ? lane_bounce_lobe(*s, l[i], dkeys.data(), depth, (uint32_t)n, &slot)
+                            : lane_bounce(*s, l[i], dkeys.data(), depth, (uint32_t)n);
         if (d >= 0) alive[d] += 1;
+        if (slot >= 0) lobes[slot] += 1;
       }
     }
   }

@@ -14,6 +14,7 @@ stages are compared exactly and films at the goldens' tolerance.
 
 import ctypes
 import dataclasses
+import json
 import pathlib
 import types
 
@@ -204,6 +205,41 @@ def test_iteration_kernel_matches_plain(cuda, name):
     outside = ~np.isclose(got, want, rtol=2e-4, atol=2e-5)
     assert outside.any(axis=1).mean() <= 0.005
     np.testing.assert_allclose(got.sum(), want.sum(), rtol=1e-4)
+
+
+def test_iteration_kernel_counts_the_lobes(cuda):
+    """At 800x800, one iteration of the all-lobes scene: the iteration
+    kernel's film and alive counts against the plain path's, its counting
+    variant's against its own bit for bit, and the variant's lobe tally
+    equal to the plain path's and to the benchmark reference's
+    (``Tracer.lobe_counts``) on the card."""
+    from benchmark.reference import scene as ref_scene
+    from benchmark.reference import tracer as ref_tracer
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import shade as shade_ops
+
+    seed = 1_234_567_891
+    _, static, cam = _setup("cornell_all_lobes.json", 800, cuda)
+    n, depth, key = static.pixel_count, static.trace_depth, prng.prng_key(seed)
+    film_k, alive_k = fused.fused_prim_iteration(
+        static, RenderConfig(), cam, film_ops.new_film(n, cuda), 1, key)
+    lobes_c = torch.zeros((depth, len(shade_ops.LOBES)), dtype=torch.int32, device=cuda)
+    film_c, alive_c = fused.fused_prim_iteration(
+        static, RenderConfig(), cam, film_ops.new_film(n, cuda), 1, key, lobe_counts=lobes_c)
+    lobes_p = torch.zeros_like(lobes_c)
+    film_p, alive_p = fused.fused_prim_iteration_plain(
+        static, RenderConfig(), cam, film_ops.new_film(n, cuda), 1, key, lobes_p)
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(film_c, film_k))
+    assert torch.equal(alive_c, alive_k)
+    assert torch.equal(alive_k, alive_p)
+    assert all(torch.equal(a, b) for a, b in zip(film_k, film_p))
+    assert torch.equal(lobes_c, lobes_p)
+    doc = ref_scene.load(json.loads((REPO / "scenes" / "cornell_all_lobes.json").read_text()),
+                         str(REPO / "scenes"))
+    counts = ref_tracer.Tracer(doc, seed, cuda).lobe_counts(doc.render_camera(), 1)
+    want = np.stack([counts[name] for name in ref_scene.LOBES], axis=1)
+    np.testing.assert_array_equal(lobes_c.cpu().numpy(), want)
+    assert (want[:, :4].sum(axis=0) > 0).all()
 
 
 def test_renderer_takes_the_kernels(cuda):
@@ -1095,7 +1131,11 @@ def test_iteration_kernel_regenerates_at_any_size(cuda, case):
     memory), and depth 20,000 (shade keys and counters beyond shared memory,
     in device memory) on 64 pixels.  Alive counts equal the plain path's
     (within 2 at 40 and 1,600 primitives, as the tests above hold them),
-    films at the goldens' tolerance."""
+    films at the goldens' tolerance.  The counting variant (``lobe_counts``)
+    at each size, its tally in shared or in device memory: the kernel's
+    film and alive counts bit for bit, and each scatter counted once (at
+    each depth but the last, as many as paths alive after it)."""
+    from project3_cuda_path_tracer_2025_tpu_torch.ops import shade as shade_ops
     from project3_cuda_path_tracer_2025_tpu_torch.scene import many_prims_scene, scene_from_dict
 
     base = str(REPO / "scenes" / "cornell_dof.json")
@@ -1126,6 +1166,15 @@ def test_iteration_kernel_regenerates_at_any_size(cuda, case):
     outside = ~torch.isclose(got, want, rtol=2e-4, atol=2e-5)
     assert int(outside.any(dim=1).sum()) <= max(3, n // 200)
     assert fused.fused_prim_iteration.launches == before + 1
+    lobes = torch.zeros((static.trace_depth, len(shade_ops.LOBES)), dtype=torch.int32,
+                        device=cuda)
+    film_c, alive_c = fused.fused_prim_iteration(static, cfg, cam, film_ops.new_film(n, cuda), 1,
+                                                 prng.prng_key(0), lobe_counts=lobes)
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(film_c, film_k))
+    assert torch.equal(alive_c, alive_k)
+    assert torch.equal(lobes[:-1].sum(dim=1), alive_k[:-1])
+    assert fused.fused_prim_iteration.launches == before + 2
 
 
 def _sorted_shade_states(static, dev, cam, device, bounces):

@@ -68,7 +68,7 @@ def host_lib(tmp_path_factory):
     lib.ptt_host_bounce.argtypes = [P, P, P, P, P, P, ctypes.c_int32]
     lib.ptt_host_iteration.argtypes = [P, P] + [ctypes.c_int32] * 4 + [P] * 5
     lib.ptt_host_iteration_regen.argtypes = (
-        [P, P] + [ctypes.c_int32] * 4 + [P] * 5 + [ctypes.c_int32] * 2 + [P])
+        [P, P] + [ctypes.c_int32] * 4 + [P] * 5 + [ctypes.c_int32] * 2 + [P, P])
     lib.ptt_host_bounce_packed.argtypes = (
         [P] * 6 + [ctypes.c_int32, P] + [ctypes.c_uint32] * 3 + [ctypes.c_int32, P])
     sizes = (ctypes.c_int32 * 2)()
@@ -179,7 +179,8 @@ REGEN_CASES = {
 @pytest.fixture(scope="module")
 def regen_refs(host_lib):
     """name -> (static, cam, keys, the per-pixel schedule's film and alive
-    counts, the plain version's), each made once."""
+    counts, the plain version's film, alive counts and lobe tally), each
+    made once."""
     cache = {}
 
     def get(name):
@@ -195,8 +196,9 @@ def regen_refs(host_lib):
             static, cam = _scene(what, w, h)
         n, depth = static.pixel_count, static.trace_depth
         base_key = prng.prng_key(0)
+        lobes_p = torch.zeros((depth, len(shade_ops.LOBES)), dtype=torch.int32)
         film_p, alive_p = fused.fused_prim_iteration_plain(
-            static, RenderConfig(), cam, film_ops.new_film(n), 1, base_key)
+            static, RenderConfig(), cam, film_ops.new_film(n), 1, base_key, lobes_p)
         cam_key, iter_key = fused.kernel_key_words(1, base_key)
         keys = np.asarray([*cam_key, *iter_key], np.uint32)
         film_h = film_ops.new_film(n)
@@ -205,7 +207,8 @@ def regen_refs(host_lib):
             ctypes.byref(fused.scene_struct(static, RenderConfig())),
             ctypes.byref(fused.camera_struct(cam)), static.width, static.height, n, depth,
             keys.ctypes.data, *(c.data_ptr() for c in film_h), alive_h.ctypes.data)
-        cache[name] = (static, cam, keys, film_h, alive_h, film_p, alive_p.numpy())
+        cache[name] = (static, cam, keys, film_h, alive_h, film_p, alive_p.numpy(),
+                       lobes_p.numpy())
         return cache[name]
 
     return get
@@ -219,28 +222,43 @@ def test_host_iteration_regen_matches_per_pixel(host_lib, regen_refs, name, refi
     every pixel's path as the per-pixel schedule does: film and alive counts
     bit for bit, and so the plain version's to its tolerance.  Its lane
     counts: every live lane-bounce once (the camera rays and the rays alive
-    after each depth but the last)."""
-    static, cam, keys, film_h, alive_h, film_p, alive_p = regen_refs(name)
+    after each depth but the last).  Its lobe tally (the counting variant's,
+    traced once more): the same film, the plain version's tally, and at each
+    depth but the last as many scatters as paths alive after it (a path that
+    scatters lives on until its last bounce)."""
+    static, cam, keys, film_h, alive_h, film_p, alive_p, lobes_p = regen_refs(name)
     n, depth = static.pixel_count, static.trace_depth
     warps = REGEN_CASES[name][3]
     film_r = film_ops.new_film(n)
     alive_r = np.zeros(depth, np.int32)
     lanes = np.zeros(2, np.int64)
+    args = (ctypes.byref(fused.scene_struct(static, RenderConfig())),
+            ctypes.byref(fused.camera_struct(cam)), static.width, static.height, n, depth,
+            keys.ctypes.data)
     host_lib.ptt_host_iteration_regen(
-        ctypes.byref(fused.scene_struct(static, RenderConfig())),
-        ctypes.byref(fused.camera_struct(cam)), static.width, static.height, n, depth,
-        keys.ctypes.data, *(c.data_ptr() for c in film_r), alive_r.ctypes.data,
-        warps, refill_min, lanes.ctypes.data)
+        *args, *(c.data_ptr() for c in film_r), alive_r.ctypes.data,
+        warps, refill_min, lanes.ctypes.data, None)
     for got, want in zip(film_r, film_h):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     np.testing.assert_array_equal(alive_r, alive_h)
     assert lanes[1] == n + int(alive_h[:-1].sum())
     assert lanes[0] % 32 == 0 and lanes[1] <= lanes[0]
+    film_c = film_ops.new_film(n)
+    alive_c = np.zeros(depth, np.int32)
+    lobes_c = np.zeros((depth, len(shade_ops.LOBES)), np.int32)
+    host_lib.ptt_host_iteration_regen(
+        *args, *(c.data_ptr() for c in film_c), alive_c.ctypes.data,
+        warps, refill_min, np.zeros(2, np.int64).ctypes.data, lobes_c.ctypes.data)
+    for got, want in zip(film_c, film_h):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    np.testing.assert_array_equal(alive_c, alive_h)
+    np.testing.assert_array_equal(lobes_c[:-1].sum(axis=1), alive_h[:-1])
     got = torch.stack(list(film_r), 1).numpy()
     want = torch.stack(list(film_p), 1).numpy()
     if name != "depth80":
         assert_films_close(got, want)
         np.testing.assert_array_equal(alive_r, alive_p)
+        np.testing.assert_array_equal(lobes_c, lobes_p)
     else:
         # Over 80 bounces a last bit of libm's cos/sin against torch's forks
         # a path or two: tests/test_torch_prim_capacity.py's bars.
